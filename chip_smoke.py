@@ -1,0 +1,507 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (sm_90a, H100).
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines:
+
+1. device  — needs a CUDA device; prints the card's name and power limit;
+             sets the two TF32 switches off (float32 stays float32).
+2. build   — builds every kernel under src/repro_torch/kernels/csrc with
+             nvcc; prints the build seconds and ptxas' register, shared
+             memory and spill lines of the serving path's instantiations.
+3. kernels — each CUDA kernel at the serving path's shapes, bfloat16 and
+             float32, against its plain PyTorch version on the card
+             (max|Δ| < 2e-2 bf16, < 2e-5 f32), with its time, the plain
+             version's and that of one
+             torch.nn.functional.scaled_dot_product_attention call
+             computing the same function (a yardstick only) — device time
+             from torch.profiler, and CUDA-event time per call beside it —
+             and the least time the card could take (bytes or operations).
+4. parity  — full-width qwen3-1.7b cut to 4 layers (SOI over layers 1..3),
+             float32, pp and fp: the port's SOIEngine with 3 slots (prompts
+             of 200 and 201 tokens, a third of 150 after 3 steps), 8 greedy
+             steps on the card and on the CPU: logits within 1e-3, tokens
+             identical.
+5. serve   — the serving driver on full-width qwen3-1.7b, SOI pp, 4
+             requests of 1024..1018 tokens, 64 generated each; every kernel
+             launch is counted and held to the count the host clocks give.
+             A second, profiled run gives the decode loop's device busy time
+             and idle share, and its kernel time by name.
+6. the kernels JSON line, the card line, and last {"ok": true, ...}.
+
+Any failure raises and exits nonzero; no result line is printed then.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import json
+import math
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+L2_BYTES = 50 * 2 ** 20
+
+SERVE_ARGV = ["--arch", "qwen3-1.7b", "--soi", "pp", "--batch", "4",
+              "--prompt-len", "1024", "--stagger", "2", "--gen-len", "64",
+              "--seed", "0"]
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def phase(name):
+    print(f"== {name}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# 1. device
+# ---------------------------------------------------------------------------
+
+def device_phase():
+    phase("1 device")
+    check(torch.cuda.is_available(), "no CUDA device: chip_smoke.py needs "
+                                     "an NVIDIA GPU")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"card: {card}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}; device 0 = {torch.cuda.get_device_name(0)}"
+          f"; TF32 off")
+    return card
+
+
+# ---------------------------------------------------------------------------
+# 2. build
+# ---------------------------------------------------------------------------
+
+def _ptxas_lines(log: str) -> list:
+    """One line per compiled kernel of the serving path (head dim 128,
+    4 KV heads' worth of 2-head groups), from nvcc -Xptxas -v."""
+    out, name = [], None
+    spill = ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            spill = (f"stack {m.group(1)} B, spill st/ld "
+                     f"{m.group(2)}/{m.group(3)} B")
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            path_kernel = (("decode_attention_kernel" in name
+                            and "Li2ELi128E" in name)
+                           or ("flash_attention_kernel" in name
+                               and "Li128E" in name))
+            if path_kernel:
+                kind = ("decode_attention" if "decode" in name
+                        else "flash_attention")
+                dt = "bf16" if "bfloat16" in name else "f32"
+                smem = re.search(r"(\d+) bytes smem", line)
+                out.append(f"  {kind}[{dt}, dh=128]: {m.group(1)} registers, "
+                           f"{smem.group(1) if smem else 0} B static smem, "
+                           f"{spill}")
+            name, spill = None, ""
+    return out
+
+
+def build_phase():
+    phase("2 build")
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.library()
+    info = _build.build_info()
+    took = time.perf_counter() - t0
+    how = (f"built in {info.seconds:.2f} s" if info.seconds is not None
+           else f"reused an existing build ({took:.2f} s to load)")
+    print(f"kernels: {info.path.relative_to(ROOT)} {how}")
+    lines = _ptxas_lines(info.log)
+    check(lines or info.seconds is None, "no ptxas lines in the build log")
+    for line in lines:
+        print(line)
+
+
+# ---------------------------------------------------------------------------
+# 3. kernels
+# ---------------------------------------------------------------------------
+
+def _copies(make, bytes_per_set: int):
+    """Enough input sets that cycling through them exceeds the L2 cache:
+    each launch finds its inputs cold, as the serving path does (every
+    layer owns its caches)."""
+    n = max(2, math.ceil(2 * L2_BYTES / max(bytes_per_set, 1)))
+    return [make() for _ in range(min(n, 64))]
+
+
+def _time_ms(fn, sets, iters: int) -> float:
+    """Mean device time of ``fn(*args)`` over ``iters`` launches, cycling
+    the argument sets; CUDA events after a warm-up."""
+    for args in sets[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*sets[i % len(sets)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device_events(fn) -> list:
+    """Run ``fn`` under torch.profiler with CUDA activity only; returns the
+    device intervals (start µs, end µs, name) of its kernels and copies,
+    sorted by start."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events() if e.device_type == cuda)
+
+
+def _device_ms(fn, sets, iters: int):
+    """Mean device time per call (the summed durations of the call's
+    kernels, host launch gaps excluded); None if the profiler saw no
+    device activity."""
+    def run():
+        for i in range(iters):
+            fn(*sets[i % len(sets)])
+    ev = _device_events(run)
+    if not ev:
+        return None
+    return sum(e - s for s, e, _ in ev) / iters / 1e3
+
+
+def _busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals sorted by start."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in intervals:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def _bound(nbytes: int, flops: float, dt) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dt]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _decode_case(b, s, hkv, g, dh, dt, t_base, dev, gen):
+    """Serving-like decode inputs: slot i holds positions 0..t_i of a cache
+    of s rows (the rest empty)."""
+    h = hkv * g
+
+    def make():
+        q = torch.randn((b, h, dh), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, s, hkv, dh), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, s, hkv, dh), generator=gen, device=dev).to(dt)
+        t = torch.tensor([t_base - 2 * i for i in range(b)],
+                         dtype=torch.int32, device=dev)
+        pos = torch.arange(s, dtype=torch.int32, device=dev)[None].repeat(
+            b, 1)
+        pos = torch.where(pos <= t[:, None], pos, torch.full_like(pos, -1))
+        return q, k, v, pos, t
+
+    esz = torch.finfo(dt).bits // 8
+    sets = _copies(make, 2 * b * s * hkv * dh * esz)
+    q, k, v, pos, t = sets[0]
+    live = int((pos >= 0).sum())
+    # bytes: q and out once, positions and clocks once, the K/V rows the
+    # mask keeps live once; operations: q.k and p.v over the live rows
+    nbytes = (2 * b * h * dh * esz + pos.numel() * 4 + b * 4
+              + 2 * live * hkv * dh * esz)
+    flops = 4.0 * live * h * dh
+    # the position mask as SDPA takes it, built outside the timed call
+    masks = {st[3].data_ptr(): ((st[3] >= 0) & (st[3] <= st[4][:, None]))
+             [:, None, None] for st in sets}
+
+    def library(q, k, v, pos, t):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=masks[pos.data_ptr()], enable_gqa=True)[:, :, 0]
+
+    return sets, nbytes, flops, library
+
+
+def _flash_case(b, s, hkv, g, dh, dt, dev, gen):
+    h = hkv * g
+
+    def make():
+        return (torch.randn((b, s, h, dh), generator=gen, device=dev).to(dt),
+                torch.randn((b, s, hkv, dh), generator=gen, device=dev).to(dt),
+                torch.randn((b, s, hkv, dh), generator=gen, device=dev).to(dt))
+
+    esz = torch.finfo(dt).bits // 8
+    nbytes = 2 * b * s * h * dh * esz + 2 * b * s * hkv * dh * esz
+    sets = _copies(make, nbytes)
+    pairs = s * (s + 1) // 2                      # causal (q, k) pairs
+    flops = 4.0 * b * h * dh * pairs
+
+    def library(q, k, v):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    return sets, nbytes, flops, library
+
+
+KERNEL_META = {
+    "decode_attention": dict(
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:73"),
+    "flash_attention": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:74"),
+}
+
+
+def kernels_phase(dev) -> dict:
+    """Returns {kernel name: record of its serving-path bf16 case}."""
+    phase("3 kernels")
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        # outer ring (4, 1088, 8, 128) and compressed middle (4, 768, 8, 128)
+        # at serving step ~32: clocks 1056.. and frames 528..
+        cases.append(("decode_attention", "outer (4,1088,8,128)", dt,
+                      _decode_case(4, 1088, 8, 2, 128, dt, 1056, dev, gen),
+                      DA.decode_attention, ref.decode_attention))
+        cases.append(("decode_attention", "middle (4,768,8,128)", dt,
+                      _decode_case(4, 768, 8, 2, 128, dt, 528, dev, gen),
+                      DA.decode_attention, ref.decode_attention))
+        cases.append(("flash_attention", "prefill (1,1024,16,128)", dt,
+                      _flash_case(1, 1024, 8, 2, 128, dt, dev, gen),
+                      FA.flash_attention, ref.flash_attention))
+        cases.append(("flash_attention", "middle (1,512,16,128)", dt,
+                      _flash_case(1, 512, 8, 2, 128, dt, dev, gen),
+                      FA.flash_attention, ref.flash_attention))
+    main = {}
+    for name, shape, dt, (sets, nbytes, flops, library), kern, plain in cases:
+        args = sets[0]
+        got = kern(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        err = float((got.float() - want.float()).abs().max())
+        check(bool(torch.isfinite(got).all()), f"{name} {shape}: non-finite")
+        check(err < TOL[dt], f"{name} {shape} {dt}: max|Δ| {err} >= "
+                             f"{TOL[dt]}")
+        lib_err = float((library(*args).float() - want.float()).abs().max())
+        # ms: device time per call from the profiler (the call's kernels,
+        # host launch gaps excluded) — the plain version and SDPA spend more
+        # time in host dispatch than on the card, which CUDA events over
+        # back-to-back calls would charge to them; *_event_ms keep that view
+        event = {"event_ms": _time_ms(kern, sets, 50),
+                 "plain_event_ms": _time_ms(plain, sets, 5),
+                 "library_event_ms": _time_ms(library, sets, 50)}
+        dev_ms = {"ms": _device_ms(kern, sets, 20),
+                  "plain_ms": _device_ms(plain, sets, 5),
+                  "library_ms": _device_ms(library, sets, 20)}
+        for key, val in dev_ms.items():
+            if val is None:            # the profiler saw no device activity
+                dev_ms[key] = event[key.replace("ms", "event_ms")]
+        bound_ms, bound_by = _bound(nbytes, flops, dt)
+        rec = {"name": name, "shape": shape, "dtype": str(dt)[6:],
+               "max_abs_err": err, **dev_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, **event,
+               "library_max_abs_err": lib_err, "bytes": nbytes,
+               "flops": flops}
+        print(json.dumps({"kernels": [rec]}), flush=True)
+        if dt == torch.bfloat16 and name not in main:
+            main[name] = rec
+    return main
+
+
+# ---------------------------------------------------------------------------
+# 4. end-to-end parity, card vs CPU
+# ---------------------------------------------------------------------------
+
+def _parity_cfg(mode):
+    from repro_torch.configs import qwen3_1_7b
+    from repro_torch.configs.base import SOILMCfg
+    full = qwen3_1_7b.config(soi=mode)
+    seg = dataclasses.replace(full.segments[0], n_layers=4)
+    return dataclasses.replace(
+        full, segments=(seg,), dtype="float32",
+        soi=SOILMCfg(first_layer=1, last_layer=3, mode=mode))
+
+
+def _greedy(engine, params, prompts, n_steps=8, late_at=3):
+    """Slots 0 and 1 from the start, slot 2 after ``late_at`` steps.
+    Returns per step (logits of the active slots, their tokens)."""
+    ds = engine.init_decode_state(params)
+    steps = []
+    active = []
+    for slot in (0, 1):
+        ds = engine.insert(engine.prefill(params, prompts[slot]), ds, slot)
+        active.append(slot)
+    for k in range(n_steps):
+        if k == late_at:
+            ds = engine.insert(engine.prefill(params, prompts[2]), ds, 2)
+            active.append(2)
+        ds, res = engine.generate(params, ds)
+        toks = res.convert_to_numpy().data[:, 0]
+        steps.append((res.logits[active].float().cpu(),
+                      [int(toks[s]) for s in active], list(active)))
+    return steps
+
+
+def parity_phase(dev):
+    phase("4 parity (full-width qwen3, 4 layers, f32, card vs CPU)")
+    from repro_torch.engine import SOIEngine
+    from repro_torch.models import transformer as T
+    for mode in ("pp", "fp"):
+        cfg = _parity_cfg(mode)
+        cpu_model = T.init(cfg, generator=torch.Generator().manual_seed(1),
+                           device="cpu")
+        dev_model = copy.deepcopy(cpu_model).to(dev)
+        gen = torch.Generator().manual_seed(2)
+        prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen,
+                                 dtype=torch.int32) for n in (200, 201, 150)]
+        runs = []
+        for where, model in ((torch.device("cpu"), cpu_model),
+                             (dev, dev_model)):
+            eng = SOIEngine(cfg, max_concurrent_decodes=3, max_len=256,
+                            device=where)
+            t0 = time.perf_counter()
+            runs.append(_greedy(eng, model, [p.to(where) for p in prompts]))
+            print(f"  {mode} {where}: 3 prefills + 8 steps in "
+                  f"{time.perf_counter() - t0:.2f} s (host clock)")
+        worst = 0.0
+        for k, ((lc, tc, act), (lg, tg, _)) in enumerate(zip(*runs)):
+            err = float((lc - lg).abs().max())
+            worst = max(worst, err)
+            if tc != tg:
+                top = torch.topk(lc, 2, dim=-1).values
+                gaps = (top[:, 0] - top[:, 1]).tolist()
+                raise RuntimeError(
+                    f"parity {mode} step {k}: tokens differ (cpu {tc}, cuda "
+                    f"{tg}, slots {act}); top-2 logit gaps on the CPU "
+                    f"{gaps}")
+            check(err < 1e-3, f"parity {mode} step {k}: logits differ by "
+                              f"{err} >= 1e-3")
+        print(f"  {mode}: 8 steps, tokens identical, max|Δlogit| {worst:.3e}")
+        del cpu_model, dev_model
+
+
+# ---------------------------------------------------------------------------
+# 5. serve
+# ---------------------------------------------------------------------------
+
+def serve_phase(dev):
+    phase("5 serve (qwen3-1.7b full width, SOI pp, 4 requests)")
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    cfg = configs.get("qwen3-1.7b", soi="pp")
+    torch.cuda.reset_peak_memory_stats(dev)
+    args = serve.parse_args(SERVE_ARGV)
+    ops.reset_launch_counts()
+    res = serve.run(args)
+    counts = ops.launch_counts()
+    n_req = len(res.seqs)
+    n_outer = cfg.soi.first_layer + cfg.n_layers - cfg.soi.last_layer
+    n_mid = cfg.soi.last_layer - cfg.soi.first_layer
+    want_flash = cfg.n_layers * n_req
+    want_decode = n_outer * res.steps + n_mid * res.mid_steps
+    print(f"  prefill {res.prefill_s:.3f} s for {n_req} requests, decode "
+          f"{res.decoded} tokens in {res.decode_s:.3f} s = "
+          f"{res.decoded / res.decode_s:.1f} tok/s (host clock); "
+          f"{res.steps} steps, {res.mid_steps} with the middle; peak device "
+          f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    print(f"  launches {counts}; expected flash_attention {want_flash}, "
+          f"decode_attention {want_decode}")
+    check(res.seqs.shape == (4, 64), f"tokens shape {res.seqs.shape}")
+    check(((res.seqs >= 0) & (res.seqs < cfg.vocab)).all(),
+          "token ids outside [0, vocab)")
+    check(counts["flash_attention"] == want_flash,
+          f"flash_attention launches {counts['flash_attention']} != "
+          f"{want_flash}")
+    check(counts["decode_attention"] == want_decode,
+          f"decode_attention launches {counts['decode_attention']} != "
+          f"{want_decode}")
+    # the same run again under the profiler (CUDA activity only): device
+    # busy and idle share of the decode loop, which starts after the last
+    # prefill kernel; kernel time by name over that window
+    print("  profiled rerun:")
+    ev = _device_events(lambda: serve.run(args))
+    check(ev, "the profiler saw no device activity")
+    prefill_end = max(e for _s, e, n in ev if "flash_attention_kernel" in n)
+    dec = [(s_, e, n) for s_, e, n in ev if s_ >= prefill_end]
+    window = max(e for _s, e, _n in dec) - min(s_ for s_, _e, _n in dec)
+    busy = _busy_us([(s_, e) for s_, e, _n in dec])
+    by_name: dict = {}
+    for s_, e, n in dec:
+        key = n.removeprefix("void ")[:70]
+        by_name[key] = by_name.get(key, 0.0) + (e - s_)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"  decode window {window / 1e3:.2f} ms on the device clock, "
+          f"busy {busy / 1e3:.2f} ms, idle share {1 - busy / window:.3f}; "
+          f"per step busy {busy / 1e3 / res.steps:.3f} ms")
+    for key, us in top:
+        print(f"    {us / 1e3:9.3f} ms  {key}")
+    return counts
+
+
+def main():
+    t_start = time.perf_counter()
+    card = device_phase()
+    dev = torch.device("cuda", 0)
+    build_phase()
+    main_recs = kernels_phase(dev)
+    parity_phase(dev)
+    counts = serve_phase(dev)
+    summary = []
+    for name in ("decode_attention", "flash_attention"):
+        rec = main_recs[name]
+        summary.append({
+            "name": name, "route": "cuda", **KERNEL_META[name],
+            "launches": counts[name], "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"], "shape": rec["shape"],
+            "dtype": rec["dtype"]})
+    print(f"== 6 done in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": summary}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,31 @@
+"""Architecture config registry of the port: ``get(arch_id)`` /
+``get_smoke(arch_id)``. Only the architectures whose layers the port runs
+are registered; ``ARCHS`` lists them."""
+
+from __future__ import annotations
+
+import importlib
+
+ARCHS = ("qwen3-1.7b",)
+
+_MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
+            for a in ARCHS}
+
+
+def module(arch: str):
+    """The config module of an architecture id (``config`` /
+    ``smoke_config``)."""
+    if arch not in _MODULES:
+        raise KeyError(f"unknown or not yet ported arch {arch!r}; "
+                       f"known: {sorted(_MODULES)}")
+    return importlib.import_module(_MODULES[arch])
+
+
+def get(arch: str, soi=None):
+    """Full-size config of an architecture id."""
+    return module(arch).config(soi=soi)
+
+
+def get_smoke(arch: str, soi=None):
+    """Reduced same-family config for CPU tests."""
+    return module(arch).smoke_config(soi=soi)

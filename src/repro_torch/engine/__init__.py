@@ -1,0 +1,18 @@
+"""``repro_torch.engine`` — slot-based continuous batching with the
+phase-dispatched SOI generate step (dense layout).
+
+Lifecycle, as in ``repro.engine``::
+
+    engine = SOIEngine(cfg, max_concurrent_decodes=B, max_len=L)
+    state  = engine.init_decode_state(params)
+    prefix = engine.prefill(params, prompt_tokens)
+    state  = engine.insert(prefix, state, slot=3)
+    state, result = engine.generate(params, state)     # ONE step, ALL slots
+    tok = result.convert_to_numpy().get_result_at_slot(3).tokens
+    state = engine.free_slot(state, 3)
+"""
+
+from repro_torch.engine.api import (Engine, Prefix, ResultTokens,  # noqa: F401
+                                    SlotData)
+from repro_torch.engine.soi_engine import SOIEngine, insert_state  # noqa: F401
+from repro_torch.engine.step import generate_step  # noqa: F401

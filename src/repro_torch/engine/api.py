@@ -1,0 +1,112 @@
+"""Engine protocol (port of ``repro.engine.api``): the device functions a
+serving loop calls — prefill / insert / generate with slot-based continuous
+batching — and the result types.
+
+``ResultTokens`` packs [token, valid, length] per slot into one (B, 3) int32
+tensor, so one device->host copy drains a step. On the card the engine
+starts that copy (into pinned host memory, non-blocking) right after the
+step's kernels and records an event; ``convert_to_numpy`` waits for the
+event. The copy thus sits in the stream before the next step's work, which
+is what lets a serving loop drain step k while step k+1 runs.
+"""
+
+from __future__ import annotations
+
+import abc
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import torch
+
+Params = Any
+DecodeState = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotData:
+    """One slot's share of a generate step's output."""
+    tokens: Any           # (n_tokens,) int32
+    valid: Any            # (1,) int32 — 0 for unoccupied slots
+    lengths: Any          # (1,) int32 — absolute position after the step
+
+
+@dataclasses.dataclass(frozen=True)
+class ResultTokens:
+    """Tokens emitted by one generate step, one row per slot.
+
+    ``data`` is one (B, 3) int32 tensor [token, valid, length]; ``logits``
+    (B, V) float32 rides along on the device for verification harnesses.
+    ``host`` / ``ready`` are the in-flight host copy of ``data`` and the
+    event that marks it complete (None on the CPU)."""
+    data: Any
+    logits: Optional[Any] = None
+    host: Optional[Any] = None
+    ready: Optional[Any] = None
+
+    def convert_to_numpy(self) -> "ResultTokens":
+        """This step's ``data`` as host numpy — the one device->host copy of
+        the step (``logits`` stay where they are). Call it on the
+        *previous* step's results after dispatching the next step."""
+        if isinstance(self.data, torch.Tensor):
+            if self.ready is not None:
+                self.ready.synchronize()
+                data = self.host.numpy()
+            else:
+                data = self.data.cpu().numpy()
+            return dataclasses.replace(self, data=data, host=None,
+                                       ready=None)
+        return self
+
+    def get_result_at_slot(self, slot: int) -> SlotData:
+        return SlotData(tokens=self.data[slot, 0:1],
+                        valid=self.data[slot, 1:2],
+                        lengths=self.data[slot, 2:3])
+
+
+@dataclasses.dataclass(frozen=True)
+class Prefix:
+    """Result of prefilling one request: batch-1 decode caches positioned at
+    ``true_length``, plus the first generated token (greedy over the
+    prompt's last real position's logits). ``length`` mirrors
+    ``true_length`` for unpadded prefills."""
+    state: Any            # batch-1 model decode state (t == true_length)
+    first_token: Any      # (1,) int32
+    logits: Any           # (1, V) float32 — last real prompt position
+    length: int
+    true_length: Optional[int] = None
+
+    def __post_init__(self):
+        if self.true_length is None:
+            object.__setattr__(self, "true_length", self.length)
+
+
+class Engine(abc.ABC):
+    """The computational core of the serving loop."""
+
+    @abc.abstractmethod
+    def prefill(self, params: Params, tokens) -> Prefix:
+        """Compute caches for a prompt; returns a slot-insertable Prefix."""
+
+    @abc.abstractmethod
+    def insert(self, prefix: Prefix, decode_state: DecodeState,
+               slot: int) -> DecodeState:
+        """Write ``prefix`` into batch row ``slot`` of the decode state."""
+
+    @abc.abstractmethod
+    def generate(self, params: Params,
+                 decode_state: DecodeState) -> Tuple[DecodeState,
+                                                     ResultTokens]:
+        """Advance every slot by one token."""
+
+    @abc.abstractmethod
+    def init_decode_state(self, params: Params) -> DecodeState:
+        """Empty decode state with ``max_concurrent_decodes`` free slots."""
+
+    @abc.abstractmethod
+    def free_slot(self, decode_state: DecodeState, slot: int) -> DecodeState:
+        """Mark ``slot`` unoccupied (its results become invalid)."""
+
+    @property
+    @abc.abstractmethod
+    def max_concurrent_decodes(self) -> int:
+        """Total slot capacity."""

@@ -1,0 +1,91 @@
+"""The per-token serving step, dense layout (port of
+``repro.engine.step.generate_step``).
+
+For SOI configs the paper's phase schedule (recompute the compressed middle
+only when ``t % stride == 0``) is resolved per slot from the clock vector
+``state["t"]: (B,)``:
+
+  * the pre/post layers and the conv window push run for every slot, every
+    step;
+  * the compressed middle runs only when at least one active slot's window
+    is complete. The reference decides that inside its compiled program
+    (``lax.cond(jnp.any(run_mid))``); in eager PyTorch a branch on a device
+    tensor is a host sync every step, so the engine passes the predicate in
+    as a Python bool (``run_mid_any``) computed from its host clocks;
+  * middle cache writes and the extrapolation-queue update are masked per
+    slot on the device, so slots that are mid-window keep their cached
+    partial states while their neighbours recompute.
+
+The step updates the decode state in place and returns it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelCfg
+from repro_torch.models import decode as D
+from repro_torch.models.transformer import cast_params, split_blocks
+
+
+@torch.no_grad()
+def generate_step(params, cfg: ModelCfg, state: dict, tokens, *,
+                  active=None, run_mid_any: bool | None = None):
+    """Advance every slot one token. tokens: (B,) int; state["t"]: (B,).
+
+    Returns (logits (B, V) float32, state). ``active`` ((B,) bool) marks
+    occupied slots: inactive slots' clocks freeze and never trigger the
+    middle. ``run_mid_any`` says whether some active slot sits at phase 0;
+    when None it is read from the device (one host sync — tests only).
+    """
+    if cfg.soi is None:
+        t_old = state["t"]
+        logits, state = D.decode_step(params, cfg, state, tokens)
+        if active is not None:
+            state["t"] = torch.where(active, state["t"], t_old)
+        return logits, state
+
+    params = cast_params(params, cfg)
+    st = cfg.soi.stride
+    pre, mid, post = split_blocks(params, cfg)
+    b = tokens.shape[0]
+    t = state["t"]
+    phase = t % st
+    run_mid = phase == 0                  # (B,) this slot's window is done
+    if active is not None:
+        run_mid = run_mid & active
+    if run_mid_any is None:
+        run_mid_any = bool(run_mid.any())
+
+    x = D._embed_one(params, cfg, tokens)
+    x = D._segment_decode(pre, state["pre"], cfg, x, t)
+    skip = x
+    window = torch.cat([state["conv_buf"], x[:, None]], dim=1)  # (B, st, d)
+    d = x.shape[-1]
+    xc = torch.matmul(window.reshape(b, st * d),
+                      params.soi_compress.to(x.dtype).reshape(st * d, d))
+    if run_mid_any:
+        # mid-window slots run the middle on a garbage window; only complete
+        # windows commit their frame to the middle's caches
+        xm = D._segment_decode(mid, state["mid"], cfg, xc, t // st,
+                               commit=run_mid)
+    else:
+        xm = torch.zeros_like(xc)
+
+    queue = state["queue"]
+    rows = torch.arange(b, device=t.device)
+    if cfg.soi.mode == "fp":
+        # FP serves strictly-past data: the queue head, even on phase 0
+        xu = queue[rows, phase.clamp(max=st - 1).long()]
+    else:
+        stale = queue[rows, (phase - 1).clamp(0, st - 1).long()]
+        xu = torch.where(run_mid[:, None], xm, stale)
+    state["queue"] = torch.where(run_mid[:, None, None],
+                                 xm[:, None].expand(b, st, d), queue)
+    state["conv_buf"] = window[:, 1:].contiguous()
+
+    fused = torch.matmul(torch.cat([xu, skip], dim=-1),
+                         params.soi_fuse.to(x.dtype))
+    x = D._segment_decode(post, state["post"], cfg, fused, t)
+    state["t"] = t + 1 if active is None else torch.where(active, t + 1, t)
+    return D._logits_one(params, cfg, x), state

@@ -1,0 +1,235 @@
+// Causal flash attention for whole-prompt prefill, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
+// (Pallas, grid (B*H, q_blocks, k_blocks) with the k axis sequential, m/l/acc
+// in VMEM scratch, fully masked causal blocks skipped with pl.when).
+//
+// What bounds it on the H100: at the serving shape (S=1024, H=16, dh=128,
+// bf16) the causal work is ~4.3 GFLOP against ~17 MB of q/k/v/o, so on the
+// tensor cores the two bounds are near balanced (~4 us each). This kernel
+// does its products in scalar float32 FMA on the CUDA cores instead, so its
+// real limit is the FMA issue rate and the shared-memory reads that feed it;
+// moving the two products onto mma.sync/wgmma is the next step.
+//
+// Design:
+//  * grid (ceil(Sq/64), B*H): a block owns 64 query rows of one head. The q
+//    tile sits in shared memory (float32), and the block walks 64-key tiles
+//    up to the causal limit of its last row; tiles wholly past the diagonal
+//    are never loaded, as the TPU kernel's pl.when(live) skips them;
+//  * K/V are read at Hkv heads (q head h reads KV head h / G), so the GQA
+//    repeat of the reference's caller is not needed;
+//  * 256 threads form a 16x16 grid; a thread owns 4 query rows x 4 keys of
+//    the score tile and 4 rows x dh/16 dims of the output, in registers. Row
+//    max and sum reduce over the 16 threads of a row with shuffles;
+//  * online softmax in float32 with the finite -1e30 mask value, q_offset
+//    (absolute position of query row 0) and an optional logit softcap;
+//  * q/k tiles are padded by one float per row so that the 16 threads of a
+//    row group read 16 different banks.
+// Shared memory is ~113 KB at dh=128, above the 48 KB default, so the launch
+// raises the limit with cudaFuncSetAttribute first.
+#include "common.cuh"
+
+using namespace repro_torch;
+
+namespace {
+
+constexpr int BQ = 64;
+constexpr int BK = 64;
+constexpr int kThreads = 256;
+
+template <int DH>
+constexpr size_t smem_bytes() {
+  return sizeof(float) *
+         ((size_t)BQ * (DH + 1) + (size_t)BK * (DH + 1) + (size_t)BK * DH +
+          (size_t)BQ * (BK + 1));
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ out, int Sq,
+                       int Sk, int H, int Hkv, int q_offset, int causal,
+                       float scale, float softcap) {
+  constexpr int LD = DH + 1;      // padded row of the q and k tiles
+  constexpr int LP = BK + 1;      // padded row of the probability tile
+  constexpr int DPT = DH / 16;    // output dims per thread
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sK = sQ + BQ * LD;
+  float* sV = sK + BK * LD;
+  float* sP = sV + BK * DH;
+
+  const int q0 = blockIdx.x * BQ;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int hk = h / (H / Hkv);
+  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
+  const size_t q_row = (size_t)H * DH;
+  const size_t kv_row = (size_t)Hkv * DH;
+  const T* qb = q + ((size_t)b * Sq * H + h) * DH;
+  const T* kb = k + ((size_t)b * Sk * Hkv + hk) * DH;
+  const T* vb = v + ((size_t)b * Sk * Hkv + hk) * DH;
+
+  for (int i = tid; i < BQ * DH; i += kThreads) {
+    const int r = i / DH, d = i % DH;
+    sQ[r * LD + d] =
+        q0 + r < Sq ? to_f32(qb[(size_t)(q0 + r) * q_row + d]) : 0.f;
+  }
+
+  float m[4], l[4], acc[4][DPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
+  }
+
+  // causal: no key past the last real query row of this tile is live
+  const int last_q = q_offset + min(q0 + BQ, Sq) - 1;
+  const int k_end = causal ? min(Sk, last_q + 1) : Sk;
+  for (int k0 = 0; k0 < k_end; k0 += BK) {
+    __syncthreads();     // previous tile's consumers are done with sK/sV/sP
+    for (int i = tid; i < BK * DH; i += kThreads) {
+      const int r = i / DH, d = i % DH;
+      const bool in = k0 + r < Sk;
+      const size_t off = (size_t)(k0 + r) * kv_row + d;
+      sK[r * LD + d] = in ? to_f32(kb[off]) : 0.f;
+      sV[r * DH + d] = in ? to_f32(vb[off]) : 0.f;
+    }
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < DH; ++d) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = sQ[(tr + 16 * i) * LD + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = sK[(tc + 16 * j) * LD + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] += qv[i] * kv[j];
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int q_pos = q_offset + q0 + tr + 16 * i;
+      float rmax = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k_pos = k0 + tc + 16 * j;
+        float x = s[i][j] * scale;
+        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        const bool allow = k_pos < Sk && (!causal || k_pos <= q_pos);
+        s[i][j] = allow ? x : kNegInf;
+        rmax = fmaxf(rmax, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
+      const float m_new = fmaxf(m[i], rmax);
+      const float corr = expf(m[i] - m_new);
+      float rsum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        rsum += p;
+        sP[(tr + 16 * i) * LP + tc + 16 * j] = p;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
+      l[i] = l[i] * corr + rsum;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < DPT; ++j) acc[i][j] *= corr;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float vv[DPT];
+#pragma unroll
+      for (int j = 0; j < DPT; ++j) vv[j] = sV[kk * DH + tc + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = sP[(tr + 16 * i) * LP + kk];
+#pragma unroll
+        for (int j = 0; j < DPT; ++j) acc[i][j] += p * vv[j];
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + tr + 16 * i;
+    if (r >= Sq) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    T* ob = out + ((size_t)b * Sq + r) * q_row + (size_t)h * DH;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) ob[tc + 16 * j] = from_f32<T>(acc[i][j] * inv);
+  }
+}
+
+template <typename T, int DH>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   int B, int Sq, int Sk, int H, int Hkv, int q_offset,
+                   int causal, float scale, float softcap,
+                   cudaStream_t stream) {
+  constexpr size_t bytes = smem_bytes<DH>();
+  // set on every launch: the attribute belongs to the current device
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_kernel<T, DH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return e;
+  dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  flash_attention_kernel<T, DH><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, Hkv,
+      q_offset, causal, scale, softcap);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t by_dh(int DH, const void* q, const void* k, const void* v,
+                  void* out, int B, int Sq, int Sk, int H, int Hkv,
+                  int q_offset, int causal, float scale, float softcap,
+                  cudaStream_t st) {
+  switch (DH) {
+    case 16: return launch<T, 16>(q, k, v, out, B, Sq, Sk, H, Hkv, q_offset,
+                                  causal, scale, softcap, st);
+    case 32: return launch<T, 32>(q, k, v, out, B, Sq, Sk, H, Hkv, q_offset,
+                                  causal, scale, softcap, st);
+    case 64: return launch<T, 64>(q, k, v, out, B, Sq, Sk, H, Hkv, q_offset,
+                                  causal, scale, softcap, st);
+    case 128: return launch<T, 128>(q, k, v, out, B, Sq, Sk, H, Hkv,
+                                    q_offset, causal, scale, softcap, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// q (B, Sq, H, dh); k, v (B, Sk, Hkv, dh); out (B, Sq, H, dh); contiguous.
+// softcap <= 0: none. Returns the launch's cudaError_t (0 on success).
+extern "C" int repro_flash_attention(const void* q, const void* k,
+                                     const void* v, void* out, int B, int Sq,
+                                     int Sk, int H, int Hkv, int DH,
+                                     int q_offset, int causal, float scale,
+                                     float softcap, int dtype, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || H % Hkv)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kBFloat16)
+    return by_dh<__nv_bfloat16>(DH, q, k, v, out, B, Sq, Sk, H, Hkv,
+                                q_offset, causal, scale, softcap, st);
+  if (dtype == kFloat32)
+    return by_dh<float>(DH, q, k, v, out, B, Sq, Sk, H, Hkv, q_offset,
+                        causal, scale, softcap, st);
+  return cudaErrorInvalidValue;
+}

@@ -1,0 +1,103 @@
+"""Single-token decode attention against a dense ring KV cache.
+
+Kernel: ``csrc/decode_attention.cu`` (CUDA C++, sm_90a), which replaces the
+TPU kernel ``repro/kernels/decode_attention.py::decode_attention``.
+
+* Bound on the H100: the cache read. A call streams K and V once
+  (``2*B*S*Hkv*dh`` elements) for ~4·G flops per element, so its least time
+  is those bytes over the 3.35 TB/s memory rate.
+* Design: grid ``(B, Hkv)``; a block keeps the G query heads of one KV head
+  together (a cache row is read once for all of them), walks S in a loop
+  with a float32 online softmax per warp, and merges its 8 warps' states in
+  shared memory. The mask is the absolute-position lane, ``-1`` marks an
+  empty slot, and masked scores take the finite ``-1e30`` — an inactive slot
+  comes out finite, as in the reference.
+* Held back by: ``B*Hkv`` blocks (32 at the serving batch) on 132 SMs.
+
+The plain version is ``ref.decode_attention`` (re-exported here as
+``plain``); a CPU tensor takes it, a CUDA tensor launches the kernel or
+raises. ``decode_attention.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref
+
+plain = ref.decode_attention
+
+_DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+HEAD_DIMS = (16, 32, 64, 128)
+GROUPS = (1, 2, 4, 8)
+
+
+def _check_cuda(q, k_cache, v_cache, cache_positions, q_position):
+    b, h, dh = q.shape
+    if k_cache.dim() != 4 or k_cache.shape[0] != b or k_cache.shape[3] != dh:
+        raise ValueError(f"k_cache {tuple(k_cache.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    _, s, hkv, _ = k_cache.shape
+    if v_cache.shape != k_cache.shape:
+        raise ValueError(f"v_cache {tuple(v_cache.shape)} != k_cache "
+                         f"{tuple(k_cache.shape)}")
+    if tuple(cache_positions.shape) != (b, s):
+        raise ValueError(f"cache_positions {tuple(cache_positions.shape)} != "
+                         f"{(b, s)}")
+    if tuple(q_position.shape) != (b,):
+        raise ValueError(f"q_position {tuple(q_position.shape)} != {(b,)}")
+    if q.dtype not in _DTYPES or k_cache.dtype != q.dtype \
+            or v_cache.dtype != q.dtype:
+        raise TypeError(f"decode_attention takes float32 or bfloat16 q/k/v of "
+                        f"one dtype, got {q.dtype}/{k_cache.dtype}/"
+                        f"{v_cache.dtype}")
+    if cache_positions.dtype != torch.int32 or q_position.dtype != torch.int32:
+        raise TypeError("positions must be int32")
+    if h % hkv or h // hkv not in GROUPS or dh not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"decode_attention kernel takes G in {GROUPS} and dh in "
+            f"{HEAD_DIMS}, got H={h} Hkv={hkv} dh={dh}")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("cache_positions", cache_positions),
+                    ("q_position", q_position)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def decode_attention(q, k_cache, v_cache, cache_positions, q_position, *,
+                     window=None, scale=None, logit_softcap=None):
+    """q: (B, H, dh); caches: (B, S, Hkv, dh); cache_positions: (B, S) int32;
+    q_position: (B,) int32. Returns (B, H, dh) in q's dtype."""
+    if q.device.type == "cpu":
+        return plain(q, k_cache, v_cache, cache_positions, q_position,
+                     window=window, scale=scale, logit_softcap=logit_softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
+    if logit_softcap is not None:
+        raise NotImplementedError("decode_attention kernel: logit_softcap is "
+                                  "not ported yet; see ROADMAP.md")
+    _check_cuda(q, k_cache, v_cache, cache_positions, q_position)
+    b, h, dh = q.shape
+    _, s, hkv, _ = k_cache.shape
+    scale = dh ** -0.5 if scale is None else float(scale)
+    win = 0 if window is None else int(window)
+    if window is not None and win <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _build.library().repro_decode_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        cache_positions.data_ptr(), q_position.data_ptr(), out.data_ptr(),
+        b, s, h, hkv, dh, win, scale, _build.DTYPE_CODES[_DTYPES[q.dtype]],
+        stream)
+    _build.check(rc, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

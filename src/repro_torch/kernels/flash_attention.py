@@ -1,0 +1,91 @@
+"""Causal flash attention for whole-prompt (bucketed) prefill.
+
+Kernel: ``csrc/flash_attention.cu`` (CUDA C++, sm_90a), which replaces the
+TPU kernel ``repro/kernels/flash_attention.py::flash_attention``.
+
+* Bound on the H100: near balanced at the serving shape (S=1024, H=16,
+  dh=128, bf16): ~4.3 GFLOP of causal work (~4.3 µs on the tensor cores)
+  against ~17 MB of q/k/v/o (~5 µs at 3.35 TB/s).
+* Design: grid ``(ceil(Sq/64), B*H)``; a block keeps a 64-row q tile in
+  shared memory and walks 64-key tiles up to the causal limit of its last
+  row (tiles wholly past the diagonal are never loaded, as the TPU kernel's
+  ``pl.when(live)`` skips them), with a float32 online softmax, ``q_offset``
+  and an optional logit softcap. K/V are read at Hkv heads (q head ``h``
+  reads KV head ``h // G``), so the caller's GQA repeat is not needed.
+* Held back by: the products run as scalar float32 FMAs on the CUDA cores,
+  not on the tensor cores (``mma.sync``/``wgmma`` are later work).
+
+The plain version is ``ref.flash_attention`` (re-exported here as
+``plain``); a CPU tensor takes it, a CUDA tensor launches the kernel or
+raises. ``flash_attention.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref
+
+plain = ref.flash_attention
+
+_DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def _check_cuda(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}: want (B,Sq,H,dh), (B,Sk,Hkv,dh)")
+    b, sq, h, dh = q.shape
+    _, sk, hkv, dk = k.shape
+    if k.shape[0] != b or dk != dh:
+        raise ValueError(f"k {tuple(k.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    if h % hkv:
+        raise ValueError(f"H={h} is not a multiple of Hkv={hkv}")
+    if dh not in HEAD_DIMS:
+        raise NotImplementedError(f"flash_attention kernel takes dh in "
+                                  f"{HEAD_DIMS}, got {dh}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes float32 or bfloat16 q/k/v of "
+                        f"one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, prefix_len=0,
+                    q_offset=0, scale=None, logit_softcap=None):
+    """q: (B, Sq, H, dh); k, v: (B, Sk, Hkv, dh) with H a multiple of Hkv.
+    ``q_offset`` is the absolute position of ``q[:, 0]``. Returns
+    (B, Sq, H, dh) in q's dtype."""
+    if q.device.type == "cpu":
+        return plain(q, k, v, causal=causal, window=window,
+                     prefix_len=prefix_len, q_offset=q_offset, scale=scale,
+                     logit_softcap=logit_softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if window is not None or prefix_len:
+        raise NotImplementedError("flash_attention kernel: window and "
+                                  "prefix_len are not ported yet; see "
+                                  "ROADMAP.md")
+    _check_cuda(q, k, v)
+    b, sq, h, dh = q.shape
+    _, sk, hkv, _ = k.shape
+    scale = dh ** -0.5 if scale is None else float(scale)
+    cap = 0.0 if not logit_softcap else float(logit_softcap)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _build.library().repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, sq, sk, h, hkv, dh, int(q_offset), int(bool(causal)), scale, cap,
+        _build.DTYPE_CODES[_DTYPES[q.dtype]], stream)
+    _build.check(rc, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

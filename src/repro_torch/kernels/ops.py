@@ -1,0 +1,32 @@
+"""The kernel layer as the model sees it: every kernel wrapper of the
+port, and their launch counters.
+
+Each wrapper dispatches by the tensor's device: a CPU tensor takes the
+kernel's plain PyTorch version, a CUDA tensor launches the hand-written
+kernel or raises. There is no switch that sends a CUDA tensor to the plain
+version and no fallback after a failed launch: callers that want the plain
+result on the card call ``kernels.ref`` directly (``chip_smoke.py`` does).
+The model code reaches the kernels only through this module.
+"""
+
+from __future__ import annotations
+
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+
+KERNELS = (decode_attention, flash_attention)
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch counter to 0."""
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    """``{kernel name: launches since the last reset}``."""
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+__all__ = ["decode_attention", "flash_attention", "launch_counts",
+           "reset_launch_counts"]

@@ -1,0 +1,114 @@
+"""Plain PyTorch versions of the attention kernels this port runs (the
+counterparts of ``repro.kernels.ref``). The CPU path of every kernel wrapper
+is the function here, and ``chip_smoke.py`` holds each CUDA kernel against
+it on the card.
+
+Conventions, as in the reference:
+  q        : (B, Sq, H,  dh)
+  k, v     : (B, Sk, Hkv, dh)   with H = Hkv * G (GQA groups)
+  mask positions are *absolute token positions* so ring-buffer caches work;
+  ``-1`` marks an empty cache slot. Masked scores take the finite
+  ``NEG_INF``, never ``-inf``, so a row with no live key comes out finite.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _mask(q_pos, k_pos, *, causal: bool, window, prefix_len: int):
+    """(..., Sq, Sk) boolean allow-mask from absolute positions."""
+    qp = q_pos[..., :, None]
+    kp = k_pos[..., None, :]
+    allow = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                       dtype=torch.bool, device=kp.device)
+    if causal:
+        allow = kp <= qp
+        if prefix_len:
+            allow = allow | (kp < prefix_len)
+    if window is not None:
+        allow = allow & (kp > qp - window)
+    return allow & (kp >= 0)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, prefix_len=0,
+                    q_offset=0, scale=None, logit_softcap=None,
+                    block_q=256, block_k=512):
+    """Blocked online-softmax attention: the plain version of the
+    ``flash_attention`` kernel, with the semantics of
+    ``repro.kernels.ref.chunked_flash_attention`` and ``naive_attention``.
+    ``q_offset`` is the absolute position of ``q[:, 0]``; keys sit at
+    positions ``0..Sk-1``. K/V may carry fewer heads than q (GQA:
+    q head ``h`` reads KV head ``h // G``). Key blocks that lie wholly past
+    the causal diagonal of a query block are skipped, as the TPU kernel
+    skips them; every other block goes through the same masked online
+    softmax, so a row's result does not depend on the blocking."""
+    b, sq, h, dh = q.shape
+    _, sk, hkv, _ = k.shape
+    dv = v.shape[-1]
+    g = h // hkv
+    scale = dh ** -0.5 if scale is None else scale
+    dev = q.device
+    block_q = max(1, min(block_q, sq))
+    block_k = max(1, min(block_k, sk))
+    kf = k.float()
+    vf = v.float()
+    out = torch.empty((b, sq, hkv, g, dv), dtype=torch.float32, device=dev)
+    for q0 in range(0, sq, block_q):
+        q1 = min(q0 + block_q, sq)
+        qblk = q[:, q0:q1].reshape(b, q1 - q0, hkv, g, dh).float()
+        q_pos = q_offset + torch.arange(q0, q1, device=dev)
+        m = torch.full((b, hkv, g, q1 - q0), NEG_INF, device=dev)
+        l = torch.zeros((b, hkv, g, q1 - q0), device=dev)
+        acc = torch.zeros((b, hkv, g, q1 - q0, dv), device=dev)
+        for k0 in range(0, sk, block_k):
+            if causal and k0 > q_offset + q1 - 1 and not prefix_len:
+                break                       # past the diagonal: no live key
+            k1 = min(k0 + block_k, sk)
+            k_pos = torch.arange(k0, k1, device=dev)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qblk, kf[:, k0:k1]) * scale
+            if logit_softcap:
+                s = logit_softcap * torch.tanh(s / logit_softcap)
+            allow = _mask(q_pos, k_pos, causal=causal, window=window,
+                          prefix_len=prefix_len)
+            s = torch.where(allow, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = corr * l + p.sum(dim=-1)
+            acc = corr[..., None] * acc + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p, vf[:, k0:k1])
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        out[:, q0:q1] = o.permute(0, 3, 1, 2, 4)
+    return out.reshape(b, sq, h, dv).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_positions, q_position, *,
+                     window=None, scale=None, logit_softcap=None):
+    """Single-token attention against a (possibly ring-buffer) KV cache
+    (``repro.kernels.ref.decode_attention``).
+
+    q: (B, H, dh); caches: (B, S, Hkv, dh); cache_positions: (B, S) absolute
+    positions with -1 for empty slots; q_position: (B,) current position.
+    A slot with no live key (all ``-1``) averages V uniformly — finite.
+    """
+    b, h, dh = q.shape
+    _, s, hkv, _ = k_cache.shape
+    g = h // hkv
+    scale = dh ** -0.5 if scale is None else scale
+    qg = q.reshape(b, hkv, g, dh).float()
+    scores = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float()) * scale
+    if logit_softcap:
+        scores = logit_softcap * torch.tanh(scores / logit_softcap)
+    qp = q_position[:, None]
+    allow = (cache_positions >= 0) & (cache_positions <= qp)
+    if window is not None:
+        allow = allow & (cache_positions > qp - window)
+    scores = torch.where(allow[:, None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", probs, v_cache.float())
+    return out.reshape(b, h, dh).to(q.dtype)

@@ -1,0 +1,112 @@
+"""Shared layer primitives: initializers on a ``torch.Generator``, norms and
+rotary embeddings (port of ``repro.models.layers``).
+
+Two conventions carried over exactly from the reference:
+
+* RMSNorm multiplies by ``1 + scale`` with a zero-initialised ``scale``
+  (``norm_apply`` always takes that form);
+* RoPE rotates *interleaved* pairs ``x[..., 0::2]`` / ``x[..., 1::2]``, not
+  the rotate-half layout common in PyTorch code.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+_TRUNC = 3.0
+
+
+def trunc_normal(shape, generator: torch.Generator, *, device, scale=1.0,
+                 dtype=torch.float32) -> torch.Tensor:
+    """``scale`` × a standard normal truncated to [-3, 3] (inverse-CDF
+    sampling; the same distribution as ``jax.random.truncated_normal``,
+    not the same numbers)."""
+    lo = 0.5 * (1.0 + math.erf(-_TRUNC / math.sqrt(2.0)))
+    hi = 0.5 * (1.0 + math.erf(_TRUNC / math.sqrt(2.0)))
+    u = torch.empty(shape, dtype=torch.float32, device=device)
+    u.uniform_(2.0 * lo - 1.0, 2.0 * hi - 1.0, generator=generator)
+    w = u.erfinv_().mul_(math.sqrt(2.0)).clamp_(-_TRUNC, _TRUNC)
+    return w.mul_(scale).to(dtype)
+
+
+def dense_init(shape, generator, *, device, scale=None,
+               dtype=torch.float32) -> torch.Tensor:
+    """Truncated-normal init with 1/sqrt(fan_in) scale (fan_in = first axis
+    unless overridden)."""
+    if scale is None:
+        scale = shape[0] ** -0.5
+    return trunc_normal(shape, generator, device=device, scale=scale,
+                        dtype=dtype)
+
+
+def embed_init(vocab, d, generator, *, device,
+               dtype=torch.float32) -> torch.Tensor:
+    w = torch.empty((vocab, d), dtype=torch.float32, device=device)
+    return w.normal_(generator=generator).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor, *,
+            eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with the (1 + scale) convention (zero-init scale)."""
+    dt = x.dtype
+    xf = x.float()
+    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * (1.0 + scale.float())).to(dt)
+
+
+def layernorm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor, *,
+              eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float()) + bias.float()).to(dt)
+
+
+def norm_apply(kind: str, scale: torch.Tensor, x: torch.Tensor, *,
+               bias: torch.Tensor | None = None,
+               eps: float = 1e-6) -> torch.Tensor:
+    """The block norm of ``kind`` ("rmsnorm" | "layernorm")."""
+    if kind == "layernorm":
+        return layernorm(scale, bias, x, eps=max(eps, 1e-5))
+    return rmsnorm(scale, x, eps=eps)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, *, pct: float = 1.0, theta: float = 1e4,
+               device=None) -> torch.Tensor:
+    """Inverse frequencies for the rotated fraction of the head dim."""
+    rot = int(head_dim * pct) // 2 * 2
+    ar = torch.arange(0, rot, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (ar / rot))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, pct: float = 1.0,
+               theta: float = 1e4) -> torch.Tensor:
+    """x: (..., S, H, dh) or (..., S, dh); positions: broadcastable to
+    (..., S). Rotates interleaved pairs, as ``repro.models.layers``."""
+    dh = x.shape[-1]
+    rot = int(dh * pct) // 2 * 2
+    if rot == 0:
+        return x
+    inv = rope_freqs(dh, pct=pct, theta=theta, device=x.device)
+    ang = positions[..., None].float() * inv                # (..., S, rot/2)
+    if x.dim() == positions.dim() + 2:                      # heads present
+        ang = ang[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    xr = x[..., :rot].float()
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x1 * sin + x2 * cos
+    yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
+    return torch.cat([yr.to(x.dtype), x[..., rot:]], dim=-1)

@@ -1,0 +1,250 @@
+"""Decoder-only LM with SOI (port of the forward half of
+``repro.models.transformer``; no loss, no remat).
+
+The model is an ``nn.Module``: token embedding, one ``Block`` per layer in an
+``nn.ModuleList`` (the reference stacks a segment's layers on a leading axis
+and scans them), the final norm, and — for SOI configs — the S-CC compress
+conv ``soi_compress (stride, d, d)`` and the skip fusion ``soi_fuse (2d, d)``.
+
+SOI-LM (cfg.soi): layers [first_layer, last_layer) form the *compressed
+middle* — a width-stride stride-stride causal conv compresses time before
+the middle; duplication extrapolation + skip fusion restores full rate after
+it ("fp" shifts the middle one token into the future).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import BlockCfg, ModelCfg, SOILMCfg
+from repro_torch.core.stmc import causal_conv1d
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import dense_init, embed_init, norm_apply, \
+    trunc_normal
+from repro_torch.models.mlp import MLP, mlp_apply
+
+
+def _dtype(cfg: ModelCfg) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _norm_param(d: int, device, dtype) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(d, device=device, dtype=dtype))
+
+
+class Block(nn.Module):
+    """One attention + MLP block (``ln1``/``ln2`` are the (1 + scale)
+    RMSNorm scales)."""
+
+    def __init__(self, b: BlockCfg, d: int, *, generator, device,
+                 dtype=torch.float32):
+        super().__init__()
+        if (b.attn is None or b.mlp is None or b.rglru is not None
+                or b.rwkv is not None or b.moe is not None
+                or b.cross_attn is not None or b.norm != "rmsnorm"
+                or b.post_norm):
+            raise NotImplementedError(
+                "the port runs attention + MLP RMSNorm blocks only; other "
+                "block kinds are not ported yet (see ROADMAP.md)")
+        self.bcfg = b
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.ln1 = _norm_param(d, device, dtype)
+        self.attn = attn.Attention(b.attn, d, **kw)
+        self.ln2 = _norm_param(d, device, dtype)
+        self.mlp = MLP(b.mlp, d, **kw)
+
+
+class Transformer(nn.Module):
+    def __init__(self, cfg: ModelCfg, *, generator: torch.Generator, device,
+                 dtype=torch.float32):
+        super().__init__()
+        if (not cfg.tie_embeddings or cfg.encoder is not None
+                or cfg.frontend is not None or cfg.prefix_lm
+                or cfg.learned_pos_len or cfg.embed_scale
+                or cfg.logits_softcap):
+            raise NotImplementedError(
+                f"config '{cfg.name}' uses model features that are not "
+                f"ported yet; see ROADMAP.md")
+        self.cfg = cfg
+        d = cfg.d_model
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.embed = nn.Parameter(embed_init(cfg.vocab, d, **kw))
+        self.final_norm = _norm_param(d, device, dtype)
+        self.blocks = nn.ModuleList(
+            Block(b, d, **kw) for b in layer_blocks(cfg))
+        if cfg.soi is not None:
+            st = cfg.soi.stride
+            # S-CC compress conv (kernel = stride) + identity-biased fusion
+            self.soi_compress = nn.Parameter(dense_init(
+                (st, d, d), scale=(st * d) ** -0.5, **kw))
+            wf_new = trunc_normal((d, d), generator, device=device,
+                                  scale=0.02)
+            eye = torch.eye(d, device=device)
+            self.soi_fuse = nn.Parameter(
+                torch.cat([wf_new, eye], dim=0).to(dtype))
+
+
+def layer_blocks(cfg: ModelCfg) -> list:
+    """The BlockCfg of every layer, in order."""
+    out = []
+    for seg in cfg.segments:
+        out += [seg.blocks[j % len(seg.blocks)] for j in range(seg.n_layers)]
+    return out
+
+
+def init(cfg: ModelCfg, *, generator: torch.Generator, device=None,
+         dtype=torch.float32) -> Transformer:
+    """Random weights from ``generator`` with the reference's distributions
+    (``repro.models.transformer.init``), as float32 masters unless
+    ``dtype`` says otherwise."""
+    from repro_torch import resolve_device
+    return Transformer(cfg, generator=generator,
+                       device=resolve_device(device), dtype=dtype)
+
+
+def cast_params(params: Transformer, cfg: ModelCfg) -> Transformer:
+    """Mixed precision: cast float32 masters to the compute dtype, in place
+    (a no-op once cast)."""
+    dt = _dtype(cfg)
+    if params.embed.dtype != dt:
+        params.to(dt)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Block application
+# ---------------------------------------------------------------------------
+
+def _block_apply(bp: Block, cfg: ModelCfg, x, *, positions, fill_cache=None,
+                 fill_true_length=None):
+    """Full-sequence block. Returns (x, cache_out)."""
+    eps = cfg.norm_eps
+    h = norm_apply("rmsnorm", bp.ln1, x, eps=eps)
+    h, cache = attn.attn_forward(bp.attn, h, positions=positions,
+                                 norm_eps=eps, fill_cache=fill_cache,
+                                 fill_true_length=fill_true_length)
+    x = x + h
+    h = norm_apply("rmsnorm", bp.ln2, x, eps=eps)
+    return x + mlp_apply(bp.mlp, h), cache
+
+
+def _segment_forward(blocks, cfg: ModelCfg, x, *, positions,
+                     collect_cache=False, batch=None, max_len=0,
+                     true_length=None):
+    """Apply a run of layers. Returns (x, caches): one cache dict per layer
+    when ``collect_cache`` (prefill), else an empty list."""
+    caches = []
+    for bp in blocks:
+        fill = None
+        if collect_cache:
+            fill = attn.init_cache(bp.bcfg.attn, batch, max_len, x.dtype,
+                                   x.device)
+        x, c = _block_apply(bp, cfg, x, positions=positions, fill_cache=fill,
+                            fill_true_length=true_length)
+        if collect_cache:
+            caches.append(c)
+    return x, caches
+
+
+# ---------------------------------------------------------------------------
+# SOI segment partitioning
+# ---------------------------------------------------------------------------
+
+def soi_partition(cfg: ModelCfg):
+    """Split cfg.segments into (pre, mid, post) segment lists at the SOI
+    boundaries. Boundaries must align with block-pattern groups."""
+    soi = cfg.soi
+    pre, mid, post = [], [], []
+    idx = 0
+    for seg in cfg.segments:
+        glen = len(seg.blocks)
+        for part, lo, hi in (("pre", 0, soi.first_layer),
+                             ("mid", soi.first_layer, soi.last_layer),
+                             ("post", soi.last_layer, cfg.n_layers)):
+            a = max(idx, lo)
+            b = min(idx + seg.n_layers, hi)
+            if b > a:
+                if (a - idx) % glen or (b - a) % glen:
+                    raise ValueError("SOI boundary must align with the "
+                                     "segment block pattern")
+                sub = dataclasses.replace(seg, n_layers=b - a)
+                {"pre": pre, "mid": mid, "post": post}[part].append(sub)
+        idx += seg.n_layers
+    return pre, mid, post
+
+
+def split_blocks(params: Transformer, cfg: ModelCfg):
+    """The (pre, mid, post) layer lists at the SOI boundaries (the port's
+    counterpart of slicing stacked segment params)."""
+    blocks = list(params.blocks)
+    out, i = [], 0
+    for part in soi_partition(cfg):
+        n = sum(seg.n_layers for seg in part)
+        out.append(blocks[i:i + n])
+        i += n
+    return tuple(out)
+
+
+def soi_compress(params: Transformer, soi: SOILMCfg, x):
+    """S-CC compress: width-`stride` stride-`stride` *causal* conv over time
+    — frame s sees tokens <= s*stride; any length S yields ceil(S/stride)
+    frames."""
+    return causal_conv1d(x, params.soi_compress.to(x.dtype),
+                         stride=soi.stride)
+
+
+def soi_extrapolate(soi: SOILMCfg, xc, out_len: int):
+    up = torch.repeat_interleave(xc, soi.stride, dim=1)[:, :out_len]
+    if soi.mode == "fp":
+        up = torch.cat([torch.zeros_like(up[:, :1]), up[:, :-1]], dim=1)
+    return up
+
+
+def soi_fuse(params: Transformer, xu, skip):
+    cat = torch.cat([xu, skip], dim=-1)
+    return torch.matmul(cat, params.soi_fuse.to(cat.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _embed_tokens(params: Transformer, cfg: ModelCfg, tokens):
+    """tokens (B, S) -> (B, S, d) in the compute dtype."""
+    x = params.embed.index_select(0, tokens.reshape(-1).long())
+    return x.reshape(*tokens.shape, -1).to(_dtype(cfg))
+
+
+def trunk(params: Transformer, cfg: ModelCfg, tokens):
+    """Token embeddings -> final norm hidden states (B, S, d)."""
+    x = _embed_tokens(params, cfg, tokens)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)[None]
+    if cfg.soi is None:
+        x, _ = _segment_forward(params.blocks, cfg, x, positions=positions)
+    else:
+        soi = cfg.soi
+        pre, mid, post = split_blocks(params, cfg)
+        x, _ = _segment_forward(pre, cfg, x, positions=positions)
+        skip = x
+        xc = soi_compress(params, soi, x)
+        cpos = torch.arange(xc.shape[1], device=x.device)[None]
+        xc, _ = _segment_forward(mid, cfg, xc, positions=cpos)
+        x = soi_fuse(params, soi_extrapolate(soi, xc, s), skip)
+        x, _ = _segment_forward(post, cfg, x, positions=positions)
+    return norm_apply("rmsnorm", params.final_norm, x, eps=cfg.norm_eps)
+
+
+def _head_weights(params: Transformer):
+    return params.embed.t()
+
+
+@torch.no_grad()
+def forward(params: Transformer, cfg: ModelCfg, tokens):
+    """Full logits (B, S, V) in float32 (small inputs only — tests)."""
+    params = cast_params(params, cfg)
+    h = trunk(params, cfg, tokens)
+    return torch.matmul(h, _head_weights(params)).float()
