@@ -11,23 +11,35 @@ Phases, each printing its own lines:
              memory and spill lines of the serving path's instantiations.
 3. kernels — each CUDA kernel at the serving path's shapes, bfloat16 and
              float32, against its plain PyTorch version on the card
-             (max|Δ| < 2e-2 bf16, < 2e-5 f32), with its time, the plain
-             version's and that of one
-             torch.nn.functional.scaled_dot_product_attention call
+             (max|Δ| < 2e-2 bf16, < 2e-5 f32; copy_pages bit-exact), with
+             its time, the plain version's and that of one PyTorch call
              computing the same function (a yardstick only) — device time
              from torch.profiler, and CUDA-event time per call beside it —
              and the least time the card could take (bytes or operations).
+             The paged decode read is also compared bit for bit with the
+             dense kernel over the gathered view.
 4. parity  — full-width qwen3-1.7b cut to 4 layers (SOI over layers 1..3),
              float32, pp and fp: the port's SOIEngine with 3 slots (prompts
              of 200 and 201 tokens, a third of 150 after 3 steps), 8 greedy
              steps on the card and on the CPU: logits within 1e-3, tokens
-             identical.
+             identical. Then, in pp, a paged chunked prefix-cache engine
+             (page 16, chunk 64, max_len 256): 3 prompts of ~200 tokens
+             sharing their first 128, 66 greedy steps, so every ring wraps
+             onto shared pages and copies them on write — tokens identical,
+             logits within 1e-3, prefix-cache counters equal, COW on the
+             card through copy_pages.
 5. serve   — the serving driver on full-width qwen3-1.7b, SOI pp, 4
-             requests of 1024..1018 tokens, 64 generated each; every kernel
-             launch is counted and held to the count the host clocks give.
-             A second, profiled run gives the decode loop's device busy time
-             and idle share, and its kernel time by name.
-6. the kernels JSON line, the card line, and last {"ok": true, ...}.
+             requests of 1024..1018 tokens, 64 generated each, dense rings
+             and bucketed prefill; every kernel launch is counted and held
+             to the count the host clocks give. A second, profiled run
+             gives the decode loop's device busy time and idle share, and
+             its kernel time by name.
+6. paged   — the same traffic with a shared 768-token prefix through
+             --paged --chunk-size 256 --prefix-cache: prefix-cache counters
+             and chunk/paged-decode launch counts held to their expected
+             values, tokens identical to the same command without the
+             prefix cache, then a profiled rerun as in phase 5.
+7. the kernels JSON line, the card line, and last {"ok": true, ...}.
 
 Any failure raises and exits nonzero; no result line is printed then.
 """
@@ -57,6 +69,8 @@ L2_BYTES = 50 * 2 ** 20
 SERVE_ARGV = ["--arch", "qwen3-1.7b", "--soi", "pp", "--batch", "4",
               "--prompt-len", "1024", "--stagger", "2", "--gen-len", "64",
               "--seed", "0"]
+PAGED_ARGV = SERVE_ARGV + ["--paged", "--page-size", "16", "--chunk-size",
+                           "256", "--shared-prefix", "768"]
 
 
 def check(cond, msg):
@@ -92,9 +106,22 @@ def device_phase():
 # 2. build
 # ---------------------------------------------------------------------------
 
+# (label, mangled-name needle, template needle) of the serving path's
+# instantiations (head dim 128; decode kernels at G = 2 query heads per KV
+# head); the mangled names carry the identifier's length before it
+PATH_KERNELS = (
+    ("decode_attention", "23decode_attention_kernel", "Li2ELi128E"),
+    ("paged_decode_attention", "29paged_decode_attention_kernel",
+     "Li2ELi128E"),
+    ("flash_attention", "22flash_attention_kernel", "Li128E"),
+    ("chunk_attention", "22chunk_attention_kernel", "Li128E"),
+    ("copy_pages", "17copy_pages_kernel", ""),
+)
+
+
 def _ptxas_lines(log: str) -> list:
-    """One line per compiled kernel of the serving path (head dim 128,
-    4 KV heads' worth of 2-head groups), from nvcc -Xptxas -v."""
+    """One line per compiled kernel of the serving path, from nvcc
+    -Xptxas -v."""
     out, name = [], None
     spill = ""
     for line in log.splitlines():
@@ -110,18 +137,14 @@ def _ptxas_lines(log: str) -> list:
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            path_kernel = (("decode_attention_kernel" in name
-                            and "Li2ELi128E" in name)
-                           or ("flash_attention_kernel" in name
-                               and "Li128E" in name))
-            if path_kernel:
-                kind = ("decode_attention" if "decode" in name
-                        else "flash_attention")
-                dt = "bf16" if "bfloat16" in name else "f32"
-                smem = re.search(r"(\d+) bytes smem", line)
-                out.append(f"  {kind}[{dt}, dh=128]: {m.group(1)} registers, "
-                           f"{smem.group(1) if smem else 0} B static smem, "
-                           f"{spill}")
+            for kind, needle, targs in PATH_KERNELS:
+                if needle in name and targs in name:
+                    dt = "bf16" if "bfloat16" in name else (
+                        "f32" if targs else "bytes")
+                    smem = re.search(r"(\d+) bytes smem", line)
+                    out.append(f"  {kind}[{dt}]: {m.group(1)} registers, "
+                               f"{smem.group(1) if smem else 0} B static "
+                               f"smem, {spill}")
             name, spill = None, ""
     return out
 
@@ -252,7 +275,7 @@ def _decode_case(b, s, hkv, g, dh, dt, t_base, dev, gen):
             q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=masks[pos.data_ptr()], enable_gqa=True)[:, :, 0]
 
-    return sets, nbytes, flops, library
+    return sets, nbytes, flops, library, {}
 
 
 def _flash_case(b, s, hkv, g, dh, dt, dev, gen):
@@ -274,7 +297,135 @@ def _flash_case(b, s, hkv, g, dh, dt, dev, gen):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True, enable_gqa=True).transpose(1, 2)
 
-    return sets, nbytes, flops, library
+    return sets, nbytes, flops, library, {}
+
+
+def _chunk_case(b, c, s_cache, hkv, g, dh, dt, q0, filled, pad_rows, dev,
+                gen):
+    """A serving prefill chunk: ``c`` queries at q0.. (the last
+    ``pad_rows`` of them pad, at position -1) against a cache whose first
+    ``filled`` rows hold positions 0.. (the rest empty) plus the chunk."""
+    h = hkv * g
+    sk = s_cache + c
+
+    def make():
+        q = torch.randn((b, c, h, dh), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, sk, hkv, dh), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, sk, hkv, dh), generator=gen, device=dev).to(dt)
+        qp = q0 + torch.arange(c, dtype=torch.int32, device=dev)
+        qp[c - pad_rows:] = -1
+        cache = torch.arange(s_cache, dtype=torch.int32, device=dev)
+        cache = torch.where(cache < filled, cache, torch.full_like(cache, -1))
+        kp = torch.cat([cache, qp])[None].repeat(b, 1)
+        return q, k, v, qp[None].repeat(b, 1).contiguous(), kp
+
+    esz = torch.finfo(dt).bits // 8
+    sets = _copies(make, 2 * b * sk * hkv * dh * esz)
+    q, k, v, qp, kp = sets[0]
+    allow = ((kp[:, None, :] >= 0) & (kp[:, None, :] <= qp[:, :, None]))
+    pairs = int(allow.sum())
+    live_keys = int((kp >= 0).sum())
+    # bytes: q and out once, the live K/V rows once, both position lanes;
+    # operations: q.k and p.v over the live (query, key) pairs
+    nbytes = (2 * q.numel() * esz + 2 * live_keys * hkv * dh * esz
+              + (qp.numel() + kp.numel()) * 4)
+    flops = 4.0 * pairs * h * dh
+    masks = {st[4].data_ptr(): ((st[4][:, None, :] >= 0)
+                                & (st[4][:, None, :] <= st[3][:, :, None]))
+             [:, None] for st in sets}
+
+    def library(q, k, v, qp, kp):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=masks[kp.data_ptr()], enable_gqa=True).transpose(1, 2)
+
+    # SDPA leaves a query row with no live key undefined: compare live rows
+    live_rows = qp[0] >= 0
+    return sets, nbytes, flops, library, {"rows": live_rows}
+
+
+def _paged_case(b, n_pp, p_sz, hkv, g, dh, dt, t_base, dev, gen):
+    """Serving-like paged decode inputs: ``b * n_pp + 1`` pool pages (page
+    0 the null page, its position lane live-looking garbage), slot i
+    mapping shuffled pages for its positions 0..t_i, the rest of its map
+    unbacked."""
+    from repro_torch.models.attention import paged_view
+    h = hkv * g
+    n_pages = b * n_pp + 1
+    ts = [t_base - 3 * i for i in range(b)]
+
+    def make():
+        q = torch.randn((b, h, dh), generator=gen, device=dev).to(dt)
+        shape = (n_pages, p_sz, hkv, dh)
+        k = torch.randn(shape, generator=gen, device=dev).to(dt)
+        v = torch.randn(shape, generator=gen, device=dev).to(dt)
+        pos = torch.full((n_pages, p_sz), -1, dtype=torch.int32, device=dev)
+        pos[0] = torch.arange(p_sz, dtype=torch.int32, device=dev)
+        perm = 1 + torch.randperm(n_pages - 1, generator=gen, device=dev)
+        pm = torch.zeros((b, n_pp), dtype=torch.int32, device=dev)
+        used = 0
+        for s_, t in enumerate(ts):
+            n_live = t // p_sz + 1
+            ids = perm[used:used + n_live]
+            used += n_live
+            pm[s_, :n_live] = ids.to(torch.int32)
+            pos[ids] = torch.arange(n_live * p_sz, dtype=torch.int32,
+                                    device=dev).view(n_live, p_sz)
+        t = torch.tensor(ts, dtype=torch.int32, device=dev)
+        return q, k, v, pos, pm, t
+
+    esz = torch.finfo(dt).bits // 8
+    sets = _copies(make, 2 * n_pages * p_sz * hkv * dh * esz)
+    live = sum(t + 1 for t in ts)
+    mapped = sum((t // p_sz + 1) * p_sz for t in ts)
+    # bytes: q and out once, the live K/V rows once, the mapped pages'
+    # position lanes, the map and the clocks; operations over the live rows
+    nbytes = (2 * b * h * dh * esz + 2 * live * hkv * dh * esz + mapped * 4
+              + b * n_pp * 4 + b * 4)
+    flops = 4.0 * live * h * dh
+    # the library yardstick runs on the dense view gathered from the pages
+    # (gathered here, outside the timed call)
+    views = {}
+    for q, k, v, pos, pm, t in sets:
+        dv = paged_view({"k": k, "v": v, "pos": pos}, pm)
+        mask = (dv["pos"] >= 0) & (dv["pos"] <= t[:, None])
+        views[k.data_ptr()] = (dv["k"].contiguous(), dv["v"].contiguous(),
+                               dv["pos"].contiguous(), mask[:, None, None])
+
+    def library(q, k, v, pos, pm, t):
+        kd, vd, _, mask = views[k.data_ptr()]
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+    return sets, nbytes, flops, library, {"dense_view": views}
+
+
+def _copy_case(n_pages, p_sz, hkv, dh, dt, dev, gen):
+    """A COW flush on one outer bf16 pool leaf: 4 pairs and 4 (0, 0)
+    padding pairs."""
+    srcs = torch.tensor([5, 17, 100, 201, 0, 0, 0, 0], dtype=torch.int32,
+                        device=dev)
+    dsts = torch.tensor([250, 260, 270, 272, 0, 0, 0, 0], dtype=torch.int32,
+                        device=dev)
+
+    def make():
+        pool = torch.randn((n_pages, p_sz, hkv, dh), generator=gen,
+                           device=dev).to(dt)
+        return pool, srcs, dsts
+
+    esz = torch.finfo(dt).bits // 8
+    row = p_sz * hkv * dh * esz
+    sets = _copies(make, n_pages * row)
+    # bytes: each real pair's page read once and written once, the pair
+    # table once; no arithmetic
+    nbytes = 2 * 4 * row + 2 * srcs.numel() * 4
+
+    def library(pool, srcs, dsts):
+        pool[dsts.long()] = pool[srcs.long()]
+        return pool
+
+    return sets, nbytes, 0.0, library, {"inplace": True}
 
 
 KERNEL_META = {
@@ -284,14 +435,25 @@ KERNEL_META = {
     "flash_attention": dict(
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:74"),
+    "chunk_attention": dict(
+        source="src/repro_torch/kernels/csrc/chunk_attention.cu",
+        replaces="src/repro/kernels/chunk_attention.py:79"),
+    "paged_decode_attention": dict(
+        source="src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:155"),
+    "copy_pages": dict(
+        source="src/repro_torch/kernels/csrc/page_copy.cu",
+        replaces="src/repro/kernels/page_copy.py:33"),
 }
 
 
 def kernels_phase(dev) -> dict:
     """Returns {kernel name: record of its serving-path bf16 case}."""
     phase("3 kernels")
+    from repro_torch.kernels import chunk_attention as CA
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import page_copy as PC
     from repro_torch.kernels import ref
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = []
@@ -310,21 +472,71 @@ def kernels_phase(dev) -> dict:
         cases.append(("flash_attention", "middle (1,512,16,128)", dt,
                       _flash_case(1, 512, 8, 2, 128, dt, dev, gen),
                       FA.flash_attention, ref.flash_attention))
+        # the last chunk of a 1024-token prompt: 256 queries at 768.. against
+        # the 1088-row ring (768 live) plus the chunk; the middle's 128
+        # frames at 384.. against 768 + 128; 6 pad query rows each
+        cases.append(("chunk_attention", "outer q(1,256,16,128) Sk 1344", dt,
+                      _chunk_case(1, 256, 1088, 8, 2, 128, dt, 768, 768, 6,
+                                  dev, gen),
+                      CA.chunk_attention, ref.chunk_attention))
+        cases.append(("chunk_attention", "middle q(1,128,16,128) Sk 896", dt,
+                      _chunk_case(1, 128, 768, 8, 2, 128, dt, 384, 384, 6,
+                                  dev, gen),
+                      CA.chunk_attention, ref.chunk_attention))
+        # the serving pools (slots * pages_per_slot + 1 pages) at clocks
+        # 1056.. (outer) and frames 528.. (middle)
+        cases.append(("paged_decode_attention",
+                      "outer pools (273,16,8,128) map (4,68)", dt,
+                      _paged_case(4, 68, 16, 8, 2, 128, dt, 1056, dev, gen),
+                      DA.paged_decode_attention, ref.paged_decode_attention))
+        cases.append(("paged_decode_attention",
+                      "middle pools (193,16,8,128) map (4,48)", dt,
+                      _paged_case(4, 48, 16, 8, 2, 128, dt, 528, dev, gen),
+                      DA.paged_decode_attention, ref.paged_decode_attention))
+    cases.append(("copy_pages", "outer pool (273,16,8,128), 4+4 pairs",
+                  torch.bfloat16,
+                  _copy_case(273, 16, 8, 128, torch.bfloat16, dev, gen),
+                  PC.copy_pages, ref.copy_pages))
     main = {}
-    for name, shape, dt, (sets, nbytes, flops, library), kern, plain in cases:
+    for (name, shape, dt, (sets, nbytes, flops, library, extra), kern,
+         plain) in cases:
         args = sets[0]
-        got = kern(*args)
+        if extra.get("inplace"):
+            # in-place kernels: each version gets its own copy of the pool
+            def fresh():
+                return (args[0].clone(),) + tuple(args[1:])
+        else:
+            def fresh():
+                return args
+        got = kern(*fresh())
         torch.cuda.synchronize()
-        want = plain(*args)
+        want = plain(*fresh())
         err = float((got.float() - want.float()).abs().max())
-        check(bool(torch.isfinite(got).all()), f"{name} {shape}: non-finite")
+        check(bool(torch.isfinite(got.float()).all()),
+              f"{name} {shape}: non-finite")
+        if extra.get("inplace"):
+            check(torch.equal(got, want), f"{name} {shape}: not bit-exact")
         check(err < TOL[dt], f"{name} {shape} {dt}: max|Δ| {err} >= "
                              f"{TOL[dt]}")
-        lib_err = float((library(*args).float() - want.float()).abs().max())
+        lib = library(*fresh()).float()
+        rows = extra.get("rows")
+        if rows is not None:
+            lib, ref_rows = lib[:, rows], want.float()[:, rows]
+        else:
+            ref_rows = want.float()
+        lib_err = float((lib - ref_rows).abs().max())
+        rec_extra = {}
+        if "dense_view" in extra:
+            # the paged read against the dense kernel over the same logical
+            # rows (gathered): bit for bit?
+            kd, vd, posd, _ = extra["dense_view"][args[1].data_ptr()]
+            dense = DA.decode_attention(args[0], kd, vd, posd, args[5])
+            rec_extra["equals_dense_kernel"] = bool(torch.equal(got, dense))
         # ms: device time per call from the profiler (the call's kernels,
-        # host launch gaps excluded) — the plain version and SDPA spend more
-        # time in host dispatch than on the card, which CUDA events over
-        # back-to-back calls would charge to them; *_event_ms keep that view
+        # host launch gaps excluded) — the plain version and the library
+        # call spend more time in host dispatch than on the card, which
+        # CUDA events over back-to-back calls would charge to them;
+        # *_event_ms keep that view
         event = {"event_ms": _time_ms(kern, sets, 50),
                  "plain_event_ms": _time_ms(plain, sets, 5),
                  "library_event_ms": _time_ms(library, sets, 50)}
@@ -339,7 +551,7 @@ def kernels_phase(dev) -> dict:
                "max_abs_err": err, **dev_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, **event,
                "library_max_abs_err": lib_err, "bytes": nbytes,
-               "flops": flops}
+               "flops": flops, **rec_extra}
         print(json.dumps({"kernels": [rec]}), flush=True)
         if dt == torch.bfloat16 and name not in main:
             main[name] = rec
@@ -361,8 +573,9 @@ def _parity_cfg(mode):
 
 
 def _greedy(engine, params, prompts, n_steps=8, late_at=3):
-    """Slots 0 and 1 from the start, slot 2 after ``late_at`` steps.
-    Returns per step (logits of the active slots, their tokens)."""
+    """Slots 0 and 1 from the start, slot 2 after ``late_at`` steps,
+    greedy. Returns per step (logits of the active slots, their tokens,
+    the active slots)."""
     ds = engine.init_decode_state(params)
     steps = []
     active = []
@@ -380,10 +593,32 @@ def _greedy(engine, params, prompts, n_steps=8, late_at=3):
     return steps
 
 
-def parity_phase(dev):
+def _compare_runs(runs, label):
+    """Tokens identical and logits within 1e-3 at every step of a
+    (CPU run, card run) pair; returns the largest logit difference."""
+    worst = 0.0
+    for k, ((lc, tc, act), (lg, tg, _)) in enumerate(zip(*runs)):
+        err = float((lc - lg).abs().max())
+        worst = max(worst, err)
+        if tc != tg:
+            top = torch.topk(lc, 2, dim=-1).values
+            gaps = (top[:, 0] - top[:, 1]).tolist()
+            raise RuntimeError(
+                f"parity {label} step {k}: tokens differ (cpu {tc}, cuda "
+                f"{tg}, slots {act}); top-2 logit gaps on the CPU {gaps}")
+        check(err < 1e-3, f"parity {label} step {k}: logits differ by "
+                          f"{err} >= 1e-3")
+    return worst
+
+
+def parity_phase(dev) -> dict:
+    """Returns the launch counts of the paged prefix-cache engine's card
+    run (the path that copies pages on write)."""
     phase("4 parity (full-width qwen3, 4 layers, f32, card vs CPU)")
     from repro_torch.engine import SOIEngine
+    from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
+    paged_counts = None
     for mode in ("pp", "fp"):
         cfg = _parity_cfg(mode)
         cpu_model = T.init(cfg, generator=torch.Generator().manual_seed(1),
@@ -401,21 +636,51 @@ def parity_phase(dev):
             runs.append(_greedy(eng, model, [p.to(where) for p in prompts]))
             print(f"  {mode} {where}: 3 prefills + 8 steps in "
                   f"{time.perf_counter() - t0:.2f} s (host clock)")
-        worst = 0.0
-        for k, ((lc, tc, act), (lg, tg, _)) in enumerate(zip(*runs)):
-            err = float((lc - lg).abs().max())
-            worst = max(worst, err)
-            if tc != tg:
-                top = torch.topk(lc, 2, dim=-1).values
-                gaps = (top[:, 0] - top[:, 1]).tolist()
-                raise RuntimeError(
-                    f"parity {mode} step {k}: tokens differ (cpu {tc}, cuda "
-                    f"{tg}, slots {act}); top-2 logit gaps on the CPU "
-                    f"{gaps}")
-            check(err < 1e-3, f"parity {mode} step {k}: logits differ by "
-                              f"{err} >= 1e-3")
+        worst = _compare_runs(runs, mode)
         print(f"  {mode}: 8 steps, tokens identical, max|Δlogit| {worst:.3e}")
+        if mode == "pp":
+            # paged + chunked + prefix cache: 3 prompts sharing 128 tokens,
+            # 66 steps, so each ring wraps (position 256, frame 128) onto
+            # pages the index still shares and copies them on write
+            shared = prompts[0][:128]
+            pp = [torch.cat([shared, torch.randint(
+                0, cfg.vocab, (n - 128,), generator=gen, dtype=torch.int32)])
+                for n in (200, 201, 199)]
+            runs, stats = [], []
+            for where, model in ((torch.device("cpu"), cpu_model),
+                                 (dev, dev_model)):
+                eng = SOIEngine(cfg, max_concurrent_decodes=3, max_len=256,
+                                device=where, paged=True, page_size=16,
+                                prefill_chunk=64, prefix_cache=True)
+                if where.type == "cuda":
+                    ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                runs.append(_greedy(eng, model, [p.to(where) for p in pp],
+                                    n_steps=66))
+                if where.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                    paged_counts = ops.launch_counts()
+                stats.append(eng.prefix_cache_stats)
+                print(f"  paged {where}: 3 chunked prefills + 66 steps in "
+                      f"{time.perf_counter() - t0:.2f} s (host clock); "
+                      f"prefix cache {stats[-1]}")
+            worst = _compare_runs(runs, "paged pp")
+            check(stats[0] == stats[1], f"prefix-cache counters differ: cpu "
+                                        f"{stats[0]}, cuda {stats[1]}")
+            check(stats[1]["hits"] == 2 and stats[1]["cow_copies"] > 0,
+                  f"expected 2 hits and copies on write: {stats[1]}")
+            check(paged_counts["copy_pages"] > 0
+                  and paged_counts["chunk_attention"] > 0
+                  and paged_counts["paged_decode_attention"] > 0,
+                  f"paged run launches {paged_counts}")
+            check(paged_counts["decode_attention"] == 0
+                  and paged_counts["flash_attention"] == 0,
+                  f"the paged chunked run used a dense kernel: "
+                  f"{paged_counts}")
+            print(f"  paged pp: 66 steps, tokens identical, max|Δlogit| "
+                  f"{worst:.3e}; card launches {paged_counts}")
         del cpu_model, dev_model
+    return paged_counts
 
 
 # ---------------------------------------------------------------------------
@@ -460,7 +725,15 @@ def serve_phase(dev):
     print("  profiled rerun:")
     ev = _device_events(lambda: serve.run(args))
     check(ev, "the profiler saw no device activity")
-    prefill_end = max(e for _s, e, n in ev if "flash_attention_kernel" in n)
+    _decode_profile(ev, res.steps, "flash_attention_kernel")
+    return counts
+
+
+def _decode_profile(ev, steps: int, prefill_kernel: str):
+    """Device busy time and idle share of a serve run's decode loop, which
+    starts after the last ``prefill_kernel``; kernel time by name over that
+    window."""
+    prefill_end = max(e for _s, e, n in ev if prefill_kernel in n)
     dec = [(s_, e, n) for s_, e, n in ev if s_ >= prefill_end]
     window = max(e for _s, e, _n in dec) - min(s_ for s_, _e, _n in dec)
     busy = _busy_us([(s_, e) for s_, e, _n in dec])
@@ -471,9 +744,109 @@ def serve_phase(dev):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     print(f"  decode window {window / 1e3:.2f} ms on the device clock, "
           f"busy {busy / 1e3:.2f} ms, idle share {1 - busy / window:.3f}; "
-          f"per step busy {busy / 1e3 / res.steps:.3f} ms")
+          f"per step busy {busy / 1e3 / steps:.3f} ms")
     for key, us in top:
         print(f"    {us / 1e3:9.3f} ms  {key}")
+
+
+@torch.no_grad()
+def _warm_equals_cold(args, cold_args):
+    """The random model's greedy tokens barely vary, so hold the bits
+    instead: request 1 of the serve traffic (a hit at 768 tokens) prefills
+    to the same logits and prefill caches with the prefix cache as without,
+    and one generate step over requests 0 and 1 (one reading shared pages)
+    gives the same logits."""
+    from repro_torch.launch import serve
+    out = []
+    for a in (args, cold_args):
+        _cfg, params, prompt, plens, engine = serve.setup(a)
+        ds = engine.init_decode_state(params)
+        prefixes = []
+        for slot in (0, 1):
+            prefixes.append(engine.prefill(params, prompt[slot, :plens[slot]]))
+            ds = engine.insert(prefixes[-1], ds, slot)
+        _ds, res = engine.generate(params, ds)
+        out.append((prefixes[1], res.logits[:2].clone(),
+                    engine.prefix_cache_stats["hits"]))
+        del params, ds, _ds
+    (pw, lw, hits), (pc, lc, _) = out
+    check(hits == 1, f"request 1 did not hit the prefix cache ({hits})")
+    check(torch.equal(pw.logits, pc.logits),
+          "a hit's prefill logits differ from the cold prefill's")
+    for group in ("pre", "mid", "post"):
+        for i, (cw, cc) in enumerate(zip(pw.state[group], pc.state[group])):
+            for name in ("k", "v", "pos"):
+                check(torch.equal(cw[name], cc[name]),
+                      f"prefill cache {group}[{i}].{name}: warm != cold")
+    for name in ("conv_buf", "queue"):
+        check(torch.equal(pw.state[name], pc.state[name]),
+              f"prefill {name}: warm != cold")
+    check(torch.equal(lw, lc), "decode logits over shared pages differ "
+                               "from the cold run's")
+    print("  bit for bit with the cold run: a hit's prefill logits, caches, "
+          "conv window and queue, and a decode step's logits")
+
+
+def paged_serve_phase(dev):
+    phase("6 paged serve (qwen3-1.7b full width, SOI pp, --paged "
+          "--chunk-size 256 --prefix-cache, shared prefix 768)")
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    cfg = configs.get("qwen3-1.7b", soi="pp")
+    args = serve.parse_args(PAGED_ARGV + ["--prefix-cache"])
+    cold_args = serve.parse_args(PAGED_ARGV)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    res = serve.run(args)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    n_outer = cfg.soi.first_layer + cfg.n_layers - cfg.soi.last_layer
+    n_mid = cfg.soi.last_layer - cfg.soi.first_layer
+    chunk = 256
+    # the miss computes every chunk of its prompt; a hit at 768 computes
+    # the chunks past it (one, for prompts of 1018..1022 tokens)
+    plens = res.plens
+    hit_at = 768
+    want_chunks = (-(-plens[0] // chunk)
+                   + sum(-(-p // chunk) - hit_at // chunk for p in plens[1:]))
+    want_chunk = (n_outer + n_mid) * want_chunks
+    want_paged = n_outer * res.steps + n_mid * res.mid_steps
+    pc = res.prefix_cache
+    print(f"  prefill {res.prefill_s:.3f} s for {len(res.seqs)} requests, "
+          f"decode {res.decoded} tokens in {res.decode_s:.3f} s = "
+          f"{res.decoded / res.decode_s:.1f} tok/s (host clock); "
+          f"{res.steps} steps, {res.mid_steps} with the middle; peak device "
+          f"memory {peak:.2f} GiB")
+    print(f"  prefix cache {pc}; pools {res.pools}")
+    print(f"  launches {counts}; expected chunk_attention {want_chunk} "
+          f"({want_chunks} chunks x {n_outer + n_mid} layers), "
+          f"paged_decode_attention {want_paged}")
+    check(res.seqs.shape == (4, 64), f"tokens shape {res.seqs.shape}")
+    check(((res.seqs >= 0) & (res.seqs < cfg.vocab)).all(),
+          "token ids outside [0, vocab)")
+    check(pc["hits"] == 3 and pc["misses"] == 1
+          and pc["tokens_skipped"] == 3 * hit_at,
+          f"prefix-cache counters {pc}")
+    check(want_chunk == 196 and counts["chunk_attention"] == want_chunk,
+          f"chunk_attention launches {counts['chunk_attention']} != "
+          f"{want_chunk}")
+    check(counts["paged_decode_attention"] == want_paged,
+          f"paged_decode_attention launches "
+          f"{counts['paged_decode_attention']} != {want_paged}")
+    check(counts["decode_attention"] == 0 and counts["flash_attention"] == 0,
+          f"the paged chunked path launched a dense kernel: {counts}")
+    cold = serve.run(cold_args)
+    check(cold.prefix_cache == {} and (cold.seqs == res.seqs).all(),
+          "tokens with the prefix cache differ from the cold run")
+    print(f"  tokens identical to the cold run (no prefix cache: prefill "
+          f"{cold.prefill_s:.3f} s, decode "
+          f"{cold.decoded / cold.decode_s:.1f} tok/s, host clock)")
+    _warm_equals_cold(args, cold_args)
+    print("  profiled rerun:")
+    ev = _device_events(lambda: serve.run(args))
+    check(ev, "the profiler saw no device activity")
+    _decode_profile(ev, res.steps, "chunk_attention_kernel")
     return counts
 
 
@@ -483,19 +856,32 @@ def main():
     dev = torch.device("cuda", 0)
     build_phase()
     main_recs = kernels_phase(dev)
-    parity_phase(dev)
+    cow_counts = parity_phase(dev)
     counts = serve_phase(dev)
+    paged_counts = paged_serve_phase(dev)
+    # launches: each kernel's count on its own path's run — the dense
+    # serve (phase 5), the paged prefix-cache serve (phase 6), and for
+    # copy_pages the paged engine whose rings wrap (phase 4: the serve
+    # command never wraps, max_len = prompt + generated)
+    launches = {"decode_attention": ("serve", counts),
+                "flash_attention": ("serve", counts),
+                "chunk_attention": ("paged serve", paged_counts),
+                "paged_decode_attention": ("paged serve", paged_counts),
+                "copy_pages": ("paged parity (ring wrap)", cow_counts)}
     summary = []
-    for name in ("decode_attention", "flash_attention"):
+    for name in KERNEL_META:
         rec = main_recs[name]
+        path, cnt = launches[name]
+        check(cnt[name] > 0, f"{name} never launched on its path ({path})")
         summary.append({
             "name": name, "route": "cuda", **KERNEL_META[name],
-            "launches": counts[name], "max_abs_err": rec["max_abs_err"],
+            "launches": cnt[name], "launches_on": path,
+            "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"],
             "dtype": rec["dtype"]})
-    print(f"== 6 done in {time.perf_counter() - t_start:.1f} s")
+    print(f"== 7 done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -68,12 +68,15 @@ class Prefix:
     """Result of prefilling one request: batch-1 decode caches positioned at
     ``true_length``, plus the first generated token (greedy over the
     prompt's last real position's logits). ``length`` mirrors
-    ``true_length`` for unpadded prefills."""
+    ``true_length`` for unpadded prefills. ``cache_meta`` carries a
+    prefix-cache engine's host bookkeeping from prefill to insert (the
+    prompt's block keys, the hit boundary, the SOI carry snapshots)."""
     state: Any            # batch-1 model decode state (t == true_length)
     first_token: Any      # (1,) int32
     logits: Any           # (1, V) float32 — last real prompt position
     length: int
     true_length: Optional[int] = None
+    cache_meta: Optional[dict] = None
 
     def __post_init__(self):
         if self.true_length is None:

@@ -1,27 +1,49 @@
-"""SOIEngine, dense layout (port of the dense path of
-``repro.engine.soi_engine``): slot-based continuous batching over the
-per-token generate step.
+"""SOIEngine (port of ``repro.engine.soi_engine``): slot-based continuous
+batching over the per-token generate step.
 
-Every slot owns ``max_len`` rows of every layer's ring cache (the middle's
-hold ``soi_mid_len`` frames). Prompts are padded to a bucket length
-(``prefill_buckets``, default "pow2") and masked by their true length, so
-the prefill runs at a few fixed shapes whatever the traffic.
+Two cache layouts, selected by ``paged``:
+
+* dense rings (default): every slot owns ``max_len`` rows of every layer's
+  ring cache (the middle's hold ``soi_mid_len`` frames);
+* paged pools: slots hold page *lists* into pools shared by every slot
+  (``repro_torch.engine.pages``), allocated on insert, grown one page at a
+  time as a slot's clock crosses a page boundary, and released on
+  ``free_slot``. The SOI middle pages at 1/stride the outer rate.
+
+Prompts are padded to a bucket length (``prefill_buckets``, default "pow2")
+and masked by their true length, or, with ``prefill_chunk=C``, appended C
+tokens at a time by the chunk program looped on the host.
+
+``prefix_cache=True`` (needs ``paged`` and ``prefill_chunk``) layers the
+copy-on-write prefix page cache on top: a host-side chain-hash index over
+token-id page blocks maps a prompt's leading pages to pages already in the
+pools. On a hit, chunked prefill skips the cached chunks: it copies the
+cached pages into the batch-1 prefill buffer (hydration, bit-identical
+K/V), restores the SOI conv window and queue from the entry's host
+snapshots and resumes at the cached boundary; ``insert`` maps the shared
+pages by refcount instead of copying. A decode write into a shared page
+first copies it into a fresh page (COW), so sharers never observe each
+other. Entries pin their pages and are evicted LRU under pool pressure.
 
 The engine keeps a host mirror of every slot's clock (``_clock``) and
 occupancy (``_occupied``). From them it tells the step, as a Python bool,
 whether some active slot sits at SOI phase 0 — the middle's skip needs no
-device read. ``insert`` sets the slot's clock to the prompt's true length
-(the reference's dense insert leaves its host clock as it was; its paged
-insert sets it).
+device read — and it decides every page allocation. ``insert`` sets the
+slot's clock to the prompt's true length (the reference's dense insert
+leaves its host clock as it was; its paged insert sets it).
 
 The decode state is updated in place: ``insert`` copies a prefix into a
-slot's rows, ``generate`` writes each slot's new K/V, ``free_slot`` scrubs
-the slot's position lanes. The paged layout, chunked prefill, the prefix
-cache, speculative windows and telemetry are later slices: their options
-raise.
+slot's rows or pages, ``generate`` writes each slot's new K/V, ``free_slot``
+scrubs the slot's rows or freed pages. A paged engine drives ONE live
+decode state and must see every ``insert`` / ``generate`` / ``free_slot`` of
+it. Page maps reach the device as int32 tensors, uploaded (from a fresh
+host copy) only when the host table's ``version`` has moved. Speculative
+windows and telemetry are later slices: their options raise.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -29,29 +51,62 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelCfg
 from repro_torch.engine.api import Engine, Prefix, ResultTokens
+from repro_torch.engine.pages import (PageTable, PrefixEntry, PrefixIndex,
+                                      chain_keys)
 from repro_torch.engine.step import generate_step
+from repro_torch.kernels import ops as kops
+from repro_torch.models import attention as attn
 from repro_torch.models import decode as D
 from repro_torch.models.transformer import cast_params
 
 
-def _groups(cfg: ModelCfg) -> tuple:
-    return ("segments",) if cfg.soi is None else ("pre", "mid", "post")
+def _table_groups(cfg: ModelCfg) -> dict:
+    """The cache groups each page table ("outer", "mid") backs."""
+    if cfg.soi is None:
+        return {"outer": ("segments",)}
+    return {"outer": ("pre", "post"), "mid": ("mid",)}
+
+
+def _paged_put(pool, dense, rows):
+    """Map a batch-1 dense prefill cache ``dense`` (1, s_log, ...) onto pool
+    rows ``rows`` ((n_pp,) page ids), in place. Entries 0 land on the null
+    page: prefix rows past the allocated prompt pages, and rows covered by
+    *shared* pages, which must never be re-written, are discarded."""
+    n_pp = rows.shape[0]
+    vals = dense[0].reshape((n_pp, pool.shape[1]) + tuple(pool.shape[2:]))
+    pool[rows.long()] = vals.to(pool.dtype)
 
 
 @torch.no_grad()
-def insert_state(cfg: ModelCfg, dst: dict, src: dict, slot: int) -> dict:
-    """Copy the batch-1 model state ``src`` into row ``slot`` of ``dst``, in
+def insert_state(cfg: ModelCfg, dst: dict, src: dict, slot: int, *,
+                 page_rows=None) -> dict:
+    """Copy the batch-1 model state ``src`` into slot ``slot`` of ``dst``, in
     place: clock, every layer's K/V/positions and, for SOI, the conv window
-    and the queue."""
+    and the queue. With ``page_rows`` ({"outer": (n_pp,), "mid": (n_ppm,)}
+    write targets) the caches go into the pools' pages instead of batch
+    rows; 0 entries (shared or unbacked pages) write onto the null page."""
     dst["t"][slot] = src["t"][0]
     if cfg.soi is not None:
         for key in ("conv_buf", "queue"):
             dst[key][slot].copy_(src[key][0])
-    for group in _groups(cfg):
-        for d_c, s_c in zip(dst[group], src[group]):
-            for name, d_leaf in d_c.items():
-                d_leaf[slot].copy_(s_c[name][0])
+    for table, groups in _table_groups(cfg).items():
+        prow = None if page_rows is None else page_rows[table]
+        for group in groups:
+            for d_c, s_c in zip(dst[group], src[group]):
+                for name, d_leaf in d_c.items():
+                    if prow is None:
+                        d_leaf[slot].copy_(s_c[name][0])
+                    else:
+                        _paged_put(d_leaf, s_c[name], prow)
     return dst
+
+
+def _copy_group_pages(caches, srcs, dsts):
+    """Apply a COW pair set to every pool leaf of a cache group: one
+    ``copy_pages`` launch per leaf (k, v, pos of every layer)."""
+    for c in caches:
+        for pool in c.values():
+            kops.copy_pages(pool, srcs, dsts)
 
 
 class SOIEngine(Engine):
@@ -61,16 +116,21 @@ class SOIEngine(Engine):
     "active": (B,)}``: ``tokens`` holds each slot's next input token (the
     greedy feedback; harnesses may replace it to force inputs), ``active``
     gates result validity.
+
+    ``paged=True`` swaps the dense rings for page pools of
+    ``slots * pages_per_slot + 1`` pages per cache group (the null page
+    included), which back every slot at full length.
+    ``prefill_chunk=C`` switches to chunked prefill; ``prefix_cache=True``
+    (needs both) shares prompt-prefix pages copy-on-write.
     """
 
     def __init__(self, cfg: ModelCfg, *, max_concurrent_decodes: int = 8,
                  max_len: int = 256, device=None, paged: bool = False,
-                 prefill_buckets="pow2", prefill_chunk: int | None = None,
+                 page_size: int = 16, prefill_buckets="pow2",
+                 prefill_chunk: int | None = None,
                  prefix_cache: bool = False, speculate: int | None = None,
                  telemetry: bool = False):
-        for name, val in (("paged", paged), ("prefill_chunk", prefill_chunk),
-                          ("prefix_cache", prefix_cache),
-                          ("speculate", speculate),
+        for name, val in (("speculate", speculate),
                           ("telemetry", telemetry)):
             if val:
                 raise NotImplementedError(
@@ -84,6 +144,62 @@ class SOIEngine(Engine):
         self._clock = np.zeros(self._slots, np.int64)
         self._masked_ok = D.supports_masked_prefill(cfg)
         self._buckets = self._resolve_buckets(prefill_buckets)
+        self._chunk = int(prefill_chunk) if prefill_chunk else None
+        if self._chunk is not None:
+            if not self._masked_ok:
+                raise ValueError(f"chunked prefill is unsupported for config "
+                                 f"'{cfg.name}' (see "
+                                 f"models.decode.supports_masked_prefill)")
+            if cfg.soi is not None and self._chunk % cfg.soi.stride:
+                raise ValueError(
+                    f"prefill_chunk {self._chunk} must be a multiple of the "
+                    f"SOI stride {cfg.soi.stride}")
+            if self._chunk > self.max_len:
+                raise ValueError(f"prefill_chunk {self._chunk} exceeds "
+                                 f"max_len {self.max_len}")
+        self._paged = bool(paged)
+        self._spec = None                 # PagedKV geometry when paged
+        self._pt_outer = self._pt_mid = None
+        if self._paged:
+            outer_len, mid_len = D.paged_group_lens(cfg, self.max_len)
+            for name, ln in (("outer", outer_len), ("middle", mid_len)):
+                if ln and ln % page_size:
+                    raise ValueError(f"page_size {page_size} must divide the "
+                                     f"{name} cache length {ln}")
+            self._outer_len, self._mid_len = outer_len, mid_len
+            self._spec = attn.PagedKV(
+                page_size, max(self._slots * (outer_len // page_size) + 1, 2),
+                max(self._slots * (mid_len // page_size) + 1, 2))
+        self._prefix_cache = bool(prefix_cache)
+        self._prefix_index = PrefixIndex()
+        self._pc_stats = {"hits": 0, "misses": 0, "tokens_skipped": 0,
+                          "pages_shared": 0, "cow_copies": 0, "evictions": 0}
+        if self._prefix_cache:
+            if not self._paged:
+                raise ValueError("prefix_cache=True requires paged=True "
+                                 "(sharing maps pool pages across slots)")
+            if self._chunk is None:
+                raise ValueError("prefix_cache=True requires prefill_chunk: "
+                                 "the prefill skip fast-forwards the chunk "
+                                 "loop past cached chunks")
+            align = math.lcm(self._chunk, self._spec.page_size)
+            if cfg.soi is not None:
+                # middle pages hold page_size frames = page_size*stride
+                # tokens: a boundary must close a middle page exactly
+                align = math.lcm(align, cfg.soi.stride * self._spec.page_size)
+            if align > self.max_len:
+                raise ValueError(
+                    f"prefix-cache boundary alignment {align} (lcm of chunk, "
+                    f"page size, stride*page size) exceeds max_len "
+                    f"{self.max_len}: no prompt could ever hit")
+            self._pc_align = align
+        # COW pairs found while backing a step's writes, flushed right before
+        # the step (or before any eviction scrub, which could otherwise free
+        # and scrub a pending pair's source page first)
+        self._cow_pending = {"outer": [], "mid": []}
+        # PageTable.version of each page map's last device upload
+        self._pm_version = {"outer": -1, "mid": -1}
+        self._live = None           # the ONE live decode state (paged)
         # host-side step counters: generate steps, and steps in which the
         # compressed middle ran (some active slot at phase 0)
         self.steps = 0
@@ -115,23 +231,246 @@ class SOIEngine(Engine):
     def max_concurrent_decodes(self) -> int:
         return self._slots
 
+    @property
+    def prefix_cache_enabled(self) -> bool:
+        return self._prefix_cache
+
+    @property
+    def prefix_cache_stats(self) -> dict:
+        """Prefix-cache counters: lookup hits/misses (+ ``hit_rate``), prompt
+        tokens whose prefill was skipped, pages mapped by refcount instead
+        of copied (never the null page), COW copies, LRU evictions, and the
+        live index ``entries``. They reset with ``init_decode_state``."""
+        s = dict(self._pc_stats)
+        total = s["hits"] + s["misses"]
+        s["hit_rate"] = s["hits"] / total if total else 0.0
+        s["entries"] = len(self._prefix_index)
+        return s
+
+    def pool_stats(self) -> dict:
+        """Page-pool residency per cache group (paged engines; {} dense):
+        real pages, free, used, and the lifetime high-water mark."""
+        out = {}
+        for name, pt in (("outer", self._pt_outer), ("mid", self._pt_mid)):
+            if pt is not None:
+                out[name] = {"n_pages": pt.n_pages - 1,
+                             "free": pt.free_pages, "used": pt.used_pages,
+                             "high_water": pt.high_water}
+        return out
+
+    # -- page maps, COW, scrub -------------------------------------------
+
+    def _tables(self):
+        return (("outer", self._pt_outer), ("mid", self._pt_mid))
+
+    def _upload_map(self, name: str, pt: PageTable) -> torch.Tensor:
+        # a fresh host copy, so later host mutations of ``pt.map`` can never
+        # race with the transfer
+        self._pm_version[name] = pt.version
+        return torch.from_numpy(pt.map.copy()).to(self.device)
+
+    def _refresh_page_maps(self, model: dict) -> dict:
+        """Re-upload only the page maps whose host table changed since their
+        last upload; a steady-state step costs no host->device copy."""
+        for name, pt in self._tables():
+            if pt is not None and self._pm_version[name] != pt.version:
+                model["pages"][name] = self._upload_map(name, pt)
+        return model
+
+    def _ids(self, pids) -> torch.Tensor:
+        return torch.tensor(np.asarray(pids, np.int32), dtype=torch.int32,
+                            device=self.device)
+
+    def _flush_cow(self, decode_state):
+        """Copy every pending COW pair: per cache group one (n,) pair table,
+        one ``copy_pages`` launch per pool leaf."""
+        pending = self._cow_pending
+        if not pending["outer"] and not pending["mid"]:
+            return decode_state
+        self._cow_pending = {"outer": [], "mid": []}
+        model = decode_state["model"]
+        for table, pairs in pending.items():
+            if not pairs:
+                continue
+            srcs = self._ids([a for a, _ in pairs])
+            dsts = self._ids([b for _, b in pairs])
+            for key in _table_groups(self.cfg)[table]:
+                _copy_group_pages(model[key], srcs, dsts)
+        self._live = decode_state
+        return decode_state
+
+    @torch.no_grad()
+    def _scrub(self, decode_state, freed: dict):
+        """Mark freed pages empty (pos = -1) in every pool of their group,
+        so a later owner cannot read a freed request's tokens."""
+        model = decode_state["model"]
+        for table, pids in freed.items():
+            if len(pids) == 0:
+                continue
+            rows = self._ids(pids).long()
+            for key in _table_groups(self.cfg)[table]:
+                for c in model[key]:
+                    c["pos"][rows] = -1
+        self._live = decode_state
+        return decode_state
+
     def init_decode_state(self, params):
         params = cast_params(params, self.cfg)
         self._check_params(params)
         ms = D.init_decode_state(params, self.cfg, self._slots,
-                                 max_len=self.max_len)
+                                 max_len=self.max_len, paged=self._spec)
         self._occupied[:] = False
         self._clock[:] = 0
-        return {"model": ms,
-                "tokens": torch.zeros(self._slots, dtype=torch.int32,
-                                      device=self.device),
-                "active": torch.zeros(self._slots, dtype=torch.bool,
-                                      device=self.device)}
+        self._cow_pending = {"outer": [], "mid": []}
+        # a fresh decode state invalidates every resident page: the prefix
+        # index and its counters restart with it
+        self._prefix_index = PrefixIndex()
+        self._pc_stats = {k: 0 for k in self._pc_stats}
+        if self._paged:
+            p_sz = self._spec.page_size
+            self._pt_outer = (PageTable(self._slots, self._outer_len, p_sz,
+                                        self._spec.n_pages)
+                              if self._outer_len else None)
+            self._pt_mid = (PageTable(self._slots, self._mid_len, p_sz,
+                                      self._spec.n_pages_mid)
+                            if self._mid_len else None)
+            ms["pages"] = {name: self._upload_map(name, pt)
+                           for name, pt in self._tables() if pt is not None}
+        state = {"model": ms,
+                 "tokens": torch.zeros(self._slots, dtype=torch.int32,
+                                       device=self.device),
+                 "active": torch.zeros(self._slots, dtype=torch.bool,
+                                       device=self.device)}
+        self._live = state
+        return state
 
     def _check_params(self, params):
         if params.embed.device.type != self.device.type:
             raise ValueError(f"params are on {params.embed.device}, the "
                              f"engine on {self.device}")
+
+    # -- prefix-cache host machinery -------------------------------------
+
+    def _lookup_prefix(self, toks: np.ndarray, tl: int, keys: dict):
+        """Longest registered boundary R (aligned, at least one chunk below
+        ``tl``) whose tokens [0, R) are cached. Returns (R, key, entry) or
+        None."""
+        a = self._pc_align
+        r_max = ((tl - 1) // self._chunk) * self._chunk
+        r_max = (r_max // a) * a
+        for r in range(r_max, a - 1, -a):
+            key = keys.get(r)
+            if key is None:
+                continue
+            e = self._prefix_index.get(key, toks[:r])
+            if e is not None and e.length == r:
+                return r, key, e
+        return None
+
+    def _evict_entry(self, decode_state):
+        """Drop the LRU prefix-index entry; scrub the pages it held last."""
+        # pending COW copies land first: the eviction may free (and scrub)
+        # the last reference to a pending pair's source page
+        decode_state = self._flush_cow(decode_state)
+        e = self._prefix_index.pop_lru()
+        if e is None:
+            return decode_state
+        self._pc_stats["evictions"] += 1
+        freed = {"outer": [p for p in e.outer_pages
+                           if self._pt_outer.unpin(p)]}
+        if self._pt_mid is not None:
+            freed["mid"] = [p for p in e.mid_pages if self._pt_mid.unpin(p)]
+        return self._scrub(decode_state, freed)
+
+    def _make_room(self, pt, n: int, decode_state):
+        """Evict prefix-index entries (LRU) until ``pt`` has ``n`` free
+        pages or the index is empty; allocation stays the authority on
+        exhaustion."""
+        while (pt.free_pages < n and self._prefix_cache
+               and len(self._prefix_index)):
+            decode_state = self._evict_entry(decode_state)
+        return decode_state
+
+    def _shared_plan(self, meta, true_len: int) -> tuple:
+        """Resolve a prefill-time hit into {logical page: page id} adoption
+        maps against the *current* index (the hit's pages may have been
+        evicted since; the hydrated prefill state keeps the insert correct
+        either way). Ring pages the prompt's suffix wrapped onto are left
+        out: they diverged in the prefill buffer."""
+        if (not self._prefix_cache or not meta or not meta.get("hit")
+                or self._pt_outer is None):
+            return {}, {}
+        r = meta["hit"]
+        e = self._prefix_index.get(meta["hit_key"], meta["tokens"][:r])
+        if e is None or e.length != r:
+            return {}, {}
+        p_sz = self._spec.page_size
+        s_log = self._pt_outer.logical_len
+        over = set()
+        if true_len > r:
+            for p in range(max(r, true_len - s_log), true_len):
+                over.add((p % s_log) // p_sz)
+        shared_outer = {i: e.outer_pages[i] for i in range(r // p_sz)
+                        if i not in over and e.outer_pages[i] > 0}
+        shared_mid = {}
+        if self._pt_mid is not None:
+            st = self.cfg.soi.stride
+            m_log = self._pt_mid.logical_len
+            f_r, f_t = r // st, -(-true_len // st)
+            over_m = set()
+            if f_t > f_r:
+                for fp in range(max(f_r, f_t - m_log), f_t):
+                    over_m.add((fp % m_log) // p_sz)
+            shared_mid = {i: e.mid_pages[i] for i in range(f_r // p_sz)
+                          if i not in over_m and e.mid_pages[i] > 0}
+        return shared_outer, shared_mid
+
+    def _register_prefix(self, s_i: int, meta: dict, tl: int):
+        """Pin and index the inserted slot's full prefix pages at every
+        aligned boundary, so later prompts sharing those token blocks hit.
+        Skipped when the prefill wrapped a ring (page contents then depend
+        on the whole length, not the prefix)."""
+        pt_o, pt_m = self._pt_outer, self._pt_mid
+        if pt_o is None or tl > pt_o.logical_len:
+            return
+        st = self.cfg.soi.stride if self.cfg.soi is not None else 1
+        if pt_m is not None and -(-tl // st) > pt_m.logical_len:
+            return
+        p_sz = self._spec.page_size
+        soi = self.cfg.soi is not None
+        for b in sorted(meta["keys"]):
+            key = meta["keys"][b]
+            if b > tl or key in self._prefix_index:
+                continue
+            if soi and b not in meta["snapshots"]:
+                continue        # no carry snapshot: cannot resume here
+            outer = tuple(int(pt_o.map[s_i, j]) for j in range(b // p_sz))
+            midp = ()
+            if pt_m is not None:
+                midp = tuple(int(pt_m.map[s_i, j])
+                             for j in range((b // st) // p_sz))
+            if any(p <= 0 for p in outer) or any(p <= 0 for p in midp):
+                continue        # never index the null page
+            conv = queue = None
+            if soi:
+                conv, queue = meta["snapshots"][b]
+            for p in outer:
+                pt_o.pin(p)
+            for p in midp:
+                pt_m.pin(p)
+            self._prefix_index.put(key, PrefixEntry(
+                b, np.asarray(meta["tokens"][:b]).copy(), outer, midp,
+                conv, queue))
+
+    def _evictable_pages(self, pt, which: str) -> int:
+        """Pages only the prefix index keeps alive (refs == pin count)."""
+        if not self._prefix_cache or pt is None:
+            return 0
+        pins: dict = {}
+        for e in self._prefix_index.entries():
+            for pid in (e.outer_pages if which == "outer" else e.mid_pages):
+                pins[pid] = pins.get(pid, 0) + 1
+        return sum(1 for pid, c in pins.items() if pt.refs[pid] == c)
 
     # -- phase-aligned admission ------------------------------------------
 
@@ -159,14 +498,30 @@ class SOIEngine(Engine):
 
     def can_insert(self, true_length: int, slot: int | None = None,
                    phase_align=False) -> bool:
-        """Admission check. Dense slots always have room; ``phase_align``
-        defers an insert whose slot would land off the batch's phase class
-        (``True``: by up to stride-1 steps; an int bounds the wait)."""
+        """Admission check: can a ``true_length``-token prompt be backed now,
+        counting free pages, the pages ``slot``'s release would free (when
+        occupied) and those LRU eviction would free? Dense slots always have
+        room. ``phase_align`` defers an insert whose slot would land off
+        the batch's phase class (``True``: by up to stride-1 steps; an int
+        bounds the wait)."""
         if phase_align:
             cap = (self.cfg.soi.stride - 1
                    if phase_align is True and self.cfg.soi is not None
                    else int(phase_align))
             if 0 < self.phase_gap(true_length) <= cap:
+                return False
+        if not self._paged or self._pt_outer is None:
+            return True
+        needs = [(self._pt_outer, "outer", true_length)]
+        if self._pt_mid is not None:
+            needs.append((self._pt_mid, "mid",
+                          -(-true_length // self.cfg.soi.stride)))
+        for pt, which, n in needs:
+            have = (pt.freeable_after_release(slot)
+                    if slot is not None and self._occupied[slot]
+                    else pt.free_pages)
+            have += self._evictable_pages(pt, which)
+            if have < pt.pages_needed(n):
                 return False
         return True
 
@@ -192,6 +547,8 @@ class SOIEngine(Engine):
         if not 0 < tl <= tokens.shape[1]:
             raise ValueError(f"true_length {tl} outside (0, "
                              f"{tokens.shape[1]}]")
+        if self._chunk is not None:
+            return self._prefill_chunked(params, tokens, tl)
         if self._buckets is not None:
             bucket = next(b for b in self._buckets if b >= tl)
             pad = bucket - int(tokens.shape[1])
@@ -208,24 +565,217 @@ class SOIEngine(Engine):
         return Prefix(state=ms, first_token=first, logits=logits, length=tl,
                       true_length=tl)
 
+    @torch.no_grad()
+    def _hydrate(self, ms: dict, rows: dict, n_tok: int, n_frames: int):
+        """Fill the batch-1 prefill buffer's first ``n_tok`` rows (middle:
+        ``n_frames``) from the live pools' pages ``rows``."""
+        live = self._live["model"]
+        for table, groups in _table_groups(self.cfg).items():
+            limit = n_frames if table == "mid" else n_tok
+            for group in groups:
+                for d_c, p_c in zip(ms[group], live[group]):
+                    attn.hydrate_cache_prefix(d_c, p_c, rows[table], limit)
+
+    def _prefill_chunked(self, params, tokens, tl: int) -> Prefix:
+        """Host loop over the chunk program: pad the prompt to a chunk
+        multiple, append chunk by chunk, keep the logits of the chunk that
+        holds position true_length-1 (chunks past it are all pad and are
+        not run).
+
+        With the prefix cache, a hit at boundary R hydrates the cached
+        pages into the fresh prefill buffer, restores the SOI conv window
+        and queue from the entry's host snapshots, and starts the loop at
+        chunk R/C. The final chunk always runs, so the first token never
+        comes from the cache. At every aligned boundary the loop passes it
+        takes a host snapshot of the SOI carries (a device read), which a
+        later hit resumes from."""
+        c = self._chunk
+        n = (tl - 1) // c + 1
+        pad = n * c - int(tokens.shape[1])
+        if pad > 0:
+            tokens = torch.nn.functional.pad(tokens, (0, pad))
+        elif pad < 0:
+            tokens = tokens[:, :n * c]
+        ms = D.init_decode_state(params, self.cfg, 1, max_len=self.max_len)
+        i0 = 0
+        meta = None
+        soi = self.cfg.soi is not None
+        if self._prefix_cache:
+            toks_np = tokens[0, :tl].cpu().numpy()
+            block_keys = chain_keys(toks_np, self._spec.page_size)
+            meta = {"hit": 0, "hit_key": None, "tokens": toks_np,
+                    "keys": {b: k for b, k in block_keys.items()
+                             if b % self._pc_align == 0},
+                    "snapshots": {}}
+            hit = self._lookup_prefix(toks_np, tl, block_keys)
+            if hit is not None:
+                r, key, e = hit
+                rows = {"outer": self._ids(e.outer_pages)}
+                if self._pt_mid is not None:
+                    rows["mid"] = self._ids(e.mid_pages)
+                self._hydrate(ms, rows, r,
+                              r // self.cfg.soi.stride if soi else 0)
+                if soi:
+                    ms["conv_buf"] = e.conv_buf.to(self.device, copy=True)
+                    ms["queue"] = e.queue.to(self.device, copy=True)
+                i0 = r // c
+                meta["hit"], meta["hit_key"] = r, key
+                self._pc_stats["hits"] += 1
+                self._pc_stats["tokens_skipped"] += r
+            else:
+                self._pc_stats["misses"] += 1
+        logits = None
+        for i in range(i0, n):
+            logits, ms = D.prefill_chunk(params, self.cfg, ms,
+                                         tokens[:, i * c:(i + 1) * c], i * c,
+                                         tl)
+            b = (i + 1) * c
+            if (meta is not None and soi and b in meta["keys"]
+                    and meta["keys"][b] not in self._prefix_index):
+                meta["snapshots"][b] = (ms["conv_buf"].to("cpu", copy=True),
+                                        ms["queue"].to("cpu", copy=True))
+        first = torch.argmax(logits, dim=-1).to(torch.int32)
+        return Prefix(state=ms, first_token=first, logits=logits, length=tl,
+                      true_length=tl, cache_meta=meta)
+
     # -- insert / generate / free ----------------------------------------
 
     def insert(self, prefix: Prefix, decode_state, slot: int):
-        """Install a prefilled request into ``slot`` (in place)."""
+        """Install a prefilled request into ``slot`` (in place). Paged: back
+        the prompt's pages (adopting a prefix hit's shared pages by
+        refcount), copy the prefix into the fresh ones, and index the new
+        prefix boundaries."""
         s_i = int(slot)
         if not 0 <= s_i < self._slots:
             raise ValueError(f"slot {slot} out of range [0, {self._slots})")
-        insert_state(self.cfg, decode_state["model"], prefix.state, s_i)
+        if not self._paged:
+            insert_state(self.cfg, decode_state["model"], prefix.state, s_i)
+            self._install(decode_state, prefix, s_i)
+            return decode_state
+        decode_state = self._flush_cow(decode_state)
+        true_len = prefix.true_length
+        frames = (-(-true_len // self.cfg.soi.stride)
+                  if self.cfg.soi is not None else 0)
+        meta = prefix.cache_meta
+        shared_outer, shared_mid = self._shared_plan(meta, true_len)
+        # hold the shared pages across the evictions/frees below: losing the
+        # hit entry mid-insert must not free pages about to be adopted
+        temp_pins = ([(self._pt_outer, p) for p in shared_outer.values()]
+                     + [(self._pt_mid, p) for p in shared_mid.values()])
+        for pt, pid in temp_pins:
+            pt.pin(pid)
+        try:
+            fresh = []
+            if self._pt_outer is not None:
+                fresh.append((self._pt_outer,
+                              self._pt_outer.pages_needed(true_len)
+                              - len(shared_outer)))
+            if self._pt_mid is not None:
+                fresh.append((self._pt_mid,
+                              self._pt_mid.pages_needed(frames)
+                              - len(shared_mid)))
+            if self._occupied[s_i]:
+                # check capacity before releasing the slot, so a failure
+                # leaves the old request in place
+                for pt, need in fresh:
+                    while (pt.freeable_after_release(s_i) < need
+                           and self._prefix_cache
+                           and len(self._prefix_index)):
+                        decode_state = self._evict_entry(decode_state)
+                    if pt.freeable_after_release(s_i) < need:
+                        raise RuntimeError(
+                            f"KV page pool exhausted: re-inserting into "
+                            f"slot {s_i} needs {need} fresh pages but only "
+                            f"{pt.free_pages} (+ the slot's own) are free")
+                decode_state = self.free_slot(decode_state, s_i)
+            for pt, need in fresh:
+                decode_state = self._make_room(pt, need, decode_state)
+            page_rows = {}
+            try:
+                for name, pt, n_pos, shared in (
+                        ("outer", self._pt_outer, true_len, shared_outer),
+                        ("mid", self._pt_mid, frames, shared_mid)):
+                    if pt is not None:
+                        _, write = pt.alloc_slot(s_i, n_pos, shared=shared)
+                        page_rows[name] = self._ids(write)
+                insert_state(self.cfg, decode_state["model"], prefix.state,
+                             s_i, page_rows=page_rows)
+            except Exception:
+                # transactional: the slot's pages go back, adopted shared
+                # pages drop their new reference, and freed pages are
+                # scrubbed (a failed copy may have written some)
+                freed = {name: [p for p in pt.release(s_i) if p > 0]
+                         for name, pt in self._tables() if pt is not None}
+                self._scrub(decode_state, freed)
+                raise
+        except Exception:
+            decode_state = self._unpin_scrubbed(temp_pins, decode_state)
+            raise
+        decode_state = self._unpin_scrubbed(temp_pins, decode_state)
+        self._pc_stats["pages_shared"] += (
+            sum(1 for p in shared_outer.values() if p > 0)
+            + sum(1 for p in shared_mid.values() if p > 0))
+        self._install(decode_state, prefix, s_i)
+        if self._prefix_cache and meta:
+            self._register_prefix(s_i, meta, true_len)
+        return decode_state
+
+    def _install(self, decode_state, prefix: Prefix, s_i: int):
         decode_state["tokens"][s_i] = prefix.first_token[0]
         decode_state["active"][s_i] = True
         self._clock[s_i] = prefix.true_length
         self._occupied[s_i] = True
+        self._live = decode_state
+
+    def _unpin_scrubbed(self, temp_pins, decode_state):
+        """Drop insert-scoped temp pins; scrub any page that hit refcount 0
+        (possible only when the hit entry was evicted during the insert)."""
+        freed = {"outer": [], "mid": []}
+        for pt, pid in temp_pins:
+            if pt.unpin(pid):
+                freed["outer" if pt is self._pt_outer else "mid"].append(pid)
+        return self._scrub(decode_state, freed)
+
+    def _back_write_page(self, decode_state, pt: PageTable, slot: int,
+                         pos: int, table: str):
+        """Make the page this step's write lands on present and exclusive:
+        allocate on first touch (grow-by-one), copy-on-write when the page
+        is shared (another slot or a prefix-index pin references it)."""
+        idx = (pos % pt.logical_len) // pt.page_size
+        pid = int(pt.map[slot, idx])
+        if pid == 0:
+            decode_state = self._make_room(pt, 1, decode_state)
+            pt.ensure(slot, pos)
+            return decode_state
+        if pt.refs[pid] > 1:
+            if pt.free_pages < 1:
+                decode_state = self._make_room(pt, 1, decode_state)
+            if pt.refs[pid] > 1:   # eviction may have just unshared it
+                old, new = pt.cow(slot, idx)
+                # deferred: the step's whole COW set flushes at once,
+                # right before the step
+                self._cow_pending[table].append((old, new))
+                self._pc_stats["cow_copies"] += 1
         return decode_state
 
     def generate(self, params, decode_state):
         """One step for every slot. Returns (decode_state, ResultTokens)."""
         params = cast_params(params, self.cfg)
         st = self.cfg.soi.stride if self.cfg.soi is not None else 1
+        if self._paged:
+            # back the row each live slot writes this step (grow-by-one and
+            # COW off shared prefix pages), flush the copies, then hand the
+            # changed maps to the step
+            for slot in np.nonzero(self._occupied)[0]:
+                t = int(self._clock[slot])
+                if self._pt_outer is not None:
+                    decode_state = self._back_write_page(
+                        decode_state, self._pt_outer, slot, t, "outer")
+                if self._pt_mid is not None and t % st == 0:
+                    decode_state = self._back_write_page(
+                        decode_state, self._pt_mid, slot, t // st, "mid")
+            decode_state = self._flush_cow(decode_state)
+            self._refresh_page_maps(decode_state["model"])
         run_mid_any = bool(np.any((self._clock % st == 0) & self._occupied))
         self.steps += 1
         self.mid_steps += int(run_mid_any)
@@ -243,14 +793,16 @@ class SOIEngine(Engine):
             ready = torch.cuda.Event()
             ready.record()
         new_ds = {"model": ms, "tokens": nxt, "active": active}
+        self._live = new_ds
         return new_ds, ResultTokens(data=data, logits=logits, host=host,
                                     ready=ready)
 
     @torch.no_grad()
     def free_slot(self, decode_state, slot: int):
-        """Mark ``slot`` unoccupied and scrub its cache positions (pos = -1)
-        so a freed request's tokens are unreadable; ``insert`` rewrites the
-        slot's rows wholesale on reuse."""
+        """Mark ``slot`` unoccupied. Dense: scrub its cache positions
+        (pos = -1), ``insert`` rewrites its rows on reuse. Paged: release
+        its pages and scrub those whose refcount hit zero; shared pages
+        keep their contents for the other holders."""
         s_i = int(slot)
         if not 0 <= s_i < self._slots:
             raise ValueError(f"slot {slot} out of range [0, {self._slots})")
@@ -258,10 +810,21 @@ class SOIEngine(Engine):
             raise ValueError(
                 f"free_slot({s_i}): slot is not occupied — it was never "
                 f"inserted into, or already freed (double-free)")
+        # pending COW pairs land before this release can recycle a pair's
+        # destination page
+        decode_state = self._flush_cow(decode_state)
         self._occupied[s_i] = False
         model = decode_state["model"]
-        for group in _groups(self.cfg):
-            for c in model[group]:
-                c["pos"][s_i] = -1
+        if self._paged:
+            freed = {name: [p for p in pt.release(s_i) if p > 0]
+                     for name, pt in self._tables() if pt is not None}
+            self._scrub(decode_state, freed)
+            self._clock[s_i] = 0
+        else:
+            for groups in _table_groups(self.cfg).values():
+                for group in groups:
+                    for c in model[group]:
+                        c["pos"][s_i] = -1
         decode_state["active"][s_i] = False
+        self._live = decode_state
         return decode_state

@@ -14,7 +14,13 @@ only when ``t % stride == 0``) is resolved per slot from the clock vector
     as a Python bool (``run_mid_any``) computed from its host clocks;
   * middle cache writes and the extrapolation-queue update are masked per
     slot on the device, so slots that are mid-window keep their cached
-    partial states while their neighbours recompute.
+    partial states while their neighbours recompute. On dense rings the
+    cache write takes a per-row ``commit`` mask; on paged pools the step
+    hands the middle the page map ``where(run_mid, mid_pages, 0)``
+    (reference ``engine/step.py:176-188``), so a mid-window slot's write
+    lands on the null page and its (discarded) read sees an empty cache.
+    The reference's ``_select_mid_caches(paged=True)`` then selects only
+    the leaves that are not attention pools — qwen3 has none.
 
 The step updates the decode state in place and returns it.
 """
@@ -57,8 +63,12 @@ def generate_step(params, cfg: ModelCfg, state: dict, tokens, *,
     if run_mid_any is None:
         run_mid_any = bool(run_mid.any())
 
+    pages = state.get("pages") or {}
+    outer_pg = pages.get("outer")
+    mid_pg = pages.get("mid")
+
     x = D._embed_one(params, cfg, tokens)
-    x = D._segment_decode(pre, state["pre"], cfg, x, t)
+    x = D._segment_decode(pre, state["pre"], cfg, x, t, pages=outer_pg)
     skip = x
     window = torch.cat([state["conv_buf"], x[:, None]], dim=1)  # (B, st, d)
     d = x.shape[-1]
@@ -67,8 +77,14 @@ def generate_step(params, cfg: ModelCfg, state: dict, tokens, *,
     if run_mid_any:
         # mid-window slots run the middle on a garbage window; only complete
         # windows commit their frame to the middle's caches
-        xm = D._segment_decode(mid, state["mid"], cfg, xc, t // st,
-                               commit=run_mid)
+        if mid_pg is None:
+            xm = D._segment_decode(mid, state["mid"], cfg, xc, t // st,
+                                   commit=run_mid)
+        else:
+            mp = torch.where(run_mid[:, None], mid_pg,
+                             torch.zeros_like(mid_pg))
+            xm = D._segment_decode(mid, state["mid"], cfg, xc, t // st,
+                                   pages=mp)
     else:
         xm = torch.zeros_like(xc)
 
@@ -86,6 +102,7 @@ def generate_step(params, cfg: ModelCfg, state: dict, tokens, *,
 
     fused = torch.matmul(torch.cat([xu, skip], dim=-1),
                          params.soi_fuse.to(x.dtype))
-    x = D._segment_decode(post, state["post"], cfg, fused, t)
+    x = D._segment_decode(post, state["post"], cfg, fused, t,
+                          pages=outer_pg)
     state["t"] = t + 1 if active is None else torch.where(active, t + 1, t)
     return D._logits_one(params, cfg, x), state

@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures of the entry points (see the ``extern "C"`` functions)
 SIGNATURES = {
@@ -39,6 +40,11 @@ SIGNATURES = {
     "repro_flash_attention": [_P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
                               _P],
+    "repro_chunk_attention": [_P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    "repro_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "repro_copy_pages": [_P, _P, _P, _I, _I, _L, _P],
 }
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}

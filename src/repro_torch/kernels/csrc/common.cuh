@@ -3,6 +3,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace repro_torch {
 
@@ -22,6 +23,34 @@ template <> __device__ __forceinline__ float from_f32<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16
 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// Loads P consecutive elements at p (aligned to P * sizeof(T) when that is
+// 4, 8 or 16 bytes) as float32.
+template <typename T, int P>
+__device__ __forceinline__ void load_f32(const T* p, float (&r)[P]) {
+  constexpr int kBytes = P * sizeof(T);
+  if constexpr (kBytes == 16) {
+    uint4 u = *reinterpret_cast<const uint4*>(p);
+    const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int j = 0; j < P; ++j) r[j] = to_f32(e[j]);
+  } else if constexpr (kBytes == 8) {
+    uint2 u = *reinterpret_cast<const uint2*>(p);
+    const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int j = 0; j < P; ++j) r[j] = to_f32(e[j]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < P; ++j) r[j] = to_f32(p[j]);
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
 }
 
 // dtype codes shared with the Python wrappers (kernels/_build.py)

@@ -31,42 +31,12 @@
 // next step.
 #include "common.cuh"
 
-#include <stdint.h>
-
 using namespace repro_torch;
 
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kChunk = 8;
-
-// Loads P consecutive elements at p (aligned to P * sizeof(T) when that is
-// 4, 8 or 16 bytes) as float32.
-template <typename T, int P>
-__device__ __forceinline__ void load_f32(const T* p, float (&r)[P]) {
-  constexpr int kBytes = P * sizeof(T);
-  if constexpr (kBytes == 16) {
-    uint4 u = *reinterpret_cast<const uint4*>(p);
-    const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-    for (int j = 0; j < P; ++j) r[j] = to_f32(e[j]);
-  } else if constexpr (kBytes == 8) {
-    uint2 u = *reinterpret_cast<const uint2*>(p);
-    const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-    for (int j = 0; j < P; ++j) r[j] = to_f32(e[j]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < P; ++j) r[j] = to_f32(p[j]);
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 template <typename T, int G, int DH>
 __global__ void __launch_bounds__(kWarps * 32)

@@ -1,4 +1,5 @@
-"""Single-token decode attention against a dense ring KV cache.
+"""Single-token decode attention against a dense ring KV cache, and
+against paged KV pools.
 
 Kernel: ``csrc/decode_attention.cu`` (CUDA C++, sm_90a), which replaces the
 TPU kernel ``repro/kernels/decode_attention.py::decode_attention``.
@@ -14,9 +15,27 @@ TPU kernel ``repro/kernels/decode_attention.py::decode_attention``.
   comes out finite, as in the reference.
 * Held back by: ``B*Hkv`` blocks (32 at the serving batch) on 132 SMs.
 
-The plain version is ``ref.decode_attention`` (re-exported here as
-``plain``); a CPU tensor takes it, a CUDA tensor launches the kernel or
-raises. ``decode_attention.launches`` counts kernel launches.
+``paged_decode_attention`` is the same read over paged pools.
+
+Kernel: ``csrc/paged_decode_attention.cu`` (CUDA C++, sm_90a), which
+replaces the TPU kernel
+``repro/kernels/decode_attention.py::paged_decode_attention``.
+
+* Bound on the H100: the pool read — the K/V rows of the pages the slots
+  map, once, over the 3.35 TB/s memory rate.
+* Design: the dense kernel with its key walk through ``page_map[b, s/P]``,
+  row ``s % P`` of that page (each ``Hkv*dh`` apart in the pool), in the
+  dense kernel's key order. A key is live iff its map entry is ``> 0`` and
+  ``0 <= pos <= t`` (and ``pos > t - window``); null-page rows are never
+  loaded.
+* Held back by: the same ``B*Hkv`` blocks as the dense kernel, and the
+  dependent page-id load at the head of every chunk of keys.
+
+The plain versions are ``ref.decode_attention`` (re-exported here as
+``plain``) and ``ref.paged_decode_attention`` (``paged_plain``); a CPU
+tensor takes them, a CUDA tensor launches the kernel or raises.
+``decode_attention.launches`` and ``paged_decode_attention.launches`` count
+kernel launches.
 """
 
 from __future__ import annotations
@@ -27,6 +46,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
 plain = ref.decode_attention
+paged_plain = ref.paged_decode_attention
 
 _DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 HEAD_DIMS = (16, 32, 64, 128)
@@ -101,3 +121,82 @@ def decode_attention(q, k_cache, v_cache, cache_positions, q_position, *,
 
 
 decode_attention.launches = 0
+
+
+def _check_paged_cuda(q, k_pool, v_pool, pos_pool, page_map, q_position):
+    b, h, dh = q.shape
+    if k_pool.dim() != 4 or k_pool.shape[3] != dh:
+        raise ValueError(f"k_pool {tuple(k_pool.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    n_pages, p_sz, hkv, _ = k_pool.shape
+    if v_pool.shape != k_pool.shape:
+        raise ValueError(f"v_pool {tuple(v_pool.shape)} != k_pool "
+                         f"{tuple(k_pool.shape)}")
+    if tuple(pos_pool.shape) != (n_pages, p_sz):
+        raise ValueError(f"pos_pool {tuple(pos_pool.shape)} != "
+                         f"{(n_pages, p_sz)}")
+    if page_map.dim() != 2 or page_map.shape[0] != b:
+        raise ValueError(f"page_map {tuple(page_map.shape)}: want (B={b}, "
+                         f"n_pp)")
+    if tuple(q_position.shape) != (b,):
+        raise ValueError(f"q_position {tuple(q_position.shape)} != {(b,)}")
+    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype \
+            or v_pool.dtype != q.dtype:
+        raise TypeError(f"paged_decode_attention takes float32 or bfloat16 "
+                        f"q/pools of one dtype, got {q.dtype}/"
+                        f"{k_pool.dtype}/{v_pool.dtype}")
+    if (pos_pool.dtype != torch.int32 or page_map.dtype != torch.int32
+            or q_position.dtype != torch.int32):
+        raise TypeError("positions and page_map must be int32")
+    if h % hkv or h // hkv not in GROUPS or dh not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"paged_decode_attention kernel takes G in {GROUPS} and dh in "
+            f"{HEAD_DIMS}, got H={h} Hkv={hkv} dh={dh}")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                    ("pos_pool", pos_pool), ("page_map", page_map),
+                    ("q_position", q_position)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def paged_decode_attention(q, k_pool, v_pool, pos_pool, page_map, q_position,
+                           *, window=None, scale=None, logit_softcap=None):
+    """q: (B, H, dh); pools: (n_pages, P, Hkv, dh); pos_pool: (n_pages, P)
+    int32; page_map: (B, n_pp) int32 page ids in [0, n_pages), 0 = the
+    null page; q_position: (B,) int32. Returns (B, H, dh) in q's dtype."""
+    if q.device.type == "cpu":
+        return paged_plain(q, k_pool, v_pool, pos_pool, page_map, q_position,
+                           window=window, scale=scale,
+                           logit_softcap=logit_softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention: unsupported device "
+                         f"{q.device}")
+    if logit_softcap is not None:
+        raise NotImplementedError("paged_decode_attention kernel: "
+                                  "logit_softcap is not ported yet; see "
+                                  "ROADMAP.md")
+    _check_paged_cuda(q, k_pool, v_pool, pos_pool, page_map, q_position)
+    b, h, dh = q.shape
+    _, p_sz, hkv, _ = k_pool.shape
+    n_pp = page_map.shape[1]
+    scale = dh ** -0.5 if scale is None else float(scale)
+    win = 0 if window is None else int(window)
+    if window is not None and win <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _build.library().repro_paged_decode_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        pos_pool.data_ptr(), page_map.data_ptr(), q_position.data_ptr(),
+        out.data_ptr(), b, n_pp, p_sz, h, hkv, dh, win, scale,
+        _build.DTYPE_CODES[_DTYPES[q.dtype]], stream)
+    _build.check(rc, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

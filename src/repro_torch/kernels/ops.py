@@ -7,14 +7,22 @@ kernel or raises. There is no switch that sends a CUDA tensor to the plain
 version and no fallback after a failed launch: callers that want the plain
 result on the card call ``kernels.ref`` directly (``chip_smoke.py`` does).
 The model code reaches the kernels only through this module.
+
+``gather_pages`` (prefix-cache hydration) has no TPU kernel in the
+reference either: it is a plain PyTorch gather on every device.
 """
 
 from __future__ import annotations
 
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.chunk_attention import chunk_attention
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  paged_decode_attention)
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.page_copy import copy_pages
+from repro_torch.kernels.ref import gather_pages
 
-KERNELS = (decode_attention, flash_attention)
+KERNELS = (decode_attention, flash_attention, chunk_attention,
+           paged_decode_attention, copy_pages)
 
 
 def reset_launch_counts() -> None:
@@ -28,5 +36,6 @@ def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
-__all__ = ["decode_attention", "flash_attention", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["chunk_attention", "copy_pages", "decode_attention",
+           "flash_attention", "gather_pages", "launch_counts",
+           "paged_decode_attention", "reset_launch_counts"]

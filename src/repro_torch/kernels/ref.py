@@ -1,7 +1,9 @@
-"""Plain PyTorch versions of the attention kernels this port runs (the
-counterparts of ``repro.kernels.ref``). The CPU path of every kernel wrapper
-is the function here, and ``chip_smoke.py`` holds each CUDA kernel against
-it on the card.
+"""Plain PyTorch versions of the kernels this port runs — attention
+(dense, chunked, paged) and the page copy — and the page gather (the
+counterparts of ``repro.kernels.ref`` and of the reference path of
+``repro.kernels.ops``). The CPU path of every kernel wrapper is the
+function here, and ``chip_smoke.py`` holds each CUDA kernel against it on
+the card.
 
 Conventions, as in the reference:
   q        : (B, Sq, H,  dh)
@@ -112,3 +114,71 @@ def decode_attention(q, k_cache, v_cache, cache_positions, q_position, *,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", probs, v_cache.float())
     return out.reshape(b, h, dh).to(q.dtype)
+
+
+def chunk_attention(q, k, v, q_positions, k_positions, *, window=None,
+                    scale=None, logit_softcap=None):
+    """Chunked-prefill attention: ``repro.kernels.ref.naive_attention`` with
+    absolute positions (the reference's ``ops.chunk_attention`` off the
+    TPU).
+
+    q: (B, C, H, dh) at ``q_positions`` (B, C); k, v: (B, Sk, Hkv, dh) at
+    ``k_positions`` (B, Sk), ``-1`` marking an empty row. A key is live for
+    a query iff ``0 <= kp <= qp`` (and ``kp > qp - window``); a query row
+    with no live key (``qp = -1`` pad) averages V uniformly — finite."""
+    b, c, h, dh = q.shape
+    _, sk, hkv, _ = k.shape
+    dv = v.shape[-1]
+    g = h // hkv
+    scale = dh ** -0.5 if scale is None else scale
+    qg = q.reshape(b, c, hkv, g, dh).float()
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+    if logit_softcap:
+        scores = logit_softcap * torch.tanh(scores / logit_softcap)
+    allow = _mask(q_positions, k_positions, causal=True, window=window,
+                  prefix_len=0)                             # (B, C, Sk)
+    scores = torch.where(allow[:, None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    return out.reshape(b, c, h, dv).to(q.dtype)
+
+
+def gather_pages(pool, rows):
+    """``(n_pages, P, ...)`` pool and ``(n,)`` page ids -> the contiguous
+    logical view ``(n * P, ...)`` (``repro.kernels.ops.gather_pages``)."""
+    n = rows.shape[0]
+    return pool[rows.long()].reshape((n * pool.shape[1],) + pool.shape[2:])
+
+
+def paged_decode_attention(q, k_pool, v_pool, pos_pool, page_map, q_position,
+                           *, window=None, scale=None, logit_softcap=None):
+    """One-token attention against paged KV pools
+    (``repro.kernels.ops.paged_decode_attention`` off the TPU).
+
+    Pools are ``(n_pages, P, Hkv, dh)`` with page 0 the null page;
+    ``page_map`` (B, n_pp) int32 lists each slot's pages. The slot-major
+    dense view is gathered, entries reached through a ``page_map`` entry
+    that is not ``> 0`` read ``pos = -1``, and the dense
+    :func:`decode_attention` runs on it — so the plain paged read is
+    bit-exact against the plain dense read of the same logical rows."""
+    b, n_pp = page_map.shape
+    p_sz = pos_pool.shape[1]
+    idx = page_map.long()
+    k = k_pool[idx].reshape((b, n_pp * p_sz) + tuple(k_pool.shape[2:]))
+    v = v_pool[idx].reshape((b, n_pp * p_sz) + tuple(v_pool.shape[2:]))
+    pos = pos_pool[idx].reshape(b, n_pp * p_sz)
+    live_page = torch.repeat_interleave(page_map > 0, p_sz, dim=1)
+    pos = torch.where(live_page, pos, torch.full_like(pos, -1))
+    return decode_attention(q, k, v, pos, q_position, window=window,
+                            scale=scale, logit_softcap=logit_softcap)
+
+
+def copy_pages(pool, srcs, dsts):
+    """``pool[dsts[i]] = pool[srcs[i]]`` for every pair, in place
+    (``repro.kernels.ops.copy_pages``); ``(0, 0)`` padding pairs copy the
+    null page onto itself. No pair's ``dst`` is another pair's ``src`` (COW
+    destinations are fresh pages), so the order does not matter. Returns
+    ``pool``."""
+    pool[dsts.long()] = pool[srcs.long()]
+    return pool

@@ -1,12 +1,18 @@
 """Serving driver: slot-based continuous batching through
-``repro_torch.engine`` (port of ``repro.launch.serve``, dense path).
+``repro_torch.engine`` (port of ``repro.launch.serve``).
 
 Requests are prefilled one by one (prompt lengths staggered by
 ``--stagger``, so slots may sit at different SOI phases) and inserted into
 engine slots; one generate step then advances every slot per iteration.
 Prompts pad to a bucket (``--bucket``, default "pow2") and are masked by
-their true length. ``--phase-align`` delays each insert (at most stride-1
-steps) until its slot lands in the batch's phase class.
+their true length, or, with ``--chunk-size C``, are prefilled C tokens at a
+time. ``--paged`` keeps the KV caches in page pools (``--page-size``);
+``--prefix-cache`` (with ``--paged --chunk-size``) shares the pages of
+common prompt prefixes copy-on-write and skips their prefill, and
+``--shared-prefix N`` makes every request share its first N prompt tokens.
+A request the page pools cannot back is not admitted. ``--phase-align``
+delays each insert (at most stride-1 steps) until its slot lands in the
+batch's phase class.
 
 The loop drains each step's tokens one step late: after dispatching step k
 it reads step k-1's tokens, whose host copy was queued on the stream right
@@ -16,7 +22,9 @@ Weights are random, from ``--seed``; ``--device`` defaults to the GPU.
 ``main(argv)`` returns the generated tokens (requests x gen_len).
 
     python -m repro_torch.launch.serve --arch qwen3-1.7b --soi pp \\
-        --batch 4 --prompt-len 1024 --stagger 2 --gen-len 64
+        --batch 4 --prompt-len 1024 --stagger 2 --gen-len 64 \\
+        [--paged --page-size 16 --chunk-size 256 --prefix-cache \\
+         --shared-prefix 768]
 """
 
 from __future__ import annotations
@@ -33,8 +41,7 @@ from repro_torch.engine import SOIEngine
 from repro_torch.models import transformer as T
 
 # flags of the reference's driver that belong to later slices of the port
-_LATER = ("paged", "page_size", "chunk_size", "prefix_cache", "shared_prefix",
-          "speculate", "mixed_spec", "trace_out", "metrics_out")
+_LATER = ("speculate", "mixed_spec", "trace_out", "metrics_out")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -49,6 +56,21 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="request i's prompt is shortened by i*stagger "
                          "tokens (mixed SOI phases in one batch; 0 = "
                          "aligned)")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV caches: shared page pools + per-slot page "
+                         "lists instead of dense per-slot rings")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--chunk-size", type=int, default=None,
+                    help="chunked prefill: append this many tokens per "
+                         "host-loop iteration (overrides --bucket)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="copy-on-write prefix page cache: share the KV and "
+                         "compressed-middle pages of common prompt prefixes "
+                         "and skip their prefill (needs --paged "
+                         "--chunk-size)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="make every request share its first N prompt "
+                         "tokens (system-prompt traffic)")
     ap.add_argument("--bucket", default="pow2",
                     help="prefill bucket policy: 'pow2' (default), 'none' "
                          "(exact length), or comma-separated lengths")
@@ -80,6 +102,8 @@ class ServeResult:
     decoded: int                # tokens produced by generate steps
     steps: int                  # generate steps
     mid_steps: int              # steps in which the SOI middle ran
+    prefix_cache: dict          # engine.prefix_cache_stats ({} if off)
+    pools: dict                 # engine.pool_stats() ({} if dense)
 
 
 def serve(engine: SOIEngine, params, prompt, plens, gen_len: int, *,
@@ -92,7 +116,15 @@ def serve(engine: SOIEngine, params, prompt, plens, gen_len: int, *,
     steps0, mid0 = engine.steps, engine.mid_steps
     out: dict = {}
     admitted: list = []
-    pendq = list(range(b))
+    pendq = []
+    for slot in range(b):
+        # a request the page pools cannot back now is not admitted, rather
+        # than crashing into a half-released slot mid-insert
+        if engine.can_insert(plens[slot], slot):
+            pendq.append(slot)
+        else:
+            print(f"request {slot} deferred: the page pools cannot back "
+                  f"{plens[slot]} tokens")
 
     def admit_ready(state):
         for slot in list(pendq):
@@ -146,13 +178,16 @@ def serve(engine: SOIEngine, params, prompt, plens, gen_len: int, *,
               f"budget")
     seqs = np.stack([np.asarray(out[s][:gen_len]) for s in admitted])
     decoded = sum(len(v) for v in out.values()) - len(admitted)
+    pc = engine.prefix_cache_stats if engine.prefix_cache_enabled else {}
     return ServeResult(seqs, list(plens), prefill_s, decode_s, decoded,
-                       engine.steps - steps0, engine.mid_steps - mid0)
+                       engine.steps - steps0, engine.mid_steps - mid0, pc,
+                       engine.pool_stats())
 
 
-def run(args: argparse.Namespace) -> ServeResult:
-    """Build the config, random weights, prompts and engine of ``args`` and
-    serve them."""
+def setup(args: argparse.Namespace):
+    """The config, random weights (from ``--seed``), prompts, prompt
+    lengths and engine of ``args``: ``(cfg, params, prompt, plens,
+    engine)``."""
     device = resolve_device(args.device)
     if args.bucket == "pow2":
         buckets = "pow2"
@@ -167,19 +202,47 @@ def run(args: argparse.Namespace) -> ServeResult:
         T.init(cfg, generator=gen, device=device, dtype=T._dtype(cfg)), cfg)
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=gen, device=device, dtype=torch.int32)
+    if args.shared_prefix:
+        n = min(args.shared_prefix, args.prompt_len)
+        prompt[:, :n] = prompt[0, :n]
     plens = [max(1, args.prompt_len - i * args.stagger)
              for i in range(args.batch)]
     engine = SOIEngine(cfg, max_concurrent_decodes=args.batch,
                        max_len=args.prompt_len + args.gen_len,
-                       device=device, prefill_buckets=buckets)
+                       device=device, paged=args.paged,
+                       page_size=args.page_size, prefill_buckets=buckets,
+                       prefill_chunk=args.chunk_size,
+                       prefix_cache=args.prefix_cache)
+    return cfg, params, prompt, plens, engine
+
+
+def run(args: argparse.Namespace) -> ServeResult:
+    """Build the config, random weights, prompts and engine of ``args`` and
+    serve them."""
+    cfg, params, prompt, plens, engine = setup(args)
     res = serve(engine, params, prompt, plens, args.gen_len,
                 phase_align=args.phase_align)
-    print(f"arch={cfg.name} soi={args.soi or 'off'} device={device}  "
-          f"prefill {len(res.seqs)}/{args.batch} reqs (lens {plens}) in "
-          f"{res.prefill_s:.3f}s [bucket={args.bucket}], decoded "
-          f"{res.decoded} tok in {res.steps} steps "
-          f"({res.mid_steps} with the middle) in {res.decode_s:.3f}s "
-          f"({res.decoded / max(res.decode_s, 1e-9):.1f} tok/s decode)")
+    device = engine.device
+    layout = (f"paged(page {args.page_size})" if args.paged else "dense")
+    prefill_by = (f"chunk={args.chunk_size}" if args.chunk_size
+                  else f"bucket={args.bucket}")
+    tail = (f"arch={cfg.name} soi={args.soi or 'off'} device={device} "
+            f"{layout}  prefill {len(res.seqs)}/{args.batch} reqs (lens "
+            f"{plens}) in {res.prefill_s:.3f}s [{prefill_by}], decoded "
+            f"{res.decoded} tok in {res.steps} steps "
+            f"({res.mid_steps} with the middle) in {res.decode_s:.3f}s "
+            f"({res.decoded / max(res.decode_s, 1e-9):.1f} tok/s decode)")
+    if res.prefix_cache:
+        pc = res.prefix_cache
+        tail += (f"; prefix-cache {pc['hits']}/{pc['hits'] + pc['misses']} "
+                 f"hits, {pc['tokens_skipped']} prompt tokens skipped, "
+                 f"{pc['pages_shared']} pages shared, {pc['cow_copies']} COW "
+                 f"copies, {pc['evictions']} evictions, {pc['entries']} "
+                 f"entries")
+    for name, ps in res.pools.items():
+        tail += (f"; {name} pool {ps['used']}/{ps['n_pages']} pages used "
+                 f"(high water {ps['high_water']})")
+    print(tail)
     print("sample:", res.seqs[0, :16].tolist())
     return res
 

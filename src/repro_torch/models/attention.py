@@ -1,21 +1,34 @@
 """GQA attention (port of the GQA part of ``repro.models.attention``):
-parameters, the dense ring KV cache, full-sequence attention with the
-prefill cache fill, and one-token decode. The sequence mixing goes through
+parameters, the dense ring KV cache and the paged pools, full-sequence
+attention with the prefill cache fill, chunked-prefill attention, and
+one-token decode. The sequence mixing goes through
 ``repro_torch.kernels.ops``: the hand-written CUDA kernels on the card,
 their plain versions on the CPU.
 
 KV caches store absolute positions beside K/V (``-1`` = empty), so masking
-is layout-independent and ring buffers work.
+is layout-independent and ring buffers work. Two physical layouts share
+that logical contract:
 
-Unlike the reference, which rebuilds its caches functionally, the decode
-write here updates the cache tensors in place (``index_put_``). A write can
-be limited to some batch rows (``commit``): the SOI middle commits only for
-slots whose compression window is complete, so a mid-window slot's ring row
-— which holds the frame it committed at its last phase-0 step — is never
-overwritten.
+* dense rings — ``(B, S, ...)`` per-slot tensors; and
+* paged pools — ``(n_pages, page_size, ...)`` tensors shared by every
+  serving slot, addressed through per-slot page lists
+  (``repro_torch.engine.pages``). A slot's logical ring index
+  ``l = t % s_log`` lives at row ``page_map[slot, l // page_size]``, offset
+  ``l % page_size``. Page 0 is the null page: reads through it are masked
+  and writes to it are discarded garbage.
+
+Unlike the reference, which rebuilds its caches functionally, every write
+here updates the cache tensors in place (``index_put_``). A dense decode
+write can be limited to some batch rows (``commit``): the SOI middle commits
+only for slots whose compression window is complete, so a mid-window slot's
+ring row — which holds the frame it committed at its last phase-0 step — is
+never overwritten. On pools the same effect comes from the page map: the
+step hands mid-window slots a map of null pages (``engine.step``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
@@ -64,6 +77,73 @@ def init_cache(cfg: AttnCfg, batch: int, max_len: int, dtype, device, *,
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "pos": torch.full((batch, s), -1, dtype=torch.int32,
                               device=device)}
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedKV:
+    """Geometry of the paged decode-cache pools (``repro.models.attention
+    .PagedKV``). ``n_pages`` / ``n_pages_mid`` count pool rows *including*
+    the reserved null page 0."""
+    page_size: int
+    n_pages: int              # outer (full-rate pre/post) pool rows
+    n_pages_mid: int = 0      # SOI compressed-middle pool rows
+
+
+def init_paged_cache(cfg: AttnCfg, page_size: int, n_pages: int, dtype,
+                     device) -> dict:
+    """Pooled decode cache: pages are shared across slots via a page map."""
+    shape = (n_pages, page_size, cfg.n_kv, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full((n_pages, page_size), -1, dtype=torch.int32,
+                              device=device)}
+
+
+def _paged_cache_write(cache: dict, pages: torch.Tensor, t: torch.Tensor,
+                       **entries) -> dict:
+    """Write one token per slot at absolute position ``t`` ((B,) int32)
+    through the per-slot page lists ``pages`` ((B, n_pp) int32), in place.
+    Slots whose target entry is 0 write onto the null page, which every
+    read masks."""
+    p_sz = cache["pos"].shape[1]
+    s_log = pages.shape[1] * p_sz
+    rows = torch.arange(pages.shape[0], device=pages.device)
+    l = (t % s_log).long()
+    page = pages[rows, l // p_sz].long()
+    off = l % p_sz
+    for name, val in entries.items():
+        cache[name][page, off] = val.to(cache[name].dtype)
+    cache["pos"][page, off] = t.to(torch.int32)
+    return cache
+
+
+def paged_view(cache: dict, pages: torch.Tensor) -> dict:
+    """A slot-major dense view (B, n_pp * page_size, ...) of the pools;
+    entries reached through the null page read ``pos = -1``."""
+    p_sz = cache["pos"].shape[1]
+    b, n_pp = pages.shape
+    idx = pages.long()
+    out = {}
+    for name, pool in cache.items():
+        g = pool[idx]                                  # (B, n_pp, P, ...)
+        out[name] = g.reshape((b, n_pp * p_sz) + tuple(g.shape[3:]))
+    valid = torch.repeat_interleave(pages > 0, p_sz, dim=1)
+    out["pos"] = torch.where(valid, out["pos"],
+                             torch.full_like(out["pos"], -1))
+    return out
+
+
+def hydrate_cache_prefix(dense: dict, pool: dict, rows: torch.Tensor,
+                         limit: int) -> dict:
+    """Fill logical rows [0, ``limit``) of a batch-1 dense cache from the
+    pools, in place (the prefix-cache prefill skip). ``rows`` holds the page
+    ids of those rows (``limit`` is a whole number of pages); the copied
+    rows are bit-identical to the pool contents, which is what makes a
+    resumed prefill bit-exact against a cold one."""
+    for name, d in dense.items():
+        flat = kops.gather_pages(pool[name], rows)
+        d[0, :limit] = flat[:limit].to(d.dtype)
+    return dense
 
 
 def _cache_write(cache: dict, t: torch.Tensor, *, commit=None,
@@ -169,21 +249,100 @@ def _bulk_fill(cache: dict, positions: torch.Tensor,
     return new
 
 
+def _chunk_cache_merge(cache: dict, offset: int, end: int,
+                       **entries) -> dict:
+    """Merge one prefill chunk (positions [offset, offset + C)) into a ring
+    cache already holding earlier chunks, in place.
+
+    ``end`` = min(offset + C, true_length): chunk rows at or past it are pad
+    and keep the cache's previous contents. As in the reference, ring slot
+    ``l`` takes the newest position ``p < end`` with ``p % s_cache == l`` —
+    from this chunk when ``p >= offset``. Those positions are the contiguous
+    run [max(offset, end - s_cache), end), whose slots wrap the ring at most
+    once, so the merge is at most two slice copies (host ints, no device
+    read)."""
+    s_cache = cache["pos"].shape[1]
+    a = max(offset, end - s_cache)
+    if end <= a:
+        return cache                     # an all-pad chunk writes nothing
+    dev = cache["pos"].device
+    pos = torch.arange(a, end, dtype=torch.int32, device=dev)
+    l0 = a % s_cache
+    n1 = min(end - a, s_cache - l0)      # run rows before the ring wraps
+    # (first ring slot, run rows, first row of the run) of each piece
+    for lo, n, j in ((l0, n1, 0), (0, end - a - n1, n1)):
+        if n <= 0:
+            continue
+        src = a - offset + j             # its row in the chunk
+        for name, val in entries.items():
+            cache[name][:, lo:lo + n] = val[:, src:src + n].to(
+                cache[name].dtype)
+        cache["pos"][:, lo:lo + n] = pos[j:j + n]
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Decode (one token)
+# ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# Chunked prefill (C tokens appended at a position offset)
+# ---------------------------------------------------------------------------
+
+def attn_chunk(p: Attention, x: torch.Tensor, cache: dict, offset: int,
+               true_length: int, *, norm_eps: float = 1e-6):
+    """Chunked-prefill attention: ``x`` (B, C, d) at absolute positions
+    [offset, offset + C) attends to the cache (earlier chunks) plus itself
+    (causally), then merges into the ring cache in place. Rows at positions
+    >= ``true_length`` are pad: masked out of the keys and the merge.
+    ``offset`` and ``true_length`` are host ints. Returns (y, cache)."""
+    cfg = p.cfg
+    b, c, _ = x.shape
+    dev = x.device
+    positions = torch.arange(offset, offset + c, dtype=torch.int32,
+                             device=dev)
+    q, k, v = _project_qkv(p, x, positions[None], norm_eps)
+    k_all = torch.cat([cache["k"].to(k.dtype), k], dim=1)
+    v_all = torch.cat([cache["v"].to(v.dtype), v], dim=1)
+    new_pos = torch.where(positions < true_length, positions,
+                          torch.full_like(positions, -1))
+    kp = torch.cat([cache["pos"], new_pos.expand(b, c)], dim=1)
+    qp = positions.expand(b, c).contiguous()
+    out = kops.chunk_attention(q.contiguous(), k_all, v_all, qp, kp,
+                               window=cfg.window, scale=cfg.softmax_scale,
+                               logit_softcap=cfg.logit_softcap)
+    y = _out_proj(p, out)
+    end = min(offset + c, int(true_length))
+    return y, _chunk_cache_merge(cache, offset, end, k=k, v=v)
+
+
 # ---------------------------------------------------------------------------
 # Decode (one token)
 # ---------------------------------------------------------------------------
 
 def attn_decode(p: Attention, x: torch.Tensor, cache: dict, t: torch.Tensor,
-                *, norm_eps: float = 1e-6, commit=None):
+                *, norm_eps: float = 1e-6, commit=None, pages=None):
     """x: (B, d), one token per slot at absolute positions ``t`` (B,) int32.
-    Writes the token's K/V into the ring cache in place (only the
-    ``commit`` rows when given) and attends over it. Returns (y, cache)."""
+    Writes the token's K/V into the cache in place and attends over it.
+    Returns (y, cache).
+
+    ``pages`` ((B, n_pp) int32) selects the paged-pool layout: the write and
+    the read go through the per-slot page lists. Otherwise the dense ring
+    is written (only the ``commit`` rows when given)."""
     cfg = p.cfg
     q, k, v = _project_qkv(p, x[:, None], t[:, None], norm_eps)
-    q, k, v = q[:, 0], k[:, 0], v[:, 0]
-    cache = _cache_write(cache, t, commit=commit, k=k, v=v)
-    out = kops.decode_attention(q.contiguous(), cache["k"], cache["v"],
-                                cache["pos"], t.to(torch.int32),
-                                window=cfg.window, scale=cfg.softmax_scale,
-                                logit_softcap=cfg.logit_softcap)
+    q, k, v = q[:, 0].contiguous(), k[:, 0], v[:, 0]
+    t32 = t.to(torch.int32)
+    if pages is not None:
+        cache = _paged_cache_write(cache, pages, t32, k=k, v=v)
+        out = kops.paged_decode_attention(
+            q, cache["k"], cache["v"], cache["pos"], pages, t32,
+            window=cfg.window, scale=cfg.softmax_scale,
+            logit_softcap=cfg.logit_softcap)
+    else:
+        cache = _cache_write(cache, t, commit=commit, k=k, v=v)
+        out = kops.decode_attention(q, cache["k"], cache["v"], cache["pos"],
+                                    t32, window=cfg.window,
+                                    scale=cfg.softmax_scale,
+                                    logit_softcap=cfg.logit_softcap)
     return _out_proj(p, out), cache

@@ -1,6 +1,6 @@
-"""Serving path, dense layout (port of ``repro.models.decode``): decode-state
-construction, bucketed prefill, the one-token decode of a run of layers, and
-the plain (non-SOI) decode step.
+"""Serving path (port of ``repro.models.decode``): decode-state construction
+(dense rings or paged pools), bucketed and chunked prefill, the one-token
+decode of a run of layers, and the plain (non-SOI) decode step.
 
 State layout: ``{"t": (B,) int32 per-slot clocks, ...}`` plus, for a plain
 config, ``"segments"``: one cache dict (``k``, ``v``, ``pos``) per layer;
@@ -8,9 +8,12 @@ for an SOI config ``"pre"``, ``"mid"``, ``"post"`` (per-layer caches of the
 three parts; the middle's hold ``soi_mid_len`` frames), the conv window
 ``"conv_buf"`` (B, stride-1, d) and the extrapolation queue ``"queue"``
 (B, stride, d). The reference stacks a segment's caches on a leading layer
-axis; here every layer owns its tensors.
+axis; here every layer owns its tensors. A paged state holds pools instead
+of rings and ``"pages"``: ``{"outer": (B, n_pp), "mid": (B, n_pp_mid)}``
+int32 page maps (the middle pages at its own, 1/stride, rate).
 
-Decode updates the caches in place (see ``models.attention``).
+Decode and chunked prefill update the caches in place (see
+``models.attention``).
 """
 
 from __future__ import annotations
@@ -25,16 +28,48 @@ from repro_torch.models.transformer import (_dtype, _embed_tokens,
                                             _head_weights, _segment_forward,
                                             cast_params, soi_compress,
                                             soi_extrapolate, soi_fuse,
-                                            split_blocks)
+                                            soi_partition, split_blocks)
 
 
 # ---------------------------------------------------------------------------
 # Cache init
 # ---------------------------------------------------------------------------
 
-def _layer_caches(blocks, batch: int, max_len: int, dt, device) -> list:
+def _layer_caches(blocks, batch: int, max_len: int, dt, device,
+                  paged=None) -> list:
+    if paged is not None:                      # (page_size, n_pages)
+        return [attn.init_paged_cache(bp.bcfg.attn, paged[0], paged[1], dt,
+                                      device) for bp in blocks]
     return [attn.init_cache(bp.bcfg.attn, batch, max_len, dt, device)
             for bp in blocks]
+
+
+def _attn_logical_len(segments, max_len: int) -> int:
+    """Logical (ring) cache length shared by a cache group's attention
+    layers: one page map serves a group only if every layer in it rings at
+    the same length."""
+    lens = set()
+    for seg in segments:
+        for b in seg.blocks:
+            if b.attn is not None:
+                lens.add(max_len if b.attn.window is None
+                         else min(max_len, b.attn.window))
+    if len(lens) > 1:
+        raise NotImplementedError(
+            f"paged KV needs a uniform ring length per cache group; got "
+            f"window-capped lengths {sorted(lens)}")
+    return lens.pop() if lens else 0
+
+
+def paged_group_lens(cfg: ModelCfg, max_len: int) -> tuple:
+    """(outer_len, mid_len): logical cache lengths of the full-rate (outer)
+    and compressed-middle cache groups; 0 = the group has no attention."""
+    if cfg.soi is None:
+        return _attn_logical_len(cfg.segments, max_len), 0
+    pre, mid, post = soi_partition(cfg)
+    outer = _attn_logical_len(list(pre) + list(post), max_len)
+    mid_l = _attn_logical_len(mid, soi_mid_len(max_len, cfg.soi.stride))
+    return outer, mid_l
 
 
 def soi_mid_len(max_len: int, stride: int) -> int:
@@ -45,24 +80,46 @@ def soi_mid_len(max_len: int, stride: int) -> int:
     return -(-mid_len // 256) * 256 if mid_len > 256 else mid_len
 
 
-def init_decode_state(params, cfg: ModelCfg, batch: int,
-                      max_len: int) -> dict:
+def init_decode_state(params, cfg: ModelCfg, batch: int, max_len: int, *,
+                      paged=None) -> dict:
     """Empty decode state with per-slot clocks ``t`` (B,), on the params'
-    device."""
+    device.
+
+    ``paged`` (an ``attention.PagedKV``) swaps the per-slot ring caches for
+    shared page pools plus per-slot page maps in ``state["pages"]`` (all
+    null); the compressed middle gets its own, smaller, pool."""
     dt = _dtype(cfg)
     dev = params.embed.device
     d = cfg.d_model
     state = {"t": torch.zeros(batch, dtype=torch.int32, device=dev)}
+    po = pm = None
+    if paged is not None:
+        outer_len, mid_l = paged_group_lens(cfg, max_len)
+        pages = {}
+        for name, ln, n_pages in (("outer", outer_len, paged.n_pages),
+                                  ("mid", mid_l, paged.n_pages_mid)):
+            if not ln:
+                continue
+            if ln % paged.page_size:
+                raise ValueError(f"page_size {paged.page_size} must divide "
+                                 f"the {name} cache length {ln}")
+            pages[name] = torch.zeros((batch, ln // paged.page_size),
+                                      dtype=torch.int32, device=dev)
+            if name == "outer":
+                po = (paged.page_size, n_pages)
+            else:
+                pm = (paged.page_size, n_pages)
+        state["pages"] = pages
     if cfg.soi is None:
         state["segments"] = _layer_caches(params.blocks, batch, max_len, dt,
-                                          dev)
+                                          dev, po)
         return state
     st = cfg.soi.stride
     pre, mid, post = split_blocks(params, cfg)
-    state["pre"] = _layer_caches(pre, batch, max_len, dt, dev)
+    state["pre"] = _layer_caches(pre, batch, max_len, dt, dev, po)
     state["mid"] = _layer_caches(mid, batch, soi_mid_len(max_len, st), dt,
-                                 dev)
-    state["post"] = _layer_caches(post, batch, max_len, dt, dev)
+                                 dev, pm)
+    state["post"] = _layer_caches(post, batch, max_len, dt, dev, po)
     state["conv_buf"] = torch.zeros((batch, st - 1, d), dtype=dt, device=dev)
     state["queue"] = torch.zeros((batch, st, d), dtype=dt, device=dev)
     return state
@@ -72,21 +129,24 @@ def init_decode_state(params, cfg: ModelCfg, batch: int,
 # One-token block / segment decode
 # ---------------------------------------------------------------------------
 
-def _block_decode(bp, cfg: ModelCfg, x, cache, t, *, commit=None):
+def _block_decode(bp, cfg: ModelCfg, x, cache, t, *, commit=None,
+                  pages=None):
     eps = cfg.norm_eps
     h = norm_apply("rmsnorm", bp.ln1, x, eps=eps)
     h, _ = attn.attn_decode(bp.attn, h, cache, t, norm_eps=eps,
-                            commit=commit)
+                            commit=commit, pages=pages)
     x = x + h
     h = norm_apply("rmsnorm", bp.ln2, x, eps=eps)
     return x + mlp_apply(bp.mlp, h)
 
 
-def _segment_decode(blocks, caches, cfg: ModelCfg, x, t, *, commit=None):
+def _segment_decode(blocks, caches, cfg: ModelCfg, x, t, *, commit=None,
+                    pages=None):
     """One token through a run of layers; their caches update in place
-    (only the ``commit`` rows when given). Returns x."""
+    (dense rings: only the ``commit`` rows when given; pools: through the
+    page map ``pages`` that every layer of the run shares). Returns x."""
     for bp, c in zip(blocks, caches):
-        x = _block_decode(bp, cfg, x, c, t, commit=commit)
+        x = _block_decode(bp, cfg, x, c, t, commit=commit, pages=pages)
     return x
 
 
@@ -114,8 +174,10 @@ def decode_step(params, cfg: ModelCfg, state: dict, token):
             "repro_torch.engine.step.generate_step")
     params = cast_params(params, cfg)
     t = state["t"]
+    pg = state["pages"].get("outer") if "pages" in state else None
     x = _embed_one(params, cfg, token)
-    x = _segment_decode(params.blocks, state["segments"], cfg, x, t)
+    x = _segment_decode(params.blocks, state["segments"], cfg, x, t,
+                        pages=pg)
     state["t"] = t + 1
     return _logits_one(params, cfg, x), state
 
@@ -216,3 +278,113 @@ def prefill(params, cfg: ModelCfg, tokens, *, max_len: int | None = None,
                                         collect_cache=True, batch=b,
                                         max_len=max_len, true_length=tl)
     return _logits_one(params, cfg, _last_real(x, tl)), state
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill: one chunk program, looped on the host
+# ---------------------------------------------------------------------------
+
+def _block_chunk(bp, cfg: ModelCfg, x, cache, offset: int, true_length: int):
+    """One block over a prefill chunk (B, C, d): attention appends to the
+    ring cache at ``offset``; the MLP is per position."""
+    eps = cfg.norm_eps
+    h = norm_apply("rmsnorm", bp.ln1, x, eps=eps)
+    h, _ = attn.attn_chunk(bp.attn, h, cache, offset, true_length,
+                           norm_eps=eps)
+    x = x + h
+    h = norm_apply("rmsnorm", bp.ln2, x, eps=eps)
+    return x + mlp_apply(bp.mlp, h)
+
+
+def _segment_chunk(blocks, caches, cfg: ModelCfg, x, offset: int,
+                   true_length: int):
+    """Chunked-prefill analogue of ``_segment_decode``: C tokens wide."""
+    for bp, c in zip(blocks, caches):
+        x = _block_chunk(bp, cfg, x, c, offset, true_length)
+    return x
+
+
+@torch.no_grad()
+def prefill_chunk(params, cfg: ModelCfg, state: dict, tokens, offset: int,
+                  true_length: int):
+    """Append one prefill chunk to the decode state's caches, in place.
+
+    ``tokens``: (B, C) at absolute positions [offset, offset + C); the host
+    loops it::
+
+        state = init_decode_state(params, cfg, 1, max_len=L)
+        for i in range(ceil(true_length / C)):
+            logits, state = prefill_chunk(params, cfg, state,
+                                          tokens[:, i*C:(i+1)*C], i*C, tl)
+
+    Rows at positions >= ``true_length`` are pad: masked out of the cache
+    merges, the SOI conv window and extrapolation queue, and the compressed
+    middle's frames. Returns (logits, state): next-token logits read at
+    position ``true_length - 1`` (meaningful for the chunk holding it). The
+    clock lands on ``true_length``. ``offset`` and ``true_length`` are host
+    ints, so no step of the chunk reads the device.
+
+    SOI configs need ``C % stride == 0`` and chunk-aligned offsets, so a
+    compression window never straddles a chunk: the conv carry
+    (``state["conv_buf"]``) supplies the stride-1 frames of left context,
+    as in the streaming step.
+    """
+    params = cast_params(params, cfg)
+    b, c = tokens.shape
+    if not supports_masked_prefill(cfg):
+        raise NotImplementedError(
+            f"config '{cfg.name}' cannot mask pad: chunked prefill would "
+            f"leak pad tokens — prefill whole instead")
+    offset, tl = int(offset), int(true_length)
+    x = _embed_tokens(params, cfg, tokens)
+    state["t"] = torch.full((b,), tl, dtype=torch.int32, device=x.device)
+    li = min(max(tl - 1 - offset, 0), c - 1)   # row of position tl - 1
+
+    if cfg.soi is None:
+        x = _segment_chunk(params.blocks, state["segments"], cfg, x, offset,
+                           tl)
+        return _logits_one(params, cfg, x[:, li]), state
+
+    soi = cfg.soi
+    st = soi.stride
+    if c % st or offset % st:
+        raise ValueError(f"SOI chunked prefill needs the chunk size {c} and "
+                         f"the offset {offset} to be multiples of the "
+                         f"stride {st}")
+    pre, mid, post = split_blocks(params, cfg)
+    d = x.shape[-1]
+    x = _segment_chunk(pre, state["pre"], cfg, x, offset, tl)
+    skip = x
+
+    # compression across the chunk: the conv carry holds the stride-1
+    # pre-trunk frames before the chunk, so the C/st windows tile the first
+    # C rows of [carry; x]
+    concatx = torch.cat([state["conv_buf"].to(x.dtype), x], dim=1)
+    n_cf = c // st
+    frames_in = concatx[:, :c].reshape(b, n_cf, st * d)
+    xm = torch.matmul(frames_in,
+                      params.soi_compress.to(x.dtype).reshape(st * d, d))
+    j0 = offset // st
+    n_true = (tl + st - 1) // st          # frames the true prompt completes
+    xm = _segment_chunk(mid, state["mid"], cfg, xm, j0, n_true)
+
+    # conv carry -> the last st-1 pre-trunk rows before the true length
+    # (token a sits at row a - offset + st - 1 of the concat); an all-pad
+    # chunk re-slices the carry unchanged
+    start = min(max(tl - offset, 0), c)
+    conv_buf = concatx[:, start:start + st - 1].to(state["conv_buf"].dtype)
+    # fp reads the previous chunk's last frame: the queue carried in
+    prev = state["queue"][:, :1].to(xm.dtype)
+    if j0 < n_true:
+        # queue: stride copies of the newest true frame of this chunk
+        last = xm[:, min(max(n_true - 1 - j0, 0), n_cf - 1)]
+        state["queue"] = last[:, None].expand(b, st, d).to(
+            state["queue"].dtype).contiguous()
+    state["conv_buf"] = conv_buf.contiguous()
+
+    up = torch.repeat_interleave(xm, st, dim=1)
+    if soi.mode == "fp":
+        up = torch.cat([prev, up[:, :-1]], dim=1)
+    x = soi_fuse(params, up, skip)
+    x = _segment_chunk(post, state["post"], cfg, x, offset, tl)
+    return _logits_one(params, cfg, x[:, li]), state

@@ -1,10 +1,12 @@
-"""Attention kernels of repro_torch.
+"""Kernels of repro_torch: decode, flash and chunk attention, the paged
+decode read, and the batched page copy.
 
 On the CPU: the plain PyTorch versions (what every wrapper runs for a CPU
-tensor) against the JAX reference — ``repro.kernels.ref`` and the Pallas
-kernels in interpret mode, called as tests/test_kernels.py calls them.
-Tolerance ``max|Δ| < 2e-5`` in float32, the "f32 ULP" class of
-docs/KERNELS.md.
+tensor) against the JAX reference — ``repro.kernels.ref`` / ``ops`` and
+the Pallas kernels in interpret mode, called as tests/test_kernels.py calls
+them. Tolerance ``max|Δ| < 2e-5`` in float32, the "f32 ULP" class of
+docs/KERNELS.md; ``copy_pages`` is bit-exact, and the plain paged read is
+bit-exact against the plain dense read of the same logical rows.
 
 The CUDA kernels against these plain versions on the card are in
 tests/test_torch_kernels_gpu.py, which imports no JAX.
@@ -16,13 +18,19 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import chunk_attention as JCA
 from repro.kernels import decode_attention as JDA
 from repro.kernels import flash_attention as JFA
+from repro.kernels import ops as jops
+from repro.kernels import page_copy as JPC
 from repro.kernels import ref as jref
+from repro_torch.kernels import chunk_attention as PCA
 from repro_torch.kernels import decode_attention as PDA
 from repro_torch.kernels import flash_attention as PFA
 from repro_torch.kernels import ops
+from repro_torch.kernels import page_copy as PPC
 from repro_torch.kernels import ref as pref
+from repro_torch.models.attention import paged_view
 
 torch.set_num_threads(1)
 
@@ -153,8 +161,18 @@ def test_cpu_tensors_never_count_launches():
     ops.decode_attention(*map(torch.from_numpy, (q, k, v, pos, t)))
     fq, fk, fv = _flash_inputs(5, 1, 8, 8, 2, 1, 16)
     ops.flash_attention(*map(torch.from_numpy, (fq, fk, fv)))
+    args = _chunk_inputs(5, 1, 4, 12, 2, 1, 16)
+    ops.chunk_attention(*map(torch.from_numpy, args))
+    pargs = _paged_inputs(5, 2, 4, 2, 16, 4, 3, 7)
+    ops.paged_decode_attention(*map(torch.from_numpy, pargs))
+    pool = torch.zeros(3, 4)
+    ops.copy_pages(pool, torch.tensor([1], dtype=torch.int32),
+                   torch.tensor([2], dtype=torch.int32))
     assert ops.launch_counts() == {"decode_attention": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0,
+                                   "chunk_attention": 0,
+                                   "paged_decode_attention": 0,
+                                   "copy_pages": 0}
 
 
 def test_unsupported_devices_raise():
@@ -163,3 +181,157 @@ def test_unsupported_devices_raise():
         PDA.decode_attention(x, x, x, x, x)
     with pytest.raises(ValueError, match="unsupported device"):
         PFA.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="unsupported device"):
+        PCA.chunk_attention(x, x, x, x, x)
+    with pytest.raises(ValueError, match="unsupported device"):
+        PDA.paged_decode_attention(x, x, x, x, x, x)
+    with pytest.raises(ValueError, match="unsupported device"):
+        PPC.copy_pages(x, x, x)
+
+
+# ---------------------------------------------------------------------------
+# chunk_attention
+# ---------------------------------------------------------------------------
+
+def _chunk_inputs(seed, b, c, sk, h, hkv, dh, *, filled=None, q0=None,
+                  pad_rows=0, ring=False):
+    """C queries at positions q0.. (the last ``pad_rows`` of them at -1)
+    against a cache of ``sk - c`` rows plus the chunk's own c keys."""
+    rng = np.random.default_rng(seed)
+    q = _normal(rng, (b, c, h, dh))
+    k = _normal(rng, (b, sk, hkv, dh))
+    v = _normal(rng, (b, sk, hkv, dh))
+    s_cache = sk - c
+    q0 = s_cache - 4 if q0 is None else q0
+    qp = np.broadcast_to(q0 + np.arange(c, dtype=np.int32), (b, c)).copy()
+    if pad_rows:
+        qp[:, c - pad_rows:] = -1
+    cache = np.arange(s_cache, dtype=np.int32)
+    if ring:                        # a wrapped ring: positions out of order
+        cache = (q0 - 1 - ((q0 - 1 - cache) % s_cache)).astype(np.int32)
+    filled = s_cache if filled is None else filled
+    cache = np.where(np.arange(s_cache) < filled, cache, -1)
+    kp = np.concatenate([np.broadcast_to(cache, (b, s_cache)),
+                         np.where(qp >= 0, qp, -1)], axis=1).astype(np.int32)
+    return q, k, v, qp, kp
+
+
+CHUNK_CASES = {
+    "gqa2": dict(b=2, c=16, sk=48, h=4, hkv=2, dh=16),
+    "window": dict(b=2, c=16, sk=48, h=4, hkv=4, dh=16, window=12),
+    "softcap": dict(b=1, c=16, sk=40, h=8, hkv=2, dh=16, cap=25.0),
+    "ring_empty_rows": dict(b=2, c=8, sk=40, h=4, hkv=2, dh=32, ring=True,
+                            filled=25, q0=45),
+    "pad_query_rows": dict(b=2, c=13, sk=45, h=4, hkv=2, dh=16, pad_rows=5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
+def test_plain_chunk_attention_matches_reference(case):
+    kw = dict(CHUNK_CASES[case])
+    win = kw.pop("window", None)
+    cap = kw.pop("cap", None)
+    q, k, v, qp, kp = _chunk_inputs(8, **kw)
+    jq, jk, jv, jqp, jkp = map(jnp.asarray, (q, k, v, qp, kp))
+    got = ops.chunk_attention(*map(torch.from_numpy, (q, k, v, qp, kp)),
+                              window=win, logit_softcap=cap)
+    want = jref.naive_attention(jq, jk, jv, causal=True, window=win,
+                                q_positions=jqp, k_positions=jkp,
+                                logit_softcap=cap)
+    _close(got, want)
+    _close(got, jops.chunk_attention(jq, jk, jv, jqp, jkp, window=win,
+                                     logit_softcap=cap))
+    # the Pallas kernel averages pad query rows over its padded key blocks
+    # too: only rows with a live key are held against it
+    live = qp[0] >= 0
+    pallas = JCA.chunk_attention(jq, jk, jv, jqp, jkp, window=win,
+                                 logit_softcap=cap, block_q=8, block_k=16,
+                                 interpret=True)
+    _close(got[:, live], np.asarray(pallas)[:, live])
+    assert np.isfinite(got.numpy()).all()
+
+
+# ---------------------------------------------------------------------------
+# paged_decode_attention
+# ---------------------------------------------------------------------------
+
+def _paged_inputs(seed, b, h, hkv, dh, p_sz, n_pp, n_pages):
+    """Pools with random K/V, each real page holding consecutive positions
+    of one slot, a null page 0 whose position lane holds live-looking
+    values (it takes discarded writes), and page maps with unbacked (0)
+    entries."""
+    rng = np.random.default_rng(seed)
+    q = _normal(rng, (b, h, dh))
+    k_pool = _normal(rng, (n_pages, p_sz, hkv, dh))
+    v_pool = _normal(rng, (n_pages, p_sz, hkv, dh))
+    pos_pool = np.full((n_pages, p_sz), -1, np.int32)
+    pos_pool[0] = np.arange(p_sz)                 # garbage on the null page
+    page_map = np.zeros((b, n_pp), np.int32)
+    ids = iter(rng.permutation(np.arange(1, n_pages)))
+    t = np.zeros(b, np.int32)
+    for s in range(b):
+        n_live = 1 + s % n_pp
+        for j in range(n_live):
+            pid = int(next(ids))
+            page_map[s, j] = pid
+            pos_pool[pid] = j * p_sz + np.arange(p_sz)
+        t[s] = n_live * p_sz - 1 - s        # rows past t: masked by pos <= t
+    pos_pool[page_map[0, 0], 1] = -1        # an empty row inside a page
+    return q, k_pool, v_pool, pos_pool, page_map, t
+
+
+PAGED_CASES = {
+    "gqa2": dict(b=3, h=4, hkv=2, dh=16, p_sz=4, n_pp=3, n_pages=10),
+    "gqa1_window": dict(b=2, h=4, hkv=4, dh=32, p_sz=8, n_pp=4, n_pages=9,
+                        window=10),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PAGED_CASES))
+def test_plain_paged_decode_attention_matches_reference(case):
+    kw = dict(PAGED_CASES[case])
+    win = kw.pop("window", None)
+    args = _paged_inputs(9, **kw)
+    jargs = list(map(jnp.asarray, args))
+    got = ops.paged_decode_attention(*map(torch.from_numpy, args),
+                                     window=win)
+    _close(got, jops.paged_decode_attention(*jargs, window=win))
+    pallas = JDA.paged_decode_attention(*jargs, window=win, interpret=True)
+    _close(got, pallas)
+    # bit-exact against the dense read of the gathered logical rows
+    q, k_pool, v_pool, pos_pool, page_map, t = map(torch.from_numpy, args)
+    dense = paged_view({"k": k_pool, "v": v_pool, "pos": pos_pool}, page_map)
+    assert torch.equal(got, pref.decode_attention(
+        q, dense["k"], dense["v"], dense["pos"], t, window=win))
+
+
+def test_gather_pages_matches_reference():
+    pool = _normal(np.random.default_rng(10), (6, 4, 2, 8))
+    rows = np.asarray([3, 1, 0, 5], np.int32)
+    got = ops.gather_pages(torch.from_numpy(pool), torch.from_numpy(rows))
+    want = jops.gather_pages(jnp.asarray(pool), jnp.asarray(rows))
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# copy_pages
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tail", [(), (4,), (2, 3)])
+def test_plain_copy_pages_bit_exact(tail):
+    """Raw row moves, in place: bit-exact against the reference and the
+    Pallas kernel, (0, 0) padding pairs no-ops, untouched rows unchanged."""
+    n_pages, p_sz = 7, 8
+    pool = _normal(np.random.default_rng(11), (n_pages, p_sz) + tail)
+    srcs = np.asarray([1, 3, 0, 0], np.int32)
+    dsts = np.asarray([5, 6, 0, 0], np.int32)
+    got = torch.from_numpy(pool.copy())
+    same = ops.copy_pages(got, torch.from_numpy(srcs), torch.from_numpy(dsts))
+    assert same is got                                   # in place
+    jp, js, jd = map(jnp.asarray, (pool, srcs, dsts))
+    assert np.array_equal(got.numpy(), np.asarray(jops.copy_pages(jp, js,
+                                                                  jd)))
+    assert np.array_equal(got.numpy(), np.asarray(JPC.copy_pages(
+        jp, js, jd, interpret=True)))
+    assert np.array_equal(got.numpy()[[0, 1, 2, 3, 4]],
+                          pool[[0, 1, 2, 3, 4]])

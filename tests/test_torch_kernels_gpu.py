@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels of repro_torch against their plain
 PyTorch versions, on the card (marker ``gpu``), at the smoke and the
-serving path's shapes: float32 (max|Δ| < 2e-5) and bfloat16 (< 2e-2).
+serving path's shapes: float32 (max|Δ| < 2e-5) and bfloat16 (< 2e-2) for
+the attention kernels, bit-exact for ``copy_pages``.
 
 Without a CUDA device every test here skips (decided inside the ``cuda``
 fixture, so every worker collects the same tests). On the card:
@@ -15,8 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import chunk_attention as PCA
 from repro_torch.kernels import decode_attention as PDA
 from repro_torch.kernels import flash_attention as PFA
+from repro_torch.kernels import page_copy as PPC
 from repro_torch.kernels import ref as pref
 
 torch.set_num_threads(1)
@@ -142,3 +145,148 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         PDA.decode_attention(qd, kd, kd, pos, t, logit_softcap=5.0)
     with pytest.raises(TypeError):
         PDA.decode_attention(qd, kd, kd, pos.long(), t)
+    pool = torch.zeros(5, 4, 2, 16, device=cuda)
+    ppos = torch.zeros(5, 4, dtype=torch.int32, device=cuda)
+    pm = torch.zeros(2, 2, dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError):
+        PDA.paged_decode_attention(qd, pool, pool, ppos, pm, t,
+                                   logit_softcap=5.0)
+    with pytest.raises(TypeError):
+        PDA.paged_decode_attention(qd, pool, pool, ppos, pm.long(), t)
+    qc = torch.zeros(1, 4, 4, 16, device=cuda)
+    kc = torch.zeros(1, 12, 2, 16, device=cuda)
+    qpc = torch.zeros(1, 4, dtype=torch.int32, device=cuda)
+    kpc = torch.zeros(1, 12, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="k_positions"):
+        PCA.chunk_attention(qc, kc, kc, qpc, kpc[:, :8])
+    with pytest.raises(TypeError):
+        PPC.copy_pages(pool, qpc[0, :2].long(), qpc[0, :2].long())
+
+
+def _chunk_inputs(seed, b, c, s_cache, h, hkv, dh, *, filled, q0,
+                  pad_rows=0):
+    """C queries at q0.. (the last ``pad_rows`` at -1) against a ring of
+    ``s_cache`` rows (``filled`` of them live, wrapped) plus the chunk."""
+    rng = np.random.default_rng(seed)
+    sk = s_cache + c
+    q = _normal(rng, (b, c, h, dh))
+    k = _normal(rng, (b, sk, hkv, dh))
+    v = _normal(rng, (b, sk, hkv, dh))
+    qp = np.broadcast_to(q0 + np.arange(c, dtype=np.int32), (b, c)).copy()
+    if pad_rows:
+        qp[:, c - pad_rows:] = -1
+    ring = q0 - 1 - ((q0 - 1 - np.arange(s_cache)) % s_cache)
+    ring = np.where(np.arange(s_cache) < filled, ring, -1)
+    kp = np.concatenate([np.broadcast_to(ring, (b, s_cache)), qp],
+                        axis=1).astype(np.int32)
+    return q, k, v, qp, kp
+
+
+GPU_CHUNK = {
+    "smoke": dict(b=1, c=4, s_cache=16, h=4, hkv=2, dh=16, filled=8, q0=8),
+    "outer": dict(b=1, c=256, s_cache=1088, h=16, hkv=8, dh=128, filled=768,
+                  q0=768, pad_rows=40),
+    "middle": dict(b=1, c=128, s_cache=768, h=16, hkv=8, dh=128, filled=384,
+                   q0=384),
+    "ring_window_softcap": dict(b=2, c=50, s_cache=70, h=8, hkv=2, dh=64,
+                                filled=70, q0=100, window=30, cap=20.0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(GPU_CHUNK))
+def test_cuda_chunk_attention_matches_plain(cuda, case, dtype):
+    kw = dict(GPU_CHUNK[case])
+    win = kw.pop("window", None)
+    cap = kw.pop("cap", None)
+    dt = getattr(torch, dtype)
+    q, k, v, qp, kp = _chunk_inputs(8, **kw)
+    q, k, v = (torch.from_numpy(x).to(cuda, dt) for x in (q, k, v))
+    qp, kp = torch.from_numpy(qp).to(cuda), torch.from_numpy(kp).to(cuda)
+    n0 = PCA.chunk_attention.launches
+    got = PCA.chunk_attention(q, k, v, qp, kp, window=win, logit_softcap=cap)
+    torch.cuda.synchronize()
+    assert PCA.chunk_attention.launches == n0 + 1
+    assert bool(torch.isfinite(got).all())        # pad query rows included
+    want = pref.chunk_attention(q, k, v, qp, kp, window=win,
+                                logit_softcap=cap)
+    _close(got.float().cpu(), want.float().cpu(), TOL[dtype])
+
+
+def _paged_inputs(seed, b, h, hkv, dh, p_sz, n_pp, t_base):
+    """Pools of ``b * n_pp + 1`` pages (page 0 null, with live-looking
+    garbage), slot i mapping pages for its positions 0..t_i (the rest of
+    its map unbacked), pages handed out in a shuffled order."""
+    rng = np.random.default_rng(seed)
+    n_pages = b * n_pp + 1
+    q = _normal(rng, (b, h, dh))
+    k_pool = _normal(rng, (n_pages, p_sz, hkv, dh))
+    v_pool = _normal(rng, (n_pages, p_sz, hkv, dh))
+    pos_pool = np.full((n_pages, p_sz), -1, np.int32)
+    pos_pool[0] = np.arange(p_sz)
+    ids = iter(rng.permutation(np.arange(1, n_pages)))
+    page_map = np.zeros((b, n_pp), np.int32)
+    t = np.asarray([t_base - 3 * i for i in range(b)], np.int32)
+    for s in range(b):
+        for j in range(t[s] // p_sz + 1):
+            pid = int(next(ids))
+            page_map[s, j] = pid
+            pos_pool[pid] = j * p_sz + np.arange(p_sz)
+    return q, k_pool, v_pool, pos_pool, page_map, t
+
+
+GPU_PAGED = {
+    "smoke": dict(b=3, h=4, hkv=2, dh=16, p_sz=4, n_pp=4, t_base=13),
+    "outer": dict(b=4, h=16, hkv=8, dh=128, p_sz=16, n_pp=68, t_base=1056),
+    "middle": dict(b=4, h=16, hkv=8, dh=128, p_sz=16, n_pp=48, t_base=528),
+    "window": dict(b=2, h=8, hkv=2, dh=64, p_sz=16, n_pp=10, t_base=150,
+                   window=50),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(GPU_PAGED))
+def test_cuda_paged_decode_attention_matches_plain(cuda, case, dtype):
+    kw = dict(GPU_PAGED[case])
+    win = kw.pop("window", None)
+    dt = getattr(torch, dtype)
+    q, k, v, pos, pm, t = _paged_inputs(9, **kw)
+    q, k, v = (torch.from_numpy(x).to(cuda, dt) for x in (q, k, v))
+    pos, pm, t = (torch.from_numpy(x).to(cuda) for x in (pos, pm, t))
+    n0 = PDA.paged_decode_attention.launches
+    got = PDA.paged_decode_attention(q, k, v, pos, pm, t, window=win)
+    torch.cuda.synchronize()
+    assert PDA.paged_decode_attention.launches == n0 + 1
+    want = pref.paged_decode_attention(q, k, v, pos, pm, t, window=win)
+    _close(got.float().cpu(), want.float().cpu(), TOL[dtype])
+
+
+GPU_COPY = {
+    "kv_bf16": ((273, 16, 8, 128), torch.bfloat16),
+    "kv_f32": ((20, 16, 2, 64), torch.float32),
+    "pos_i32": ((193, 16), torch.int32),
+    "odd_rows": ((9, 3), torch.int32),           # 12-byte rows: byte copy
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GPU_COPY))
+def test_cuda_copy_pages_bit_exact(cuda, case):
+    shape, dt = GPU_COPY[case]
+    g = torch.Generator(device="cpu").manual_seed(10)
+    if dt.is_floating_point:
+        pool = torch.randn(shape, generator=g).to(dt)
+    else:
+        pool = torch.randint(-5, 10_000, shape, generator=g, dtype=dt)
+    n = shape[0]
+    srcs = torch.tensor([1, 3, n - 1, 2, 0, 0], dtype=torch.int32)
+    dsts = torch.tensor([n - 2, 5, 4, 2, 0, 0], dtype=torch.int32)
+    want = pref.copy_pages(pool.clone(), srcs, dsts)
+    dev = pool.to(cuda)
+    n0 = PPC.copy_pages.launches
+    got = PPC.copy_pages(dev, srcs.to(cuda), dsts.to(cuda))
+    torch.cuda.synchronize()
+    assert got is dev and PPC.copy_pages.launches == n0 + 1
+    assert torch.equal(got.cpu(), want)
