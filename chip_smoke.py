@@ -39,7 +39,31 @@ Phases, each printing its own lines:
              and chunk/paged-decode launch counts held to their expected
              values, tokens identical to the same command without the
              prefix cache, then a profiled rerun as in phase 5.
-7. the kernels JSON line, the card line, and last {"ok": true, ...}.
+7. ds-parity — full-width deepseek-v2 cut to 2 layers (dense layer 0
+             before the SOI middle, one MoE layer of 160 experts as the
+             middle), float32, SOI pp: dense and paged engines with 3 slots
+             (prompts of 41 and 43 tokens, a third of 37 after 3 steps), 8
+             greedy steps on the card and on the CPU: logits within 1e-3,
+             tokens identical; the card's paged run goes through
+             paged_mla_decode_attention, its prefills through the d_qk 192 /
+             d_v 128 flash_attention.
+8. ds-serve — the serving driver on full-width deepseek-v2 cut to 4 layers
+             (1 dense + 3 MoE), bfloat16, SOI pp, 4 requests of
+             1024..1018 tokens, 64 generated each, --paged --page-size 16,
+             exact-length prefill: flash_attention and
+             paged_mla_decode_attention launches held to 16 and 192; step
+             time at SOI phase 0 against off-phase steps (host clock after
+             a synchronize); a profiled rerun for the idle share.
+9. mla     — deepseek-v2's layer-0 block (MLA + SwiGLU 12288) at full
+             width, SOI pp. Card against CPU in float32 (2 layers): a
+             paged, chunked prefix-cache engine whose rings wrap onto
+             shared pages and copy the MLA pools on write — tokens
+             identical, logits within 1e-3, counters equal. Then the serve
+             traffic of phase 6 through 4 bfloat16 layers: mla_chunk
+             attention launches held to 28 (4 layers x 7 computed chunks),
+             prefix-cache counters, warm against cold bit for bit, and a
+             profiled rerun.
+10. the kernels JSON line, the card line, and last {"ok": true, ...}.
 
 Any failure raises and exits nonzero; no result line is printed then.
 """
@@ -48,6 +72,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -113,9 +138,13 @@ PATH_KERNELS = (
     ("decode_attention", "23decode_attention_kernel", "Li2ELi128E"),
     ("paged_decode_attention", "29paged_decode_attention_kernel",
      "Li2ELi128E"),
-    ("flash_attention", "22flash_attention_kernel", "Li128E"),
+    ("flash_attention", "22flash_attention_kernel", "Li128ELi128E"),
+    ("flash_attention (MLA)", "22flash_attention_kernel", "Li192ELi128E"),
     ("chunk_attention", "22chunk_attention_kernel", "Li128E"),
     ("copy_pages", "17copy_pages_kernel", ""),
+    ("mla_chunk_attention", "26mla_chunk_attention_kernel", "Li512ELi64E"),
+    ("paged_mla_decode_attention", "33paged_mla_decode_attention_kernel",
+     "Li512ELi64E"),
 )
 
 
@@ -278,19 +307,21 @@ def _decode_case(b, s, hkv, g, dh, dt, t_base, dev, gen):
     return sets, nbytes, flops, library, {}
 
 
-def _flash_case(b, s, hkv, g, dh, dt, dev, gen):
+def _flash_case(b, s, hkv, g, dh, dt, dev, gen, dv=None):
     h = hkv * g
+    dv = dv or dh
 
     def make():
         return (torch.randn((b, s, h, dh), generator=gen, device=dev).to(dt),
                 torch.randn((b, s, hkv, dh), generator=gen, device=dev).to(dt),
-                torch.randn((b, s, hkv, dh), generator=gen, device=dev).to(dt))
+                torch.randn((b, s, hkv, dv), generator=gen, device=dev).to(dt))
 
     esz = torch.finfo(dt).bits // 8
-    nbytes = 2 * b * s * h * dh * esz + 2 * b * s * hkv * dh * esz
+    # q read and out written once, K and V read once
+    nbytes = b * s * esz * (h * dh + h * dv + hkv * (dh + dv))
     sets = _copies(make, nbytes)
     pairs = s * (s + 1) // 2                      # causal (q, k) pairs
-    flops = 4.0 * b * h * dh * pairs
+    flops = 2.0 * b * h * (dh + dv) * pairs
 
     def library(q, k, v):
         return torch.nn.functional.scaled_dot_product_attention(
@@ -401,6 +432,120 @@ def _paged_case(b, n_pp, p_sz, hkv, g, dh, dt, t_base, dev, gen):
     return sets, nbytes, flops, library, {"dense_view": views}
 
 
+MLA_SCALE = (128 + 64) ** -0.5           # deepseek-v2: (qk_nope + qk_rope)^-.5
+
+
+def _mla_chunk_case(b, c, s_cache, h, lat_d, r, dt, q0, filled, pad_rows,
+                    dev, gen):
+    """An absorbed-MLA prefill chunk: ``c`` queries at q0.. (the last
+    ``pad_rows`` of them pad) against a latent ring whose first ``filled``
+    rows hold positions 0.. plus the chunk."""
+    sk = s_cache + c
+
+    def make():
+        ql = torch.randn((b, c, h, lat_d), generator=gen, device=dev).to(dt)
+        qr = torch.randn((b, c, h, r), generator=gen, device=dev).to(dt)
+        lat = torch.randn((b, sk, lat_d), generator=gen, device=dev).to(dt)
+        rope = torch.randn((b, sk, r), generator=gen, device=dev).to(dt)
+        qp = q0 + torch.arange(c, dtype=torch.int32, device=dev)
+        qp[c - pad_rows:] = -1
+        cache = torch.arange(s_cache, dtype=torch.int32, device=dev)
+        cache = torch.where(cache < filled, cache, torch.full_like(cache, -1))
+        kp = torch.cat([cache, qp])[None].repeat(b, 1)
+        return ql, qr, lat, rope, qp[None].repeat(b, 1).contiguous(), kp
+
+    esz = torch.finfo(dt).bits // 8
+    sets = _copies(make, b * (c * h * 2 * (lat_d + r) + sk * (lat_d + r))
+                   * esz)
+    ql, qr, lat, rope, qp, kp = sets[0]
+    allow = (kp[:, None, :] >= 0) & (kp[:, None, :] <= qp[:, :, None])
+    pairs = int(allow.sum())
+    live_keys = int((kp >= 0).sum())
+    # bytes: q_lat/q_rope read and out written once, the live latent and
+    # rope rows once, both position lanes; operations: the two score terms
+    # and the latent value product over the live (query, key) pairs
+    nbytes = (esz * (ql.numel() + qr.numel() + ql.numel())
+              + live_keys * (lat_d + r) * esz + (qp.numel() + kp.numel()) * 4)
+    flops = 2.0 * pairs * h * (lat_d + r + lat_d)
+    kv = {}
+    for st in sets:
+        mask = ((st[5][:, None, :] >= 0)
+                & (st[5][:, None, :] <= st[4][:, :, None]))[:, None]
+        kv[st[2].data_ptr()] = (torch.cat([st[2], st[3]], -1)[:, None],
+                                st[2][:, None], mask)
+
+    def library(ql, qr, lat, rope, qp, kp):
+        # q = [q_lat | q_rope], k = [latent | rope] on one KV head, v =
+        # latent: SDPA computes the same absorbed function (d_v != d_qk)
+        k1, v1, mask = kv[lat.data_ptr()]
+        q = torch.cat([ql, qr], -1).transpose(1, 2)
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k1, v1, attn_mask=mask, scale=MLA_SCALE,
+            enable_gqa=True).transpose(1, 2)
+
+    live_rows = qp[0] >= 0
+    return (sets, nbytes, flops, library,
+            {"rows": live_rows, "kw": {"scale": MLA_SCALE}})
+
+
+def _paged_mla_case(b, n_pp, p_sz, h, lat_d, r, dt, t_base, dev, gen):
+    """Serving-like paged MLA decode inputs: ``b * n_pp + 1`` pool pages
+    (page 0 the null page), slot i mapping shuffled pages for its positions
+    0..t_i, the rest of its map unbacked."""
+    from repro_torch.models.attention import paged_view
+    n_pages = b * n_pp + 1
+    ts = [t_base - 3 * i for i in range(b)]
+
+    def make():
+        ql = torch.randn((b, h, lat_d), generator=gen, device=dev).to(dt)
+        qr = torch.randn((b, h, r), generator=gen, device=dev).to(dt)
+        lat = torch.randn((n_pages, p_sz, lat_d), generator=gen,
+                          device=dev).to(dt)
+        rope = torch.randn((n_pages, p_sz, r), generator=gen,
+                           device=dev).to(dt)
+        pos = torch.full((n_pages, p_sz), -1, dtype=torch.int32, device=dev)
+        pos[0] = torch.arange(p_sz, dtype=torch.int32, device=dev)
+        perm = 1 + torch.randperm(n_pages - 1, generator=gen, device=dev)
+        pm = torch.zeros((b, n_pp), dtype=torch.int32, device=dev)
+        used = 0
+        for s_, t in enumerate(ts):
+            n_live = t // p_sz + 1
+            ids = perm[used:used + n_live]
+            used += n_live
+            pm[s_, :n_live] = ids.to(torch.int32)
+            pos[ids] = torch.arange(n_live * p_sz, dtype=torch.int32,
+                                    device=dev).view(n_live, p_sz)
+        t = torch.tensor(ts, dtype=torch.int32, device=dev)
+        return ql, qr, lat, rope, pos, pm, t
+
+    esz = torch.finfo(dt).bits // 8
+    sets = _copies(make, n_pages * p_sz * (lat_d + r) * esz)
+    live = sum(t + 1 for t in ts)
+    mapped = sum((t // p_sz + 1) * p_sz for t in ts)
+    # bytes: q_lat/q_rope and out once, the live latent + rope rows once,
+    # the mapped pages' position lanes, the map and the clocks; operations:
+    # the two score terms and the latent value product over the live rows
+    nbytes = (esz * b * h * (2 * lat_d + r) + live * (lat_d + r) * esz
+              + mapped * 4 + b * n_pp * 4 + b * 4)
+    flops = 2.0 * live * h * (lat_d + r + lat_d)
+    views = {}
+    for ql, qr, lat, rope, pos, pm, t in sets:
+        v = paged_view({"latent": lat, "rope": rope, "pos": pos}, pm)
+        mask = (v["pos"] >= 0) & (v["pos"] <= t[:, None])
+        views[lat.data_ptr()] = (
+            torch.cat([v["latent"], v["rope"]], -1)[:, None].contiguous(),
+            v["latent"][:, None].contiguous(), mask[:, None, None])
+
+    def library(ql, qr, lat, rope, pos, pm, t):
+        k1, v1, mask = views[lat.data_ptr()]
+        q = torch.cat([ql, qr], -1)[:, :, None]
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k1, v1, attn_mask=mask, scale=MLA_SCALE,
+            enable_gqa=True)[:, :, 0]
+
+    return sets, nbytes, flops, library, {"kw": {"scale": MLA_SCALE}}
+
+
 def _copy_case(n_pages, p_sz, hkv, dh, dt, dev, gen):
     """A COW flush on one outer bf16 pool leaf: 4 pairs and 4 (0, 0)
     padding pairs."""
@@ -444,11 +589,18 @@ KERNEL_META = {
     "copy_pages": dict(
         source="src/repro_torch/kernels/csrc/page_copy.cu",
         replaces="src/repro/kernels/page_copy.py:33"),
+    "mla_chunk_attention": dict(
+        source="src/repro_torch/kernels/csrc/mla_chunk_attention.cu",
+        replaces="src/repro/kernels/chunk_attention.py:168"),
+    "paged_mla_decode_attention": dict(
+        source="src/repro_torch/kernels/csrc/paged_mla_decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:245"),
 }
 
 
 def kernels_phase(dev) -> dict:
-    """Returns {kernel name: record of its serving-path bf16 case}."""
+    """Returns {kernel name: record of its serving-path bf16 case}; the
+    flash kernel's deepseek-v2 shape is keyed "flash_attention (MLA)"."""
     phase("3 kernels")
     from repro_torch.kernels import chunk_attention as CA
     from repro_torch.kernels import decode_attention as DA
@@ -493,6 +645,35 @@ def kernels_phase(dev) -> dict:
                       "middle pools (193,16,8,128) map (4,48)", dt,
                       _paged_case(4, 48, 16, 8, 2, 128, dt, 528, dev, gen),
                       DA.paged_decode_attention, ref.paged_decode_attention))
+        # deepseek-v2's exact-length prefill: 128 heads, q/k 192, v 128
+        cases.append(("flash_attention", "MLA prefill (1,1024,128,192/128)",
+                      dt, _flash_case(1, 1024, 128, 1, 192, dt, dev, gen,
+                                      dv=128),
+                      FA.flash_attention, ref.flash_attention))
+        # the MLA stack's serving chunk (as chunk_attention's above) and
+        # the paged decode read at clocks 1056.. / frames 528..
+        cases.append(("mla_chunk_attention",
+                      "outer q(1,256,128,512+64) Sk 1344", dt,
+                      _mla_chunk_case(1, 256, 1088, 128, 512, 64, dt, 768,
+                                      768, 6, dev, gen),
+                      CA.mla_chunk_attention, ref.mla_chunk_attention))
+        cases.append(("mla_chunk_attention",
+                      "middle q(1,128,128,512+64) Sk 896", dt,
+                      _mla_chunk_case(1, 128, 768, 128, 512, 64, dt, 384,
+                                      384, 6, dev, gen),
+                      CA.mla_chunk_attention, ref.mla_chunk_attention))
+        cases.append(("paged_mla_decode_attention",
+                      "outer pools (273,16,512+64) map (4,68) H 128", dt,
+                      _paged_mla_case(4, 68, 16, 128, 512, 64, dt, 1056,
+                                      dev, gen),
+                      DA.paged_mla_decode_attention,
+                      ref.paged_mla_decode_attention))
+        cases.append(("paged_mla_decode_attention",
+                      "middle pools (193,16,512+64) map (4,48) H 128", dt,
+                      _paged_mla_case(4, 48, 16, 128, 512, 64, dt, 528, dev,
+                                      gen),
+                      DA.paged_mla_decode_attention,
+                      ref.paged_mla_decode_attention))
     cases.append(("copy_pages", "outer pool (273,16,8,128), 4+4 pairs",
                   torch.bfloat16,
                   _copy_case(273, 16, 8, 128, torch.bfloat16, dev, gen),
@@ -500,6 +681,10 @@ def kernels_phase(dev) -> dict:
     main = {}
     for (name, shape, dt, (sets, nbytes, flops, library, extra), kern,
          plain) in cases:
+        kw = extra.get("kw", {})
+        if kw:                         # the MLA kernels' scale
+            kern = functools.partial(kern, **kw)
+            plain = functools.partial(plain, **kw)
         args = sets[0]
         if extra.get("inplace"):
             # in-place kernels: each version gets its own copy of the pool
@@ -553,8 +738,9 @@ def kernels_phase(dev) -> dict:
                "library_max_abs_err": lib_err, "bytes": nbytes,
                "flops": flops, **rec_extra}
         print(json.dumps({"kernels": [rec]}), flush=True)
-        if dt == torch.bfloat16 and name not in main:
-            main[name] = rec
+        key = name + (" (MLA)" if shape.startswith("MLA") else "")
+        if dt == torch.bfloat16 and key not in main:
+            main[key] = rec
     return main
 
 
@@ -750,16 +936,16 @@ def _decode_profile(ev, steps: int, prefill_kernel: str):
 
 
 @torch.no_grad()
-def _warm_equals_cold(args, cold_args):
+def _warm_equals_cold(args, cold_args, cfg=None):
     """The random model's greedy tokens barely vary, so hold the bits
     instead: request 1 of the serve traffic (a hit at 768 tokens) prefills
     to the same logits and prefill caches with the prefix cache as without,
     and one generate step over requests 0 and 1 (one reading shared pages)
-    gives the same logits."""
+    gives the same logits. ``cfg`` replaces the config ``--arch`` names."""
     from repro_torch.launch import serve
     out = []
     for a in (args, cold_args):
-        _cfg, params, prompt, plens, engine = serve.setup(a)
+        _cfg, params, prompt, plens, engine = serve.setup(a, cfg)
         ds = engine.init_decode_state(params)
         prefixes = []
         for slot in (0, 1):
@@ -775,7 +961,7 @@ def _warm_equals_cold(args, cold_args):
           "a hit's prefill logits differ from the cold prefill's")
     for group in ("pre", "mid", "post"):
         for i, (cw, cc) in enumerate(zip(pw.state[group], pc.state[group])):
-            for name in ("k", "v", "pos"):
+            for name in cc:              # k, v, pos / latent, rope, pos
                 check(torch.equal(cw[name], cc[name]),
                       f"prefill cache {group}[{i}].{name}: warm != cold")
     for name in ("conv_buf", "queue"):
@@ -850,6 +1036,281 @@ def paged_serve_phase(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 7-9. deepseek-v2: MLA and MoE on the SOI engine
+# ---------------------------------------------------------------------------
+
+def _cpu_copy(model, cfg):
+    """The same weights on the host (built on the card, where random init
+    is fast, and copied)."""
+    from repro_torch.models import transformer as T
+    cpu = T.Transformer(cfg, generator=torch.Generator(), device="meta")
+    cpu.load_state_dict({k: v.to("cpu") for k, v in
+                         model.state_dict().items()}, assign=True)
+    return cpu
+
+
+def _free(dev):
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+
+
+def deepseek_parity_phase(dev) -> dict:
+    """Returns the launch counts of the paged engine's card run."""
+    phase("7 ds-parity (full-width deepseek-v2, 2 layers: dense layer 0 + "
+          "one MoE middle, f32, SOI pp, card vs CPU)")
+    from repro_torch.configs import deepseek_v2_236b as DS
+    from repro_torch.engine import SOIEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(DS.config(soi="pp", n_layers=2),
+                              dtype="float32")
+    t0 = time.perf_counter()
+    dev_model = T.init(cfg, generator=torch.Generator(device=dev)
+                       .manual_seed(1), device=dev)
+    cpu_model = _cpu_copy(dev_model, cfg)
+    n_par = sum(p.numel() for p in dev_model.parameters())
+    print(f"  {n_par / 1e9:.2f} B float32 parameters, 160 routed experts "
+          f"(no cut), on the card and on the host "
+          f"({time.perf_counter() - t0:.1f} s to build and copy)")
+    gen = torch.Generator().manual_seed(2)
+    # odd prompt lengths: one MoE dispatch group, so the host's expert
+    # products stay small (the card's are the same computation)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen,
+                             dtype=torch.int32) for n in (41, 43, 37)]
+    n_outer = cfg.soi.first_layer + cfg.n_layers - cfg.soi.last_layer
+    n_mid = cfg.soi.last_layer - cfg.soi.first_layer
+    out = {}
+    for layout, kw in (("dense", {}),
+                       ("paged", dict(paged=True, page_size=16))):
+        runs = []
+        for where, model in ((torch.device("cpu"), cpu_model),
+                             (dev, dev_model)):
+            eng = SOIEngine(cfg, max_concurrent_decodes=3, max_len=64,
+                            device=where, **kw)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            runs.append(_greedy(eng, model, [p.to(where) for p in prompts]))
+            torch.cuda.synchronize(dev)
+            counts = ops.launch_counts()          # the card run's, last
+            print(f"  {layout} {where}: 3 prefills + 8 steps in "
+                  f"{time.perf_counter() - t0:.2f} s (host clock)")
+        worst = _compare_runs(runs, f"deepseek {layout}")
+        want_paged = (n_outer * eng.steps + n_mid * eng.mid_steps
+                      if layout == "paged" else 0)
+        print(f"  {layout}: 8 steps, tokens identical, max|Δlogit| "
+              f"{worst:.3e}; card launches {counts}")
+        check(counts["flash_attention"] == 3 * cfg.n_layers,
+              f"flash_attention launches {counts['flash_attention']} != "
+              f"{3 * cfg.n_layers} (3 prefills x {cfg.n_layers} layers)")
+        check(counts["paged_mla_decode_attention"] == want_paged,
+              f"paged_mla_decode_attention launches "
+              f"{counts['paged_mla_decode_attention']} != {want_paged}")
+        out[layout] = counts
+    del cpu_model, dev_model
+    _free(dev)
+    return out["paged"]
+
+
+DS_SERVE_ARGV = ["--arch", "deepseek-v2-236b", "--layers", "4", "--soi",
+                 "pp", "--batch", "4", "--prompt-len", "1024", "--stagger",
+                 "2", "--gen-len", "64", "--seed", "0", "--paged",
+                 "--page-size", "16"]
+
+
+@torch.no_grad()
+def _phase_step_ms(engine, params, prompt, plens, n_steps=16):
+    """Prefill every request, then time ``n_steps`` generate steps one by
+    one (host clock, each ended by a synchronize); returns the median ms
+    of the steps that ran the SOI middle and of those that skipped it."""
+    ds = engine.init_decode_state(params)
+    for slot, n in enumerate(plens):
+        ds = engine.insert(engine.prefill(params, prompt[slot, :n]), ds, slot)
+    torch.cuda.synchronize(engine.device)
+    on, off = [], []
+    for _ in range(n_steps):
+        mid0 = engine.mid_steps
+        t0 = time.perf_counter()
+        ds, _res = engine.generate(params, ds)
+        torch.cuda.synchronize(engine.device)
+        (on if engine.mid_steps > mid0 else off).append(
+            (time.perf_counter() - t0) * 1e3)
+    check(on and off, f"steps with the middle {len(on)}, without {len(off)}")
+    return sorted(on)[len(on) // 2], sorted(off)[len(off) // 2]
+
+
+def deepseek_serve_phase(dev) -> dict:
+    phase("8 ds-serve (deepseek-v2 full width, 4 layers = 1 dense + 3 MoE, "
+          "bf16, SOI pp, --paged --page-size 16, exact-length prefill)")
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    args = serve.parse_args(DS_SERVE_ARGV)
+    t0 = time.perf_counter()
+    cfg, params, prompt, plens, engine = serve.setup(args)
+    torch.cuda.synchronize(dev)
+    print(f"  {sum(p.numel() for p in params.parameters()) / 1e9:.2f} B "
+          f"bf16 parameters built in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    res = serve.serve(engine, params, prompt, plens, args.gen_len)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    n_outer = cfg.soi.first_layer + cfg.n_layers - cfg.soi.last_layer
+    n_mid = cfg.soi.last_layer - cfg.soi.first_layer
+    want_flash = cfg.n_layers * len(res.seqs)
+    want_paged = n_outer * res.steps + n_mid * res.mid_steps
+    print(f"  prefill {res.prefill_s:.3f} s for {len(res.seqs)} requests "
+          f"(lens {plens}), decode {res.decoded} tokens in "
+          f"{res.decode_s:.3f} s = {res.decoded / res.decode_s:.1f} tok/s "
+          f"(host clock); {res.steps} steps, {res.mid_steps} with the "
+          f"middle; peak device memory {peak:.2f} GiB; pools {res.pools}")
+    print(f"  launches {counts}; expected flash_attention {want_flash} "
+          f"({cfg.n_layers} layers x {len(res.seqs)} requests), "
+          f"paged_mla_decode_attention {want_paged} ({n_outer} outer "
+          f"layers x {res.steps} steps + {n_mid} middle x {res.mid_steps})")
+    check(res.seqs.shape == (4, 64), f"tokens shape {res.seqs.shape}")
+    check(((res.seqs >= 0) & (res.seqs < cfg.vocab)).all(),
+          "token ids outside [0, vocab)")
+    check(want_flash == 16 and counts["flash_attention"] == want_flash,
+          f"flash_attention launches {counts['flash_attention']} != 16")
+    check(want_paged == 192
+          and counts["paged_mla_decode_attention"] == want_paged,
+          f"paged_mla_decode_attention launches "
+          f"{counts['paged_mla_decode_attention']} != 192")
+    others = {k: v for k, v in counts.items()
+              if k not in ("flash_attention", "paged_mla_decode_attention")}
+    check(not any(others.values()), f"unexpected launches {others}")
+    on, off = _phase_step_ms(engine, params, prompt, plens)
+    print(f"  step time (host clock after a synchronize, median): "
+          f"{on:.3f} ms with the SOI middle (phase 0), {off:.3f} ms "
+          f"without; ratio {on / off:.3f}")
+    print("  profiled rerun:")
+    ev = _device_events(lambda: serve.serve(engine, params, prompt, plens,
+                                            args.gen_len))
+    check(ev, "the profiler saw no device activity")
+    _decode_profile(ev, res.steps, "flash_attention_kernel")
+    del params, engine
+    _free(dev)
+    return counts
+
+
+MLA_ARGV = ["--arch", "deepseek-v2-236b", "--soi", "pp", "--batch", "4",
+            "--prompt-len", "1024", "--stagger", "2", "--gen-len", "64",
+            "--seed", "0", "--paged", "--page-size", "16", "--chunk-size",
+            "256", "--shared-prefix", "768"]
+
+
+def mla_phase(dev) -> tuple:
+    """Returns the launch counts of the card's parity run (the path whose
+    rings wrap and copy MLA pages on write) and of the serve run."""
+    phase("9 mla (deepseek-v2 layer-0 block: MLA + SwiGLU 12288, full "
+          "width, SOI pp, chunked prefill + prefix cache)")
+    from repro_torch.configs import deepseek_v2_236b as DS
+    from repro_torch.engine import SOIEngine
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    # card against CPU, f32, 2 layers: 3 prompts of ~100 tokens sharing
+    # their first 64, 34 steps, so every ring wraps (position 128, frame 64)
+    # onto pages the index still shares and copies latent/rope/pos pages
+    cfg = dataclasses.replace(DS.mla_dense_config(soi="pp", n_layers=2),
+                              dtype="float32")
+    dev_model = T.init(cfg, generator=torch.Generator(device=dev)
+                       .manual_seed(3), device=dev)
+    cpu_model = _cpu_copy(dev_model, cfg)
+    gen = torch.Generator().manual_seed(4)
+    shared = torch.randint(0, cfg.vocab, (64,), generator=gen,
+                           dtype=torch.int32)
+    prompts = [torch.cat([shared, torch.randint(
+        0, cfg.vocab, (n - 64,), generator=gen, dtype=torch.int32)])
+        for n in (100, 101, 99)]
+    runs, stats = [], []
+    for where, model in ((torch.device("cpu"), cpu_model), (dev, dev_model)):
+        eng = SOIEngine(cfg, max_concurrent_decodes=3, max_len=128,
+                        device=where, paged=True, page_size=16,
+                        prefill_chunk=32, prefix_cache=True)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        runs.append(_greedy(eng, model, [p.to(where) for p in prompts],
+                            n_steps=34))
+        torch.cuda.synchronize(dev)
+        cow_counts = ops.launch_counts()          # the card run's, last
+        stats.append(eng.prefix_cache_stats)
+        print(f"  parity {where}: 3 chunked prefills + 34 steps in "
+              f"{time.perf_counter() - t0:.2f} s (host clock); prefix cache "
+              f"{stats[-1]}")
+    worst = _compare_runs(runs, "mla paged")
+    check(stats[0] == stats[1], f"prefix-cache counters differ: cpu "
+                                f"{stats[0]}, cuda {stats[1]}")
+    check(stats[1]["hits"] == 2 and stats[1]["cow_copies"] > 0,
+          f"expected 2 hits and copies on write: {stats[1]}")
+    check(cow_counts["copy_pages"] > 0
+          and cow_counts["mla_chunk_attention"] > 0
+          and cow_counts["paged_mla_decode_attention"] > 0,
+          f"parity run launches {cow_counts}")
+    gqa = ("decode_attention", "flash_attention", "chunk_attention",
+           "paged_decode_attention")
+    check(not any(cow_counts[k] for k in gqa),
+          f"the MLA run launched a GQA kernel: {cow_counts}")
+    print(f"  parity: 34 steps, tokens identical, max|Δlogit| {worst:.3e}; "
+          f"card launches {cow_counts} (copy_pages on the latent, rope and "
+          f"pos pools)")
+    del cpu_model, dev_model
+    _free(dev)
+
+    cfg = DS.mla_dense_config(soi="pp", n_layers=4)
+    args = serve.parse_args(MLA_ARGV + ["--prefix-cache"])
+    cold_args = serve.parse_args(MLA_ARGV)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    res = serve.run(args, cfg)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    n_outer = cfg.soi.first_layer + cfg.n_layers - cfg.soi.last_layer
+    n_mid = cfg.soi.last_layer - cfg.soi.first_layer
+    chunk, hit_at = 256, 768
+    plens = res.plens
+    want_chunks = (-(-plens[0] // chunk)
+                   + sum(-(-p // chunk) - hit_at // chunk for p in plens[1:]))
+    want_chunk = cfg.n_layers * want_chunks
+    want_paged = n_outer * res.steps + n_mid * res.mid_steps
+    pc = res.prefix_cache
+    print(f"  serve, 4 bf16 layers: prefill {res.prefill_s:.3f} s for "
+          f"{len(res.seqs)} requests, decode {res.decoded} tokens in "
+          f"{res.decode_s:.3f} s = {res.decoded / res.decode_s:.1f} tok/s "
+          f"(host clock); {res.steps} steps, {res.mid_steps} with the "
+          f"middle; peak device memory {peak:.2f} GiB")
+    print(f"  prefix cache {pc}; pools {res.pools}")
+    print(f"  launches {counts}; expected mla_chunk_attention {want_chunk} "
+          f"({want_chunks} chunks x {cfg.n_layers} layers), "
+          f"paged_mla_decode_attention {want_paged}")
+    check(res.seqs.shape == (4, 64), f"tokens shape {res.seqs.shape}")
+    check(pc["hits"] == 3 and pc["misses"] == 1
+          and pc["tokens_skipped"] == 3 * hit_at,
+          f"prefix-cache counters {pc}")
+    check(want_chunk == 28 and counts["mla_chunk_attention"] == want_chunk,
+          f"mla_chunk_attention launches {counts['mla_chunk_attention']} "
+          f"!= 28")
+    check(counts["paged_mla_decode_attention"] == want_paged,
+          f"paged_mla_decode_attention launches "
+          f"{counts['paged_mla_decode_attention']} != {want_paged}")
+    check(not any(counts[k] for k in gqa),
+          f"the MLA serve launched a GQA kernel: {counts}")
+    cold = serve.run(cold_args, cfg)
+    check(cold.prefix_cache == {} and (cold.seqs == res.seqs).all(),
+          "tokens with the prefix cache differ from the cold run")
+    print(f"  tokens identical to the cold run (no prefix cache: prefill "
+          f"{cold.prefill_s:.3f} s, decode "
+          f"{cold.decoded / cold.decode_s:.1f} tok/s, host clock)")
+    _warm_equals_cold(args, cold_args, cfg)
+    print("  profiled rerun:")
+    ev = _device_events(lambda: serve.run(args, cfg))
+    check(ev, "the profiler saw no device activity")
+    _decode_profile(ev, res.steps, "mla_chunk_attention_kernel")
+    _free(dev)
+    return cow_counts, counts
+
+
 def main():
     t_start = time.perf_counter()
     card = device_phase()
@@ -859,15 +1320,25 @@ def main():
     cow_counts = parity_phase(dev)
     counts = serve_phase(dev)
     paged_counts = paged_serve_phase(dev)
+    _free(dev)
+    deepseek_parity_phase(dev)
+    ds_counts = deepseek_serve_phase(dev)
+    mla_cow_counts, mla_counts = mla_phase(dev)
     # launches: each kernel's count on its own path's run — the dense
-    # serve (phase 5), the paged prefix-cache serve (phase 6), and for
-    # copy_pages the paged engine whose rings wrap (phase 4: the serve
-    # command never wraps, max_len = prompt + generated)
+    # serve (phase 5), the paged prefix-cache serve (phase 6), the
+    # deepseek-v2 serve (phase 8), the MLA prefix-cache serve (phase 9),
+    # and for copy_pages the paged engine whose rings wrap (phase 4: the
+    # serve command never wraps, max_len = prompt + generated)
     launches = {"decode_attention": ("serve", counts),
                 "flash_attention": ("serve", counts),
                 "chunk_attention": ("paged serve", paged_counts),
                 "paged_decode_attention": ("paged serve", paged_counts),
-                "copy_pages": ("paged parity (ring wrap)", cow_counts)}
+                "copy_pages": ("paged parity (ring wrap)", cow_counts),
+                "mla_chunk_attention": ("mla serve", mla_counts),
+                "paged_mla_decode_attention": ("deepseek serve",
+                                               ds_counts)}
+    check(mla_cow_counts["copy_pages"] > 0,
+          "copy_pages never ran on the MLA pools")
     summary = []
     for name in KERNEL_META:
         rec = main_recs[name]
@@ -881,7 +1352,17 @@ def main():
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"],
             "dtype": rec["dtype"]})
-    print(f"== 7 done in {time.perf_counter() - t_start:.1f} s")
+        if name == "flash_attention":
+            # its second path: deepseek-v2's exact-length MLA prefill
+            mla = main_recs["flash_attention (MLA)"]
+            summary[-1]["mla"] = {
+                key: mla[key] for key in ("shape", "max_abs_err", "ms",
+                                          "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms")}
+            summary[-1]["mla"].update(
+                launches=ds_counts["flash_attention"],
+                launches_on="deepseek serve")
+    print(f"== 10 done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

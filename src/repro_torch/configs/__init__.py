@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ("qwen3-1.7b",)
+ARCHS = ("qwen3-1.7b", "deepseek-v2-236b")
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
             for a in ARCHS}
@@ -21,9 +21,12 @@ def module(arch: str):
     return importlib.import_module(_MODULES[arch])
 
 
-def get(arch: str, soi=None):
-    """Full-size config of an architecture id."""
-    return module(arch).config(soi=soi)
+def get(arch: str, soi=None, n_layers: int | None = None):
+    """Full-size config of an architecture id; ``n_layers`` cuts its depth
+    (every width stays)."""
+    if n_layers is None:
+        return module(arch).config(soi=soi)
+    return module(arch).config(soi=soi, n_layers=n_layers)
 
 
 def get_smoke(arch: str, soi=None):

@@ -27,8 +27,8 @@ def _cfg(n_layers, d, heads, kv, hd, ff, vocab, soi=None):
     )
 
 
-def config(soi=None) -> ModelCfg:
-    return _cfg(28, 2048, 16, 8, 128, 6144, 151936, soi)
+def config(soi=None, n_layers: int = 28) -> ModelCfg:
+    return _cfg(n_layers, 2048, 16, 8, 128, 6144, 151936, soi)
 
 
 def smoke_config(soi=None) -> ModelCfg:

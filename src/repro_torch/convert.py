@@ -5,9 +5,13 @@
 off and its leaves as numpy arrays (anything ``np.asarray`` accepts), and
 returns a ``repro_torch.models.transformer.Transformer`` holding the same
 numbers. Scanned segments carry a leading layer axis; it is unstacked into
-one ``Block`` per layer. Einsum layouts are kept as they are: ``wq (d, H,
-dh)``, ``wo (H, dh, d)``, ``soi.compress (stride, d, d)``, ``soi.fuse
-(2d, d)``. This module imports no JAX: the caller hands over numpy.
+one ``Block`` per layer; unscanned segments are lists of layer trees
+already. Einsum layouts are kept as they are: ``wq (d, H, dh)``, ``wo (H,
+dh, d)``, MLA's ``wdq``/``wuq``/``wdkv``/``wuk``/``wuv``, the MoE's
+``router (d, E)``, ``up/gate (E, d, f)``, ``down (E, f, d)`` and shared
+experts, ``lm_head (d, vocab)``, ``soi.compress (stride, d, d)``,
+``soi.fuse (2d, d)``. A norm leaf ``{"scale": ...}`` becomes its scale
+tensor. This module imports no JAX: the caller hands over numpy.
 """
 
 from __future__ import annotations
@@ -62,13 +66,13 @@ def from_jax_params(params: dict, cfg: ModelCfg, *, device=None,
         pre = f"blocks.{i}."
         tensors[pre + "ln1"] = t(lp["ln1"]["scale"])
         tensors[pre + "ln2"] = t(lp["ln2"]["scale"])
-        for name in ("wq", "wk", "wv", "wo"):
-            tensors[pre + "attn." + name] = t(lp["attn"][name])
-        for name in ("q_norm", "k_norm"):
-            if name in lp["attn"]:
-                tensors[pre + "attn." + name] = t(lp["attn"][name]["scale"])
-        for name in ("up", "gate", "down"):
-            tensors[pre + "mlp." + name] = t(lp["mlp"][name])
+        for mod in ("attn", "mlp", "moe"):
+            for name, leaf in lp.get(mod, {}).items():
+                if isinstance(leaf, dict):           # a norm: its scale
+                    leaf = leaf["scale"]
+                tensors[f"{pre}{mod}.{name}"] = t(leaf)
+    if not cfg.tie_embeddings:
+        tensors["lm_head"] = t(params["lm_head"])
     if cfg.soi is not None:
         tensors["soi_compress"] = t(params["soi"]["compress"])
         tensors["soi_fuse"] = t(params["soi"]["fuse"])

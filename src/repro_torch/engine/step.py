@@ -20,7 +20,8 @@ only when ``t % stride == 0``) is resolved per slot from the clock vector
     (reference ``engine/step.py:176-188``), so a mid-window slot's write
     lands on the null page and its (discarded) read sees an empty cache.
     The reference's ``_select_mid_caches(paged=True)`` then selects only
-    the leaves that are not attention pools — qwen3 has none.
+    the leaves that are not attention pools — the ported stacks (GQA and
+    MLA attention, MLP and MoE blocks) have none.
 
 The step updates the decode state in place and returns it.
 """

@@ -31,11 +31,36 @@ replaces the TPU kernel
 * Held back by: the same ``B*Hkv`` blocks as the dense kernel, and the
   dependent page-id load at the head of every chunk of keys.
 
+``paged_mla_decode_attention`` is the absorbed-MLA read of deepseek-v2's
+latent pools.
+
+Kernel: ``csrc/paged_mla_decode_attention.cu`` (CUDA C++, sm_90a), which
+replaces the TPU kernel
+``repro/kernels/decode_attention.py::paged_mla_decode_attention``.
+
+* Bound on the H100: near balanced at the serving shape (B 4, clocks
+  ~1088, L 512, R 64, bf16): ~5 MB of live latent + rope rows (~1.5 µs)
+  against ~1.2 GFLOP (~1.2 µs on the tensor cores).
+* Design: grid ``(H/4, B)``; a block keeps 4 query heads of one slot in
+  registers, so every latent + rope row a warp loads is scored against all
+  4 and then accumulated as their value; the page walk, the live test
+  (``page_map > 0`` and ``0 <= pos <= t``), the null-page rows that are
+  never loaded, the finite ``-1e30`` mask and the warp merge are those of
+  the paged GQA kernel. The H/4 blocks of a slot share its rows through
+  L2.
+* Held back by: scalar float32 FMAs and a shuffle reduction per (head,
+  key) — at least ~18 µs at the 67 TFLOP/s float32 rate.
+
+The dense MLA read (``ops.mla_decode_attention``) has no TPU kernel in the
+reference ("reference path on every backend") and stays the plain version
+``ref.mla_decode_attention`` on every device.
+
 The plain versions are ``ref.decode_attention`` (re-exported here as
-``plain``) and ``ref.paged_decode_attention`` (``paged_plain``); a CPU
-tensor takes them, a CUDA tensor launches the kernel or raises.
-``decode_attention.launches`` and ``paged_decode_attention.launches`` count
-kernel launches.
+``plain``), ``ref.paged_decode_attention`` (``paged_plain``) and
+``ref.paged_mla_decode_attention`` (``paged_mla_plain``); a CPU tensor
+takes them, a CUDA tensor launches the kernel or raises.
+``decode_attention.launches``, ``paged_decode_attention.launches`` and
+``paged_mla_decode_attention.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -47,6 +72,7 @@ from repro_torch.kernels import ref
 
 plain = ref.decode_attention
 paged_plain = ref.paged_decode_attention
+paged_mla_plain = ref.paged_mla_decode_attention
 
 _DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 HEAD_DIMS = (16, 32, 64, 128)
@@ -200,3 +226,99 @@ def paged_decode_attention(q, k_pool, v_pool, pos_pool, page_map, q_position,
 
 
 paged_decode_attention.launches = 0
+
+
+# (L, R) latent and rope widths the MLA kernel is instantiated for:
+# deepseek-v2's, and the small test stacks'
+MLA_DIMS = ((512, 64), (16, 8))
+MLA_HEADS_PER_BLOCK = 4
+
+
+def _check_paged_mla_cuda(q_lat, q_rope, lat_pool, rope_pool, pos_pool,
+                          page_map, q_position, out_dtype):
+    if q_lat.dim() != 3 or q_rope.dim() != 3 or lat_pool.dim() != 3 \
+            or rope_pool.dim() != 3:
+        raise ValueError(f"q_lat {tuple(q_lat.shape)}, q_rope "
+                         f"{tuple(q_rope.shape)}, lat_pool "
+                         f"{tuple(lat_pool.shape)}, rope_pool "
+                         f"{tuple(rope_pool.shape)}: want (B,H,L), (B,H,R), "
+                         f"(n_pages,P,L), (n_pages,P,R)")
+    b, h, lat_d = q_lat.shape
+    r = q_rope.shape[-1]
+    n_pages, p_sz = pos_pool.shape
+    if tuple(q_rope.shape[:2]) != (b, h) \
+            or tuple(lat_pool.shape) != (n_pages, p_sz, lat_d) \
+            or tuple(rope_pool.shape) != (n_pages, p_sz, r):
+        raise ValueError(f"q_lat {tuple(q_lat.shape)}, q_rope "
+                         f"{tuple(q_rope.shape)}, lat_pool "
+                         f"{tuple(lat_pool.shape)}, rope_pool "
+                         f"{tuple(rope_pool.shape)}, pos_pool "
+                         f"{tuple(pos_pool.shape)} do not match")
+    if page_map.dim() != 2 or page_map.shape[0] != b:
+        raise ValueError(f"page_map {tuple(page_map.shape)}: want (B={b}, "
+                         f"n_pp)")
+    if tuple(q_position.shape) != (b,):
+        raise ValueError(f"q_position {tuple(q_position.shape)} != {(b,)}")
+    if (lat_d, r) not in MLA_DIMS or h % MLA_HEADS_PER_BLOCK:
+        raise NotImplementedError(
+            f"paged_mla_decode_attention kernel takes (L, R) in {MLA_DIMS} "
+            f"and H a multiple of {MLA_HEADS_PER_BLOCK}, got L={lat_d} R={r} "
+            f"H={h}")
+    dts = {q_lat.dtype, q_rope.dtype, lat_pool.dtype, rope_pool.dtype}
+    if q_lat.dtype not in _DTYPES or len(dts) != 1:
+        raise TypeError(f"paged_mla_decode_attention takes float32 or "
+                        f"bfloat16 inputs of one dtype, got "
+                        f"{sorted(map(str, dts))}")
+    if out_dtype is not None and out_dtype != q_lat.dtype:
+        raise TypeError(f"paged_mla_decode_attention kernel writes q_lat's "
+                        f"dtype {q_lat.dtype}, asked for {out_dtype}")
+    if (pos_pool.dtype != torch.int32 or page_map.dtype != torch.int32
+            or q_position.dtype != torch.int32):
+        raise TypeError("positions and page_map must be int32")
+    for name, t in (("q_lat", q_lat), ("q_rope", q_rope),
+                    ("lat_pool", lat_pool), ("rope_pool", rope_pool),
+                    ("pos_pool", pos_pool), ("page_map", page_map),
+                    ("q_position", q_position)):
+        if t.device != q_lat.device:
+            raise ValueError(f"{name} is on {t.device}, q_lat on "
+                             f"{q_lat.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def paged_mla_decode_attention(q_lat, q_rope, lat_pool, rope_pool, pos_pool,
+                               page_map, q_position, *, scale,
+                               out_dtype=None):
+    """q_lat: (B, H, L) (W_UK absorbed); q_rope: (B, H, R); pools:
+    (n_pages, P, L), (n_pages, P, R) and (n_pages, P) int32 positions;
+    page_map: (B, n_pp) int32 page ids in [0, n_pages), 0 = the null page;
+    q_position: (B,) int32. Returns o_lat (B, H, L) in ``out_dtype``
+    (default q_lat's)."""
+    if q_lat.device.type == "cpu":
+        return paged_mla_plain(q_lat, q_rope, lat_pool, rope_pool, pos_pool,
+                               page_map, q_position, scale=scale,
+                               out_dtype=out_dtype)
+    if q_lat.device.type != "cuda":
+        raise ValueError(f"paged_mla_decode_attention: unsupported device "
+                         f"{q_lat.device}")
+    _check_paged_mla_cuda(q_lat, q_rope, lat_pool, rope_pool, pos_pool,
+                          page_map, q_position, out_dtype)
+    b, h, lat_d = q_lat.shape
+    r = q_rope.shape[-1]
+    p_sz = pos_pool.shape[1]
+    n_pp = page_map.shape[1]
+    out = torch.empty_like(q_lat)
+    stream = torch.cuda.current_stream(q_lat.device).cuda_stream
+    rc = _build.library().repro_paged_mla_decode_attention(
+        q_lat.data_ptr(), q_rope.data_ptr(), lat_pool.data_ptr(),
+        rope_pool.data_ptr(), pos_pool.data_ptr(), page_map.data_ptr(),
+        q_position.data_ptr(), out.data_ptr(), b, h, lat_d, r, n_pp, p_sz,
+        float(scale), _build.DTYPE_CODES[_DTYPES[q_lat.dtype]], stream)
+    _build.check(rc, "paged_mla_decode_attention")
+    paged_mla_decode_attention.launches += 1
+    return out
+
+
+paged_mla_decode_attention.launches = 0

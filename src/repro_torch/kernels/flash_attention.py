@@ -1,11 +1,17 @@
-"""Causal flash attention for whole-prompt (bucketed) prefill.
+"""Causal flash attention for whole-prompt prefill (bucketed, or at the
+exact length for configs that cannot mask pad).
 
 Kernel: ``csrc/flash_attention.cu`` (CUDA C++, sm_90a), which replaces the
-TPU kernel ``repro/kernels/flash_attention.py::flash_attention``.
+TPU kernel ``repro/kernels/flash_attention.py::flash_attention``. The value
+head dim may differ from the query/key one, as in the TPU kernel: the
+kernel takes (d_qk, d_v) in ``HEAD_DIMS`` — the GQA dims and deepseek-v2's
+MLA prefill (q/k 192 = qk_nope 128 + qk_rope 64, v 128).
 
-* Bound on the H100: near balanced at the serving shape (S=1024, H=16,
+* Bound on the H100: near balanced at the GQA serving shape (S=1024, H=16,
   dh=128, bf16): ~4.3 GFLOP of causal work (~4.3 µs on the tensor cores)
-  against ~17 MB of q/k/v/o (~5 µs at 3.35 TB/s).
+  against ~17 MB of q/k/v/o (~5 µs at 3.35 TB/s); at the MLA shape
+  (S=1024, H=128, 192/128) ~43 GFLOP against ~134 MB, again near balanced
+  (~43 µs against ~40 µs).
 * Design: grid ``(ceil(Sq/64), B*H)``; a block keeps a 64-row q tile in
   shared memory and walks 64-key tiles up to the causal limit of its last
   row (tiles wholly past the diagonal are never loaded, as the TPU kernel's
@@ -30,13 +36,15 @@ from repro_torch.kernels import ref
 plain = ref.flash_attention
 
 _DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
-HEAD_DIMS = (16, 32, 64, 128)
+# (d_qk, d_v) pairs the kernel is instantiated for
+HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128))
 
 
 def _check_cuda(q, k, v):
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
-                         f"{tuple(v.shape)}: want (B,Sq,H,dh), (B,Sk,Hkv,dh)")
+                         f"{tuple(v.shape)}: want (B,Sq,H,dqk), "
+                         f"(B,Sk,Hkv,dqk), (B,Sk,Hkv,dv)")
     b, sq, h, dh = q.shape
     _, sk, hkv, dk = k.shape
     if k.shape[0] != b or dk != dh:
@@ -44,9 +52,9 @@ def _check_cuda(q, k, v):
                          f"{tuple(q.shape)}")
     if h % hkv:
         raise ValueError(f"H={h} is not a multiple of Hkv={hkv}")
-    if dh not in HEAD_DIMS:
-        raise NotImplementedError(f"flash_attention kernel takes dh in "
-                                  f"{HEAD_DIMS}, got {dh}")
+    if (dh, v.shape[-1]) not in HEAD_DIMS:
+        raise NotImplementedError(f"flash_attention kernel takes (dqk, dv) "
+                                  f"in {HEAD_DIMS}, got {(dh, v.shape[-1])}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16 q/k/v of "
                         f"one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -59,9 +67,10 @@ def _check_cuda(q, k, v):
 
 def flash_attention(q, k, v, *, causal=True, window=None, prefix_len=0,
                     q_offset=0, scale=None, logit_softcap=None):
-    """q: (B, Sq, H, dh); k, v: (B, Sk, Hkv, dh) with H a multiple of Hkv.
-    ``q_offset`` is the absolute position of ``q[:, 0]``. Returns
-    (B, Sq, H, dh) in q's dtype."""
+    """q: (B, Sq, H, dqk); k: (B, Sk, Hkv, dqk); v: (B, Sk, Hkv, dv) with H
+    a multiple of Hkv. ``q_offset`` is the absolute position of ``q[:, 0]``;
+    ``scale`` defaults to ``dqk ** -0.5``. Returns (B, Sq, H, dv) in q's
+    dtype."""
     if q.device.type == "cpu":
         return plain(q, k, v, causal=causal, window=window,
                      prefix_len=prefix_len, q_offset=q_offset, scale=scale,
@@ -75,14 +84,15 @@ def flash_attention(q, k, v, *, causal=True, window=None, prefix_len=0,
     _check_cuda(q, k, v)
     b, sq, h, dh = q.shape
     _, sk, hkv, _ = k.shape
+    dv = v.shape[-1]
     scale = dh ** -0.5 if scale is None else float(scale)
     cap = 0.0 if not logit_softcap else float(logit_softcap)
-    out = torch.empty_like(q)
+    out = q.new_empty((b, sq, h, dv))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _build.library().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, sq, sk, h, hkv, dh, int(q_offset), int(bool(causal)), scale, cap,
-        _build.DTYPE_CODES[_DTYPES[q.dtype]], stream)
+        b, sq, sk, h, hkv, dh, dv, int(q_offset), int(bool(causal)), scale,
+        cap, _build.DTYPE_CODES[_DTYPES[q.dtype]], stream)
     _build.check(rc, "flash_attention")
     flash_attention.launches += 1
     return out

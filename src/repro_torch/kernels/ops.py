@@ -9,20 +9,26 @@ result on the card call ``kernels.ref`` directly (``chip_smoke.py`` does).
 The model code reaches the kernels only through this module.
 
 ``gather_pages`` (prefix-cache hydration) has no TPU kernel in the
-reference either: it is a plain PyTorch gather on every device.
+reference either: it is a plain PyTorch gather on every device. Nor has
+``mla_decode_attention``, the absorbed-MLA read of a dense latent cache
+("reference path on every backend", ``repro/kernels/ops.py``): it is the
+plain PyTorch version on the card too.
 """
 
 from __future__ import annotations
 
-from repro_torch.kernels.chunk_attention import chunk_attention
+from repro_torch.kernels.chunk_attention import (chunk_attention,
+                                                 mla_chunk_attention)
 from repro_torch.kernels.decode_attention import (decode_attention,
-                                                  paged_decode_attention)
+                                                  paged_decode_attention,
+                                                  paged_mla_decode_attention)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.page_copy import copy_pages
-from repro_torch.kernels.ref import gather_pages
+from repro_torch.kernels.ref import gather_pages, mla_decode_attention
 
 KERNELS = (decode_attention, flash_attention, chunk_attention,
-           paged_decode_attention, copy_pages)
+           paged_decode_attention, copy_pages, mla_chunk_attention,
+           paged_mla_decode_attention)
 
 
 def reset_launch_counts() -> None:
@@ -38,4 +44,6 @@ def launch_counts() -> dict:
 
 __all__ = ["chunk_attention", "copy_pages", "decode_attention",
            "flash_attention", "gather_pages", "launch_counts",
-           "paged_decode_attention", "reset_launch_counts"]
+           "mla_chunk_attention", "mla_decode_attention",
+           "paged_decode_attention", "paged_mla_decode_attention",
+           "reset_launch_counts"]

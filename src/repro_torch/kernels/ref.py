@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the kernels this port runs — attention
-(dense, chunked, paged) and the page copy — and the page gather (the
+(dense, chunked, paged; GQA and absorbed MLA) and the page copy — and the
+page gather (the
 counterparts of ``repro.kernels.ref`` and of the reference path of
 ``repro.kernels.ops``). The CPU path of every kernel wrapper is the
 function here, and ``chip_smoke.py`` holds each CUDA kernel against it on
@@ -172,6 +173,73 @@ def paged_decode_attention(q, k_pool, v_pool, pos_pool, page_map, q_position,
     pos = torch.where(live_page, pos, torch.full_like(pos, -1))
     return decode_attention(q, k, v, pos, q_position, window=window,
                             scale=scale, logit_softcap=logit_softcap)
+
+
+def mla_chunk_attention(q_lat, q_rope, latent, rope, q_positions,
+                        k_positions, *, scale, out_dtype=None):
+    """Absorbed-matmul MLA chunk attention
+    (``repro.kernels.ref.mla_chunk_attention``, its einsum order kept):
+    scores over the latent cache directly (q already carries W_UK), the
+    value product against the latent.
+
+    q_lat: (B, C, H, L); q_rope: (B, C, H, R); latent: (B, Sk, L); rope:
+    (B, Sk, R); positions absolute, ``-1`` = empty. A key is live iff
+    ``0 <= kp <= qp``. Returns (B, C, H, L) in ``out_dtype`` (default
+    q_lat's)."""
+    scores = (torch.einsum("bshl,bkl->bhsk", q_lat.float(), latent.float())
+              + torch.einsum("bshk,bek->bhse", q_rope.float(),
+                             rope.float())) * scale
+    allow = ((k_positions[:, None] >= 0)
+             & (k_positions[:, None] <= q_positions[..., None]))
+    scores = torch.where(allow[:, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhsk,bkl->bshl", probs, latent.float())
+    return o_lat.to(out_dtype if out_dtype is not None else q_lat.dtype)
+
+
+def mla_decode_attention(q_lat, q_rope, latent, rope, positions, q_position,
+                         *, scale, out_dtype=None):
+    """Single-token absorbed-matmul MLA attention against a dense latent
+    cache (``repro.kernels.ref.mla_decode_attention``, same einsum order).
+
+    q_lat: (B, H, L); q_rope: (B, H, R); latent: (B, S, L); rope: (B, S, R);
+    positions: (B, S) absolute with -1 empties; q_position: (B,). Returns
+    (B, H, L)."""
+    scores = (torch.einsum("bhl,bsl->bhs", q_lat.float(), latent.float())
+              + torch.einsum("bhk,bsk->bhs", q_rope.float(),
+                             rope.float())) * scale
+    allow = (positions >= 0) & (positions <= q_position[:, None])
+    scores = torch.where(allow[:, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhs,bsl->bhl", probs, latent.float())
+    return o_lat.to(out_dtype if out_dtype is not None else q_lat.dtype)
+
+
+def paged_mla_decode_attention(q_lat, q_rope, lat_pool, rope_pool, pos_pool,
+                               page_map, q_position, *, scale,
+                               out_dtype=None):
+    """Single-token absorbed MLA attention against paged latent pools
+    (``repro.kernels.ops.paged_mla_decode_attention`` off the TPU).
+
+    Pools are ``(n_pages, P, L)``, ``(n_pages, P, R)`` and ``(n_pages, P)``
+    positions, page 0 the null page; ``page_map`` (B, n_pp) int32. The
+    slot-major dense view is gathered, entries reached through a map entry
+    that is not ``> 0`` read ``pos = -1``, and :func:`mla_decode_attention`
+    runs on it — so the plain paged read is bit-exact against the plain
+    dense read of the same logical rows."""
+    b, n_pp = page_map.shape
+    p_sz = pos_pool.shape[1]
+    idx = page_map.long()
+    lat = lat_pool[idx].reshape((b, n_pp * p_sz) + tuple(lat_pool.shape[2:]))
+    rope = rope_pool[idx].reshape((b, n_pp * p_sz)
+                                  + tuple(rope_pool.shape[2:]))
+    pos = pos_pool[idx].reshape(b, n_pp * p_sz)
+    live_page = torch.repeat_interleave(page_map > 0, p_sz, dim=1)
+    pos = torch.where(live_page, pos, torch.full_like(pos, -1))
+    return mla_decode_attention(q_lat, q_rope, lat, rope, pos, q_position,
+                                scale=scale, out_dtype=out_dtype)
 
 
 def copy_pages(pool, srcs, dsts):

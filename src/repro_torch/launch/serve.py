@@ -19,12 +19,21 @@ it reads step k-1's tokens, whose host copy was queued on the stream right
 behind step k-1, so the read overlaps step k's work on the card.
 
 Weights are random, from ``--seed``; ``--device`` defaults to the GPU.
+``--layers N`` cuts a full-size config to N layers at full width (the
+first layers of the stack; SOI bounds follow the config's own rule).
 ``main(argv)`` returns the generated tokens (requests x gen_len).
 
     python -m repro_torch.launch.serve --arch qwen3-1.7b --soi pp \\
         --batch 4 --prompt-len 1024 --stagger 2 --gen-len 64 \\
         [--paged --page-size 16 --chunk-size 256 --prefix-cache \\
          --shared-prefix 768]
+    python -m repro_torch.launch.serve --arch deepseek-v2-236b --layers 4 \\
+        --soi pp --batch 4 --prompt-len 1024 --stagger 2 --gen-len 64 \\
+        --paged --page-size 16
+
+A config with MoE blocks cannot mask pad: it prefills at the exact prompt
+length whatever ``--bucket`` says, and ``--chunk-size`` (so also
+``--prefix-cache``) raises, as the reference's engine does.
 """
 
 from __future__ import annotations
@@ -48,6 +57,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-1.7b", choices=configs.ARCHS)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the full-size config to this many layers "
+                         "(every width kept)")
     ap.add_argument("--soi", default=None, choices=["pp", "fp"])
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -184,10 +196,12 @@ def serve(engine: SOIEngine, params, prompt, plens, gen_len: int, *,
                        engine.pool_stats())
 
 
-def setup(args: argparse.Namespace):
+def setup(args: argparse.Namespace, cfg=None):
     """The config, random weights (from ``--seed``), prompts, prompt
     lengths and engine of ``args``: ``(cfg, params, prompt, plens,
-    engine)``."""
+    engine)``. ``cfg`` replaces the config ``--arch`` names (a stack that
+    is no registered architecture, e.g. deepseek-v2's MLA block with its
+    dense MLP); everything else still comes from ``args``."""
     device = resolve_device(args.device)
     if args.bucket == "pow2":
         buckets = "pow2"
@@ -195,8 +209,13 @@ def setup(args: argparse.Namespace):
         buckets = None
     else:
         buckets = tuple(int(x) for x in args.bucket.split(","))
-    cfg = (configs.get_smoke(args.arch, soi=args.soi) if args.smoke
-           else configs.get(args.arch, soi=args.soi))
+    if args.smoke and args.layers:
+        raise ValueError("--layers cuts a full-size config; the smoke "
+                         "configs have their own depth")
+    if cfg is None:
+        cfg = (configs.get_smoke(args.arch, soi=args.soi) if args.smoke
+               else configs.get(args.arch, soi=args.soi,
+                                n_layers=args.layers))
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = T.cast_params(
         T.init(cfg, generator=gen, device=device, dtype=T._dtype(cfg)), cfg)
@@ -216,10 +235,10 @@ def setup(args: argparse.Namespace):
     return cfg, params, prompt, plens, engine
 
 
-def run(args: argparse.Namespace) -> ServeResult:
-    """Build the config, random weights, prompts and engine of ``args`` and
-    serve them."""
-    cfg, params, prompt, plens, engine = setup(args)
+def run(args: argparse.Namespace, cfg=None) -> ServeResult:
+    """Build the config (``cfg`` if given), random weights, prompts and
+    engine of ``args`` and serve them."""
+    cfg, params, prompt, plens, engine = setup(args, cfg)
     res = serve(engine, params, prompt, plens, args.gen_len,
                 phase_align=args.phase_align)
     device = engine.device

@@ -1,9 +1,17 @@
-"""GQA attention (port of the GQA part of ``repro.models.attention``):
-parameters, the dense ring KV cache and the paged pools, full-sequence
-attention with the prefill cache fill, chunked-prefill attention, and
-one-token decode. The sequence mixing goes through
-``repro_torch.kernels.ops``: the hand-written CUDA kernels on the card,
-their plain versions on the CPU.
+"""GQA and MLA attention (port of ``repro.models.attention`` without the
+bidirectional and cross kinds): parameters, the dense ring KV cache and
+the paged pools, full-sequence attention with the prefill cache fill,
+chunked-prefill attention, and one-token decode. The sequence mixing goes
+through ``repro_torch.kernels.ops``: the hand-written CUDA kernels on the
+card, their plain versions on the CPU.
+
+MLA (DeepSeek-V2 latent attention) caches one ``kv_lora``-wide latent and
+one ``qk_rope``-wide rotated key per token (``latent``, ``rope``, ``pos``
+leaves instead of ``k``, ``v``, ``pos``). The full-sequence path expands the
+latent into per-head K/V and runs flash attention with d_qk = qk_nope +
+qk_rope and d_v = v_head; the chunk and decode paths absorb W_UK into the
+query and attend over the latent directly, its value product landing in
+the latent space and leaving through W_UV.
 
 KV caches store absolute positions beside K/V (``-1`` = empty), so masking
 is layout-independent and ring buffers work. Two physical layouts share
@@ -39,20 +47,27 @@ from repro_torch.models.layers import apply_rope, dense_init, norm_apply
 
 
 class Attention(nn.Module):
-    """GQA weights (the reference's ``attn_init``) in its einsum layout:
-    ``wq (d, H, dh)``, ``wk/wv (d, Hkv, dh)``, ``wo (H, dh, d)``;
-    ``q_norm``/``k_norm`` are the per-head RMSNorm scales of qk_norm
-    configs."""
+    """Attention weights (the reference's ``attn_init``) in its einsum
+    layout. GQA: ``wq (d, H, dh)``, ``wk/wv (d, Hkv, dh)``, ``wo (H, dh,
+    d)``; ``q_norm``/``k_norm`` are the per-head RMSNorm scales of qk_norm
+    configs. MLA: ``wdq (d, q_lora)``, ``q_norm (q_lora,)`` and ``wuq
+    (q_lora, H, qk_nope + qk_rope)`` (or ``wq (d, H, qk_nope + qk_rope)``
+    without q_lora), ``wdkv (d, kv_lora + qk_rope)``, ``kv_norm
+    (kv_lora,)``, ``wuk (kv_lora, H, qk_nope)``, ``wuv (kv_lora, H,
+    v_head)``, ``wo (H, v_head, d)``."""
 
     def __init__(self, cfg: AttnCfg, d: int, *, generator: torch.Generator,
                  device, dtype=torch.float32):
         super().__init__()
-        if cfg.kind != "gqa":
+        if cfg.kind not in ("gqa", "mla"):
             raise NotImplementedError(
                 f"attention kind {cfg.kind!r} is not ported yet; see "
                 f"ROADMAP.md")
         self.cfg = cfg
         kw = dict(generator=generator, device=device, dtype=dtype)
+        if cfg.is_mla:
+            self._init_mla(cfg, d, kw)
+            return
         h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
         self.wq = nn.Parameter(dense_init((d, h, dh), **kw))
         self.wk = nn.Parameter(dense_init((d, kv, dh), **kw))
@@ -65,18 +80,48 @@ class Attention(nn.Module):
             self.k_norm = nn.Parameter(torch.zeros(dh, device=device,
                                                    dtype=dtype))
 
+    def _init_mla(self, cfg: AttnCfg, d: int, kw: dict):
+        h = cfg.n_heads
+        dq = cfg.qk_nope + cfg.qk_rope
+        zeros = dict(device=kw["device"], dtype=kw["dtype"])
+        if cfg.q_lora:
+            self.wdq = nn.Parameter(dense_init((d, cfg.q_lora), **kw))
+            self.q_norm = nn.Parameter(torch.zeros(cfg.q_lora, **zeros))
+            self.wuq = nn.Parameter(dense_init((cfg.q_lora, h, dq), **kw))
+        else:
+            self.wq = nn.Parameter(dense_init((d, h, dq), **kw))
+        self.wdkv = nn.Parameter(dense_init((d, cfg.kv_lora + cfg.qk_rope),
+                                            **kw))
+        self.kv_norm = nn.Parameter(torch.zeros(cfg.kv_lora, **zeros))
+        self.wuk = nn.Parameter(dense_init((cfg.kv_lora, h, cfg.qk_nope),
+                                           **kw))
+        self.wuv = nn.Parameter(dense_init((cfg.kv_lora, h, cfg.v_head),
+                                           **kw))
+        self.wo = nn.Parameter(dense_init((h, cfg.v_head, d),
+                                          scale=(h * cfg.v_head) ** -0.5,
+                                          **kw))
+
+
+def _leaf_shapes(cfg: AttnCfg) -> dict:
+    """Per-token shape of each cache leaf besides ``pos``."""
+    if cfg.is_mla:
+        return {"latent": (cfg.kv_lora,), "rope": (cfg.qk_rope,)}
+    return {"k": (cfg.n_kv, cfg.head_dim), "v": (cfg.n_kv, cfg.head_dim)}
+
 
 def init_cache(cfg: AttnCfg, batch: int, max_len: int, dtype, device, *,
                window_cap: bool = True) -> dict:
-    """Decode-time KV cache. Windowed attention gets a ring buffer."""
+    """Decode-time KV cache (MLA: the latent and rotated-key lanes).
+    Windowed attention gets a ring buffer."""
     s = max_len
     if window_cap and cfg.window is not None:
         s = min(max_len, cfg.window)
-    shape = (batch, s, cfg.n_kv, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.full((batch, s), -1, dtype=torch.int32,
-                              device=device)}
+    cache = {name: torch.zeros((batch, s) + shape, dtype=dtype,
+                               device=device)
+             for name, shape in _leaf_shapes(cfg).items()}
+    cache["pos"] = torch.full((batch, s), -1, dtype=torch.int32,
+                              device=device)
+    return cache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,12 +136,14 @@ class PagedKV:
 
 def init_paged_cache(cfg: AttnCfg, page_size: int, n_pages: int, dtype,
                      device) -> dict:
-    """Pooled decode cache: pages are shared across slots via a page map."""
-    shape = (n_pages, page_size, cfg.n_kv, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.full((n_pages, page_size), -1, dtype=torch.int32,
-                              device=device)}
+    """Pooled decode cache: pages are shared across slots via a page map
+    (MLA: latent and rotated-key pools)."""
+    cache = {name: torch.zeros((n_pages, page_size) + shape, dtype=dtype,
+                               device=device)
+             for name, shape in _leaf_shapes(cfg).items()}
+    cache["pos"] = torch.full((n_pages, page_size), -1, dtype=torch.int32,
+                              device=device)
+    return cache
 
 
 def _paged_cache_write(cache: dict, pages: torch.Tensor, t: torch.Tensor,
@@ -212,6 +259,10 @@ def attn_forward(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
     The kernel reads K/V at Hkv heads, so the reference's GQA repeat of K/V
     is not made."""
     cfg = p.cfg
+    if cfg.is_mla:
+        return _mla_forward(p, x, positions=positions, norm_eps=norm_eps,
+                            fill_cache=fill_cache,
+                            fill_true_length=fill_true_length)
     q, k, v = _project_qkv(p, x, positions, norm_eps)
     out = kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                causal=True, window=cfg.window,
@@ -221,6 +272,62 @@ def attn_forward(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
     cache = None
     if fill_cache is not None:
         cache = _bulk_fill(fill_cache, positions, fill_true_length, k=k, v=v)
+    return y, cache
+
+
+def _mla_project(p: Attention, x: torch.Tensor, positions: torch.Tensor,
+                 eps: float):
+    """x (..., S, d) -> q_nope (..., S, H, qk_nope), rotated q_rope
+    (..., S, H, qk_rope), the normed latent (..., S, kv_lora) and the
+    rotated shared key lane k_rope (..., S, qk_rope)."""
+    cfg = p.cfg
+    d = x.shape[-1]
+    lead = x.shape[:-1]
+    if cfg.q_lora:
+        ql = norm_apply("rmsnorm", p.q_norm, torch.matmul(x, p.wdq), eps=eps)
+        q = torch.matmul(ql, p.wuq.reshape(cfg.q_lora, -1))
+    else:
+        q = torch.matmul(x, p.wq.reshape(d, -1))
+    q = q.reshape(*lead, cfg.n_heads, cfg.qk_nope + cfg.qk_rope)
+    q_nope, q_rope = q[..., :cfg.qk_nope], q[..., cfg.qk_nope:]
+    q_rope = apply_rope(q_rope, positions, theta=cfg.rope_theta)
+    dkv = torch.matmul(x, p.wdkv)
+    latent = norm_apply("rmsnorm", p.kv_norm, dkv[..., :cfg.kv_lora],
+                        eps=eps)
+    k_rope = apply_rope(dkv[..., cfg.kv_lora:], positions,
+                        theta=cfg.rope_theta)
+    return q_nope, q_rope, latent, k_rope
+
+
+def _mla_scale(cfg: AttnCfg) -> float:
+    return (cfg.qk_nope + cfg.qk_rope) ** -0.5
+
+
+def _mla_forward(p: Attention, x: torch.Tensor, *, positions, norm_eps,
+                 fill_cache, fill_true_length):
+    """Full-sequence MLA: the latent expands into per-head keys
+    ``[k_nope | k_rope]`` (qk_nope + qk_rope wide) and values (v_head
+    wide), and flash attention runs with d_v != d_qk. The cache keeps the
+    latent and k_rope."""
+    cfg = p.cfg
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    q_nope, q_rope, latent, k_rope = _mla_project(p, x, positions, norm_eps)
+    k_nope = torch.matmul(latent, p.wuk.reshape(cfg.kv_lora, -1)).reshape(
+        b, s, h, cfg.qk_nope)
+    v = torch.matmul(latent, p.wuv.reshape(cfg.kv_lora, -1)).reshape(
+        b, s, h, cfg.v_head)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, cfg.qk_rope)],
+                  dim=-1)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    out = kops.flash_attention(qf.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=True,
+                               scale=_mla_scale(cfg))
+    y = _out_proj(p, out)
+    cache = None
+    if fill_cache is not None:
+        cache = _bulk_fill(fill_cache, positions, fill_true_length,
+                           latent=latent, rope=k_rope)
     return y, cache
 
 
@@ -282,10 +389,6 @@ def _chunk_cache_merge(cache: dict, offset: int, end: int,
 
 
 # ---------------------------------------------------------------------------
-# Decode (one token)
-# ---------------------------------------------------------------------------
-
-# ---------------------------------------------------------------------------
 # Chunked prefill (C tokens appended at a position offset)
 # ---------------------------------------------------------------------------
 
@@ -301,6 +404,9 @@ def attn_chunk(p: Attention, x: torch.Tensor, cache: dict, offset: int,
     dev = x.device
     positions = torch.arange(offset, offset + c, dtype=torch.int32,
                              device=dev)
+    if cfg.is_mla:
+        return _mla_chunk(p, x, cache, offset, positions, true_length,
+                          norm_eps=norm_eps)
     q, k, v = _project_qkv(p, x, positions[None], norm_eps)
     k_all = torch.cat([cache["k"].to(k.dtype), k], dim=1)
     v_all = torch.cat([cache["v"].to(v.dtype), v], dim=1)
@@ -314,6 +420,32 @@ def attn_chunk(p: Attention, x: torch.Tensor, cache: dict, offset: int,
     y = _out_proj(p, out)
     end = min(offset + c, int(true_length))
     return y, _chunk_cache_merge(cache, offset, end, k=k, v=v)
+
+
+def _mla_chunk(p: Attention, x: torch.Tensor, cache: dict, offset: int,
+               positions: torch.Tensor, true_length: int, *, norm_eps):
+    """Absorbed-matmul MLA over cache + chunk latents (the C-query analogue
+    of ``_mla_decode``): W_UK folds into the query, the scores and the value
+    product run over the latent, W_UV maps the result back to the heads."""
+    cfg = p.cfg
+    b, c, _ = x.shape
+    q_nope, q_rope, latent, k_rope = _mla_project(p, x, positions[None],
+                                                  norm_eps)
+    lat_all = torch.cat([cache["latent"].to(latent.dtype), latent], dim=1)
+    rope_all = torch.cat([cache["rope"].to(k_rope.dtype), k_rope], dim=1)
+    new_pos = torch.where(positions < true_length, positions,
+                          torch.full_like(positions, -1))
+    kp = torch.cat([cache["pos"], new_pos.expand(b, c)], dim=1)
+    qp = positions.expand(b, c).contiguous()
+    q_lat = torch.einsum("bshk,lhk->bshl", q_nope, p.wuk)
+    o_lat = kops.mla_chunk_attention(q_lat.contiguous(), q_rope.contiguous(),
+                                     lat_all, rope_all, qp, kp,
+                                     scale=_mla_scale(cfg),
+                                     out_dtype=x.dtype)
+    out = torch.einsum("bshl,lhk->bshk", o_lat, p.wuv)
+    end = min(offset + c, int(true_length))
+    return _out_proj(p, out), _chunk_cache_merge(cache, offset, end,
+                                                 latent=latent, rope=k_rope)
 
 
 # ---------------------------------------------------------------------------
@@ -330,6 +462,9 @@ def attn_decode(p: Attention, x: torch.Tensor, cache: dict, t: torch.Tensor,
     the read go through the per-slot page lists. Otherwise the dense ring
     is written (only the ``commit`` rows when given)."""
     cfg = p.cfg
+    if cfg.is_mla:
+        return _mla_decode(p, x, cache, t, norm_eps=norm_eps, commit=commit,
+                           pages=pages)
     q, k, v = _project_qkv(p, x[:, None], t[:, None], norm_eps)
     q, k, v = q[:, 0].contiguous(), k[:, 0], v[:, 0]
     t32 = t.to(torch.int32)
@@ -345,4 +480,34 @@ def attn_decode(p: Attention, x: torch.Tensor, cache: dict, t: torch.Tensor,
                                     t32, window=cfg.window,
                                     scale=cfg.softmax_scale,
                                     logit_softcap=cfg.logit_softcap)
+    return _out_proj(p, out), cache
+
+
+def _mla_decode(p: Attention, x: torch.Tensor, cache: dict, t: torch.Tensor,
+                *, norm_eps, commit=None, pages=None):
+    """Absorbed-matmul MLA decode: attention runs in the kv_lora-wide latent
+    space; a token caches kv_lora + qk_rope numbers. The paged read is the
+    ``paged_mla_decode_attention`` kernel; the dense read has no kernel in
+    the reference and stays the plain ``mla_decode_attention``."""
+    cfg = p.cfg
+    q_nope, q_rope, latent, k_rope = _mla_project(p, x[:, None], t[:, None],
+                                                  norm_eps)
+    q_nope, q_rope = q_nope[:, 0], q_rope[:, 0].contiguous()
+    latent, k_rope = latent[:, 0], k_rope[:, 0]
+    q_lat = torch.einsum("bhk,lhk->bhl", q_nope, p.wuk)
+    t32 = t.to(torch.int32)
+    scale = _mla_scale(cfg)
+    if pages is not None:
+        cache = _paged_cache_write(cache, pages, t32, latent=latent,
+                                   rope=k_rope)
+        o_lat = kops.paged_mla_decode_attention(
+            q_lat.contiguous(), q_rope, cache["latent"], cache["rope"],
+            cache["pos"], pages, t32, scale=scale, out_dtype=x.dtype)
+    else:
+        cache = _cache_write(cache, t, commit=commit, latent=latent,
+                             rope=k_rope)
+        o_lat = kops.mla_decode_attention(
+            q_lat, q_rope, cache["latent"], cache["rope"], cache["pos"], t32,
+            scale=scale, out_dtype=x.dtype)
+    out = torch.einsum("bhl,lhk->bhk", o_lat, p.wuv)
     return _out_proj(p, out), cache

@@ -1,9 +1,13 @@
 """Serving path (port of ``repro.models.decode``): decode-state construction
 (dense rings or paged pools), bucketed and chunked prefill, the one-token
-decode of a run of layers, and the plain (non-SOI) decode step.
+decode of a run of layers, and the plain (non-SOI) decode step. Blocks mix
+channels with an MLP or a MoE; MoE routing cannot mask pad, so a config
+with MoE blocks prefills at the exact prompt length and refuses bucketed
+and chunked prefill (``supports_masked_prefill``), as the reference does.
 
 State layout: ``{"t": (B,) int32 per-slot clocks, ...}`` plus, for a plain
-config, ``"segments"``: one cache dict (``k``, ``v``, ``pos``) per layer;
+config, ``"segments"``: one cache dict per layer (``k``, ``v``, ``pos``;
+MLA layers ``latent``, ``rope``, ``pos``);
 for an SOI config ``"pre"``, ``"mid"``, ``"post"`` (per-layer caches of the
 three parts; the middle's hold ``soi_mid_len`` frames), the conv window
 ``"conv_buf"`` (B, stride-1, d) and the extrapolation queue ``"queue"``
@@ -26,7 +30,8 @@ from repro_torch.models.layers import norm_apply
 from repro_torch.models.mlp import mlp_apply
 from repro_torch.models.transformer import (_dtype, _embed_tokens,
                                             _head_weights, _segment_forward,
-                                            cast_params, soi_compress,
+                                            cast_params, channel_mix,
+                                            soi_compress,
                                             soi_extrapolate, soi_fuse,
                                             soi_partition, split_blocks)
 
@@ -137,7 +142,7 @@ def _block_decode(bp, cfg: ModelCfg, x, cache, t, *, commit=None,
                             commit=commit, pages=pages)
     x = x + h
     h = norm_apply("rmsnorm", bp.ln2, x, eps=eps)
-    return x + mlp_apply(bp.mlp, h)
+    return x + channel_mix(bp, h)
 
 
 def _segment_decode(blocks, caches, cfg: ModelCfg, x, t, *, commit=None,

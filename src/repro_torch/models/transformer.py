@@ -2,9 +2,11 @@
 ``repro.models.transformer``; no loss, no remat).
 
 The model is an ``nn.Module``: token embedding, one ``Block`` per layer in an
-``nn.ModuleList`` (the reference stacks a segment's layers on a leading axis
-and scans them), the final norm, and — for SOI configs — the S-CC compress
-conv ``soi_compress (stride, d, d)`` and the skip fusion ``soi_fuse (2d, d)``.
+``nn.ModuleList`` over every segment in order (the reference stacks a scanned
+segment's layers on a leading axis and keeps an unscanned one as a list),
+the final norm, the untied ``lm_head (d, vocab)`` of configs that do not tie
+it to the embedding, and — for SOI configs — the S-CC compress conv
+``soi_compress (stride, d, d)`` and the skip fusion ``soi_fuse (2d, d)``.
 
 SOI-LM (cfg.soi): layers [first_layer, last_layer) form the *compressed
 middle* — a width-stride stride-stride causal conv compresses time before
@@ -25,6 +27,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import dense_init, embed_init, norm_apply, \
     trunc_normal
 from repro_torch.models.mlp import MLP, mlp_apply
+from repro_torch.models.moe import MoE, moe_apply
 
 
 def _dtype(cfg: ModelCfg) -> torch.dtype:
@@ -36,32 +39,43 @@ def _norm_param(d: int, device, dtype) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One attention + MLP block (``ln1``/``ln2`` are the (1 + scale)
-    RMSNorm scales)."""
+    """One attention block with an MLP or a MoE channel mixer (``ln1``/
+    ``ln2`` are the (1 + scale) RMSNorm scales)."""
 
     def __init__(self, b: BlockCfg, d: int, *, generator, device,
                  dtype=torch.float32):
         super().__init__()
-        if (b.attn is None or b.mlp is None or b.rglru is not None
-                or b.rwkv is not None or b.moe is not None
+        if (b.attn is None or (b.mlp is None) == (b.moe is None)
+                or b.rglru is not None or b.rwkv is not None
                 or b.cross_attn is not None or b.norm != "rmsnorm"
                 or b.post_norm):
             raise NotImplementedError(
-                "the port runs attention + MLP RMSNorm blocks only; other "
-                "block kinds are not ported yet (see ROADMAP.md)")
+                "the port runs attention + MLP or MoE RMSNorm blocks only; "
+                "other block kinds are not ported yet (see ROADMAP.md)")
         self.bcfg = b
         kw = dict(generator=generator, device=device, dtype=dtype)
         self.ln1 = _norm_param(d, device, dtype)
         self.attn = attn.Attention(b.attn, d, **kw)
         self.ln2 = _norm_param(d, device, dtype)
-        self.mlp = MLP(b.mlp, d, **kw)
+        if b.moe is not None:
+            self.moe = MoE(b.moe, d, **kw)
+        else:
+            self.mlp = MLP(b.mlp, d, **kw)
+
+
+def channel_mix(bp: Block, x):
+    """The block's MLP, or its MoE (aux loss dropped: serving does not use
+    it)."""
+    if bp.bcfg.moe is not None:
+        return moe_apply(bp.moe, x)[0]
+    return mlp_apply(bp.mlp, x)
 
 
 class Transformer(nn.Module):
     def __init__(self, cfg: ModelCfg, *, generator: torch.Generator, device,
                  dtype=torch.float32):
         super().__init__()
-        if (not cfg.tie_embeddings or cfg.encoder is not None
+        if (cfg.encoder is not None
                 or cfg.frontend is not None or cfg.prefix_lm
                 or cfg.learned_pos_len or cfg.embed_scale
                 or cfg.logits_softcap):
@@ -75,6 +89,8 @@ class Transformer(nn.Module):
         self.final_norm = _norm_param(d, device, dtype)
         self.blocks = nn.ModuleList(
             Block(b, d, **kw) for b in layer_blocks(cfg))
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(dense_init((d, cfg.vocab), **kw))
         if cfg.soi is not None:
             st = cfg.soi.stride
             # S-CC compress conv (kernel = stride) + identity-biased fusion
@@ -128,7 +144,7 @@ def _block_apply(bp: Block, cfg: ModelCfg, x, *, positions, fill_cache=None,
                                  fill_true_length=fill_true_length)
     x = x + h
     h = norm_apply("rmsnorm", bp.ln2, x, eps=eps)
-    return x + mlp_apply(bp.mlp, h), cache
+    return x + channel_mix(bp, h), cache
 
 
 def _segment_forward(blocks, cfg: ModelCfg, x, *, positions,
@@ -239,7 +255,9 @@ def trunk(params: Transformer, cfg: ModelCfg, tokens):
 
 
 def _head_weights(params: Transformer):
-    return params.embed.t()
+    if params.cfg.tie_embeddings:
+        return params.embed.t()
+    return params.lm_head
 
 
 @torch.no_grad()

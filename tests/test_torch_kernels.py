@@ -168,11 +168,21 @@ def test_cpu_tensors_never_count_launches():
     pool = torch.zeros(3, 4)
     ops.copy_pages(pool, torch.tensor([1], dtype=torch.int32),
                    torch.tensor([2], dtype=torch.int32))
+    ql, qr = torch.randn(1, 4, 4, 16), torch.randn(1, 4, 4, 8)
+    lat, rope = torch.randn(1, 6, 16), torch.randn(1, 6, 8)
+    pos = torch.arange(6, dtype=torch.int32)[None]
+    ops.mla_chunk_attention(ql, qr, lat, rope, pos[:, 2:], pos, scale=0.2)
+    ops.paged_mla_decode_attention(
+        ql[:, 0], qr[:, 0], lat.reshape(3, 2, 16), rope.reshape(3, 2, 8),
+        pos.reshape(3, 2), torch.tensor([[2, 1]], dtype=torch.int32),
+        torch.tensor([3], dtype=torch.int32), scale=0.2)
     assert ops.launch_counts() == {"decode_attention": 0,
                                    "flash_attention": 0,
                                    "chunk_attention": 0,
                                    "paged_decode_attention": 0,
-                                   "copy_pages": 0}
+                                   "copy_pages": 0,
+                                   "mla_chunk_attention": 0,
+                                   "paged_mla_decode_attention": 0}
 
 
 def test_unsupported_devices_raise():

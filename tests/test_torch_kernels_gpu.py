@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels of repro_torch against their plain
 PyTorch versions, on the card (marker ``gpu``), at the smoke and the
 serving path's shapes: float32 (max|Δ| < 2e-5) and bfloat16 (< 2e-2) for
-the attention kernels, bit-exact for ``copy_pages``.
+the attention kernels (GQA and absorbed MLA, flash attention with d_v !=
+d_qk too), bit-exact for ``copy_pages``.
 
 Without a CUDA device every test here skips (decided inside the ``cuda``
 fixture, so every worker collects the same tests). On the card:
@@ -49,10 +50,10 @@ def _decode_inputs(seed, b, h, hkv, s, dh, *, ring=False, inactive=False):
     return q, k, v, pos, t
 
 
-def _flash_inputs(seed, b, sq, sk, h, hkv, dh):
+def _flash_inputs(seed, b, sq, sk, h, hkv, dh, dv=None):
     rng = np.random.default_rng(seed)
     return (_normal(rng, (b, sq, h, dh)), _normal(rng, (b, sk, hkv, dh)),
-            _normal(rng, (b, sk, hkv, dh)))
+            _normal(rng, (b, sk, hkv, dv or dh)))
 
 
 def _close(got, want, tol):
@@ -101,6 +102,9 @@ def test_cuda_decode_attention_matches_plain(cuda, case, dtype):
 
 GPU_FLASH = {
     "smoke": dict(b=1, sq=16, sk=16, h=4, hkv=2, dh=16),
+    "mla_smoke": dict(b=2, sq=40, sk=40, h=4, hkv=4, dh=192, dv=128),
+    "mla_prefill": dict(b=1, sq=1024, sk=1024, h=128, hkv=128, dh=192,
+                        dv=128),
     "prefill": dict(b=1, sq=1024, sk=1024, h=16, hkv=8, dh=128),
     "middle": dict(b=1, sq=512, sk=512, h=16, hkv=8, dh=128),
     "ragged_offset": dict(b=2, sq=50, sk=120, h=4, hkv=1, dh=64,
@@ -161,6 +165,21 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         PCA.chunk_attention(qc, kc, kc, qpc, kpc[:, :8])
     with pytest.raises(TypeError):
         PPC.copy_pages(pool, qpc[0, :2].long(), qpc[0, :2].long())
+    with pytest.raises(NotImplementedError):         # (dqk, dv) = (16, 8)
+        PFA.flash_attention(q, k, k[..., :8].contiguous())
+    ql, qr = torch.zeros(1, 4, 4, 24, device=cuda), torch.zeros(
+        1, 4, 4, 8, device=cuda)
+    lat, rope = torch.zeros(1, 12, 24, device=cuda), torch.zeros(
+        1, 12, 8, device=cuda)
+    with pytest.raises(NotImplementedError):         # L = 24
+        PCA.mla_chunk_attention(ql, qr, lat, rope, qpc, kpc, scale=0.1)
+    with pytest.raises(TypeError):
+        PCA.mla_chunk_attention(ql[..., :16], qr, lat[..., :16], rope, qpc,
+                                kpc, scale=0.1, out_dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        PDA.paged_mla_decode_attention(
+            ql[:, 0], qr[:, 0], lat.reshape(3, 4, 24), rope.reshape(3, 4, 8),
+            kpc.reshape(3, 4), pm[:1], t[:1], scale=0.1)
 
 
 def _chunk_inputs(seed, b, c, s_cache, h, hkv, dh, *, filled, q0,
@@ -290,3 +309,86 @@ def test_cuda_copy_pages_bit_exact(cuda, case):
     torch.cuda.synchronize()
     assert got is dev and PPC.copy_pages.launches == n0 + 1
     assert torch.equal(got.cpu(), want)
+
+
+def _mla_chunk_inputs(seed, b, c, s_cache, h, lat_d, r, *, filled, q0,
+                      pad_rows=0):
+    """Absorbed-MLA chunk inputs: C queries at q0.. (the last ``pad_rows``
+    at -1) against a ring of ``s_cache`` latent rows (``filled`` of them
+    live, wrapped) plus the chunk's own."""
+    rng = np.random.default_rng(seed)
+    sk = s_cache + c
+    ql, qr = _normal(rng, (b, c, h, lat_d)), _normal(rng, (b, c, h, r))
+    lat, rope = _normal(rng, (b, sk, lat_d)), _normal(rng, (b, sk, r))
+    qp = np.broadcast_to(q0 + np.arange(c, dtype=np.int32), (b, c)).copy()
+    if pad_rows:
+        qp[:, c - pad_rows:] = -1
+    ring = q0 - 1 - ((q0 - 1 - np.arange(s_cache)) % s_cache)
+    ring = np.where(np.arange(s_cache) < filled, ring, -1)
+    kp = np.concatenate([np.broadcast_to(ring, (b, s_cache)), qp],
+                        axis=1).astype(np.int32)
+    return ql, qr, lat, rope, qp, kp
+
+
+GPU_MLA_CHUNK = {
+    "smoke": dict(b=2, c=8, s_cache=16, h=4, lat_d=16, r=8, filled=12, q0=12,
+                  pad_rows=3),
+    "outer": dict(b=1, c=256, s_cache=1088, h=128, lat_d=512, r=64,
+                  filled=768, q0=768, pad_rows=6),
+    "middle": dict(b=1, c=128, s_cache=768, h=128, lat_d=512, r=64,
+                   filled=384, q0=384, pad_rows=3),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(GPU_MLA_CHUNK))
+def test_cuda_mla_chunk_attention_matches_plain(cuda, case, dtype):
+    dt = getattr(torch, dtype)
+    ql, qr, lat, rope, qp, kp = _mla_chunk_inputs(11, **GPU_MLA_CHUNK[case])
+    ql, qr, lat, rope = (torch.from_numpy(x).to(cuda, dt)
+                         for x in (ql, qr, lat, rope))
+    qp, kp = torch.from_numpy(qp).to(cuda), torch.from_numpy(kp).to(cuda)
+    scale = (128 + 64) ** -0.5
+    n0 = PCA.mla_chunk_attention.launches
+    got = PCA.mla_chunk_attention(ql, qr, lat, rope, qp, kp, scale=scale)
+    torch.cuda.synchronize()
+    assert PCA.mla_chunk_attention.launches == n0 + 1
+    assert bool(torch.isfinite(got).all())        # pad query rows included
+    want = pref.mla_chunk_attention(ql, qr, lat, rope, qp, kp, scale=scale)
+    _close(got.float().cpu(), want.float().cpu(), TOL[dtype])
+
+
+GPU_PAGED_MLA = {
+    "smoke": dict(b=3, h=4, lat_d=16, r=8, p_sz=4, n_pp=4, t_base=13),
+    "outer": dict(b=4, h=128, lat_d=512, r=64, p_sz=16, n_pp=68,
+                  t_base=1056),
+    "middle": dict(b=4, h=128, lat_d=512, r=64, p_sz=16, n_pp=48,
+                   t_base=528),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(GPU_PAGED_MLA))
+def test_cuda_paged_mla_decode_attention_matches_plain(cuda, case, dtype):
+    kw = dict(GPU_PAGED_MLA[case])
+    lat_d, r = kw.pop("lat_d"), kw.pop("r")
+    dt = getattr(torch, dtype)
+    # the GQA helper's pools with Hkv = 1: (n_pages, P, 1, L) -> (.., L)
+    ql, lat, _, pos, pm, t = _paged_inputs(12, hkv=1, dh=lat_d, **kw)
+    rng = np.random.default_rng(13)
+    qr = _normal(rng, ql.shape[:2] + (r,))
+    rope = _normal(rng, lat.shape[:2] + (r,))
+    ql, qr, lat, rope = (torch.from_numpy(x).to(cuda, dt)
+                         for x in (ql, qr, lat[:, :, 0], rope))
+    pos, pm, t = (torch.from_numpy(x).to(cuda) for x in (pos, pm, t))
+    scale = (128 + 64) ** -0.5
+    n0 = PDA.paged_mla_decode_attention.launches
+    got = PDA.paged_mla_decode_attention(ql, qr, lat, rope, pos, pm, t,
+                                         scale=scale)
+    torch.cuda.synchronize()
+    assert PDA.paged_mla_decode_attention.launches == n0 + 1
+    want = pref.paged_mla_decode_attention(ql, qr, lat, rope, pos, pm, t,
+                                           scale=scale)
+    _close(got.float().cpu(), want.float().cpu(), TOL[dtype])
