@@ -11,13 +11,18 @@ Phases, each printing its own lines:
              memory and spill lines of the serving path's instantiations.
 3. kernels — each CUDA kernel at the serving path's shapes, bfloat16 and
              float32, against its plain PyTorch version on the card
-             (max|Δ| < 2e-2 bf16, < 2e-5 f32; copy_pages bit-exact), with
+             (max|Δ| < 2e-2 bf16, < 2e-5 f32; copy_pages bit-exact, and
+             lru_scan bit-exact in f32), with
              its time, the plain version's and that of one PyTorch call
              computing the same function (a yardstick only) — device time
              from torch.profiler, and CUDA-event time per call beside it —
              and the least time the card could take (bytes or operations).
              The paged decode read is also compared bit for bit with the
-             dense kernel over the gathered view.
+             dense kernel over the gathered view. recurrentgemma's shapes:
+             the decode reads at G 16 / dh 256 on wrapped rings of 2048
+             with the window, lru_scan at (1, 2040, 4096) and (1, 1020,
+             4096), with h0 and at an odd shape (no library yardstick: no
+             single PyTorch call computes the recurrence).
 4. parity  — full-width qwen3-1.7b cut to 4 layers (SOI over layers 1..3),
              float32, pp and fp: the port's SOIEngine with 3 slots (prompts
              of 200 and 201 tokens, a third of 150 after 3 steps), 8 greedy
@@ -63,7 +68,22 @@ Phases, each printing its own lines:
              attention launches held to 28 (4 layers x 7 computed chunks),
              prefix-cache counters, warm against cold bit for bit, and a
              profiled rerun.
-10. the kernels JSON line, the card line, and last {"ok": true, ...}.
+10. rg-parity — full-width recurrentgemma-9b cut to 12 layers (SOI pre
+             0..2, middle 3..8, post 9..11; 8 RG-LRU and 4 windowed MQA
+             layers), float32, pp and fp, dense and paged (page 16): 3 slots
+             (prompts of 41 and 43 tokens, a third of 37 after 3 steps), 8
+             greedy steps on the card and on the CPU: logits within 1e-3,
+             tokens identical; lru_scan launched 8 times a prefill, the
+             decode reads at the count the host clocks give.
+11. rg-serve — the serving driver on full-depth recurrentgemma-9b (38
+             layers), bfloat16, SOI pp, 4 requests of 2040..2034 tokens, 64
+             generated each, so every outer ring (window 2048) wraps: dense,
+             then --paged --page-size 16, exact-length prefill; lru_scan
+             held to 104 launches, decode_attention / paged_decode_attention
+             to 576, flash_attention to 0; tokens identical between the
+             layouts; step time at SOI phase 0 against off-phase steps; a
+             profiled rerun.
+12. the kernels JSON line, the card line, and last {"ok": true, ...}.
 
 Any failure raises and exits nonzero; no result line is printed then.
 """
@@ -145,6 +165,10 @@ PATH_KERNELS = (
     ("mla_chunk_attention", "26mla_chunk_attention_kernel", "Li512ELi64E"),
     ("paged_mla_decode_attention", "33paged_mla_decode_attention_kernel",
      "Li512ELi64E"),
+    ("decode_attention (MQA)", "23decode_attention_kernel", "Li16ELi256E"),
+    ("paged_decode_attention (MQA)", "29paged_decode_attention_kernel",
+     "Li16ELi256E"),
+    ("lru_scan", "15lru_scan_kernel", "kernelI"),
 )
 
 
@@ -169,7 +193,7 @@ def _ptxas_lines(log: str) -> list:
             for kind, needle, targs in PATH_KERNELS:
                 if needle in name and targs in name:
                     dt = "bf16" if "bfloat16" in name else (
-                        "f32" if targs else "bytes")
+                        "f32" if targs else "bytes")   # copy_pages: bytes
                     smem = re.search(r"(\d+) bytes smem", line)
                     out.append(f"  {kind}[{dt}]: {m.group(1)} registers, "
                                f"{smem.group(1) if smem else 0} B static "
@@ -573,6 +597,104 @@ def _copy_case(n_pages, p_sz, hkv, dh, dt, dev, gen):
     return sets, nbytes, 0.0, library, {"inplace": True}
 
 
+def _ring_positions(ts, s, dev):
+    """(B, s) positions of rings whose clocks ``ts`` passed ``s``: row l
+    holds the newest position p <= t with p % s == l."""
+    t = torch.tensor(ts, dtype=torch.int32, device=dev)[:, None]
+    l = torch.arange(s, dtype=torch.int32, device=dev)[None]
+    return (t - torch.remainder(t - l, s)).to(torch.int32)
+
+
+def _rg_ring_case(b, s, g, dh, dt, t_base, window, dev, gen, paged=None):
+    """recurrentgemma's outer decode read: MQA (one KV head, G query heads
+    of dh) over rings of ``s`` rows whose clocks t_base.. have passed ``s``,
+    so every ring has wrapped, with the attention window. ``paged`` (a page
+    size) puts the same logical rows into shuffled pages of ``b * s/P + 1``
+    pool rows (page 0 the null page) and returns the paged read's case."""
+    ts = [t_base - 2 * i for i in range(b)]
+    n_pp = s // paged if paged else 0
+    n_pages = b * n_pp + 1
+
+    def make():
+        q = torch.randn((b, g, dh), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, s, 1, dh), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, s, 1, dh), generator=gen, device=dev).to(dt)
+        pos = _ring_positions(ts, s, dev)
+        t = torch.tensor(ts, dtype=torch.int32, device=dev)
+        if not paged:
+            return q, k, v, pos, t
+        perm = 1 + torch.randperm(n_pages - 1, generator=gen, device=dev)
+        pm = perm.view(b, n_pp).to(torch.int32)
+        shape = (n_pages, paged, 1, dh)
+        kp = torch.randn(shape, generator=gen, device=dev).to(dt)
+        vp = torch.randn(shape, generator=gen, device=dev).to(dt)
+        pp = torch.full((n_pages, paged), -1, dtype=torch.int32, device=dev)
+        pp[0] = torch.arange(paged, dtype=torch.int32, device=dev)
+        idx = pm.long().view(-1)
+        kp[idx] = k.reshape(b * n_pp, paged, 1, dh)
+        vp[idx] = v.reshape(b * n_pp, paged, 1, dh)
+        pp[idx] = pos.reshape(b * n_pp, paged)
+        return q, kp, vp, pp, pm, t
+
+    esz = torch.finfo(dt).bits // 8
+    sets = _copies(make, 2 * b * s * dh * esz)
+    # every ring row is live (the window covers the whole ring) and read
+    # once as K and once as V; q and out once; positions, map and clocks
+    live = b * s
+    nbytes = (2 * b * g * dh * esz + 2 * live * dh * esz + live * 4 + b * 4
+              + (b * n_pp * 4 if paged else 0))
+    flops = 4.0 * live * g * dh
+    views = {}
+    for st in sets:
+        if paged:
+            from repro_torch.models.attention import paged_view
+            q, kp, vp, pp, pm, t = st
+            dv = paged_view({"k": kp, "v": vp, "pos": pp}, pm)
+            kd, vd, pd = (dv["k"].contiguous(), dv["v"].contiguous(),
+                          dv["pos"].contiguous())
+        else:
+            q, kd, vd, pd, t = st
+        mask = (pd >= 0) & (pd <= t[:, None]) & (pd > t[:, None] - window)
+        views[st[1].data_ptr()] = (kd, vd, pd, mask[:, None, None])
+
+    def library(q, k, *rest):
+        kd, vd, _, mask = views[k.data_ptr()]
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+    extra = {"kw": {"window": window}}
+    if paged:
+        extra["dense_view"] = views
+    return sets, nbytes, flops, library, extra
+
+
+def _lru_case(b, s, d, dt, dev, gen, h0=False):
+    """The RG-LRU recurrence as prefill hands it over: decays in (0.5,
+    0.999), inputs scaled by sqrt(1 - a^2); ``h0`` adds a start state."""
+
+    def make():
+        a = 0.5 + 0.499 * torch.rand((b, s, d), generator=gen, device=dev)
+        x = torch.randn((b, s, d), generator=gen, device=dev) * torch.sqrt(
+            1 - a * a)
+        h = (torch.randn((b, d), generator=gen, device=dev) if h0
+             else None)
+        return a.to(dt), x.to(dt), h
+
+    esz = torch.finfo(dt).bits // 8
+    # a and x read once, h written once (and h0 read once); a product and
+    # a sum per element
+    nbytes = 3 * b * s * d * esz + (b * d * 4 if h0 else 0)
+    sets = _copies(make, nbytes)
+    # no single PyTorch call computes this recurrence: no library yardstick
+    return sets, nbytes, 2.0 * b * s * d, None, {"exact_f32": True}
+
+
+def _first(fn):
+    """The ``h_all`` of an (h_all, h_last) scan."""
+    return lambda *args: fn(*args)[0]
+
+
 KERNEL_META = {
     "decode_attention": dict(
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -595,16 +717,22 @@ KERNEL_META = {
     "paged_mla_decode_attention": dict(
         source="src/repro_torch/kernels/csrc/paged_mla_decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:245"),
+    "lru_scan": dict(
+        source="src/repro_torch/kernels/csrc/lru_scan.cu",
+        replaces="src/repro/kernels/lru_scan.py:41"),
 }
 
 
 def kernels_phase(dev) -> dict:
     """Returns {kernel name: record of its serving-path bf16 case}; the
-    flash kernel's deepseek-v2 shape is keyed "flash_attention (MLA)"."""
+    flash kernel's deepseek-v2 shape is keyed "flash_attention (MLA)", the
+    decode kernels' recurrentgemma shapes "<name> (RG)"; lru_scan's record
+    is its float32 outer case, the dtype its serving path runs."""
     phase("3 kernels")
     from repro_torch.kernels import chunk_attention as CA
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import lru_scan as LS
     from repro_torch.kernels import page_copy as PC
     from repro_torch.kernels import ref
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -674,6 +802,39 @@ def kernels_phase(dev) -> dict:
                                       gen),
                       DA.paged_mla_decode_attention,
                       ref.paged_mla_decode_attention))
+        # recurrentgemma: MQA (G 16, dh 256) on the outer rings of 2048 at
+        # serving step ~32 (clocks 2072.., wrapped), window 2048, dense and
+        # paged (page 16); the middle's 1280-frame rings at frames 1036..
+        cases.append(("decode_attention",
+                      "RG outer ring (4,2048,1,256) G 16 t 2072 w 2048", dt,
+                      _rg_ring_case(4, 2048, 16, 256, dt, 2072, 2048, dev,
+                                    gen),
+                      DA.decode_attention, ref.decode_attention))
+        cases.append(("decode_attention", "RG middle (4,1280,1,256) G 16",
+                      dt, _decode_case(4, 1280, 1, 16, 256, dt, 1036, dev,
+                                       gen),
+                      DA.decode_attention, ref.decode_attention))
+        cases.append(("paged_decode_attention",
+                      "RG outer pools (513,16,1,256) map (4,128) G 16 t 2072 "
+                      "w 2048", dt,
+                      _rg_ring_case(4, 2048, 16, 256, dt, 2072, 2048, dev,
+                                    gen, paged=16),
+                      DA.paged_decode_attention, ref.paged_decode_attention))
+    # recurrentgemma's prefill recurrence: float32 a and x (the path's
+    # dtype) at the outer (2040 tokens) and middle (1020 frames) shapes,
+    # then a start state and an odd shape; bfloat16 inputs too
+    for dt in (torch.float32, torch.bfloat16):
+        for shape, args in (("outer (1,2040,4096)", (1, 2040, 4096)),
+                            ("middle (1,1020,4096)", (1, 1020, 4096))):
+            cases.append(("lru_scan", shape, dt,
+                          _lru_case(*args, dt, dev, gen), _first(LS.lru_scan),
+                          _first(ref.lru_scan)))
+    cases.append(("lru_scan", "h0 (2,300,4096)", torch.float32,
+                  _lru_case(2, 300, 4096, torch.float32, dev, gen, h0=True),
+                  _first(LS.lru_scan), _first(ref.lru_scan)))
+    cases.append(("lru_scan", "odd (3,37,100)", torch.float32,
+                  _lru_case(3, 37, 100, torch.float32, dev, gen),
+                  _first(LS.lru_scan), _first(ref.lru_scan)))
     cases.append(("copy_pages", "outer pool (273,16,8,128), 4+4 pairs",
                   torch.bfloat16,
                   _copy_case(273, 16, 8, 128, torch.bfloat16, dev, gen),
@@ -682,7 +843,7 @@ def kernels_phase(dev) -> dict:
     for (name, shape, dt, (sets, nbytes, flops, library, extra), kern,
          plain) in cases:
         kw = extra.get("kw", {})
-        if kw:                         # the MLA kernels' scale
+        if kw:                         # the MLA kernels' scale, a window
             kern = functools.partial(kern, **kw)
             plain = functools.partial(plain, **kw)
         args = sets[0]
@@ -703,31 +864,41 @@ def kernels_phase(dev) -> dict:
             check(torch.equal(got, want), f"{name} {shape}: not bit-exact")
         check(err < TOL[dt], f"{name} {shape} {dt}: max|Δ| {err} >= "
                              f"{TOL[dt]}")
-        lib = library(*fresh()).float()
-        rows = extra.get("rows")
-        if rows is not None:
-            lib, ref_rows = lib[:, rows], want.float()[:, rows]
-        else:
-            ref_rows = want.float()
-        lib_err = float((lib - ref_rows).abs().max())
+        lib_err = None
+        if library is not None:
+            lib = library(*fresh()).float()
+            rows = extra.get("rows")
+            if rows is not None:
+                lib, ref_rows = lib[:, rows], want.float()[:, rows]
+            else:
+                ref_rows = want.float()
+            lib_err = float((lib - ref_rows).abs().max())
         rec_extra = {}
         if "dense_view" in extra:
             # the paged read against the dense kernel over the same logical
             # rows (gathered): bit for bit?
             kd, vd, posd, _ = extra["dense_view"][args[1].data_ptr()]
-            dense = DA.decode_attention(args[0], kd, vd, posd, args[5])
+            dense = DA.decode_attention(args[0], kd, vd, posd, args[5], **kw)
             rec_extra["equals_dense_kernel"] = bool(torch.equal(got, dense))
+        if extra.get("exact_f32") and dt == torch.float32:
+            # the scan's product and sum round as the plain version's do
+            rec_extra["equals_plain"] = bool(torch.equal(got, want))
+            check(rec_extra["equals_plain"],
+                  f"{name} {shape}: float32 not bit for bit the plain's")
         # ms: device time per call from the profiler (the call's kernels,
         # host launch gaps excluded) — the plain version and the library
         # call spend more time in host dispatch than on the card, which
         # CUDA events over back-to-back calls would charge to them;
         # *_event_ms keep that view
+        has_lib = library is not None
         event = {"event_ms": _time_ms(kern, sets, 50),
                  "plain_event_ms": _time_ms(plain, sets, 5),
-                 "library_event_ms": _time_ms(library, sets, 50)}
+                 "library_event_ms": (_time_ms(library, sets, 50)
+                                      if has_lib else None)}
         dev_ms = {"ms": _device_ms(kern, sets, 20),
                   "plain_ms": _device_ms(plain, sets, 5),
-                  "library_ms": _device_ms(library, sets, 20)}
+                  "library_ms": (_device_ms(library, sets, 20)
+                                 if has_lib else None)}
         for key, val in dev_ms.items():
             if val is None:            # the profiler saw no device activity
                 dev_ms[key] = event[key.replace("ms", "event_ms")]
@@ -738,8 +909,10 @@ def kernels_phase(dev) -> dict:
                "library_max_abs_err": lib_err, "bytes": nbytes,
                "flops": flops, **rec_extra}
         print(json.dumps({"kernels": [rec]}), flush=True)
-        key = name + (" (MLA)" if shape.startswith("MLA") else "")
-        if dt == torch.bfloat16 and key not in main:
+        key = name + (" (MLA)" if shape.startswith("MLA") else
+                      " (RG)" if shape.startswith("RG") else "")
+        serving_dt = torch.float32 if name == "lru_scan" else torch.bfloat16
+        if dt == serving_dt and key not in main:
             main[key] = rec
     return main
 
@@ -1311,6 +1484,153 @@ def mla_phase(dev) -> tuple:
     return cow_counts, counts
 
 
+# ---------------------------------------------------------------------------
+# 10-11. recurrentgemma: RG-LRU and windowed MQA on the SOI engine
+# ---------------------------------------------------------------------------
+
+def _rg_counts(cfg):
+    """(outer attention layers, middle attention layers, RG-LRU layers) of
+    an SOI config."""
+    from repro_torch.models import transformer as T
+    parts = T.soi_partition(cfg)
+    blocks = [T.layer_blocks(dataclasses.replace(cfg, segments=tuple(p)))
+              for p in parts]
+    n_att = [sum(b.attn is not None for b in bl) for bl in blocks]
+    n_rec = sum(b.rglru is not None for b in T.layer_blocks(cfg))
+    return n_att[0] + n_att[2], n_att[1], n_rec
+
+
+def rg_parity_phase(dev) -> dict:
+    """Returns the launch counts of the paged pp engine's card run."""
+    phase("10 rg-parity (full-width recurrentgemma-9b, 12 layers, f32, SOI "
+          "pp/fp, dense and paged, card vs CPU)")
+    from repro_torch.configs import recurrentgemma_9b as RG
+    from repro_torch.engine import SOIEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    cfgs = {mode: dataclasses.replace(RG.config(soi=mode, n_layers=12),
+                                      dtype="float32")
+            for mode in ("pp", "fp")}
+    t0 = time.perf_counter()
+    dev_model = T.init(cfgs["pp"], generator=torch.Generator(device=dev)
+                       .manual_seed(5), device=dev)
+    cpu_model = _cpu_copy(dev_model, cfgs["pp"])
+    n_par = sum(p.numel() for p in dev_model.parameters())
+    soi = cfgs["pp"].soi
+    print(f"  {n_par / 1e9:.2f} B float32 parameters (SOI pre "
+          f"0..{soi.first_layer - 1}, middle {soi.first_layer}.."
+          f"{soi.last_layer - 1}, post {soi.last_layer}..11), on the card "
+          f"and on the host "
+          f"({time.perf_counter() - t0:.1f} s to build and copy)")
+    gen = torch.Generator().manual_seed(6)
+    prompts = [torch.randint(0, cfgs["pp"].vocab, (n,), generator=gen,
+                             dtype=torch.int32) for n in (41, 43, 37)]
+    n_outer, n_mid, n_rec = _rg_counts(cfgs["pp"])
+    out = {}
+    for mode, cfg in cfgs.items():
+        for layout, kw in (("dense", {}),
+                           ("paged", dict(paged=True, page_size=16))):
+            runs = []
+            for where, model in ((torch.device("cpu"), cpu_model),
+                                 (dev, dev_model)):
+                eng = SOIEngine(cfg, max_concurrent_decodes=3, max_len=64,
+                                device=where, **kw)
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                runs.append(_greedy(eng, model,
+                                    [p.to(where) for p in prompts]))
+                torch.cuda.synchronize(dev)
+                counts = ops.launch_counts()      # the card run's, last
+                print(f"  {mode} {layout} {where}: 3 prefills + 8 steps in "
+                      f"{time.perf_counter() - t0:.2f} s (host clock)")
+            worst = _compare_runs(runs, f"recurrentgemma {mode} {layout}")
+            read = ("paged_decode_attention" if layout == "paged"
+                    else "decode_attention")
+            want = {"lru_scan": 3 * n_rec,
+                    read: n_outer * eng.steps + n_mid * eng.mid_steps}
+            print(f"  {mode} {layout}: 8 steps, tokens identical, "
+                  f"max|Δlogit| {worst:.3e}; card launches {counts}")
+            for name, n in counts.items():
+                check(n == want.get(name, 0),
+                      f"{mode} {layout}: {name} launches {n} != "
+                      f"{want.get(name, 0)} (expected {want})")
+            out[(mode, layout)] = counts
+    del cpu_model, dev_model
+    _free(dev)
+    return out[("pp", "paged")]
+
+
+RG_ARGV = ["--arch", "recurrentgemma-9b", "--soi", "pp", "--batch", "4",
+           "--prompt-len", "2040", "--stagger", "2", "--gen-len", "64",
+           "--seed", "0"]
+
+
+def rg_serve_phase(dev) -> dict:
+    """Returns {"dense": counts, "paged": counts} of the two serve runs."""
+    phase("11 rg-serve (recurrentgemma-9b full depth, 38 layers, bf16, SOI "
+          "pp, 4 requests of 2040..2034 tokens, 64 generated: dense, then "
+          "--paged --page-size 16)")
+    from repro_torch.engine import SOIEngine
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    args = serve.parse_args(RG_ARGV)
+    t0 = time.perf_counter()
+    cfg, params, prompt, plens, engine = serve.setup(args)
+    torch.cuda.synchronize(dev)
+    print(f"  {sum(p.numel() for p in params.parameters()) / 1e9:.2f} B "
+          f"bf16 parameters built in {time.perf_counter() - t0:.1f} s")
+    n_outer, n_mid, n_rec = _rg_counts(cfg)
+    engines = {"dense": engine,
+               "paged": SOIEngine(cfg, max_concurrent_decodes=args.batch,
+                                  max_len=args.prompt_len + args.gen_len,
+                                  device=dev, paged=True, page_size=16)}
+    out, seqs = {}, {}
+    for layout, eng in engines.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        res = serve.serve(eng, params, prompt, plens, args.gen_len)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        read = ("paged_decode_attention" if layout == "paged"
+                else "decode_attention")
+        want = {"lru_scan": n_rec * len(res.seqs),
+                read: n_outer * res.steps + n_mid * res.mid_steps}
+        print(f"  {layout}: prefill {res.prefill_s:.3f} s for "
+              f"{len(res.seqs)} requests (lens {plens}), decode "
+              f"{res.decoded} tokens in {res.decode_s:.3f} s = "
+              f"{res.decoded / res.decode_s:.1f} tok/s (host clock); "
+              f"{res.steps} steps, {res.mid_steps} with the middle; peak "
+              f"device memory {peak:.2f} GiB; pools {res.pools}")
+        print(f"  {layout} launches {counts}; expected {want} ({n_rec} "
+              f"RG-LRU layers x {len(res.seqs)} prefills; {n_outer} outer "
+              f"attention layers x {res.steps} steps + {n_mid} middle x "
+              f"{res.mid_steps})")
+        check(res.seqs.shape == (4, 64), f"tokens shape {res.seqs.shape}")
+        check(((res.seqs >= 0) & (res.seqs < cfg.vocab)).all(),
+              "token ids outside [0, vocab)")
+        check(want["lru_scan"] == 104 and want[read] == 576,
+              f"expected counts moved: {want}")
+        for name, n in counts.items():
+            check(n == want.get(name, 0),
+                  f"{layout}: {name} launches {n} != {want.get(name, 0)}")
+        out[layout], seqs[layout] = counts, res.seqs
+        on, off = _phase_step_ms(eng, params, prompt, plens)
+        print(f"  {layout} step time (host clock after a synchronize, "
+              f"median): {on:.3f} ms with the SOI middle (phase 0), "
+              f"{off:.3f} ms without; ratio {on / off:.3f}")
+    check((seqs["dense"] == seqs["paged"]).all(),
+          "paged tokens differ from the dense run's")
+    print("  tokens identical between the dense and the paged run")
+    print("  profiled rerun (paged):")
+    ev = _device_events(lambda: serve.serve(engines["paged"], params, prompt,
+                                            plens, args.gen_len))
+    check(ev, "the profiler saw no device activity")
+    _decode_profile(ev, res.steps, "lru_scan_kernel")
+    del params, engines, engine
+    _free(dev)
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     card = device_phase()
@@ -1324,11 +1644,14 @@ def main():
     deepseek_parity_phase(dev)
     ds_counts = deepseek_serve_phase(dev)
     mla_cow_counts, mla_counts = mla_phase(dev)
+    rg_parity_phase(dev)
+    rg_counts = rg_serve_phase(dev)
     # launches: each kernel's count on its own path's run — the dense
     # serve (phase 5), the paged prefix-cache serve (phase 6), the
     # deepseek-v2 serve (phase 8), the MLA prefix-cache serve (phase 9),
-    # and for copy_pages the paged engine whose rings wrap (phase 4: the
-    # serve command never wraps, max_len = prompt + generated)
+    # the recurrentgemma serve (phase 11; paged run for lru_scan), and for
+    # copy_pages the paged engine whose rings wrap (phase 4: the serve
+    # command never wraps, max_len = prompt + generated)
     launches = {"decode_attention": ("serve", counts),
                 "flash_attention": ("serve", counts),
                 "chunk_attention": ("paged serve", paged_counts),
@@ -1336,7 +1659,11 @@ def main():
                 "copy_pages": ("paged parity (ring wrap)", cow_counts),
                 "mla_chunk_attention": ("mla serve", mla_counts),
                 "paged_mla_decode_attention": ("deepseek serve",
-                                               ds_counts)}
+                                               ds_counts),
+                "lru_scan": ("rg serve (paged)", rg_counts["paged"])}
+    # the decode kernels' second path: recurrentgemma's MQA at G 16 / dh 256
+    rg_second = {"decode_attention": rg_counts["dense"],
+                 "paged_decode_attention": rg_counts["paged"]}
     check(mla_cow_counts["copy_pages"] > 0,
           "copy_pages never ran on the MLA pools")
     summary = []
@@ -1362,7 +1689,19 @@ def main():
             summary[-1]["mla"].update(
                 launches=ds_counts["flash_attention"],
                 launches_on="deepseek serve")
-    print(f"== 10 done in {time.perf_counter() - t_start:.1f} s")
+        if name in rg_second:
+            rg = main_recs[name + " (RG)"]
+            summary[-1]["rg"] = {
+                key: rg[key] for key in ("shape", "max_abs_err", "ms",
+                                         "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms")}
+            summary[-1]["rg"].update(
+                launches=rg_second[name][name],
+                launches_on="rg serve (" + ("paged" if "paged" in name
+                                            else "dense") + ")")
+            check(rg_second[name][name] > 0,
+                  f"{name} never launched on the recurrentgemma serve")
+    print(f"== 12 done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

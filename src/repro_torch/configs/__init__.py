@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ("qwen3-1.7b", "deepseek-v2-236b")
+ARCHS = ("qwen3-1.7b", "deepseek-v2-236b", "recurrentgemma-9b")
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
             for a in ARCHS}

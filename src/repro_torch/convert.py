@@ -9,9 +9,12 @@ one ``Block`` per layer; unscanned segments are lists of layer trees
 already. Einsum layouts are kept as they are: ``wq (d, H, dh)``, ``wo (H,
 dh, d)``, MLA's ``wdq``/``wuq``/``wdkv``/``wuk``/``wuv``, the MoE's
 ``router (d, E)``, ``up/gate (E, d, f)``, ``down (E, f, d)`` and shared
-experts, ``lm_head (d, vocab)``, ``soi.compress (stride, d, d)``,
-``soi.fuse (2d, d)``. A norm leaf ``{"scale": ...}`` becomes its scale
-tensor. This module imports no JAX: the caller hands over numpy.
+experts, the RG-LRU's ``wa``/``wb``/``conv``/``conv_b``/``wr``/``wi``/
+``br``/``bi``/``lam``/``wo`` (a scanned (rec, rec, attn) pattern keeps
+them under ``sub0``..``sub2``), ``lm_head (d, vocab)``, ``soi.compress
+(stride, d, d)``, ``soi.fuse (2d, d)``. A norm leaf ``{"scale": ...}``
+becomes its scale tensor. This module imports no JAX: the caller hands
+over numpy.
 """
 
 from __future__ import annotations
@@ -66,7 +69,7 @@ def from_jax_params(params: dict, cfg: ModelCfg, *, device=None,
         pre = f"blocks.{i}."
         tensors[pre + "ln1"] = t(lp["ln1"]["scale"])
         tensors[pre + "ln2"] = t(lp["ln2"]["scale"])
-        for mod in ("attn", "mlp", "moe"):
+        for mod in ("attn", "rglru", "mlp", "moe"):
             for name, leaf in lp.get(mod, {}).items():
                 if isinstance(leaf, dict):           # a norm: its scale
                     leaf = leaf["scale"]

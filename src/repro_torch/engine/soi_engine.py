@@ -81,10 +81,12 @@ def _paged_put(pool, dense, rows):
 def insert_state(cfg: ModelCfg, dst: dict, src: dict, slot: int, *,
                  page_rows=None) -> dict:
     """Copy the batch-1 model state ``src`` into slot ``slot`` of ``dst``, in
-    place: clock, every layer's K/V/positions and, for SOI, the conv window
-    and the queue. With ``page_rows`` ({"outer": (n_pp,), "mid": (n_ppm,)}
-    write targets) the caches go into the pools' pages instead of batch
-    rows; 0 entries (shared or unbacked pages) write onto the null page."""
+    place: clock, every layer's K/V/positions (RG-LRU layers: ``h`` and the
+    conv window) and, for SOI, the conv window and the queue. With
+    ``page_rows`` ({"outer": (n_pp,), "mid": (n_ppm,)} write targets) the
+    attention caches go into the pools' pages instead of batch rows; 0
+    entries (shared or unbacked pages) write onto the null page. RG-LRU
+    states are per slot in both layouts: they go into the slot's row."""
     dst["t"][slot] = src["t"][0]
     if cfg.soi is not None:
         for key in ("conv_buf", "queue"):
@@ -93,18 +95,25 @@ def insert_state(cfg: ModelCfg, dst: dict, src: dict, slot: int, *,
         prow = None if page_rows is None else page_rows[table]
         for group in groups:
             for d_c, s_c in zip(dst[group], src[group]):
+                pooled = prow is not None and D.is_attn_cache(d_c)
                 for name, d_leaf in d_c.items():
-                    if prow is None:
-                        d_leaf[slot].copy_(s_c[name][0])
-                    else:
+                    if pooled:
                         _paged_put(d_leaf, s_c[name], prow)
+                    else:
+                        d_leaf[slot].copy_(s_c[name][0])
     return dst
+
+
+def _attn_caches(caches):
+    """The attention caches (rings or pools) of a cache group, RG-LRU
+    states left out."""
+    return [c for c in caches if D.is_attn_cache(c)]
 
 
 def _copy_group_pages(caches, srcs, dsts):
     """Apply a COW pair set to every pool leaf of a cache group: one
-    ``copy_pages`` launch per leaf (k, v, pos of every layer)."""
-    for c in caches:
+    ``copy_pages`` launch per leaf (k, v, pos of every attention layer)."""
+    for c in _attn_caches(caches):
         for pool in c.values():
             kops.copy_pages(pool, srcs, dsts)
 
@@ -309,7 +318,7 @@ class SOIEngine(Engine):
                 continue
             rows = self._ids(pids).long()
             for key in _table_groups(self.cfg)[table]:
-                for c in model[key]:
+                for c in _attn_caches(model[key]):
                     c["pos"][rows] = -1
         self._live = decode_state
         return decode_state
@@ -573,7 +582,8 @@ class SOIEngine(Engine):
         for table, groups in _table_groups(self.cfg).items():
             limit = n_frames if table == "mid" else n_tok
             for group in groups:
-                for d_c, p_c in zip(ms[group], live[group]):
+                for d_c, p_c in zip(_attn_caches(ms[group]),
+                                    _attn_caches(live[group])):
                     attn.hydrate_cache_prefix(d_c, p_c, rows[table], limit)
 
     def _prefill_chunked(self, params, tokens, tl: int) -> Prefix:
@@ -823,7 +833,7 @@ class SOIEngine(Engine):
         else:
             for groups in _table_groups(self.cfg).values():
                 for group in groups:
-                    for c in model[group]:
+                    for c in _attn_caches(model[group]):
                         c["pos"][s_i] = -1
         decode_state["active"][s_i] = False
         self._live = decode_state

@@ -19,9 +19,11 @@ only when ``t % stride == 0``) is resolved per slot from the clock vector
     hands the middle the page map ``where(run_mid, mid_pages, 0)``
     (reference ``engine/step.py:176-188``), so a mid-window slot's write
     lands on the null page and its (discarded) read sees an empty cache.
-    The reference's ``_select_mid_caches(paged=True)`` then selects only
-    the leaves that are not attention pools — the ported stacks (GQA and
-    MLA attention, MLP and MoE blocks) have none.
+    The reference's ``_select_mid_caches(paged=True)`` then selects by row
+    only the leaves that are not attention pools — the RG-LRU layers'
+    per-slot states — so the paged middle also takes the ``commit`` mask,
+    which its attention layers ignore (their writes go through the page
+    map) and its RG-LRU layers apply.
 
 The step updates the decode state in place and returns it.
 """
@@ -85,7 +87,7 @@ def generate_step(params, cfg: ModelCfg, state: dict, tokens, *,
             mp = torch.where(run_mid[:, None], mid_pg,
                              torch.zeros_like(mid_pg))
             xm = D._segment_decode(mid, state["mid"], cfg, xc, t // st,
-                                   pages=mp)
+                                   commit=run_mid, pages=mp)
     else:
         xm = torch.zeros_like(xc)
 

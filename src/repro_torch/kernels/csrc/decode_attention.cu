@@ -10,11 +10,16 @@
 // bytes over 3.35 TB/s.
 //
 // Design:
-//  * grid (B, Hkv): one block per (slot, KV head) keeps the G query heads of
-//    that KV head together, so a KV row is read once for all G heads and KV
-//    is never broadcast;
+//  * grid (B, Hkv, G/GB): one block per (slot, KV head) keeps the G query
+//    heads of that KV head together, so a KV row is read once for all G
+//    heads and KV is never broadcast — up to G*DH = 1024; past that (MQA at
+//    G 16, dh 256: recurrentgemma) each block keeps GB = 1024/DH of them
+//    (4 heads, 64 float32 registers of q and acc a lane, 32 KB of shared
+//    memory for the merge) and the G/GB blocks of a KV head share its rows
+//    through L2;
 //  * the TPU's sequential k-grid becomes a loop inside the block: each of the
-//    8 warps walks every 8th chunk of kChunk keys, keeping its own running
+//    8 warps walks every 8th chunk of kChunk keys (8; 4 at DH 256), keeping
+//    its own running
 //    max, denominator and accumulator in float32 registers; a lane owns dh/32
 //    head dims, and a key's score is a warp shuffle reduction;
 //  * a chunk's kChunk K and V rows are loaded before any is used, so each
@@ -26,9 +31,9 @@
 //  * the warps' partial softmax states merge through shared memory and the
 //    finalize divides by max(l, 1e-30).
 //
-// What holds it back: B*Hkv blocks (32 at the serving batch of 4) leave most
-// of the 132 SMs idle; splitting S across blocks (flash-decoding) is the
-// next step.
+// What holds it back: B*Hkv*G/GB blocks (32 at qwen3's serving batch of 4;
+// 16 for recurrentgemma's single KV head at B 4) leave most of the 132 SMs
+// idle; splitting S across blocks (flash-decoding) is the next step.
 #include "common.cuh"
 
 using namespace repro_torch;
@@ -36,7 +41,21 @@ using namespace repro_torch;
 namespace {
 
 constexpr int kWarps = 8;
-constexpr int kChunk = 8;
+
+// Query heads a block keeps: all G of its KV head while their float32
+// accumulators stay within 1024 per lane group (32 KB of shared memory for
+// the warp merge), else 1024/DH of them; each block then takes one group
+// of GB heads (grid z = G/GB). Every instantiation of G*DH <= 1024 has one
+// group, as before.
+template <int G, int DH>
+__host__ __device__ constexpr int heads_per_block() {
+  return G * DH <= 1024 ? G : 1024 / DH;
+}
+
+// Keys a warp loads before it scores them: 8, or 4 at DH 256, where 8
+// would hold 128 K/V floats a lane in registers.
+template <int DH>
+__host__ __device__ constexpr int chunk_keys() { return DH >= 256 ? 4 : 8; }
 
 template <typename T, int G, int DH>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -45,17 +64,20 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const int* __restrict__ qpos, T* __restrict__ out,
                         int S, int Hkv, int window, float scale) {
   constexpr int P = (DH + 31) / 32;  // head dims per lane
+  constexpr int GB = heads_per_block<G, DH>();
+  constexpr int kChunk = chunk_keys<DH>();
   const int b = blockIdx.x, hk = blockIdx.y;
+  const int h0 = hk * G + blockIdx.z * GB;   // first query head of the block
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int H = Hkv * G;
   const int d0 = lane * P;
   const bool lane_live = d0 < DH;    // dh < 32 leaves lanes idle
 
-  float qr[G][P];
+  float qr[GB][P];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GB; ++g) {
     if (lane_live) {
-      load_f32<T, P>(q + ((size_t)b * H + (size_t)hk * G + g) * DH + d0,
+      load_f32<T, P>(q + ((size_t)b * H + (size_t)h0 + g) * DH + d0,
                      qr[g]);
     } else {
 #pragma unroll
@@ -68,9 +90,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + ((size_t)b * S * Hkv + hk) * DH + d0;
   const int* pb = pos + (size_t)b * S;
 
-  float m[G], l[G], acc[G][P];
+  float m[GB], l[GB], acc[GB][P];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GB; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
@@ -96,7 +118,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < GB; ++g) {
       float sc[kChunk];
       float cm = m[g];
 #pragma unroll
@@ -125,10 +147,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // merge the warps' partial (m, l, acc) states
-  __shared__ float sm_m[kWarps][G], sm_l[kWarps][G];
-  __shared__ float sm_acc[kWarps][G][DH];
+  __shared__ float sm_m[kWarps][GB], sm_l[kWarps][GB];
+  __shared__ float sm_acc[kWarps][GB][DH];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GB; ++g) {
     if (lane == 0) {
       sm_m[warp][g] = m[g];
       sm_l[warp][g] = l[g];
@@ -139,7 +161,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < G * DH; i += blockDim.x) {
+  for (int i = threadIdx.x; i < GB * DH; i += blockDim.x) {
     const int g = i / DH, d = i % DH;
     float mx = kNegInf;
 #pragma unroll
@@ -151,7 +173,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       den += sm_l[w][g] * c;
       num += sm_acc[w][g][d] * c;
     }
-    out[((size_t)b * H + (size_t)hk * G + g) * DH + d] =
+    out[((size_t)b * H + (size_t)h0 + g) * DH + d] =
         from_f32<T>(num / fmaxf(den, 1e-30f));
   }
 }
@@ -160,7 +182,7 @@ template <typename T, int G, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* pos, const void* qpos, void* out, int B, int S,
                    int Hkv, int window, float scale, cudaStream_t stream) {
-  dim3 grid(B, Hkv);
+  dim3 grid(B, Hkv, G / heads_per_block<G, DH>());
   decode_attention_kernel<T, G, DH><<<grid, kWarps * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(pos),
@@ -182,6 +204,8 @@ cudaError_t by_dh(int DH, const void* q, const void* k, const void* v,
                                      window, scale, st);
     case 128: return launch<T, G, 128>(q, k, v, pos, qpos, out, B, S, Hkv,
                                        window, scale, st);
+    case 256: return launch<T, G, 256>(q, k, v, pos, qpos, out, B, S, Hkv,
+                                       window, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -199,6 +223,8 @@ cudaError_t by_g(int G, int DH, const void* q, const void* k, const void* v,
                                window, scale, st);
     case 8: return by_dh<T, 8>(DH, q, k, v, pos, qpos, out, B, S, Hkv,
                                window, scale, st);
+    case 16: return by_dh<T, 16>(DH, q, k, v, pos, qpos, out, B, S, Hkv,
+                                 window, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -15,16 +15,18 @@
 // least time is those bytes over 3.35 TB/s.
 //
 // Design (decode_attention.cu with the key walk through the page map):
-//  * grid (B, Hkv): one block per (slot, KV head); the G query heads of the
-//    KV head share every row read;
-//  * each of the 8 warps walks every 8th chunk of 8 logical keys, in the
-//    dense kernel's order, so over the same logical rows the paged read
-//    adds the same terms in the same order as the dense read;
+//  * grid (B, Hkv, G/GB): one block per (slot, KV head, group of GB query
+//    heads) — all G of them up to G*DH = 1024, else 1024/DH — as in the
+//    dense kernel; the heads of a block share every row read;
+//  * each of the 8 warps walks every 8th chunk of 8 logical keys (4 at DH
+//    256), in the dense kernel's order, so over the same logical rows the
+//    paged read adds the same terms in the same order as the dense read;
 //  * a key is live iff page_map entry > 0 && pos >= 0 && pos <= t
 //    (&& pos > t - window); rows of the null page are never loaded (their
 //    K/V take 0), masked scores take the finite -1e30, the warps' states
 //    merge in shared memory and the finalize divides by max(l, 1e-30).
-// What holds it back: B*Hkv blocks (32 at the serving batch) on 132 SMs,
+// What holds it back: B*Hkv*G/GB blocks (32 at qwen3's serving batch, 16 at
+// recurrentgemma's) on 132 SMs — splitting S across blocks is later work —
 // and a dependent load (page id, then row) at the head of every chunk.
 #include "common.cuh"
 
@@ -33,7 +35,21 @@ using namespace repro_torch;
 namespace {
 
 constexpr int kWarps = 8;
-constexpr int kChunk = 8;
+
+// Query heads a block keeps: all G of its KV head while their float32
+// accumulators stay within 1024 per lane group (32 KB of shared memory for
+// the warp merge), else 1024/DH of them; each block then takes one group
+// of GB heads (grid z = G/GB). Every instantiation of G*DH <= 1024 has one
+// group, as before.
+template <int G, int DH>
+__host__ __device__ constexpr int heads_per_block() {
+  return G * DH <= 1024 ? G : 1024 / DH;
+}
+
+// Keys a warp loads before it scores them: 8, or 4 at DH 256, where 8
+// would hold 128 K/V floats a lane in registers.
+template <int DH>
+__host__ __device__ constexpr int chunk_keys() { return DH >= 256 ? 4 : 8; }
 
 template <typename T, int G, int DH>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -46,18 +62,21 @@ paged_decode_attention_kernel(const T* __restrict__ q,
                               T* __restrict__ out, int n_pp, int P, int Hkv,
                               int window, float scale) {
   constexpr int PL = (DH + 31) / 32;  // head dims per lane
+  constexpr int GB = heads_per_block<G, DH>();
+  constexpr int kChunk = chunk_keys<DH>();
   const int b = blockIdx.x, hk = blockIdx.y;
+  const int h0 = hk * G + blockIdx.z * GB;   // first query head of the block
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int H = Hkv * G;
   const int S = n_pp * P;            // logical rows of a slot
   const int d0 = lane * PL;
   const bool lane_live = d0 < DH;    // dh < 32 leaves lanes idle
 
-  float qr[G][PL];
+  float qr[GB][PL];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GB; ++g) {
     if (lane_live) {
-      load_f32<T, PL>(q + ((size_t)b * H + (size_t)hk * G + g) * DH + d0,
+      load_f32<T, PL>(q + ((size_t)b * H + (size_t)h0 + g) * DH + d0,
                       qr[g]);
     } else {
 #pragma unroll
@@ -70,9 +89,9 @@ paged_decode_attention_kernel(const T* __restrict__ q,
   const T* vb = vpool + (size_t)hk * DH + d0;
   const int* pmb = page_map + (size_t)b * n_pp;
 
-  float m[G], l[G], acc[G][PL];
+  float m[GB], l[GB], acc[GB][PL];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GB; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
@@ -99,7 +118,7 @@ paged_decode_attention_kernel(const T* __restrict__ q,
       }
     }
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < GB; ++g) {
       float sc[kChunk];
       float cm = m[g];
 #pragma unroll
@@ -128,10 +147,10 @@ paged_decode_attention_kernel(const T* __restrict__ q,
   }
 
   // merge the warps' partial (m, l, acc) states
-  __shared__ float sm_m[kWarps][G], sm_l[kWarps][G];
-  __shared__ float sm_acc[kWarps][G][DH];
+  __shared__ float sm_m[kWarps][GB], sm_l[kWarps][GB];
+  __shared__ float sm_acc[kWarps][GB][DH];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GB; ++g) {
     if (lane == 0) {
       sm_m[warp][g] = m[g];
       sm_l[warp][g] = l[g];
@@ -142,7 +161,7 @@ paged_decode_attention_kernel(const T* __restrict__ q,
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < G * DH; i += blockDim.x) {
+  for (int i = threadIdx.x; i < GB * DH; i += blockDim.x) {
     const int g = i / DH, d = i % DH;
     float mx = kNegInf;
 #pragma unroll
@@ -154,7 +173,7 @@ paged_decode_attention_kernel(const T* __restrict__ q,
       den += sm_l[w][g] * c;
       num += sm_acc[w][g][d] * c;
     }
-    out[((size_t)b * H + (size_t)hk * G + g) * DH + d] =
+    out[((size_t)b * H + (size_t)h0 + g) * DH + d] =
         from_f32<T>(num / fmaxf(den, 1e-30f));
   }
 }
@@ -164,7 +183,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* pos, const void* pm, const void* qpos,
                    void* out, int B, int n_pp, int P, int Hkv, int window,
                    float scale, cudaStream_t stream) {
-  dim3 grid(B, Hkv);
+  dim3 grid(B, Hkv, G / heads_per_block<G, DH>());
   paged_decode_attention_kernel<T, G, DH><<<grid, kWarps * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(pos),
@@ -187,6 +206,8 @@ cudaError_t by_dh(int DH, const void* q, const void* k, const void* v,
                                      Hkv, window, scale, st);
     case 128: return launch<T, G, 128>(q, k, v, pos, pm, qpos, out, B, n_pp,
                                        P, Hkv, window, scale, st);
+    case 256: return launch<T, G, 256>(q, k, v, pos, pm, qpos, out, B, n_pp,
+                                       P, Hkv, window, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -205,6 +226,8 @@ cudaError_t by_g(int G, int DH, const void* q, const void* k, const void* v,
                                Hkv, window, scale, st);
     case 8: return by_dh<T, 8>(DH, q, k, v, pos, pm, qpos, out, B, n_pp, P,
                                Hkv, window, scale, st);
+    case 16: return by_dh<T, 16>(DH, q, k, v, pos, pm, qpos, out, B, n_pp, P,
+                                 Hkv, window, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }

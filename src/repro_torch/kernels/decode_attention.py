@@ -7,13 +7,17 @@ TPU kernel ``repro/kernels/decode_attention.py::decode_attention``.
 * Bound on the H100: the cache read. A call streams K and V once
   (``2*B*S*Hkv*dh`` elements) for ~4·G flops per element, so its least time
   is those bytes over the 3.35 TB/s memory rate.
-* Design: grid ``(B, Hkv)``; a block keeps the G query heads of one KV head
-  together (a cache row is read once for all of them), walks S in a loop
-  with a float32 online softmax per warp, and merges its 8 warps' states in
-  shared memory. The mask is the absolute-position lane, ``-1`` marks an
-  empty slot, and masked scores take the finite ``-1e30`` — an inactive slot
-  comes out finite, as in the reference.
-* Held back by: ``B*Hkv`` blocks (32 at the serving batch) on 132 SMs.
+* Design: grid ``(B, Hkv, G/GB)``; a block keeps the G query heads of one
+  KV head together (a cache row is read once for all of them) while
+  ``G*dh <= 1024``, else ``GB = 1024/dh`` of them (recurrentgemma's MQA, G
+  16 at dh 256: 4 heads a block, 4 blocks a KV head sharing its rows
+  through L2), walks S in a loop with a float32 online softmax per warp,
+  and merges its 8 warps' states in shared memory. The mask is the
+  absolute-position lane (with the window test on a wrapped ring), ``-1``
+  marks an empty slot, and masked scores take the finite ``-1e30`` — an
+  inactive slot comes out finite, as in the reference.
+* Held back by: ``B*Hkv*G/GB`` blocks (32 at qwen3's serving batch, 16 at
+  recurrentgemma's) on 132 SMs; splitting S across blocks is later work.
 
 ``paged_decode_attention`` is the same read over paged pools.
 
@@ -28,8 +32,8 @@ replaces the TPU kernel
   dense kernel's key order. A key is live iff its map entry is ``> 0`` and
   ``0 <= pos <= t`` (and ``pos > t - window``); null-page rows are never
   loaded.
-* Held back by: the same ``B*Hkv`` blocks as the dense kernel, and the
-  dependent page-id load at the head of every chunk of keys.
+* Held back by: the same ``B*Hkv*G/GB`` blocks as the dense kernel, and
+  the dependent page-id load at the head of every chunk of keys.
 
 ``paged_mla_decode_attention`` is the absorbed-MLA read of deepseek-v2's
 latent pools.
@@ -75,8 +79,8 @@ paged_plain = ref.paged_decode_attention
 paged_mla_plain = ref.paged_mla_decode_attention
 
 _DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
-HEAD_DIMS = (16, 32, 64, 128)
-GROUPS = (1, 2, 4, 8)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+GROUPS = (1, 2, 4, 8, 16)
 
 
 def _check_cuda(q, k_cache, v_cache, cache_positions, q_position):

@@ -12,7 +12,13 @@ The model code reaches the kernels only through this module.
 reference either: it is a plain PyTorch gather on every device. Nor has
 ``mla_decode_attention``, the absorbed-MLA read of a dense latent cache
 ("reference path on every backend", ``repro/kernels/ops.py``): it is the
-plain PyTorch version on the card too.
+plain PyTorch version on the card too. Nor has sliding-window prefill
+attention: the reference's ``ops.flash_attention`` sends a ``window`` to
+``ref.windowed_flash_attention`` (or ``chunked_flash_attention``) on every
+backend, the TPU included, because its Pallas flash kernel takes no
+window. ``flash_attention`` here does the same: a window goes to the plain
+``ref.windowed_flash_attention`` on every device, and the CUDA flash kernel
+runs only unwindowed prefill.
 """
 
 from __future__ import annotations
@@ -22,13 +28,31 @@ from repro_torch.kernels.chunk_attention import (chunk_attention,
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention,
                                                   paged_mla_decode_attention)
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import ref
+from repro_torch.kernels.lru_scan import lru_scan
 from repro_torch.kernels.page_copy import copy_pages
 from repro_torch.kernels.ref import gather_pages, mla_decode_attention
 
-KERNELS = (decode_attention, flash_attention, chunk_attention,
+KERNELS = (decode_attention, _flash.flash_attention, chunk_attention,
            paged_decode_attention, copy_pages, mla_chunk_attention,
-           paged_mla_decode_attention)
+           paged_mla_decode_attention, lru_scan)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, prefix_len=0,
+                    q_offset=0, scale=None, logit_softcap=None):
+    """Whole-prompt prefill attention: the ``flash_attention`` kernel, or —
+    with a ``window`` — the plain ``ref.windowed_flash_attention`` on every
+    device (the reference has no windowed kernel either)."""
+    if window is None:
+        return _flash.flash_attention(
+            q, k, v, causal=causal, prefix_len=prefix_len, q_offset=q_offset,
+            scale=scale, logit_softcap=logit_softcap)
+    if not causal or prefix_len:
+        raise ValueError("windowed attention is causal, without a prefix")
+    return ref.windowed_flash_attention(q, k, v, window=window,
+                                        q_offset=q_offset, scale=scale,
+                                        logit_softcap=logit_softcap)
 
 
 def reset_launch_counts() -> None:
@@ -43,7 +67,7 @@ def launch_counts() -> dict:
 
 
 __all__ = ["chunk_attention", "copy_pages", "decode_attention",
-           "flash_attention", "gather_pages", "launch_counts",
+           "flash_attention", "gather_pages", "launch_counts", "lru_scan",
            "mla_chunk_attention", "mla_decode_attention",
            "paged_decode_attention", "paged_mla_decode_attention",
            "reset_launch_counts"]

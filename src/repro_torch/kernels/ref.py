@@ -1,10 +1,9 @@
 """Plain PyTorch versions of the kernels this port runs — attention
-(dense, chunked, paged; GQA and absorbed MLA) and the page copy — and the
-page gather (the
-counterparts of ``repro.kernels.ref`` and of the reference path of
-``repro.kernels.ops``). The CPU path of every kernel wrapper is the
-function here, and ``chip_smoke.py`` holds each CUDA kernel against it on
-the card.
+(dense, chunked, paged, windowed; GQA and absorbed MLA), the page copy and
+the RG-LRU scan — and the page gather (the counterparts of
+``repro.kernels.ref`` and of the reference path of ``repro.kernels.ops``).
+The CPU path of every kernel wrapper is the function here, and
+``chip_smoke.py`` holds each CUDA kernel against it on the card.
 
 Conventions, as in the reference:
   q        : (B, Sq, H,  dh)
@@ -87,6 +86,58 @@ def flash_attention(q, k, v, *, causal=True, window=None, prefix_len=0,
         o = acc / torch.clamp(l, min=1e-30)[..., None]
         out[:, q0:q1] = o.permute(0, 3, 1, 2, 4)
     return out.reshape(b, sq, h, dv).to(q.dtype)
+
+
+def windowed_flash_attention(q, k, v, *, window: int, q_offset=0,
+                             scale=None, logit_softcap=None, block_q=256):
+    """Causal sliding-window attention (``repro.kernels.ref
+    .windowed_flash_attention``, and ``chunked_flash_attention`` with a
+    window no shorter than Sk): a masked softmax per block of ``block_q``
+    queries over the key span they can see, ``[q_start - window + 1,
+    q_end)``. Queries sit at ``q_offset + i``, keys at ``0..Sk-1``; a key is
+    live iff ``q - window < k <= q``. No TPU kernel computes this: the
+    reference runs it outside Pallas on every backend."""
+    b, sq, h, dh = q.shape
+    _, sk, hkv, _ = k.shape
+    dv = v.shape[-1]
+    g = h // hkv
+    scale = dh ** -0.5 if scale is None else scale
+    dev = q.device
+    out = torch.empty((b, sq, hkv, g, dv), dtype=torch.float32, device=dev)
+    for q0 in range(0, sq, block_q):
+        q1 = min(q0 + block_q, sq)
+        k0 = min(max(q_offset + q0 - window + 1, 0), sk)
+        k1 = min(max(q_offset + q1, k0), sk)
+        qblk = q[:, q0:q1].reshape(b, q1 - q0, hkv, g, dh).float()
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qblk,
+                         k[:, k0:k1].float()) * scale
+        if logit_softcap:
+            s = logit_softcap * torch.tanh(s / logit_softcap)
+        allow = _mask(q_offset + torch.arange(q0, q1, device=dev),
+                      torch.arange(k0, k1, device=dev), causal=True,
+                      window=window, prefix_len=0)
+        s = torch.where(allow, s, torch.full_like(s, NEG_INF))
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, v[:, k0:k1].float())
+        out[:, q0:q1] = o
+    return out.reshape(b, sq, h, dv).to(q.dtype)
+
+
+def lru_scan(a, x, h0=None):
+    """Diagonal linear recurrence ``h_t = a_t * h_{t-1} + x_t``
+    (``repro.kernels.ref.lru_scan``, in the TPU kernel's sequential order):
+    a, x (B, S, D), h0 (B, D) or None. The carry is float32, each step a
+    product and then a sum. Returns (h_all (B, S, D) in x's dtype, h_last =
+    h_all[:, -1])."""
+    b, s, d = x.shape
+    af, xf = a.float(), x.float()
+    h = (torch.zeros((b, d), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    out = torch.empty((b, s, d), dtype=x.dtype, device=x.device)
+    for t in range(s):
+        h = af[:, t] * h + xf[:, t]
+        out[:, t] = h
+    return out, out[:, -1]
 
 
 def decode_attention(q, k_cache, v_cache, cache_positions, q_position, *,

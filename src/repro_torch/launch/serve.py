@@ -30,10 +30,13 @@ first layers of the stack; SOI bounds follow the config's own rule).
     python -m repro_torch.launch.serve --arch deepseek-v2-236b --layers 4 \\
         --soi pp --batch 4 --prompt-len 1024 --stagger 2 --gen-len 64 \\
         --paged --page-size 16
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b --soi pp \\
+        --batch 4 --prompt-len 2040 --stagger 2 --gen-len 64 \\
+        [--paged --page-size 16]
 
-A config with MoE blocks cannot mask pad: it prefills at the exact prompt
-length whatever ``--bucket`` says, and ``--chunk-size`` (so also
-``--prefix-cache``) raises, as the reference's engine does.
+A config with MoE or RG-LRU blocks cannot mask pad: it prefills at the
+exact prompt length whatever ``--bucket`` says, and ``--chunk-size`` (so
+also ``--prefix-cache``) raises, as the reference's engine does.
 """
 
 from __future__ import annotations

@@ -1,13 +1,16 @@
 """Serving path (port of ``repro.models.decode``): decode-state construction
 (dense rings or paged pools), bucketed and chunked prefill, the one-token
 decode of a run of layers, and the plain (non-SOI) decode step. Blocks mix
-channels with an MLP or a MoE; MoE routing cannot mask pad, so a config
-with MoE blocks prefills at the exact prompt length and refuses bucketed
-and chunked prefill (``supports_masked_prefill``), as the reference does.
+the sequence with attention or the RG-LRU and channels with an MLP or a
+MoE; MoE routing cannot mask pad and a recurrence would carry it into its
+state, so a config with MoE or RG-LRU blocks prefills at the exact prompt
+length and refuses bucketed and chunked prefill
+(``supports_masked_prefill``), as the reference does.
 
 State layout: ``{"t": (B,) int32 per-slot clocks, ...}`` plus, for a plain
 config, ``"segments"``: one cache dict per layer (``k``, ``v``, ``pos``;
-MLA layers ``latent``, ``rope``, ``pos``);
+MLA layers ``latent``, ``rope``, ``pos``; RG-LRU layers ``h`` (B, w)
+float32 and ``conv`` (B, conv_width-1, w), per slot in both layouts);
 for an SOI config ``"pre"``, ``"mid"``, ``"post"`` (per-layer caches of the
 three parts; the middle's hold ``soi_mid_len`` frames), the conv window
 ``"conv_buf"`` (B, stride-1, d) and the extrapolation queue ``"queue"``
@@ -26,6 +29,7 @@ import torch
 
 from repro_torch.configs.base import ModelCfg
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rgm
 from repro_torch.models.layers import norm_apply
 from repro_torch.models.mlp import mlp_apply
 from repro_torch.models.transformer import (_dtype, _embed_tokens,
@@ -33,20 +37,36 @@ from repro_torch.models.transformer import (_dtype, _embed_tokens,
                                             cast_params, channel_mix,
                                             soi_compress,
                                             soi_extrapolate, soi_fuse,
-                                            soi_partition, split_blocks)
+                                            soi_partition, softcap_logits,
+                                            split_blocks)
 
 
 # ---------------------------------------------------------------------------
 # Cache init
 # ---------------------------------------------------------------------------
 
-def _layer_caches(blocks, batch: int, max_len: int, dt, device,
+def _layer_caches(blocks, batch: int, max_len: int, d: int, dt, device,
                   paged=None) -> list:
-    if paged is not None:                      # (page_size, n_pages)
-        return [attn.init_paged_cache(bp.bcfg.attn, paged[0], paged[1], dt,
-                                      device) for bp in blocks]
-    return [attn.init_cache(bp.bcfg.attn, batch, max_len, dt, device)
-            for bp in blocks]
+    """One cache dict per layer: an attention layer's ring (or, with
+    ``paged`` = (page_size, n_pages), its pools), an RG-LRU layer's
+    per-slot recurrence state — per slot on paged engines too."""
+    out = []
+    for bp in blocks:
+        b = bp.bcfg
+        if b.rglru is not None:
+            out.append(rgm.rglru_init_state(b.rglru, d, batch, dt, device))
+        elif paged is not None:
+            out.append(attn.init_paged_cache(b.attn, paged[0], paged[1], dt,
+                                             device))
+        else:
+            out.append(attn.init_cache(b.attn, batch, max_len, dt, device))
+    return out
+
+
+def is_attn_cache(cache: dict) -> bool:
+    """Whether a layer's cache holds attention rows (a ring or pools, with
+    a ``pos`` lane) rather than an RG-LRU layer's per-slot state."""
+    return "pos" in cache
 
 
 def _attn_logical_len(segments, max_len: int) -> int:
@@ -116,15 +136,15 @@ def init_decode_state(params, cfg: ModelCfg, batch: int, max_len: int, *,
                 pm = (paged.page_size, n_pages)
         state["pages"] = pages
     if cfg.soi is None:
-        state["segments"] = _layer_caches(params.blocks, batch, max_len, dt,
-                                          dev, po)
+        state["segments"] = _layer_caches(params.blocks, batch, max_len, d,
+                                          dt, dev, po)
         return state
     st = cfg.soi.stride
     pre, mid, post = split_blocks(params, cfg)
-    state["pre"] = _layer_caches(pre, batch, max_len, dt, dev, po)
-    state["mid"] = _layer_caches(mid, batch, soi_mid_len(max_len, st), dt,
+    state["pre"] = _layer_caches(pre, batch, max_len, d, dt, dev, po)
+    state["mid"] = _layer_caches(mid, batch, soi_mid_len(max_len, st), d, dt,
                                  dev, pm)
-    state["post"] = _layer_caches(post, batch, max_len, dt, dev, po)
+    state["post"] = _layer_caches(post, batch, max_len, d, dt, dev, po)
     state["conv_buf"] = torch.zeros((batch, st - 1, d), dtype=dt, device=dev)
     state["queue"] = torch.zeros((batch, st, d), dtype=dt, device=dev)
     return state
@@ -138,8 +158,11 @@ def _block_decode(bp, cfg: ModelCfg, x, cache, t, *, commit=None,
                   pages=None):
     eps = cfg.norm_eps
     h = norm_apply("rmsnorm", bp.ln1, x, eps=eps)
-    h, _ = attn.attn_decode(bp.attn, h, cache, t, norm_eps=eps,
-                            commit=commit, pages=pages)
+    if bp.bcfg.rglru is not None:
+        h = rgm.rglru_decode(bp.rglru, h, cache, commit=commit)
+    else:
+        h, _ = attn.attn_decode(bp.attn, h, cache, t, norm_eps=eps,
+                                commit=commit, pages=pages)
     x = x + h
     h = norm_apply("rmsnorm", bp.ln2, x, eps=eps)
     return x + channel_mix(bp, h)
@@ -148,8 +171,9 @@ def _block_decode(bp, cfg: ModelCfg, x, cache, t, *, commit=None,
 def _segment_decode(blocks, caches, cfg: ModelCfg, x, t, *, commit=None,
                     pages=None):
     """One token through a run of layers; their caches update in place
-    (dense rings: only the ``commit`` rows when given; pools: through the
-    page map ``pages`` that every layer of the run shares). Returns x."""
+    (dense rings and RG-LRU states: only the ``commit`` rows when given;
+    pools: through the page map ``pages`` that every attention layer of the
+    run shares). Returns x."""
     for bp, c in zip(blocks, caches):
         x = _block_decode(bp, cfg, x, c, t, commit=commit, pages=pages)
     return x
@@ -160,9 +184,11 @@ def _embed_one(params, cfg: ModelCfg, token):
 
 
 def _logits_one(params, cfg: ModelCfg, x):
-    """Final norm + tied head; logits in float32."""
+    """Final norm + head; logits in float32, soft-capped where the config
+    says so."""
     h = norm_apply("rmsnorm", params.final_norm, x, eps=cfg.norm_eps)
-    return torch.matmul(h, _head_weights(params)).float()
+    return softcap_logits(cfg,
+                          torch.matmul(h, _head_weights(params)).float())
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
-"""Channel mixer (port of the SwiGLU path of ``repro.models.mlp``), with
-weights in the reference's einsum layout ``up/gate (d, d_ff)``,
-``down (d_ff, d)``."""
+"""Channel mixer (port of the gated paths of ``repro.models.mlp``: SwiGLU
+and GeGLU), with weights in the reference's einsum layout ``up/gate (d,
+d_ff)``, ``down (d_ff, d)``. GeGLU's GeLU is the tanh approximation, as
+``jax.nn.gelu`` computes it by default (PyTorch's default is the erf
+form)."""
 
 from __future__ import annotations
 
@@ -12,17 +14,26 @@ from repro_torch.configs.base import MLPCfg
 from repro_torch.models.layers import dense_init
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+_GATED = {"swiglu": F.silu, "geglu": gelu}
+
+
 class MLP(nn.Module):
     def __init__(self, cfg: MLPCfg, d: int, *, generator: torch.Generator,
                  device, dtype=torch.float32):
         super().__init__()
-        if cfg.kind != "swiglu":
+        if cfg.kind not in _GATED:
             raise NotImplementedError(
                 f"mlp kind {cfg.kind!r} is not ported yet; see ROADMAP.md")
         kw = dict(generator=generator, device=device, dtype=dtype)
         self.up = nn.Parameter(dense_init((d, cfg.d_ff), **kw))
         self.down = nn.Parameter(dense_init((cfg.d_ff, d), **kw))
         self.gate = nn.Parameter(dense_init((d, cfg.d_ff), **kw))
+        self.act = _GATED[cfg.kind]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return mlp_apply(self, x)
@@ -31,5 +42,5 @@ class MLP(nn.Module):
 def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
     """x: (..., d) -> (..., d)."""
     h = torch.matmul(x, p.up)
-    h = h * F.silu(torch.matmul(x, p.gate))
+    h = h * p.act(torch.matmul(x, p.gate))
     return torch.matmul(h, p.down)

@@ -1,0 +1,134 @@
+"""Griffin/RecurrentGemma recurrent block (port of ``repro.models.rglru``):
+a gated conv branch and the RG-LRU.
+
+    x -> [W_a -> GeLU] ------------------------------\\
+    x -> [W_b -> causal conv1d(w=4) -> RG-LRU] -> (*) -> W_out
+
+RG-LRU (diagonal, input- and recurrence-gated):
+    r_t = sigmoid(W_r x_t)          i_t = sigmoid(W_i x_t)
+    a_t = exp(-c * softplus(L) * r_t)
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+
+The full-sequence recurrence runs through ``kernels.ops.lru_scan`` (the
+hand-written CUDA kernel on the card, its plain version on the CPU); the
+gates, decay and input are float32, as in the reference. Decode carries
+O(1) state per slot — ``h`` (B, w) in float32 and the conv window ``conv``
+(B, conv_width-1, w) of pre-conv inputs in the compute dtype — and updates
+it in place, only in the ``commit`` rows when a mask is given (the SOI
+middle commits only slots whose compression window is complete).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import RGLRUCfg
+from repro_torch.kernels import ops as kops
+from repro_torch.models.layers import dense_init
+from repro_torch.models.mlp import gelu
+
+_C = 8.0
+
+
+class RGLRU(nn.Module):
+    """RG-LRU weights (the reference's ``rglru_init``) in its layout:
+    ``wa``/``wb`` (d, w), ``conv`` (conv_width, w), ``conv_b`` (w,), the
+    block-diagonal gates ``wr``/``wi`` (nh, w/nh, w/nh) with biases
+    ``br``/``bi`` (w,), ``lam`` (w,) and ``wo`` (w, d)."""
+
+    def __init__(self, cfg: RGLRUCfg, d: int, *, generator: torch.Generator,
+                 device, dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        w = cfg.width or d
+        nh = cfg.n_heads or 1
+        bw = w // nh
+        k = cfg.conv_width
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        zeros = dict(device=device, dtype=dtype)
+        self.wa = nn.Parameter(dense_init((d, w), **kw))
+        self.wb = nn.Parameter(dense_init((d, w), **kw))
+        self.conv = nn.Parameter(dense_init((k, w), scale=k ** -0.5, **kw))
+        self.conv_b = nn.Parameter(torch.zeros(w, **zeros))
+        self.wr = nn.Parameter(dense_init((nh, bw, bw), **kw))
+        self.wi = nn.Parameter(dense_init((nh, bw, bw), **kw))
+        self.br = nn.Parameter(torch.zeros(w, **zeros))
+        self.bi = nn.Parameter(torch.zeros(w, **zeros))
+        # Lambda so that a = exp(-c * softplus(lam)) spans (0.9, 0.999)
+        a = torch.linspace(0.9, 0.999, w, device=device)
+        self.lam = nn.Parameter(
+            torch.log(torch.expm1(-torch.log(a) / _C)).to(dtype))
+        self.wo = nn.Parameter(dense_init((w, d), **kw))
+
+
+def _gates(p: RGLRU, xb: torch.Tensor, nh: int):
+    """Block-diagonal input and recurrence gates, float32."""
+    lead, w = xb.shape[:-1], xb.shape[-1]
+    xh = xb.reshape(*lead, nh, w // nh)
+    r = torch.einsum("...hk,hkj->...hj", xh, p.wr).reshape(*lead, w) + p.br
+    i = torch.einsum("...hk,hkj->...hj", xh, p.wi).reshape(*lead, w) + p.bi
+    return torch.sigmoid(r.float()), torch.sigmoid(i.float())
+
+
+def _a_and_b(p: RGLRU, xb: torch.Tensor, nh: int):
+    """Per-timestep decay a_t and input b_t of the diagonal recurrence
+    (float32)."""
+    r, i = _gates(p, xb, nh)
+    log_a = -_C * F.softplus(p.lam.float()) * r
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    return a, gated * i * xb.float()
+
+
+def rglru_forward(p: RGLRU, x: torch.Tensor):
+    """Full-sequence forward, x (B, S, d) -> (y (B, S, d), state): the
+    recurrence state ``rglru_decode`` carries — ``h`` (B, w) float32 after
+    the last step, and ``conv``, the last conv_width-1 pre-conv inputs
+    (zero-padded as the streaming window is for S < conv_width-1) — so
+    decode resumes at position S."""
+    nh = p.cfg.n_heads or 1
+    s = x.shape[1]
+    ga = gelu(torch.matmul(x, p.wa))
+    xb = torch.matmul(x, p.wb)
+    k = p.conv.shape[0]
+    xp = F.pad(xb, (0, 0, k - 1, 0))
+    xc = sum(xp[:, i:s + i] * p.conv[i] for i in range(k)) + p.conv_b
+    a, bx = _a_and_b(p, xc, nh)
+    h, h_last = kops.lru_scan(a.contiguous(), bx.contiguous())
+    y = torch.matmul(h.to(x.dtype) * ga, p.wo)
+    # a copy: the state must not keep the whole (B, S, w) scan alive
+    return y, {"h": h_last.to(torch.float32, copy=True),
+               "conv": xp[:, s:].contiguous()}
+
+
+def rglru_init_state(cfg: RGLRUCfg, d: int, batch: int, dtype,
+                     device) -> dict:
+    """Empty decode state: ``h`` float32 (whatever the compute dtype) and
+    the conv window in ``dtype``."""
+    w = cfg.width or d
+    return {"h": torch.zeros((batch, w), dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, cfg.conv_width - 1, w), dtype=dtype,
+                                device=device)}
+
+
+def rglru_decode(p: RGLRU, x: torch.Tensor, state: dict, *, commit=None):
+    """One token per slot, x (B, d) -> y (B, d). Updates ``state`` in place;
+    with ``commit`` ((B,) bool) only its True rows take the new ``h`` and
+    conv window, the others keep theirs."""
+    nh = p.cfg.n_heads or 1
+    ga = gelu(torch.matmul(x, p.wa))
+    xb = torch.matmul(x, p.wb)
+    window = torch.cat([state["conv"], xb[:, None]], dim=1)
+    xc = torch.einsum("bkw,kw->bw", window, p.conv) + p.conv_b
+    a, bx = _a_and_b(p, xc, nh)
+    h = a * state["h"] + bx
+    y = torch.matmul(h.to(x.dtype) * ga, p.wo)
+    conv = window[:, 1:]
+    if commit is not None:
+        h = torch.where(commit[:, None], h, state["h"])
+        conv = torch.where(commit[:, None, None], conv, state["conv"])
+    state["h"].copy_(h)
+    state["conv"].copy_(conv)
+    return y

@@ -7,6 +7,10 @@ segment's layers on a leading axis and keeps an unscanned one as a list),
 the final norm, the untied ``lm_head (d, vocab)`` of configs that do not tie
 it to the embedding, and — for SOI configs — the S-CC compress conv
 ``soi_compress (stride, d, d)`` and the skip fusion ``soi_fuse (2d, d)``.
+A block mixes the sequence with attention (GQA or MLA) or with the RG-LRU
+(recurrentgemma), and channels with an MLP or a MoE. Gemma configs scale
+the embeddings by sqrt(d) (``embed_scale``) and soft-cap the logits
+(``logits_softcap``).
 
 SOI-LM (cfg.soi): layers [first_layer, last_layer) form the *compressed
 middle* — a width-stride stride-stride causal conv compresses time before
@@ -17,6 +21,7 @@ it ("fp" shifts the middle one token into the future).
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 from torch import nn
@@ -24,6 +29,7 @@ from torch import nn
 from repro_torch.configs.base import BlockCfg, ModelCfg, SOILMCfg
 from repro_torch.core.stmc import causal_conv1d
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rgm
 from repro_torch.models.layers import dense_init, embed_init, norm_apply, \
     trunc_normal
 from repro_torch.models.mlp import MLP, mlp_apply
@@ -39,23 +45,29 @@ def _norm_param(d: int, device, dtype) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One attention block with an MLP or a MoE channel mixer (``ln1``/
-    ``ln2`` are the (1 + scale) RMSNorm scales)."""
+    """One block: a sequence mixer — attention or the RG-LRU — and an MLP
+    or a MoE channel mixer (``ln1``/``ln2`` are the (1 + scale) RMSNorm
+    scales before each)."""
 
     def __init__(self, b: BlockCfg, d: int, *, generator, device,
                  dtype=torch.float32):
         super().__init__()
-        if (b.attn is None or (b.mlp is None) == (b.moe is None)
-                or b.rglru is not None or b.rwkv is not None
+        if ((b.attn is None) == (b.rglru is None)
+                or (b.mlp is None) == (b.moe is None)
+                or b.rwkv is not None
                 or b.cross_attn is not None or b.norm != "rmsnorm"
                 or b.post_norm):
             raise NotImplementedError(
-                "the port runs attention + MLP or MoE RMSNorm blocks only; "
-                "other block kinds are not ported yet (see ROADMAP.md)")
+                "the port runs attention or RG-LRU + MLP or MoE RMSNorm "
+                "blocks only; other block kinds are not ported yet (see "
+                "ROADMAP.md)")
         self.bcfg = b
         kw = dict(generator=generator, device=device, dtype=dtype)
         self.ln1 = _norm_param(d, device, dtype)
-        self.attn = attn.Attention(b.attn, d, **kw)
+        if b.attn is not None:
+            self.attn = attn.Attention(b.attn, d, **kw)
+        else:
+            self.rglru = rgm.RGLRU(b.rglru, d, **kw)
         self.ln2 = _norm_param(d, device, dtype)
         if b.moe is not None:
             self.moe = MoE(b.moe, d, **kw)
@@ -77,8 +89,7 @@ class Transformer(nn.Module):
         super().__init__()
         if (cfg.encoder is not None
                 or cfg.frontend is not None or cfg.prefix_lm
-                or cfg.learned_pos_len or cfg.embed_scale
-                or cfg.logits_softcap):
+                or cfg.learned_pos_len):
             raise NotImplementedError(
                 f"config '{cfg.name}' uses model features that are not "
                 f"ported yet; see ROADMAP.md")
@@ -136,12 +147,17 @@ def cast_params(params: Transformer, cfg: ModelCfg) -> Transformer:
 
 def _block_apply(bp: Block, cfg: ModelCfg, x, *, positions, fill_cache=None,
                  fill_true_length=None):
-    """Full-sequence block. Returns (x, cache_out)."""
+    """Full-sequence block. Returns (x, cache_out): the filled attention
+    cache (None without ``fill_cache``), or an RG-LRU block's recurrence
+    state."""
     eps = cfg.norm_eps
     h = norm_apply("rmsnorm", bp.ln1, x, eps=eps)
-    h, cache = attn.attn_forward(bp.attn, h, positions=positions,
-                                 norm_eps=eps, fill_cache=fill_cache,
-                                 fill_true_length=fill_true_length)
+    if bp.bcfg.rglru is not None:
+        h, cache = rgm.rglru_forward(bp.rglru, h)
+    else:
+        h, cache = attn.attn_forward(bp.attn, h, positions=positions,
+                                     norm_eps=eps, fill_cache=fill_cache,
+                                     fill_true_length=fill_true_length)
     x = x + h
     h = norm_apply("rmsnorm", bp.ln2, x, eps=eps)
     return x + channel_mix(bp, h), cache
@@ -151,11 +167,12 @@ def _segment_forward(blocks, cfg: ModelCfg, x, *, positions,
                      collect_cache=False, batch=None, max_len=0,
                      true_length=None):
     """Apply a run of layers. Returns (x, caches): one cache dict per layer
-    when ``collect_cache`` (prefill), else an empty list."""
+    when ``collect_cache`` (prefill: an attention layer's filled ring, an
+    RG-LRU layer's recurrence state), else an empty list."""
     caches = []
     for bp in blocks:
         fill = None
-        if collect_cache:
+        if collect_cache and bp.bcfg.attn is not None:
             fill = attn.init_cache(bp.bcfg.attn, batch, max_len, x.dtype,
                                    x.device)
         x, c = _block_apply(bp, cfg, x, positions=positions, fill_cache=fill,
@@ -229,9 +246,13 @@ def soi_fuse(params: Transformer, xu, skip):
 # ---------------------------------------------------------------------------
 
 def _embed_tokens(params: Transformer, cfg: ModelCfg, tokens):
-    """tokens (B, S) -> (B, S, d) in the compute dtype."""
+    """tokens (B, S) -> (B, S, d) in the compute dtype; gemma configs
+    (``embed_scale``) multiply by sqrt(d), cast to that dtype first."""
     x = params.embed.index_select(0, tokens.reshape(-1).long())
-    return x.reshape(*tokens.shape, -1).to(_dtype(cfg))
+    x = x.reshape(*tokens.shape, -1).to(_dtype(cfg))
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x
 
 
 def trunk(params: Transformer, cfg: ModelCfg, tokens):
@@ -260,9 +281,18 @@ def _head_weights(params: Transformer):
     return params.lm_head
 
 
+def softcap_logits(cfg: ModelCfg, logits):
+    """``cap * tanh(logits / cap)`` on float32 logits of configs with a
+    ``logits_softcap`` (gemma); the logits unchanged otherwise."""
+    if cfg.logits_softcap:
+        cap = cfg.logits_softcap
+        return cap * torch.tanh(logits / cap)
+    return logits
+
+
 @torch.no_grad()
 def forward(params: Transformer, cfg: ModelCfg, tokens):
     """Full logits (B, S, V) in float32 (small inputs only — tests)."""
     params = cast_params(params, cfg)
     h = trunk(params, cfg, tokens)
-    return torch.matmul(h, _head_weights(params)).float()
+    return softcap_logits(cfg, torch.matmul(h, _head_weights(params)).float())

@@ -176,13 +176,15 @@ def test_cpu_tensors_never_count_launches():
         ql[:, 0], qr[:, 0], lat.reshape(3, 2, 16), rope.reshape(3, 2, 8),
         pos.reshape(3, 2), torch.tensor([[2, 1]], dtype=torch.int32),
         torch.tensor([3], dtype=torch.int32), scale=0.2)
+    ops.lru_scan(torch.rand(1, 3, 4), torch.rand(1, 3, 4))
     assert ops.launch_counts() == {"decode_attention": 0,
                                    "flash_attention": 0,
                                    "chunk_attention": 0,
                                    "paged_decode_attention": 0,
                                    "copy_pages": 0,
                                    "mla_chunk_attention": 0,
-                                   "paged_mla_decode_attention": 0}
+                                   "paged_mla_decode_attention": 0,
+                                   "lru_scan": 0}
 
 
 def test_unsupported_devices_raise():

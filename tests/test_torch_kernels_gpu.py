@@ -2,7 +2,9 @@
 PyTorch versions, on the card (marker ``gpu``), at the smoke and the
 serving path's shapes: float32 (max|Δ| < 2e-5) and bfloat16 (< 2e-2) for
 the attention kernels (GQA and absorbed MLA, flash attention with d_v !=
-d_qk too), bit-exact for ``copy_pages``.
+d_qk too, the decode reads at recurrentgemma's G 16 / dh 256 on a wrapped
+windowed ring, where the paged read equals the dense one bit for bit) and
+``lru_scan`` (bit for bit in float32), bit-exact for ``copy_pages``.
 
 Without a CUDA device every test here skips (decided inside the ``cuda``
 fixture, so every worker collects the same tests). On the card:
@@ -20,6 +22,7 @@ import torch
 from repro_torch.kernels import chunk_attention as PCA
 from repro_torch.kernels import decode_attention as PDA
 from repro_torch.kernels import flash_attention as PFA
+from repro_torch.kernels import lru_scan as PLS
 from repro_torch.kernels import page_copy as PPC
 from repro_torch.kernels import ref as pref
 
@@ -79,6 +82,11 @@ GPU_DECODE = {
     "middle": dict(b=4, h=16, hkv=8, s=768, dh=128),
     "ring_window": dict(b=3, h=8, hkv=8, s=100, dh=64, ring=True, window=40),
     "inactive": dict(b=2, h=16, hkv=2, s=77, dh=32, inactive=True),
+    # recurrentgemma's MQA (G 16, dh 256) on a wrapped windowed ring
+    "mqa_ring": dict(b=4, h=16, hkv=1, s=2048, dh=256, ring=True,
+                     window=2048),
+    "mqa_ring_window": dict(b=3, h=16, hkv=1, s=96, dh=256, ring=True,
+                            window=40),
 }
 
 
@@ -392,3 +400,106 @@ def test_cuda_paged_mla_decode_attention_matches_plain(cuda, case, dtype):
     want = pref.paged_mla_decode_attention(ql, qr, lat, rope, pos, pm, t,
                                            scale=scale)
     _close(got.float().cpu(), want.float().cpu(), TOL[dtype])
+
+
+def _ring_pools(seed, b, h, hkv, s, dh, p_sz):
+    """A wrapped ring (clocks past ``s``) as dense caches, and the same
+    logical rows in pools of ``b * s/p_sz + 1`` pages behind shuffled page
+    maps (page 0 null, with live-looking garbage)."""
+    q, k, v, pos, t = _decode_inputs(seed, b, h, hkv, s, dh, ring=True)
+    rng = np.random.default_rng(seed + 1)
+    n_pp = s // p_sz
+    n_pages = b * n_pp + 1
+    k_pool = _normal(rng, (n_pages, p_sz, hkv, dh))
+    v_pool = _normal(rng, (n_pages, p_sz, hkv, dh))
+    pos_pool = np.full((n_pages, p_sz), -1, np.int32)
+    pos_pool[0] = np.arange(p_sz)
+    page_map = (1 + rng.permutation(n_pages - 1)).reshape(b, n_pp)
+    for i in range(b):
+        for j in range(n_pp):
+            rows = slice(j * p_sz, (j + 1) * p_sz)
+            pid = page_map[i, j]
+            k_pool[pid], v_pool[pid] = k[i, rows], v[i, rows]
+            pos_pool[pid] = pos[i, rows]
+    return (q, k, v, pos, t), (k_pool, v_pool, pos_pool,
+                               page_map.astype(np.int32))
+
+
+GPU_MQA_RING = {
+    "serving": dict(b=4, s=2048, p_sz=16, window=2048),
+    "window": dict(b=3, s=96, p_sz=16, window=40),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(GPU_MQA_RING))
+def test_cuda_paged_mqa_ring_equals_dense_kernel(cuda, case, dtype):
+    """G 16, dh 256 on a wrapped windowed ring: the paged read matches its
+    plain version and equals the dense kernel's read bit for bit."""
+    kw = dict(GPU_MQA_RING[case])
+    win = kw.pop("window")
+    dt = getattr(torch, dtype)
+    (q, k, v, pos, t), (kp, vp, pp, pm) = _ring_pools(14, h=16, hkv=1,
+                                                      dh=256, **kw)
+    q, k, v, kp, vp = (torch.from_numpy(x).to(cuda, dt)
+                       for x in (q, k, v, kp, vp))
+    pos, t, pp, pm = (torch.from_numpy(x).to(cuda) for x in (pos, t, pp, pm))
+    n0 = PDA.paged_decode_attention.launches
+    got = PDA.paged_decode_attention(q, kp, vp, pp, pm, t, window=win)
+    dense = PDA.decode_attention(q, k, v, pos, t, window=win)
+    torch.cuda.synchronize()
+    assert PDA.paged_decode_attention.launches == n0 + 1
+    want = pref.paged_decode_attention(q, kp, vp, pp, pm, t, window=win)
+    _close(got.float().cpu(), want.float().cpu(), TOL[dtype])
+    assert torch.equal(got, dense)
+
+
+def _lru_inputs(seed, b, s, d, h0=False):
+    """Decays in (0.5, 0.999) and inputs scaled by sqrt(1 - a^2), as the
+    RG-LRU makes them, so h stays of order 1."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.5, 0.999, (b, s, d)).astype(np.float32)
+    x = (rng.standard_normal((b, s, d)) * np.sqrt(1 - a * a)).astype(
+        np.float32)
+    return a, x, (_normal(rng, (b, d)) if h0 else None)
+
+
+GPU_LRU = {
+    "smoke": dict(b=2, s=5, d=64),
+    "h0_odd": dict(b=3, s=37, d=100, h0=True),
+    "outer": dict(b=1, s=2040, d=4096),
+    "middle": dict(b=1, s=1020, d=4096),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(GPU_LRU))
+def test_cuda_lru_scan_matches_plain(cuda, case, dtype):
+    dt = getattr(torch, dtype)
+    a, x, h0 = _lru_inputs(15, **GPU_LRU[case])
+    a, x = (torch.from_numpy(z).to(cuda, dt) for z in (a, x))
+    h0 = None if h0 is None else torch.from_numpy(h0).to(cuda)
+    n0 = PLS.lru_scan.launches
+    got, last = PLS.lru_scan(a, x, h0)
+    torch.cuda.synchronize()
+    assert PLS.lru_scan.launches == n0 + 1
+    want, want_last = pref.lru_scan(a, x, h0)
+    assert got.dtype == dt and torch.equal(last, got[:, -1])
+    _close(got.float().cpu(), want.float().cpu(), TOL[dtype])
+    if dtype == "float32":       # product and sum round as the plain's do
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_lru_scan_refuses_what_the_kernel_does_not_take(cuda):
+    a = torch.rand(2, 8, 16, device=cuda)
+    with pytest.raises(ValueError):
+        PLS.lru_scan(a, a[:, :4])
+    with pytest.raises(TypeError):
+        PLS.lru_scan(a, a.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        PLS.lru_scan(a.transpose(1, 2), a.transpose(1, 2))
+    with pytest.raises(ValueError, match="h0"):
+        PLS.lru_scan(a, a, torch.zeros(2, 8, device=cuda))
