@@ -22,7 +22,9 @@ Phases, each printing its own lines:
              the decode reads at G 16 / dh 256 on wrapped rings of 2048
              with the window, lru_scan at (1, 2040, 4096) and (1, 1020,
              4096), with h0 and at an odd shape (no library yardstick: no
-             single PyTorch call computes the recurrence).
+             single PyTorch call computes the recurrence). stmc_conv at the
+             streaming U-Net's shapes, float32 and bfloat16 (torch.addmm as
+             the yardstick).
 4. parity  — full-width qwen3-1.7b cut to 4 layers (SOI over layers 1..3),
              float32, pp and fp: the port's SOIEngine with 3 slots (prompts
              of 200 and 201 tokens, a third of 150 after 3 steps), 8 greedy
@@ -83,7 +85,23 @@ Phases, each printing its own lines:
              to 576, flash_attention to 0; tokens identical between the
              layouts; step time at SOI phase 0 against off-phase steps; a
              profiled rerun.
-12. the kernels JSON line, the card line, and last {"ok": true, ...}.
+12. unet-parity — the paper's streaming U-Net, full-width soi-unet-dns
+             (7 + 7 causal convs, K 3, 128 channels in and out, widths 616..
+             1296), float32, B 2, 48 frames, for the 11 SOI configurations of
+             tests/test_soi_unet.py: the stream on the card against the
+             stream on the CPU and against apply_offline on the card
+             (max|Δ| < 1e-4 each); stmc_conv launched exactly as often as
+             the phase plans compute convs.
+13. unet-stream — the same model, 512 frames (8.2 s of audio at 62.5 fps),
+             at B 1 (one live stream) and B 32 (a server of many streams),
+             for the STMC baseline, PP S-CC (3,), PP 2xS-CC (1,3) and FP
+             SS-CC (3,): stmc_conv launches held to the phase plans (7168 /
+             4608 / 2304 / 4608); median step time per phase (host clock
+             after a synchronize), frames/s, the real-time factor against
+             16 ms a frame, the MAC retain beside the measured step-time
+             ratio to the baseline, peak device memory, and from a profiled
+             rerun the idle share and kernel time by name.
+14. the kernels JSON line, the card line, and last {"ok": true, ...}.
 
 Any failure raises and exits nonzero; no result line is printed then.
 """
@@ -169,6 +187,8 @@ PATH_KERNELS = (
     ("paged_decode_attention (MQA)", "29paged_decode_attention_kernel",
      "Li16ELi256E"),
     ("lru_scan", "15lru_scan_kernel", "kernelI"),
+    ("stmc_conv (B 1)", "16stmc_conv_kernel", "Li1E"),
+    ("stmc_conv (B 8 tile)", "16stmc_conv_kernel", "Li8E"),
 )
 
 
@@ -690,6 +710,35 @@ def _lru_case(b, s, d, dt, dev, gen, h0=False):
     return sets, nbytes, 2.0 * b * s * d, None, {"exact_f32": True}
 
 
+def _stmc_case(b, k, cin, cout, dt, dev, gen, bias=True):
+    """One STMC conv contraction as the U-Net stream hands it over: a
+    (B, K, Cin) window of activations against He-uniform (K, Cin, Cout)
+    weights and a bias."""
+    bound = (6.0 / (k * cin)) ** 0.5
+
+    def make():
+        win = torch.randn((b, k, cin), generator=gen, device=dev)
+        w = (torch.rand((k, cin, cout), generator=gen, device=dev) * 2
+             - 1) * bound
+        bb = (0.1 * torch.randn((cout,), generator=gen, device=dev)
+              if bias else None)
+        return (win.to(dt), w.to(dt), None if bb is None else bb.to(dt))
+
+    def library(win, w, bb):
+        flat_w = w.view(k * cin, cout)
+        if bb is None:
+            return torch.mm(win.view(b, k * cin), flat_w)
+        return torch.addmm(bb, win.view(b, k * cin), flat_w)
+
+    esz = torch.finfo(dt).bits // 8
+    # window, weights and bias read once, the output written once; a
+    # multiply-add per window element and output column
+    nbytes = (b * k * cin + k * cin * cout + (cout if bias else 0)
+              + b * cout) * esz
+    sets = _copies(make, nbytes)
+    return sets, nbytes, 2.0 * b * k * cin * cout, library, {}
+
+
 def _first(fn):
     """The ``h_all`` of an (h_all, h_last) scan."""
     return lambda *args: fn(*args)[0]
@@ -720,14 +769,20 @@ KERNEL_META = {
     "lru_scan": dict(
         source="src/repro_torch/kernels/csrc/lru_scan.cu",
         replaces="src/repro/kernels/lru_scan.py:41"),
+    "stmc_conv": dict(
+        source="src/repro_torch/kernels/csrc/stmc_conv.cu",
+        replaces="src/repro/kernels/stmc_conv.py:27"),
 }
+# kernels whose path runs float32 (the rest: bfloat16)
+F32_PATHS = ("lru_scan", "stmc_conv")
 
 
 def kernels_phase(dev) -> dict:
     """Returns {kernel name: record of its serving-path bf16 case}; the
     flash kernel's deepseek-v2 shape is keyed "flash_attention (MLA)", the
-    decode kernels' recurrentgemma shapes "<name> (RG)"; lru_scan's record
-    is its float32 outer case, the dtype its serving path runs."""
+    decode kernels' recurrentgemma shapes "<name> (RG)"; lru_scan's and
+    stmc_conv's records are their first float32 case, the dtype their
+    paths run (stmc_conv: decoder 2 of the U-Net at B 1, one live stream)."""
     phase("3 kernels")
     from repro_torch.kernels import chunk_attention as CA
     from repro_torch.kernels import decode_attention as DA
@@ -735,6 +790,7 @@ def kernels_phase(dev) -> dict:
     from repro_torch.kernels import lru_scan as LS
     from repro_torch.kernels import page_copy as PC
     from repro_torch.kernels import ref
+    from repro_torch.kernels import stmc_conv as SC
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = []
     for dt in (torch.bfloat16, torch.float32):
@@ -835,6 +891,21 @@ def kernels_phase(dev) -> dict:
     cases.append(("lru_scan", "odd (3,37,100)", torch.float32,
                   _lru_case(3, 37, 100, torch.float32, dev, gen),
                   _first(LS.lru_scan), _first(ref.lru_scan)))
+    # the streaming U-Net (soi-unet-dns): decoder 2, the layer with the
+    # most weights (K*Cin 7248, Cout 664: 19.25 MB in float32), at B 1 (one
+    # live stream) and B 32; encoder 7 (Cout 1296) at B 32; a ragged case
+    # without bias. float32 is the path's dtype
+    for dt in (torch.float32, torch.bfloat16):
+        for shape, args, bias in (
+                ("dec2 (1,3,2416)x(3,2416,664)", (1, 3, 2416, 664), True),
+                ("dec2 (32,3,2416)x(3,2416,664)", (32, 3, 2416, 664), True),
+                ("enc7 (32,3,1208)x(3,1208,1296)", (32, 3, 1208, 1296),
+                 True),
+                ("ragged (3,3,64)x(3,64,129) no bias", (3, 3, 64, 129),
+                 False)):
+            cases.append(("stmc_conv", shape, dt,
+                          _stmc_case(*args, dt, dev, gen, bias=bias),
+                          SC.stmc_conv, ref.stmc_conv))
     cases.append(("copy_pages", "outer pool (273,16,8,128), 4+4 pairs",
                   torch.bfloat16,
                   _copy_case(273, 16, 8, 128, torch.bfloat16, dev, gen),
@@ -911,7 +982,8 @@ def kernels_phase(dev) -> dict:
         print(json.dumps({"kernels": [rec]}), flush=True)
         key = name + (" (MLA)" if shape.startswith("MLA") else
                       " (RG)" if shape.startswith("RG") else "")
-        serving_dt = torch.float32 if name == "lru_scan" else torch.bfloat16
+        serving_dt = (torch.float32 if name in F32_PATHS
+                      else torch.bfloat16)
         if dt == serving_dt and key not in main:
             main[key] = rec
     return main
@@ -1093,17 +1165,24 @@ def _decode_profile(ev, steps: int, prefill_kernel: str):
     starts after the last ``prefill_kernel``; kernel time by name over that
     window."""
     prefill_end = max(e for _s, e, n in ev if prefill_kernel in n)
-    dec = [(s_, e, n) for s_, e, n in ev if s_ >= prefill_end]
-    window = max(e for _s, e, _n in dec) - min(s_ for s_, _e, _n in dec)
-    busy = _busy_us([(s_, e) for s_, e, _n in dec])
+    _window_profile([(s_, e, n) for s_, e, n in ev if s_ >= prefill_end],
+                    steps, "decode", "step")
+
+
+def _window_profile(ev, n: int, label: str, unit: str):
+    """Print the device busy time and idle share of the window the device
+    events ``ev`` span, busy time per ``unit`` (``n`` of them), and kernel
+    time by name."""
+    window = max(e for _s, e, _n in ev) - min(s_ for s_, _e, _n in ev)
+    busy = _busy_us([(s_, e) for s_, e, _n in ev])
     by_name: dict = {}
-    for s_, e, n in dec:
-        key = n.removeprefix("void ")[:70]
+    for s_, e, name in ev:
+        key = name.removeprefix("void ")[:70]
         by_name[key] = by_name.get(key, 0.0) + (e - s_)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    print(f"  decode window {window / 1e3:.2f} ms on the device clock, "
+    print(f"  {label} window {window / 1e3:.2f} ms on the device clock, "
           f"busy {busy / 1e3:.2f} ms, idle share {1 - busy / window:.3f}; "
-          f"per step busy {busy / 1e3 / steps:.3f} ms")
+          f"per {unit} busy {busy / 1e3 / n:.3f} ms")
     for key, us in top:
         print(f"    {us / 1e3:9.3f} ms  {key}")
 
@@ -1631,6 +1710,185 @@ def rg_serve_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 12-13. the paper's streaming U-Net: the STMC/SOI stream on stmc_conv
+# ---------------------------------------------------------------------------
+
+# the 11 SOI configurations of tests/test_soi_unet.py
+UNET_SOIS = (None, dict(pairs=(1,)), dict(pairs=(2,)), dict(pairs=(4,)),
+             dict(pairs=(1, 3)), dict(pairs=(2, 4)),
+             dict(pairs=(2,), mode="fp"), dict(pairs=(1,), mode="fp"),
+             dict(pairs=(1,), mode="fp", shift_pos=3),
+             dict(pairs=(2,), extrapolation="tconv"),
+             dict(pairs=(2,), mode="fp", extrapolation="tconv"))
+UNET_TOL = 1e-4
+# (label, SOI, stmc_conv launches for 512 frames, reckoned by hand from the
+# freshness predicates of models/unet.py; the check uses the plans' count)
+STREAM_SOIS = (("STMC baseline", None, 7168),
+               ("PP S-CC (3,)", dict(pairs=(3,)), 4608),
+               ("PP 2xS-CC (1,3)", dict(pairs=(1, 3)), 2304),
+               ("FP SS-CC (3,)", dict(pairs=(3,), mode="fp"), 4608))
+STREAM_FRAMES = 512
+FRAME_MS = 16.0                    # 62.5 fps: 256-sample hop at 16 kHz
+
+
+def _soi_label(kw) -> str:
+    if kw is None:
+        return "none"
+    return " ".join(f"{k}={v}" for k, v in kw.items())
+
+
+def _unet_cfg(kw):
+    from repro_torch.configs import soi_unet_dns as UD
+    from repro_torch.core.soi import SOIConvCfg
+    return UD.config(None if kw is None else SOIConvCfg(**kw))
+
+
+def _unet_models(dev):
+    """Full-width soi-unet-dns, float32, random from seed 7, on the host
+    and on the card: the dup model, and the tconv model (the same layers —
+    the same generator draws them first — plus the extrapolator up[2]).
+    The reference's offline graph applies an ``up`` conv wherever the model
+    has one, so the dup configurations get the model without."""
+    from repro_torch.models import unet as U
+    out = {}
+    for kind, kw in (("dup", dict(pairs=(2,))),
+                     ("tconv", dict(pairs=(2,), extrapolation="tconv"))):
+        cpu = U.init(_unet_cfg(kw), generator=torch.Generator()
+                     .manual_seed(7), device="cpu")
+        out[kind] = (cpu, copy.deepcopy(cpu).to(dev))
+    return out
+
+
+def _planned_convs(cfg, n_frames: int) -> int:
+    from repro_torch.models import unet as U
+    per_phase = U.convs_per_phase(cfg)
+    return sum(per_phase[t % cfg.period] for t in range(n_frames))
+
+
+def _held_launches(counts: dict, want: int, label: str):
+    for name, n in counts.items():
+        expect = want if name == "stmc_conv" else 0
+        check(n == expect, f"{label}: {name} launches {n} != {expect}")
+
+
+def unet_parity_phase(dev):
+    phase("12 unet-parity (full-width soi-unet-dns, f32, B 2, 48 frames, 11 "
+          "SOI configs: card stream vs CPU stream vs card offline)")
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.models import unet as U
+    t0 = time.perf_counter()
+    models = _unet_models(dev)
+    n_par = sum(p.numel() for p in models["dup"][1].parameters())
+    print(f"  {n_par / 1e6:.2f} M float32 parameters ({n_par * 4 / 1e6:.1f} "
+          f"MB), on the card and on the host "
+          f"({time.perf_counter() - t0:.1f} s to build and copy)")
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (2, 48, 128)).astype(np.float32))
+    x_dev = x.to(dev)
+    for kw in UNET_SOIS:
+        cfg = _unet_cfg(kw)
+        tconv = kw is not None and kw.get("extrapolation") == "tconv"
+        cpu_model, dev_model = models["tconv" if tconv else "dup"]
+        label = _soi_label(kw)
+        ops.reset_launch_counts()
+        y_dev = U.stream_infer(dev_model, x_dev, cfg)
+        torch.cuda.synchronize(dev)
+        counts = ops.launch_counts()
+        want = _planned_convs(cfg, 48)
+        _held_launches(counts, want, f"unet stream {label}")
+        y_cpu = U.stream_infer(cpu_model, x, cfg)
+        y_off, _ = U.apply_offline(dev_model, x_dev, cfg)
+        check(y_dev.shape == (2, 48, 128), f"{label}: shape {y_dev.shape}")
+        check(bool(torch.isfinite(y_dev).all()), f"{label}: non-finite")
+        d_cpu = float((y_dev.cpu() - y_cpu).abs().max())
+        d_off = float((y_dev - y_off).abs().max())
+        print(f"  {label}: max|Δ| card vs CPU {d_cpu:.3e}, stream vs offline "
+              f"{d_off:.3e}; stmc_conv {counts['stmc_conv']} launches "
+              f"(planned {want}); max|y| {float(y_dev.abs().max()):.3f}")
+        check(d_cpu < UNET_TOL and d_off < UNET_TOL,
+              f"{label}: max|Δ| {d_cpu} / {d_off} >= {UNET_TOL}")
+    del models
+    _free(dev)
+
+
+def unet_stream_phase(dev) -> dict:
+    """Returns the launch counts of the B 1 STMC-baseline stream."""
+    phase(f"13 unet-stream (full-width soi-unet-dns, f32, "
+          f"{STREAM_FRAMES} frames at B 1 and B 32; STMC baseline, PP "
+          f"S-CC (3,), PP 2xS-CC (1,3), FP SS-CC (3,))")
+    from repro_torch.engine.session import unet_stream_session
+    from repro_torch.kernels import ops
+    from repro_torch.models import unet as U
+    cfg0 = _unet_cfg(None)
+    model = U.init(cfg0, generator=torch.Generator(device=dev).manual_seed(9),
+                   device=dev)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    main_counts = None
+    for b in (1, 32):
+        x = torch.randn((b, STREAM_FRAMES, 128), generator=gen, device=dev)
+        base_ms = None
+        for label, kw, hand_count in STREAM_SOIS:
+            cfg = _unet_cfg(kw)
+            planned = _planned_convs(cfg, STREAM_FRAMES)
+            check(planned == hand_count,
+                  f"{label}: planned {planned} != {hand_count}")
+            warm = unet_stream_session(model, cfg, batch=b, device=dev)
+            for t in range(2 * cfg.period):
+                warm.push(x[:, t])
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            sess = unet_stream_session(model, cfg, batch=b, device=dev)
+            per_phase: list = [[] for _ in range(cfg.period)]
+            ops.reset_launch_counts()
+            t_all = time.perf_counter()
+            for t in range(STREAM_FRAMES):
+                t0 = time.perf_counter()
+                y = sess.push(x[:, t])
+                torch.cuda.synchronize(dev)
+                per_phase[t % cfg.period].append(
+                    (time.perf_counter() - t0) * 1e3)
+            total_s = time.perf_counter() - t_all
+            counts = ops.launch_counts()
+            _held_launches(counts, planned, f"{label} B {b}")
+            check(y.shape == (b, 128) and bool(torch.isfinite(y).all()),
+                  f"{label} B {b}: last frame {tuple(y.shape)} not finite")
+            if b == 1 and kw is None:
+                main_counts = counts
+            mean_ms = total_s * 1e3 / STREAM_FRAMES
+            base_ms = mean_ms if base_ms is None else base_ms
+            med = [sorted(v)[len(v) // 2] for v in per_phase]
+            retain = U.complexity_report(cfg).retain
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+            print(f"  B {b} {label}: stmc_conv {counts['stmc_conv']} "
+                  f"launches (planned {planned}); median step per phase "
+                  f"{', '.join(f'{m:.3f}' for m in med)} ms; mean "
+                  f"{mean_ms:.3f} ms = {STREAM_FRAMES / total_s:.1f} "
+                  f"frames/s ({b * STREAM_FRAMES / total_s:.1f} stream "
+                  f"frames/s), {FRAME_MS / mean_ms:.1f}x real time "
+                  f"(16 ms a frame), worst step "
+                  f"{max(max(v) for v in per_phase):.3f} ms; MAC retain "
+                  f"{retain:.3f}, step-time ratio to the baseline "
+                  f"{mean_ms / base_ms:.3f}; peak device memory "
+                  f"{peak:.1f} MiB (host clock after a synchronize)")
+        for label, kw, _n in (STREAM_SOIS[0], STREAM_SOIS[2]):
+            cfg = _unet_cfg(kw)
+            sess = unet_stream_session(model, cfg, batch=b, device=dev)
+            n_prof = 64
+
+            def run():
+                for t in range(n_prof):
+                    sess.push(x[:, t])
+            ev = _device_events(run)
+            check(ev, "the profiler saw no device activity")
+            print(f"  profiled rerun, B {b} {label}, {n_prof} frames:")
+            _window_profile(ev, n_prof, "stream", "frame")
+    del model
+    _free(dev)
+    return main_counts
+
+
 def main():
     t_start = time.perf_counter()
     card = device_phase()
@@ -1646,12 +1904,15 @@ def main():
     mla_cow_counts, mla_counts = mla_phase(dev)
     rg_parity_phase(dev)
     rg_counts = rg_serve_phase(dev)
+    unet_parity_phase(dev)
+    unet_counts = unet_stream_phase(dev)
     # launches: each kernel's count on its own path's run — the dense
     # serve (phase 5), the paged prefix-cache serve (phase 6), the
     # deepseek-v2 serve (phase 8), the MLA prefix-cache serve (phase 9),
     # the recurrentgemma serve (phase 11; paged run for lru_scan), and for
     # copy_pages the paged engine whose rings wrap (phase 4: the serve
-    # command never wraps, max_len = prompt + generated)
+    # command never wraps, max_len = prompt + generated), and the U-Net's
+    # B 1 STMC-baseline stream of 512 frames (phase 13)
     launches = {"decode_attention": ("serve", counts),
                 "flash_attention": ("serve", counts),
                 "chunk_attention": ("paged serve", paged_counts),
@@ -1660,7 +1921,8 @@ def main():
                 "mla_chunk_attention": ("mla serve", mla_counts),
                 "paged_mla_decode_attention": ("deepseek serve",
                                                ds_counts),
-                "lru_scan": ("rg serve (paged)", rg_counts["paged"])}
+                "lru_scan": ("rg serve (paged)", rg_counts["paged"]),
+                "stmc_conv": ("unet stream", unet_counts)}
     # the decode kernels' second path: recurrentgemma's MQA at G 16 / dh 256
     rg_second = {"decode_attention": rg_counts["dense"],
                  "paged_decode_attention": rg_counts["paged"]}
@@ -1701,7 +1963,7 @@ def main():
                                             else "dense") + ")")
             check(rg_second[name][name] > 0,
                   f"{name} never launched on the recurrentgemma serve")
-    print(f"== 12 done in {time.perf_counter() - t_start:.1f} s")
+    print(f"== 14 done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -25,6 +25,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelCfg
 from repro_torch.models.transformer import Transformer
+from repro_torch.models.unet import UNet, UNetConfig
 
 
 def _layer_trees(params: dict, cfg: ModelCfg) -> list:
@@ -79,6 +80,13 @@ def from_jax_params(params: dict, cfg: ModelCfg, *, device=None,
     if cfg.soi is not None:
         tensors["soi_compress"] = t(params["soi"]["compress"])
         tensors["soi_fuse"] = t(params["soi"]["fuse"])
+    _load_checked(model, tensors)
+    return model
+
+
+def _load_checked(model: torch.nn.Module, tensors: dict) -> None:
+    """Load ``tensors`` into ``model`` after checking that the names and
+    shapes are exactly the model's."""
     want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     got = {k: tuple(v.shape) for k, v in tensors.items()}
     if want != got:
@@ -87,4 +95,38 @@ def from_jax_params(params: dict, cfg: ModelCfg, *, device=None,
                          f"{sorted(set(want) - set(got))}, unexpected "
                          f"{sorted(set(got) - set(want))}, shapes {bad}")
     model.load_state_dict(tensors, assign=True)
+
+
+@torch.no_grad()
+def from_jax_unet(params: dict, nstate: dict, cfg: UNetConfig, *,
+                  device=None, dtype=torch.float32) -> UNet:
+    """Build the port's U-Net from the reference's parameter and norm-state
+    values."""
+    dev = resolve_device(device)
+    model = UNet(cfg, generator=torch.Generator(device="cpu"),
+                 device="meta", dtype=dtype)
+
+    def t(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(
+            device=dev, dtype=dtype)
+
+    tensors = {}
+    for side in ("enc", "dec"):
+        if len(params[side]) != len(nstate[side]):
+            raise ValueError(f"{len(params[side])} {side} layers, "
+                             f"{len(nstate[side])} norm states")
+        for i, (lp, ns) in enumerate(zip(params[side], nstate[side])):
+            pre = f"{side}.{i}."
+            tensors[pre + "w"] = t(lp["conv"]["w"])
+            tensors[pre + "b"] = t(lp["conv"]["b"])
+            tensors[pre + "scale"] = t(lp["norm"]["scale"])
+            tensors[pre + "bias"] = t(lp["norm"]["bias"])
+            tensors[pre + "mean"] = t(ns["mean"])
+            tensors[pre + "var"] = t(ns["var"])
+    tensors["proj.w"] = t(params["proj"]["w"])
+    tensors["proj.b"] = t(params["proj"]["b"])
+    for p, up in params.get("up", {}).items():
+        tensors[f"up.{int(p)}.w"] = t(up["w"])
+        tensors[f"up.{int(p)}.b"] = t(up["b"])
+    _load_checked(model, tensors)
     return model

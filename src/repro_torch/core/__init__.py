@@ -1,1 +1,2 @@
-"""Port of ``repro.core``: the SOI streaming primitives the LM path needs."""
+"""Port of ``repro.core``: STMC streaming convs, the SOI primitives of
+conv encoder/decoder networks, and their MAC accounting."""

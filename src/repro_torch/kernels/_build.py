@@ -51,6 +51,7 @@ SIGNATURES = {
                                          _I, _I, _I, _I, _I, _I, _F, _I,
                                          _P],
     "repro_lru_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_stmc_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}

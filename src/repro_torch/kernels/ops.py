@@ -6,7 +6,9 @@ kernel's plain PyTorch version, a CUDA tensor launches the hand-written
 kernel or raises. There is no switch that sends a CUDA tensor to the plain
 version and no fallback after a failed launch: callers that want the plain
 result on the card call ``kernels.ref`` directly (``chip_smoke.py`` does).
-The model code reaches the kernels only through this module.
+The model code reaches the kernels only through this module: the LM
+path's attention, page copy and RG-LRU scan, and the streaming U-Net's
+STMC conv contraction (``stmc_conv``, every computed conv of every frame).
 
 ``gather_pages`` (prefix-cache hydration) has no TPU kernel in the
 reference either: it is a plain PyTorch gather on every device. Nor has
@@ -33,10 +35,11 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.lru_scan import lru_scan
 from repro_torch.kernels.page_copy import copy_pages
 from repro_torch.kernels.ref import gather_pages, mla_decode_attention
+from repro_torch.kernels.stmc_conv import stmc_conv
 
 KERNELS = (decode_attention, _flash.flash_attention, chunk_attention,
            paged_decode_attention, copy_pages, mla_chunk_attention,
-           paged_mla_decode_attention, lru_scan)
+           paged_mla_decode_attention, lru_scan, stmc_conv)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, prefix_len=0,
@@ -70,4 +73,4 @@ __all__ = ["chunk_attention", "copy_pages", "decode_attention",
            "flash_attention", "gather_pages", "launch_counts", "lru_scan",
            "mla_chunk_attention", "mla_decode_attention",
            "paged_decode_attention", "paged_mla_decode_attention",
-           "reset_launch_counts"]
+           "reset_launch_counts", "stmc_conv"]

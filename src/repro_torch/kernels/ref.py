@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the kernels this port runs — attention
-(dense, chunked, paged, windowed; GQA and absorbed MLA), the page copy and
-the RG-LRU scan — and the page gather (the counterparts of
-``repro.kernels.ref`` and of the reference path of ``repro.kernels.ops``).
+(dense, chunked, paged, windowed; GQA and absorbed MLA), the page copy,
+the RG-LRU scan and the STMC conv contraction — and the page gather (the
+counterparts of ``repro.kernels.ref`` and of the reference path of
+``repro.kernels.ops``).
 The CPU path of every kernel wrapper is the function here, and
 ``chip_smoke.py`` holds each CUDA kernel against it on the card.
 
@@ -138,6 +139,21 @@ def lru_scan(a, x, h0=None):
         h = af[:, t] * h + xf[:, t]
         out[:, t] = h
     return out, out[:, -1]
+
+
+def stmc_conv(window, w, b=None):
+    """Streaming conv contraction ``(B, K, Cin) x (K, Cin, Cout) ->
+    (B, Cout)`` as the TPU kernel computes it
+    (``repro/kernels/stmc_conv.py``): window and weights in float32, one
+    ``(B, K*Cin) x (K*Cin, Cout)`` product, the bias added in float32, the
+    result cast to the window's dtype. In float32 this is
+    ``repro.kernels.ref.stmc_conv``'s einsum plus the bias."""
+    bsz, k, cin = window.shape
+    y = torch.matmul(window.reshape(bsz, k * cin).float(),
+                     w.reshape(k * cin, w.shape[-1]).float())
+    if b is not None:
+        y = y + b.float()
+    return y.to(window.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, cache_positions, q_position, *,

@@ -1,1 +1,2 @@
-"""Port of ``repro.models``: the GQA decoder-only LM with SOI."""
+"""Port of ``repro.models``: the decoder-only LMs with SOI and the paper's
+streaming U-Net."""

@@ -177,6 +177,7 @@ def test_cpu_tensors_never_count_launches():
         pos.reshape(3, 2), torch.tensor([[2, 1]], dtype=torch.int32),
         torch.tensor([3], dtype=torch.int32), scale=0.2)
     ops.lru_scan(torch.rand(1, 3, 4), torch.rand(1, 3, 4))
+    ops.stmc_conv(torch.rand(2, 3, 4), torch.rand(3, 4, 5), torch.rand(5))
     assert ops.launch_counts() == {"decode_attention": 0,
                                    "flash_attention": 0,
                                    "chunk_attention": 0,
@@ -184,7 +185,8 @@ def test_cpu_tensors_never_count_launches():
                                    "copy_pages": 0,
                                    "mla_chunk_attention": 0,
                                    "paged_mla_decode_attention": 0,
-                                   "lru_scan": 0}
+                                   "lru_scan": 0,
+                                   "stmc_conv": 0}
 
 
 def test_unsupported_devices_raise():

@@ -3,8 +3,11 @@ PyTorch versions, on the card (marker ``gpu``), at the smoke and the
 serving path's shapes: float32 (max|Δ| < 2e-5) and bfloat16 (< 2e-2) for
 the attention kernels (GQA and absorbed MLA, flash attention with d_v !=
 d_qk too, the decode reads at recurrentgemma's G 16 / dh 256 on a wrapped
-windowed ring, where the paged read equals the dense one bit for bit) and
-``lru_scan`` (bit for bit in float32), bit-exact for ``copy_pages``.
+windowed ring, where the paged read equals the dense one bit for bit),
+``lru_scan`` (bit for bit in float32) and ``stmc_conv`` (at the streaming
+U-Net's shapes, with and without bias; float32 results repeat bit for
+bit), bit-exact for ``copy_pages``; and a narrow U-Net streamed on the card
+against the CPU, with ``stmc_conv`` launched as the phase plans say.
 
 Without a CUDA device every test here skips (decided inside the ``cuda``
 fixture, so every worker collects the same tests). On the card:
@@ -503,3 +506,92 @@ def test_cuda_lru_scan_refuses_what_the_kernel_does_not_take(cuda):
         PLS.lru_scan(a.transpose(1, 2), a.transpose(1, 2))
     with pytest.raises(ValueError, match="h0"):
         PLS.lru_scan(a, a, torch.zeros(2, 8, device=cuda))
+
+
+# the STMC conv contraction at the streaming U-Net's shapes (soi-unet-dns:
+# decoder 2 at B 1 and B 32, encoder 7 at B 32), a ragged case without bias
+# and the small-B tiles; weights at the convs' He-uniform scale
+GPU_STMC = {
+    "dec2_b1": dict(b=1, k=3, ci=2416, co=664),
+    "dec2_b32": dict(b=32, k=3, ci=2416, co=664),
+    "enc7_b32": dict(b=32, k=3, ci=1208, co=1296),
+    "ragged": dict(b=3, k=3, ci=64, co=129),
+    "b2": dict(b=2, k=3, ci=128, co=128),
+    "b5_k1": dict(b=5, k=1, ci=40, co=33),
+}
+
+
+def _stmc_inputs(seed, b, k, ci, co):
+    rng = np.random.default_rng(seed)
+    bound = (6.0 / (k * ci)) ** 0.5
+    return (_normal(rng, (b, k, ci)),
+            rng.uniform(-bound, bound, (k, ci, co)).astype(np.float32),
+            0.1 * _normal(rng, (co,)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(GPU_STMC))
+def test_cuda_stmc_conv_matches_plain(cuda, case, dtype, bias):
+    from repro_torch.kernels import stmc_conv as PSC
+    dt = getattr(torch, dtype)
+    win, w, b = (torch.from_numpy(z).to(cuda, dt)
+                 for z in _stmc_inputs(16, **GPU_STMC[case]))
+    b = b if bias else None
+    n0 = PSC.stmc_conv.launches
+    got = PSC.stmc_conv(win, w, b)
+    torch.cuda.synchronize()
+    assert PSC.stmc_conv.launches == n0 + 1
+    want = pref.stmc_conv(win, w, b)
+    assert got.dtype == dt and got.shape == want.shape
+    _close(got.float().cpu(), want.float().cpu(), TOL[dtype])
+    # no atomics: a float32 result repeats bit for bit
+    assert torch.equal(PSC.stmc_conv(win, w, b), got)
+
+
+@pytest.mark.gpu
+def test_cuda_stmc_conv_refuses_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels import stmc_conv as PSC
+    win = torch.rand(2, 3, 8, device=cuda)
+    w = torch.rand(3, 8, 5, device=cuda)
+    with pytest.raises(ValueError):
+        PSC.stmc_conv(win[0], w)                       # wrong rank
+    with pytest.raises(ValueError):
+        PSC.stmc_conv(win, w[:, :4])                   # Cin mismatch
+    with pytest.raises(ValueError):
+        PSC.stmc_conv(win, w, torch.rand(4, device=cuda))
+    with pytest.raises(TypeError):
+        PSC.stmc_conv(win, w.bfloat16())               # mixed dtypes
+    with pytest.raises(TypeError):
+        PSC.stmc_conv(win.double(), w.double())        # float64
+    with pytest.raises(ValueError, match="contiguous"):
+        PSC.stmc_conv(win.transpose(0, 1).contiguous().transpose(0, 1), w)
+    with pytest.raises(ValueError, match="is on"):
+        PSC.stmc_conv(win, w.cpu())                    # another device
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("soi", [None, dict(pairs=(1, 3)),
+                                 dict(pairs=(2,), mode="fp",
+                                      extrapolation="tconv")])
+def test_cuda_unet_stream_matches_cpu(cuda, soi):
+    """A narrow U-Net streamed on the card (every computed conv through
+    stmc_conv, at the count the phase plans give) against the CPU."""
+    from repro_torch.core.soi import SOIConvCfg
+    from repro_torch.kernels import stmc_conv as PSC
+    from repro_torch.models import unet as U
+    cfg = U.UNetConfig(in_channels=16, out_channels=16,
+                       enc_channels=(24, 32, 40, 48),
+                       soi=None if soi is None else SOIConvCfg(**soi))
+    model = U.init(cfg, generator=torch.Generator().manual_seed(0),
+                   device="cpu")
+    x = torch.from_numpy(_normal(np.random.default_rng(2), (3, 12, 16)))
+    want = U.stream_infer(model, x, cfg)
+    n0 = PSC.stmc_conv.launches
+    got = U.stream_infer(model.to(cuda), x.to(cuda), cfg)
+    torch.cuda.synchronize()
+    per_phase = U.convs_per_phase(cfg)
+    assert PSC.stmc_conv.launches - n0 == sum(
+        per_phase[t % cfg.period] for t in range(12))
+    _close(got.cpu(), want, TOL["float32"])
