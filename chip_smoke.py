@@ -18,7 +18,9 @@ Phases, each printing its own lines:
              from torch.profiler, and CUDA-event time per call beside it —
              and the least time the card could take (bytes or operations).
              The paged decode read is also compared bit for bit with the
-             dense kernel over the gathered view. recurrentgemma's shapes:
+             dense kernel over the gathered view, and flash_attention's
+             bf16 (tensor-core) results with a second launch on the same
+             inputs. recurrentgemma's shapes:
              the decode reads at G 16 / dh 256 on wrapped rings of 2048
              with the window, lru_scan at (1, 2040, 4096) and (1, 1020,
              4096), with h0 and at an odd shape (no library yardstick: no
@@ -39,8 +41,10 @@ Phases, each printing its own lines:
              requests of 1024..1018 tokens, 64 generated each, dense rings
              and bucketed prefill; every kernel launch is counted and held
              to the count the host clocks give. A second, profiled run
-             gives the decode loop's device busy time and idle share, and
-             its kernel time by name.
+             (the serve loop alone, weights built outside it) gives the
+             prefill window's device busy time, idle share and
+             flash_attention time, and the decode loop's busy time and
+             idle share, each with its kernel time by name.
 6. paged   — the same traffic with a shared 768-token prefix through
              --paged --chunk-size 256 --prefix-cache: prefix-cache counters
              and chunk/paged-decode launch counts held to their expected
@@ -60,7 +64,9 @@ Phases, each printing its own lines:
              exact-length prefill: flash_attention and
              paged_mla_decode_attention launches held to 16 and 192; step
              time at SOI phase 0 against off-phase steps (host clock after
-             a synchronize); a profiled rerun for the idle share.
+             a synchronize); a profiled rerun for the prefill window (busy
+             time, idle share, flash_attention time) and the decode
+             loop's idle share.
 9. mla     — deepseek-v2's layer-0 block (MLA + SwiGLU 12288) at full
              width, SOI pp. Card against CPU in float32 (2 layers): a
              paged, chunked prefix-cache engine whose rings wrap onto
@@ -945,6 +951,13 @@ def kernels_phase(dev) -> dict:
                 ref_rows = want.float()
             lib_err = float((lib - ref_rows).abs().max())
         rec_extra = {}
+        if name == "flash_attention" and dt == torch.bfloat16:
+            # the tensor-core body adds in a fixed order (no atomics): a
+            # second launch on the same inputs gives the same bits
+            again = kern(*fresh())
+            rec_extra["repeats_bit_for_bit"] = bool(torch.equal(got, again))
+            check(rec_extra["repeats_bit_for_bit"],
+                  f"{name} {shape}: bf16 results differ run to run")
         if "dense_view" in extra:
             # the paged read against the dense kernel over the same logical
             # rows (gathered): bit for bit?
@@ -1150,14 +1163,34 @@ def serve_phase(dev):
     check(counts["decode_attention"] == want_decode,
           f"decode_attention launches {counts['decode_attention']} != "
           f"{want_decode}")
-    # the same run again under the profiler (CUDA activity only): device
-    # busy and idle share of the decode loop, which starts after the last
-    # prefill kernel; kernel time by name over that window
+    # the same traffic again under the profiler (CUDA activity only; the
+    # weights are built before it starts): device busy and idle share of
+    # the prefill window and of the decode loop, which starts after the
+    # last prefill kernel; kernel time by name over each window
     print("  profiled rerun:")
-    ev = _device_events(lambda: serve.run(args))
+    _cfg, params, prompt, plens, engine = serve.setup(args)
+    ev = _device_events(lambda: serve.serve(engine, params, prompt, plens,
+                                            args.gen_len))
     check(ev, "the profiler saw no device activity")
+    _prefill_profile(ev, n_req, "flash_attention_kernel")
     _decode_profile(ev, res.steps, "flash_attention_kernel")
+    del params, engine
     return counts
+
+
+def _prefill_profile(ev, n_req: int, kernel: str):
+    """Device busy time and idle share of a serve run's prefill window,
+    from its first device event to the end of the last ``kernel`` (the
+    prefill attention), kernel time by name over it, and ``kernel``'s own
+    device time in it."""
+    prefill_end = max(e for _s, e, n in ev if kernel in n)
+    window = [(s_, min(e, prefill_end), n) for s_, e, n in ev
+              if s_ < prefill_end]
+    busy = _window_profile(window, n_req, "prefill", "request")
+    mine = sum(e - s_ for s_, e, n in window if kernel in n)
+    print(f"  {kernel} in the prefill window: {mine / 1e3:.3f} ms on the "
+          f"device, {mine / busy:.3f} of its busy time, "
+          f"{mine / 1e3 / n_req:.3f} ms a request")
 
 
 def _decode_profile(ev, steps: int, prefill_kernel: str):
@@ -1172,7 +1205,7 @@ def _decode_profile(ev, steps: int, prefill_kernel: str):
 def _window_profile(ev, n: int, label: str, unit: str):
     """Print the device busy time and idle share of the window the device
     events ``ev`` span, busy time per ``unit`` (``n`` of them), and kernel
-    time by name."""
+    time by name; returns the busy µs."""
     window = max(e for _s, e, _n in ev) - min(s_ for s_, _e, _n in ev)
     busy = _busy_us([(s_, e) for s_, e, _n in ev])
     by_name: dict = {}
@@ -1185,6 +1218,7 @@ def _window_profile(ev, n: int, label: str, unit: str):
           f"per {unit} busy {busy / 1e3 / n:.3f} ms")
     for key, us in top:
         print(f"    {us / 1e3:9.3f} ms  {key}")
+    return busy
 
 
 @torch.no_grad()
@@ -1440,6 +1474,7 @@ def deepseek_serve_phase(dev) -> dict:
     ev = _device_events(lambda: serve.serve(engine, params, prompt, plens,
                                             args.gen_len))
     check(ev, "the profiler saw no device activity")
+    _prefill_profile(ev, len(res.seqs), "flash_attention_kernel")
     _decode_profile(ev, res.steps, "flash_attention_kernel")
     del params, engine
     _free(dev)

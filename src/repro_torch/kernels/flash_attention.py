@@ -8,18 +8,31 @@ kernel takes (d_qk, d_v) in ``HEAD_DIMS`` — the GQA dims and deepseek-v2's
 MLA prefill (q/k 192 = qk_nope 128 + qk_rope 64, v 128).
 
 * Bound on the H100: near balanced at the GQA serving shape (S=1024, H=16,
-  dh=128, bf16): ~4.3 GFLOP of causal work (~4.3 µs on the tensor cores)
-  against ~17 MB of q/k/v/o (~5 µs at 3.35 TB/s); at the MLA shape
-  (S=1024, H=128, 192/128) ~43 GFLOP against ~134 MB, again near balanced
-  (~43 µs against ~40 µs).
-* Design: grid ``(ceil(Sq/64), B*H)``; a block keeps a 64-row q tile in
-  shared memory and walks 64-key tiles up to the causal limit of its last
-  row (tiles wholly past the diagonal are never loaded, as the TPU kernel's
-  ``pl.when(live)`` skips them), with a float32 online softmax, ``q_offset``
-  and an optional logit softcap. K/V are read at Hkv heads (q head ``h``
-  reads KV head ``h // G``), so the caller's GQA repeat is not needed.
-* Held back by: the products run as scalar float32 FMAs on the CUDA cores,
-  not on the tensor cores (``mma.sync``/``wgmma`` are later work).
+  Hkv=8, dh=128, bf16): ~4.3 GFLOP of causal work (~4.3 µs on the tensor
+  cores) against ~12.6 MB of q/k/v/o (~3.8 µs at 3.35 TB/s); at the MLA
+  shape (S=1024, H=128, 192/128) ~43 GFLOP against ~168 MB, again near
+  balanced (~43 µs against ~50 µs).
+* bfloat16 (every serving path): FlashAttention-2 on the tensor cores.
+  Both products run as ``mma.sync`` m16n8k16 (bf16 in, f32 accumulate):
+  Q·Kᵀ with K fragments by ``ldmatrix``, then P·V with P rounded to bf16
+  in registers as the A operand and V by ``ldmatrix.trans``. K/V tiles stay
+  bf16 in a 2-stage ``cp.async`` ring (tile j+1 loads while tile j is
+  multiplied); the online softmax, ``q_offset``, the causal and ``Sk``
+  masks and the optional logit softcap work on the f32 accumulators. A warp
+  owns 16 query rows up to d_qk 128 and 32 at the MLA's 192 (where that
+  halves the K/V reads a row costs); q tiles are scheduled heaviest first;
+  tiles wholly past the diagonal are never loaded, as the TPU kernel's
+  ``pl.when(live)`` skips them. No atomics: results repeat bit for bit.
+* float32, the dtype of the card-against-CPU parity checks (logits within
+  1e-3): the scalar float32 body, kept on the CUDA cores — on the tensor
+  cores float32 would become TF32 and lose that parity.
+* K/V are read at Hkv heads (q head ``h`` reads KV head ``h // G``), so the
+  caller's GQA repeat is not needed.
+* Held back by: ``mma.sync`` from each warp on its own, the softmax between
+  the products overlapping nothing, ~255 registers a thread (8 warps an
+  SM): ~130 TFLOP/s at qwen3's shape and ~210 at the MLA's on an H100
+  SXM at 700 W, 1.8× SDPA at both (``PERF.md``). ``wgmma`` with TMA and
+  warp specialisation is the next step.
 
 The plain version is ``ref.flash_attention`` (re-exported here as
 ``plain``); a CPU tensor takes it, a CUDA tensor launches the kernel or

@@ -2,7 +2,8 @@
 PyTorch versions, on the card (marker ``gpu``), at the smoke and the
 serving path's shapes: float32 (max|Δ| < 2e-5) and bfloat16 (< 2e-2) for
 the attention kernels (GQA and absorbed MLA, flash attention with d_v !=
-d_qk too, the decode reads at recurrentgemma's G 16 / dh 256 on a wrapped
+d_qk too, its bf16 tensor-core body on ragged tiles and repeating bit for
+bit, the decode reads at recurrentgemma's G 16 / dh 256 on a wrapped
 windowed ring, where the paged read equals the dense one bit for bit),
 ``lru_scan`` (bit for bit in float32) and ``stmc_conv`` (at the streaming
 U-Net's shapes, with and without bias; float32 results repeat bit for
@@ -120,6 +121,14 @@ GPU_FLASH = {
     "middle": dict(b=1, sq=512, sk=512, h=16, hkv=8, dh=128),
     "ragged_offset": dict(b=2, sq=50, sk=120, h=4, hkv=1, dh=64,
                           q_offset=70, cap=30.0),
+    # the bf16 body's tiling: 64 query rows a block and 64-key tiles up
+    # to d_qk 128, 128 rows and 32-key tiles at 192
+    "mla_ragged": dict(b=2, sq=77, sk=77, h=4, hkv=4, dh=192, dv=128),
+    "tile_plus_one": dict(b=1, sq=65, sk=65, h=4, hkv=2, dh=128),
+    "gqa4": dict(b=1, sq=200, sk=200, h=16, hkv=4, dh=128),
+    "gqa8": dict(b=1, sq=200, sk=200, h=16, hkv=2, dh=128),
+    "offset_dh128": dict(b=2, sq=100, sk=260, h=8, hkv=2, dh=128,
+                         q_offset=160),
 }
 
 
@@ -139,6 +148,37 @@ def test_cuda_flash_attention_matches_plain(cuda, case, dtype):
     assert PFA.flash_attention.launches == n0 + 1
     want = pref.flash_attention(q, k, v, q_offset=qo, logit_softcap=cap)
     _close(got.float().cpu(), want.float().cpu(), TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dh,dv", [(128, 128), (192, 128)])
+def test_cuda_flash_attention_bidirectional_matches_plain(cuda, dh, dv,
+                                                          dtype):
+    """causal=False: every key tile is walked, the last one ragged."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(x).to(cuda, dt)
+               for x in _flash_inputs(9, 1, 70, 150, 4, 2, dh, dv))
+    got = PFA.flash_attention(q, k, v, causal=False)
+    want = pref.flash_attention(q, k, v, causal=False)
+    _close(got.float().cpu(), want.float().cpu(), TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["prefill", "mla_ragged", "gqa8",
+                                  "offset_dh128", "ragged_offset"])
+def test_cuda_flash_attention_bf16_repeats_bit_for_bit(cuda, case):
+    """The tensor-core body adds in a fixed order (no atomics): two
+    launches on the same inputs give the same bits."""
+    kw = dict(GPU_FLASH[case])
+    qo = kw.pop("q_offset", 0)
+    cap = kw.pop("cap", None)
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+               for x in _flash_inputs(8, **kw))
+    first = PFA.flash_attention(q, k, v, q_offset=qo, logit_softcap=cap)
+    second = PFA.flash_attention(q, k, v, q_offset=qo, logit_softcap=cap)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.gpu
