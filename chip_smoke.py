@@ -11,16 +11,21 @@ Phases, each printing its own lines:
              memory and spill lines of the serving path's instantiations.
 3. kernels — each CUDA kernel at the serving path's shapes, bfloat16 and
              float32, against its plain PyTorch version on the card
-             (max|Δ| < 2e-2 bf16, < 2e-5 f32; copy_pages bit-exact, and
-             lru_scan bit-exact in f32), with
+             (max|Δ| < 2e-2 bf16, < 2e-5 f32; the bf16 decode reads
+             within 2^-6 of their largest output; copy_pages bit-exact,
+             and lru_scan bit-exact in f32), with
              its time, the plain version's and that of one PyTorch call
              computing the same function (a yardstick only) — device time
              from torch.profiler, and CUDA-event time per call beside it —
              and the least time the card could take (bytes or operations).
-             The paged decode read is also compared bit for bit with the
-             dense kernel over the gathered view, and flash_attention's
-             bf16 (tensor-core) results with a second launch on the same
-             inputs. recurrentgemma's shapes:
+             The paged decode read must equal the dense kernel over the
+             gathered view bit for bit, and the bf16 (tensor-core) results
+             of flash_attention and of both decode reads a second launch
+             on the same inputs; the decode reads also print their split
+             of S, the device ms of the split kernel and the combine
+             apart, and their host ms a call; at recurrentgemma's shapes
+             every split's partial must count once at its weight (q = 0,
+             V marking each row's split). recurrentgemma's shapes:
              the decode reads at G 16 / dh 256 on wrapped rings of 2048
              with the window, lru_scan at (1, 2040, 4096) and (1, 1020,
              4096), with h0 and at an odd shape (no library yardstick: no
@@ -90,7 +95,8 @@ Phases, each printing its own lines:
              held to 104 launches, decode_attention / paged_decode_attention
              to 576, flash_attention to 0; tokens identical between the
              layouts; step time at SOI phase 0 against off-phase steps; a
-             profiled rerun.
+             profiled rerun of each layout, with the decode reads' device
+             ms a step (split kernel and combine apart).
 12. unet-parity — the paper's streaming U-Net, full-width soi-unet-dns
              (7 + 7 causal convs, K 3, 128 channels in and out, widths 616..
              1296), float32, B 2, 48 frames, for the 11 SOI configurations of
@@ -133,6 +139,9 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# the decode reads in bf16: at most four half-ulps of their largest output
+# (an output is a mean of V rows, at recurrentgemma's read ~0.04 RMS)
+READ_REL_TOL = 2.0 ** -6
 L2_BYTES = 50 * 2 ** 20
 
 SERVE_ARGV = ["--arch", "qwen3-1.7b", "--soi", "pp", "--batch", "4",
@@ -175,32 +184,44 @@ def device_phase():
 # 2. build
 # ---------------------------------------------------------------------------
 
-# (label, mangled-name needle, template needle) of the serving path's
-# instantiations (head dim 128; decode kernels at G = 2 query heads per KV
-# head); the mangled names carry the identifier's length before it
+# (label, needles) of the serving path's instantiations (head dim 128;
+# decode reads at G = 2 query heads per KV head, and recurrentgemma's MQA at
+# G 16 / dh 256): a compiled kernel is reported when its mangled name holds
+# every needle (a mangled name carries an identifier's length before it)
 PATH_KERNELS = (
-    ("decode_attention", "23decode_attention_kernel", "Li2ELi128E"),
-    ("paged_decode_attention", "29paged_decode_attention_kernel",
-     "Li2ELi128E"),
-    ("flash_attention", "22flash_attention_kernel", "Li128ELi128E"),
-    ("flash_attention (MLA)", "22flash_attention_kernel", "Li192ELi128E"),
-    ("chunk_attention", "22chunk_attention_kernel", "Li128E"),
-    ("copy_pages", "17copy_pages_kernel", ""),
-    ("mla_chunk_attention", "26mla_chunk_attention_kernel", "Li512ELi64E"),
-    ("paged_mla_decode_attention", "33paged_mla_decode_attention_kernel",
-     "Li512ELi64E"),
-    ("decode_attention (MQA)", "23decode_attention_kernel", "Li16ELi256E"),
-    ("paged_decode_attention (MQA)", "29paged_decode_attention_kernel",
-     "Li16ELi256E"),
-    ("lru_scan", "15lru_scan_kernel", "kernelI"),
-    ("stmc_conv (B 1)", "16stmc_conv_kernel", "Li1E"),
-    ("stmc_conv (B 8 tile)", "16stmc_conv_kernel", "Li8E"),
+    ("decode_attention", ("decode_mma_kernel", "DenseRows", "Li2ELi128E")),
+    ("decode_attention", ("decode_scalar_kernel", "DenseRows",
+                          "Li2ELi128E")),
+    ("paged_decode_attention", ("decode_mma_kernel", "PagedRows",
+                                "Li2ELi128E")),
+    ("paged_decode_attention", ("decode_scalar_kernel", "PagedRows",
+                                "Li2ELi128E")),
+    ("decode_attention (MQA)", ("decode_mma_kernel", "DenseRows",
+                                "Li16ELi256E")),
+    ("decode_attention (MQA)", ("decode_scalar_kernel", "DenseRows",
+                                "Li16ELi256E")),
+    ("paged_decode_attention (MQA)", ("decode_mma_kernel", "PagedRows",
+                                      "Li16ELi256E")),
+    ("paged_decode_attention (MQA)", ("decode_scalar_kernel", "PagedRows",
+                                      "Li16ELi256E")),
+    ("decode reads' combine", ("decode_combine_kernel",)),
+    ("flash_attention", ("22flash_attention_kernel", "Li128ELi128E")),
+    ("flash_attention (MLA)", ("22flash_attention_kernel", "Li192ELi128E")),
+    ("chunk_attention", ("22chunk_attention_kernel", "Li128E")),
+    ("copy_pages", ("17copy_pages_kernel",)),
+    ("mla_chunk_attention", ("26mla_chunk_attention_kernel",
+                             "Li512ELi64E")),
+    ("paged_mla_decode_attention", ("33paged_mla_decode_attention_kernel",
+                                    "Li512ELi64E")),
+    ("lru_scan", ("15lru_scan_kernel", "kernelI")),
+    ("stmc_conv (B 1)", ("16stmc_conv_kernel", "Li1E")),
+    ("stmc_conv (B 8 tile)", ("16stmc_conv_kernel", "Li8E")),
 )
 
 
 def _ptxas_lines(log: str) -> list:
     """One line per compiled kernel of the serving path, from nvcc
-    -Xptxas -v."""
+    -Xptxas -v (a kernel compiled alike in two sources, once)."""
     out, name = [], None
     spill = ""
     for line in log.splitlines():
@@ -216,14 +237,16 @@ def _ptxas_lines(log: str) -> list:
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            for kind, needle, targs in PATH_KERNELS:
-                if needle in name and targs in name:
+            for kind, needles in PATH_KERNELS:
+                if all(n in name for n in needles):
                     dt = "bf16" if "bfloat16" in name else (
-                        "f32" if targs else "bytes")   # copy_pages: bytes
+                        "bytes" if kind == "copy_pages" else "f32")
                     smem = re.search(r"(\d+) bytes smem", line)
-                    out.append(f"  {kind}[{dt}]: {m.group(1)} registers, "
-                               f"{smem.group(1) if smem else 0} B static "
-                               f"smem, {spill}")
+                    text = (f"  {kind}[{dt}]: {m.group(1)} registers, "
+                            f"{smem.group(1) if smem else 0} B static "
+                            f"smem, {spill}")
+                    if text not in out:
+                        out.append(text)
             name, spill = None, ""
     return out
 
@@ -272,6 +295,60 @@ def _time_ms(fn, sets, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _host_ms(fn, sets, iters: int) -> float:
+    """Host time per call of ``fn(*args)``: ``iters`` calls enqueued back to
+    back after a warm-up and a synchronize, on the host clock, the
+    synchronize that drains them left out (a few ms of device work: the
+    launch queue never fills, so no call waits on the card)."""
+    for args in sets[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(*sets[i % len(sets)])
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / iters
+
+
+def _split_coverage(kern, plain, args, plan, label) -> float:
+    """Every split of a decode read counts once, at its weight: with q = 0
+    each live key scores alike, so the read is V's mean over its live keys;
+    V row s holds ``n_split`` in column ``s // keys_per_split`` (its split)
+    and 0 elsewhere, so column j of the output is ``n_split`` times split
+    j's share of the live keys (1 where all keys are live). A split
+    dropped, counted twice or weighed wrongly moves its column by its
+    whole share. Dense ``(q, k, v, pos, t)`` or paged ``(q, k_pool, v_pool,
+    pos_pool, page_map, t)`` arguments; returns max|kernel - plain|."""
+    n_split, keys = plan[:2]
+    v = torch.zeros_like(args[2])
+    check(n_split <= v.shape[-1], f"{label}: {n_split} splits > dh")
+    if len(args) == 5:
+        rows = torch.arange(v.shape[1], device=v.device)
+        v[:, rows, :, rows // keys] = n_split
+    else:
+        p_sz, pmap = v.shape[1], args[4]
+        rows = torch.arange(pmap.shape[1] * p_sz, device=v.device)
+        pages = pmap[:, rows // p_sz].long()            # (B, S) pool pages
+        v[pages, (rows % p_sz).expand_as(pages), :,
+          (rows // keys).expand_as(pages)] = n_split
+    case = (torch.zeros_like(args[0]), args[1], v) + tuple(args[3:])
+    got = kern(*case).float()
+    want = plain(*case).float()
+    # the columns of the splits hold all the mass, n_split a head (float32:
+    # no rounding)
+    totals = plain(*(x.float() if x.is_floating_point() else x
+                     for x in case))[..., :n_split].sum(-1)
+    check(bool(torch.allclose(totals, torch.full_like(totals, n_split),
+                              rtol=1e-5)),
+          f"{label}: the coverage input does not reach every split")
+    err = float((got - want).abs().max())
+    tol = min(TOL[args[0].dtype], READ_REL_TOL * float(want.abs().max()))
+    check(err < tol, f"{label}: split coverage max|Δ| {err} >= {tol} (a "
+                     f"split's partial lost, repeated or misweighted)")
+    return err
+
+
 def _device_events(fn) -> list:
     """Run ``fn`` under torch.profiler with CUDA activity only; returns the
     device intervals (start µs, end µs, name) of its kernels and copies,
@@ -285,16 +362,21 @@ def _device_events(fn) -> list:
                   for e in prof.events() if e.device_type == cuda)
 
 
-def _device_ms(fn, sets, iters: int):
+def _device_ms(fn, sets, iters: int, by_name=None):
     """Mean device time per call (the summed durations of the call's
     kernels, host launch gaps excluded); None if the profiler saw no
-    device activity."""
+    device activity. ``by_name`` (a dict) receives each kernel's mean ms
+    per call."""
     def run():
         for i in range(iters):
             fn(*sets[i % len(sets)])
-    ev = _device_events(run)
+    # the profiler can hand back no device events for a run: look again
+    ev = _device_events(run) or _device_events(run)
     if not ev:
         return None
+    if by_name is not None:
+        for s, e, name in ev:
+            by_name[name] = by_name.get(name, 0.0) + (e - s) / iters / 1e3
     return sum(e - s for s, e, _ in ev) / iters / 1e3
 
 
@@ -781,12 +863,14 @@ KERNEL_META = {
 }
 # kernels whose path runs float32 (the rest: bfloat16)
 F32_PATHS = ("lru_scan", "stmc_conv")
+DECODE_READS = ("decode_attention", "paged_decode_attention")
 
 
 def kernels_phase(dev) -> dict:
     """Returns {kernel name: record of its serving-path bf16 case}; the
     flash kernel's deepseek-v2 shape is keyed "flash_attention (MLA)", the
-    decode kernels' recurrentgemma shapes "<name> (RG)"; lru_scan's and
+    decode kernels' recurrentgemma outer shapes "<name> (RG)" and the
+    middle ring "decode_attention (RG middle)"; lru_scan's and
     stmc_conv's records are their first float32 case, the dtype their
     paths run (stmc_conv: decoder 2 of the U-Net at B 1, one live stream)."""
     phase("3 kernels")
@@ -939,8 +1023,11 @@ def kernels_phase(dev) -> dict:
               f"{name} {shape}: non-finite")
         if extra.get("inplace"):
             check(torch.equal(got, want), f"{name} {shape}: not bit-exact")
-        check(err < TOL[dt], f"{name} {shape} {dt}: max|Δ| {err} >= "
-                             f"{TOL[dt]}")
+        is_read = name in DECODE_READS
+        tol = TOL[dt]
+        if is_read and dt == torch.bfloat16:
+            tol = min(tol, READ_REL_TOL * float(want.float().abs().max()))
+        check(err < tol, f"{name} {shape} {dt}: max|Δ| {err} >= {tol}")
         lib_err = None
         if library is not None:
             lib = library(*fresh()).float()
@@ -950,9 +1037,17 @@ def kernels_phase(dev) -> dict:
             else:
                 ref_rows = want.float()
             lib_err = float((lib - ref_rows).abs().max())
-        rec_extra = {}
-        if name == "flash_attention" and dt == torch.bfloat16:
-            # the tensor-core body adds in a fixed order (no atomics): a
+        rec_extra = {"tol": tol}
+        if is_read:
+            plan = (DA.launch_plan(args[0], args[1]) if len(args) == 5 else
+                    DA.paged_launch_plan(args[0], args[1], args[4]))
+            rec_extra["n_split"], rec_extra["keys_per_split"] = plan[:2]
+            if shape.startswith("RG"):
+                rec_extra["split_coverage_err"] = _split_coverage(
+                    kern, plain, args, plan, f"{name} {shape} {dt}")
+            rec_extra["host_ms"] = _host_ms(kern, sets, 100)
+        if dt == torch.bfloat16 and (name == "flash_attention" or is_read):
+            # the tensor-core bodies add in a fixed order (no atomics): a
             # second launch on the same inputs gives the same bits
             again = kern(*fresh())
             rec_extra["repeats_bit_for_bit"] = bool(torch.equal(got, again))
@@ -960,10 +1055,14 @@ def kernels_phase(dev) -> dict:
                   f"{name} {shape}: bf16 results differ run to run")
         if "dense_view" in extra:
             # the paged read against the dense kernel over the same logical
-            # rows (gathered): bit for bit?
+            # rows (gathered), bit for bit: the same split, key order and
+            # combine
             kd, vd, posd, _ = extra["dense_view"][args[1].data_ptr()]
             dense = DA.decode_attention(args[0], kd, vd, posd, args[5], **kw)
             rec_extra["equals_dense_kernel"] = bool(torch.equal(got, dense))
+            check(rec_extra["equals_dense_kernel"],
+                  f"{name} {shape} {dt}: not the dense kernel's read bit "
+                  f"for bit")
         if extra.get("exact_f32") and dt == torch.float32:
             # the scan's product and sum round as the plain version's do
             rec_extra["equals_plain"] = bool(torch.equal(got, want))
@@ -979,13 +1078,20 @@ def kernels_phase(dev) -> dict:
                  "plain_event_ms": _time_ms(plain, sets, 5),
                  "library_event_ms": (_time_ms(library, sets, 50)
                                       if has_lib else None)}
-        dev_ms = {"ms": _device_ms(kern, sets, 20),
+        parts = {}
+        dev_ms = {"ms": _device_ms(kern, sets, 20, parts),
                   "plain_ms": _device_ms(plain, sets, 5),
                   "library_ms": (_device_ms(library, sets, 20)
                                  if has_lib else None)}
         for key, val in dev_ms.items():
             if val is None:            # the profiler saw no device activity
                 dev_ms[key] = event[key.replace("ms", "event_ms")]
+        if is_read and parts:
+            # the split kernel and the combine apart
+            rec_extra["combine_ms"] = sum(
+                v for k_, v in parts.items() if "decode_combine" in k_)
+            rec_extra["split_ms"] = sum(parts.values()) - rec_extra[
+                "combine_ms"]
         bound_ms, bound_by = _bound(nbytes, flops, dt)
         rec = {"name": name, "shape": shape, "dtype": str(dt)[6:],
                "max_abs_err": err, **dev_ms, "bound_ms": bound_ms,
@@ -994,6 +1100,7 @@ def kernels_phase(dev) -> dict:
                "flops": flops, **rec_extra}
         print(json.dumps({"kernels": [rec]}), flush=True)
         key = name + (" (MLA)" if shape.startswith("MLA") else
+                      " (RG middle)" if shape.startswith("RG middle") else
                       " (RG)" if shape.startswith("RG") else "")
         serving_dt = (torch.float32 if name in F32_PATHS
                       else torch.bfloat16)
@@ -1196,10 +1303,31 @@ def _prefill_profile(ev, n_req: int, kernel: str):
 def _decode_profile(ev, steps: int, prefill_kernel: str):
     """Device busy time and idle share of a serve run's decode loop, which
     starts after the last ``prefill_kernel``; kernel time by name over that
-    window."""
+    window. Returns the loop's device events."""
     prefill_end = max(e for _s, e, n in ev if prefill_kernel in n)
-    _window_profile([(s_, e, n) for s_, e, n in ev if s_ >= prefill_end],
-                    steps, "decode", "step")
+    loop = [(s_, e, n) for s_, e, n in ev if s_ >= prefill_end]
+    _window_profile(loop, steps, "decode", "step")
+    return loop
+
+
+# the decode reads' device kernels: the split body (bf16 or float32) and
+# the combine
+READ_KERNELS = {"split": ("decode_mma_kernel", "decode_scalar_kernel"),
+                "combine": ("decode_combine_kernel",)}
+
+
+def _reads_per_step(loop, steps: int, label: str) -> float:
+    """Print and return the decode reads' device ms per step in a decode
+    loop's events, split kernel and combine apart."""
+    ms = {part: sum(e - s_ for s_, e, n in loop
+                    if any(k in n for k in needles)) / 1e3
+          for part, needles in READ_KERNELS.items()}
+    total = sum(ms.values())
+    check(total > 0, f"{label}: no decode read in the decode loop")
+    print(f"  {label} decode reads: {total:.3f} ms on the device in "
+          f"{steps} steps = {total / steps:.4f} ms a step (split "
+          f"{ms['split'] / steps:.4f}, combine {ms['combine'] / steps:.4f})")
+    return total / steps
 
 
 def _window_profile(ev, n: int, label: str, unit: str):
@@ -1735,11 +1863,13 @@ def rg_serve_phase(dev) -> dict:
     check((seqs["dense"] == seqs["paged"]).all(),
           "paged tokens differ from the dense run's")
     print("  tokens identical between the dense and the paged run")
-    print("  profiled rerun (paged):")
-    ev = _device_events(lambda: serve.serve(engines["paged"], params, prompt,
-                                            plens, args.gen_len))
-    check(ev, "the profiler saw no device activity")
-    _decode_profile(ev, res.steps, "lru_scan_kernel")
+    for layout in ("dense", "paged"):
+        print(f"  profiled rerun ({layout}):")
+        ev = _device_events(lambda: serve.serve(engines[layout], params,
+                                                prompt, plens, args.gen_len))
+        check(ev, "the profiler saw no device activity")
+        loop = _decode_profile(ev, res.steps, "lru_scan_kernel")
+        _reads_per_step(loop, res.steps, layout)
     del params, engines, engine
     _free(dev)
     return out
@@ -1998,6 +2128,16 @@ def main():
                                             else "dense") + ")")
             check(rg_second[name][name] > 0,
                   f"{name} never launched on the recurrentgemma serve")
+        if name == "decode_attention":
+            # the same wrapper on recurrentgemma's compressed middle rings
+            mid = main_recs[name + " (RG middle)"]
+            summary[-1]["rg_middle"] = {
+                key: mid[key] for key in ("shape", "max_abs_err", "ms",
+                                          "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms")}
+            summary[-1]["rg_middle"].update(
+                launches=rg_second[name][name],
+                launches_on="rg serve (dense), outer and middle layers")
     print(f"== 14 done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(card)

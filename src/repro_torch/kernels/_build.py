@@ -35,15 +35,16 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures of the entry points (see the ``extern "C"`` functions)
 SIGNATURES = {
-    "repro_decode_attention": [_P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     "repro_flash_attention": [_P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                               _I, _P],
     "repro_chunk_attention": [_P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
-    "repro_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P,
-                                     _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "repro_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _I, _I, _F,
+                                     _I, _I, _I, _P],
     "repro_copy_pages": [_P, _P, _P, _I, _I, _L, _P],
     "repro_mla_chunk_attention": [_P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _F, _I, _P],

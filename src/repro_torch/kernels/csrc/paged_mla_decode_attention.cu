@@ -21,8 +21,8 @@
 // CUDA cores (67 TFLOP/s at most: >= ~18 us), so the FMA issue rate and the
 // warp reductions bound it.
 //
-// Design (paged_decode_attention.cu with the 128 heads of a slot in place
-// of the G heads of a KV head):
+// Design (the float32 body of decode_common.cuh, without its split of S,
+// with the 128 heads of a slot in place of the G heads of a KV head):
 //  * grid (H / HB, B): a block owns HB = 4 query heads of one slot; their
 //    q_lat / q_rope slices sit in registers (lane l holds latent dims
 //    [l*L/32, (l+1)*L/32) and rope dims [l*R/32, ...)), so every latent +

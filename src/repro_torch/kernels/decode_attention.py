@@ -1,23 +1,30 @@
 """Single-token decode attention against a dense ring KV cache, and
 against paged KV pools.
 
-Kernel: ``csrc/decode_attention.cu`` (CUDA C++, sm_90a), which replaces the
-TPU kernel ``repro/kernels/decode_attention.py::decode_attention``.
+Kernel: ``csrc/decode_attention.cu`` (CUDA C++, sm_90a; the body shared
+with the paged read is ``csrc/decode_common.cuh``), which replaces the TPU
+kernel ``repro/kernels/decode_attention.py::decode_attention``.
 
 * Bound on the H100: the cache read. A call streams K and V once
   (``2*B*S*Hkv*dh`` elements) for ~4·G flops per element, so its least time
   is those bytes over the 3.35 TB/s memory rate.
-* Design: grid ``(B, Hkv, G/GB)``; a block keeps the G query heads of one
-  KV head together (a cache row is read once for all of them) while
-  ``G*dh <= 1024``, else ``GB = 1024/dh`` of them (recurrentgemma's MQA, G
-  16 at dh 256: 4 heads a block, 4 blocks a KV head sharing its rows
-  through L2), walks S in a loop with a float32 online softmax per warp,
-  and merges its 8 warps' states in shared memory. The mask is the
-  absolute-position lane (with the window test on a wrapped ring), ``-1``
-  marks an empty slot, and masked scores take the finite ``-1e30`` — an
-  inactive slot comes out finite, as in the reference.
-* Held back by: ``B*Hkv*G/GB`` blocks (32 at qwen3's serving batch, 16 at
-  recurrentgemma's) on 132 SMs; splitting S across blocks is later work.
+* Design: flash-decoding. :func:`decode_split` cuts a slot's S rows into
+  ``n_split`` ranges of ``keys_per_split`` (a multiple of 64) so that about
+  two blocks an SM run (grid ``(B, Hkv·G/GB, n_split)``); each block
+  runs a float32 online softmax over its range and writes a partial
+  ``(m, l, acc)`` per head to a float32 scratch (:func:`scratch_shape`),
+  and a second kernel merges the partials in split order (no atomics). In
+  bf16 a block holds the G ≤ 16 query heads of one KV head as the 16 rows
+  of one ``mma.sync`` m16n8k16 tile: Q·Kᵀ and P·V run on the tensor cores
+  over 64-key tiles that ``cp.async`` brings in (bf16 converted inside the
+  product, never at the load). float32 keeps the scalar body (8 warps, a
+  shuffle reduction per key and head) for the card-vs-CPU parity. The mask
+  is the absolute-position lane (with the window test on a wrapped ring),
+  ``-1`` marks an empty slot, and masked scores take the finite ``-1e30``
+  — an inactive slot comes out finite, as in the reference.
+* Held back by: a range of one 64-key tile at recurrentgemma's serving
+  read (no overlap of a block's copies and products), and the partials
+  and the combine launch that every call pays.
 
 ``paged_decode_attention`` is the same read over paged pools.
 
@@ -27,13 +34,15 @@ replaces the TPU kernel
 
 * Bound on the H100: the pool read — the K/V rows of the pages the slots
   map, once, over the 3.35 TB/s memory rate.
-* Design: the dense kernel with its key walk through ``page_map[b, s/P]``,
-  row ``s % P`` of that page (each ``Hkv*dh`` apart in the pool), in the
-  dense kernel's key order. A key is live iff its map entry is ``> 0`` and
-  ``0 <= pos <= t`` (and ``pos > t - window``); null-page rows are never
-  loaded.
-* Held back by: the same ``B*Hkv*G/GB`` blocks as the dense kernel, and
-  the dependent page-id load at the head of every chunk of keys.
+* Design: the dense read's body over ``page_map[b, s/P]``, row ``s % P`` of
+  that page, with the same split of the ``n_pp·P`` logical rows (the page
+  size is not an input of the plan), the same key order and the same
+  combine: over the same logical rows it equals the dense read bit for
+  bit. A block reads its range's page ids and positions once, before its
+  first K/V copy. A key is live iff its map entry is ``> 0`` and ``0 <= pos
+  <= t`` (and ``pos > t - window``); null-page rows are never loaded.
+* Held back by: as the dense read, plus the dependent page-id load at the
+  head of each block.
 
 ``paged_mla_decode_attention`` is the absorbed-MLA read of deepseek-v2's
 latent pools.
@@ -50,8 +59,8 @@ replaces the TPU kernel
   4 and then accumulated as their value; the page walk, the live test
   (``page_map > 0`` and ``0 <= pos <= t``), the null-page rows that are
   never loaded, the finite ``-1e30`` mask and the warp merge are those of
-  the paged GQA kernel. The H/4 blocks of a slot share its rows through
-  L2.
+  the paged GQA read's float32 body, without its split of S. The H/4
+  blocks of a slot share its rows through L2.
 * Held back by: scalar float32 FMAs and a shuffle reduction per (head,
   key) — at least ~18 µs at the 67 TFLOP/s float32 rate.
 
@@ -64,7 +73,8 @@ The plain versions are ``ref.decode_attention`` (re-exported here as
 ``ref.paged_mla_decode_attention`` (``paged_mla_plain``); a CPU tensor
 takes them, a CUDA tensor launches the kernel or raises.
 ``decode_attention.launches``, ``paged_decode_attention.launches`` and
-``paged_mla_decode_attention.launches`` count kernel launches.
+``paged_mla_decode_attention.launches`` count wrapper calls that launched
+their kernels (a decode read launches its split and its combine kernel).
 """
 
 from __future__ import annotations
@@ -81,6 +91,56 @@ paged_mla_plain = ref.paged_mla_decode_attention
 _DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 GROUPS = (1, 2, 4, 8, 16)
+
+# keys a split holds: a multiple of SPLIT_TILE (the bf16 body's key tile),
+# at most MAX_SPLIT_KEYS (the kernels keep a range's rows in shared memory)
+SPLIT_TILE = 64
+MAX_SPLIT_KEYS = 512
+# blocks a call aims at: two on each of the H100's 132 SMs
+WAVE_BLOCKS = 264
+
+
+def decode_split(b, s, hkv):
+    """``(n_split, keys_per_split)`` of a decode read over ``s`` logical
+    rows a slot, ``b`` slots and ``hkv`` KV heads: split ``i`` takes rows
+    ``[i·keys_per_split, min(s, (i+1)·keys_per_split))``. About
+    ``WAVE_BLOCKS`` blocks ``b·hkv·n_split``, in ranges of at least one
+    64-key tile. A function of ``s`` and the head shape only — a dense ring
+    and a paged map of the same rows (``s = n_pp·P``) split alike, whatever
+    the page size."""
+    if b <= 0 or s <= 0 or hkv <= 0:
+        raise ValueError(f"decode_split: b={b}, s={s}, hkv={hkv}")
+    want = -(-WAVE_BLOCKS // (b * hkv))
+    keys = -(-s // want)
+    keys = -(-keys // SPLIT_TILE) * SPLIT_TILE
+    keys = min(keys, MAX_SPLIT_KEYS)
+    return -(-s // keys), keys
+
+
+def scratch_shape(b, h, dh, n_split):
+    """Shape of the float32 scratch of a decode read: the partial
+    accumulators ``(B, H, n_split, dh)``, then their ``(m, l)`` pairs
+    ``(B, H, n_split, 2)``, flat."""
+    return (b * h * n_split * (dh + 2),)
+
+
+def launch_plan(q, k_cache):
+    """``(n_split, keys_per_split, scratch shape)`` of ``decode_attention``
+    on these shapes."""
+    b, h, dh = q.shape
+    _, s, hkv, _ = k_cache.shape
+    n_split, keys = decode_split(b, s, hkv)
+    return n_split, keys, scratch_shape(b, h, dh, n_split)
+
+
+def paged_launch_plan(q, k_pool, page_map):
+    """``(n_split, keys_per_split, scratch shape)`` of
+    ``paged_decode_attention`` on these shapes: the dense plan of the
+    ``n_pp·P`` logical rows."""
+    b, h, dh = q.shape
+    _, p_sz, hkv, _ = k_pool.shape
+    n_split, keys = decode_split(b, page_map.shape[1] * p_sz, hkv)
+    return n_split, keys, scratch_shape(b, h, dh, n_split)
 
 
 def _check_cuda(q, k_cache, v_cache, cache_positions, q_position):
@@ -138,13 +198,15 @@ def decode_attention(q, k_cache, v_cache, cache_positions, q_position, *,
     win = 0 if window is None else int(window)
     if window is not None and win <= 0:
         raise ValueError(f"window must be positive, got {window}")
+    n_split, keys, shape = launch_plan(q, k_cache)
     out = torch.empty_like(q)
+    scratch = torch.empty(shape, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _build.library().repro_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         cache_positions.data_ptr(), q_position.data_ptr(), out.data_ptr(),
-        b, s, h, hkv, dh, win, scale, _build.DTYPE_CODES[_DTYPES[q.dtype]],
-        stream)
+        scratch.data_ptr(), b, s, h, hkv, dh, win, scale, n_split, keys,
+        _build.DTYPE_CODES[_DTYPES[q.dtype]], stream)
     _build.check(rc, "decode_attention")
     decode_attention.launches += 1
     return out
@@ -217,13 +279,15 @@ def paged_decode_attention(q, k_pool, v_pool, pos_pool, page_map, q_position,
     win = 0 if window is None else int(window)
     if window is not None and win <= 0:
         raise ValueError(f"window must be positive, got {window}")
+    n_split, keys, shape = paged_launch_plan(q, k_pool, page_map)
     out = torch.empty_like(q)
+    scratch = torch.empty(shape, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _build.library().repro_paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         pos_pool.data_ptr(), page_map.data_ptr(), q_position.data_ptr(),
-        out.data_ptr(), b, n_pp, p_sz, h, hkv, dh, win, scale,
-        _build.DTYPE_CODES[_DTYPES[q.dtype]], stream)
+        out.data_ptr(), scratch.data_ptr(), b, n_pp, p_sz, h, hkv, dh, win,
+        scale, n_split, keys, _build.DTYPE_CODES[_DTYPES[q.dtype]], stream)
     _build.check(rc, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out

@@ -69,6 +69,9 @@ DECODE_CASES = {
     "gqa1": dict(b=2, h=4, hkv=4, s=40, dh=16),
     "ring_window": dict(b=3, h=8, hkv=4, s=29, dh=32, ring=True, window=11),
     "inactive": dict(b=2, h=4, hkv=2, s=24, dh=16, inactive=True),
+    # recurrentgemma's MQA read (G 16, dh 256) on a wrapped windowed ring
+    "mqa_ring_window": dict(b=2, h=16, hkv=1, s=48, dh=256, ring=True,
+                            window=20),
 }
 
 
@@ -269,11 +272,13 @@ def test_plain_chunk_attention_matches_reference(case):
 # paged_decode_attention
 # ---------------------------------------------------------------------------
 
-def _paged_inputs(seed, b, h, hkv, dh, p_sz, n_pp, n_pages):
+def _paged_inputs(seed, b, h, hkv, dh, p_sz, n_pp, n_pages, ring=False):
     """Pools with random K/V, each real page holding consecutive positions
     of one slot, a null page 0 whose position lane holds live-looking
     values (it takes discarded writes), and page maps with unbacked (0)
-    entries."""
+    entries. ``ring``: every slot maps all its pages as a ring of ``n_pp *
+    p_sz`` rows whose clock has passed it (row l holds the newest p <= t
+    with p % S == l)."""
     rng = np.random.default_rng(seed)
     q = _normal(rng, (b, h, dh))
     k_pool = _normal(rng, (n_pages, p_sz, hkv, dh))
@@ -283,13 +288,16 @@ def _paged_inputs(seed, b, h, hkv, dh, p_sz, n_pp, n_pages):
     page_map = np.zeros((b, n_pp), np.int32)
     ids = iter(rng.permutation(np.arange(1, n_pages)))
     t = np.zeros(b, np.int32)
+    ring_s = n_pp * p_sz
     for s in range(b):
-        n_live = 1 + s % n_pp
+        n_live = n_pp if ring else 1 + s % n_pp
+        t[s] = ring_s + 3 + 2 * s if ring else n_live * p_sz - 1 - s
         for j in range(n_live):
             pid = int(next(ids))
             page_map[s, j] = pid
-            pos_pool[pid] = j * p_sz + np.arange(p_sz)
-        t[s] = n_live * p_sz - 1 - s        # rows past t: masked by pos <= t
+            rows = j * p_sz + np.arange(p_sz)
+            pos_pool[pid] = (t[s] - (t[s] - rows) % ring_s) if ring else rows
+    # rows past t are masked by pos <= t
     pos_pool[page_map[0, 0], 1] = -1        # an empty row inside a page
     return q, k_pool, v_pool, pos_pool, page_map, t
 
@@ -298,6 +306,9 @@ PAGED_CASES = {
     "gqa2": dict(b=3, h=4, hkv=2, dh=16, p_sz=4, n_pp=3, n_pages=10),
     "gqa1_window": dict(b=2, h=4, hkv=4, dh=32, p_sz=8, n_pp=4, n_pages=9,
                         window=10),
+    # recurrentgemma's MQA read (G 16, dh 256) on a wrapped windowed ring
+    "mqa_ring_window": dict(b=2, h=16, hkv=1, dh=256, p_sz=8, n_pp=4,
+                            n_pages=9, ring=True, window=20),
 }
 
 

@@ -4,7 +4,10 @@ serving path's shapes: float32 (max|Δ| < 2e-5) and bfloat16 (< 2e-2) for
 the attention kernels (GQA and absorbed MLA, flash attention with d_v !=
 d_qk too, its bf16 tensor-core body on ragged tiles and repeating bit for
 bit, the decode reads at recurrentgemma's G 16 / dh 256 on a wrapped
-windowed ring, where the paged read equals the dense one bit for bit),
+windowed ring and at the edges of their split of S, where the paged read
+equals the dense one bit for bit, bf16 results repeat bit for bit and stay
+within 2^-6 of their largest output, and every split's partial counts
+once at its weight),
 ``lru_scan`` (bit for bit in float32) and ``stmc_conv`` (at the streaming
 U-Net's shapes, with and without bias; float32 results repeat bit for
 bit), bit-exact for ``copy_pages``; and a narrow U-Net streamed on the card
@@ -33,6 +36,15 @@ from repro_torch.kernels import ref as pref
 torch.set_num_threads(1)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the decode reads in bf16: at most four half-ulps of their largest output
+# (an output is a mean of V rows, at recurrentgemma's read ~0.04 RMS)
+READ_REL_TOL = 2.0 ** -6
+
+
+def _read_tol(want, dtype):
+    if dtype == "float32":
+        return TOL[dtype]
+    return min(TOL[dtype], READ_REL_TOL * float(want.float().abs().max()))
 
 
 def _normal(rng, shape):
@@ -91,6 +103,15 @@ GPU_DECODE = {
                      window=2048),
     "mqa_ring_window": dict(b=3, h=16, hkv=1, s=96, dh=256, ring=True,
                             window=40),
+    # the split's edges (decode_split): S below one range of 64 keys; one
+    # key past a range (two ranges, the second of one key); a long cache
+    # whose live keys (window 100 behind t) leave the first ranges all
+    # masked; an inactive slot at G 16 / dh 256
+    "split_short": dict(b=4, h=16, hkv=1, s=40, dh=256),
+    "split_plus_one": dict(b=4, h=128, hkv=8, s=65, dh=256),
+    "split_masked_head": dict(b=4, h=16, hkv=1, s=2048, dh=256, window=100),
+    "split_inactive_mqa": dict(b=3, h=16, hkv=1, s=300, dh=256,
+                               inactive=True),
 }
 
 
@@ -109,7 +130,41 @@ def test_cuda_decode_attention_matches_plain(cuda, case, dtype):
     torch.cuda.synchronize()
     assert PDA.decode_attention.launches == n0 + 1
     want = pref.decode_attention(q, k, v, pos, t, window=win)
-    _close(got.float().cpu(), want.float().cpu(), TOL[dtype])
+    _close(got.float().cpu(), want.float().cpu(), _read_tol(want, dtype))
+    n_split, keys, _ = PDA.launch_plan(q, k)
+    if case == "split_short":
+        assert (n_split, keys) == (1, 64) and kw["s"] < keys
+    elif case == "split_plus_one":
+        assert (n_split, kw["s"]) == (2, keys + 1)
+    elif case == "split_masked_head":
+        assert int(t.min()) - win >= 2 * keys       # ranges 0 and 1 dead
+
+
+GPU_REPEAT = {
+    "outer": dict(b=4, h=16, hkv=8, s=1088, dh=128, p_sz=16),
+    "mqa_ring": dict(b=4, h=16, hkv=1, s=2048, dh=256, p_sz=16, window=2048),
+    "split_plus_one": dict(b=4, h=128, hkv=8, s=65, dh=256, p_sz=1),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GPU_REPEAT))
+def test_cuda_decode_reads_bf16_repeat_bit_for_bit(cuda, case):
+    """The split and the combine add in a fixed order (no atomics): a
+    second launch on the same inputs gives the same bits, dense and
+    paged."""
+    kw = dict(GPU_REPEAT[case])
+    win = kw.pop("window", None)
+    (q, k, v, pos, t), (kp, vp, pp, pm) = _ring_pools(6, **kw)
+    q, k, v, kp, vp = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+                       for x in (q, k, v, kp, vp))
+    pos, t, pp, pm = (torch.from_numpy(x).to(cuda) for x in (pos, t, pp, pm))
+    dense = PDA.decode_attention(q, k, v, pos, t, window=win)
+    paged = PDA.paged_decode_attention(q, kp, vp, pp, pm, t, window=win)
+    assert torch.equal(dense, PDA.decode_attention(q, k, v, pos, t,
+                                                   window=win))
+    assert torch.equal(paged, PDA.paged_decode_attention(q, kp, vp, pp, pm,
+                                                         t, window=win))
 
 
 GPU_FLASH = {
@@ -330,7 +385,7 @@ def test_cuda_paged_decode_attention_matches_plain(cuda, case, dtype):
     torch.cuda.synchronize()
     assert PDA.paged_decode_attention.launches == n0 + 1
     want = pref.paged_decode_attention(q, k, v, pos, pm, t, window=win)
-    _close(got.float().cpu(), want.float().cpu(), TOL[dtype])
+    _close(got.float().cpu(), want.float().cpu(), _read_tol(want, dtype))
 
 
 GPU_COPY = {
@@ -445,11 +500,12 @@ def test_cuda_paged_mla_decode_attention_matches_plain(cuda, case, dtype):
     _close(got.float().cpu(), want.float().cpu(), TOL[dtype])
 
 
-def _ring_pools(seed, b, h, hkv, s, dh, p_sz):
+def _ring_pools(seed, b, h, hkv, s, dh, p_sz, inactive=False):
     """A wrapped ring (clocks past ``s``) as dense caches, and the same
     logical rows in pools of ``b * s/p_sz + 1`` pages behind shuffled page
     maps (page 0 null, with live-looking garbage)."""
-    q, k, v, pos, t = _decode_inputs(seed, b, h, hkv, s, dh, ring=True)
+    q, k, v, pos, t = _decode_inputs(seed, b, h, hkv, s, dh, ring=True,
+                                     inactive=inactive)
     rng = np.random.default_rng(seed + 1)
     n_pp = s // p_sz
     n_pages = b * n_pp + 1
@@ -468,9 +524,17 @@ def _ring_pools(seed, b, h, hkv, s, dh, p_sz):
                                page_map.astype(np.int32))
 
 
+MQA = dict(h=16, hkv=1, dh=256)
 GPU_MQA_RING = {
-    "serving": dict(b=4, s=2048, p_sz=16, window=2048),
-    "window": dict(b=3, s=96, p_sz=16, window=40),
+    "serving": dict(b=4, s=2048, p_sz=16, window=2048, **MQA),
+    "window": dict(b=3, s=96, p_sz=16, window=40, **MQA),
+    # pages of 1 and 4 rows; an inactive slot (all positions -1, every page
+    # mapped); qwen3's G 2 / dh 128 serving ring
+    "page1": dict(b=2, s=130, p_sz=1, window=50, **MQA),
+    "page4": dict(b=3, s=200, p_sz=4, window=None, **MQA),
+    "inactive": dict(b=3, s=320, p_sz=16, window=None, inactive=True, **MQA),
+    "qwen3_gqa2": dict(b=4, s=1088, p_sz=16, window=None, h=16, hkv=8,
+                       dh=128),
 }
 
 
@@ -478,13 +542,13 @@ GPU_MQA_RING = {
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", sorted(GPU_MQA_RING))
 def test_cuda_paged_mqa_ring_equals_dense_kernel(cuda, case, dtype):
-    """G 16, dh 256 on a wrapped windowed ring: the paged read matches its
-    plain version and equals the dense kernel's read bit for bit."""
+    """G 16, dh 256 (and qwen3's G 2, dh 128) on a wrapped ring: the paged
+    read matches its plain version and equals the dense kernel's read bit
+    for bit, whatever the page size."""
     kw = dict(GPU_MQA_RING[case])
     win = kw.pop("window")
     dt = getattr(torch, dtype)
-    (q, k, v, pos, t), (kp, vp, pp, pm) = _ring_pools(14, h=16, hkv=1,
-                                                      dh=256, **kw)
+    (q, k, v, pos, t), (kp, vp, pp, pm) = _ring_pools(14, **kw)
     q, k, v, kp, vp = (torch.from_numpy(x).to(cuda, dt)
                        for x in (q, k, v, kp, vp))
     pos, t, pp, pm = (torch.from_numpy(x).to(cuda) for x in (pos, t, pp, pm))
@@ -494,8 +558,53 @@ def test_cuda_paged_mqa_ring_equals_dense_kernel(cuda, case, dtype):
     torch.cuda.synchronize()
     assert PDA.paged_decode_attention.launches == n0 + 1
     want = pref.paged_decode_attention(q, kp, vp, pp, pm, t, window=win)
-    _close(got.float().cpu(), want.float().cpu(), TOL[dtype])
+    _close(got.float().cpu(), want.float().cpu(), _read_tol(want, dtype))
     assert torch.equal(got, dense)
+
+
+GPU_COVERAGE = {
+    "mqa_serving": dict(b=4, s=2048, p_sz=16, window=2048, **MQA),
+    "mqa_masked_head": dict(b=3, s=1024, p_sz=16, window=100, **MQA),
+    "qwen3_gqa2": dict(b=4, s=1088, p_sz=16, window=None, h=16, hkv=8,
+                       dh=128),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(GPU_COVERAGE))
+def test_cuda_decode_reads_count_every_split_once(cuda, case, dtype):
+    """With q = 0 every live key scores alike, so a read is V's mean over
+    its live keys. V row s holds n_split in the column of its split and 0
+    elsewhere, so output column j is n_split times split j's share of the
+    live keys: a partial that the combine drops, adds twice or weighs
+    wrongly moves its column by that whole share, dense and paged."""
+    kw = dict(GPU_COVERAGE[case])
+    win = kw.pop("window")
+    b, s, p_sz = kw["b"], kw["s"], kw["p_sz"]
+    (q, k, v, pos, t), (kp, vp, pp, pm) = _ring_pools(21, **kw)
+    n_split, keys = PDA.decode_split(b, s, kw["hkv"])
+    assert 1 < n_split <= kw["dh"]
+    rows = np.arange(s)
+    v = np.zeros_like(v)
+    v[:, rows, :, rows // keys] = n_split
+    for i in range(b):
+        for j in range(s // p_sz):
+            vp[pm[i, j]] = v[i, j * p_sz:(j + 1) * p_sz]
+    dt = getattr(torch, dtype)
+    q, k, v, kp, vp = (torch.from_numpy(x).to(cuda, dt)
+                       for x in (np.zeros_like(q), k, v, kp, vp))
+    pos, t, pp, pm = (torch.from_numpy(x).to(cuda) for x in (pos, t, pp, pm))
+    dense = PDA.decode_attention(q, k, v, pos, t, window=win)
+    paged = PDA.paged_decode_attention(q, kp, vp, pp, pm, t, window=win)
+    want = pref.decode_attention(q, k, v, pos, t, window=win).float()
+    # the columns of the splits hold all the mass (float32: no rounding)
+    totals = pref.decode_attention(q.float(), k.float(), v.float(), pos, t,
+                                   window=win)[..., :n_split].sum(-1)
+    assert torch.allclose(totals, torch.full_like(totals, n_split),
+                          rtol=1e-5)
+    _close(dense.float().cpu(), want.cpu(), _read_tol(want, dtype))
+    assert torch.equal(paged, dense)
 
 
 def _lru_inputs(seed, b, s, d, h0=False):
