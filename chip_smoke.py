@@ -25,7 +25,17 @@ Phases, each printing its own lines:
              of S, the device ms of the split kernel and the combine
              apart, and their host ms a call; at recurrentgemma's shapes
              every split's partial must count once at its weight (q = 0,
-             V marking each row's split). recurrentgemma's shapes:
+             V marking each row's split). The chunk kernels (qwen3's
+             chunk_attention and deepseek-v2's mla_chunk_attention at the
+             outer and middle chunks, every query at a real position as
+             the serving path sends them) are held in bf16 to 2^-6 of
+             their largest output too, repeat bit for bit, and end the
+             phase with a table: ms beside SDPA, plain and bound, max|Δ|,
+             blocks, the key tiles skipped and walked again (counted by
+             the kernels on the card, in a launch that must give the
+             wrapper's bits), chunk_attention's split of the keys, and
+             ptxas' lines; the outer chunks with 6 pad queries at -1 are
+             held too, not timed. recurrentgemma's shapes:
              the decode reads at G 16 / dh 256 on wrapped rings of 2048
              with the window, lru_scan at (1, 2040, 4096) and (1, 1020,
              4096), with h0 and at an odd shape (no library yardstick: no
@@ -54,7 +64,9 @@ Phases, each printing its own lines:
              --paged --chunk-size 256 --prefix-cache: prefix-cache counters
              and chunk/paged-decode launch counts held to their expected
              values, tokens identical to the same command without the
-             prefix cache, then a profiled rerun as in phase 5.
+             prefix cache, then a profiled rerun as in phase 5 (the
+             prefill window and chunk_attention's device ms a request in
+             it, the decode loop).
 7. ds-parity — full-width deepseek-v2 cut to 2 layers (dense layer 0
              before the SOI middle, one MoE layer of 160 experts as the
              middle), float32, SOI pp: dense and paged engines with 3 slots
@@ -80,7 +92,8 @@ Phases, each printing its own lines:
              traffic of phase 6 through 4 bfloat16 layers: mla_chunk
              attention launches held to 28 (4 layers x 7 computed chunks),
              prefix-cache counters, warm against cold bit for bit, and a
-             profiled rerun.
+             profiled rerun (the prefill window with mla_chunk_attention's
+             device ms a request, the decode loop).
 10. rg-parity — full-width recurrentgemma-9b cut to 12 layers (SOI pre
              0..2, middle 3..8, post 9..11; 8 RG-LRU and 4 windowed MQA
              layers), float32, pp and fp, dense and paged (page 16): 3 slots
@@ -208,9 +221,13 @@ PATH_KERNELS = (
     ("flash_attention", ("22flash_attention_kernel", "Li128ELi128E")),
     ("flash_attention (MLA)", ("22flash_attention_kernel", "Li192ELi128E")),
     ("chunk_attention", ("22chunk_attention_kernel", "Li128E")),
+    ("chunk_attention's merge", ("20chunk_combine_kernel", "Li128E")),
+    ("chunk_attention, walk counted", ("17chunk_walk_kernel", "Li128E")),
     ("copy_pages", ("17copy_pages_kernel",)),
     ("mla_chunk_attention", ("26mla_chunk_attention_kernel",
                              "Li512ELi64E")),
+    ("mla_chunk_attention, walk counted", ("21mla_chunk_walk_kernel",
+                                           "Li512ELi64E")),
     ("paged_mla_decode_attention", ("33paged_mla_decode_attention_kernel",
                                     "Li512ELi64E")),
     ("lru_scan", ("15lru_scan_kernel", "kernelI")),
@@ -239,8 +256,9 @@ def _ptxas_lines(log: str) -> list:
         if m and name:
             for kind, needles in PATH_KERNELS:
                 if all(n in name for n in needles):
-                    dt = "bf16" if "bfloat16" in name else (
-                        "bytes" if kind == "copy_pages" else "f32")
+                    dt = ("bf16" if "bfloat16" in name
+                          or "tensor_cores" in name else
+                          "bytes" if kind == "copy_pages" else "f32")
                     smem = re.search(r"(\d+) bytes smem", line)
                     text = (f"  {kind}[{dt}]: {m.group(1)} registers, "
                             f"{smem.group(1) if smem else 0} B static "
@@ -864,6 +882,59 @@ KERNEL_META = {
 # kernels whose path runs float32 (the rest: bfloat16)
 F32_PATHS = ("lru_scan", "stmc_conv")
 DECODE_READS = ("decode_attention", "paged_decode_attention")
+CHUNK_KERNELS = ("chunk_attention", "mla_chunk_attention")
+
+
+def _chunk_walk(name, args, kw, got) -> dict:
+    """What the bf16 chunk body did on these inputs, counted by the kernel
+    on the card (kernels/chunk_attention.py: chunk_walk, mla_chunk_walk):
+    blocks of the main kernel, key tiles in reach of a block (summed over
+    the blocks), the tiles it skipped and the tiles it walked again. The
+    counted launch must give the wrapper's bits."""
+    from repro_torch.kernels import chunk_attention as CA
+    counted = (CA.chunk_walk if name == "chunk_attention"
+               else CA.mla_chunk_walk)
+    out, walk = counted(*args, **kw)
+    check(torch.equal(out, got),
+          f"{name}: the counted launch is not the wrapper's bit for bit")
+    tiles, skipped, again = (int(x) for x in walk.sum(0).tolist())
+    return {"blocks": walk.shape[0], "tiles": tiles,
+            "tiles_skipped": skipped, "tiles_walked_again": again,
+            "skipped_share": skipped / tiles}
+
+
+def _check_only(case):
+    """A phase-3 case held against its plain version, not timed."""
+    case[4]["check_only"] = True
+    return case
+
+
+def _walk_text(r) -> str:
+    return (f"{r['tiles_skipped']} / {r['tiles_walked_again']} of "
+            f"{r['tiles']} ({r['skipped_share']:.3f})" if "tiles" in r
+            else "-")
+
+
+def _chunk_table(recs, log: str):
+    """Phase 3's table of the chunk kernels: device ms [CUDA-event ms], x
+    SDPA, plain, bound and its share, max|Δ| against its bound, blocks, key
+    tiles skipped and walked again (counted on the card), the split; then
+    their ptxas lines."""
+    print("  chunk kernels (device ms [event ms]; x SDPA; plain; bound "
+          "(share); max|Δ| / tol; blocks; tiles skipped / walked again of "
+          "all, counted on the card; split):")
+    for r in recs:
+        split = (f"{r['n_split']} x {r['keys_per_split']}"
+                 if "n_split" in r else "-")
+        print(f"    {r['name']} {r['shape']} {r['dtype']}: {r['ms']:.4f} "
+              f"[{r['event_ms']:.4f}]; x{r['ms'] / r['library_ms']:.2f}; "
+              f"{r['plain_ms']:.4f}; {r['bound_ms']:.5f} "
+              f"({r['bound_ms'] / r['ms']:.3f}); {r['max_abs_err']:.2e} / "
+              f"{r['tol']:.2e}; {r.get('blocks', '-')}; {_walk_text(r)}; "
+              f"{split}")
+    for line in _ptxas_lines(log):
+        if "chunk" in line:
+            print("  " + line)
 
 
 def kernels_phase(dev) -> dict:
@@ -874,6 +945,7 @@ def kernels_phase(dev) -> dict:
     stmc_conv's records are their first float32 case, the dtype their
     paths run (stmc_conv: decoder 2 of the U-Net at B 1, one live stream)."""
     phase("3 kernels")
+    from repro_torch.kernels import _build
     from repro_torch.kernels import chunk_attention as CA
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
@@ -900,14 +972,21 @@ def kernels_phase(dev) -> dict:
                       FA.flash_attention, ref.flash_attention))
         # the last chunk of a 1024-token prompt: 256 queries at 768.. against
         # the 1088-row ring (768 live) plus the chunk; the middle's 128
-        # frames at 384.. against 768 + 128; 6 pad query rows each
+        # frames at 384.. against 768 + 128. Every query at a real position,
+        # as the serving path sends them (models/attention.py); then the
+        # outer chunk with 6 pad queries at -1, held but not timed
         cases.append(("chunk_attention", "outer q(1,256,16,128) Sk 1344", dt,
-                      _chunk_case(1, 256, 1088, 8, 2, 128, dt, 768, 768, 6,
+                      _chunk_case(1, 256, 1088, 8, 2, 128, dt, 768, 768, 0,
                                   dev, gen),
                       CA.chunk_attention, ref.chunk_attention))
         cases.append(("chunk_attention", "middle q(1,128,16,128) Sk 896", dt,
-                      _chunk_case(1, 128, 768, 8, 2, 128, dt, 384, 384, 6,
+                      _chunk_case(1, 128, 768, 8, 2, 128, dt, 384, 384, 0,
                                   dev, gen),
+                      CA.chunk_attention, ref.chunk_attention))
+        cases.append(("chunk_attention",
+                      "outer q(1,256,16,128) Sk 1344, 6 pad queries", dt,
+                      _check_only(_chunk_case(1, 256, 1088, 8, 2, 128, dt,
+                                              768, 768, 6, dev, gen)),
                       CA.chunk_attention, ref.chunk_attention))
         # the serving pools (slots * pages_per_slot + 1 pages) at clocks
         # 1056.. (outer) and frames 528.. (middle)
@@ -924,17 +1003,24 @@ def kernels_phase(dev) -> dict:
                       dt, _flash_case(1, 1024, 128, 1, 192, dt, dev, gen,
                                       dv=128),
                       FA.flash_attention, ref.flash_attention))
-        # the MLA stack's serving chunk (as chunk_attention's above) and
-        # the paged decode read at clocks 1056.. / frames 528..
+        # the MLA stack's serving chunk (as chunk_attention's above, the
+        # pad queries' case held but not timed) and the paged decode read
+        # at clocks 1056.. / frames 528..
         cases.append(("mla_chunk_attention",
                       "outer q(1,256,128,512+64) Sk 1344", dt,
                       _mla_chunk_case(1, 256, 1088, 128, 512, 64, dt, 768,
-                                      768, 6, dev, gen),
+                                      768, 0, dev, gen),
                       CA.mla_chunk_attention, ref.mla_chunk_attention))
         cases.append(("mla_chunk_attention",
                       "middle q(1,128,128,512+64) Sk 896", dt,
                       _mla_chunk_case(1, 128, 768, 128, 512, 64, dt, 384,
-                                      384, 6, dev, gen),
+                                      384, 0, dev, gen),
+                      CA.mla_chunk_attention, ref.mla_chunk_attention))
+        cases.append(("mla_chunk_attention",
+                      "outer q(1,256,128,512+64) Sk 1344, 6 pad queries", dt,
+                      _check_only(_mla_chunk_case(1, 256, 1088, 128, 512, 64,
+                                                  dt, 768, 768, 6, dev,
+                                                  gen)),
                       CA.mla_chunk_attention, ref.mla_chunk_attention))
         cases.append(("paged_mla_decode_attention",
                       "outer pools (273,16,512+64) map (4,68) H 128", dt,
@@ -1000,7 +1086,7 @@ def kernels_phase(dev) -> dict:
                   torch.bfloat16,
                   _copy_case(273, 16, 8, 128, torch.bfloat16, dev, gen),
                   PC.copy_pages, ref.copy_pages))
-    main = {}
+    main, chunk_recs = {}, []
     for (name, shape, dt, (sets, nbytes, flops, library, extra), kern,
          plain) in cases:
         kw = extra.get("kw", {})
@@ -1024,12 +1110,14 @@ def kernels_phase(dev) -> dict:
         if extra.get("inplace"):
             check(torch.equal(got, want), f"{name} {shape}: not bit-exact")
         is_read = name in DECODE_READS
+        is_chunk = name in CHUNK_KERNELS
         tol = TOL[dt]
-        if is_read and dt == torch.bfloat16:
+        if (is_read or is_chunk) and dt == torch.bfloat16:
             tol = min(tol, READ_REL_TOL * float(want.float().abs().max()))
         check(err < tol, f"{name} {shape} {dt}: max|Δ| {err} >= {tol}")
+        check_only = extra.get("check_only", False)
         lib_err = None
-        if library is not None:
+        if library is not None and not check_only:
             lib = library(*fresh()).float()
             rows = extra.get("rows")
             if rows is not None:
@@ -1046,7 +1134,13 @@ def kernels_phase(dev) -> dict:
                 rec_extra["split_coverage_err"] = _split_coverage(
                     kern, plain, args, plan, f"{name} {shape} {dt}")
             rec_extra["host_ms"] = _host_ms(kern, sets, 100)
-        if dt == torch.bfloat16 and (name == "flash_attention" or is_read):
+        if is_chunk and dt == torch.bfloat16:
+            rec_extra.update(_chunk_walk(name, args, kw, got))
+            if name == "chunk_attention":
+                plan = CA.launch_plan(args[0], args[1])
+                rec_extra["n_split"], rec_extra["keys_per_split"] = plan[:2]
+        if dt == torch.bfloat16 and (name == "flash_attention" or is_read
+                                     or is_chunk):
             # the tensor-core bodies add in a fixed order (no atomics): a
             # second launch on the same inputs gives the same bits
             again = kern(*fresh())
@@ -1068,6 +1162,11 @@ def kernels_phase(dev) -> dict:
             rec_extra["equals_plain"] = bool(torch.equal(got, want))
             check(rec_extra["equals_plain"],
                   f"{name} {shape}: float32 not bit for bit the plain's")
+        if check_only:
+            print(f"  held, not timed: {name} {shape} {str(dt)[6:]}: "
+                  f"max|Δ| {err:.2e} / {tol:.2e}; tiles skipped / walked "
+                  f"again of all: {_walk_text(rec_extra)}", flush=True)
+            continue
         # ms: device time per call from the profiler (the call's kernels,
         # host launch gaps excluded) — the plain version and the library
         # call spend more time in host dispatch than on the card, which
@@ -1086,10 +1185,11 @@ def kernels_phase(dev) -> dict:
         for key, val in dev_ms.items():
             if val is None:            # the profiler saw no device activity
                 dev_ms[key] = event[key.replace("ms", "event_ms")]
-        if is_read and parts:
+        if (is_read or is_chunk) and parts:
             # the split kernel and the combine apart
             rec_extra["combine_ms"] = sum(
-                v for k_, v in parts.items() if "decode_combine" in k_)
+                v for k_, v in parts.items()
+                if "decode_combine" in k_ or "chunk_combine" in k_)
             rec_extra["split_ms"] = sum(parts.values()) - rec_extra[
                 "combine_ms"]
         bound_ms, bound_by = _bound(nbytes, flops, dt)
@@ -1099,13 +1199,18 @@ def kernels_phase(dev) -> dict:
                "library_max_abs_err": lib_err, "bytes": nbytes,
                "flops": flops, **rec_extra}
         print(json.dumps({"kernels": [rec]}), flush=True)
+        if is_chunk:
+            chunk_recs.append(rec)
         key = name + (" (MLA)" if shape.startswith("MLA") else
                       " (RG middle)" if shape.startswith("RG middle") else
-                      " (RG)" if shape.startswith("RG") else "")
+                      " (RG)" if shape.startswith("RG") else
+                      " (middle)" if is_chunk and shape.startswith("middle")
+                      else "")
         serving_dt = (torch.float32 if name in F32_PATHS
                       else torch.bfloat16)
         if dt == serving_dt and key not in main:
             main[key] = rec
+    _chunk_table(chunk_recs, _build.build_info().log)
     return main
 
 
@@ -1285,26 +1390,37 @@ def serve_phase(dev):
     return counts
 
 
-def _prefill_profile(ev, n_req: int, kernel: str):
+def _named(name: str, kernels) -> bool:
+    """Is the device event ``name`` one of ``kernels`` (a name or a tuple
+    of names)?"""
+    kernels = (kernels,) if isinstance(kernels, str) else kernels
+    return any(k in name for k in kernels)
+
+
+def _prefill_profile(ev, n_req: int, kernel):
     """Device busy time and idle share of a serve run's prefill window,
     from its first device event to the end of the last ``kernel`` (the
-    prefill attention), kernel time by name over it, and ``kernel``'s own
-    device time in it."""
-    prefill_end = max(e for _s, e, n in ev if kernel in n)
+    prefill attention: a name or a tuple of names, e.g. a kernel and its
+    merge), kernel time by name over it, and ``kernel``'s own device time
+    in it; returns that time a request, in ms."""
+    prefill_end = max(e for _s, e, n in ev if _named(n, kernel))
     window = [(s_, min(e, prefill_end), n) for s_, e, n in ev
               if s_ < prefill_end]
     busy = _window_profile(window, n_req, "prefill", "request")
-    mine = sum(e - s_ for s_, e, n in window if kernel in n)
-    print(f"  {kernel} in the prefill window: {mine / 1e3:.3f} ms on the "
+    mine = sum(e - s_ for s_, e, n in window if _named(n, kernel))
+    label = kernel if isinstance(kernel, str) else " + ".join(kernel)
+    print(f"  {label} in the prefill window: {mine / 1e3:.3f} ms on the "
           f"device, {mine / busy:.3f} of its busy time, "
-          f"{mine / 1e3 / n_req:.3f} ms a request")
+          f"{mine / 1e3 / n_req:.4f} ms a request")
+    return mine / 1e3 / n_req
 
 
-def _decode_profile(ev, steps: int, prefill_kernel: str):
+def _decode_profile(ev, steps: int, prefill_kernel):
     """Device busy time and idle share of a serve run's decode loop, which
-    starts after the last ``prefill_kernel``; kernel time by name over that
-    window. Returns the loop's device events."""
-    prefill_end = max(e for _s, e, n in ev if prefill_kernel in n)
+    starts after the last ``prefill_kernel`` (a name or a tuple of names);
+    kernel time by name over that window. Returns the loop's device
+    events."""
+    prefill_end = max(e for _s, e, n in ev if _named(n, prefill_kernel))
     loop = [(s_, e, n) for s_, e, n in ev if s_ >= prefill_end]
     _window_profile(loop, steps, "decode", "step")
     return loop
@@ -1446,7 +1562,10 @@ def paged_serve_phase(dev):
     print("  profiled rerun:")
     ev = _device_events(lambda: serve.run(args))
     check(ev, "the profiler saw no device activity")
-    _decode_profile(ev, res.steps, "chunk_attention_kernel")
+    # the chunks' range kernel and, split, their merge
+    chunk = ("chunk_attention_kernel", "chunk_combine_kernel")
+    _prefill_profile(ev, len(res.seqs), chunk)
+    _decode_profile(ev, res.steps, chunk)
     return counts
 
 
@@ -1721,6 +1840,7 @@ def mla_phase(dev) -> tuple:
     print("  profiled rerun:")
     ev = _device_events(lambda: serve.run(args, cfg))
     check(ev, "the profiler saw no device activity")
+    _prefill_profile(ev, len(res.seqs), "mla_chunk_attention_kernel")
     _decode_profile(ev, res.steps, "mla_chunk_attention_kernel")
     _free(dev)
     return cow_counts, counts
@@ -2128,6 +2248,16 @@ def main():
                                             else "dense") + ")")
             check(rg_second[name][name] > 0,
                   f"{name} never launched on the recurrentgemma serve")
+        if name in CHUNK_KERNELS:
+            # the same wrapper on the middle's chunk of compressed frames
+            mid = main_recs[name + " (middle)"]
+            summary[-1]["middle"] = {
+                key: mid[key] for key in ("shape", "max_abs_err", "ms",
+                                          "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms")}
+            summary[-1]["middle"].update(
+                launches=cnt[name],
+                launches_on=path + ", outer and middle layers")
         if name == "decode_attention":
             # the same wrapper on recurrentgemma's compressed middle rings
             mid = main_recs[name + " (RG middle)"]

@@ -40,13 +40,14 @@ SIGNATURES = {
     "repro_flash_attention": [_P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                               _I, _P],
-    "repro_chunk_attention": [_P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    "repro_chunk_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
+                              _I, _P],
     "repro_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _I, _F,
                                      _I, _I, _I, _P],
     "repro_copy_pages": [_P, _P, _P, _I, _I, _L, _P],
-    "repro_mla_chunk_attention": [_P, _P, _P, _P, _P, _P, _P,
+    "repro_mla_chunk_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "repro_paged_mla_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
                                          _I, _I, _I, _I, _I, _I, _F, _I,

@@ -5,6 +5,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace repro_torch {
 
 // The finite "minus infinity" of the reference (repro.kernels.ref.NEG_INF):
@@ -51,6 +53,29 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
+}
+
+// Sets a kernel's dynamic shared memory to `bytes` and its carveout to the
+// most shared memory, once a device (of the first 64): the attributes
+// belong to the current device, and `done` (the caller's own, one per
+// kernel) marks the devices already set.
+template <class Kernel>
+inline cudaError_t set_smem_once(std::atomic<uint64_t>& done, Kernel kernel,
+                                 size_t bytes) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return e;
 }
 
 // dtype codes shared with the Python wrappers (kernels/_build.py)

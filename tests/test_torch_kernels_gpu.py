@@ -7,7 +7,10 @@ bit, the decode reads at recurrentgemma's G 16 / dh 256 on a wrapped
 windowed ring and at the edges of their split of S, where the paged read
 equals the dense one bit for bit, bf16 results repeat bit for bit and stay
 within 2^-6 of their largest output, and every split's partial counts
-once at its weight),
+once at its weight; the chunk kernels' bf16 tensor-core bodies over whole
+dead key tiles, q tiles of pad rows only, ragged C and Sk, G 1 to 8 and H
+no multiple of their 64-head blocks, held to the same 2^-6 and repeating
+bit for bit, split or not),
 ``lru_scan`` (bit for bit in float32) and ``stmc_conv`` (at the streaming
 U-Net's shapes, with and without bias; float32 results repeat bit for
 bit), bit-exact for ``copy_pages``; and a narrow U-Net streamed on the card
@@ -288,10 +291,52 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
             kpc.reshape(3, 4), pm[:1], t[:1], scale=0.1)
 
 
+def _offset_view(shape, dtype, device):
+    """A contiguous tensor whose data starts one element (2 bytes in bf16)
+    past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, dtype=dtype, device=device)[1:].view(shape)
+
+
+@pytest.mark.gpu
+def test_cuda_chunk_kernels_reject_misaligned_bf16(cuda):
+    """The bf16 bodies copy 16 bytes at a time: a base pointer off a
+    16-byte boundary raises before any launch (none counted)."""
+    bf = torch.bfloat16
+    q = _offset_view((1, 4, 4, 64), bf, cuda)
+    k = torch.zeros(1, 12, 2, 64, dtype=bf, device=cuda)
+    qp = torch.zeros(1, 4, dtype=torch.int32, device=cuda)
+    kp = torch.zeros(1, 12, dtype=torch.int32, device=cuda)
+    n0 = PCA.chunk_attention.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        PCA.chunk_attention(q, k, k, qp, kp)
+    ql = _offset_view((1, 4, 4, 512), bf, cuda)
+    qr = torch.zeros(1, 4, 4, 64, dtype=bf, device=cuda)
+    lat = torch.zeros(1, 12, 512, dtype=bf, device=cuda)
+    rope = torch.zeros(1, 12, 64, dtype=bf, device=cuda)
+    m0 = PCA.mla_chunk_attention.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        PCA.mla_chunk_attention(ql, qr, lat, rope, qp, kp, scale=0.1)
+    assert PCA.chunk_attention.launches == n0
+    assert PCA.mla_chunk_attention.launches == m0
+
+
+def _ring(q0, s_cache, filled, holes):
+    """Positions of a ring of ``s_cache`` rows before position ``q0``:
+    the first ``filled`` rows live (wrapped), the rest empty, and every
+    ``holes``-th row empty too."""
+    ring = q0 - 1 - ((q0 - 1 - np.arange(s_cache)) % s_cache)
+    ring = np.where(np.arange(s_cache) < filled, ring, -1)
+    if holes:
+        ring[::holes] = -1
+    return ring
+
+
 def _chunk_inputs(seed, b, c, s_cache, h, hkv, dh, *, filled, q0,
-                  pad_rows=0):
+                  pad_rows=0, holes=0, key_shift=0):
     """C queries at q0.. (the last ``pad_rows`` at -1) against a ring of
-    ``s_cache`` rows (``filled`` of them live, wrapped) plus the chunk."""
+    ``s_cache`` rows (``_ring``) plus the chunk, every key position moved
+    ``key_shift`` later (so early queries may see no key)."""
     rng = np.random.default_rng(seed)
     sk = s_cache + c
     q = _normal(rng, (b, c, h, dh))
@@ -300,10 +345,10 @@ def _chunk_inputs(seed, b, c, s_cache, h, hkv, dh, *, filled, q0,
     qp = np.broadcast_to(q0 + np.arange(c, dtype=np.int32), (b, c)).copy()
     if pad_rows:
         qp[:, c - pad_rows:] = -1
-    ring = q0 - 1 - ((q0 - 1 - np.arange(s_cache)) % s_cache)
-    ring = np.where(np.arange(s_cache) < filled, ring, -1)
+    ring = _ring(q0, s_cache, filled, holes)
     kp = np.concatenate([np.broadcast_to(ring, (b, s_cache)), qp],
                         axis=1).astype(np.int32)
+    kp = np.where(kp >= 0, kp + key_shift, -1).astype(np.int32)
     return q, k, v, qp, kp
 
 
@@ -315,6 +360,25 @@ GPU_CHUNK = {
                    q0=384),
     "ring_window_softcap": dict(b=2, c=50, s_cache=70, h=8, hkv=2, dh=64,
                                 filled=70, q0=100, window=30, cap=20.0),
+    # whole dead key tiles: an empty stretch of 256 ring rows, and every
+    # third row empty besides
+    "dead_stretch_holes": dict(b=2, c=70, s_cache=600, h=8, hkv=4, dh=64,
+                               filled=344, q0=500, holes=3),
+    # a q tile of pad rows only (flat rows 64..99 at G 1): the walk again
+    "pad_q_tile": dict(b=1, c=100, s_cache=200, h=4, hkv=4, dh=64,
+                       filled=150, q0=150, pad_rows=40),
+    # C and Sk no multiples of the tiles
+    "ragged": dict(b=2, c=37, s_cache=91, h=8, hkv=4, dh=32, filled=70,
+                   q0=80, pad_rows=3),
+    "ragged_window": dict(b=1, c=65, s_cache=130, h=4, hkv=2, dh=16,
+                          filled=110, q0=200, pad_rows=7, window=41),
+    # queries at real positions that see no key (the first 16: every key
+    # lies after them), in blocks whose other rows do: the walk again
+    "late_keys": dict(b=1, c=48, s_cache=64, h=4, hkv=2, dh=64, filled=64,
+                      q0=100, key_shift=80),
+    **{f"g{g}_dh{dh}": dict(b=1, c=96, s_cache=300, h=8, hkv=8 // g, dh=dh,
+                            filled=250, q0=260, pad_rows=4)
+       for g in (1, 2, 4, 8) for dh in (64, 128)},
 }
 
 
@@ -336,7 +400,63 @@ def test_cuda_chunk_attention_matches_plain(cuda, case, dtype):
     assert bool(torch.isfinite(got).all())        # pad query rows included
     want = pref.chunk_attention(q, k, v, qp, kp, window=win,
                                 logit_softcap=cap)
-    _close(got.float().cpu(), want.float().cpu(), TOL[dtype])
+    _close(got.float().cpu(), want.float().cpu(), _read_tol(want, dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", ["plan", "one_range"])
+def test_cuda_chunk_attention_bf16_repeats_bit_for_bit(cuda, split):
+    """The serving chunk, pad rows included, over the wrapper's split of
+    the keys and over one range: a second launch gives the same bits (no
+    atomics; the merge adds in split order), and the two plans agree
+    within the bf16 bound."""
+    q, k, v, qp, kp = _chunk_inputs(8, **GPU_CHUNK["outer"])
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+               for x in (q, k, v))
+    qp, kp = torch.from_numpy(qp).to(cuda), torch.from_numpy(kp).to(cuda)
+    plan = PCA.launch_plan(q, k)
+    assert plan[0] > 1                 # the serving chunk is split
+    if split == "one_range":
+        plan = (1, plan[1] * plan[0], None)
+    first = PCA._run_plan(q, k, v, qp, kp, plan)
+    again = PCA._run_plan(q, k, v, qp, kp, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    want = pref.chunk_attention(q, k, v, qp, kp)
+    _close(first.float().cpu(), want.float().cpu(),
+           _read_tol(want, "bfloat16"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,again", [
+    ("middle", False),                  # the serving middle chunk: no pad
+    ("dead_stretch_holes", False),
+    ("pad_q_tile", True),               # a q tile of pad rows only
+    ("late_keys", True)])               # real rows that see no key
+def test_cuda_chunk_walk_counted_on_the_card(cuda, case, again):
+    """The bf16 body's own counts: each block reports the tiles of its
+    range, skips whole dead tiles, and walks its range again (all of it)
+    only where a row sees no key in all of Sk; the counted launch gives
+    the wrapper's bits."""
+    kw = dict(GPU_CHUNK[case])
+    q, k, v, qp, kp = _chunk_inputs(8, **kw)
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+               for x in (q, k, v))
+    qp, kp = torch.from_numpy(qp).to(cuda), torch.from_numpy(kp).to(cuda)
+    n0 = PCA.chunk_attention.launches
+    out, walk = PCA.chunk_walk(q, k, v, qp, kp)
+    assert PCA.chunk_attention.launches == n0
+    assert torch.equal(out, PCA.chunk_attention(q, k, v, qp, kp))
+    n_split, keys, _ = PCA.launch_plan(q, k)
+    sk = k.shape[1]
+    tiles = torch.tensor([-(-(min(sk, (i + 1) * keys) - i * keys)
+                            // PCA.KEY_TILE) for i in range(n_split)])
+    w = walk.cpu().view(n_split, -1, 3)    # (split, row block, counts)
+    assert torch.equal(w[..., 0], tiles[:, None].expand_as(w[..., 0]))
+    assert int(w[..., 1].sum()) > 0
+    assert bool((w[..., 1] <= w[..., 0]).all())
+    assert bool(((w[..., 2] == 0) | (w[..., 2] == w[..., 0])).all())
+    assert bool((w[..., 2] > 0).any()) == again
 
 
 def _paged_inputs(seed, b, h, hkv, dh, p_sz, n_pp, t_base):
@@ -418,10 +538,10 @@ def test_cuda_copy_pages_bit_exact(cuda, case):
 
 
 def _mla_chunk_inputs(seed, b, c, s_cache, h, lat_d, r, *, filled, q0,
-                      pad_rows=0):
+                      pad_rows=0, holes=0, key_shift=0):
     """Absorbed-MLA chunk inputs: C queries at q0.. (the last ``pad_rows``
-    at -1) against a ring of ``s_cache`` latent rows (``filled`` of them
-    live, wrapped) plus the chunk's own."""
+    at -1) against a ring of ``s_cache`` latent rows (``_ring``) plus the
+    chunk's own, every key position moved ``key_shift`` later."""
     rng = np.random.default_rng(seed)
     sk = s_cache + c
     ql, qr = _normal(rng, (b, c, h, lat_d)), _normal(rng, (b, c, h, r))
@@ -429,10 +549,10 @@ def _mla_chunk_inputs(seed, b, c, s_cache, h, lat_d, r, *, filled, q0,
     qp = np.broadcast_to(q0 + np.arange(c, dtype=np.int32), (b, c)).copy()
     if pad_rows:
         qp[:, c - pad_rows:] = -1
-    ring = q0 - 1 - ((q0 - 1 - np.arange(s_cache)) % s_cache)
-    ring = np.where(np.arange(s_cache) < filled, ring, -1)
+    ring = _ring(q0, s_cache, filled, holes)
     kp = np.concatenate([np.broadcast_to(ring, (b, s_cache)), qp],
                         axis=1).astype(np.int32)
+    kp = np.where(kp >= 0, kp + key_shift, -1).astype(np.int32)
     return ql, qr, lat, rope, qp, kp
 
 
@@ -443,6 +563,19 @@ GPU_MLA_CHUNK = {
                   filled=768, q0=768, pad_rows=6),
     "middle": dict(b=1, c=128, s_cache=768, h=128, lat_d=512, r=64,
                    filled=384, q0=384, pad_rows=3),
+    # whole dead 32-key tiles (an empty stretch of 128 rows and every
+    # fifth row empty), ragged C and Sk, pad queries
+    "dead_stretch_holes": dict(b=2, c=45, s_cache=300, h=128, lat_d=512,
+                               r=64, filled=172, q0=400, pad_rows=4,
+                               holes=5),
+    # H no multiple of the block's 64 heads, B 2
+    "h4_b2": dict(b=2, c=20, s_cache=70, h=4, lat_d=512, r=64, filled=50,
+                  q0=60, pad_rows=2),
+    "h72_b2": dict(b=2, c=24, s_cache=100, h=72, lat_d=512, r=64, filled=80,
+                   q0=90, pad_rows=3),
+    # real query positions that see no key (the first 16): the walk again
+    "late_keys": dict(b=1, c=24, s_cache=64, h=16, lat_d=512, r=64,
+                      filled=64, q0=100, key_shift=80),
 }
 
 
@@ -462,7 +595,51 @@ def test_cuda_mla_chunk_attention_matches_plain(cuda, case, dtype):
     assert PCA.mla_chunk_attention.launches == n0 + 1
     assert bool(torch.isfinite(got).all())        # pad query rows included
     want = pref.mla_chunk_attention(ql, qr, lat, rope, qp, kp, scale=scale)
-    _close(got.float().cpu(), want.float().cpu(), TOL[dtype])
+    _close(got.float().cpu(), want.float().cpu(), _read_tol(want, dtype))
+
+
+@pytest.mark.gpu
+def test_cuda_mla_chunk_attention_bf16_repeats_bit_for_bit(cuda):
+    ql, qr, lat, rope, qp, kp = _mla_chunk_inputs(
+        11, **GPU_MLA_CHUNK["outer"])
+    ql, qr, lat, rope = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+                         for x in (ql, qr, lat, rope))
+    qp, kp = torch.from_numpy(qp).to(cuda), torch.from_numpy(kp).to(cuda)
+    scale = (128 + 64) ** -0.5
+    first = PCA.mla_chunk_attention(ql, qr, lat, rope, qp, kp, scale=scale)
+    again = PCA.mla_chunk_attention(ql, qr, lat, rope, qp, kp, scale=scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,again", [("middle", False),
+                                        ("dead_stretch_holes", False),
+                                        ("late_keys", True)])
+def test_cuda_mla_chunk_walk_counted_on_the_card(cuda, case, again):
+    """The bf16 MLA body's own counts: a block (heads of one query) skips
+    whole dead tiles, a pad query's block none, and only a query that
+    sees no key walks every tile again; the counted launch gives the
+    wrapper's bits."""
+    kw = GPU_MLA_CHUNK[case]
+    ql, qr, lat, rope, qp, kp = _mla_chunk_inputs(11, **kw)
+    ql, qr, lat, rope = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+                         for x in (ql, qr, lat, rope))
+    qp, kp = torch.from_numpy(qp).to(cuda), torch.from_numpy(kp).to(cuda)
+    scale = (128 + 64) ** -0.5
+    m0 = PCA.mla_chunk_attention.launches
+    out, walk = PCA.mla_chunk_walk(ql, qr, lat, rope, qp, kp, scale=scale)
+    assert PCA.mla_chunk_attention.launches == m0
+    assert torch.equal(out, PCA.mla_chunk_attention(ql, qr, lat, rope, qp,
+                                                     kp, scale=scale))
+    b, c = qp.shape
+    # blocks (b, y, x) hold query c - 1 - y: flip to query order
+    w = walk.cpu().view(b, c, -1, 3).flip(1)
+    assert bool((w[..., 0] == -(-lat.shape[1] // 32)).all())
+    assert int(w[..., 1].sum()) > 0
+    assert int(w[qp.cpu() < 0][..., 1].sum()) == 0
+    assert bool(((w[..., 2] == 0) | (w[..., 2] == w[..., 0])).all())
+    assert bool((w[..., 2] > 0).any()) == again
 
 
 GPU_PAGED_MLA = {
