@@ -41,7 +41,14 @@ Phases, each printing its own lines:
              4096), with h0 and at an odd shape (no library yardstick: no
              single PyTorch call computes the recurrence). stmc_conv at the
              streaming U-Net's shapes, float32 and bfloat16 (torch.addmm as
-             the yardstick).
+             the yardstick), launched twice and held bit for bit, with its
+             plan (blocks, cluster size, columns a block); the paged MLA
+             read in bf16 prints its split of S and blocks, its split
+             kernel and combine apart and its host ms a call, as the decode
+             reads do. A table of these two kernels follows the chunk
+             table, then stmc_conv in float32 at B 1 on each of the 14
+             convs of soi-unet-dns beside addmm and the bound, and their
+             sum against the bound of a frame's weights.
 4. parity  — full-width qwen3-1.7b cut to 4 layers (SOI over layers 1..3),
              float32, pp and fp: the port's SOIEngine with 3 slots (prompts
              of 200 and 201 tokens, a third of 150 after 3 steps), 8 greedy
@@ -83,7 +90,8 @@ Phases, each printing its own lines:
              time at SOI phase 0 against off-phase steps (host clock after
              a synchronize); a profiled rerun for the prefill window (busy
              time, idle share, flash_attention time) and the decode
-             loop's idle share.
+             loop's idle share and paged MLA read's device ms a step
+             (split kernel and combine apart).
 9. mla     — deepseek-v2's layer-0 block (MLA + SwiGLU 12288) at full
              width, SOI pp. Card against CPU in float32 (2 layers): a
              paged, chunked prefix-cache engine whose rings wrap onto
@@ -125,7 +133,8 @@ Phases, each printing its own lines:
              after a synchronize), frames/s, the real-time factor against
              16 ms a frame, the MAC retain beside the measured step-time
              ratio to the baseline, peak device memory, and from a profiled
-             rerun the idle share and kernel time by name.
+             rerun the idle share, kernel time by name and stmc_conv's
+             device ms a frame.
 14. the kernels JSON line, the card line, and last {"ok": true, ...}.
 
 Any failure raises and exits nonzero; no result line is printed then.
@@ -232,7 +241,7 @@ PATH_KERNELS = (
                                     "Li512ELi64E")),
     ("lru_scan", ("15lru_scan_kernel", "kernelI")),
     ("stmc_conv (B 1)", ("16stmc_conv_kernel", "Li1E")),
-    ("stmc_conv (B 8 tile)", ("16stmc_conv_kernel", "Li8E")),
+    ("stmc_conv (B 32 tile)", ("16stmc_conv_kernel", "Li32E")),
 )
 
 
@@ -883,6 +892,11 @@ KERNEL_META = {
 F32_PATHS = ("lru_scan", "stmc_conv")
 DECODE_READS = ("decode_attention", "paged_decode_attention")
 CHUNK_KERNELS = ("chunk_attention", "mla_chunk_attention")
+# the reads that split S and merge the ranges in a combine kernel
+SPLIT_READS = DECODE_READS + ("paged_mla_decode_attention",)
+# the kernels this slice redesigned, tabled at the end of phase 3
+REDESIGNED = ("stmc_conv", "paged_mla_decode_attention")
+
 
 
 def _chunk_walk(name, args, kw, got) -> dict:
@@ -935,6 +949,85 @@ def _chunk_table(recs, log: str):
     for line in _ptxas_lines(log):
         if "chunk" in line:
             print("  " + line)
+
+
+def _plan_text(r) -> str:
+    """A redesigned kernel's plan as phase 3 prints it."""
+    p = r.get("plan")
+    if p is None:
+        return "-"
+    if r["name"] == "stmc_conv":
+        return (f"{p['blocks']} blocks, cluster {p['splits']} x "
+                f"{p['keys_per_split']} rows of K*Cin, {p['cols']} columns "
+                f"a block, {p['rows']} rows of B, "
+                f"{'16-byte' if p['vec16'] else 'edge-path'} loads; host "
+                f"{r['host_ms']:.4f} ms a call")
+    return (f"{p['blocks']} blocks = {p['groups']} head groups x "
+            f"{p['n_split']} ranges of {p['keys_per_split']} keys x B; "
+            f"split {r.get('split_ms', math.nan):.4f} + combine "
+            f"{r.get('combine_ms', math.nan):.4f} ms, host "
+            f"{r['host_ms']:.4f} ms a call")
+
+
+def _redesign_table(recs, log: str):
+    """Phase 3's table of the kernels this slice redesigned: device ms
+    [CUDA-event ms], x the library call, plain, bound and its share,
+    max|Δ| against its tolerance, and the plan; then their ptxas lines."""
+    print("  redesigned kernels (device ms [event ms]; x library; plain; "
+          "bound (share); max|Δ| / tol; plan):")
+    for r in recs:
+        lib = (f"x{r['ms'] / r['library_ms']:.2f}" if r["library_ms"]
+               else "-")
+        print(f"    {r['name']} {r['shape']} {r['dtype']}: {r['ms']:.4f} "
+              f"[{r['event_ms']:.4f}]; {lib}; {r['plain_ms']:.4f}; "
+              f"{r['bound_ms']:.5f} ({r['bound_ms'] / r['ms']:.3f}); "
+              f"{r['max_abs_err']:.2e} / {r['tol']:.2e}; {_plan_text(r)}")
+    for line in _ptxas_lines(log):
+        if "stmc_conv" in line or "paged_mla" in line:
+            print("  " + line)
+
+
+def _unet_conv_sweep(dev, gen) -> dict:
+    """stmc_conv in float32 at B 1 (one live stream) on each of the 14
+    convs of soi-unet-dns, beside torch.addmm and the bound (device ms from
+    the profiler), each held to the plain version; their sums against the
+    bound of a frame's weights. Returns the sums."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import stmc_conv as SC
+    from repro_torch.models import unet as U
+    f32 = torch.float32
+    cfg = _unet_cfg(None)
+    enc_io, dec_io = U._layer_io(cfg)
+    convs = ([(f"enc{i + 1}", cfg.kernel, ci, co)
+              for i, (ci, co) in enumerate(enc_io)]
+             + [(f"dec{i + 1}", cfg.kernel, ci, co)
+                for i, (ci, co) in enumerate(dec_io)])
+    print(f"  stmc_conv f32 B 1 on the {len(convs)} convs of soi-unet-dns "
+          f"(device ms; addmm; bound (share); plan; max|Δ|):")
+    tot = {"ms": 0.0, "addmm_ms": 0.0, "bound_ms": 0.0}
+    for label, k, cin, cout in convs:
+        sets, nbytes, flops, library, _ = _stmc_case(1, k, cin, cout, f32,
+                                                     dev, gen)
+        got = SC.stmc_conv(*sets[0])
+        err = float((got - ref.stmc_conv(*sets[0])).abs().max())
+        check(err < TOL[f32], f"stmc_conv {label}: max|Δ| {err}")
+        ms = (_device_ms(SC.stmc_conv, sets, 20)
+              or _time_ms(SC.stmc_conv, sets, 50))
+        lib = _device_ms(library, sets, 20) or _time_ms(library, sets, 50)
+        bound, _ = _bound(nbytes, flops, f32)
+        plan = SC.stmc_plan(1, k * cin, cout, f32)
+        print(f"    {label} ({k * cin}x{cout}): {ms:.4f}; {lib:.4f}; "
+              f"{bound:.5f} ({bound / ms:.3f}); {plan.blocks} blocks = "
+              f"{-(-cout // plan.cols)} x {plan.splits}, {plan.cols} "
+              f"columns; {err:.1e}", flush=True)
+        tot["ms"] += ms
+        tot["addmm_ms"] += lib
+        tot["bound_ms"] += bound
+    print(f"    sum of the {len(convs)}: {tot['ms']:.4f} ms against addmm "
+          f"{tot['addmm_ms']:.4f}; the frame's bound "
+          f"{tot['bound_ms'] * 1e3:.1f} µs (share "
+          f"{tot['bound_ms'] / tot['ms']:.3f})")
+    return tot
 
 
 def kernels_phase(dev) -> dict:
@@ -1086,7 +1179,7 @@ def kernels_phase(dev) -> dict:
                   torch.bfloat16,
                   _copy_case(273, 16, 8, 128, torch.bfloat16, dev, gen),
                   PC.copy_pages, ref.copy_pages))
-    main, chunk_recs = {}, []
+    main, chunk_recs, redesigned = {}, [], []
     for (name, shape, dt, (sets, nbytes, flops, library, extra), kern,
          plain) in cases:
         kw = extra.get("kw", {})
@@ -1109,7 +1202,7 @@ def kernels_phase(dev) -> dict:
               f"{name} {shape}: non-finite")
         if extra.get("inplace"):
             check(torch.equal(got, want), f"{name} {shape}: not bit-exact")
-        is_read = name in DECODE_READS
+        is_read = name in SPLIT_READS
         is_chunk = name in CHUNK_KERNELS
         tol = TOL[dt]
         if (is_read or is_chunk) and dt == torch.bfloat16:
@@ -1127,8 +1220,18 @@ def kernels_phase(dev) -> dict:
             lib_err = float((lib - ref_rows).abs().max())
         rec_extra = {"tol": tol}
         if is_read:
-            plan = (DA.launch_plan(args[0], args[1]) if len(args) == 5 else
-                    DA.paged_launch_plan(args[0], args[1], args[4]))
+            if name == "paged_mla_decode_attention":
+                plan = DA.paged_mla_launch_plan(args[0], args[1], args[4],
+                                                args[5])
+                groups = -(-args[0].shape[1] // DA.MLA_HEADS_PER_BLOCK)
+                rec_extra["plan"] = {
+                    "n_split": plan[0], "keys_per_split": plan[1],
+                    "groups": groups,
+                    "blocks": groups * plan[0] * args[0].shape[0]}
+            elif len(args) == 5:
+                plan = DA.launch_plan(args[0], args[1])
+            else:
+                plan = DA.paged_launch_plan(args[0], args[1], args[4])
             rec_extra["n_split"], rec_extra["keys_per_split"] = plan[:2]
             if shape.startswith("RG"):
                 rec_extra["split_coverage_err"] = _split_coverage(
@@ -1139,10 +1242,17 @@ def kernels_phase(dev) -> dict:
             if name == "chunk_attention":
                 plan = CA.launch_plan(args[0], args[1])
                 rec_extra["n_split"], rec_extra["keys_per_split"] = plan[:2]
-        if dt == torch.bfloat16 and (name == "flash_attention" or is_read
-                                     or is_chunk):
-            # the tensor-core bodies add in a fixed order (no atomics): a
-            # second launch on the same inputs gives the same bits
+        if name == "stmc_conv":
+            win, w = args[0], args[1]
+            rec_extra["plan"] = SC.stmc_plan(
+                win.shape[0], win.shape[1] * win.shape[2], w.shape[2],
+                dt)._asdict()
+            rec_extra["host_ms"] = _host_ms(kern, sets, 100)
+        if (dt == torch.bfloat16 and (name == "flash_attention" or is_read
+                                      or is_chunk)) or name == "stmc_conv":
+            # the tensor-core bodies and the cluster's split-K add in a
+            # fixed order (no atomics): a second launch on the same inputs
+            # gives the same bits
             again = kern(*fresh())
             rec_extra["repeats_bit_for_bit"] = bool(torch.equal(got, again))
             check(rec_extra["repeats_bit_for_bit"],
@@ -1201,6 +1311,8 @@ def kernels_phase(dev) -> dict:
         print(json.dumps({"kernels": [rec]}), flush=True)
         if is_chunk:
             chunk_recs.append(rec)
+        if name in REDESIGNED:
+            redesigned.append(rec)
         key = name + (" (MLA)" if shape.startswith("MLA") else
                       " (RG middle)" if shape.startswith("RG middle") else
                       " (RG)" if shape.startswith("RG") else
@@ -1211,6 +1323,8 @@ def kernels_phase(dev) -> dict:
         if dt == serving_dt and key not in main:
             main[key] = rec
     _chunk_table(chunk_recs, _build.build_info().log)
+    _redesign_table(redesigned, _build.build_info().log)
+    _unet_conv_sweep(dev, gen)
     return main
 
 
@@ -1430,14 +1544,19 @@ def _decode_profile(ev, steps: int, prefill_kernel):
 # the combine
 READ_KERNELS = {"split": ("decode_mma_kernel", "decode_scalar_kernel"),
                 "combine": ("decode_combine_kernel",)}
+# the paged MLA read's: its split body (both dtypes share the name) and
+# the same combine
+MLA_READ_KERNELS = {"split": ("paged_mla_decode_attention_kernel",),
+                    "combine": ("decode_combine_kernel",)}
 
 
-def _reads_per_step(loop, steps: int, label: str) -> float:
+def _reads_per_step(loop, steps: int, label: str,
+                    kernels=READ_KERNELS) -> float:
     """Print and return the decode reads' device ms per step in a decode
     loop's events, split kernel and combine apart."""
     ms = {part: sum(e - s_ for s_, e, n in loop
                     if any(k in n for k in needles)) / 1e3
-          for part, needles in READ_KERNELS.items()}
+          for part, needles in kernels.items()}
     total = sum(ms.values())
     check(total > 0, f"{label}: no decode read in the decode loop")
     print(f"  {label} decode reads: {total:.3f} ms on the device in "
@@ -1722,7 +1841,8 @@ def deepseek_serve_phase(dev) -> dict:
                                             args.gen_len))
     check(ev, "the profiler saw no device activity")
     _prefill_profile(ev, len(res.seqs), "flash_attention_kernel")
-    _decode_profile(ev, res.steps, "flash_attention_kernel")
+    loop = _decode_profile(ev, res.steps, "flash_attention_kernel")
+    _reads_per_step(loop, res.steps, "paged MLA", MLA_READ_KERNELS)
     del params, engine
     _free(dev)
     return counts
@@ -2168,7 +2288,11 @@ def unet_stream_phase(dev) -> dict:
             ev = _device_events(run)
             check(ev, "the profiler saw no device activity")
             print(f"  profiled rerun, B {b} {label}, {n_prof} frames:")
-            _window_profile(ev, n_prof, "stream", "frame")
+            busy = _window_profile(ev, n_prof, "stream", "frame")
+            conv = sum(e - s_ for s_, e, n in ev if "stmc_conv_kernel" in n)
+            print(f"  stmc_conv: {conv / 1e3:.3f} ms on the device in "
+                  f"{n_prof} frames = {conv / 1e3 / n_prof:.4f} ms a frame, "
+                  f"{conv / busy:.3f} of the busy time")
     del model
     _free(dev)
     return main_counts

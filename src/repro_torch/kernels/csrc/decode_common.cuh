@@ -3,6 +3,9 @@
 // for Hopper (sm_90a): flash-decoding, the keys of a slot split across
 // blocks.
 //
+// Its combine kernel also merges the partials of the paged absorbed-MLA
+// read (paged_mla_decode_attention.cu) at d_v 512.
+//
 // Both reads are this code over a row-address functor (DenseRows,
 // PagedRows): the same split, the same key order within a split and the
 // same combine order, so over the same logical rows the paged read equals
@@ -24,8 +27,9 @@
 //  * a block first reads the row index and the live bit of each key of its
 //    range into shared memory, all threads at once (the paged read's page
 //    ids are read there, once, not in the key walk). A key is live iff its
-//    row exists (page_map entry > 0 when paged) and 0 <= pos <= t (and
-//    pos > t - window). Null-page rows are never loaded (K/V read as 0);
+//    row is backed (page_map entry > 0 when paged) and 0 <= pos <= t (and
+//    pos > t - window). Rows reached through the null page are loaded and
+//    masked, as the dense view the plain version gathers holds them;
 //  * each block runs the online softmax over its range and writes a float32
 //    partial (m, l, acc[dh]) for each of its heads to a scratch tensor the
 //    wrapper allocates; decode_combine_kernel then merges the n_split
@@ -45,14 +49,15 @@
 // in, f32 accumulate. 4 warps. Q comes in once by cp.async and stays in
 // registers as A fragments (dh/16 k-steps x 4). The range is walked in
 // tiles of 64 keys, K and V rows copied by cp.async (16 bytes a thread,
-// null rows zero-filled) into a 2-stage ring (1 stage when a range is one
-// tile), rows padded by 16 bytes so that ldmatrix is conflict-free; bf16 is
-// converted only inside the mma. Per tile: each warp scores 16 keys (K
-// fragments by ldmatrix), the warps' row maxima meet in shared memory, each
-// warp rescales and exponentiates its scores (base 2, ex2.approx) and writes
-// P, rounded to bf16, to a shared 16 x 64 tile; then each warp owns dh/4
-// output columns (64 at dh 256, a 16 x 64 f32 accumulator of 32 registers a
-// thread) and adds P V with V fragments by ldmatrix.trans.
+// rows past the range zero-filled) into a 2-stage ring (1 stage when a
+// range is one tile), rows padded by 16 bytes so that ldmatrix is
+// conflict-free; bf16 is converted only inside the mma. Per tile: each
+// warp scores 16 keys (K fragments by ldmatrix), the warps' row maxima meet
+// in shared memory, each warp rescales and exponentiates its scores (base
+// 2, ex2.approx) and writes P, rounded to bf16, to a shared 16 x 64 tile;
+// then each warp owns dh/4 output columns (64 at dh 256, a 16 x 64 f32
+// accumulator of 32 registers a thread) and adds P V with V fragments by
+// ldmatrix.trans.
 //
 // float32 (the dtype of the card-vs-CPU parity checks), decode_scalar_kernel:
 // the scalar body on the CUDA cores, so the parity keeps float32 products.
@@ -89,17 +94,17 @@ struct DenseRows {
 };
 
 // Slot b's logical row s lives in pool row page_map[b, s/P] * P + s % P;
-// page 0 is the null page (row -1: never loaded, position -1).
+// page 0 is the null page: its rows (< P) are loaded, as the plain
+// version's gathered view holds them, and read position -1 (dead).
 struct PagedRows {
   const int* pos;       // (n_pages, P)
   const int* page_map;  // (B, n_pp)
   int n_pp, P;
   __device__ __forceinline__ int row(int b, int s) const {
-    const int page = page_map[(size_t)b * n_pp + s / P];
-    return page > 0 ? page * P + s % P : -1;
+    return page_map[(size_t)b * n_pp + s / P] * P + s % P;
   }
   __device__ __forceinline__ int position(int row) const {
-    return row >= 0 ? pos[row] : -1;
+    return row >= P ? pos[row] : -1;
   }
 };
 
@@ -555,11 +560,12 @@ decode_mma_kernel(DecodeArgs a, Rows rows, int stages) {
 // Splits the combine takes: their weights and sums sit in shared memory.
 constexpr int kMaxSplits = 4096;
 
-// One block a (slot, head), one thread a head dim: the splits' maxima
-// reduce to M, the weights exp(m_i - M) and sums l_i go to shared memory,
-// then every thread adds its dim's partials in split order with 8 loads in
-// flight. kBase2: the partials' m are logits x log2 e (the tensor-core
-// body), else natural logits.
+// One block a (slot, head), a thread for every blockDim-th head dim (one
+// dim each where DH <= blockDim; the MLA read's 512 on 256 threads): the
+// splits' maxima reduce to M, the weights exp(m_i - M) and sums l_i go to
+// shared memory, then every thread adds its dims' partials in split order
+// with 8 loads in flight. kBase2: the partials' m are logits x log2 e (the
+// tensor-core bodies), else natural logits.
 template <typename T, bool kBase2>
 __global__ void __launch_bounds__(256)
 decode_combine_kernel(const float* __restrict__ acc,
@@ -587,15 +593,16 @@ decode_combine_kernel(const float* __restrict__ acc,
   for (int s = tid; s < n_split; s += blockDim.x)
     sW[s] = kBase2 ? fast_exp2(sW[s] - mx) : expf(sW[s] - mx);
   __syncthreads();
-  if (tid >= DH) return;
-  const float* ab = acc + (size_t)bh * n_split * DH + tid;
-  float den = 0.f, num = 0.f;
+  for (int d = tid; d < DH; d += blockDim.x) {
+    const float* ab = acc + (size_t)bh * n_split * DH + d;
+    float den = 0.f, num = 0.f;
 #pragma unroll 8
-  for (int s = 0; s < n_split; ++s) {
-    den += sL[s] * sW[s];
-    num += ab[(size_t)s * DH] * sW[s];
+    for (int s = 0; s < n_split; ++s) {
+      den += sL[s] * sW[s];
+      num += ab[(size_t)s * DH] * sW[s];
+    }
+    out[(size_t)bh * DH + d] = from_f32<T>(num / fmaxf(den, 1e-30f));
   }
-  out[(size_t)bh * DH + tid] = from_f32<T>(num / fmaxf(den, 1e-30f));
 }
 
 // ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 // Tensor-core and async-copy helpers of the bf16 attention bodies (sm_90a):
 // mma.sync m16n8k16, ldmatrix, cp.async, base-2 exponentials and bf16
-// packing. Shared by flash_attention.cu and the decode reads
-// (decode_common.cuh).
+// packing. Shared by flash_attention.cu, the decode reads
+// (decode_common.cuh) and stmc_conv.cu (its window copies).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -21,6 +21,13 @@ __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
                                             bool pred) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(pred ? 16 : 0));
+}
+
+// 4 bytes global -> shared, through L1; zero-filled when !pred
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(pred ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -20,8 +20,10 @@
 // logical rows the paged read adds the dense read's terms in its order and
 // equals it bit for bit. A block reads its range's page ids and positions
 // once, into shared memory, before its first K/V copy; a key is live iff
-// its map entry is > 0 and 0 <= pos <= t (and pos > t - window), and
-// null-page rows are never loaded.
+// its map entry is > 0 and 0 <= pos <= t (and pos > t - window). Rows
+// reached through the null page are loaded and masked, as in the plain
+// version's gathered view: a slot that sees no key averages V over all its
+// logical rows, the null page's included.
 //
 // What holds it back: as the dense read — one 64-key tile a range at
 // recurrentgemma's serving read, and the partials and combine launch of

@@ -40,7 +40,9 @@ replaces the TPU kernel
   combine: over the same logical rows it equals the dense read bit for
   bit. A block reads its range's page ids and positions once, before its
   first K/V copy. A key is live iff its map entry is ``> 0`` and ``0 <= pos
-  <= t`` (and ``pos > t - window``); null-page rows are never loaded.
+  <= t`` (and ``pos > t - window``); rows reached through the null page are
+  loaded and masked, as in the plain version's gathered view, so a slot
+  that sees no key averages V over them too.
 * Held back by: as the dense read, plus the dependent page-id load at the
   head of each block.
 
@@ -51,18 +53,31 @@ Kernel: ``csrc/paged_mla_decode_attention.cu`` (CUDA C++, sm_90a), which
 replaces the TPU kernel
 ``repro/kernels/decode_attention.py::paged_mla_decode_attention``.
 
-* Bound on the H100: near balanced at the serving shape (B 4, clocks
-  ~1088, L 512, R 64, bf16): ~5 MB of live latent + rope rows (~1.5 µs)
-  against ~1.2 GFLOP (~1.2 µs on the tensor cores).
-* Design: grid ``(H/4, B)``; a block keeps 4 query heads of one slot in
-  registers, so every latent + rope row a warp loads is scored against all
-  4 and then accumulated as their value; the page walk, the live test
-  (``page_map > 0`` and ``0 <= pos <= t``), the null-page rows that are
-  never loaded, the finite ``-1e30`` mask and the warp merge are those of
-  the paged GQA read's float32 body, without its split of S. The H/4
-  blocks of a slot share its rows through L2.
-* Held back by: scalar float32 FMAs and a shuffle reduction per (head,
-  key) — at least ~18 µs at the 67 TFLOP/s float32 rate.
+* Bound on the H100: near balanced at the serving read (B 4, clocks
+  ~1056, H 128, L 512, R 64, bf16): ~5 MB of live latent + rope rows
+  (~1.5 µs) against ~1.2 GFLOP (~1.2 µs on the tensor cores).
+* Design, bf16 at (L, R) = (512, 64): flash-decoding on ``mma.sync``, the
+  bf16 body of ``mla_chunk_attention`` for one query. :func:`mla_split`
+  cuts a slot's ``n_pp·P`` logical rows (never a function of the page
+  size) into ranges of a multiple of 32 keys so that the blocks — 64 heads
+  of one slot over one range, one block an SM — fit one wave where they
+  can (:func:`paged_mla_launch_plan`: 12 ranges of 96 at the outer read,
+  96 blocks). A block reads its range's pool rows (``page_map[b, s/P]``,
+  row ``s % P``) and live bits (map entry ``> 0`` and ``0 <= pos <= t``)
+  once into shared memory, gathers 32-key latent|rope tiles through them
+  into a 2-stage ``cp.async`` ring, skips tiles whose keys are all dead
+  (bit-neutral for a block that sees a key; one that sees none walks its
+  range again, so a slot that sees no key gets the plain version's
+  average), and writes a float32 partial a head; the
+  decode reads' combine kernel merges them in split order (no atomics).
+  Any H: heads past a multiple of 64 are masked. float32 (the card-vs-CPU
+  parity) and the test widths (16, 8) keep the scalar body: 4 heads of a
+  slot a block (H a multiple of 4) walking all of S, a shuffle reduction
+  per (head, key).
+* Held back by: Q·Kᵀ's fragment reloads from shared memory, as in the
+  chunk kernel (~20 µs for a block's 3 tiles at the outer read), one
+  block an SM, and the partials (64 × 512 float32 a block) written and
+  read back by the combine launch (~5 µs).
 
 The dense MLA read (``ops.mla_decode_attention``) has no TPU kernel in the
 reference ("reference path on every backend") and stays the plain version
@@ -74,7 +89,7 @@ The plain versions are ``ref.decode_attention`` (re-exported here as
 takes them, a CUDA tensor launches the kernel or raises.
 ``decode_attention.launches``, ``paged_decode_attention.launches`` and
 ``paged_mla_decode_attention.launches`` count wrapper calls that launched
-their kernels (a decode read launches its split and its combine kernel).
+their kernels (a split read launches its split and its combine kernel).
 """
 
 from __future__ import annotations
@@ -299,7 +314,53 @@ paged_decode_attention.launches = 0
 # (L, R) latent and rope widths the MLA kernel is instantiated for:
 # deepseek-v2's, and the small test stacks'
 MLA_DIMS = ((512, 64), (16, 8))
-MLA_HEADS_PER_BLOCK = 4
+# the bf16 body at (512, 64): heads of one slot a block (any H, masked)
+MLA_HEADS_PER_BLOCK = 64
+# the scalar body (float32, and the (16, 8) widths): H a multiple of this
+MLA_SCALAR_HEADS = 4
+# keys a range of the bf16 body: a multiple of MLA_KEY_TILE (its key
+# tile), at most MLA_MAX_SPLIT_KEYS (their pool rows sit in shared memory)
+MLA_KEY_TILE = 32
+MLA_MAX_SPLIT_KEYS = 2048
+# blocks a call aims at: one on each of the H100's 132 SMs (a block holds
+# ~156 KB of shared memory)
+MLA_WAVE_BLOCKS = 132
+
+
+def mla_split(b, s, groups):
+    """``(n_split, keys_per_split)`` of the bf16 paged MLA read over ``s``
+    logical rows a slot, ``b`` slots and ``groups`` blocks of 64 heads:
+    split ``i`` takes rows ``[i·keys_per_split,
+    min(s, (i+1)·keys_per_split))``. The fewest 32-key tiles a range that
+    keeps ``b·groups·n_split`` within ``MLA_WAVE_BLOCKS`` (one wave), then
+    the fewest ranges of that length: a block's time follows its tiles,
+    and every range adds a partial to the combine."""
+    if b <= 0 or s <= 0 or groups <= 0:
+        raise ValueError(f"mla_split: b={b}, s={s}, groups={groups}")
+    most = max(1, MLA_WAVE_BLOCKS // (b * groups))
+    keys = -(-s // most)
+    keys = -(-keys // MLA_KEY_TILE) * MLA_KEY_TILE
+    keys = min(keys, MLA_MAX_SPLIT_KEYS)
+    return -(-s // keys), keys
+
+
+def _mla_on_tensor_cores(dtype, lat_d, r):
+    return dtype == torch.bfloat16 and (lat_d, r) == MLA_DIMS[0]
+
+
+def paged_mla_launch_plan(q_lat, q_rope, pos_pool, page_map):
+    """``(n_split, keys_per_split, scratch shape)`` of
+    ``paged_mla_decode_attention`` on these shapes: bf16 at (512, 64)
+    splits the ``n_pp·P`` logical rows by :func:`mla_split` over
+    ``ceil(H/64)`` head groups, with a float32 scratch of partials
+    (:func:`scratch_shape` at d_v = L); the scalar body walks them in one
+    range and takes no scratch."""
+    b, h, lat_d = q_lat.shape
+    s = page_map.shape[1] * pos_pool.shape[1]
+    if not _mla_on_tensor_cores(q_lat.dtype, lat_d, q_rope.shape[-1]):
+        return 1, s, None
+    n_split, keys = mla_split(b, s, -(-h // MLA_HEADS_PER_BLOCK))
+    return n_split, keys, scratch_shape(b, h, lat_d, n_split)
 
 
 def _check_paged_mla_cuda(q_lat, q_rope, lat_pool, rope_pool, pos_pool,
@@ -327,11 +388,13 @@ def _check_paged_mla_cuda(q_lat, q_rope, lat_pool, rope_pool, pos_pool,
                          f"n_pp)")
     if tuple(q_position.shape) != (b,):
         raise ValueError(f"q_position {tuple(q_position.shape)} != {(b,)}")
-    if (lat_d, r) not in MLA_DIMS or h % MLA_HEADS_PER_BLOCK:
+    if (lat_d, r) not in MLA_DIMS or (
+            h % MLA_SCALAR_HEADS
+            and not _mla_on_tensor_cores(q_lat.dtype, lat_d, r)):
         raise NotImplementedError(
-            f"paged_mla_decode_attention kernel takes (L, R) in {MLA_DIMS} "
-            f"and H a multiple of {MLA_HEADS_PER_BLOCK}, got L={lat_d} R={r} "
-            f"H={h}")
+            f"paged_mla_decode_attention kernel takes (L, R) in {MLA_DIMS}, "
+            f"and H a multiple of {MLA_SCALAR_HEADS} but in bfloat16 at "
+            f"{MLA_DIMS[0]}, got L={lat_d} R={r} H={h} {q_lat.dtype}")
     dts = {q_lat.dtype, q_rope.dtype, lat_pool.dtype, rope_pool.dtype}
     if q_lat.dtype not in _DTYPES or len(dts) != 1:
         raise TypeError(f"paged_mla_decode_attention takes float32 or "
@@ -377,13 +440,19 @@ def paged_mla_decode_attention(q_lat, q_rope, lat_pool, rope_pool, pos_pool,
     r = q_rope.shape[-1]
     p_sz = pos_pool.shape[1]
     n_pp = page_map.shape[1]
+    n_split, keys, shape = paged_mla_launch_plan(q_lat, q_rope, pos_pool,
+                                                 page_map)
     out = torch.empty_like(q_lat)
+    scratch = (None if shape is None else
+               torch.empty(shape, dtype=torch.float32, device=q_lat.device))
     stream = torch.cuda.current_stream(q_lat.device).cuda_stream
     rc = _build.library().repro_paged_mla_decode_attention(
         q_lat.data_ptr(), q_rope.data_ptr(), lat_pool.data_ptr(),
         rope_pool.data_ptr(), pos_pool.data_ptr(), page_map.data_ptr(),
-        q_position.data_ptr(), out.data_ptr(), b, h, lat_d, r, n_pp, p_sz,
-        float(scale), _build.DTYPE_CODES[_DTYPES[q_lat.dtype]], stream)
+        q_position.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), b, h, lat_d, r,
+        n_pp, p_sz, float(scale), n_split, keys,
+        _build.DTYPE_CODES[_DTYPES[q_lat.dtype]], stream)
     _build.check(rc, "paged_mla_decode_attention")
     paged_mla_decode_attention.launches += 1
     return out

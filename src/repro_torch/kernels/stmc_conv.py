@@ -5,19 +5,33 @@ the per-frame hot loop of the paper's streaming U-Net.
 Kernel: ``csrc/stmc_conv.cu`` (CUDA C++, sm_90a), which replaces the TPU
 kernel ``repro/kernels/stmc_conv.py::stmc_conv``.
 
-* Bound on the H100: the bytes. At the U-Net's shapes B <= 32 rows meet up
-  to 19.25 MB of float32 weights a layer (decoder 2 of soi-unet-dns: K*Cin
-  7248, Cout 664), at most 2*B flops per weight element; least time 5.7 µs
-  there at any B <= 32.
-* Design: a block owns 32 output columns and up to 8 rows of B, so each
-  weight row is read once, as one coalesced line, for all its rows; its 16
-  warps split K*Cin with 16 weight loads in flight a thread; the window
-  tile is staged in shared memory as float32; float32 accumulators whose
-  per-warp partials are added in a fixed order (no atomics: float32
-  results repeat bit for bit); bias and cast at the store; the ragged B and
-  Cout edges masked (the TPU kernel pads both to 128).
-* Held back by: few blocks at B 1 (ceil(Cout/32): 21 at decoder 2, 4 at
-  decoder 7, on 132 SMs). Split-K across blocks or TMA is later work.
+* Bound on the H100: the weight bytes. At the U-Net's shapes B <= 32 rows
+  meet up to 19.25 MB of float32 weights a layer (decoder 2 of
+  soi-unet-dns: K*Cin 7248, Cout 664), at most 2*B flops per weight
+  element; least time 5.7 µs there at any B <= 32, and 34.6 µs for the
+  ~116 MB of a B 1 frame's 14 convs, which stream from HBM every frame.
+* Design: split-K in a thread block cluster, one launch a conv.
+  :func:`stmc_plan` gives each cluster of ``splits`` (≤ 8) blocks one tile
+  of ``cols`` output columns and each block one range of
+  ``keys_per_split`` rows of K*Cin, so a B 1 conv runs on ≥ 132 blocks
+  where the shape allows (decoder 2: 21 × 8 = 168) and on no more than the
+  SMs hold at once; the ranks' partials meet in distributed shared memory
+  and are added in rank order (no atomics: results repeat bit for bit in
+  both dtypes). A thread loads 16 bytes of a weight row (4 float32 or 8
+  bf16 columns; at least a 32-byte sector a row across a block's threads)
+  with two chunks of rows in flight; where Cout × element size is no
+  multiple of 16 (or the weights are not 16-byte aligned) the same kernel
+  loads the group element by element, masked at Cout. A block holds all
+  ``rows`` (≤ 32) rows of B, so each weight byte is read once at B ≤ 32;
+  the window of its range comes into shared memory by ``cp.async`` in two
+  tiles used in turn. From 16 rows of B, where the FMAs weigh as much as
+  the bytes, the plan aims at 2–3 smaller blocks an SM. float32
+  accumulators, the bias added in float32, the cast at the store.
+* Held back by: a launch's fixed cost (~4 µs: the cluster's barriers and
+  the first window copy), near half of decoder 2's time at B 1; the
+  weights stream at ~2 TB/s in 128-byte pieces of rows; from 16 rows the
+  float32 FMAs and the window reads from shared memory set the time (bf16
+  too: its products stay FMAs, not ``mma.sync``).
 
 The plain version is ``ref.stmc_conv`` (re-exported here as ``plain``); a
 CPU tensor takes it, a CUDA tensor launches the kernel or raises.
@@ -28,6 +42,9 @@ the port never calls it.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import _build
@@ -36,6 +53,71 @@ from repro_torch.kernels import ref
 plain = ref.stmc_conv
 
 _DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+
+# blocks a B 1 conv aims at: one on each of the H100's 132 SMs
+SM_COUNT = 132
+# blocks a cluster: the portable cluster size, in powers of two
+MAX_SPLITS = 8
+# contraction rows a split holds at least (one pass of a block's row lanes
+# at 16 bytes a thread)
+MIN_SPLIT_ROWS = 16
+# the widest column tile, in threads across a weight row (16 bytes each),
+# and the narrowest: a 32-byte sector a row (16-byte pieces of a row take
+# longer than half as many blocks of whole sectors: decoder 7, f32, B 1)
+MAX_ROW_THREADS = 8
+MIN_ROW_THREADS = 2
+# rows of B a block holds at most
+MAX_ROWS = 32
+# rows of B from which a block's FMAs weigh as much as its bytes: then the
+# plan aims at 2-3 blocks an SM (all resident at once: 128 threads, three
+# blocks an SM), so that SMs with one more block than others wait less
+FMA_ROWS = 16
+
+
+class StmcPlan(NamedTuple):
+    cols: int             # output columns a block
+    splits: int           # blocks of a cluster, one range of K*Cin each
+    keys_per_split: int   # rows of K*Cin a split (the last may hold fewer)
+    rows: int             # rows of B a block
+    blocks: int           # blocks of the launch
+    vec16: bool           # 16-byte weight loads (else the masked edge path)
+
+
+@functools.lru_cache(maxsize=256)
+def stmc_plan(b: int, kc: int, cout: int, dtype) -> StmcPlan:
+    """The launch of ``stmc_conv`` on a ``(b, kc) x (kc, cout)`` product of
+    ``dtype`` (float32 or bfloat16). Split ``i`` of a cluster takes rows
+    ``[i·keys_per_split, min(kc, (i+1)·keys_per_split))``, none empty.
+    The column tile is the widest (of 8, 4, 2 sixteen-byte groups) that
+    still gives ``SM_COUNT`` blocks at ``splits`` (from ``FMA_ROWS`` rows
+    of B, where the FMAs weigh as much as the bytes, twice that); then
+    ``splits`` is halved while the blocks pass what the SMs hold at once
+    (two an SM, three from ``FMA_ROWS``)."""
+    if min(b, kc, cout) < 1:
+        raise ValueError(f"stmc_plan: b={b}, kc={kc}, cout={cout}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"stmc_plan: {dtype} is not float32 or bfloat16")
+    esz = torch.finfo(dtype).bits // 8
+    group = 16 // esz
+    splits = MAX_SPLITS
+    while splits > 1 and kc < splits * MIN_SPLIT_ROWS:
+        splits //= 2
+    rows = min(MAX_ROWS, 1 << (b - 1).bit_length())
+    fma = rows >= FMA_ROWS
+    threads = MAX_ROW_THREADS
+    while threads > MIN_ROW_THREADS and (-(-cout // (threads * group))
+                                         * splits
+                                         < (2 if fma else 1) * SM_COUNT):
+        threads //= 2
+    # every block resident at once: two an SM (three from FMA_ROWS)
+    while splits > 1 and (-(-cout // (threads * group)) * splits
+                          > (3 if fma else 2) * SM_COUNT):
+        splits //= 2
+    keys = -(-kc // splits)
+    keys += keys % 2          # bf16 window pairs start on 4-byte boundaries
+    cols = threads * group
+    blocks = -(-cout // cols) * splits * -(-b // rows)
+    return StmcPlan(cols, splits, keys, rows, blocks, cout * esz % 16 == 0)
 
 
 def _check_cuda(window, w, b):
@@ -73,16 +155,26 @@ def stmc_conv(window, w, b=None):
         raise ValueError(f"stmc_conv: unsupported device {window.device}")
     _check_cuda(window, w, b)
     bsz, k, cin = window.shape
-    cout = w.shape[2]
-    y = torch.empty((bsz, cout), dtype=window.dtype, device=window.device)
-    stream = torch.cuda.current_stream(window.device).cuda_stream
-    rc = _build.library().repro_stmc_conv(
-        window.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-        y.data_ptr(), bsz, k * cin, cout,
-        _build.DTYPE_CODES[_DTYPES[window.dtype]], stream)
-    _build.check(rc, "stmc_conv")
+    y = _launch(window, w, b,
+                stmc_plan(bsz, k * cin, w.shape[2], window.dtype))
     stmc_conv.launches += 1
     return y
 
 
 stmc_conv.launches = 0
+
+
+def _launch(window, w, b, plan: StmcPlan):
+    """The kernel on checked CUDA tensors at ``plan`` (the wrapper's, or
+    another for ``tools/stmc_plan_reading.py``)."""
+    bsz, k, cin = window.shape
+    cout = w.shape[2]
+    y = torch.empty((bsz, cout), dtype=window.dtype, device=window.device)
+    stream = torch.cuda.current_stream(window.device).cuda_stream
+    rc = _build.library().repro_stmc_conv(
+        window.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
+        y.data_ptr(), bsz, k * cin, cout, plan.cols, plan.splits,
+        plan.keys_per_split, plan.rows,
+        _build.DTYPE_CODES[_DTYPES[window.dtype]], stream)
+    _build.check(rc, "stmc_conv")
+    return y

@@ -11,10 +11,15 @@ once at its weight; the chunk kernels' bf16 tensor-core bodies over whole
 dead key tiles, q tiles of pad rows only, ragged C and Sk, G 1 to 8 and H
 no multiple of their 64-head blocks, held to the same 2^-6 and repeating
 bit for bit, split or not),
-``lru_scan`` (bit for bit in float32) and ``stmc_conv`` (at the streaming
-U-Net's shapes, with and without bias; float32 results repeat bit for
-bit), bit-exact for ``copy_pages``; and a narrow U-Net streamed on the card
-against the CPU, with ``stmc_conv`` launched as the phase plans say.
+the paged reads over page-map holes and a slot whose map is all null
+pages (it sees no key: the plain version's average), the paged MLA read's
+bf16 body at ragged H, repeating bit for bit, every range's partial
+counted once; ``lru_scan`` (bit for bit in float32) and ``stmc_conv`` (at
+the streaming U-Net's shapes, B 1 to 40, with and without bias; both
+dtypes repeat bit for bit; the masked edge path at Cout 129 and on a
+misaligned weight view; one-hot windows count every split of the cluster
+once), bit-exact for ``copy_pages``; and a narrow U-Net streamed on the
+card against the CPU, with ``stmc_conv`` launched as the phase plans say.
 
 Without a CUDA device every test here skips (decided inside the ``cuda``
 fixture, so every worker collects the same tests). On the card:
@@ -481,12 +486,27 @@ def _paged_inputs(seed, b, h, hkv, dh, p_sz, n_pp, t_base):
     return q, k_pool, v_pool, pos_pool, page_map, t
 
 
+def _unmap(page_map, holes=False, null_slot=False):
+    """Holes: slot 0's map entries 1 and 3 set to the null page (its rows
+    there unbacked); null_slot: the last slot's whole map null, so it sees
+    no key and the read averages the null page's rows, as the plain
+    version's gathered view holds them."""
+    page_map = page_map.copy()
+    if holes:
+        page_map[0, [1, 3]] = 0
+    if null_slot:
+        page_map[-1] = 0
+    return page_map
+
+
 GPU_PAGED = {
     "smoke": dict(b=3, h=4, hkv=2, dh=16, p_sz=4, n_pp=4, t_base=13),
     "outer": dict(b=4, h=16, hkv=8, dh=128, p_sz=16, n_pp=68, t_base=1056),
     "middle": dict(b=4, h=16, hkv=8, dh=128, p_sz=16, n_pp=48, t_base=528),
     "window": dict(b=2, h=8, hkv=2, dh=64, p_sz=16, n_pp=10, t_base=150,
                    window=50),
+    "holes_null_slot": dict(b=3, h=16, hkv=8, dh=128, p_sz=16, n_pp=20,
+                            t_base=300, holes=True, null_slot=True),
 }
 
 
@@ -496,8 +516,11 @@ GPU_PAGED = {
 def test_cuda_paged_decode_attention_matches_plain(cuda, case, dtype):
     kw = dict(GPU_PAGED[case])
     win = kw.pop("window", None)
+    unmap = dict(holes=kw.pop("holes", False),
+                 null_slot=kw.pop("null_slot", False))
     dt = getattr(torch, dtype)
     q, k, v, pos, pm, t = _paged_inputs(9, **kw)
+    pm = _unmap(pm, **unmap)
     q, k, v = (torch.from_numpy(x).to(cuda, dt) for x in (q, k, v))
     pos, pm, t = (torch.from_numpy(x).to(cuda) for x in (pos, pm, t))
     n0 = PDA.paged_decode_attention.launches
@@ -648,33 +671,88 @@ GPU_PAGED_MLA = {
                   t_base=1056),
     "middle": dict(b=4, h=128, lat_d=512, r=64, p_sz=16, n_pp=48,
                    t_base=528),
+    # heads past a 64-head block (bf16) masked; pages of one slot unbacked
+    # mid-map; a slot whose whole map is null (it sees no key), at the
+    # serving widths and the test widths
+    "h72": dict(b=2, h=72, lat_d=512, r=64, p_sz=16, n_pp=10, t_base=150),
+    "holes_null_slot": dict(b=3, h=128, lat_d=512, r=64, p_sz=16, n_pp=20,
+                            t_base=300, holes=True, null_slot=True),
+    "smoke_null_slot": dict(b=3, h=4, lat_d=16, r=8, p_sz=4, n_pp=4,
+                            t_base=13, null_slot=True),
 }
+
+
+def _paged_mla_inputs(cuda, dt, seed, lat_d, r, holes=False, null_slot=False,
+                      **kw):
+    """The GQA helper's pools with Hkv = 1 ((n_pages, P, 1, L) -> (.., L))
+    and rope pools beside them, on the card in ``dt``."""
+    ql, lat, _, pos, pm, t = _paged_inputs(seed, hkv=1, dh=lat_d, **kw)
+    pm = _unmap(pm, holes, null_slot)
+    rng = np.random.default_rng(seed + 1)
+    qr = _normal(rng, ql.shape[:2] + (r,))
+    rope = _normal(rng, lat.shape[:2] + (r,))
+    ql, qr, lat, rope = (torch.from_numpy(x).to(cuda, dt)
+                         for x in (ql, qr, lat[:, :, 0], rope))
+    pos, pm, t = (torch.from_numpy(x).to(cuda) for x in (pos, pm, t))
+    return ql, qr, lat, rope, pos, pm, t
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", sorted(GPU_PAGED_MLA))
 def test_cuda_paged_mla_decode_attention_matches_plain(cuda, case, dtype):
-    kw = dict(GPU_PAGED_MLA[case])
-    lat_d, r = kw.pop("lat_d"), kw.pop("r")
     dt = getattr(torch, dtype)
-    # the GQA helper's pools with Hkv = 1: (n_pages, P, 1, L) -> (.., L)
-    ql, lat, _, pos, pm, t = _paged_inputs(12, hkv=1, dh=lat_d, **kw)
-    rng = np.random.default_rng(13)
-    qr = _normal(rng, ql.shape[:2] + (r,))
-    rope = _normal(rng, lat.shape[:2] + (r,))
-    ql, qr, lat, rope = (torch.from_numpy(x).to(cuda, dt)
-                         for x in (ql, qr, lat[:, :, 0], rope))
-    pos, pm, t = (torch.from_numpy(x).to(cuda) for x in (pos, pm, t))
+    args = _paged_mla_inputs(cuda, dt, 12, **GPU_PAGED_MLA[case])
     scale = (128 + 64) ** -0.5
     n0 = PDA.paged_mla_decode_attention.launches
-    got = PDA.paged_mla_decode_attention(ql, qr, lat, rope, pos, pm, t,
-                                         scale=scale)
+    got = PDA.paged_mla_decode_attention(*args, scale=scale)
     torch.cuda.synchronize()
     assert PDA.paged_mla_decode_attention.launches == n0 + 1
+    want = pref.paged_mla_decode_attention(*args, scale=scale)
+    _close(got.float().cpu(), want.float().cpu(), _read_tol(want, dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["outer", "h72", "holes_null_slot"])
+def test_cuda_paged_mla_bf16_repeats_bit_for_bit(cuda, case):
+    """The ranges' partials and the combine add in a fixed order (no
+    atomics): a second launch on the same inputs gives the same bits."""
+    args = _paged_mla_inputs(cuda, torch.bfloat16, 12, **GPU_PAGED_MLA[case])
+    scale = (128 + 64) ** -0.5
+    first = PDA.paged_mla_decode_attention(*args, scale=scale)
+    again = PDA.paged_mla_decode_attention(*args, scale=scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.gpu
+def test_cuda_paged_mla_counts_every_split_once(cuda):
+    """q = 0: every live key scores alike, so the read is the latent's mean
+    over the live keys. Latent row s holds n_split in the column of its
+    range and 0 elsewhere, so output column j is n_split times range j's
+    share of the live keys: a partial that the combine drops, adds twice
+    or weighs wrongly moves its column by that whole share."""
+    kw = dict(GPU_PAGED_MLA["outer"])
+    ql, qr, lat, rope, pos, pm, t = _paged_mla_inputs(cuda, torch.bfloat16,
+                                                      12, **kw)
+    n_split, keys, _ = PDA.paged_mla_launch_plan(ql, qr, pos, pm)
+    assert 1 < n_split <= lat.shape[-1]
+    p_sz = kw["p_sz"]
+    rows = torch.arange(pm.shape[1] * p_sz, device=cuda)
+    pages = pm[:, rows // p_sz].long()
+    lat = torch.zeros_like(lat)
+    lat[pages, (rows % p_sz).expand_as(pages),
+        (rows // keys).expand_as(pages)] = n_split
+    ql, qr = torch.zeros_like(ql), torch.zeros_like(qr)
+    scale = (128 + 64) ** -0.5
+    got = PDA.paged_mla_decode_attention(ql, qr, lat, rope, pos, pm, t,
+                                         scale=scale).float()
     want = pref.paged_mla_decode_attention(ql, qr, lat, rope, pos, pm, t,
-                                           scale=scale)
-    _close(got.float().cpu(), want.float().cpu(), TOL[dtype])
+                                           scale=scale).float()
+    totals = want[..., :n_split].sum(-1)
+    assert torch.allclose(totals, torch.full_like(totals, n_split),
+                          rtol=1e-2)
+    _close(got.cpu(), want.cpu(), _read_tol(want, "bfloat16"))
 
 
 def _ring_pools(seed, b, h, hkv, s, dh, p_sz, inactive=False):
@@ -835,15 +913,24 @@ def test_cuda_lru_scan_refuses_what_the_kernel_does_not_take(cuda):
 
 
 # the STMC conv contraction at the streaming U-Net's shapes (soi-unet-dns:
-# decoder 2 at B 1 and B 32, encoder 7 at B 32), a ragged case without bias
-# and the small-B tiles; weights at the convs' He-uniform scale
+# decoder 2 at B 1 and B 32, encoder 7 at B 32, decoder 7 (Cout 128, the
+# narrowest column tile) and encoder 1 (the shortest splits) at B 1), a
+# ragged case without bias (Cout 129: the masked edge path) and the small-B
+# tiles, B 20 (rows of the 32-row tile past B) and B 40 (two row tiles), an
+# odd K*Cin; weights at the convs' He-uniform scale
 GPU_STMC = {
     "dec2_b1": dict(b=1, k=3, ci=2416, co=664),
     "dec2_b32": dict(b=32, k=3, ci=2416, co=664),
     "enc7_b32": dict(b=32, k=3, ci=1208, co=1296),
+    "dec7_b1": dict(b=1, k=3, ci=1232, co=128),
+    "enc1_b1": dict(b=1, k=3, ci=128, co=616),
     "ragged": dict(b=3, k=3, ci=64, co=129),
     "b2": dict(b=2, k=3, ci=128, co=128),
     "b5_k1": dict(b=5, k=1, ci=40, co=33),
+    "b20": dict(b=20, k=3, ci=300, co=200),
+    "b40": dict(b=40, k=1, ci=70, co=36),
+    # odd K*Cin: bf16 window pairs off 4-byte boundaries, loaded one by one
+    "odd_kc": dict(b=2, k=3, ci=37, co=40),
 }
 
 
@@ -872,8 +959,59 @@ def test_cuda_stmc_conv_matches_plain(cuda, case, dtype, bias):
     want = pref.stmc_conv(win, w, b)
     assert got.dtype == dt and got.shape == want.shape
     _close(got.float().cpu(), want.float().cpu(), TOL[dtype])
-    # no atomics: a float32 result repeats bit for bit
+    # no atomics: a result repeats bit for bit
     assert torch.equal(PSC.stmc_conv(win, w, b), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_stmc_conv_edge_path(cuda, dtype):
+    """The 16-byte loads need whole 16-byte groups in every weight row and
+    an aligned pointer: Cout 129 and a weight view one element past a
+    16-byte boundary take the masked element-by-element path of the same
+    kernel, and match the plain version."""
+    from repro_torch.kernels import stmc_conv as PSC
+    dt = getattr(torch, dtype)
+    assert not PSC.stmc_plan(3, 192, 129, dt).vec16
+    assert PSC.stmc_plan(3, 192, 128, dt).vec16
+    win, w, b = (torch.from_numpy(z).to(cuda, dt)
+                 for z in _stmc_inputs(17, b=3, k=3, ci=64, co=128))
+    w_off = _offset_view(tuple(w.shape), dt, cuda)
+    w_off.copy_(w)
+    assert w_off.data_ptr() % 16 and w_off.is_contiguous()
+    got = PSC.stmc_conv(win, w_off, b)
+    want = pref.stmc_conv(win, w, b)
+    _close(got.float().cpu(), want.float().cpu(), TOL[dtype])
+    assert torch.equal(got, PSC.stmc_conv(win, w, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["dec2_b1", "dec7_b1", "ragged"])
+def test_cuda_stmc_conv_counts_every_split_once(cuda, case, dtype):
+    """One-hot windows: row i of B holds a single 1 at contraction row k_i
+    in split i of the cluster (its first row for even i, its last for odd
+    i), so y[i] is exactly weight row k_i plus the bias — a split whose
+    partial the cluster drops or adds twice gives 0 or twice that row."""
+    from repro_torch.kernels import stmc_conv as PSC
+    kw = GPU_STMC[case]
+    k, ci, co = kw["k"], kw["ci"], kw["co"]
+    dt = getattr(torch, dtype)
+    kc = k * ci
+    plan = PSC.stmc_plan(1, kc, co, dt)
+    assert plan.splits > 1
+    hot = [i * plan.keys_per_split if i % 2 == 0
+           else min(kc, (i + 1) * plan.keys_per_split) - 1
+           for i in range(plan.splits)]
+    _, w, b = (torch.from_numpy(z).to(cuda, dt)
+               for z in _stmc_inputs(18, b=1, k=k, ci=ci, co=co))
+    win = torch.zeros((plan.splits, kc), dtype=dt, device=cuda)
+    win[torch.arange(plan.splits), torch.tensor(hot)] = 1
+    win = win.view(plan.splits, k, ci)
+    flat = w.view(kc, co)
+    assert torch.equal(PSC.stmc_conv(win, w), flat[hot])
+    got = PSC.stmc_conv(win, w, b)
+    assert torch.equal(got, pref.stmc_conv(win, w, b))
 
 
 @pytest.mark.gpu
