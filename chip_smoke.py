@@ -38,17 +38,27 @@ Phases, each printing its own lines:
              held too, not timed. recurrentgemma's shapes:
              the decode reads at G 16 / dh 256 on wrapped rings of 2048
              with the window, lru_scan at (1, 2040, 4096) and (1, 1020,
-             4096), with h0 and at an odd shape (no library yardstick: no
-             single PyTorch call computes the recurrence). stmc_conv at the
+             4096), with h0, at an odd shape (the edge path) and at B 4
+             (more chains than SMs), launched twice and held bit for bit,
+             with its plan (chain-warps, warps a block, stages, T) and host
+             ms a call (no library yardstick: no single PyTorch call
+             computes the recurrence). stmc_conv at the
              streaming U-Net's shapes, float32 and bfloat16 (torch.addmm as
              the yardstick), launched twice and held bit for bit, with its
              plan (blocks, cluster size, columns a block); the paged MLA
              read in bf16 prints its split of S and blocks, its split
              kernel and combine apart and its host ms a call, as the decode
-             reads do. A table of these two kernels follows the chunk
-             table, then stmc_conv in float32 at B 1 on each of the 14
-             convs of soi-unet-dns beside addmm and the bound, and their
-             sum against the bound of a frame's weights.
+             reads do. A table of the kernels this slice redesigned
+             (lru_scan, copy_pages) follows the chunk table; then a whole
+             COW flush of qwen3's serving pools (28 layers x (k, v, pos),
+             4 real and 4 padding pairs a table) and an MLA flush (latent,
+             rope, pos) in one copy_pages_leaves launch, held bit for bit
+             leaf by leaf, timed against one launch a leaf, the indexed
+             assignment a leaf and the bytes' bound (device ms with the
+             kernel and the table's upload apart, host ms a call); then
+             stmc_conv in float32 at B 1 on each of the 14 convs of
+             soi-unet-dns beside addmm and the bound, and their sum
+             against the bound of a frame's weights.
 4. parity  — full-width qwen3-1.7b cut to 4 layers (SOI over layers 1..3),
              float32, pp and fp: the port's SOIEngine with 3 slots (prompts
              of 200 and 201 tokens, a third of 150 after 3 steps), 8 greedy
@@ -58,7 +68,8 @@ Phases, each printing its own lines:
              sharing their first 128, 66 greedy steps, so every ring wraps
              onto shared pages and copies them on write — tokens identical,
              logits within 1e-3, prefix-cache counters equal, COW on the
-             card through copy_pages.
+             card through copy_pages: one launch a flush, held to the
+             engine's count of flushes (equal on the card and the CPU).
 5. serve   — the serving driver on full-width qwen3-1.7b, SOI pp, 4
              requests of 1024..1018 tokens, 64 generated each, dense rings
              and bucketed prefill; every kernel launch is counted and held
@@ -70,7 +81,8 @@ Phases, each printing its own lines:
 6. paged   — the same traffic with a shared 768-token prefix through
              --paged --chunk-size 256 --prefix-cache: prefix-cache counters
              and chunk/paged-decode launch counts held to their expected
-             values, tokens identical to the same command without the
+             values (copy_pages to the engine's COW flushes), tokens
+             identical to the same command without the
              prefix cache, then a profiled rerun as in phase 5 (the
              prefill window and chunk_attention's device ms a request in
              it, the decode loop).
@@ -96,7 +108,8 @@ Phases, each printing its own lines:
              width, SOI pp. Card against CPU in float32 (2 layers): a
              paged, chunked prefix-cache engine whose rings wrap onto
              shared pages and copy the MLA pools on write — tokens
-             identical, logits within 1e-3, counters equal. Then the serve
+             identical, logits within 1e-3, counters equal, copy_pages
+             launched once a COW flush. Then the serve
              traffic of phase 6 through 4 bfloat16 layers: mla_chunk
              attention launches held to 28 (4 layers x 7 computed chunks),
              prefix-cache counters, warm against cold bit for bit, and a
@@ -116,8 +129,10 @@ Phases, each printing its own lines:
              held to 104 launches, decode_attention / paged_decode_attention
              to 576, flash_attention to 0; tokens identical between the
              layouts; step time at SOI phase 0 against off-phase steps; a
-             profiled rerun of each layout, with the decode reads' device
-             ms a step (split kernel and combine apart).
+             profiled rerun of each layout, with the prefill window's busy
+             time, idle share and lru_scan's device ms a request, and the
+             decode reads' device ms a step (split kernel and combine
+             apart).
 12. unet-parity — the paper's streaming U-Net, full-width soi-unet-dns
              (7 + 7 causal convs, K 3, 128 channels in and out, widths 616..
              1296), float32, B 2, 48 frames, for the 11 SOI configurations of
@@ -239,7 +254,8 @@ PATH_KERNELS = (
                                            "Li512ELi64E")),
     ("paged_mla_decode_attention", ("33paged_mla_decode_attention_kernel",
                                     "Li512ELi64E")),
-    ("lru_scan", ("15lru_scan_kernel", "kernelI")),
+    ("lru_scan (ring)", ("15lru_scan_kernel", "Lb0E")),
+    ("lru_scan (edge)", ("15lru_scan_kernel", "Lb1E")),
     ("stmc_conv (B 1)", ("16stmc_conv_kernel", "Li1E")),
     ("stmc_conv (B 32 tile)", ("16stmc_conv_kernel", "Li32E")),
 )
@@ -895,7 +911,7 @@ CHUNK_KERNELS = ("chunk_attention", "mla_chunk_attention")
 # the reads that split S and merge the ranges in a combine kernel
 SPLIT_READS = DECODE_READS + ("paged_mla_decode_attention",)
 # the kernels this slice redesigned, tabled at the end of phase 3
-REDESIGNED = ("stmc_conv", "paged_mla_decode_attention")
+REDESIGNED = ("lru_scan", "copy_pages")
 
 
 
@@ -956,6 +972,13 @@ def _plan_text(r) -> str:
     p = r.get("plan")
     if p is None:
         return "-"
+    if r["name"] == "lru_scan":
+        ring = ("edge path" if p["edge"] else
+                f"ring of {p['stages']} stages of T {p['steps']} steps, "
+                f"{p['smem'] // 1024} KB a block")
+        return (f"{p['chains']} chain-warps, {p['warps']} a block, "
+                f"{p['blocks']} blocks, {ring}; host {r['host_ms']:.4f} ms "
+                f"a call")
     if r["name"] == "stmc_conv":
         return (f"{p['blocks']} blocks, cluster {p['splits']} x "
                 f"{p['keys_per_split']} rows of K*Cin, {p['cols']} columns "
@@ -983,7 +1006,7 @@ def _redesign_table(recs, log: str):
               f"{r['bound_ms']:.5f} ({r['bound_ms'] / r['ms']:.3f}); "
               f"{r['max_abs_err']:.2e} / {r['tol']:.2e}; {_plan_text(r)}")
     for line in _ptxas_lines(log):
-        if "stmc_conv" in line or "paged_mla" in line:
+        if "lru_scan" in line or "copy_pages" in line:
             print("  " + line)
 
 
@@ -1028,6 +1051,130 @@ def _unet_conv_sweep(dev, gen) -> dict:
           f"{tot['bound_ms'] * 1e3:.1f} µs (share "
           f"{tot['bound_ms'] / tot['ms']:.3f})")
     return tot
+
+
+# a COW flush's pairs in each page table: 4 real pairs (fresh pages near
+# the pool's end as destinations) and 4 (0, 0) padding pairs
+FLUSH_PAIRS = {273: ([5, 17, 100, 201, 0, 0, 0, 0],
+                     [250, 260, 270, 272, 0, 0, 0, 0]),
+               193: ([3, 40, 99, 150, 0, 0, 0, 0],
+                     [180, 185, 190, 192, 0, 0, 0, 0])}
+
+
+def _flush_case(tables, dev, gen):
+    """A COW flush as the engine hands it to ``copy_pages_leaves``: for each
+    page table ``(n_pages, layers, leaf shapes)``, every leaf of its
+    attention layers with the table's pairs (``FLUSH_PAIRS``). A set is
+    (pools, host srcs, host dsts, device srcs, device dsts); returns the
+    sets, the bytes the flush must move and the leaves' count."""
+    spec = [(n, shape, dt) for n, layers, leaves in tables
+            for _ in range(layers) for shape, dt in leaves]
+    ids = {n: tuple(torch.tensor(v, dtype=torch.int32, device=dev)
+                    for v in FLUSH_PAIRS[n]) for n in FLUSH_PAIRS}
+
+    def make():
+        pools = [torch.randn((n,) + shape, generator=gen, device=dev).to(dt)
+                 if dt.is_floating_point else
+                 torch.randint(-1, 2048, (n,) + shape, generator=gen,
+                               device=dev, dtype=dt) for n, shape, dt in spec]
+        return (pools, [FLUSH_PAIRS[n][0] for n, _, _ in spec],
+                [FLUSH_PAIRS[n][1] for n, _, _ in spec],
+                [ids[n][0] for n, _, _ in spec],
+                [ids[n][1] for n, _, _ in spec])
+
+    rows = [math.prod(shape) * (torch.finfo(dt).bits if dt.is_floating_point
+                                else torch.iinfo(dt).bits) // 8
+            for _, shape, dt in spec]
+    pool_bytes = sum(n * r for (n, _, _), r in zip(spec, rows))
+    sets = _copies(make, pool_bytes)
+    real = [sum(a != b for a, b in zip(*FLUSH_PAIRS[n])) for n, _, _ in spec]
+    # bytes: each real pair's page read once and written once, the packed
+    # table (5 fields a leaf, 2 ids a pair of each table, int64) once
+    n_pairs = sum(len(FLUSH_PAIRS[n][0]) for n in {n for n, _, _ in spec})
+    nbytes = (sum(2 * k * r for k, r in zip(real, rows))
+              + 8 * (5 * len(spec) + 2 * n_pairs))
+    return sets, nbytes, len(spec)
+
+
+def _cow_flush_reading(label, tables, dev, gen) -> dict:
+    """One ``copy_pages_leaves`` launch for a whole COW flush, held bit for
+    bit against the plain version leaf by leaf, timed against the same
+    flush as one ``copy_pages`` launch a leaf, against the indexed
+    assignment a leaf summed (the library yardstick) and the bytes' bound;
+    device ms (kernel and table upload apart), CUDA-event ms and host ms a
+    call. Returns the record."""
+    from repro_torch.kernels import page_copy as PC
+    from repro_torch.kernels import ref
+    sets, nbytes, n_leaves = _flush_case(tables, dev, gen)
+    pools, srcs, dsts, dsrcs, ddsts = sets[0]
+    got = [p.clone() for p in pools]
+    n0 = PC.copy_pages.launches
+    PC.copy_pages_leaves(got, srcs, dsts)
+    torch.cuda.synchronize()
+    check(PC.copy_pages.launches == n0 + 1,
+          f"copy_pages_leaves {label}: {PC.copy_pages.launches - n0} "
+          f"launches for one flush")
+    for i, (g, p, s_, d_) in enumerate(zip(got, pools, dsrcs, ddsts)):
+        check(torch.equal(g, ref.copy_pages(p.clone(), s_, d_)),
+              f"copy_pages_leaves {label}: leaf {i} not bit-exact")
+
+    def one(pools, srcs, dsts, *_):
+        PC.copy_pages_leaves(pools, srcs, dsts)
+
+    def per_leaf(pools, srcs, dsts, *_):
+        for p, s_, d_ in zip(pools, srcs, dsts):
+            PC.copy_pages(p, s_, d_)
+
+    def plain(pools, _s, _d, dsrcs, ddsts):
+        for p, s_, d_ in zip(pools, dsrcs, ddsts):
+            ref.copy_pages(p, s_, d_)
+
+    longs = {id(t): t.long() for st in sets for t in st[3] + st[4]}
+
+    def library(pools, _s, _d, dsrcs, ddsts):
+        for p, s_, d_ in zip(pools, dsrcs, ddsts):
+            p[longs[id(d_)]] = p[longs[id(s_)]]
+
+    def kernel_and_copy(parts):
+        kern = sum(v for k, v in parts.items() if "copy_pages_kernel" in k)
+        return kern, sum(parts.values()) - kern
+
+    rec = {"name": "copy_pages", "shape": label, "dtype": "bfloat16",
+           "max_abs_err": 0.0, "leaves": n_leaves}
+    for key, fn, iters in (("", one, 20), ("per_leaf_", per_leaf, 5)):
+        parts: dict = {}
+        rec[key + "ms"] = (_device_ms(fn, sets, iters, parts)
+                           or _time_ms(fn, sets, iters))
+        rec[key + "kernel_ms"], rec[key + "upload_ms"] = kernel_and_copy(
+            parts)
+        rec[key + "event_ms"] = _time_ms(fn, sets, iters)
+        rec[key + "host_ms"] = _host_ms(fn, sets, 4 * iters)
+    # the host's share of a call: packing the table, and its upload
+    table = PC.pack_leaves(pools, srcs, dsts)
+    rec["host_pack_ms"] = _host_ms(
+        lambda pools, srcs, dsts, *_: PC.pack_leaves(pools, srcs, dsts), sets,
+        80)
+    rec["host_upload_ms"] = _host_ms(lambda *_: PC._upload(table, dev), sets,
+                                     80)
+    rec["plain_ms"] = _device_ms(plain, sets, 5) or _time_ms(plain, sets, 5)
+    rec["library_ms"] = (_device_ms(library, sets, 5)
+                         or _time_ms(library, sets, 5))
+    rec["bound_ms"], rec["bound_by"] = _bound(nbytes, 0.0, torch.bfloat16)
+    rec["bytes"] = nbytes
+    print(json.dumps({"kernels": [rec]}), flush=True)
+    print(f"  copy_pages {label}: {n_leaves} leaves, 1 launch: "
+          f"{rec['ms']:.4f} ms on the device (kernel {rec['kernel_ms']:.4f}"
+          f", upload {rec['upload_ms']:.4f}) [{rec['event_ms']:.4f}], host "
+          f"{rec['host_ms']:.4f} ms a call (packing {rec['host_pack_ms']:.4f}"
+          f", upload {rec['host_upload_ms']:.4f}); a launch a leaf: "
+          f"{rec['per_leaf_ms']:.4f} (kernels {rec['per_leaf_kernel_ms']:.4f}"
+          f", uploads {rec['per_leaf_upload_ms']:.4f}) "
+          f"[{rec['per_leaf_event_ms']:.4f}], host "
+          f"{rec['per_leaf_host_ms']:.4f}; indexed assignment "
+          f"{rec['library_ms']:.4f}; plain {rec['plain_ms']:.4f}; bound "
+          f"{rec['bound_ms']:.5f} ({rec['bound_ms'] / rec['ms']:.3f}); "
+          f"bit for bit", flush=True)
+    return rec
 
 
 def kernels_phase(dev) -> dict:
@@ -1160,6 +1307,10 @@ def kernels_phase(dev) -> dict:
     cases.append(("lru_scan", "odd (3,37,100)", torch.float32,
                   _lru_case(3, 37, 100, torch.float32, dev, gen),
                   _first(LS.lru_scan), _first(ref.lru_scan)))
+    # more chains than SMs: 512 chain-warps, four a block
+    cases.append(("lru_scan", "B 4 (4,2040,4096)", torch.float32,
+                  _lru_case(4, 2040, 4096, torch.float32, dev, gen),
+                  _first(LS.lru_scan), _first(ref.lru_scan)))
     # the streaming U-Net (soi-unet-dns): decoder 2, the layer with the
     # most weights (K*Cin 7248, Cout 664: 19.25 MB in float32), at B 1 (one
     # live stream) and B 32; encoder 7 (Cout 1296) at B 32; a ragged case
@@ -1175,10 +1326,13 @@ def kernels_phase(dev) -> dict:
             cases.append(("stmc_conv", shape, dt,
                           _stmc_case(*args, dt, dev, gen, bias=bias),
                           SC.stmc_conv, ref.stmc_conv))
-    cases.append(("copy_pages", "outer pool (273,16,8,128), 4+4 pairs",
-                  torch.bfloat16,
-                  _copy_case(273, 16, 8, 128, torch.bfloat16, dev, gen),
-                  PC.copy_pages, ref.copy_pages))
+    # one leaf as the parent launched a leaf; the kernel takes host ids
+    copy_case = _copy_case(273, 16, 8, 128, torch.bfloat16, dev, gen)
+    host_ids = [t.cpu() for t in copy_case[0][0][1:]]
+    cases.append(("copy_pages", "one leaf (273,16,8,128), 4+4 pairs",
+                  torch.bfloat16, copy_case,
+                  lambda pool, _s, _d: PC.copy_pages(pool, *host_ids),
+                  ref.copy_pages))
     main, chunk_recs, redesigned = {}, [], []
     for (name, shape, dt, (sets, nbytes, flops, library, extra), kern,
          plain) in cases:
@@ -1248,11 +1402,15 @@ def kernels_phase(dev) -> dict:
                 win.shape[0], win.shape[1] * win.shape[2], w.shape[2],
                 dt)._asdict()
             rec_extra["host_ms"] = _host_ms(kern, sets, 100)
+        if name == "lru_scan":
+            rec_extra["plan"] = LS.launch_plan(args[0], args[1])._asdict()
+            rec_extra["host_ms"] = _host_ms(kern, sets, 20)
         if (dt == torch.bfloat16 and (name == "flash_attention" or is_read
-                                      or is_chunk)) or name == "stmc_conv":
-            # the tensor-core bodies and the cluster's split-K add in a
-            # fixed order (no atomics): a second launch on the same inputs
-            # gives the same bits
+                                      or is_chunk)) or name in (
+                                          "stmc_conv", "lru_scan"):
+            # the tensor-core bodies, the cluster's split-K and the scan's
+            # chains add in a fixed order (no atomics): a second launch on
+            # the same inputs gives the same bits
             again = kern(*fresh())
             rec_extra["repeats_bit_for_bit"] = bool(torch.equal(got, again))
             check(rec_extra["repeats_bit_for_bit"],
@@ -1324,6 +1482,17 @@ def kernels_phase(dev) -> dict:
             main[key] = rec
     _chunk_table(chunk_recs, _build.build_info().log)
     _redesign_table(redesigned, _build.build_info().log)
+    # a whole COW flush: qwen3's serving pools (28 layers, SOI 7..21: 14 on
+    # the outer table's 273 pages, 14 on the middle's 193), k, v and pos;
+    # then an MLA flush (latent, rope, pos) of 2 + 2 layers
+    kv = ((16, 8, 128), torch.bfloat16)
+    pos = ((16,), torch.int32)
+    main["copy_pages"] = _cow_flush_reading(
+        "qwen3 flush 28 layers x (k, v, pos)",
+        [(273, 14, (kv, kv, pos)), (193, 14, (kv, kv, pos))], dev, gen)
+    mla = (((16, 512), torch.bfloat16), ((16, 64), torch.bfloat16), pos)
+    _cow_flush_reading("MLA flush 4 layers x (latent, rope, pos)",
+                       [(273, 2, mla), (193, 2, mla)], dev, gen)
     _unet_conv_sweep(dev, gen)
     return main
 
@@ -1416,7 +1585,7 @@ def parity_phase(dev) -> dict:
             pp = [torch.cat([shared, torch.randint(
                 0, cfg.vocab, (n - 128,), generator=gen, dtype=torch.int32)])
                 for n in (200, 201, 199)]
-            runs, stats = [], []
+            runs, stats, flushes = [], [], []
             for where, model in ((torch.device("cpu"), cpu_model),
                                  (dev, dev_model)):
                 eng = SOIEngine(cfg, max_concurrent_decodes=3, max_len=256,
@@ -1431,16 +1600,20 @@ def parity_phase(dev) -> dict:
                     torch.cuda.synchronize(dev)
                     paged_counts = ops.launch_counts()
                 stats.append(eng.prefix_cache_stats)
+                flushes.append(eng.cow_flushes)
                 print(f"  paged {where}: 3 chunked prefills + 66 steps in "
                       f"{time.perf_counter() - t0:.2f} s (host clock); "
-                      f"prefix cache {stats[-1]}")
+                      f"prefix cache {stats[-1]}; {flushes[-1]} COW flushes")
             worst = _compare_runs(runs, "paged pp")
             check(stats[0] == stats[1], f"prefix-cache counters differ: cpu "
                                         f"{stats[0]}, cuda {stats[1]}")
             check(stats[1]["hits"] == 2 and stats[1]["cow_copies"] > 0,
                   f"expected 2 hits and copies on write: {stats[1]}")
-            check(paged_counts["copy_pages"] > 0
-                  and paged_counts["chunk_attention"] > 0
+            # one copy_pages launch a COW flush, every pool leaf in it
+            check(paged_counts["copy_pages"] == flushes[1] == flushes[0] > 0,
+                  f"copy_pages launches {paged_counts['copy_pages']} != COW "
+                  f"flushes (cpu {flushes[0]}, cuda {flushes[1]})")
+            check(paged_counts["chunk_attention"] > 0
                   and paged_counts["paged_decode_attention"] > 0,
                   f"paged run launches {paged_counts}")
             check(paged_counts["decode_attention"] == 0
@@ -1656,7 +1829,8 @@ def paged_serve_phase(dev):
     print(f"  prefix cache {pc}; pools {res.pools}")
     print(f"  launches {counts}; expected chunk_attention {want_chunk} "
           f"({want_chunks} chunks x {n_outer + n_mid} layers), "
-          f"paged_decode_attention {want_paged}")
+          f"paged_decode_attention {want_paged}, copy_pages "
+          f"{res.cow_flushes} (COW flushes)")
     check(res.seqs.shape == (4, 64), f"tokens shape {res.seqs.shape}")
     check(((res.seqs >= 0) & (res.seqs < cfg.vocab)).all(),
           "token ids outside [0, vocab)")
@@ -1671,6 +1845,9 @@ def paged_serve_phase(dev):
           f"{counts['paged_decode_attention']} != {want_paged}")
     check(counts["decode_attention"] == 0 and counts["flash_attention"] == 0,
           f"the paged chunked path launched a dense kernel: {counts}")
+    check(counts["copy_pages"] == res.cow_flushes,
+          f"copy_pages launches {counts['copy_pages']} != COW flushes "
+          f"{res.cow_flushes}")
     cold = serve.run(cold_args)
     check(cold.prefix_cache == {} and (cold.seqs == res.seqs).all(),
           "tokens with the prefix cache differ from the cold run")
@@ -1878,7 +2055,7 @@ def mla_phase(dev) -> tuple:
     prompts = [torch.cat([shared, torch.randint(
         0, cfg.vocab, (n - 64,), generator=gen, dtype=torch.int32)])
         for n in (100, 101, 99)]
-    runs, stats = [], []
+    runs, stats, flushes = [], [], []
     for where, model in ((torch.device("cpu"), cpu_model), (dev, dev_model)):
         eng = SOIEngine(cfg, max_concurrent_decodes=3, max_len=128,
                         device=where, paged=True, page_size=16,
@@ -1890,16 +2067,19 @@ def mla_phase(dev) -> tuple:
         torch.cuda.synchronize(dev)
         cow_counts = ops.launch_counts()          # the card run's, last
         stats.append(eng.prefix_cache_stats)
+        flushes.append(eng.cow_flushes)
         print(f"  parity {where}: 3 chunked prefills + 34 steps in "
               f"{time.perf_counter() - t0:.2f} s (host clock); prefix cache "
-              f"{stats[-1]}")
+              f"{stats[-1]}; {flushes[-1]} COW flushes")
     worst = _compare_runs(runs, "mla paged")
     check(stats[0] == stats[1], f"prefix-cache counters differ: cpu "
                                 f"{stats[0]}, cuda {stats[1]}")
     check(stats[1]["hits"] == 2 and stats[1]["cow_copies"] > 0,
           f"expected 2 hits and copies on write: {stats[1]}")
-    check(cow_counts["copy_pages"] > 0
-          and cow_counts["mla_chunk_attention"] > 0
+    check(cow_counts["copy_pages"] == flushes[1] == flushes[0] > 0,
+          f"copy_pages launches {cow_counts['copy_pages']} != COW flushes "
+          f"(cpu {flushes[0]}, cuda {flushes[1]})")
+    check(cow_counts["mla_chunk_attention"] > 0
           and cow_counts["paged_mla_decode_attention"] > 0,
           f"parity run launches {cow_counts}")
     gqa = ("decode_attention", "flash_attention", "chunk_attention",
@@ -1950,6 +2130,9 @@ def mla_phase(dev) -> tuple:
           f"{counts['paged_mla_decode_attention']} != {want_paged}")
     check(not any(counts[k] for k in gqa),
           f"the MLA serve launched a GQA kernel: {counts}")
+    check(counts["copy_pages"] == res.cow_flushes,
+          f"copy_pages launches {counts['copy_pages']} != COW flushes "
+          f"{res.cow_flushes}")
     cold = serve.run(cold_args, cfg)
     check(cold.prefix_cache == {} and (cold.seqs == res.seqs).all(),
           "tokens with the prefix cache differ from the cold run")
@@ -2108,6 +2291,7 @@ def rg_serve_phase(dev) -> dict:
         ev = _device_events(lambda: serve.serve(engines[layout], params,
                                                 prompt, plens, args.gen_len))
         check(ev, "the profiler saw no device activity")
+        _prefill_profile(ev, len(res.seqs), "lru_scan_kernel")
         loop = _decode_profile(ev, res.steps, "lru_scan_kernel")
         _reads_per_step(loop, res.steps, layout)
     del params, engines, engine

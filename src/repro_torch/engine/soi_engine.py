@@ -110,14 +110,6 @@ def _attn_caches(caches):
     return [c for c in caches if D.is_attn_cache(c)]
 
 
-def _copy_group_pages(caches, srcs, dsts):
-    """Apply a COW pair set to every pool leaf of a cache group: one
-    ``copy_pages`` launch per leaf (k, v, pos of every attention layer)."""
-    for c in _attn_caches(caches):
-        for pool in c.values():
-            kops.copy_pages(pool, srcs, dsts)
-
-
 class SOIEngine(Engine):
     """Engine over the per-token step; handles SOI and plain configs alike.
 
@@ -213,6 +205,8 @@ class SOIEngine(Engine):
         # compressed middle ran (some active slot at phase 0)
         self.steps = 0
         self.mid_steps = 0
+        # COW flushes that copied pages (one copy_pages launch each)
+        self.cow_flushes = 0
 
     def _resolve_buckets(self, policy):
         """Prefill bucket lengths: None (exact length), "pow2" (powers of
@@ -291,20 +285,27 @@ class SOIEngine(Engine):
                             device=self.device)
 
     def _flush_cow(self, decode_state):
-        """Copy every pending COW pair: per cache group one (n,) pair table,
-        one ``copy_pages`` launch per pool leaf."""
+        """Copy every pending COW pair into every pool leaf (k, v, pos or
+        latent, rope, pos of each attention layer) of its page table's cache
+        groups: one ``copy_pages_leaves`` launch for the whole flush."""
         pending = self._cow_pending
         if not pending["outer"] and not pending["mid"]:
             return decode_state
         self._cow_pending = {"outer": [], "mid": []}
         model = decode_state["model"]
+        pools, srcs, dsts = [], [], []
         for table, pairs in pending.items():
             if not pairs:
                 continue
-            srcs = self._ids([a for a, _ in pairs])
-            dsts = self._ids([b for _, b in pairs])
+            src, dst = np.asarray(pairs, np.int64).T
             for key in _table_groups(self.cfg)[table]:
-                _copy_group_pages(model[key], srcs, dsts)
+                for c in _attn_caches(model[key]):
+                    pools.extend(c.values())
+            srcs += [src] * (len(pools) - len(srcs))
+            dsts += [dst] * (len(pools) - len(dsts))
+        if pools:
+            kops.copy_pages_leaves(pools, srcs, dsts)
+            self.cow_flushes += 1
         self._live = decode_state
         return decode_state
 

@@ -31,7 +31,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures of the entry points (see the ``extern "C"`` functions)
 SIGNATURES = {
@@ -46,13 +45,14 @@ SIGNATURES = {
     "repro_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _I, _F,
                                      _I, _I, _I, _P],
-    "repro_copy_pages": [_P, _P, _P, _I, _I, _L, _P],
+    "repro_copy_pages": [_P, _I, _I, _P],
     "repro_mla_chunk_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "repro_paged_mla_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
                                          _P, _I, _I, _I, _I, _I, _I, _F,
                                          _I, _I, _I, _P],
-    "repro_lru_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_lru_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _P],
     "repro_stmc_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _P],
 }

@@ -33,7 +33,7 @@ from repro_torch.kernels.decode_attention import (decode_attention,
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
 from repro_torch.kernels.lru_scan import lru_scan
-from repro_torch.kernels.page_copy import copy_pages
+from repro_torch.kernels.page_copy import copy_pages, copy_pages_leaves
 from repro_torch.kernels.ref import gather_pages, mla_decode_attention
 from repro_torch.kernels.stmc_conv import stmc_conv
 
@@ -69,8 +69,8 @@ def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
-__all__ = ["chunk_attention", "copy_pages", "decode_attention",
-           "flash_attention", "gather_pages", "launch_counts", "lru_scan",
-           "mla_chunk_attention", "mla_decode_attention",
-           "paged_decode_attention", "paged_mla_decode_attention",
-           "reset_launch_counts", "stmc_conv"]
+__all__ = ["chunk_attention", "copy_pages", "copy_pages_leaves",
+           "decode_attention", "flash_attention", "gather_pages",
+           "launch_counts", "lru_scan", "mla_chunk_attention",
+           "mla_decode_attention", "paged_decode_attention",
+           "paged_mla_decode_attention", "reset_launch_counts", "stmc_conv"]

@@ -119,6 +119,7 @@ class ServeResult:
     mid_steps: int              # steps in which the SOI middle ran
     prefix_cache: dict          # engine.prefix_cache_stats ({} if off)
     pools: dict                 # engine.pool_stats() ({} if dense)
+    cow_flushes: int            # COW flushes that copied pages
 
 
 def serve(engine: SOIEngine, params, prompt, plens, gen_len: int, *,
@@ -128,7 +129,7 @@ def serve(engine: SOIEngine, params, prompt, plens, gen_len: int, *,
     counters."""
     b = len(plens)
     state = engine.init_decode_state(params)
-    steps0, mid0 = engine.steps, engine.mid_steps
+    steps0, mid0, flush0 = engine.steps, engine.mid_steps, engine.cow_flushes
     out: dict = {}
     admitted: list = []
     pendq = []
@@ -196,7 +197,7 @@ def serve(engine: SOIEngine, params, prompt, plens, gen_len: int, *,
     pc = engine.prefix_cache_stats if engine.prefix_cache_enabled else {}
     return ServeResult(seqs, list(plens), prefill_s, decode_s, decoded,
                        engine.steps - steps0, engine.mid_steps - mid0, pc,
-                       engine.pool_stats())
+                       engine.pool_stats(), engine.cow_flushes - flush0)
 
 
 def setup(args: argparse.Namespace, cfg=None):

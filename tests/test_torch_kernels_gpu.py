@@ -14,11 +14,14 @@ bit for bit, split or not),
 the paged reads over page-map holes and a slot whose map is all null
 pages (it sees no key: the plain version's average), the paged MLA read's
 bf16 body at ragged H, repeating bit for bit, every range's partial
-counted once; ``lru_scan`` (bit for bit in float32) and ``stmc_conv`` (at
+counted once; ``lru_scan`` (bit for bit in float32, repeating, on both
+branches of its plan, the edge path and a misaligned view, and split at
+any step equal to the whole scan) and ``stmc_conv`` (at
 the streaming U-Net's shapes, B 1 to 40, with and without bias; both
 dtypes repeat bit for bit; the masked edge path at Cout 129 and on a
 misaligned weight view; one-hot windows count every split of the cluster
-once), bit-exact for ``copy_pages``; and a narrow U-Net streamed on the
+once), bit-exact for ``copy_pages`` (and ``copy_pages_leaves``: one launch
+over mixed leaves); and a narrow U-Net streamed on the
 card against the CPU, with ``stmc_conv`` launched as the phase plans say.
 
 Without a CUDA device every test here skips (decided inside the ``cuda``
@@ -560,6 +563,55 @@ def test_cuda_copy_pages_bit_exact(cuda, case):
     assert torch.equal(got.cpu(), want)
 
 
+def _misaligned(shape, dtype, cuda, g):
+    """A contiguous pool whose first byte sits one element past a 16-byte
+    boundary."""
+    n = int(np.prod(shape))
+    flat = torch.randint(-5, 10_000, (n + 1,), generator=g, dtype=torch.int32)
+    return flat.to(dtype).to(cuda)[1:].view(shape)
+
+
+@pytest.mark.gpu
+def test_cuda_copy_pages_leaves_one_launch_over_mixed_leaves(cuda):
+    """One launch for a flush over qwen3's K/V and pos leaves, MLA latent and
+    rope leaves, 12-byte rows and a misaligned pool (byte copies), each
+    leaf with its own pair list (none, padding pairs, ids past its pages)
+    — bit for bit the plain version leaf by leaf."""
+    g = torch.Generator(device="cpu").manual_seed(12)
+    pools = [torch.randn((273, 16, 8, 128), generator=g).to(torch.bfloat16),
+             torch.randint(-1, 2048, (273, 16), generator=g,
+                           dtype=torch.int32),
+             torch.randn((50, 16, 512), generator=g).to(torch.bfloat16),
+             torch.randn((50, 16, 64), generator=g).to(torch.bfloat16),
+             torch.randint(0, 99, (9, 3), generator=g, dtype=torch.int32)]
+    srcs = [[5, 17, 100, 201, 0, 0, 0, 0], [5, 17, 100, 201, 0, 0, 0, 0],
+            [3, 7, 0], [3, 7, 0], [1, 2]]
+    dsts = [[250, 260, 270, 272, 0, 0, 0, 0], [250, 260, 270, 272, 0, 0, 0, 0],
+            [40, 49, 0], [40, 49, 0], [8, 9]]        # 9: past the pages
+    want = [pref.copy_pages(p.clone(), torch.tensor(s), torch.tensor(d))
+            for p, s, d in zip(pools[:-1], srcs, dsts)]
+    want.append(pools[-1].clone())
+    want[-1][8] = pools[-1][1]                    # (2, 9) is skipped
+    dev = [p.to(cuda) for p in pools]
+    odd = _misaligned((20, 16, 8), torch.float32, cuda, g)
+    dev.append(odd)
+    srcs.append([2, 3, 4])
+    dsts.append([10, 11, 4])
+    want.append(pref.copy_pages(odd.cpu().clone(), torch.tensor(srcs[-1]),
+                                torch.tensor(dsts[-1])))
+    dev.append(torch.zeros(4, 16, device=cuda))
+    srcs.append([])
+    dsts.append([])
+    want.append(torch.zeros(4, 16))
+    n0 = PPC.copy_pages.launches
+    assert odd.data_ptr() % 16 and PPC.copy_pages_leaves(dev, srcs,
+                                                         dsts) is dev
+    torch.cuda.synchronize()
+    assert PPC.copy_pages.launches == n0 + 1
+    for i, (got, w) in enumerate(zip(dev, want)):
+        assert torch.equal(got.cpu(), w), i
+
+
 def _mla_chunk_inputs(seed, b, c, s_cache, h, lat_d, r, *, filled, q0,
                       pad_rows=0, holes=0, key_shift=0):
     """Absorbed-MLA chunk inputs: C queries at q0.. (the last ``pad_rows``
@@ -872,11 +924,15 @@ def _lru_inputs(seed, b, s, d, h0=False):
     return a, x, (_normal(rng, (b, d)) if h0 else None)
 
 
+# (inputs, the plan's branch: chain-warps a block, or the edge path)
 GPU_LRU = {
-    "smoke": dict(b=2, s=5, d=64),
-    "h0_odd": dict(b=3, s=37, d=100, h0=True),
-    "outer": dict(b=1, s=2040, d=4096),
-    "middle": dict(b=1, s=1020, d=4096),
+    "smoke": (dict(b=2, s=5, d=64), 1),
+    "h0_odd": (dict(b=3, s=37, d=100, h0=True), "edge"),
+    "odd_wide": (dict(b=1, s=300, d=4095), "edge"),
+    "outer": (dict(b=1, s=2040, d=4096), 1),
+    "middle": (dict(b=1, s=1020, d=4096), 1),
+    "b4_ragged_stage": (dict(b=4, s=257, d=4096, h0=True), 4),
+    "b64_short": (dict(b=64, s=7, d=4096), 8),
 }
 
 
@@ -884,10 +940,16 @@ GPU_LRU = {
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", sorted(GPU_LRU))
 def test_cuda_lru_scan_matches_plain(cuda, case, dtype):
+    """Both branches of the plan (one chain-warp a block, several) and the
+    edge path: float32 bit for bit, both dtypes repeating bit for bit."""
+    kw, branch = GPU_LRU[case]
     dt = getattr(torch, dtype)
-    a, x, h0 = _lru_inputs(15, **GPU_LRU[case])
+    a, x, h0 = _lru_inputs(15, **kw)
     a, x = (torch.from_numpy(z).to(cuda, dt) for z in (a, x))
     h0 = None if h0 is None else torch.from_numpy(h0).to(cuda)
+    plan = PLS.launch_plan(a, x)
+    assert (plan.edge if branch == "edge" else
+            (not plan.edge and plan.warps == branch)), plan
     n0 = PLS.lru_scan.launches
     got, last = PLS.lru_scan(a, x, h0)
     torch.cuda.synchronize()
@@ -897,6 +959,41 @@ def test_cuda_lru_scan_matches_plain(cuda, case, dtype):
     _close(got.float().cpu(), want.float().cpu(), TOL[dtype])
     if dtype == "float32":       # product and sum round as the plain's do
         assert torch.equal(got, want)
+    assert torch.equal(PLS.lru_scan(a, x, h0)[0], got)
+
+
+@pytest.mark.gpu
+def test_cuda_lru_scan_misaligned_view_takes_the_edge_path(cuda):
+    """Contiguous a and x one element past a 16-byte boundary: the edge
+    path, bit for bit the plain version in float32."""
+    a, x, _ = _lru_inputs(16, 2, 70, 128)
+    n = a.size
+    bufs = [torch.zeros(n + 1, device=cuda) for _ in range(2)]
+    for buf, z in zip(bufs, (a, x)):
+        buf[1:] = torch.from_numpy(z).reshape(-1).to(cuda)
+    a, x = (buf[1:].view(2, 70, 128) for buf in bufs)
+    assert PLS.launch_plan(a, x).edge and not PLS.lru_plan(2, 70, 128,
+                                                            torch.float32).edge
+    got, _ = PLS.lru_scan(a, x)
+    assert torch.equal(got, pref.lru_scan(a, x)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 64, 100, 299])
+def test_cuda_lru_scan_is_chunk_invariant(cuda, k):
+    """A scan of [0, S) equals a scan of [0, k), then of [k, S) from its
+    last state, bit for bit in float32: at a stage's edge (64) and inside
+    one, on the ring path (B 2, D 4096) and the edge path (D 100)."""
+    for d in (4096, 100):
+        a, x, h0 = _lru_inputs(17, 2, 300, d, h0=True)
+        a, x, h0 = (torch.from_numpy(z).to(cuda) for z in (a, x, h0))
+        whole, last = PLS.lru_scan(a, x, h0)
+        head, mid = PLS.lru_scan(a[:, :k].contiguous(), x[:, :k].contiguous(),
+                                 h0)
+        tail, tail_last = PLS.lru_scan(a[:, k:].contiguous(),
+                                       x[:, k:].contiguous(), mid)
+        assert torch.equal(whole, torch.cat([head, tail], 1)), d
+        assert torch.equal(last, tail_last), d
 
 
 @pytest.mark.gpu
