@@ -150,7 +150,40 @@ Phases, each printing its own lines:
              ratio to the baseline, peak device memory, and from a profiled
              rerun the idle share, kernel time by name and stmc_conv's
              device ms a frame.
-14. the kernels JSON line, the card line, and last {"ok": true, ...}.
+14. graphs  — the captured step graphs (``engine.contracts.CheckedGraph``:
+             on the card ``SOIEngine.generate`` replays one CUDA graph per
+             SOI branch, ``unet_stream_session`` one per phase, as in phases
+             4-13) against the eager steps, bit for bit: the graphed engine
+             against an eager twin (a deep copy of the engine and its state,
+             whose step runs ``generate_step`` eagerly) — tokens and logits
+             every step, every leaf of the decode state at the end — for
+             qwen3 at 4 layers in f32 (pp and fp dense; pp paged with
+             chunked prefill and the prefix cache, 60 steps, so COW flushes
+             run between replays), deepseek-v2 at 2 layers (bf16, paged) and
+             recurrentgemma-9b at 12 (bf16, dense and paged); 2 captures an
+             engine, none in steady state; a rebound >= 16 KiB state leaf
+             raises DroppedDonationError and another params object
+             ValueError before a replay. The U-Net session against the eager
+             steppers at B 1 and B 32 for phase 13's configs, every frame
+             and the final state bit for bit, stmc_conv launched as planned.
+             Timing, graphed against eager from one state in the same
+             process: full-width qwen3-1.7b at phase 5's traffic (64 steps
+             each, interleaved: median step, with and without the middle;
+             a profiled window of 16 steps: busy ms a step, idle share,
+             device kernels a step, the decode reads on the device equal
+             to the replays' count), and soi-unet-dns at B 1 and B 32, STMC
+             baseline and PP S-CC (3,) (192 frames each: median step per
+             phase, real-time factor, step ratio beside the MAC retain; 64
+             profiled frames: busy, idle share, stmc_conv kernels on the
+             device equal to the count); each graph's capture time, pool
+             bytes and copy-back bytes.
+15. the kernels JSON line, the card line, and last {"ok": true, ...}.
+
+Phases 4-13 run the engine and the U-Net session as a user does, so on the
+card every generate step and every frame after a branch's first is a graph
+replay; the kernel launch counters (Python-side) get each graph's launches
+added at every replay (``ops.add_launch_counts``), which is what their
+checks hold. Phase 13 captures every phase before its timed frames.
 
 Any failure raises and exits nonzero; no result line is printed then.
 """
@@ -405,22 +438,34 @@ def _device_events(fn) -> list:
                   for e in prof.events() if e.device_type == cuda)
 
 
-def _device_ms(fn, sets, iters: int, by_name=None):
+def _device_ms(fn, sets, iters: int, by_name=None, bound_ms=None):
     """Mean device time per call (the summed durations of the call's
     kernels, host launch gaps excluded); None if the profiler saw no
     device activity. ``by_name`` (a dict) receives each kernel's mean ms
-    per call."""
+    per call. A reading under ``bound_ms`` (the least time the card could
+    take: the profiler lost events) is not taken: the run is profiled
+    again, and a second reading under the bound raises."""
     def run():
         for i in range(iters):
             fn(*sets[i % len(sets)])
-    # the profiler can hand back no device events for a run: look again
-    ev = _device_events(run) or _device_events(run)
+
+    def reading(ev):
+        return sum(e - s for s, e, _ in ev) / iters / 1e3 if ev else None
+    # the profiler can hand back no device events for a run, or lose some
+    # of them: look again
+    ev = _device_events(run)
+    if not ev or (bound_ms is not None and reading(ev) < bound_ms):
+        ev = _device_events(run)
+        ms = reading(ev)
+        check(bound_ms is None or ms is None or ms >= bound_ms,
+              f"device time {ms} ms under the bound {bound_ms} ms in two "
+              f"profiled runs: the profiler loses events")
     if not ev:
         return None
     if by_name is not None:
         for s, e, name in ev:
             by_name[name] = by_name.get(name, 0.0) + (e - s) / iters / 1e3
-    return sum(e - s for s, e, _ in ev) / iters / 1e3
+    return reading(ev)
 
 
 def _busy_us(intervals) -> float:
@@ -1034,10 +1079,10 @@ def _unet_conv_sweep(dev, gen) -> dict:
         got = SC.stmc_conv(*sets[0])
         err = float((got - ref.stmc_conv(*sets[0])).abs().max())
         check(err < TOL[f32], f"stmc_conv {label}: max|Δ| {err}")
-        ms = (_device_ms(SC.stmc_conv, sets, 20)
+        bound, _ = _bound(nbytes, flops, f32)
+        ms = (_device_ms(SC.stmc_conv, sets, 20, bound_ms=bound)
               or _time_ms(SC.stmc_conv, sets, 50))
         lib = _device_ms(library, sets, 20) or _time_ms(library, sets, 50)
-        bound, _ = _bound(nbytes, flops, f32)
         plan = SC.stmc_plan(1, k * cin, cout, f32)
         print(f"    {label} ({k * cin}x{cout}): {ms:.4f}; {lib:.4f}; "
               f"{bound:.5f} ({bound / ms:.3f}); {plan.blocks} blocks = "
@@ -1141,9 +1186,11 @@ def _cow_flush_reading(label, tables, dev, gen) -> dict:
 
     rec = {"name": "copy_pages", "shape": label, "dtype": "bfloat16",
            "max_abs_err": 0.0, "leaves": n_leaves}
+    rec["bound_ms"], rec["bound_by"] = _bound(nbytes, 0.0, torch.bfloat16)
     for key, fn, iters in (("", one, 20), ("per_leaf_", per_leaf, 5)):
         parts: dict = {}
-        rec[key + "ms"] = (_device_ms(fn, sets, iters, parts)
+        rec[key + "ms"] = (_device_ms(fn, sets, iters, parts,
+                                      bound_ms=rec["bound_ms"])
                            or _time_ms(fn, sets, iters))
         rec[key + "kernel_ms"], rec[key + "upload_ms"] = kernel_and_copy(
             parts)
@@ -1156,10 +1203,10 @@ def _cow_flush_reading(label, tables, dev, gen) -> dict:
         80)
     rec["host_upload_ms"] = _host_ms(lambda *_: PC._upload(table, dev), sets,
                                      80)
-    rec["plain_ms"] = _device_ms(plain, sets, 5) or _time_ms(plain, sets, 5)
+    rec["plain_ms"] = (_device_ms(plain, sets, 5, bound_ms=rec["bound_ms"])
+                       or _time_ms(plain, sets, 5))
     rec["library_ms"] = (_device_ms(library, sets, 5)
                          or _time_ms(library, sets, 5))
-    rec["bound_ms"], rec["bound_by"] = _bound(nbytes, 0.0, torch.bfloat16)
     rec["bytes"] = nbytes
     print(json.dumps({"kernels": [rec]}), flush=True)
     print(f"  copy_pages {label}: {n_leaves} leaves, 1 launch: "
@@ -1446,8 +1493,11 @@ def kernels_phase(dev) -> dict:
                  "library_event_ms": (_time_ms(library, sets, 50)
                                       if has_lib else None)}
         parts = {}
-        dev_ms = {"ms": _device_ms(kern, sets, 20, parts),
-                  "plain_ms": _device_ms(plain, sets, 5),
+        bound_ms, bound_by = _bound(nbytes, flops, dt)
+        # the kernel and its plain version compute the row's function: a
+        # reading under its bound is a profile that lost events
+        dev_ms = {"ms": _device_ms(kern, sets, 20, parts, bound_ms=bound_ms),
+                  "plain_ms": _device_ms(plain, sets, 5, bound_ms=bound_ms),
                   "library_ms": (_device_ms(library, sets, 20)
                                  if has_lib else None)}
         for key, val in dev_ms.items():
@@ -1460,7 +1510,6 @@ def kernels_phase(dev) -> dict:
                 if "decode_combine" in k_ or "chunk_combine" in k_)
             rec_extra["split_ms"] = sum(parts.values()) - rec_extra[
                 "combine_ms"]
-        bound_ms, bound_by = _bound(nbytes, flops, dt)
         rec = {"name": name, "shape": shape, "dtype": str(dt)[6:],
                "max_abs_err": err, **dev_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, **event,
@@ -2423,12 +2472,13 @@ def unet_stream_phase(dev) -> dict:
             planned = _planned_convs(cfg, STREAM_FRAMES)
             check(planned == hand_count,
                   f"{label}: planned {planned} != {hand_count}")
-            warm = unet_stream_session(model, cfg, batch=b, device=dev)
+            # two periods first: every phase's graph captured (the timed
+            # frames start again at phase 0)
+            sess = unet_stream_session(model, cfg, batch=b, device=dev)
             for t in range(2 * cfg.period):
-                warm.push(x[:, t])
+                sess.push(x[:, t])
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
-            sess = unet_stream_session(model, cfg, batch=b, device=dev)
             per_phase: list = [[] for _ in range(cfg.period)]
             ops.reset_launch_counts()
             t_all = time.perf_counter()
@@ -2443,6 +2493,10 @@ def unet_stream_phase(dev) -> dict:
             _held_launches(counts, planned, f"{label} B {b}")
             check(y.shape == (b, 128) and bool(torch.isfinite(y).all()),
                   f"{label} B {b}: last frame {tuple(y.shape)} not finite")
+            check(sess.graph.captures == cfg.period
+                  and sess.graph.replays == STREAM_FRAMES + cfg.period,
+                  f"{label} B {b}: {sess.graph.captures} captures, "
+                  f"{sess.graph.replays} replays")
             if b == 1 and kw is None:
                 main_counts = counts
             mean_ms = total_s * 1e3 / STREAM_FRAMES
@@ -2464,6 +2518,8 @@ def unet_stream_phase(dev) -> dict:
         for label, kw, _n in (STREAM_SOIS[0], STREAM_SOIS[2]):
             cfg = _unet_cfg(kw)
             sess = unet_stream_session(model, cfg, batch=b, device=dev)
+            for t in range(cfg.period):
+                sess.push(x[:, t])            # the captures, unprofiled
             n_prof = 64
 
             def run():
@@ -2480,6 +2536,454 @@ def unet_stream_phase(dev) -> dict:
     del model
     _free(dev)
     return main_counts
+
+
+# ---------------------------------------------------------------------------
+# 14. graphs: the captured step programs against the eager steps
+# ---------------------------------------------------------------------------
+
+def _eager_twin(engine, ds):
+    """A deep copy of ``engine`` (host tables, prefix index, clocks) and of
+    its live decode state ``ds``, taken before the engine's first step,
+    whose step runs ``gen_step`` — ``generate_step``, the argmax and the
+    result rows — eagerly: the same host decisions, the same COW flushes
+    and page-map copies, no graph."""
+    from repro_torch.engine import soi_engine as SE
+    twin, twin_ds = copy.deepcopy((engine, ds))
+    cfg = twin.cfg
+    twin.graph = lambda params, d, mid: SE.gen_step(params, cfg, d, mid)
+    return twin, twin_ds
+
+
+# the leaves of an attention cache: in a paged state, pools whose row 0 is
+# the null page
+POOL_LEAVES = ("['k']", "['v']", "['pos']", "['latent']", "['rope']")
+
+
+def _state_equal(a, b, label, paged=False) -> tuple:
+    """Every leaf of two state trees equal bit for bit; returns the count of
+    leaves and of null-page elements that differ. In a paged state the null
+    page (row 0 of every pool) takes the writes of slots that must not
+    write (mid-window middle rows, shared prefix pages at insert), several
+    to one row at once, so which lands is the scatter's choice; every read
+    masks it. It is left out of the comparison and counted."""
+    from repro_torch.engine.contracts import state_leaves
+    la, lb = state_leaves(a), state_leaves(b)
+    check([p for p, _ in la] == [p for p, _ in lb],
+          f"{label}: the state trees differ")
+    null_diff = 0
+    for (path, x), (_, y) in zip(la, lb):
+        if paged and path.startswith("['model']") and path.endswith(
+                POOL_LEAVES):
+            null_diff += int((x[0] != y[0]).sum())
+            x, y = x[1:], y[1:]
+        check(torch.equal(x, y),
+              f"{label}: state leaf {path} differs from the eager step's")
+    return len(la), null_diff
+
+
+def _raises(exc, fn) -> str:
+    try:
+        fn()
+    except exc as e:
+        return str(e)
+    raise RuntimeError(f"{exc.__name__} was not raised")
+
+
+def _graph_parity(label, engine, params, prompts, n_steps, late_at, dev):
+    """The graphed engine against its eager twin, bit for bit: tokens and
+    logits every step, every leaf of the decode state at the end; a late
+    insert after ``late_at`` steps. Returns the graphed state."""
+    import numpy as np
+    ds = engine.init_decode_state(params)
+    for slot in (0, 1):
+        ds = engine.insert(engine.prefill(params, prompts[slot].to(dev)), ds,
+                           slot)
+    twin, tds = _eager_twin(engine, ds)
+    flushes0 = engine.cow_flushes
+    t0 = time.perf_counter()
+    for k in range(n_steps):
+        if k == late_at:
+            prefix = engine.prefill(params, prompts[2].to(dev))
+            ds = engine.insert(prefix, ds, 2)
+            tds = twin.insert(prefix, tds, 2)
+        ds, res = engine.generate(params, ds)
+        tds, tres = twin.generate(params, tds)
+        check(torch.equal(res.logits, tres.logits),
+              f"{label} step {k}: logits differ from the eager step's")
+        check(np.array_equal(res.convert_to_numpy().data,
+                             tres.convert_to_numpy().data),
+              f"{label} step {k}: tokens differ from the eager step's")
+    n_leaves, null_diff = _state_equal(ds, tds, label,
+                                       paged=engine._paged)
+    g = engine.graph
+    want = 2 if engine.cfg.soi is not None else 1
+    check(g.captures == want and g.replays == n_steps - want,
+          f"{label}: {g.captures} captures, {g.replays} replays in "
+          f"{n_steps} steps (want {want} captures)")
+    stats = {str(k[0]): {"capture_s": round(v["capture_s"], 4),
+                         "pool_MiB": round(v["pool_bytes"] / 2 ** 20, 2),
+                         "copy_back_B": v["copy_back_bytes"]}
+             for k, v in g.stats().items()}
+    print(f"  {label}: {n_steps} steps graphed == eager bit for bit (tokens, "
+          f"logits, {n_leaves} state leaves"
+          f"{f'; null pages: {null_diff} elements differ' if engine._paged else ''}"
+          f") in {time.perf_counter() - t0:.2f} s; {g.captures} captures, "
+          f"{g.replays} replays, {engine.cow_flushes - flushes0} COW "
+          f"flushes between replays; graphs {stats}", flush=True)
+    return ds
+
+
+def _refusals(label, engine, params, ds):
+    """A rebound >= 16 KiB state leaf (the largest) and another params
+    object are refused before a replay; the captured ones replay."""
+    from repro_torch.engine import contracts as C
+    g = engine.graph
+    steps = C._steps(ds, [])
+    path, big = max(steps, key=lambda st: st[1].nbytes)
+    check(big.nbytes >= C.BIG_BYTES, f"{label}: no leaf of >= 16 KiB")
+    branch = next(iter(g.stats()))[0]
+    C._set_path(ds, path, big.clone())
+    msg = _raises(C.DroppedDonationError,
+                  lambda: g(params, ds, branch))
+    C._set_path(ds, path, big)
+    _raises(ValueError, lambda: g(copy.copy(params), ds, branch))
+    print(f"  {label}: rebinding {''.join(f'[{s!r}]' for s in path)} "
+          f"({big.nbytes} B) raised DroppedDonationError ({msg[:70]}...); "
+          f"another params object ValueError", flush=True)
+
+
+def _lm_graph_parity(dev):
+    from repro_torch.configs import deepseek_v2_236b as DS
+    from repro_torch.configs import recurrentgemma_9b as RG
+    from repro_torch.engine import SOIEngine
+    from repro_torch.models import transformer as T
+    gen = torch.Generator().manual_seed(21)
+
+    def draw(cfg, lens, shared=0):
+        out = [torch.randint(0, cfg.vocab, (n,), generator=gen,
+                             dtype=torch.int32) for n in lens]
+        for p in out[1:]:
+            p[:shared] = out[0][:shared]
+        return out
+
+    # qwen3 at 4 layers, f32: dense pp and fp (prompts in one SOI phase
+    # class, the late one too, so steps alternate between the branches),
+    # then paged + chunked + prefix cache: prompts sharing 128 tokens, 60
+    # steps, so the rings wrap onto shared pages and COW flushes run
+    # between replays
+    for mode in ("pp", "fp"):
+        cfg = _parity_cfg(mode)
+        params = T.init(cfg, generator=torch.Generator(device=dev)
+                        .manual_seed(22), device=dev)
+        prompts = draw(cfg, (200, 202, 203))
+        st = cfg.soi.stride
+        label = f"qwen3 4 layers f32 {mode} dense"
+        eng = SOIEngine(cfg, max_concurrent_decodes=3, max_len=256,
+                        device=dev)
+        ds = _graph_parity(label, eng, params, prompts, 2 * st + 5, 3, dev)
+        _refusals(label, eng, params, ds)
+        if mode == "pp":
+            prompts = draw(cfg, (200, 202, 203), shared=128)
+            eng = SOIEngine(cfg, max_concurrent_decodes=3, max_len=256,
+                            device=dev, paged=True, page_size=16,
+                            prefill_chunk=64, prefix_cache=True)
+            _graph_parity("qwen3 4 layers f32 pp paged, chunk 64, prefix "
+                          "cache", eng, params, prompts, 60, 3, dev)
+            pc = eng.prefix_cache_stats
+            check(pc["hits"] == 2 and pc["cow_copies"] > 0
+                  and eng.cow_flushes > 0,
+                  f"expected hits and COW flushes: {pc}, "
+                  f"{eng.cow_flushes} flushes")
+        del params
+    _free(dev)
+    # deepseek-v2 at 2 layers (dense layer 0, one MoE middle), bf16, paged
+    cfg = DS.config(soi="pp", n_layers=2)
+    params = T.cast_params(T.init(cfg, generator=torch.Generator(device=dev)
+                                  .manual_seed(23), device=dev,
+                                  dtype=torch.bfloat16), cfg)
+    label = "deepseek-v2 2 layers bf16 pp paged"
+    eng = SOIEngine(cfg, max_concurrent_decodes=3, max_len=64, device=dev,
+                    paged=True, page_size=16)
+    ds = _graph_parity(label, eng, params, draw(cfg, (41, 43, 44)),
+                       2 * cfg.soi.stride + 5, 3, dev)
+    _refusals(label, eng, params, ds)
+    del params
+    _free(dev)
+    # recurrentgemma-9b at 12 layers, bf16, dense and paged
+    cfg = RG.config(soi="pp", n_layers=12)
+    params = T.cast_params(T.init(cfg, generator=torch.Generator(device=dev)
+                                  .manual_seed(24), device=dev,
+                                  dtype=torch.bfloat16), cfg)
+    prompts = draw(cfg, (41, 43, 44))
+    for layout, kw in (("dense", {}),
+                       ("paged", dict(paged=True, page_size=16))):
+        label = f"recurrentgemma-9b 12 layers bf16 pp {layout}"
+        eng = SOIEngine(cfg, max_concurrent_decodes=3, max_len=64,
+                        device=dev, **kw)
+        ds = _graph_parity(label, eng, params, prompts,
+                           2 * cfg.soi.stride + 5, 3, dev)
+        _refusals(label, eng, params, ds)
+    del params
+    _free(dev)
+
+
+def _unet_graph_parity(model, dev):
+    """The graphed session against the eager steppers at B 1 and B 32 for
+    phase 13's configs: every frame and the final stream state bit for
+    bit, ``stmc_conv`` launches from the replays equal to the plans'."""
+    from repro_torch.engine.session import unet_stream_session
+    from repro_torch.kernels import ops
+    from repro_torch.models import unet as U
+    gen = torch.Generator(device=dev).manual_seed(25)
+    for b in (1, 32):
+        for label, kw, _n in STREAM_SOIS:
+            cfg = _unet_cfg(kw)
+            n = 3 * cfg.period + 2
+            x = torch.randn((b, n, 128), generator=gen, device=dev)
+            sess = unet_stream_session(model, cfg, batch=b, device=dev)
+            ops.reset_launch_counts()
+            ys = [sess.push(x[:, t]) for t in range(n)]
+            torch.cuda.synchronize(dev)
+            counts = ops.launch_counts()
+            _held_launches(counts, _planned_convs(cfg, n),
+                           f"graphed {label} B {b}")
+            steppers = U.make_phase_steppers(cfg)
+            state = U.init_stream_state(b, cfg, device=dev)
+            for t in range(n):
+                state, y = steppers[t % cfg.period](model, state, x[:, t])
+                check(torch.equal(ys[t], y),
+                      f"graphed {label} B {b} frame {t}: differs from the "
+                      f"eager stepper's")
+            n_leaves, _ = _state_equal(sess.state["inner"], state,
+                                       f"graphed {label} B {b}")
+            g = sess.graph
+            check(g.captures == cfg.period and g.replays == n - cfg.period,
+                  f"{label} B {b}: {g.captures} captures, {g.replays} "
+                  f"replays")
+            st = g.stats().values()
+            print(f"  U-Net B {b} {label}: {n} frames graphed == eager bit "
+                  f"for bit ({n_leaves} state leaves), stmc_conv "
+                  f"{counts['stmc_conv']} launches (planned); "
+                  f"{g.captures} captures "
+                  f"({sum(v['capture_s'] for v in st) * 1e3:.1f} ms, pool "
+                  f"{sum(v['pool_bytes'] for v in st) / 2 ** 20:.1f} MiB)",
+                  flush=True)
+
+
+def _loop_profile(step, n: int, kernel, launches: str, label: str):
+    """Device busy ms a step, idle share and device kernels a step of
+    ``n`` calls of ``step`` under the profiler (device clock: first
+    kernel's start to last kernel's end), and the events of ``kernel`` (a
+    name or a tuple of names) on the device, held to the ``launches``
+    counter's count: every counted launch ran, graph node or not. One step
+    runs first, then a marker kernel (``torch.cuda._sleep``): the profiler
+    can miss the start of the first graph replay after it starts, so only
+    the events after the marker are read. A profile that still lost
+    events is taken again; a second one that disagrees raises."""
+    from repro_torch.kernels import ops
+
+    def run():
+        step()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        ops.reset_launch_counts()
+        for _ in range(n):
+            step()
+    for _ in range(2):
+        ev = _device_events(run)
+        marks = [e for _s, e, name in ev if "spin_kernel" in name]
+        check(marks, f"{label}: the profiler saw no marker kernel")
+        ev = [x for x in ev if x[0] >= marks[-1]]
+        check(ev, f"{label}: the profiler saw no device activity")
+        seen = sum(1 for _s, _e, name in ev if _named(name, kernel))
+        counted = ops.launch_counts()[launches]
+        if seen == counted:
+            break
+    check(seen == counted, f"{label}: {seen} {kernel} kernels on the device "
+                           f"in two profiles, {counted} {launches} counted")
+    window = max(e for _s, e, _n in ev) - min(s_ for s_, _e, _n in ev)
+    busy = _busy_us([(s_, e) for s_, e, _n in ev])
+    return busy / 1e3 / n, 1 - busy / window, len(ev) / n, seen
+
+
+def _enqueue_ms(step, n: int) -> float:
+    """Host ms a call of ``n`` calls of ``step`` enqueued back to back
+    after a synchronize, the synchronize that drains them left out: the
+    host's own cost a step while the card has work queued."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / n
+
+
+def _lm_graph_timing(dev):
+    """Full-width qwen3-1.7b at phase 5's traffic: the graphed engine and
+    its eager twin from one state, steps interleaved (host clock after a
+    synchronize), then a profiled window of each."""
+    from repro_torch.launch import serve
+    args = serve.parse_args(SERVE_ARGV + ["--gen-len", "192"])
+    cfg, params, prompt, plens, engine = serve.setup(args)
+    ds = engine.init_decode_state(params)
+    for slot, n in enumerate(plens):
+        ds = engine.insert(engine.prefill(params, prompt[slot, :n]), ds, slot)
+    twin, tds = _eager_twin(engine, ds)
+    torch.cuda.synchronize(dev)
+    times = {"graphed": {True: [], False: []},
+             "eager": {True: [], False: []}}
+    n_steps = 64
+    for _ in range(n_steps):
+        for mode, eng in (("graphed", engine), ("eager", twin)):
+            mid0 = eng.mid_steps
+            t0 = time.perf_counter()
+            if mode == "graphed":
+                ds, res = engine.generate(params, ds)
+            else:
+                tds, res = twin.generate(params, tds)
+            res.convert_to_numpy()
+            torch.cuda.synchronize(dev)
+            times[mode][eng.mid_steps > mid0].append(
+                (time.perf_counter() - t0) * 1e3)
+    check(engine.graph.captures == 2, f"{engine.graph.captures} captures")
+    out = {}
+    n_outer = cfg.soi.first_layer + cfg.n_layers - cfg.soi.last_layer
+    n_mid = cfg.soi.last_layer - cfg.soi.first_layer
+    for mode, eng in (("graphed", engine), ("eager", twin)):
+        allt = sorted(times[mode][True] + times[mode][False])
+        on, off = sorted(times[mode][True]), sorted(times[mode][False])
+        st = {"ds": ds if mode == "graphed" else tds, "prev": None}
+
+        def step():
+            st["ds"], res = eng.generate(params, st["ds"])
+            if st["prev"] is not None:
+                st["prev"].convert_to_numpy()
+            st["prev"] = res
+        n_prof = 16
+        busy, idle, kern, reads = _loop_profile(
+            step, n_prof, READ_KERNELS["split"], "decode_attention", mode)
+
+        def enqueue():
+            st["ds"], _res = eng.generate(params, st["ds"])
+        host = _enqueue_ms(enqueue, n_prof)
+        if mode == "graphed":
+            ds = st["ds"]
+        out[mode] = {"median_ms": allt[len(allt) // 2],
+                     "mid_ms": on[len(on) // 2], "off_ms": off[len(off) // 2],
+                     "busy_ms": busy, "idle": idle, "kernels": kern,
+                     "host_ms": host}
+        print(f"  qwen3-1.7b {mode}: median step {out[mode]['median_ms']:.3f}"
+              f" ms ({out[mode]['mid_ms']:.3f} with the SOI middle, "
+              f"{out[mode]['off_ms']:.3f} without; {n_steps} steps, host "
+              f"clock after a synchronize); profiled {n_prof} steps: busy "
+              f"{busy:.3f} ms a step, idle share {idle:.3f}, {kern:.0f} "
+              f"device kernels a step, decode reads {reads} on the device "
+              f"== counted; host {host:.3f} ms a step (enqueued "
+              f"back to back, no drain)", flush=True)
+    g = out["graphed"]
+    e = out["eager"]
+    stats = engine.graph.stats()
+    print(f"  qwen3-1.7b graphed / eager: median step "
+          f"{g['median_ms'] / e['median_ms']:.3f}, busy "
+          f"{g['busy_ms'] / e['busy_ms']:.3f}; step ratio with / without "
+          f"the middle {g['mid_ms'] / g['off_ms']:.3f} graphed, "
+          f"{e['mid_ms'] / e['off_ms']:.3f} eager")
+    for (mid,), v in stats.items():
+        print(f"  qwen3-1.7b graph {'middle' if mid else 'no middle'}: "
+              f"capture {v['capture_s'] * 1e3:.1f} ms, pool "
+              f"{v['pool_bytes'] / 2 ** 20:.1f} MiB, copy-back "
+              f"{v['copy_back_bytes']} B a replay, launches a replay "
+              f"{v['launches']} (expected decode_attention "
+              f"{n_outer + (n_mid if mid else 0)})")
+        check(v["launches"].get("decode_attention")
+              == n_outer + (n_mid if mid else 0),
+              f"graph launches {v['launches']}")
+    del params, engine, twin, ds, tds
+    _free(dev)
+    return out
+
+
+def _unet_graph_timing(model, dev):
+    """soi-unet-dns at B 1 and B 32, STMC baseline and PP S-CC (3,): the
+    graphed session and the eager steppers from one stream, frames
+    interleaved (host clock after a synchronize), then a profiled window
+    of each."""
+    from repro_torch.engine.session import unet_stream_session
+    from repro_torch.models import unet as U
+    gen = torch.Generator(device=dev).manual_seed(26)
+    n = 192
+    out = {}
+    for b in (1, 32):
+        x = torch.randn((b, n, 128), generator=gen, device=dev)
+        base = {}
+        for label, kw, _n in STREAM_SOIS[:2]:
+            cfg = _unet_cfg(kw)
+            sess = unet_stream_session(model, cfg, batch=b, device=dev)
+            for t in range(2 * cfg.period):
+                sess.push(x[:, t])           # every phase captured
+            steppers = U.make_phase_steppers(cfg)
+            state = U.init_stream_state(b, cfg, device=dev)
+            times = {"graphed": [[] for _ in range(cfg.period)],
+                     "eager": [[] for _ in range(cfg.period)]}
+            torch.cuda.synchronize(dev)
+            for t in range(n):
+                ph = t % cfg.period
+                t0 = time.perf_counter()
+                sess.push(x[:, t])
+                torch.cuda.synchronize(dev)
+                times["graphed"][ph].append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                state, _y = steppers[ph](model, state, x[:, t])
+                torch.cuda.synchronize(dev)
+                times["eager"][ph].append((time.perf_counter() - t0) * 1e3)
+            retain = U.complexity_report(cfg).retain
+            for mode in ("graphed", "eager"):
+                med = [sorted(v)[len(v) // 2] for v in times[mode]]
+                mean = sum(map(sum, times[mode])) / n
+                base.setdefault(mode, mean)
+                run = {"t": 0, "state": state}
+
+                def step():
+                    t = run["t"]
+                    if mode == "graphed":
+                        sess.push(x[:, t % n])
+                    else:
+                        run["state"], _ = steppers[t % cfg.period](
+                            model, run["state"], x[:, t % n])
+                    run["t"] = t + 1
+                busy, idle, kern, _ = _loop_profile(
+                    step, 64, "stmc_conv_kernel", "stmc_conv",
+                    f"{mode} {label} B {b}")
+                host = _enqueue_ms(step, 64)
+                out[(b, label, mode)] = {"median_ms": med, "mean_ms": mean,
+                                         "busy_ms": busy, "idle": idle,
+                                         "host_ms": host}
+                print(f"  U-Net B {b} {label} {mode}: median step per phase "
+                      f"{', '.join(f'{m:.3f}' for m in med)} ms, mean "
+                      f"{mean:.3f} ms, {FRAME_MS / mean:.1f}x real time, "
+                      f"step ratio to the baseline {mean / base[mode]:.3f} "
+                      f"(MAC retain {retain:.3f}); profiled 64 frames: busy "
+                      f"{busy:.3f} ms a frame, idle share {idle:.3f}, "
+                      f"{kern:.1f} device kernels a frame; host {host:.3f} ms "
+                      f"a frame enqueued back to back ({n} frames, host "
+                      f"clock after a synchronize)", flush=True)
+    return out
+
+
+def graphs_phase(dev):
+    phase("14 graphs (the captured step graphs against the eager steps: "
+          "qwen3, deepseek-v2, recurrentgemma, the U-Net; timing)")
+    from repro_torch.models import unet as U
+    _lm_graph_parity(dev)
+    model = U.init(_unet_cfg(None), generator=torch.Generator(device=dev)
+                   .manual_seed(9), device=dev)
+    _unet_graph_parity(model, dev)
+    _lm_graph_timing(dev)
+    _unet_graph_timing(model, dev)
+    del model
+    _free(dev)
 
 
 def main():
@@ -2499,6 +3003,7 @@ def main():
     rg_counts = rg_serve_phase(dev)
     unet_parity_phase(dev)
     unet_counts = unet_stream_phase(dev)
+    graphs_phase(dev)
     # launches: each kernel's count on its own path's run — the dense
     # serve (phase 5), the paged prefix-cache serve (phase 6), the
     # deepseek-v2 serve (phase 8), the MLA prefix-cache serve (phase 9),
@@ -2576,7 +3081,7 @@ def main():
             summary[-1]["rg_middle"].update(
                 launches=rg_second[name][name],
                 launches_on="rg serve (dense), outer and middle layers")
-    print(f"== 14 done in {time.perf_counter() - t_start:.1f} s")
+    print(f"== 15 done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

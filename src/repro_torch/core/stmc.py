@@ -11,7 +11,10 @@ Layout conventions, as in the reference:
 
 The per-frame contraction goes through ``kernels.ops.stmc_conv``: the
 plain version for a CPU tensor, the hand-written CUDA kernel for a CUDA
-tensor.
+tensor. ``stmc_step`` / ``stmc_push`` return a new state (``stream_scan``
+and the tests use them); ``stmc_step_`` / ``stmc_push_`` write it in place
+(the U-Net's phase steppers, which the stream session captures as CUDA
+graphs).
 """
 
 from __future__ import annotations
@@ -106,6 +109,33 @@ def stmc_step(state: torch.Tensor, frame: torch.Tensor, w: torch.Tensor,
     window = stmc_window(state, frame, dilation=dilation)
     y = ops.stmc_conv(window, w, b)
     return stmc_push(state, frame), y
+
+
+def stmc_push_(state: torch.Tensor, frame: torch.Tensor) -> torch.Tensor:
+    """``stmc_push`` written into ``state`` in place (the streaming
+    steppers' form: a captured frame step writes the buffers it was
+    captured with). The shifted window is built as a new tensor first, so
+    the copy never reads what it overwrites."""
+    if state.shape[1]:
+        state.copy_(torch.cat([state[:, 1:], frame[:, None, :]], dim=1))
+    return state
+
+
+def stmc_step_(state: torch.Tensor, frame: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor | None = None, *,
+               dilation: int = 1) -> torch.Tensor:
+    """``stmc_step`` with the partial state updated in place; returns y.
+    The window is built once: the conv reads it, and (dilation 1) its last
+    K-1 frames are the new state — a separate tensor, so the copy never
+    overlaps its source."""
+    window = stmc_window(state, frame, dilation=dilation)
+    y = ops.stmc_conv(window, w, b)
+    if dilation == 1:
+        if state.shape[1]:
+            state.copy_(window[:, 1:])
+    else:
+        stmc_push_(state, frame)
+    return y
 
 
 def stream_scan(params: dict, x: torch.Tensor, *,

@@ -10,9 +10,20 @@ Lifecycle, as in ``repro.engine``::
     state, result = engine.generate(params, state)     # ONE step, ALL slots
     tok = result.convert_to_numpy().get_result_at_slot(3).tokens
     state = engine.free_slot(state, 3)
+
+On the card ``generate`` replays a CUDA graph of the step (``contracts``:
+``CheckedGraph``, the counterpart of the reference's ``checked_jit``), and
+``convert_to_numpy`` is the step's one sanctioned drain (``host_get``,
+counted by ``drain_count``).
 """
 
 from repro_torch.engine.api import (Engine, Prefix, ResultTokens,  # noqa: F401
                                     SlotData)
+from repro_torch.engine.contracts import (BIG_BYTES,  # noqa: F401
+                                          CheckedGraph,
+                                          DroppedDonationError, checked_graph,
+                                          drain_count, host_get,
+                                          in_sanctioned_drain,
+                                          sanctioned_drain)
 from repro_torch.engine.soi_engine import SOIEngine, insert_state  # noqa: F401
 from repro_torch.engine.step import generate_step  # noqa: F401

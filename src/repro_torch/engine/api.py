@@ -5,9 +5,11 @@ batching — and the result types.
 ``ResultTokens`` packs [token, valid, length] per slot into one (B, 3) int32
 tensor, so one device->host copy drains a step. On the card the engine
 starts that copy (into pinned host memory, non-blocking) right after the
-step's kernels and records an event; ``convert_to_numpy`` waits for the
-event. The copy thus sits in the stream before the next step's work, which
-is what lets a serving loop drain step k while step k+1 runs.
+step's graph and records an event (``contracts.host_copy_async``);
+``convert_to_numpy`` waits for the event through ``contracts.host_get``,
+the one sanctioned drain a step (``contracts.drain_count`` counts it). The
+copy thus sits in the stream before the next step's work, which is what
+lets a serving loop drain step k while step k+1 runs.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import dataclasses
 from typing import Any, Optional, Tuple
 
 import torch
+
+from repro_torch.engine import contracts
 
 Params = Any
 DecodeState = Any
@@ -48,11 +52,9 @@ class ResultTokens:
         the step (``logits`` stay where they are). Call it on the
         *previous* step's results after dispatching the next step."""
         if isinstance(self.data, torch.Tensor):
-            if self.ready is not None:
-                self.ready.synchronize()
-                data = self.host.numpy()
-            else:
-                data = self.data.cpu().numpy()
+            data = contracts.host_get(
+                self.data if self.host is None else self.host,
+                ready=self.ready)
             return dataclasses.replace(self, data=data, host=None,
                                        ready=None)
         return self

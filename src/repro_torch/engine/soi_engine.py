@@ -33,12 +33,23 @@ slot's clock to the prompt's true length (the reference's dense insert
 leaves its host clock as it was; its paged insert sets it).
 
 The decode state is updated in place: ``insert`` copies a prefix into a
-slot's rows or pages, ``generate`` writes each slot's new K/V, ``free_slot``
-scrubs the slot's rows or freed pages. A paged engine drives ONE live
-decode state and must see every ``insert`` / ``generate`` / ``free_slot`` of
-it. Page maps reach the device as int32 tensors, uploaded (from a fresh
-host copy) only when the host table's ``version`` has moved. Speculative
-windows and telemetry are later slices: their options raise.
+slot's rows or pages, ``generate`` writes each slot's new K/V, clocks,
+queue, conv window and next tokens, ``free_slot`` scrubs the slot's rows or
+freed pages. A paged engine drives ONE live decode state and must see every
+``insert`` / ``generate`` / ``free_slot`` of it. Page maps live on the
+device as fixed int32 tensors; a changed host table is copied into its
+tensor (through a fresh pinned buffer) only when its ``version`` has moved.
+
+``generate`` runs the reference's ``_gen`` — the step, the argmax and the
+(B, 3) result stack — as one ``contracts.CheckedGraph`` over the live
+decode state, with the SOI branch (``run_mid_any``) as its static key: on
+the card two CUDA graphs (the middle and no middle; one for a plain
+config), each captured at its first step and replayed from then on; on the
+CPU the same code runs eagerly. There is no switch between the two: the
+device decides. The COW flush, the scrub, ``insert`` and the page-map
+copies stay outside the graph, before the replay, and write the tensors
+the graph reads in place. ``init_decode_state`` drops the graphs.
+Speculative windows and telemetry are later slices: their options raise.
 """
 
 from __future__ import annotations
@@ -51,6 +62,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelCfg
 from repro_torch.engine.api import Engine, Prefix, ResultTokens
+from repro_torch.engine.contracts import CheckedGraph, host_copy_async
 from repro_torch.engine.pages import (PageTable, PrefixEntry, PrefixIndex,
                                       chain_keys)
 from repro_torch.engine.step import generate_step
@@ -104,6 +116,20 @@ def insert_state(cfg: ModelCfg, dst: dict, src: dict, slot: int, *,
     return dst
 
 
+@torch.no_grad()
+def gen_step(params, cfg: ModelCfg, ds: dict, run_mid_any: bool):
+    """The engine's device step (the reference's ``_gen``): one
+    ``generate_step`` over every slot, the greedy next tokens written into
+    ``ds["tokens"]`` in place, and the (B, 3) int32 result rows [token,
+    valid, length]. Returns ``(ds, data, logits)``."""
+    logits, ms = generate_step(params, cfg, ds["model"], ds["tokens"],
+                               active=ds["active"], run_mid_any=run_mid_any)
+    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+    data = torch.stack([nxt, ds["active"].to(torch.int32), ms["t"]], dim=1)
+    ds["tokens"].copy_(nxt)
+    return ds, data, logits
+
+
 def _attn_caches(caches):
     """The attention caches (rings or pools) of a cache group, RG-LRU
     states left out."""
@@ -115,8 +141,10 @@ class SOIEngine(Engine):
 
     The decode state is ``{"model": <per-slot caches/clocks>, "tokens": (B,),
     "active": (B,)}``: ``tokens`` holds each slot's next input token (the
-    greedy feedback; harnesses may replace it to force inputs), ``active``
-    gates result validity.
+    greedy feedback, written in place; harnesses force inputs by writing
+    into it — on the CPU they may also pass a state with another
+    ``tokens`` tensor, which the card's graph refuses), ``active`` gates
+    result validity.
 
     ``paged=True`` swaps the dense rings for page pools of
     ``slots * pages_per_slot + 1`` pages per cache group (the null page
@@ -207,6 +235,10 @@ class SOIEngine(Engine):
         self.mid_steps = 0
         # COW flushes that copied pages (one copy_pages launch each)
         self.cow_flushes = 0
+        # the device step, one graph per SOI branch on the card
+        self.graph = CheckedGraph(
+            lambda params, ds, mid: gen_step(params, cfg, ds, mid),
+            state_argnums=(1,), static_argnums=(2,), name="generate")
 
     def _resolve_buckets(self, policy):
         """Prefill bucket lengths: None (exact length), "pow2" (powers of
@@ -267,17 +299,23 @@ class SOIEngine(Engine):
         return (("outer", self._pt_outer), ("mid", self._pt_mid))
 
     def _upload_map(self, name: str, pt: PageTable) -> torch.Tensor:
-        # a fresh host copy, so later host mutations of ``pt.map`` can never
-        # race with the transfer
+        """The host table's map staged for its upload: a fresh host copy,
+        pinned on the card. The caching host allocator keeps a pinned
+        buffer until the copy from it has run, so a later host mutation of
+        ``pt.map`` or a later upload can never race with the transfer, and
+        the host does not wait for it."""
         self._pm_version[name] = pt.version
-        return torch.from_numpy(pt.map.copy()).to(self.device)
+        src = torch.from_numpy(pt.map)
+        return src.pin_memory() if self.device.type == "cuda" else src.clone()
 
     def _refresh_page_maps(self, model: dict) -> dict:
-        """Re-upload only the page maps whose host table changed since their
-        last upload; a steady-state step costs no host->device copy."""
+        """Copy only the page maps whose host table changed since their
+        last upload into their fixed device tensors (the ones a captured
+        step reads); a steady-state step costs no host->device copy."""
         for name, pt in self._tables():
             if pt is not None and self._pm_version[name] != pt.version:
-                model["pages"][name] = self._upload_map(name, pt)
+                model["pages"][name].copy_(self._upload_map(name, pt),
+                                           non_blocking=True)
         return model
 
     def _ids(self, pids) -> torch.Tensor:
@@ -329,6 +367,8 @@ class SOIEngine(Engine):
         self._check_params(params)
         ms = D.init_decode_state(params, self.cfg, self._slots,
                                  max_len=self.max_len, paged=self._spec)
+        # the graphs were captured over the old state
+        self.graph.reset()
         self._occupied[:] = False
         self._clock[:] = 0
         self._cow_pending = {"outer": [], "mid": []}
@@ -344,7 +384,7 @@ class SOIEngine(Engine):
             self._pt_mid = (PageTable(self._slots, self._mid_len, p_sz,
                                       self._spec.n_pages_mid)
                             if self._mid_len else None)
-            ms["pages"] = {name: self._upload_map(name, pt)
+            ms["pages"] = {name: self._upload_map(name, pt).to(self.device)
                            for name, pt in self._tables() if pt is not None}
         state = {"model": ms,
                  "tokens": torch.zeros(self._slots, dtype=torch.int32,
@@ -770,7 +810,11 @@ class SOIEngine(Engine):
         return decode_state
 
     def generate(self, params, decode_state):
-        """One step for every slot. Returns (decode_state, ResultTokens)."""
+        """One step for every slot, in place. Returns (decode_state,
+        ResultTokens). On the card the step replays the graph of its SOI
+        branch (captured at the branch's first step); ``ResultTokens``
+        holds copies of the graph's outputs, so the next step cannot
+        overwrite them."""
         params = cast_params(params, self.cfg)
         st = self.cfg.soi.stride if self.cfg.soi is not None else 1
         if self._paged:
@@ -791,22 +835,17 @@ class SOIEngine(Engine):
         self.steps += 1
         self.mid_steps += int(run_mid_any)
         self._clock[self._occupied] += 1
-        active = decode_state["active"]
-        logits, ms = generate_step(params, self.cfg, decode_state["model"],
-                                   decode_state["tokens"], active=active,
-                                   run_mid_any=run_mid_any)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        data = torch.stack([nxt, active.to(torch.int32), ms["t"]], dim=1)
+        # a plain config has one branch: its step never reads the flag
+        branch = run_mid_any if self.cfg.soi is not None else None
+        _, data, logits = self.graph(params, decode_state, branch)
         host = ready = None
         if data.is_cuda:
-            host = torch.empty(data.shape, dtype=data.dtype, pin_memory=True)
-            host.copy_(data, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
-        new_ds = {"model": ms, "tokens": nxt, "active": active}
-        self._live = new_ds
-        return new_ds, ResultTokens(data=data, logits=logits, host=host,
-                                    ready=ready)
+            # the graph's static outputs: the next replay overwrites them
+            data, logits = data.clone(), logits.clone()
+            host, ready = host_copy_async(data)
+        self._live = decode_state
+        return decode_state, ResultTokens(data=data, logits=logits,
+                                          host=host, ready=ready)
 
     @torch.no_grad()
     def free_slot(self, decode_state, slot: int):

@@ -25,7 +25,10 @@ only when ``t % stride == 0``) is resolved per slot from the clock vector
     which its attention layers ignore (their writes go through the page
     map) and its RG-LRU layers apply.
 
-The step updates the decode state in place and returns it.
+The step updates the decode state in place and returns it: the caches,
+and the clocks ``t``, the extrapolation queue and the conv window, so a
+captured step (``engine.contracts.CheckedGraph``) writes the tensors it
+was captured with.
 """
 
 from __future__ import annotations
@@ -48,10 +51,10 @@ def generate_step(params, cfg: ModelCfg, state: dict, tokens, *,
     when None it is read from the device (one host sync — tests only).
     """
     if cfg.soi is None:
-        t_old = state["t"]
         logits, state = D.decode_step(params, cfg, state, tokens)
         if active is not None:
-            state["t"] = torch.where(active, state["t"], t_old)
+            # inactive slots' clocks stay where they were
+            state["t"].sub_((~active).to(state["t"].dtype))
         return logits, state
 
     params = cast_params(params, cfg)
@@ -99,13 +102,13 @@ def generate_step(params, cfg: ModelCfg, state: dict, tokens, *,
     else:
         stale = queue[rows, (phase - 1).clamp(0, st - 1).long()]
         xu = torch.where(run_mid[:, None], xm, stale)
-    state["queue"] = torch.where(run_mid[:, None, None],
-                                 xm[:, None].expand(b, st, d), queue)
-    state["conv_buf"] = window[:, 1:].contiguous()
+    queue.copy_(torch.where(run_mid[:, None, None],
+                            xm[:, None].expand(b, st, d), queue))
+    state["conv_buf"].copy_(window[:, 1:])
 
     fused = torch.matmul(torch.cat([xu, skip], dim=-1),
                          params.soi_fuse.to(x.dtype))
     x = D._segment_decode(post, state["post"], cfg, fused, t,
                           pages=outer_pg)
-    state["t"] = t + 1 if active is None else torch.where(active, t + 1, t)
+    t.add_(1 if active is None else active.to(t.dtype))
     return D._logits_one(params, cfg, x), state

@@ -40,6 +40,7 @@ from repro_torch.kernels.stmc_conv import stmc_conv
 KERNELS = (decode_attention, _flash.flash_attention, chunk_attention,
            paged_decode_attention, copy_pages, mla_chunk_attention,
            paged_mla_decode_attention, lru_scan, stmc_conv)
+_BY_NAME = {k.__name__: k for k in KERNELS}
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, prefix_len=0,
@@ -69,8 +70,18 @@ def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
-__all__ = ["chunk_attention", "copy_pages", "copy_pages_leaves",
-           "decode_attention", "flash_attention", "gather_pages",
+def add_launch_counts(delta: dict) -> None:
+    """Add ``{kernel name: n}`` to the launch counters (n may be negative).
+    A replayed CUDA graph launches its kernels without reaching their
+    wrappers: ``engine.contracts.CheckedGraph`` takes back the launches its
+    capture counted and adds them again at every replay."""
+    for name, n in delta.items():
+        _BY_NAME[name].launches += n
+
+
+__all__ = ["add_launch_counts", "chunk_attention", "copy_pages",
+           "copy_pages_leaves", "decode_attention", "flash_attention",
+           "gather_pages",
            "launch_counts", "lru_scan", "mla_chunk_attention",
            "mla_decode_attention", "paged_decode_attention",
            "paged_mla_decode_attention", "reset_launch_counts", "stmc_conv"]

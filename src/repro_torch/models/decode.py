@@ -198,7 +198,7 @@ def _logits_one(params, cfg: ModelCfg, x):
 @torch.no_grad()
 def decode_step(params, cfg: ModelCfg, state: dict, token):
     """token: (B,) int. Returns (logits (B, V), state) with the caches
-    written in place and a new clock tensor ``state["t"] + 1``."""
+    written in place and the clocks ``state["t"]`` advanced in place."""
     if cfg.soi is not None:
         raise NotImplementedError(
             "decode_step does not run SOI configs: use "
@@ -209,7 +209,7 @@ def decode_step(params, cfg: ModelCfg, state: dict, token):
     x = _embed_one(params, cfg, token)
     x = _segment_decode(params.blocks, state["segments"], cfg, x, t,
                         pages=pg)
-    state["t"] = t + 1
+    t.add_(1)
     return _logits_one(params, cfg, x), state
 
 

@@ -13,8 +13,9 @@ Execution modes (held to each other and to the reference by the tests):
   * ``make_phase_steppers`` — one step function per SOI phase, the paper's
         *inference pattern*: phase t mod P recomputes only the layers whose
         compression windows are complete, everything else reuses cached
-        partial states (conv ring buffers, extrapolation queues). Every
-        computed conv is one ``stmc_step``, i.e. one ``ops.stmc_conv``;
+        partial states (conv ring buffers, extrapolation queues), written
+        in place. Every computed conv is one ``stmc_step_``, i.e. one
+        ``ops.stmc_conv``;
   * ``stream_infer``        — a sequence through
         ``engine.session.unet_stream_session``, frame by frame.
 
@@ -37,7 +38,7 @@ from repro_torch import resolve_device
 from repro_torch.core import complexity as cx
 from repro_torch.core.soi import SOIConvCfg, sc_shift, scc_extrapolate
 from repro_torch.core.stmc import (causal_conv1d, conv_init, stmc_init_state,
-                                   stmc_push, stmc_step)
+                                   stmc_push_, stmc_step_)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -322,7 +323,10 @@ def convs_per_phase(cfg: UNetConfig) -> list[int]:
 def make_phase_steppers(cfg: UNetConfig) -> list:
     """One ``step(model, state, frame) -> (state, out)`` per phase. Each
     phase is a fixed graph; stale layers appear nowhere in the stale
-    phases' graphs, which is how SOI realizes its MAC savings."""
+    phases' graphs, which is how SOI realizes its MAC savings. A step
+    writes the stream state in place — the conv rings, the extrapolation
+    queues, the FP delay slot — and returns the same state object, so the
+    session can capture each phase as a CUDA graph over it."""
     n = cfg.n_enc
     soi = cfg.soi
     pairs = list(cfg.pairs)
@@ -336,28 +340,29 @@ def make_phase_steppers(cfg: UNetConfig) -> list:
         dec_plan = set(dec_list)
 
         def step(model: UNet, state: dict, frame: torch.Tensor):
-            new_enc, new_dec = list(state["enc"]), list(state["dec"])
-            queues = dict(state["queues"])
-            delay = state["delay"]
+            enc, dec, queues = state["enc"], state["dec"], state["queues"]
             skips = {0: frame}    # skips[i] = input of encoder layer i+1
             h = frame
             for i, what in enc_plan:
                 lp = model.enc[i - 1]
                 if what == "push":
-                    new_enc[i - 1] = stmc_push(new_enc[i - 1], h)
+                    stmc_push_(enc[i - 1], h)
                     break
-                new_enc[i - 1], h = stmc_step(new_enc[i - 1], h, lp.w, lp.b)
+                h = stmc_step_(enc[i - 1], h, lp.w, lp.b)
                 h = F.elu(_norm_apply(lp, h, train=False)[0])
                 if fp_hybrid and soi.shift_pos == i:
-                    h, delay = delay, h           # 1-compressed-frame delay
+                    # 1-compressed-frame delay: serve the held frame, hold
+                    # this one
+                    held = state["delay"].clone()
+                    state["delay"].copy_(h)
+                    h = held
                 skips[i] = h
 
             for j in range(1, n + 1):
                 mirror = n - j + 1
                 if j in dec_plan:
                     lp = model.dec[j - 1]
-                    new_dec[j - 1], h = stmc_step(new_dec[j - 1], h, lp.w,
-                                                  lp.b)
+                    h = stmc_step_(dec[j - 1], h, lp.w, lp.b)
                     h = F.elu(_norm_apply(lp, h, train=False)[0])
                 if mirror in pairs:
                     q = queues[mirror]
@@ -366,20 +371,24 @@ def make_phase_steppers(cfg: UNetConfig) -> list:
                     if fp_fused and mirror == outermost:
                         # FP: serve from the queue (strictly-past data),
                         # then refill it with the newly predicted frames
-                        h_out = q[:, 0]
-                        q = torch.roll(q, -1, dims=1)
                         if producer_fresh:
-                            q = torch.stack(_up_frames(model, cfg, mirror, h),
-                                            dim=1)
+                            h_out = q[:, 0].clone()
+                            q.copy_(torch.stack(
+                                _up_frames(model, cfg, mirror, h), dim=1))
+                        else:
+                            rolled = torch.roll(q, -1, dims=1)
+                            h_out = rolled[:, -1]      # q's old head
+                            q.copy_(rolled)
                         h = h_out
                     elif producer_fresh:
                         frames = _up_frames(model, cfg, mirror, h)
                         h = frames[0]
-                        q = torch.stack(frames[1:] + (frames[-1],), dim=1)
+                        q.copy_(torch.stack(frames[1:] + (frames[-1],),
+                                            dim=1))
                     elif consumer_fresh:
-                        h = q[:, 0]
-                        q = torch.roll(q, -1, dims=1)
-                    queues[mirror] = q
+                        rolled = torch.roll(q, -1, dims=1)
+                        h = rolled[:, -1]              # q's old head
+                        q.copy_(rolled)
                 if j in dec_plan or mirror in pairs:
                     if _enc_has_input(cfg, mirror, phase):
                         h = torch.cat([h, skips[mirror - 1]], dim=-1)
@@ -387,9 +396,7 @@ def make_phase_steppers(cfg: UNetConfig) -> list:
             y = torch.einsum("bc,kco->bo", h, model.proj.w) + model.proj.b
             if cfg.mask_output:
                 y = torch.sigmoid(y) * frame[..., :cfg.out_channels]
-            new_state = {"enc": new_enc, "dec": new_dec, "queues": queues,
-                         "delay": delay}
-            return new_state, y
+            return state, y
 
         return step
 
