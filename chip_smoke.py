@@ -177,11 +177,32 @@ Phases, each printing its own lines:
              profiled frames: busy, idle share, stmc_conv kernels on the
              device equal to the count); each graph's capture time, pool
              bytes and copy-back bytes.
-15. the kernels JSON line, the card line, and last {"ok": true, ...}.
+15. spec    — self-speculative windows (``SOIEngine(speculate=4)``: K-1
+             draft steps, the restore of the rows they wrote and K verify
+             steps, one CUDA graph a window key). (a) qwen3 at 4 layers,
+             f32, dense and paged with the prefix cache: a rejection forced
+             at every depth n through ``verify_commit`` on the card and on
+             the CPU — committed tokens equal, logits within 1e-3, the
+             card's state bit for bit that of n sequential card steps (the
+             null page aside). (b) full-width qwen3-1.7b bf16 through
+             launch/serve.py at phase 5's traffic with --speculate 4, then at
+             phase 6's (paged, prefix cache) with --mixed-spec: tokens equal
+             to phases 5 and 6 (or the first differing slot and step is
+             named), decode-read launches equal to the windows' plans
+             ((K-1)*14 + sum_j (14 + 14*mid_j) a window), copy_pages to the
+             COW flushes, captures equal to the window keys; windows, tokens
+             a window, accept rate, pool bytes, the draft's gathered bytes
+             a window; then windows and plain graphed steps in turn from one
+             prompt set (median ms, host clock after a synchronize; tokens/s
+             of each) and a profiled stretch of windows (busy, idle share,
+             device kernels, the decode reads on the device == counted).
+16. the kernels JSON line (the decode reads and copy_pages also give their
+             phase-15 launches under "spec"), the card line, and last
+             {"ok": true, ...}.
 
-Phases 4-13 run the engine and the U-Net session as a user does, so on the
-card every generate step and every frame after a branch's first is a graph
-replay; the kernel launch counters (Python-side) get each graph's launches
+Phases 4-13 and 15 run the engine and the U-Net session as a user does, so
+on the card every generate step, window and frame after a branch's first is
+a graph replay; the kernel launch counters (Python-side) get each graph's launches
 added at every replay (``ops.add_launch_counts``), which is what their
 checks hold. Phase 13 captures every phase before its timed frames.
 
@@ -226,8 +247,13 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
+# the script's start on the host clock: each phase line gives the seconds
+# since, so a run shows what each phase costs of the time limit
+T_START = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} [{time.perf_counter() - T_START:.1f} s]", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1679,6 +1705,16 @@ def parity_phase(dev) -> dict:
 # 5. serve
 # ---------------------------------------------------------------------------
 
+# the plain serve runs' tokens (phases 5 and 6), which the speculative
+# serves of phase 15 must equal
+PLAIN_SEQS: dict = {}
+# the kernels phase 15's speculative serves launch, and which run's count
+# the kernels line gives
+SPEC_PATHS = {"decode_attention": "dense",
+              "paged_decode_attention": "paged",
+              "copy_pages": "paged"}
+
+
 def serve_phase(dev):
     phase("5 serve (qwen3-1.7b full width, SOI pp, 4 requests)")
     from repro_torch import configs
@@ -1711,6 +1747,7 @@ def serve_phase(dev):
     check(counts["decode_attention"] == want_decode,
           f"decode_attention launches {counts['decode_attention']} != "
           f"{want_decode}")
+    PLAIN_SEQS["dense"] = res.seqs
     # the same traffic again under the profiler (CUDA activity only; the
     # weights are built before it starts): device busy and idle share of
     # the prefill window and of the decode loop, which starts after the
@@ -1897,6 +1934,7 @@ def paged_serve_phase(dev):
     check(counts["copy_pages"] == res.cow_flushes,
           f"copy_pages launches {counts['copy_pages']} != COW flushes "
           f"{res.cow_flushes}")
+    PLAIN_SEQS["paged"] = res.seqs
     cold = serve.run(cold_args)
     check(cold.prefix_cache == {} and (cold.seqs == res.seqs).all(),
           "tokens with the prefix cache differ from the cold run")
@@ -2986,8 +3024,256 @@ def graphs_phase(dev):
     _free(dev)
 
 
+# ---------------------------------------------------------------------------
+# 15. self-speculative windows
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+
+
+def _spec_start(cfg, model, prompts, where, paged):
+    """A speculative engine on ``where`` with ``prompts`` inserted and, on
+    pools, the K positions of a window backed: ``(engine, state, first
+    tokens)``."""
+    from repro_torch.engine import SOIEngine
+    kw = (dict(paged=True, page_size=16, prefill_chunk=64, prefix_cache=True)
+          if paged else {})
+    eng = SOIEngine(cfg, max_concurrent_decodes=3, max_len=256, device=where,
+                    speculate=SPEC_K, **kw)
+    ds = eng.init_decode_state(model)
+    for slot, p in enumerate(prompts):
+        ds = eng.insert(eng.prefill(model, p.to(where)), ds, slot)
+    if paged:
+        ds = eng._back_spec_window(ds)
+        eng._flush_cow(ds)
+        eng._refresh_page_maps(ds["model"])
+    return eng, ds["model"], ds["tokens"].clone()
+
+
+def _spec_parity(dev):
+    """(a) qwen3 at 4 layers, f32, dense and paged with the prefix cache:
+    a rejection forced at every depth n through ``verify_commit`` on the
+    card and on the CPU from the same inputs (the card's greedy
+    continuation, its guess at n corrupted) — committed tokens equal,
+    logits within 1e-3, and the card's state bit for bit that of n
+    sequential card steps (pools: outside the null page)."""
+    from repro_torch.engine.speculative import verify_commit
+    from repro_torch.engine.step import generate_step
+    from repro_torch.models import transformer as T
+    cfg = _parity_cfg("pp")
+    cpu_model = T.init(cfg, generator=torch.Generator().manual_seed(31),
+                       device="cpu")
+    dev_model = copy.deepcopy(cpu_model).to(dev)
+    gen = torch.Generator().manual_seed(32)
+    shared = torch.randint(0, cfg.vocab, (128,), generator=gen,
+                           dtype=torch.int32)
+    for paged in (False, True):
+        prompts = [torch.cat([shared, torch.randint(
+            0, cfg.vocab, (n - 128,), generator=gen, dtype=torch.int32)])
+            for n in (200, 201, 199)]
+        label = "paged, prefix cache" if paged else "dense"
+        t0 = time.perf_counter()
+        _e, st0, cur = _spec_start(cfg, dev_model, prompts, dev, paged)
+        _c, cst0, ccur = _spec_start(cfg, cpu_model, prompts,
+                                     torch.device("cpu"), paged)
+        check(torch.equal(cur.cpu(), ccur), f"spec parity {label}: first "
+                                            f"tokens differ card vs CPU")
+        ones = torch.ones(3, dtype=torch.bool, device=dev)
+        seq, snaps, st, c = [cur], [], copy.deepcopy(st0), cur
+        for _ in range(SPEC_K):
+            lg, st = generate_step(dev_model, cfg, st, c, active=ones)
+            c = torch.argmax(lg, -1).to(torch.int32)
+            seq.append(c)
+            snaps.append(copy.deepcopy(st))
+        seq = torch.stack(seq, 1)
+        worst, null_diff = 0.0, 0
+        for n in range(1, SPEC_K + 1):
+            inputs = seq[:, :SPEC_K].clone()
+            if n < SPEC_K:
+                inputs[:, n] = (inputs[:, n] + 1) % cfg.vocab
+            sv, csv = copy.deepcopy(st0), copy.deepcopy(cst0)
+            _, comm, n_acc, nxt, lg = verify_commit(
+                dev_model, cfg, sv, inputs, active=ones, spec=ones)
+            cones = ones.cpu()
+            _, ccomm, cn, cnxt, clg = verify_commit(
+                cpu_model, cfg, csv, inputs.cpu(), active=cones, spec=cones)
+            check(n_acc.tolist() == cn.tolist() == [n] * 3,
+                  f"spec parity {label} n={n}: accepted {n_acc.tolist()} "
+                  f"on the card, {cn.tolist()} on the CPU")
+            check(torch.equal(comm.cpu(), ccomm)
+                  and torch.equal(comm[:, :n], seq[:, 1:1 + n])
+                  and torch.equal(nxt.cpu(), cnxt),
+                  f"spec parity {label} n={n}: committed tokens differ "
+                  f"(card {comm.tolist()}, cpu {ccomm.tolist()})")
+            err = float((lg.cpu() - clg).abs().max())
+            check(err < 1e-3, f"spec parity {label} n={n}: logits differ "
+                              f"by {err} >= 1e-3")
+            worst = max(worst, err)
+            _n, nd = _state_equal({"model": sv}, {"model": snaps[n - 1]},
+                                  f"spec parity {label} n={n}", paged=paged)
+            null_diff += nd
+        print(f"  spec parity qwen3 4 layers f32 {label}: rejection forced "
+              f"at n = 1..{SPEC_K} — committed tokens equal card vs CPU, "
+              f"max|Δlogit| {worst:.3e}, the card's state == {SPEC_K} x n "
+              f"sequential card steps bit for bit"
+              f"{f' (null pages: {null_diff} elements differ)' if paged else ''}"
+              f" in {time.perf_counter() - t0:.2f} s", flush=True)
+        del st0, cst0, snaps, st
+    del cpu_model, dev_model
+    _free(dev)
+
+
+def _first_diff(got, want) -> str:
+    """The first (slot, step) where two token arrays differ."""
+    import numpy as np
+    if got.shape != want.shape:
+        return f"shapes {got.shape} and {want.shape}"
+    slot, step = (int(x[0]) for x in np.nonzero(got != want))
+    return (f"slot {slot}, step {step}: {int(got[slot, step])} against "
+            f"{int(want[slot, step])}")
+
+
+def _spec_serve(label, argv, plain_seqs, dev):
+    """(b) one full-width speculative serve through ``launch/serve.py``'s
+    own ``setup`` and ``serve``: tokens equal to the plain run's, the decode
+    reads launched as the windows' branch patterns give them, copy_pages
+    once a COW flush. Returns the launch counts."""
+    from repro_torch.engine.speculative import draft_rows
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    args = serve.parse_args(argv)
+    cfg, params, prompt, plens, engine = serve.setup(args)
+    ops.reset_launch_counts()
+    res = serve.serve(engine, params, prompt, plens, args.gen_len,
+                      mixed_spec=args.mixed_spec)
+    torch.cuda.synchronize(dev)
+    counts = ops.launch_counts()
+    if res.seqs.shape != plain_seqs.shape or (res.seqs != plain_seqs).any():
+        raise RuntimeError(f"spec {label}: tokens differ from the plain "
+                           f"run's at {_first_diff(res.seqs, plain_seqs)}")
+    n_outer = cfg.soi.first_layer + cfg.n_layers - cfg.soi.last_layer
+    n_mid = cfg.soi.last_layer - cfg.soi.first_layer
+    sp = res.spec
+    read = "paged_decode_attention" if args.paged else "decode_attention"
+    want = (sp["windows"] * (2 * SPEC_K - 1) * n_outer
+            + n_mid * engine.spec_mid_iters)
+    g = engine.spec_graph
+    pool = sum(v["pool_bytes"] for v in g.stats().values())
+    rows = draft_rows(cfg, engine._live["model"], SPEC_K)
+    gathered = sum(v.nbytes for _l, ix, v in rows if ix is not None)
+    whole = sum(v.nbytes for _l, ix, v in rows if ix is None)
+    print(f"  spec {label}: tokens identical to the plain run; {sp['windows']}"
+          f" windows, {sp['committed']} tokens committed "
+          f"({sp['tokens_per_window']:.3f} a slot-window), accept rate "
+          f"{sp['accept_rate']:.4f} ({sp['draft_accepted']}/"
+          f"{sp['draft_candidates']}); decode {res.decoded} tokens in "
+          f"{res.decode_s:.3f} s = {res.decoded / res.decode_s:.1f} tok/s "
+          f"(host clock, the serve loop); {g.captures} captures for "
+          f"{len(engine.spec_keys)} window keys {sorted(engine.spec_keys)}, "
+          f"pool {pool / 2 ** 20:.1f} MiB; the draft gathers "
+          f"{gathered / 2 ** 10:.1f} KiB of ring rows + {whole / 2 ** 10:.1f}"
+          f" KiB of whole leaves a window", flush=True)
+    print(f"  spec {label}: launches {counts}; expected {read} {want} "
+          f"({sp['windows']} windows x {2 * SPEC_K - 1} x {n_outer} outer + "
+          f"{engine.spec_mid_iters} verify steps with the middle x {n_mid})"
+          f"{f', copy_pages {res.cow_flushes} (COW flushes)' if args.paged else ''}")
+    check(g.captures == len(engine.spec_keys) > 0,
+          f"spec {label}: {g.captures} captures, {len(engine.spec_keys)} "
+          f"window keys")
+    check(counts[read] == want, f"spec {label}: {read} launches "
+                                f"{counts[read]} != {want}")
+    for (key,), st in g.stats().items():
+        k, pattern = key
+        per = (2 * k - 1) * n_outer + n_mid * sum(pattern)
+        check(st["launches"].get(read) == per,
+              f"spec {label}: window {key} launches {st['launches']}, "
+              f"expected {read} {per}")
+    if args.paged:
+        check(counts["copy_pages"] == res.cow_flushes,
+              f"spec {label}: copy_pages launches {counts['copy_pages']} != "
+              f"COW flushes {res.cow_flushes}")
+    del params, engine
+    _free(dev)
+    return counts
+
+
+def _spec_timing(dev):
+    """Full-width qwen3-1.7b at phase 5's traffic (192 tokens of room):
+    speculative windows and plain graphed steps from the same prompts and
+    weights, one of each in turn (host clock after a synchronize), then a
+    profiled stretch of windows."""
+    from repro_torch.engine import SOIEngine
+    from repro_torch.launch import serve
+    args = serve.parse_args(SERVE_ARGV + ["--gen-len", "192", "--speculate",
+                                          str(SPEC_K)])
+    cfg, params, prompt, plens, spec = serve.setup(args)
+    plain = SOIEngine(cfg, max_concurrent_decodes=args.batch,
+                      max_len=spec.max_len, device=dev)
+    states = {}
+    for name, eng in (("spec", spec), ("plain", plain)):
+        ds = eng.init_decode_state(params)
+        for slot, n in enumerate(plens):
+            ds = eng.insert(eng.prefill(params, prompt[slot, :n]), ds, slot)
+        states[name] = ds
+    torch.cuda.synchronize(dev)
+    times = {"spec": [], "plain": []}
+    toks = 0
+    n_iter = 24
+    for _ in range(n_iter):
+        for name, eng in (("spec", spec), ("plain", plain)):
+            t0 = time.perf_counter()
+            states[name], res = eng.generate(params, states[name])
+            res = res.convert_to_numpy()
+            torch.cuda.synchronize(dev)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            if name == "spec":
+                toks += int(res.data[:, SPEC_K + 2].sum())
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    rate = {"spec": toks / (sum(times["spec"]) / 1e3),
+            "plain": 4 * n_iter / (sum(times["plain"]) / 1e3)}
+    st = {"ds": states["spec"]}
+
+    def window():
+        st["ds"], _res = spec.generate(params, st["ds"])
+    n_prof = 4
+    busy, idle, kern, reads = _loop_profile(
+        window, n_prof, READ_KERNELS["split"], "decode_attention",
+        "spec windows")
+    print(f"  spec timing qwen3-1.7b, B 4, K {SPEC_K}: median window "
+          f"{med['spec']:.3f} ms against the plain graphed step "
+          f"{med['plain']:.3f} ms ({n_iter} each, in turn, host clock after "
+          f"a synchronize); {toks / n_iter:.2f} tokens a window; "
+          f"{rate['spec']:.1f} tok/s against {rate['plain']:.1f} plain "
+          f"(ratio {rate['spec'] / rate['plain']:.3f}); profiled {n_prof} "
+          f"windows: busy {busy:.3f} ms a window, idle share {idle:.3f}, "
+          f"{kern:.0f} device kernels a window, decode reads {reads} on the "
+          f"device == counted", flush=True)
+    for (key,), v in spec.spec_graph.stats().items():
+        print(f"  spec graph {key}: capture {v['capture_s'] * 1e3:.1f} ms, "
+              f"pool {v['pool_bytes'] / 2 ** 20:.1f} MiB, copy-back "
+              f"{v['copy_back_bytes']} B a replay, launches {v['launches']}")
+    del params, spec, plain, states, st
+    _free(dev)
+    return med, rate
+
+
+def spec_phase(dev, plain_seqs) -> dict:
+    phase("15 spec (self-speculative windows: forced rejection card vs "
+          "CPU; qwen3-1.7b full width --speculate 4, dense, then paged "
+          "with the prefix cache and --mixed-spec)")
+    _spec_parity(dev)
+    k = ["--speculate", str(SPEC_K)]
+    counts = {
+        "dense": _spec_serve("dense", SERVE_ARGV + k, plain_seqs["dense"],
+                             dev),
+        "paged": _spec_serve("paged --mixed-spec",
+                             PAGED_ARGV + ["--prefix-cache", "--mixed-spec"]
+                             + k, plain_seqs["paged"], dev)}
+    _spec_timing(dev)
+    return counts
+
+
 def main():
-    t_start = time.perf_counter()
     card = device_phase()
     dev = torch.device("cuda", 0)
     build_phase()
@@ -3004,6 +3290,7 @@ def main():
     unet_parity_phase(dev)
     unet_counts = unet_stream_phase(dev)
     graphs_phase(dev)
+    spec_counts = spec_phase(dev, PLAIN_SEQS)
     # launches: each kernel's count on its own path's run — the dense
     # serve (phase 5), the paged prefix-cache serve (phase 6), the
     # deepseek-v2 serve (phase 8), the MLA prefix-cache serve (phase 9),
@@ -3061,6 +3348,12 @@ def main():
                                             else "dense") + ")")
             check(rg_second[name][name] > 0,
                   f"{name} never launched on the recurrentgemma serve")
+        if name in SPEC_PATHS:
+            # the speculative windows' run of the same kernel (phase 15)
+            run = SPEC_PATHS[name]
+            summary[-1]["spec"] = {
+                "launches": spec_counts[run][name],
+                "launches_on": f"spec serve ({run})"}
         if name in CHUNK_KERNELS:
             # the same wrapper on the middle's chunk of compressed frames
             mid = main_recs[name + " (middle)"]
@@ -3081,7 +3374,7 @@ def main():
             summary[-1]["rg_middle"].update(
                 launches=rg_second[name][name],
                 launches_on="rg serve (dense), outer and middle layers")
-    print(f"== 15 done in {time.perf_counter() - t_start:.1f} s")
+    print(f"== 16 done in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,10 @@ Lifecycle, as in ``repro.engine``::
 On the card ``generate`` replays a CUDA graph of the step (``contracts``:
 ``CheckedGraph``, the counterpart of the reference's ``checked_jit``), and
 ``convert_to_numpy`` is the step's one sanctioned drain (``host_get``,
-counted by ``drain_count``).
+counted by ``drain_count``). ``SOIEngine(speculate=K)`` serves through
+self-speculative windows (``engine.speculative``: ``draft_burst``,
+``verify_commit``, ``speculative_window``), one CUDA graph per window key
+on the card.
 """
 
 from repro_torch.engine.api import (Engine, Prefix, ResultTokens,  # noqa: F401
@@ -26,4 +29,7 @@ from repro_torch.engine.contracts import (BIG_BYTES,  # noqa: F401
                                           in_sanctioned_drain,
                                           sanctioned_drain)
 from repro_torch.engine.soi_engine import SOIEngine, insert_state  # noqa: F401
+from repro_torch.engine.speculative import (draft_burst,  # noqa: F401
+                                            speculative_window,
+                                            verify_commit)
 from repro_torch.engine.step import generate_step  # noqa: F401

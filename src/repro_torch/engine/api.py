@@ -3,7 +3,10 @@ serving loop calls — prefill / insert / generate with slot-based continuous
 batching — and the result types.
 
 ``ResultTokens`` packs [token, valid, length] per slot into one (B, 3) int32
-tensor, so one device->host copy drains a step. On the card the engine
+tensor, so one device->host copy drains a step; a speculative window packs
+[tok_0..tok_{K-1}, valid, length, accepted] into one (B, K+3) array, which
+the engine has already drained (its accepted counts gate the host's
+clocks and page rollback). On the card the engine
 starts that copy (into pinned host memory, non-blocking) right after the
 step's graph and records an event (``contracts.host_copy_async``);
 ``convert_to_numpy`` waits for the event through ``contracts.host_get``,
@@ -32,6 +35,9 @@ class SlotData:
     tokens: Any           # (n_tokens,) int32
     valid: Any            # (1,) int32 — 0 for unoccupied slots
     lengths: Any          # (1,) int32 — absolute position after the step
+    accepted: Any = None  # (1,) int32 — committed-token count (speculative
+    #                       engines; the first ``accepted`` entries of
+    #                       ``tokens`` are real). None from per-token steps.
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,11 +47,18 @@ class ResultTokens:
     ``data`` is one (B, 3) int32 tensor [token, valid, length]; ``logits``
     (B, V) float32 rides along on the device for verification harnesses.
     ``host`` / ``ready`` are the in-flight host copy of ``data`` and the
-    event that marks it complete (None on the CPU)."""
+    event that marks it complete (None on the CPU). A speculative window
+    emits up to K tokens a slot — [tok_0..tok_{K-1}, valid, length,
+    accepted], as host numpy — and says so by widening ``tokens_idx`` and
+    setting ``accepted_idx``."""
     data: Any
     logits: Optional[Any] = None
     host: Optional[Any] = None
     ready: Optional[Any] = None
+    tokens_idx: tuple = (0, 1)
+    valid_idx: tuple = (1, 2)
+    length_idx: tuple = (2, 3)
+    accepted_idx: Optional[tuple] = None
 
     def convert_to_numpy(self) -> "ResultTokens":
         """This step's ``data`` as host numpy — the one device->host copy of
@@ -60,9 +73,12 @@ class ResultTokens:
         return self
 
     def get_result_at_slot(self, slot: int) -> SlotData:
-        return SlotData(tokens=self.data[slot, 0:1],
-                        valid=self.data[slot, 1:2],
-                        lengths=self.data[slot, 2:3])
+        row = self.data[slot]
+        acc = self.accepted_idx
+        return SlotData(tokens=row[slice(*self.tokens_idx)],
+                        valid=row[slice(*self.valid_idx)],
+                        lengths=row[slice(*self.length_idx)],
+                        accepted=None if acc is None else row[slice(*acc)])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,7 +117,8 @@ class Engine(abc.ABC):
     def generate(self, params: Params,
                  decode_state: DecodeState) -> Tuple[DecodeState,
                                                      ResultTokens]:
-        """Advance every slot by one token."""
+        """Advance every slot by one token (a speculative engine: by up
+        to K tokens, one draft and verify window)."""
 
     @abc.abstractmethod
     def init_decode_state(self, params: Params) -> DecodeState:

@@ -49,7 +49,23 @@ CPU the same code runs eagerly. There is no switch between the two: the
 device decides. The COW flush, the scrub, ``insert`` and the page-map
 copies stay outside the graph, before the replay, and write the tensors
 the graph reads in place. ``init_decode_state`` drops the graphs.
-Speculative windows and telemetry are later slices: their options raise.
+
+``speculate=K`` serves through self-speculative windows
+(``engine.speculative``): ``generate`` runs K-1 draft steps, restores the
+rows they wrote, and verifies against the true schedule — up to K tokens a
+slot a call, greedy tokens identical to the plain engine's. The window
+(draft, restore and verify) is one ``CheckedGraph`` over the live state,
+``spec_step``, whose static key is K and the verify's branch pattern: the
+K-tuple of ``run_mid_any`` values the host clocks give if every
+speculating slot committed every iteration (a superset of the reference's
+per-iteration ``lax.cond``, and exact: a middle that runs with no
+committing slot writes only the null page). Paged engines back all K
+candidate positions before the window and drop the pages of rejected ones
+after it. The accepted counts gate the host clocks and the page rollback,
+so each window makes the reference's one sanctioned drain (``host_get``)
+and its ``ResultTokens`` carries host data. ``insert(...,
+speculate=False)`` opts a request out: it commits one token a window.
+Telemetry is a later slice: its option raises.
 """
 
 from __future__ import annotations
@@ -62,9 +78,11 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelCfg
 from repro_torch.engine.api import Engine, Prefix, ResultTokens
-from repro_torch.engine.contracts import CheckedGraph, host_copy_async
+from repro_torch.engine.contracts import (CheckedGraph, host_copy_async,
+                                          host_get)
 from repro_torch.engine.pages import (PageTable, PrefixEntry, PrefixIndex,
                                       chain_keys)
+from repro_torch.engine.speculative import speculative_window
 from repro_torch.engine.step import generate_step
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
@@ -130,6 +148,23 @@ def gen_step(params, cfg: ModelCfg, ds: dict, run_mid_any: bool):
     return ds, data, logits
 
 
+@torch.no_grad()
+def spec_step(params, cfg: ModelCfg, ds: dict, spec, key: tuple):
+    """The engine's speculative window (the reference's ``_specgen``):
+    ``speculative_window`` over every slot with ``key`` = (K, the verify's
+    branch pattern), the feedback tokens written into ``ds["tokens"]`` in
+    place, and the (B, K+3) int32 result rows [tok_0..tok_{K-1}, valid,
+    length, accepted]. Returns ``(ds, data, logits)``."""
+    k, run_mid = key
+    ms, committed, n_acc, nxt, logits = speculative_window(
+        params, cfg, ds["model"], ds["tokens"], k=k, active=ds["active"],
+        spec=spec, run_mid=run_mid)
+    data = torch.cat([committed, torch.stack(
+        [ds["active"].to(torch.int32), ms["t"], n_acc], dim=1)], dim=1)
+    ds["tokens"].copy_(nxt)
+    return ds, data, logits
+
+
 def _attn_caches(caches):
     """The attention caches (rings or pools) of a cache group, RG-LRU
     states left out."""
@@ -151,6 +186,7 @@ class SOIEngine(Engine):
     included), which back every slot at full length.
     ``prefill_chunk=C`` switches to chunked prefill; ``prefix_cache=True``
     (needs both) shares prompt-prefix pages copy-on-write.
+    ``speculate=K`` (>= 1) serves through draft and verify windows.
     """
 
     def __init__(self, cfg: ModelCfg, *, max_concurrent_decodes: int = 8,
@@ -159,12 +195,11 @@ class SOIEngine(Engine):
                  prefill_chunk: int | None = None,
                  prefix_cache: bool = False, speculate: int | None = None,
                  telemetry: bool = False):
-        for name, val in (("speculate", speculate),
-                          ("telemetry", telemetry)):
-            if val:
-                raise NotImplementedError(
-                    f"SOIEngine({name}=...) is not ported yet; see "
-                    f"ROADMAP.md")
+        if telemetry:
+            raise NotImplementedError(
+                "SOIEngine(telemetry=...) is not ported yet; see ROADMAP.md")
+        if speculate is not None and int(speculate) < 1:
+            raise ValueError(f"speculate must be >= 1, got {speculate}")
         self.cfg = cfg
         self.max_len = int(max_len)
         self.device = resolve_device(device)
@@ -239,6 +274,31 @@ class SOIEngine(Engine):
         self.graph = CheckedGraph(
             lambda params, ds, mid: gen_step(params, cfg, ds, mid),
             state_argnums=(1,), static_argnums=(2,), name="generate")
+        self._speculate = None if speculate is None else int(speculate)
+        # which slots run speculative windows (insert(..., speculate=...));
+        # the others commit exactly one token a window
+        self._spec_slots = np.zeros(self._slots, bool)
+        # fresh pages backed for a window's candidate positions, per slot:
+        # (table, page-map index, first backed position) — consumed after
+        # the window (rejected positions' pages are dropped), cleared by
+        # free_slot so a freed request never leaks speculative pages
+        self._spec_pending = [[] for _ in range(self._slots)]
+        self.spec_stats = {"windows": 0, "slot_windows": 0, "committed": 0,
+                           "draft_candidates": 0, "draft_accepted": 0}
+        # window keys passed since init_decode_state (on the card: one
+        # capture each), and verify steps that ran the middle since
+        # construction (as spec_stats)
+        self.spec_keys = set()
+        self.spec_mid_iters = 0
+        # the spec mask on the device (a fixed tensor the window graph
+        # reads) and the host mask it last took
+        self._spec_dev = None
+        self._spec_dev_host = None
+        # the window, one graph per key on the card
+        self.spec_graph = CheckedGraph(
+            lambda params, ds, spec, key: spec_step(params, cfg, ds, spec,
+                                                    key),
+            state_argnums=(1,), static_argnums=(3,), name="spec_window")
 
     def _resolve_buckets(self, policy):
         """Prefill bucket lengths: None (exact length), "pow2" (powers of
@@ -265,6 +325,11 @@ class SOIEngine(Engine):
     @property
     def max_concurrent_decodes(self) -> int:
         return self._slots
+
+    @property
+    def speculate(self) -> int | None:
+        """K of a speculative engine, else None."""
+        return self._speculate
 
     @property
     def prefix_cache_enabled(self) -> bool:
@@ -369,6 +434,13 @@ class SOIEngine(Engine):
                                  max_len=self.max_len, paged=self._spec)
         # the graphs were captured over the old state
         self.graph.reset()
+        self.spec_graph.reset()
+        self.spec_keys = set()
+        self._spec_slots[:] = False
+        self._spec_pending = [[] for _ in range(self._slots)]
+        self._spec_dev = torch.zeros(self._slots, dtype=torch.bool,
+                                     device=self.device)
+        self._spec_dev_host = np.zeros(self._slots, bool)
         self._occupied[:] = False
         self._clock[:] = 0
         self._cow_pending = {"outer": [], "mid": []}
@@ -691,17 +763,24 @@ class SOIEngine(Engine):
 
     # -- insert / generate / free ----------------------------------------
 
-    def insert(self, prefix: Prefix, decode_state, slot: int):
+    def insert(self, prefix: Prefix, decode_state, slot: int,
+               speculate: bool | None = None):
         """Install a prefilled request into ``slot`` (in place). Paged: back
         the prompt's pages (adopting a prefix hit's shared pages by
         refcount), copy the prefix into the fresh ones, and index the new
-        prefix boundaries."""
+        prefix boundaries. ``speculate`` opts the request in or out of
+        speculative windows on a speculative engine (default: in)."""
         s_i = int(slot)
         if not 0 <= s_i < self._slots:
             raise ValueError(f"slot {slot} out of range [0, {self._slots})")
+        if speculate and self._speculate is None:
+            raise ValueError("insert(speculate=True) needs an engine built "
+                             "with speculate=K")
+        spec = (self._speculate is not None if speculate is None
+                else bool(speculate))
         if not self._paged:
             insert_state(self.cfg, decode_state["model"], prefix.state, s_i)
-            self._install(decode_state, prefix, s_i)
+            self._install(decode_state, prefix, s_i, spec)
             return decode_state
         decode_state = self._flush_cow(decode_state)
         true_len = prefix.true_length
@@ -766,16 +845,18 @@ class SOIEngine(Engine):
         self._pc_stats["pages_shared"] += (
             sum(1 for p in shared_outer.values() if p > 0)
             + sum(1 for p in shared_mid.values() if p > 0))
-        self._install(decode_state, prefix, s_i)
+        self._install(decode_state, prefix, s_i, spec)
         if self._prefix_cache and meta:
             self._register_prefix(s_i, meta, true_len)
         return decode_state
 
-    def _install(self, decode_state, prefix: Prefix, s_i: int):
+    def _install(self, decode_state, prefix: Prefix, s_i: int, spec: bool):
         decode_state["tokens"][s_i] = prefix.first_token[0]
         decode_state["active"][s_i] = True
         self._clock[s_i] = prefix.true_length
         self._occupied[s_i] = True
+        # set last: re-inserting into an occupied slot frees it first
+        self._spec_slots[s_i] = spec
         self._live = decode_state
 
     def _unpin_scrubbed(self, temp_pins, decode_state):
@@ -791,13 +872,16 @@ class SOIEngine(Engine):
                          pos: int, table: str):
         """Make the page this step's write lands on present and exclusive:
         allocate on first touch (grow-by-one), copy-on-write when the page
-        is shared (another slot or a prefix-index pin references it)."""
+        is shared (another slot or a prefix-index pin references it).
+        Returns ``(decode_state, fresh_idx)``: the page-map index of a
+        first-touch allocation (a speculative window records it, so a
+        rejected position's page can be dropped), else None."""
         idx = (pos % pt.logical_len) // pt.page_size
         pid = int(pt.map[slot, idx])
         if pid == 0:
             decode_state = self._make_room(pt, 1, decode_state)
             pt.ensure(slot, pos)
-            return decode_state
+            return decode_state, idx
         if pt.refs[pid] > 1:
             if pt.free_pages < 1:
                 decode_state = self._make_room(pt, 1, decode_state)
@@ -807,14 +891,16 @@ class SOIEngine(Engine):
                 # right before the step
                 self._cow_pending[table].append((old, new))
                 self._pc_stats["cow_copies"] += 1
-        return decode_state
+        return decode_state, None
 
     def generate(self, params, decode_state):
         """One step for every slot, in place. Returns (decode_state,
         ResultTokens). On the card the step replays the graph of its SOI
         branch (captured at the branch's first step); ``ResultTokens``
         holds copies of the graph's outputs, so the next step cannot
-        overwrite them."""
+        overwrite them. A speculative engine runs one window instead."""
+        if self._speculate is not None:
+            return self._generate_spec(params, decode_state)
         params = cast_params(params, self.cfg)
         st = self.cfg.soi.stride if self.cfg.soi is not None else 1
         if self._paged:
@@ -824,10 +910,10 @@ class SOIEngine(Engine):
             for slot in np.nonzero(self._occupied)[0]:
                 t = int(self._clock[slot])
                 if self._pt_outer is not None:
-                    decode_state = self._back_write_page(
+                    decode_state, _ = self._back_write_page(
                         decode_state, self._pt_outer, slot, t, "outer")
                 if self._pt_mid is not None and t % st == 0:
-                    decode_state = self._back_write_page(
+                    decode_state, _ = self._back_write_page(
                         decode_state, self._pt_mid, slot, t // st, "mid")
             decode_state = self._flush_cow(decode_state)
             self._refresh_page_maps(decode_state["model"])
@@ -847,6 +933,158 @@ class SOIEngine(Engine):
         return decode_state, ResultTokens(data=data, logits=logits,
                                           host=host, ready=ready)
 
+    # -- speculative windows ---------------------------------------------
+
+    def _drop_spec_pending(self, slot: int):
+        """Release every still-pending speculative page of ``slot``. No
+        device scrub: a dropped page was written only by the draft, whose
+        rows were restored, or through the null page."""
+        for pt, idx, _pos in self._spec_pending[slot]:
+            pt.drop(slot, idx)
+        self._spec_pending[slot] = []
+
+    def _back_spec_window(self, decode_state):
+        """Back pages for every position a window might commit: K outer
+        positions (1 for non-speculating slots) and every middle frame a
+        phase-0 crossing inside the window would write. Over-backing is
+        rolled back after the window; COW copies are kept (the page holds
+        the right bytes, and the slot's clock will reach it)."""
+        k = self._speculate
+        st = self.cfg.soi.stride if self.cfg.soi is not None else 0
+        for slot in np.nonzero(self._occupied)[0]:
+            t0 = int(self._clock[slot])
+            span = k if self._spec_slots[slot] else 1
+            if self._pt_outer is not None:
+                for pos in range(t0, t0 + span):
+                    decode_state, fresh = self._back_write_page(
+                        decode_state, self._pt_outer, slot, pos, "outer")
+                    if fresh is not None:
+                        self._spec_pending[slot].append(
+                            (self._pt_outer, fresh, pos))
+            if self._pt_mid is not None:
+                for c in range(t0, t0 + span):
+                    if c % st:
+                        continue
+                    decode_state, fresh = self._back_write_page(
+                        decode_state, self._pt_mid, slot, c // st, "mid")
+                    if fresh is not None:
+                        self._spec_pending[slot].append(
+                            (self._pt_mid, fresh, c // st))
+        return decode_state
+
+    def _rollback_spec_pages(self, n: np.ndarray):
+        """Drop the fresh pages whose backed positions were all rejected.
+        An outer page recorded at first-touch position ``pos`` held only
+        positions >= pos of this window, so it survives iff ``pos``
+        committed; a middle page recorded at frame ``f`` survives iff some
+        committed clock value crossed phase 0 at frame >= f."""
+        st = self.cfg.soi.stride if self.cfg.soi is not None else 0
+        for slot in np.nonzero(self._occupied)[0]:
+            if not self._spec_pending[slot]:
+                continue
+            t0 = int(self._clock[slot])      # clock BEFORE the window
+            last = t0 + int(n[slot]) - 1     # last committed clock value
+            f_hi = last // st if st else -1  # last committed frame...
+            if st and f_hi * st < t0:
+                f_hi = -1                    # ...if any crossing committed
+            for pt, idx, pos in self._spec_pending[slot]:
+                committed = (pos <= last if pt is self._pt_outer
+                             else 0 <= f_hi and pos <= f_hi)
+                if not committed:
+                    pt.drop(slot, idx)
+            self._spec_pending[slot] = []
+
+    def _window_key(self) -> tuple:
+        """(K, the verify's branch pattern) from the host clocks: iteration
+        j runs the middle if an active slot — after iteration 0, a
+        speculating one — would sit at phase 0 had it committed every
+        iteration so far. None for a plain config (one branch)."""
+        k = self._speculate
+        if self.cfg.soi is None:
+            return k, None
+        st = self.cfg.soi.stride
+        occ = self._occupied
+        spec = occ & self._spec_slots
+        return k, tuple(
+            bool(np.any(((self._clock + j) % st == 0)
+                        & (occ if j == 0 else spec)))
+            for j in range(k))
+
+    def _upload_spec_mask(self):
+        """Copy the host's spec mask into its fixed device tensor when it
+        changed (through fresh pinned staging on the card)."""
+        if np.array_equal(self._spec_dev_host, self._spec_slots):
+            return
+        self._spec_dev_host = self._spec_slots.copy()
+        src = torch.from_numpy(self._spec_dev_host.copy())
+        if self.device.type == "cuda":
+            src = src.pin_memory()
+        self._spec_dev.copy_(src, non_blocking=True)
+
+    def _generate_spec(self, params, decode_state):
+        """One speculative window for every slot, in place: back the
+        window's pages, replay the window's graph, drain its result rows
+        (the accepted counts), advance the host clocks by them and drop the
+        pages of rejected positions."""
+        params = cast_params(params, self.cfg)
+        k = self._speculate
+        if self._paged:
+            try:
+                decode_state = self._back_spec_window(decode_state)
+            except Exception:
+                # transactional: a failed backing (pool exhausted mid-loop)
+                # must not leak the pages already grown for this window;
+                # COW pairs already recorded still describe real map state,
+                # so their copies land on the live state
+                for slot in range(self._slots):
+                    self._drop_spec_pending(slot)
+                self._flush_cow(self._live)
+                raise
+            decode_state = self._flush_cow(decode_state)
+            self._refresh_page_maps(decode_state["model"])
+        key = self._window_key()
+        self._upload_spec_mask()
+        self.spec_keys.add(key)
+        _, data, logits = self.spec_graph(params, decode_state,
+                                          self._spec_dev, key)
+        # the accepted counts gate the host clocks and the page rollback,
+        # so every window drains its result rows: the one sanctioned drain
+        host = host_get(data)  # sync-ok: accepted counts gate page rollback
+        if logits.is_cuda:
+            logits = logits.clone()      # the next replay overwrites it
+        n = host[:, k + 2]
+        if self._paged:
+            self._rollback_spec_pages(n)
+        occ = self._occupied
+        self._clock[occ] += n[occ]
+        s = self.spec_stats
+        s["windows"] += 1
+        s["slot_windows"] += int(occ.sum())
+        s["committed"] += int(n[occ].sum())
+        spec_occ = occ & self._spec_slots
+        s["draft_candidates"] += int(spec_occ.sum()) * (k - 1)
+        s["draft_accepted"] += int((n[spec_occ] - 1).sum())
+        self.spec_mid_iters += sum(key[1] or ())
+        self._live = decode_state
+        return decode_state, ResultTokens(
+            data=host, logits=logits, tokens_idx=(0, k),
+            valid_idx=(k, k + 1), length_idx=(k + 1, k + 2),
+            accepted_idx=(k + 2, k + 3))
+
+    def spec_accept_stats(self) -> dict:
+        """Accept-rate counters since engine construction: ``accept_rate``
+        is the fraction of draft tokens the verifier kept;
+        ``tokens_per_window`` the mean committed tokens a slot-window
+        (at most K; 1.0 means speculation never paid off). Both are 0.0 on
+        an idle engine."""
+        s = dict(self.spec_stats)
+        s["speculate"] = self._speculate
+        s["accept_rate"] = (s["draft_accepted"] / s["draft_candidates"]
+                            if s["draft_candidates"] else 0.0)
+        s["tokens_per_window"] = (s["committed"] / s["slot_windows"]
+                                  if s["slot_windows"] else 0.0)
+        return s
+
     @torch.no_grad()
     def free_slot(self, decode_state, slot: int):
         """Mark ``slot`` unoccupied. Dense: scrub its cache positions
@@ -864,6 +1102,11 @@ class SOIEngine(Engine):
         # destination page
         decode_state = self._flush_cow(decode_state)
         self._occupied[s_i] = False
+        # a freed request's pending draft tokens die with its active bit,
+        # and its speculatively grown pages go with the release below: only
+        # the host records are cleared, so no later rollback drops them
+        self._spec_slots[s_i] = False
+        self._spec_pending[s_i] = []
         model = decode_state["model"]
         if self._paged:
             freed = {name: [p for p in pt.release(s_i) if p > 0]

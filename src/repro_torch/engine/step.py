@@ -29,6 +29,12 @@ The step updates the decode state in place and returns it: the caches,
 and the clocks ``t``, the extrapolation queue and the conv window, so a
 captured step (``engine.contracts.CheckedGraph``) writes the tensors it
 was captured with.
+
+Two options serve self-speculative decoding (``engine.speculative``):
+``draft=True`` is the reference's off-phase-forced step, and ``commit``
+is the in-place form of the reference's ``_commit_masked``: the reference
+selects old rows back after a functional step, the port masks the writes
+themselves (pre/post caches, RG-LRU states, the conv window, the clock).
 """
 
 from __future__ import annotations
@@ -42,16 +48,31 @@ from repro_torch.models.transformer import cast_params, split_blocks
 
 @torch.no_grad()
 def generate_step(params, cfg: ModelCfg, state: dict, tokens, *,
-                  active=None, run_mid_any: bool | None = None):
+                  active=None, run_mid_any: bool | None = None,
+                  draft: bool = False, commit=None):
     """Advance every slot one token. tokens: (B,) int; state["t"]: (B,).
 
     Returns (logits (B, V) float32, state). ``active`` ((B,) bool) marks
     occupied slots: inactive slots' clocks freeze and never trigger the
     middle. ``run_mid_any`` says whether some active slot sits at phase 0;
     when None it is read from the device (one host sync — tests only).
+
+    ``draft=True`` forces every slot off-phase: the middle never runs, every
+    position is served from the extrapolation queue, and neither the
+    middle's caches nor the queue are written — the self-speculative draft
+    schedule. A plain config has no middle: the flag is a no-op there.
+
+    ``commit`` ((B,) bool) keeps the step's writes to its True rows: the
+    pre/post dense rings and every RG-LRU state (pools: the caller hands a
+    page map whose rejected rows are null), the conv window, and the clock,
+    which advances under ``active & commit``, as does the middle's gate.
+    None leaves the step as it is without the option.
     """
+    if commit is not None:
+        active = commit if active is None else active & commit
     if cfg.soi is None:
-        logits, state = D.decode_step(params, cfg, state, tokens)
+        logits, state = D.decode_step(params, cfg, state, tokens,
+                                      commit=commit)
         if active is not None:
             # inactive slots' clocks stay where they were
             state["t"].sub_((~active).to(state["t"].dtype))
@@ -66,6 +87,9 @@ def generate_step(params, cfg: ModelCfg, state: dict, tokens, *,
     run_mid = phase == 0                  # (B,) this slot's window is done
     if active is not None:
         run_mid = run_mid & active
+    if draft:
+        run_mid = torch.zeros_like(run_mid)
+        run_mid_any = False
     if run_mid_any is None:
         run_mid_any = bool(run_mid.any())
 
@@ -74,7 +98,8 @@ def generate_step(params, cfg: ModelCfg, state: dict, tokens, *,
     mid_pg = pages.get("mid")
 
     x = D._embed_one(params, cfg, tokens)
-    x = D._segment_decode(pre, state["pre"], cfg, x, t, pages=outer_pg)
+    x = D._segment_decode(pre, state["pre"], cfg, x, t, commit=commit,
+                          pages=outer_pg)
     skip = x
     window = torch.cat([state["conv_buf"], x[:, None]], dim=1)  # (B, st, d)
     d = x.shape[-1]
@@ -102,13 +127,17 @@ def generate_step(params, cfg: ModelCfg, state: dict, tokens, *,
     else:
         stale = queue[rows, (phase - 1).clamp(0, st - 1).long()]
         xu = torch.where(run_mid[:, None], xm, stale)
-    queue.copy_(torch.where(run_mid[:, None, None],
-                            xm[:, None].expand(b, st, d), queue))
-    state["conv_buf"].copy_(window[:, 1:])
+    if not draft:
+        queue.copy_(torch.where(run_mid[:, None, None],
+                                xm[:, None].expand(b, st, d), queue))
+    conv = window[:, 1:]
+    if commit is not None:
+        conv = torch.where(commit[:, None, None], conv, state["conv_buf"])
+    state["conv_buf"].copy_(conv)
 
     fused = torch.matmul(torch.cat([xu, skip], dim=-1),
                          params.soi_fuse.to(x.dtype))
-    x = D._segment_decode(post, state["post"], cfg, fused, t,
+    x = D._segment_decode(post, state["post"], cfg, fused, t, commit=commit,
                           pages=outer_pg)
     t.add_(1 if active is None else active.to(t.dtype))
     return D._logits_one(params, cfg, x), state

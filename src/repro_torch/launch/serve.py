@@ -12,7 +12,12 @@ common prompt prefixes copy-on-write and skips their prefill, and
 ``--shared-prefix N`` makes every request share its first N prompt tokens.
 A request the page pools cannot back is not admitted. ``--phase-align``
 delays each insert (at most stride-1 steps) until its slot lands in the
-batch's phase class.
+batch's phase class. ``--speculate K`` serves through self-speculative
+windows (K-1 off-phase draft steps verified against the true schedule: up
+to K tokens a slot an engine call, the same greedy tokens);
+``--mixed-spec`` opts every second request out, so speculative and plain
+requests share the batch. The loop then takes each slot's first
+``accepted`` tokens of a window, and the tail adds a ``speculative:`` line.
 
 The loop drains each step's tokens one step late: after dispatching step k
 it reads step k-1's tokens, whose host copy was queued on the stream right
@@ -53,7 +58,7 @@ from repro_torch.engine import SOIEngine
 from repro_torch.models import transformer as T
 
 # flags of the reference's driver that belong to later slices of the port
-_LATER = ("speculate", "mixed_spec", "trace_out", "metrics_out")
+_LATER = ("trace_out", "metrics_out")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -89,6 +94,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--bucket", default="pow2",
                     help="prefill bucket policy: 'pow2' (default), 'none' "
                          "(exact length), or comma-separated lengths")
+    ap.add_argument("--speculate", type=int, default=None, metavar="K",
+                    help="self-speculative decoding: draft K-1 tokens with "
+                         "off-phase SOI steps and verify them against the "
+                         "true phase schedule in one window — up to K "
+                         "tokens commit an engine call, greedy tokens "
+                         "identical to per-token serving")
+    ap.add_argument("--mixed-spec", action="store_true",
+                    help="with --speculate: opt every second request out "
+                         "of speculation (a mixed speculative/plain batch)")
     ap.add_argument("--phase-align", action="store_true",
                     help="phase-aligned admission: delay each insert (at "
                          "most stride-1 decode steps) until its slot lands "
@@ -120,13 +134,17 @@ class ServeResult:
     prefix_cache: dict          # engine.prefix_cache_stats ({} if off)
     pools: dict                 # engine.pool_stats() ({} if dense)
     cow_flushes: int            # COW flushes that copied pages
+    spec: dict = dataclasses.field(default_factory=dict)
+    #                             engine.spec_accept_stats() ({} if off)
 
 
 def serve(engine: SOIEngine, params, prompt, plens, gen_len: int, *,
-          phase_align: bool = False) -> ServeResult:
+          phase_align: bool = False, mixed_spec: bool = False
+          ) -> ServeResult:
     """Serve ``len(plens)`` requests (request i is ``prompt[i, :plens[i]]``)
     to ``gen_len`` tokens each; returns their tokens and the loop's
-    counters."""
+    counters. ``mixed_spec`` (a speculative engine) opts every odd request
+    out of speculation."""
     b = len(plens)
     state = engine.init_decode_state(params)
     steps0, mid0, flush0 = engine.steps, engine.mid_steps, engine.cow_flushes
@@ -149,7 +167,8 @@ def serve(engine: SOIEngine, params, prompt, plens, gen_len: int, *,
                 continue
             pendq.remove(slot)
             prefix = engine.prefill(params, prompt[slot, :plens[slot]])
-            state = engine.insert(prefix, state, slot)
+            spec = slot % 2 == 0 if mixed_spec else None
+            state = engine.insert(prefix, state, slot, speculate=spec)
             out[slot] = [int(prefix.first_token[0])]
             admitted.append(slot)
         return state
@@ -164,7 +183,12 @@ def serve(engine: SOIEngine, params, prompt, plens, gen_len: int, *,
         res = res.convert_to_numpy()
         for slot in snapshot:
             if len(out[slot]) < gen_len:
-                out[slot].append(int(res.get_result_at_slot(slot).tokens[0]))
+                sd = res.get_result_at_slot(slot)
+                # a speculative window commits its first ``accepted``
+                # tokens of up to K
+                n = 1 if sd.accepted is None else int(sd.accepted[0])
+                got = min(n, gen_len - len(out[slot]))
+                out[slot].extend(int(x) for x in sd.tokens[:got])
                 if len(out[slot]) == gen_len:
                     state = engine.free_slot(state, slot)
                     done += 1
@@ -195,9 +219,11 @@ def serve(engine: SOIEngine, params, prompt, plens, gen_len: int, *,
     seqs = np.stack([np.asarray(out[s][:gen_len]) for s in admitted])
     decoded = sum(len(v) for v in out.values()) - len(admitted)
     pc = engine.prefix_cache_stats if engine.prefix_cache_enabled else {}
+    spec = engine.spec_accept_stats() if engine.speculate else {}
     return ServeResult(seqs, list(plens), prefill_s, decode_s, decoded,
                        engine.steps - steps0, engine.mid_steps - mid0, pc,
-                       engine.pool_stats(), engine.cow_flushes - flush0)
+                       engine.pool_stats(), engine.cow_flushes - flush0,
+                       spec)
 
 
 def setup(args: argparse.Namespace, cfg=None):
@@ -235,7 +261,8 @@ def setup(args: argparse.Namespace, cfg=None):
                        device=device, paged=args.paged,
                        page_size=args.page_size, prefill_buckets=buckets,
                        prefill_chunk=args.chunk_size,
-                       prefix_cache=args.prefix_cache)
+                       prefix_cache=args.prefix_cache,
+                       speculate=args.speculate)
     return cfg, params, prompt, plens, engine
 
 
@@ -244,7 +271,8 @@ def run(args: argparse.Namespace, cfg=None) -> ServeResult:
     engine of ``args`` and serve them."""
     cfg, params, prompt, plens, engine = setup(args, cfg)
     res = serve(engine, params, prompt, plens, args.gen_len,
-                phase_align=args.phase_align)
+                phase_align=args.phase_align,
+                mixed_spec=bool(args.speculate and args.mixed_spec))
     device = engine.device
     layout = (f"paged(page {args.page_size})" if args.paged else "dense")
     prefill_by = (f"chunk={args.chunk_size}" if args.chunk_size
@@ -252,8 +280,10 @@ def run(args: argparse.Namespace, cfg=None) -> ServeResult:
     tail = (f"arch={cfg.name} soi={args.soi or 'off'} device={device} "
             f"{layout}  prefill {len(res.seqs)}/{args.batch} reqs (lens "
             f"{plens}) in {res.prefill_s:.3f}s [{prefill_by}], decoded "
-            f"{res.decoded} tok in {res.steps} steps "
-            f"({res.mid_steps} with the middle) in {res.decode_s:.3f}s "
+            f"{res.decoded} tok in "
+            + (f"{res.spec['windows']} windows" if res.spec else
+               f"{res.steps} steps ({res.mid_steps} with the middle)")
+            + f" in {res.decode_s:.3f}s "
             f"({res.decoded / max(res.decode_s, 1e-9):.1f} tok/s decode)")
     if res.prefix_cache:
         pc = res.prefix_cache
@@ -266,6 +296,13 @@ def run(args: argparse.Namespace, cfg=None) -> ServeResult:
         tail += (f"; {name} pool {ps['used']}/{ps['n_pages']} pages used "
                  f"(high water {ps['high_water']})")
     print(tail)
+    if res.spec:
+        sp = res.spec
+        print(f"speculative: K={sp['speculate']}, {sp['windows']} windows, "
+              f"{sp['committed']} tokens committed "
+              f"({sp['tokens_per_window']:.2f} tokens/window), "
+              f"draft accept rate {100 * sp['accept_rate']:.0f}% "
+              f"({sp['draft_accepted']}/{sp['draft_candidates']})")
     print("sample:", res.seqs[0, :16].tolist())
     return res
 

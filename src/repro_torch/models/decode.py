@@ -196,9 +196,11 @@ def _logits_one(params, cfg: ModelCfg, x):
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def decode_step(params, cfg: ModelCfg, state: dict, token):
+def decode_step(params, cfg: ModelCfg, state: dict, token, *, commit=None):
     """token: (B,) int. Returns (logits (B, V), state) with the caches
-    written in place and the clocks ``state["t"]`` advanced in place."""
+    written in place and the clocks ``state["t"]`` advanced in place.
+    ``commit`` ((B,) bool) limits the dense ring and RG-LRU writes to its
+    True rows (a pool's writes go where the page map sends them)."""
     if cfg.soi is not None:
         raise NotImplementedError(
             "decode_step does not run SOI configs: use "
@@ -208,7 +210,7 @@ def decode_step(params, cfg: ModelCfg, state: dict, token):
     pg = state["pages"].get("outer") if "pages" in state else None
     x = _embed_one(params, cfg, token)
     x = _segment_decode(params.blocks, state["segments"], cfg, x, t,
-                        pages=pg)
+                        commit=commit, pages=pg)
     t.add_(1)
     return _logits_one(params, cfg, x), state
 

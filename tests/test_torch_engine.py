@@ -255,9 +255,9 @@ def test_serve_main_runs_on_cpu_when_asked():
     assert seqs.shape == (2, 4)
     assert ((seqs >= 0) & (seqs < PQ.smoke_config().vocab)).all()
     with pytest.raises(NotImplementedError, match="not ported"):
-        pserve.main(["--smoke", "--device", "cpu", "--speculate", "2"])
+        pserve.main(["--smoke", "--device", "cpu", "--trace-out", "t.json"])
     with pytest.raises(NotImplementedError, match="not ported"):
-        SOIEngine(PQ.smoke_config(soi="pp"), device="cpu", speculate=2)
+        SOIEngine(PQ.smoke_config(soi="pp"), device="cpu", telemetry=True)
 
 
 def test_entry_points_default_to_cuda():

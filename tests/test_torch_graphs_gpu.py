@@ -15,7 +15,15 @@ smoke width:
   * a rebound state leaf raises ``DroppedDonationError`` and other params
     ``ValueError`` before any replay;
   * the U-Net session's phase graphs against the eager steppers, bit for
-    bit, with ``stmc_conv`` launches equal to the phase plans'.
+    bit, with ``stmc_conv`` launches equal to the phase plans';
+  * ``SOIEngine(speculate=K)``'s window graphs (draft, restore and verify
+    in one graph a window key) against an eager twin running
+    ``soi_engine.spec_step``, bit for bit, for pp/fp, dense and paged with
+    the prefix cache, f32/bf16, K 2 and 4, a slot opted out; captures equal
+    to the distinct window keys, and the decode reads launched a replay as
+    the key's plan gives them; a rejection forced at every depth on the
+    card leaves the state of the sequential steps bit for bit; a rebound
+    state leaf still raises ``DroppedDonationError``.
 
 Without a CUDA device every test here skips (decided inside the ``cuda``
 fixture, so every worker collects the same tests). On the card:
@@ -39,6 +47,8 @@ from repro_torch.engine import SOIEngine
 from repro_torch.engine import soi_engine as SE
 from repro_torch.engine.contracts import DroppedDonationError, state_leaves
 from repro_torch.engine.session import unet_stream_session
+from repro_torch.engine.speculative import verify_commit
+from repro_torch.engine.step import generate_step
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.models import unet as U
@@ -223,3 +233,166 @@ def test_unet_session_graph_equals_eager(cuda, soi, batch):
     for (path, a), (_, b) in zip(state_leaves(sess.state["inner"]),
                                  state_leaves(state)):
         assert torch.equal(a, b), path
+
+
+# -- speculative windows ----------------------------------------------------
+
+def _spec_twin(engine, ds):
+    """An eager twin of a speculative engine: its windows run
+    ``spec_step`` eagerly."""
+    twin, twin_ds = copy.deepcopy((engine, ds))
+    cfg = twin.cfg
+    twin.spec_graph = lambda params, d, spec, key: SE.spec_step(
+        params, cfg, d, spec, key)
+    return twin, twin_ds
+
+
+def _window_reads(cfg, key) -> int:
+    """Decode reads one window launches: K-1 draft steps of the outer
+    layers, then K verify steps, the middle where the pattern says."""
+    k, pattern = key
+    n_outer = cfg.soi.first_layer + cfg.n_layers - cfg.soi.last_layer
+    n_mid = cfg.soi.last_layer - cfg.soi.first_layer
+    return (2 * k - 1) * n_outer + n_mid * sum(pattern)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("mode", ["pp", "fp"])
+def test_spec_window_graph_equals_eager(cuda, mode, layout, dtype, k):
+    cfg = dataclasses.replace(PQ.smoke_config(soi=mode), dtype=dtype)
+    params = T.cast_params(T.init(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda), cfg)
+    eng = SOIEngine(cfg, device=cuda, speculate=k, **LAYOUTS[layout])
+    prompts = _prompts(cfg, 1)
+    ds = eng.init_decode_state(params)
+    for slot in (0, 1):
+        ds = eng.insert(eng.prefill(params, torch.from_numpy(
+            prompts[slot]).to(cuda)), ds, slot, speculate=slot == 0)
+    twin, tds = _spec_twin(eng, ds)
+    read = ("paged_decode_attention" if layout != "dense"
+            else "decode_attention")
+    ops.reset_launch_counts()
+    for w in range(8):
+        if w == 2:
+            prefix = eng.prefill(params, torch.from_numpy(prompts[2]).to(
+                cuda))
+            ds = eng.insert(prefix, ds, 2)
+            tds = twin.insert(prefix, tds, 2)
+        ds, res = eng.generate(params, ds)
+        tds, tres = twin.generate(params, tds)
+        assert torch.equal(res.logits, tres.logits), w
+        assert np.array_equal(res.data, tres.data), w
+        assert res.data.shape == (3, k + 3)
+    for (path, a), (_, b) in zip(state_leaves(ds), state_leaves(tds)):
+        if eng._paged and path.startswith("['model']") and path.endswith(
+                POOL_LEAVES):
+            a, b = a[1:], b[1:]
+        assert torch.equal(a, b), path
+    g = eng.spec_graph
+    assert g.captures == len(eng.spec_keys) >= 1
+    assert g.replays == 8 - g.captures
+    assert eng.graph.captures == 0
+    for key, st in g.stats().items():
+        assert st["launches"][read] == _window_reads(cfg, key[0]), key
+    if layout == "paged-prefix":
+        assert eng.prefix_cache_stats["cow_copies"] > 0
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_spec_replayed_launches_follow_the_window_plans(cuda, layout):
+    cfg = dataclasses.replace(PQ.smoke_config(soi="pp"), dtype="bfloat16")
+    params = T.cast_params(T.init(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(2), device=cuda), cfg)
+    eng = SOIEngine(cfg, device=cuda, speculate=4, **LAYOUTS[layout])
+    ds = eng.init_decode_state(params)
+    for slot, p in enumerate(_prompts(cfg, 3)):
+        ds = eng.insert(eng.prefill(params, torch.from_numpy(p).to(cuda)),
+                        ds, slot)
+    read = ("paged_decode_attention" if layout != "dense"
+            else "decode_attention")
+    n_outer = cfg.soi.first_layer + cfg.n_layers - cfg.soi.last_layer
+    n_mid = cfg.soi.last_layer - cfg.soi.first_layer
+    torch.cuda.synchronize(cuda)
+    ops.reset_launch_counts()
+    for _ in range(6):
+        ds, _res = eng.generate(params, ds)
+    torch.cuda.synchronize(cuda)
+    windows = eng.spec_stats["windows"]
+    assert ops.launch_counts()[read] == (
+        windows * 7 * n_outer + eng.spec_mid_iters * n_mid)
+    assert eng.spec_graph.captures == len(eng.spec_keys)
+    # the window's restore and masks add no decode read: the draft reads
+    # the outer layers K-1 times, the verify every layer it runs
+    for (key,), st in eng.spec_graph.stats().items():
+        assert st["launches"][read] == _window_reads(cfg, key)
+        assert st["launches"].get("copy_pages", 0) == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_spec_forced_rejection_on_the_card(cuda, paged, dtype):
+    """A wrong guess at depth n in 1..4 through ``verify_commit`` on the
+    card: n committed tokens, and the state of n sequential card steps bit
+    for bit (pools: outside the null page)."""
+    cfg = dataclasses.replace(PQ.smoke_config(soi="pp"), dtype=dtype)
+    params = T.cast_params(T.init(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(5), device=cuda), cfg)
+    eng = SOIEngine(cfg, device=cuda, max_concurrent_decodes=3, max_len=32,
+                    paged=paged, page_size=4, speculate=4)
+    ds = eng.init_decode_state(params)
+    for slot, p in enumerate(_prompts(cfg, 6)):
+        ds = eng.insert(eng.prefill(params, torch.from_numpy(p[:9 + slot])
+                                    .to(cuda)), ds, slot)
+    if paged:
+        ds = eng._back_spec_window(ds)
+        eng._flush_cow(ds)
+        eng._refresh_page_maps(ds["model"])
+    st0, cur = ds["model"], ds["tokens"].clone()
+    ones = torch.ones(3, dtype=torch.bool, device=cuda)
+    seq, snaps, st, c = [cur], [], copy.deepcopy(st0), cur
+    for _ in range(4):
+        lg, st = generate_step(params, cfg, st, c, active=ones)
+        c = torch.argmax(lg, -1).to(torch.int32)
+        seq.append(c)
+        snaps.append(copy.deepcopy(st))
+    seq = torch.stack(seq, 1)
+    for n in (1, 2, 3, 4):
+        inputs = seq[:, :4].clone()
+        if n < 4:
+            inputs[:, n] = (inputs[:, n] + 1) % cfg.vocab
+        sv = copy.deepcopy(st0)
+        _, comm, n_acc, nxt, _ = verify_commit(params, cfg, sv, inputs,
+                                               active=ones, spec=ones)
+        assert n_acc.tolist() == [n] * 3
+        assert torch.equal(comm[:, :n], seq[:, 1:1 + n])
+        assert torch.equal(nxt, seq[:, n])
+        for (path, a), (_, b) in zip(state_leaves(sv),
+                                     state_leaves(snaps[n - 1])):
+            if paged and path.endswith(POOL_LEAVES):
+                a, b = a[1:], b[1:]
+            assert torch.equal(a, b), (n, path)
+
+
+def test_spec_rebound_leaf_raises(cuda):
+    cfg = dataclasses.replace(PQ.smoke_config(soi="pp"), dtype="float32")
+    params = T.init(cfg, generator=torch.Generator(device=cuda)
+                    .manual_seed(4), device=cuda)
+    eng = SOIEngine(cfg, device=cuda, max_concurrent_decodes=3, max_len=64,
+                    speculate=4)
+    ds = eng.init_decode_state(params)
+    ds = eng.insert(eng.prefill(params, torch.arange(
+        12, dtype=torch.int32, device=cuda)), ds, 0)
+    for _ in range(4):
+        ds, _res = eng.generate(params, ds)
+    assert eng.spec_graph.captures == len(eng.spec_keys)
+    key = next(iter(eng.spec_keys))           # captured at its first window
+    k = ds["model"]["pre"][0]["k"]
+    assert k.nbytes >= 16 * 1024
+    ds["model"]["pre"][0]["k"] = k.clone()
+    with pytest.raises(DroppedDonationError,
+                       match=r"\['pre'\]\[0\]\['k'\]"):
+        eng.spec_graph(params, ds, eng._spec_dev, key)
+    ds["model"]["pre"][0]["k"] = k
+    eng.spec_graph(params, ds, eng._spec_dev, key)
