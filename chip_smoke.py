@@ -196,11 +196,38 @@ Phases, each printing its own lines:
              prompt set (median ms, host clock after a synchronize; tokens/s
              of each) and a profiled stretch of windows (busy, idle share,
              device kernels, the decode reads on the device == counted).
-16. the kernels JSON line (the decode reads and copy_pages also give their
-             phase-15 launches under "spec"), the card line, and last
+16. obs     — the observability layer (``repro_torch.obs``) on full-width
+             qwen3-1.7b bf16, SOI pp. (a) phase 5's traffic (dense, 64
+             steps) through an engine with telemetry and one without, in
+             one process: tokens equal, every drained metrics vector equal
+             to the one the host computes from its clocks (mid_fired == the
+             host's branch), one drain a step either way, the same captures
+             and launches a replay; device kernels a step from a profiled
+             window: off == phase 14's count (PERF.md records 2229), on adds
+             the vector's (at most 8); median step with and without telemetry
+             from 12 interleaved pairs of 8 drained steps, the least per-pair
+             on/off ratio within the reference's 1.05. (b) ``run_load`` of
+             ``make_trace(24, ...)`` (4 tenants, Zipf 1.1, 768-token tenant
+             prefixes, suffixes 16..256, 16..64 generated, bursts at 4 Hz of
+             mean 2) through a paged prefix-cache engine (4 slots, page 16,
+             chunk 256, max_len 1152, telemetry), first-come then
+             phase-aligned: every request completes, the cache hits,
+             chunk_attention / paged_decode_attention / copy_pages launched
+             as the spans and the engine's counters give them; TTFT, TPOT and
+             queue-wait p50/p99, tok/s, hit rate, deferrals, off-phase rate by
+             occupancy and coherence; the Chrome trace and metrics JSON
+             written and read back. (c) phase 15's dense traffic with
+             --speculate 4 --trace-out --metrics-out through launch/serve.py:
+             phase 5's tokens, one accepted-count sample a slot a drained
+             window. (d) the U-Net session (B 1, STMC baseline, 192 frames)
+             with a registry: 192 pushes counted, frames bit for bit those
+             without, the push dispatch latency.
+17. the kernels JSON line (the decode reads and copy_pages also give their
+             phase-15 launches under "spec"; the kernels phase 16 launches
+             their launches there under "obs"), the card line, and last
              {"ok": true, ...}.
 
-Phases 4-13 and 15 run the engine and the U-Net session as a user does, so
+Phases 4-13, 15 and 16 run the engine and the U-Net session as a user does, so
 on the card every generate step, window and frame after a branch's first is
 a graph replay; the kernel launch counters (Python-side) get each graph's launches
 added at every replay (``ops.add_launch_counts``), which is what their
@@ -3018,10 +3045,12 @@ def graphs_phase(dev):
     model = U.init(_unet_cfg(None), generator=torch.Generator(device=dev)
                    .manual_seed(9), device=dev)
     _unet_graph_parity(model, dev)
-    _lm_graph_timing(dev)
+    lm = _lm_graph_timing(dev)
     _unet_graph_timing(model, dev)
     del model
     _free(dev)
+    # the graphed qwen3 step's device kernels, which phase 16 holds
+    return lm["graphed"]["kernels"]
 
 
 # ---------------------------------------------------------------------------
@@ -3273,6 +3302,385 @@ def spec_phase(dev, plain_seqs) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 16. obs: the telemetry vector in the captured step, run_load, spans
+# ---------------------------------------------------------------------------
+
+# the vector's kernels a step (step_metrics: six; its buffer rides the
+# result rows' copy)
+MAX_VECTOR_KERNELS = 8
+# the reference's telemetry budget (tests/test_obs.py): the least on/off
+# ratio of interleaved trial pairs
+TELEMETRY_BUDGET = 1.05
+LOAD_TRACE = dict(n_tenants=4, zipf_a=1.1, prefix_len=768,
+                  suffix_lens=(16, 256), gen_lens=(16, 64), burst_rate_hz=4.0,
+                  burst_mean=2.0, seed=0)
+
+
+def _host_vector(engine) -> list:
+    """The telemetry vector of the engine's host clocks and occupancy."""
+    import numpy as np
+    st = engine.cfg.soi.stride
+    occ = engine._occupied
+    hist = np.bincount(engine._clock[occ] % st, minlength=st)
+    return hist.tolist() + [int(hist[0] > 0), int(occ.sum())]
+
+
+def _telemetry_on_off(dev, graph_kernels):
+    """(a) phase 5's traffic through a dense engine with telemetry and one
+    without, one process, the same weights: 64 steps of each (tokens,
+    drained vectors against the host's clocks and branch, drains a step,
+    launches), device kernels a step of each from a profiled window, then
+    12 interleaved trial pairs of 8 drained steps (the reference's budget
+    method). Returns the telemetry engine's launch counts."""
+    from repro_torch.engine import SOIEngine, contracts
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.obs import EngineTelemetry, now
+    args = serve.parse_args(SERVE_ARGV + ["--gen-len", "192"])
+    cfg, params, prompt, plens, _eng = serve.setup(args)
+    del _eng
+    st = cfg.soi.stride
+    n_outer = cfg.soi.first_layer + cfg.n_layers - cfg.soi.last_layer
+    n_mid = cfg.soi.last_layer - cfg.soi.first_layer
+    n_steps = 64
+    runs = {}
+    for tele in (False, True):
+        eng = SOIEngine(cfg, max_concurrent_decodes=args.batch,
+                        max_len=args.prompt_len + args.gen_len, device=dev,
+                        telemetry=tele)
+        ops.reset_launch_counts()
+        ds = eng.init_decode_state(params)
+        for slot, n in enumerate(plens):
+            ds = eng.insert(eng.prefill(params, prompt[slot, :n]), ds, slot)
+        toks = []
+        d0, s0, m0 = contracts.drain_count(), eng.steps, eng.mid_steps
+        for i in range(n_steps):
+            want = _host_vector(eng)
+            mid0 = eng.mid_steps
+            ds, res = eng.generate(params, ds)
+            res = res.convert_to_numpy()
+            toks.append(res.data[:, 0].copy())
+            if tele:
+                check(res.metrics.tolist() == want,
+                      f"obs (a) step {i}: drained vector "
+                      f"{res.metrics.tolist()} != the host's {want}")
+                check(int(res.metrics[st]) == eng.mid_steps - mid0,
+                      f"obs (a) step {i}: mid_fired {int(res.metrics[st])} "
+                      f"against the host's branch {eng.mid_steps - mid0}")
+            else:
+                check(res.metrics is None, "obs (a): telemetry off gave a "
+                                           "metrics vector")
+        torch.cuda.synchronize(dev)
+        counts = ops.launch_counts()
+        drains = contracts.drain_count() - d0
+        steps, mids = eng.steps - s0, eng.mid_steps - m0
+        check(drains == n_steps, f"obs (a) telemetry {tele}: {drains} "
+                                 f"drains in {n_steps} steps")
+        want_dec = n_outer * steps + n_mid * mids
+        check(counts["decode_attention"] == want_dec
+              and counts["flash_attention"] == cfg.n_layers * len(plens),
+              f"obs (a) telemetry {tele}: launches {counts}, expected "
+              f"decode_attention {want_dec}")
+        check(eng.graph.captures == 2, f"obs (a) telemetry {tele}: "
+                                       f"{eng.graph.captures} captures")
+        runs[tele] = {"eng": eng, "ds": ds, "toks": toks, "counts": counts,
+                      "graph": {k: v["launches"]
+                                for k, v in eng.graph.stats().items()}}
+    off, on = runs[False], runs[True]
+    check(all((a == b).all() for a, b in zip(on["toks"], off["toks"])),
+          "obs (a): tokens with telemetry differ from tokens without")
+    check(on["graph"] == off["graph"], f"obs (a): launches a replay "
+                                       f"{on['graph']} != {off['graph']}")
+    print(f"  (a) qwen3-1.7b dense B 4, {n_steps} steps each: tokens equal "
+          f"with and without telemetry; every drained vector == the host "
+          f"clocks' (mid_fired == the host's branch); one drain a step "
+          f"either way; 2 captures each, the same launches a replay "
+          f"{on['graph']}; launches on {on['counts']}", flush=True)
+    kern = {}
+    for tele, run in runs.items():
+        r = {"ds": run["ds"], "prev": None}
+        eng = run["eng"]
+
+        def step():
+            r["ds"], res = eng.generate(params, r["ds"])
+            if r["prev"] is not None:
+                r["prev"].convert_to_numpy()
+            r["prev"] = res
+        busy, idle, kern[tele], _seen = _loop_profile(
+            step, 16, READ_KERNELS["split"], "decode_attention",
+            f"obs telemetry {tele}")
+        run["ds"] = r["ds"]
+        print(f"  (a) telemetry {'on' if tele else 'off'}: profiled 16 "
+              f"steps: {kern[tele]:.2f} device kernels a step, busy "
+              f"{busy:.3f} ms a step, idle share {idle:.3f}", flush=True)
+    extra = kern[True] - kern[False]
+    print(f"  (a) device kernels a step: off {kern[False]:.2f} (phase 14: "
+          f"{graph_kernels:.2f}; PERF.md records 2229), on "
+          f"{kern[True]:.2f}: +{extra:.2f} for the vector (at most "
+          f"{MAX_VECTOR_KERNELS})")
+    check(round(kern[False]) == round(graph_kernels),
+          f"obs (a): telemetry-off step {kern[False]} kernels, phase 14 "
+          f"{graph_kernels}")
+    check(0 < extra <= MAX_VECTOR_KERNELS,
+          f"obs (a): the vector adds {extra} kernels a step")
+
+    tel = EngineTelemetry(st)
+
+    def trial(run, telemetry):
+        eng, ds, pending = run["eng"], run["ds"], None
+        t0 = now()
+        for _ in range(8):
+            ds, res = eng.generate(params, ds)
+            if pending is not None:
+                r = pending.convert_to_numpy()
+                if telemetry is not None:
+                    telemetry.observe_result(r)
+            pending = res
+        r = pending.convert_to_numpy()
+        if telemetry is not None:
+            telemetry.observe_result(r)
+        run["ds"] = ds
+        return (now() - t0) * 1e3 / 8
+    import gc
+    times = {True: [], False: []}
+    ratios = []
+    gc.collect()
+    gc.disable()
+    try:
+        for _ in range(12):
+            t_off = trial(off, None)
+            t_on = trial(on, tel)
+            times[False].append(t_off)
+            times[True].append(t_on)
+            ratios.append(t_on / t_off)
+    finally:
+        gc.enable()
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    print(f"  (a) median step {med[True]:.3f} ms with telemetry, "
+          f"{med[False]:.3f} without (12 interleaved pairs of 8 drained "
+          f"steps, host clock to the last drain); on/off per pair "
+          f"{' '.join(f'{x:.3f}' for x in ratios)}; least "
+          f"{min(ratios):.3f} (budget {TELEMETRY_BUDGET})", flush=True)
+    check(min(ratios) <= TELEMETRY_BUDGET,
+          f"obs (a): telemetry costs more than {TELEMETRY_BUDGET - 1:.0%} "
+          f"in every pair: {ratios}")
+    counts = on["counts"]
+    del runs, off, on, params
+    _free(dev)
+    return counts
+
+
+def _run_load(dev):
+    """(b) run_load's multi-tenant trace through a paged prefix-cache
+    engine with telemetry, first-come then phase-aligned: every request
+    completes, the cache hits, the chunk, paged decode and copy kernels
+    launch as the engine's counters and the spans give them; TTFT, TPOT,
+    queue wait, occupancy and coherence; the trace and metrics files
+    written and read back. Returns the launch counts of both runs."""
+    import os
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.engine import SOIEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import make_trace, run_load, write_metrics, \
+        write_trace
+    cfg = configs.get("qwen3-1.7b", soi="pp")
+    params = T.cast_params(T.init(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev, dtype=T._dtype(cfg)), cfg)
+    n_outer = cfg.soi.first_layer + cfg.n_layers - cfg.soi.last_layer
+    n_mid = cfg.soi.last_layer - cfg.soi.first_layer
+    chunk = 256
+    eng = SOIEngine(cfg, max_concurrent_decodes=4, max_len=1152, device=dev,
+                    paged=True, page_size=16, prefill_chunk=chunk,
+                    prefix_cache=True, telemetry=True)
+    reqs = make_trace(24, cfg.vocab, **LOAD_TRACE)
+    total = {}
+    for align in (False, True):
+        label = "phase-aligned" if align else "first-come"
+        s0, m0, f0 = eng.steps, eng.mid_steps, eng.cow_flushes
+        ops.reset_launch_counts()
+        res = run_load(eng, params, reqs, phase_align=align)
+        torch.cuda.synchronize(dev)
+        counts = ops.launch_counts()
+        s = res.summary
+        steps, mids = eng.steps - s0, eng.mid_steps - m0
+        chunks = sum(-(-len(r.tokens) // chunk)
+                     - res.tracer.get(r.rid).tokens_skipped // chunk
+                     for r in reqs)
+        want = {"chunk_attention": (n_outer + n_mid) * chunks,
+                "paged_decode_attention": n_outer * steps + n_mid * mids,
+                "copy_pages": eng.cow_flushes - f0,
+                "decode_attention": 0, "flash_attention": 0}
+        print(f"  (b) run_load {label}: {s['completed']}/{len(reqs)} "
+              f"completed in {s['steps']} steps ({mids} with the middle); "
+              f"TTFT p50 {s['ttft_p50_s'] * 1e3:.1f} / p99 "
+              f"{s['ttft_p99_s'] * 1e3:.1f} ms, TPOT p50 "
+              f"{s['tpot_p50_s'] * 1e3:.3f} / p99 {s['tpot_p99_s'] * 1e3:.3f}"
+              f" ms, queue wait p50 {s['queue_wait_p50_s'] * 1e3:.1f} / p99 "
+              f"{s['queue_wait_p99_s'] * 1e3:.1f} ms; {s['tok_s']:.1f} tok/s"
+              f" over {s['elapsed_s']:.3f} s; hit rate {s['hit_rate']:.3f}, "
+              f"{s['tokens_skipped']} prompt tokens skipped, deferred "
+              f"{s['deferred_admissions']}, phase-deferred "
+              f"{s['phase_deferred']} (host clock, virtual across idle gaps)",
+              flush=True)
+        # the prefill spans' host seconds (prefill calls, eager; the device
+        # tail lands in the first token's read right after the insert)
+        pre = sum(tr.prefill_end - tr.prefill_start
+                  for tr in res.tracer.traces)
+        print(f"  (b) {label}: prefill spans {pre:.3f} s of "
+              f"{s['elapsed_s']:.3f} s ({pre / s['elapsed_s']:.3f}); decode "
+              f"{s['decode_tokens']} tokens, "
+              f"{s['elapsed_s'] / steps * 1e3:.3f} ms of the run a step",
+              flush=True)
+        occ = res.telemetry.off_phase_rate_by_occupancy()
+        coh = res.telemetry.phase_coherence()
+        print(f"  (b) {label}: off-phase rate by occupancy "
+              f"{ {k: round(v, 4) for k, v in occ.items()} }; coherence "
+              f"{coh['coherent_step_rate']:.4f} of active steps fully "
+              f"aligned, modal fraction {coh['modal_fraction_mean']:.4f}; "
+              f"launches {counts}, expected {want} ({chunks} chunks)",
+              flush=True)
+        check(s["completed"] == len(reqs), f"obs (b) {label}: "
+              f"{s['completed']} of {len(reqs)} requests completed")
+        check(s["hit_rate"] > 0, f"obs (b) {label}: no prefix-cache hit")
+        for name, n in want.items():
+            check(counts[name] == n, f"obs (b) {label}: {name} launches "
+                                     f"{counts[name]} != {n}")
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+        with tempfile.TemporaryDirectory() as tmp:
+            tpath = os.path.join(tmp, "trace.json")
+            mpath = os.path.join(tmp, "metrics.json")
+            write_trace(res.tracer, tpath)
+            write_metrics(mpath, registry=res.telemetry.registry,
+                          tracer=res.tracer, extra=s)
+            with open(tpath) as fh:
+                ev = json.load(fh)["traceEvents"]
+            with open(mpath) as fh:
+                met = json.load(fh)
+            check(len({e["tid"] for e in ev}) == len(reqs)
+                  and met["trace.completed"] == len(reqs)
+                  and met["engine.steps"] == s["steps"],
+                  f"obs (b) {label}: the trace or metrics file read back "
+                  f"wrong")
+            print(f"  (b) {label}: Chrome trace {os.path.getsize(tpath)} B "
+                  f"({len(ev)} events, {len(reqs)} tracks), metrics JSON "
+                  f"{os.path.getsize(mpath)} B ({len(met)} keys), read back",
+                  flush=True)
+    del eng, params
+    _free(dev)
+    return total
+
+
+def _spec_telemetry(dev, plain_seqs):
+    """(c) phase 15's dense traffic with --speculate 4 --trace-out
+    --metrics-out through launch/serve.py: the plain run's tokens, one
+    accepted-count sample a speculating slot a drained window, one
+    telemetry step a drained window."""
+    import os
+    import tempfile
+    from repro_torch.launch import serve
+    with tempfile.TemporaryDirectory() as tmp:
+        tpath = os.path.join(tmp, "trace.json")
+        mpath = os.path.join(tmp, "metrics.json")
+        args = serve.parse_args(SERVE_ARGV + [
+            "--speculate", str(SPEC_K), "--trace-out", tpath,
+            "--metrics-out", mpath])
+        res = serve.run(args)
+        with open(mpath) as fh:
+            met = json.load(fh)
+        with open(tpath) as fh:
+            ev = json.load(fh)["traceEvents"]
+    if (res.seqs.shape != plain_seqs.shape
+            or (res.seqs != plain_seqs).any()):
+        raise RuntimeError(f"obs (c): tokens differ from phase 5's at "
+                           f"{_first_diff(res.seqs, plain_seqs)}")
+    windows = res.spec["windows"]
+    # the loop leaves the window dispatched last undrained once every
+    # request is done (the reference's loop does the same)
+    drained = met["engine.steps"]
+    n_spec = len(res.seqs)
+    acc = met["engine.spec_accepted_per_window.count"]
+    print(f"  (c) --speculate {SPEC_K} --trace-out --metrics-out: tokens "
+          f"equal to phase 5's; {windows} windows, {drained} drained "
+          f"(engine.steps); engine.spec_accepted_per_window count {acc} "
+          f"(mean {met['engine.spec_accepted_per_window.mean']:.3f}) for "
+          f"{n_spec} speculating slots; mid_fired "
+          f"{met['engine.mid_fired_steps']}, off-phase "
+          f"{met['engine.off_phase_steps']}; TTFT p50 "
+          f"{met['trace.ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
+          f"{met['trace.tpot_p50_s'] * 1e3:.3f} ms; {len(ev)} trace events",
+          flush=True)
+    check(drained == windows - 1 and met["engine.spec.windows"] == windows,
+          f"obs (c): engine.steps {drained} against {windows} windows")
+    check(acc == drained * n_spec, f"obs (c): {acc} accepted-count samples "
+                                   f"for {drained} windows x {n_spec} slots")
+    _free(dev)
+
+
+def _unet_registry(dev):
+    """(d) the U-Net session with a registry: its pushes counted, its
+    frames bit for bit those of the same session without one, the push
+    dispatch latency. Returns the registry session's launch counts."""
+    from repro_torch.engine.session import unet_stream_session
+    from repro_torch.kernels import ops
+    from repro_torch.models import unet as U
+    from repro_torch.obs import MetricsRegistry
+    cfg = _unet_cfg(STREAM_SOIS[0][1])
+    model = U.init(cfg, generator=torch.Generator(device=dev).manual_seed(9),
+                   device=dev)
+    n = 192
+    x = torch.randn((1, n, cfg.in_channels), generator=torch.Generator(
+        device=dev).manual_seed(27), device=dev)
+    plain = unet_stream_session(model, cfg, batch=1, device=dev)
+    ys = [plain.push(x[:, t]) for t in range(n)]
+    reg = MetricsRegistry()
+    sess = unet_stream_session(model, cfg, batch=1, device=dev,
+                               registry=reg)
+    ops.reset_launch_counts()
+    got = [sess.push(x[:, t]) for t in range(n)]
+    torch.cuda.synchronize(dev)
+    counts = ops.launch_counts()
+    check(all(torch.equal(a, b) for a, b in zip(got, ys)),
+          "obs (d): frames with a registry differ from frames without")
+    d = reg.as_dict()
+    want = _planned_convs(cfg, n)
+    print(f"  (d) U-Net B 1 STMC baseline, {n} frames with a registry: "
+          f"session.pushes {d['session.pushes']}, frames bit for bit those "
+          f"without; push dispatch p50 "
+          f"{d['session.push_dispatch_s.p50'] * 1e6:.1f} / p99 "
+          f"{d['session.push_dispatch_s.p99'] * 1e6:.1f} us (host clock, "
+          f"the first push captures); stmc_conv {counts['stmc_conv']} "
+          f"launches (plan {want})", flush=True)
+    check(d["session.pushes"] == n, f"obs (d): {d['session.pushes']} pushes")
+    check(counts["stmc_conv"] == want, f"obs (d): stmc_conv launches "
+                                       f"{counts['stmc_conv']} != {want}")
+    del model, plain, sess
+    _free(dev)
+    return counts
+
+
+def obs_phase(dev, plain_seqs, graph_kernels) -> dict:
+    phase("16 obs (the telemetry vector in the captured step, on vs off; "
+          "run_load's multi-tenant trace at full width; speculative "
+          "windows with --trace-out/--metrics-out; the U-Net session's "
+          "registry)")
+    t0 = time.perf_counter()
+    a = _telemetry_on_off(dev, graph_kernels)
+    b = _run_load(dev)
+    _spec_telemetry(dev, plain_seqs["dense"])
+    d = _unet_registry(dev)
+    print(f"  phase 16 in {time.perf_counter() - t0:.1f} s")
+    return {"decode_attention": (a, "obs (a) dense, telemetry on"),
+            "flash_attention": (a, "obs (a) dense, telemetry on"),
+            "chunk_attention": (b, "obs (b) run_load, both runs"),
+            "paged_decode_attention": (b, "obs (b) run_load, both runs"),
+            "copy_pages": (b, "obs (b) run_load, both runs"),
+            "stmc_conv": (d, "obs (d) U-Net session with a registry")}
+
+
 def main():
     card = device_phase()
     dev = torch.device("cuda", 0)
@@ -3289,8 +3697,9 @@ def main():
     rg_counts = rg_serve_phase(dev)
     unet_parity_phase(dev)
     unet_counts = unet_stream_phase(dev)
-    graphs_phase(dev)
+    graph_kernels = graphs_phase(dev)
     spec_counts = spec_phase(dev, PLAIN_SEQS)
+    obs_counts = obs_phase(dev, PLAIN_SEQS, graph_kernels)
     # launches: each kernel's count on its own path's run — the dense
     # serve (phase 5), the paged prefix-cache serve (phase 6), the
     # deepseek-v2 serve (phase 8), the MLA prefix-cache serve (phase 9),
@@ -3354,6 +3763,11 @@ def main():
             summary[-1]["spec"] = {
                 "launches": spec_counts[run][name],
                 "launches_on": f"spec serve ({run})"}
+        if name in obs_counts:
+            # phase 16's run of the same kernel
+            cnt_obs, on = obs_counts[name]
+            summary[-1]["obs"] = {"launches": cnt_obs[name],
+                                  "launches_on": on}
         if name in CHUNK_KERNELS:
             # the same wrapper on the middle's chunk of compressed frames
             mid = main_recs[name + " (middle)"]
@@ -3374,7 +3788,7 @@ def main():
             summary[-1]["rg_middle"].update(
                 launches=rg_second[name][name],
                 launches_on="rg serve (dense), outer and middle layers")
-    print(f"== 16 done in {time.perf_counter() - T_START:.1f} s")
+    print(f"== 17 done in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

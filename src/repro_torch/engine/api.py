@@ -12,7 +12,9 @@ step's graph and records an event (``contracts.host_copy_async``);
 ``convert_to_numpy`` waits for the event through ``contracts.host_get``,
 the one sanctioned drain a step (``contracts.drain_count`` counts it). The
 copy thus sits in the stream before the next step's work, which is what
-lets a serving loop drain step k while step k+1 runs.
+lets a serving loop drain step k while step k+1 runs. A telemetry engine's
+metrics vector (``step.step_metrics``) shares the rows' buffer, host copy
+and event, and drains in the same ``host_get``.
 """
 
 from __future__ import annotations
@@ -46,13 +48,16 @@ class ResultTokens:
 
     ``data`` is one (B, 3) int32 tensor [token, valid, length]; ``logits``
     (B, V) float32 rides along on the device for verification harnesses.
-    ``host`` / ``ready`` are the in-flight host copy of ``data`` and the
-    event that marks it complete (None on the CPU). A speculative window
-    emits up to K tokens a slot — [tok_0..tok_{K-1}, valid, length,
-    accepted], as host numpy — and says so by widening ``tokens_idx`` and
-    setting ``accepted_idx``."""
+    ``metrics`` (telemetry engines, else None) is the step's int32
+    telemetry vector [occ_phase_0..occ_phase_{s-1}, mid_fired, n_active].
+    ``host`` / ``ready`` are the in-flight host copies of ``(data,
+    metrics)`` and the event that marks them complete (None on the CPU).
+    A speculative window emits up to K tokens a slot — [tok_0..tok_{K-1},
+    valid, length, accepted], as host numpy, its metrics too — and says so
+    by widening ``tokens_idx`` and setting ``accepted_idx``."""
     data: Any
     logits: Optional[Any] = None
+    metrics: Optional[Any] = None
     host: Optional[Any] = None
     ready: Optional[Any] = None
     tokens_idx: tuple = (0, 1)
@@ -61,15 +66,16 @@ class ResultTokens:
     accepted_idx: Optional[tuple] = None
 
     def convert_to_numpy(self) -> "ResultTokens":
-        """This step's ``data`` as host numpy — the one device->host copy of
-        the step (``logits`` stay where they are). Call it on the
-        *previous* step's results after dispatching the next step."""
+        """This step's ``data`` and ``metrics`` as host numpy — the one
+        device->host drain of the step (``logits`` stay where they are).
+        Call it on the *previous* step's results after dispatching the
+        next step."""
         if isinstance(self.data, torch.Tensor):
-            data = contracts.host_get(
-                self.data if self.host is None else self.host,
-                ready=self.ready)
-            return dataclasses.replace(self, data=data, host=None,
-                                       ready=None)
+            data, metrics = contracts.host_get(
+                (self.data, self.metrics) if self.host is None
+                else self.host, ready=self.ready)
+            return dataclasses.replace(self, data=data, metrics=metrics,
+                                       host=None, ready=None)
         return self
 
     def get_result_at_slot(self, slot: int) -> SlotData:

@@ -29,25 +29,36 @@ class StreamSession:
     stream. The session owns the carried state; callers push inputs in
     arrival order.
 
-    ``registry`` (the reference's per-push metrics) raises
-    ``NotImplementedError``: the observability layer is not ported yet.
+    ``registry`` (optional ``repro_torch.obs.MetricsRegistry``) records
+    per-push observability: the ``session.pushes`` counter and the
+    ``session.push_dispatch_s`` histogram. The histogram measures
+    *dispatch* latency on the host clock — on the card a push returns once
+    its graph replay is enqueued, before the frame is computed — so a
+    healthy session shows microseconds; milliseconds mean the host blocks
+    inside the push (a capture, or a hidden sync). Without a registry a
+    push reads no clock.
     ``graph`` is the ``CheckedGraph`` the step runs through, if any (its
     captures, replays and ``stats()``).
     """
 
     def __init__(self, step, state, registry=None, graph=None):
-        if registry is not None:
-            raise NotImplementedError(
-                "session metrics (registry=) need the observability layer, "
-                "which is not ported yet (see ROADMAP.md)")
         self._step = step
         self.state = state
+        self._registry = registry
         self.graph = graph
 
     @torch.no_grad()
     def push(self, inp):
         """Feed one input (a frame (B, C)); returns the step's output."""
+        if self._registry is None:
+            self.state, out = self._step(self.state, inp)
+            return out
+        from repro_torch.obs.clock import now
+        t0 = now()
         self.state, out = self._step(self.state, inp)
+        self._registry.counter("session.pushes").inc()
+        self._registry.histogram("session.push_dispatch_s").observe(
+            now() - t0)
         return out
 
     def run(self, xs):
@@ -70,7 +81,8 @@ def unet_stream_session(model, cfg, *, batch: int = 1, dtype=torch.float32,
     on ``device`` — the card unless the caller asks for the CPU — which
     must be where the model's weights are. Each push copies the frame into
     the session's frame buffer, runs the phase's step (a graph replay on
-    the card) and returns a copy of its output."""
+    the card) and returns a copy of its output. ``registry`` counts the
+    pushes and their dispatch latency (``StreamSession``)."""
     from repro_torch.models import unet as U
     dev = resolve_device(device)
     w_dev = model.proj.w.device

@@ -65,7 +65,18 @@ after it. The accepted counts gate the host clocks and the page rollback,
 so each window makes the reference's one sanctioned drain (``host_get``)
 and its ``ResultTokens`` carries host data. ``insert(...,
 speculate=False)`` opts a request out: it commits one token a window.
-Telemetry is a later slice: its option raises.
+
+``telemetry=True`` adds the per-step metrics vector
+(``step.step_metrics``: phase occupancy over ``t % stride``, whether the
+middle ran, the active-slot count) to every ``ResultTokens.metrics``. It
+is computed inside the graph from the clocks the step starts from, one
+more output of ``gen_step`` (a window: sampled once from the clocks
+before it, inside ``spec_step``'s graph), so it needs no host read. On
+the card the plain step packs it with the result rows into one buffer
+behind one host copy and one event; ``convert_to_numpy`` drains both in
+one ``host_get``. A window drains it in its own ``host_get`` with the
+result rows. Telemetry off, the steps return no vector and the graphs
+are the ones captured before the option existed.
 """
 
 from __future__ import annotations
@@ -83,7 +94,7 @@ from repro_torch.engine.contracts import (CheckedGraph, host_copy_async,
 from repro_torch.engine.pages import (PageTable, PrefixEntry, PrefixIndex,
                                       chain_keys)
 from repro_torch.engine.speculative import speculative_window
-from repro_torch.engine.step import generate_step
+from repro_torch.engine.step import generate_step, step_metrics
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import decode as D
@@ -134,27 +145,43 @@ def insert_state(cfg: ModelCfg, dst: dict, src: dict, slot: int, *,
     return dst
 
 
+def _metrics(ds: dict, stride: int | None):
+    """The telemetry vector of the clocks ``ds`` holds now (before the
+    step writes them), or None with telemetry off (``stride`` None)."""
+    if stride is None:
+        return None
+    return step_metrics(ds["model"]["t"], ds["active"], stride)
+
+
 @torch.no_grad()
-def gen_step(params, cfg: ModelCfg, ds: dict, run_mid_any: bool):
+def gen_step(params, cfg: ModelCfg, ds: dict, run_mid_any: bool,
+             stride: int | None = None):
     """The engine's device step (the reference's ``_gen``): one
     ``generate_step`` over every slot, the greedy next tokens written into
     ``ds["tokens"]`` in place, and the (B, 3) int32 result rows [token,
-    valid, length]. Returns ``(ds, data, logits)``."""
+    valid, length]. ``stride`` (telemetry on) adds the step's metrics
+    vector, from the clocks before the step. Returns ``(ds, data, logits,
+    metrics)``, ``metrics`` None with telemetry off."""
+    met = _metrics(ds, stride)
     logits, ms = generate_step(params, cfg, ds["model"], ds["tokens"],
                                active=ds["active"], run_mid_any=run_mid_any)
     nxt = torch.argmax(logits, dim=-1).to(torch.int32)
     data = torch.stack([nxt, ds["active"].to(torch.int32), ms["t"]], dim=1)
     ds["tokens"].copy_(nxt)
-    return ds, data, logits
+    return ds, data, logits, met
 
 
 @torch.no_grad()
-def spec_step(params, cfg: ModelCfg, ds: dict, spec, key: tuple):
+def spec_step(params, cfg: ModelCfg, ds: dict, spec, key: tuple,
+              stride: int | None = None):
     """The engine's speculative window (the reference's ``_specgen``):
     ``speculative_window`` over every slot with ``key`` = (K, the verify's
     branch pattern), the feedback tokens written into ``ds["tokens"]`` in
     place, and the (B, K+3) int32 result rows [tok_0..tok_{K-1}, valid,
-    length, accepted]. Returns ``(ds, data, logits)``."""
+    length, accepted]. ``stride`` (telemetry on) adds one metrics vector a
+    window, from the clocks before it. Returns ``(ds, data, logits,
+    metrics)``."""
+    met = _metrics(ds, stride)
     k, run_mid = key
     ms, committed, n_acc, nxt, logits = speculative_window(
         params, cfg, ds["model"], ds["tokens"], k=k, active=ds["active"],
@@ -162,7 +189,7 @@ def spec_step(params, cfg: ModelCfg, ds: dict, spec, key: tuple):
     data = torch.cat([committed, torch.stack(
         [ds["active"].to(torch.int32), ms["t"], n_acc], dim=1)], dim=1)
     ds["tokens"].copy_(nxt)
-    return ds, data, logits
+    return ds, data, logits, met
 
 
 def _attn_caches(caches):
@@ -181,26 +208,33 @@ class SOIEngine(Engine):
     ``tokens`` tensor, which the card's graph refuses), ``active`` gates
     result validity.
 
-    ``paged=True`` swaps the dense rings for page pools of
-    ``slots * pages_per_slot + 1`` pages per cache group (the null page
-    included), which back every slot at full length.
+    ``paged=True`` swaps the dense rings for shared page pools.
+    ``n_pages`` / ``n_pages_mid`` size the pools (pool rows, the null page
+    included); the default, ``slots * pages_per_slot + 1``, backs every
+    slot at full length. Servers shrink the pools to the resident token
+    population: the page tables then enforce it, ``can_insert`` defers a
+    request the pools cannot back, and an allocation the pools cannot
+    meet raises.
     ``prefill_chunk=C`` switches to chunked prefill; ``prefix_cache=True``
     (needs both) shares prompt-prefix pages copy-on-write.
     ``speculate=K`` (>= 1) serves through draft and verify windows.
+    ``telemetry=True`` attaches the per-step metrics vector to every
+    result (``ResultTokens.metrics``; see the module docstring).
     """
 
     def __init__(self, cfg: ModelCfg, *, max_concurrent_decodes: int = 8,
                  max_len: int = 256, device=None, paged: bool = False,
-                 page_size: int = 16, prefill_buckets="pow2",
+                 page_size: int = 16, n_pages: int | None = None,
+                 n_pages_mid: int | None = None, prefill_buckets="pow2",
                  prefill_chunk: int | None = None,
                  prefix_cache: bool = False, speculate: int | None = None,
                  telemetry: bool = False):
-        if telemetry:
-            raise NotImplementedError(
-                "SOIEngine(telemetry=...) is not ported yet; see ROADMAP.md")
         if speculate is not None and int(speculate) < 1:
             raise ValueError(f"speculate must be >= 1, got {speculate}")
         self.cfg = cfg
+        # the stride of the telemetry vector, None with telemetry off
+        self._metrics_stride = ((cfg.soi.stride if cfg.soi is not None
+                                 else 1) if telemetry else None)
         self.max_len = int(max_len)
         self.device = resolve_device(device)
         self._slots = int(max_concurrent_decodes)
@@ -230,10 +264,13 @@ class SOIEngine(Engine):
                 if ln and ln % page_size:
                     raise ValueError(f"page_size {page_size} must divide the "
                                      f"{name} cache length {ln}")
+            if n_pages is None:
+                n_pages = self._slots * (outer_len // page_size) + 1
+            if n_pages_mid is None:
+                n_pages_mid = self._slots * (mid_len // page_size) + 1
             self._outer_len, self._mid_len = outer_len, mid_len
-            self._spec = attn.PagedKV(
-                page_size, max(self._slots * (outer_len // page_size) + 1, 2),
-                max(self._slots * (mid_len // page_size) + 1, 2))
+            self._spec = attn.PagedKV(page_size, max(int(n_pages), 2),
+                                      max(int(n_pages_mid), 2))
         self._prefix_cache = bool(prefix_cache)
         self._prefix_index = PrefixIndex()
         self._pc_stats = {"hits": 0, "misses": 0, "tokens_skipped": 0,
@@ -271,8 +308,9 @@ class SOIEngine(Engine):
         # COW flushes that copied pages (one copy_pages launch each)
         self.cow_flushes = 0
         # the device step, one graph per SOI branch on the card
+        stride = self._metrics_stride
         self.graph = CheckedGraph(
-            lambda params, ds, mid: gen_step(params, cfg, ds, mid),
+            lambda params, ds, mid: gen_step(params, cfg, ds, mid, stride),
             state_argnums=(1,), static_argnums=(2,), name="generate")
         self._speculate = None if speculate is None else int(speculate)
         # which slots run speculative windows (insert(..., speculate=...));
@@ -297,7 +335,7 @@ class SOIEngine(Engine):
         # the window, one graph per key on the card
         self.spec_graph = CheckedGraph(
             lambda params, ds, spec, key: spec_step(params, cfg, ds, spec,
-                                                    key),
+                                                    key, stride),
             state_argnums=(1,), static_argnums=(3,), name="spec_window")
 
     def _resolve_buckets(self, policy):
@@ -325,6 +363,11 @@ class SOIEngine(Engine):
     @property
     def max_concurrent_decodes(self) -> int:
         return self._slots
+
+    @property
+    def telemetry(self) -> bool:
+        """Does every result carry the per-step metrics vector?"""
+        return self._metrics_stride is not None
 
     @property
     def speculate(self) -> int | None:
@@ -923,15 +966,24 @@ class SOIEngine(Engine):
         self._clock[self._occupied] += 1
         # a plain config has one branch: its step never reads the flag
         branch = run_mid_any if self.cfg.soi is not None else None
-        _, data, logits = self.graph(params, decode_state, branch)
+        _, data, logits, met = self.graph(params, decode_state, branch)
         host = ready = None
         if data.is_cuda:
-            # the graph's static outputs: the next replay overwrites them
-            data, logits = data.clone(), logits.clone()
-            host, ready = host_copy_async(data)
+            # the graph's static outputs: the next replay overwrites them.
+            # One buffer, so the vector (if any) rides the rows' host copy
+            n = data.numel()
+            parts = [data.reshape(-1)] + ([met] if met is not None else [])
+            buf = torch.cat(parts)
+            data = buf[:n].view(data.shape)
+            met = buf[n:] if met is not None else None
+            logits = logits.clone()
+            h, ready = host_copy_async(buf)
+            host = (h[:n].view(data.shape),
+                    h[n:] if met is not None else None)
         self._live = decode_state
         return decode_state, ResultTokens(data=data, logits=logits,
-                                          host=host, ready=ready)
+                                          metrics=met, host=host,
+                                          ready=ready)
 
     # -- speculative windows ---------------------------------------------
 
@@ -1045,11 +1097,13 @@ class SOIEngine(Engine):
         key = self._window_key()
         self._upload_spec_mask()
         self.spec_keys.add(key)
-        _, data, logits = self.spec_graph(params, decode_state,
-                                          self._spec_dev, key)
+        _, data, logits, met = self.spec_graph(params, decode_state,
+                                               self._spec_dev, key)
         # the accepted counts gate the host clocks and the page rollback,
-        # so every window drains its result rows: the one sanctioned drain
-        host = host_get(data)  # sync-ok: accepted counts gate page rollback
+        # so every window drains its result rows, and the telemetry vector
+        # with them: the one sanctioned drain
+        # sync-ok: accepted counts gate page rollback
+        host, met = host_get((data, met))
         if logits.is_cuda:
             logits = logits.clone()      # the next replay overwrites it
         n = host[:, k + 2]
@@ -1067,7 +1121,7 @@ class SOIEngine(Engine):
         self.spec_mid_iters += sum(key[1] or ())
         self._live = decode_state
         return decode_state, ResultTokens(
-            data=host, logits=logits, tokens_idx=(0, k),
+            data=host, logits=logits, metrics=met, tokens_idx=(0, k),
             valid_idx=(k, k + 1), length_idx=(k + 1, k + 2),
             accepted_idx=(k + 2, k + 3))
 

@@ -47,6 +47,36 @@ from repro_torch.models.transformer import cast_params, split_blocks
 
 
 @torch.no_grad()
+def step_metrics(t, active, stride: int):
+    """The per-step telemetry vector (port of
+    ``repro.engine.step.step_metrics``), from the clocks ``t`` (B,) the
+    step starts from. Layout (int32, length ``stride + 2``, on ``t``'s
+    device)::
+
+        [occ_phase_0, ..., occ_phase_{stride-1}, mid_fired, n_active]
+
+    ``occ_phase_p`` counts active slots whose clock sits at ``t % stride
+    == p``; ``mid_fired`` is 1 iff some active slot sits at phase 0 (the
+    step runs the compressed middle); ``n_active`` is the live-slot count.
+    ``active`` None means every slot; ``stride=1`` for a config without
+    SOI (one bucket, the "middle" fires whenever a slot is active).
+
+    Six kernels on the card and no host read, so a captured step can
+    compute it: the histogram is an ``index_add_`` into fixed zeros (not
+    ``bincount``, which reads its size on the host), ``mid_fired`` the
+    phase-0 bucket clamped to 1, ``n_active`` a sum, each written into
+    its slot of the one output.
+    """
+    one = (torch.ones(t.shape[0], dtype=torch.int32, device=t.device)
+           if active is None else active.to(torch.int32))
+    out = torch.zeros(stride + 2, dtype=torch.int32, device=t.device)
+    out[:stride].index_add_(0, t % stride, one)
+    torch.clamp(out[:1], max=1, out=out[stride:stride + 1])
+    torch.sum(one, 0, keepdim=True, dtype=torch.int32, out=out[stride + 1:])
+    return out
+
+
+@torch.no_grad()
 def generate_step(params, cfg: ModelCfg, state: dict, tokens, *,
                   active=None, run_mid_any: bool | None = None,
                   draft: bool = False, commit=None):

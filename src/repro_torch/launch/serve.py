@@ -19,6 +19,15 @@ to K tokens a slot an engine call, the same greedy tokens);
 requests share the batch. The loop then takes each slot's first
 ``accepted`` tokens of a window, and the tail adds a ``speculative:`` line.
 
+``--trace-out PATH`` writes a Chrome-trace JSON (open it in
+ui.perfetto.dev) of every request's lifecycle spans (queued, prefill,
+decode, one commit instant a drained step); ``--metrics-out PATH`` the
+flat metrics JSON: the engine registry (the drained telemetry vectors'
+counters, prefix-cache, speculative and pool gauges, the sanctioned
+drains) and the spans' TTFT / TPOT / queue-wait percentiles. Either one
+builds the engine with ``telemetry=True`` and adds a ``phase coherence:``
+line to the tail (``repro_torch.obs``).
+
 The loop drains each step's tokens one step late: after dispatching step k
 it reads step k-1's tokens, whose host copy was queued on the stream right
 behind step k-1, so the read overlaps step k's work on the card.
@@ -56,9 +65,8 @@ import torch
 from repro_torch import configs, resolve_device
 from repro_torch.engine import SOIEngine
 from repro_torch.models import transformer as T
-
-# flags of the reference's driver that belong to later slices of the port
-_LATER = ("trace_out", "metrics_out")
+from repro_torch.obs import (EngineTelemetry, MetricsRegistry, Tracer, now,
+                             write_metrics, write_trace)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -107,19 +115,17 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="phase-aligned admission: delay each insert (at "
                          "most stride-1 decode steps) until its slot lands "
                          "in the batch's t %% stride phase class")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Perfetto-openable Chrome-trace JSON of "
+                         "per-request lifecycle spans; implies engine "
+                         "telemetry")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the flat metrics JSON (registry snapshot + "
+                         "TTFT/TPOT percentiles); implies engine telemetry")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' (plain kernels)")
-    for name in _LATER:
-        ap.add_argument("--" + name.replace("_", "-"), default=None,
-                        nargs="?", const=True, help=argparse.SUPPRESS)
-    args = ap.parse_args(argv)
-    for name in _LATER:
-        if getattr(args, name) is not None:
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} is not ported yet; see "
-                f"ROADMAP.md")
-    return args
+    return ap.parse_args(argv)
 
 
 @dataclasses.dataclass
@@ -136,21 +142,29 @@ class ServeResult:
     cow_flushes: int            # COW flushes that copied pages
     spec: dict = dataclasses.field(default_factory=dict)
     #                             engine.spec_accept_stats() ({} if off)
+    tracer: Tracer = dataclasses.field(default_factory=Tracer)
+    #                             each request's spans (request id = slot)
 
 
 def serve(engine: SOIEngine, params, prompt, plens, gen_len: int, *,
-          phase_align: bool = False, mixed_spec: bool = False
-          ) -> ServeResult:
+          phase_align: bool = False, mixed_spec: bool = False,
+          telemetry: EngineTelemetry | None = None) -> ServeResult:
     """Serve ``len(plens)`` requests (request i is ``prompt[i, :plens[i]]``)
     to ``gen_len`` tokens each; returns their tokens and the loop's
     counters. ``mixed_spec`` (a speculative engine) opts every odd request
-    out of speculation."""
+    out of speculation. The result's ``tracer`` holds each request's spans
+    (request id = its slot, queued at the loop's start); ``telemetry``
+    takes every drained result."""
     b = len(plens)
     state = engine.init_decode_state(params)
     steps0, mid0, flush0 = engine.steps, engine.mid_steps, engine.cow_flushes
     out: dict = {}
     admitted: list = []
     pendq = []
+    t_queued = now()
+    tracer = Tracer()
+    traces = {slot: tracer.request(slot, t_queued=t_queued)
+              for slot in range(b)}
     for slot in range(b):
         # a request the page pools cannot back now is not admitted, rather
         # than crashing into a half-released slot mid-insert
@@ -166,10 +180,18 @@ def serve(engine: SOIEngine, params, prompt, plens, gen_len: int, *,
                                                      phase_align=True):
                 continue
             pendq.remove(slot)
+            tr = traces[slot]
+            hits0 = engine.prefix_cache_stats["hits"]
+            tr.mark_prefill_start(plens[slot])
             prefix = engine.prefill(params, prompt[slot, :plens[slot]])
+            tr.mark_prefill_end(
+                cache_hit=engine.prefix_cache_stats["hits"] > hits0,
+                tokens_skipped=(prefix.cache_meta or {}).get("hit", 0))
             spec = slot % 2 == 0 if mixed_spec else None
             state = engine.insert(prefix, state, slot, speculate=spec)
+            tr.mark_inserted()
             out[slot] = [int(prefix.first_token[0])]
+            tr.mark_first_token()
             admitted.append(slot)
         return state
 
@@ -181,6 +203,8 @@ def serve(engine: SOIEngine, params, prompt, plens, gen_len: int, *,
 
     def drain(res, snapshot, state, done):
         res = res.convert_to_numpy()
+        if telemetry is not None:
+            telemetry.observe_result(res)
         for slot in snapshot:
             if len(out[slot]) < gen_len:
                 sd = res.get_result_at_slot(slot)
@@ -189,7 +213,10 @@ def serve(engine: SOIEngine, params, prompt, plens, gen_len: int, *,
                 n = 1 if sd.accepted is None else int(sd.accepted[0])
                 got = min(n, gen_len - len(out[slot]))
                 out[slot].extend(int(x) for x in sd.tokens[:got])
+                if got:
+                    traces[slot].mark_decode(got)
                 if len(out[slot]) == gen_len:
+                    traces[slot].mark_done()
                     state = engine.free_slot(state, slot)
                     done += 1
         return state, done
@@ -223,7 +250,7 @@ def serve(engine: SOIEngine, params, prompt, plens, gen_len: int, *,
     return ServeResult(seqs, list(plens), prefill_s, decode_s, decoded,
                        engine.steps - steps0, engine.mid_steps - mid0, pc,
                        engine.pool_stats(), engine.cow_flushes - flush0,
-                       spec)
+                       spec, tracer)
 
 
 def setup(args: argparse.Namespace, cfg=None):
@@ -262,7 +289,8 @@ def setup(args: argparse.Namespace, cfg=None):
                        page_size=args.page_size, prefill_buckets=buckets,
                        prefill_chunk=args.chunk_size,
                        prefix_cache=args.prefix_cache,
-                       speculate=args.speculate)
+                       speculate=args.speculate,
+                       telemetry=bool(args.trace_out or args.metrics_out))
     return cfg, params, prompt, plens, engine
 
 
@@ -270,9 +298,15 @@ def run(args: argparse.Namespace, cfg=None) -> ServeResult:
     """Build the config (``cfg`` if given), random weights, prompts and
     engine of ``args`` and serve them."""
     cfg, params, prompt, plens, engine = setup(args, cfg)
+    registry = telemetry = None
+    if engine.telemetry:
+        registry = MetricsRegistry()
+        telemetry = EngineTelemetry(
+            cfg.soi.stride if cfg.soi is not None else 1, registry=registry)
     res = serve(engine, params, prompt, plens, args.gen_len,
                 phase_align=args.phase_align,
-                mixed_spec=bool(args.speculate and args.mixed_spec))
+                mixed_spec=bool(args.speculate and args.mixed_spec),
+                telemetry=telemetry)
     device = engine.device
     layout = (f"paged(page {args.page_size})" if args.paged else "dense")
     prefill_by = (f"chunk={args.chunk_size}" if args.chunk_size
@@ -303,6 +337,21 @@ def run(args: argparse.Namespace, cfg=None) -> ServeResult:
               f"({sp['tokens_per_window']:.2f} tokens/window), "
               f"draft accept rate {100 * sp['accept_rate']:.0f}% "
               f"({sp['draft_accepted']}/{sp['draft_candidates']})")
+    if telemetry is not None:
+        telemetry.snapshot_engine(engine)
+        coh = telemetry.phase_coherence()
+        print(f"phase coherence: {100 * coh['coherent_step_rate']:.0f}% of "
+              f"active steps fully aligned (modal-bucket slot fraction "
+              f"{coh['modal_fraction_mean']:.2f}; "
+              f"--phase-align {'on' if args.phase_align else 'off'})")
+        if args.trace_out:
+            write_trace(res.tracer, args.trace_out)
+            print(f"trace written to {args.trace_out} "
+                  f"(open in ui.perfetto.dev)")
+        if args.metrics_out:
+            write_metrics(args.metrics_out, registry=registry,
+                          tracer=res.tracer)
+            print(f"metrics written to {args.metrics_out}")
     print("sample:", res.seqs[0, :16].tolist())
     return res
 

@@ -248,16 +248,18 @@ def test_serve_matches_reference_driver(monkeypatch):
     np.testing.assert_array_equal(got.seqs, np.asarray(ref))
 
 
-def test_serve_main_runs_on_cpu_when_asked():
-    seqs = pserve.main(["--smoke", "--soi", "fp", "--device", "cpu",
-                        "--batch", "2", "--prompt-len", "9", "--gen-len",
-                        "4"])
+def test_serve_main_runs_on_cpu_when_asked(tmp_path):
+    argv = ["--smoke", "--soi", "fp", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "9", "--gen-len", "4"]
+    seqs = pserve.main(argv)
     assert seqs.shape == (2, 4)
     assert ((seqs >= 0) & (seqs < PQ.smoke_config().vocab)).all()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pserve.main(["--smoke", "--device", "cpu", "--trace-out", "t.json"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        SOIEngine(PQ.smoke_config(soi="pp"), device="cpu", telemetry=True)
+    # the observability switches serve the same tokens and write their file
+    trace = tmp_path / "t.json"
+    assert (pserve.main(argv + ["--trace-out", str(trace)]) == seqs).all()
+    assert trace.exists()
+    assert SOIEngine(PQ.smoke_config(soi="pp"), device="cpu",
+                     telemetry=True).telemetry
 
 
 def test_entry_points_default_to_cuda():

@@ -36,6 +36,7 @@ from repro_torch.convert import from_jax_unet
 from repro_torch.core.soi import SOIConvCfg as PSOI
 from repro_torch.engine.session import unet_stream_session
 from repro_torch.models import unet as punet
+from repro_torch.obs import MetricsRegistry
 
 torch.set_num_threads(1)
 
@@ -244,8 +245,18 @@ def test_entry_points_default_to_the_card_and_refuse_a_registry():
     g = torch.Generator().manual_seed(0)
     model = punet.init(pcfg, generator=g, device="cpu")
     assert model.proj.w.device.type == "cpu"
-    with pytest.raises(NotImplementedError):
-        unet_stream_session(model, pcfg, device="cpu", registry=object())
+    # a registry counts the pushes; one that already holds
+    # ``session.pushes`` as another kind of metric is refused at the first
+    # push (the registry's kind check)
+    reg = MetricsRegistry()
+    frame = torch.zeros((1, pcfg.in_channels))
+    unet_stream_session(model, pcfg, device="cpu", registry=reg).push(frame)
+    assert reg.as_dict()["session.pushes"] == 1
+    clash = MetricsRegistry()
+    clash.gauge("session.pushes")
+    with pytest.raises(TypeError):
+        unet_stream_session(model, pcfg, device="cpu",
+                            registry=clash).push(frame)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             punet.init(pcfg, generator=g)
