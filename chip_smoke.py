@@ -222,10 +222,40 @@ Phases, each printing its own lines:
              window. (d) the U-Net session (B 1, STMC baseline, 192 frames)
              with a registry: 192 pushes counted, frames bit for bit those
              without, the push dispatch latency.
-17. the kernels JSON line (the decode reads and copy_pages also give their
+17. train   — training on the card (every number beside the card's name
+             and power limit). (a) flash attention's gradient: the
+             forward's lse and output, then flash_attention_bwd against the
+             plain ref.flash_attention_bwd on the card at qwen3's training
+             shape (8, 128, 16/8, 128), the SOI middle's (8, 64) and the
+             prefill bucket's (1, 1024), f32 and bf16 (dq, dk, dv within
+             2e-5 / 2e-2 of each one's largest |value|), launched twice and
+             held bit for bit; its device ms at the training shape in bf16
+             beside the plain version, SDPA's backward (K/V repeated,
+             backward only) and the bound, and the forward with its lse
+             against without. (b) one make_train_step of full-width qwen3
+             cut to 4 layers (SOI pp), f32, through the kernels and with
+             attention on the plain version: loss and every gradient within
+             1e-4, every update within 1e-4 where AdamW is well conditioned
+             (gradients >= 1e-3 of their leaf's largest); a bf16 step
+             finite. (c) launch.train.main on qwen3-1.7b at full width and
+             depth, bf16 over f32 masters, B 8, S 128, 30 steps, without
+             SOI and with pp: finite losses whose last 5 average below the
+             first, 28 flash_attention and 28 flash_attention_bwd launches
+             a step, peak memory; then on a fresh state the median step,
+             tokens/s, a profiled window of 3 steps (busy, busy share) and
+             the model-FLOPs share of 989 TFLOP/s. (d) TrainSupervisor at
+             smoke width, f32: a crash at step 7 of 12 with checkpoints
+             every 3 ends within 1e-6 of an uninterrupted run. (e)
+             soi-unet-dns at full width, 20 steps each (STMC baseline, PP
+             S-CC (3,); speech_mixture B 8, T 64, 128 bins; the example's
+             loss and optimizer): finite, falling losses; the trained
+             weights streamed through stmc_conv equal apply_offline within
+             1e-4; SI-SNRi and MAC retain printed.
+18. the kernels JSON line (the decode reads and copy_pages also give their
              phase-15 launches under "spec"; the kernels phase 16 launches
-             their launches there under "obs"), the card line, and last
-             {"ok": true, ...}.
+             their launches there under "obs"; flash_attention and
+             flash_attention_bwd phase 17's under "train"), the card line,
+             and last {"ok": true, ...}.
 
 Phases 4-13, 15 and 16 run the engine and the U-Net session as a user does, so
 on the card every generate step, window and frame after a branch's first is
@@ -344,6 +374,10 @@ PATH_KERNELS = (
     ("lru_scan (edge)", ("15lru_scan_kernel", "Lb1E")),
     ("stmc_conv (B 1)", ("16stmc_conv_kernel", "Li1E")),
     ("stmc_conv (B 32 tile)", ("16stmc_conv_kernel", "Li32E")),
+    # the training path (phase 17)
+    ("flash_attention_bwd delta", ("12delta_kernel", "Li128E")),
+    ("flash_attention_bwd dK/dV", ("11dkdv_kernel", "Li128E")),
+    ("flash_attention_bwd dQ", ("9dq_kernel", "Li128E")),
 )
 
 
@@ -1001,6 +1035,13 @@ KERNEL_META = {
     "stmc_conv": dict(
         source="src/repro_torch/kernels/csrc/stmc_conv.cu",
         replaces="src/repro/kernels/stmc_conv.py:27"),
+    # no TPU kernel: the reference's gradient is XLA's autodiff of this
+    # plain function, which its Pallas flash kernel stands for on a TPU
+    "flash_attention_bwd": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/ref.py:61",
+        replaces_note="no Pallas kernel: the reference differentiates "
+                      "ref.chunked_flash_attention with XLA"),
 }
 # kernels whose path runs float32 (the rest: bfloat16)
 F32_PATHS = ("lru_scan", "stmc_conv")
@@ -2502,7 +2543,8 @@ def unet_parity_phase(dev):
         want = _planned_convs(cfg, 48)
         _held_launches(counts, want, f"unet stream {label}")
         y_cpu = U.stream_infer(cpu_model, x, cfg)
-        y_off, _ = U.apply_offline(dev_model, x_dev, cfg)
+        with torch.no_grad():
+            y_off, _ = U.apply_offline(dev_model, x_dev, cfg)
         check(y_dev.shape == (2, 48, 128), f"{label}: shape {y_dev.shape}")
         check(bool(torch.isfinite(y_dev).all()), f"{label}: non-finite")
         d_cpu = float((y_dev.cpu() - y_cpu).abs().max())
@@ -3681,6 +3723,481 @@ def obs_phase(dev, plain_seqs, graph_kernels) -> dict:
             "stmc_conv": (d, "obs (d) U-Net session with a registry")}
 
 
+# ---------------------------------------------------------------------------
+# 17. train
+# ---------------------------------------------------------------------------
+
+# (label, B, S) at qwen3's H 16 / Hkv 8 / dh 128: the training step's
+# attention, the SOI middle's, the serving prefill bucket's
+BWD_SHAPES = (("train", 8, 128), ("SOI middle", 8, 64),
+              ("prefill bucket", 1, 1024))
+LSE_REL_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-3}
+TRAIN_STEPS = 30
+TRAIN_ARGV = ["--arch", "qwen3-1.7b", "--steps", str(TRAIN_STEPS),
+              "--batch", "8", "--seq", "128", "--log-every", "10"]
+GRAD_TOL = 1e-4          # (b): loss, grads and updates, kernels vs plain
+RESTART_TOL = 1e-6       # (d): resumed vs uninterrupted params
+# AdamW's first step is g / (|g| + eps) an element of the clipped
+# gradient: where the two routes' clipped gradients differ by more than 1%
+# of the smaller, or the smaller is within 100x of eps, the step amplifies
+# the routes' rounding. Elsewhere it moves the step by at most
+# eps / (100 |g|) <= 1e-4 of its size
+WELL_CONDITIONED = 100.0
+
+
+def _bwd_inputs(b, s, dt, dev, gen):
+    from repro_torch.kernels import flash_attention as FA
+
+    def make():
+        q = torch.randn((b, s, 16, 128), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, s, 8, 128), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, s, 8, 128), generator=gen, device=dev).to(dt)
+        do = torch.randn((b, s, 16, 128), generator=gen, device=dev).to(dt)
+        out, lse = FA.forward_launch(q, k, v, causal=True, q_offset=0,
+                                     scale=128 ** -0.5, cap=0.0,
+                                     with_lse=True)
+        return q, k, v, out, do, lse
+    esz = torch.finfo(dt).bits // 8
+    # q, o, dO read and dq written at H heads; k, v read and dk, dv
+    # written at Hkv; lse read once
+    nbytes = b * s * 128 * esz * (4 * 16 + 4 * 8) + b * 16 * s * 4
+    return make, nbytes
+
+
+def _bwd_kernel_checks(dev, gen) -> dict:
+    """(a): the forward's lse and output, and the backward against the plain
+    versions at the three shapes in f32 and bf16, twice for the bits; the
+    times at the training shape in bf16. Returns the JSON record."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    rec = None
+    for label, b, s in BWD_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            make, nbytes = _bwd_inputs(b, s, dt, dev, gen)
+            q, k, v, out, do, lse = make()
+            want_o = ref.flash_attention(q, k, v)
+            want_lse = ref.attention_lse(q, k)
+            err_o = float((out.float() - want_o.float()).abs().max())
+            err_lse = float((lse - want_lse).abs().max()
+                            / want_lse.abs().max())
+            check(err_o < TOL[dt], f"flash fwd {label} {dt}: {err_o}")
+            check(err_lse < LSE_REL_TOL[dt],
+                  f"flash lse {label} {dt}: rel {err_lse}")
+            got = FA.flash_attention_bwd(q, k, v, out, do, lse)
+            again = FA.flash_attention_bwd(q, k, v, out, do, lse)
+            want = ref.flash_attention_bwd(q, k, v, out, do, lse)
+            torch.cuda.synchronize(dev)
+            rels, abs_err = [], 0.0
+            for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+                check(torch.equal(g, a), f"flash_attention_bwd {label} "
+                                         f"{dt} {name}: not bit for bit")
+                d = float((g.float() - w.float()).abs().max())
+                abs_err = max(abs_err, d)
+                rels.append(d / float(w.float().abs().max()))
+                check(rels[-1] <= TOL[dt], f"flash_attention_bwd {label} "
+                      f"{dt} {name}: rel max|Δ| {rels[-1]} > {TOL[dt]}")
+            print(f"  {label} ({b},{s},16/8,128) {str(dt)[6:]}: out max|Δ| "
+                  f"{err_o:.2e}, lse rel {err_lse:.2e}; bwd rel max|Δ| dq "
+                  f"{rels[0]:.2e} dk {rels[1]:.2e} dv {rels[2]:.2e}; run to "
+                  f"run bit for bit")
+            if label == "train" and dt == torch.bfloat16:
+                rec = _bwd_timing(make, nbytes, b, s, dt, abs_err)
+    return rec
+
+
+def _bwd_timing(make, nbytes, b, s, dt, abs_err) -> dict:
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    sets = _copies(make, nbytes)
+    pairs = s * (s + 1) // 2
+    # five products of the recompute scheme: S, dP, dV, dQ, dK
+    flops = 10.0 * b * 16 * 128 * pairs
+    bound, by = _bound(nbytes, flops, dt)
+    ms = _device_ms(FA.flash_attention_bwd, sets, 50, bound_ms=bound)
+    plain_ms = _device_ms(ref.flash_attention_bwd, sets[:4], 5)
+
+    # SDPA's backward through autograd, K/V repeated to H heads, timed
+    # backward only (a yardstick: the port never calls it)
+    def sdpa_graph(q, k, v, out, do, lse):
+        qq, kk, vv = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k.repeat_interleave(2, dim=2),
+                                v.repeat_interleave(2, dim=2)))
+        o = torch.nn.functional.scaled_dot_product_attention(
+            qq, kk, vv, is_causal=True)
+        return o, (qq, kk, vv), do.transpose(1, 2)
+    graphs = [sdpa_graph(*st) for st in sets[:8]]
+
+    def sdpa_bwd(i):
+        o, ins, g = graphs[i]
+        return torch.autograd.grad(o, ins, g, retain_graph=True)
+    lib_ms = _device_ms(sdpa_bwd, [(i,) for i in range(len(graphs))], 20)
+    # the forward with its lse against the serving launch without
+    fwd = {}
+    for with_lse in (False, True):
+        fwd[with_lse] = _device_ms(
+            lambda q, k, v, out, do, lse, w=with_lse: FA.forward_launch(
+                q, k, v, causal=True, q_offset=0, scale=128 ** -0.5,
+                cap=0.0, with_lse=w), sets, 50)
+    print(f"  flash_attention_bwd ({b},{s},16/8,128) bf16: {ms:.4f} ms; "
+          f"plain {plain_ms:.4f}; SDPA backward {lib_ms:.4f}; bound "
+          f"{bound:.5f} ms ({by}; {nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.2f} GFLOP); forward {fwd[False]:.4f} ms without "
+          f"lse, {fwd[True]:.4f} with")
+    return {"name": "flash_attention_bwd", "max_abs_err": abs_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms, "shape": [b, s, 16, 8, 128],
+            "dtype": "bfloat16", "fwd_ms": fwd[False],
+            "fwd_lse_ms": fwd[True]}
+
+
+def _train_batch(pipe, step, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in
+            pipe.batch(step).items()}
+
+
+def _grads(model, cfg, batch):
+    from repro_torch.models import transformer as T
+    named = dict(model.named_parameters())
+    loss, _ = T.loss_fn(model, cfg, batch)
+    return loss.detach(), dict(zip(named, torch.autograd.grad(
+        loss, list(named.values()))))
+
+
+def _grad_parity(dev):
+    """(b): one train step of full-width qwen3 cut to 4 layers (SOI pp
+    over layers 1..2), f32, through the kernels and again with attention
+    on the plain version: loss, every gradient and every update."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import ShardedLMPipeline
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    cfg = dataclasses.replace(configs.get("qwen3-1.7b", soi="pp",
+                                          n_layers=4), dtype="float32")
+    pipe = ShardedLMPipeline(global_batch=8, seq_len=128, vocab=cfg.vocab,
+                             seed=0)
+    batch = _train_batch(pipe, 0, dev)
+    kern = T.init(cfg, generator=torch.Generator(device=dev).manual_seed(3),
+                  device=dev)
+    plain = copy.deepcopy(kern)
+    before = {k: p.detach().clone() for k, p in kern.named_parameters()}
+    step = make_train_step(cfg, peak_lr=1e-3, warmup=20,
+                           total_steps=TRAIN_STEPS)
+    res = {}
+    for route, model in (("kernels", kern), ("plain", plain)):
+        saved = ops.flash_attention
+        if route == "plain":       # attention on the plain version
+            ops.flash_attention = ref.flash_attention
+        try:
+            ops.reset_launch_counts()
+            loss, grads = _grads(model, cfg, batch)
+            _, _, m = step(model, adamw_init(dict(model.named_parameters())),
+                           batch)
+            torch.cuda.synchronize(dev)
+            counts = ops.launch_counts()
+        finally:
+            ops.flash_attention = saved
+        res[route] = (loss, grads, m, counts)
+    (lk, gk, mk, ck), (lp, gp, mp, cp) = res["kernels"], res["plain"]
+    check(ck["flash_attention"] == 8 and ck["flash_attention_bwd"] == 8,
+          f"4-layer parity: {ck} (want 8 and 8: loss_fn, then the step)")
+    check(cp["flash_attention"] == 0 and cp["flash_attention_bwd"] == 0,
+          f"plain route launched kernels: {cp}")
+    rel_loss = abs(float(lk) - float(lp)) / abs(float(lp))
+    rel_step = abs(float(mk["loss"]) - float(mp["loss"])) / abs(
+        float(mp["loss"]))
+    check(rel_loss <= GRAD_TOL and rel_step <= GRAD_TOL,
+          f"4-layer loss {float(lk)} vs plain {float(lp)}")
+    from repro_torch.optim import clip_by_global_norm
+    ck_, _ = clip_by_global_norm(gk, 1.0)     # what the step's AdamW saw
+    cp_, _ = clip_by_global_norm(gp, 1.0)
+    worst_g = worst_u = 0.0
+    cond = total = 0
+    new_k = dict(kern.named_parameters())
+    new_p = dict(plain.named_parameters())
+    for k, p0 in before.items():
+        g_rel = float((gk[k] - gp[k]).abs().max()
+                      / gp[k].abs().max().clamp_min(1e-30))
+        worst_g = max(worst_g, g_rel)
+        check(g_rel <= GRAD_TOL, f"4-layer grad {k}: rel {g_rel}")
+        uk, up = new_k[k].detach() - p0, new_p[k].detach() - p0
+        # the update where AdamW is well conditioned (WELL_CONDITIONED)
+        ok = torch.minimum(ck_[k].abs(), cp_[k].abs()) >= WELL_CONDITIONED * (
+            (ck_[k] - cp_[k]).abs() + 1e-8)
+        cond += int(ok.sum())
+        total += ok.numel()
+        if ok.any():
+            # the updates are read off float32 params: two steps a hair
+            # apart may round to neighbouring floats, one ulp of the
+            # param (<= |p| 2^-23) apart
+            ulp = new_p[k].detach().abs() * 2.0 ** -23
+            u_rel = float((((uk - up).abs() - ulp).clamp_min(0) * ok).max()
+                          / up.abs().max())
+            worst_u = max(worst_u, u_rel)
+            check(u_rel <= GRAD_TOL, f"4-layer update {k}: rel {u_rel}")
+    strict = max(float((new_k[k].detach() - new_p[k].detach()).abs().max()
+                       / (new_p[k].detach() - before[k]).abs().max()
+                       .clamp_min(1e-30)) for k in before)
+    print(f"  (b) qwen3 full width, 4 layers (SOI pp), f32, B 8 S 128: loss "
+          f"{float(lk):.6f} vs plain {float(lp):.6f} (rel {rel_loss:.2e}); "
+          f"worst grad rel max|Δ| {worst_g:.2e}; worst update rel max|Δ| "
+          f"{worst_u:.2e} over the {cond / total:.4f} of elements whose "
+          f"clipped gradients are >= {WELL_CONDITIONED:g} x (their "
+          f"difference + eps) (over every element: {strict:.2e})")
+    del kern, plain, before, res
+    # a bf16 step through the kernels: finite
+    cfg16 = configs.get("qwen3-1.7b", soi="pp", n_layers=4)
+    model = T.init(cfg16, generator=torch.Generator(device=dev)
+                   .manual_seed(4), device=dev)
+    step16 = make_train_step(cfg16, peak_lr=1e-3, warmup=20,
+                             total_steps=TRAIN_STEPS)
+    _, _, m = step16(model, adamw_init(dict(model.named_parameters())),
+                     batch)
+    finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    check(bool(torch.isfinite(m["loss"])) and finite,
+          "4-layer bf16 step: non-finite")
+    print(f"  (b) the same in bf16 over f32 masters: loss "
+          f"{float(m['loss']):.4f}, params finite")
+
+
+def _model_flops(cfg, b, s) -> float:
+    """Matmul FLOPs of one train step (forward + backward = 3 x forward):
+    each layer's weights at its own rate (the SOI middle at ceil(S/2)
+    frames), the tied head, the S-CC convs, and causal attention."""
+    from repro_torch.models import transformer as T
+    a = cfg.segments[0].blocks[0].attn
+    d = cfg.d_model
+    layer_w = (d * a.n_heads * a.head_dim * 2 + 2 * d * a.n_kv * a.head_dim
+               + 3 * d * cfg.segments[0].blocks[0].mlp.d_ff)
+    lens = [s] * cfg.n_layers
+    if cfg.soi is not None:
+        sm = -(-s // cfg.soi.stride)
+        pre, mid, _ = (sum(g.n_layers for g in part)
+                       for part in T.soi_partition(cfg))
+        lens = [s] * pre + [sm] * mid + [s] * (cfg.n_layers - pre - mid)
+    fwd = sum(2 * layer_w * b * t + 4 * b * a.n_heads * a.head_dim
+              * t * (t + 1) / 2 for t in lens)
+    fwd += 2 * cfg.vocab * d * b * s
+    if cfg.soi is not None:
+        fwd += 2 * cfg.soi.stride * d * d * b * -(-s // cfg.soi.stride)
+        fwd += 2 * 2 * d * d * b * s
+    return 3.0 * fwd
+
+
+def _full_train(dev, card):
+    """(c): launch.train.main on full-width, full-depth qwen3-1.7b (bf16
+    over f32 masters), without SOI and with pp; then the step timed and
+    profiled on a fresh state. Returns {run: launch counts}."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import ShardedLMPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    out = {}
+    for soi in (None, "pp"):
+        label = "dense" if soi is None else "SOI pp"
+        argv = TRAIN_ARGV + (["--soi", soi] if soi else [])
+        _free(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = train.main(argv)
+        torch.cuda.synchronize(dev)
+        took = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+              f"{label}: non-finite losses {losses}")
+        last5 = sum(losses[-5:]) / 5
+        check(last5 < losses[0], f"{label}: loss {losses[0]} -> mean of the "
+                                 f"last 5 {last5}: not falling")
+        for name in ("flash_attention", "flash_attention_bwd"):
+            check(counts[name] == 28 * TRAIN_STEPS,
+                  f"{label}: {name} {counts[name]} launches, want "
+                  f"{28 * TRAIN_STEPS}")
+        out[label] = counts
+        print(f"  (c) qwen3-1.7b {label}, 28 layers, B 8 S 128, "
+              f"{TRAIN_STEPS} steps: loss {losses[0]:.4f} -> last 5 "
+              f"{last5:.4f}; {took:.1f} s in main; flash_attention "
+              f"{counts['flash_attention']} / flash_attention_bwd "
+              f"{counts['flash_attention_bwd']} launches (28 a step); peak "
+              f"{peak / 2 ** 30:.2f} GiB allocated  [{card}]")
+        # the step alone, on a fresh state: median of 8 after 2, then a
+        # profiled window of 3
+        _free(dev)
+        cfg = configs.get("qwen3-1.7b", soi=soi)
+        model = T.init(cfg, generator=torch.Generator(device=dev)
+                       .manual_seed(0), device=dev)
+        opt = adamw_init(dict(model.named_parameters()))
+        step = make_train_step(cfg, peak_lr=1e-3, warmup=20,
+                               total_steps=TRAIN_STEPS)
+        pipe = ShardedLMPipeline(global_batch=8, seq_len=128,
+                                 vocab=cfg.vocab, seed=0)
+        batches = [_train_batch(pipe, i, dev) for i in range(13)]
+        times = []
+        for i in range(10):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            step(model, opt, batches[i])
+            torch.cuda.synchronize(dev)
+            times.append(time.perf_counter() - t0)
+        med = sorted(times[2:])[3] * 1e3
+        ev = _device_events(lambda: [step(model, opt, batches[10 + i])
+                                     for i in range(3)])
+        window = max(e for _s, e, _n in ev) - min(s_ for s_, _e, _n in ev)
+        flops = _model_flops(cfg, 8, 128)
+        print(f"  (c) {label} step: median {med:.2f} ms (host clock after a "
+              f"synchronize, 8 steps), {8 * 128 / med * 1e3:.0f} tokens/s; "
+              f"model FLOPs {flops / 1e12:.2f} TFLOP a step, "
+              f"{flops / (med * 1e-3) / 1e12:.1f} TFLOP/s = "
+              f"{flops / (med * 1e-3) / PEAK_FLOPS[torch.bfloat16]:.3f} of "
+              f"989 bf16 dense; {len(ev) / 3:.0f} device kernels a step "
+              f"[{card}]")
+        busy = _window_profile(ev, 3, f"(c) {label}, 3 profiled steps:",
+                               "step")
+        print(f"  (c) {label} busy share {busy / window:.3f}")
+        del model, opt, step
+    return out
+
+
+def _restart_parity(dev):
+    """(d): TrainSupervisor at smoke width, f32: a crash at step 7 of 12,
+    checkpoints every 3, against an uninterrupted run."""
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.data.pipeline import ShardedLMPipeline
+    from repro_torch.distributed.fault_tolerance import (SupervisorConfig,
+                                                         TrainSupervisor)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    cfg = dataclasses.replace(configs.get_smoke("qwen3-1.7b", soi="pp"),
+                              dtype="float32")
+    pipe = ShardedLMPipeline(global_batch=8, seq_len=64, vocab=cfg.vocab,
+                             seed=0)
+    step = make_train_step(cfg, peak_lr=1e-3, warmup=3, total_steps=12)
+
+    def make_state():
+        p = T.init(cfg, generator=torch.Generator(device=dev).manual_seed(5),
+                   device=dev)
+        return {"params": p, "opt": adamw_init(dict(p.named_parameters()))}
+
+    def run(crash_at, directory):
+        armed = {"on": crash_at is not None}
+
+        def step_fn(state, i):
+            if armed["on"] and i == crash_at:
+                armed["on"] = False
+                raise RuntimeError(f"simulated failure at step {i}")
+            p, o, _ = step(state["params"], state["opt"],
+                           _train_batch(pipe, i, dev))
+            return {"params": p, "opt": o}
+        sup = TrainSupervisor(SupervisorConfig(ckpt_dir=directory,
+                                               ckpt_every=3),
+                              make_state, step_fn, device=dev)
+        return sup.run(12), sup
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        whole, _ = run(None, str(Path(tmp) / "whole"))
+        resumed, sup = run(7, str(Path(tmp) / "resumed"))
+    check(sup.restarts == 1 and ("restored", 5) in sup.events,
+          f"restart: {sup.events}")
+    check(int(resumed["opt"]["count"]) == int(whole["opt"]["count"]) == 12,
+          "restart: counts")
+    worst = 0.0
+    a = resumed["params"].state_dict()
+    for k, p in whole["params"].state_dict().items():
+        d = float((a[k] - p).abs().max() / p.abs().max().clamp_min(1e-30))
+        worst = max(worst, d)
+        check(d <= RESTART_TOL, f"restart: {k} rel max|Δ| {d}")
+    print(f"  (d) supervisor, smoke qwen3 (pp) f32: crash at step 7 of 12, "
+          f"restored step 5, final params rel max|Δ| {worst:.2e} against "
+          f"an uninterrupted run (<= {RESTART_TOL})")
+
+
+def _unet_train(dev, card):
+    """(e): soi-unet-dns at full width trained for 20 steps (the example's
+    loss and optimizer), baseline and PP S-CC (3,); the trained weights
+    streamed through stmc_conv against the offline graph."""
+    import numpy as np
+    from repro_torch.configs import soi_unet_dns
+    from repro_torch.core.soi import SOIConvCfg
+    from repro_torch.data.synthetic import si_snr, speech_mixture
+    from repro_torch.engine.session import unet_stream_session
+    from repro_torch.kernels import ops
+    from repro_torch.models import unet as U
+    from repro_torch.optim import adamw_init, adamw_update, \
+        clip_by_global_norm
+    for label, soi in (("STMC baseline", None),
+                       ("PP S-CC (3,)", SOIConvCfg(pairs=(3,)))):
+        cfg = soi_unet_dns.config(soi=soi)
+        model = U.init(cfg, generator=torch.Generator(device=dev)
+                       .manual_seed(11), device=dev)
+        named = dict(model.named_parameters())
+        opt = adamw_init(named)
+        rng = np.random.default_rng(0)
+        losses, times = [], []
+        for _ in range(20):
+            noisy, clean = (torch.from_numpy(a).to(dev) for a in
+                            speech_mixture(rng, 8, 64, cfg.in_channels))
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            y, _ = U.apply_offline(model, noisy, cfg)
+            loss = torch.mean(torch.square(y - clean))
+            grads = dict(zip(named, torch.autograd.grad(
+                loss, list(named.values()))))
+            grads, _ = clip_by_global_norm(grads, 1.0)
+            adamw_update(grads, opt, named, lr=2e-3, weight_decay=0.0)
+            losses.append(float(loss.detach()))
+            times.append(time.perf_counter() - t0)
+        check(all(map(math.isfinite, losses))
+              and sum(losses[-5:]) / 5 < losses[0],
+              f"U-Net {label}: losses {losses}")
+        x = torch.from_numpy(speech_mixture(np.random.default_rng(1), 2, 32,
+                                            cfg.in_channels)[0]).to(dev)
+        ops.reset_launch_counts()
+        y_on = unet_stream_session(model, cfg, batch=2, device=dev).run(x)
+        torch.cuda.synchronize(dev)
+        launched = ops.launch_counts()["stmc_conv"]
+        with torch.no_grad():
+            y_off, _ = U.apply_offline(model, x, cfg)
+            noisy, clean = speech_mixture(np.random.default_rng(777), 16, 64,
+                                          cfg.in_channels)
+            y_ev, _ = U.apply_offline(model, torch.from_numpy(noisy).to(dev),
+                                      cfg)
+        err = float((y_on - y_off).abs().max())
+        check(launched == _planned_convs(cfg, 32),
+              f"U-Net {label}: {launched} stmc_conv launches")
+        check(err < UNET_TOL, f"U-Net {label}: stream vs offline {err}")
+        snri = float(np.mean(si_snr(y_ev.cpu().numpy(), clean)
+                             - si_snr(noisy, clean)))
+        med = sorted(times[2:])[len(times[2:]) // 2] * 1e3
+        print(f"  (e) soi-unet-dns {label}, B 8 T 64, 20 steps: loss "
+              f"{losses[0]:.4f} -> last 5 {sum(losses[-5:]) / 5:.4f}; step "
+              f"median {med:.2f} ms; stream vs offline max|Δ| {err:.2e} "
+              f"({launched} stmc_conv launches); SI-SNRi {snri:.2f} dB, MAC "
+              f"retain {U.complexity_report(cfg).retain:.3f}  [{card}]")
+
+
+def train_phase(dev, card) -> tuple:
+    """Phase 17. Returns (the flash_attention_bwd record, {run: launch
+    counts of (c)})."""
+    phase("17 train")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rec = _bwd_kernel_checks(dev, gen)
+    _grad_parity(dev)
+    counts = _full_train(dev, card)
+    _free(dev)
+    _restart_parity(dev)
+    _unet_train(dev, card)
+    _free(dev)
+    return rec, counts
+
+
 def main():
     card = device_phase()
     dev = torch.device("cuda", 0)
@@ -3700,6 +4217,7 @@ def main():
     graph_kernels = graphs_phase(dev)
     spec_counts = spec_phase(dev, PLAIN_SEQS)
     obs_counts = obs_phase(dev, PLAIN_SEQS, graph_kernels)
+    main_recs["flash_attention_bwd"], train_counts = train_phase(dev, card)
     # launches: each kernel's count on its own path's run — the dense
     # serve (phase 5), the paged prefix-cache serve (phase 6), the
     # deepseek-v2 serve (phase 8), the MLA prefix-cache serve (phase 9),
@@ -3716,7 +4234,9 @@ def main():
                 "paged_mla_decode_attention": ("deepseek serve",
                                                ds_counts),
                 "lru_scan": ("rg serve (paged)", rg_counts["paged"]),
-                "stmc_conv": ("unet stream", unet_counts)}
+                "stmc_conv": ("unet stream", unet_counts),
+                "flash_attention_bwd": ("train (qwen3-1.7b dense, 30 "
+                                        "steps)", train_counts["dense"])}
     # the decode kernels' second path: recurrentgemma's MQA at G 16 / dh 256
     rg_second = {"decode_attention": rg_counts["dense"],
                  "paged_decode_attention": rg_counts["paged"]}
@@ -3768,6 +4288,16 @@ def main():
             cnt_obs, on = obs_counts[name]
             summary[-1]["obs"] = {"launches": cnt_obs[name],
                                   "launches_on": on}
+        if name in ("flash_attention", "flash_attention_bwd"):
+            # phase 17's training runs (the backward's main path is the
+            # dense one above)
+            summary[-1]["train"] = {
+                run: {"launches": train_counts[run][name],
+                      "launches_on": f"train (qwen3-1.7b {run}, 30 steps)"}
+                for run in train_counts}
+        if name == "flash_attention_bwd":
+            summary[-1]["fwd_ms"] = rec["fwd_ms"]
+            summary[-1]["fwd_lse_ms"] = rec["fwd_lse_ms"]
         if name in CHUNK_KERNELS:
             # the same wrapper on the middle's chunk of compressed frames
             mid = main_recs[name + " (middle)"]
@@ -3788,7 +4318,7 @@ def main():
             summary[-1]["rg_middle"].update(
                 launches=rg_second[name][name],
                 launches_on="rg serve (dense), outer and middle layers")
-    print(f"== 17 done in {time.perf_counter() - T_START:.1f} s")
+    print(f"== 18 done in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -36,9 +36,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
-    "repro_flash_attention": [_P, _P, _P, _P,
+    "repro_flash_attention": [_P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                               _I, _P],
+    "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                  _P],
     "repro_chunk_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
                               _I, _P],
@@ -155,6 +158,23 @@ def library() -> ctypes.CDLL:
 def build_info() -> BuildInfo:
     """How the loaded library came to be: path, build seconds, ptxas log."""
     return _load()[1]
+
+
+def needs_grad(*tensors) -> bool:
+    """Grad mode is on and some input (None aside) requires grad: a host
+    check of flags, no sync, nothing a captured graph sees."""
+    import torch
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd would need a gradient through ``name``'s CUDA
+    kernel, which has no backward (only ``flash_attention`` has one)."""
+    if needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward; call it under "
+            f"torch.no_grad() (a backward is queued in ROADMAP.md)")
 
 
 def check(rc: int, name: str) -> None:

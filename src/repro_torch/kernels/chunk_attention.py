@@ -172,6 +172,7 @@ def chunk_attention(q, k, v, q_positions, k_positions, *, window=None,
                      scale=scale, logit_softcap=logit_softcap)
     if q.device.type != "cuda":
         raise ValueError(f"chunk_attention: unsupported device {q.device}")
+    _build.refuse_grad("chunk_attention", q, k, v)
     _check_cuda(q, k, v, q_positions, k_positions)
     if window is not None and int(window) <= 0:
         raise ValueError(f"window must be positive, got {window}")
@@ -306,6 +307,7 @@ def mla_chunk_attention(q_lat, q_rope, latent, rope, q_positions,
     if q_lat.device.type != "cuda":
         raise ValueError(f"mla_chunk_attention: unsupported device "
                          f"{q_lat.device}")
+    _build.refuse_grad("mla_chunk_attention", q_lat, q_rope, latent, rope)
     _check_mla_cuda(q_lat, q_rope, latent, rope, q_positions, k_positions,
                     out_dtype)
     out = _mla_launch(q_lat, q_rope, latent, rope, q_positions, k_positions,

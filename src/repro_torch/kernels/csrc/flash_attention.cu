@@ -69,6 +69,11 @@
 //    row group read 16 different banks. Shared memory is ~113 KB at
 //    (128,128) and ~145 KB at (192,128).
 //
+// In both, an optional float32 lse (B, H, Sq) receives each row's
+// log-sum-exp of the scaled logits, which flash_attention_bwd.cu reads to
+// recompute the probabilities; serving passes null and nothing more is
+// written.
+//
 // In both, K/V are read at Hkv heads (q head h reads KV head h / G), so the
 // GQA repeat of the reference's caller is not needed. The head dims are
 // template parameters, instantiated for (DQK, DV) in (16,16), (32,32),
@@ -97,9 +102,10 @@ constexpr size_t smem_bytes() {
 template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Sq,
-                       int Sk, int H, int Hkv, int q_offset, int causal,
-                       float scale, float softcap) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int Sq, int Sk, int H,
+                       int Hkv, int q_offset, int causal, float scale,
+                       float softcap) {
   constexpr int LD = DQK + 1;     // padded row of the q and k tiles
   constexpr int LP = BK + 1;      // padded row of the probability tile
   constexpr int DPT = DV / 16;    // output dims per thread
@@ -240,6 +246,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* ob = out + ((size_t)b * Sq + r) * o_row + (size_t)h * DV;
 #pragma unroll
     for (int j = 0; j < DPT; ++j) ob[tc + 16 * j] = from_f32<T>(acc[i][j] * inv);
+    // the row's log-sum-exp of the scaled logits, for the backward
+    if (lse != nullptr && tc == 0)
+      lse[((size_t)b * H + h) * Sq + r] = m[i] + logf(l[i]);
   }
 }
 
@@ -287,8 +296,9 @@ template <int DQK, int DV, int MT, int BKT>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ out,
-                       int Sq, int Sk, int H, int Hkv, int q_offset,
-                       int causal, float scale, float softcap) {
+                       float* __restrict__ lse, int Sq, int Sk, int H,
+                       int Hkv, int q_offset, int causal, float scale,
+                       float softcap) {
   constexpr int LQ = DQK + kPad, LK = DQK + kPad, LV = DV + kPad;
   constexpr int KS = DQK / 16;    // k-steps of Q K^T
   constexpr int NS = BKT / 8;     // score n-tiles (8 keys each)
@@ -509,6 +519,12 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       l[i][r] += __shfl_xor_sync(0xffffffffu, l[i][r], 1);
       l[i][r] += __shfl_xor_sync(0xffffffffu, l[i][r], 2);
       inv[r] = 1.f / fmaxf(l[i][r], 1e-30f);
+      // the row's log-sum-exp of the scaled logits (m is in log2 units),
+      // for the backward
+      const int row = q0 + wr + 16 * i + g + 8 * r;
+      if (lse != nullptr && t == 0 && row < Sq)
+        lse[((size_t)b * H + h) * Sq + row] =
+            (m[i][r] + log2f(l[i][r])) * kLn2;
     }
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
@@ -535,12 +551,12 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int DQK, int DV, int MT, int BKT>
 cudaError_t launch_tiles(const void* q, const void* k, const void* v,
-                         void* out, int B, int Sq, int Sk, int H, int Hkv,
-                         int q_offset, int causal, float scale, float softcap,
-                         cudaStream_t stream) {
+                         void* out, float* lse, int B, int Sq, int Sk, int H,
+                         int Hkv, int q_offset, int causal, float scale,
+                         float softcap, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<DQK, DV, MT, BKT>();
-  void (*kernel)(const bf16*, const bf16*, const bf16*, bf16*, int, int, int,
-                 int, int, int, float, float) =
+  void (*kernel)(const bf16*, const bf16*, const bf16*, bf16*, float*, int,
+                 int, int, int, int, int, float, float) =
       flash_attention_kernel<DQK, DV, MT, BKT>;
   // set on every launch: the attributes belong to the current device
   cudaError_t e = cudaFuncSetAttribute(
@@ -553,15 +569,15 @@ cudaError_t launch_tiles(const void* q, const void* k, const void* v,
   dim3 grid(B * H, (Sq + 64 * MT - 1) / (64 * MT));
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Sk, H, Hkv,
-      q_offset, causal, scale, softcap);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, Sq, Sk, H,
+      Hkv, q_offset, causal, scale, softcap);
   return cudaGetLastError();
 }
 
 template <int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Sk, int H, int Hkv, int q_offset,
-                   int causal, float scale, float softcap,
+                   float* lse, int B, int Sq, int Sk, int H, int Hkv,
+                   int q_offset, int causal, float scale, float softcap,
                    cudaStream_t stream) {
   // cp.async and the output stores move 16 bytes at a time
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -572,11 +588,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   // row costs; Q is then read from shared memory at every k-step and the
   // key tile shrinks to 32 so that registers and two blocks an SM fit
   if constexpr (DQK > 128)
-    return launch_tiles<DQK, DV, 2, 32>(q, k, v, out, B, Sq, Sk, H, Hkv,
+    return launch_tiles<DQK, DV, 2, 32>(q, k, v, out, lse, B, Sq, Sk, H, Hkv,
                                         q_offset, causal, scale, softcap,
                                         stream);
   else
-    return launch_tiles<DQK, DV, 1, 64>(q, k, v, out, B, Sq, Sk, H, Hkv,
+    return launch_tiles<DQK, DV, 1, 64>(q, k, v, out, lse, B, Sq, Sk, H, Hkv,
                                         q_offset, causal, scale, softcap,
                                         stream);
 }
@@ -585,11 +601,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 template <typename T, int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Sk, int H, int Hkv, int q_offset,
-                   int causal, float scale, float softcap,
+                   float* lse, int B, int Sq, int Sk, int H, int Hkv,
+                   int q_offset, int causal, float scale, float softcap,
                    cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return tensor_cores::launch<DQK, DV>(q, k, v, out, B, Sq, Sk, H, Hkv,
+    return tensor_cores::launch<DQK, DV>(q, k, v, out, lse, B, Sq, Sk, H, Hkv,
                                          q_offset, causal, scale, softcap,
                                          stream);
   } else {
@@ -602,7 +618,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     dim3 grid((Sq + BQ - 1) / BQ, B * H);
     flash_attention_kernel<T, DQK, DV><<<grid, kThreads, bytes, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, Hkv,
+        static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Sk, H, Hkv,
         q_offset, causal, scale, softcap);
     return cudaGetLastError();
   }
@@ -610,13 +626,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 template <typename T>
 cudaError_t by_dims(int DQK, int DV, const void* q, const void* k,
-                    const void* v, void* out, int B, int Sq, int Sk, int H,
-                    int Hkv, int q_offset, int causal, float scale,
-                    float softcap, cudaStream_t st) {
+                    const void* v, void* out, float* lse, int B, int Sq,
+                    int Sk, int H, int Hkv, int q_offset, int causal,
+                    float scale, float softcap, cudaStream_t st) {
 #define REPRO_FLASH_CASE(QK, V)                                          \
   if (DQK == QK && DV == V)                                              \
-    return launch<T, QK, V>(q, k, v, out, B, Sq, Sk, H, Hkv, q_offset,   \
-                            causal, scale, softcap, st);
+    return launch<T, QK, V>(q, k, v, out, lse, B, Sq, Sk, H, Hkv,        \
+                            q_offset, causal, scale, softcap, st);
   REPRO_FLASH_CASE(16, 16)
   REPRO_FLASH_CASE(32, 32)
   REPRO_FLASH_CASE(64, 64)
@@ -629,21 +645,24 @@ cudaError_t by_dims(int DQK, int DV, const void* q, const void* k,
 }  // namespace
 
 // q (B, Sq, H, DQK); k (B, Sk, Hkv, DQK); v (B, Sk, Hkv, DV); out
-// (B, Sq, H, DV); contiguous. softcap <= 0: none. Returns the launch's
+// (B, Sq, H, DV); contiguous. lse: float32 (B, H, Sq), the rows'
+// log-sum-exp of the scaled logits for the backward, or null (serving:
+// nothing more is written). softcap <= 0: none. Returns the launch's
 // cudaError_t (0 on success).
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out, int B, int Sq,
-                                     int Sk, int H, int Hkv, int DQK, int DV,
-                                     int q_offset, int causal, float scale,
-                                     float softcap, int dtype, void* stream) {
+                                     const void* v, void* out, float* lse,
+                                     int B, int Sq, int Sk, int H, int Hkv,
+                                     int DQK, int DV, int q_offset,
+                                     int causal, float scale, float softcap,
+                                     int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || H % Hkv)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16)
-    return by_dims<__nv_bfloat16>(DQK, DV, q, k, v, out, B, Sq, Sk, H, Hkv,
-                                  q_offset, causal, scale, softcap, st);
+    return by_dims<__nv_bfloat16>(DQK, DV, q, k, v, out, lse, B, Sq, Sk, H,
+                                  Hkv, q_offset, causal, scale, softcap, st);
   if (dtype == kFloat32)
-    return by_dims<float>(DQK, DV, q, k, v, out, B, Sq, Sk, H, Hkv, q_offset,
-                          causal, scale, softcap, st);
+    return by_dims<float>(DQK, DV, q, k, v, out, lse, B, Sq, Sk, H, Hkv,
+                          q_offset, causal, scale, softcap, st);
   return cudaErrorInvalidValue;
 }

@@ -206,6 +206,7 @@ def decode_attention(q, k_cache, v_cache, cache_positions, q_position, *,
     if logit_softcap is not None:
         raise NotImplementedError("decode_attention kernel: logit_softcap is "
                                   "not ported yet; see ROADMAP.md")
+    _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     _check_cuda(q, k_cache, v_cache, cache_positions, q_position)
     b, h, dh = q.shape
     _, s, hkv, _ = k_cache.shape
@@ -286,6 +287,7 @@ def paged_decode_attention(q, k_pool, v_pool, pos_pool, page_map, q_position,
         raise NotImplementedError("paged_decode_attention kernel: "
                                   "logit_softcap is not ported yet; see "
                                   "ROADMAP.md")
+    _build.refuse_grad("paged_decode_attention", q, k_pool, v_pool)
     _check_paged_cuda(q, k_pool, v_pool, pos_pool, page_map, q_position)
     b, h, dh = q.shape
     _, p_sz, hkv, _ = k_pool.shape
@@ -434,6 +436,8 @@ def paged_mla_decode_attention(q_lat, q_rope, lat_pool, rope_pool, pos_pool,
     if q_lat.device.type != "cuda":
         raise ValueError(f"paged_mla_decode_attention: unsupported device "
                          f"{q_lat.device}")
+    _build.refuse_grad("paged_mla_decode_attention", q_lat, q_rope, lat_pool,
+                       rope_pool)
     _check_paged_mla_cuda(q_lat, q_rope, lat_pool, rope_pool, pos_pool,
                           page_map, q_position, out_dtype)
     b, h, lat_d = q_lat.shape

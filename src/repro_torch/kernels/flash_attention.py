@@ -34,9 +34,19 @@ MLA prefill (q/k 192 = qk_nope 128 + qk_rope 64, v 128).
   SXM at 700 W, 1.8× SDPA at both (``PERF.md``). ``wgmma`` with TMA and
   warp specialisation is the next step.
 
+The gradient: ``FlashAttentionFn`` (a ``torch.autograd.Function``) runs
+the forward kernel with a float32 ``lse`` (B, H, Sq) output — the rows'
+log-sum-exp, null and unwritten when serving — and
+``csrc/flash_attention_bwd.cu`` backward (``flash_attention_bwd``: the
+FlashAttention-2 recompute, float32 on the CUDA cores, no atomics, so it
+repeats bit for bit; its plain version is ``ref.flash_attention_bwd``).
+No TPU kernel computes it: the reference differentiates
+``ref.chunked_flash_attention`` with XLA.
+
 The plain version is ``ref.flash_attention`` (re-exported here as
 ``plain``); a CPU tensor takes it, a CUDA tensor launches the kernel or
-raises. ``flash_attention.launches`` counts kernel launches.
+raises. ``flash_attention.launches`` and ``flash_attention_bwd.launches``
+count kernel launches.
 """
 
 from __future__ import annotations
@@ -51,6 +61,8 @@ plain = ref.flash_attention
 _DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 # (d_qk, d_v) pairs the kernel is instantiated for
 HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128))
+# head dims of the backward kernel (d_qk == d_v)
+BWD_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def _check_cuda(q, k, v):
@@ -78,12 +90,38 @@ def _check_cuda(q, k, v):
             raise ValueError(f"{name} must be contiguous")
 
 
+def forward_launch(q, k, v, *, causal, q_offset, scale, cap, with_lse):
+    """One launch of the forward kernel on checked CUDA tensors (``cap``
+    0: no softcap); returns (out, lse float32 (B, H, Sq) or None)."""
+    b, sq, h, dh = q.shape
+    _, sk, hkv, _ = k.shape
+    dv = v.shape[-1]
+    out = q.new_empty((b, sq, h, dv))
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _build.library().repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        b, sq, sk, h, hkv, dh, dv, int(q_offset), int(bool(causal)), scale,
+        cap, _build.DTYPE_CODES[_DTYPES[q.dtype]], stream)
+    _build.check(rc, "flash_attention")
+    flash_attention.launches += 1
+    return out, lse
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, prefix_len=0,
                     q_offset=0, scale=None, logit_softcap=None):
     """q: (B, Sq, H, dqk); k: (B, Sk, Hkv, dqk); v: (B, Sk, Hkv, dv) with H
     a multiple of Hkv. ``q_offset`` is the absolute position of ``q[:, 0]``;
     ``scale`` defaults to ``dqk ** -0.5``. Returns (B, Sq, H, dv) in q's
-    dtype."""
+    dtype.
+
+    On the card, with grad mode on and an input that requires grad, the
+    launch goes through :class:`FlashAttentionFn`: the forward also writes
+    the rows' log-sum-exp and the backward is :func:`flash_attention_bwd`.
+    Otherwise it is the serving launch, with no ``lse``. On the CPU the
+    plain version is differentiated by autograd."""
     if q.device.type == "cpu":
         return plain(q, k, v, causal=causal, window=window,
                      prefix_len=prefix_len, q_offset=q_offset, scale=scale,
@@ -95,20 +133,97 @@ def flash_attention(q, k, v, *, causal=True, window=None, prefix_len=0,
                                   "prefix_len are not ported yet; see "
                                   "ROADMAP.md")
     _check_cuda(q, k, v)
-    b, sq, h, dh = q.shape
-    _, sk, hkv, _ = k.shape
-    dv = v.shape[-1]
-    scale = dh ** -0.5 if scale is None else float(scale)
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    if _build.needs_grad(q, k, v):
+        if logit_softcap:
+            raise NotImplementedError("flash_attention backward: "
+                                      "logit_softcap is not ported yet; see "
+                                      "ROADMAP.md")
+        _check_bwd_dims(q, v)
+        return FlashAttentionFn.apply(q, k, v, bool(causal), int(q_offset),
+                                      scale)
     cap = 0.0 if not logit_softcap else float(logit_softcap)
-    out = q.new_empty((b, sq, h, dv))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _build.library().repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, sq, sk, h, hkv, dh, dv, int(q_offset), int(bool(causal)), scale,
-        cap, _build.DTYPE_CODES[_DTYPES[q.dtype]], stream)
-    _build.check(rc, "flash_attention")
-    flash_attention.launches += 1
-    return out
+    return forward_launch(q, k, v, causal=causal, q_offset=q_offset,
+                          scale=scale, cap=cap, with_lse=False)[0]
 
 
 flash_attention.launches = 0
+
+
+def _check_bwd_dims(q, v):
+    dh, dv = q.shape[-1], v.shape[-1]
+    if dh != dv or dh not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention backward kernel takes d_qk == d_v in "
+            f"{BWD_HEAD_DIMS}, got {(dh, dv)} (MLA training is queued in "
+            f"ROADMAP.md)")
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The CUDA flash attention with its CUDA gradient: the forward kernel
+    (writing ``lse``) and :func:`flash_attention_bwd`. Causal or not,
+    ``q_offset``, ``scale`` and GQA; no window, prefix or softcap."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, scale):
+        out, lse = forward_launch(q, k, v, causal=causal, q_offset=q_offset,
+                                  scale=scale, cap=0.0, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, q_offset, scale)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, q_offset, scale = ctx.args
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
+                                         lse, causal=causal,
+                                         q_offset=q_offset, scale=scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, q_offset=0,
+                        scale=None):
+    """The gradient (dq, dk, dv) of :func:`flash_attention`, each in its
+    input's dtype: q, o, do (B, Sq, H, d), k, v (B, Sk, Hkv, d), lse float32
+    (B, H, Sq) from the forward. A CPU tensor takes the plain
+    ``ref.flash_attention_bwd``; a CUDA tensor launches
+    ``csrc/flash_attention_bwd.cu`` (the delta pre-pass, dK/dV, dQ: three
+    kernels, one count in ``flash_attention_bwd.launches``) or raises."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                       q_offset=q_offset, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    _check_cuda(q, k, v)
+    _check_bwd_dims(q, v)
+    b, sq, h, dh = q.shape
+    _, sk, hkv, _ = k.shape
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype}: want "
+                             f"contiguous {tuple(q.shape)} {q.dtype}")
+    if (lse.shape != (b, h, sq) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: want "
+                         f"contiguous float32 {(b, h, sq)}")
+    scale = dh ** -0.5 if scale is None else float(scale)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
+                  torch.empty_like(v))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _build.library().repro_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, hkv, dh, int(q_offset),
+        int(bool(causal)), scale, _build.DTYPE_CODES[_DTYPES[q.dtype]],
+        stream)
+    _build.check(rc, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -129,6 +129,7 @@ def lru_scan(a, x, h0=None):
         return plain(a, x, h0)
     if x.device.type != "cuda":
         raise ValueError(f"lru_scan: unsupported device {x.device}")
+    _build.refuse_grad("lru_scan", a, x, h0)
     _check_cuda(a, x, h0)
     h = _launch(a, x, h0, launch_plan(a, x))
     lru_scan.launches += 1

@@ -9,6 +9,10 @@ result on the card call ``kernels.ref`` directly (``chip_smoke.py`` does).
 The model code reaches the kernels only through this module: the LM
 path's attention, page copy and RG-LRU scan, and the streaming U-Net's
 STMC conv contraction (``stmc_conv``, every computed conv of every frame).
+Training reaches ``flash_attention``'s backward, ``flash_attention_bwd``,
+through autograd; every other kernel's CUDA route raises
+``NotImplementedError`` when grad mode is on and an input requires grad (a
+host check of flags).
 
 ``gather_pages`` (prefix-cache hydration) has no TPU kernel in the
 reference either: it is a plain PyTorch gather on every device. Nor has
@@ -30,6 +34,7 @@ from repro_torch.kernels.chunk_attention import (chunk_attention,
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention,
                                                   paged_mla_decode_attention)
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
 from repro_torch.kernels.lru_scan import lru_scan
@@ -37,9 +42,12 @@ from repro_torch.kernels.page_copy import copy_pages, copy_pages_leaves
 from repro_torch.kernels.ref import gather_pages, mla_decode_attention
 from repro_torch.kernels.stmc_conv import stmc_conv
 
+flash_attention_bwd = _flash.flash_attention_bwd
+
 KERNELS = (decode_attention, _flash.flash_attention, chunk_attention,
            paged_decode_attention, copy_pages, mla_chunk_attention,
-           paged_mla_decode_attention, lru_scan, stmc_conv)
+           paged_mla_decode_attention, lru_scan, stmc_conv,
+           flash_attention_bwd)
 _BY_NAME = {k.__name__: k for k in KERNELS}
 
 
@@ -47,13 +55,19 @@ def flash_attention(q, k, v, *, causal=True, window=None, prefix_len=0,
                     q_offset=0, scale=None, logit_softcap=None):
     """Whole-prompt prefill attention: the ``flash_attention`` kernel, or —
     with a ``window`` — the plain ``ref.windowed_flash_attention`` on every
-    device (the reference has no windowed kernel either)."""
+    device (the reference has no windowed kernel either). With grad mode
+    on and an input that requires grad, the card runs the kernel with its
+    CUDA backward (``flash_attention_bwd``); the windowed route then
+    raises, as every other kernel's CUDA route does (``_build.refuse_grad``):
+    only flash attention has a backward kernel."""
     if window is None:
         return _flash.flash_attention(
             q, k, v, causal=causal, prefix_len=prefix_len, q_offset=q_offset,
             scale=scale, logit_softcap=logit_softcap)
     if not causal or prefix_len:
         raise ValueError("windowed attention is causal, without a prefix")
+    if q.device.type == "cuda":
+        _build.refuse_grad("windowed attention", q, k, v)
     return ref.windowed_flash_attention(q, k, v, window=window,
                                         q_offset=q_offset, scale=scale,
                                         logit_softcap=logit_softcap)
@@ -81,6 +95,7 @@ def add_launch_counts(delta: dict) -> None:
 
 __all__ = ["add_launch_counts", "chunk_attention", "copy_pages",
            "copy_pages_leaves", "decode_attention", "flash_attention",
+           "flash_attention_bwd",
            "gather_pages",
            "launch_counts", "lru_scan", "mla_chunk_attention",
            "mla_decode_attention", "paged_decode_attention",

@@ -105,6 +105,7 @@ def copy_pages_leaves(pools, srcs, dsts):
         return pools
     if dev.type != "cuda":
         raise ValueError(f"copy_pages: unsupported device {dev}")
+    _build.refuse_grad("copy_pages", *pools)
     for i, pool in enumerate(pools):
         if pool.device != dev or not pool.is_contiguous() or (
                 pool.dim() < 1 or pool.shape[0] < 1):

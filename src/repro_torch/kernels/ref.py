@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the kernels this port runs — attention
-(dense, chunked, paged, windowed; GQA and absorbed MLA), the page copy,
+(dense, chunked, paged, windowed; GQA and absorbed MLA) and the flash
+attention gradient, the page copy,
 the RG-LRU scan and the STMC conv contraction — and the page gather (the
 counterparts of ``repro.kernels.ref`` and of the reference path of
 ``repro.kernels.ops``).
@@ -87,6 +88,64 @@ def flash_attention(q, k, v, *, causal=True, window=None, prefix_len=0,
         o = acc / torch.clamp(l, min=1e-30)[..., None]
         out[:, q0:q1] = o.permute(0, 3, 1, 2, 4)
     return out.reshape(b, sq, h, dv).to(q.dtype)
+
+
+def attention_lse(q, k, *, causal=True, q_offset=0, scale=None):
+    """The row log-sum-exp of the scaled, masked scores, float32 (B, H, Sq):
+    what the ``flash_attention`` kernel writes beside its output when a
+    gradient will be asked for (keys at ``0..Sk-1``, queries at
+    ``q_offset + i``; q head ``h`` reads KV head ``h // G``)."""
+    b, sq, h, dh = q.shape
+    _, sk, hkv, _ = k.shape
+    scale = dh ** -0.5 if scale is None else scale
+    s = torch.einsum("bqhgd,bkhd->bhgqk",
+                     q.reshape(b, sq, hkv, h // hkv, dh).float(),
+                     k.float()) * scale
+    allow = _mask(q_offset + torch.arange(sq, device=q.device),
+                  torch.arange(sk, device=q.device), causal=causal,
+                  window=None, prefix_len=0)
+    s = torch.where(allow, s, torch.full_like(s, NEG_INF))
+    return torch.logsumexp(s, dim=-1).reshape(b, h, sq)
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, q_offset=0,
+                        scale=None):
+    """The gradient of :func:`flash_attention` (no window, prefix or
+    softcap), by the recompute scheme the ``flash_attention_bwd`` kernel
+    follows, step by step in float32:
+
+      D  = rowsum(dO * O)                       (B, H, Sq)
+      P  = exp(S * scale - lse), masked to 0     S = Q K^T
+      dV = P^T dO          dP = dO V^T          dS = P * (dP - D)
+      dQ = dS K * scale    dK = dS^T Q * scale
+
+    summed over the G query heads that share a KV head. q (B, Sq, H, dqk),
+    k (B, Sk, Hkv, dqk), v (B, Sk, Hkv, dv); o and do (B, Sq, H, dv); lse
+    float32 (B, H, Sq) from the forward. Returns (dq, dk, dv) in the
+    inputs' dtypes."""
+    b, sq, h, dh = q.shape
+    _, sk, hkv, _ = k.shape
+    dv_ = v.shape[-1]
+    g = h // hkv
+    scale = dh ** -0.5 if scale is None else scale
+    qf = q.float().reshape(b, sq, hkv, g, dh)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(b, sq, hkv, g, dv_)
+    delta = (do.float() * o.float()).sum(-1)                  # (B, Sq, H)
+    delta = delta.reshape(b, sq, hkv, g).permute(0, 2, 3, 1)  # (B,Hkv,G,Sq)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    allow = _mask(q_offset + torch.arange(sq, device=q.device),
+                  torch.arange(sk, device=q.device), causal=causal,
+                  window=None, prefix_len=0)
+    p = torch.exp(s - lse.float().reshape(b, hkv, g, sq, 1))
+    p = torch.where(allow, p, torch.zeros_like(p))
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
+    return (dq.reshape(b, sq, h, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def windowed_flash_attention(q, k, v, *, window: int, q_offset=0,

@@ -153,6 +153,7 @@ def stmc_conv(window, w, b=None):
         return plain(window, w, b)
     if window.device.type != "cuda":
         raise ValueError(f"stmc_conv: unsupported device {window.device}")
+    _build.refuse_grad("stmc_conv", window, w, b)
     _check_cuda(window, w, b)
     bsz, k, cin = window.shape
     y = _launch(window, w, b,

@@ -1,5 +1,5 @@
-"""Decoder-only LM with SOI (port of the forward half of
-``repro.models.transformer``; no loss, no remat).
+"""Decoder-only LM with SOI (port of ``repro.models.transformer``: the
+forward, and the training loss ``loss_fn`` of attention + MLP stacks).
 
 The model is an ``nn.Module``: token embedding, one ``Block`` per layer in an
 ``nn.ModuleList`` over every segment in order (the reference stacks a scanned
@@ -25,6 +25,9 @@ import math
 
 import torch
 from torch import nn
+
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockCfg, ModelCfg, SOILMCfg
 from repro_torch.core.stmc import causal_conv1d
@@ -112,6 +115,11 @@ class Transformer(nn.Module):
             eye = torch.eye(d, device=device)
             self.soi_fuse = nn.Parameter(
                 torch.cat([wf_new, eye], dim=0).to(dtype))
+
+    def forward(self, tokens):
+        """The final-norm hidden states (B, S, d) of ``tokens`` (what
+        ``loss_fn`` runs through ``torch.func.functional_call``)."""
+        return trunk(self, self.cfg, tokens)
 
 
 def layer_blocks(cfg: ModelCfg) -> list:
@@ -247,9 +255,11 @@ def soi_fuse(params: Transformer, xu, skip):
 
 def _embed_tokens(params: Transformer, cfg: ModelCfg, tokens):
     """tokens (B, S) -> (B, S, d) in the compute dtype; gemma configs
-    (``embed_scale``) multiply by sqrt(d), cast to that dtype first."""
-    x = params.embed.index_select(0, tokens.reshape(-1).long())
-    x = x.reshape(*tokens.shape, -1).to(_dtype(cfg))
+    (``embed_scale``) multiply by sqrt(d), cast to that dtype first. The
+    lookup is ``F.embedding``, whose CUDA backward sums a row's repeats
+    in a fixed order (``index_select``'s adds them with atomics), so a
+    train step repeats bit for bit."""
+    x = F.embedding(tokens.long(), params.embed).to(_dtype(cfg))
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
@@ -281,13 +291,17 @@ def _head_weights(params: Transformer):
     return params.lm_head
 
 
+def _softcap(logits, cap):
+    """``cap * tanh(logits / cap)``, or the logits without a cap."""
+    if cap:
+        return cap * torch.tanh(logits / cap)
+    return logits
+
+
 def softcap_logits(cfg: ModelCfg, logits):
     """``cap * tanh(logits / cap)`` on float32 logits of configs with a
     ``logits_softcap`` (gemma); the logits unchanged otherwise."""
-    if cfg.logits_softcap:
-        cap = cfg.logits_softcap
-        return cap * torch.tanh(logits / cap)
-    return logits
+    return _softcap(logits, cfg.logits_softcap)
 
 
 @torch.no_grad()
@@ -296,3 +310,74 @@ def forward(params: Transformer, cfg: ModelCfg, tokens):
     params = cast_params(params, cfg)
     h = trunk(params, cfg, tokens)
     return softcap_logits(cfg, torch.matmul(h, _head_weights(params)).float())
+
+
+# ---------------------------------------------------------------------------
+# Loss (training)
+# ---------------------------------------------------------------------------
+
+def check_trainable(cfg: ModelCfg) -> None:
+    """Raise for configs whose training is not ported: MoE blocks (the port
+    drops the router's aux loss) and RG-LRU blocks (``lru_scan`` has no
+    backward), on every device."""
+    for b in layer_blocks(cfg):
+        if b.moe is not None or b.rglru is not None:
+            raise NotImplementedError(
+                f"config '{cfg.name}': training covers attention + MLP "
+                f"stacks; MoE and RG-LRU training are queued in ROADMAP.md")
+
+
+def _xent_chunk(hb, head_w, tb, softcap):
+    """(summed masked NLL, count of targets >= 0) of one sequence chunk."""
+    logits = _softcap(torch.matmul(hb, head_w).float(), softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1,
+                      torch.clamp(tb, min=0).long()[..., None])[..., 0]
+    mask = (tb >= 0).float()
+    return torch.sum((lse - ll) * mask), torch.sum(mask)
+
+
+def chunked_xent(h, head_w, targets, *, softcap=None, chunk=256):
+    """Memory-sane cross entropy (``repro.models.transformer.chunked_xent``):
+    sequence chunks of ``chunk`` positions, each under
+    ``torch.utils.checkpoint`` as the reference's ``jax.checkpoint``'d scan
+    body, so the (B, S, V) logits never stand whole — the backward
+    recomputes one chunk's logits at a time. Targets of -1 are masked; the
+    mean is over the rest."""
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad), value=-1)
+    nll = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, s + pad, chunk):
+        n, c = checkpoint(_xent_chunk, h[:, c0:c0 + chunk], head_w,
+                          targets[:, c0:c0 + chunk], softcap,
+                          use_reentrant=False)
+        nll = nll + n
+        count = count + c
+    return nll / torch.clamp(count, min=1.0)
+
+
+def loss_fn(params: Transformer, cfg: ModelCfg, batch: dict):
+    """batch: tokens (B, S), targets (B, S) [-1 = masked]. Returns (total,
+    {"xent", "aux"}), differentiable with respect to ``params``.
+
+    Mixed precision as in the reference: every float32 master is cast to
+    the compute dtype *inside* the differentiated function — the model runs
+    on the cast copies through ``torch.func.functional_call`` — so the
+    gradients reach the float32 masters in float32, and the module itself
+    is not cast (unlike serving's in-place ``cast_params``). The aux loss
+    is 0: the blocks this covers (attention + MLP) have none."""
+    check_trainable(cfg)
+    dt = _dtype(cfg)
+    cast = {name: p.to(dt) if p.dtype == torch.float32 else p
+            for name, p in params.named_parameters()}
+    h = torch.func.functional_call(params, cast, (batch["tokens"],))
+    head_w = cast["embed"].t() if cfg.tie_embeddings else cast["lm_head"]
+    loss = chunked_xent(h, head_w, batch["targets"],
+                        softcap=cfg.logits_softcap)
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss + aux, {"xent": loss, "aux": aux}

@@ -209,13 +209,15 @@ def _up_frames(model: UNet, cfg: UNetConfig, p: int, h: torch.Tensor):
 # Offline (reference) graph
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
 def apply_offline(model: UNet, x: torch.Tensor, cfg: UNetConfig, *,
                   train: bool = False):
     """Full-sequence causal forward pass of (B, T, in_channels). Returns
     (y, new norm state ``{"enc": [{"mean", "var"}], "dec": [...]}``); with
     ``train`` the norms use the batch statistics and the new state their
-    running averages (the module's buffers are left as they are)."""
+    running averages (the module's buffers are left as they are).
+    Differentiable with respect to the model's parameters (the training
+    graph, on every device: its convs are ``causal_conv1d``'s products,
+    no kernel); inference callers run it under ``torch.no_grad()``."""
     soi = cfg.soi
     pairs = set(cfg.pairs)
     n = cfg.n_enc
@@ -323,8 +325,9 @@ def convs_per_phase(cfg: UNetConfig) -> list[int]:
 def make_phase_steppers(cfg: UNetConfig) -> list:
     """One ``step(model, state, frame) -> (state, out)`` per phase. Each
     phase is a fixed graph; stale layers appear nowhere in the stale
-    phases' graphs, which is how SOI realizes its MAC savings. A step
-    writes the stream state in place — the conv rings, the extrapolation
+    phases' graphs, which is how SOI realizes its MAC savings. A step runs
+    under ``torch.no_grad()`` (the stream is inference: ``stmc_conv`` has
+    no backward) and writes the stream state in place — the conv rings, the extrapolation
     queues, the FP delay slot — and returns the same state object, so the
     session can capture each phase as a CUDA graph over it."""
     n = cfg.n_enc
@@ -339,6 +342,7 @@ def make_phase_steppers(cfg: UNetConfig) -> list:
         enc_plan, dec_list = phase_plan(cfg, phase)
         dec_plan = set(dec_list)
 
+        @torch.no_grad()
         def step(model: UNet, state: dict, frame: torch.Tensor):
             enc, dec, queues = state["enc"], state["dec"], state["queues"]
             skips = {0: frame}    # skips[i] = input of encoder layer i+1

@@ -181,6 +181,8 @@ def test_cpu_tensors_never_count_launches():
         torch.tensor([3], dtype=torch.int32), scale=0.2)
     ops.lru_scan(torch.rand(1, 3, 4), torch.rand(1, 3, 4))
     ops.stmc_conv(torch.rand(2, 3, 4), torch.rand(3, 4, 5), torch.rand(5))
+    fq, fk = torch.randn(1, 4, 2, 16), torch.randn(1, 4, 1, 16)
+    ops.flash_attention_bwd(fq, fk, fk, fq, fq, torch.zeros(1, 2, 4))
     assert ops.launch_counts() == {"decode_attention": 0,
                                    "flash_attention": 0,
                                    "chunk_attention": 0,
@@ -189,7 +191,8 @@ def test_cpu_tensors_never_count_launches():
                                    "mla_chunk_attention": 0,
                                    "paged_mla_decode_attention": 0,
                                    "lru_scan": 0,
-                                   "stmc_conv": 0}
+                                   "stmc_conv": 0,
+                                   "flash_attention_bwd": 0}
 
 
 def test_unsupported_devices_raise():

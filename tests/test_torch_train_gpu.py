@@ -1,0 +1,217 @@
+"""The training path's kernels on the card (marker ``gpu``): the
+``flash_attention_bwd`` CUDA kernel against its plain version
+``ref.flash_attention_bwd`` over qwen3's training, SOI-middle and prefill
+shapes, odd sequence lengths, ``q_offset`` > 0 with Sq != Sk, non-causal,
+GQA G 1 to 4 and head dims 16/32/64/128, float32 (dq, dk, dv within 2e-5
+of each one's largest |value|) and bfloat16 (2e-2), repeating bit for bit;
+the forward's ``lse`` against ``ref.attention_lse``; ``FlashAttentionFn``
+through autograd against the plain forward under autograd; the grad
+refusal of the eight kernels without a backward; and the serving launch
+unchanged: one device kernel a call with grad mode off, no lse.
+
+Without a CUDA device every test here skips (decided inside the ``cuda``
+fixture). On the card:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_train_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as PFA
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as pref
+
+torch.set_num_threads(1)
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+LSE_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-3}
+
+# name: (B, Sq, Sk, H, Hkv, dh, q_offset, causal)
+BWD_CASES = {
+    "train": (8, 128, 128, 16, 8, 128, 0, True),
+    "middle": (8, 64, 64, 16, 8, 128, 0, True),
+    "prefill": (1, 1024, 1024, 16, 8, 128, 0, True),
+    "odd100": (2, 100, 100, 16, 8, 128, 0, True),
+    "odd77-dh64": (2, 77, 77, 8, 2, 64, 0, True),
+    "dh32-g4": (3, 65, 65, 8, 2, 32, 0, True),
+    "dh16-mha": (2, 33, 33, 4, 4, 16, 0, True),
+    "offset": (2, 40, 130, 16, 8, 128, 90, True),
+    "noncausal": (2, 50, 70, 8, 4, 64, 0, False),
+}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the card with "
+                    "`python -m pytest --noconftest -m gpu "
+                    "tests/test_torch_train_gpu.py`")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(case, dt, dev, seed=0):
+    b, sq, sk, h, hkv, dh, off, causal = BWD_CASES[case]
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(dev, dt)
+    return t(b, sq, h, dh), t(b, sk, hkv, dh), t(b, sk, hkv, dh), \
+        t(b, sq, h, dh), off, causal
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_bwd_kernel_matches_plain_and_repeats(cuda, case, dt):
+    q, k, v, do, off, causal = _inputs(case, dt, cuda)
+    scale = q.shape[-1] ** -0.5
+    out, lse = PFA.forward_launch(q, k, v, causal=causal, q_offset=off,
+                                  scale=scale, cap=0.0, with_lse=True)
+    want_lse = pref.attention_lse(q, k, causal=causal, q_offset=off)
+    assert _rel(lse, want_lse) < LSE_TOL[dt]
+    assert float((out.float() - pref.flash_attention(
+        q, k, v, causal=causal, q_offset=off).float()).abs().max()) \
+        < TOL[dt]
+    ops.reset_launch_counts()
+    got = ops.flash_attention_bwd(q, k, v, out, do, lse, causal=causal,
+                                  q_offset=off)
+    again = ops.flash_attention_bwd(q, k, v, out, do, lse, causal=causal,
+                                    q_offset=off)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention_bwd"] == 2
+    want = pref.flash_attention_bwd(q, k, v, out, do, lse, causal=causal,
+                                    q_offset=off)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dt and g.shape == w.shape
+        assert torch.equal(g, a)
+        assert bool(torch.isfinite(g).all())
+        assert _rel(g, w) < TOL[dt]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["train", "offset", "noncausal"])
+def test_autograd_function_matches_plain_autograd(cuda, case):
+    q, k, v, do, off, causal = _inputs(case, torch.float32, cuda, seed=1)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.reset_launch_counts()
+    o = ops.flash_attention(*leaves, causal=causal, q_offset=off)
+    got = torch.autograd.grad(o, leaves, do)
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert ops.launch_counts()["flash_attention_bwd"] == 1
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    po = pref.flash_attention(*plain, causal=causal, q_offset=off)
+    want = torch.autograd.grad(po, plain, do)
+    assert float((o - po).detach().abs().max()) < TOL[torch.float32]
+    for g, w in zip(got, want):
+        assert _rel(g, w) < TOL[torch.float32]
+
+
+@pytest.mark.gpu
+def test_backward_refuses_what_it_does_not_take(cuda):
+    q, k, v, _, _, _ = _inputs("dh16-mha", torch.float32, cuda)
+    q.requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.flash_attention(q, k, v, logit_softcap=30.0)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.flash_attention(q, k, v, window=8)
+    mla_q = torch.randn(1, 8, 2, 192, device=cuda, requires_grad=True)
+    mla_k = torch.randn(1, 8, 2, 192, device=cuda)
+    mla_v = torch.randn(1, 8, 2, 128, device=cuda)
+    with pytest.raises(NotImplementedError, match="d_qk == d_v"):
+        ops.flash_attention(mla_q, mla_k, mla_v)
+    with torch.no_grad():               # serving: the launch without lse
+        ops.flash_attention(q, k, v, logit_softcap=30.0)
+
+
+def _eight_calls(dev, x):
+    """One call of each kernel without a backward, ``x`` (requires grad)
+    as its float input."""
+    i32 = torch.int32
+    q = x[:, 0]                                           # (1, 4, 16)
+    kv = torch.randn(1, 8, 2, 16, device=dev)
+    pos = torch.arange(8, dtype=i32, device=dev)[None]
+    t = torch.tensor([7], dtype=i32, device=dev)
+    pools = torch.randn(3, 4, 2, 16, device=dev)
+    ppos = torch.arange(12, dtype=i32, device=dev).reshape(3, 4)
+    pmap = torch.tensor([[1, 2]], dtype=i32, device=dev)
+    lat, rope = torch.randn(1, 8, 16, device=dev), torch.randn(1, 8, 8,
+                                                               device=dev)
+    return {
+        "decode_attention": lambda: ops.decode_attention(q, kv, kv, pos, t),
+        "paged_decode_attention": lambda: ops.paged_decode_attention(
+            q, pools, pools, ppos, pmap, t),
+        "chunk_attention": lambda: ops.chunk_attention(
+            x, kv, kv, pos[:, :2], pos),
+        "mla_chunk_attention": lambda: ops.mla_chunk_attention(
+            x, x[..., :8].contiguous(), lat, rope, pos[:, :2], pos,
+            scale=0.2),
+        "paged_mla_decode_attention": lambda: ops.paged_mla_decode_attention(
+            q, q[..., :8].contiguous(), lat.reshape(2, 4, 16),
+            rope.reshape(2, 4, 8),
+            ppos[:2], torch.tensor([[1]], dtype=i32, device=dev), t,
+            scale=0.2),
+        "lru_scan": lambda: ops.lru_scan(x.reshape(1, 8, 16).sigmoid(),
+                                         x.reshape(1, 8, 16)),
+        "stmc_conv": lambda: ops.stmc_conv(x.reshape(2, 4, 16),
+                                           torch.randn(4, 16, 8,
+                                                       device=dev)),
+        "copy_pages": lambda: ops.copy_pages(
+            pools.clone().requires_grad_(), [1], [2]),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(
+    k.__name__ for k in ops.KERNELS
+    if k.__name__ not in ("flash_attention", "flash_attention_bwd")))
+def test_kernels_without_a_backward_refuse_grad(cuda, name):
+    x = torch.randn(1, 2, 4, 16, device=cuda, requires_grad=True)
+    call = _eight_calls(cuda, x)[name]
+    ops.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="no backward"):
+        call()
+    assert ops.launch_counts()[name] == 0
+    with torch.no_grad():
+        call()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[name] == 1
+
+
+@pytest.mark.gpu
+def test_serving_launch_is_one_kernel_without_lse(cuda):
+    """Grad mode off (the engine's): one device kernel a flash call, as
+    before the backward existed; with grad on, the forward is still one
+    kernel and the backward three (delta, dK/dV, dQ)."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, do, _, _ = _inputs("train", torch.bfloat16, cuda, seed=2)
+    with torch.no_grad():
+        ops.flash_attention(q, k, v)            # built and warm
+    torch.cuda.synchronize()
+
+    def kernels(fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    with torch.no_grad():
+        served = kernels(lambda: ops.flash_attention(q, k, v))
+    assert len(served) == 1 and "flash_attention_kernel" in served[0]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fwd = kernels(lambda: ops.flash_attention(*leaves))
+    assert sum("flash_attention_kernel" in n for n in fwd) == 1
+    o = ops.flash_attention(*leaves)
+    bwd = kernels(lambda: torch.autograd.grad(o, leaves, do))
+    assert sum(any(f"::{k}<" in n for k in ("delta_kernel", "dkdv_kernel",
+                                            "dq_kernel"))
+               for n in bwd) == 3

@@ -207,7 +207,8 @@ def test_stream_infer_matches_jax_and_own_offline(refs, name):
     x = torch.from_numpy(ref["x"])
     y_on = punet.stream_infer(model, x, pcfg)
     assert _err(y_on, ref["y_on"]) < 2e-5
-    y_off, _ = punet.apply_offline(model, x, pcfg)
+    with torch.no_grad():
+        y_off, _ = punet.apply_offline(model, x, pcfg)
     assert _err(y_on, y_off) < 3e-5
 
 
