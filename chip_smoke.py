@@ -226,13 +226,19 @@ Phases, each printing its own lines:
              and power limit). (a) flash attention's gradient: the
              forward's lse and output, then flash_attention_bwd against the
              plain ref.flash_attention_bwd on the card at qwen3's training
-             shape (8, 128, 16/8, 128), the SOI middle's (8, 64) and the
-             prefill bucket's (1, 1024), f32 and bf16 (dq, dk, dv within
-             2e-5 / 2e-2 of each one's largest |value|), launched twice and
-             held bit for bit; its device ms at the training shape in bf16
-             beside the plain version, SDPA's backward (K/V repeated,
-             backward only) and the bound, and the forward with its lse
-             against without. (b) one make_train_step of full-width qwen3
+             shape (8, 128, 16/8, 128), the SOI middle's (8, 64), the
+             prefill bucket's (1, 1024) and Qwen3's pretraining length
+             (1, 4096), f32 and bf16 (dq, dk, dv within 2e-5 / 2e-2 of
+             each one's largest |value|), launched twice and held bit for
+             bit; its device ms in bf16 at the training shape, the prefill
+             bucket and the pretraining length (each profiled run between
+             ~6 ms of spin kernels a side: so late in the run the profiler
+             drops a session's first records), with its dK/dV and dQ kernels
+             apart and the useful TFLOP/s, beside the plain
+             version, SDPA's backward (K/V repeated, backward only) and
+             the bound; at the training shape the forward without and with
+             its lse, three pairs in turns, beside the plain forward, SDPA's
+             forward and its bound. (b) one make_train_step of full-width qwen3
              cut to 4 layers (SOI pp), f32, through the kernels and with
              attention on the plain version: loss and every gradient within
              1e-4, every update within 1e-4 where AdamW is well conditioned
@@ -376,8 +382,12 @@ PATH_KERNELS = (
     ("stmc_conv (B 32 tile)", ("16stmc_conv_kernel", "Li32E")),
     # the training path (phase 17)
     ("flash_attention_bwd delta", ("12delta_kernel", "Li128E")),
-    ("flash_attention_bwd dK/dV", ("11dkdv_kernel", "Li128E")),
-    ("flash_attention_bwd dQ", ("9dq_kernel", "Li128E")),
+    # f32: the CUDA-core body (T = float); bf16: the tensor-core body
+    ("flash_attention_bwd dK/dV", ("11dkdv_kernelIf", "Li128E")),
+    ("flash_attention_bwd dQ", ("9dq_kernelIf", "Li128E")),
+    ("flash_attention_bwd dK/dV", ("12tensor_cores11dkdv_kernel",
+                                   "ILi128E")),
+    ("flash_attention_bwd dQ", ("12tensor_cores9dq_kernel", "ILi128E")),
 )
 
 
@@ -512,41 +522,90 @@ def _split_coverage(kern, plain, args, plan, label) -> float:
     return err
 
 
-def _device_events(fn) -> list:
+# spin kernels on each side of a profiled run read with markers (phase
+# 17's timings, _loop_profile), of MARKER_CYCLES clocks each (~0.2 ms on
+# the H100): late in a long process a profiler session drops the device
+# records of its first stretch of time, longer the older the process
+# (~0.3 ms of backward calls by phase 17; _device_events), so each side
+# spans ~6 ms
+MARKERS = 32
+MARKER_CYCLES = 400_000
+
+
+def _device_events(fn, markers: int = 0, warm=None) -> list:
     """Run ``fn`` under torch.profiler with CUDA activity only; returns the
     device intervals (start µs, end µs, name) of its kernels and copies,
-    sorted by start."""
+    sorted by start. With ``markers``, that many spin kernels
+    (``torch.cuda._sleep(MARKER_CYCLES)``) run on each side of ``fn``, each
+    side synchronized (``fn`` starts on an idle card), after ``warm``
+    where given (run first, synchronized and not read), and only the
+    events between the last one kept before ``fn`` and the first one kept
+    after it are returned: a profiler session late in a long process drops
+    the device records of its first stretch of time (1 record after phase
+    3, 5 after phase 6, ~23 by phase 17 on the H100;
+    tools/profiler_drop_reading.py). Raises if the session kept no marker
+    on one side of ``fn``'s events."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+
+    def spin():
+        for _ in range(markers):
+            torch.cuda._sleep(MARKER_CYCLES)
         torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        if warm is not None:
+            warm()
+            torch.cuda.synchronize()
+        spin()
+        fn()
+        spin()
     cuda = torch.autograd.DeviceType.CUDA
-    return sorted((e.time_range.start, e.time_range.end, e.name)
-                  for e in prof.events() if e.device_type == cuda)
+    ev = sorted((e.time_range.start, e.time_range.end, e.name)
+                for e in prof.events() if e.device_type == cuda)
+    if not markers:
+        return ev
+    # the markers' runs of consecutive events: the first after ``warm``'s
+    # events is the leading one, the last the trailing one
+    mark = [i for i, x in enumerate(ev) if "spin_kernel" in x[2]]
+    runs = [i for i in mark if i - 1 not in mark]
+    check(len(runs) >= 2 and mark[-1] == len(ev) - 1,
+          f"the profiler kept no marker kernel on one side of the run "
+          f"({len(mark)} of {2 * markers} kept, {len(ev)} events, the "
+          f"first a marker: {bool(mark) and mark[0] == 0})")
+    lead_end = next(i for i in mark if i >= runs[-2] and i + 1 not in mark)
+    return ev[lead_end + 1:runs[-1]]
 
 
-def _device_ms(fn, sets, iters: int, by_name=None, bound_ms=None):
+def _device_ms(fn, sets, iters: int, by_name=None, bound_ms=None,
+               markers: int = 0, each=()):
     """Mean device time per call (the summed durations of the call's
     kernels, host launch gaps excluded); None if the profiler saw no
     device activity. ``by_name`` (a dict) receives each kernel's mean ms
-    per call. A reading under ``bound_ms`` (the least time the card could
-    take: the profiler lost events) is not taken: the run is profiled
-    again, and a second reading under the bound raises."""
+    per call. ``markers``: as ``_device_events``'s. Each name in ``each``
+    must be on the device ``iters`` times, once a call. A reading under
+    ``bound_ms`` (the least time the card could take) or short of
+    ``each`` lost events: the run is profiled again, and a second such
+    reading raises."""
     def run():
         for i in range(iters):
             fn(*sets[i % len(sets)])
 
     def reading(ev):
         return sum(e - s for s, e, _ in ev) / iters / 1e3 if ev else None
+
+    def lost(ev):
+        seen = {k: sum(k in name for _s, _e, name in ev) for k in each}
+        short = {k: n for k, n in seen.items() if n != iters}
+        if bound_ms is not None and ev and reading(ev) < bound_ms:
+            short["device ms"] = reading(ev)
+        return short
     # the profiler can hand back no device events for a run, or lose some
     # of them: look again
-    ev = _device_events(run)
-    if not ev or (bound_ms is not None and reading(ev) < bound_ms):
-        ev = _device_events(run)
-        ms = reading(ev)
-        check(bound_ms is None or ms is None or ms >= bound_ms,
-              f"device time {ms} ms under the bound {bound_ms} ms in two "
-              f"profiled runs: the profiler loses events")
+    ev = _device_events(run, markers)
+    if not ev or lost(ev):
+        ev = _device_events(run, markers)
+        check(not ev or not lost(ev),
+              f"two profiled runs lost events: {lost(ev)} (want {iters} of "
+              f"each of {each}, device ms over the bound {bound_ms})")
     if not ev:
         return None
     if by_name is not None:
@@ -2884,24 +2943,18 @@ def _loop_profile(step, n: int, kernel, launches: str, label: str):
     kernel's start to last kernel's end), and the events of ``kernel`` (a
     name or a tuple of names) on the device, held to the ``launches``
     counter's count: every counted launch ran, graph node or not. One step
-    runs first, then a marker kernel (``torch.cuda._sleep``): the profiler
-    can miss the start of the first graph replay after it starts, so only
-    the events after the marker are read. A profile that still lost
-    events is taken again; a second one that disagrees raises."""
+    runs first (the profiler can miss the start of the first graph replay
+    after it starts), then the ``n`` behind and ahead of MARKERS spin
+    kernels (``_device_events``). A profile that still lost events is
+    taken again; a second one that disagrees raises."""
     from repro_torch.kernels import ops
 
     def run():
-        step()
-        torch.cuda.synchronize()
-        torch.cuda._sleep(1000)
         ops.reset_launch_counts()
         for _ in range(n):
             step()
     for _ in range(2):
-        ev = _device_events(run)
-        marks = [e for _s, e, name in ev if "spin_kernel" in name]
-        check(marks, f"{label}: the profiler saw no marker kernel")
-        ev = [x for x in ev if x[0] >= marks[-1]]
+        ev = _device_events(run, MARKERS, warm=step)
         check(ev, f"{label}: the profiler saw no device activity")
         seen = sum(1 for _s, _e, name in ev if _named(name, kernel))
         counted = ops.launch_counts()[launches]
@@ -3728,9 +3781,16 @@ def obs_phase(dev, plain_seqs, graph_kernels) -> dict:
 # ---------------------------------------------------------------------------
 
 # (label, B, S) at qwen3's H 16 / Hkv 8 / dh 128: the training step's
-# attention, the SOI middle's, the serving prefill bucket's
+# attention, the SOI middle's, the serving prefill bucket's, and the
+# sequence length of Qwen3's general pretraining stage (arXiv 2505.09388)
 BWD_SHAPES = (("train", 8, 128), ("SOI middle", 8, 64),
-              ("prefill bucket", 1, 1024))
+              ("prefill bucket", 1, 1024), ("pretraining length", 1, 4096))
+# the shapes whose bf16 backward is timed; the first is the JSON's main row
+BWD_TIMED = ("train", "prefill bucket", "pretraining length")
+FWD_LSE_PAIRS = 3        # forward without / with lse, read in turns
+# the bf16 backward's kernels, each once a call: dQ (which computes delta),
+# then dK/dV
+BWD_KERNELS = ("dq_kernel", "dkdv_kernel")
 LSE_REL_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-3}
 TRAIN_STEPS = 30
 TRAIN_ARGV = ["--arch", "qwen3-1.7b", "--steps", str(TRAIN_STEPS),
@@ -3766,11 +3826,12 @@ def _bwd_inputs(b, s, dt, dev, gen):
 
 def _bwd_kernel_checks(dev, gen) -> dict:
     """(a): the forward's lse and output, and the backward against the plain
-    versions at the three shapes in f32 and bf16, twice for the bits; the
-    times at the training shape in bf16. Returns the JSON record."""
+    versions at the four shapes in f32 and bf16, twice for the bits; the
+    bf16 times at the three timed shapes. Returns the JSON record: the
+    training shape's, the others under "shapes"."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
-    rec = None
+    recs = {}
     for label, b, s in BWD_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
             make, nbytes = _bwd_inputs(b, s, dt, dev, gen)
@@ -3780,6 +3841,7 @@ def _bwd_kernel_checks(dev, gen) -> dict:
             err_o = float((out.float() - want_o.float()).abs().max())
             err_lse = float((lse - want_lse).abs().max()
                             / want_lse.abs().max())
+            del want_o, want_lse
             check(err_o < TOL[dt], f"flash fwd {label} {dt}: {err_o}")
             check(err_lse < LSE_REL_TOL[dt],
                   f"flash lse {label} {dt}: rel {err_lse}")
@@ -3799,13 +3861,36 @@ def _bwd_kernel_checks(dev, gen) -> dict:
             print(f"  {label} ({b},{s},16/8,128) {str(dt)[6:]}: out max|Δ| "
                   f"{err_o:.2e}, lse rel {err_lse:.2e}; bwd rel max|Δ| dq "
                   f"{rels[0]:.2e} dk {rels[1]:.2e} dv {rels[2]:.2e}; run to "
-                  f"run bit for bit")
-            if label == "train" and dt == torch.bfloat16:
-                rec = _bwd_timing(make, nbytes, b, s, dt, abs_err)
+                  f"run bit for bit", flush=True)
+            del q, k, v, out, do, lse, got, again, want
+            if label in BWD_TIMED and dt == torch.bfloat16:
+                recs[label] = _bwd_timing(make, nbytes, b, s, dt, abs_err,
+                                          with_fwd=label == BWD_TIMED[0])
+            _free(dev)
+    rec = recs[BWD_TIMED[0]]
+    rec["shapes"] = [recs[label] for label in BWD_TIMED[1:]]
     return rec
 
 
-def _bwd_timing(make, nbytes, b, s, dt, abs_err) -> dict:
+def _sdpa(q, k, v, grad: bool):
+    """SDPA on the kernel's inputs, K/V repeated to H heads and (B, H, S, d)
+    views (a yardstick: the port never calls it); with ``grad`` the leaves
+    require grad."""
+    g = q.shape[2] // k.shape[2]
+    qq, kk, vv = (t.transpose(1, 2).detach().requires_grad_(grad)
+                  for t in (q, k.repeat_interleave(g, dim=2),
+                            v.repeat_interleave(g, dim=2)))
+    o = torch.nn.functional.scaled_dot_product_attention(qq, kk, vv,
+                                                         is_causal=True)
+    return o, (qq, kk, vv)
+
+
+def _bwd_timing(make, nbytes, b, s, dt, abs_err, with_fwd) -> dict:
+    """The bf16 backward's device ms at (b, s) beside its plain version,
+    SDPA's backward and the bound, with its two kernels apart; with
+    ``with_fwd`` also the forward's: without and with its lse in turns
+    (FWD_LSE_PAIRS pairs), the plain forward and SDPA's forward, and its
+    bound."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
     sets = _copies(make, nbytes)
@@ -3813,41 +3898,69 @@ def _bwd_timing(make, nbytes, b, s, dt, abs_err) -> dict:
     # five products of the recompute scheme: S, dP, dV, dQ, dK
     flops = 10.0 * b * 16 * 128 * pairs
     bound, by = _bound(nbytes, flops, dt)
-    ms = _device_ms(FA.flash_attention_bwd, sets, 50, bound_ms=bound)
-    plain_ms = _device_ms(ref.flash_attention_bwd, sets[:4], 5)
+    parts = {}
+    ms = _device_ms(FA.flash_attention_bwd, sets, 50 if s <= 1024 else 20,
+                    by_name=parts, bound_ms=bound, markers=MARKERS,
+                    each=BWD_KERNELS)
+    split = {key: sum(t for n, t in parts.items() if key in n)
+             for key in BWD_KERNELS}
+    plain_ms = _device_ms(ref.flash_attention_bwd, sets[:4],
+                          5 if s <= 1024 else 2, markers=MARKERS)
 
-    # SDPA's backward through autograd, K/V repeated to H heads, timed
-    # backward only (a yardstick: the port never calls it)
     def sdpa_graph(q, k, v, out, do, lse):
-        qq, kk, vv = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k.repeat_interleave(2, dim=2),
-                                v.repeat_interleave(2, dim=2)))
-        o = torch.nn.functional.scaled_dot_product_attention(
-            qq, kk, vv, is_causal=True)
-        return o, (qq, kk, vv), do.transpose(1, 2)
+        o, ins = _sdpa(q, k, v, True)
+        return o, ins, do.transpose(1, 2)
     graphs = [sdpa_graph(*st) for st in sets[:8]]
 
     def sdpa_bwd(i):
         o, ins, g = graphs[i]
         return torch.autograd.grad(o, ins, g, retain_graph=True)
-    lib_ms = _device_ms(sdpa_bwd, [(i,) for i in range(len(graphs))], 20)
-    # the forward with its lse against the serving launch without
-    fwd = {}
-    for with_lse in (False, True):
-        fwd[with_lse] = _device_ms(
-            lambda q, k, v, out, do, lse, w=with_lse: FA.forward_launch(
-                q, k, v, causal=True, q_offset=0, scale=128 ** -0.5,
-                cap=0.0, with_lse=w), sets, 50)
-    print(f"  flash_attention_bwd ({b},{s},16/8,128) bf16: {ms:.4f} ms; "
+    lib_ms = _device_ms(sdpa_bwd, [(i,) for i in range(len(graphs))], 20,
+                        markers=MARKERS)
+    del graphs
+    rec = {"name": "flash_attention_bwd", "max_abs_err": abs_err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+           "library_ms": lib_ms, "shape": [b, s, 16, 8, 128],
+           "dtype": "bfloat16", "parts_ms": split,
+           "useful_tflops": flops / ms / 1e9}
+    print(f"  flash_attention_bwd ({b},{s},16/8,128) bf16: {ms:.4f} ms "
+          f"(dQ {split['dq_kernel']:.4f}, dK/dV {split['dkdv_kernel']:.4f}), "
+          f"{rec['useful_tflops']:.1f} TFLOP/s useful; "
           f"plain {plain_ms:.4f}; SDPA backward {lib_ms:.4f}; bound "
           f"{bound:.5f} ms ({by}; {nbytes / 1e6:.1f} MB, "
-          f"{flops / 1e9:.2f} GFLOP); forward {fwd[False]:.4f} ms without "
-          f"lse, {fwd[True]:.4f} with")
-    return {"name": "flash_attention_bwd", "max_abs_err": abs_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": lib_ms, "shape": [b, s, 16, 8, 128],
-            "dtype": "bfloat16", "fwd_ms": fwd[False],
-            "fwd_lse_ms": fwd[True]}
+          f"{flops / 1e9:.2f} GFLOP)", flush=True)
+    if with_fwd:
+        # the forward with its lse against the serving launch without, in
+        # turns; its bound: q, k, v, o and lse once, 2 products
+        fwd = {False: [], True: []}
+        for _ in range(FWD_LSE_PAIRS):
+            for with_lse in (False, True):
+                fwd[with_lse].append(_device_ms(
+                    lambda q, k, v, out, do, lse, w=with_lse:
+                    FA.forward_launch(q, k, v, causal=True, q_offset=0,
+                                      scale=128 ** -0.5, cap=0.0,
+                                      with_lse=w), sets, 50,
+                    markers=MARKERS, each=("flash_attention_kernel",)))
+        esz = torch.finfo(dt).bits // 8
+        f_bytes = b * s * 128 * esz * (2 * 16 + 2 * 8) + b * 16 * s * 4
+        f_bound, f_by = _bound(f_bytes, 4.0 * b * 16 * 128 * pairs, dt)
+        f_plain = _device_ms(lambda q, k, v, *_: ref.flash_attention(q, k, v),
+                             sets[:4], 5, markers=MARKERS)
+        f_lib = _device_ms(lambda q, k, v, *_: _sdpa(q, k, v, False)[0],
+                           sets, 50, markers=MARKERS)
+        lo = {w: min(r) for w, r in fwd.items()}
+        print(f"  flash_attention fwd ({b},{s},16/8,128) bf16, without / "
+              f"with lse in turns: "
+              + ", ".join(f"{a:.4f} / {c:.4f}"
+                          for a, c in zip(fwd[False], fwd[True]))
+              + f" ms (spread {max(fwd[False]) - lo[False]:.4f} / "
+              f"{max(fwd[True]) - lo[True]:.4f}); plain {f_plain:.4f}; "
+              f"SDPA forward {f_lib:.4f}; bound {f_bound:.5f} ms ({f_by}; "
+              f"{f_bytes / 1e6:.2f} MB)", flush=True)
+        rec.update(fwd_ms=fwd[False], fwd_lse_ms=fwd[True],
+                   fwd_plain_ms=f_plain, fwd_library_ms=f_lib,
+                   fwd_bound_ms=f_bound, fwd_bound_by=f_by)
+    return rec
 
 
 def _train_batch(pipe, step, dev):
@@ -4296,8 +4409,18 @@ def main():
                       "launches_on": f"train (qwen3-1.7b {run}, 30 steps)"}
                 for run in train_counts}
         if name == "flash_attention_bwd":
-            summary[-1]["fwd_ms"] = rec["fwd_ms"]
-            summary[-1]["fwd_lse_ms"] = rec["fwd_lse_ms"]
+            # the forward at the training shape (lists: the pairs in
+            # turns), the backward's parts, and its other timed shapes
+            summary[-1].update({key: rec[key] for key in (
+                "fwd_ms", "fwd_lse_ms", "fwd_plain_ms", "fwd_library_ms",
+                "fwd_bound_ms", "fwd_bound_by", "parts_ms",
+                "useful_tflops")})
+            summary[-1]["shapes"] = [
+                {key: r[key] for key in ("shape", "max_abs_err", "ms",
+                                         "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "parts_ms",
+                                         "useful_tflops")}
+                for r in rec["shapes"]]
         if name in CHUNK_KERNELS:
             # the same wrapper on the middle's chunk of compressed frames
             mid = main_recs[name + " (middle)"]

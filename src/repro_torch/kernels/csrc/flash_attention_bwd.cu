@@ -9,37 +9,86 @@
 //
 // The standard recompute scheme (FlashAttention-2), with the forward's
 // row log-sum-exp lse (B, H, Sq) f32 in place of the score matrix:
-//   delta  = rowsum(dO * O)                        one warp a row
+//   delta  = rowsum(dO * O)
 //   P      = exp(S * scale - lse), masked to 0      S = Q K^T
 //   dP     = dO V^T,   dS = P * (dP - delta)
 //   dV     = sum over the group's query heads and rows of P^T dO
 //   dK     = sum over the same of dS^T Q * scale
 //   dQ     = dS K * scale
-// Three launches: the delta pre-pass; dkdv, one block per (key tile of
-// 64, batch, KV head), walking every query head of its GQA group and
-// every query tile that can see a key of the tile; dq, one block per
-// (query tile of 64, batch, head), walking the key tiles up to the causal
-// limit of its last row. S and dP are recomputed in both. Tiles that no
-// row can see are never loaded (q_offset and Sk respected). No atomics:
-// each output is summed by one thread in a fixed order, so a result
-// repeats bit for bit.
+// Three launches in float32: the delta pre-pass; dkdv, one block per key
+// tile of one (batch, KV head), walking every query head of its GQA group
+// and every query tile that can see a key of the tile; dq, one block per
+// query tile of one head, walking the key tiles up to the causal limit of
+// its last row. S and dP are recomputed in both. In bfloat16 dq goes
+// first and computes delta from its own tiles for dkdv: two launches.
+// Tiles that no row can see are never loaded (q_offset and Sk respected).
+// No atomics: each output is summed by one owner in a fixed order, so a
+// result repeats bit for bit. GQA is read at Hkv heads.
 //
 // What bounds it on the H100: at qwen3's training shape (B 8, S 128, H 16,
 // Hkv 8, dh 128) the backward moves ~25 MB in bf16 (q, k, v, o, dO, lse in;
-// dq, dk, dv out) against ~1.4 GFLOP of causal products: ~7.5 us of bytes
-// against ~1.4 us on the tensor cores. This first kernel is the simple,
-// right one: both dtypes are loaded into float32 shared memory and every
-// product runs as float32 FMAs on the CUDA cores (as the forward's float32
-// body), so it is bound by those (67 TFLOP/s) and by shared-memory
-// traffic, far from the bytes. 256 threads a block form a 16 x 16 grid; a
-// thread owns 4 x 4 entries of the 64 x 64 score tile and 4 rows x dh/16
-// dims of its accumulators. Tiles are padded by one float a row so the 16
-// threads of a row group read 16 banks. Shared memory: ~162 KB (dkdv) and
-// ~146 KB (dq) at dh 128. mma.sync or wgmma products are later work
-// (ROADMAP.md, Queue 2).
+// dq, dk, dv out) against ~1.35 GFLOP of causal products: ~7.5 us of bytes
+// against ~1.4 us on the tensor cores; at S 1024 and 4096 (B 1) the
+// products bound it (10.7 and 172 GFLOP: ~11 and ~174 us).
+//
+// Two bodies, chosen by the element type:
+//
+// bfloat16 (training): FlashAttention-2's backward on mma.sync m16n8k16
+// (bf16 in, f32 accumulate), the forward's bf16 body turned around. The
+// plan (chosen by a reading of the alternatives on the H100, PERF.md §6):
+//  * dq (4 warps of 16 query rows, 64 a block) is the forward's loop: Q,
+//    dO and O copied once by cp.async; each warp sums its rows' delta =
+//    rowsum(dO * O) from shared memory and writes it for dkdv (O sits in
+//    the ring's last V stage until the ring needs it); K/V tiles of 64
+//    keys through a 2-stage cp.async ring; S = Q K^T and dP = dO V^T, then
+//    P = exp2(S scale log2 e - lse log2 e) and dS = P (dP - delta) on the
+//    f32 accumulators, masked only on tiles that cross Sq, Sk or the
+//    diagonal; dS rounded to bf16 straight into A fragments (the C layout
+//    of two score tiles is the A layout of one k-step); dQ += dS K with K
+//    by ldmatrix.trans. Query tiles are scheduled heaviest first.
+//  * dkdv: a block owns 32 keys and holds two groups of 2 warps; warp w of
+//    a group owns 16 key rows, the A rows of all four products. The groups
+//    split the walk (the group's G query heads, each with its query tiles
+//    of 32 rows that see a key of the block; tile i to group i % 2), each
+//    through its own 2-stage cp.async ring of Q, dO, lse and delta tiles.
+//    K and V sit in shared memory and their A fragments are reloaded by
+//    ldmatrix at every k-step (held in registers they would not fit beside
+//    dK and dV). S^T = K Q^T and dP^T = V dO^T with Q and dO as B
+//    fragments; P^T and dS^T as in dq, packed to bf16 A fragments; dV +=
+//    P^T dO and dK += dS^T Q with dO and Q by ldmatrix.trans. dK and dV stay
+//    in f32 registers for the walk; at its end group 0 adds group 1's sums
+//    (through the rings' shared memory, in group order) and writes them
+//    through its own rows of the K/V tiles as 16-byte stores. Key tiles
+//    are scheduled first tile first (the most query rows).
+//  * Rows are padded by 16 bytes in shared memory, so the 8 row addresses
+//    of an ldmatrix hit 8 bank groups. Shared memory at dh 128: ~86 KB
+//    (dkdv) and ~102 KB (dq), two blocks an SM. Registers at dh 128
+//    (ptxas): dq 248 a thread, dkdv 254 of the 255 a thread can have (no
+//    spill; its dK and dV accumulators alone take 128).
+//  What holds it back: mma.sync reads both operands from registers, so
+//  every product's B fragments come from shared memory for 16 rows (and
+//  again for each warp that shares them): the kernels issue about one
+//  ldmatrix x4 for every 1.6 mma and are bound by shared-memory bandwidth
+//  before the tensor cores; registers cap an SM at 8 warps. wgmma with TMA
+//  (operands straight from shared memory, a producer warp) is the next
+//  step (ROADMAP.md, Queue 2 B8). Measured on an H100 SXM at 700 W: 0.028
+//  ms at the training shape (SDPA's backward 0.029; the first design
+//  0.18-0.21), 0.11 ms at (1, 1024) and 0.95 at (1, 4096), ~2x SDPA's
+//  backward there, 180 TFLOP/s useful (PERF.md, row 2b).
+//
+// float32 (the dtype of the card-vs-CPU parity checks): the first design,
+// kept on the CUDA cores (on the tensor cores float32 would become TF32
+// and lose the 2e-5 parity). Both inputs are loaded into float32 shared
+// memory synchronously and every product runs as float32 FMAs; 256
+// threads a block form a 16 x 16 grid, a thread owning 4 x 4 entries of
+// the 64 x 64 score tile and 4 rows x dh/16 dims of its accumulators.
+// Tiles are padded by one float a row so the 16 threads of a row group
+// read 16 banks. Shared memory: ~162 KB (dkdv) and ~146 KB (dq) at dh 128.
 #include <atomic>
+#include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 using namespace repro_torch;
 
@@ -350,7 +399,540 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+// ---------------------------------------------------------------------------
+// The bfloat16 body: mma.sync m16n8k16 on the tensor cores.
+// ---------------------------------------------------------------------------
+namespace tensor_cores {
+
+using bf16 = __nv_bfloat16;
+
+// The plan (PERF.md §6): dK/dV's blocks hold kQueryGroups groups of
+// kKeyWarps warps (16 keys each) that split the walk's query tiles of
+// kQueryTile rows, summed at the end in group order; dQ computes delta
+// (rowsum(dO * O)) from its tiles for dK/dV, which runs after it.
+constexpr int kKeyWarps = 2;        // dK/dV: warps a group (16 keys each)
+constexpr int kQueryTile = 32;      // dK/dV: query rows a tile of a ring
+constexpr int kQueryGroups = 2;     // dK/dV: warp groups a block
+constexpr int kPass = 32;           // dK/dV: query columns a pass
+constexpr int kQRows = 64;          // dQ: query rows a block (4 warps)
+constexpr int kKeys = 64;           // dQ: keys a tile of its ring
+constexpr int kStages = 2;          // depth of every ring
+constexpr int kPad = 8;             // bf16 per row of padding (16 bytes)
+
+template <int D>
+constexpr size_t dkdv_smem_bytes() {
+  // K and V of the block's keys; each group's stages of Q and dO; then
+  // each group's stages of lse and delta
+  return sizeof(bf16) * (2 * (size_t)16 * kKeyWarps +
+                         2 * (size_t)kQueryGroups * kStages * kQueryTile) *
+             (D + kPad) +
+         sizeof(float) * 2 * (size_t)kQueryGroups * kStages * kQueryTile;
+}
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  // the Q and dO tiles, then the stages of K and of V
+  return sizeof(bf16) * (2 * (size_t)kQRows + 2 * (size_t)kStages * kKeys) *
+         (D + kPad);
+}
+
+// Copies ROWS rows of D bf16 (row i at g + i * stride) into shared rows of
+// D + kPad bf16 by 16-byte cp.async, THREADS threads from tid; rows at or
+// past n_valid are zero-filled.
+template <int ROWS, int D, int THREADS>
+__device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
+                                          size_t stride, int n_valid,
+                                          int tid) {
+  constexpr int kChunks = D / 8;           // 16-byte chunks a row
+  constexpr int kTotal = ROWS * kChunks;
+#pragma unroll
+  for (int it = 0; it < (kTotal + THREADS - 1) / THREADS; ++it) {
+    const int i = tid + it * THREADS;
+    if (kTotal % THREADS && i >= kTotal) break;
+    const int r = i / kChunks, c = i % kChunks;
+    const bool in = r < n_valid;
+    cp_async_16(smem_addr(s + r * (D + kPad) + c * 8),
+                g + (in ? (size_t)r * stride : 0) + c * 8, in);
+  }
+}
+
+// Waits for the THREADS threads of named barrier `id` (not 0: the block's)
+template <int THREADS>
+__device__ __forceinline__ void group_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(THREADS) : "memory");
+}
+
+// Writes a warp's 16 x D f32 accumulator (m16n8k16 C layout, times mul)
+// as bf16 through 16 rows of shared memory that only this warp reads, then
+// out as 16-byte stores: row r to g + r * stride while first + r < n_rows.
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
+                                           float mul, bf16* s, bf16* g,
+                                           size_t stride, int first,
+                                           int n_rows, int lane) {
+  constexpr int LD = D + kPad;
+  const int gr = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(s + gr * LD + n * 8 + 2 * t) =
+        pack_bf16(acc[n][0] * mul, acc[n][1] * mul);
+    *reinterpret_cast<uint32_t*>(s + (gr + 8) * LD + n * 8 + 2 * t) =
+        pack_bf16(acc[n][2] * mul, acc[n][3] * mul);
+  }
+  __syncwarp();
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int it = 0; it < 16 * kChunks / 32; ++it) {
+    const int i = lane + it * 32;
+    const int r = i / kChunks, c = i % kChunks;
+    if (first + r < n_rows)
+      *reinterpret_cast<uint4*>(g + (size_t)r * stride + c * 8) =
+          *reinterpret_cast<const uint4*>(s + r * LD + c * 8);
+  }
+}
+
+// dK and dV of 16 KW keys of one KV head. The block's QG groups of KW
+// warps split the walk: the tiles are the group's G query heads, each
+// with its QT-row query tiles that see a key of the block, in that order,
+// and group i takes tiles i, i + QG, ... through its own kStages ring of
+// cp.async copies. Warp w of a group owns keys k0 + 16 w .. +15, the A rows
+// of every product: S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and
+// dK += dS^T Q with P^T and dS^T packed from the accumulators. At the end
+// group 0 adds group 1's sums to its own.
+template <int D>
+__global__ void __launch_bounds__(32 * kKeyWarps * kQueryGroups,
+                                  8 / (kKeyWarps * kQueryGroups))
+dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+            const bf16* __restrict__ v, const bf16* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk,
+            int H, int Hkv, int q_offset, int causal, float scale) {
+  constexpr int KW = kKeyWarps, QT = kQueryTile, QG = kQueryGroups;
+  static_assert(QG == 2, "group 0 sums group 1's dK and dV");
+  constexpr int kThreads = 32 * KW * QG;
+  constexpr int GT = 32 * KW;       // threads a group
+  constexpr int BKB = 16 * KW;      // keys a block
+  constexpr int LD = D + kPad;
+  constexpr int KS = D / 16;        // k-steps over the head dim
+  constexpr int NQ = kPass / 8;     // score n-tiles of a pass (8 queries)
+  constexpr int ND = D / 8;         // accumulator n-tiles (8 dims)
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* sK = reinterpret_cast<bf16*>(tc_smem);
+  bf16* sV = sK + BKB * LD;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int grp = warp / KW, gtid = tid % GT;
+  // this group's ring: kStages tiles of QT x LD of Q, the same of dO, then
+  // kStages x QT floats of lse and of delta
+  bf16* sQ = sV + BKB * LD + grp * 2 * kStages * QT * LD;
+  bf16* sO = sQ + kStages * QT * LD;
+  float* sL = reinterpret_cast<float*>(sV + BKB * LD +
+                                       QG * 2 * kStages * QT * LD) +
+              grp * 2 * kStages * QT;
+  float* sD = sL + kStages * QT;
+
+  const int k0 = blockIdx.y * BKB;  // the first key tiles see the most rows
+  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
+  const int G = H / Hkv;
+  const int g = lane / 4, t = lane % 4;     // fragment row group, column pair
+  const int wr = warp % KW * 16;            // the warp's first key row
+  const size_t q_row = (size_t)H * D, k_row = (size_t)Hkv * D;
+  const size_t kv_off = ((size_t)b * Sk + k0) * k_row + (size_t)hk * D;
+
+  // query row i sees key k0 iff q_offset + i >= k0: earlier tiles are
+  // wholly masked and never loaded
+  const int q_first = causal ? max(0, k0 - q_offset) / QT * QT : 0;
+  const int n_qt = q_first < Sq ? (Sq - q_first + QT - 1) / QT : 0;
+  const int n_tiles = G * n_qt;
+  const int n_mine = n_tiles > grp ? (n_tiles - grp + QG - 1) / QG : 0;
+
+  // copy groups: K and V (the whole block), then one per tile of this
+  // group, kStages - 1 ahead
+  load_tile<BKB, D, kThreads>(sK, k + kv_off, k_row, Sk - k0, tid);
+  load_tile<BKB, D, kThreads>(sV, v + kv_off, k_row, Sk - k0, tid);
+  cp_async_commit();
+  auto load_queries = [&](int i) {   // group's tile i into stage i % kStages
+    const int st = i % kStages, j = grp + i * QG;
+    const int h = hk * G + j / n_qt, q0 = q_first + j % n_qt * QT;
+    const size_t off = ((size_t)b * Sq + q0) * q_row + (size_t)h * D;
+    load_tile<QT, D, GT>(sQ + st * QT * LD, q + off, q_row, Sq - q0, gtid);
+    load_tile<QT, D, GT>(sO + st * QT * LD, dout + off, q_row, Sq - q0,
+                         gtid);
+    const size_t at = ((size_t)b * H + h) * Sq + q0;
+    for (int r = gtid; r < QT; r += GT) {
+      const bool in = q0 + r < Sq;
+      cp_async_4(smem_addr(sL + st * QT + r), lse + at + (in ? r : 0), in);
+      cp_async_4(smem_addr(sD + st * QT + r), delta + at + (in ? r : 0), in);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_mine) load_queries(i);
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 1>();     // K and V have landed: every warp
+  __syncthreads();                  // reads rows another group copied
+
+  float ak[ND][4], av[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ak[n][e] = av[n][e] = 0.f;
+  // ldmatrix x4: lanes 8i..8i+7 address the rows of 8x8 matrix i
+  const int lr = lane % 8, lm = lane / 8;
+  const uint32_t a_off = (wr + lr + (lm & 1) * 8) * LD + (lm >> 1) * 8;
+  const int key = k0 + wr + g;              // rows g and g + 8: key, key + 8
+  const float scale2 = scale * kLog2e;
+  const int bar = 1 + grp;                  // the group's barrier
+
+  for (int i = 0; i < n_mine; ++i) {
+    if (i + kStages - 1 < n_mine) load_queries(i + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();   // the group's tile i has landed
+    group_sync<GT>(bar);
+    const int st = i % kStages, j = grp + i * QG;
+    const int q0 = q_first + j % n_qt * QT;
+    const bf16* tQ = sQ + st * QT * LD;
+    const bf16* tO = sO + st * QT * LD;
+    const float* tL = sL + st * QT;
+    const float* tD = sD + st * QT;
+    // only a tile that crosses Sk, Sq or the causal diagonal needs the mask
+    const bool masked = k0 + BKB > Sk || q0 + QT > Sq ||
+                        (causal && k0 + BKB - 1 > q_offset + q0);
+
+#pragma unroll
+    for (int c0 = 0; c0 < QT; c0 += kPass) {
+      // S^T = K Q^T and dP^T = V dO^T over the pass's kPass queries: per
+      // k-step one ldmatrix x4 of Q (of dO) gives n-tiles 2n and 2n+1
+      float s[NQ][4], dp[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t ka[4];
+        ldmatrix_x4(ka, smem_addr(sK + a_off + kk * 16));
+#pragma unroll
+        for (int n = 0; n < NQ / 2; ++n) {
+          uint32_t qf[4];
+          ldmatrix_x4(qf, smem_addr(tQ + (c0 + n * 16 + lr + (lm >> 1) * 8) *
+                                             LD + kk * 16 + (lm & 1) * 8));
+          mma(s[2 * n], ka, qf[0], qf[1]);
+          mma(s[2 * n + 1], ka, qf[2], qf[3]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t va[4];
+        ldmatrix_x4(va, smem_addr(sV + a_off + kk * 16));
+#pragma unroll
+        for (int n = 0; n < NQ / 2; ++n) {
+          uint32_t of[4];
+          ldmatrix_x4(of, smem_addr(tO + (c0 + n * 16 + lr + (lm >> 1) * 8) *
+                                             LD + kk * 16 + (lm & 1) * 8));
+          mma(dp[2 * n], va, of[0], of[1]);
+          mma(dp[2 * n + 1], va, of[2], of[3]);
+        }
+      }
+
+      // P^T = exp2(S^T scale log2 e - lse log2 e), masked to 0, and
+      // dS^T = P^T (dP^T - delta): s[n][e] is key row g + 8 (e >> 1),
+      // query column c0 + 8 n + 2 t + (e & 1). Rounded to bf16, the score
+      // n-tiles 2kk and 2kk + 1 are the A fragment of k-step kk
+      uint32_t pa[NQ / 2][4], da[NQ / 2][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        const int col = c0 + n * 8 + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(tL + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(tD + col);
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lq = (e & 1) ? l2.y : l2.x;
+          const float dq = (e & 1) ? d2.y : d2.x;
+          float x = fast_exp2(fmaf(s[n][e], scale2, -lq * kLog2e));
+          if (masked) {
+            const int k_pos = key + (e >> 1) * 8;
+            const int qi = q0 + col + (e & 1);
+            const bool allow = k_pos < Sk && qi < Sq &&
+                               (!causal || k_pos <= q_offset + qi);
+            x = allow ? x : 0.f;
+          }
+          p[e] = x;
+          ds[e] = x * (dp[n][e] - dq);
+        }
+        pa[n / 2][(n & 1) * 2] = pack_bf16(p[0], p[1]);
+        pa[n / 2][(n & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+        da[n / 2][(n & 1) * 2] = pack_bf16(ds[0], ds[1]);
+        da[n / 2][(n & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+
+      // dV += P^T dO and dK += dS^T Q: one ldmatrix.trans x4 of dO (of Q)
+      // gives n-tiles 2n and 2n + 1 of k-step kk
+#pragma unroll
+      for (int kk = 0; kk < NQ / 2; ++kk) {
+        const int row = c0 + kk * 16 + lr + (lm & 1) * 8;
+#pragma unroll
+        for (int n = 0; n < ND / 2; ++n) {
+          uint32_t of[4];
+          ldmatrix_x4_trans(of, smem_addr(tO + row * LD + n * 16 +
+                                          (lm >> 1) * 8));
+          mma(av[2 * n], pa[kk], of[0], of[1]);
+          mma(av[2 * n + 1], pa[kk], of[2], of[3]);
+        }
+#pragma unroll
+        for (int n = 0; n < ND / 2; ++n) {
+          uint32_t qf[4];
+          ldmatrix_x4_trans(qf, smem_addr(tQ + row * LD + n * 16 +
+                                          (lm >> 1) * 8));
+          mma(ak[2 * n], da[kk], qf[0], qf[1]);
+          mma(ak[2 * n + 1], da[kk], qf[2], qf[3]);
+        }
+      }
+    }
+    group_sync<GT>(bar);          // the group is done with tile i's stage
+  }
+  cp_async_wait<0>();
+
+  // group 1's sums into group 0's through the rings (both groups are done
+  // with them): thread x of a group keeps element e at red[e * GT + x]
+  static_assert(2 * ND * 4 * GT * sizeof(float) <=
+                    (size_t)2 * kStages * QT * LD * sizeof(bf16) * QG,
+                "the rings hold the partial sums");
+  float* red = reinterpret_cast<float*>(sV + BKB * LD);
+  __syncthreads();
+  if (grp == 1) {
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        red[((n * 4 + e) * 2) * GT + gtid] = ak[n][e];
+        red[((n * 4 + e) * 2 + 1) * GT + gtid] = av[n][e];
+      }
+  }
+  __syncthreads();
+  if (grp != 0) return;
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      ak[n][e] += red[((n * 4 + e) * 2) * GT + gtid];
+      av[n][e] += red[((n * 4 + e) * 2 + 1) * GT + gtid];
+    }
+
+  // out through the warp's own rows of the K and V tiles (the other groups'
+  // warps that read them are done)
+  __syncwarp();
+  const size_t out_off = kv_off + (size_t)wr * k_row;
+  store_rows<D>(ak, scale, sK + wr * LD, dk + out_off, k_row, k0 + wr, Sk,
+                lane);
+  store_rows<D>(av, 1.f, sV + wr * LD, dv + out_off, k_row, k0 + wr, Sk,
+                lane);
+}
+
+// dQ of 64 query rows of one head. Warp w owns rows q0 + 16 w .. +15:
+// S = Q K^T and dP = dO V^T, dS = P (dP - delta) packed from the
+// accumulators, dQ += dS K. The block walks the key tiles up to the causal
+// limit of its last row; they arrive through a kStages ring. The block
+// first copies its O rows into the ring's last V stage and computes its
+// rows' delta = rowsum(dO * O) there, for itself and for dK/dV.
+template <int D>
+__global__ void __launch_bounds__(128, 2)
+dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+          const bf16* __restrict__ v, const bf16* __restrict__ o,
+          const bf16* __restrict__ dout, const float* __restrict__ lse,
+          float* __restrict__ delta, bf16* __restrict__ dq, int Sq, int Sk,
+          int H, int Hkv, int q_offset, int causal, float scale) {
+  constexpr int kThreads = 128;
+  constexpr int LD = D + kPad;
+  constexpr int KS = D / 16;        // k-steps over the head dim
+  constexpr int NS = kKeys / 8;     // score n-tiles (8 keys)
+  constexpr int ND = D / 8;         // accumulator n-tiles (8 dims)
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(tc_smem);
+  bf16* sO = sQ + kQRows * LD;      // dO
+  bf16* sK = sO + kQRows * LD;      // kStages tiles of kKeys x LD
+  bf16* sV = sK + kStages * kKeys * LD;
+
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kQRows;   // heaviest first
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int hk = h / (H / Hkv);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wr = warp * 16;
+  const size_t q_row = (size_t)H * D, k_row = (size_t)Hkv * D;
+  const size_t qo_off = ((size_t)b * Sq + q0) * q_row + (size_t)h * D;
+  const bf16* kb = k + (size_t)b * Sk * k_row + (size_t)hk * D;
+  const bf16* vb = v + (size_t)b * Sk * k_row + (size_t)hk * D;
+
+  // causal: no key past the last real query row of this tile is live
+  const int last_q = q_offset + min(q0 + kQRows, Sq) - 1;
+  const int k_end = causal ? min(Sk, last_q + 1) : Sk;
+  const int n_tiles = k_end > 0 ? (k_end + kKeys - 1) / kKeys : 0;
+
+  // copy groups: Q and dO (and O), then one per key tile, kStages - 1
+  // ahead
+  static_assert(kQRows == kKeys && kStages >= 2, "O fits a V stage");
+  bf16* sOut = sV + (kStages - 1) * kKeys * LD;   // O, until the ring's turn
+  load_tile<kQRows, D, kThreads>(sQ, q + qo_off, q_row, Sq - q0, tid);
+  load_tile<kQRows, D, kThreads>(sO, dout + qo_off, q_row, Sq - q0, tid);
+  load_tile<kQRows, D, kThreads>(sOut, o + qo_off, q_row, Sq - q0, tid);
+  cp_async_commit();
+  auto load_keys = [&](int j) {   // key tile j into stage j % kStages
+    const int st = j % kStages, first = j * kKeys;
+    load_tile<kKeys, D, kThreads>(sK + st * kKeys * LD,
+                                  kb + (size_t)first * k_row, k_row,
+                                  Sk - first, tid);
+    load_tile<kKeys, D, kThreads>(sV + st * kKeys * LD,
+                                  vb + (size_t)first * k_row, k_row,
+                                  Sk - first, tid);
+  };
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) {
+    if (j < n_tiles) load_keys(j);
+    cp_async_commit();
+  }
+
+  // rows g and g + 8 of the warp's 16: lse (x log2 e) and delta
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + wr + g + 8 * r;
+    lse2[r] = qi < Sq ? lse[((size_t)b * H + h) * Sq + qi] * kLog2e : 0.f;
+  }
+  {
+    // delta of the warp's 16 rows, two lanes a row (rows past Sq are zero);
+    // fragment rows g and g + 8 take it from lanes 2g and 2g + 16
+    cp_async_wait<kStages - 1>();   // Q, dO and O have landed
+    __syncthreads();
+    const int r = wr + lane / 2, half = lane % 2;
+    const int at = r * LD + half * (D / 2);
+    float acc = 0.f;
+#pragma unroll
+    for (int c = 0; c < D / 2; c += 8) {
+      const uint4 ou = *reinterpret_cast<const uint4*>(sOut + at + c);
+      const uint4 du = *reinterpret_cast<const uint4*>(sO + at + c);
+      const bf16* oe = reinterpret_cast<const bf16*>(&ou);
+      const bf16* de = reinterpret_cast<const bf16*>(&du);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        acc += __bfloat162float(oe[e]) * __bfloat162float(de[e]);
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (half == 0 && q0 + r < Sq)
+      delta[((size_t)b * H + h) * Sq + q0 + r] = acc;
+    dlt[0] = __shfl_sync(0xffffffffu, acc, 2 * g);
+    dlt[1] = __shfl_sync(0xffffffffu, acc, 2 * g + 16);
+    __syncthreads();                // O is read: the ring may refill it
+  }
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const int lr = lane % 8, lm = lane / 8;
+  const uint32_t a_off = (wr + lr + (lm & 1) * 8) * LD + (lm >> 1) * 8;
+  const int row_pos = q_offset + q0 + wr + g;
+  const float scale2 = scale * kLog2e;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + kStages - 1 < n_tiles) load_keys(j + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();   // key tile j (and Q, dO) has landed
+    __syncthreads();
+    const int k0 = j * kKeys;
+    const bf16* tK = sK + j % kStages * kKeys * LD;
+    const bf16* tV = sV + j % kStages * kKeys * LD;
+
+    // S = Q K^T and dP = dO V^T: per k-step one ldmatrix x4 of K (of V)
+    // gives n-tiles 2n and 2n + 1
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4];
+      ldmatrix_x4(qa, smem_addr(sQ + a_off + kk * 16));
+#pragma unroll
+      for (int n = 0; n < NS / 2; ++n) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, smem_addr(tK + (n * 16 + lr + (lm >> 1) * 8) * LD +
+                                  kk * 16 + (lm & 1) * 8));
+        mma(s[2 * n], qa, kf[0], kf[1]);
+        mma(s[2 * n + 1], qa, kf[2], kf[3]);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t oa[4];
+      ldmatrix_x4(oa, smem_addr(sO + a_off + kk * 16));
+#pragma unroll
+      for (int n = 0; n < NS / 2; ++n) {
+        uint32_t vf[4];
+        ldmatrix_x4(vf, smem_addr(tV + (n * 16 + lr + (lm >> 1) * 8) * LD +
+                                  kk * 16 + (lm & 1) * 8));
+        mma(dp[2 * n], oa, vf[0], vf[1]);
+        mma(dp[2 * n + 1], oa, vf[2], vf[3]);
+      }
+    }
+
+    // dS = P (dP - delta), P = exp2(S scale log2 e - lse log2 e) masked to
+    // 0: s[n][e] is row g + 8 (e >> 1), key k0 + 8 n + 2 t + (e & 1). Only
+    // a tile that crosses Sk, Sq or the diagonal of the block's first row
+    // needs the mask
+    const bool masked = k0 + kKeys > Sk || q0 + kQRows > Sq ||
+                        (causal && k0 + kKeys - 1 > q_offset + q0);
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = fast_exp2(fmaf(s[n][e], scale2, -lse2[e >> 1]));
+        if (masked) {
+          const int k_pos = k0 + n * 8 + 2 * t + (e & 1);
+          const int qi = q0 + wr + g + (e >> 1) * 8;
+          const bool allow = k_pos < Sk && qi < Sq &&
+                             (!causal || k_pos <= row_pos + (e >> 1) * 8);
+          x = allow ? x : 0.f;
+        }
+        s[n][e] = x * (dp[n][e] - dlt[e >> 1]);
+      }
+    }
+
+    // dQ += dS K: score n-tiles 2kk and 2kk + 1 (C layout) are the A
+    // fragment of k-step kk; one ldmatrix.trans x4 of K gives n-tiles 2n
+    // and 2n + 1
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk) {
+      uint32_t da[4];
+      da[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      da[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      da[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      da[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int n = 0; n < ND / 2; ++n) {
+        uint32_t kf[4];
+        ldmatrix_x4_trans(kf, smem_addr(tK + (kk * 16 + lr + (lm & 1) * 8) *
+                                                 LD + n * 16 +
+                                        (lm >> 1) * 8));
+        mma(acc[2 * n], da, kf[0], kf[1]);
+        mma(acc[2 * n + 1], da, kf[2], kf[3]);
+      }
+    }
+    __syncthreads();              // every warp is done with tile j's stage
+  }
+
+  // out through the warp's own rows of the Q tile
+  cp_async_wait<0>();
+  __syncwarp();
+  store_rows<D>(acc, scale, sQ + wr * LD, dq + qo_off + (size_t)wr * q_row,
+                q_row, q0 + wr, Sq, lane);
+}
+
+// dQ, which writes delta: float32 (B, H, Sq) scratch; then dK/dV.
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
                    float* delta, void* dq, void* dk, void* dv, int B, int Sq,
@@ -359,29 +941,75 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   static std::atomic<uint64_t> dkdv_set{0}, dq_set{0};
   constexpr size_t kv_bytes = dkdv_smem_bytes<D>();
   constexpr size_t q_bytes = dq_smem_bytes<D>();
-  cudaError_t e = set_smem_once(dkdv_set, dkdv_kernel<T, D>, kv_bytes);
-  if (e == cudaSuccess) e = set_smem_once(dq_set, dq_kernel<T, D>, q_bytes);
+  cudaError_t e = set_smem_once(dkdv_set, dkdv_kernel<D>, kv_bytes);
+  if (e == cudaSuccess) e = set_smem_once(dq_set, dq_kernel<D>, q_bytes);
   if (e != cudaSuccess) return e;
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
-  const int rows = B * Sq * H;
-  delta_kernel<T, D><<<(rows + kThreads / 32 - 1) / (kThreads / 32),
-                       kThreads, 0, st>>>(static_cast<const T*>(o), tdo,
-                                          delta, Sq, H, rows);
+  const bf16* tq = static_cast<const bf16*>(q);
+  const bf16* tk = static_cast<const bf16*>(k);
+  const bf16* tv = static_cast<const bf16*>(v);
+  const bf16* tdo = static_cast<const bf16*>(dout);
+  dq_kernel<D><<<dim3(B * H, (Sq + kQRows - 1) / kQRows), 128, q_bytes,
+                 st>>>(tq, tk, tv, static_cast<const bf16*>(o), tdo, lse,
+                       delta, static_cast<bf16*>(dq), Sq, Sk, H, Hkv,
+                       q_offset, causal, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  dkdv_kernel<T, D><<<dim3((Sk + BK - 1) / BK, B * Hkv), kThreads, kv_bytes,
-                      st>>>(tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk),
-                            static_cast<T*>(dv), Sq, Sk, H, Hkv, q_offset,
-                            causal, scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  dq_kernel<T, D><<<dim3((Sq + BQ - 1) / BQ, B * H), kThreads, q_bytes,
-                    st>>>(tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq),
-                          Sq, Sk, H, Hkv, q_offset, causal, scale);
+  constexpr int kBlockKeys = 16 * kKeyWarps;
+  dkdv_kernel<D><<<dim3(B * Hkv, (Sk + kBlockKeys - 1) / kBlockKeys),
+                   32 * kKeyWarps * kQueryGroups, kv_bytes, st>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), Sq, Sk, H, Hkv, q_offset, causal, scale);
   return cudaGetLastError();
+}
+
+}  // namespace tensor_cores
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const float* lse,
+                   float* delta, void* dq, void* dk, void* dv, int B, int Sq,
+                   int Sk, int H, int Hkv, int q_offset, int causal,
+                   float scale, cudaStream_t st) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // the bf16 body's copies, loads and stores move 16 bytes at a time
+    if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
+         reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
+         reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv)) %
+        16)
+      return cudaErrorMisalignedAddress;
+    return tensor_cores::launch<D>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                   B, Sq, Sk, H, Hkv, q_offset, causal,
+                                   scale, st);
+  } else {
+    static std::atomic<uint64_t> dkdv_set{0}, dq_set{0};
+    constexpr size_t kv_bytes = dkdv_smem_bytes<D>();
+    constexpr size_t q_bytes = dq_smem_bytes<D>();
+    cudaError_t e = set_smem_once(dkdv_set, dkdv_kernel<T, D>, kv_bytes);
+    if (e == cudaSuccess) e = set_smem_once(dq_set, dq_kernel<T, D>, q_bytes);
+    if (e != cudaSuccess) return e;
+    const T* tq = static_cast<const T*>(q);
+    const T* tk = static_cast<const T*>(k);
+    const T* tv = static_cast<const T*>(v);
+    const T* tdo = static_cast<const T*>(dout);
+    const int rows = B * Sq * H;
+    delta_kernel<T, D><<<(rows + kThreads / 32 - 1) / (kThreads / 32),
+                         kThreads, 0, st>>>(static_cast<const T*>(o), tdo,
+                                            delta, Sq, H, rows);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    dkdv_kernel<T, D><<<dim3((Sk + BK - 1) / BK, B * Hkv), kThreads,
+                        kv_bytes, st>>>(tq, tk, tv, tdo, lse, delta,
+                                        static_cast<T*>(dk),
+                                        static_cast<T*>(dv), Sq, Sk, H, Hkv,
+                                        q_offset, causal, scale);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    dq_kernel<T, D><<<dim3((Sq + BQ - 1) / BQ, B * H), kThreads, q_bytes,
+                      st>>>(tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq),
+                            Sq, Sk, H, Hkv, q_offset, causal, scale);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>

@@ -37,11 +37,30 @@ MLA prefill (q/k 192 = qk_nope 128 + qk_rope 64, v 128).
 The gradient: ``FlashAttentionFn`` (a ``torch.autograd.Function``) runs
 the forward kernel with a float32 ``lse`` (B, H, Sq) output — the rows'
 log-sum-exp, null and unwritten when serving — and
-``csrc/flash_attention_bwd.cu`` backward (``flash_attention_bwd``: the
-FlashAttention-2 recompute, float32 on the CUDA cores, no atomics, so it
-repeats bit for bit; its plain version is ``ref.flash_attention_bwd``).
-No TPU kernel computes it: the reference differentiates
-``ref.chunked_flash_attention`` with XLA.
+``csrc/flash_attention_bwd.cu`` backward (``flash_attention_bwd``, the
+FlashAttention-2 recompute: delta = rowsum(dO·O), a dK/dV kernel a key
+tile and a dQ kernel a query tile; its plain version is
+``ref.flash_attention_bwd``). No TPU kernel computes it: the reference
+differentiates ``ref.chunked_flash_attention`` with XLA.
+
+* bfloat16 (training): all five products on the tensor cores
+  (``mma.sync``), Q/dO tiles (dK/dV) and K/V tiles (dQ) through 2-stage
+  ``cp.async`` rings, P and dS rounded to bf16 in registers as the second
+  products' A operands; dK/dV blocks of 32 keys split their walk between
+  two warp groups; dQ runs first and computes delta from its own tiles (two
+  launches). Bound at the training shape (8, 128, 16/8, 128) by its
+  ~25 MB of bytes (7.5 µs), at S 1024 and 4096 by its products (11 and
+  174 µs). Held back by shared-memory reads (``mma.sync`` takes every B
+  fragment from shared memory for one warp's 16 rows) and registers (at
+  dh 128 dK/dV takes 254 of a thread's 255, dQ 248). On an
+  H100 SXM at 700 W: 0.028 ms at the training shape (SDPA's
+  backward 0.029), 0.11 ms at (1, 1024) and 0.95 at (1, 4096), ~2× SDPA's
+  backward there (``PERF.md``, row 2b).
+* float32: the first design, float32 FMAs on the CUDA cores after a delta
+  pre-pass (on the tensor cores it would become TF32 and lose the 2e-5
+  parity): three launches.
+
+Both use no atomics, so a result repeats bit for bit.
 
 The plain version is ``ref.flash_attention`` (re-exported here as
 ``plain``); a CPU tensor takes it, a CUDA tensor launches the kernel or
@@ -189,8 +208,9 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, q_offset=0,
     input's dtype: q, o, do (B, Sq, H, d), k, v (B, Sk, Hkv, d), lse float32
     (B, H, Sq) from the forward. A CPU tensor takes the plain
     ``ref.flash_attention_bwd``; a CUDA tensor launches
-    ``csrc/flash_attention_bwd.cu`` (the delta pre-pass, dK/dV, dQ: three
-    kernels, one count in ``flash_attention_bwd.launches``) or raises."""
+    ``csrc/flash_attention_bwd.cu`` (delta, dK/dV, dQ: three kernels in
+    float32, two in bfloat16; one count in ``flash_attention_bwd.launches``)
+    or raises."""
     if q.device.type == "cpu":
         return ref.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                        q_offset=q_offset, scale=scale)

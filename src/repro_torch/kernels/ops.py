@@ -23,8 +23,11 @@ attention: the reference's ``ops.flash_attention`` sends a ``window`` to
 ``ref.windowed_flash_attention`` (or ``chunked_flash_attention``) on every
 backend, the TPU included, because its Pallas flash kernel takes no
 window. ``flash_attention`` here does the same: a window goes to the plain
-``ref.windowed_flash_attention`` on every device, and the CUDA flash kernel
-runs only unwindowed prefill.
+``ref.windowed_flash_attention`` on every device. Nor has prefix-LM
+prefill: the reference sends a ``prefix_len > 0`` to its plain
+``ref.chunked_flash_attention`` on every backend, the TPU included, and
+here it goes to the plain ``ref.flash_attention`` on every device. The
+CUDA flash kernel runs only causal or full prefill with neither.
 """
 
 from __future__ import annotations
@@ -54,20 +57,27 @@ _BY_NAME = {k.__name__: k for k in KERNELS}
 def flash_attention(q, k, v, *, causal=True, window=None, prefix_len=0,
                     q_offset=0, scale=None, logit_softcap=None):
     """Whole-prompt prefill attention: the ``flash_attention`` kernel, or —
-    with a ``window`` — the plain ``ref.windowed_flash_attention`` on every
-    device (the reference has no windowed kernel either). With grad mode
-    on and an input that requires grad, the card runs the kernel with its
-    CUDA backward (``flash_attention_bwd``); the windowed route then
-    raises, as every other kernel's CUDA route does (``_build.refuse_grad``):
-    only flash attention has a backward kernel."""
-    if window is None:
+    with a ``window`` or a ``prefix_len > 0`` — the plain
+    ``ref.windowed_flash_attention`` or ``ref.flash_attention`` on every
+    device, as the reference routes them (it has no kernel for either).
+    With grad mode on and an input that requires grad, the card runs the
+    kernel with its CUDA backward (``flash_attention_bwd``); the windowed
+    and prefix routes then raise, as every other kernel's CUDA route does
+    (``_build.refuse_grad``): only flash attention has a backward
+    kernel."""
+    if window is None and not prefix_len:
         return _flash.flash_attention(
-            q, k, v, causal=causal, prefix_len=prefix_len, q_offset=q_offset,
-            scale=scale, logit_softcap=logit_softcap)
-    if not causal or prefix_len:
+            q, k, v, causal=causal, q_offset=q_offset, scale=scale,
+            logit_softcap=logit_softcap)
+    if window is not None and (not causal or prefix_len):
         raise ValueError("windowed attention is causal, without a prefix")
     if q.device.type == "cuda":
-        _build.refuse_grad("windowed attention", q, k, v)
+        _build.refuse_grad("windowed attention" if window is not None
+                           else "prefix-LM attention", q, k, v)
+    if window is None:
+        return ref.flash_attention(q, k, v, causal=causal,
+                                   prefix_len=prefix_len, q_offset=q_offset,
+                                   scale=scale, logit_softcap=logit_softcap)
     return ref.windowed_flash_attention(q, k, v, window=window,
                                         q_offset=q_offset, scale=scale,
                                         logit_softcap=logit_softcap)

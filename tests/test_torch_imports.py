@@ -1,5 +1,6 @@
-"""Import guard of the port: no module of ``src/repro_torch`` and neither
-``chip_smoke.py`` imports JAX or anything of the JAX package ``repro`` —
+"""Import guard of the port: no module of ``src/repro_torch``, neither
+``chip_smoke.py`` nor a reading script under ``tools/`` imports JAX or
+anything of the JAX package ``repro`` —
 only ``repro_torch`` is allowed. An AST scan, so lazy imports inside
 functions count too."""
 
@@ -15,7 +16,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
 
 def _banned(name: str) -> bool:

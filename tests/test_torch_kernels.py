@@ -158,6 +158,31 @@ def test_plain_flash_attention_window_and_noncausal():
            jref.naive_attention(jq, jk, jv, causal=False))
 
 
+# (B, Sq, Sk, H, Hkv, dh, q_offset, prefix_len)
+PREFIX_CASES = {
+    "prompt-prefix": (2, 24, 24, 4, 2, 16, 0, 8),
+    "offset-sq<sk": (1, 12, 30, 4, 1, 16, 18, 10),
+    "prefix-past-sk": (1, 9, 9, 2, 2, 32, 0, 16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PREFIX_CASES))
+def test_prefix_lm_route_matches_reference_ops(case):
+    """A ``prefix_len > 0`` goes to the plain version, as the reference's
+    ``ops.flash_attention`` sends it to ``chunked_flash_attention`` on
+    every backend: the same numbers in float32, no launch counted."""
+    b, sq, sk, h, hkv, dh, qo, plen = PREFIX_CASES[case]
+    q, k, v = _flash_inputs(6, b, sq, sk, h, hkv, dh)
+    want = jops.flash_attention(*map(jnp.asarray, (q, k, v)), causal=True,
+                                prefix_len=plen, q_offset=qo)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                              causal=True, prefix_len=plen, q_offset=qo)
+    assert got.dtype == torch.float32
+    _close(got, want, tol=1e-5)
+    assert ops.launch_counts()["flash_attention"] == 0
+
+
 def test_cpu_tensors_never_count_launches():
     ops.reset_launch_counts()
     q, k, v, pos, t = _decode_inputs(5, 1, 2, 1, 8, 16)

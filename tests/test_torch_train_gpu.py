@@ -1,12 +1,14 @@
 """The training path's kernels on the card (marker ``gpu``): the
 ``flash_attention_bwd`` CUDA kernel against its plain version
 ``ref.flash_attention_bwd`` over qwen3's training, SOI-middle and prefill
-shapes, odd sequence lengths, ``q_offset`` > 0 with Sq != Sk, non-causal,
+shapes, odd sequence lengths, ``q_offset`` > 0 with Sq != Sk (and keys
+past the last query), non-causal,
 GQA G 1 to 4 and head dims 16/32/64/128, float32 (dq, dk, dv within 2e-5
 of each one's largest |value|) and bfloat16 (2e-2), repeating bit for bit;
 the forward's ``lse`` against ``ref.attention_lse``; ``FlashAttentionFn``
 through autograd against the plain forward under autograd; the grad
-refusal of the eight kernels without a backward; and the serving launch
+refusal of the eight kernels without a backward; the prefix-LM route
+(the plain version, no launch); and the serving launch
 unchanged: one device kernel a call with grad mode off, no lse.
 
 Without a CUDA device every test here skips (decided inside the ``cuda``
@@ -39,6 +41,10 @@ BWD_CASES = {
     "dh16-mha": (2, 33, 33, 4, 4, 16, 0, True),
     "offset": (2, 40, 130, 16, 8, 128, 90, True),
     "noncausal": (2, 50, 70, 8, 4, 64, 0, False),
+    # a chunk past 0: Sq, Sk and q_offset on no tile edge of either body
+    "offset-chunk-dh64": (2, 70, 199, 8, 2, 64, 129, True),
+    # keys past the last query: key tiles no row sees get zero dK, dV
+    "late-keys": (1, 50, 200, 8, 4, 128, 20, True),
 }
 
 
@@ -132,6 +138,27 @@ def test_backward_refuses_what_it_does_not_take(cuda):
         ops.flash_attention(q, k, v, logit_softcap=30.0)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_prefix_lm_route_is_the_plain_version(cuda, dt):
+    """A ``prefix_len > 0`` goes to the plain version on the card too, as
+    the reference routes it: its result, no flash launch; refused with
+    grad, and the kernel's wrapper still raises on a prefix."""
+    q, k, v, _, _, _ = _inputs("odd77-dh64", dt, cuda)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, prefix_len=20)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 0
+    assert torch.equal(got, pref.flash_attention(q, k, v, prefix_len=20))
+    assert not torch.equal(got, ops.flash_attention(q, k, v))
+    with pytest.raises(NotImplementedError, match="prefix_len"):
+        PFA.flash_attention(q, k, v, prefix_len=20)
+    q.requires_grad_()
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.flash_attention(q, k, v, prefix_len=20)
+
+
 def _eight_calls(dev, x):
     """One call of each kernel without a backward, ``x`` (requires grad)
     as its float input."""
@@ -190,7 +217,8 @@ def test_kernels_without_a_backward_refuse_grad(cuda, name):
 def test_serving_launch_is_one_kernel_without_lse(cuda):
     """Grad mode off (the engine's): one device kernel a flash call, as
     before the backward existed; with grad on, the forward is still one
-    kernel and the backward three (delta, dK/dV, dQ)."""
+    kernel and the bf16 backward two (dQ, which computes delta, then
+    dK/dV: no delta pre-pass)."""
     from torch.profiler import ProfilerActivity, profile
     q, k, v, do, _, _ = _inputs("train", torch.bfloat16, cuda, seed=2)
     with torch.no_grad():
@@ -212,6 +240,7 @@ def test_serving_launch_is_one_kernel_without_lse(cuda):
     assert sum("flash_attention_kernel" in n for n in fwd) == 1
     o = ops.flash_attention(*leaves)
     bwd = kernels(lambda: torch.autograd.grad(o, leaves, do))
-    assert sum(any(f"::{k}<" in n for k in ("delta_kernel", "dkdv_kernel",
-                                            "dq_kernel"))
-               for n in bwd) == 3
+    names = [n for n in bwd if any(f"::{k}<" in n for k in (
+        "delta_kernel", "dkdv_kernel", "dq_kernel"))]
+    assert len(names) == 2 and "::dq_kernel<" in names[0] \
+        and "::dkdv_kernel<" in names[1]
