@@ -58,7 +58,18 @@ Phases, each printing its own lines:
              kernel and the table's upload apart, host ms a call); then
              stmc_conv in float32 at B 1 on each of the 14 convs of
              soi-unet-dns beside addmm and the bound, and their sum
-             against the bound of a frame's weights.
+             against the bound of a frame's weights. The families' shapes
+             (phase 18): the decode reads, dense and paged, at
+             nemotron-4-15b's G 6 and mistral-large-123b's G 12 (8 KV heads
+             of 128, rings of 1024) and h2o-danube-1.8b's G 4 at dh 80 on
+             wrapped 4096-row rings with its window, and chunk_attention at
+             danube's chunk (dh 80, Sk 4352, window 4096), held as the
+             others (paged bit for bit dense, every split counted once)
+             and tabled with ptxas' lines. Every device-ms reading of this
+             phase sits between MARKERS spin kernels a side, the kernel's
+             held to its device kernels once a call; each kernel row also
+             keeps the reading taken the parent's way (no markers) as
+             ms_unmarked.
 4. parity  — full-width qwen3-1.7b cut to 4 layers (SOI over layers 1..3),
              float32, pp and fp: the port's SOIEngine with 3 slots (prompts
              of 200 and 201 tokens, a third of 150 after 3 steps), 8 greedy
@@ -257,13 +268,36 @@ Phases, each printing its own lines:
              loss and optimizer): finite, falling losses; the trained
              weights streamed through stmc_conv equal apply_offline within
              1e-4; SI-SNRi and MAC retain printed.
-18. the kernels JSON line (the decode reads and copy_pages also give their
+18. families — olmoe-1b-7b, h2o-danube-1.8b, nemotron-4-15b and
+             mistral-large-123b. (a) Card vs CPU: each at full width cut to
+             4 layers (SOI over 1..3), float32, pp, 3 slots (prompts of 41
+             and 43 tokens, a third of 37 after 3 steps), 8 greedy steps,
+             dense and paged (page 16): tokens identical, logits within
+             1e-3, launches as the host clocks give them (the f32 decode
+             bodies at G 6, G 12 and dh 80); the host's peak RSS. (b)
+             Serving: the serving driver at full width in bf16, SOI pp, 4
+             requests of 1024..1018 tokens, 64 generated, dense rings,
+             bucketed prefill, graphed steps — olmoe 16 layers, danube 24,
+             nemotron 32, mistral 16 of 88 (245 GB at full depth) — every
+             launch held to the host clocks' count (danube's windowed
+             prefill takes the plain path: no flash launch); tok/s, the
+             median step with and without the middle beside the weights a
+             step reads and their floor at 3.35 TB/s, and busy, idle share
+             and kernels a step from 16 graphed steps between markers. (c)
+             danube paged (page 16), chunked (256), with the prefix cache:
+             prompts of 4090, 4200 and 4198 tokens sharing their first
+             1024, so the window-4096 rings wrap onto shared pages and copy
+             them on write — tokens equal to the same chunks on dense
+             rings, 2 hits, COW flushes == copy_pages launches.
+19. the kernels JSON line (the decode reads and copy_pages also give their
              phase-15 launches under "spec"; the kernels phase 16 launches
              their launches there under "obs"; flash_attention and
-             flash_attention_bwd phase 17's under "train"), the card line,
-             and last {"ok": true, ...}.
+             flash_attention_bwd phase 17's under "train"; the decode
+             reads and chunk_attention the families' shapes with their
+             phase-18 launches under "families"), the card line, and last
+             {"ok": true, ...}.
 
-Phases 4-13, 15 and 16 run the engine and the U-Net session as a user does, so
+Phases 4-13, 15, 16 and 18 run the engine and the U-Net session as a user does, so
 on the card every generate step, window and frame after a branch's first is
 a graph replay; the kernel launch counters (Python-side) get each graph's launches
 added at every replay (``ops.add_launch_counts``), which is what their
@@ -280,6 +314,7 @@ import functools
 import json
 import math
 import re
+import resource
 import subprocess
 import sys
 import time
@@ -364,6 +399,17 @@ PATH_KERNELS = (
     ("paged_decode_attention (MQA)", ("decode_scalar_kernel", "PagedRows",
                                       "Li16ELi256E")),
     ("decode reads' combine", ("decode_combine_kernel",)),
+    # the families' instantiations (phase 18): G 6 and G 12 at dh 128, G 4
+    # at dh 80
+    *((f"{name} ({tag})", (body, rows, needle))
+      for tag, needle in (("G 6", "Li6ELi128E"), ("G 12", "Li12ELi128E"),
+                          ("dh 80", "Li4ELi80E"))
+      for name, rows in (("decode_attention", "DenseRows"),
+                         ("paged_decode_attention", "PagedRows"))
+      for body in ("decode_mma_kernel", "decode_scalar_kernel")),
+    ("chunk_attention (dh 80)", ("22chunk_attention_kernel", "Li80E")),
+    ("chunk_attention's merge (dh 80)", ("20chunk_combine_kernel",
+                                         "Li80E")),
     ("flash_attention", ("22flash_attention_kernel", "Li128ELi128E")),
     ("flash_attention (MLA)", ("22flash_attention_kernel", "Li192ELi128E")),
     ("chunk_attention", ("22chunk_attention_kernel", "Li128E")),
@@ -522,12 +568,12 @@ def _split_coverage(kern, plain, args, plan, label) -> float:
     return err
 
 
-# spin kernels on each side of a profiled run read with markers (phase
-# 17's timings, _loop_profile), of MARKER_CYCLES clocks each (~0.2 ms on
-# the H100): late in a long process a profiler session drops the device
+# spin kernels on each side of a profiled run read with markers (every
+# _device_ms reading, _loop_profile), of MARKER_CYCLES clocks each (~0.2 ms
+# on the H100): late in a long process a profiler session drops the device
 # records of its first stretch of time, longer the older the process
 # (~0.3 ms of backward calls by phase 17; _device_events), so each side
-# spans ~6 ms
+# spans ~6 ms, more where a session lost a side
 MARKERS = 32
 MARKER_CYCLES = 400_000
 
@@ -543,36 +589,47 @@ def _device_events(fn, markers: int = 0, warm=None) -> list:
     after it are returned: a profiler session late in a long process drops
     the device records of its first stretch of time (1 record after phase
     3, 5 after phase 6, ~23 by phase 17 on the H100;
-    tools/profiler_drop_reading.py). Raises if the session kept no marker
-    on one side of ``fn``'s events."""
+    tools/profiler_drop_reading.py). A session that kept no marker on one
+    side of ``fn``'s events is taken again with 4 and then 16 times the
+    markers (the stretch lost grows with the process's profiled history:
+    past ~45 ms by phase 14 after phase 3's marked readings), and a third
+    such session raises."""
     from torch.profiler import ProfilerActivity, profile
 
-    def spin():
-        for _ in range(markers):
-            torch.cuda._sleep(MARKER_CYCLES)
-        torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        if warm is not None:
-            warm()
-            torch.cuda.synchronize()
-        spin()
-        fn()
-        spin()
     cuda = torch.autograd.DeviceType.CUDA
-    ev = sorted((e.time_range.start, e.time_range.end, e.name)
-                for e in prof.events() if e.device_type == cuda)
-    if not markers:
-        return ev
-    # the markers' runs of consecutive events: the first after ``warm``'s
-    # events is the leading one, the last the trailing one
-    mark = [i for i, x in enumerate(ev) if "spin_kernel" in x[2]]
-    runs = [i for i in mark if i - 1 not in mark]
-    check(len(runs) >= 2 and mark[-1] == len(ev) - 1,
-          f"the profiler kept no marker kernel on one side of the run "
-          f"({len(mark)} of {2 * markers} kept, {len(ev)} events, the "
-          f"first a marker: {bool(mark) and mark[0] == 0})")
-    lead_end = next(i for i in mark if i >= runs[-2] and i + 1 not in mark)
-    return ev[lead_end + 1:runs[-1]]
+    for n in (markers, 4 * markers, 16 * markers):
+        def spin():
+            for _ in range(n):
+                torch.cuda._sleep(MARKER_CYCLES)
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            if warm is not None:
+                warm()
+                torch.cuda.synchronize()
+            spin()
+            fn()
+            spin()
+        ev = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in prof.events() if e.device_type == cuda)
+        if not markers or not ev:
+            # a session that kept no device record at all hands back none,
+            # as without markers (_device_ms profiles again, then times by
+            # events)
+            return ev
+        # the markers' runs of consecutive events: the first after
+        # ``warm``'s events is the leading one, the last the trailing one
+        mark = [i for i, x in enumerate(ev) if "spin_kernel" in x[2]]
+        runs = [i for i in mark if i - 1 not in mark]
+        if len(runs) >= 2 and mark[-1] == len(ev) - 1:
+            lead_end = next(i for i in mark
+                            if i >= runs[-2] and i + 1 not in mark)
+            return ev[lead_end + 1:runs[-1]]
+        print(f"  (the profiler kept no marker on one side of a run: "
+              f"{len(mark)} of {2 * n} kept, {len(ev)} events, the first a "
+              f"marker: {bool(mark) and mark[0] == 0}; profiled again)",
+              flush=True)
+    check(False, f"the profiler kept no marker kernel on one side of the "
+                 f"run with up to {16 * markers} a side")
 
 
 def _device_ms(fn, sets, iters: int, by_name=None, bound_ms=None,
@@ -698,10 +755,18 @@ def _flash_case(b, s, hkv, g, dh, dt, dev, gen, dv=None):
 
 
 def _chunk_case(b, c, s_cache, hkv, g, dh, dt, q0, filled, pad_rows, dev,
-                gen):
+                gen, window=None):
     """A serving prefill chunk: ``c`` queries at q0.. (the last
     ``pad_rows`` of them pad, at position -1) against a cache whose first
-    ``filled`` rows hold positions 0.. (the rest empty) plus the chunk."""
+    ``filled`` rows hold positions 0.. (the rest empty) plus the chunk;
+    with a ``window``, a key is live for a query only within it."""
+
+    def visible(qp, kp):
+        allow = (kp[:, None, :] >= 0) & (kp[:, None, :] <= qp[:, :, None])
+        if window is not None:
+            allow &= kp[:, None, :] > qp[:, :, None] - window
+        return allow
+
     h = hkv * g
     sk = s_cache + c
 
@@ -719,17 +784,15 @@ def _chunk_case(b, c, s_cache, hkv, g, dh, dt, q0, filled, pad_rows, dev,
     esz = torch.finfo(dt).bits // 8
     sets = _copies(make, 2 * b * sk * hkv * dh * esz)
     q, k, v, qp, kp = sets[0]
-    allow = ((kp[:, None, :] >= 0) & (kp[:, None, :] <= qp[:, :, None]))
-    pairs = int(allow.sum())
+    pairs = int(visible(qp, kp).sum())
     live_keys = int((kp >= 0).sum())
     # bytes: q and out once, the live K/V rows once, both position lanes;
     # operations: q.k and p.v over the live (query, key) pairs
     nbytes = (2 * q.numel() * esz + 2 * live_keys * hkv * dh * esz
               + (qp.numel() + kp.numel()) * 4)
     flops = 4.0 * pairs * h * dh
-    masks = {st[4].data_ptr(): ((st[4][:, None, :] >= 0)
-                                & (st[4][:, None, :] <= st[3][:, :, None]))
-             [:, None] for st in sets}
+    masks = {st[4].data_ptr(): visible(st[3], st[4])[:, None]
+             for st in sets}
 
     def library(q, k, v, qp, kp):
         return torch.nn.functional.scaled_dot_product_attention(
@@ -738,7 +801,10 @@ def _chunk_case(b, c, s_cache, hkv, g, dh, dt, q0, filled, pad_rows, dev,
 
     # SDPA leaves a query row with no live key undefined: compare live rows
     live_rows = qp[0] >= 0
-    return sets, nbytes, flops, library, {"rows": live_rows}
+    extra = {"rows": live_rows}
+    if window is not None:
+        extra["kw"] = {"window": window}
+    return sets, nbytes, flops, library, extra
 
 
 def _paged_case(b, n_pp, p_sz, hkv, g, dh, dt, t_base, dev, gen):
@@ -947,45 +1013,49 @@ def _ring_positions(ts, s, dev):
     return (t - torch.remainder(t - l, s)).to(torch.int32)
 
 
-def _rg_ring_case(b, s, g, dh, dt, t_base, window, dev, gen, paged=None):
-    """recurrentgemma's outer decode read: MQA (one KV head, G query heads
-    of dh) over rings of ``s`` rows whose clocks t_base.. have passed ``s``,
-    so every ring has wrapped, with the attention window. ``paged`` (a page
-    size) puts the same logical rows into shuffled pages of ``b * s/P + 1``
-    pool rows (page 0 the null page) and returns the paged read's case."""
+def _rg_ring_case(b, s, g, dh, dt, t_base, window, dev, gen, paged=None,
+                  hkv=1):
+    """A windowed decode read over wrapped rings: recurrentgemma's outer
+    read is MQA (one KV head, G query heads of dh), h2o-danube's ``hkv`` 8
+    KV heads of G 4; rings of ``s`` rows whose clocks t_base.. have passed
+    ``s``, so every ring has wrapped, with the attention window. ``paged``
+    (a page size) puts the same logical rows into shuffled pages of ``b *
+    s/P + 1`` pool rows (page 0 the null page) and returns the paged read's
+    case."""
     ts = [t_base - 2 * i for i in range(b)]
+    h = hkv * g
     n_pp = s // paged if paged else 0
     n_pages = b * n_pp + 1
 
     def make():
-        q = torch.randn((b, g, dh), generator=gen, device=dev).to(dt)
-        k = torch.randn((b, s, 1, dh), generator=gen, device=dev).to(dt)
-        v = torch.randn((b, s, 1, dh), generator=gen, device=dev).to(dt)
+        q = torch.randn((b, h, dh), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, s, hkv, dh), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, s, hkv, dh), generator=gen, device=dev).to(dt)
         pos = _ring_positions(ts, s, dev)
         t = torch.tensor(ts, dtype=torch.int32, device=dev)
         if not paged:
             return q, k, v, pos, t
         perm = 1 + torch.randperm(n_pages - 1, generator=gen, device=dev)
         pm = perm.view(b, n_pp).to(torch.int32)
-        shape = (n_pages, paged, 1, dh)
+        shape = (n_pages, paged, hkv, dh)
         kp = torch.randn(shape, generator=gen, device=dev).to(dt)
         vp = torch.randn(shape, generator=gen, device=dev).to(dt)
         pp = torch.full((n_pages, paged), -1, dtype=torch.int32, device=dev)
         pp[0] = torch.arange(paged, dtype=torch.int32, device=dev)
         idx = pm.long().view(-1)
-        kp[idx] = k.reshape(b * n_pp, paged, 1, dh)
-        vp[idx] = v.reshape(b * n_pp, paged, 1, dh)
+        kp[idx] = k.reshape(b * n_pp, paged, hkv, dh)
+        vp[idx] = v.reshape(b * n_pp, paged, hkv, dh)
         pp[idx] = pos.reshape(b * n_pp, paged)
         return q, kp, vp, pp, pm, t
 
     esz = torch.finfo(dt).bits // 8
-    sets = _copies(make, 2 * b * s * dh * esz)
+    sets = _copies(make, 2 * b * s * hkv * dh * esz)
     # every ring row is live (the window covers the whole ring) and read
     # once as K and once as V; q and out once; positions, map and clocks
     live = b * s
-    nbytes = (2 * b * g * dh * esz + 2 * live * dh * esz + live * 4 + b * 4
-              + (b * n_pp * 4 if paged else 0))
-    flops = 4.0 * live * g * dh
+    nbytes = (2 * b * h * dh * esz + 2 * live * hkv * dh * esz + live * 4
+              + b * 4 + (b * n_pp * 4 if paged else 0))
+    flops = 4.0 * live * h * dh
     views = {}
     for st in sets:
         if paged:
@@ -1102,6 +1172,36 @@ KERNEL_META = {
         replaces_note="no Pallas kernel: the reference differentiates "
                       "ref.chunked_flash_attention with XLA"),
 }
+# the device kernel each wrapper launches once a call, by name (phase 3's
+# readings hold a profile to them: one that lost a record is taken again);
+# the decode reads also launch their combine once a call, a split chunk
+# read its merge (_call_kernels)
+CALL_KERNELS = {
+    "decode_attention": ("decode_mma_kernel", "decode_scalar_kernel"),
+    "paged_decode_attention": ("decode_mma_kernel", "decode_scalar_kernel"),
+    "flash_attention": ("flash_attention_kernel",),
+    "chunk_attention": ("chunk_attention_kernel",),
+    "mla_chunk_attention": ("mla_chunk_attention_kernel",),
+    "paged_mla_decode_attention": ("paged_mla_decode_attention_kernel",),
+    "copy_pages": ("copy_pages_kernel",),
+    "lru_scan": ("lru_scan_kernel",),
+    "stmc_conv": ("stmc_conv_kernel",),
+}
+
+
+def _call_kernels(name: str, dt, n_split: int) -> tuple:
+    """The device kernels a call of wrapper ``name`` in ``dt`` launches
+    once each: the decode reads' split body of the dtype and their combine,
+    chunk_attention's range kernel and, split, its merge; the others'
+    one kernel."""
+    if name in DECODE_READS:
+        body = CALL_KERNELS[name][0 if dt == torch.bfloat16 else 1]
+        return body, "decode_combine_kernel"
+    if name == "chunk_attention" and n_split > 1:
+        return CALL_KERNELS[name] + ("chunk_combine_kernel",)
+    return CALL_KERNELS[name]
+
+
 # kernels whose path runs float32 (the rest: bfloat16)
 F32_PATHS = ("lru_scan", "stmc_conv")
 DECODE_READS = ("decode_attention", "paged_decode_attention")
@@ -1208,6 +1308,41 @@ def _redesign_table(recs, log: str):
             print("  " + line)
 
 
+# phase 3's label of each family of phase 18 whose decode or chunk shape
+# is new (a shape's label starts with it)
+FAMILY_OF = {"nemotron": "nemotron-4-15b", "mistral": "mistral-large-123b",
+             "danube": "h2o-danube-1.8b"}
+
+
+def _family(shape: str):
+    """The family whose shape phase 3 reads under this label, or None."""
+    return next((f for f in FAMILY_OF if shape.startswith(f)), None)
+
+
+def _family_table(recs, log: str):
+    """Phase 3's table of the families' new shapes in bf16: device ms
+    between markers [the parent's reading without them], CUDA-event ms, x
+    SDPA, plain, bound (share), max|Δ| against its tolerance, the split of
+    S and the paged read equal to the dense kernel's; then ptxas' lines of
+    their instantiations, both dtypes."""
+    print("  the families' shapes, bf16 (device ms [without markers] "
+          "{event ms}; x SDPA; plain; bound (share); max|Δ| / tol; split):")
+    for r in recs:
+        split = (f"{r['n_split']} x {r['keys_per_split']}"
+                 if "n_split" in r else "-")
+        unmarked = r["ms_unmarked"] or math.nan
+        print(f"    {r['name']} {r['shape']}: {r['ms']:.4f} "
+              f"[{unmarked:.4f}] {{{r['event_ms']:.4f}}}; "
+              f"x{r['ms'] / r['library_ms']:.2f}; {r['plain_ms']:.4f}; "
+              f"{r['bound_ms']:.5f} ({r['bound_ms'] / r['ms']:.3f}); "
+              f"{r['max_abs_err']:.2e} / {r['tol']:.2e}; {split}"
+              + ("; == dense kernel" if r.get("equals_dense_kernel")
+                 else ""))
+    for line in _ptxas_lines(log):
+        if any(k in line for k in ("G 6", "G 12", "dh 80")):
+            print("  " + line)
+
+
 def _unet_conv_sweep(dev, gen) -> dict:
     """stmc_conv in float32 at B 1 (one live stream) on each of the 14
     convs of soi-unet-dns, beside torch.addmm and the bound (device ms from
@@ -1233,9 +1368,11 @@ def _unet_conv_sweep(dev, gen) -> dict:
         err = float((got - ref.stmc_conv(*sets[0])).abs().max())
         check(err < TOL[f32], f"stmc_conv {label}: max|Δ| {err}")
         bound, _ = _bound(nbytes, flops, f32)
-        ms = (_device_ms(SC.stmc_conv, sets, 20, bound_ms=bound)
+        ms = (_device_ms(SC.stmc_conv, sets, 20, bound_ms=bound,
+                         markers=MARKERS, each=CALL_KERNELS["stmc_conv"])
               or _time_ms(SC.stmc_conv, sets, 50))
-        lib = _device_ms(library, sets, 20) or _time_ms(library, sets, 50)
+        lib = (_device_ms(library, sets, 20, markers=MARKERS)
+               or _time_ms(library, sets, 50))
         plan = SC.stmc_plan(1, k * cin, cout, f32)
         print(f"    {label} ({k * cin}x{cout}): {ms:.4f}; {lib:.4f}; "
               f"{bound:.5f} ({bound / ms:.3f}); {plan.blocks} blocks = "
@@ -1340,10 +1477,15 @@ def _cow_flush_reading(label, tables, dev, gen) -> dict:
     rec = {"name": "copy_pages", "shape": label, "dtype": "bfloat16",
            "max_abs_err": 0.0, "leaves": n_leaves}
     rec["bound_ms"], rec["bound_by"] = _bound(nbytes, 0.0, torch.bfloat16)
-    for key, fn, iters in (("", one, 20), ("per_leaf_", per_leaf, 5)):
+    # one launch a call names its kernel; a launch a leaf launches it once
+    # a leaf, which the profile is held to through the bound alone
+    for key, fn, iters, each in (
+            ("", one, 20, CALL_KERNELS["copy_pages"]),
+            ("per_leaf_", per_leaf, 5, ())):
         parts: dict = {}
         rec[key + "ms"] = (_device_ms(fn, sets, iters, parts,
-                                      bound_ms=rec["bound_ms"])
+                                      bound_ms=rec["bound_ms"],
+                                      markers=MARKERS, each=each)
                            or _time_ms(fn, sets, iters))
         rec[key + "kernel_ms"], rec[key + "upload_ms"] = kernel_and_copy(
             parts)
@@ -1356,9 +1498,10 @@ def _cow_flush_reading(label, tables, dev, gen) -> dict:
         80)
     rec["host_upload_ms"] = _host_ms(lambda *_: PC._upload(table, dev), sets,
                                      80)
-    rec["plain_ms"] = (_device_ms(plain, sets, 5, bound_ms=rec["bound_ms"])
+    rec["plain_ms"] = (_device_ms(plain, sets, 5, bound_ms=rec["bound_ms"],
+                                  markers=MARKERS)
                        or _time_ms(plain, sets, 5))
-    rec["library_ms"] = (_device_ms(library, sets, 5)
+    rec["library_ms"] = (_device_ms(library, sets, 5, markers=MARKERS)
                          or _time_ms(library, sets, 5))
     rec["bytes"] = nbytes
     print(json.dumps({"kernels": [rec]}), flush=True)
@@ -1492,6 +1635,41 @@ def kernels_phase(dev) -> dict:
                       _rg_ring_case(4, 2048, 16, 256, dt, 2072, 2048, dev,
                                     gen, paged=16),
                       DA.paged_decode_attention, ref.paged_decode_attention))
+        # the families' new decode shapes (phase 18's serving reads):
+        # nemotron-4-15b G 6 and mistral-large-123b G 12 (8 KV heads of
+        # 128) at clocks 1000.. of 1024-row rings; h2o-danube-1.8b G 4 at
+        # dh 80 on wrapped 4096-row rings with its window (clocks 4200..),
+        # dense and paged (page 16); danube's chunk of 256 queries at 4096..
+        # against its full ring of 4096 plus the chunk, with the window
+        for fam, g in (("nemotron", 6), ("mistral", 12)):
+            cases.append(("decode_attention",
+                          f"{fam} (4,1024,8,128) G {g} t 1000", dt,
+                          _decode_case(4, 1024, 8, g, 128, dt, 1000, dev,
+                                       gen),
+                          DA.decode_attention, ref.decode_attention))
+            cases.append(("paged_decode_attention",
+                          f"{fam} pools (257,16,8,128) map (4,64) G {g} "
+                          f"t 1000", dt,
+                          _paged_case(4, 64, 16, 8, g, 128, dt, 1000, dev,
+                                      gen),
+                          DA.paged_decode_attention,
+                          ref.paged_decode_attention))
+        cases.append(("decode_attention",
+                      "danube ring (4,4096,8,80) G 4 t 4200 w 4096", dt,
+                      _rg_ring_case(4, 4096, 4, 80, dt, 4200, 4096, dev, gen,
+                                    hkv=8),
+                      DA.decode_attention, ref.decode_attention))
+        cases.append(("paged_decode_attention",
+                      "danube pools (1025,16,8,80) map (4,256) G 4 t 4200 "
+                      "w 4096", dt,
+                      _rg_ring_case(4, 4096, 4, 80, dt, 4200, 4096, dev, gen,
+                                    paged=16, hkv=8),
+                      DA.paged_decode_attention, ref.paged_decode_attention))
+        cases.append(("chunk_attention",
+                      "danube q(1,256,32,80) Sk 4352 w 4096", dt,
+                      _chunk_case(1, 256, 4096, 8, 4, 80, dt, 4096, 4096, 0,
+                                  dev, gen, window=4096),
+                      CA.chunk_attention, ref.chunk_attention))
     # recurrentgemma's prefill recurrence: float32 a and x (the path's
     # dtype) at the outer (2040 tokens) and middle (1020 frames) shapes,
     # then a start state and an odd shape; bfloat16 inputs too
@@ -1533,7 +1711,7 @@ def kernels_phase(dev) -> dict:
                   torch.bfloat16, copy_case,
                   lambda pool, _s, _d: PC.copy_pages(pool, *host_ids),
                   ref.copy_pages))
-    main, chunk_recs, redesigned = {}, [], []
+    main, chunk_recs, redesigned, family_recs = {}, [], [], []
     for (name, shape, dt, (sets, nbytes, flops, library, extra), kern,
          plain) in cases:
         kw = extra.get("kw", {})
@@ -1587,7 +1765,7 @@ def kernels_phase(dev) -> dict:
             else:
                 plan = DA.paged_launch_plan(args[0], args[1], args[4])
             rec_extra["n_split"], rec_extra["keys_per_split"] = plan[:2]
-            if shape.startswith("RG"):
+            if shape.startswith("RG") or _family(shape):
                 rec_extra["split_coverage_err"] = _split_coverage(
                     kern, plain, args, plan, f"{name} {shape} {dt}")
             rec_extra["host_ms"] = _host_ms(kern, sets, 100)
@@ -1648,11 +1826,19 @@ def kernels_phase(dev) -> dict:
         parts = {}
         bound_ms, bound_by = _bound(nbytes, flops, dt)
         # the kernel and its plain version compute the row's function: a
-        # reading under its bound is a profile that lost events
-        dev_ms = {"ms": _device_ms(kern, sets, 20, parts, bound_ms=bound_ms),
-                  "plain_ms": _device_ms(plain, sets, 5, bound_ms=bound_ms),
-                  "library_ms": (_device_ms(library, sets, 20)
+        # reading under its bound is a profile that lost events. Every
+        # reading sits between MARKERS spin kernels a side, and the
+        # kernel's holds each of its device kernels once a call; the
+        # parent's reading (no markers, no names) is kept beside it
+        each = _call_kernels(name, dt, rec_extra.get("n_split", 1))
+        dev_ms = {"ms": _device_ms(kern, sets, 20, parts, bound_ms=bound_ms,
+                                   markers=MARKERS, each=each),
+                  "plain_ms": _device_ms(plain, sets, 5, bound_ms=bound_ms,
+                                         markers=MARKERS),
+                  "library_ms": (_device_ms(library, sets, 20,
+                                            markers=MARKERS)
                                  if has_lib else None)}
+        rec_extra["ms_unmarked"] = _device_ms(kern, sets, 20)
         for key, val in dev_ms.items():
             if val is None:            # the profiler saw no device activity
                 dev_ms[key] = event[key.replace("ms", "event_ms")]
@@ -1671,9 +1857,12 @@ def kernels_phase(dev) -> dict:
         print(json.dumps({"kernels": [rec]}), flush=True)
         if is_chunk:
             chunk_recs.append(rec)
+        if _family(shape):
+            family_recs.append(rec)
         if name in REDESIGNED:
             redesigned.append(rec)
-        key = name + (" (MLA)" if shape.startswith("MLA") else
+        key = name + (f" ({_family(shape)})" if _family(shape) else
+                      " (MLA)" if shape.startswith("MLA") else
                       " (RG middle)" if shape.startswith("RG middle") else
                       " (RG)" if shape.startswith("RG") else
                       " (middle)" if is_chunk and shape.startswith("middle")
@@ -1682,8 +1871,11 @@ def kernels_phase(dev) -> dict:
                       else torch.bfloat16)
         if dt == serving_dt and key not in main:
             main[key] = rec
-    _chunk_table(chunk_recs, _build.build_info().log)
+    _chunk_table([r for r in chunk_recs if not _family(r["shape"])],
+                 _build.build_info().log)
     _redesign_table(redesigned, _build.build_info().log)
+    _family_table([r for r in family_recs if r["dtype"] == "bfloat16"],
+                  _build.build_info().log)
     # a whole COW flush: qwen3's serving pools (28 layers, SOI 7..21: 14 on
     # the outer table's 273 pages, 14 on the middle's 193), k, v and pos;
     # then an MLA flush (latent, rope, pos) of 2 + 2 layers
@@ -4311,6 +4503,296 @@ def train_phase(dev, card) -> tuple:
     return rec, counts
 
 
+# ---------------------------------------------------------------------------
+# 18. families: olmoe-1b-7b, h2o-danube-1.8b, nemotron-4-15b and
+#     mistral-large-123b through the engine
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("olmoe-1b-7b", "h2o-danube-1.8b", "nemotron-4-15b",
+                "mistral-large-123b")
+# the serving depth of each (None: all its layers). mistral-large-123b's 88
+# layers hold 245 GB in bf16; 16 of them hold ~46 GB, alone on the card
+FAMILY_LAYERS = {"mistral-large-123b": 16}
+# danube paged: request 0 fits the window-4096 ring (so the prefix index
+# keeps its pages), requests 1 and 2 share its first 1024 tokens and wrap
+# their rings in prefill; all three wrap in decode onto shared pages
+DANUBE_PLENS = (4090, 4200, 4198)
+DANUBE_SHARED = 1024
+DANUBE_CHUNK = 256
+
+
+def _host_peak_gib() -> float:
+    """The process's peak resident set on the host (Linux: KiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def _windowed(cfg) -> bool:
+    return any(b.attn is not None and b.attn.window is not None
+               for seg in cfg.segments for b in seg.blocks)
+
+
+def _counts_want(counts, want, label):
+    """Every kernel's launches equal ``want`` (0 where it names none)."""
+    for name, n in counts.items():
+        check(n == want.get(name, 0),
+              f"{label}: {name} launches {n} != {want.get(name, 0)} "
+              f"(expected {want})")
+
+
+def _family_parity(arch, dev) -> dict:
+    """Full width cut to 4 layers (SOI over 1..3), float32, pp: 3 slots
+    (prompts of 41 and 43 tokens, a third of 37 after 3 steps), 8 greedy
+    steps on the card and on the CPU, dense and paged (page 16): tokens
+    identical, logits within 1e-3, launches as the host clocks give them.
+    Returns {layout: the card run's counts}."""
+    from repro_torch import configs
+    from repro_torch.engine import SOIEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(configs.get(arch, soi="pp", n_layers=4),
+                              dtype="float32")
+    t0 = time.perf_counter()
+    dev_model = T.init(cfg, generator=torch.Generator(device=dev)
+                       .manual_seed(11), device=dev)
+    cpu_model = _cpu_copy(dev_model, cfg)
+    n_par = sum(p.numel() for p in dev_model.parameters())
+    a = cfg.segments[0].blocks[0].attn
+    print(f"  {arch} parity: {n_par / 1e9:.2f} B float32 parameters "
+          f"({4 * n_par / 1e9:.1f} GB a side; H {a.n_heads} / Hkv "
+          f"{a.n_kv}, dh {a.head_dim}), on the card and on the host "
+          f"({time.perf_counter() - t0:.1f} s to build and copy); host peak "
+          f"RSS {_host_peak_gib():.1f} GiB", flush=True)
+    gen = torch.Generator().manual_seed(12)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen,
+                             dtype=torch.int32) for n in (41, 43, 37)]
+    n_outer = cfg.soi.first_layer + cfg.n_layers - cfg.soi.last_layer
+    n_mid = cfg.soi.last_layer - cfg.soi.first_layer
+    out = {}
+    for layout, kw in (("dense", {}),
+                       ("paged", dict(paged=True, page_size=16))):
+        runs = []
+        for where, model in ((torch.device("cpu"), cpu_model),
+                             (dev, dev_model)):
+            eng = SOIEngine(cfg, max_concurrent_decodes=3, max_len=64,
+                            device=where, **kw)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            runs.append(_greedy(eng, model, [p.to(where) for p in prompts]))
+            torch.cuda.synchronize(dev)
+            counts = ops.launch_counts()          # the card run's, last
+            took = time.perf_counter() - t0
+        worst = _compare_runs(runs, f"{arch} {layout}")
+        read = ("paged_decode_attention" if layout == "paged"
+                else "decode_attention")
+        want = {read: n_outer * eng.steps + n_mid * eng.mid_steps,
+                "flash_attention": 0 if _windowed(cfg) else 3 * cfg.n_layers}
+        _counts_want(counts, want, f"{arch} parity {layout}")
+        print(f"  {arch} {layout}: 8 steps, tokens identical, max|Δlogit| "
+              f"{worst:.3e}; card launches {want} (card run "
+              f"{took:.2f} s)", flush=True)
+        out[layout] = counts
+    print(f"  {arch}: host peak RSS {_host_peak_gib():.1f} GiB")
+    del cpu_model, dev_model
+    _free(dev)
+    return out
+
+
+def _weight_floor(params, cfg) -> tuple:
+    """(bytes, ms at 3.35 TB/s) of the weights a decode step reads, with
+    the SOI middle and without it: every parameter but the embedding table
+    (a step looks up B rows of it; the head reads the table when tied),
+    without the middle's layers and the compress conv when it is skipped.
+    A MoE layer's experts count whole: the port multiplies every expert's
+    capacity buffer (ROADMAP.md Queue 2 C)."""
+    from repro_torch.models import transformer as T
+
+    def nbytes(mods):
+        return sum(p.numel() * p.element_size() for m in mods
+                   for p in m.parameters())
+    total = nbytes([params]) - (0 if cfg.tie_embeddings else
+                                params.embed.numel()
+                                * params.embed.element_size())
+    _pre, mid, _post = T.split_blocks(params, cfg)
+    skipped = nbytes(mid) + (params.soi_compress.numel()
+                             * params.soi_compress.element_size())
+    return ((total, total / HBM_BYTES_PER_S * 1e3),
+            (total - skipped, (total - skipped) / HBM_BYTES_PER_S * 1e3))
+
+
+def _family_serve(arch, dev) -> tuple:
+    """The serving driver at full width (``FAMILY_LAYERS`` cuts depth),
+    bf16, SOI pp, 4 requests of 1024..1018 tokens, 64 generated, dense
+    rings, bucketed prefill, graphed steps: launches held to the host
+    clocks' count; median step with and without the middle; tok/s; busy,
+    idle share and kernels a step from 16 graphed steps between markers.
+    Returns (counts, cfg, params) (the weights for danube's paged run)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    argv = ["--arch", arch, "--soi", "pp", "--batch", "4", "--prompt-len",
+            "1024", "--stagger", "2", "--gen-len", "64", "--seed", "0"]
+    if arch in FAMILY_LAYERS:
+        argv += ["--layers", str(FAMILY_LAYERS[arch])]
+    args = serve.parse_args(argv)
+    t0 = time.perf_counter()
+    cfg, params, prompt, plens, engine = serve.setup(args)
+    torch.cuda.synchronize(dev)
+    n_par = sum(p.numel() for p in params.parameters())
+    print(f"  {arch} serve: {cfg.n_layers} layers (SOI "
+          f"{cfg.soi.first_layer}..{cfg.soi.last_layer - 1}), "
+          f"{n_par / 1e9:.2f} B bf16 parameters ({2 * n_par / 1e9:.1f} GB) "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    res = serve.serve(engine, params, prompt, plens, args.gen_len)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    n_outer = cfg.soi.first_layer + cfg.n_layers - cfg.soi.last_layer
+    n_mid = cfg.soi.last_layer - cfg.soi.first_layer
+    want = {"decode_attention": n_outer * res.steps + n_mid * res.mid_steps,
+            "flash_attention": (0 if _windowed(cfg)
+                                else cfg.n_layers * len(res.seqs))}
+    check(res.seqs.shape == (4, 64), f"{arch}: tokens {res.seqs.shape}")
+    check(((res.seqs >= 0) & (res.seqs < cfg.vocab)).all(),
+          f"{arch}: token ids outside [0, vocab)")
+    _counts_want(counts, want, f"{arch} serve")
+    print(f"  {arch}: prefill {res.prefill_s:.3f} s for {len(res.seqs)} "
+          f"requests (lens {plens}), decode {res.decoded} tokens in "
+          f"{res.decode_s:.3f} s = {res.decoded / res.decode_s:.1f} tok/s "
+          f"(host clock); {res.steps} steps, {res.mid_steps} with the "
+          f"middle; peak device memory {peak:.2f} GiB; launches {want} "
+          f"== counted", flush=True)
+    on, off = _phase_step_ms(engine, params, prompt, plens)
+    (w_on, f_on), (w_off, f_off) = _weight_floor(params, cfg)
+    print(f"  {arch} step (host clock after a synchronize, median of 16): "
+          f"{on:.3f} ms with the SOI middle, {off:.3f} without; weights "
+          f"read a step {w_on / 1e9:.2f} / {w_off / 1e9:.2f} GB, floor "
+          f"{f_on:.3f} / {f_off:.3f} ms at 3.35 TB/s")
+    ds = engine.init_decode_state(params)
+    for slot, n in enumerate(plens):
+        ds = engine.insert(engine.prefill(params, prompt[slot, :n]), ds,
+                           slot)
+    st = {"ds": ds, "prev": None}
+
+    def step():
+        st["ds"], r = engine.generate(params, st["ds"])
+        if st["prev"] is not None:
+            st["prev"].convert_to_numpy()
+        st["prev"] = r
+    n_prof = 16
+    busy, idle, kern, reads = _loop_profile(
+        step, n_prof, READ_KERNELS["split"], "decode_attention", arch)
+    print(f"  {arch} profiled {n_prof} graphed steps: busy {busy:.3f} ms a "
+          f"step, idle share {idle:.3f}, {kern:.0f} device kernels a step, "
+          f"decode reads {reads} on the device == counted", flush=True)
+    del st, ds, engine
+    return counts, cfg, params
+
+
+def _danube_paged(cfg, params, dev) -> dict:
+    """h2o-danube-1.8b paged (page 16) with chunked prefill (256) and the
+    prefix cache against dense rings with the same chunks, one prompt set
+    (``DANUBE_PLENS``, the first ``DANUBE_SHARED`` tokens shared): the
+    window-4096 rings wrap onto shared pages and copy them on write. Tokens
+    equal the dense run's; counters, COW flushes and launches as the
+    engine and the host clocks give them. Returns {layout: counts}."""
+    from repro_torch.engine import SOIEngine
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    gen_len = 64
+    gen = torch.Generator(device=dev).manual_seed(13)
+    prompt = torch.randint(0, cfg.vocab, (3, max(DANUBE_PLENS)),
+                           generator=gen, device=dev, dtype=torch.int32)
+    prompt[:, :DANUBE_SHARED] = prompt[0, :DANUBE_SHARED]
+    n_outer = cfg.soi.first_layer + cfg.n_layers - cfg.soi.last_layer
+    n_mid = cfg.soi.last_layer - cfg.soi.first_layer
+    kw = dict(max_concurrent_decodes=3, max_len=max(DANUBE_PLENS) + gen_len,
+              device=dev, prefill_chunk=DANUBE_CHUNK)
+    engines = {"dense": SOIEngine(cfg, **kw),
+               "paged": SOIEngine(cfg, paged=True, page_size=16,
+                                  prefix_cache=True, **kw)}
+    chunks = {"dense": sum(-(-p // DANUBE_CHUNK) for p in DANUBE_PLENS),
+              "paged": (-(-DANUBE_PLENS[0] // DANUBE_CHUNK)
+                        + sum(-(-p // DANUBE_CHUNK)
+                              - DANUBE_SHARED // DANUBE_CHUNK
+                              for p in DANUBE_PLENS[1:]))}
+    out, seqs = {}, {}
+    for layout, eng in engines.items():
+        ops.reset_launch_counts()
+        res = serve.serve(eng, params, prompt, list(DANUBE_PLENS), gen_len)
+        counts = ops.launch_counts()
+        read = ("paged_decode_attention" if layout == "paged"
+                else "decode_attention")
+        want = {read: n_outer * res.steps + n_mid * res.mid_steps,
+                "chunk_attention": cfg.n_layers * chunks[layout],
+                "copy_pages": res.cow_flushes}
+        check(res.seqs.shape == (3, gen_len),
+              f"danube {layout}: tokens {res.seqs.shape}")
+        _counts_want(counts, want, f"danube {layout}")
+        print(f"  danube {layout} (chunk {DANUBE_CHUNK}): prefill "
+              f"{res.prefill_s:.3f} s for 3 requests (lens "
+              f"{list(DANUBE_PLENS)}, {DANUBE_SHARED} shared), decode "
+              f"{res.decoded / res.decode_s:.1f} tok/s (host clock); "
+              f"launches {want} == counted; prefix cache "
+              f"{res.prefix_cache}; pools {res.pools}", flush=True)
+        out[layout], seqs[layout] = counts, res.seqs
+        if layout == "paged":
+            pc = res.prefix_cache
+            check(pc["hits"] == 2 and pc["misses"] == 1
+                  and pc["tokens_skipped"] == 2 * DANUBE_SHARED
+                  and pc["cow_copies"] > 0,
+                  f"danube prefix-cache counters {pc}")
+            check(res.cow_flushes > 0
+                  and counts["copy_pages"] == res.cow_flushes,
+                  f"danube copy_pages {counts['copy_pages']} != COW "
+                  f"flushes {res.cow_flushes}")
+    check((seqs["dense"] == seqs["paged"]).all(),
+          "danube: paged prefix-cache tokens differ from the dense run's")
+    print("  danube: paged prefix-cache tokens identical to the dense "
+          "run's; the window-4096 rings wrapped onto shared pages "
+          "(copy_pages once a COW flush)")
+    del engines
+    return out
+
+
+def _family_launches(name, arch, fam) -> tuple:
+    """(launches, the run) of a kernel's shape of ``arch`` in phase 18:
+    the dense decode read on the bf16 serve, danube's paged read and chunk
+    kernel on its paged prefix-cache run, and the paged read of the G 6 /
+    G 12 families on their paged card-vs-CPU run (f32, 4 layers)."""
+    if name == "decode_attention":
+        return (fam["serve"][arch][name],
+                f"families serve ({arch}, bf16, dense)")
+    if arch == "h2o-danube-1.8b":
+        return (fam["danube"]["paged"][name],
+                "families danube paged prefix cache (bf16)")
+    return (fam["parity"][arch]["paged"][name],
+            f"families parity ({arch}, 4 layers, f32, paged)")
+
+
+def families_phase(dev) -> dict:
+    """Returns {"parity": {arch: {layout: counts}}, "serve": {arch:
+    counts}, "danube": {layout: counts}}."""
+    layers = ", ".join(f"{a} {FAMILY_LAYERS[a]} layers" for a in
+                       FAMILY_LAYERS)
+    phase(f"18 families (olmoe-1b-7b, h2o-danube-1.8b, nemotron-4-15b, "
+          f"mistral-large-123b: card vs CPU at 4 layers f32, then serving "
+          f"at full width in bf16, {layers}; danube paged with the prefix "
+          f"cache)")
+    t0 = time.perf_counter()
+    out = {"parity": {}, "serve": {}}
+    for arch in FAMILY_ARCHS:
+        out["parity"][arch] = _family_parity(arch, dev)
+    for arch in FAMILY_ARCHS:
+        counts, cfg, params = _family_serve(arch, dev)
+        out["serve"][arch] = counts
+        if arch == "h2o-danube-1.8b":
+            out["danube"] = _danube_paged(cfg, params, dev)
+        del params
+        _free(dev)
+    print(f"  families phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     card = device_phase()
     dev = torch.device("cuda", 0)
@@ -4331,6 +4813,8 @@ def main():
     spec_counts = spec_phase(dev, PLAIN_SEQS)
     obs_counts = obs_phase(dev, PLAIN_SEQS, graph_kernels)
     main_recs["flash_attention_bwd"], train_counts = train_phase(dev, card)
+    _free(dev)
+    fam = families_phase(dev)
     # launches: each kernel's count on its own path's run — the dense
     # serve (phase 5), the paged prefix-cache serve (phase 6), the
     # deepseek-v2 serve (phase 8), the MLA prefix-cache serve (phase 9),
@@ -4367,7 +4851,20 @@ def main():
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"],
-            "dtype": rec["dtype"]})
+            "dtype": rec["dtype"], "ms_unmarked": rec.get("ms_unmarked")})
+        families = {}
+        for label, arch in FAMILY_OF.items():
+            r = main_recs.get(f"{name} ({label})")
+            if r is None:
+                continue
+            n, on = _family_launches(name, arch, fam)
+            check(n > 0, f"{name} never launched on {on}")
+            families[label] = {key: r[key] for key in (
+                "shape", "max_abs_err", "ms", "ms_unmarked", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")}
+            families[label].update(launches=n, launches_on=on)
+        if families:
+            summary[-1]["families"] = families
         if name == "flash_attention":
             # its second path: deepseek-v2's exact-length MLA prefill
             mla = main_recs["flash_attention (MLA)"]
@@ -4441,7 +4938,7 @@ def main():
             summary[-1]["rg_middle"].update(
                 launches=rg_second[name][name],
                 launches_on="rg serve (dense), outer and middle layers")
-    print(f"== 18 done in {time.perf_counter() - T_START:.1f} s")
+    print(f"== 19 done in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ("qwen3-1.7b", "deepseek-v2-236b", "recurrentgemma-9b")
+ARCHS = ("qwen3-1.7b", "deepseek-v2-236b", "recurrentgemma-9b",
+         "olmoe-1b-7b", "h2o-danube-1.8b", "nemotron-4-15b",
+         "mistral-large-123b")
 CONV_ARCHS = ("soi-unet-dns",)
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")

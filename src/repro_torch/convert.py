@@ -12,9 +12,12 @@ dh, d)``, MLA's ``wdq``/``wuq``/``wdkv``/``wuk``/``wuv``, the MoE's
 experts, the RG-LRU's ``wa``/``wb``/``conv``/``conv_b``/``wr``/``wi``/
 ``br``/``bi``/``lam``/``wo`` (a scanned (rec, rec, attn) pattern keeps
 them under ``sub0``..``sub2``), ``lm_head (d, vocab)``, ``soi.compress
-(stride, d, d)``, ``soi.fuse (2d, d)``. A norm leaf ``{"scale": ...}``
-becomes its scale tensor. This module imports no JAX: the caller hands
-over numpy.
+(stride, d, d)``, ``soi.fuse (2d, d)``. A block or final norm leaf
+``{"scale": ...}`` becomes its scale tensor, and a LayerNorm's ``bias``
+beside it becomes ``<name>_bias`` (``ln1_bias``, ``ln2_bias``,
+``final_norm_bias``); the plain MLP kinds (relu2, gelu) carry no ``gate``.
+A leaf missing or left over on either side is refused. This module
+imports no JAX: the caller hands over numpy.
 """
 
 from __future__ import annotations
@@ -60,16 +63,23 @@ def from_jax_params(params: dict, cfg: ModelCfg, *, device=None,
         return torch.from_numpy(np.array(x, dtype=np.float32)).to(
             device=dev, dtype=dtype)
 
+    def norm(name, leaf):
+        # a block or final norm: its scale, and a LayerNorm's bias
+        out = {name: t(leaf["scale"])}
+        if "bias" in leaf:
+            out[name + "_bias"] = t(leaf["bias"])
+        return out
+
     tensors = {"embed": t(params["embed"]),
-               "final_norm": t(params["final_norm"]["scale"])}
+               **norm("final_norm", params["final_norm"])}
     layers = _layer_trees(params, cfg)
     if len(layers) != len(model.blocks):
         raise ValueError(f"{len(layers)} layers in the tree, "
                          f"{len(model.blocks)} in the config")
     for i, lp in enumerate(layers):
         pre = f"blocks.{i}."
-        tensors[pre + "ln1"] = t(lp["ln1"]["scale"])
-        tensors[pre + "ln2"] = t(lp["ln2"]["scale"])
+        tensors.update(norm(pre + "ln1", lp["ln1"]))
+        tensors.update(norm(pre + "ln2", lp["ln2"]))
         for mod in ("attn", "rglru", "mlp", "moe"):
             for name, leaf in lp.get(mod, {}).items():
                 if isinstance(leaf, dict):           # a norm: its scale

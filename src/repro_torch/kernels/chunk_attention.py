@@ -77,7 +77,8 @@ plain = ref.chunk_attention
 mla_plain = ref.mla_chunk_attention
 
 _DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
-HEAD_DIMS = (16, 32, 64, 128)
+# head widths the kernel is built for (80: h2o-danube-1.8b)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 
 # the bf16 body's block: ROW_TILE (query, head) rows of one KV head, keys in
 # tiles of KEY_TILE (a split's unit)

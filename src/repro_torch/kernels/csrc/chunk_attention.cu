@@ -82,8 +82,11 @@
 //    score tile and 4 rows x dh/16 output dims.
 //
 // In both, K/V are read at Hkv heads (q head h reads KV head h / G), dh is
-// a template parameter in {16, 32, 64, 128}, and an optional logit softcap
-// is applied before the mask, as in the reference.
+// a template parameter in {16, 32, 64, 80, 128} (80: h2o-danube-1.8b; its
+// rows of 160 bytes keep every 16-byte copy aligned, 5 k-steps and 10
+// output n-tiles on the tensor cores, 5 dims a thread in the scalar body),
+// and an optional logit softcap is applied before the mask, as in the
+// reference.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -664,7 +667,9 @@ chunk_walk_kernel(Args a) {
 constexpr int kMergeRows = 8;       // output rows a merge block: a warp each
 
 // The merge of the splits' partials: one warp an output row (b, query,
-// head), a lane DH/32 consecutive dims (at DH 16, lanes 0..15 one each).
+// head), a lane ceil(DH/32) consecutive dims (at DH 16, lanes 0..15 one
+// each; at DH 80, lanes 0..26 three each, the last two past the row's end
+// left out).
 // The splits' maxima (logit x log2 e) reduce to M; every lane then adds its
 // dims' partials in split order, weighted by 2^(m_i - M), and divides by
 // max(the weighted sum of l_i, 1e-30). A split that saw no key for the row
@@ -674,7 +679,7 @@ __global__ void __launch_bounds__(32 * kMergeRows)
 chunk_combine_kernel(const float* __restrict__ acc,
                      const float* __restrict__ ml, bf16* __restrict__ out,
                      int rows, int n_split) {
-  constexpr int kPer = DH >= 32 ? DH / 32 : 1;
+  constexpr int kPer = (DH + 31) / 32;
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * kMergeRows + threadIdx.x / 32;
   if (row >= rows) return;
@@ -696,7 +701,7 @@ chunk_combine_kernel(const float* __restrict__ acc,
     const float2 x = mlr[s];
     const float w = fast_exp2(x.x - mx);
     float v[kPer];
-    load_f32<float, kPer>(ar + (size_t)s * DH, v);
+    load_lane<float, kPer, DH>(ar + (size_t)s * DH, d0, v);
     den += x.y * w;
 #pragma unroll
     for (int i = 0; i < kPer; ++i) num[i] += v[i] * w;
@@ -705,7 +710,9 @@ chunk_combine_kernel(const float* __restrict__ acc,
   const float inv = 1.f / fmaxf(den, 1e-30f);
   bf16* o = out + (size_t)row * DH + d0;
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) o[i] = __float2bfloat16(num[i] * inv);
+  for (int i = 0; i < kPer; ++i)
+    if (!ragged_lanes<DH>() || d0 + i < DH)
+      o[i] = __float2bfloat16(num[i] * inv);
 }
 
 template <int DH>
@@ -748,6 +755,7 @@ cudaError_t dispatch(const Args& a, int DH, cudaStream_t st) {
     case 16: return launch<16>(a, st);
     case 32: return launch<32>(a, st);
     case 64: return launch<64>(a, st);
+    case 80: return launch<80>(a, st);
     case 128: return launch<128>(a, st);
     default: return cudaErrorInvalidValue;
   }
@@ -766,6 +774,8 @@ cudaError_t by_dh(int DH, const void* q, const void* k, const void* v,
     case 32: return launch<T, 32>(q, k, v, qpos, kpos, out, B, C, Sk, H, Hkv,
                                   window, scale, softcap, st);
     case 64: return launch<T, 64>(q, k, v, qpos, kpos, out, B, C, Sk, H, Hkv,
+                                  window, scale, softcap, st);
+    case 80: return launch<T, 80>(q, k, v, qpos, kpos, out, B, C, Sk, H, Hkv,
                                   window, scale, softcap, st);
     case 128: return launch<T, 128>(q, k, v, qpos, kpos, out, B, C, Sk, H,
                                     Hkv, window, scale, softcap, st);

@@ -48,6 +48,28 @@ __device__ __forceinline__ void load_f32(const T* p, float (&r)[P]) {
   }
 }
 
+// A lane of a warp that spans a row of DH holds ceil(DH/32) consecutive
+// dims from lane * ceil(DH/32); where that does not divide DH (dh 80: 3 a
+// lane) the last live lane's run passes the row's end, so its loads and
+// stores stop at DH.
+template <int DH>
+__host__ __device__ constexpr bool ragged_lanes() {
+  return DH % ((DH + 31) / 32) != 0;
+}
+
+// Loads a lane's dims [d0, d0 + P) of a row of DH at p (= row + d0) as
+// float32, those at or past DH as 0.
+template <typename T, int P, int DH>
+__device__ __forceinline__ void load_lane(const T* p, int d0,
+                                          float (&r)[P]) {
+  if constexpr (ragged_lanes<DH>()) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) r[j] = d0 + j < DH ? to_f32(p[j]) : 0.f;
+  } else {
+    load_f32<T, P>(p, r);
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)

@@ -55,17 +55,23 @@
 // warp scores 16 keys (K fragments by ldmatrix), the warps' row maxima meet
 // in shared memory, each warp rescales and exponentiates its scores (base
 // 2, ex2.approx) and writes P, rounded to bf16, to a shared 16 x 64 tile;
-// then each warp owns dh/4 output columns (64 at dh 256, a 16 x 64 f32
-// accumulator of 32 registers a thread) and adds P V with V fragments by
-// ldmatrix.trans.
+// then each warp owns ceil(dh/64) pairs of 8-column n-tiles (64 columns at
+// dh 256, a 16 x 64 f32 accumulator of 32 registers a thread; at dh 80 the
+// 5 pairs fall 2, 2, 1, 0 to the warps) and adds P V with V fragments by
+// ldmatrix.trans. Rows G..15 of the tile (G 6, 12) are zero and never
+// written back. A dh-80 row is 160 bytes, so every cp.async source stays
+// 16-byte aligned, and a padded shared row of 176 bytes keeps ldmatrix
+// conflict-free.
 //
 // float32 (the dtype of the card-vs-CPU parity checks), decode_scalar_kernel:
 // the scalar body on the CUDA cores, so the parity keeps float32 products.
 // A block keeps the G query heads of one KV head while G*dh <= 1024, else
-// 1024/dh of them; each of its 8 warps walks every 8th chunk of 8 keys (4
-// at dh 256) of the range, a lane owns dh/32 head dims, a key's score is a
-// shuffle reduction, and the warps' states merge in shared memory before
-// the partial is written.
+// the most heads that divide G within 1024/dh (8 at G 16 / dh 128, 6 at
+// G 12 / dh 128); each of its 8 warps walks every 8th chunk of 8 keys (4
+// at dh 256) of the range, a lane owns ceil(dh/32) consecutive head dims
+// (at dh 80, 3: lanes 0..26, the last two dims of lane 26 and lanes past
+// it idle), a key's score is a shuffle reduction, and the warps' states
+// merge in shared memory before the partial is written.
 #pragma once
 
 #include <atomic>
@@ -163,13 +169,18 @@ __device__ __forceinline__ void split_live(const Rows& rows,
 
 constexpr int kScalarWarps = 8;
 
-// Query heads a block keeps: all G of its KV head while their float32
-// accumulators stay within 1024 per lane group (32 KB of shared memory for
-// the warp merge), else 1024/DH of them (grid y = Hkv * G/GB).
+// Query heads a block keeps: the most that divide G and keep their float32
+// accumulators within 1024 per lane group (32 KB of shared memory for the
+// warp merge): all G of its KV head when G*DH <= 1024, 8 at G 16 / dh 128,
+// 6 at G 12 / dh 128 (grid y = Hkv * G/GB, so GB must divide G or heads
+// past a multiple of GB would go unread).
 template <int G, int DH>
 __host__ __device__ constexpr int scalar_heads() {
-  return G * DH <= 1024 ? G : 1024 / DH;
+  int gb = G;
+  while (gb > 1 && (gb * DH > 1024 || G % gb)) --gb;
+  return gb;
 }
+
 
 // Keys a warp loads before it scores them: 8, or 4 at DH 256, where 8
 // would hold 128 K/V floats a lane in registers.
@@ -181,6 +192,7 @@ __global__ void __launch_bounds__(kScalarWarps * 32)
 decode_scalar_kernel(DecodeArgs a, Rows rows) {
   constexpr int PL = (DH + 31) / 32;  // head dims per lane
   constexpr int GB = scalar_heads<G, DH>();
+  static_assert(G % GB == 0, "a block's heads must tile the group");
   constexpr int kChunk = chunk_keys<DH>();
   __shared__ int sRow[kMaxSplitKeys];
   __shared__ unsigned char sLive[kMaxSplitKeys];
@@ -198,8 +210,8 @@ decode_scalar_kernel(DecodeArgs a, Rows rows) {
 #pragma unroll
   for (int g = 0; g < GB; ++g) {
     if (lane_live) {
-      load_f32<T, PL>(q + ((size_t)b * a.H + (size_t)h0 + g) * DH + d0,
-                      qr[g]);
+      load_lane<T, PL, DH>(q + ((size_t)b * a.H + (size_t)h0 + g) * DH +
+                               d0, d0, qr[g]);
     } else {
 #pragma unroll
       for (int j = 0; j < PL; ++j) qr[g][j] = 0.f;
@@ -234,8 +246,8 @@ decode_scalar_kernel(DecodeArgs a, Rows rows) {
       const int row = in_range[c] ? sRow[i] : -1;
       live[c] = in_range[c] && sLive[i];
       if (row >= 0 && lane_live) {
-        load_f32<T, PL>(kb + (size_t)row * row_stride, kr[c]);
-        load_f32<T, PL>(vb + (size_t)row * row_stride, vr[c]);
+        load_lane<T, PL, DH>(kb + (size_t)row * row_stride, d0, kr[c]);
+        load_lane<T, PL, DH>(vb + (size_t)row * row_stride, d0, vr[c]);
       } else {
 #pragma unroll
         for (int j = 0; j < PL; ++j) kr[c][j] = vr[c][j] = 0.f;
@@ -279,7 +291,9 @@ decode_scalar_kernel(DecodeArgs a, Rows rows) {
     }
     if (lane_live) {
 #pragma unroll
-      for (int j = 0; j < PL; ++j) sm_acc[warp][g][d0 + j] = acc[g][j];
+      for (int j = 0; j < PL; ++j)
+        if (!ragged_lanes<DH>() || d0 + j < DH)
+          sm_acc[warp][g][d0 + j] = acc[g][j];
     }
   }
   __syncthreads();
@@ -560,8 +574,9 @@ decode_mma_kernel(DecodeArgs a, Rows rows, int stages) {
 // Splits the combine takes: their weights and sums sit in shared memory.
 constexpr int kMaxSplits = 4096;
 
-// One block a (slot, head), a thread for every blockDim-th head dim (one
-// dim each where DH <= blockDim; the MLA read's 512 on 256 threads): the
+// One block a (slot, head) of whole warps (the shuffles name all 32
+// lanes), a thread for every blockDim-th head dim (one dim each where DH
+// <= blockDim, dh 80 on 96 threads; the MLA read's 512 on 256): the
 // splits' maxima reduce to M, the weights exp(m_i - M) and sums l_i go to
 // shared memory, then every thread adds its dims' partials in split order
 // with 8 loads in flight. kBase2: the partials' m are logits x log2 e (the
@@ -642,22 +657,35 @@ cudaError_t launch(const DecodeArgs& a, const Rows& rows, cudaStream_t st) {
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int bh = a.B * a.H;
-  decode_combine_kernel<T, kMma><<<bh, DH < 32 ? 32 : DH, 0, st>>>(
+  decode_combine_kernel<T, kMma><<<bh, (DH + 31) / 32 * 32, 0, st>>>(
       a.scratch, a.scratch + (size_t)bh * a.n_split * DH,
       static_cast<T*>(a.out), a.n_split, DH);
   return cudaGetLastError();
 }
 
+// The instantiated (G, dh): G in {1, 2, 4, 8, 16} at dh in {16, 32, 64,
+// 128, 256}, and the configs' own pairs beyond them, each only where a
+// config uses it (kernels/decode_attention.py::SHAPES): G 6 and G 12 at dh
+// 128 (nemotron-4-15b, mistral-large-123b) and G 4 at dh 80
+// (h2o-danube-1.8b). Any other pair is refused.
 template <class Rows, typename T, int G>
 cudaError_t by_dh(int DH, const DecodeArgs& a, const Rows& rows,
                   cudaStream_t st) {
-  switch (DH) {
-    case 16: return launch<Rows, T, G, 16>(a, rows, st);
-    case 32: return launch<Rows, T, G, 32>(a, rows, st);
-    case 64: return launch<Rows, T, G, 64>(a, rows, st);
-    case 128: return launch<Rows, T, G, 128>(a, rows, st);
-    case 256: return launch<Rows, T, G, 256>(a, rows, st);
-    default: return cudaErrorInvalidValue;
+  if constexpr (G == 6 || G == 12) {
+    if (DH == 128) return launch<Rows, T, G, 128>(a, rows, st);
+    return cudaErrorInvalidValue;
+  } else {
+    switch (DH) {
+      case 16: return launch<Rows, T, G, 16>(a, rows, st);
+      case 32: return launch<Rows, T, G, 32>(a, rows, st);
+      case 64: return launch<Rows, T, G, 64>(a, rows, st);
+      case 80:
+        if constexpr (G == 4) return launch<Rows, T, G, 80>(a, rows, st);
+        return cudaErrorInvalidValue;
+      case 128: return launch<Rows, T, G, 128>(a, rows, st);
+      case 256: return launch<Rows, T, G, 256>(a, rows, st);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 
@@ -668,7 +696,9 @@ cudaError_t by_g(int G, int DH, const DecodeArgs& a, const Rows& rows,
     case 1: return by_dh<Rows, T, 1>(DH, a, rows, st);
     case 2: return by_dh<Rows, T, 2>(DH, a, rows, st);
     case 4: return by_dh<Rows, T, 4>(DH, a, rows, st);
+    case 6: return by_dh<Rows, T, 6>(DH, a, rows, st);
     case 8: return by_dh<Rows, T, 8>(DH, a, rows, st);
+    case 12: return by_dh<Rows, T, 12>(DH, a, rows, st);
     case 16: return by_dh<Rows, T, 16>(DH, a, rows, st);
     default: return cudaErrorInvalidValue;
   }

@@ -10,7 +10,9 @@ kernel ``repro/kernels/decode_attention.py::decode_attention``.
   is those bytes over the 3.35 TB/s memory rate.
 * Design: flash-decoding. :func:`decode_split` cuts a slot's S rows into
   ``n_split`` ranges of ``keys_per_split`` (a multiple of 64) so that about
-  two blocks an SM run (grid ``(B, Hkv·G/GB, n_split)``); each block
+  two blocks an SM run (grid ``(B, Hkv·G/GB, n_split)``, GB the heads
+  of a block: all G in bf16, in float32 the most that divide G within
+  1024/dh); each block
   runs a float32 online softmax over its range and writes a partial
   ``(m, l, acc)`` per head to a float32 scratch (:func:`scratch_shape`),
   and a second kernel merges the partials in split order (no atomics). In
@@ -106,6 +108,18 @@ paged_mla_plain = ref.paged_mla_decode_attention
 _DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 GROUPS = (1, 2, 4, 8, 16)
+# (G, dh) pairs instantiated beyond GROUPS x HEAD_DIMS, each for the config
+# that uses it: nemotron-4-15b (48/8 heads of 128), mistral-large-123b
+# (96/8 of 128), h2o-danube-1.8b (32/8 of 80). Compile time grows with
+# every pair, so no other is built.
+CONFIG_SHAPES = ((6, 128), (12, 128), (4, 80))
+
+
+def instantiated(g, dh):
+    """Whether the decode reads' kernels are built for ``g`` query heads
+    a KV head at head width ``dh``."""
+    return (g in GROUPS and dh in HEAD_DIMS) or (g, dh) in CONFIG_SHAPES
+
 
 # keys a split holds: a multiple of SPLIT_TILE (the bf16 body's key tile),
 # at most MAX_SPLIT_KEYS (the kernels keep a range's rows in shared memory)
@@ -179,10 +193,11 @@ def _check_cuda(q, k_cache, v_cache, cache_positions, q_position):
                         f"{v_cache.dtype}")
     if cache_positions.dtype != torch.int32 or q_position.dtype != torch.int32:
         raise TypeError("positions must be int32")
-    if h % hkv or h // hkv not in GROUPS or dh not in HEAD_DIMS:
+    if h % hkv or not instantiated(h // hkv, dh):
         raise NotImplementedError(
             f"decode_attention kernel takes G in {GROUPS} and dh in "
-            f"{HEAD_DIMS}, got H={h} Hkv={hkv} dh={dh}")
+            f"{HEAD_DIMS}, or (G, dh) in {CONFIG_SHAPES}, got H={h} "
+            f"Hkv={hkv} dh={dh}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
                     ("cache_positions", cache_positions),
                     ("q_position", q_position)):
@@ -256,10 +271,11 @@ def _check_paged_cuda(q, k_pool, v_pool, pos_pool, page_map, q_position):
     if (pos_pool.dtype != torch.int32 or page_map.dtype != torch.int32
             or q_position.dtype != torch.int32):
         raise TypeError("positions and page_map must be int32")
-    if h % hkv or h // hkv not in GROUPS or dh not in HEAD_DIMS:
+    if h % hkv or not instantiated(h // hkv, dh):
         raise NotImplementedError(
             f"paged_decode_attention kernel takes G in {GROUPS} and dh in "
-            f"{HEAD_DIMS}, got H={h} Hkv={hkv} dh={dh}")
+            f"{HEAD_DIMS}, or (G, dh) in {CONFIG_SHAPES}, got H={h} "
+            f"Hkv={hkv} dh={dh}")
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
                     ("pos_pool", pos_pool), ("page_map", page_map),
                     ("q_position", q_position)):

@@ -30,11 +30,11 @@ import torch
 from repro_torch.configs.base import ModelCfg
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru as rgm
-from repro_torch.models.layers import norm_apply
 from repro_torch.models.mlp import mlp_apply
 from repro_torch.models.transformer import (_dtype, _embed_tokens,
                                             _head_weights, _segment_forward,
-                                            cast_params, channel_mix,
+                                            block_norm, cast_params,
+                                            channel_mix, final_norm,
                                             soi_compress,
                                             soi_extrapolate, soi_fuse,
                                             soi_partition, softcap_logits,
@@ -157,14 +157,14 @@ def init_decode_state(params, cfg: ModelCfg, batch: int, max_len: int, *,
 def _block_decode(bp, cfg: ModelCfg, x, cache, t, *, commit=None,
                   pages=None):
     eps = cfg.norm_eps
-    h = norm_apply("rmsnorm", bp.ln1, x, eps=eps)
+    h = block_norm(bp, 1, x, eps)
     if bp.bcfg.rglru is not None:
         h = rgm.rglru_decode(bp.rglru, h, cache, commit=commit)
     else:
         h, _ = attn.attn_decode(bp.attn, h, cache, t, norm_eps=eps,
                                 commit=commit, pages=pages)
     x = x + h
-    h = norm_apply("rmsnorm", bp.ln2, x, eps=eps)
+    h = block_norm(bp, 2, x, eps)
     return x + channel_mix(bp, h)
 
 
@@ -186,7 +186,7 @@ def _embed_one(params, cfg: ModelCfg, token):
 def _logits_one(params, cfg: ModelCfg, x):
     """Final norm + head; logits in float32, soft-capped where the config
     says so."""
-    h = norm_apply("rmsnorm", params.final_norm, x, eps=cfg.norm_eps)
+    h = final_norm(params, cfg, x)
     return softcap_logits(cfg,
                           torch.matmul(h, _head_weights(params)).float())
 
@@ -321,11 +321,11 @@ def _block_chunk(bp, cfg: ModelCfg, x, cache, offset: int, true_length: int):
     """One block over a prefill chunk (B, C, d): attention appends to the
     ring cache at ``offset``; the MLP is per position."""
     eps = cfg.norm_eps
-    h = norm_apply("rmsnorm", bp.ln1, x, eps=eps)
+    h = block_norm(bp, 1, x, eps)
     h, _ = attn.attn_chunk(bp.attn, h, cache, offset, true_length,
                            norm_eps=eps)
     x = x + h
-    h = norm_apply("rmsnorm", bp.ln2, x, eps=eps)
+    h = block_norm(bp, 2, x, eps)
     return x + mlp_apply(bp.mlp, h)
 
 

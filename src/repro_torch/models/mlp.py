@@ -1,6 +1,7 @@
-"""Channel mixer (port of the gated paths of ``repro.models.mlp``: SwiGLU
-and GeGLU), with weights in the reference's einsum layout ``up/gate (d,
-d_ff)``, ``down (d_ff, d)``. GeGLU's GeLU is the tanh approximation, as
+"""Channel mixer (port of ``repro.models.mlp``): the gated SwiGLU and
+GeGLU, and the plain squared-ReLU (nemotron) and GeLU, with weights in the
+reference's einsum layout ``up (d, d_ff)``, ``down (d_ff, d)`` and — gated
+kinds only — ``gate (d, d_ff)``. GeLU is the tanh approximation, as
 ``jax.nn.gelu`` computes it by default (PyTorch's default is the erf
 form)."""
 
@@ -19,21 +20,29 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-_GATED = {"swiglu": F.silu, "geglu": gelu}
+def relu2(x: torch.Tensor) -> torch.Tensor:
+    """Squared ReLU (nemotron's channel mixer)."""
+    return torch.square(F.relu(x))
+
+
+GATED = {"swiglu": F.silu, "geglu": gelu}
+PLAIN = {"relu2": relu2, "gelu": gelu}
 
 
 class MLP(nn.Module):
     def __init__(self, cfg: MLPCfg, d: int, *, generator: torch.Generator,
                  device, dtype=torch.float32):
         super().__init__()
-        if cfg.kind not in _GATED:
+        if cfg.kind not in GATED and cfg.kind not in PLAIN:
             raise NotImplementedError(
                 f"mlp kind {cfg.kind!r} is not ported yet; see ROADMAP.md")
         kw = dict(generator=generator, device=device, dtype=dtype)
         self.up = nn.Parameter(dense_init((d, cfg.d_ff), **kw))
         self.down = nn.Parameter(dense_init((cfg.d_ff, d), **kw))
-        self.gate = nn.Parameter(dense_init((d, cfg.d_ff), **kw))
-        self.act = _GATED[cfg.kind]
+        self.gated = cfg.kind in GATED
+        if self.gated:
+            self.gate = nn.Parameter(dense_init((d, cfg.d_ff), **kw))
+        self.act = GATED[cfg.kind] if self.gated else PLAIN[cfg.kind]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return mlp_apply(self, x)
@@ -42,5 +51,8 @@ class MLP(nn.Module):
 def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
     """x: (..., d) -> (..., d)."""
     h = torch.matmul(x, p.up)
-    h = h * p.act(torch.matmul(x, p.gate))
+    if p.gated:
+        h = h * p.act(torch.matmul(x, p.gate))
+    else:
+        h = p.act(h)
     return torch.matmul(h, p.down)

@@ -8,7 +8,10 @@ the final norm, the untied ``lm_head (d, vocab)`` of configs that do not tie
 it to the embedding, and — for SOI configs — the S-CC compress conv
 ``soi_compress (stride, d, d)`` and the skip fusion ``soi_fuse (2d, d)``.
 A block mixes the sequence with attention (GQA or MLA) or with the RG-LRU
-(recurrentgemma), and channels with an MLP or a MoE. Gemma configs scale
+(recurrentgemma), and channels with an MLP (gated SwiGLU / GeGLU, or the
+plain squared-ReLU / GeLU) or a MoE, each behind an RMSNorm or — with
+``norm="layernorm"`` (nemotron) — a LayerNorm that carries a bias beside
+its scale; the final norm takes the first block's kind. Gemma configs scale
 the embeddings by sqrt(d) (``embed_scale``) and soft-cap the logits
 (``logits_softcap``).
 
@@ -35,7 +38,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import rglru as rgm
 from repro_torch.models.layers import dense_init, embed_init, norm_apply, \
     trunc_normal
-from repro_torch.models.mlp import MLP, mlp_apply
+from repro_torch.models.mlp import GATED, MLP, mlp_apply
 from repro_torch.models.moe import MoE, moe_apply
 
 
@@ -43,14 +46,26 @@ def _dtype(cfg: ModelCfg) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _norm_param(d: int, device, dtype) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(d, device=device, dtype=dtype))
+NORMS = ("rmsnorm", "layernorm")
+
+
+def _norm_params(module: nn.Module, name: str, kind: str, d: int, device,
+                 dtype) -> None:
+    """The norm ``name`` of ``kind`` on ``module``: its zero-initialised
+    (1 + scale) scale, and — a LayerNorm — its zero bias ``<name>_bias``
+    (None for an RMSNorm, so every block answers the same names)."""
+    setattr(module, name, nn.Parameter(torch.zeros(d, device=device,
+                                                   dtype=dtype)))
+    bias = (nn.Parameter(torch.zeros(d, device=device, dtype=dtype))
+            if kind == "layernorm" else None)
+    module.register_parameter(name + "_bias", bias)
 
 
 class Block(nn.Module):
     """One block: a sequence mixer — attention or the RG-LRU — and an MLP
-    or a MoE channel mixer (``ln1``/``ln2`` are the (1 + scale) RMSNorm
-    scales before each)."""
+    or a MoE channel mixer (``ln1``/``ln2`` are the (1 + scale) norm scales
+    before each, ``ln1_bias``/``ln2_bias`` their biases in a LayerNorm
+    block)."""
 
     def __init__(self, b: BlockCfg, d: int, *, generator, device,
                  dtype=torch.float32):
@@ -58,24 +73,38 @@ class Block(nn.Module):
         if ((b.attn is None) == (b.rglru is None)
                 or (b.mlp is None) == (b.moe is None)
                 or b.rwkv is not None
-                or b.cross_attn is not None or b.norm != "rmsnorm"
+                or b.cross_attn is not None or b.norm not in NORMS
                 or b.post_norm):
             raise NotImplementedError(
-                "the port runs attention or RG-LRU + MLP or MoE RMSNorm "
-                "blocks only; other block kinds are not ported yet (see "
-                "ROADMAP.md)")
+                "the port runs attention or RG-LRU + MLP or MoE blocks "
+                "behind RMSNorm or LayerNorm only; other block kinds are "
+                "not ported yet (see ROADMAP.md)")
         self.bcfg = b
         kw = dict(generator=generator, device=device, dtype=dtype)
-        self.ln1 = _norm_param(d, device, dtype)
+        _norm_params(self, "ln1", b.norm, d, device, dtype)
         if b.attn is not None:
             self.attn = attn.Attention(b.attn, d, **kw)
         else:
             self.rglru = rgm.RGLRU(b.rglru, d, **kw)
-        self.ln2 = _norm_param(d, device, dtype)
+        _norm_params(self, "ln2", b.norm, d, device, dtype)
         if b.moe is not None:
             self.moe = MoE(b.moe, d, **kw)
         else:
             self.mlp = MLP(b.mlp, d, **kw)
+
+
+def block_norm(bp: Block, which: int, x, eps: float):
+    """The block's norm before its sequence mixer (``which`` 1) or its
+    channel mixer (2), of the block's kind."""
+    return norm_apply(bp.bcfg.norm, getattr(bp, f"ln{which}"), x,
+                      bias=getattr(bp, f"ln{which}_bias"), eps=eps)
+
+
+def final_norm(params, cfg: ModelCfg, x):
+    """The final norm, of the first block's kind (the reference's
+    ``cfg.segments[0].blocks[0].norm``)."""
+    return norm_apply(cfg.segments[0].blocks[0].norm, params.final_norm, x,
+                      bias=params.final_norm_bias, eps=cfg.norm_eps)
 
 
 def channel_mix(bp: Block, x):
@@ -100,7 +129,8 @@ class Transformer(nn.Module):
         d = cfg.d_model
         kw = dict(generator=generator, device=device, dtype=dtype)
         self.embed = nn.Parameter(embed_init(cfg.vocab, d, **kw))
-        self.final_norm = _norm_param(d, device, dtype)
+        _norm_params(self, "final_norm", cfg.segments[0].blocks[0].norm, d,
+                     device, dtype)
         self.blocks = nn.ModuleList(
             Block(b, d, **kw) for b in layer_blocks(cfg))
         if not cfg.tie_embeddings:
@@ -159,7 +189,7 @@ def _block_apply(bp: Block, cfg: ModelCfg, x, *, positions, fill_cache=None,
     cache (None without ``fill_cache``), or an RG-LRU block's recurrence
     state."""
     eps = cfg.norm_eps
-    h = norm_apply("rmsnorm", bp.ln1, x, eps=eps)
+    h = block_norm(bp, 1, x, eps)
     if bp.bcfg.rglru is not None:
         h, cache = rgm.rglru_forward(bp.rglru, h)
     else:
@@ -167,7 +197,7 @@ def _block_apply(bp: Block, cfg: ModelCfg, x, *, positions, fill_cache=None,
                                      norm_eps=eps, fill_cache=fill_cache,
                                      fill_true_length=fill_true_length)
     x = x + h
-    h = norm_apply("rmsnorm", bp.ln2, x, eps=eps)
+    h = block_norm(bp, 2, x, eps)
     return x + channel_mix(bp, h), cache
 
 
@@ -282,7 +312,7 @@ def trunk(params: Transformer, cfg: ModelCfg, tokens):
         xc, _ = _segment_forward(mid, cfg, xc, positions=cpos)
         x = soi_fuse(params, soi_extrapolate(soi, xc, s), skip)
         x, _ = _segment_forward(post, cfg, x, positions=positions)
-    return norm_apply("rmsnorm", params.final_norm, x, eps=cfg.norm_eps)
+    return final_norm(params, cfg, x)
 
 
 def _head_weights(params: Transformer):
@@ -317,14 +347,23 @@ def forward(params: Transformer, cfg: ModelCfg, tokens):
 # ---------------------------------------------------------------------------
 
 def check_trainable(cfg: ModelCfg) -> None:
-    """Raise for configs whose training is not ported: MoE blocks (the port
-    drops the router's aux loss) and RG-LRU blocks (``lru_scan`` has no
-    backward), on every device."""
+    """Raise for configs whose training is not ported, on every device:
+    MoE blocks (the port drops the router's aux loss), RG-LRU blocks
+    (``lru_scan`` has no backward), and the blocks that serve but whose
+    training no test holds against the JAX trainer yet — LayerNorm, the
+    plain (squared-ReLU / GeLU) MLP and windowed attention (ROADMAP.md
+    Queue 1 item 7)."""
     for b in layer_blocks(cfg):
-        if b.moe is not None or b.rglru is not None:
+        kind = ("MoE" if b.moe is not None else
+                "RG-LRU" if b.rglru is not None else
+                "LayerNorm" if b.norm == "layernorm" else
+                f"{b.mlp.kind} MLP" if b.mlp.kind not in GATED else
+                "windowed attention" if b.attn.window is not None else None)
+        if kind is not None:
             raise NotImplementedError(
-                f"config '{cfg.name}': training covers attention + MLP "
-                f"stacks; MoE and RG-LRU training are queued in ROADMAP.md")
+                f"config '{cfg.name}': training covers RMSNorm attention + "
+                f"gated MLP stacks; {kind} training is queued in ROADMAP.md "
+                f"(Queue 1 item 7)")
 
 
 def _xent_chunk(hb, head_w, tb, softcap):

@@ -358,6 +358,86 @@ def test_plain_paged_decode_attention_matches_reference(case):
         q, dense["k"], dense["v"], dense["pos"], t, window=win))
 
 
+# ---------------------------------------------------------------------------
+# the configs' new decode and chunk shapes: G 6 (nemotron-4-15b, 48/8), G 12
+# (mistral-large-123b, 96/8), both at dh 128, and dh 80 at G 4
+# (h2o-danube-1.8b, 32/8) on wrapped windowed rings
+# ---------------------------------------------------------------------------
+
+CONFIG_READS = {
+    "g6_dh128": dict(h=12, hkv=2, dh=128),
+    "g12_dh128": dict(h=24, hkv=2, dh=128),
+    "g4_dh80_ring_window": dict(h=8, hkv=2, dh=80, ring=True, window=21),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CONFIG_READS))
+def test_plain_decode_reads_at_config_shapes_match_reference_ops(case):
+    """The plain dense and paged reads against ``repro.kernels.ops`` (the
+    reference's CPU path) and its Pallas kernels in interpret mode, on the
+    same numpy inputs, to 1e-5; paged bit for bit the dense read of the
+    gathered rows."""
+    kw = dict(CONFIG_READS[case])
+    win = kw.pop("window", None)
+    ring = kw.pop("ring", False)
+    q, k, v, pos, t = _decode_inputs(12, b=3, s=40, ring=ring, **kw)
+    jargs = list(map(jnp.asarray, (q, k, v, pos, t)))
+    got = ops.decode_attention(*map(torch.from_numpy, (q, k, v, pos, t)),
+                               window=win)
+    _close(got, jops.decode_attention(*jargs, window=win), tol=1e-5)
+    _close(got, JDA.decode_attention(*jargs, window=win, block_k=16,
+                                     interpret=True), tol=1e-5)
+    pargs = _paged_inputs(13, b=3, p_sz=4, n_pp=5, n_pages=16, ring=ring,
+                          **kw)
+    jp = list(map(jnp.asarray, pargs))
+    pgot = ops.paged_decode_attention(*map(torch.from_numpy, pargs),
+                                      window=win)
+    _close(pgot, jops.paged_decode_attention(*jp, window=win), tol=1e-5)
+    _close(pgot, JDA.paged_decode_attention(*jp, window=win, interpret=True),
+           tol=1e-5)
+    pq, kp, vp, pp, pm, pt = map(torch.from_numpy, pargs)
+    dense = paged_view({"k": kp, "v": vp, "pos": pp}, pm)
+    assert torch.equal(pgot, pref.decode_attention(
+        pq, dense["k"], dense["v"], dense["pos"], pt, window=win))
+
+
+def test_kernels_are_built_for_the_configs_shapes_only():
+    """The CUDA decode reads take G 6 and 12 at dh 128 and G 4 at dh 80
+    beside G {1, 2, 4, 8, 16} x dh {16, ..., 256}, and refuse any other
+    pair (the wrappers raise on a CUDA tensor); the chunk kernel takes dh
+    80 beside 16..128."""
+    for g, dh in ((6, 128), (12, 128), (4, 80), (2, 128), (16, 256)):
+        assert PDA.instantiated(g, dh), (g, dh)
+    for g, dh in ((3, 128), (6, 64), (12, 256), (2, 80), (8, 80), (4, 96)):
+        assert not PDA.instantiated(g, dh), (g, dh)
+    assert 80 in PCA.HEAD_DIMS and 96 not in PCA.HEAD_DIMS
+
+
+CONFIG_CHUNKS = {
+    "g6_dh128": dict(h=12, hkv=2, dh=128),
+    "g12_dh128": dict(h=24, hkv=2, dh=128),
+    # danube's chunk on a wrapped ring with its window, pad rows at -1
+    "g4_dh80_ring_window": dict(h=8, hkv=2, dh=80, ring=True, filled=40,
+                                q0=60, window=24),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CONFIG_CHUNKS))
+def test_plain_chunk_attention_at_config_shapes_matches_reference_ops(case):
+    kw = dict(CONFIG_CHUNKS[case])
+    win = kw.pop("window", None)
+    q, k, v, qp, kp = _chunk_inputs(14, b=2, c=12, sk=52, pad_rows=3, **kw)
+    jargs = list(map(jnp.asarray, (q, k, v, qp, kp)))
+    got = ops.chunk_attention(*map(torch.from_numpy, (q, k, v, qp, kp)),
+                              window=win)
+    _close(got, jops.chunk_attention(*jargs, window=win), tol=1e-5)
+    live = qp[0] >= 0
+    pallas = JCA.chunk_attention(*jargs, window=win, block_q=8, block_k=16,
+                                 interpret=True)
+    _close(got[:, live], np.asarray(pallas)[:, live], tol=1e-5)
+    assert np.isfinite(got.numpy()).all()
+
+
 def test_gather_pages_matches_reference():
     pool = _normal(np.random.default_rng(10), (6, 4, 2, 8))
     rows = np.asarray([3, 1, 0, 5], np.int32)

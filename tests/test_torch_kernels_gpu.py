@@ -4,11 +4,13 @@ serving path's shapes: float32 (max|Δ| < 2e-5) and bfloat16 (< 2e-2) for
 the attention kernels (GQA and absorbed MLA, flash attention with d_v !=
 d_qk too, its bf16 tensor-core body on ragged tiles and repeating bit for
 bit, the decode reads at recurrentgemma's G 16 / dh 256 on a wrapped
-windowed ring and at the edges of their split of S, where the paged read
-equals the dense one bit for bit, bf16 results repeat bit for bit and stay
+windowed ring and at the edges of their split of S and at the families' G 6, G 12
+(dh 128) and dh 80 (G 4, wrapped window rings), where the paged read
+equals the dense one bit for bit, a (G, dh) no config uses raising, bf16 results repeat bit for bit and stay
 within 2^-6 of their largest output, and every split's partial counts
 once at its weight; the chunk kernels' bf16 tensor-core bodies over whole
-dead key tiles, q tiles of pad rows only, ragged C and Sk, G 1 to 8 and H
+dead key tiles, q tiles of pad rows only, ragged C and Sk, G 1 to 12,
+dh 80 on danube's window-4096 serving chunk, and H
 no multiple of their 64-head blocks, held to the same 2^-6 and repeating
 bit for bit, split or not),
 the paged reads over page-map holes and a slot whose map is all null
@@ -123,6 +125,19 @@ GPU_DECODE = {
     "split_masked_head": dict(b=4, h=16, hkv=1, s=2048, dh=256, window=100),
     "split_inactive_mqa": dict(b=3, h=16, hkv=1, s=300, dh=256,
                                inactive=True),
+    # the families' shapes: nemotron-4-15b G 6 and mistral-large-123b G 12
+    # (8 KV heads of 128; the float32 body keeps 6 heads a block at G 12),
+    # h2o-danube-1.8b G 4 at dh 80 (3 dims a lane, the last lane's run
+    # stopping at the row's end) on wrapped rings with its window; G 12
+    # one key past a range, and an inactive slot at dh 80
+    "nemotron_g6": dict(b=4, h=48, hkv=8, s=1024, dh=128),
+    "mistral_g12": dict(b=4, h=96, hkv=8, s=1024, dh=128),
+    "g12_split_plus_one": dict(b=2, h=24, hkv=2, s=65, dh=128),
+    "danube_dh80_ring": dict(b=4, h=32, hkv=8, s=4096, dh=80, ring=True,
+                             window=4096),
+    "dh80_ring_window": dict(b=3, h=32, hkv=8, s=200, dh=80, ring=True,
+                             window=50),
+    "dh80_inactive": dict(b=2, h=8, hkv=2, s=77, dh=80, inactive=True),
 }
 
 
@@ -155,6 +170,9 @@ GPU_REPEAT = {
     "outer": dict(b=4, h=16, hkv=8, s=1088, dh=128, p_sz=16),
     "mqa_ring": dict(b=4, h=16, hkv=1, s=2048, dh=256, p_sz=16, window=2048),
     "split_plus_one": dict(b=4, h=128, hkv=8, s=65, dh=256, p_sz=1),
+    "mistral_g12": dict(b=4, h=96, hkv=8, s=1024, dh=128, p_sz=16),
+    "danube_dh80": dict(b=4, h=32, hkv=8, s=4096, dh=80, p_sz=16,
+                        window=4096),
 }
 
 
@@ -299,6 +317,38 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
             kpc.reshape(3, 4), pm[:1], t[:1], scale=0.1)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g,dh", [(3, 128), (6, 64), (12, 256), (2, 80),
+                                  (8, 80)])
+def test_cuda_reads_refuse_shapes_not_instantiated(cuda, g, dh, dtype):
+    """A (G, dh) no config uses is not built: the CUDA decode reads raise
+    NotImplementedError on it (no plain fallback, no launch counted), as
+    the chunk kernel does on a head width it is not built for."""
+    dt = getattr(torch, dtype)
+    q = torch.zeros(2, 2 * g, dh, device=cuda, dtype=dt)
+    k = torch.zeros(2, 8, 2, dh, device=cuda, dtype=dt)
+    pos = torch.zeros(2, 8, dtype=torch.int32, device=cuda)
+    t = torch.zeros(2, dtype=torch.int32, device=cuda)
+    pool = torch.zeros(5, 4, 2, dh, device=cuda, dtype=dt)
+    ppos = torch.zeros(5, 4, dtype=torch.int32, device=cuda)
+    pm = torch.ones(2, 2, dtype=torch.int32, device=cuda)
+    n0 = (PDA.decode_attention.launches,
+          PDA.paged_decode_attention.launches)
+    with pytest.raises(NotImplementedError, match="G in"):
+        PDA.decode_attention(q, k, k, pos, t)
+    with pytest.raises(NotImplementedError, match="G in"):
+        PDA.paged_decode_attention(q, pool, pool, ppos, pm, t)
+    assert (PDA.decode_attention.launches,
+            PDA.paged_decode_attention.launches) == n0
+    qc = torch.zeros(1, 4, 4, 96, device=cuda, dtype=dt)
+    kc = torch.zeros(1, 12, 2, 96, device=cuda, dtype=dt)
+    qpc = torch.zeros(1, 4, dtype=torch.int32, device=cuda)
+    kpc = torch.zeros(1, 12, dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="dh in"):
+        PCA.chunk_attention(qc, kc, kc, qpc, kpc)
+
+
 def _offset_view(shape, dtype, device):
     """A contiguous tensor whose data starts one element (2 bytes in bf16)
     past a 16-byte boundary."""
@@ -387,6 +437,17 @@ GPU_CHUNK = {
     **{f"g{g}_dh{dh}": dict(b=1, c=96, s_cache=300, h=8, hkv=8 // g, dh=dh,
                             filled=250, q0=260, pad_rows=4)
        for g in (1, 2, 4, 8) for dh in (64, 128)},
+    # h2o-danube-1.8b: its serving chunk at dh 80 over a full window-4096
+    # ring (pad queries at -1), and ragged C and Sk at dh 80; G 6 and G 12
+    # at dh 128 (G is a runtime value of the kernel)
+    "danube_dh80": dict(b=1, c=256, s_cache=4096, h=32, hkv=8, dh=80,
+                        filled=4096, q0=4096, pad_rows=40, window=4096),
+    "dh80_ragged_window": dict(b=2, c=37, s_cache=91, h=8, hkv=2, dh=80,
+                               filled=70, q0=80, pad_rows=3, window=30),
+    "g6_dh128": dict(b=1, c=64, s_cache=200, h=48, hkv=8, dh=128,
+                     filled=150, q0=160, pad_rows=5),
+    "g12_dh128": dict(b=1, c=64, s_cache=200, h=96, hkv=8, dh=128,
+                      filled=150, q0=160, pad_rows=5),
 }
 
 
@@ -510,6 +571,14 @@ GPU_PAGED = {
                    window=50),
     "holes_null_slot": dict(b=3, h=16, hkv=8, dh=128, p_sz=16, n_pp=20,
                             t_base=300, holes=True, null_slot=True),
+    # the families' shapes: G 6, G 12 at dh 128 and dh 80 with a window
+    "nemotron_g6": dict(b=4, h=48, hkv=8, dh=128, p_sz=16, n_pp=64,
+                        t_base=1000),
+    "mistral_g12": dict(b=4, h=96, hkv=8, dh=128, p_sz=16, n_pp=64,
+                        t_base=1000),
+    "dh80_window_holes": dict(b=3, h=32, hkv=8, dh=80, p_sz=16, n_pp=12,
+                              t_base=180, window=50, holes=True,
+                              null_slot=True),
 }
 
 
@@ -842,6 +911,12 @@ GPU_MQA_RING = {
     "inactive": dict(b=3, s=320, p_sz=16, window=None, inactive=True, **MQA),
     "qwen3_gqa2": dict(b=4, s=1088, p_sz=16, window=None, h=16, hkv=8,
                        dh=128),
+    # the families' shapes on wrapped rings: danube's window-4096 serving
+    # ring at dh 80, G 6 at pages of 4 and G 12 at pages of 1
+    "danube_dh80": dict(b=4, s=4096, p_sz=16, window=4096, h=32, hkv=8,
+                        dh=80),
+    "g6_page4": dict(b=3, s=200, p_sz=4, window=None, h=12, hkv=2, dh=128),
+    "g12_page1": dict(b=2, s=130, p_sz=1, window=50, h=24, hkv=2, dh=128),
 }
 
 
@@ -874,6 +949,10 @@ GPU_COVERAGE = {
     "mqa_masked_head": dict(b=3, s=1024, p_sz=16, window=100, **MQA),
     "qwen3_gqa2": dict(b=4, s=1088, p_sz=16, window=None, h=16, hkv=8,
                        dh=128),
+    "mistral_g12": dict(b=4, s=1024, p_sz=16, window=None, h=96, hkv=8,
+                        dh=128),
+    "danube_dh80": dict(b=4, s=4096, p_sz=16, window=4096, h=32, hkv=8,
+                        dh=80),
 }
 
 

@@ -1,0 +1,126 @@
+"""The pieces nemotron-4-15b brought into repro_torch, on the CPU, against
+the JAX package: LayerNorm through ``norm_apply`` (its eps at least 1e-5),
+the plain squared-ReLU and GeLU MLPs (no ``gate``) and SwiGLU through
+``mlp_apply``, the weight bridge on nemotron's LayerNorm + relu2 tree
+(every bias carried, a leaf missing or left over refused), and
+``check_trainable`` refusing LayerNorm, plain-MLP, windowed and MoE stacks
+(their training is not held against the JAX trainer yet).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs.nemotron_4_15b as JNM
+from repro.configs.base import MLPCfg as JMLPCfg
+from repro.distributed.sharding import split_axes
+from repro.models import layers as JL
+from repro.models import mlp as JM
+from repro.models import transformer as JT
+from repro_torch import configs as pconfigs
+from repro_torch.configs import nemotron_4_15b as PNM
+from repro_torch.configs.base import MLPCfg
+from repro_torch.convert import from_jax_params
+from repro_torch.models import layers as PL
+from repro_torch.models import mlp as PM
+from repro_torch.models import transformer as PT
+
+torch.set_num_threads(1)
+
+
+def test_layernorm_matches_reference():
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((3, 5, 48)).astype(np.float32) * 2 + 0.5
+    scale = rng.standard_normal(48).astype(np.float32) * 0.3
+    bias = rng.standard_normal(48).astype(np.float32) * 0.3
+    for eps in (1e-6, 1e-3):       # LayerNorm's eps is at least 1e-5
+        want = JL.norm_apply("layernorm", {"scale": jnp.asarray(scale),
+                                           "bias": jnp.asarray(bias)},
+                             jnp.asarray(x), eps=eps)
+        got = PL.norm_apply("layernorm", torch.from_numpy(scale),
+                            torch.from_numpy(x), bias=torch.from_numpy(bias),
+                            eps=eps)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["relu2", "gelu", "swiglu"])
+def test_mlp_matches_reference(kind):
+    rng = np.random.default_rng(4)
+    d, ff = 24, 40
+    x = rng.standard_normal((2, 7, d)).astype(np.float32)
+    jp, _ = split_axes(JM.mlp_init(jax.random.PRNGKey(1),
+                                   JMLPCfg(kind=kind, d_ff=ff), d))
+    jp = jax.tree.map(np.asarray, jp)
+    assert ("gate" in jp) == (kind == "swiglu")
+    model = PM.MLP(MLPCfg(kind=kind, d_ff=ff), d,
+                   generator=torch.Generator(), device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v.copy())
+                           for k, v in jp.items()})
+    want = JM.mlp_apply(jp, JMLPCfg(kind=kind, d_ff=ff), jnp.asarray(x))
+    got = PM.mlp_apply(model, torch.from_numpy(x))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=1e-5, rtol=0)
+
+
+def test_bridge_carries_layernorm_biases_and_a_gateless_mlp():
+    """nemotron's tree: every block's ln1/ln2 and the final norm carry a
+    bias, its MLPs no gate; the port's model holds the same numbers, and a
+    tree with a leaf missing or left over is refused."""
+    jc = dataclasses.replace(JNM.smoke_config(soi="pp"), dtype="float32")
+    pc = dataclasses.replace(PNM.smoke_config(soi="pp"), dtype="float32")
+    jp, _ = split_axes(JT.init(jax.random.PRNGKey(7), jc))
+    jp = jax.tree.map(np.asarray, jp)
+    # the init draws zero norms: give every leaf distinct numbers
+    rng = np.random.default_rng(8)
+    jp = jax.tree.map(lambda x: rng.standard_normal(x.shape).astype(
+        np.float32), jp)
+    model = from_jax_params(jp, pc, device="cpu")
+    seg = jp["segments"][0]["sub0"]
+    assert "gate" not in seg["mlp"]
+    for i, bp in enumerate(model.blocks):
+        assert not hasattr(bp.mlp, "gate") and bp.bcfg.mlp.kind == "relu2"
+        for name in ("ln1", "ln2"):
+            for leaf, attr in (("scale", name), ("bias", name + "_bias")):
+                assert np.array_equal(getattr(bp, attr).detach().numpy(),
+                                      seg[name][leaf][i]), (i, attr)
+        for name in ("up", "down"):
+            assert np.array_equal(getattr(bp.mlp, name).detach().numpy(),
+                                  seg["mlp"][name][i])
+    assert np.array_equal(model.final_norm_bias.detach().numpy(),
+                          jp["final_norm"]["bias"])
+    assert "final_norm_bias" in dict(model.named_parameters())
+    missing = jax.tree.map(lambda x: x, jp)
+    del missing["final_norm"]["bias"]
+    with pytest.raises(ValueError, match="missing.*final_norm_bias"):
+        from_jax_params(missing, pc, device="cpu")
+    extra = jax.tree.map(lambda x: x, jp)
+    extra["segments"][0]["sub0"]["mlp"]["gate"] = seg["mlp"]["up"]
+    with pytest.raises(ValueError, match="unexpected.*mlp.gate"):
+        from_jax_params(extra, pc, device="cpu")
+    # an RMSNorm stack has no bias parameters at all
+    rms = PT.init(pconfigs.get_smoke("mistral-large-123b"),
+                  generator=torch.Generator(), device="cpu")
+    assert not any(n.endswith("_bias") for n, _ in rms.named_parameters())
+
+
+@pytest.mark.parametrize("arch,kind", [
+    ("nemotron-4-15b", "LayerNorm"), ("h2o-danube-1.8b", "windowed"),
+    ("relu2-rmsnorm", "relu2 MLP"), ("olmoe-1b-7b", "MoE")])
+def test_check_trainable_refuses_what_is_not_held(arch, kind):
+    if arch == "relu2-rmsnorm":
+        cfg = pconfigs.get_smoke("qwen3-1.7b")
+        seg = cfg.segments[0]
+        blk = dataclasses.replace(seg.blocks[0],
+                                  mlp=MLPCfg(kind="relu2", d_ff=64))
+        cfg = dataclasses.replace(cfg, segments=(dataclasses.replace(
+            seg, blocks=(blk,)),))
+    else:
+        cfg = pconfigs.get_smoke(arch)
+    with pytest.raises(NotImplementedError, match=f"{kind}.*Queue 1 item 7"):
+        PT.check_trainable(cfg)
+    PT.check_trainable(pconfigs.get_smoke("mistral-large-123b"))
