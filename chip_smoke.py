@@ -289,15 +289,49 @@ Phases, each printing its own lines:
              1024, so the window-4096 rings wrap onto shared pages and copy
              them on write — tokens equal to the same chunks on dense
              rings, 2 hits, COW flushes == copy_pages launches.
-19. the kernels JSON line (the decode reads and copy_pages also give their
+19. zoo     — rwkv6-1.6b, paligemma-3b and whisper-tiny, lm_stream_session
+             and GhostNet. (a) Card vs CPU in float32: rwkv6 cut to 4 layers
+             (SOI pp, dense; the paged engine refused as in the reference:
+             no attention cache to page), paligemma cut to 4 layers and
+             whisper whole (4 + 4 layers, 1500 frames from the seed a
+             request; its encoder output held within 1e-4), dense and
+             paged (page 16): 3 slots (prompts of 41
+             and 43 tokens, a third of 37 after 3 steps), 8 greedy steps,
+             tokens identical, logits within 1e-3, launches as the host
+             clocks give them; paligemma also through prefill(prefix_embeds=)
+             with 256 patch embeddings, then 8 decode steps. (b) Serving
+             at full width and depth in bf16, graphed steps, B 4, 64
+             generated: rwkv6 (24 layers, SOI pp) and paligemma (18, no
+             SOI) on phase 5's prompts through the serving driver's loop,
+             whisper on prompts of 64..58 tokens after 1500 frames; every
+             launch held to the host clocks' count (rwkv launches none,
+             paligemma's prefix-LM prefill takes the plain path); tok/s,
+             the median step (rwkv: with and without the middle) beside the
+             weights a step reads and their floor at 3.35 TB/s, busy, idle
+             share and kernels a step from 16 graphed steps between
+             markers; paligemma then prefills one batch behind 256 patch
+             embeddings (1280 rows, the plain path: its ms) and takes 64
+             decode steps. (c) lm_stream_session on full-width qwen3-1.7b
+             (bf16, SOI pp, B 4, a 1024-token prompt): 64 greedy pushes,
+             graph replays, equal bit for bit to generate_step driven by
+             hand, eagerly, from the same prefill; ms a push. (d) GhostNet
+             sizes I..VII, B 32 x 1000 frames, with SOI (pair 4) and
+             without: card against CPU in float32 within 1e-4, ms a batch
+             beside the MAC retain. (e) is in phase 3: whisper's
+             non-causal flash (encoder Sk 1500, cross prefill Sq 64 / Sk
+             1500), its cross read (S 1500, query at 1 << 30) and self
+             read (G 1, dh 64), and paligemma's G 8 / dh 256 reads, dense
+             and paged (whisper's self read paged too).
+20. the kernels JSON line (the decode reads and copy_pages also give their
              phase-15 launches under "spec"; the kernels phase 16 launches
              their launches there under "obs"; flash_attention and
              flash_attention_bwd phase 17's under "train"; the decode
              reads and chunk_attention the families' shapes with their
-             phase-18 launches under "families"), the card line, and last
-             {"ok": true, ...}.
+             phase-18 launches under "families"; flash_attention and the
+             decode reads the zoo's shapes with their phase-19 launches
+             under "zoo"), the card line, and last {"ok": true, ...}.
 
-Phases 4-13, 15, 16 and 18 run the engine and the U-Net session as a user does, so
+Phases 4-13, 15, 16, 18 and 19 run the engine and the U-Net session as a user does, so
 on the card every generate step, window and frame after a branch's first is
 a graph replay; the kernel launch counters (Python-side) get each graph's launches
 added at every replay (``ops.add_launch_counts``), which is what their
@@ -403,7 +437,11 @@ PATH_KERNELS = (
     # at dh 80
     *((f"{name} ({tag})", (body, rows, needle))
       for tag, needle in (("G 6", "Li6ELi128E"), ("G 12", "Li12ELi128E"),
-                          ("dh 80", "Li4ELi80E"))
+                          ("dh 80", "Li4ELi80E"),
+                          # the zoo's (phase 19): paligemma's MQA, whisper's
+                          # self and cross reads
+                          ("G 8 / dh 256", "Li8ELi256E"),
+                          ("G 1 / dh 64", "Li1ELi64E"))
       for name, rows in (("decode_attention", "DenseRows"),
                          ("paged_decode_attention", "PagedRows"))
       for body in ("decode_mma_kernel", "decode_scalar_kernel")),
@@ -412,6 +450,7 @@ PATH_KERNELS = (
                                          "Li80E")),
     ("flash_attention", ("22flash_attention_kernel", "Li128ELi128E")),
     ("flash_attention (MLA)", ("22flash_attention_kernel", "Li192ELi128E")),
+    ("flash_attention (dh 64)", ("22flash_attention_kernel", "Li64ELi64E")),
     ("chunk_attention", ("22chunk_attention_kernel", "Li128E")),
     ("chunk_attention's merge", ("20chunk_combine_kernel", "Li128E")),
     ("chunk_attention, walk counted", ("17chunk_walk_kernel", "Li128E")),
@@ -750,6 +789,55 @@ def _flash_case(b, s, hkv, g, dh, dt, dev, gen, dv=None):
         return torch.nn.functional.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    return sets, nbytes, flops, library, {}
+
+
+def _flash_nc_case(b, sq, sk, hkv, g, dh, dt, dev, gen):
+    """Non-causal flash inputs (whisper's encoder, Sq == Sk, and its cross
+    prefill, Sq < Sk): every (q, k) pair is live."""
+    h = hkv * g
+
+    def make():
+        return (torch.randn((b, sq, h, dh), generator=gen, device=dev).to(dt),
+                torch.randn((b, sk, hkv, dh), generator=gen,
+                            device=dev).to(dt),
+                torch.randn((b, sk, hkv, dh), generator=gen,
+                            device=dev).to(dt))
+
+    esz = torch.finfo(dt).bits // 8
+    nbytes = esz * b * (2 * sq * h * dh + 2 * sk * hkv * dh)
+    sets = _copies(make, nbytes)
+    flops = 4.0 * b * h * dh * sq * sk
+
+    def library(q, k, v):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            enable_gqa=True).transpose(1, 2)
+
+    return sets, nbytes, flops, library, {"kw": {"causal": False}}
+
+
+def _cross_case(b, s, h, dh, dt, dev, gen):
+    """whisper's cross read: ``s`` encoder rows at positions 0..s-1 a slot
+    (G 1), the query at 1 << 30, so every row is live."""
+    def make():
+        q = torch.randn((b, h, dh), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, s, h, dh), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, s, h, dh), generator=gen, device=dev).to(dt)
+        pos = torch.arange(s, dtype=torch.int32, device=dev)[None].repeat(
+            b, 1)
+        t = torch.full((b,), 1 << 30, dtype=torch.int32, device=dev)
+        return q, k, v, pos, t
+
+    esz = torch.finfo(dt).bits // 8
+    sets = _copies(make, 2 * b * s * h * dh * esz)
+    nbytes = 2 * b * h * dh * esz + b * s * 4 + b * 4 + 2 * b * s * h * dh * esz
+    flops = 4.0 * b * s * h * dh
+
+    def library(q, k, v, pos, t):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2))[:, :, 0]
 
     return sets, nbytes, flops, library, {}
 
@@ -1312,11 +1400,18 @@ def _redesign_table(recs, log: str):
 # is new (a shape's label starts with it)
 FAMILY_OF = {"nemotron": "nemotron-4-15b", "mistral": "mistral-large-123b",
              "danube": "h2o-danube-1.8b"}
+# the same for phase 19's families: one label a new shape (no label is a
+# prefix of another)
+ZOO_OF = {"whisper-enc": "whisper-tiny",
+          "whisper-cross-prefill": "whisper-tiny",
+          "whisper-cross-read": "whisper-tiny",
+          "whisper-self": "whisper-tiny", "paligemma": "paligemma-3b"}
 
 
 def _family(shape: str):
-    """The family whose shape phase 3 reads under this label, or None."""
-    return next((f for f in FAMILY_OF if shape.startswith(f)), None)
+    """The family label under which phase 3 reads this shape, or None."""
+    return next((f for f in (*FAMILY_OF, *ZOO_OF) if shape.startswith(f)),
+                None)
 
 
 def _family_table(recs, log: str):
@@ -1325,7 +1420,8 @@ def _family_table(recs, log: str):
     SDPA, plain, bound (share), max|Δ| against its tolerance, the split of
     S and the paged read equal to the dense kernel's; then ptxas' lines of
     their instantiations, both dtypes."""
-    print("  the families' shapes, bf16 (device ms [without markers] "
+    print("  the families' and the zoo's shapes, bf16 (device ms [without "
+          "markers] "
           "{event ms}; x SDPA; plain; bound (share); max|Δ| / tol; split):")
     for r in recs:
         split = (f"{r['n_split']} x {r['keys_per_split']}"
@@ -1339,7 +1435,8 @@ def _family_table(recs, log: str):
               + ("; == dense kernel" if r.get("equals_dense_kernel")
                  else ""))
     for line in _ptxas_lines(log):
-        if any(k in line for k in ("G 6", "G 12", "dh 80")):
+        if any(k in line for k in ("G 6", "G 12", "dh 80", "G 8 / dh 256",
+                                   "dh 64")):
             print("  " + line)
 
 
@@ -1670,6 +1767,44 @@ def kernels_phase(dev) -> dict:
                       _chunk_case(1, 256, 4096, 8, 4, 80, dt, 4096, 4096, 0,
                                   dev, gen, window=4096),
                       CA.chunk_attention, ref.chunk_attention))
+        # the zoo's new shapes (phase 19): whisper-tiny's non-causal
+        # encoder over 1500 frames (the last key tile ragged: 1500 = 23 *
+        # 64 + 28) and its cross prefill of a 64-token prompt, its cross
+        # read of the 1500 encoder rows from a query at 1 << 30 and its
+        # self read (G 1, dh 64) at the served ring of 128, dense and paged
+        # (page 16);
+        # paligemma-3b's MQA read (G 8, dh 256) at the served ring of
+        # 1088, dense and paged (page 16)
+        cases.append(("flash_attention",
+                      "whisper-enc (1,1500,6,64) non-causal", dt,
+                      _flash_nc_case(1, 1500, 1500, 6, 1, 64, dt, dev, gen),
+                      FA.flash_attention, ref.flash_attention))
+        cases.append(("flash_attention",
+                      "whisper-cross-prefill q(1,64,6,64) Sk 1500 "
+                      "non-causal", dt,
+                      _flash_nc_case(1, 64, 1500, 6, 1, 64, dt, dev, gen),
+                      FA.flash_attention, ref.flash_attention))
+        cases.append(("decode_attention",
+                      "whisper-cross-read (4,1500,6,64) G 1 t 1<<30", dt,
+                      _cross_case(4, 1500, 6, 64, dt, dev, gen),
+                      DA.decode_attention, ref.decode_attention))
+        cases.append(("decode_attention",
+                      "whisper-self (4,128,6,64) G 1 t 100", dt,
+                      _decode_case(4, 128, 6, 1, 64, dt, 100, dev, gen),
+                      DA.decode_attention, ref.decode_attention))
+        cases.append(("paged_decode_attention",
+                      "whisper-self pools (33,16,6,64) map (4,8) G 1 t 100",
+                      dt, _paged_case(4, 8, 16, 6, 1, 64, dt, 100, dev, gen),
+                      DA.paged_decode_attention, ref.paged_decode_attention))
+        cases.append(("decode_attention",
+                      "paligemma (4,1088,1,256) G 8 t 1056", dt,
+                      _decode_case(4, 1088, 1, 8, 256, dt, 1056, dev, gen),
+                      DA.decode_attention, ref.decode_attention))
+        cases.append(("paged_decode_attention",
+                      "paligemma pools (273,16,1,256) map (4,68) G 8 t 1056",
+                      dt, _paged_case(4, 68, 16, 1, 8, 256, dt, 1056, dev,
+                                      gen),
+                      DA.paged_decode_attention, ref.paged_decode_attention))
     # recurrentgemma's prefill recurrence: float32 a and x (the path's
     # dtype) at the outer (2040 tokens) and middle (1020 frames) shapes,
     # then a start state and an odd shape; bfloat16 inputs too
@@ -1905,19 +2040,24 @@ def _parity_cfg(mode):
         soi=SOILMCfg(first_layer=1, last_layer=3, mode=mode))
 
 
-def _greedy(engine, params, prompts, n_steps=8, late_at=3):
+def _greedy(engine, params, prompts, n_steps=8, late_at=3, frames=None):
     """Slots 0 and 1 from the start, slot 2 after ``late_at`` steps,
-    greedy. Returns per step (logits of the active slots, their tokens,
-    the active slots)."""
+    greedy; ``frames`` gives each request its encoder frames. Returns per
+    step (logits of the active slots, their tokens, the active slots)."""
     ds = engine.init_decode_state(params)
     steps = []
     active = []
+    frames = frames or [None] * 3
+
+    def prefill(slot):
+        return engine.prefill(params, prompts[slot],
+                              encoder_frames=frames[slot])
     for slot in (0, 1):
-        ds = engine.insert(engine.prefill(params, prompts[slot]), ds, slot)
+        ds = engine.insert(prefill(slot), ds, slot)
         active.append(slot)
     for k in range(n_steps):
         if k == late_at:
-            ds = engine.insert(engine.prefill(params, prompts[2]), ds, 2)
+            ds = engine.insert(prefill(2), ds, 2)
             active.append(2)
         ds, res = engine.generate(params, ds)
         toks = res.convert_to_numpy().data[:, 0]
@@ -2354,13 +2494,24 @@ DS_SERVE_ARGV = ["--arch", "deepseek-v2-236b", "--layers", "4", "--soi",
 
 
 @torch.no_grad()
-def _phase_step_ms(engine, params, prompt, plens, n_steps=16):
+def _insert_all(engine, params, prompt, plens, frames=None):
+    """A fresh decode state with request i (``prompt[i, :plens[i]]``, its
+    encoder frames ``frames[i]`` where given) in slot i."""
+    ds = engine.init_decode_state(params)
+    frames = frames or [None] * len(plens)
+    for slot, n in enumerate(plens):
+        ds = engine.insert(engine.prefill(params, prompt[slot, :n],
+                                          encoder_frames=frames[slot]),
+                           ds, slot)
+    return ds
+
+
+def _phase_step_ms(engine, params, prompt, plens, n_steps=16, frames=None):
     """Prefill every request, then time ``n_steps`` generate steps one by
     one (host clock, each ended by a synchronize); returns the median ms
-    of the steps that ran the SOI middle and of those that skipped it."""
-    ds = engine.init_decode_state(params)
-    for slot, n in enumerate(plens):
-        ds = engine.insert(engine.prefill(params, prompt[slot, :n]), ds, slot)
+    of the steps that ran the SOI middle and of those that skipped it (a
+    config without SOI: the median of all, and None)."""
+    ds = _insert_all(engine, params, prompt, plens, frames)
     torch.cuda.synchronize(engine.device)
     on, off = [], []
     for _ in range(n_steps):
@@ -2370,6 +2521,8 @@ def _phase_step_ms(engine, params, prompt, plens, n_steps=16):
         torch.cuda.synchronize(engine.device)
         (on if engine.mid_steps > mid0 else off).append(
             (time.perf_counter() - t0) * 1e3)
+    if engine.cfg.soi is None:
+        return sorted(on)[len(on) // 2], None
     check(on and off, f"steps with the middle {len(on)}, without {len(off)}")
     return sorted(on)[len(on) // 2], sorted(off)[len(off) // 2]
 
@@ -4599,22 +4752,31 @@ def _family_parity(arch, dev) -> dict:
 
 def _weight_floor(params, cfg) -> tuple:
     """(bytes, ms at 3.35 TB/s) of the weights a decode step reads, with
-    the SOI middle and without it: every parameter but the embedding table
-    (a step looks up B rows of it; the head reads the table when tied),
-    without the middle's layers and the compress conv when it is skipped.
-    A MoE layer's experts count whole: the port multiplies every expert's
+    the SOI middle and without it (the same pair twice without SOI):
+    every parameter but the embedding table (a step looks up B rows of it;
+    the head reads the table when tied), a learned position table (B rows
+    a step), an encoder (it runs at prefill) and the cross layers' K/V
+    projections (their products are in the decode state); without the
+    middle's layers and the compress conv when it is skipped. A MoE
+    layer's experts count whole: the port multiplies every expert's
     capacity buffer (ROADMAP.md Queue 2 C)."""
     from repro_torch.models import transformer as T
 
-    def nbytes(mods):
-        return sum(p.numel() * p.element_size() for m in mods
-                   for p in m.parameters())
-    total = nbytes([params]) - (0 if cfg.tie_embeddings else
-                                params.embed.numel()
-                                * params.embed.element_size())
-    _pre, mid, _post = T.split_blocks(params, cfg)
-    skipped = nbytes(mid) + (params.soi_compress.numel()
-                             * params.soi_compress.element_size())
+    def nbytes(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+    skip = [] if cfg.tie_embeddings else [params.embed]
+    if cfg.learned_pos_len:
+        skip.append(params.pos_embed)
+    if cfg.encoder is not None:
+        skip += list(params.encoder.parameters())
+    skip += [w for bp in params.blocks if bp.bcfg.cross_attn is not None
+             for w in (bp.cross.wk, bp.cross.wv)]
+    total = nbytes(params.parameters()) - nbytes(skip)
+    skipped = 0
+    if cfg.soi is not None:
+        _pre, mid, _post = T.split_blocks(params, cfg)
+        skipped = nbytes([p for m in mid for p in m.parameters()]
+                         + [params.soi_compress])
     return ((total, total / HBM_BYTES_PER_S * 1e3),
             (total - skipped, (total - skipped) / HBM_BYTES_PER_S * 1e3))
 
@@ -4769,6 +4931,19 @@ def _family_launches(name, arch, fam) -> tuple:
             f"families parity ({arch}, 4 layers, f32, paged)")
 
 
+def _zoo_launches(name, label, zoo) -> tuple:
+    """(launches, the run) of a kernel's shape of phase 19 in phase 3: the
+    whisper and paligemma serves' dense reads and whisper's flash launches
+    (encoder, self and cross prefill alike: one counter), and the paged
+    reads on the card-vs-CPU paged runs (f32; paligemma at 4 layers)."""
+    arch = ZOO_OF[label]
+    if name == "paged_decode_attention":
+        return (zoo["parity"][arch]["paged"][name],
+                f"zoo parity ({arch}, f32, paged)")
+    return (zoo["serve"][arch]["serve"][name],
+            f"zoo serve ({arch}, bf16, dense)")
+
+
 def families_phase(dev) -> dict:
     """Returns {"parity": {arch: {layout: counts}}, "serve": {arch:
     counts}, "danube": {layout: counts}}."""
@@ -4790,6 +4965,470 @@ def families_phase(dev) -> dict:
         del params
         _free(dev)
     print(f"  families phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 19. zoo: rwkv6-1.6b, paligemma-3b, whisper-tiny, lm_stream_session,
+#     GhostNet
+# ---------------------------------------------------------------------------
+
+ZOO_PLENS = (41, 43, 37)           # (a): two requests, a third after 3 steps
+ZOO_SERVE = {"rwkv6-1.6b": ["--soi", "pp", "--prompt-len", "1024"],
+             "paligemma-3b": ["--prompt-len", "1024"],
+             "whisper-tiny": ["--prompt-len", "64"]}
+ZOO_GEN = 64
+N_PATCHES = 256
+SESSION_PROMPT = 1024
+GHOST_B, GHOST_T = 32, 1000        # 16 s of frames at 62.5 fps a stream
+GHOST_TOL = 1e-4
+ENCODER_TOL = 1e-4                 # f32, after the encoder's LayerNorm
+
+
+def _zoo_frames(cfg, n, dev, seed):
+    """``n`` requests' stub encoder frames (1, n_frames, d_enc) from a
+    seed, or Nones for a config without an encoder."""
+    if cfg.encoder is None:
+        return [None] * n
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((1, cfg.encoder.n_frames, cfg.encoder.d_model),
+                        generator=gen, device=dev) for _ in range(n)]
+
+
+def _zoo_reads(cfg, layout: str, steps: int) -> dict:
+    """The decode reads a plain (non-SOI) config's ``steps`` generate steps
+    launch: one a self-attention layer a step (paged: the paged read), and
+    one a cross layer a step on the slot's dense encoder K/V."""
+    from repro_torch.models import transformer as T
+    blocks = T.layer_blocks(cfg)
+    n_self = sum(b.attn is not None for b in blocks)
+    n_cross = sum(b.cross_attn is not None for b in blocks)
+    read = ("paged_decode_attention" if layout == "paged"
+            else "decode_attention")
+    want = {read: n_self * steps}
+    want["decode_attention"] = (want.get("decode_attention", 0)
+                                + n_cross * steps)
+    return {k: v for k, v in want.items() if v}
+
+
+def _zoo_flash(cfg, n_req: int) -> int:
+    """flash_attention launches of ``n_req`` whole prefills: every
+    non-windowed causal or non-causal layer (the encoder's, the decoder's
+    self and cross attention) once a request; a prefix-LM prefill takes
+    the plain path on every device and launches none."""
+    from repro_torch.models import transformer as T
+    if cfg.prefix_lm:
+        return 0
+    n = sum((b.attn is not None and b.attn.window is None)
+            + (b.cross_attn is not None) for b in T.layer_blocks(cfg))
+    if cfg.encoder is not None:
+        n += cfg.encoder.segments[0].n_layers
+    return n * n_req
+
+
+def _zoo_parity(arch, dev) -> dict:
+    """(a) Card against CPU in float32: rwkv6-1.6b cut to 4 layers (SOI pp,
+    dense: the config has no attention cache to page, and the paged engine
+    is refused on the card as on the CPU), paligemma-3b cut to 4 layers
+    and whisper-tiny whole (each request with 1500 frames from the seed),
+    no SOI, dense and paged (page 16): 3 slots (prompts of 41 and 43
+    tokens, a third of 37 after 3 steps), 8 greedy steps — tokens
+    identical, logits within 1e-3, launches as the host clocks give them.
+    paligemma also prefills 2 requests through ``prefill(prefix_embeds=)``
+    with 256 patch embeddings from the seed, then 8 greedy
+    ``decode_step`` calls. Returns {layout: the card run's counts}."""
+    from repro_torch import configs
+    from repro_torch.engine import SOIEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    soi = "pp" if arch == "rwkv6-1.6b" else None
+    cfg = dataclasses.replace(
+        configs.get(arch, soi=soi,
+                    n_layers=None if arch == "whisper-tiny" else 4),
+        dtype="float32")
+    dev_model = T.init(cfg, generator=torch.Generator(device=dev)
+                       .manual_seed(31), device=dev)
+    cpu_model = _cpu_copy(dev_model, cfg)
+    n_par = sum(p.numel() for p in dev_model.parameters())
+    gen = torch.Generator().manual_seed(32)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen,
+                             dtype=torch.int32) for n in ZOO_PLENS]
+    frames = [None if f is None else f.cpu()
+              for f in _zoo_frames(cfg, 3, dev, 33)]
+    print(f"  {arch} parity: {cfg.n_layers} layers, {n_par / 1e9:.2f} B "
+          f"float32 parameters a side", flush=True)
+    if cfg.encoder is not None:
+        # the non-causal flash kernel at 1500 frames, through the encoder
+        enc = [T.encode(m, cfg, torch.cat(frames).to(w)).float().cpu()
+               for m, w in ((cpu_model, "cpu"), (dev_model, dev))]
+        err = float((enc[0] - enc[1]).abs().max())
+        check(err < ENCODER_TOL, f"{arch} encoder: card vs CPU max|Δ| {err} "
+                                 f">= {ENCODER_TOL}")
+        print(f"  {arch} encoder output (3, {cfg.encoder.n_frames}, "
+              f"{cfg.d_model}): card vs CPU max|Δ| {err:.3e}", flush=True)
+    layouts = [("dense", {})]
+    if arch == "rwkv6-1.6b":
+        try:
+            SOIEngine(cfg, max_concurrent_decodes=3, max_len=64, device=dev,
+                      paged=True, page_size=16)
+        except ValueError as e:
+            print(f"  {arch} paged: refused as in the reference ({e})")
+        else:
+            check(False, f"{arch}: a paged engine was not refused")
+    else:
+        layouts.append(("paged", dict(paged=True, page_size=16)))
+    out = {}
+    for layout, kw in layouts:
+        runs = []
+        for where, model in ((torch.device("cpu"), cpu_model),
+                             (dev, dev_model)):
+            eng = SOIEngine(cfg, max_concurrent_decodes=3, max_len=64,
+                            device=where, **kw)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            runs.append(_greedy(
+                eng, model, [p.to(where) for p in prompts],
+                frames=[None if f is None else f.to(where)
+                        for f in frames]))
+            torch.cuda.synchronize(dev)
+            counts = ops.launch_counts()          # the card run's, last
+            took = time.perf_counter() - t0
+        worst = _compare_runs(runs, f"{arch} {layout}")
+        if cfg.soi is None:
+            want = _zoo_reads(cfg, layout, eng.steps)
+        else:
+            want = {}                   # rwkv: no attention, no kernel
+        want["flash_attention"] = _zoo_flash(cfg, 3)
+        _counts_want(counts, want, f"{arch} parity {layout}")
+        print(f"  {arch} {layout}: 8 steps, tokens identical, max|Δlogit| "
+              f"{worst:.3e}; card launches {want} (card run {took:.2f} s)",
+              flush=True)
+        out[layout] = counts
+    if cfg.prefix_lm:
+        pgen = torch.Generator().manual_seed(34)
+        patches = torch.randn((2, N_PATCHES, cfg.d_model), generator=pgen)
+        toks = torch.stack([p[:37] for p in prompts[:2]])
+        runs = []
+        for where, model in ((torch.device("cpu"), cpu_model),
+                             (dev, dev_model)):
+            ops.reset_launch_counts()
+            lg, st = D.prefill(model, cfg, toks.to(where),
+                               prefix_embeds=patches.to(where),
+                               max_len=N_PATCHES + 37 + 8)
+            steps = []
+            for _ in range(8):
+                nxt = torch.argmax(lg, -1).to(torch.int32)
+                steps.append((lg.float().cpu(), nxt.tolist(), [0, 1]))
+                lg, st = D.decode_step(model, cfg, st, nxt)
+            runs.append(steps)
+            counts = ops.launch_counts()
+        worst = _compare_runs(runs, f"{arch} prefix_embeds")
+        _counts_want(counts, {"decode_attention": cfg.n_layers * 8},
+                     f"{arch} prefix_embeds")
+        print(f"  {arch} prefix_embeds: 2 requests of {N_PATCHES} patches + "
+              f"37 tokens, then 8 decode steps: tokens identical, "
+              f"max|Δlogit| {worst:.3e}; card launches "
+              f"{{'decode_attention': {cfg.n_layers * 8}}} (the prefix-LM "
+              f"prefill on the plain path: no flash launch)", flush=True)
+    del cpu_model, dev_model
+    _free(dev)
+    return out
+
+
+def _zoo_loop(engine, params, prompt, plens, frames, gen_len):
+    """The serving loop for requests with encoder frames (the serving
+    driver has no flag for them, as the reference's has none): prefill and
+    insert every request, then ``gen_len - 1`` generate steps, each step's
+    tokens drained one step late. Returns (tokens (n, gen_len), prefill s,
+    decode s, steps)."""
+    out = {}
+    t0 = time.perf_counter()
+    ds = engine.init_decode_state(params)
+    for slot, n in enumerate(plens):
+        prefix = engine.prefill(params, prompt[slot, :n],
+                                encoder_frames=frames[slot])
+        ds = engine.insert(prefix, ds, slot)
+        out[slot] = [int(prefix.first_token[0])]
+    torch.cuda.synchronize(engine.device)
+    prefill_s = time.perf_counter() - t0
+    steps0 = engine.steps
+    t0 = time.perf_counter()
+    pending = None
+    for _ in range(gen_len - 1):
+        ds, res = engine.generate(params, ds)
+        if pending is not None:
+            data = pending.convert_to_numpy().data
+            for slot in out:
+                out[slot].append(int(data[slot, 0]))
+        pending = res
+    data = pending.convert_to_numpy().data
+    for slot in out:
+        out[slot].append(int(data[slot, 0]))
+    torch.cuda.synchronize(engine.device)
+    decode_s = time.perf_counter() - t0
+    import numpy as np
+    seqs = np.stack([np.asarray(out[s]) for s in sorted(out)])
+    return seqs, prefill_s, decode_s, engine.steps - steps0
+
+
+def _zoo_serve(arch, dev) -> dict:
+    """(b) Full width and depth in bf16, graphed steps, B 4, 64 generated:
+    rwkv6-1.6b (SOI pp) and paligemma-3b (no SOI) through the serving
+    driver's loop on phase 5's prompts (1024..1018 tokens), whisper-tiny
+    on prompts of 64..58 tokens after 1500 frames from the seed. Every
+    kernel's launches held to the host clocks' count; tok/s; the median
+    step (with and without the middle) beside the bf16 weights a step
+    reads and their floor at 3.35 TB/s; busy, idle share and kernels a
+    step from 16 graphed steps between markers. paligemma then prefills
+    one batch of the 4 prompts behind 256 patch embeddings each through
+    ``prefill(prefix_embeds=)`` (1280 rows on the plain prefix-LM path)
+    and takes 64 greedy ``decode_step`` calls. Returns the counts of the
+    serving run (and "prefix": those of the prefix batch)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import decode as D
+    argv = ["--arch", arch, "--batch", "4", "--stagger", "2", "--gen-len",
+            str(ZOO_GEN), "--seed", "0"] + ZOO_SERVE[arch]
+    args = serve.parse_args(argv)
+    t0 = time.perf_counter()
+    cfg, params, prompt, plens, engine = serve.setup(args)
+    torch.cuda.synchronize(dev)
+    frames = [None if f is None else f.to(torch.bfloat16)
+              for f in _zoo_frames(cfg, len(plens), dev, 35)]
+    n_par = sum(p.numel() for p in params.parameters())
+    soi = (f"SOI {cfg.soi.first_layer}..{cfg.soi.last_layer - 1}"
+           if cfg.soi is not None else "no SOI")
+    print(f"  {arch} serve: {cfg.n_layers} layers ({soi}), "
+          f"{n_par / 1e9:.3f} B bf16 parameters ({2 * n_par / 1e9:.2f} GB) "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    if cfg.encoder is None:
+        res = serve.serve(engine, params, prompt, plens, args.gen_len)
+        seqs, prefill_s, decode_s = res.seqs, res.prefill_s, res.decode_s
+        steps, mid_steps, decoded = res.steps, res.mid_steps, res.decoded
+    else:
+        steps0, mid0 = engine.steps, engine.mid_steps
+        seqs, prefill_s, decode_s, steps = _zoo_loop(
+            engine, params, prompt, plens, frames, args.gen_len)
+        mid_steps = engine.mid_steps - mid0
+        decoded = (seqs.shape[1] - 1) * seqs.shape[0]
+        check(engine.steps - steps0 == steps, "step count")
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if cfg.soi is None:
+        want = _zoo_reads(cfg, "dense", steps)
+    else:
+        want = {}                           # rwkv: no attention, no kernel
+    want["flash_attention"] = _zoo_flash(cfg, len(plens))
+    check(seqs.shape == (4, ZOO_GEN), f"{arch}: tokens {seqs.shape}")
+    check(((seqs >= 0) & (seqs < cfg.vocab)).all(),
+          f"{arch}: token ids outside [0, vocab)")
+    _counts_want(counts, want, f"{arch} serve")
+    with_frames = "" if cfg.encoder is None else ", 1500 frames each"
+    print(f"  {arch}: prefill {prefill_s:.3f} s for {len(seqs)} requests "
+          f"(lens {plens}{with_frames}), decode "
+          f"{decoded} tokens in {decode_s:.3f} s = "
+          f"{decoded / decode_s:.1f} tok/s (host clock); {steps} steps"
+          + ("" if cfg.soi is None else f", {mid_steps} with the middle")
+          + f"; peak device memory {peak:.2f} GiB; "
+          f"launches {want} == counted (every other kernel 0)", flush=True)
+    on, off = _phase_step_ms(engine, params, prompt, plens, frames=frames)
+    (w_on, f_on), (w_off, f_off) = _weight_floor(params, cfg)
+    if cfg.soi is None:
+        print(f"  {arch} step (host clock after a synchronize, median of "
+              f"16): {on:.3f} ms; weights read a step {w_on / 1e9:.3f} GB, "
+              f"floor {f_on:.4f} ms at 3.35 TB/s")
+    else:
+        print(f"  {arch} step (host clock after a synchronize, median of "
+              f"16): {on:.3f} ms with the SOI middle, {off:.3f} without; "
+              f"weights read a step {w_on / 1e9:.3f} / {w_off / 1e9:.3f} GB, "
+              f"floor {f_on:.4f} / {f_off:.4f} ms at 3.35 TB/s")
+    st = {"ds": _insert_all(engine, params, prompt, plens, frames),
+          "prev": None}
+
+    def step():
+        st["ds"], r = engine.generate(params, st["ds"])
+        if st["prev"] is not None:
+            st["prev"].convert_to_numpy()
+        st["prev"] = r
+    n_prof = 16
+    busy, idle, kern, reads = _loop_profile(
+        step, n_prof, READ_KERNELS["split"], "decode_attention", arch)
+    print(f"  {arch} profiled {n_prof} graphed steps: busy {busy:.3f} ms a "
+          f"step, idle share {idle:.3f}, {kern:.0f} device kernels a step, "
+          f"decode reads {reads} on the device == counted", flush=True)
+    out = {"serve": counts}
+    del st
+    if cfg.prefix_lm:
+        pgen = torch.Generator(device=dev).manual_seed(36)
+        patches = torch.randn((len(plens), N_PATCHES, cfg.d_model),
+                              generator=pgen, device=dev).to(torch.bfloat16)
+        toks = prompt[:, :min(plens)]
+        ops.reset_launch_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        lg, ps = D.prefill(params, cfg, toks, prefix_embeds=patches,
+                           max_len=N_PATCHES + toks.shape[1] + ZOO_GEN)
+        torch.cuda.synchronize(dev)
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        step_ms, toks_out = [], []
+        for _ in range(ZOO_GEN):
+            nxt = torch.argmax(lg, -1).to(torch.int32)
+            toks_out.append(nxt)
+            t0 = time.perf_counter()
+            lg, ps = D.decode_step(params, cfg, ps, nxt)
+            torch.cuda.synchronize(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        got = torch.stack(toks_out, 1)
+        check(bool(((got >= 0) & (got < cfg.vocab)).all())
+              and bool(torch.isfinite(lg).all()),
+              f"{arch} prefix_embeds: tokens or logits out of range")
+        pcounts = ops.launch_counts()
+        _counts_want(pcounts, {"decode_attention": cfg.n_layers * ZOO_GEN},
+                     f"{arch} prefix_embeds")
+        print(f"  {arch} prefix_embeds: B {len(plens)} x ({N_PATCHES} "
+              f"patches + {toks.shape[1]} tokens) prefilled in {pre_ms:.1f} "
+              f"ms on the plain prefix-LM path, then {ZOO_GEN} eager "
+              f"decode_step calls, median {sorted(step_ms)[ZOO_GEN // 2]:.3f} "
+              f"ms; launches {{'decode_attention': "
+              f"{cfg.n_layers * ZOO_GEN}}} == counted", flush=True)
+        out["prefix"] = pcounts
+    del params, engine
+    _free(dev)
+    return out
+
+
+def _zoo_session(dev) -> dict:
+    """(c) ``lm_stream_session`` on full-width qwen3-1.7b (bf16, SOI pp): B 4
+    behind a 1024-token prompt, 64 greedy pushes (graph replays after each
+    branch's first) against ``generate_step`` driven by hand, eagerly, from
+    the same prefill: tokens and logits bit for bit; the decode reads held
+    to the host clock's count; ms a push. Returns the session's counts."""
+    from repro_torch import configs
+    from repro_torch.engine import generate_step, lm_stream_session
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    cfg = configs.get("qwen3-1.7b", soi="pp")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    params = T.cast_params(T.init(cfg, generator=gen, device=dev,
+                                  dtype=torch.bfloat16), cfg)
+    prompt = torch.randint(0, cfg.vocab, (4, SESSION_PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    max_len = SESSION_PROMPT + ZOO_GEN
+    st = cfg.soi.stride
+    # by hand, eagerly
+    lg, state = D.prefill(params, cfg, prompt, max_len=max_len)
+    first = torch.argmax(lg, -1).to(torch.int32)
+    tok, hand = first, []
+    for i in range(ZOO_GEN):
+        lg, state = generate_step(params, cfg, state, tok,
+                                  run_mid_any=(SESSION_PROMPT + i) % st == 0)
+        hand.append(lg.clone())
+        tok = torch.argmax(lg, -1).to(torch.int32)
+    del state
+    # the session, graphed
+    ops.reset_launch_counts()
+    sess = lm_stream_session(params, cfg, max_len=max_len, prompt=prompt,
+                             device=dev)
+    tok, got, push_ms = first, [], []
+    for _ in range(ZOO_GEN):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        lg = sess.push(tok)
+        torch.cuda.synchronize(dev)
+        push_ms.append((time.perf_counter() - t0) * 1e3)
+        got.append(lg)
+        tok = torch.argmax(lg, -1).to(torch.int32)
+    counts = ops.launch_counts()
+    same = all(torch.equal(a, b) for a, b in zip(got, hand))
+    check(same, "lm_stream_session: logits differ from the hand-driven "
+                "generate_step's")
+    n_outer = cfg.soi.first_layer + cfg.n_layers - cfg.soi.last_layer
+    n_mid = cfg.soi.last_layer - cfg.soi.first_layer
+    n_mid_steps = sum((SESSION_PROMPT + i) % st == 0 for i in range(ZOO_GEN))
+    want = {"decode_attention": n_outer * ZOO_GEN + n_mid * n_mid_steps,
+            "flash_attention": cfg.n_layers}
+    _counts_want(counts, want, "lm_stream_session")
+    steady = sorted(push_ms[2:])
+    print(f"  lm_stream_session (qwen3-1.7b full width, bf16, SOI pp, B 4, "
+          f"prompt {SESSION_PROMPT}): {ZOO_GEN} greedy pushes == "
+          f"generate_step by hand (eager), tokens and logits bit for bit; "
+          f"{sess.graph.captures} captures, {sess.graph.replays} replays; "
+          f"push {steady[len(steady) // 2]:.3f} ms median (host clock after "
+          f"a synchronize, first two with their captures left out: "
+          f"{push_ms[0]:.1f}, {push_ms[1]:.1f} ms); launches {want} == "
+          f"counted", flush=True)
+    del sess, params
+    _free(dev)
+    return counts
+
+
+def _zoo_ghostnet(dev):
+    """(d) GhostNet sizes I..VII, B 32 x 1000 frames, with SOI (the config's
+    pair at block 4) and without: the card's class logits against the
+    CPU's in float32 (TF32 off) within 1e-4; ms a batch (CUDA events, the
+    median of 10) beside the MAC retain from ``complexity_report``."""
+    from repro_torch.configs import soi_ghostnet_asc as G
+    from repro_torch.models import ghostnet as GH
+    print("  GhostNet (B 32 x 1000 frames, f32): size, SOI, parameters, "
+          "max|Δ| card vs CPU, ms a batch, MAC retain")
+    for size in G.SIZES:
+        for soi in (True, False):
+            cfg = G.config(size)
+            if not soi:
+                cfg = dataclasses.replace(cfg, soi=None)
+            cpu = GH.init(cfg, generator=torch.Generator().manual_seed(51),
+                          device="cpu")
+            card = GH.GhostNet(cfg, generator=torch.Generator(),
+                               device="meta")
+            card.load_state_dict({k: v.to(dev) for k, v in
+                                  cpu.state_dict().items()}, assign=True)
+            x = torch.randn((GHOST_B, GHOST_T, cfg.in_channels),
+                            generator=torch.Generator().manual_seed(52))
+            want = GH.apply_offline(cpu, x, cfg)
+            xd = x.to(dev)
+            got = GH.apply_offline(card, xd, cfg)
+            err = float((got.cpu() - want).abs().max())
+            check(err < GHOST_TOL, f"GhostNet {size} soi={soi}: max|Δ| "
+                                   f"{err} >= {GHOST_TOL}")
+            ms = []
+            for _ in range(12):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                GH.apply_offline(card, xd, cfg)
+                b.record()
+                torch.cuda.synchronize(dev)
+                ms.append(a.elapsed_time(b))
+            ms = sorted(ms[2:])[5]
+            rep = GH.complexity_report(cfg)
+            print(f"    {size:>3} {'SOI (4,)' if soi else 'STMC':>8}: "
+                  f"{GH.n_params(cfg)} params, {err:.2e}, {ms:.3f} ms, "
+                  f"retain {rep.retain:.4f} ({rep.mmacs_per_s:.3f} MMAC/s)",
+                  flush=True)
+
+
+ZOO_ARCHS = ("rwkv6-1.6b", "paligemma-3b", "whisper-tiny")
+
+
+def zoo_phase(dev) -> dict:
+    """Returns {"parity": {arch: {layout: counts}}, "serve": {arch:
+    {"serve": counts[, "prefix": counts]}}, "session": counts}."""
+    phase("19 zoo (rwkv6-1.6b, paligemma-3b, whisper-tiny: card vs CPU in "
+          "f32, then serving at full width and depth in bf16; "
+          "lm_stream_session on qwen3-1.7b; GhostNet I..VII)")
+    t0 = time.perf_counter()
+    out = {"parity": {}, "serve": {}}
+    for arch in ZOO_ARCHS:
+        out["parity"][arch] = _zoo_parity(arch, dev)
+    for arch in ZOO_ARCHS:
+        out["serve"][arch] = _zoo_serve(arch, dev)
+    out["session"] = _zoo_session(dev)
+    _zoo_ghostnet(dev)
+    print(f"  zoo phase: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -4815,6 +5454,8 @@ def main():
     main_recs["flash_attention_bwd"], train_counts = train_phase(dev, card)
     _free(dev)
     fam = families_phase(dev)
+    _free(dev)
+    zoo = zoo_phase(dev)
     # launches: each kernel's count on its own path's run — the dense
     # serve (phase 5), the paged prefix-cache serve (phase 6), the
     # deepseek-v2 serve (phase 8), the MLA prefix-cache serve (phase 9),
@@ -4865,6 +5506,19 @@ def main():
             families[label].update(launches=n, launches_on=on)
         if families:
             summary[-1]["families"] = families
+        zoo_rows = {}
+        for label in ZOO_OF:
+            r = main_recs.get(f"{name} ({label})")
+            if r is None:
+                continue
+            n, on = _zoo_launches(name, label, zoo)
+            check(n > 0, f"{name} never launched on {on}")
+            zoo_rows[label] = {key: r[key] for key in (
+                "shape", "max_abs_err", "ms", "ms_unmarked", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")}
+            zoo_rows[label].update(launches=n, launches_on=on)
+        if zoo_rows:
+            summary[-1]["zoo"] = zoo_rows
         if name == "flash_attention":
             # its second path: deepseek-v2's exact-length MLA prefill
             mla = main_recs["flash_attention (MLA)"]
@@ -4938,7 +5592,7 @@ def main():
             summary[-1]["rg_middle"].update(
                 launches=rg_second[name][name],
                 launches_on="rg serve (dense), outer and middle layers")
-    print(f"== 19 done in {time.perf_counter() - T_START:.1f} s")
+    print(f"== 20 done in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Architecture config registry of the port: ``get(arch_id)`` /
 ``get_smoke(arch_id)``. Only the architectures whose layers the port runs
 are registered: the LMs in ``ARCHS`` (what ``launch/serve.py`` takes) and
-the paper's streaming conv nets in ``CONV_ARCHS``, whose ``soi`` is a
-``core.soi.SOIConvCfg``."""
+the paper's conv nets in ``CONV_ARCHS`` (the streaming U-Net and the
+offline GhostNet), whose ``soi`` is a ``core.soi.SOIConvCfg``. Every
+architecture of the reference's registry has its counterpart here."""
 
 from __future__ import annotations
 
@@ -10,8 +11,8 @@ import importlib
 
 ARCHS = ("qwen3-1.7b", "deepseek-v2-236b", "recurrentgemma-9b",
          "olmoe-1b-7b", "h2o-danube-1.8b", "nemotron-4-15b",
-         "mistral-large-123b")
-CONV_ARCHS = ("soi-unet-dns",)
+         "mistral-large-123b", "rwkv6-1.6b", "paligemma-3b", "whisper-tiny")
+CONV_ARCHS = ("soi-unet-dns", "soi-ghostnet-asc")
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
             for a in ARCHS + CONV_ARCHS}

@@ -11,13 +11,22 @@ dh, d)``, MLA's ``wdq``/``wuq``/``wdkv``/``wuk``/``wuv``, the MoE's
 ``router (d, E)``, ``up/gate (E, d, f)``, ``down (E, f, d)`` and shared
 experts, the RG-LRU's ``wa``/``wb``/``conv``/``conv_b``/``wr``/``wi``/
 ``br``/``bi``/``lam``/``wo`` (a scanned (rec, rec, attn) pattern keeps
-them under ``sub0``..``sub2``), ``lm_head (d, vocab)``, ``soi.compress
-(stride, d, d)``, ``soi.fuse (2d, d)``. A block or final norm leaf
-``{"scale": ...}`` becomes its scale tensor, and a LayerNorm's ``bias``
-beside it becomes ``<name>_bias`` (``ln1_bias``, ``ln2_bias``,
-``final_norm_bias``); the plain MLP kinds (relu2, gelu) carry no ``gate``.
-A leaf missing or left over on either side is refused. This module
-imports no JAX: the caller hands over numpy.
+them under ``sub0``..``sub2``), the RWKV-6 block's ``rwkv`` leaves
+(``mix_base``, ``mix_a``, ``mix_b``, ``wr``/``wk``/``wv``/``wg``/``wo``,
+``w0``, ``w_a``, ``w_b``, ``u``, ``ln_scale``, ``cm_*``), a decoder
+block's cross attention ``cross`` behind ``lnx``, ``lm_head (d, vocab)``,
+the learned ``pos_embed (L, d)``, the whisper ``encoder`` (its segments,
+``final_norm`` and ``proj``), ``soi.compress (stride, d, d)``, ``soi.fuse
+(2d, d)``. A block or final norm leaf ``{"scale": ...}`` becomes its scale
+tensor, and a LayerNorm's ``bias`` beside it becomes ``<name>_bias``
+(``ln1_bias``, ``ln2_bias``, ``lnx_bias``, ``final_norm_bias``); the plain
+MLP kinds (relu2, gelu) carry no ``gate``. A leaf missing or left over on
+either side is refused. This module imports no JAX: the caller hands over
+numpy.
+
+``from_jax_ghostnet`` does the same for ``repro.models.ghostnet.init``'s
+tree (``blocks`` of ``primary``/``cheap`` convs, ``head``, ``skip_proj``
+keyed by pair position).
 """
 
 from __future__ import annotations
@@ -27,12 +36,14 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelCfg
+from repro_torch.models.ghostnet import GhostNet, GhostNetConfig
 from repro_torch.models.transformer import Transformer
 from repro_torch.models.unet import UNet, UNetConfig
 
 
-def _layer_trees(params: dict, cfg: ModelCfg) -> list:
-    """Per-layer block trees, in layer order."""
+def _layer_trees(params: dict, cfg) -> list:
+    """Per-layer block trees, in layer order (``cfg`` a ModelCfg or an
+    EncoderCfg: anything with ``segments``)."""
     out = []
     for seg_p, seg in zip(params["segments"], cfg.segments):
         if not seg.scan:
@@ -70,21 +81,33 @@ def from_jax_params(params: dict, cfg: ModelCfg, *, device=None,
             out[name + "_bias"] = t(leaf["bias"])
         return out
 
+    def blocks(prefix, layers, modules):
+        if len(layers) != len(modules):
+            raise ValueError(f"{len(layers)} {prefix}layers in the tree, "
+                             f"{len(modules)} in the config")
+        for i, lp in enumerate(layers):
+            pre = f"{prefix}{i}."
+            for nm in ("ln1", "ln2", "lnx"):
+                if nm in lp:
+                    tensors.update(norm(pre + nm, lp[nm]))
+            for mod in ("attn", "cross", "rglru", "rwkv", "mlp", "moe"):
+                for name, leaf in lp.get(mod, {}).items():
+                    if isinstance(leaf, dict):       # a norm: its scale
+                        leaf = leaf["scale"]
+                    tensors[f"{pre}{mod}.{name}"] = t(leaf)
+
     tensors = {"embed": t(params["embed"]),
                **norm("final_norm", params["final_norm"])}
-    layers = _layer_trees(params, cfg)
-    if len(layers) != len(model.blocks):
-        raise ValueError(f"{len(layers)} layers in the tree, "
-                         f"{len(model.blocks)} in the config")
-    for i, lp in enumerate(layers):
-        pre = f"blocks.{i}."
-        tensors.update(norm(pre + "ln1", lp["ln1"]))
-        tensors.update(norm(pre + "ln2", lp["ln2"]))
-        for mod in ("attn", "rglru", "mlp", "moe"):
-            for name, leaf in lp.get(mod, {}).items():
-                if isinstance(leaf, dict):           # a norm: its scale
-                    leaf = leaf["scale"]
-                tensors[f"{pre}{mod}.{name}"] = t(leaf)
+    blocks("blocks.", _layer_trees(params, cfg), model.blocks)
+    if cfg.encoder is not None:
+        enc = params["encoder"]
+        blocks("encoder.blocks.", _layer_trees(enc, cfg.encoder),
+               model.encoder.blocks)
+        tensors.update(norm("encoder.final_norm", enc["final_norm"]))
+        if "proj" in enc:
+            tensors["encoder.proj"] = t(enc["proj"])
+    if cfg.learned_pos_len:
+        tensors["pos_embed"] = t(params["pos_embed"])
     if not cfg.tie_embeddings:
         tensors["lm_head"] = t(params["lm_head"])
     if cfg.soi is not None:
@@ -138,5 +161,30 @@ def from_jax_unet(params: dict, nstate: dict, cfg: UNetConfig, *,
     for p, up in params.get("up", {}).items():
         tensors[f"up.{int(p)}.w"] = t(up["w"])
         tensors[f"up.{int(p)}.b"] = t(up["b"])
+    _load_checked(model, tensors)
+    return model
+
+
+@torch.no_grad()
+def from_jax_ghostnet(params: dict, cfg: GhostNetConfig, *, device=None,
+                      dtype=torch.float32) -> GhostNet:
+    """Build the port's GhostNet from the reference's parameter values."""
+    dev = resolve_device(device)
+    model = GhostNet(cfg, generator=torch.Generator(device="cpu"),
+                     device="meta", dtype=dtype)
+
+    def t(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(
+            device=dev, dtype=dtype)
+
+    tensors = {}
+    for i, bp in enumerate(params["blocks"]):
+        for conv in ("primary", "cheap"):
+            for leaf in ("w", "b"):
+                tensors[f"blocks.{i}.{conv}.{leaf}"] = t(bp[conv][leaf])
+    for leaf in ("w", "b"):
+        tensors[f"head.{leaf}"] = t(params["head"][leaf])
+        for p, sp in params.get("skip_proj", {}).items():
+            tensors[f"skip_proj.{int(p)}.{leaf}"] = t(sp[leaf])
     _load_checked(model, tensors)
     return model

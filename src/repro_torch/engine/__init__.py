@@ -17,7 +17,8 @@ On the card ``generate`` replays a CUDA graph of the step (``contracts``:
 counted by ``drain_count``). ``SOIEngine(speculate=K)`` serves through
 self-speculative windows (``engine.speculative``: ``draft_burst``,
 ``verify_commit``, ``speculative_window``), one CUDA graph per window key
-on the card.
+on the card. ``lm_stream_session`` is the token-streaming facade over
+the same step (``engine.session``).
 """
 
 from repro_torch.engine.api import (Engine, Prefix, ResultTokens,  # noqa: F401
@@ -28,6 +29,9 @@ from repro_torch.engine.contracts import (BIG_BYTES,  # noqa: F401
                                           drain_count, host_get,
                                           in_sanctioned_drain,
                                           sanctioned_drain)
+from repro_torch.engine.session import (StreamSession,  # noqa: F401
+                                        lm_stream_session,
+                                        unet_stream_session)
 from repro_torch.engine.soi_engine import SOIEngine, insert_state  # noqa: F401
 from repro_torch.engine.speculative import (draft_burst,  # noqa: F401
                                             speculative_window,

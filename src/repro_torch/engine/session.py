@@ -1,5 +1,17 @@
 """StreamSession: the synchronous push-one/get-one facade over SOI
-streaming (port of the U-Net half of ``repro.engine.session``).
+streaming (port of ``repro.engine.session``).
+
+An LM session (``lm_stream_session``) wraps ``engine.step.generate_step``:
+token ids in, logits out, over a decode state of its own (prefilled from a
+prompt through the compressed trunk, or empty). Every row shares one clock,
+which the session carries on the host, so the step's SOI branch — does
+this token complete a compression window? — is a Python bool, as the
+engine's is: the step runs through one ``contracts.CheckedGraph`` with
+that bool as its static key, two CUDA graphs on the card (one for a plain
+config), captured at their first step and replayed over the state, which
+the step writes in place, and a static token buffer. The reference
+resolves the branch inside its jitted step (``lax.cond``) from the clocks
+on the device.
 
 A U-Net session cycles through the per-phase graphs of
 ``models.unet.make_phase_steppers``. The reference fuses them into one
@@ -21,6 +33,7 @@ import functools
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import ModelCfg
 from repro_torch.engine.contracts import CheckedGraph
 
 
@@ -49,7 +62,8 @@ class StreamSession:
 
     @torch.no_grad()
     def push(self, inp):
-        """Feed one input (a frame (B, C)); returns the step's output."""
+        """Feed one input (token ids (B,) / a frame (B, C)); returns the
+        step's output (logits (B, V) float32 / the separated frame)."""
         if self._registry is None:
             self.state, out = self._step(self.state, inp)
             return out
@@ -65,6 +79,61 @@ class StreamSession:
         """Stream a whole (B, T, ...) sequence; returns stacked outputs."""
         outs = [self.push(xs[:, i]) for i in range(xs.shape[1])]
         return torch.stack(outs, dim=1)
+
+
+def _lm_step(params, cfg: ModelCfg, state: dict, tokens, run_mid: bool):
+    """One token for every row: (state, logits), the state written in
+    place."""
+    from repro_torch.engine.step import generate_step
+    logits, state = generate_step(params, cfg, state, tokens,
+                                  run_mid_any=run_mid)
+    return state, logits
+
+
+def lm_stream_session(params, cfg: ModelCfg, *, batch: int = 1,
+                      max_len: int = 256, prompt=None, device=None,
+                      registry=None) -> StreamSession:
+    """Token-streaming session over the unified LM step (SOI or plain);
+    ``params`` a ``Transformer`` on ``device`` — the card unless the caller
+    asks for the CPU.
+
+    With ``prompt`` (B, S), the prompt is prefilled through the compressed
+    trunk (online SOI prefill, ``models.decode.prefill``) before the session
+    starts, and the first pushed token decodes at position S; without it
+    the session starts from an empty state of ``batch`` rows. Each push
+    copies the tokens into the session's token buffer, runs the step (a
+    graph replay on the card) and returns a copy of its logits.
+    ``session.state`` is the decode state, ``session.graph`` the
+    ``CheckedGraph`` (its captures, replays and ``stats()``)."""
+    from repro_torch.models import decode as D
+    from repro_torch.models.transformer import cast_params
+    dev = resolve_device(device)
+    params = cast_params(params, cfg)
+    if params.embed.device.type != dev.type:
+        raise ValueError(f"params are on {params.embed.device}, the "
+                         f"session on {dev}")
+    if prompt is not None:
+        prompt = torch.as_tensor(prompt, device=dev)
+        _, state = D.prefill(params, cfg, prompt, max_len=max_len)
+        batch, clock = prompt.shape[0], [int(prompt.shape[1])]
+    else:
+        state = D.init_decode_state(params, cfg, batch, max_len=max_len)
+        clock = [0]
+    stride = cfg.soi.stride if cfg.soi is not None else 0
+    tok_buf = torch.zeros(batch, dtype=torch.int32, device=dev)
+    graph = CheckedGraph(lambda p, st, tok, mid: _lm_step(p, cfg, st, tok,
+                                                          mid),
+                         state_argnums=(1,), static_argnums=(3,),
+                         name="lm_step")
+
+    def step(s_, tok):
+        tok_buf.copy_(torch.as_tensor(tok))
+        run_mid = bool(stride) and clock[0] % stride == 0
+        s_, logits = graph(params, s_, tok_buf, run_mid)
+        clock[0] += 1
+        return s_, logits.clone()
+
+    return StreamSession(step, state, registry=registry, graph=graph)
 
 
 @functools.lru_cache(maxsize=None)

@@ -32,6 +32,14 @@ device read — and it decides every page allocation. ``insert`` sets the
 slot's clock to the prompt's true length (the reference's dense insert
 leaves its host clock as it was; its paged insert sets it).
 
+An encoder-decoder config (whisper) prefills with ``encoder_frames``
+(exact or bucketed, never chunked); its decode state keeps every cross
+layer's encoder K/V per slot in both layouts — zeros until ``insert``
+copies a prefix's in, with loud errors for a prefix whose encoder state
+does not fit — and ``free_slot`` leaves them (and any recurrence state)
+to be overwritten by the next insert, as in the reference. ``max_len``
+past a learned position table is refused at construction.
+
 The decode state is updated in place: ``insert`` copies a prefix into a
 slot's rows or pages, ``generate`` writes each slot's new K/V, clocks,
 queue, conv window and next tokens, ``free_slot`` scrubs the slot's rows or
@@ -108,6 +116,49 @@ def _table_groups(cfg: ModelCfg) -> dict:
     return {"outer": ("pre", "post"), "mid": ("mid",)}
 
 
+def _copy_row(dst, src, slot: int):
+    """Copy batch row 0 of every tensor of ``src`` into row ``slot`` of the
+    same tensor of ``dst`` (nested dicts, as an RWKV layer's state)."""
+    if isinstance(dst, dict):
+        for name, d in dst.items():
+            _copy_row(d, src[name], slot)
+    else:
+        dst[slot].copy_(src[0])
+
+
+def _insert_cross_kv(dst: dict, src: dict, slot: int):
+    """Per-slot encoder K/V: copy the prefix's row in, with loud errors for
+    mismatched encoder state (a silent drop here decodes garbage later)."""
+    if ("cross_kv" in dst) != ("cross_kv" in src):
+        have, lack = (("decode state", "prefix") if "cross_kv" in dst
+                      else ("prefix", "decode state"))
+        raise ValueError(
+            f"encoder state mismatch on insert: the {have} carries "
+            f"cross-attention K/V but the {lack} does not — prefill "
+            f"encoder-decoder configs with encoder_frames and build the "
+            f"decode state from the same config")
+    if "cross_kv" not in dst:
+        return
+    for d, s_ in zip(dst["cross_kv"], src["cross_kv"]):
+        if (d is None) != (s_ is None):
+            raise ValueError("encoder state mismatch on insert: cross-KV "
+                             "present for different layers")
+        if d is None:
+            continue
+        for name in ("k", "v"):
+            if d[name].shape[1:] != s_[name].shape[1:]:
+                raise ValueError(
+                    f"encoder state mismatch on insert: decode-state "
+                    f"cross-KV leaf {tuple(d[name].shape)} vs prefix "
+                    f"{tuple(s_[name].shape)} — the prefill ran with a "
+                    f"different encoder frame count than the engine's "
+                    f"decode state was sized for")
+    # the read's positions and query clocks are the same in every state
+    for d, s_ in zip(dst["cross_kv"], src["cross_kv"]):
+        if d is not None:
+            _copy_row(d, s_, slot)
+
+
 def _paged_put(pool, dense, rows):
     """Map a batch-1 dense prefill cache ``dense`` (1, s_log, ...) onto pool
     rows ``rows`` ((n_pp,) page ids), in place. Entries 0 land on the null
@@ -123,11 +174,15 @@ def insert_state(cfg: ModelCfg, dst: dict, src: dict, slot: int, *,
                  page_rows=None) -> dict:
     """Copy the batch-1 model state ``src`` into slot ``slot`` of ``dst``, in
     place: clock, every layer's K/V/positions (RG-LRU layers: ``h`` and the
-    conv window) and, for SOI, the conv window and the queue. With
+    conv window; RWKV layers: their time- and channel-mix states), for SOI
+    the conv window and the queue, and an encoder-decoder's cross K/V
+    (``_insert_cross_kv``, checked before anything is written). With
     ``page_rows`` ({"outer": (n_pp,), "mid": (n_ppm,)} write targets) the
     attention caches go into the pools' pages instead of batch rows; 0
-    entries (shared or unbacked pages) write onto the null page. RG-LRU
-    states are per slot in both layouts: they go into the slot's row."""
+    entries (shared or unbacked pages) write onto the null page. Recurrence
+    states and cross K/V are per slot in both layouts: they go into the
+    slot's row."""
+    _insert_cross_kv(dst, src, slot)
     dst["t"][slot] = src["t"][0]
     if cfg.soi is not None:
         for key in ("conv_buf", "queue"):
@@ -136,12 +191,11 @@ def insert_state(cfg: ModelCfg, dst: dict, src: dict, slot: int, *,
         prow = None if page_rows is None else page_rows[table]
         for group in groups:
             for d_c, s_c in zip(dst[group], src[group]):
-                pooled = prow is not None and D.is_attn_cache(d_c)
-                for name, d_leaf in d_c.items():
-                    if pooled:
+                if prow is not None and D.is_attn_cache(d_c):
+                    for name, d_leaf in d_c.items():
                         _paged_put(d_leaf, s_c[name], prow)
-                    else:
-                        d_leaf[slot].copy_(s_c[name][0])
+                else:
+                    _copy_row(d_c, s_c, slot)
     return dst
 
 
@@ -231,6 +285,12 @@ class SOIEngine(Engine):
                  telemetry: bool = False):
         if speculate is not None and int(speculate) < 1:
             raise ValueError(f"speculate must be >= 1, got {speculate}")
+        if cfg.learned_pos_len and max_len > cfg.learned_pos_len:
+            raise ValueError(
+                f"max_len {max_len} exceeds config '{cfg.name}'s learned "
+                f"position table ({cfg.learned_pos_len} rows): positions "
+                f">= {cfg.learned_pos_len} would silently clamp to the last "
+                f"embedding — shrink max_len or grow learned_pos_len")
         self.cfg = cfg
         # the stride of the telemetry vector, None with telemetry off
         self._metrics_stride = ((cfg.soi.stride if cfg.soi is not None
@@ -248,6 +308,9 @@ class SOIEngine(Engine):
                 raise ValueError(f"chunked prefill is unsupported for config "
                                  f"'{cfg.name}' (see "
                                  f"models.decode.supports_masked_prefill)")
+            if cfg.encoder is not None or cfg.prefix_lm:
+                raise ValueError("chunked prefill supports decoder-only "
+                                 "causal token stacks")
             if cfg.soi is not None and self._chunk % cfg.soi.stride:
                 raise ValueError(
                     f"prefill_chunk {self._chunk} must be a multiple of the "
@@ -260,6 +323,9 @@ class SOIEngine(Engine):
         self._pt_outer = self._pt_mid = None
         if self._paged:
             outer_len, mid_len = D.paged_group_lens(cfg, self.max_len)
+            if not outer_len and not mid_len:
+                raise ValueError("paged=True needs attention caches to page "
+                                 f"(config '{cfg.name}' has none)")
             for name, ln in (("outer", outer_len), ("middle", mid_len)):
                 if ln and ln % page_size:
                     raise ValueError(f"page_size {page_size} must divide the "
@@ -473,8 +539,15 @@ class SOIEngine(Engine):
     def init_decode_state(self, params):
         params = cast_params(params, self.cfg)
         self._check_params(params)
+        enc0 = None
+        if self.cfg.encoder is not None:
+            # per-slot encoder K/V buffers, zero until an insert fills them
+            enc0 = torch.zeros((self._slots, self.cfg.encoder.n_frames,
+                                self.cfg.d_model), dtype=params.embed.dtype,
+                               device=self.device)
         ms = D.init_decode_state(params, self.cfg, self._slots,
-                                 max_len=self.max_len, paged=self._spec)
+                                 max_len=self.max_len, enc_out=enc0,
+                                 paged=self._spec)
         # the graphs were captured over the old state
         self.graph.reset()
         self.spec_graph.reset()
@@ -692,8 +765,11 @@ class SOIEngine(Engine):
 
     # -- prefill ----------------------------------------------------------
 
-    def prefill(self, params, tokens, true_length: int | None = None
-                ) -> Prefix:
+    def prefill(self, params, tokens, encoder_frames=None,
+                true_length: int | None = None) -> Prefix:
+        """Prefill one request (tokens (S,) or (1, S)); an encoder-decoder
+        config needs its ``encoder_frames`` (1, n_frames, d_enc), which
+        chunked prefill refuses."""
         params = cast_params(params, self.cfg)
         self._check_params(params)
         tokens = torch.as_tensor(tokens, device=self.device)
@@ -713,6 +789,9 @@ class SOIEngine(Engine):
             raise ValueError(f"true_length {tl} outside (0, "
                              f"{tokens.shape[1]}]")
         if self._chunk is not None:
+            if encoder_frames is not None:
+                raise ValueError("chunked prefill supports decoder-only "
+                                 "stacks (no encoder_frames)")
             return self._prefill_chunked(params, tokens, tl)
         if self._buckets is not None:
             bucket = next(b for b in self._buckets if b >= tl)
@@ -722,9 +801,11 @@ class SOIEngine(Engine):
             elif pad < 0:
                 tokens = tokens[:, :bucket]
             logits, ms = D.prefill(params, self.cfg, tokens,
+                                   encoder_frames=encoder_frames,
                                    max_len=self.max_len, true_length=tl)
         else:
             logits, ms = D.prefill(params, self.cfg, tokens[:, :tl],
+                                   encoder_frames=encoder_frames,
                                    max_len=self.max_len)
         first = torch.argmax(logits, dim=-1).to(torch.int32)
         return Prefix(state=ms, first_token=first, logits=logits, length=tl,

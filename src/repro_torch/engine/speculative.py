@@ -53,6 +53,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelCfg
+from repro_torch.engine.contracts import state_leaves
 from repro_torch.engine.step import generate_step
 from repro_torch.models import decode as D
 
@@ -85,7 +86,8 @@ def draft_rows(cfg: ModelCfg, state: dict, k: int) -> list:
     index = {}
     for c in _outer_caches(cfg, state):
         if not D.is_attn_cache(c):
-            out += [(leaf, None, leaf.clone()) for leaf in c.values()]
+            out += [(leaf, None, leaf.clone())
+                    for _, leaf in state_leaves(c)]
             continue
         s = c["pos"].shape[1]          # ring length, or page size on pools
         if s not in index:

@@ -127,7 +127,7 @@ def generate_step(params, cfg: ModelCfg, state: dict, tokens, *,
     outer_pg = pages.get("outer")
     mid_pg = pages.get("mid")
 
-    x = D._embed_one(params, cfg, tokens)
+    x = D._embed_one(params, cfg, tokens, t)
     x = D._segment_decode(pre, state["pre"], cfg, x, t, commit=commit,
                           pages=outer_pg)
     skip = x

@@ -48,9 +48,14 @@ first layers of the stack; SOI bounds follow the config's own rule).
         --batch 4 --prompt-len 2040 --stagger 2 --gen-len 64 \\
         [--paged --page-size 16]
 
-A config with MoE or RG-LRU blocks cannot mask pad: it prefills at the
-exact prompt length whatever ``--bucket`` says, and ``--chunk-size`` (so
-also ``--prefix-cache``) raises, as the reference's engine does.
+A config with MoE, RG-LRU or RWKV blocks, or a prefix-LM (paligemma-3b),
+cannot mask pad: it prefills at the exact prompt length whatever
+``--bucket`` says, and ``--chunk-size`` (so also ``--prefix-cache``)
+raises, as the reference's engine does; rwkv6-1.6b has no attention cache,
+so ``--paged`` raises too. Requests carry no image prefix: paligemma
+serves its text path, as the reference's driver does. whisper-tiny needs
+encoder frames a request, for which this driver has no flag (nor has the
+reference's): its prefill raises the reference's missing-frames error.
 """
 
 from __future__ import annotations

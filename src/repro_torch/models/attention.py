@@ -1,9 +1,18 @@
-"""GQA and MLA attention (port of ``repro.models.attention`` without the
-bidirectional and cross kinds): parameters, the dense ring KV cache and
-the paged pools, full-sequence attention with the prefill cache fill,
+"""GQA, MLA, bidirectional and cross attention (port of
+``repro.models.attention``): parameters, the dense ring KV cache and the
+paged pools, full-sequence attention with the prefill cache fill,
 chunked-prefill attention, and one-token decode. The sequence mixing goes
 through ``repro_torch.kernels.ops``: the hand-written CUDA kernels on the
 card, their plain versions on the CPU.
+
+The ``bidir`` kind (whisper's encoder) attends without a causal mask; the
+``cross`` kind (whisper's decoder) reads K/V projected from the encoder
+output: non-causal ``flash_attention`` over every frame in a prefill, and
+in decode ``decode_attention`` over the slot's encoder K/V, whose
+positions are ``0..F-1`` and whose query sits at ``1 << 30`` (every frame
+visible), as the reference reads it. A prefix-LM prefill (paligemma)
+passes ``prefix_len`` to ``ops.flash_attention``, which routes it to the
+plain version on every device, as the reference does.
 
 MLA (DeepSeek-V2 latent attention) caches one ``kv_lora``-wide latent and
 one ``qk_rope``-wide rotated key per token (``latent``, ``rope``, ``pos``
@@ -59,7 +68,7 @@ class Attention(nn.Module):
     def __init__(self, cfg: AttnCfg, d: int, *, generator: torch.Generator,
                  device, dtype=torch.float32):
         super().__init__()
-        if cfg.kind not in ("gqa", "mla"):
+        if cfg.kind not in ("gqa", "mla", "bidir", "cross"):
             raise NotImplementedError(
                 f"attention kind {cfg.kind!r} is not ported yet; see "
                 f"ROADMAP.md")
@@ -215,23 +224,34 @@ def _cache_write(cache: dict, t: torch.Tensor, *, commit=None,
     return cache
 
 
+def project_kv(p: Attention, src: torch.Tensor):
+    """src (..., S, d) -> k and v (..., S, Hkv, dh), unrotated and
+    unnormed (a cross layer's encoder K/V)."""
+    cfg = p.cfg
+    d = src.shape[-1]
+    lead = src.shape[:-1]
+    k = torch.matmul(src, p.wk.reshape(d, -1)).reshape(*lead, cfg.n_kv,
+                                                       cfg.head_dim)
+    v = torch.matmul(src, p.wv.reshape(d, -1)).reshape(*lead, cfg.n_kv,
+                                                       cfg.head_dim)
+    return k, v
+
+
 def _project_qkv(p: Attention, x: torch.Tensor, positions: torch.Tensor,
-                 eps: float):
+                 eps: float, kv_x: torch.Tensor | None = None):
     """x (..., S, d) -> rotated q (..., S, H, dh), k and v
-    (..., S, Hkv, dh)."""
+    (..., S, Hkv, dh) — projected from ``kv_x`` when given (cross
+    attention, never rotated)."""
     cfg = p.cfg
     d = x.shape[-1]
     lead = x.shape[:-1]
     q = torch.matmul(x, p.wq.reshape(d, -1)).reshape(*lead, cfg.n_heads,
                                                      cfg.head_dim)
-    k = torch.matmul(x, p.wk.reshape(d, -1)).reshape(*lead, cfg.n_kv,
-                                                     cfg.head_dim)
-    v = torch.matmul(x, p.wv.reshape(d, -1)).reshape(*lead, cfg.n_kv,
-                                                     cfg.head_dim)
+    k, v = project_kv(p, x if kv_x is None else kv_x)
     if cfg.qk_norm:
         q = norm_apply("rmsnorm", p.q_norm, q, eps=eps)
         k = norm_apply("rmsnorm", p.k_norm, k, eps=eps)
-    if cfg.rope:
+    if cfg.rope and cfg.kind != "cross":
         q = apply_rope(q, positions, pct=cfg.rope_pct, theta=cfg.rope_theta)
         k = apply_rope(k, positions, pct=cfg.rope_pct, theta=cfg.rope_theta)
     return q, k, v
@@ -249,10 +269,15 @@ def _out_proj(p: Attention, out: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def attn_forward(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
-                 norm_eps: float = 1e-6, fill_cache: dict | None = None,
-                 fill_true_length: int | None = None):
-    """Full-sequence causal attention over x (B, S, d). Returns (y, cache):
-    cache is None unless ``fill_cache`` (a fresh decode cache) was passed.
+                 prefix_len: int = 0, norm_eps: float = 1e-6,
+                 fill_cache: dict | None = None,
+                 fill_true_length: int | None = None,
+                 kv_x: torch.Tensor | None = None):
+    """Full-sequence attention over x (B, S, d): causal, with the first
+    ``prefix_len`` positions visible to every query (prefix-LM), or — the
+    ``bidir`` and ``cross`` kinds — unmasked; a cross layer reads K/V from
+    ``kv_x`` (the encoder output). Returns (y, cache): cache is None unless
+    ``fill_cache`` (a fresh decode cache) was passed.
 
     ``fill_true_length`` marks the real prompt length of a right-padded
     prefill: cache rows at positions beyond it stay empty (``pos`` = -1).
@@ -263,9 +288,10 @@ def attn_forward(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
         return _mla_forward(p, x, positions=positions, norm_eps=norm_eps,
                             fill_cache=fill_cache,
                             fill_true_length=fill_true_length)
-    q, k, v = _project_qkv(p, x, positions, norm_eps)
+    q, k, v = _project_qkv(p, x, positions, norm_eps, kv_x=kv_x)
     out = kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               causal=True, window=cfg.window,
+                               causal=cfg.kind not in ("bidir", "cross"),
+                               window=cfg.window, prefix_len=prefix_len,
                                scale=cfg.softmax_scale,
                                logit_softcap=cfg.logit_softcap)
     y = _out_proj(p, out)
@@ -451,6 +477,22 @@ def _mla_chunk(p: Attention, x: torch.Tensor, cache: dict, offset: int,
 # ---------------------------------------------------------------------------
 # Decode (one token)
 # ---------------------------------------------------------------------------
+
+def cross_decode(p: Attention, x: torch.Tensor, cross: dict):
+    """A cross layer's one-token read, x (B, d) -> y (B, d): the decode
+    read over the slot's encoder K/V ``cross["k"]``/``cross["v"]`` (B, F,
+    Hkv, dh) at positions ``cross["pos"]`` (B, F) = 0..F-1, from a query
+    at ``cross["q_pos"]`` (B,) = 1 << 30, so every frame is visible. All
+    four are decode-state buffers that ``insert`` writes in place."""
+    cfg = p.cfg
+    d = x.shape[-1]
+    q = torch.matmul(x, p.wq.reshape(d, -1)).reshape(
+        x.shape[0], cfg.n_heads, cfg.head_dim)
+    out = kops.decode_attention(q.contiguous(), cross["k"], cross["v"],
+                                cross["pos"], cross["q_pos"],
+                                scale=cfg.softmax_scale)
+    return _out_proj(p, out)
+
 
 def attn_decode(p: Attention, x: torch.Tensor, cache: dict, t: torch.Tensor,
                 *, norm_eps: float = 1e-6, commit=None, pages=None):

@@ -1,23 +1,34 @@
 """Serving path (port of ``repro.models.decode``): decode-state construction
 (dense rings or paged pools), bucketed and chunked prefill, the one-token
 decode of a run of layers, and the plain (non-SOI) decode step. Blocks mix
-the sequence with attention or the RG-LRU and channels with an MLP or a
-MoE; MoE routing cannot mask pad and a recurrence would carry it into its
-state, so a config with MoE or RG-LRU blocks prefills at the exact prompt
-length and refuses bucketed and chunked prefill
-(``supports_masked_prefill``), as the reference does.
+the sequence with attention, the RG-LRU or an RWKV-6 time mix and
+channels with an MLP, a MoE or the RWKV channel mix; MoE routing cannot
+mask pad, a recurrence would carry it into its state and a prefix-LM
+prefix lets every query see it, so such a config prefills at the exact
+prompt length and refuses bucketed and chunked prefill
+(``supports_masked_prefill``), as the reference does. An encoder-decoder
+config (whisper) prefills with ``encoder_frames``: the encoder runs once
+and every cross layer's K/V of its output go into the state; a prefix-LM
+(paligemma) may prefill with ``prefix_embeds`` ahead of the tokens.
 
 State layout: ``{"t": (B,) int32 per-slot clocks, ...}`` plus, for a plain
 config, ``"segments"``: one cache dict per layer (``k``, ``v``, ``pos``;
 MLA layers ``latent``, ``rope``, ``pos``; RG-LRU layers ``h`` (B, w)
-float32 and ``conv`` (B, conv_width-1, w), per slot in both layouts);
+float32 and ``conv`` (B, conv_width-1, w); RWKV layers ``rwkv_tm``
+(``x_prev`` (B, d), ``S`` (B, h, dh, dh) float32) and ``rwkv_cm`` (B, d),
+the reference's keys; recurrence states per slot in both layouts);
 for an SOI config ``"pre"``, ``"mid"``, ``"post"`` (per-layer caches of the
 three parts; the middle's hold ``soi_mid_len`` frames), the conv window
 ``"conv_buf"`` (B, stride-1, d) and the extrapolation queue ``"queue"``
 (B, stride, d). The reference stacks a segment's caches on a leading layer
 axis; here every layer owns its tensors. A paged state holds pools instead
 of rings and ``"pages"``: ``{"outer": (B, n_pp), "mid": (B, n_pp_mid)}``
-int32 page maps (the middle pages at its own, 1/stride, rate).
+int32 page maps (the middle pages at its own, 1/stride, rate). An
+encoder-decoder state adds ``"cross_kv"`` (one ``{"k", "v"}`` (B, F, Hkv,
+dh) per layer, None for a layer without cross attention; per slot in both
+layouts, as the reference keeps it), and the read's positions
+``"cross_pos"`` (B, F) = 0..F-1 and query clocks ``"cross_q_pos"`` (B,)
+= 1 << 30, fixed buffers a captured step reads.
 
 Decode and chunked prefill update the caches in place (see
 ``models.attention``).
@@ -30,11 +41,12 @@ import torch
 from repro_torch.configs.base import ModelCfg
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru as rgm
+from repro_torch.models import rwkv as rkm
 from repro_torch.models.mlp import mlp_apply
 from repro_torch.models.transformer import (_dtype, _embed_tokens,
                                             _head_weights, _segment_forward,
                                             block_norm, cast_params,
-                                            channel_mix, final_norm,
+                                            channel_mix, encode, final_norm,
                                             soi_compress,
                                             soi_extrapolate, soi_fuse,
                                             soi_partition, softcap_logits,
@@ -48,13 +60,15 @@ from repro_torch.models.transformer import (_dtype, _embed_tokens,
 def _layer_caches(blocks, batch: int, max_len: int, d: int, dt, device,
                   paged=None) -> list:
     """One cache dict per layer: an attention layer's ring (or, with
-    ``paged`` = (page_size, n_pages), its pools), an RG-LRU layer's
+    ``paged`` = (page_size, n_pages), its pools), an RG-LRU or RWKV layer's
     per-slot recurrence state — per slot on paged engines too."""
     out = []
     for bp in blocks:
         b = bp.bcfg
         if b.rglru is not None:
             out.append(rgm.rglru_init_state(b.rglru, d, batch, dt, device))
+        elif b.rwkv is not None:
+            out.append(rkm.init_decode_cache(b.rwkv, d, batch, dt, device))
         elif paged is not None:
             out.append(attn.init_paged_cache(b.attn, paged[0], paged[1], dt,
                                              device))
@@ -65,8 +79,41 @@ def _layer_caches(blocks, batch: int, max_len: int, d: int, dt, device,
 
 def is_attn_cache(cache: dict) -> bool:
     """Whether a layer's cache holds attention rows (a ring or pools, with
-    a ``pos`` lane) rather than an RG-LRU layer's per-slot state."""
+    a ``pos`` lane) rather than a recurrence layer's per-slot state."""
     return "pos" in cache
+
+
+CROSS_Q_POS = 1 << 30     # the cross read's query clock: every frame visible
+
+
+def fill_cross_kv(params, enc_out) -> dict:
+    """The cross-attention state of an encoder output (B, F, d): every
+    layer's K/V (None for a layer without cross attention), the frames'
+    positions 0..F-1 and the query clocks ``CROSS_Q_POS``."""
+    b, f, _ = enc_out.shape
+    dev = enc_out.device
+    kv = []
+    for bp in params.blocks:
+        if bp.bcfg.cross_attn is None:
+            kv.append(None)
+            continue
+        k, v = attn.project_kv(bp.cross, enc_out)
+        kv.append({"k": k.contiguous(), "v": v.contiguous()})
+    pos = torch.arange(f, dtype=torch.int32, device=dev)
+    return {"cross_kv": kv,
+            "cross_pos": pos[None].expand(b, f).contiguous(),
+            "cross_q_pos": torch.full((b,), CROSS_Q_POS, dtype=torch.int32,
+                                      device=dev)}
+
+
+def cross_reads(state: dict):
+    """Per layer, what a cross layer's decode read takes from ``state``
+    (``{"k", "v", "pos", "q_pos"}``), or None without encoder state."""
+    if "cross_kv" not in state:
+        return None
+    return [None if c is None else dict(c, pos=state["cross_pos"],
+                                        q_pos=state["cross_q_pos"])
+            for c in state["cross_kv"]]
 
 
 def _attn_logical_len(segments, max_len: int) -> int:
@@ -106,13 +153,15 @@ def soi_mid_len(max_len: int, stride: int) -> int:
 
 
 def init_decode_state(params, cfg: ModelCfg, batch: int, max_len: int, *,
-                      paged=None) -> dict:
+                      enc_out=None, paged=None) -> dict:
     """Empty decode state with per-slot clocks ``t`` (B,), on the params'
-    device.
+    device; with ``enc_out`` (B, F, d) its cross-attention state
+    (``fill_cross_kv``).
 
     ``paged`` (an ``attention.PagedKV``) swaps the per-slot ring caches for
     shared page pools plus per-slot page maps in ``state["pages"]`` (all
-    null); the compressed middle gets its own, smaller, pool."""
+    null); the compressed middle gets its own, smaller, pool. Recurrence
+    states and the encoder's cross K/V stay per slot."""
     dt = _dtype(cfg)
     dev = params.embed.device
     d = cfg.d_model
@@ -135,6 +184,8 @@ def init_decode_state(params, cfg: ModelCfg, batch: int, max_len: int, *,
             else:
                 pm = (paged.page_size, n_pages)
         state["pages"] = pages
+    if enc_out is not None:
+        state.update(fill_cross_kv(params, enc_out))
     if cfg.soi is None:
         state["segments"] = _layer_caches(params.blocks, batch, max_len, d,
                                           dt, dev, po)
@@ -155,32 +206,48 @@ def init_decode_state(params, cfg: ModelCfg, batch: int, max_len: int, *,
 # ---------------------------------------------------------------------------
 
 def _block_decode(bp, cfg: ModelCfg, x, cache, t, *, commit=None,
-                  pages=None):
+                  pages=None, cross=None):
     eps = cfg.norm_eps
+    b = bp.bcfg
     h = block_norm(bp, 1, x, eps)
-    if bp.bcfg.rglru is not None:
+    if b.rwkv is not None:
+        x = x + rkm.rwkv_time_mix_decode(bp.rwkv, h, cache["rwkv_tm"],
+                                         commit=commit)
+        return x + rkm.rwkv_channel_mix_decode(
+            bp.rwkv, block_norm(bp, 2, x, eps), cache["rwkv_cm"],
+            commit=commit)
+    if b.rglru is not None:
         h = rgm.rglru_decode(bp.rglru, h, cache, commit=commit)
     else:
         h, _ = attn.attn_decode(bp.attn, h, cache, t, norm_eps=eps,
                                 commit=commit, pages=pages)
     x = x + h
+    if b.cross_attn is not None:
+        x = x + attn.cross_decode(bp.cross, block_norm(bp, "x", x, eps),
+                                  cross)
     h = block_norm(bp, 2, x, eps)
     return x + channel_mix(bp, h)
 
 
 def _segment_decode(blocks, caches, cfg: ModelCfg, x, t, *, commit=None,
-                    pages=None):
+                    pages=None, cross=None):
     """One token through a run of layers; their caches update in place
-    (dense rings and RG-LRU states: only the ``commit`` rows when given;
-    pools: through the page map ``pages`` that every attention layer of the
-    run shares). Returns x."""
-    for bp, c in zip(blocks, caches):
-        x = _block_decode(bp, cfg, x, c, t, commit=commit, pages=pages)
+    (dense rings and recurrence states: only the ``commit`` rows when
+    given; pools: through the page map ``pages`` that every attention layer
+    of the run shares). ``cross`` (``cross_reads``) feeds the cross layers.
+    Returns x."""
+    cross = cross or [None] * len(blocks)
+    for bp, c, xc in zip(blocks, caches, cross):
+        x = _block_decode(bp, cfg, x, c, t, commit=commit, pages=pages,
+                          cross=xc)
     return x
 
 
-def _embed_one(params, cfg: ModelCfg, token):
-    return _embed_tokens(params, cfg, token[:, None])[:, 0]
+def _embed_one(params, cfg: ModelCfg, token, t):
+    """One token per slot (B,) at the clocks ``t`` (B,) -> (B, d); a
+    learned position table adds the clocks' rows."""
+    return _embed_tokens(params, cfg, token[:, None],
+                         positions=t[:, None])[:, 0]
 
 
 def _logits_one(params, cfg: ModelCfg, x):
@@ -208,9 +275,9 @@ def decode_step(params, cfg: ModelCfg, state: dict, token, *, commit=None):
     params = cast_params(params, cfg)
     t = state["t"]
     pg = state["pages"].get("outer") if "pages" in state else None
-    x = _embed_one(params, cfg, token)
+    x = _embed_one(params, cfg, token, t)
     x = _segment_decode(params.blocks, state["segments"], cfg, x, t,
-                        commit=commit, pages=pg)
+                        commit=commit, pages=pg, cross=cross_reads(state))
     t.add_(1)
     return _logits_one(params, cfg, x), state
 
@@ -240,7 +307,8 @@ def _last_real(x, tl):
 
 
 @torch.no_grad()
-def prefill(params, cfg: ModelCfg, tokens, *, max_len: int | None = None,
+def prefill(params, cfg: ModelCfg, tokens, *, prefix_embeds=None,
+            encoder_frames=None, max_len: int | None = None,
             true_length: int | None = None):
     """Run the full-sequence path once, filling decode caches.
 
@@ -257,10 +325,18 @@ def prefill(params, cfg: ModelCfg, tokens, *, max_len: int | None = None,
     fills, the conv window, the queue and the logits are read at the true
     length; phantom frames built from pad run through the middle but never
     enter its caches, so the result equals the unpadded prefill.
+
+    ``prefix_embeds`` (B, P, d) go ahead of the token embeddings (the clock
+    lands on P + S; the caches are still ``max_len`` or S long, as in the
+    reference), and a prefix-LM config's first ``frontend_len`` positions
+    attend bidirectionally. An encoder-decoder config needs
+    ``encoder_frames`` (B, n_frames, d_enc): the encoder runs once and the
+    state carries every cross layer's K/V of its output. SOI configs
+    prefill decoder-only causal token stacks only, as in the reference.
     """
     params = cast_params(params, cfg)
     b, s = tokens.shape
-    if s == 0:
+    if s == 0 and prefix_embeds is None:
         raise ValueError("prefill requires a non-empty prompt")
     tl = None
     if true_length is not None:
@@ -268,21 +344,44 @@ def prefill(params, cfg: ModelCfg, tokens, *, max_len: int | None = None,
             raise NotImplementedError(
                 f"config '{cfg.name}' cannot mask pad: prefill at the exact "
                 f"prompt length instead")
+        if prefix_embeds is not None:
+            raise NotImplementedError(
+                "true_length does not compose with prefix_embeds")
         tl = int(true_length)
         if not 0 < tl <= s:
             raise ValueError(f"true_length {tl} outside (0, {s}]")
     max_len = max_len or s
+    enc_out = None
+    if cfg.encoder is not None:
+        if encoder_frames is None:
+            raise ValueError(
+                f"config '{cfg.name}' has an encoder: prefill needs "
+                f"encoder_frames (B, {cfg.encoder.n_frames}, "
+                f"{cfg.encoder.d_model})")
+        enc_out = encode(params, cfg, encoder_frames)
     x = _embed_tokens(params, cfg, tokens)
-    positions = torch.arange(s, device=x.device)[None]
-    state = {"t": torch.full((b,), s if tl is None else tl,
-                             dtype=torch.int32, device=x.device)}
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    positions = torch.arange(x.shape[1], device=x.device)[None]
+    prefix_len = cfg.frontend_len if cfg.prefix_lm else 0
 
     if cfg.soi is None:
+        state = {"t": torch.full((b,), x.shape[1] if tl is None else tl,
+                                 dtype=torch.int32, device=x.device)}
         x, state["segments"] = _segment_forward(
-            params.blocks, cfg, x, positions=positions, collect_cache=True,
-            batch=b, max_len=max_len, true_length=tl)
+            params.blocks, cfg, x, positions=positions, prefix_len=prefix_len,
+            enc_out=enc_out, collect_cache=True, batch=b, max_len=max_len,
+            true_length=tl)
+        if enc_out is not None:
+            state.update(fill_cross_kv(params, enc_out))
         return _logits_one(params, cfg, _last_real(x, tl)), state
 
+    if prefix_embeds is not None or enc_out is not None or cfg.prefix_lm:
+        raise NotImplementedError(
+            "SOI prefill supports decoder-only causal token stacks "
+            "(no prefix embeds / encoder / prefix-LM)")
+    state = {"t": torch.full((b,), s if tl is None else tl,
+                             dtype=torch.int32, device=x.device)}
     soi = cfg.soi
     st = soi.stride
     pre, mid, post = split_blocks(params, cfg)
@@ -364,12 +463,16 @@ def prefill_chunk(params, cfg: ModelCfg, state: dict, tokens, offset: int,
     """
     params = cast_params(params, cfg)
     b, c = tokens.shape
+    if cfg.encoder is not None or cfg.prefix_lm:
+        raise NotImplementedError(
+            "chunked prefill supports decoder-only causal token stacks")
     if not supports_masked_prefill(cfg):
         raise NotImplementedError(
             f"config '{cfg.name}' cannot mask pad: chunked prefill would "
             f"leak pad tokens — prefill whole instead")
     offset, tl = int(offset), int(true_length)
-    x = _embed_tokens(params, cfg, tokens)
+    x = _embed_tokens(params, cfg, tokens, positions=torch.arange(
+        offset, offset + c, device=tokens.device))
     state["t"] = torch.full((b,), tl, dtype=torch.int32, device=x.device)
     li = min(max(tl - 1 - offset, 0), c - 1)   # row of position tl - 1
 

@@ -1,5 +1,6 @@
-"""Decoder-only LM with SOI (port of ``repro.models.transformer``: the
-forward, and the training loss ``loss_fn`` of attention + MLP stacks).
+"""The unified LM with SOI (port of ``repro.models.transformer``: the
+forward, the whisper encoder, and the training loss ``loss_fn`` of
+attention + MLP stacks).
 
 The model is an ``nn.Module``: token embedding, one ``Block`` per layer in an
 ``nn.ModuleList`` over every segment in order (the reference stacks a scanned
@@ -11,9 +12,19 @@ A block mixes the sequence with attention (GQA or MLA) or with the RG-LRU
 (recurrentgemma), and channels with an MLP (gated SwiGLU / GeGLU, or the
 plain squared-ReLU / GeLU) or a MoE, each behind an RMSNorm or — with
 ``norm="layernorm"`` (nemotron) — a LayerNorm that carries a bias beside
-its scale; the final norm takes the first block's kind. Gemma configs scale
-the embeddings by sqrt(d) (``embed_scale``) and soft-cap the logits
-(``logits_softcap``).
+its scale; the final norm takes the first block's kind. An RWKV-6 block
+(rwkv6) is a time mix and a channel mix behind ``ln1``/``ln2``. A decoder
+block of an encoder-decoder config (whisper) reads the encoder output
+through cross attention (``lnx``, ``cross``) between its self attention
+and its MLP. Gemma configs scale the embeddings by sqrt(d)
+(``embed_scale``) and soft-cap the logits (``logits_softcap``).
+
+Frontends are stubs, as in the reference: whisper's encoder takes
+precomputed frame embeddings (``encode``), and paligemma's image prefix
+arrives as ``prefix_embeds`` ahead of the token embeddings; its first
+``frontend_len`` positions attend bidirectionally (``prefix_lm``). A
+config with ``learned_pos_len`` adds a learned position table
+(``pos_embed``) to the token embeddings.
 
 SOI-LM (cfg.soi): layers [first_layer, last_layer) form the *compressed
 middle* — a width-stride stride-stride causal conv compresses time before
@@ -36,6 +47,7 @@ from repro_torch.configs.base import BlockCfg, ModelCfg, SOILMCfg
 from repro_torch.core.stmc import causal_conv1d
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru as rgm
+from repro_torch.models import rwkv as rkm
 from repro_torch.models.layers import dense_init, embed_init, norm_apply, \
     trunc_normal
 from repro_torch.models.mlp import GATED, MLP, mlp_apply
@@ -62,40 +74,48 @@ def _norm_params(module: nn.Module, name: str, kind: str, d: int, device,
 
 
 class Block(nn.Module):
-    """One block: a sequence mixer — attention or the RG-LRU — and an MLP
-    or a MoE channel mixer (``ln1``/``ln2`` are the (1 + scale) norm scales
-    before each, ``ln1_bias``/``ln2_bias`` their biases in a LayerNorm
-    block)."""
+    """One block: a sequence mixer — attention, the RG-LRU or an RWKV-6
+    time mix — and an MLP or a MoE channel mixer (an RWKV block's channel
+    mix is its own), plus, in an encoder-decoder config's decoder, cross
+    attention between the two (``ln1``/``ln2``/``lnx`` are the (1 + scale)
+    norm scales before each, ``ln1_bias``/``ln2_bias``/``lnx_bias`` their
+    biases in a LayerNorm block)."""
 
     def __init__(self, b: BlockCfg, d: int, *, generator, device,
                  dtype=torch.float32):
         super().__init__()
-        if ((b.attn is None) == (b.rglru is None)
-                or (b.mlp is None) == (b.moe is None)
-                or b.rwkv is not None
-                or b.cross_attn is not None or b.norm not in NORMS
-                or b.post_norm):
+        mixers = sum(m is not None for m in (b.attn, b.rglru, b.rwkv))
+        channel = sum(m is not None for m in (b.mlp, b.moe))
+        if (mixers != 1 or channel != (0 if b.rwkv is not None else 1)
+                or (b.cross_attn is not None and b.attn is None)
+                or b.norm not in NORMS or b.post_norm):
             raise NotImplementedError(
-                "the port runs attention or RG-LRU + MLP or MoE blocks "
-                "behind RMSNorm or LayerNorm only; other block kinds are "
-                "not ported yet (see ROADMAP.md)")
+                "the port runs attention, RG-LRU or RWKV blocks (attention "
+                "with an MLP or a MoE, and optional cross attention) behind "
+                "RMSNorm or LayerNorm only; other block kinds are not "
+                "ported (see ROADMAP.md)")
         self.bcfg = b
         kw = dict(generator=generator, device=device, dtype=dtype)
         _norm_params(self, "ln1", b.norm, d, device, dtype)
         if b.attn is not None:
             self.attn = attn.Attention(b.attn, d, **kw)
-        else:
+        elif b.rglru is not None:
             self.rglru = rgm.RGLRU(b.rglru, d, **kw)
+        else:
+            self.rwkv = rkm.RWKV(b.rwkv, d, **kw)
+        if b.cross_attn is not None:
+            _norm_params(self, "lnx", b.norm, d, device, dtype)
+            self.cross = attn.Attention(b.cross_attn, d, **kw)
         _norm_params(self, "ln2", b.norm, d, device, dtype)
         if b.moe is not None:
             self.moe = MoE(b.moe, d, **kw)
-        else:
+        elif b.mlp is not None:
             self.mlp = MLP(b.mlp, d, **kw)
 
 
-def block_norm(bp: Block, which: int, x, eps: float):
-    """The block's norm before its sequence mixer (``which`` 1) or its
-    channel mixer (2), of the block's kind."""
+def block_norm(bp: Block, which, x, eps: float):
+    """The block's norm before its sequence mixer (``which`` 1), its
+    channel mixer (2) or its cross attention ("x"), of the block's kind."""
     return norm_apply(bp.bcfg.norm, getattr(bp, f"ln{which}"), x,
                       bias=getattr(bp, f"ln{which}_bias"), eps=eps)
 
@@ -115,16 +135,30 @@ def channel_mix(bp: Block, x):
     return mlp_apply(bp.mlp, x)
 
 
+class Encoder(nn.Module):
+    """The auxiliary bidirectional encoder (whisper's audio encoder): its
+    blocks at the encoder's width, the final LayerNorm (``final_norm``,
+    ``final_norm_bias``) and — when the widths differ — ``proj`` (d_enc,
+    d) into the decoder's width."""
+
+    def __init__(self, enc, d: int, *, generator, device,
+                 dtype=torch.float32):
+        super().__init__()
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        de = enc.d_model
+        self.blocks = nn.ModuleList(
+            Block(b, de, **kw) for seg in enc.segments
+            for b in (seg.blocks[j % len(seg.blocks)]
+                      for j in range(seg.n_layers)))
+        _norm_params(self, "final_norm", "layernorm", de, device, dtype)
+        if de != d:
+            self.proj = nn.Parameter(dense_init((de, d), **kw))
+
+
 class Transformer(nn.Module):
     def __init__(self, cfg: ModelCfg, *, generator: torch.Generator, device,
                  dtype=torch.float32):
         super().__init__()
-        if (cfg.encoder is not None
-                or cfg.frontend is not None or cfg.prefix_lm
-                or cfg.learned_pos_len):
-            raise NotImplementedError(
-                f"config '{cfg.name}' uses model features that are not "
-                f"ported yet; see ROADMAP.md")
         self.cfg = cfg
         d = cfg.d_model
         kw = dict(generator=generator, device=device, dtype=dtype)
@@ -135,6 +169,11 @@ class Transformer(nn.Module):
             Block(b, d, **kw) for b in layer_blocks(cfg))
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(dense_init((d, cfg.vocab), **kw))
+        if cfg.learned_pos_len:
+            self.pos_embed = nn.Parameter(dense_init(
+                (cfg.learned_pos_len, d), scale=0.02, **kw))
+        if cfg.encoder is not None:
+            self.encoder = Encoder(cfg.encoder, d, **kw)
         if cfg.soi is not None:
             st = cfg.soi.stride
             # S-CC compress conv (kernel = stride) + identity-biased fusion
@@ -183,38 +222,53 @@ def cast_params(params: Transformer, cfg: ModelCfg) -> Transformer:
 # Block application
 # ---------------------------------------------------------------------------
 
-def _block_apply(bp: Block, cfg: ModelCfg, x, *, positions, fill_cache=None,
-                 fill_true_length=None):
+def _block_apply(bp: Block, cfg: ModelCfg, x, *, positions, prefix_len=0,
+                 enc_out=None, fill_cache=None, fill_true_length=None):
     """Full-sequence block. Returns (x, cache_out): the filled attention
-    cache (None without ``fill_cache``), or an RG-LRU block's recurrence
-    state."""
+    cache (None without ``fill_cache``), an RG-LRU block's recurrence state,
+    or an RWKV block's time- and channel-mix states (``{"rwkv_tm":
+    {"x_prev", "S"}, "rwkv_cm"}``). A cross block reads ``enc_out``."""
     eps = cfg.norm_eps
+    b = bp.bcfg
     h = block_norm(bp, 1, x, eps)
-    if bp.bcfg.rglru is not None:
+    if b.rwkv is not None:
+        h, (x_last, S) = rkm.rwkv_time_mix(bp.rwkv, h)
+        x = x + h
+        h2, x_last2 = rkm.rwkv_channel_mix(bp.rwkv, block_norm(bp, 2, x, eps))
+        return x + h2, {"rwkv_tm": {"x_prev": x_last, "S": S},
+                        "rwkv_cm": x_last2}
+    if b.rglru is not None:
         h, cache = rgm.rglru_forward(bp.rglru, h)
     else:
         h, cache = attn.attn_forward(bp.attn, h, positions=positions,
-                                     norm_eps=eps, fill_cache=fill_cache,
+                                     prefix_len=prefix_len, norm_eps=eps,
+                                     fill_cache=fill_cache,
                                      fill_true_length=fill_true_length)
     x = x + h
+    if b.cross_attn is not None:
+        h, _ = attn.attn_forward(bp.cross, block_norm(bp, "x", x, eps),
+                                 positions=positions, norm_eps=eps,
+                                 kv_x=enc_out)
+        x = x + h
     h = block_norm(bp, 2, x, eps)
     return x + channel_mix(bp, h), cache
 
 
-def _segment_forward(blocks, cfg: ModelCfg, x, *, positions,
-                     collect_cache=False, batch=None, max_len=0,
-                     true_length=None):
+def _segment_forward(blocks, cfg: ModelCfg, x, *, positions, prefix_len=0,
+                     enc_out=None, collect_cache=False, batch=None,
+                     max_len=0, true_length=None):
     """Apply a run of layers. Returns (x, caches): one cache dict per layer
     when ``collect_cache`` (prefill: an attention layer's filled ring, an
-    RG-LRU layer's recurrence state), else an empty list."""
+    RG-LRU or RWKV layer's recurrence state), else an empty list."""
     caches = []
     for bp in blocks:
         fill = None
         if collect_cache and bp.bcfg.attn is not None:
             fill = attn.init_cache(bp.bcfg.attn, batch, max_len, x.dtype,
                                    x.device)
-        x, c = _block_apply(bp, cfg, x, positions=positions, fill_cache=fill,
-                            fill_true_length=true_length)
+        x, c = _block_apply(bp, cfg, x, positions=positions,
+                            prefix_len=prefix_len, enc_out=enc_out,
+                            fill_cache=fill, fill_true_length=true_length)
         if collect_cache:
             caches.append(c)
     return x, caches
@@ -283,35 +337,69 @@ def soi_fuse(params: Transformer, xu, skip):
 # Forward
 # ---------------------------------------------------------------------------
 
-def _embed_tokens(params: Transformer, cfg: ModelCfg, tokens):
+def _embed_tokens(params: Transformer, cfg: ModelCfg, tokens,
+                  positions=None):
     """tokens (B, S) -> (B, S, d) in the compute dtype; gemma configs
-    (``embed_scale``) multiply by sqrt(d), cast to that dtype first. The
+    (``embed_scale``) multiply by sqrt(d), cast to that dtype first; a
+    learned position table adds its rows 0..S-1, or the rows of
+    ``positions`` ((S,) or (B, S) absolute positions) when given. The
     lookup is ``F.embedding``, whose CUDA backward sums a row's repeats
     in a fixed order (``index_select``'s adds them with atomics), so a
     train step repeats bit for bit."""
     x = F.embedding(tokens.long(), params.embed).to(_dtype(cfg))
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    if cfg.learned_pos_len:
+        pe = (params.pos_embed[:tokens.shape[1]] if positions is None
+              else F.embedding(positions.long(), params.pos_embed))
+        x = x + pe.to(x.dtype)
     return x
 
 
-def trunk(params: Transformer, cfg: ModelCfg, tokens):
-    """Token embeddings -> final norm hidden states (B, S, d)."""
+@torch.no_grad()
+def encode(params: Transformer, cfg: ModelCfg, frames):
+    """The audio encoder over stub frontend frames (B, n_frames, d_enc):
+    bidirectional blocks, the final LayerNorm and the projection into the
+    decoder's width. Returns (B, n_frames, d) in the compute dtype."""
+    params = cast_params(params, cfg)
+    enc = params.encoder
+    x = frames.to(_dtype(cfg))
+    positions = torch.arange(x.shape[1], device=x.device)[None]
+    x, _ = _segment_forward(enc.blocks, cfg, x, positions=positions)
+    x = norm_apply("layernorm", enc.final_norm, x, bias=enc.final_norm_bias,
+                   eps=cfg.norm_eps)
+    if hasattr(enc, "proj"):
+        x = torch.matmul(x, enc.proj)
+    return x
+
+
+def trunk(params: Transformer, cfg: ModelCfg, tokens, *, prefix_embeds=None,
+          enc_out=None):
+    """Token embeddings (after ``prefix_embeds`` (B, P, d), when given) ->
+    final norm hidden states (B, P + S, d); cross blocks read ``enc_out``.
+    A prefix-LM config's first ``frontend_len`` positions attend
+    bidirectionally (outside the SOI middle, as in the reference)."""
     x = _embed_tokens(params, cfg, tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None]
+    kw = dict(prefix_len=cfg.frontend_len if cfg.prefix_lm else 0,
+              enc_out=enc_out)
     if cfg.soi is None:
-        x, _ = _segment_forward(params.blocks, cfg, x, positions=positions)
+        x, _ = _segment_forward(params.blocks, cfg, x, positions=positions,
+                                **kw)
     else:
         soi = cfg.soi
         pre, mid, post = split_blocks(params, cfg)
-        x, _ = _segment_forward(pre, cfg, x, positions=positions)
+        x, _ = _segment_forward(pre, cfg, x, positions=positions, **kw)
         skip = x
         xc = soi_compress(params, soi, x)
         cpos = torch.arange(xc.shape[1], device=x.device)[None]
-        xc, _ = _segment_forward(mid, cfg, xc, positions=cpos)
+        xc, _ = _segment_forward(mid, cfg, xc, positions=cpos,
+                                 enc_out=enc_out)
         x = soi_fuse(params, soi_extrapolate(soi, xc, s), skip)
-        x, _ = _segment_forward(post, cfg, x, positions=positions)
+        x, _ = _segment_forward(post, cfg, x, positions=positions, **kw)
     return final_norm(params, cfg, x)
 
 
@@ -335,10 +423,12 @@ def softcap_logits(cfg: ModelCfg, logits):
 
 
 @torch.no_grad()
-def forward(params: Transformer, cfg: ModelCfg, tokens):
-    """Full logits (B, S, V) in float32 (small inputs only — tests)."""
+def forward(params: Transformer, cfg: ModelCfg, tokens, *,
+            prefix_embeds=None, enc_out=None):
+    """Full logits (B, P + S, V) in float32 (small inputs only — tests)."""
     params = cast_params(params, cfg)
-    h = trunk(params, cfg, tokens)
+    h = trunk(params, cfg, tokens, prefix_embeds=prefix_embeds,
+              enc_out=enc_out)
     return softcap_logits(cfg, torch.matmul(h, _head_weights(params)).float())
 
 
@@ -349,12 +439,20 @@ def forward(params: Transformer, cfg: ModelCfg, tokens):
 def check_trainable(cfg: ModelCfg) -> None:
     """Raise for configs whose training is not ported, on every device:
     MoE blocks (the port drops the router's aux loss), RG-LRU blocks
-    (``lru_scan`` has no backward), and the blocks that serve but whose
-    training no test holds against the JAX trainer yet — LayerNorm, the
-    plain (squared-ReLU / GeLU) MLP and windowed attention (ROADMAP.md
-    Queue 1 item 7)."""
+    (``lru_scan`` has no backward), and the models and blocks that serve
+    but whose training no test holds against the JAX trainer yet — the
+    encoder-decoder (whisper), the prefix-LM (paligemma), RWKV blocks,
+    LayerNorm, the plain (squared-ReLU / GeLU) MLP and windowed attention
+    (ROADMAP.md Queue 1 item 7)."""
+    model_kind = ("encoder-decoder" if cfg.encoder is not None else
+                  "prefix-LM" if cfg.prefix_lm else None)
+    if model_kind is not None:
+        raise NotImplementedError(
+            f"config '{cfg.name}': {model_kind} training is queued in "
+            f"ROADMAP.md (Queue 1 item 7)")
     for b in layer_blocks(cfg):
         kind = ("MoE" if b.moe is not None else
+                "RWKV" if b.rwkv is not None else
                 "RG-LRU" if b.rglru is not None else
                 "LayerNorm" if b.norm == "layernorm" else
                 f"{b.mlp.kind} MLP" if b.mlp.kind not in GATED else

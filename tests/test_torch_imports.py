@@ -1,8 +1,8 @@
 """Import guard of the port: no module of ``src/repro_torch``, neither
-``chip_smoke.py`` nor a reading script under ``tools/`` imports JAX or
-anything of the JAX package ``repro`` —
-only ``repro_torch`` is allowed. An AST scan, so lazy imports inside
-functions count too."""
+``chip_smoke.py``, a reading script under ``tools/`` nor an
+``examples/*_torch.py`` imports JAX or anything of the JAX package
+``repro`` — only ``repro_torch`` is allowed. An AST scan, so lazy imports
+inside functions count too."""
 
 import ast
 from pathlib import Path
@@ -16,7 +16,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py")) + sorted(
+    (ROOT / "examples").glob("*_torch.py"))
 
 
 def _banned(name: str) -> bool:

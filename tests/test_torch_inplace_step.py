@@ -10,6 +10,9 @@ and still give the JAX package's results, on the CPU:
     2 × stride + 3 steps, a late insert included, with greedy tokens equal
     to ``repro.engine.SOIEngine``'s on the same numpy-drawn weights and
     logits within 5e-4;
+  * the same over rwkv6-1.6b (SOI pp, dense: its RWKV states) and
+    whisper-tiny (dense and paged: its per-slot cross K/V and the cross
+    read's position buffers), a freed and re-inserted slot included;
   * the U-Net's phase steppers (tests/test_soi_unet.py's width; none, pp
     (2,), pp (1,3), fp (1,), fp (1,) with the shift at 3, tconv pp (2,))
     keep every leaf of the stream state over two periods plus two frames,
@@ -26,6 +29,8 @@ import pytest
 import torch
 
 import repro.configs.qwen3_1_7b as Q
+import repro.configs.rwkv6_1_6b as JRW
+import repro.configs.whisper_tiny as JW
 from repro.core.soi import SOIConvCfg as JSOI
 from repro.distributed.sharding import split_axes
 from repro.engine import SOIEngine as JEngine
@@ -33,6 +38,8 @@ from repro.engine.session import unet_stream_session as jsession
 from repro.models import transformer as JT
 from repro.models import unet as junet
 from repro_torch.configs import qwen3_1_7b as PQ
+from repro_torch.configs import rwkv6_1_6b as PRW
+from repro_torch.configs import whisper_tiny as PW
 from repro_torch.convert import from_jax_params, from_jax_unet
 from repro_torch.core.soi import SOIConvCfg as PSOI
 from repro_torch.engine import SOIEngine
@@ -144,6 +151,77 @@ def test_generate_keeps_every_state_leaf_and_the_reference_tokens(mode,
     if layout == "paged-prefix":
         assert eng.prefix_cache_stats["hits"] >= 1
         assert eng.prefix_cache_stats["cow_copies"] > 0
+
+
+ZOO = {"rwkv6-1.6b-pp": (JRW, PRW, "pp", {}),
+       "whisper-tiny": (JW, PW, None, {}),
+       "whisper-tiny-paged": (JW, PW, None, dict(paged=True, page_size=4))}
+
+
+@pytest.mark.parametrize("case", list(ZOO))
+def test_new_family_steps_keep_every_state_leaf(case):
+    """rwkv6's time- and channel-mix states (pre, middle and post layers)
+    and whisper's per-slot cross K/V, frame positions and query clocks:
+    every leaf keeps its storage over 7 steps, a late insert and a freed
+    and re-inserted slot included, with greedy tokens equal to the JAX
+    engine's and logits within 5e-4."""
+    jm, pm, mode, kw = ZOO[case]
+    jc = dataclasses.replace(jm.smoke_config(soi=mode), dtype="float32")
+    pc = dataclasses.replace(pm.smoke_config(soi=mode), dtype="float32")
+    np_params = _random_params(jc)
+    model = from_jax_params(np_params, pc, device="cpu")
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, jc.vocab, (3, 9)).astype(np.int32)
+    frames = None
+    if jc.encoder is not None:
+        frames = (0.1 * rng.standard_normal(
+            (3, jc.encoder.n_frames, jc.encoder.d_model))).astype(np.float32)
+
+    def run(eng, params, conv, check):
+        ds = eng.init_decode_state(params)
+
+        def prefix(i, n):
+            fkw = ({} if frames is None
+                   else {"encoder_frames": conv(frames[i:i + 1])})
+            return eng.prefill(params, conv(tokens[i, :n]), **fkw)
+
+        ds = eng.insert(prefix(0, 9), ds, 0)
+        ds = eng.insert(prefix(1, 6), ds, 1)
+        out = []
+        for k in range(7):
+            if k == 2:
+                ds = eng.insert(prefix(2, 7), ds, 2)
+            if k == 4:
+                ds = eng.free_slot(ds, 1)
+                ds = eng.insert(prefix(2, 5), ds, 1)
+            ds, res = eng.generate(params, ds)
+            if check is not None:
+                check(ds, k)
+            data = np.asarray(res.convert_to_numpy().data)
+            live = [0, 1] + ([2] if k >= 2 else [])
+            out.append((np.asarray(res.logits)[live],
+                        [int(data[s_, 0]) for s_ in live]))
+        return out
+
+    seen = {}
+
+    def check(ds, k):
+        if "storage" not in seen:
+            seen["storage"] = _storage(ds)
+            names = [p for p, _, _ in seen["storage"]]
+            want = ("['rwkv_tm']['S']" if jc.encoder is None
+                    else "['cross_kv'][1]['v']")
+            assert any(want in n for n in names), names
+        _same_storage(seen["storage"], ds, (case, k))
+
+    kw = dict(max_concurrent_decodes=3, max_len=16, **kw)
+    got = run(SOIEngine(pc, device="cpu", **kw), model, torch.from_numpy,
+              check)
+    ref = run(JEngine(jc, **kw), jax.tree.map(jnp.asarray, np_params),
+              jnp.asarray, None)
+    for k, ((gl, gt), (rl, rt)) in enumerate(zip(got, ref)):
+        assert gt == rt, (case, k)
+        assert float(np.max(np.abs(gl - rl))) < LOGIT_ATOL, (case, k)
 
 
 UNET_KW = dict(in_channels=8, out_channels=8, enc_channels=(6, 8, 10, 12))

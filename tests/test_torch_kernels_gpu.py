@@ -3,9 +3,12 @@ PyTorch versions, on the card (marker ``gpu``), at the smoke and the
 serving path's shapes: float32 (max|Δ| < 2e-5) and bfloat16 (< 2e-2) for
 the attention kernels (GQA and absorbed MLA, flash attention with d_v !=
 d_qk too, its bf16 tensor-core body on ragged tiles and repeating bit for
-bit, the decode reads at recurrentgemma's G 16 / dh 256 on a wrapped
-windowed ring and at the edges of their split of S and at the families' G 6, G 12
-(dh 128) and dh 80 (G 4, wrapped window rings), where the paged read
+bit, whisper's non-causal encoder (Sk 1500) and cross prefill (Sq 64 /
+Sk 1500), the decode reads at recurrentgemma's G 16 / dh 256 on a wrapped
+windowed ring and at the edges of their split of S, at whisper's cross
+read (S 1500, query clock 1 << 30) and at the families' G 6, G 12
+(dh 128), dh 80 (G 4, wrapped window rings) and paligemma's G 8 at
+dh 256, where the paged read
 equals the dense one bit for bit, a (G, dh) no config uses raising, bf16 results repeat bit for bit and stay
 within 2^-6 of their largest output, and every split's partial counts
 once at its weight; the chunk kernels' bf16 tensor-core bodies over whole
@@ -138,6 +141,8 @@ GPU_DECODE = {
     "dh80_ring_window": dict(b=3, h=32, hkv=8, s=200, dh=80, ring=True,
                              window=50),
     "dh80_inactive": dict(b=2, h=8, hkv=2, s=77, dh=80, inactive=True),
+    # paligemma-3b's MQA read (G 8, dh 256) at the served ring of 1088
+    "paligemma_g8": dict(b=4, h=8, hkv=1, s=1088, dh=256),
 }
 
 
@@ -246,6 +251,60 @@ def test_cuda_flash_attention_bidirectional_matches_plain(cuda, dh, dv,
     got = PFA.flash_attention(q, k, v, causal=False)
     want = pref.flash_attention(q, k, v, causal=False)
     _close(got.float().cpu(), want.float().cpu(), TOL[dtype])
+
+
+# whisper-tiny's non-causal shapes: the encoder over 1500 frames (the last
+# key tile ragged: 1500 = 23 * 64 + 28) and a decoder prompt's cross read
+# of them, 6 heads of 64; at B 2 to hold the batch stride too
+GPU_FLASH_WHISPER = {
+    "encoder": dict(b=2, sq=1500, sk=1500, h=6, hkv=6, dh=64),
+    "cross": dict(b=2, sq=64, sk=1500, h=6, hkv=6, dh=64),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(GPU_FLASH_WHISPER))
+def test_cuda_flash_attention_whisper_matches_plain(cuda, case, dtype):
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(x).to(cuda, dt)
+               for x in _flash_inputs(10, **GPU_FLASH_WHISPER[case]))
+    n0 = PFA.flash_attention.launches
+    got = PFA.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert PFA.flash_attention.launches == n0 + 1
+    want = pref.flash_attention(q, k, v, causal=False)
+    _close(got.float().cpu(), want.float().cpu(), TOL[dtype])
+    if dtype == "bfloat16":
+        assert torch.equal(got, PFA.flash_attention(q, k, v, causal=False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b", [1, 4])
+def test_cuda_cross_read_matches_plain(cuda, b, dtype):
+    """whisper's cross read: 1500 encoder rows at positions 0..1499 from a
+    query at 1 << 30 (every row visible), G 1 / dh 64. The split of S
+    leaves a ragged last range; the read matches its plain version,
+    repeats bit for bit, and equals the softmax over all 1500 rows."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(11)
+    s = 1500
+    q, k, v = (torch.from_numpy(_normal(rng, shape)).to(cuda, dt)
+               for shape in ((b, 6, 64), (b, s, 6, 64), (b, s, 6, 64)))
+    pos = torch.arange(s, dtype=torch.int32, device=cuda)[None].repeat(b, 1)
+    t = torch.full((b,), 1 << 30, dtype=torch.int32, device=cuda)
+    n_split, keys, _ = PDA.launch_plan(q, k)
+    assert n_split * keys >= s > (n_split - 1) * keys
+    got = PDA.decode_attention(q, k, v, pos, t)
+    want = pref.decode_attention(q, k, v, pos, t)
+    _close(got.float().cpu(), want.float().cpu(), _read_tol(want, dtype))
+    full = torch.softmax(torch.einsum("bhd,bshd->bhs", q.float(), k.float())
+                         * 64 ** -0.5, -1)
+    sdpa = torch.einsum("bhs,bshd->bhd", full, v.float())
+    _close(got.float().cpu(), sdpa.cpu(), _read_tol(want, dtype))
+    if dtype == "bfloat16":
+        assert torch.equal(got, PDA.decode_attention(q, k, v, pos, t))
 
 
 @pytest.mark.gpu
@@ -917,6 +976,10 @@ GPU_MQA_RING = {
                         dh=80),
     "g6_page4": dict(b=3, s=200, p_sz=4, window=None, h=12, hkv=2, dh=128),
     "g12_page1": dict(b=2, s=130, p_sz=1, window=50, h=24, hkv=2, dh=128),
+    # paligemma-3b's G 8 / dh 256 at its served ring and at pages of 4
+    "paligemma_g8": dict(b=4, s=1088, p_sz=16, window=None, h=8, hkv=1,
+                         dh=256),
+    "g8_page4": dict(b=3, s=200, p_sz=4, window=None, h=8, hkv=1, dh=256),
 }
 
 
