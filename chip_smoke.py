@@ -322,7 +322,25 @@ Phases, each printing its own lines:
              1500), its cross read (S 1500, query at 1 << 30) and self
              read (G 1, dh 64), and paligemma's G 8 / dh 256 reads, dense
              and paged (whisper's self read paged too).
-20. the kernels JSON line (the decode reads and copy_pages also give their
+20. analysis — (a) ``repro_torch.analysis.analyze()`` on the card over
+             the six GQA smoke cells (the MLA smoke's head dims are no
+             kernel instantiation) with all five passes: a finding outside
+             analysis_baseline_torch.json fails; it prints how many cost
+             metrics equal the CPU's cost_baseline_torch.json. (b)
+             qwen3-1.7b at full width (bf16, SOI pp, B 4), phase 5's dense
+             and phase 6's paged engine: each generate branch metered
+             eagerly on the card (FLOPs, bytes, peak memory), equal bit
+             for bit to the CPU's FakeTensorMode count; every kernel
+             launch of the metered steps priced (launch counts == the
+             meter's priced calls); COST001 (off-phase gap >= the middle
+             trunk's floor) and COST002 (paged / dense bytes <= 1.25). (c)
+             the H100 plan of each (roofline ms a branch, tok/s, cache
+             bytes a slot, max slots) beside the graphed step timed as
+             phase 14 times it (and phase 14's dense medians), and
+             init_decode_state's allocation beside the state's leaves
+             rounded to the allocator's 512-byte blocks; the card's name
+             and power limit on each line.
+21. the kernels JSON line (the decode reads and copy_pages also give their
              phase-15 launches under "spec"; the kernels phase 16 launches
              their launches there under "obs"; flash_attention and
              flash_attention_bwd phase 17's under "train"; the decode
@@ -359,8 +377,12 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+from repro_torch.launch.plan import H100  # noqa: E402
+
+# the H100 SXM datasheet's figures, as the planner holds them
+HBM_BYTES_PER_S = H100.hbm_bw
+PEAK_FLOPS = {torch.bfloat16: H100.peak_flops,
+              torch.float32: H100.peak_flops_f32}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # the decode reads in bf16: at most four half-ulps of their largest output
 # (an output is a mean of V rows, at recurrentgemma's read ~0.04 RMS)
@@ -3489,8 +3511,9 @@ def graphs_phase(dev):
     _unet_graph_timing(model, dev)
     del model
     _free(dev)
-    # the graphed qwen3 step's device kernels, which phase 16 holds
-    return lm["graphed"]["kernels"]
+    # the graphed qwen3 step's device kernels, which phase 16 holds, and
+    # its timing, which phase 20 sets beside the plan
+    return lm["graphed"]["kernels"], lm["graphed"]
 
 
 # ---------------------------------------------------------------------------
@@ -5432,6 +5455,197 @@ def zoo_phase(dev) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# 20. analysis
+# ---------------------------------------------------------------------------
+
+# the caching allocator rounds every block up to 512 bytes, and a block
+# over 1 MiB may keep up to 1 MiB of its segment unsplit at its end
+ALLOC_BLOCK = 512
+ALLOC_TAIL = 2 ** 20
+
+
+def _round_block(n: int) -> int:
+    return -(-n // ALLOC_BLOCK) * ALLOC_BLOCK
+
+
+def _analysis_matrix(dev):
+    """(a) ``analyze()`` on the card with its default cells, the smoke
+    cells its kernels take (the six GQA cells: ``targets.CARD_TARGETS``),
+    all five passes; a finding outside ``analysis_baseline_torch.json``,
+    or a cost metric other than the CPU's ``cost_baseline_torch.json``
+    row, fails."""
+    from repro_torch.analysis import analyze, compare_to_baseline
+    from repro_torch.analysis.targets import CARD_TARGETS
+    t0 = time.perf_counter()
+    report = analyze(device=dev)
+    check(report.targets == list(CARD_TARGETS),
+          f"the card's default cells {report.targets} != {CARD_TARGETS}")
+    diff = compare_to_baseline(report,
+                               str(ROOT / "analysis_baseline_torch.json"))
+    for f in diff.new:
+        print(f.render())
+    check(diff.clean, f"{len(diff.new)} analysis finding(s) outside "
+                      f"analysis_baseline_torch.json")
+    base = json.loads((ROOT / "cost_baseline_torch.json").read_text())
+    rows = [(c, e) for c in report.metrics for e in report.metrics[c]]
+    same = sum(report.metrics[c][e] == base["cells"][c][e] for c, e in rows)
+    check(same == len(rows), f"the cost metrics of {len(rows) - same} of "
+                             f"{len(rows)} entries differ from the CPU's "
+                             f"cost_baseline_torch.json")
+    print(f"  analysis on the card: {len(report.targets)} cells x "
+          f"{len(report.passes)} passes, {len(report.findings)} findings "
+          f"({len(diff.accepted)} accepted by the baseline); the cost "
+          f"metrics of {same} of {len(rows)} entries equal the CPU's "
+          f"cost_baseline_torch.json; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def _graphed_steps(engine, params, ds, prompt, plens, dev, n_steps=24):
+    """Host ms of graphed steps after a synchronize, as phase 14 reads
+    them: (median, median with the middle, median without), the branches'
+    captures left out."""
+    for slot, n in enumerate(plens):
+        ds = engine.insert(engine.prefill(params, prompt[slot, :n]), ds,
+                           slot)
+    times = {True: [], False: []}
+    for _ in range(n_steps):
+        mid0, cap0 = engine.mid_steps, engine.graph.captures
+        t0 = time.perf_counter()
+        ds, res = engine.generate(params, ds)
+        res.convert_to_numpy()
+        torch.cuda.synchronize(dev)
+        if engine.graph.captures == cap0:
+            times[engine.mid_steps > mid0].append(
+                (time.perf_counter() - t0) * 1e3)
+    med = lambda v: sorted(v)[len(v) // 2]
+    return (med(times[True] + times[False]), med(times[True]),
+            med(times[False]))
+
+
+def _full_width_cost(dev, card, graphed) -> dict:
+    """(b) + (c): qwen3-1.7b at full width, SOI pp, B 4, phase 5's and 6's
+    engines. Each generate branch metered eagerly on the card, equal to
+    the CPU's FakeTensorMode count; every launch priced; COST001 and
+    COST002; the H100 plan beside the graphed step and the state bytes
+    beside init_decode_state's allocation."""
+    from repro_torch.analysis import cost
+    from repro_torch.engine.contracts import state_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch import plan, serve
+    costs = {}
+    for layout, argv in (("dense", SERVE_ARGV), ("paged", PAGED_ARGV)):
+        name = f"qwen3-1.7b-{layout}"
+        args = serve.parse_args(argv)
+        kw = serve.engine_kwargs(args)
+        cfg, params, prompt, plens, engine = serve.setup(args)
+        torch.cuda.synchronize(dev)
+        a0 = torch.cuda.memory_allocated(dev)
+        ds = engine.init_decode_state(params)
+        torch.cuda.synchronize(dev)
+        delta = torch.cuda.memory_allocated(dev) - a0
+        leaves = [t.numel() * t.element_size() for _, t in state_leaves(ds)]
+        step, step_mid, step_off = _graphed_steps(engine, params, ds, prompt,
+                                                  plens, dev)
+        del ds
+        gen = next(e for e in engine.analysis_entries(params)
+                   if e.name == "generate")
+        rows = {}
+        for mid in (True, False):
+            ops.reset_launch_counts()
+            m, peak = cost.meter_call(gen.fn, gen.with_branch(mid))
+            launched = {k: n for k, n in ops.launch_counts().items() if n}
+            check(not m.unpriced_kernels,
+                  f"{name}: unpriced kernels {m.unpriced_kernels}")
+            check(launched == dict(m.kernels),
+                  f"{name}: launches {launched} != priced calls "
+                  f"{dict(m.kernels)}")
+            rows[mid] = (m.flops, m.bytes, peak, launched)
+        t0 = time.perf_counter()
+        fake = cost.measure_engine(cfg, kw, fake=True)["generate"]
+        fake_s = time.perf_counter() - t0
+        check((fake.flops, fake.bytes, fake.flops_min, fake.bytes_min)
+              == (rows[True][0], rows[True][1], rows[False][0],
+                  rows[False][1]),
+              f"{name}: card {rows} != CPU fake count {fake}")
+        ec = cost.EntryCost(flops=rows[True][0], flops_min=rows[False][0],
+                            bytes=rows[True][1], bytes_min=rows[False][1],
+                            contract=gen.cost)
+        costs[name] = {"generate": ec}
+        floor = cost.middle_trunk_floor(cfg, gen.cost["batch"])
+        findings = cost._certify_cell(name, costs[name], cfg)
+        check(not findings, "; ".join(f.message for f in findings))
+        for mid, label in ((True, "phase-0"), (False, "off-phase")):
+            fl, by, peak, launched = rows[mid]
+            print(f"  {name} generate {label}: {fl:.6e} FLOPs, {by:.6e} "
+                  f"bytes, peak {peak / 2 ** 20:.1f} MiB above the state; "
+                  f"launches {launched}, every one priced; card == CPU "
+                  f"FakeTensorMode count ({fake_s:.1f} s); {card}",
+                  flush=True)
+        print(f"  {name} COST001 holds: gap {ec.flops - ec.flops_min:.6e} "
+              f">= middle-trunk floor {floor:.6e}")
+        p = plan.plan_cell(name, plan.H100, {"generate": ec.to_metrics()},
+                           cfg=cfg, engine_kwargs=kw)
+        pred_leaves = [b for _, b in plan.decode_state_leaves(cfg, kw)]
+        check(sorted(pred_leaves) == sorted(leaves),
+              f"{name}: the fake decode state's leaves differ from the "
+              f"card's")
+        # the engine's spec mask (B bools) is allocated beside the state
+        pred_alloc = (sum(_round_block(b) for b in pred_leaves)
+                      + _round_block(args.batch))
+        n_large = sum(b > ALLOC_TAIL for b in pred_leaves)
+        check(0 <= delta - pred_alloc <= n_large * ALLOC_TAIL,
+              f"{name}: init_decode_state allocated {delta} B, predicted "
+              f"{pred_alloc} B (+ <= {n_large} x {ALLOC_TAIL})")
+        print(f"  {name} plan @ {plan.H100.name} ({card}): phase-0 "
+              f"{p.step_s_phase0 * 1e3:.4f} ms, off-phase "
+              f"{p.step_s_offphase * 1e3:.4f} ms, avg "
+              f"{p.step_s_avg * 1e3:.4f} ms, {p.tok_s:.1f} tok/s; "
+              f"{p.state_bytes_per_slot:.0f} B of caches a slot, max slots "
+              f"{p.max_slots}, params {p.param_bytes / 1e9:.3f} GB")
+        p14 = ("" if graphed is None else
+               f"; phase 14 dense: {graphed['median_ms']:.3f}, "
+               f"{graphed['mid_ms']:.3f} / {graphed['off_ms']:.3f}")
+        print(f"  {name} measured ({card}): graphed step {step:.3f} ms "
+              f"({step_mid:.3f} with the middle / {step_off:.3f} without"
+              f"{p14}); "
+              f"measured / plan {step_mid / (p.step_s_phase0 * 1e3):.2f}x "
+              f"phase-0, {step_off / (p.step_s_offphase * 1e3):.2f}x "
+              f"off-phase; init_decode_state allocated {delta} B against "
+              f"{pred_alloc} B predicted ({len(leaves)} leaves rounded to "
+              f"{ALLOC_BLOCK} B + the spec mask; difference "
+              f"{delta - pred_alloc} B), the plan's caches "
+              f"{p.state_bytes_total:.0f} B ({delta / p.state_bytes_total:.4f}"
+              f"x)", flush=True)
+        del params, engine, gen
+        _free(dev)
+    cross = cost._certify_cross(costs)
+    check(not cross, "; ".join(f.message for f in cross))
+    d = costs["qwen3-1.7b-dense"]["generate"]
+    pg = costs["qwen3-1.7b-paged"]["generate"]
+    print(f"  COST002 holds: paged / dense bytes {pg.bytes / d.bytes:.4f} "
+          f"(bound {cost.PAGED_BYTES_TOL})")
+    return costs
+
+
+def analysis_phase(dev, card, graphed):
+    phase("20 analysis (the contract matrix on the card; qwen3-1.7b's "
+          "generate metered at full width against the CPU fake count; the "
+          "H100 plan beside the measured step)")
+    check(H100.hbm_bytes >= torch.cuda.get_device_properties(0).total_memory
+          >= 0.95 * H100.hbm_bytes,
+          f"total_memory {torch.cuda.get_device_properties(0).total_memory}"
+          f" against the plan's {H100.hbm_bytes}")
+    print(f"  plan.H100: {H100.peak_flops:.4g} FLOP/s bf16, "
+          f"{H100.peak_flops_f32:.3g} f32, {H100.hbm_bw:.4g} B/s, "
+          f"{H100.hbm_bytes} B (total_memory "
+          f"{torch.cuda.get_device_properties(0).total_memory} B); {card}")
+    _analysis_matrix(dev)
+    _free(dev)
+    _full_width_cost(dev, card, graphed)
+
+
 def main():
     card = device_phase()
     dev = torch.device("cuda", 0)
@@ -5448,7 +5662,7 @@ def main():
     rg_counts = rg_serve_phase(dev)
     unet_parity_phase(dev)
     unet_counts = unet_stream_phase(dev)
-    graph_kernels = graphs_phase(dev)
+    graph_kernels, graphed = graphs_phase(dev)
     spec_counts = spec_phase(dev, PLAIN_SEQS)
     obs_counts = obs_phase(dev, PLAIN_SEQS, graph_kernels)
     main_recs["flash_attention_bwd"], train_counts = train_phase(dev, card)
@@ -5456,6 +5670,8 @@ def main():
     fam = families_phase(dev)
     _free(dev)
     zoo = zoo_phase(dev)
+    _free(dev)
+    analysis_phase(dev, card, graphed)
     # launches: each kernel's count on its own path's run — the dense
     # serve (phase 5), the paged prefix-cache serve (phase 6), the
     # deepseek-v2 serve (phase 8), the MLA prefix-cache serve (phase 9),
@@ -5592,7 +5808,7 @@ def main():
             summary[-1]["rg_middle"].update(
                 launches=rg_second[name][name],
                 launches_on="rg serve (dense), outer and middle layers")
-    print(f"== 20 done in {time.perf_counter() - T_START:.1f} s")
+    print(f"== 21 done in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,11 +17,16 @@ The engine's speed rests on invariants the type system cannot see:
   serving loop makes is the batched token drain, ``host_get``.
   ``drain_count`` counts them.
 
+``GraphEntry`` describes one engine entry for ``repro_torch.analysis``
+(the counterpart of ``JitEntry``); ``SOIEngine.analysis_entries`` returns
+them.
+
 This module imports ``torch`` only.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import torch
@@ -51,6 +56,25 @@ _SANCTIONED_DEPTH = 0
 _DRAIN_CALLS = 0
 
 
+def _suspend_guard():
+    """Turn off a sync debug mode (``torch.cuda.set_sync_debug_mode``) that
+    a monitor armed on the card: a sanctioned drain, and a graph's one-time
+    capture, sync by design. Returns the mode to restore, or None when
+    there is none to suspend."""
+    if not torch.cuda.is_initialized():
+        return None
+    mode = torch.cuda.get_sync_debug_mode()
+    if not mode:
+        return None
+    torch.cuda.set_sync_debug_mode(0)
+    return mode
+
+
+def _restore_guard(mode) -> None:
+    if mode is not None:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
 class sanctioned_drain:
     """Context marking an intentional, batched device->host transfer."""
 
@@ -58,11 +82,13 @@ class sanctioned_drain:
         global _SANCTIONED_DEPTH, _DRAIN_CALLS
         _SANCTIONED_DEPTH += 1
         _DRAIN_CALLS += 1
+        self._sync_mode = _suspend_guard()
         return self
 
     def __exit__(self, *exc):
         global _SANCTIONED_DEPTH
         _SANCTIONED_DEPTH -= 1
+        _restore_guard(self._sync_mode)
         return False
 
 
@@ -213,7 +239,9 @@ class _Captured:
 
 class CheckedGraph:
     """``fn`` run as one CUDA graph per static branch, over state that
-    ``fn`` updates in place (the counterpart of ``CheckedJit``).
+    ``fn`` updates in place (the counterpart of ``CheckedJit``, whose
+    ``DroppedDonationError`` it raises and whose attribute passthrough it
+    replaces with ``stats()``, ``captures`` and ``replays``).
 
     ``fn(*args)`` returns ``(new_state_0, ..., new_state_k, *outputs)``:
     one new state per position of ``state_argnums``, in that order, with
@@ -258,6 +286,7 @@ class CheckedGraph:
                                else tuple(static_argnums))
         self.name = name or getattr(fn, "__name__", "step")
         self._graphs: dict = {}
+        self._eager_keys: set = set()
         self._pool = None
         self._stream = None
         self.captures = 0
@@ -309,12 +338,19 @@ class CheckedGraph:
 
     def __call__(self, *args):
         dev = self._device(args)
-        if dev.type != "cuda":
-            return self._run_checked(args)[0]
         key = tuple(args[i] for i in self.static_argnums)
+        if dev.type != "cuda":
+            self._eager_keys.add(key)
+            return self._run_checked(args)[0]
         cap = self._graphs.get(key)
         if cap is None:
-            return self._first(key, args, dev)
+            # a branch's first step captures once: its syncs are not the
+            # steady state a sync monitor watches
+            mode = _suspend_guard()
+            try:
+                return self._first(key, args, dev)
+            finally:
+                _restore_guard(mode)
         self._check(cap, args)
         cap.graph.replay()
         ops.add_launch_counts(cap.launches)
@@ -427,8 +463,14 @@ class CheckedGraph:
         """Drop every captured graph and the pool (the state they were
         captured over is gone)."""
         self._graphs = {}
+        self._eager_keys = set()
         self._pool = None
         self._stream = None
+
+    def keys(self) -> set:
+        """The branch keys run since the last ``reset``: on the card one
+        capture each, on the CPU the graphs the card would capture."""
+        return set(self._graphs) | self._eager_keys
 
     def stats(self) -> dict:
         """Per branch: capture seconds, pool bytes reserved by the capture,
@@ -448,3 +490,54 @@ def checked_graph(fn=None, *, state_argnums=(), static_argnums=(),
                                       name=name)
     return CheckedGraph(fn, state_argnums=state_argnums,
                         static_argnums=static_argnums, name=name)
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphEntry:
+    """One engine entry point, described for ``repro_torch.analysis`` (the
+    counterpart of ``repro.engine.contracts.JitEntry``).
+
+    ``fn`` is the entry's eager callable: the analysis passes run it once
+    on ``args`` (the meter must reach the kernel wrappers, which a
+    replayed graph never does). ``graph`` is the ``CheckedGraph`` that
+    serves ``fn`` on the card, or None for an entry that runs eagerly
+    everywhere (prefill, insert, release). ``args`` are example arguments
+    shaped like live traffic: the decode state is a real freshly
+    initialized one, so running an entry writes that state (in place, as
+    serving does). ``state_args`` are the positions whose leaves the step
+    writes in place — the graph's ``state_argnums``, which the reference
+    spells ``donate``/``state_args``: every leaf of at least ``BIG_BYTES``
+    must come back in its own storage. ``static_args`` are positions that
+    hold host values (Python ints, bools, tuples): a graph keys its
+    branches on them, an eager entry reads them on the host.
+    ``readonly_ok`` maps positions whose large inputs are read and never
+    written by design (params shared by every call, the live pools that
+    hydration gathers from) to the reason. ``carry`` is ``(in_argnum,
+    out_index)`` locating the carried state in the inputs and outputs
+    (``out_index=None``: the whole output is the new state).
+
+    ``branches`` are the values of the entry's static branch argument
+    (``static_args[0]``) that the cost pass meters one by one, the
+    phase-0 branch first: the reference's generate is ONE program with a
+    ``lax.cond`` whose two branches its parser charges apart, the port's
+    is one graph a branch. ``cost`` is the static cost contract for the
+    cost pass (``repro_torch.analysis.cost``): ``role`` (``"generate"``,
+    ``"spec_window"``, ``"prefill"``, ``"prefill_chunk"``, ``"hydrate"``)
+    plus ``stride``, ``k``, ``batch``, ``tokens``; ``None`` means the
+    entry is only metered for the baseline.
+    """
+    name: str
+    fn: object
+    args: tuple
+    graph: object = None
+    state_args: tuple = ()
+    static_args: tuple = ()
+    readonly_ok: dict = dataclasses.field(default_factory=dict)
+    carry: tuple | None = None
+    cost: dict | None = None
+    branches: tuple = ()
+
+    def with_branch(self, value) -> tuple:
+        """``args`` with the static branch argument set to ``value``."""
+        i = self.static_args[0]
+        return self.args[:i] + (value,) + self.args[i + 1:]

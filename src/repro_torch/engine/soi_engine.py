@@ -97,8 +97,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelCfg
 from repro_torch.engine.api import Engine, Prefix, ResultTokens
-from repro_torch.engine.contracts import (CheckedGraph, host_copy_async,
-                                          host_get)
+from repro_torch.engine.contracts import (CheckedGraph, GraphEntry,
+                                          host_copy_async, host_get)
 from repro_torch.engine.pages import (PageTable, PrefixEntry, PrefixIndex,
                                       chain_keys)
 from repro_torch.engine.speculative import speculative_window
@@ -375,9 +375,10 @@ class SOIEngine(Engine):
         self.cow_flushes = 0
         # the device step, one graph per SOI branch on the card
         stride = self._metrics_stride
-        self.graph = CheckedGraph(
-            lambda params, ds, mid: gen_step(params, cfg, ds, mid, stride),
-            state_argnums=(1,), static_argnums=(2,), name="generate")
+        self._gen_fn = (lambda params, ds, mid:
+                        gen_step(params, cfg, ds, mid, stride))
+        self.graph = CheckedGraph(self._gen_fn, state_argnums=(1,),
+                                  static_argnums=(2,), name="generate")
         self._speculate = None if speculate is None else int(speculate)
         # which slots run speculative windows (insert(..., speculate=...));
         # the others commit exactly one token a window
@@ -399,10 +400,11 @@ class SOIEngine(Engine):
         self._spec_dev = None
         self._spec_dev_host = None
         # the window, one graph per key on the card
-        self.spec_graph = CheckedGraph(
-            lambda params, ds, spec, key: spec_step(params, cfg, ds, spec,
-                                                    key, stride),
-            state_argnums=(1,), static_argnums=(3,), name="spec_window")
+        self._spec_fn = (lambda params, ds, spec, key:
+                         spec_step(params, cfg, ds, spec, key, stride))
+        self.spec_graph = CheckedGraph(self._spec_fn, state_argnums=(1,),
+                                       static_argnums=(3,),
+                                       name="spec_window")
 
     def _resolve_buckets(self, policy):
         """Prefill bucket lengths: None (exact length), "pow2" (powers of
@@ -504,6 +506,15 @@ class SOIEngine(Engine):
         if not pending["outer"] and not pending["mid"]:
             return decode_state
         self._cow_pending = {"outer": [], "mid": []}
+        if self._copy_pairs(decode_state, pending):
+            self.cow_flushes += 1
+        self._live = decode_state
+        return decode_state
+
+    def _copy_pairs(self, decode_state, pending: dict) -> bool:
+        """Copy the (src, dst) page pairs ``pending[table]`` in every pool
+        leaf of the table's groups, in one ``copy_pages_leaves`` launch;
+        False when no pool was touched."""
         model = decode_state["model"]
         pools, srcs, dsts = [], [], []
         for table, pairs in pending.items():
@@ -517,9 +528,7 @@ class SOIEngine(Engine):
             dsts += [dst] * (len(pools) - len(dsts))
         if pools:
             kops.copy_pages_leaves(pools, srcs, dsts)
-            self.cow_flushes += 1
-        self._live = decode_state
-        return decode_state
+        return bool(pools)
 
     @torch.no_grad()
     def _scrub(self, decode_state, freed: dict):
@@ -812,10 +821,11 @@ class SOIEngine(Engine):
                       true_length=tl)
 
     @torch.no_grad()
-    def _hydrate(self, ms: dict, rows: dict, n_tok: int, n_frames: int):
+    def _hydrate(self, ms: dict, live: dict, rows: dict, n_tok: int,
+                 n_frames: int):
         """Fill the batch-1 prefill buffer's first ``n_tok`` rows (middle:
-        ``n_frames``) from the live pools' pages ``rows``."""
-        live = self._live["model"]
+        ``n_frames``) from the pages ``rows`` of the live pools (``live``:
+        the live decode state's model)."""
         for table, groups in _table_groups(self.cfg).items():
             limit = n_frames if table == "mid" else n_tok
             for group in groups:
@@ -860,7 +870,7 @@ class SOIEngine(Engine):
                 rows = {"outer": self._ids(e.outer_pages)}
                 if self._pt_mid is not None:
                     rows["mid"] = self._ids(e.mid_pages)
-                self._hydrate(ms, rows, r,
+                self._hydrate(ms, self._live["model"], rows, r,
                               r // self.cfg.soi.stride if soi else 0)
                 if soi:
                     ms["conv_buf"] = e.conv_buf.to(self.device, copy=True)
@@ -903,7 +913,8 @@ class SOIEngine(Engine):
         spec = (self._speculate is not None if speculate is None
                 else bool(speculate))
         if not self._paged:
-            insert_state(self.cfg, decode_state["model"], prefix.state, s_i)
+            self._insert_device(decode_state, prefix.state,
+                                prefix.first_token, s_i, None)
             self._install(decode_state, prefix, s_i, spec)
             return decode_state
         decode_state = self._flush_cow(decode_state)
@@ -952,8 +963,8 @@ class SOIEngine(Engine):
                     if pt is not None:
                         _, write = pt.alloc_slot(s_i, n_pos, shared=shared)
                         page_rows[name] = self._ids(write)
-                insert_state(self.cfg, decode_state["model"], prefix.state,
-                             s_i, page_rows=page_rows)
+                self._insert_device(decode_state, prefix.state,
+                                    prefix.first_token, s_i, page_rows)
             except Exception:
                 # transactional: the slot's pages go back, adopted shared
                 # pages drop their new reference, and freed pages are
@@ -975,13 +986,24 @@ class SOIEngine(Engine):
         return decode_state
 
     def _install(self, decode_state, prefix: Prefix, s_i: int, spec: bool):
-        decode_state["tokens"][s_i] = prefix.first_token[0]
-        decode_state["active"][s_i] = True
+        """The host bookkeeping of an insert (``_insert_device`` made its
+        device writes)."""
         self._clock[s_i] = prefix.true_length
         self._occupied[s_i] = True
         # set last: re-inserting into an occupied slot frees it first
         self._spec_slots[s_i] = spec
         self._live = decode_state
+
+    @torch.no_grad()
+    def _insert_device(self, decode_state, prefix_state, first, slot: int,
+                       page_rows):
+        """The device writes of an insert: the prefix state into the slot's
+        rows or pages, its first token and its active bit."""
+        insert_state(self.cfg, decode_state["model"], prefix_state, slot,
+                     page_rows=page_rows)
+        decode_state["tokens"][slot] = first[0]
+        decode_state["active"][slot] = True
+        return decode_state
 
     def _unpin_scrubbed(self, temp_pins, decode_state):
         """Drop insert-scoped temp pins; scrub any page that hit refcount 0
@@ -1242,17 +1264,160 @@ class SOIEngine(Engine):
         # the host records are cleared, so no later rollback drops them
         self._spec_slots[s_i] = False
         self._spec_pending[s_i] = []
-        model = decode_state["model"]
+        freed = None
         if self._paged:
             freed = {name: [p for p in pt.release(s_i) if p > 0]
                      for name, pt in self._tables() if pt is not None}
-            self._scrub(decode_state, freed)
             self._clock[s_i] = 0
+        decode_state = self._release(decode_state, s_i, freed)
+        self._live = decode_state
+        return decode_state
+
+    @torch.no_grad()
+    def _release(self, decode_state, slot: int, freed):
+        """The device writes of a release: scrub the freed pages
+        (``freed``, paged) or the slot's rows (dense, ``freed`` None), and
+        clear the slot's active bit."""
+        if freed is not None:
+            self._scrub(decode_state, freed)
         else:
+            model = decode_state["model"]
             for groups in _table_groups(self.cfg).values():
                 for group in groups:
                     for c in _attn_caches(model[group]):
-                        c["pos"][s_i] = -1
-        decode_state["active"][s_i] = False
-        self._live = decode_state
+                        c["pos"][slot] = -1
+        decode_state["active"][slot] = False
         return decode_state
+
+    # -- static-analysis hooks --------------------------------------------
+
+    def analysis_entries(self, params) -> list:
+        """Describe every engine entry for ``repro_torch.analysis`` (the
+        counterpart of ``repro.engine.soi_engine.SOIEngine
+        .analysis_entries``).
+
+        Returns ``GraphEntry`` records pairing each entry's eager callable
+        with example arguments shaped like live traffic: a freshly
+        initialized decode state, a fresh batch-1 prefix state (the shape
+        every prefill and chunk returns), zero token ids and page rows on
+        the null page. The generate step and the speculative window carry
+        their ``CheckedGraph`` and the branches the cost pass meters one by
+        one (phase 0 first). Running an entry writes the example state in
+        place, as serving does; nothing here runs one. Building the entries
+        initializes a fresh decode state: use a dedicated engine, the
+        ONE-live-state rule applies to analysis too."""
+        cfg = self.cfg
+        ro_params = ("params are shared by every call on the engine and "
+                     "must never be written")
+        stride = cfg.soi.stride if cfg.soi is not None else 1
+        params = cast_params(params, cfg)
+        ds = self.init_decode_state(params)
+        dev = self.device
+        fresh = torch.no_grad()(
+            lambda params: D.init_decode_state(params, cfg, 1,
+                                               max_len=self.max_len))
+        ms_ex = fresh(params)
+        first = torch.zeros((1,), dtype=torch.int32, device=dev)
+        entries = []
+        if self._chunk is not None:
+            entries.append(GraphEntry(
+                "fresh_prefix", fresh, (params,), readonly_ok={0: ro_params}))
+            def prefill_chunk(params, ms, toks, off, tl):
+                logits, ms = D.prefill_chunk(params, cfg, ms, toks, off, tl)
+                return ms, logits
+            entries.append(GraphEntry(
+                "prefill_chunk", torch.no_grad()(prefill_chunk),
+                (params, fresh(params),
+                 torch.zeros((1, self._chunk), dtype=torch.int64,
+                             device=dev), 0, self._chunk),
+                state_args=(1,), static_args=(3, 4),
+                readonly_ok={0: ro_params}, carry=(1, 0),
+                cost={"role": "prefill_chunk", "tokens": self._chunk,
+                      "batch": 1, "stride": stride}))
+        else:
+            length = (self._buckets[0] if self._buckets
+                      else min(8, self.max_len))
+            bucketed = self._buckets is not None
+            entries.append(GraphEntry(
+                "prefill", torch.no_grad()(
+                    lambda params, toks, tl: D.prefill(
+                        params, cfg, toks, max_len=self.max_len,
+                        true_length=tl if bucketed else None)),
+                (params, torch.zeros((1, length), dtype=torch.int64,
+                                     device=dev), length),
+                static_args=(2,), readonly_ok={0: ro_params},
+                cost={"role": "prefill", "tokens": length, "batch": 1,
+                      "stride": stride}))
+        page_rows = None
+        if self._paged:
+            page_rows = {name: torch.zeros(pt.pages_per_slot,
+                                           dtype=torch.int32, device=dev)
+                         for name, pt in self._tables() if pt is not None}
+        entries.append(GraphEntry(
+            "insert", self._insert_device, (ds, ms_ex, first, 0, page_rows),
+            state_args=(0,), static_args=(3,),
+            readonly_ok={1: "a Prefix is caller-owned and re-insertable "
+                            "(one prefill may fan into several slots)"},
+            carry=(0, None)))
+        if self._speculate is None:
+            mid = True if cfg.soi is not None else None
+            entries.append(GraphEntry(
+                "generate", self._gen_fn, (params, ds, mid),
+                graph=self.graph, state_args=(1,), static_args=(2,),
+                readonly_ok={0: ro_params}, carry=(1, 0),
+                cost={"role": "generate", "stride": stride,
+                      "batch": self._slots},
+                branches=(True, False) if cfg.soi is not None else ()))
+        else:
+            k = self._speculate
+            keys = (((k, (True,) * k), (k, (False,) * k))
+                    if cfg.soi is not None else ())
+            entries.append(GraphEntry(
+                "speculative_window", self._spec_fn,
+                (params, ds, self._spec_dev, keys[0] if keys else (k, None)),
+                graph=self.spec_graph, state_args=(1,), static_args=(3,),
+                readonly_ok={0: ro_params}, carry=(1, 0),
+                cost={"role": "spec_window", "stride": stride, "k": k,
+                      "batch": self._slots},
+                branches=keys))
+        # a release pads its freed pages to the slot's whole row, on the
+        # null page, as the reference's does
+        freed = ({name: [0] * pt.pages_per_slot
+                  for name, pt in self._tables() if pt is not None}
+                 if self._paged else None)
+        entries.append(GraphEntry(
+            "release", self._release, (ds, 0, freed), state_args=(0,),
+            static_args=(1, 2), carry=(0, None)))
+        if self._prefix_cache:
+            entries.append(GraphEntry(
+                "scrub", self._scrub, (ds, freed), state_args=(0,),
+                static_args=(1,), carry=(0, None)))
+            n_tok = self._chunk
+            n_fr = self._chunk // stride
+            p_sz = self._spec.page_size
+            rows = {name: torch.zeros(-(-(n_fr if name == "mid" else n_tok)
+                                        // p_sz),
+                                      dtype=torch.int64, device=dev)
+                    for name, pt in self._tables() if pt is not None}
+
+            def hydrate(ms, live, rows, n_tok, n_fr):
+                self._hydrate(ms, live, rows, n_tok, n_fr)
+                return ms
+            entries.append(GraphEntry(
+                "hydrate", torch.no_grad()(hydrate),
+                (fresh(params), ds["model"], rows, n_tok, n_fr),
+                state_args=(0,), static_args=(3, 4),
+                readonly_ok={1: "the LIVE pool state hydration gathers "
+                                "from; it outlives the call"},
+                carry=(0, None),
+                cost={"role": "hydrate", "tokens": n_tok, "stride": stride}))
+
+            def cow_batch(ds, pending):
+                self._copy_pairs(ds, pending)
+                return ds
+            pairs = {name: [(0, 0)] * self._slots
+                     for name, pt in self._tables() if pt is not None}
+            entries.append(GraphEntry(
+                "cow_batch", cow_batch, (ds, pairs), state_args=(0,),
+                static_args=(1,), carry=(0, None)))
+        return entries

@@ -178,7 +178,8 @@ def verify_commit(params, cfg: ModelCfg, state: dict, inputs, *, active,
     commit = n_acc = next_tok = last_lg = None
     out = []
     for j in range(k):
-        mid = None if run_mid is None else bool(run_mid[j])
+        mid = (None if run_mid is None
+               else bool(run_mid[j]))  # sync-ok: run_mid is the static host key tuple
         if j == 0:
             # commit starts all True (NOT ``active``): the first iteration
             # is exactly one plain step, unmasked writes of free slots

@@ -9,6 +9,11 @@ sources, headers and flags: an edited kernel rebuilds, an unchanged one
 loads the existing library. A failed build raises with nvcc's output.
 
 Nothing here runs at import time; the CPU path never builds anything.
+
+``metered`` marks each kernel wrapper for the cost meter
+(``repro_torch.analysis.meter``): with no meter active it costs the wrapper
+one global read; under a meter the call is priced by ``kernels/costs.py``
+from its operands' shapes, on every device.
 """
 
 from __future__ import annotations
@@ -158,6 +163,24 @@ def library() -> ctypes.CDLL:
 def build_info() -> BuildInfo:
     """How the loaded library came to be: path, build seconds, ptxas log."""
     return _load()[1]
+
+
+# the active cost meter (``analysis.meter.Meter``), or None
+METER = None
+
+
+def metered(name: str):
+    """Decorate the kernel wrapper ``name`` (its ``kernels/costs.py`` key):
+    under an active meter the call goes through ``METER.kernel_call``,
+    which runs it and prices it; otherwise the wrapper runs as it is."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if METER is None:
+                return fn(*args, **kwargs)
+            return METER.kernel_call(name, fn, args, kwargs)
+        return wrapper
+    return deco
 
 
 def needs_grad(*tensors) -> bool:

@@ -163,6 +163,7 @@ def _check_cuda(q, k, v, q_positions, k_positions):
             raise ValueError(f"{name} must be contiguous")
 
 
+@_build.metered("chunk_attention")
 def chunk_attention(q, k, v, q_positions, k_positions, *, window=None,
                     scale=None, logit_softcap=None):
     """q: (B, C, H, dh); k, v: (B, Sk, Hkv, dh) with H a multiple of Hkv;
@@ -296,6 +297,7 @@ def _check_mla_cuda(q_lat, q_rope, latent, rope, q_positions, k_positions,
             raise ValueError(f"{name} must be contiguous")
 
 
+@_build.metered("mla_chunk_attention")
 def mla_chunk_attention(q_lat, q_rope, latent, rope, q_positions,
                         k_positions, *, scale, out_dtype=None):
     """q_lat: (B, C, H, L) (W_UK absorbed); q_rope: (B, C, H, R); latent:

@@ -209,6 +209,7 @@ def _check_cuda(q, k_cache, v_cache, cache_positions, q_position):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+@_build.metered("decode_attention")
 def decode_attention(q, k_cache, v_cache, cache_positions, q_position, *,
                      window=None, scale=None, logit_softcap=None):
     """q: (B, H, dh); caches: (B, S, Hkv, dh); cache_positions: (B, S) int32;
@@ -287,6 +288,7 @@ def _check_paged_cuda(q, k_pool, v_pool, pos_pool, page_map, q_position):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+@_build.metered("paged_decode_attention")
 def paged_decode_attention(q, k_pool, v_pool, pos_pool, page_map, q_position,
                            *, window=None, scale=None, logit_softcap=None):
     """q: (B, H, dh); pools: (n_pages, P, Hkv, dh); pos_pool: (n_pages, P)
@@ -437,6 +439,7 @@ def _check_paged_mla_cuda(q_lat, q_rope, lat_pool, rope_pool, pos_pool,
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+@_build.metered("paged_mla_decode_attention")
 def paged_mla_decode_attention(q_lat, q_rope, lat_pool, rope_pool, pos_pool,
                                page_map, q_position, *, scale,
                                out_dtype=None):

@@ -129,6 +129,7 @@ def forward_launch(q, k, v, *, causal, q_offset, scale, cap, with_lse):
     return out, lse
 
 
+@_build.metered("flash_attention")
 def flash_attention(q, k, v, *, causal=True, window=None, prefix_len=0,
                     q_offset=0, scale=None, logit_softcap=None):
     """q: (B, Sq, H, dqk); k: (B, Sk, Hkv, dqk); v: (B, Sk, Hkv, dv) with H
@@ -202,6 +203,7 @@ class FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+@_build.metered("flash_attention_bwd")
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, q_offset=0,
                         scale=None):
     """The gradient (dq, dk, dv) of :func:`flash_attention`, each in its

@@ -121,6 +121,7 @@ def launch_plan(a, x) -> LruPlan:
                     aligned=a.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
 
 
+@_build.metered("lru_scan")
 def lru_scan(a, x, h0=None):
     """a, x: (B, S, D); h0: (B, D) or None (zeros). Returns ``(h_all,
     h_last)``: h_all (B, S, D) in x's dtype and its last step (B, D); the

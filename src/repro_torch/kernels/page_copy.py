@@ -90,6 +90,7 @@ def _upload(table: np.ndarray, dev) -> torch.Tensor:
     return torch.from_numpy(table).pin_memory().to(dev, non_blocking=True)
 
 
+@_build.metered("copy_pages")
 def copy_pages_leaves(pools, srcs, dsts):
     """pools: pool leaves (n_pages, ...) of any dtype on one device, updated
     in place; srcs, dsts: one pair list per pool (page ids in [0, n_pages);

@@ -145,6 +145,7 @@ def _check_cuda(window, w, b):
             raise ValueError(f"{name} must be contiguous")
 
 
+@_build.metered("stmc_conv")
 def stmc_conv(window, w, b=None):
     """window: (B, K, Cin); w: (K, Cin, Cout); b: (Cout,) or None. Returns
     ``window . w + b`` as (B, Cout) in the window's dtype, accumulated in

@@ -258,6 +258,23 @@ def serve(engine: SOIEngine, params, prompt, plens, gen_len: int, *,
                        spec, tracer)
 
 
+def engine_kwargs(args: argparse.Namespace) -> dict:
+    """The ``SOIEngine`` keyword arguments of ``args``, the device left
+    out."""
+    if args.bucket == "pow2":
+        buckets = "pow2"
+    elif args.bucket == "none":
+        buckets = None
+    else:
+        buckets = tuple(int(x) for x in args.bucket.split(","))
+    return dict(max_concurrent_decodes=args.batch,
+                max_len=args.prompt_len + args.gen_len, paged=args.paged,
+                page_size=args.page_size, prefill_buckets=buckets,
+                prefill_chunk=args.chunk_size,
+                prefix_cache=args.prefix_cache, speculate=args.speculate,
+                telemetry=bool(args.trace_out or args.metrics_out))
+
+
 def setup(args: argparse.Namespace, cfg=None):
     """The config, random weights (from ``--seed``), prompts, prompt
     lengths and engine of ``args``: ``(cfg, params, prompt, plens,
@@ -265,12 +282,6 @@ def setup(args: argparse.Namespace, cfg=None):
     is no registered architecture, e.g. deepseek-v2's MLA block with its
     dense MLP); everything else still comes from ``args``."""
     device = resolve_device(args.device)
-    if args.bucket == "pow2":
-        buckets = "pow2"
-    elif args.bucket == "none":
-        buckets = None
-    else:
-        buckets = tuple(int(x) for x in args.bucket.split(","))
     if args.smoke and args.layers:
         raise ValueError("--layers cuts a full-size config; the smoke "
                          "configs have their own depth")
@@ -288,14 +299,7 @@ def setup(args: argparse.Namespace, cfg=None):
         prompt[:, :n] = prompt[0, :n]
     plens = [max(1, args.prompt_len - i * args.stagger)
              for i in range(args.batch)]
-    engine = SOIEngine(cfg, max_concurrent_decodes=args.batch,
-                       max_len=args.prompt_len + args.gen_len,
-                       device=device, paged=args.paged,
-                       page_size=args.page_size, prefill_buckets=buckets,
-                       prefill_chunk=args.chunk_size,
-                       prefix_cache=args.prefix_cache,
-                       speculate=args.speculate,
-                       telemetry=bool(args.trace_out or args.metrics_out))
+    engine = SOIEngine(cfg, device=device, **engine_kwargs(args))
     return cfg, params, prompt, plens, engine
 
 
