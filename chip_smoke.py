@@ -340,10 +340,31 @@ Phases, each printing its own lines:
              init_decode_state's allocation beside the state's leaves
              rounded to the allocator's 512-byte blocks; the card's name
              and power limit on each line.
-21. the kernels JSON line (the decode reads and copy_pages also give their
+21. dist     — the distributed layer over NCCL, a world of one rank (one
+             card cannot hold two ranks of a communicator; the multi-rank
+             semantics are held on gloo ranks in the CPU tests). (a) a
+             process group (HashStore, rank 0 of 1, bound to the card) and
+             a (1, 1) ("data", "model") mesh of launch.mesh.make_mesh. (b)
+             compressed_psum on CUDA tensors bit for bit its numpy replay;
+             moe_all_to_all and a one-stage pipeline_apply bit for bit
+             their input and the sequential stack. (c) qwen3-1.7b at full
+             width and depth, SOI pp, bf16 over float32 masters, phase
+             17's batch: 3 steps of the plain step, then (its per-leaf
+             digests kept, the rest freed) 3 of the sharded
+             make_train_step on the mesh — loss and grad norm each step,
+             every param and moment after, bit for bit; both steps'
+             median ms (host clock after a synchronize) and peak memory;
+             flash_attention / flash_attention_bwd launches of the sharded
+             run; a profiled sharded step between markers: NCCL kernels
+             and flash forward and backward kernels a step. The process
+             group is destroyed after (c). (d) the dry run, --all --mesh
+             both, as a table of GB a device against the H100's 80 GiB
+             less the planner's reserve (no device needed).
+22. the kernels JSON line (the decode reads and copy_pages also give their
              phase-15 launches under "spec"; the kernels phase 16 launches
              their launches there under "obs"; flash_attention and
-             flash_attention_bwd phase 17's under "train"; the decode
+             flash_attention_bwd phase 17's under "train" and phase 21's
+             sharded step's under "dist"; the decode
              reads and chunk_attention the families' shapes with their
              phase-18 launches under "families"; flash_attention and the
              decode reads the zoo's shapes with their phase-19 launches
@@ -5646,6 +5667,237 @@ def analysis_phase(dev, card, graphed):
     _full_width_cost(dev, card, graphed)
 
 
+# ---------------------------------------------------------------------------
+# 21. dist: the distributed layer over NCCL at world size 1
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = 3
+
+
+def _replay_psum(x):
+    """compressed_psum over one rank in numpy float32."""
+    import numpy as np
+    flat = x.reshape(-1).astype(np.float32)
+    pad = (-flat.size) % 256
+    fp = np.pad(flat, (0, pad)).reshape(-1, 256)
+    scale = np.maximum(np.max(np.abs(fp), axis=1, keepdims=True),
+                       np.float32(1e-12)) / np.float32(127.0)
+    q = np.round(fp / scale).astype(np.int8).astype(np.int32)
+    return (q.astype(np.float32) * scale).reshape(-1)[:flat.size].reshape(
+        x.shape)
+
+
+def _dist_collectives(dev):
+    """(b): the collectives over NCCL, bit for bit."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.distributed.collectives import (compressed_psum,
+                                                     moe_all_to_all)
+    from repro_torch.distributed.pipeline import pipeline_apply
+    rng = np.random.default_rng(21)
+    for shape, dt in (((4, 2048), torch.float32), ((3, 101), torch.float32),
+                      ((4, 96), torch.bfloat16)):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dt)
+        want = torch.from_numpy(_replay_psum(x.float().numpy())).to(dt)
+        got = compressed_psum(x.to(dev), dist.group.WORLD)
+        check(got.dtype == dt and torch.equal(got.cpu(), want),
+              f"compressed_psum {shape} {dt}: not its numpy replay")
+    tok = torch.from_numpy(rng.standard_normal((8, 64, 2048)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    check(torch.equal(moe_all_to_all(tok, dist.group.WORLD), tok),
+          "moe_all_to_all over one rank is not its input")
+    w = torch.from_numpy((0.03 * rng.standard_normal((8, 2048, 2048)))
+                         .astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((12, 2048)).astype(
+        np.float32)).to(dev)
+    layers = [w[i] for i in range(8)]
+
+    def layer_fn(lw, h):
+        return torch.tanh(h @ lw)
+
+    y = pipeline_apply(dist.group.WORLD, layer_fn, layers, x,
+                       microbatches=3)
+    want = []
+    for h in x.chunk(3):
+        for lw in layers:
+            h = layer_fn(lw, h)
+        want.append(h)
+    check(torch.equal(y, torch.cat(want)),
+          "one-stage pipeline_apply is not the sequential stack")
+    print("  (b) compressed_psum (4,2048) / (3,101) f32 and (4,96) bf16 == "
+          "the numpy replay bit for bit; moe_all_to_all (8,64,2048) bf16 == "
+          "its input; pipeline_apply, 1 stage x 8 layers, 3 microbatches "
+          "== the sequential stack bit for bit")
+
+
+def _digests(tree: dict) -> dict:
+    """Per-leaf digest of float32 leaves, exact: the int64 sums of the
+    leaf's bits and of its bits times a position pattern (wrapping)."""
+    out = {}
+    for k, t in tree.items():
+        x = t.detach().reshape(-1).view(torch.int32).long()
+        w = torch.arange(x.numel(), device=x.device) % 65521 + 1
+        out[k] = (int(x.sum()), int((x * w).sum()))
+        del x, w
+    return out
+
+
+def _dist_train(dev, card):
+    """(c): the plain step, then the sharded step on the (1, 1) mesh, 3
+    steps each from the same weights and batches. Returns the sharded
+    run's launch counts."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import ShardedLMPipeline
+    from repro_torch.distributed.sharding import (ShardingRules,
+                                                  gather_params, gather_tree,
+                                                  shard_params)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import local_batch, make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    cfg = configs.get("qwen3-1.7b", soi="pp")
+    pipe = ShardedLMPipeline(global_batch=8, seq_len=128, vocab=cfg.vocab,
+                             seed=0)
+    batches = [_train_batch(pipe, i, dev) for i in range(DIST_STEPS + 1)]
+    kw = dict(peak_lr=1e-3, warmup=20, total_steps=TRAIN_STEPS)
+
+    def init():
+        return T.init(cfg, generator=torch.Generator(device=dev)
+                      .manual_seed(0), device=dev)
+
+    def run(model, opt, step, prep):
+        metrics, times = [], []
+        for bt in batches[:DIST_STEPS]:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            _, _, m = step(model, opt, prep(bt))
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        return metrics, sorted(times)[len(times) // 2]
+
+    def profiled(label, fn):
+        # one step between markers (device kernels, busy), then one more
+        # with the host's records (the collectives c10d issued)
+        from collections import Counter
+        from torch.profiler import ProfilerActivity, profile
+        ev = _device_events(fn, markers=MARKERS)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fn()
+            torch.cuda.synchronize(dev)
+        calls = Counter(e.name for e in prof.events()
+                        if e.name.startswith("nccl:"))
+        nccl = [n for _s, _e, n in ev if "nccl" in n.lower()]
+        fwd = sum(1 for _s, _e, n in ev if "flash_attention_kernel" in n)
+        bwd = {k: sum(1 for _s, _e, n in ev if k in n)
+               for k in ("dkdv_kernel", "dq_kernel")}
+        busy = _busy_us([(s_, e) for s_, e, _n in ev])
+        print(f"  (c) {label}, one step profiled between markers: {len(ev)} "
+              f"device kernels, busy {busy / 1e3:.2f} ms; NCCL kernels "
+              f"{len(nccl)}, NCCL calls on the host {dict(calls)}; "
+              f"flash_attention forward kernels {fwd}, backward {bwd} "
+              f"[{card}]")
+        check(fwd == cfg.n_layers and all(v == cfg.n_layers
+                                          for v in bwd.values()),
+              f"{label}: flash forward {fwd}, backward {bwd}, want "
+              f"{cfg.n_layers} each")
+        return calls
+
+    _free(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = init()
+    opt = adamw_init(dict(model.named_parameters()))
+    step = make_train_step(cfg, **kw)
+    p_metrics, p_ms = run(model, opt, step, lambda bt: bt)
+    p_peak = torch.cuda.max_memory_allocated(dev)
+    want = {"params": _digests(dict(model.named_parameters())),
+            "mu": _digests(opt["mu"]), "nu": _digests(opt["nu"])}
+    profiled("plain step", lambda: step(model, opt, batches[DIST_STEPS]))
+    del model, opt, step
+    _free(dev)
+
+    mesh = make_mesh((1, 1), ("data", "model"))
+    rules = ShardingRules(data_axes=("data",))
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = shard_params(init(), rules, mesh)
+    opt = adamw_init(dict(model.named_parameters()))
+    step = make_train_step(cfg, rules, mesh, **kw)
+    ops.reset_launch_counts()
+    s_metrics, s_ms = run(model, opt, step,
+                          lambda bt: local_batch(bt, mesh))
+    counts = ops.launch_counts()
+    s_peak = torch.cuda.max_memory_allocated(dev)
+    check(s_metrics == p_metrics,
+          f"sharded (loss, grad norm) {s_metrics} != plain {p_metrics}")
+    got = {"params": _digests(gather_params(model)),
+           "mu": _digests(gather_tree(opt["mu"])),
+           "nu": _digests(gather_tree(opt["nu"]))}
+    for t in want:
+        bad = [k for k in want[t] if got[t][k] != want[t][k]]
+        check(not bad and set(got[t]) == set(want[t]),
+              f"sharded {t} differ from the plain step's: {bad[:5]}")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        check(counts[name] == cfg.n_layers * DIST_STEPS,
+              f"sharded step: {name} {counts[name]} launches, want "
+              f"{cfg.n_layers * DIST_STEPS}")
+    n_leaves = len(want["params"])
+    print(f"  (c) qwen3-1.7b SOI pp, 28 layers, bf16 over f32 masters, B 8 "
+          f"S 128, {DIST_STEPS} steps: sharded on the (1, 1) NCCL mesh == "
+          f"plain bit for bit — (loss, grad norm) {s_metrics}; {n_leaves} "
+          f"params, mu, nu leaves equal by digest")
+    print(f"  (c) plain step median {p_ms:.2f} ms, peak "
+          f"{p_peak / 2 ** 30:.2f} GiB; sharded step median {s_ms:.2f} ms, "
+          f"peak {s_peak / 2 ** 30:.2f} GiB (host clock after a "
+          f"synchronize, {DIST_STEPS} steps each) [{card}]")
+    print(f"  (c) sharded run launches: flash_attention "
+          f"{counts['flash_attention']}, flash_attention_bwd "
+          f"{counts['flash_attention_bwd']} ({cfg.n_layers} a step)")
+    calls = profiled("sharded step", lambda: step(model, opt, local_batch(
+        batches[DIST_STEPS], mesh)))
+    check(calls.get("nccl:all_reduce", 0) > 0,
+          "the profiled sharded step issued no NCCL all-reduce")
+    del model, opt, step
+    _free(dev)
+    return counts
+
+
+def _dist_dryrun(card):
+    """(d): the dry run of every cell, as a table."""
+    from repro_torch.launch import dryrun
+    recs = dryrun.main(["--all", "--mesh", "both", "--out",
+                        str(ROOT / "experiments" / "dryrun_torch")])
+    over = [f"{r['arch']} {r['shape']} {r['mesh']}" for r in recs
+            if r["status"] == "ok" and not r["fits"]]
+    print(f"  (d) {sum(r['status'] == 'ok' for r in recs)} cells laid out, "
+          f"{len(over)} over {dryrun.CARD_BYTES / 1e9:.2f} GB a device: "
+          f"{over or 'none'} (params, AdamW state, batch or decode state; "
+          f"activations not counted) [{card}]")
+
+
+def dist_phase(dev, card) -> dict:
+    """Phase 21. Returns the sharded train run's launch counts."""
+    import torch.distributed as dist
+    phase("21 dist (NCCL at world size 1: collectives, the sharded qwen3-1.7b "
+          "train step against the plain step, the dry run)")
+    t0 = time.perf_counter()
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        print(f"  (a) process group: backend {dist.get_backend()}, world "
+              f"{dist.get_world_size()}; mesh (1, 1) ('data', 'model')")
+        _dist_collectives(dev)
+        counts = _dist_train(dev, card)
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the process group outlived phase 21")
+    _dist_dryrun(card)
+    print(f"  phase 21: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main():
     card = device_phase()
     dev = torch.device("cuda", 0)
@@ -5672,6 +5924,8 @@ def main():
     zoo = zoo_phase(dev)
     _free(dev)
     analysis_phase(dev, card, graphed)
+    _free(dev)
+    dist_counts = dist_phase(dev, card)
     # launches: each kernel's count on its own path's run — the dense
     # serve (phase 5), the paged prefix-cache serve (phase 6), the
     # deepseek-v2 serve (phase 8), the MLA prefix-cache serve (phase 9),
@@ -5775,6 +6029,13 @@ def main():
                 run: {"launches": train_counts[run][name],
                       "launches_on": f"train (qwen3-1.7b {run}, 30 steps)"}
                 for run in train_counts}
+            # phase 21's sharded step on the (1, 1) NCCL mesh
+            summary[-1]["dist"] = {
+                "launches": dist_counts[name],
+                "launches_on": f"sharded train (qwen3-1.7b pp, (1, 1) NCCL "
+                               f"mesh, {DIST_STEPS} steps)"}
+            check(dist_counts[name] > 0,
+                  f"{name} never launched on the sharded train step")
         if name == "flash_attention_bwd":
             # the forward at the training shape (lists: the pairs in
             # turns), the backward's parts, and its other timed shapes
@@ -5808,7 +6069,7 @@ def main():
             summary[-1]["rg_middle"].update(
                 launches=rg_second[name][name],
                 launches_on="rg serve (dense), outer and middle layers")
-    print(f"== 21 done in {time.perf_counter() - T_START:.1f} s")
+    print(f"== 22 done in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

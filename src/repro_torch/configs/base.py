@@ -151,3 +151,13 @@ class ModelCfg:
     @property
     def n_layers(self) -> int:
         return sum(s.n_layers for s in self.segments)
+
+
+# The assigned input-shape suite (arch-family-generic), as the reference
+# defines it: what the dry run (launch/dryrun.py) lays out over a mesh.
+SHAPES = {
+    "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
+    "decode_32k": dict(kind="decode", seq_len=32768, global_batch=128),
+    "long_500k": dict(kind="decode", seq_len=524288, global_batch=1),
+}

@@ -41,7 +41,7 @@ from repro_torch.models.transformer import Transformer
 from repro_torch.models.unet import UNet, UNetConfig
 
 
-def _layer_trees(params: dict, cfg) -> list:
+def _layer_trees(params: dict, cfg, index) -> list:
     """Per-layer block trees, in layer order (``cfg`` a ModelCfg or an
     EncoderCfg: anything with ``segments``)."""
     out = []
@@ -52,14 +52,18 @@ def _layer_trees(params: dict, cfg) -> list:
         for g in range(seg.n_groups):
             for i in range(len(seg.blocks)):
                 sub = seg_p[f"sub{i}"]
-                out.append(_index_tree(sub, g))
+                out.append(_index_tree(sub, g, index))
     return out
 
 
-def _index_tree(tree, i):
+def _index_tree(tree, i, index):
     if isinstance(tree, dict):
-        return {k: _index_tree(v, i) for k, v in tree.items()}
-    return np.asarray(tree)[i]
+        return {k: _index_tree(v, i, index) for k, v in tree.items()}
+    return index(tree, i)
+
+
+def _index_layer(x, i):
+    return np.asarray(x)[i]
 
 
 @torch.no_grad()
@@ -74,17 +78,31 @@ def from_jax_params(params: dict, cfg: ModelCfg, *, device=None,
         return torch.from_numpy(np.array(x, dtype=np.float32)).to(
             device=dev, dtype=dtype)
 
+    _load_checked(model, {k: t(v) for k, v in
+                          reference_names(params, cfg).items()})
+    return model
+
+
+def reference_names(params: dict, cfg: ModelCfg, *,
+                    index=_index_layer) -> dict:
+    """``{the port's parameter name: leaf}`` of a tree laid out as the
+    reference's parameter tree — its values, or any tree of the same
+    structure (its logical axes, its specs). ``index(leaf, g)`` takes layer
+    group ``g`` of a scanned segment's stacked leaf (by default numpy
+    indexing; for the axes tree, ``leaf[1:]`` drops the ``"layers"``
+    axis)."""
+
     def norm(name, leaf):
         # a block or final norm: its scale, and a LayerNorm's bias
-        out = {name: t(leaf["scale"])}
+        out = {name: leaf["scale"]}
         if "bias" in leaf:
-            out[name + "_bias"] = t(leaf["bias"])
+            out[name + "_bias"] = leaf["bias"]
         return out
 
-    def blocks(prefix, layers, modules):
-        if len(layers) != len(modules):
+    def blocks(prefix, layers, n_layers):
+        if len(layers) != n_layers:
             raise ValueError(f"{len(layers)} {prefix}layers in the tree, "
-                             f"{len(modules)} in the config")
+                             f"{n_layers} in the config")
         for i, lp in enumerate(layers):
             pre = f"{prefix}{i}."
             for nm in ("ln1", "ln2", "lnx"):
@@ -94,27 +112,26 @@ def from_jax_params(params: dict, cfg: ModelCfg, *, device=None,
                 for name, leaf in lp.get(mod, {}).items():
                     if isinstance(leaf, dict):       # a norm: its scale
                         leaf = leaf["scale"]
-                    tensors[f"{pre}{mod}.{name}"] = t(leaf)
+                    tensors[f"{pre}{mod}.{name}"] = leaf
 
-    tensors = {"embed": t(params["embed"]),
+    tensors = {"embed": params["embed"],
                **norm("final_norm", params["final_norm"])}
-    blocks("blocks.", _layer_trees(params, cfg), model.blocks)
+    blocks("blocks.", _layer_trees(params, cfg, index), cfg.n_layers)
     if cfg.encoder is not None:
         enc = params["encoder"]
-        blocks("encoder.blocks.", _layer_trees(enc, cfg.encoder),
-               model.encoder.blocks)
+        blocks("encoder.blocks.", _layer_trees(enc, cfg.encoder, index),
+               sum(s.n_layers for s in cfg.encoder.segments))
         tensors.update(norm("encoder.final_norm", enc["final_norm"]))
         if "proj" in enc:
-            tensors["encoder.proj"] = t(enc["proj"])
+            tensors["encoder.proj"] = enc["proj"]
     if cfg.learned_pos_len:
-        tensors["pos_embed"] = t(params["pos_embed"])
+        tensors["pos_embed"] = params["pos_embed"]
     if not cfg.tie_embeddings:
-        tensors["lm_head"] = t(params["lm_head"])
+        tensors["lm_head"] = params["lm_head"]
     if cfg.soi is not None:
-        tensors["soi_compress"] = t(params["soi"]["compress"])
-        tensors["soi_fuse"] = t(params["soi"]["fuse"])
-    _load_checked(model, tensors)
-    return model
+        tensors["soi_compress"] = params["soi"]["compress"]
+        tensors["soi_fuse"] = params["soi"]["fuse"]
+    return tensors
 
 
 def _load_checked(model: torch.nn.Module, tensors: dict) -> None:

@@ -1,34 +1,81 @@
-"""The train step (port of ``repro.launch.steps.make_train_step``).
+"""Train / serve step builders (port of ``repro.launch.steps``).
 
 ``make_train_step`` assembles the production step: microbatched gradient
 accumulation in float32, mixed precision (float32 masters, bf16 compute:
-``models.transformer.loss_fn`` casts inside the differentiated function),
-global-norm clipping, optional int8 gradient compression with error
-feedback, AdamW on a cosine LR. The sharding arguments of the reference
-(``rules``, ``mesh``, ``make_constrain``) are not ported yet (ROADMAP.md).
+``models.transformer.loss_sums`` casts inside the differentiated
+function), global-norm clipping, optional int8 gradient compression with
+error feedback, AdamW on a cosine LR.
+
+On a mesh (``rules`` and a ``DeviceMesh`` of ``launch.mesh``) the step is
+data x tensor parallel, computed on local shards with explicit collectives
+— the work ``shard_map`` and XLA's partitioner do for the reference:
+
+  * the parameters are the DTensors of ``sharding.shard_params`` (heads,
+    kv heads, ff and vocab split over the model axis, the rest
+    replicated); the model runs on their ``to_local()`` shards inside
+    ``layers.model_parallel`` (Megatron's collectives: ``to_model`` before
+    a split projection, ``from_model`` after, a vocab-split embedding and
+    cross entropy);
+  * each rank's batch is its rows of every global microbatch
+    (``local_batch``); each microbatch's loss is the global masked mean —
+    the NLL sum and the target count are both summed over the data axes —
+    and the gradients are summed over the data axes;
+  * the clip's norm sums each split leaf's squares over its split axes;
+    AdamW updates each shard in place.
+
+Refused on a mesh (``NotImplementedError``, ROADMAP.md): ``fsdp``,
+``seq_shard``, a model axis that does not divide some split dimension (kv
+heads, say), and ``compress`` where the model axis has more than one rank
+(a shard's 256-blocks are not the whole leaf's). ``make_serve_step`` and
+``make_prefill`` run without a mesh only.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelCfg
+from repro_torch.distributed.sharding import (ShardingRules,
+                                              logical_constraint, make_specs)
+from repro_torch.launch.mesh import data_axes_of
 from repro_torch.models import transformer as T
+from repro_torch.models.layers import model_parallel
 from repro_torch.optim import (adamw_update, clip_by_global_norm,
                                compressed_grads, cosine_schedule)
 
 
-def make_train_step(cfg: ModelCfg, *, microbatches: int = 1,
-                    peak_lr: float = 3e-4, warmup: int = 100,
-                    total_steps: int = 10_000, grad_clip: float = 1.0,
-                    compress: bool = False):
+def _noc(x, axes):
+    return x
+
+
+def make_constrain(rules: ShardingRules, mesh):
+    """``constrain(x, axes)``: ``logical_constraint`` on ``mesh``, or the
+    identity without one."""
+    if rules is None or mesh is None:
+        return _noc
+    return functools.partial(logical_constraint, rules=rules, mesh=mesh)
+
+
+def make_train_step(cfg: ModelCfg, rules: ShardingRules = None, mesh=None,
+                    *, microbatches: int = 1, peak_lr: float = 3e-4,
+                    warmup: int = 100, total_steps: int = 10_000,
+                    grad_clip: float = 1.0, compress: bool = False):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: ``params`` is the model (its float32 masters and
     ``opt_state``'s moments are updated in place), ``batch`` holds tokens and
     targets (B, S) on the model's device; metrics ``loss``, ``xent``,
     ``aux``, ``grad_norm`` and ``lr`` are 0-d tensors there (no host
-    read)."""
+    read). With a ``mesh`` see the module docstring: ``batch`` is this
+    rank's ``local_batch``."""
     T.check_trainable(cfg)
+    if mesh is not None:
+        return _sharded_train_step(
+            cfg, rules or ShardingRules(data_axes=data_axes_of(mesh)), mesh,
+            microbatches=microbatches, peak_lr=peak_lr, warmup=warmup,
+            total_steps=total_steps, grad_clip=grad_clip, compress=compress)
 
     def grads_of(params, batch):
         named = dict(params.named_parameters())
@@ -75,3 +122,191 @@ def make_train_step(cfg: ModelCfg, *, microbatches: int = 1,
         return params, opt_state, metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# The data x tensor-parallel step
+# ---------------------------------------------------------------------------
+
+def _data_index(mesh, data_axes) -> tuple:
+    """(this rank's index over the data axes, their size), row-major in the
+    order ``data_axes`` names them."""
+    names = list(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    idx, size = 0, 1
+    for a in data_axes:
+        n = mesh.size(names.index(a))
+        idx = idx * n + coord[names.index(a)]
+        size *= n
+    return idx, size
+
+
+def local_batch(batch: dict, mesh, microbatches: int = 1,
+                data_axes=None) -> dict:
+    """This rank's rows of a global batch (B, ...) for the sharded step:
+    its 1/D share of every global microbatch ``[i B/M, (i+1) B/M)``, the
+    microbatches one after another — so microbatch i of the step is the
+    reference's global microbatch i, split over the D data ranks."""
+    data_axes = tuple(data_axes or data_axes_of(mesh))
+    d, n = _data_index(mesh, data_axes)
+    bsz = batch["tokens"].shape[0]
+    if bsz % (microbatches * n):
+        raise ValueError(f"batch {bsz} does not split into {microbatches} "
+                         f"microbatches over {n} data ranks")
+    mb = bsz // microbatches
+    rows = mb // n
+    idx = torch.cat([torch.arange(i * mb + d * rows, i * mb + (d + 1) * rows)
+                     for i in range(microbatches)])
+    return {k: v[idx.to(v.device)] for k, v in batch.items()}
+
+
+def _refuse(what: str):
+    raise NotImplementedError(
+        f"the sharded train step does not run {what} yet (ROADMAP.md, "
+        f"Queue 1 item 8)")
+
+
+def _check_layout(cfg: ModelCfg, rules: ShardingRules, mesh,
+                  model_size: int):
+    """Refuse a layout the step cannot run: a dimension the rules split
+    over the model axis that the axis does not divide falls back to
+    replicated, and a replicated kv head (or ff column, or vocab row)
+    beside split ones is not the Megatron layout the model computes."""
+    from repro_torch.launch.specs import abstract_params
+    shapes, axes = abstract_params(cfg)
+    notes: list = []
+    make_specs(axes, {k: v.shape for k, v in shapes.items()}, rules, mesh,
+               notes)
+    model_notes = [n for n in notes if n.endswith(
+        f"% mesh {model_size} != 0 -> replicated")]
+    if model_size > 1 and model_notes:
+        _refuse(f"a model axis of {model_size} that does not divide every "
+                f"split dimension ({sorted(set(model_notes))})")
+
+
+def _sharded_train_step(cfg: ModelCfg, rules: ShardingRules, mesh, *,
+                        microbatches, peak_lr, warmup, total_steps,
+                        grad_clip, compress):
+    from torch.distributed.tensor import DTensor, Shard
+    if rules.fsdp:
+        _refuse("fsdp (weights split over the data axes)")
+    if rules.seq_shard:
+        _refuse("seq_shard (sequence-parallel activations)")
+    names = list(mesh.mesh_dim_names)
+    data_axes = tuple(rules.data_axes)
+    model_size = mesh.size(names.index(rules.model_axis))
+    if compress and model_size > 1:
+        _refuse(f"compress=True on a model axis of {model_size} ranks (a "
+                f"shard's 256-blocks are not the whole leaf's)")
+    _check_layout(cfg, rules, mesh, model_size)
+    mp_group = mesh.get_group(rules.model_axis)
+    dp_groups = [mesh.get_group(a) for a in data_axes]
+
+    def dp_sum(t):
+        for g in dp_groups:
+            dist.all_reduce(t, group=g)
+        return t
+
+    def split_groups(params: dict) -> dict:
+        out = {}
+        for k, p in params.items():
+            if not isinstance(p, DTensor) or p.device_mesh != mesh:
+                raise ValueError(f"parameter {k!r} is not a DTensor on the "
+                                 f"step's mesh (sharding.shard_params)")
+            out[k] = [mesh.get_group(names[i])
+                      for i, pl in enumerate(p.placements)
+                      if isinstance(pl, Shard)]
+        return out
+
+    def train_step(params, opt_state: dict, batch: dict):
+        named = dict(params.named_parameters())
+        split = split_groups(named)
+        local = {k: p.to_local().detach() for k, p in named.items()}
+        leaves = {k: t.detach().requires_grad_(True)
+                  for k, t in local.items()}
+        bsz = batch["tokens"].shape[0]
+        if bsz % microbatches:
+            raise ValueError(f"batch {bsz} is not a multiple of "
+                             f"{microbatches} microbatches")
+        mb = bsz // microbatches
+
+        def grads_of(part):
+            with model_parallel(mp_group):
+                nll, count = T.loss_sums(params, cfg, part, tensors=leaves)
+                denom = torch.clamp(dp_sum(count.detach().clone()), min=1.0)
+                g = torch.autograd.grad(nll / denom, list(leaves.values()))
+            return dp_sum(nll.detach().clone()) / denom, dict(zip(leaves, g))
+
+        if microbatches == 1:
+            loss, grads = grads_of(batch)
+        else:
+            grads = {k: torch.zeros(t.shape, dtype=torch.float32,
+                                    device=t.device)
+                     for k, t in local.items()}
+            lsum = torch.zeros((), dtype=torch.float32,
+                               device=batch["tokens"].device)
+            for i in range(microbatches):
+                l_i, g_i = grads_of({k: v[i * mb:(i + 1) * mb]
+                                     for k, v in batch.items()})
+                for k, g in g_i.items():
+                    grads[k] += g.float()
+                lsum = lsum + l_i
+            grads = {k: g / microbatches for k, g in grads.items()}
+            loss = lsum / microbatches
+        for g in grads.values():
+            dp_sum(g)
+        metrics = {"xent": loss, "aux": torch.zeros_like(loss)}
+
+        grads, gnorm = clip_by_global_norm(grads, grad_clip, split)
+        if compress:
+            grads, new_err = compressed_grads(grads, opt_state.get("err"))
+        lr = cosine_schedule(opt_state["count"], peak_lr=peak_lr,
+                             warmup=warmup, total=total_steps)
+        moments = {t: {k: v.to_local() for k, v in opt_state[t].items()}
+                   for t in ("mu", "nu")}
+        moments["count"] = opt_state["count"]
+        adamw_update(grads, moments, local, lr=lr)
+        opt_state["count"] = moments["count"]
+        if compress:
+            opt_state["err"] = new_err
+        metrics.update(loss=loss, grad_norm=gnorm, lr=lr)
+        return params, opt_state, metrics
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+def _unsharded(what: str, mesh):
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{what} on a mesh (tensor-parallel serving, the KV sequence over "
+            f"the model axis) is not ported yet (ROADMAP.md, Queue 1 item 8)")
+
+
+def make_serve_step(cfg: ModelCfg, rules: ShardingRules = None, mesh=None):
+    """One serving step, SOI and plain configs alike: the engine's
+    ``generate_step`` (per-slot clocks, SOI phase resolved per step)."""
+    _unsharded("make_serve_step", mesh)
+    from repro_torch.engine.step import generate_step
+
+    def serve_step(params, state, token):
+        return generate_step(params, cfg, state, token)
+
+    return serve_step
+
+
+def make_prefill(cfg: ModelCfg, rules: ShardingRules = None, mesh=None, *,
+                 max_len: int | None = None):
+    _unsharded("make_prefill", mesh)
+    from repro_torch.models import decode as D
+
+    def prefill_step(params, batch):
+        return D.prefill(params, cfg, batch["tokens"],
+                         prefix_embeds=batch.get("patch_embeds"),
+                         encoder_frames=batch.get("encoder_frames"),
+                         max_len=max_len)
+
+    return prefill_step

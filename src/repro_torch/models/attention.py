@@ -52,7 +52,8 @@ from torch import nn
 
 from repro_torch.configs.base import AttnCfg
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import apply_rope, dense_init, norm_apply
+from repro_torch.models.layers import apply_rope, dense_init, from_model, \
+    norm_apply, param, to_model
 
 
 class Attention(nn.Module):
@@ -78,37 +79,45 @@ class Attention(nn.Module):
             self._init_mla(cfg, d, kw)
             return
         h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
-        self.wq = nn.Parameter(dense_init((d, h, dh), **kw))
-        self.wk = nn.Parameter(dense_init((d, kv, dh), **kw))
-        self.wv = nn.Parameter(dense_init((d, kv, dh), **kw))
-        self.wo = nn.Parameter(dense_init((h, dh, d), scale=(h * dh) ** -0.5,
-                                          **kw))
+        param(self, "wq", dense_init((d, h, dh), **kw),
+              ("embed", "heads", "head_dim"))
+        param(self, "wk", dense_init((d, kv, dh), **kw),
+              ("embed", "kv_heads", "head_dim"))
+        param(self, "wv", dense_init((d, kv, dh), **kw),
+              ("embed", "kv_heads", "head_dim"))
+        param(self, "wo", dense_init((h, dh, d), scale=(h * dh) ** -0.5,
+                                     **kw), ("heads", "head_dim", "embed"))
         if cfg.qk_norm:
-            self.q_norm = nn.Parameter(torch.zeros(dh, device=device,
-                                                   dtype=dtype))
-            self.k_norm = nn.Parameter(torch.zeros(dh, device=device,
-                                                   dtype=dtype))
+            for name in ("q_norm", "k_norm"):
+                param(self, name, torch.zeros(dh, device=device,
+                                              dtype=dtype), ("embed_norm",))
 
     def _init_mla(self, cfg: AttnCfg, d: int, kw: dict):
         h = cfg.n_heads
         dq = cfg.qk_nope + cfg.qk_rope
         zeros = dict(device=kw["device"], dtype=kw["dtype"])
+        lora_heads = ("lora", "heads", "head_dim")
         if cfg.q_lora:
-            self.wdq = nn.Parameter(dense_init((d, cfg.q_lora), **kw))
-            self.q_norm = nn.Parameter(torch.zeros(cfg.q_lora, **zeros))
-            self.wuq = nn.Parameter(dense_init((cfg.q_lora, h, dq), **kw))
+            param(self, "wdq", dense_init((d, cfg.q_lora), **kw),
+                  ("embed", "lora"))
+            param(self, "q_norm", torch.zeros(cfg.q_lora, **zeros),
+                  ("embed_norm",))
+            param(self, "wuq", dense_init((cfg.q_lora, h, dq), **kw),
+                  lora_heads)
         else:
-            self.wq = nn.Parameter(dense_init((d, h, dq), **kw))
-        self.wdkv = nn.Parameter(dense_init((d, cfg.kv_lora + cfg.qk_rope),
-                                            **kw))
-        self.kv_norm = nn.Parameter(torch.zeros(cfg.kv_lora, **zeros))
-        self.wuk = nn.Parameter(dense_init((cfg.kv_lora, h, cfg.qk_nope),
-                                           **kw))
-        self.wuv = nn.Parameter(dense_init((cfg.kv_lora, h, cfg.v_head),
-                                           **kw))
-        self.wo = nn.Parameter(dense_init((h, cfg.v_head, d),
-                                          scale=(h * cfg.v_head) ** -0.5,
-                                          **kw))
+            param(self, "wq", dense_init((d, h, dq), **kw),
+                  ("embed", "heads", "head_dim"))
+        param(self, "wdkv", dense_init((d, cfg.kv_lora + cfg.qk_rope), **kw),
+              ("embed", "lora"))
+        param(self, "kv_norm", torch.zeros(cfg.kv_lora, **zeros),
+              ("embed_norm",))
+        param(self, "wuk", dense_init((cfg.kv_lora, h, cfg.qk_nope), **kw),
+              lora_heads)
+        param(self, "wuv", dense_init((cfg.kv_lora, h, cfg.v_head), **kw),
+              lora_heads)
+        param(self, "wo", dense_init((h, cfg.v_head, d),
+                                     scale=(h * cfg.v_head) ** -0.5, **kw),
+              ("heads", "head_dim", "embed"))
 
 
 def _leaf_shapes(cfg: AttnCfg) -> dict:
@@ -226,14 +235,14 @@ def _cache_write(cache: dict, t: torch.Tensor, *, commit=None,
 
 def project_kv(p: Attention, src: torch.Tensor):
     """src (..., S, d) -> k and v (..., S, Hkv, dh), unrotated and
-    unnormed (a cross layer's encoder K/V)."""
-    cfg = p.cfg
+    unnormed (a cross layer's encoder K/V). The head count is the
+    weight's: a tensor-parallel shard's local heads."""
     d = src.shape[-1]
     lead = src.shape[:-1]
-    k = torch.matmul(src, p.wk.reshape(d, -1)).reshape(*lead, cfg.n_kv,
-                                                       cfg.head_dim)
-    v = torch.matmul(src, p.wv.reshape(d, -1)).reshape(*lead, cfg.n_kv,
-                                                       cfg.head_dim)
+    k = torch.matmul(src, p.wk.reshape(d, -1)).reshape(*lead,
+                                                       *p.wk.shape[1:])
+    v = torch.matmul(src, p.wv.reshape(d, -1)).reshape(*lead,
+                                                       *p.wv.shape[1:])
     return k, v
 
 
@@ -241,16 +250,19 @@ def _project_qkv(p: Attention, x: torch.Tensor, positions: torch.Tensor,
                  eps: float, kv_x: torch.Tensor | None = None):
     """x (..., S, d) -> rotated q (..., S, H, dh), k and v
     (..., S, Hkv, dh) — projected from ``kv_x`` when given (cross
-    attention, never rotated)."""
+    attention, never rotated). Under ``layers.model_parallel`` H and Hkv
+    are the shard's heads: the replicated inputs pass ``to_model``, and so
+    do the per-head norm scales, which act on the local heads only."""
     cfg = p.cfg
     d = x.shape[-1]
     lead = x.shape[:-1]
-    q = torch.matmul(x, p.wq.reshape(d, -1)).reshape(*lead, cfg.n_heads,
-                                                     cfg.head_dim)
-    k, v = project_kv(p, x if kv_x is None else kv_x)
+    x = to_model(x)
+    q = torch.matmul(x, p.wq.reshape(d, -1)).reshape(*lead,
+                                                     *p.wq.shape[1:])
+    k, v = project_kv(p, x if kv_x is None else to_model(kv_x))
     if cfg.qk_norm:
-        q = norm_apply("rmsnorm", p.q_norm, q, eps=eps)
-        k = norm_apply("rmsnorm", p.k_norm, k, eps=eps)
+        q = norm_apply("rmsnorm", to_model(p.q_norm), q, eps=eps)
+        k = norm_apply("rmsnorm", to_model(p.k_norm), k, eps=eps)
     if cfg.rope and cfg.kind != "cross":
         q = apply_rope(q, positions, pct=cfg.rope_pct, theta=cfg.rope_theta)
         k = apply_rope(k, positions, pct=cfg.rope_pct, theta=cfg.rope_theta)
@@ -258,10 +270,11 @@ def _project_qkv(p: Attention, x: torch.Tensor, positions: torch.Tensor,
 
 
 def _out_proj(p: Attention, out: torch.Tensor) -> torch.Tensor:
-    """(..., H, dh) @ wo -> (..., d)."""
+    """(..., H, dh) @ wo -> (..., d), summed over the model axis under
+    ``layers.model_parallel``."""
     h, dh, d = p.wo.shape
-    return torch.matmul(out.reshape(*out.shape[:-2], h * dh),
-                        p.wo.reshape(h * dh, d))
+    return from_model(torch.matmul(out.reshape(*out.shape[:-2], h * dh),
+                                   p.wo.reshape(h * dh, d)))
 
 
 # ---------------------------------------------------------------------------

@@ -7,15 +7,75 @@ Two conventions carried over exactly from the reference:
   (``norm_apply`` always takes that form);
 * RoPE rotates *interleaved* pairs ``x[..., 0::2]`` / ``x[..., 1::2]``, not
   the rotate-half layout common in PyTorch code.
+
+Tensor parallelism: inside ``model_parallel(group)`` the model runs on its
+local shards (heads, ff and vocab split over the ranks of ``group``) and
+``to_model`` / ``from_model`` are the collectives of
+``distributed.collectives`` (``copy_to_model`` / ``reduce_from_model``);
+outside it they return their input, so serving and the unsharded step run
+exactly as before.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
+from torch import nn
+
+from repro_torch.distributed import collectives as coll
+
+# the model-axis group of the tensor-parallel region (None: unsharded)
+_MODEL_GROUP = None
+
+
+@contextlib.contextmanager
+def model_parallel(group):
+    """Run the model on local shards split over ``group`` (None: a no-op)."""
+    global _MODEL_GROUP
+    prev, _MODEL_GROUP = _MODEL_GROUP, group
+    try:
+        yield
+    finally:
+        _MODEL_GROUP = prev
+
+
+def model_group():
+    """The model-axis group of the enclosing ``model_parallel``, or None."""
+    return _MODEL_GROUP
+
+
+def to_model(x: torch.Tensor) -> torch.Tensor:
+    """Before a projection whose output is split over the model axis (and
+    on a replicated parameter that acts on split activations): identity
+    forward, gradient summed over the model axis."""
+    if _MODEL_GROUP is None:
+        return x
+    return coll.copy_to_model(x, _MODEL_GROUP)
+
+
+def from_model(x: torch.Tensor) -> torch.Tensor:
+    """After a projection whose input is split over the model axis: the sum
+    over the model axis, identity backward."""
+    if _MODEL_GROUP is None:
+        return x
+    return coll.reduce_from_model(x, _MODEL_GROUP)
 
 _TRUNC = 3.0
+
+
+def param(module: nn.Module, name: str, value: torch.Tensor, axes) -> None:
+    """Register ``value`` as the parameter ``name`` of ``module`` and record
+    its logical axes in ``module.param_axes`` — the port's counterpart of
+    the reference's ``A(value, axes)``; ``distributed.sharding.param_axes``
+    collects them by qualified name. The axes live on the module, not on
+    the tensor, so they survive casts and ``load_state_dict(assign=True)``.
+    """
+    module.register_parameter(name, nn.Parameter(value))
+    if "param_axes" not in module.__dict__:
+        module.param_axes = {}
+    module.param_axes[name] = tuple(axes)
 
 
 def trunc_normal(shape, generator: torch.Generator, *, device, scale=1.0,

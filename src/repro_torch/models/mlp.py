@@ -12,7 +12,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import MLPCfg
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, from_model, param, \
+    to_model
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -37,11 +38,12 @@ class MLP(nn.Module):
             raise NotImplementedError(
                 f"mlp kind {cfg.kind!r} is not ported yet; see ROADMAP.md")
         kw = dict(generator=generator, device=device, dtype=dtype)
-        self.up = nn.Parameter(dense_init((d, cfg.d_ff), **kw))
-        self.down = nn.Parameter(dense_init((cfg.d_ff, d), **kw))
+        param(self, "up", dense_init((d, cfg.d_ff), **kw), ("embed", "ff"))
+        param(self, "down", dense_init((cfg.d_ff, d), **kw), ("ff", "embed"))
         self.gated = cfg.kind in GATED
         if self.gated:
-            self.gate = nn.Parameter(dense_init((d, cfg.d_ff), **kw))
+            param(self, "gate", dense_init((d, cfg.d_ff), **kw),
+                  ("embed", "ff"))
         self.act = GATED[cfg.kind] if self.gated else PLAIN[cfg.kind]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -49,10 +51,12 @@ class MLP(nn.Module):
 
 
 def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
-    """x: (..., d) -> (..., d)."""
+    """x: (..., d) -> (..., d); under ``layers.model_parallel`` on the
+    shard's ff columns, summed over the model axis."""
+    x = to_model(x)
     h = torch.matmul(x, p.up)
     if p.gated:
         h = h * p.act(torch.matmul(x, p.gate))
     else:
         h = p.act(h)
-    return torch.matmul(h, p.down)
+    return from_model(torch.matmul(h, p.down))

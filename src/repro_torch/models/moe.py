@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import MoECfg
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, param
 
 
 class MoE(nn.Module):
@@ -47,16 +47,21 @@ class MoE(nn.Module):
         self.cfg = cfg
         kw = dict(generator=generator, device=device, dtype=dtype)
         e, f = cfg.n_experts, cfg.d_expert
-        self.router = nn.Parameter(dense_init((d, e), scale=d ** -0.5, **kw))
-        self.up = nn.Parameter(dense_init((e, d, f), **kw))
-        self.down = nn.Parameter(dense_init((e, f, d), scale=f ** -0.5, **kw))
-        self.gate = nn.Parameter(dense_init((e, d, f), **kw))
+        experts = ("experts", "embed", "expert_ff")
+        param(self, "router", dense_init((d, e), scale=d ** -0.5, **kw),
+              ("embed", "experts"))
+        param(self, "up", dense_init((e, d, f), **kw), experts)
+        param(self, "down", dense_init((e, f, d), scale=f ** -0.5, **kw),
+              ("experts", "expert_ff", "embed"))
+        param(self, "gate", dense_init((e, d, f), **kw), experts)
         if cfg.n_shared:
             w = cfg.n_shared * (cfg.d_shared or cfg.d_expert)
-            self.shared_up = nn.Parameter(dense_init((d, w), **kw))
-            self.shared_down = nn.Parameter(dense_init((w, d),
-                                                       scale=w ** -0.5, **kw))
-            self.shared_gate = nn.Parameter(dense_init((d, w), **kw))
+            param(self, "shared_up", dense_init((d, w), **kw),
+                  ("embed", "ff"))
+            param(self, "shared_down", dense_init((w, d), scale=w ** -0.5,
+                                                  **kw), ("ff", "embed"))
+            param(self, "shared_gate", dense_init((d, w), **kw),
+                  ("embed", "ff"))
 
 
 def _experts(p: MoE, buf: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,7 @@ from torch import nn
 
 from repro_torch.configs.base import RGLRUCfg
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, param
 from repro_torch.models.mlp import gelu
 
 _C = 8.0
@@ -48,19 +48,21 @@ class RGLRU(nn.Module):
         k = cfg.conv_width
         kw = dict(generator=generator, device=device, dtype=dtype)
         zeros = dict(device=device, dtype=dtype)
-        self.wa = nn.Parameter(dense_init((d, w), **kw))
-        self.wb = nn.Parameter(dense_init((d, w), **kw))
-        self.conv = nn.Parameter(dense_init((k, w), scale=k ** -0.5, **kw))
-        self.conv_b = nn.Parameter(torch.zeros(w, **zeros))
-        self.wr = nn.Parameter(dense_init((nh, bw, bw), **kw))
-        self.wi = nn.Parameter(dense_init((nh, bw, bw), **kw))
-        self.br = nn.Parameter(torch.zeros(w, **zeros))
-        self.bi = nn.Parameter(torch.zeros(w, **zeros))
+        param(self, "wa", dense_init((d, w), **kw), ("embed", "ff"))
+        param(self, "wb", dense_init((d, w), **kw), ("embed", "ff"))
+        param(self, "conv", dense_init((k, w), scale=k ** -0.5, **kw),
+              ("conv_k", "ff"))
+        param(self, "conv_b", torch.zeros(w, **zeros), ("ff",))
+        for name in ("wr", "wi"):
+            param(self, name, dense_init((nh, bw, bw), **kw),
+                  ("heads", "head_dim", "head_dim"))
+        param(self, "br", torch.zeros(w, **zeros), ("ff",))
+        param(self, "bi", torch.zeros(w, **zeros), ("ff",))
         # Lambda so that a = exp(-c * softplus(lam)) spans (0.9, 0.999)
         a = torch.linspace(0.9, 0.999, w, device=device)
-        self.lam = nn.Parameter(
-            torch.log(torch.expm1(-torch.log(a) / _C)).to(dtype))
-        self.wo = nn.Parameter(dense_init((w, d), **kw))
+        param(self, "lam", torch.log(torch.expm1(-torch.log(a) / _C))
+              .to(dtype), ("ff",))
+        param(self, "wo", dense_init((w, d), **kw), ("ff", "embed"))
 
 
 def _gates(p: RGLRU, xb: torch.Tensor, nh: int):

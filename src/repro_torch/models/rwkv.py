@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import RWKVCfg
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, param
 
 _MIX = ("w", "k", "v", "r", "g")
 CHUNK = 32
@@ -54,23 +54,28 @@ class RWKV(nn.Module):
         kw = dict(generator=generator, device=device, dtype=dtype)
         zeros = dict(device=device, dtype=dtype)
         m = len(_MIX)
-        self.mix_base = nn.Parameter(torch.zeros((m, d), **zeros))
-        self.mix_a = nn.Parameter(dense_init((d, m * cfg.mix_lora), **kw))
-        self.mix_b = nn.Parameter(dense_init((m, cfg.mix_lora, d), **kw))
+        param(self, "mix_base", torch.zeros((m, d), **zeros),
+              ("stub", "embed_norm"))
+        param(self, "mix_a", dense_init((d, m * cfg.mix_lora), **kw),
+              ("embed", "lora"))
+        param(self, "mix_b", dense_init((m, cfg.mix_lora, d), **kw),
+              ("stub", "lora", "embed"))
         for name in ("wr", "wk", "wv", "wg"):
-            setattr(self, name, nn.Parameter(dense_init((d, d), **kw)))
-        self.w0 = nn.Parameter(torch.linspace(-6.0, -0.5, d, device=device)
-                               .to(dtype))
-        self.w_a = nn.Parameter(dense_init((d, cfg.decay_lora), **kw))
-        self.w_b = nn.Parameter(dense_init((cfg.decay_lora, d), scale=0.01,
-                                           **kw))
-        self.u = nn.Parameter(torch.zeros(d, **zeros))
-        self.ln_scale = nn.Parameter(torch.zeros(d, **zeros))
-        self.wo = nn.Parameter(dense_init((d, d), **kw))
-        self.cm_mix = nn.Parameter(torch.zeros((2, d), **zeros))
-        self.cm_k = nn.Parameter(dense_init((d, cfg.d_ff), **kw))
-        self.cm_v = nn.Parameter(dense_init((cfg.d_ff, d), **kw))
-        self.cm_r = nn.Parameter(dense_init((d, d), **kw))
+            param(self, name, dense_init((d, d), **kw), ("embed", "ff"))
+        param(self, "w0", torch.linspace(-6.0, -0.5, d, device=device)
+              .to(dtype), ("embed_norm",))
+        param(self, "w_a", dense_init((d, cfg.decay_lora), **kw),
+              ("embed", "lora"))
+        param(self, "w_b", dense_init((cfg.decay_lora, d), scale=0.01, **kw),
+              ("lora", "embed"))
+        param(self, "u", torch.zeros(d, **zeros), ("embed_norm",))
+        param(self, "ln_scale", torch.zeros(d, **zeros), ("embed_norm",))
+        param(self, "wo", dense_init((d, d), **kw), ("ff", "embed"))
+        param(self, "cm_mix", torch.zeros((2, d), **zeros),
+              ("stub", "embed_norm"))
+        param(self, "cm_k", dense_init((d, cfg.d_ff), **kw), ("embed", "ff"))
+        param(self, "cm_v", dense_init((cfg.d_ff, d), **kw), ("ff", "embed"))
+        param(self, "cm_r", dense_init((d, d), **kw), ("embed", "ff"))
 
 
 def _token_shift(x, x_prev):

@@ -40,16 +40,18 @@ import math
 import torch
 from torch import nn
 
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockCfg, ModelCfg, SOILMCfg
 from repro_torch.core.stmc import causal_conv1d
+from repro_torch.distributed import collectives as coll
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru as rgm
 from repro_torch.models import rwkv as rkm
-from repro_torch.models.layers import dense_init, embed_init, norm_apply, \
-    trunc_normal
+from repro_torch.models.layers import dense_init, embed_init, from_model, \
+    model_group, norm_apply, param, trunc_normal
 from repro_torch.models.mlp import GATED, MLP, mlp_apply
 from repro_torch.models.moe import MoE, moe_apply
 
@@ -66,11 +68,14 @@ def _norm_params(module: nn.Module, name: str, kind: str, d: int, device,
     """The norm ``name`` of ``kind`` on ``module``: its zero-initialised
     (1 + scale) scale, and — a LayerNorm — its zero bias ``<name>_bias``
     (None for an RMSNorm, so every block answers the same names)."""
-    setattr(module, name, nn.Parameter(torch.zeros(d, device=device,
-                                                   dtype=dtype)))
-    bias = (nn.Parameter(torch.zeros(d, device=device, dtype=dtype))
-            if kind == "layernorm" else None)
-    module.register_parameter(name + "_bias", bias)
+    param(module, name, torch.zeros(d, device=device, dtype=dtype),
+          ("embed_norm",))
+    if kind == "layernorm":
+        param(module, name + "_bias", torch.zeros(d, device=device,
+                                                  dtype=dtype),
+              ("embed_norm",))
+    else:
+        module.register_parameter(name + "_bias", None)
 
 
 class Block(nn.Module):
@@ -152,7 +157,7 @@ class Encoder(nn.Module):
                       for j in range(seg.n_layers)))
         _norm_params(self, "final_norm", "layernorm", de, device, dtype)
         if de != d:
-            self.proj = nn.Parameter(dense_init((de, d), **kw))
+            param(self, "proj", dense_init((de, d), **kw), ("stub", "embed"))
 
 
 class Transformer(nn.Module):
@@ -162,28 +167,32 @@ class Transformer(nn.Module):
         self.cfg = cfg
         d = cfg.d_model
         kw = dict(generator=generator, device=device, dtype=dtype)
-        self.embed = nn.Parameter(embed_init(cfg.vocab, d, **kw))
+        param(self, "embed", embed_init(cfg.vocab, d, **kw),
+              ("vocab", "embed"))
         _norm_params(self, "final_norm", cfg.segments[0].blocks[0].norm, d,
                      device, dtype)
         self.blocks = nn.ModuleList(
             Block(b, d, **kw) for b in layer_blocks(cfg))
         if not cfg.tie_embeddings:
-            self.lm_head = nn.Parameter(dense_init((d, cfg.vocab), **kw))
+            param(self, "lm_head", dense_init((d, cfg.vocab), **kw),
+                  ("embed", "vocab"))
         if cfg.learned_pos_len:
-            self.pos_embed = nn.Parameter(dense_init(
-                (cfg.learned_pos_len, d), scale=0.02, **kw))
+            param(self, "pos_embed", dense_init(
+                (cfg.learned_pos_len, d), scale=0.02, **kw),
+                ("seq_table", "embed"))
         if cfg.encoder is not None:
             self.encoder = Encoder(cfg.encoder, d, **kw)
         if cfg.soi is not None:
             st = cfg.soi.stride
             # S-CC compress conv (kernel = stride) + identity-biased fusion
-            self.soi_compress = nn.Parameter(dense_init(
-                (st, d, d), scale=(st * d) ** -0.5, **kw))
+            param(self, "soi_compress", dense_init(
+                (st, d, d), scale=(st * d) ** -0.5, **kw),
+                ("conv_k", "embed", "embed_act"))
             wf_new = trunc_normal((d, d), generator, device=device,
                                   scale=0.02)
             eye = torch.eye(d, device=device)
-            self.soi_fuse = nn.Parameter(
-                torch.cat([wf_new, eye], dim=0).to(dtype))
+            param(self, "soi_fuse", torch.cat([wf_new, eye], dim=0).to(dtype),
+                  ("stub", "embed"))
 
     def forward(self, tokens):
         """The final-norm hidden states (B, S, d) of ``tokens`` (what
@@ -345,8 +354,13 @@ def _embed_tokens(params: Transformer, cfg: ModelCfg, tokens,
     ``positions`` ((S,) or (B, S) absolute positions) when given. The
     lookup is ``F.embedding``, whose CUDA backward sums a row's repeats
     in a fixed order (``index_select``'s adds them with atomics), so a
-    train step repeats bit for bit."""
-    x = F.embedding(tokens.long(), params.embed).to(_dtype(cfg))
+    train step repeats bit for bit. A vocab split over the model axis
+    (``layers.model_parallel``) looks up the shard's rows only, zero for
+    the others, and sums over the model axis."""
+    if params.embed.shape[0] != cfg.vocab:
+        x = _vocab_parallel_embed(params.embed, tokens).to(_dtype(cfg))
+    else:
+        x = F.embedding(tokens.long(), params.embed).to(_dtype(cfg))
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     if cfg.learned_pos_len:
@@ -354,6 +368,25 @@ def _embed_tokens(params: Transformer, cfg: ModelCfg, tokens,
               else F.embedding(positions.long(), params.pos_embed))
         x = x + pe.to(x.dtype)
     return x
+
+
+def _vocab_range(group, v_loc: int) -> int:
+    """The first vocab row of this rank's shard of ``v_loc`` rows."""
+    return dist.get_rank(group) * v_loc
+
+
+def _vocab_parallel_embed(embed, tokens):
+    """Masked local lookup of a vocab-split table, then the sum over the
+    model axis (one shard holds each token's row)."""
+    group = model_group()
+    if group is None:
+        raise RuntimeError("a vocab-split embedding needs "
+                           "layers.model_parallel(group)")
+    v_loc = embed.shape[0]
+    t = tokens.long() - _vocab_range(group, v_loc)
+    inside = (t >= 0) & (t < v_loc)
+    x = F.embedding(torch.clamp(t, 0, v_loc - 1), embed)
+    return from_model(x * inside[..., None].to(x.dtype))
 
 
 @torch.no_grad()
@@ -464,23 +497,42 @@ def check_trainable(cfg: ModelCfg) -> None:
                 f"(Queue 1 item 7)")
 
 
-def _xent_chunk(hb, head_w, tb, softcap):
-    """(summed masked NLL, count of targets >= 0) of one sequence chunk."""
+def _xent_chunk(hb, head_w, tb, softcap, group=None):
+    """(summed masked NLL, count of targets >= 0) of one sequence chunk.
+    With ``group`` the head's vocab columns are split over it: the max,
+    the sum of exps and the target logit are each reduced over the model
+    axis (the max without a gradient: the log-sum-exp does not depend on
+    it)."""
+    if group is not None:
+        hb = coll.copy_to_model(hb, group)
     logits = _softcap(torch.matmul(hb, head_w).float(), softcap)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1,
-                      torch.clamp(tb, min=0).long()[..., None])[..., 0]
     mask = (tb >= 0).float()
+    if group is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1,
+                          torch.clamp(tb, min=0).long()[..., None])[..., 0]
+        return torch.sum((lse - ll) * mask), torch.sum(mask)
+    v_loc = logits.shape[-1]
+    mx = torch.amax(logits.detach(), dim=-1)
+    dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=group)
+    se = torch.sum(torch.exp(logits - mx[..., None]), dim=-1)
+    lse = mx + torch.log(coll.reduce_from_model(se, group))
+    t = tb.long() - _vocab_range(group, v_loc)
+    inside = (t >= 0) & (t < v_loc)
+    ll = torch.gather(logits, -1, torch.clamp(t, 0, v_loc - 1)[..., None])
+    ll = coll.reduce_from_model(ll[..., 0] * inside.float(), group)
     return torch.sum((lse - ll) * mask), torch.sum(mask)
 
 
-def chunked_xent(h, head_w, targets, *, softcap=None, chunk=256):
-    """Memory-sane cross entropy (``repro.models.transformer.chunked_xent``):
-    sequence chunks of ``chunk`` positions, each under
+def xent_sums(h, head_w, targets, *, softcap=None, chunk=256, group=None):
+    """Memory-sane cross entropy (``repro.models.transformer.chunked_xent``)
+    as its two sums: (summed masked NLL, count of targets >= 0), which a
+    data-parallel step reduces over its data axes before it divides.
+    Sequence chunks of ``chunk`` positions, each under
     ``torch.utils.checkpoint`` as the reference's ``jax.checkpoint``'d scan
     body, so the (B, S, V) logits never stand whole — the backward
-    recomputes one chunk's logits at a time. Targets of -1 are masked; the
-    mean is over the rest."""
+    recomputes one chunk's logits at a time. Targets of -1 are masked.
+    ``group``: the model axis the head's vocab is split over, or None."""
     b, s, _ = h.shape
     chunk = min(chunk, s)
     pad = (-s) % chunk
@@ -491,30 +543,45 @@ def chunked_xent(h, head_w, targets, *, softcap=None, chunk=256):
     count = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, s + pad, chunk):
         n, c = checkpoint(_xent_chunk, h[:, c0:c0 + chunk], head_w,
-                          targets[:, c0:c0 + chunk], softcap,
+                          targets[:, c0:c0 + chunk], softcap, group,
                           use_reentrant=False)
         nll = nll + n
         count = count + c
-    return nll / torch.clamp(count, min=1.0)
+    return nll, count
 
 
-def loss_fn(params: Transformer, cfg: ModelCfg, batch: dict):
-    """batch: tokens (B, S), targets (B, S) [-1 = masked]. Returns (total,
-    {"xent", "aux"}), differentiable with respect to ``params``.
+def loss_sums(params: Transformer, cfg: ModelCfg, batch: dict,
+              tensors: dict | None = None):
+    """(summed masked NLL, count of targets >= 0) of ``batch``, the parts
+    of ``loss_fn``'s mean. ``tensors`` ({name: tensor}, default the
+    module's parameters) are what the model runs on: a sharded step passes
+    its local shards, inside ``layers.model_parallel``; where the vocab is
+    split the head's cross entropy reduces over the model axis.
 
     Mixed precision as in the reference: every float32 master is cast to
     the compute dtype *inside* the differentiated function — the model runs
     on the cast copies through ``torch.func.functional_call`` — so the
     gradients reach the float32 masters in float32, and the module itself
-    is not cast (unlike serving's in-place ``cast_params``). The aux loss
-    is 0: the blocks this covers (attention + MLP) have none."""
+    is not cast (unlike serving's in-place ``cast_params``)."""
     check_trainable(cfg)
     dt = _dtype(cfg)
+    if tensors is None:
+        tensors = dict(params.named_parameters())
     cast = {name: p.to(dt) if p.dtype == torch.float32 else p
-            for name, p in params.named_parameters()}
+            for name, p in tensors.items()}
     h = torch.func.functional_call(params, cast, (batch["tokens"],))
     head_w = cast["embed"].t() if cfg.tie_embeddings else cast["lm_head"]
-    loss = chunked_xent(h, head_w, batch["targets"],
-                        softcap=cfg.logits_softcap)
+    return xent_sums(h, head_w, batch["targets"], softcap=cfg.logits_softcap,
+                     group=model_group() if head_w.shape[1] != cfg.vocab
+                     else None)
+
+
+def loss_fn(params: Transformer, cfg: ModelCfg, batch: dict):
+    """batch: tokens (B, S), targets (B, S) [-1 = masked]. Returns (total,
+    {"xent", "aux"}), differentiable with respect to ``params`` (cast to
+    the compute dtype inside, see ``loss_sums``). The aux loss is 0: the
+    blocks this covers (attention + MLP) have none."""
+    nll, count = loss_sums(params, cfg, batch)
+    loss = nll / torch.clamp(count, min=1.0)
     aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     return loss + aux, {"xent": loss, "aux": aux}

@@ -14,11 +14,13 @@ import torch
 
 
 def adamw_init(params: dict) -> dict:
+    """Zero float32 moments laid out like each parameter (a DTensor
+    parameter's moments are DTensors of its placements) and ``count``."""
     dev = next(iter(params.values())).device
     return {
-        "mu": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        "mu": {k: torch.zeros_like(p, dtype=torch.float32)
                for k, p in params.items()},
-        "nu": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        "nu": {k: torch.zeros_like(p, dtype=torch.float32)
                for k, p in params.items()},
         "count": torch.zeros((), dtype=torch.int32, device=dev),
     }

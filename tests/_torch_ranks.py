@@ -1,0 +1,176 @@
+"""Spawned gloo worlds for the port's distributed tests (imported by
+``tests/test_torch_{collectives,pipeline,sharded_train}.py``; not a test
+module itself, and it imports no JAX, so a spawned rank starts quickly).
+
+``spawn(world, job, tmp_path, **kw)`` starts ``world`` CPU processes with
+``torch.multiprocessing`` (one thread each); every rank joins a gloo
+process group through a ``FileStore`` in ``tmp_path`` — no fixed port, so
+concurrent test workers cannot collide — and runs ``JOBS[job](rank, world,
+tmp_path, **kw)``. A job reads its inputs from, and writes its results to,
+files in ``tmp_path``; the test compares them with numpy or with the JAX
+reference in its own process.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+
+
+def spawn(world: int, job: str, tmp_path, **kw) -> None:
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    mp.spawn(_entry, args=(world, str(tmp_path), job, kw), nprocs=world,
+             join=True)
+
+
+def _entry(rank, world, tmp, job, kw):
+    torch.set_num_threads(1)
+    store = dist.FileStore(os.path.join(tmp, f"store_{job}"), world)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world)
+    try:
+        JOBS[job](rank, world, tmp, **kw)
+    finally:
+        dist.destroy_process_group()
+
+
+def _save(tmp, name, obj):
+    with open(os.path.join(tmp, name), "wb") as f:
+        pickle.dump(obj, f)
+
+
+def load(tmp, name):
+    with open(os.path.join(tmp, name), "rb") as f:
+        return pickle.load(f)
+
+
+# ---------------------------------------------------------------------------
+# jobs
+# ---------------------------------------------------------------------------
+
+def _collectives(rank, world, tmp):
+    from repro_torch.distributed.collectives import (compressed_psum,
+                                                     moe_all_to_all)
+    inp = load(tmp, "collectives_in.pkl")
+    out = {}
+    for name, (x, dtype) in inp["psum"].items():
+        t = torch.from_numpy(x[rank]).to(getattr(torch, dtype))
+        y = compressed_psum(t, dist.group.WORLD)
+        assert y.dtype == t.dtype and y.shape == t.shape
+        out[name] = y.float().numpy()
+    out["a2a"] = moe_all_to_all(torch.from_numpy(inp["a2a"][rank]),
+                                dist.group.WORLD).numpy()
+    _save(tmp, f"collectives_out_{rank}.pkl", out)
+
+
+def _pipeline(rank, world, tmp):
+    from repro_torch.distributed.pipeline import pipeline_apply
+    inp = load(tmp, "pipeline_in.pkl")
+    w, b = torch.from_numpy(inp["w"]), torch.from_numpy(inp["b"])
+    per = w.shape[0] // world
+    stage = [{"w": w[i], "b": b[i]}
+             for i in range(rank * per, (rank + 1) * per)]
+
+    def layer_fn(lp, h):
+        return torch.tanh(h @ lp["w"] + lp["b"])
+
+    y = pipeline_apply(None, layer_fn, stage, torch.from_numpy(inp["x"]),
+                       microbatches=inp["microbatches"])
+    _save(tmp, f"pipeline_out_{rank}.pkl", y.numpy())
+
+
+def _train(rank, world, tmp):
+    """Every case of ``train_in.pkl``: the sharded step on its mesh for its
+    steps, from the reference-layout numpy weights; rank 0 saves the
+    gathered params and moments and the metrics of every step."""
+    from repro_torch.convert import from_jax_params
+    from repro_torch.distributed.sharding import (ShardingRules,
+                                                  gather_params, gather_tree,
+                                                  shard_params)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import local_batch, make_train_step
+    from repro_torch.optim import adamw_init
+    inp = load(tmp, "train_in.pkl")
+    out = {"refused": _refusals(inp["refuse_cfg"])}
+    for name, case in inp["cases"].items():
+        cfg = case["cfg"]
+        mesh = make_mesh(case["mesh"], ("data", "model"), device_type="cpu")
+        rules = ShardingRules(data_axes=("data",))
+        model = shard_params(from_jax_params(case["params"], cfg,
+                                             device="cpu"), rules, mesh)
+        opt = adamw_init(dict(model.named_parameters()))
+        step = make_train_step(cfg, rules, mesh, **case["step_kw"])
+        batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+        mine = local_batch(batch, mesh, case["step_kw"]["microbatches"])
+        metrics = []
+        for _ in range(case["steps"]):
+            model, opt, m = step(model, opt, mine)
+            metrics.append({k: float(v) for k, v in m.items()})
+        got = {"metrics": metrics, "count": int(opt["count"]),
+               "params": {k: v.numpy()
+                          for k, v in gather_params(model).items()}}
+        for t in ("mu", "nu"):
+            got[t] = {k: v.numpy() for k, v in gather_tree(opt[t]).items()}
+        if "err" in opt:
+            got["err"] = {k: v.numpy() for k, v in opt["err"].items()}
+        out[name] = got
+    if rank == 0:
+        _save(tmp, "train_out.pkl", out)
+
+
+def _refusals(cfg) -> dict:
+    """What each layout the sharded step does not run raises, on a 2 x 2
+    mesh and a 1 x 4 one (whose model axis does not divide 2 kv heads)."""
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import (make_prefill, make_serve_step,
+                                          make_train_step)
+    mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+    wide = make_mesh((1, 4), ("data", "model"), device_type="cpu")
+    rules = ShardingRules(data_axes=("data",))
+    tries = {
+        "fsdp": lambda: make_train_step(
+            cfg, ShardingRules(data_axes=("data",), fsdp=True), mesh),
+        "seq_shard": lambda: make_train_step(
+            cfg, ShardingRules(data_axes=("data",), seq_shard=True), mesh),
+        "compress": lambda: make_train_step(cfg, rules, mesh, compress=True),
+        "kv_heads": lambda: make_train_step(cfg, rules, wide),
+        "serve": lambda: make_serve_step(cfg, rules, mesh),
+        "prefill": lambda: make_prefill(cfg, rules, mesh),
+    }
+    out = {}
+    for name, fn in tries.items():
+        try:
+            fn()
+            out[name] = None
+        except NotImplementedError as e:
+            out[name] = str(e)
+    return out
+
+
+JOBS = {"collectives": _collectives, "pipeline": _pipeline, "train": _train}
+
+
+def replay_psum(xs: np.ndarray) -> np.ndarray:
+    """``compressed_psum``'s arithmetic in numpy float32 over the ranks'
+    inputs ``xs`` (ranks, ...): per 256-block the ranks' shared scale
+    max(|x|) / 127, half-to-even int8 levels, their int32 sum, dequantized.
+    Every rank's result."""
+    n = xs.shape[0]
+    flat = xs.reshape(n, -1).astype(np.float32)
+    size = flat.shape[1]
+    pad = (-size) % 256
+    fp = np.pad(flat, ((0, 0), (0, pad))).reshape(n, -1, 256)
+    local = np.max(np.abs(fp), axis=2, keepdims=True)
+    scale = np.maximum(np.max(local, axis=0), np.float32(1e-12)) / \
+        np.float32(127.0)
+    q = np.round(fp / scale).astype(np.int8).astype(np.int32)
+    deq = q.sum(axis=0).astype(np.float32) * scale
+    return deq.reshape(-1)[:size].reshape(xs.shape[1:])

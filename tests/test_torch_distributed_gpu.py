@@ -1,0 +1,149 @@
+"""The distributed layer on the card (marker ``gpu``), a world of one rank
+over NCCL — one card cannot hold two ranks of a communicator, so the
+multi-rank semantics are held on gloo ranks on the CPU
+(``test_torch_{collectives,pipeline,sharded_train}.py``):
+
+  * ``compressed_psum`` on CUDA tensors bit for bit its numpy replay
+    (float32, an odd size that pads, bfloat16);
+  * ``moe_all_to_all`` and a one-stage ``pipeline_apply`` bit for bit
+    their input and the sequential stack;
+  * qwen3 smoke, SOI pp, bf16 compute over float32 masters: the sharded
+    ``make_train_step`` on a (1, 1) mesh bit for bit the plain step over 3
+    steps (loss, grad norm, every param and moment), through the
+    ``flash_attention`` forward and backward kernels.
+
+Without a CUDA device every test here skips (inside the ``world``
+fixture). On the card:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_distributed_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import qwen3_1_7b as PQ
+from repro_torch.data.pipeline import ShardedLMPipeline
+from repro_torch.distributed.collectives import (compressed_psum,
+                                                 moe_all_to_all)
+from repro_torch.distributed.pipeline import pipeline_apply
+from repro_torch.distributed.sharding import (ShardingRules, gather_params,
+                                              gather_tree, shard_params)
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.steps import local_batch, make_train_step
+from repro_torch.models import transformer as T
+from repro_torch.optim import adamw_init
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def world():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the card with `python -m "
+                    "pytest --noconftest -m gpu "
+                    "tests/test_torch_distributed_gpu.py`")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    yield dev, make_mesh((1, 1), ("data", "model"))
+    dist.destroy_process_group()
+
+
+def _replay(x: np.ndarray) -> np.ndarray:
+    """``compressed_psum`` over one rank in numpy float32."""
+    flat = x.reshape(-1).astype(np.float32)
+    pad = (-flat.size) % 256
+    fp = np.pad(flat, (0, pad)).reshape(-1, 256)
+    scale = np.maximum(np.max(np.abs(fp), axis=1, keepdims=True),
+                       np.float32(1e-12)) / np.float32(127.0)
+    q = np.round(fp / scale).astype(np.int8).astype(np.int32)
+    return (q.astype(np.float32) * scale).reshape(-1)[:flat.size].reshape(
+        x.shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", [((512,), torch.float32),
+                                         ((3, 101), torch.float32),
+                                         ((4, 96), torch.bfloat16)])
+def test_compressed_psum_on_nccl_is_its_replay(world, shape, dtype):
+    dev, _ = world
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        shape).astype(np.float32)).to(dtype)
+    want = torch.from_numpy(_replay(x.float().numpy())).to(dtype)
+    got = compressed_psum(x.to(dev), dist.group.WORLD)
+    assert got.dtype == dtype and got.is_cuda
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_all_to_all_and_one_stage_pipeline(world):
+    dev, _ = world
+    rng = np.random.default_rng(1)
+    tok = torch.from_numpy(rng.standard_normal((8, 3, 5)).astype(
+        np.float32)).to(dev)
+    assert torch.equal(moe_all_to_all(tok, dist.group.WORLD), tok)
+    w = torch.from_numpy((0.3 * rng.standard_normal((8, 16, 16))).astype(
+        np.float32)).to(dev)
+    b = torch.from_numpy((0.01 * rng.standard_normal((8, 16))).astype(
+        np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((12, 16)).astype(
+        np.float32)).to(dev)
+    layers = [{"w": w[i], "b": b[i]} for i in range(8)]
+
+    def layer_fn(lp, h):
+        return torch.tanh(h @ lp["w"] + lp["b"])
+
+    y = pipeline_apply(dist.group.WORLD, layer_fn, layers, x,
+                       microbatches=3)
+    # the sequential stack, microbatch by microbatch (the same GEMM shapes)
+    want = []
+    for h in x.chunk(3):
+        for lp in layers:
+            h = layer_fn(lp, h)
+        want.append(h)
+    assert torch.equal(y, torch.cat(want))
+
+
+@pytest.mark.gpu
+def test_sharded_step_is_the_plain_step_bit_for_bit(world):
+    dev, mesh = world
+    cfg = PQ.smoke_config(soi="pp")
+    assert cfg.dtype == "bfloat16"
+    pipe = ShardedLMPipeline(global_batch=8, seq_len=32, vocab=cfg.vocab,
+                             seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in pipe.batch(i).items()} for i in range(3)]
+    kw = dict(peak_lr=1e-3, warmup=2, total_steps=10)
+
+    def init():
+        return T.init(cfg, generator=torch.Generator(device=dev)
+                      .manual_seed(0), device=dev)
+
+    plain = init()
+    popt = adamw_init(dict(plain.named_parameters()))
+    pstep = make_train_step(cfg, **kw)
+    rules = ShardingRules(data_axes=("data",))
+    sharded = shard_params(init(), rules, mesh)
+    sopt = adamw_init(dict(sharded.named_parameters()))
+    sstep = make_train_step(cfg, rules, mesh, **kw)
+    for bt in batches:
+        _, _, pm = pstep(plain, popt, bt)
+        ops.reset_launch_counts()
+        _, _, sm = sstep(sharded, sopt, local_batch(bt, mesh))
+        counts = ops.launch_counts()
+        for k in pm:
+            assert torch.equal(pm[k], sm[k]), k
+        assert counts["flash_attention"] == cfg.n_layers
+        assert counts["flash_attention_bwd"] == cfg.n_layers
+    want = dict(plain.named_parameters())
+    for k, v in gather_params(sharded).items():
+        assert torch.equal(v, want[k].detach()), k
+    for t in ("mu", "nu"):
+        for k, v in gather_tree(sopt[t]).items():
+            assert torch.equal(v, popt[t][k]), (t, k)
