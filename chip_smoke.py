@@ -360,11 +360,42 @@ Phases, each printing its own lines:
              group is destroyed after (c). (d) the dry run, --all --mesh
              both, as a table of GB a device against the H100's 80 GiB
              less the planner's reserve (no device needed).
-22. the kernels JSON line (the decode reads and copy_pages also give their
+22. train-families — training of the MoE, MLA, RG-LRU and windowed
+             stacks (every number beside the card's name and power
+             limit). (a) flash_attention_bwd at deepseek-v2's MLA dims
+             (d_qk 192, d_v 128, 128 heads) at (8, 128) and (1, 1024),
+             f32 and bf16, against the plain version (2e-5 / 2e-2 of each
+             gradient's largest), launched twice and held bit for bit, the
+             forward's lse and output held too; its bf16 device ms beside
+             the plain version, SDPA's backward (E_v != E) and the bound,
+             dK/dV and dQ apart. lru_scan_bwd at recurrentgemma's training
+             shape (8, 128, 4096), its outer prefill (1, 2040, 4096, with
+             h0) and the edge path (3, 37, 100): bit for bit the plain
+             ref.lru_scan_bwd on the card, run to run; device ms beside
+             the plain version and the bound. (b) olmoe-1b-7b, deepseek-v2's
+             MLA stack and recurrentgemma-9b at full width cut to 4 layers,
+             f32, SOI pp: one loss and its gradients, then one
+             make_train_step step, through the kernels and with attention
+             and the scan on their plain versions: loss, aux, every
+             gradient and the step's metrics within 1e-4; the kernels'
+             launches a loss exact. (c) make_train_step, as
+             launch.train.main builds it, at full width, bf16 over f32
+             masters, SOI pp, B 8 S 128, 10 steps each: olmoe-1b-7b (6 of
+             16 layers), deepseek-v2's MLA stack (mla_dense_config, 4
+             layers), recurrentgemma-9b (6 of 38) and h2o-danube-1.8b
+             (24): every loss finite, launches exact (flash_attention and
+             its backward one each an attention layer a step: olmoe 6, MLA
+             4, the windowed stacks 0; lru_scan and lru_scan_bwd one each
+             an RG-LRU layer: 4), peak under 80 GiB; step median and
+             tokens/s, and 2 more steps profiled between markers (busy
+             share, kernels a step).
+23. the kernels JSON line (the decode reads and copy_pages also give their
              phase-15 launches under "spec"; the kernels phase 16 launches
              their launches there under "obs"; flash_attention and
              flash_attention_bwd phase 17's under "train" and phase 21's
-             sharded step's under "dist"; the decode
+             sharded step's under "dist", and with lru_scan and
+             lru_scan_bwd phase 22's under "train_families" (the
+             backward's MLA rows under "mla"); the decode
              reads and chunk_attention the families' shapes with their
              phase-18 launches under "families"; flash_attention and the
              decode reads the zoo's shapes with their phase-19 launches
@@ -511,11 +542,22 @@ PATH_KERNELS = (
     # the training path (phase 17)
     ("flash_attention_bwd delta", ("12delta_kernel", "Li128E")),
     # f32: the CUDA-core body (T = float); bf16: the tensor-core body
-    ("flash_attention_bwd dK/dV", ("11dkdv_kernelIf", "Li128E")),
-    ("flash_attention_bwd dQ", ("9dq_kernelIf", "Li128E")),
+    ("flash_attention_bwd dK/dV", ("11dkdv_kernelIf", "Li128ELi128E")),
+    ("flash_attention_bwd dQ", ("9dq_kernelIf", "Li128ELi128E")),
     ("flash_attention_bwd dK/dV", ("12tensor_cores11dkdv_kernel",
-                                   "ILi128E")),
-    ("flash_attention_bwd dQ", ("12tensor_cores9dq_kernel", "ILi128E")),
+                                   "ILi128ELi128E")),
+    ("flash_attention_bwd dQ", ("12tensor_cores9dq_kernel",
+                                "ILi128ELi128E")),
+    # the families' training (phase 22): the MLA dims and the scan's
+    # gradient (ring and edge paths)
+    ("flash_attention_bwd dK/dV (MLA)", ("11dkdv_kernelIf", "Li192ELi128E")),
+    ("flash_attention_bwd dQ (MLA)", ("9dq_kernelIf", "Li192ELi128E")),
+    ("flash_attention_bwd dK/dV (MLA)", ("12tensor_cores11dkdv_kernel",
+                                         "ILi192ELi128E")),
+    ("flash_attention_bwd dQ (MLA)", ("12tensor_cores9dq_kernel",
+                                      "ILi192ELi128E")),
+    ("lru_scan_bwd (ring)", ("19lru_scan_bwd_kernel", "Lb0E")),
+    ("lru_scan_bwd (edge)", ("19lru_scan_bwd_kernel", "Lb1E")),
 )
 
 
@@ -1302,6 +1344,13 @@ KERNEL_META = {
         replaces="src/repro/kernels/ref.py:61",
         replaces_note="no Pallas kernel: the reference differentiates "
                       "ref.chunked_flash_attention with XLA"),
+    # the same for the RG-LRU scan's gradient: XLA's autodiff of the
+    # associative scan
+    "lru_scan_bwd": dict(
+        source="src/repro_torch/kernels/csrc/lru_scan.cu",
+        replaces="src/repro/kernels/ref.py:388",
+        replaces_note="no Pallas kernel: the reference differentiates "
+                      "ref.lru_scan (an associative scan) with XLA"),
 }
 # the device kernel each wrapper launches once a call, by name (phase 3's
 # readings hold a profile to them: one that lost a record is taken again);
@@ -4194,22 +4243,29 @@ RESTART_TOL = 1e-6       # (d): resumed vs uninterrupted params
 WELL_CONDITIONED = 100.0
 
 
-def _bwd_inputs(b, s, dt, dev, gen):
+def _bwd_inputs(b, s, dt, dev, gen, heads=(16, 8), dims=(128, 128)):
+    """A maker of (q, k, v, o, dO, lse) at qwen3's H 16 / Hkv 8 / dh 128
+    (or ``heads`` (H, Hkv) and ``dims`` (d_qk, d_v)), the forward's o and
+    lse from its kernel, and the bytes the backward must move."""
     from repro_torch.kernels import flash_attention as FA
+    h, hkv = heads
+    dqk, dv = dims
 
     def make():
-        q = torch.randn((b, s, 16, 128), generator=gen, device=dev).to(dt)
-        k = torch.randn((b, s, 8, 128), generator=gen, device=dev).to(dt)
-        v = torch.randn((b, s, 8, 128), generator=gen, device=dev).to(dt)
-        do = torch.randn((b, s, 16, 128), generator=gen, device=dev).to(dt)
+        q = torch.randn((b, s, h, dqk), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, s, hkv, dqk), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, s, hkv, dv), generator=gen, device=dev).to(dt)
+        do = torch.randn((b, s, h, dv), generator=gen, device=dev).to(dt)
         out, lse = FA.forward_launch(q, k, v, causal=True, q_offset=0,
-                                     scale=128 ** -0.5, cap=0.0,
+                                     scale=dqk ** -0.5, cap=0.0,
                                      with_lse=True)
         return q, k, v, out, do, lse
     esz = torch.finfo(dt).bits // 8
-    # q, o, dO read and dq written at H heads; k, v read and dk, dv
-    # written at Hkv; lse read once
-    nbytes = b * s * 128 * esz * (4 * 16 + 4 * 8) + b * 16 * s * 4
+    # q read and dq written at H heads of d_qk, o and dO read at H of d_v;
+    # k read and dk written at Hkv of d_qk, v and dv at Hkv of d_v; lse
+    # read once
+    nbytes = (b * s * esz * (2 * h * dqk + 2 * h * dv + 2 * hkv * dqk
+                             + 2 * hkv * dv) + b * h * s * 4)
     return make, nbytes
 
 
@@ -4274,18 +4330,22 @@ def _sdpa(q, k, v, grad: bool):
     return o, (qq, kk, vv)
 
 
-def _bwd_timing(make, nbytes, b, s, dt, abs_err, with_fwd) -> dict:
+def _bwd_timing(make, nbytes, b, s, dt, abs_err, with_fwd, heads=(16, 8),
+                dims=(128, 128)) -> dict:
     """The bf16 backward's device ms at (b, s) beside its plain version,
     SDPA's backward and the bound, with its two kernels apart; with
     ``with_fwd`` also the forward's: without and with its lse in turns
     (FWD_LSE_PAIRS pairs), the plain forward and SDPA's forward, and its
-    bound."""
+    bound. ``heads`` and ``dims`` as ``_bwd_inputs``'s."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
+    h, hkv = heads
+    dqk, dv = dims
     sets = _copies(make, nbytes)
     pairs = s * (s + 1) // 2
-    # five products of the recompute scheme: S, dP, dV, dQ, dK
-    flops = 10.0 * b * 16 * 128 * pairs
+    # five products of the recompute scheme: S, dQ, dK over d_qk; dP, dV
+    # over d_v
+    flops = 2.0 * b * h * pairs * (3 * dqk + 2 * dv)
     bound, by = _bound(nbytes, flops, dt)
     parts = {}
     ms = _device_ms(FA.flash_attention_bwd, sets, 50 if s <= 1024 else 20,
@@ -4307,12 +4367,14 @@ def _bwd_timing(make, nbytes, b, s, dt, abs_err, with_fwd) -> dict:
     lib_ms = _device_ms(sdpa_bwd, [(i,) for i in range(len(graphs))], 20,
                         markers=MARKERS)
     del graphs
+    shape = [b, s, h, hkv, dqk] + ([dv] if dv != dqk else [])
     rec = {"name": "flash_attention_bwd", "max_abs_err": abs_err, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-           "library_ms": lib_ms, "shape": [b, s, 16, 8, 128],
+           "library_ms": lib_ms, "shape": shape,
            "dtype": "bfloat16", "parts_ms": split,
            "useful_tflops": flops / ms / 1e9}
-    print(f"  flash_attention_bwd ({b},{s},16/8,128) bf16: {ms:.4f} ms "
+    label = f"({b},{s},{h}/{hkv},{dqk}" + (f"/{dv})" if dv != dqk else ")")
+    print(f"  flash_attention_bwd {label} bf16: {ms:.4f} ms "
           f"(dQ {split['dq_kernel']:.4f}, dK/dV {split['dkdv_kernel']:.4f}), "
           f"{rec['useful_tflops']:.1f} TFLOP/s useful; "
           f"plain {plain_ms:.4f}; SDPA backward {lib_ms:.4f}; bound "
@@ -5898,6 +5960,384 @@ def dist_phase(dev, card) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 22. train-families: the MoE, MLA, RG-LRU and windowed stacks trained
+# ---------------------------------------------------------------------------
+
+# flash_attention_bwd at deepseek-v2's MLA prefill dims (d_qk 192 =
+# qk_nope 128 + qk_rope 64, d_v 128) and its 128 heads, (label, B, S): the
+# training step's shape and the serving prefill bucket's; the first is the
+# JSON's row
+MLA_BWD_SHAPES = (("train", 8, 128), ("prefill bucket", 1, 1024))
+MLA_HEADS, MLA_DIMS = (128, 128), (192, 128)
+# lru_scan_bwd, (label, B, S, D, h0): recurrentgemma-9b's training step
+# (width 4096), its outer serving prefill, and the edge path (D % 32 != 0);
+# the first two are timed, the first is the JSON's row
+LRU_BWD_SHAPES = (("train", 8, 128, 4096, False),
+                  ("outer prefill", 1, 2040, 4096, True),
+                  ("edge", 3, 37, 100, True))
+FAMILY_STEPS = 10
+FAMILY_PROFILED = 2
+
+
+def _train_families():
+    """(label, full-width config, cut, flash_attention launches a loss,
+    lru_scan launches a loss) of each family phase 22 trains: bf16 over
+    float32 masters, SOI pp, depth cut only as far as 80 GB forces at 18
+    bytes a parameter (f32 master, grad and AdamW's two moments, bf16
+    copy)."""
+    from repro_torch import configs
+    from repro_torch.configs import deepseek_v2_236b as D
+    return (
+        ("olmoe-1b-7b", configs.get("olmoe-1b-7b", soi="pp", n_layers=6),
+         "6 of 16 layers", 6, 0),
+        ("deepseek-v2 MLA stack", D.mla_dense_config(soi="pp", n_layers=4),
+         "mla_dense_config: 4 layers of its layer-0 block (MLA + SwiGLU "
+         "12288); its MoE layers need 4 chips", 4, 0),
+        ("recurrentgemma-9b", configs.get("recurrentgemma-9b", soi="pp",
+                                          n_layers=6),
+         "6 of 38 layers: two (RG-LRU, RG-LRU, local attention) patterns",
+         0, 4),
+        ("h2o-danube-1.8b", configs.get("h2o-danube-1.8b", soi="pp"),
+         "none (24 layers)", 0, 0))
+
+
+def _parity_families():
+    """(label, 4-layer config, (flash_attention, lru_scan) launches a
+    loss) of (b)'s kernels-against-plain checks: the three families whose
+    training runs a kernel (danube's window takes the plain route on
+    every device, so its training launches none)."""
+    from repro_torch import configs
+    from repro_torch.configs import deepseek_v2_236b as D
+    return (
+        ("olmoe-1b-7b", configs.get("olmoe-1b-7b", soi="pp", n_layers=4),
+         (4, 0)),
+        ("deepseek-v2 MLA stack", D.mla_dense_config(soi="pp", n_layers=4),
+         (4, 0)),
+        # (RG-LRU, RG-LRU, local attention) and one more RG-LRU layer
+        ("recurrentgemma-9b", configs.get("recurrentgemma-9b", soi="pp",
+                                          n_layers=4), (0, 3)))
+
+
+def _mla_bwd_checks(dev, gen) -> dict:
+    """(a) flash_attention_bwd at (192, 128), 128 heads: the forward's lse
+    and output, then the backward against the plain version in f32 and
+    bf16, twice for the bits; the bf16 times beside SDPA's backward (E_v
+    != E). Returns the training shape's record, the other under
+    "shapes"."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    recs = {}
+    for label, b, s in MLA_BWD_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            make, nbytes = _bwd_inputs(b, s, dt, dev, gen, MLA_HEADS,
+                                       MLA_DIMS)
+            q, k, v, out, do, lse = make()
+            scale = MLA_DIMS[0] ** -0.5
+            want_o = ref.flash_attention(q, k, v, scale=scale)
+            want_lse = ref.attention_lse(q, k, scale=scale)
+            err_o = float((out.float() - want_o.float()).abs().max())
+            err_lse = float((lse - want_lse).abs().max()
+                            / want_lse.abs().max())
+            del want_o, want_lse
+            check(err_o < TOL[dt], f"MLA flash fwd {label} {dt}: {err_o}")
+            check(err_lse < LSE_REL_TOL[dt],
+                  f"MLA flash lse {label} {dt}: rel {err_lse}")
+            got = FA.flash_attention_bwd(q, k, v, out, do, lse, scale=scale)
+            again = FA.flash_attention_bwd(q, k, v, out, do, lse,
+                                           scale=scale)
+            want = ref.flash_attention_bwd(q, k, v, out, do, lse,
+                                           scale=scale)
+            torch.cuda.synchronize(dev)
+            rels, abs_err = [], 0.0
+            for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+                check(g.shape == w.shape, f"MLA bwd {name} {tuple(g.shape)}")
+                check(torch.equal(g, a), f"MLA flash_attention_bwd {label} "
+                                         f"{dt} {name}: not bit for bit")
+                d = float((g.float() - w.float()).abs().max())
+                abs_err = max(abs_err, d)
+                rels.append(d / float(w.float().abs().max()))
+                check(rels[-1] <= TOL[dt], f"MLA flash_attention_bwd "
+                      f"{label} {dt} {name}: rel max|Δ| {rels[-1]} > "
+                      f"{TOL[dt]}")
+            print(f"  (a) MLA {label} ({b},{s},128/128,192/128) "
+                  f"{str(dt)[6:]}: out max|Δ| {err_o:.2e}, lse rel "
+                  f"{err_lse:.2e}; bwd rel max|Δ| dq {rels[0]:.2e} dk "
+                  f"{rels[1]:.2e} dv {rels[2]:.2e}; run to run bit for bit",
+                  flush=True)
+            del q, k, v, out, do, lse, got, again, want
+            if dt == torch.bfloat16:
+                recs[label] = _bwd_timing(make, nbytes, b, s, dt, abs_err,
+                                          with_fwd=False, heads=MLA_HEADS,
+                                          dims=MLA_DIMS)
+            _free(dev)
+    rec = recs[MLA_BWD_SHAPES[0][0]]
+    rec["shapes"] = [recs[label] for label, _b, _s in MLA_BWD_SHAPES[1:]]
+    return rec
+
+
+def _lru_bwd_inputs(b, s, d, with_h0, dev, gen):
+    """A maker of (a, g, h, h0): decays in (0.1, 0.99), h the forward
+    kernel's scan of them; and the bytes the backward must move (a, g, h
+    (and h0) read, da, dx (and dh0) written, float32)."""
+    from repro_torch.kernels import ops
+
+    def make():
+        a = torch.rand((b, s, d), generator=gen, device=dev) * 0.89 + 0.1
+        x = torch.randn((b, s, d), generator=gen, device=dev)
+        g = torch.randn((b, s, d), generator=gen, device=dev)
+        h0 = (torch.randn((b, d), generator=gen, device=dev) if with_h0
+              else None)
+        h, _ = ops.lru_scan(a, x, h0)
+        return a, g, h, h0
+    nbytes = 4 * (5 * b * s * d + (2 * b * d if with_h0 else 0))
+    return make, nbytes
+
+
+def _lru_bwd_checks(dev, gen) -> dict:
+    """(a) lru_scan_bwd at each LRU_BWD_SHAPES shape against the plain
+    ref.lru_scan_bwd on the card, bit for bit, launched twice; its device
+    ms at the first two beside the plain version's and the bound (no
+    library yardstick: no single PyTorch call computes the recurrence's
+    gradient). Returns the training shape's record, the other timed one
+    under "shapes"."""
+    from repro_torch.kernels import lru_scan as LS
+    from repro_torch.kernels import ops, ref
+    recs = []
+    for label, b, s, d, with_h0 in LRU_BWD_SHAPES:
+        make, nbytes = _lru_bwd_inputs(b, s, d, with_h0, dev, gen)
+        a, g, h, h0 = make()
+        got = ops.lru_scan_bwd(a, g, h, h0)
+        again = ops.lru_scan_bwd(a, g, h, h0)
+        want = ref.lru_scan_bwd(a, g, h, h0)
+        torch.cuda.synchronize(dev)
+        err = 0.0
+        for name, x, y, w in zip(("da", "dx", "dh0"), got, again, want):
+            if w is None:
+                continue
+            check(torch.equal(x, y), f"lru_scan_bwd {label} {name}: not "
+                                     f"bit for bit run to run")
+            err = max(err, float((x - w).abs().max()))
+            check(torch.equal(x, w), f"lru_scan_bwd {label} {name}: max|Δ| "
+                                     f"{err} against the plain version "
+                                     f"(want bit for bit)")
+        plan = LS.lru_plan(b, s, d, torch.float32, streams=3)
+        line = (f"  (a) lru_scan_bwd {label} ({b},{s},{d}) f32"
+                f"{' with h0' if with_h0 else ''}: bit for bit the plain "
+                f"version, run to run; plan: {plan.chains} chain-warps, "
+                f"{plan.warps} a block, "
+                + ("edge path" if plan.edge else
+                   f"{plan.stages} stages of {plan.steps} steps"))
+        del a, g, h, h0, got, again, want
+        if label == "edge":
+            print(line, flush=True)
+            continue
+        sets = _copies(make, nbytes)
+        bound, by = _bound(nbytes, 3.0 * b * s * d, torch.float32)
+        ms = _device_ms(ops.lru_scan_bwd, sets, 50, bound_ms=bound,
+                        markers=MARKERS, each=("lru_scan_bwd_kernel",))
+        plain_ms = _device_ms(ref.lru_scan_bwd, sets[:2], 2 if s <= 128
+                              else 1, markers=MARKERS)
+        del sets
+        _free(dev)
+        print(f"{line}; {ms:.4f} ms (plain {plain_ms:.4f}; bound "
+              f"{bound:.5f} ms, {by}: {nbytes / 1e6:.1f} MB; no library "
+              f"yardstick)", flush=True)
+        recs.append({"name": "lru_scan_bwd", "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                     "library_ms": None, "shape": [b, s, d],
+                     "dtype": "float32"})
+    rec = recs[0]
+    rec["shapes"] = recs[1:]
+    return rec
+
+
+def _family_grad_parity(label, cfg, dev, want) -> None:
+    """(b) one loss and gradient, then one make_train_step step, of
+    ``cfg`` cut to 4 layers in float32, through the kernels and again with
+    attention and the RG-LRU scan on their plain versions: loss, aux,
+    every gradient and the step's metrics within GRAD_TOL. ``want``: the
+    kernel route's launches a loss."""
+    from repro_torch.data.pipeline import ShardedLMPipeline
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    pipe = ShardedLMPipeline(global_batch=8, seq_len=128, vocab=cfg.vocab,
+                             seed=0)
+    batch = _train_batch(pipe, 0, dev)
+    kern = T.init(cfg, generator=torch.Generator(device=dev).manual_seed(22),
+                  device=dev)
+    plain = copy.deepcopy(kern)
+    step = make_train_step(cfg, peak_lr=1e-3, warmup=20,
+                           total_steps=FAMILY_STEPS)
+    res = {}
+    for route, model in (("kernels", kern), ("plain", plain)):
+        saved = ops.flash_attention, ops.lru_scan
+        if route == "plain":
+            ops.flash_attention, ops.lru_scan = (ref.flash_attention,
+                                                 ref.lru_scan)
+        try:
+            ops.reset_launch_counts()
+            named = dict(model.named_parameters())
+            loss, metrics = T.loss_fn(model, cfg, batch)
+            grads = dict(zip(named, torch.autograd.grad(
+                loss, list(named.values()))))
+            torch.cuda.synchronize(dev)
+            counts = ops.launch_counts()
+        finally:
+            ops.flash_attention, ops.lru_scan = saved
+        res[route] = (float(loss.detach()), float(metrics["aux"].detach()),
+                      grads, counts)
+    (lk, ak, gk, ck), (lp, ap, gp, cp_) = res["kernels"], res["plain"]
+    _counts_want(ck, {"flash_attention": want[0],
+                      "flash_attention_bwd": want[0],
+                      "lru_scan": want[1], "lru_scan_bwd": want[1]},
+                 f"{label} 4-layer parity, kernels")
+    _counts_want(cp_, {}, f"{label} 4-layer parity, plain")
+    rel_loss = abs(lk - lp) / abs(lp)
+    check(rel_loss <= GRAD_TOL, f"{label} 4-layer loss {lk} vs plain {lp}")
+    check(abs(ak - ap) <= GRAD_TOL * max(abs(ap), 1e-30),
+          f"{label} 4-layer aux {ak} vs plain {ap}")
+    worst = 0.0
+    for k in gp:
+        r = float((gk[k] - gp[k]).abs().max()
+                  / gp[k].abs().max().clamp_min(1e-30))
+        worst = max(worst, r)
+        check(r <= GRAD_TOL, f"{label} 4-layer grad {k}: rel {r}")
+    del res, gk, gp, grads, named, loss, metrics
+    # one model at a time through the step (its AdamW state and clipped
+    # gradients beside it): 4 f32 layers of olmoe are 7.6 GB a copy
+    models = {"kernels": kern, "plain": plain}
+    del kern, plain
+    _free(dev)
+    mets = {}
+    for route in ("kernels", "plain"):
+        model = models.pop(route)
+        saved = ops.flash_attention, ops.lru_scan
+        if route == "plain":
+            ops.flash_attention, ops.lru_scan = (ref.flash_attention,
+                                                 ref.lru_scan)
+        try:
+            opt = adamw_init(dict(model.named_parameters()))
+            _, _, m = step(model, opt, batch)
+            mets[route] = {k: float(v) for k, v in m.items()}
+        finally:
+            ops.flash_attention, ops.lru_scan = saved
+        del model, opt, m
+        _free(dev)
+    for k, v in mets["plain"].items():
+        check(abs(mets["kernels"][k] - v) <= GRAD_TOL * max(abs(v), 1e-30),
+              f"{label} 4-layer step {k}: {mets['kernels'][k]} vs plain {v}")
+    print(f"  (b) {label}, 4 layers f32 (SOI pp), B 8 S 128: loss {lk:.6f} "
+          f"vs plain {lp:.6f} (rel {rel_loss:.2e}), aux {ak:.6f} vs "
+          f"{ap:.6f}; worst grad rel max|Δ| {worst:.2e}; a step's loss / "
+          f"grad norm {mets['kernels']['loss']:.6f} / "
+          f"{mets['kernels']['grad_norm']:.4f} vs plain "
+          f"{mets['plain']['loss']:.6f} / {mets['plain']['grad_norm']:.4f}; "
+          f"kernels a loss: flash {ck['flash_attention']} + "
+          f"{ck['flash_attention_bwd']} bwd, lru_scan {ck['lru_scan']} + "
+          f"{ck['lru_scan_bwd']} bwd", flush=True)
+    del step
+    _free(dev)
+
+
+def _family_train(label, cfg, cut, want, dev, card) -> dict:
+    """(c) FAMILY_STEPS make_train_step steps of ``cfg`` at full width,
+    bf16 over float32 masters, B 8 S 128, as launch.train.main builds
+    them: every loss finite, the launches exact (``want``: flash and
+    lru_scan launches a step), step ms and tokens/s (median after 2, host
+    clock after a synchronize), peak GiB, then FAMILY_PROFILED more steps
+    profiled between markers (busy share). Returns the run's launch
+    counts."""
+    from repro_torch.data.pipeline import ShardedLMPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    _free(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = T.init(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                   device=dev)
+    opt = adamw_init(dict(model.named_parameters()))
+    n_params = sum(p.numel() for p in model.parameters())
+    step = make_train_step(cfg, peak_lr=1e-3, warmup=20,
+                           total_steps=FAMILY_STEPS)
+    pipe = ShardedLMPipeline(global_batch=8, seq_len=128, vocab=cfg.vocab,
+                             seed=0)
+    batches = [_train_batch(pipe, i, dev)
+               for i in range(FAMILY_STEPS + FAMILY_PROFILED)]
+    torch.cuda.synchronize(dev)
+    setup = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    losses, auxes, times = [], [], []
+    for i in range(FAMILY_STEPS):
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        _, _, m = step(model, opt, batches[i])
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t1)
+        losses.append(float(m["loss"]))
+        auxes.append(float(m["aux"]))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(map(math.isfinite, losses + auxes)),
+          f"{label}: non-finite losses {losses} / aux {auxes}")
+    flash, lru = want
+    _counts_want(counts, {"flash_attention": flash * FAMILY_STEPS,
+                          "flash_attention_bwd": flash * FAMILY_STEPS,
+                          "lru_scan": lru * FAMILY_STEPS,
+                          "lru_scan_bwd": lru * FAMILY_STEPS},
+                 f"{label} train")
+    check(peak < 80 * 2 ** 30, f"{label}: peak {peak / 2 ** 30:.2f} GiB")
+    med = sorted(times[2:])[len(times[2:]) // 2] * 1e3
+    ev = _device_events(lambda: [step(model, opt, batches[FAMILY_STEPS + i])
+                                 for i in range(FAMILY_PROFILED)],
+                        markers=MARKERS)
+    window = max(e for _s, e, _n in ev) - min(s_ for s_, _e, _n in ev)
+    busy = _window_profile(ev, FAMILY_PROFILED, f"(c) {label}, "
+                           f"{FAMILY_PROFILED} profiled steps:", "step")
+    print(f"  (c) {label} ({cut}; {n_params / 1e9:.3f} B params, "
+          f"{18 * n_params / 1e9:.1f} GB at 18 B a param), bf16 over f32 "
+          f"masters, SOI pp, B 8 S 128, {FAMILY_STEPS} steps: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (aux {auxes[0]:.5f} -> "
+          f"{auxes[-1]:.5f}); step median {med:.2f} ms (host clock after a "
+          f"synchronize, {FAMILY_STEPS - 2} after 2), "
+          f"{8 * 128 / med * 1e3:.0f} tokens/s; busy share "
+          f"{busy / window:.3f}; {len(ev) / FAMILY_PROFILED:.0f} device "
+          f"kernels a step; peak {peak / 2 ** 30:.2f} GiB; launches a step: "
+          f"flash {counts['flash_attention'] // FAMILY_STEPS} + "
+          f"{counts['flash_attention_bwd'] // FAMILY_STEPS} bwd, lru_scan "
+          f"{counts['lru_scan'] // FAMILY_STEPS} + "
+          f"{counts['lru_scan_bwd'] // FAMILY_STEPS} bwd; set-up "
+          f"{setup:.1f} s  [{card}]", flush=True)
+    del model, opt, step, batches
+    _free(dev)
+    return counts
+
+
+def train_families_phase(dev, card) -> tuple:
+    """Phase 22. Returns (the MLA flash_attention_bwd record, the
+    lru_scan_bwd record, {family: launch counts of its (c) run})."""
+    phase("22 train-families (flash_attention_bwd at MLA's (192, 128), "
+          "lru_scan_bwd; olmoe-1b-7b, deepseek-v2's MLA stack, "
+          "recurrentgemma-9b and h2o-danube-1.8b trained at full width)")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(22)
+    mla_rec = _mla_bwd_checks(dev, gen)
+    lru_rec = _lru_bwd_checks(dev, gen)
+    for label, cfg, want in _parity_families():
+        _family_grad_parity(label, cfg, dev, want)
+    counts = {}
+    for label, cfg, cut, flash, lru in _train_families():
+        counts[label] = _family_train(label, cfg, cut, (flash, lru), dev,
+                                      card)
+    print(f"  phase 22 took {time.perf_counter() - t0:.1f} s [{card}]")
+    return mla_rec, lru_rec, counts
+
+
 def main():
     card = device_phase()
     dev = torch.device("cuda", 0)
@@ -5926,6 +6366,9 @@ def main():
     analysis_phase(dev, card, graphed)
     _free(dev)
     dist_counts = dist_phase(dev, card)
+    _free(dev)
+    mla_bwd, main_recs["lru_scan_bwd"], fam_train = train_families_phase(
+        dev, card)
     # launches: each kernel's count on its own path's run — the dense
     # serve (phase 5), the paged prefix-cache serve (phase 6), the
     # deepseek-v2 serve (phase 8), the MLA prefix-cache serve (phase 9),
@@ -5944,7 +6387,10 @@ def main():
                 "lru_scan": ("rg serve (paged)", rg_counts["paged"]),
                 "stmc_conv": ("unet stream", unet_counts),
                 "flash_attention_bwd": ("train (qwen3-1.7b dense, 30 "
-                                        "steps)", train_counts["dense"])}
+                                        "steps)", train_counts["dense"]),
+                "lru_scan_bwd": (f"train families (recurrentgemma-9b, "
+                                 f"{FAMILY_STEPS} steps)",
+                                 fam_train["recurrentgemma-9b"])}
     # the decode kernels' second path: recurrentgemma's MQA at G 16 / dh 256
     rg_second = {"decode_attention": rg_counts["dense"],
                  "paged_decode_attention": rg_counts["paged"]}
@@ -6036,6 +6482,38 @@ def main():
                                f"mesh, {DIST_STEPS} steps)"}
             check(dist_counts[name] > 0,
                   f"{name} never launched on the sharded train step")
+        if name in ("flash_attention", "flash_attention_bwd", "lru_scan",
+                    "lru_scan_bwd"):
+            # phase 22's training runs of the families
+            summary[-1]["train_families"] = {
+                label: {"launches": cnt_f[name],
+                        "launches_on": f"train families ({label}, "
+                                       f"{FAMILY_STEPS} steps)"}
+                for label, cnt_f in fam_train.items() if cnt_f[name]}
+        if name == "flash_attention_bwd":
+            # its second path: deepseek-v2's MLA stack trained (phase 22)
+            summary[-1]["mla"] = {key: mla_bwd[key] for key in (
+                "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "parts_ms", "useful_tflops")}
+            summary[-1]["mla"]["shapes"] = [
+                {key: r[key] for key in ("shape", "max_abs_err", "ms",
+                                         "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "parts_ms",
+                                         "useful_tflops")}
+                for r in mla_bwd["shapes"]]
+            n_mla = fam_train["deepseek-v2 MLA stack"][name]
+            check(n_mla > 0, f"{name} never launched on the MLA stack's "
+                             f"training")
+            summary[-1]["mla"].update(
+                launches=n_mla, launches_on=f"train families (deepseek-v2 "
+                                            f"MLA stack, {FAMILY_STEPS} "
+                                            f"steps)")
+        if name == "lru_scan_bwd":
+            summary[-1]["shapes"] = [
+                {key: r[key] for key in ("shape", "max_abs_err", "ms",
+                                         "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms")}
+                for r in rec["shapes"]]
         if name == "flash_attention_bwd":
             # the forward at the training shape (lists: the pairs in
             # turns), the backward's parts, and its other timed shapes
@@ -6069,7 +6547,7 @@ def main():
             summary[-1]["rg_middle"].update(
                 launches=rg_second[name][name],
                 launches_on="rg serve (dense), outer and middle layers")
-    print(f"== 22 done in {time.perf_counter() - T_START:.1f} s")
+    print(f"== 23 done in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -45,8 +45,8 @@ SIGNATURES = {
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                               _I, _P],
     "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                                  _P],
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                  _I, _P],
     "repro_chunk_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
                               _I, _P],
@@ -61,6 +61,8 @@ SIGNATURES = {
                                          _I, _I, _I, _P],
     "repro_lru_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _P],
+    "repro_lru_scan_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _P],
     "repro_stmc_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _P],
 }
@@ -193,7 +195,8 @@ def needs_grad(*tensors) -> bool:
 
 def refuse_grad(name: str, *tensors) -> None:
     """Raise when autograd would need a gradient through ``name``'s CUDA
-    kernel, which has no backward (only ``flash_attention`` has one)."""
+    kernel, which has no backward (only ``flash_attention`` and
+    ``lru_scan`` have one)."""
     if needs_grad(*tensors):
         raise NotImplementedError(
             f"{name}: the CUDA kernel has no backward; call it under "

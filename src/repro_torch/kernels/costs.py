@@ -136,8 +136,11 @@ def _paged_mla_decode_attention(out, ops):
 
 @register("flash_attention_bwd")
 def _flash_attention_bwd(out, ops):
-    # q (B,Sq,H,dh), k (B,Sk,Hkv,dh), v (B,Sk,Hkv,dv), o, do (B,Sq,H,dv),
-    # lse; out: the (dq, dk, dv) tuple. The reference has no backward
+    # q (B,Sq,H,dqk), k (B,Sk,Hkv,dqk), v (B,Sk,Hkv,dv), o, do
+    # (B,Sq,H,dv), lse; out: the (dq, dk, dv) tuple. dV = P^T dO and
+    # dP = dO V^T contract or span dv (2 * Sk * do_elems each), dQ = dS K
+    # and dK = dS^T Q dqk (2 * Sk * q_elems each), so the price holds at
+    # dv != dqk (MLA's 192 / 128). The reference has no backward
     # kernel: it differentiates ref.chunked_flash_attention with XLA, and
     # its parser charges jax.grad of it 6 * Sk * (q_elems + do_elems) —
     # QK^T and PV forward, dV, dP, dQ, dK backward. The forward's two are
@@ -165,6 +168,15 @@ def _copy_pages(out, ops):
 def _lru_scan(out, ops):
     # a (B,S,D), x (B,S,D) [, h0 (B,D)]: h = a*h + x per element
     return {"flops": 2.0 * ops[0].elems,
+            "bytes": _io_bytes(out, ops)}
+
+
+@register("lru_scan_bwd")
+def _lru_scan_bwd(out, ops):
+    # a, g, h (B,S,D) [, h0 (B,D)]; out: the (da, dx[, dh0]) tuple. No
+    # reference kernel: the reference differentiates the associative scan
+    # with XLA. c = a*c + g and da = c*h_prev: 3 FLOPs an element
+    return {"flops": 3.0 * ops[0].elems,
             "bytes": _io_bytes(out, ops)}
 
 

@@ -65,6 +65,19 @@
 //    (dkdv) and ~102 KB (dq), two blocks an SM. Registers at dh 128
 //    (ptxas): dq 248 a thread, dkdv 254 of the 255 a thread can have (no
 //    spill; its dK and dV accumulators alone take 128).
+//  * MLA (d_qk 192, d_v 128, deepseek-v2's prefill): every product runs
+//    over its own width (S^T, dQ, dK over d_qk; dP^T, dV and delta over
+//    d_v; o and dO are d_v wide). dK and dV of a warp's 16 keys would take
+//    160 f32 accumulators a thread beside S^T's and dP^T's 32 at d_qk 192,
+//    past what 254 registers at d 128 leave, so there the two warp groups
+//    of a dK/dV block split the columns instead of the walk: each walks
+//    every query tile through its own ring and keeps half of dK's (96) and
+//    of dV's (64) columns, and nothing is summed across groups at the end
+//    (S^T and dP^T are computed by both: 1.5x the products). dQ halves its
+//    key tile to 32 there (S and dP take 32 accumulators beside dQ's 96)
+//    and keeps O in a region of its own (a 32-key V stage cannot hold 64
+//    rows of it). Shared memory: ~106 KB (dkdv) and ~101 KB (dq), two
+//    blocks an SM.
 //  What holds it back: mma.sync reads both operands from registers, so
 //  every product's B fragments come from shared memory for 16 rows (and
 //  again for each warp that shares them): the kernels issue about one
@@ -118,17 +131,19 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t dkdv_smem_bytes() {
   // K, V, Q, dO tiles; P and dS (keys x queries); lse and delta of a tile
-  return sizeof(float) * (4 * (size_t)64 * (D + 1) +
+  return sizeof(float) * (2 * (size_t)64 * (DQK + 1) +
+                          2 * (size_t)64 * (DV + 1) +
                           2 * (size_t)64 * (64 + 1) + 2 * 64);
 }
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t dq_smem_bytes() {
   // Q, dO, K, V tiles; dS (queries x keys)
-  return sizeof(float) * (4 * (size_t)64 * (D + 1) + (size_t)64 * (64 + 1));
+  return sizeof(float) * (2 * (size_t)64 * (DQK + 1) +
+                          2 * (size_t)64 * (DV + 1) + (size_t)64 * (64 + 1));
 }
 
 // Copies ROWS rows of D elements (row r at g + r * stride) into shared rows
@@ -144,22 +159,74 @@ __device__ __forceinline__ void load_rows(float* s, const T* g,
   }
 }
 
+// s[i][j] += sum_d a[i][d] b[j][d] over DA dims and t[i][j] += sum_d c[i][d]
+// e[j][d] over DC dims: rows r0 + 16 i of the shared tiles a (stride LA)
+// and c (LC), columns c0 + 16 j of b (LA) and e (LC); the dims both sums
+// share run in one loop, each sum in order of d.
+template <int DA, int DC>
+__device__ __forceinline__ void two_products(
+    float (&s)[4][4], float (&t)[4][4], const float* a, const float* b,
+    const float* c, const float* e, int r0, int c0) {
+  constexpr int LA = DA + 1, LC = DC + 1;
+  constexpr int DM = DA < DC ? DA : DC;
+#pragma unroll 4
+  for (int d = 0; d < DM; ++d) {
+    float av[4], cv[4], bv[4], ev[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      av[i] = a[(r0 + 16 * i) * LA + d];
+      cv[i] = c[(r0 + 16 * i) * LC + d];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      bv[j] = b[(c0 + 16 * j) * LA + d];
+      ev[j] = e[(c0 + 16 * j) * LC + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] += av[i] * bv[j];
+        t[i][j] += cv[i] * ev[j];
+      }
+  }
+  // the rest of the wider product (MLA: Q K^T's last 64 dims)
+#pragma unroll 4
+  for (int d = DM; d < DA; ++d) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        s[i][j] += a[(r0 + 16 * i) * LA + d] * b[(c0 + 16 * j) * LA + d];
+  }
+#pragma unroll 4
+  for (int d = DM; d < DC; ++d) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        t[i][j] += c[(r0 + 16 * i) * LC + d] * e[(c0 + 16 * j) * LC + d];
+  }
+}
+
 // dK and dV of BK keys of one KV head: rows tr + 16 i (keys) by columns
-// tc + 16 j (queries) of the transposed score tile.
-template <typename T, int D>
+// tc + 16 j (queries) of the transposed score tile. Q, K and dK are DQK
+// wide, V, dO and dV DV wide.
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
             T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H,
             int Hkv, int q_offset, int causal, float scale) {
-  constexpr int LD = D + 1, LP = BQ + 1, DPT = D / 16;
+  constexpr int LQ = DQK + 1, LV = DV + 1, LP = BQ + 1;
+  constexpr int QPT = DQK / 16, VPT = DV / 16;
   extern __shared__ float smem[];
   float* sK = smem;
-  float* sV = sK + BK * LD;
-  float* sQ = sV + BK * LD;
-  float* sO = sQ + BQ * LD;         // dO
-  float* sP = sO + BQ * LD;         // P, keys x queries
+  float* sV = sK + BK * LQ;
+  float* sQ = sV + BK * LV;
+  float* sO = sQ + BQ * LQ;         // dO
+  float* sP = sO + BQ * LV;         // P, keys x queries
   float* sS = sP + BK * LP;         // dS, keys x queries
   float* sL = sS + BK * LP;         // lse of the query tile
   float* sD = sL + BQ;              // delta of the query tile
@@ -168,32 +235,38 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
   const int G = H / Hkv;
   const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
-  const size_t q_row = (size_t)H * D, k_row = (size_t)Hkv * D;
-  const size_t kv_off = ((size_t)b * Sk + k0) * k_row + (size_t)hk * D;
+  const size_t q_row = (size_t)H * DQK, o_row = (size_t)H * DV;
+  const size_t k_row = (size_t)Hkv * DQK, v_row = (size_t)Hkv * DV;
+  const size_t k_off = ((size_t)b * Sk + k0) * k_row + (size_t)hk * DQK;
+  const size_t v_off = ((size_t)b * Sk + k0) * v_row + (size_t)hk * DV;
 
-  load_rows<T, BK, D>(sK, k + kv_off, k_row, Sk - k0, tid);
-  load_rows<T, BK, D>(sV, v + kv_off, k_row, Sk - k0, tid);
+  load_rows<T, BK, DQK>(sK, k + k_off, k_row, Sk - k0, tid);
+  load_rows<T, BK, DV>(sV, v + v_off, v_row, Sk - k0, tid);
 
-  float acc_k[4][DPT], acc_v[4][DPT];
+  float acc_k[4][QPT], acc_v[4][VPT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+    for (int j = 0; j < QPT; ++j) acc_k[i][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) acc_v[i][j] = 0.f;
+  }
 
   // query row i sees key k0 iff q_offset + i >= k0: earlier tiles are
   // wholly masked and never loaded
   const int q_first = causal ? max(0, k0 - q_offset) / BQ * BQ : 0;
   for (int gi = 0; gi < G; ++gi) {
     const int h = hk * G + gi;
-    const size_t qo_off = (size_t)b * Sq * q_row + (size_t)h * D;
+    const size_t q_off = (size_t)b * Sq * q_row + (size_t)h * DQK;
+    const size_t o_off = (size_t)b * Sq * o_row + (size_t)h * DV;
     const float* lb = lse + ((size_t)b * H + h) * Sq;
     const float* db = delta + ((size_t)b * H + h) * Sq;
     for (int q0 = q_first; q0 < Sq; q0 += BQ) {
       __syncthreads();   // the previous tile's readers are done
-      load_rows<T, BQ, D>(sQ, q + qo_off + (size_t)q0 * q_row, q_row,
-                          Sq - q0, tid);
-      load_rows<T, BQ, D>(sO, dout + qo_off + (size_t)q0 * q_row, q_row,
-                          Sq - q0, tid);
+      load_rows<T, BQ, DQK>(sQ, q + q_off + (size_t)q0 * q_row, q_row,
+                            Sq - q0, tid);
+      load_rows<T, BQ, DV>(sO, dout + o_off + (size_t)q0 * o_row, o_row,
+                           Sq - q0, tid);
       if (tid < BQ) {
         const bool in = q0 + tid < Sq;
         sL[tid] = in ? lb[q0 + tid] : 0.f;
@@ -201,32 +274,13 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncthreads();
 
+      // S^T = K Q^T over DQK and dP^T = V dO^T over DV
       float s[4][4], dp[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float kv[4], vv[4], qv[4], ov[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i] = sK[(tr + 16 * i) * LD + d];
-          vv[i] = sV[(tr + 16 * i) * LD + d];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qv[j] = sQ[(tc + 16 * j) * LD + d];
-          ov[j] = sO[(tc + 16 * j) * LD + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] += kv[i] * qv[j];
-            dp[i][j] += vv[i] * ov[j];
-          }
-      }
+      two_products<DQK, DV>(s, dp, sK, sQ, sV, sO, tr, tc);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int k_pos = k0 + tr + 16 * i;
@@ -247,21 +301,19 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // dV += P dO, dK += dS Q over the tile's queries, in order
 #pragma unroll 2
       for (int qq = 0; qq < BQ; ++qq) {
-        float ov[DPT], qv[DPT];
+        float ov[VPT], qv[QPT];
 #pragma unroll
-        for (int j = 0; j < DPT; ++j) {
-          ov[j] = sO[qq * LD + tc + 16 * j];
-          qv[j] = sQ[qq * LD + tc + 16 * j];
-        }
+        for (int j = 0; j < VPT; ++j) ov[j] = sO[qq * LV + tc + 16 * j];
+#pragma unroll
+        for (int j = 0; j < QPT; ++j) qv[j] = sQ[qq * LQ + tc + 16 * j];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float p = sP[(tr + 16 * i) * LP + qq];
           const float ds = sS[(tr + 16 * i) * LP + qq];
 #pragma unroll
-          for (int j = 0; j < DPT; ++j) {
-            acc_v[i][j] += p * ov[j];
-            acc_k[i][j] += ds * qv[j];
-          }
+          for (int j = 0; j < VPT; ++j) acc_v[i][j] += p * ov[j];
+#pragma unroll
+          for (int j = 0; j < QPT; ++j) acc_k[i][j] += ds * qv[j];
         }
       }
     }
@@ -271,42 +323,47 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int r = k0 + tr + 16 * i;
     if (r >= Sk) continue;
-    const size_t off = ((size_t)b * Sk + r) * k_row + (size_t)hk * D;
+    T* kr = dk + ((size_t)b * Sk + r) * k_row + (size_t)hk * DQK;
+    T* vr = dv + ((size_t)b * Sk + r) * v_row + (size_t)hk * DV;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      dk[off + tc + 16 * j] = from_f32<T>(acc_k[i][j] * scale);
-      dv[off + tc + 16 * j] = from_f32<T>(acc_v[i][j]);
-    }
+    for (int j = 0; j < QPT; ++j)
+      kr[tc + 16 * j] = from_f32<T>(acc_k[i][j] * scale);
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) vr[tc + 16 * j] = from_f32<T>(acc_v[i][j]);
   }
 }
 
 // dQ of BQ query rows of one head: rows tr + 16 i (queries) by columns
-// tc + 16 j (keys) of the score tile.
-template <typename T, int D>
+// tc + 16 j (keys) of the score tile. Q, K and dQ are DQK wide, V and dO
+// DV wide.
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
           T* __restrict__ dq, int Sq, int Sk, int H, int Hkv, int q_offset,
           int causal, float scale) {
-  constexpr int LD = D + 1, LP = BK + 1, DPT = D / 16;
+  constexpr int LQ = DQK + 1, LP = BK + 1, QPT = DQK / 16;
   extern __shared__ float smem[];
   float* sQ = smem;
-  float* sO = sQ + BQ * LD;         // dO
-  float* sK = sO + BQ * LD;
-  float* sV = sK + BK * LD;
-  float* sS = sV + BK * LD;         // dS, queries x keys
+  float* sO = sQ + BQ * LQ;         // dO
+  float* sK = sO + BQ * (DV + 1);
+  float* sV = sK + BK * LQ;
+  float* sS = sV + BK * (DV + 1);   // dS, queries x keys
 
   const int q0 = blockIdx.x * BQ;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int hk = h / (H / Hkv);
   const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
-  const size_t q_row = (size_t)H * D, k_row = (size_t)Hkv * D;
-  const size_t qo_off = ((size_t)b * Sq + q0) * q_row + (size_t)h * D;
-  const size_t kv_base = (size_t)b * Sk * k_row + (size_t)hk * D;
+  const size_t q_row = (size_t)H * DQK, o_row = (size_t)H * DV;
+  const size_t k_row = (size_t)Hkv * DQK, v_row = (size_t)Hkv * DV;
+  const size_t q_off = ((size_t)b * Sq + q0) * q_row + (size_t)h * DQK;
+  const size_t o_off = ((size_t)b * Sq + q0) * o_row + (size_t)h * DV;
+  const size_t k_base = (size_t)b * Sk * k_row + (size_t)hk * DQK;
+  const size_t v_base = (size_t)b * Sk * v_row + (size_t)hk * DV;
 
-  load_rows<T, BQ, D>(sQ, q + qo_off, q_row, Sq - q0, tid);
-  load_rows<T, BQ, D>(sO, dout + qo_off, q_row, Sq - q0, tid);
+  load_rows<T, BQ, DQK>(sQ, q + q_off, q_row, Sq - q0, tid);
+  load_rows<T, BQ, DV>(sO, dout + o_off, o_row, Sq - q0, tid);
   float row_lse[4], row_delta[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -316,49 +373,30 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     row_delta[i] = qi < Sq ? delta[at] : 0.f;
   }
 
-  float acc[4][DPT];
+  float acc[4][QPT];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < QPT; ++j) acc[i][j] = 0.f;
 
   // causal: no key past the last real query row of this tile is live
   const int last_q = q_offset + min(q0 + BQ, Sq) - 1;
   const int k_end = causal ? min(Sk, last_q + 1) : Sk;
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();   // the previous tile's readers are done
-    load_rows<T, BK, D>(sK, k + kv_base + (size_t)k0 * k_row, k_row,
-                        Sk - k0, tid);
-    load_rows<T, BK, D>(sV, v + kv_base + (size_t)k0 * k_row, k_row,
-                        Sk - k0, tid);
+    load_rows<T, BK, DQK>(sK, k + k_base + (size_t)k0 * k_row, k_row,
+                          Sk - k0, tid);
+    load_rows<T, BK, DV>(sV, v + v_base + (size_t)k0 * v_row, v_row,
+                         Sk - k0, tid);
     __syncthreads();
 
+    // S = Q K^T over DQK and dP = dO V^T over DV
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = sQ[(tr + 16 * i) * LD + d];
-        ov[i] = sO[(tr + 16 * i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = sK[(tc + 16 * j) * LD + d];
-        vv[j] = sV[(tc + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] += qv[i] * kv[j];
-          dp[i][j] += ov[i] * vv[j];
-        }
-    }
+    two_products<DQK, DV>(s, dp, sQ, sK, sO, sV, tr, tc);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qi = q0 + tr + 16 * i;
@@ -376,14 +414,14 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // dQ += dS K over the tile's keys, in order
 #pragma unroll 2
     for (int kk = 0; kk < BK; ++kk) {
-      float kv[DPT];
+      float kv[QPT];
 #pragma unroll
-      for (int j = 0; j < DPT; ++j) kv[j] = sK[kk * LD + tc + 16 * j];
+      for (int j = 0; j < QPT; ++j) kv[j] = sK[kk * LQ + tc + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float ds = sS[(tr + 16 * i) * LP + kk];
 #pragma unroll
-        for (int j = 0; j < DPT; ++j) acc[i][j] += ds * kv[j];
+        for (int j = 0; j < QPT; ++j) acc[i][j] += ds * kv[j];
       }
     }
   }
@@ -392,9 +430,9 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + tr + 16 * i;
     if (qi >= Sq) continue;
-    T* row = dq + ((size_t)b * Sq + qi) * q_row + (size_t)h * D;
+    T* row = dq + ((size_t)b * Sq + qi) * q_row + (size_t)h * DQK;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j)
+    for (int j = 0; j < QPT; ++j)
       row[tc + 16 * j] = from_f32<T>(acc[i][j] * scale);
   }
 }
@@ -415,25 +453,40 @@ constexpr int kQueryTile = 32;      // dK/dV: query rows a tile of a ring
 constexpr int kQueryGroups = 2;     // dK/dV: warp groups a block
 constexpr int kPass = 32;           // dK/dV: query columns a pass
 constexpr int kQRows = 64;          // dQ: query rows a block (4 warps)
-constexpr int kKeys = 64;           // dQ: keys a tile of its ring
 constexpr int kStages = 2;          // depth of every ring
 constexpr int kPad = 8;             // bf16 per row of padding (16 bytes)
 
-template <int D>
+// MLA's d_qk 192 (d_v 128). dK and dV of a warp's 16 keys would take 160
+// f32 accumulators a thread beside the 32 of S^T and dP^T, past the 254
+// registers d 128 already holds, so there the two groups of a dK/dV block
+// split the columns instead of the walk: each walks every query tile and
+// keeps half of dK's and of dV's columns (48 + 32 accumulators). dQ halves
+// its key tile, so S and dP take 32 accumulators beside dQ's 96.
+template <int DQK>
+__host__ __device__ constexpr bool split_columns() { return DQK > 128; }
+
+template <int DQK>
+__host__ __device__ constexpr int dq_keys() { return DQK > 128 ? 32 : 64; }
+
+template <int DQK, int DV>
 constexpr size_t dkdv_smem_bytes() {
   // K and V of the block's keys; each group's stages of Q and dO; then
   // each group's stages of lse and delta
-  return sizeof(bf16) * (2 * (size_t)16 * kKeyWarps +
-                         2 * (size_t)kQueryGroups * kStages * kQueryTile) *
-             (D + kPad) +
+  return sizeof(bf16) * ((size_t)16 * kKeyWarps +
+                         (size_t)kQueryGroups * kStages * kQueryTile) *
+             (DQK + DV + 2 * kPad) +
          sizeof(float) * 2 * (size_t)kQueryGroups * kStages * kQueryTile;
 }
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t dq_smem_bytes() {
-  // the Q and dO tiles, then the stages of K and of V
-  return sizeof(bf16) * (2 * (size_t)kQRows + 2 * (size_t)kStages * kKeys) *
-         (D + kPad);
+  // the Q and dO tiles, the stages of K and of V, and O where the ring's
+  // last V stage cannot hold it (a key tile shorter than kQRows)
+  constexpr int kKeys = dq_keys<DQK>();
+  return sizeof(bf16) *
+         ((size_t)kQRows * (DQK + DV + 2 * kPad) +
+          (size_t)kStages * kKeys * (DQK + DV + 2 * kPad) +
+          (kKeys == kQRows ? 0 : (size_t)kQRows * (DV + kPad)));
 }
 
 // Copies ROWS rows of D bf16 (row i at g + i * stride) into shared rows of
@@ -462,25 +515,25 @@ __device__ __forceinline__ void group_sync(int id) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(THREADS) : "memory");
 }
 
-// Writes a warp's 16 x D f32 accumulator (m16n8k16 C layout, times mul)
-// as bf16 through 16 rows of shared memory that only this warp reads, then
-// out as 16-byte stores: row r to g + r * stride while first + r < n_rows.
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
+// Writes a warp's 16 x C f32 accumulator (m16n8k16 C layout, times mul)
+// as bf16 through 16 rows of shared memory (row stride LD) whose C columns
+// from s only this warp touches, then out as 16-byte stores: row r to g +
+// r * stride while first + r < n_rows.
+template <int C, int LD>
+__device__ __forceinline__ void store_rows(const float (&acc)[C / 8][4],
                                            float mul, bf16* s, bf16* g,
                                            size_t stride, int first,
                                            int n_rows, int lane) {
-  constexpr int LD = D + kPad;
   const int gr = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < C / 8; ++n) {
     *reinterpret_cast<uint32_t*>(s + gr * LD + n * 8 + 2 * t) =
         pack_bf16(acc[n][0] * mul, acc[n][1] * mul);
     *reinterpret_cast<uint32_t*>(s + (gr + 8) * LD + n * 8 + 2 * t) =
         pack_bf16(acc[n][2] * mul, acc[n][3] * mul);
   }
   __syncwarp();
-  constexpr int kChunks = D / 8;
+  constexpr int kChunks = C / 8;
 #pragma unroll
   for (int it = 0; it < 16 * kChunks / 32; ++it) {
     const int i = lane + it * 32;
@@ -495,11 +548,12 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
 // warps split the walk: the tiles are the group's G query heads, each
 // with its QT-row query tiles that see a key of the block, in that order,
 // and group i takes tiles i, i + QG, ... through its own kStages ring of
-// cp.async copies. Warp w of a group owns keys k0 + 16 w .. +15, the A rows
-// of every product: S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and
-// dK += dS^T Q with P^T and dS^T packed from the accumulators. At the end
-// group 0 adds group 1's sums to its own.
-template <int D>
+// cp.async copies (at DQK 192 every group takes every tile and keeps its
+// half of the columns: split_columns). Warp w of a group owns keys
+// k0 + 16 w .. +15, the A rows of every product: S^T = K Q^T and dP^T =
+// V dO^T, then dV += P^T dO and dK += dS^T Q with P^T and dS^T packed from
+// the accumulators. At the end group 0 adds group 1's sums to its own.
+template <int DQK, int DV>
 __global__ void __launch_bounds__(32 * kKeyWarps * kQueryGroups,
                                   8 / (kKeyWarps * kQueryGroups))
 dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -509,24 +563,29 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             int H, int Hkv, int q_offset, int causal, float scale) {
   constexpr int KW = kKeyWarps, QT = kQueryTile, QG = kQueryGroups;
   static_assert(QG == 2, "group 0 sums group 1's dK and dV");
+  constexpr bool kSplit = split_columns<DQK>();
   constexpr int kThreads = 32 * KW * QG;
   constexpr int GT = 32 * KW;       // threads a group
   constexpr int BKB = 16 * KW;      // keys a block
-  constexpr int LD = D + kPad;
-  constexpr int KS = D / 16;        // k-steps over the head dim
+  constexpr int LQ = DQK + kPad, LV = DV + kPad;
+  constexpr int KSQ = DQK / 16;     // k-steps of S^T (over d_qk)
+  constexpr int KSV = DV / 16;      // k-steps of dP^T (over d_v)
   constexpr int NQ = kPass / 8;     // score n-tiles of a pass (8 queries)
-  constexpr int ND = D / 8;         // accumulator n-tiles (8 dims)
+  constexpr int CK = kSplit ? DQK / QG : DQK;   // dK columns a group keeps
+  constexpr int CV = kSplit ? DV / QG : DV;     // dV columns a group keeps
+  constexpr int NK = CK / 8, NV = CV / 8;       // accumulator n-tiles
+  static_assert(CK % 16 == 0 && CV % 16 == 0, "ldmatrix x4 pairs");
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* sK = reinterpret_cast<bf16*>(tc_smem);
-  bf16* sV = sK + BKB * LD;
+  bf16* sV = sK + BKB * LQ;
+  bf16* rings = sV + BKB * LV;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int grp = warp / KW, gtid = tid % GT;
-  // this group's ring: kStages tiles of QT x LD of Q, the same of dO, then
-  // kStages x QT floats of lse and of delta
-  bf16* sQ = sV + BKB * LD + grp * 2 * kStages * QT * LD;
-  bf16* sO = sQ + kStages * QT * LD;
-  float* sL = reinterpret_cast<float*>(sV + BKB * LD +
-                                       QG * 2 * kStages * QT * LD) +
+  // this group's ring: kStages tiles of QT x LQ of Q, of QT x LV of dO,
+  // then kStages x QT floats of lse and of delta
+  bf16* sQ = rings + grp * kStages * QT * (LQ + LV);
+  bf16* sO = sQ + kStages * QT * LQ;
+  float* sL = reinterpret_cast<float*>(rings + QG * kStages * QT * (LQ + LV)) +
               grp * 2 * kStages * QT;
   float* sD = sL + kStages * QT;
 
@@ -535,28 +594,36 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int G = H / Hkv;
   const int g = lane / 4, t = lane % 4;     // fragment row group, column pair
   const int wr = warp % KW * 16;            // the warp's first key row
-  const size_t q_row = (size_t)H * D, k_row = (size_t)Hkv * D;
-  const size_t kv_off = ((size_t)b * Sk + k0) * k_row + (size_t)hk * D;
+  const size_t q_row = (size_t)H * DQK, o_row = (size_t)H * DV;
+  const size_t k_row = (size_t)Hkv * DQK, v_row = (size_t)Hkv * DV;
+  const size_t k_off = ((size_t)b * Sk + k0) * k_row + (size_t)hk * DQK;
+  const size_t v_off = ((size_t)b * Sk + k0) * v_row + (size_t)hk * DV;
+  const int ck0 = kSplit ? grp * CK : 0;    // the group's first columns
+  const int cv0 = kSplit ? grp * CV : 0;
 
   // query row i sees key k0 iff q_offset + i >= k0: earlier tiles are
   // wholly masked and never loaded
   const int q_first = causal ? max(0, k0 - q_offset) / QT * QT : 0;
   const int n_qt = q_first < Sq ? (Sq - q_first + QT - 1) / QT : 0;
   const int n_tiles = G * n_qt;
-  const int n_mine = n_tiles > grp ? (n_tiles - grp + QG - 1) / QG : 0;
+  const int n_mine =
+      kSplit ? n_tiles
+             : (n_tiles > grp ? (n_tiles - grp + QG - 1) / QG : 0);
+  auto tile_of = [&](int i) { return kSplit ? i : grp + i * QG; };
 
   // copy groups: K and V (the whole block), then one per tile of this
   // group, kStages - 1 ahead
-  load_tile<BKB, D, kThreads>(sK, k + kv_off, k_row, Sk - k0, tid);
-  load_tile<BKB, D, kThreads>(sV, v + kv_off, k_row, Sk - k0, tid);
+  load_tile<BKB, DQK, kThreads>(sK, k + k_off, k_row, Sk - k0, tid);
+  load_tile<BKB, DV, kThreads>(sV, v + v_off, v_row, Sk - k0, tid);
   cp_async_commit();
   auto load_queries = [&](int i) {   // group's tile i into stage i % kStages
-    const int st = i % kStages, j = grp + i * QG;
+    const int st = i % kStages, j = tile_of(i);
     const int h = hk * G + j / n_qt, q0 = q_first + j % n_qt * QT;
-    const size_t off = ((size_t)b * Sq + q0) * q_row + (size_t)h * D;
-    load_tile<QT, D, GT>(sQ + st * QT * LD, q + off, q_row, Sq - q0, gtid);
-    load_tile<QT, D, GT>(sO + st * QT * LD, dout + off, q_row, Sq - q0,
-                         gtid);
+    const size_t qo = ((size_t)b * Sq + q0) * q_row + (size_t)h * DQK;
+    const size_t oo = ((size_t)b * Sq + q0) * o_row + (size_t)h * DV;
+    load_tile<QT, DQK, GT>(sQ + st * QT * LQ, q + qo, q_row, Sq - q0, gtid);
+    load_tile<QT, DV, GT>(sO + st * QT * LV, dout + oo, o_row, Sq - q0,
+                          gtid);
     const size_t at = ((size_t)b * H + h) * Sq + q0;
     for (int r = gtid; r < QT; r += GT) {
       const bool in = q0 + r < Sq;
@@ -572,14 +639,19 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_wait<kStages - 1>();     // K and V have landed: every warp
   __syncthreads();                  // reads rows another group copied
 
-  float ak[ND][4], av[ND][4];
+  float ak[NK][4], av[NV][4];
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
+  for (int n = 0; n < NK; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) ak[n][e] = av[n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) ak[n][e] = 0.f;
+#pragma unroll
+  for (int n = 0; n < NV; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) av[n][e] = 0.f;
   // ldmatrix x4: lanes 8i..8i+7 address the rows of 8x8 matrix i
   const int lr = lane % 8, lm = lane / 8;
-  const uint32_t a_off = (wr + lr + (lm & 1) * 8) * LD + (lm >> 1) * 8;
+  const uint32_t k_frag = (wr + lr + (lm & 1) * 8) * LQ + (lm >> 1) * 8;
+  const uint32_t v_frag = (wr + lr + (lm & 1) * 8) * LV + (lm >> 1) * 8;
   const int key = k0 + wr + g;              // rows g and g + 8: key, key + 8
   const float scale2 = scale * kLog2e;
   const int bar = 1 + grp;                  // the group's barrier
@@ -589,10 +661,10 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
     cp_async_wait<kStages - 1>();   // the group's tile i has landed
     group_sync<GT>(bar);
-    const int st = i % kStages, j = grp + i * QG;
+    const int st = i % kStages, j = tile_of(i);
     const int q0 = q_first + j % n_qt * QT;
-    const bf16* tQ = sQ + st * QT * LD;
-    const bf16* tO = sO + st * QT * LD;
+    const bf16* tQ = sQ + st * QT * LQ;
+    const bf16* tO = sO + st * QT * LV;
     const float* tL = sL + st * QT;
     const float* tD = sD + st * QT;
     // only a tile that crosses Sk, Sq or the causal diagonal needs the mask
@@ -609,27 +681,27 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
+      for (int kk = 0; kk < KSQ; ++kk) {
         uint32_t ka[4];
-        ldmatrix_x4(ka, smem_addr(sK + a_off + kk * 16));
+        ldmatrix_x4(ka, smem_addr(sK + k_frag + kk * 16));
 #pragma unroll
         for (int n = 0; n < NQ / 2; ++n) {
           uint32_t qf[4];
           ldmatrix_x4(qf, smem_addr(tQ + (c0 + n * 16 + lr + (lm >> 1) * 8) *
-                                             LD + kk * 16 + (lm & 1) * 8));
+                                             LQ + kk * 16 + (lm & 1) * 8));
           mma(s[2 * n], ka, qf[0], qf[1]);
           mma(s[2 * n + 1], ka, qf[2], qf[3]);
         }
       }
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
+      for (int kk = 0; kk < KSV; ++kk) {
         uint32_t va[4];
-        ldmatrix_x4(va, smem_addr(sV + a_off + kk * 16));
+        ldmatrix_x4(va, smem_addr(sV + v_frag + kk * 16));
 #pragma unroll
         for (int n = 0; n < NQ / 2; ++n) {
           uint32_t of[4];
           ldmatrix_x4(of, smem_addr(tO + (c0 + n * 16 + lr + (lm >> 1) * 8) *
-                                             LD + kk * 16 + (lm & 1) * 8));
+                                             LV + kk * 16 + (lm & 1) * 8));
           mma(dp[2 * n], va, of[0], of[1]);
           mma(dp[2 * n + 1], va, of[2], of[3]);
         }
@@ -667,23 +739,24 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         da[n / 2][(n & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
       }
 
-      // dV += P^T dO and dK += dS^T Q: one ldmatrix.trans x4 of dO (of Q)
-      // gives n-tiles 2n and 2n + 1 of k-step kk
+      // dV += P^T dO and dK += dS^T Q over the group's columns: one
+      // ldmatrix.trans x4 of dO (of Q) gives n-tiles 2n and 2n + 1 of
+      // k-step kk
 #pragma unroll
       for (int kk = 0; kk < NQ / 2; ++kk) {
         const int row = c0 + kk * 16 + lr + (lm & 1) * 8;
 #pragma unroll
-        for (int n = 0; n < ND / 2; ++n) {
+        for (int n = 0; n < NV / 2; ++n) {
           uint32_t of[4];
-          ldmatrix_x4_trans(of, smem_addr(tO + row * LD + n * 16 +
+          ldmatrix_x4_trans(of, smem_addr(tO + row * LV + cv0 + n * 16 +
                                           (lm >> 1) * 8));
           mma(av[2 * n], pa[kk], of[0], of[1]);
           mma(av[2 * n + 1], pa[kk], of[2], of[3]);
         }
 #pragma unroll
-        for (int n = 0; n < ND / 2; ++n) {
+        for (int n = 0; n < NK / 2; ++n) {
           uint32_t qf[4];
-          ldmatrix_x4_trans(qf, smem_addr(tQ + row * LD + n * 16 +
+          ldmatrix_x4_trans(qf, smem_addr(tQ + row * LQ + ck0 + n * 16 +
                                           (lm >> 1) * 8));
           mma(ak[2 * n], da[kk], qf[0], qf[1]);
           mma(ak[2 * n + 1], da[kk], qf[2], qf[3]);
@@ -694,49 +767,61 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   cp_async_wait<0>();
 
-  // group 1's sums into group 0's through the rings (both groups are done
-  // with them): thread x of a group keeps element e at red[e * GT + x]
-  static_assert(2 * ND * 4 * GT * sizeof(float) <=
-                    (size_t)2 * kStages * QT * LD * sizeof(bf16) * QG,
-                "the rings hold the partial sums");
-  float* red = reinterpret_cast<float*>(sV + BKB * LD);
-  __syncthreads();
-  if (grp == 1) {
+  if constexpr (!kSplit) {
+    // group 1's sums into group 0's through the rings (both groups are
+    // done with them): thread x of a group keeps dK's element e of n-tile
+    // n at red[(n * 4 + e) * GT + x], dV's after them
+    static_assert((NK + NV) * 4 * GT * sizeof(float) <=
+                      (size_t)QG * kStages * QT * (LQ + LV) * sizeof(bf16),
+                  "the rings hold the partial sums");
+    float* red = reinterpret_cast<float*>(rings);
+    __syncthreads();
+    if (grp == 1) {
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
+      for (int n = 0; n < NK; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        red[((n * 4 + e) * 2) * GT + gtid] = ak[n][e];
-        red[((n * 4 + e) * 2 + 1) * GT + gtid] = av[n][e];
-      }
-  }
-  __syncthreads();
-  if (grp != 0) return;
+        for (int e = 0; e < 4; ++e) red[(n * 4 + e) * GT + gtid] = ak[n][e];
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
+      for (int n = 0; n < NV; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      ak[n][e] += red[((n * 4 + e) * 2) * GT + gtid];
-      av[n][e] += red[((n * 4 + e) * 2 + 1) * GT + gtid];
+        for (int e = 0; e < 4; ++e)
+          red[((NK + n) * 4 + e) * GT + gtid] = av[n][e];
     }
-
-  // out through the warp's own rows of the K and V tiles (the other groups'
-  // warps that read them are done)
-  __syncwarp();
-  const size_t out_off = kv_off + (size_t)wr * k_row;
-  store_rows<D>(ak, scale, sK + wr * LD, dk + out_off, k_row, k0 + wr, Sk,
-                lane);
-  store_rows<D>(av, 1.f, sV + wr * LD, dv + out_off, k_row, k0 + wr, Sk,
-                lane);
+    __syncthreads();
+    if (grp != 0) return;
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ak[n][e] += red[(n * 4 + e) * GT + gtid];
+#pragma unroll
+    for (int n = 0; n < NV; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        av[n][e] += red[((NK + n) * 4 + e) * GT + gtid];
+    // out through the warp's own rows of the K and V tiles (the other
+    // groups' warps that read them are done)
+    __syncwarp();
+  } else {
+    // every warp is done reading K and V: each writes its columns of its
+    // rows, which no other warp touches
+    __syncthreads();
+  }
+  store_rows<CK, LQ>(ak, scale, sK + wr * LQ + ck0,
+                     dk + k_off + (size_t)wr * k_row + ck0, k_row, k0 + wr,
+                     Sk, lane);
+  store_rows<CV, LV>(av, 1.f, sV + wr * LV + cv0,
+                     dv + v_off + (size_t)wr * v_row + cv0, v_row, k0 + wr,
+                     Sk, lane);
 }
 
 // dQ of 64 query rows of one head. Warp w owns rows q0 + 16 w .. +15:
 // S = Q K^T and dP = dO V^T, dS = P (dP - delta) packed from the
-// accumulators, dQ += dS K. The block walks the key tiles up to the causal
-// limit of its last row; they arrive through a kStages ring. The block
-// first copies its O rows into the ring's last V stage and computes its
-// rows' delta = rowsum(dO * O) there, for itself and for dK/dV.
-template <int D>
+// accumulators, dQ += dS K. The block walks the key tiles (dq_keys) up to
+// the causal limit of its last row; they arrive through a kStages ring.
+// The block first copies its O rows into the ring's last V stage (or, at
+// DQK 192, a region of their own) and computes its rows' delta =
+// rowsum(dO * O) there, for itself and for dK/dV.
+template <int DQK, int DV>
 __global__ void __launch_bounds__(128, 2)
 dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const bf16* __restrict__ v, const bf16* __restrict__ o,
@@ -744,15 +829,17 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           float* __restrict__ delta, bf16* __restrict__ dq, int Sq, int Sk,
           int H, int Hkv, int q_offset, int causal, float scale) {
   constexpr int kThreads = 128;
-  constexpr int LD = D + kPad;
-  constexpr int KS = D / 16;        // k-steps over the head dim
+  constexpr int kKeys = dq_keys<DQK>();
+  constexpr int LQ = DQK + kPad, LV = DV + kPad;
+  constexpr int KSQ = DQK / 16;     // k-steps of S (over d_qk)
+  constexpr int KSV = DV / 16;      // k-steps of dP (over d_v)
   constexpr int NS = kKeys / 8;     // score n-tiles (8 keys)
-  constexpr int ND = D / 8;         // accumulator n-tiles (8 dims)
+  constexpr int ND = DQK / 8;       // accumulator n-tiles (8 dims)
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* sQ = reinterpret_cast<bf16*>(tc_smem);
-  bf16* sO = sQ + kQRows * LD;      // dO
-  bf16* sK = sO + kQRows * LD;      // kStages tiles of kKeys x LD
-  bf16* sV = sK + kStages * kKeys * LD;
+  bf16* sO = sQ + kQRows * LQ;      // dO
+  bf16* sK = sO + kQRows * LV;      // kStages tiles of kKeys x LQ
+  bf16* sV = sK + kStages * kKeys * LQ;   // kStages tiles of kKeys x LV
 
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kQRows;   // heaviest first
   const int b = blockIdx.x / H, h = blockIdx.x % H;
@@ -760,10 +847,12 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int wr = warp * 16;
-  const size_t q_row = (size_t)H * D, k_row = (size_t)Hkv * D;
-  const size_t qo_off = ((size_t)b * Sq + q0) * q_row + (size_t)h * D;
-  const bf16* kb = k + (size_t)b * Sk * k_row + (size_t)hk * D;
-  const bf16* vb = v + (size_t)b * Sk * k_row + (size_t)hk * D;
+  const size_t q_row = (size_t)H * DQK, o_row = (size_t)H * DV;
+  const size_t k_row = (size_t)Hkv * DQK, v_row = (size_t)Hkv * DV;
+  const size_t q_off = ((size_t)b * Sq + q0) * q_row + (size_t)h * DQK;
+  const size_t o_off = ((size_t)b * Sq + q0) * o_row + (size_t)h * DV;
+  const bf16* kb = k + (size_t)b * Sk * k_row + (size_t)hk * DQK;
+  const bf16* vb = v + (size_t)b * Sk * v_row + (size_t)hk * DV;
 
   // causal: no key past the last real query row of this tile is live
   const int last_q = q_offset + min(q0 + kQRows, Sq) - 1;
@@ -772,20 +861,21 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // copy groups: Q and dO (and O), then one per key tile, kStages - 1
   // ahead
-  static_assert(kQRows == kKeys && kStages >= 2, "O fits a V stage");
-  bf16* sOut = sV + (kStages - 1) * kKeys * LD;   // O, until the ring's turn
-  load_tile<kQRows, D, kThreads>(sQ, q + qo_off, q_row, Sq - q0, tid);
-  load_tile<kQRows, D, kThreads>(sO, dout + qo_off, q_row, Sq - q0, tid);
-  load_tile<kQRows, D, kThreads>(sOut, o + qo_off, q_row, Sq - q0, tid);
+  static_assert(kStages >= 2, "O waits in a V stage the ring fills last");
+  bf16* sOut = kKeys == kQRows ? sV + (kStages - 1) * kKeys * LV
+                               : sV + kStages * kKeys * LV;
+  load_tile<kQRows, DQK, kThreads>(sQ, q + q_off, q_row, Sq - q0, tid);
+  load_tile<kQRows, DV, kThreads>(sO, dout + o_off, o_row, Sq - q0, tid);
+  load_tile<kQRows, DV, kThreads>(sOut, o + o_off, o_row, Sq - q0, tid);
   cp_async_commit();
   auto load_keys = [&](int j) {   // key tile j into stage j % kStages
     const int st = j % kStages, first = j * kKeys;
-    load_tile<kKeys, D, kThreads>(sK + st * kKeys * LD,
-                                  kb + (size_t)first * k_row, k_row,
-                                  Sk - first, tid);
-    load_tile<kKeys, D, kThreads>(sV + st * kKeys * LD,
-                                  vb + (size_t)first * k_row, k_row,
-                                  Sk - first, tid);
+    load_tile<kKeys, DQK, kThreads>(sK + st * kKeys * LQ,
+                                    kb + (size_t)first * k_row, k_row,
+                                    Sk - first, tid);
+    load_tile<kKeys, DV, kThreads>(sV + st * kKeys * LV,
+                                   vb + (size_t)first * v_row, v_row,
+                                   Sk - first, tid);
   };
 #pragma unroll
   for (int j = 0; j < kStages - 1; ++j) {
@@ -806,10 +896,10 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait<kStages - 1>();   // Q, dO and O have landed
     __syncthreads();
     const int r = wr + lane / 2, half = lane % 2;
-    const int at = r * LD + half * (D / 2);
+    const int at = r * LV + half * (DV / 2);
     float acc = 0.f;
 #pragma unroll
-    for (int c = 0; c < D / 2; c += 8) {
+    for (int c = 0; c < DV / 2; c += 8) {
       const uint4 ou = *reinterpret_cast<const uint4*>(sOut + at + c);
       const uint4 du = *reinterpret_cast<const uint4*>(sO + at + c);
       const bf16* oe = reinterpret_cast<const bf16*>(&ou);
@@ -832,7 +922,8 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   const int lr = lane % 8, lm = lane / 8;
-  const uint32_t a_off = (wr + lr + (lm & 1) * 8) * LD + (lm >> 1) * 8;
+  const uint32_t q_frag = (wr + lr + (lm & 1) * 8) * LQ + (lm >> 1) * 8;
+  const uint32_t o_frag = (wr + lr + (lm & 1) * 8) * LV + (lm >> 1) * 8;
   const int row_pos = q_offset + q0 + wr + g;
   const float scale2 = scale * kLog2e;
 
@@ -842,8 +933,8 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait<kStages - 1>();   // key tile j (and Q, dO) has landed
     __syncthreads();
     const int k0 = j * kKeys;
-    const bf16* tK = sK + j % kStages * kKeys * LD;
-    const bf16* tV = sV + j % kStages * kKeys * LD;
+    const bf16* tK = sK + j % kStages * kKeys * LQ;
+    const bf16* tV = sV + j % kStages * kKeys * LV;
 
     // S = Q K^T and dP = dO V^T: per k-step one ldmatrix x4 of K (of V)
     // gives n-tiles 2n and 2n + 1
@@ -853,26 +944,26 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
+    for (int kk = 0; kk < KSQ; ++kk) {
       uint32_t qa[4];
-      ldmatrix_x4(qa, smem_addr(sQ + a_off + kk * 16));
+      ldmatrix_x4(qa, smem_addr(sQ + q_frag + kk * 16));
 #pragma unroll
       for (int n = 0; n < NS / 2; ++n) {
         uint32_t kf[4];
-        ldmatrix_x4(kf, smem_addr(tK + (n * 16 + lr + (lm >> 1) * 8) * LD +
+        ldmatrix_x4(kf, smem_addr(tK + (n * 16 + lr + (lm >> 1) * 8) * LQ +
                                   kk * 16 + (lm & 1) * 8));
         mma(s[2 * n], qa, kf[0], kf[1]);
         mma(s[2 * n + 1], qa, kf[2], kf[3]);
       }
     }
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
+    for (int kk = 0; kk < KSV; ++kk) {
       uint32_t oa[4];
-      ldmatrix_x4(oa, smem_addr(sO + a_off + kk * 16));
+      ldmatrix_x4(oa, smem_addr(sO + o_frag + kk * 16));
 #pragma unroll
       for (int n = 0; n < NS / 2; ++n) {
         uint32_t vf[4];
-        ldmatrix_x4(vf, smem_addr(tV + (n * 16 + lr + (lm >> 1) * 8) * LD +
+        ldmatrix_x4(vf, smem_addr(tV + (n * 16 + lr + (lm >> 1) * 8) * LV +
                                   kk * 16 + (lm & 1) * 8));
         mma(dp[2 * n], oa, vf[0], vf[1]);
         mma(dp[2 * n + 1], oa, vf[2], vf[3]);
@@ -915,7 +1006,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int n = 0; n < ND / 2; ++n) {
         uint32_t kf[4];
         ldmatrix_x4_trans(kf, smem_addr(tK + (kk * 16 + lr + (lm & 1) * 8) *
-                                                 LD + n * 16 +
+                                                 LQ + n * 16 +
                                         (lm >> 1) * 8));
         mma(acc[2 * n], da, kf[0], kf[1]);
         mma(acc[2 * n + 1], da, kf[2], kf[3]);
@@ -927,36 +1018,38 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // out through the warp's own rows of the Q tile
   cp_async_wait<0>();
   __syncwarp();
-  store_rows<D>(acc, scale, sQ + wr * LD, dq + qo_off + (size_t)wr * q_row,
-                q_row, q0 + wr, Sq, lane);
+  store_rows<DQK, LQ>(acc, scale, sQ + wr * LQ,
+                      dq + q_off + (size_t)wr * q_row, q_row, q0 + wr, Sq,
+                      lane);
 }
 
 // dQ, which writes delta: float32 (B, H, Sq) scratch; then dK/dV.
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
                    float* delta, void* dq, void* dk, void* dv, int B, int Sq,
                    int Sk, int H, int Hkv, int q_offset, int causal,
                    float scale, cudaStream_t st) {
   static std::atomic<uint64_t> dkdv_set{0}, dq_set{0};
-  constexpr size_t kv_bytes = dkdv_smem_bytes<D>();
-  constexpr size_t q_bytes = dq_smem_bytes<D>();
-  cudaError_t e = set_smem_once(dkdv_set, dkdv_kernel<D>, kv_bytes);
-  if (e == cudaSuccess) e = set_smem_once(dq_set, dq_kernel<D>, q_bytes);
+  constexpr size_t kv_bytes = dkdv_smem_bytes<DQK, DV>();
+  constexpr size_t q_bytes = dq_smem_bytes<DQK, DV>();
+  cudaError_t e = set_smem_once(dkdv_set, dkdv_kernel<DQK, DV>, kv_bytes);
+  if (e == cudaSuccess)
+    e = set_smem_once(dq_set, dq_kernel<DQK, DV>, q_bytes);
   if (e != cudaSuccess) return e;
   const bf16* tq = static_cast<const bf16*>(q);
   const bf16* tk = static_cast<const bf16*>(k);
   const bf16* tv = static_cast<const bf16*>(v);
   const bf16* tdo = static_cast<const bf16*>(dout);
-  dq_kernel<D><<<dim3(B * H, (Sq + kQRows - 1) / kQRows), 128, q_bytes,
-                 st>>>(tq, tk, tv, static_cast<const bf16*>(o), tdo, lse,
-                       delta, static_cast<bf16*>(dq), Sq, Sk, H, Hkv,
-                       q_offset, causal, scale);
+  dq_kernel<DQK, DV><<<dim3(B * H, (Sq + kQRows - 1) / kQRows), 128,
+                       q_bytes, st>>>(
+      tq, tk, tv, static_cast<const bf16*>(o), tdo, lse, delta,
+      static_cast<bf16*>(dq), Sq, Sk, H, Hkv, q_offset, causal, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   constexpr int kBlockKeys = 16 * kKeyWarps;
-  dkdv_kernel<D><<<dim3(B * Hkv, (Sk + kBlockKeys - 1) / kBlockKeys),
-                   32 * kKeyWarps * kQueryGroups, kv_bytes, st>>>(
+  dkdv_kernel<DQK, DV><<<dim3(B * Hkv, (Sk + kBlockKeys - 1) / kBlockKeys),
+                         32 * kKeyWarps * kQueryGroups, kv_bytes, st>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), Sq, Sk, H, Hkv, q_offset, causal, scale);
   return cudaGetLastError();
@@ -964,7 +1057,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace tensor_cores
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
                    float* delta, void* dq, void* dk, void* dv, int B, int Sq,
@@ -978,78 +1071,82 @@ cudaError_t launch(const void* q, const void* k, const void* v,
          reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv)) %
         16)
       return cudaErrorMisalignedAddress;
-    return tensor_cores::launch<D>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                   B, Sq, Sk, H, Hkv, q_offset, causal,
-                                   scale, st);
+    return tensor_cores::launch<DQK, DV>(q, k, v, o, dout, lse, delta, dq,
+                                         dk, dv, B, Sq, Sk, H, Hkv,
+                                         q_offset, causal, scale, st);
   } else {
     static std::atomic<uint64_t> dkdv_set{0}, dq_set{0};
-    constexpr size_t kv_bytes = dkdv_smem_bytes<D>();
-    constexpr size_t q_bytes = dq_smem_bytes<D>();
-    cudaError_t e = set_smem_once(dkdv_set, dkdv_kernel<T, D>, kv_bytes);
-    if (e == cudaSuccess) e = set_smem_once(dq_set, dq_kernel<T, D>, q_bytes);
+    constexpr size_t kv_bytes = dkdv_smem_bytes<DQK, DV>();
+    constexpr size_t q_bytes = dq_smem_bytes<DQK, DV>();
+    cudaError_t e =
+        set_smem_once(dkdv_set, dkdv_kernel<T, DQK, DV>, kv_bytes);
+    if (e == cudaSuccess)
+      e = set_smem_once(dq_set, dq_kernel<T, DQK, DV>, q_bytes);
     if (e != cudaSuccess) return e;
     const T* tq = static_cast<const T*>(q);
     const T* tk = static_cast<const T*>(k);
     const T* tv = static_cast<const T*>(v);
     const T* tdo = static_cast<const T*>(dout);
     const int rows = B * Sq * H;
-    delta_kernel<T, D><<<(rows + kThreads / 32 - 1) / (kThreads / 32),
-                         kThreads, 0, st>>>(static_cast<const T*>(o), tdo,
-                                            delta, Sq, H, rows);
+    delta_kernel<T, DV><<<(rows + kThreads / 32 - 1) / (kThreads / 32),
+                          kThreads, 0, st>>>(static_cast<const T*>(o), tdo,
+                                             delta, Sq, H, rows);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    dkdv_kernel<T, D><<<dim3((Sk + BK - 1) / BK, B * Hkv), kThreads,
-                        kv_bytes, st>>>(tq, tk, tv, tdo, lse, delta,
-                                        static_cast<T*>(dk),
-                                        static_cast<T*>(dv), Sq, Sk, H, Hkv,
-                                        q_offset, causal, scale);
+    dkdv_kernel<T, DQK, DV><<<dim3((Sk + BK - 1) / BK, B * Hkv), kThreads,
+                              kv_bytes, st>>>(
+        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk),
+        static_cast<T*>(dv), Sq, Sk, H, Hkv, q_offset, causal, scale);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    dq_kernel<T, D><<<dim3((Sq + BQ - 1) / BQ, B * H), kThreads, q_bytes,
-                      st>>>(tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq),
-                            Sq, Sk, H, Hkv, q_offset, causal, scale);
+    dq_kernel<T, DQK, DV><<<dim3((Sq + BQ - 1) / BQ, B * H), kThreads,
+                            q_bytes, st>>>(tq, tk, tv, tdo, lse, delta,
+                                           static_cast<T*>(dq), Sq, Sk, H,
+                                           Hkv, q_offset, causal, scale);
     return cudaGetLastError();
   }
 }
 
 template <typename T>
-cudaError_t by_dim(int D, const void* q, const void* k, const void* v,
-                   const void* o, const void* dout, const float* lse,
-                   float* delta, void* dq, void* dk, void* dv, int B, int Sq,
-                   int Sk, int H, int Hkv, int q_offset, int causal,
-                   float scale, cudaStream_t st) {
-#define REPRO_FLASH_BWD_CASE(DIM)                                           \
-  if (D == DIM)                                                            \
-    return launch<T, DIM>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, \
-                          Sk, H, Hkv, q_offset, causal, scale, st);
-  REPRO_FLASH_BWD_CASE(16)
-  REPRO_FLASH_BWD_CASE(32)
-  REPRO_FLASH_BWD_CASE(64)
-  REPRO_FLASH_BWD_CASE(128)
+cudaError_t by_dims(int DQK, int DV, const void* q, const void* k,
+                    const void* v, const void* o, const void* dout,
+                    const float* lse, float* delta, void* dq, void* dk,
+                    void* dv, int B, int Sq, int Sk, int H, int Hkv,
+                    int q_offset, int causal, float scale, cudaStream_t st) {
+#define REPRO_FLASH_BWD_CASE(QK, V)                                         \
+  if (DQK == QK && DV == V)                                                \
+    return launch<T, QK, V>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,   \
+                            Sq, Sk, H, Hkv, q_offset, causal, scale, st);
+  REPRO_FLASH_BWD_CASE(16, 16)
+  REPRO_FLASH_BWD_CASE(32, 32)
+  REPRO_FLASH_BWD_CASE(64, 64)
+  REPRO_FLASH_BWD_CASE(128, 128)
+  REPRO_FLASH_BWD_CASE(192, 128)
 #undef REPRO_FLASH_BWD_CASE
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, Hkv, D); o, dout (B, Sq, H, D);
-// lse (the forward's) and delta (scratch) float32 (B, H, Sq); contiguous,
-// one dtype for every tensor but lse and delta. D in {16, 32, 64, 128}.
+// q, dq (B, Sq, H, DQK); k, dk (B, Sk, Hkv, DQK); v, dv (B, Sk, Hkv, DV);
+// o, dout (B, Sq, H, DV); lse (the forward's) and delta (scratch) float32
+// (B, H, Sq); contiguous, one dtype for every tensor but lse and delta.
+// (DQK, DV) in {(16, 16), (32, 32), (64, 64), (128, 128), (192, 128)}.
 // Returns the first failing launch's cudaError_t (0 on success).
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
-    void* dv, int B, int Sq, int Sk, int H, int Hkv, int D, int q_offset,
-    int causal, float scale, int dtype, void* stream) {
+    void* dv, int B, int Sq, int Sk, int H, int Hkv, int DQK, int DV,
+    int q_offset, int causal, float scale, int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || H % Hkv)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16)
-    return by_dim<__nv_bfloat16>(D, q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                 B, Sq, Sk, H, Hkv, q_offset, causal, scale,
-                                 st);
+    return by_dims<__nv_bfloat16>(DQK, DV, q, k, v, o, dout, lse, delta, dq,
+                                  dk, dv, B, Sq, Sk, H, Hkv, q_offset,
+                                  causal, scale, st);
   if (dtype == kFloat32)
-    return by_dim<float>(D, q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq,
-                         Sk, H, Hkv, q_offset, causal, scale, st);
+    return by_dims<float>(DQK, DV, q, k, v, o, dout, lse, delta, dq, dk, dv,
+                          B, Sq, Sk, H, Hkv, q_offset, causal, scale, st);
   return cudaErrorInvalidValue;
 }

@@ -56,6 +56,13 @@ differentiates ``ref.chunked_flash_attention`` with XLA.
   H100 SXM at 700 W: 0.028 ms at the training shape (SDPA's
   backward 0.029), 0.11 ms at (1, 1024) and 0.95 at (1, 4096), ~2× SDPA's
   backward there (``PERF.md``, row 2b).
+* MLA training (d_qk 192, d_v 128: deepseek-v2's prefill): the same two
+  kernels with each product over its own width (S, dQ and dK over d_qk;
+  dP, dV and delta over d_v), o and dO at d_v. dK and dV of a warp's 16
+  keys would need 160 accumulators a thread there, past the 254 registers
+  d 128 holds, so the dK/dV block's two warp groups split the columns
+  instead of the walk (each walks every query tile, keeping half of dK's
+  and dV's columns), and dQ takes key tiles of 32 (``PERF.md``, row 2b).
 * float32: the first design, float32 FMAs on the CUDA cores after a delta
   pre-pass (on the tensor cores it would become TF32 and lose the 2e-5
   parity): three launches.
@@ -78,10 +85,8 @@ from repro_torch.kernels import ref
 plain = ref.flash_attention
 
 _DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
-# (d_qk, d_v) pairs the kernel is instantiated for
+# (d_qk, d_v) pairs the forward and backward kernels are instantiated for
 HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128))
-# head dims of the backward kernel (d_qk == d_v)
-BWD_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def _check_cuda(q, k, v):
@@ -159,7 +164,6 @@ def flash_attention(q, k, v, *, causal=True, window=None, prefix_len=0,
             raise NotImplementedError("flash_attention backward: "
                                       "logit_softcap is not ported yet; see "
                                       "ROADMAP.md")
-        _check_bwd_dims(q, v)
         return FlashAttentionFn.apply(q, k, v, bool(causal), int(q_offset),
                                       scale)
     cap = 0.0 if not logit_softcap else float(logit_softcap)
@@ -170,19 +174,11 @@ def flash_attention(q, k, v, *, causal=True, window=None, prefix_len=0,
 flash_attention.launches = 0
 
 
-def _check_bwd_dims(q, v):
-    dh, dv = q.shape[-1], v.shape[-1]
-    if dh != dv or dh not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention backward kernel takes d_qk == d_v in "
-            f"{BWD_HEAD_DIMS}, got {(dh, dv)} (MLA training is queued in "
-            f"ROADMAP.md)")
-
-
 class FlashAttentionFn(torch.autograd.Function):
     """The CUDA flash attention with its CUDA gradient: the forward kernel
     (writing ``lse``) and :func:`flash_attention_bwd`. Causal or not,
-    ``q_offset``, ``scale`` and GQA; no window, prefix or softcap."""
+    ``q_offset``, ``scale``, GQA and every (d_qk, d_v) of ``HEAD_DIMS``
+    (MLA's included); no window, prefix or softcap."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset, scale):
@@ -207,8 +203,9 @@ class FlashAttentionFn(torch.autograd.Function):
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, q_offset=0,
                         scale=None):
     """The gradient (dq, dk, dv) of :func:`flash_attention`, each in its
-    input's dtype: q, o, do (B, Sq, H, d), k, v (B, Sk, Hkv, d), lse float32
-    (B, H, Sq) from the forward. A CPU tensor takes the plain
+    input's dtype: q (B, Sq, H, d_qk), k (B, Sk, Hkv, d_qk), v (B, Sk, Hkv,
+    d_v), o and do (B, Sq, H, d_v), lse float32 (B, H, Sq) from the
+    forward; (d_qk, d_v) in ``HEAD_DIMS``. A CPU tensor takes the plain
     ``ref.flash_attention_bwd``; a CUDA tensor launches
     ``csrc/flash_attention_bwd.cu`` (delta, dK/dV, dQ: three kernels in
     float32, two in bfloat16; one count in ``flash_attention_bwd.launches``)
@@ -220,14 +217,14 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, q_offset=0,
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
     _check_cuda(q, k, v)
-    _check_bwd_dims(q, v)
     b, sq, h, dh = q.shape
     _, sk, hkv, _ = k.shape
+    dv_ = v.shape[-1]
     for name, t in (("o", o), ("do", do)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
-                or not t.is_contiguous():
+        if t.shape != (b, sq, h, dv_) or t.dtype != q.dtype \
+                or t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} {tuple(t.shape)} {t.dtype}: want "
-                             f"contiguous {tuple(q.shape)} {q.dtype}")
+                             f"contiguous {(b, sq, h, dv_)} {q.dtype}")
     if (lse.shape != (b, h, sq) or lse.dtype != torch.float32
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: want "
@@ -240,7 +237,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, q_offset=0,
     rc = _build.library().repro_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, hkv, dh, int(q_offset),
+        dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, hkv, dh, dv_,
+        int(q_offset),
         int(bool(causal)), scale, _build.DTYPE_CODES[_DTYPES[q.dtype]],
         stream)
     _build.check(rc, "flash_attention_bwd")

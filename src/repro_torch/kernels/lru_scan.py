@@ -23,10 +23,35 @@ kernel ``repro/kernels/lru_scan.py::lru_scan``.
   chain, so bf16 (half the bytes) takes about f32's time; fewer chains
   than SMs (B 1 at D < 4096) leave SMs idle.
 
-No single PyTorch call computes this recurrence. The plain version is
-``ref.lru_scan`` (re-exported here as ``plain``); a CPU tensor takes it, a
-CUDA tensor launches the kernel or raises. ``lru_scan.launches`` counts
-kernel launches.
+The gradient: ``LruScanFn`` (a ``torch.autograd.Function``, used by
+:func:`lru_scan` whenever grad is on and an input requires it, on both
+devices) saves a, h0 and the scan's h_all, and its backward is
+:func:`lru_scan_bwd`, the same recurrence run backwards (``c_t = g_t +
+a_{t+1} c_{t+1}``, ``dx = c``, ``da_t = c_t h_{t-1}``, ``dh0 = a_0 c_0``).
+No TPU kernel computes it: the reference differentiates the associative
+scan ``ref.lru_scan`` with XLA. Kernel: ``repro_lru_scan_bwd`` in
+``csrc/lru_scan.cu``, float32 only (what the RG-LRU feeds the scan; other
+dtypes raise ``NotImplementedError`` under grad).
+
+* Bound on the H100: the bytes — a, g and h read once, dx and da written
+  once (5 x 4 bytes an element) for 3 flops an element: ~84 MB, ~0.025
+  ms, at the training shape (8, 128, 4096); ~167 MB, ~0.050 ms, at the
+  outer prefill shape (1, 2040, 4096).
+* Design: the forward's, walked from the end. One chain-warp a chain of
+  32 channels; :func:`lru_plan` with three streams (``streams=3``)
+  spreads the chains and sizes a ring of a, g and h shifted by one step
+  (row t holds h_{t-1}), filled by 16-byte ``cp.async`` copies two stages
+  ahead; the carry c and a_{t+1} stay in registers, dx and da are stored
+  in the same pass, coalesced. The product and the sum round separately,
+  as in the plain ``ref.lru_scan_bwd``, so the two agree bit for bit. D
+  not a multiple of 32 or a misaligned input takes the edge path (plain
+  loads, kU steps ahead).
+
+No single PyTorch call computes this recurrence or its gradient. The plain
+versions are ``ref.lru_scan`` (re-exported here as ``plain``) and
+``ref.lru_scan_bwd``; a CPU tensor takes them, a CUDA tensor launches the
+kernel or raises. ``lru_scan.launches`` and ``lru_scan_bwd.launches``
+count kernel launches.
 """
 
 from __future__ import annotations
@@ -66,9 +91,11 @@ class LruPlan(NamedTuple):
     edge: bool        # plain loads, masked lanes (D % CHAIN, misaligned)
 
 
-def lru_plan(b: int, s: int, d: int, dtype, aligned: bool = True) -> LruPlan:
-    """The launch of ``lru_scan`` on ``(b, s, d)`` a and x of ``dtype``;
-    ``aligned``: both start on 16 bytes. Chain ``i`` is channels
+def lru_plan(b: int, s: int, d: int, dtype, aligned: bool = True,
+             streams: int = 2) -> LruPlan:
+    """The launch of ``lru_scan`` on ``(b, s, d)`` a and x of ``dtype``
+    (``streams`` 2; the backward's a, g and h: 3); ``aligned``: every
+    stream starts on 16 bytes. Chain ``i`` is channels
     ``[(i % n)·CHAIN, (i % n + 1)·CHAIN)`` of batch row ``i // n``
     (``n = ceil(d / CHAIN)``), block ``j`` holds chains ``[j·warps,
     (j+1)·warps)``. Up to ``SM_COUNT`` chains a block holds one (the
@@ -76,7 +103,8 @@ def lru_plan(b: int, s: int, d: int, dtype, aligned: bool = True) -> LruPlan:
     takes to keep to one block an SM (at most ``MAX_WARPS``). Each
     chain-warp's ring is ``STAGES`` stages of ``STAGE_BYTES`` of a and x
     (T 128 steps in float32, 256 in bf16), shorter where a block's rings
-    would pass ``RING_BYTES`` (B 4: four warps, T 64 in float32)."""
+    would pass ``RING_BYTES`` (B 4: four warps, T 64 in float32); the
+    backward's three streams: T 80 at B 1, 16 at B 8 (eight warps)."""
     if min(b, s, d) < 1:
         raise ValueError(f"lru_plan: b={b}, s={s}, d={d}")
     if dtype not in _DTYPES:
@@ -87,7 +115,7 @@ def lru_plan(b: int, s: int, d: int, dtype, aligned: bool = True) -> LruPlan:
     blocks = -(-chains // warps)
     if d % CHAIN or not aligned:
         return LruPlan(chains, warps, blocks, 0, 0, 0, True)
-    row = 2 * CHAIN * esz                 # a step of a and x, one warp
+    row = streams * CHAIN * esz           # a step of every stream
     stage = min(STAGE_BYTES, RING_BYTES // (STAGES * warps))
     steps = stage // row // 8 * 8
     return LruPlan(chains, warps, blocks, steps, STAGES,
@@ -125,19 +153,98 @@ def launch_plan(a, x) -> LruPlan:
 def lru_scan(a, x, h0=None):
     """a, x: (B, S, D); h0: (B, D) or None (zeros). Returns ``(h_all,
     h_last)``: h_all (B, S, D) in x's dtype and its last step (B, D); the
-    carry is float32."""
+    carry is float32. With grad mode on and an input that requires grad
+    the scan goes through :class:`LruScanFn` (float32 only), whose
+    backward is :func:`lru_scan_bwd`."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lru_scan: unsupported device {x.device}")
+    if _build.needs_grad(a, x, h0):
+        for name, t in (("a", a), ("x", x), ("h0", h0)):
+            if t is not None and t.dtype != torch.float32:
+                raise NotImplementedError(
+                    f"lru_scan backward: float32 only, {name} is {t.dtype}")
+        h = LruScanFn.apply(a, x, h0)
+        return h, h[:, -1]
+    return _forward(a, x, h0)
+
+
+lru_scan.launches = 0
+
+
+def _forward(a, x, h0):
+    """The plain scan of a CPU tensor, or one launch of the kernel."""
     if x.device.type == "cpu":
         return plain(a, x, h0)
-    if x.device.type != "cuda":
-        raise ValueError(f"lru_scan: unsupported device {x.device}")
-    _build.refuse_grad("lru_scan", a, x, h0)
     _check_cuda(a, x, h0)
     h = _launch(a, x, h0, launch_plan(a, x))
     lru_scan.launches += 1
     return h, h[:, -1]
 
 
-lru_scan.launches = 0
+class LruScanFn(torch.autograd.Function):
+    """The scan with its gradient: h_all = lru_scan(a, x, h0)[0], the
+    backward :func:`lru_scan_bwd` on the saved a, h0 and h_all (h_last,
+    a view of h_all, reaches it through h_all's cotangent)."""
+
+    @staticmethod
+    def forward(ctx, a, x, h0):
+        h, _ = _forward(a, x, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        a, h, h0 = ctx.saved_tensors
+        da, dx, dh0 = lru_scan_bwd(a, g.contiguous(), h, h0)
+        return da, dx, dh0
+
+
+@_build.metered("lru_scan_bwd")
+def lru_scan_bwd(a, g, h, h0=None):
+    """The gradient of :func:`lru_scan` (see ``ref.lru_scan_bwd``): a, g
+    (the cotangent of h_all), h (h_all) (B, S, D) and h0 (B, D) or None,
+    all float32. Returns (da, dx, dh0 or None). A CPU tensor takes the
+    plain ``ref.lru_scan_bwd``; a CUDA tensor launches the kernel (one
+    count in ``lru_scan_bwd.launches``) or raises."""
+    for name, t in (("a", a), ("g", g), ("h", h), ("h0", h0)):
+        if t is not None and t.dtype != torch.float32:
+            raise NotImplementedError(
+                f"lru_scan_bwd: float32 only, {name} is {t.dtype}")
+    if g.device.type == "cpu":
+        return ref.lru_scan_bwd(a, g, h, h0)
+    if g.device.type != "cuda":
+        raise ValueError(f"lru_scan_bwd: unsupported device {g.device}")
+    if a.dim() != 3 or a.shape != g.shape or a.shape != h.shape:
+        raise ValueError(f"a {tuple(a.shape)}, g {tuple(g.shape)}, h "
+                         f"{tuple(h.shape)}: want three (B, S, D) tensors "
+                         f"of one shape")
+    b, s, d = a.shape
+    if h0 is not None and tuple(h0.shape) != (b, d):
+        raise ValueError(f"h0 {tuple(h0.shape)} != {(b, d)}")
+    for name, t in (("a", a), ("g", g), ("h", h), ("h0", h0)):
+        if t is None:
+            continue
+        if t.device != g.device:
+            raise ValueError(f"{name} is on {t.device}, g on {g.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    plan = lru_plan(b, s, d, torch.float32, streams=3, aligned=all(
+        t.data_ptr() % 16 == 0 for t in (a, g, h)))
+    da, dx = torch.empty_like(a), torch.empty_like(a)
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    rc = _build.library().repro_lru_scan_bwd(
+        a.data_ptr(), g.data_ptr(), h.data_ptr(),
+        None if h0 is None else h0.data_ptr(), dx.data_ptr(), da.data_ptr(),
+        None if dh0 is None else dh0.data_ptr(), b, s, d, plan.warps,
+        plan.stages, plan.steps, int(plan.edge), stream)
+    _build.check(rc, "lru_scan_bwd")
+    lru_scan_bwd.launches += 1
+    return da, dx, dh0
+
+
+lru_scan_bwd.launches = 0
 
 
 def _launch(a, x, h0, plan: LruPlan):

@@ -9,8 +9,9 @@ result on the card call ``kernels.ref`` directly (``chip_smoke.py`` does).
 The model code reaches the kernels only through this module: the LM
 path's attention, page copy and RG-LRU scan, and the streaming U-Net's
 STMC conv contraction (``stmc_conv``, every computed conv of every frame).
-Training reaches ``flash_attention``'s backward, ``flash_attention_bwd``,
-through autograd; every other kernel's CUDA route raises
+Training reaches two backward kernels through autograd:
+``flash_attention``'s, ``flash_attention_bwd``, and ``lru_scan``'s,
+``lru_scan_bwd``; every other kernel's CUDA route raises
 ``NotImplementedError`` when grad mode is on and an input requires grad (a
 host check of flags).
 
@@ -23,11 +24,14 @@ attention: the reference's ``ops.flash_attention`` sends a ``window`` to
 ``ref.windowed_flash_attention`` (or ``chunked_flash_attention``) on every
 backend, the TPU included, because its Pallas flash kernel takes no
 window. ``flash_attention`` here does the same: a window goes to the plain
-``ref.windowed_flash_attention`` on every device. Nor has prefix-LM
-prefill: the reference sends a ``prefix_len > 0`` to its plain
-``ref.chunked_flash_attention`` on every backend, the TPU included, and
-here it goes to the plain ``ref.flash_attention`` on every device. The
-CUDA flash kernel runs only causal or full prefill with neither.
+``ref.windowed_flash_attention`` on every device, and a gradient
+through it is autograd's of that plain function, as the reference's is
+XLA's. Nor has prefix-LM prefill: the reference sends a ``prefix_len >
+0`` to its plain ``ref.chunked_flash_attention`` on every backend, the TPU
+included, and here it goes to the plain ``ref.flash_attention`` on every
+device (refused under grad on the card: the prefix-LM's training is not
+ported). The CUDA flash kernel runs only causal or full prefill with
+neither.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ from repro_torch.kernels.decode_attention import (decode_attention,
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
-from repro_torch.kernels.lru_scan import lru_scan
+from repro_torch.kernels.lru_scan import lru_scan, lru_scan_bwd
 from repro_torch.kernels.page_copy import copy_pages, copy_pages_leaves
 from repro_torch.kernels.ref import gather_pages, mla_decode_attention
 from repro_torch.kernels.stmc_conv import stmc_conv
@@ -50,7 +54,7 @@ flash_attention_bwd = _flash.flash_attention_bwd
 KERNELS = (decode_attention, _flash.flash_attention, chunk_attention,
            paged_decode_attention, copy_pages, mla_chunk_attention,
            paged_mla_decode_attention, lru_scan, stmc_conv,
-           flash_attention_bwd)
+           flash_attention_bwd, lru_scan_bwd)
 _BY_NAME = {k.__name__: k for k in KERNELS}
 
 
@@ -61,20 +65,19 @@ def flash_attention(q, k, v, *, causal=True, window=None, prefix_len=0,
     ``ref.windowed_flash_attention`` or ``ref.flash_attention`` on every
     device, as the reference routes them (it has no kernel for either).
     With grad mode on and an input that requires grad, the card runs the
-    kernel with its CUDA backward (``flash_attention_bwd``); the windowed
-    and prefix routes then raise, as every other kernel's CUDA route does
-    (``_build.refuse_grad``): only flash attention has a backward
-    kernel."""
+    kernel with its CUDA backward (``flash_attention_bwd``), and the
+    windowed route is differentiated by autograd, as the reference's plain
+    route is by XLA; the prefix route then raises on the card
+    (``_build.refuse_grad``): prefix-LM training is not ported."""
     if window is None and not prefix_len:
         return _flash.flash_attention(
             q, k, v, causal=causal, q_offset=q_offset, scale=scale,
             logit_softcap=logit_softcap)
     if window is not None and (not causal or prefix_len):
         raise ValueError("windowed attention is causal, without a prefix")
-    if q.device.type == "cuda":
-        _build.refuse_grad("windowed attention" if window is not None
-                           else "prefix-LM attention", q, k, v)
     if window is None:
+        if q.device.type == "cuda":
+            _build.refuse_grad("prefix-LM attention", q, k, v)
         return ref.flash_attention(q, k, v, causal=causal,
                                    prefix_len=prefix_len, q_offset=q_offset,
                                    scale=scale, logit_softcap=logit_softcap)
@@ -107,6 +110,7 @@ __all__ = ["add_launch_counts", "chunk_attention", "copy_pages",
            "copy_pages_leaves", "decode_attention", "flash_attention",
            "flash_attention_bwd",
            "gather_pages",
-           "launch_counts", "lru_scan", "mla_chunk_attention",
+           "launch_counts", "lru_scan", "lru_scan_bwd",
+           "mla_chunk_attention",
            "mla_decode_attention", "paged_decode_attention",
            "paged_mla_decode_attention", "reset_launch_counts", "stmc_conv"]

@@ -1,9 +1,8 @@
 """Plain PyTorch versions of the kernels this port runs — attention
 (dense, chunked, paged, windowed; GQA and absorbed MLA) and the flash
-attention gradient, the page copy,
-the RG-LRU scan and the STMC conv contraction — and the page gather (the
-counterparts of ``repro.kernels.ref`` and of the reference path of
-``repro.kernels.ops``).
+attention gradient, the page copy, the RG-LRU scan and its gradient, and
+the STMC conv contraction — and the page gather (the counterparts of
+``repro.kernels.ref`` and of the reference path of ``repro.kernels.ops``).
 The CPU path of every kernel wrapper is the function here, and
 ``chip_smoke.py`` holds each CUDA kernel against it on the card.
 
@@ -198,6 +197,34 @@ def lru_scan(a, x, h0=None):
         h = af[:, t] * h + xf[:, t]
         out[:, t] = h
     return out, out[:, -1]
+
+
+def lru_scan_bwd(a, g, h, h0=None):
+    """The gradient of :func:`lru_scan` with respect to (a, x, h0), walking
+    S from the end in float32 (the order the ``lru_scan_bwd`` kernel
+    follows): with ``g`` (B, S, D) the cotangent of h_all (h_last's added
+    into its last step),
+
+      c_t = g_t + a_{t+1} c_{t+1}  (c_S = 0),    dx_t = c_t,
+      da_t = c_t h_{t-1}  (h_{-1} = h0, or 0),   dh0 = a_0 c_0,
+
+    each step a product and then a sum. ``h`` is the forward's h_all.
+    Returns (da, dx, dh0) float32, dh0 None without ``h0``. The reference
+    differentiates its associative scan with XLA (no TPU kernel computes
+    this)."""
+    b, s, d = a.shape
+    af, gf, hf = a.float(), g.float(), h.float()
+    da = torch.empty((b, s, d), dtype=torch.float32, device=a.device)
+    dx = torch.empty_like(da)
+    zero = torch.zeros((b, d), dtype=torch.float32, device=a.device)
+    hm1 = zero if h0 is None else h0.float()
+    c, an = zero, zero
+    for t in range(s - 1, -1, -1):
+        c = an * c + gf[:, t]
+        dx[:, t] = c
+        da[:, t] = c * (hf[:, t - 1] if t > 0 else hm1)
+        an = af[:, t]
+    return da, dx, (None if h0 is None else an * c)
 
 
 def stmc_conv(window, w, b=None):

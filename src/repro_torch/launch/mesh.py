@@ -56,6 +56,10 @@ class AbstractMesh:
     def __repr__(self):
         return "x".join(str(v) for v in self.shape.values())
 
+    def size(self) -> int:
+        """The mesh's ranks, as ``DeviceMesh.size()`` counts them."""
+        return math.prod(self.shape.values())
+
 
 def production_shape(multi_pod: bool = False) -> dict:
     """``{axis: size}`` of a production mesh."""

@@ -25,8 +25,11 @@ data x tensor parallel, computed on local shards with explicit collectives
 
 Refused on a mesh (``NotImplementedError``, ROADMAP.md): ``fsdp``,
 ``seq_shard``, a model axis that does not divide some split dimension (kv
-heads, say), and ``compress`` where the model axis has more than one rank
-(a shard's 256-blocks are not the whole leaf's). ``make_serve_step`` and
+heads, say), ``compress`` where the model axis has more than one rank
+(a shard's 256-blocks are not the whole leaf's), MoE stacks (the router's
+aux loss takes the global batch's statistics, and there is no expert
+parallelism), and MLA and RG-LRU stacks on more than one rank (no
+tensor-parallel hooks in either). ``make_serve_step`` and
 ``make_prefill`` run without a mesh only.
 """
 
@@ -72,6 +75,7 @@ def make_train_step(cfg: ModelCfg, rules: ShardingRules = None, mesh=None,
     rank's ``local_batch``."""
     T.check_trainable(cfg)
     if mesh is not None:
+        _check_mesh_stack(cfg, mesh)
         return _sharded_train_step(
             cfg, rules or ShardingRules(data_axes=data_axes_of(mesh)), mesh,
             microbatches=microbatches, peak_lr=peak_lr, warmup=warmup,
@@ -105,6 +109,8 @@ def make_train_step(cfg: ModelCfg, rules: ShardingRules = None, mesh=None,
                     grads[k] += g.float()
                 lsum = lsum + l_i
             grads = {k: g / microbatches for k, g in grads.items()}
+            # as the reference reports them: the microbatches' mean total
+            # (cross entropy + aux) as "xent", and "aux" 0
             loss = lsum / microbatches
             metrics = {"xent": loss, "aux": torch.zeros_like(loss)}
 
@@ -164,6 +170,25 @@ def _refuse(what: str):
     raise NotImplementedError(
         f"the sharded train step does not run {what} yet (ROADMAP.md, "
         f"Queue 1 item 8)")
+
+
+def _check_mesh_stack(cfg: ModelCfg, mesh):
+    """Refuse the stacks the sharded step does not hold: MoE on any mesh
+    (its aux loss is not in the sharded loss, and it would need the global
+    batch's routing statistics and expert parallelism), MLA and RG-LRU on
+    more than one rank (no tensor-parallel hooks in either)."""
+    blocks = T.layer_blocks(cfg)
+    if any(b.moe is not None for b in blocks):
+        _refuse("MoE stacks (the router's aux loss over the global batch, "
+                "expert parallelism)")
+    ranks = mesh.size()
+    for what, present in (
+            ("MLA", any(b.attn is not None and b.attn.kind == "mla"
+                        for b in blocks)),
+            ("RG-LRU", any(b.rglru is not None for b in blocks))):
+        if present and ranks > 1:
+            _refuse(f"{what} stacks on {ranks} ranks (no tensor-parallel "
+                    f"hooks)")
 
 
 def _check_layout(cfg: ModelCfg, rules: ShardingRules, mesh,

@@ -6,8 +6,10 @@ synthetic data pipeline, the train step of ``launch.steps`` (bf16 compute
 over float32 masters for bf16 configs), async atomic checkpoints,
 restore-on-restart. Weights are random from ``torch.Generator`` seeded by
 ``--seed``; ``--device`` defaults to the GPU (``cpu`` runs the plain
-kernels). Configs with MoE or RG-LRU blocks are refused (their training is
-not ported: ROADMAP.md). ``main(argv)`` returns the list of losses.
+kernels). Configs whose training is not ported (LayerNorm, the plain MLP,
+RWKV, encoder-decoder, prefix-LM: ``models.transformer.check_trainable``,
+ROADMAP.md) are refused; a MoE config's loss adds its routers' aux loss.
+``main(argv)`` returns the list of losses.
 
     python -m repro_torch.launch.train --arch qwen3-1.7b --soi pp \\
         --steps 30 --batch 8 --seq 128

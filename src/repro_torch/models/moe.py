@@ -81,9 +81,11 @@ def _shared(p: MoE, x: torch.Tensor) -> torch.Tensor:
 
 
 def moe_apply(p: MoE, x: torch.Tensor, *, capacity: int | None = None,
-              dispatch_groups: int = 32):
+              dispatch_groups: int = 32, with_aux: bool = True):
     """x: (B, S, d) or (T, d). Returns (y, aux_loss); ``aux_loss`` is the
-    reference's switch load-balancing term (serving does not use it)."""
+    reference's switch load-balancing term, a float32 scalar over the
+    call's global routing statistics (training adds it to the loss), or
+    None with ``with_aux=False`` (serving, which skips its kernels)."""
     cfg = p.cfg
     shape = x.shape
     d = shape[-1]
@@ -100,11 +102,14 @@ def moe_apply(p: MoE, x: torch.Tensor, *, capacity: int | None = None,
     probs = torch.softmax(logits, dim=-1)
     top_w, top_i = torch.topk(probs, k, dim=-1)   # (r, tg, k), descending
 
-    assign = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
-        0, top_i.reshape(-1),
-        torch.full((t * k,), 1.0 / (t * k), dtype=torch.float32, device=dev))
-    aux = cfg.router_aux_weight * e * torch.sum(assign
-                                                * probs.mean(dim=(0, 1)))
+    aux = None
+    if with_aux:
+        assign = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
+            0, top_i.reshape(-1),
+            torch.full((t * k,), 1.0 / (t * k), dtype=torch.float32,
+                       device=dev))
+        aux = cfg.router_aux_weight * e * torch.sum(
+            assign * probs.mean(dim=(0, 1)))
 
     flat_e = top_i.reshape(r, tg * k)
     flat_tok = torch.arange(tg, device=dev).repeat_interleave(k)[None] \

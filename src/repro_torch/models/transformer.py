@@ -1,6 +1,6 @@
 """The unified LM with SOI (port of ``repro.models.transformer``: the
-forward, the whisper encoder, and the training loss ``loss_fn`` of
-attention + MLP stacks).
+forward, the whisper encoder, and the training loss ``loss_fn``, with the
+MoE router's load-balancing loss summed over every MoE layer).
 
 The model is an ``nn.Module``: token embedding, one ``Block`` per layer in an
 ``nn.ModuleList`` over every segment in order (the reference stacks a scanned
@@ -132,11 +132,15 @@ def final_norm(params, cfg: ModelCfg, x):
                       bias=params.final_norm_bias, eps=cfg.norm_eps)
 
 
-def channel_mix(bp: Block, x):
-    """The block's MLP, or its MoE (aux loss dropped: serving does not use
-    it)."""
+def channel_mix(bp: Block, x, aux: list | None = None):
+    """The block's MLP, or its MoE. A MoE appends its router's aux loss
+    to ``aux`` when given (training); without it the aux is not computed
+    (serving)."""
     if bp.bcfg.moe is not None:
-        return moe_apply(bp.moe, x)[0]
+        y, a = moe_apply(bp.moe, x, with_aux=aux is not None)
+        if aux is not None:
+            aux.append(a)
+        return y
     return mlp_apply(bp.mlp, x)
 
 
@@ -194,10 +198,11 @@ class Transformer(nn.Module):
             param(self, "soi_fuse", torch.cat([wf_new, eye], dim=0).to(dtype),
                   ("stub", "embed"))
 
-    def forward(self, tokens):
+    def forward(self, tokens, aux: list | None = None):
         """The final-norm hidden states (B, S, d) of ``tokens`` (what
-        ``loss_fn`` runs through ``torch.func.functional_call``)."""
-        return trunk(self, self.cfg, tokens)
+        ``loss_fn`` runs through ``torch.func.functional_call``); every MoE
+        layer appends its aux loss to ``aux`` when given."""
+        return trunk(self, self.cfg, tokens, aux=aux)
 
 
 def layer_blocks(cfg: ModelCfg) -> list:
@@ -232,11 +237,13 @@ def cast_params(params: Transformer, cfg: ModelCfg) -> Transformer:
 # ---------------------------------------------------------------------------
 
 def _block_apply(bp: Block, cfg: ModelCfg, x, *, positions, prefix_len=0,
-                 enc_out=None, fill_cache=None, fill_true_length=None):
+                 enc_out=None, fill_cache=None, fill_true_length=None,
+                 aux=None):
     """Full-sequence block. Returns (x, cache_out): the filled attention
     cache (None without ``fill_cache``), an RG-LRU block's recurrence state,
     or an RWKV block's time- and channel-mix states (``{"rwkv_tm":
-    {"x_prev", "S"}, "rwkv_cm"}``). A cross block reads ``enc_out``."""
+    {"x_prev", "S"}, "rwkv_cm"}``). A cross block reads ``enc_out``; a MoE
+    block appends its aux loss to ``aux`` when given."""
     eps = cfg.norm_eps
     b = bp.bcfg
     h = block_norm(bp, 1, x, eps)
@@ -260,15 +267,16 @@ def _block_apply(bp: Block, cfg: ModelCfg, x, *, positions, prefix_len=0,
                                  kv_x=enc_out)
         x = x + h
     h = block_norm(bp, 2, x, eps)
-    return x + channel_mix(bp, h), cache
+    return x + channel_mix(bp, h, aux), cache
 
 
 def _segment_forward(blocks, cfg: ModelCfg, x, *, positions, prefix_len=0,
                      enc_out=None, collect_cache=False, batch=None,
-                     max_len=0, true_length=None):
+                     max_len=0, true_length=None, aux=None):
     """Apply a run of layers. Returns (x, caches): one cache dict per layer
     when ``collect_cache`` (prefill: an attention layer's filled ring, an
-    RG-LRU or RWKV layer's recurrence state), else an empty list."""
+    RG-LRU or RWKV layer's recurrence state), else an empty list. Each MoE
+    layer appends its aux loss to ``aux`` when given, in layer order."""
     caches = []
     for bp in blocks:
         fill = None
@@ -277,7 +285,8 @@ def _segment_forward(blocks, cfg: ModelCfg, x, *, positions, prefix_len=0,
                                    x.device)
         x, c = _block_apply(bp, cfg, x, positions=positions,
                             prefix_len=prefix_len, enc_out=enc_out,
-                            fill_cache=fill, fill_true_length=true_length)
+                            fill_cache=fill, fill_true_length=true_length,
+                            aux=aux)
         if collect_cache:
             caches.append(c)
     return x, caches
@@ -407,18 +416,21 @@ def encode(params: Transformer, cfg: ModelCfg, frames):
 
 
 def trunk(params: Transformer, cfg: ModelCfg, tokens, *, prefix_embeds=None,
-          enc_out=None):
+          enc_out=None, aux: list | None = None):
     """Token embeddings (after ``prefix_embeds`` (B, P, d), when given) ->
     final norm hidden states (B, P + S, d); cross blocks read ``enc_out``.
     A prefix-LM config's first ``frontend_len`` positions attend
-    bidirectionally (outside the SOI middle, as in the reference)."""
+    bidirectionally (outside the SOI middle, as in the reference). With
+    ``aux`` (a list) every MoE layer appends its router's aux loss, the
+    compressed middle's included, in the reference's order (pre, middle,
+    post)."""
     x = _embed_tokens(params, cfg, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None]
     kw = dict(prefix_len=cfg.frontend_len if cfg.prefix_lm else 0,
-              enc_out=enc_out)
+              enc_out=enc_out, aux=aux)
     if cfg.soi is None:
         x, _ = _segment_forward(params.blocks, cfg, x, positions=positions,
                                 **kw)
@@ -430,7 +442,7 @@ def trunk(params: Transformer, cfg: ModelCfg, tokens, *, prefix_embeds=None,
         xc = soi_compress(params, soi, x)
         cpos = torch.arange(xc.shape[1], device=x.device)[None]
         xc, _ = _segment_forward(mid, cfg, xc, positions=cpos,
-                                 enc_out=enc_out)
+                                 enc_out=enc_out, aux=aux)
         x = soi_fuse(params, soi_extrapolate(soi, xc, s), skip)
         x, _ = _segment_forward(post, cfg, x, positions=positions, **kw)
     return final_norm(params, cfg, x)
@@ -471,12 +483,11 @@ def forward(params: Transformer, cfg: ModelCfg, tokens, *,
 
 def check_trainable(cfg: ModelCfg) -> None:
     """Raise for configs whose training is not ported, on every device:
-    MoE blocks (the port drops the router's aux loss), RG-LRU blocks
-    (``lru_scan`` has no backward), and the models and blocks that serve
-    but whose training no test holds against the JAX trainer yet — the
-    encoder-decoder (whisper), the prefix-LM (paligemma), RWKV blocks,
-    LayerNorm, the plain (squared-ReLU / GeLU) MLP and windowed attention
-    (ROADMAP.md Queue 1 item 7)."""
+    the models and blocks that serve but whose training no test holds
+    against the JAX trainer yet — the encoder-decoder (whisper), the
+    prefix-LM (paligemma), RWKV blocks, LayerNorm and the plain
+    (squared-ReLU / GeLU) MLP (ROADMAP.md Queue 1 item 7). Attention (GQA,
+    windowed, MLA), the RG-LRU and MoE stacks with gated MLPs train."""
     model_kind = ("encoder-decoder" if cfg.encoder is not None else
                   "prefix-LM" if cfg.prefix_lm else None)
     if model_kind is not None:
@@ -484,17 +495,16 @@ def check_trainable(cfg: ModelCfg) -> None:
             f"config '{cfg.name}': {model_kind} training is queued in "
             f"ROADMAP.md (Queue 1 item 7)")
     for b in layer_blocks(cfg):
-        kind = ("MoE" if b.moe is not None else
-                "RWKV" if b.rwkv is not None else
-                "RG-LRU" if b.rglru is not None else
+        kind = ("RWKV" if b.rwkv is not None else
                 "LayerNorm" if b.norm == "layernorm" else
-                f"{b.mlp.kind} MLP" if b.mlp.kind not in GATED else
-                "windowed attention" if b.attn.window is not None else None)
+                f"{b.mlp.kind} MLP" if b.mlp is not None
+                and b.mlp.kind not in GATED else None)
         if kind is not None:
             raise NotImplementedError(
-                f"config '{cfg.name}': training covers RMSNorm attention + "
-                f"gated MLP stacks; {kind} training is queued in ROADMAP.md "
-                f"(Queue 1 item 7)")
+                f"config '{cfg.name}': training covers RMSNorm attention "
+                f"(GQA, windowed, MLA), RG-LRU and MoE stacks with gated "
+                f"MLPs; {kind} training is queued in ROADMAP.md (Queue 1 "
+                f"item 7)")
 
 
 def _xent_chunk(hb, head_w, tb, softcap, group=None):
@@ -551,12 +561,14 @@ def xent_sums(h, head_w, targets, *, softcap=None, chunk=256, group=None):
 
 
 def loss_sums(params: Transformer, cfg: ModelCfg, batch: dict,
-              tensors: dict | None = None):
+              tensors: dict | None = None, aux: list | None = None):
     """(summed masked NLL, count of targets >= 0) of ``batch``, the parts
     of ``loss_fn``'s mean. ``tensors`` ({name: tensor}, default the
     module's parameters) are what the model runs on: a sharded step passes
     its local shards, inside ``layers.model_parallel``; where the vocab is
-    split the head's cross entropy reduces over the model axis.
+    split the head's cross entropy reduces over the model axis. With
+    ``aux`` (a list) every MoE layer appends its router's aux loss, which
+    ``loss_fn`` adds outside the mean.
 
     Mixed precision as in the reference: every float32 master is cast to
     the compute dtype *inside* the differentiated function — the model runs
@@ -569,7 +581,8 @@ def loss_sums(params: Transformer, cfg: ModelCfg, batch: dict,
         tensors = dict(params.named_parameters())
     cast = {name: p.to(dt) if p.dtype == torch.float32 else p
             for name, p in tensors.items()}
-    h = torch.func.functional_call(params, cast, (batch["tokens"],))
+    h = torch.func.functional_call(params, cast, (batch["tokens"],),
+                                   {"aux": aux})
     head_w = cast["embed"].t() if cfg.tie_embeddings else cast["lm_head"]
     return xent_sums(h, head_w, batch["targets"], softcap=cfg.logits_softcap,
                      group=model_group() if head_w.shape[1] != cfg.vocab
@@ -577,11 +590,16 @@ def loss_sums(params: Transformer, cfg: ModelCfg, batch: dict,
 
 
 def loss_fn(params: Transformer, cfg: ModelCfg, batch: dict):
-    """batch: tokens (B, S), targets (B, S) [-1 = masked]. Returns (total,
-    {"xent", "aux"}), differentiable with respect to ``params`` (cast to
-    the compute dtype inside, see ``loss_sums``). The aux loss is 0: the
-    blocks this covers (attention + MLP) have none."""
-    nll, count = loss_sums(params, cfg, batch)
-    loss = nll / torch.clamp(count, min=1.0)
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
-    return loss + aux, {"xent": loss, "aux": aux}
+    """batch: tokens (B, S), targets (B, S) [-1 = masked]. Returns (xent +
+    aux, {"xent", "aux"}), differentiable with respect to ``params`` (cast
+    to the compute dtype inside, see ``loss_sums``): the masked mean cross
+    entropy and the MoE routers' load-balancing losses summed in float32
+    over every MoE layer, the SOI middle's included (0 without MoE), as
+    the reference's ``loss_fn`` returns them."""
+    terms = []
+    nll, count = loss_sums(params, cfg, batch, aux=terms)
+    xent = nll / torch.clamp(count, min=1.0)
+    aux = torch.zeros((), dtype=torch.float32, device=xent.device)
+    for a in terms:
+        aux = aux + a
+    return xent + aux, {"xent": xent, "aux": aux}

@@ -82,11 +82,12 @@ def test_price_equals_reference(name):
 
 
 def test_registry_names():
-    """The reference's nine names, plus the backward no TPU kernel has;
+    """The reference's nine names, plus the two backwards no TPU kernel
+    has;
     every kernel of ops.KERNELS is registered and metered (copy_pages
     through its launch point, copy_pages_leaves)."""
     assert set(costs.KERNEL_COSTS) == set(ref_costs.KERNEL_COSTS) | {
-        "flash_attention_bwd"}
+        "flash_attention_bwd", "lru_scan_bwd"}
     from repro_torch.kernels.page_copy import copy_pages_leaves
     for k in ops.KERNELS:
         assert k.__name__ in costs.KERNEL_COSTS
@@ -185,10 +186,30 @@ def test_lru_scan_priced_in_closed_form():
     assert kern_m.flops == 2.0 * a.numel()
 
 
+def test_lru_scan_bwd_priced_in_closed_form():
+    """lru_scan_bwd's work is elementwise too: c = a*c + g and da =
+    c*h_prev, 3 FLOPs an element; its bytes are a, g, h (and h0) read and
+    da, dx (and dh0) written once."""
+    rng = np.random.default_rng(2)
+    a = _rng_tensor(rng, (2, 12, 8)).sigmoid()
+    g, h = _rng_tensor(rng, (2, 12, 8)), _rng_tensor(rng, (2, 12, 8))
+    h0 = _rng_tensor(rng, (2, 8))
+    _, plain_m = meter.measure(tref.lru_scan_bwd, a, g, h, h0)
+    _, kern_m = meter.measure(ops.lru_scan_bwd, a, g, h, h0)
+    assert plain_m.flops == 0
+    assert dict(kern_m.kernels) == {"lru_scan_bwd": 1}
+    assert kern_m.flops == 3.0 * a.numel()
+    assert kern_m.bytes == 4 * (5 * a.numel() + 2 * h0.numel())
+    _, m = meter.measure(ops.lru_scan_bwd, a, g, h)
+    assert m.bytes == 4 * 5 * a.numel()
+
+
 BWD_SHAPES = [(1, 64, 64, 2, 2, 32, 32, True), (2, 32, 32, 4, 2, 16, 16,
                                                   True),
               (1, 16, 48, 2, 1, 32, 32, False), (1, 32, 32, 2, 2, 24, 16,
-                                                  True)]
+                                                  True),
+              # deepseek-v2's MLA prefill: d_qk 192, d_v 128
+              (1, 8, 8, 2, 2, 192, 128, True)]
 
 
 @pytest.mark.parametrize("shape", BWD_SHAPES)

@@ -4,7 +4,8 @@ follows) against autograd of the plain forward and against ``jax.vjp`` of
 ``repro.kernels.ref.chunked_flash_attention`` (the reference's gradient:
 it has no backward kernel), and ``ref.attention_lse`` against JAX's
 logsumexp of the masked scores. Causal and not, GQA at G 1 and 2, a
-``q_offset`` > 0 with Sq != Sk, ragged blocks; float32, within 1e-5 of
+``q_offset`` > 0 with Sq != Sk, ragged blocks, d_v < d_qk (MLA); float32,
+within 1e-5 of
 each gradient's largest |value|. Then the grad guard: on the CPU,
 ``ops.flash_attention`` (and the model's attention) still differentiates
 through the plain forward, and ``_build.refuse_grad`` — the check every
@@ -33,15 +34,18 @@ CASES = {
     "offset-sq<sk": (2, 9, 21, 4, 2, 16, 12, True),
     "offset-mqa": (1, 5, 14, 4, 1, 8, 9, True),
     "noncausal-g2": (2, 11, 19, 4, 2, 16, 0, False),
+    # MLA's shape of heads: d_v < d_qk (deepseek-v2: 192 / 128)
+    "mla-dv<dqk": (2, 13, 13, 4, 4, (24, 16), 0, True),
 }
 
 
 def _inputs(case, seed=0):
     b, sq, sk, h, hkv, dh, off, causal = CASES[case]
+    dqk, dv = dh if isinstance(dh, tuple) else (dh, dh)
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)
-    return (f(b, sq, h, dh), f(b, sk, hkv, dh), f(b, sk, hkv, dh),
-            f(b, sq, h, dh), off, causal)
+    return (f(b, sq, h, dqk), f(b, sk, hkv, dqk), f(b, sk, hkv, dv),
+            f(b, sq, h, dv), off, causal)
 
 
 def _rel(got, want):
@@ -111,7 +115,9 @@ def test_wrapper_takes_the_plain_bwd_on_the_cpu():
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert ops.launch_counts()["flash_attention_bwd"] == 0
-    assert PFA.BWD_HEAD_DIMS == (16, 32, 64, 128)
+    # the backward kernel takes every pair the forward does, MLA's too
+    assert PFA.HEAD_DIMS == ((16, 16), (32, 32), (64, 64), (128, 128),
+                             (192, 128))
 
 
 def test_cpu_route_still_differentiates():

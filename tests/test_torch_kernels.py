@@ -205,6 +205,8 @@ def test_cpu_tensors_never_count_launches():
         pos.reshape(3, 2), torch.tensor([[2, 1]], dtype=torch.int32),
         torch.tensor([3], dtype=torch.int32), scale=0.2)
     ops.lru_scan(torch.rand(1, 3, 4), torch.rand(1, 3, 4))
+    ops.lru_scan_bwd(torch.rand(1, 3, 4), torch.rand(1, 3, 4),
+                     torch.rand(1, 3, 4))
     ops.stmc_conv(torch.rand(2, 3, 4), torch.rand(3, 4, 5), torch.rand(5))
     fq, fk = torch.randn(1, 4, 2, 16), torch.randn(1, 4, 1, 16)
     ops.flash_attention_bwd(fq, fk, fk, fq, fq, torch.zeros(1, 2, 4))
@@ -217,7 +219,8 @@ def test_cpu_tensors_never_count_launches():
                                    "paged_mla_decode_attention": 0,
                                    "lru_scan": 0,
                                    "stmc_conv": 0,
-                                   "flash_attention_bwd": 0}
+                                   "flash_attention_bwd": 0,
+                                   "lru_scan_bwd": 0}
 
 
 def test_unsupported_devices_raise():

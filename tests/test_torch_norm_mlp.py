@@ -3,7 +3,8 @@ the JAX package: LayerNorm through ``norm_apply`` (its eps at least 1e-5),
 the plain squared-ReLU and GeLU MLPs (no ``gate``) and SwiGLU through
 ``mlp_apply``, the weight bridge on nemotron's LayerNorm + relu2 tree
 (every bias carried, a leaf missing or left over refused), and
-``check_trainable`` refusing LayerNorm, plain-MLP, windowed and MoE stacks
+``check_trainable`` refusing LayerNorm, plain-MLP, RWKV and encoder-decoder
+stacks
 (their training is not held against the JAX trainer yet).
 """
 
@@ -109,8 +110,8 @@ def test_bridge_carries_layernorm_biases_and_a_gateless_mlp():
 
 
 @pytest.mark.parametrize("arch,kind", [
-    ("nemotron-4-15b", "LayerNorm"), ("h2o-danube-1.8b", "windowed"),
-    ("relu2-rmsnorm", "relu2 MLP"), ("olmoe-1b-7b", "MoE")])
+    ("nemotron-4-15b", "LayerNorm"), ("whisper-tiny", "encoder-decoder"),
+    ("relu2-rmsnorm", "relu2 MLP"), ("rwkv6-1.6b", "RWKV")])
 def test_check_trainable_refuses_what_is_not_held(arch, kind):
     if arch == "relu2-rmsnorm":
         cfg = pconfigs.get_smoke("qwen3-1.7b")
@@ -123,4 +124,7 @@ def test_check_trainable_refuses_what_is_not_held(arch, kind):
         cfg = pconfigs.get_smoke(arch)
     with pytest.raises(NotImplementedError, match=f"{kind}.*Queue 1 item 7"):
         PT.check_trainable(cfg)
-    PT.check_trainable(pconfigs.get_smoke("mistral-large-123b"))
+    # windowed attention, MoE, MLA and RG-LRU stacks train
+    for ok in ("mistral-large-123b", "h2o-danube-1.8b", "olmoe-1b-7b",
+               "deepseek-v2-236b", "recurrentgemma-9b"):
+        PT.check_trainable(pconfigs.get_smoke(ok))

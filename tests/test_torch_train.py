@@ -14,8 +14,9 @@ with SOI pp and fp:
   * the bf16 config keeps float32 masters and float32 grads (the cast
     runs inside the differentiated function);
   * the counterpart of the reference's two-steps-reduce-loss, the refusal
-    of MoE and RG-LRU configs, and ``launch.train.main`` on the CPU for 6
-    steps under the supervisor with a checkpoint directory.
+    of the kinds whose training is not ported (RWKV, LayerNorm), and
+    ``launch.train.main`` on the CPU for 6 steps under the supervisor with
+    a checkpoint directory.
 """
 
 import dataclasses
@@ -238,8 +239,11 @@ def test_two_steps_reduce_loss_direction():
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "nemotron-4-15b"])
 def test_moe_and_rglru_training_refused(arch):
+    """The kinds whose training is still refused (RWKV blocks, LayerNorm
+    with squared ReLU) raise in make_train_step and launch.train; MoE and
+    RG-LRU stacks train (tests/test_torch_train_families.py)."""
     cfg = pconfigs.get_smoke(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make_train_step(cfg)

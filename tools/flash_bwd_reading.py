@@ -55,10 +55,27 @@ def _build_both(older):
         log, _ = p.communicate()
         smoke.check(p.returncode == 0, f"nvcc {name} failed:\n{log}")
         fn = ctypes.CDLL(str(OUT / f"{name}.so")).repro_flash_attention_bwd
-        fn.argtypes = _build.SIGNATURES["repro_flash_attention_bwd"]
+        sig = list(_build.SIGNATURES["repro_flash_attention_bwd"])
+        # a tree from before d_v != d_qk takes one head dim (no DV)
+        two_dims = "int DQK, int DV" in sources[name].read_text()
+        if not two_dims:
+            del sig[_DV_ARG]
+        fn.argtypes = sig
         fn.restype = ctypes.c_int
-        libs[name] = (fn, _ptxas(log))
+        libs[name] = (_entry(fn, two_dims), _ptxas(log))
     return libs
+
+
+# the position of DV among the C entry point's arguments
+_DV_ARG = 16
+
+
+def _entry(fn, two_dims):
+    """The C entry point called with this tree's arguments (DV dropped
+    for an older tree's)."""
+    if two_dims:
+        return fn
+    return lambda *a: fn(*a[:_DV_ARG], *a[_DV_ARG + 1:])
 
 
 def _ptxas(log):
@@ -94,7 +111,8 @@ def _call(fn, q, k, v, o, do, lse):
                   torch.empty_like(v))
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, hkv, dh, 0, 1,
+            dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, hkv, dh,
+            v.shape[-1], 0, 1,
             dh ** -0.5, _build.DTYPE_CODES["bfloat16"],
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention_bwd")
