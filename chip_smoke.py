@@ -389,13 +389,39 @@ Phases, each printing its own lines:
              an RG-LRU layer: 4), peak under 80 GiB; step median and
              tokens/s, and 2 more steps profiled between markers (busy
              share, kernels a step).
-23. the kernels JSON line (the decode reads and copy_pages also give their
+23. train-zoo — training of the encoder-decoder, prefix-LM, RWKV and
+             LayerNorm / plain-MLP stacks (every number beside the card's
+             name and power limit). (a) flash_attention_bwd at whisper-tiny's
+             encoder (8, 1500, 6/6, 64, non-causal: a ragged last key
+             tile), its cross layers (8, 128 queries / 1500 keys,
+             non-causal) and decoder self attention (8, 128, 6/6, 64) and
+             nemotron-4-15b's G 6 (2, 128, 48/8, 128), f32 and bf16, against
+             the plain version, launched twice and held bit for bit, the
+             forward's lse and output held too; its bf16 device ms beside
+             the plain version, SDPA's backward and the bound. (b) card
+             against CPU in float32, one loss and every gradient within
+             1e-4: whisper-tiny whole (B 4, random frames), paligemma-3b cut
+             to 2 layers (B 4, 256 random patch embeddings), rwkv6-1.6b cut
+             to 4 (SOI pp) and nemotron-4-15b cut to 2 (B 2, 3.93 B
+             parameters); flash launches a loss exact (whisper 12,
+             nemotron 2). (c) make_train_step as launch.train.main builds
+             it, the stub frontends fed as it feeds them, bf16 over f32
+             masters, B 8 S 128, 10 steps each: whisper-tiny (4 + 4 layers,
+             1500 frames; flash_attention and its backward 12 a step),
+             paligemma-3b (18 layers, no SOI, 256 patch embeddings; peak
+             under 72 GiB) and rwkv6-1.6b (24 layers, SOI pp): every loss
+             finite, launches exact; step median, tokens/s, peak, busy
+             share and kernels a step as phase 22 (c). nemotron's bf16 step
+             needs more than one card: (b) is its check on the card.
+24. the kernels JSON line (the decode reads and copy_pages also give their
              phase-15 launches under "spec"; the kernels phase 16 launches
              their launches there under "obs"; flash_attention and
              flash_attention_bwd phase 17's under "train" and phase 21's
-             sharded step's under "dist", and with lru_scan and
+             sharded step's under "dist", with lru_scan and
              lru_scan_bwd phase 22's under "train_families" (the
-             backward's MLA rows under "mla"); the decode
+             backward's MLA rows under "mla") and phase 23's under
+             "train_zoo" (the backward's new shapes, with their launches
+             on phase 23, under "train_zoo_shapes"); the decode
              reads and chunk_attention the families' shapes with their
              phase-18 launches under "families"; flash_attention and the
              decode reads the zoo's shapes with their phase-19 launches
@@ -412,6 +438,7 @@ Any failure raises and exits nonzero; no result line is printed then.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -4243,20 +4270,23 @@ RESTART_TOL = 1e-6       # (d): resumed vs uninterrupted params
 WELL_CONDITIONED = 100.0
 
 
-def _bwd_inputs(b, s, dt, dev, gen, heads=(16, 8), dims=(128, 128)):
+def _bwd_inputs(b, s, dt, dev, gen, heads=(16, 8), dims=(128, 128),
+                sk=None, causal=True):
     """A maker of (q, k, v, o, dO, lse) at qwen3's H 16 / Hkv 8 / dh 128
-    (or ``heads`` (H, Hkv) and ``dims`` (d_qk, d_v)), the forward's o and
-    lse from its kernel, and the bytes the backward must move."""
+    (or ``heads`` (H, Hkv) and ``dims`` (d_qk, d_v)), ``s`` queries and
+    ``sk`` keys (default ``s``), the forward's o and lse from its kernel
+    (``causal`` or not), and the bytes the backward must move."""
     from repro_torch.kernels import flash_attention as FA
     h, hkv = heads
     dqk, dv = dims
+    sk = s if sk is None else sk
 
     def make():
         q = torch.randn((b, s, h, dqk), generator=gen, device=dev).to(dt)
-        k = torch.randn((b, s, hkv, dqk), generator=gen, device=dev).to(dt)
-        v = torch.randn((b, s, hkv, dv), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, sk, hkv, dqk), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, sk, hkv, dv), generator=gen, device=dev).to(dt)
         do = torch.randn((b, s, h, dv), generator=gen, device=dev).to(dt)
-        out, lse = FA.forward_launch(q, k, v, causal=True, q_offset=0,
+        out, lse = FA.forward_launch(q, k, v, causal=causal, q_offset=0,
                                      scale=dqk ** -0.5, cap=0.0,
                                      with_lse=True)
         return q, k, v, out, do, lse
@@ -4264,8 +4294,9 @@ def _bwd_inputs(b, s, dt, dev, gen, heads=(16, 8), dims=(128, 128)):
     # q read and dq written at H heads of d_qk, o and dO read at H of d_v;
     # k read and dk written at Hkv of d_qk, v and dv at Hkv of d_v; lse
     # read once
-    nbytes = (b * s * esz * (2 * h * dqk + 2 * h * dv + 2 * hkv * dqk
-                             + 2 * hkv * dv) + b * h * s * 4)
+    nbytes = (b * s * esz * (2 * h * dqk + 2 * h * dv)
+              + b * sk * esz * (2 * hkv * dqk + 2 * hkv * dv)
+              + b * h * s * 4)
     return make, nbytes
 
 
@@ -4317,7 +4348,7 @@ def _bwd_kernel_checks(dev, gen) -> dict:
     return rec
 
 
-def _sdpa(q, k, v, grad: bool):
+def _sdpa(q, k, v, grad: bool, causal: bool = True):
     """SDPA on the kernel's inputs, K/V repeated to H heads and (B, H, S, d)
     views (a yardstick: the port never calls it); with ``grad`` the leaves
     require grad."""
@@ -4326,38 +4357,44 @@ def _sdpa(q, k, v, grad: bool):
                   for t in (q, k.repeat_interleave(g, dim=2),
                             v.repeat_interleave(g, dim=2)))
     o = torch.nn.functional.scaled_dot_product_attention(qq, kk, vv,
-                                                         is_causal=True)
+                                                         is_causal=causal)
     return o, (qq, kk, vv)
 
 
 def _bwd_timing(make, nbytes, b, s, dt, abs_err, with_fwd, heads=(16, 8),
-                dims=(128, 128)) -> dict:
+                dims=(128, 128), sk=None, causal=True) -> dict:
     """The bf16 backward's device ms at (b, s) beside its plain version,
     SDPA's backward and the bound, with its two kernels apart; with
     ``with_fwd`` also the forward's: without and with its lse in turns
     (FWD_LSE_PAIRS pairs), the plain forward and SDPA's forward, and its
-    bound. ``heads`` and ``dims`` as ``_bwd_inputs``'s."""
+    bound. ``heads``, ``dims``, ``sk`` and ``causal`` as
+    ``_bwd_inputs``'s."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
     h, hkv = heads
     dqk, dv = dims
+    sk = s if sk is None else sk
     sets = _copies(make, nbytes)
-    pairs = s * (s + 1) // 2
+    # the (query, key) pairs the products run over: the causal triangle
+    # (Sq == Sk, q_offset 0), or every pair
+    pairs = s * (s + 1) // 2 if causal else s * sk
     # five products of the recompute scheme: S, dQ, dK over d_qk; dP, dV
     # over d_v
     flops = 2.0 * b * h * pairs * (3 * dqk + 2 * dv)
     bound, by = _bound(nbytes, flops, dt)
     parts = {}
-    ms = _device_ms(FA.flash_attention_bwd, sets, 50 if s <= 1024 else 20,
-                    by_name=parts, bound_ms=bound, markers=MARKERS,
-                    each=BWD_KERNELS)
+    ms = _device_ms(functools.partial(FA.flash_attention_bwd,
+                                      causal=causal), sets,
+                    50 if s <= 1024 else 20, by_name=parts, bound_ms=bound,
+                    markers=MARKERS, each=BWD_KERNELS)
     split = {key: sum(t for n, t in parts.items() if key in n)
              for key in BWD_KERNELS}
-    plain_ms = _device_ms(ref.flash_attention_bwd, sets[:4],
+    plain_ms = _device_ms(functools.partial(ref.flash_attention_bwd,
+                                            causal=causal), sets[:4],
                           5 if s <= 1024 else 2, markers=MARKERS)
 
     def sdpa_graph(q, k, v, out, do, lse):
-        o, ins = _sdpa(q, k, v, True)
+        o, ins = _sdpa(q, k, v, True, causal)
         return o, ins, do.transpose(1, 2)
     graphs = [sdpa_graph(*st) for st in sets[:8]]
 
@@ -4373,7 +4410,11 @@ def _bwd_timing(make, nbytes, b, s, dt, abs_err, with_fwd, heads=(16, 8),
            "library_ms": lib_ms, "shape": shape,
            "dtype": "bfloat16", "parts_ms": split,
            "useful_tflops": flops / ms / 1e9}
-    label = f"({b},{s},{h}/{hkv},{dqk}" + (f"/{dv})" if dv != dqk else ")")
+    if sk != s or not causal:
+        rec.update(sk=sk, causal=causal)
+    label = (f"({b},{s}" + (f"/Sk {sk}" if sk != s else "")
+             + f",{h}/{hkv},{dqk}" + (f"/{dv})" if dv != dqk else ")")
+             + ("" if causal else " non-causal"))
     print(f"  flash_attention_bwd {label} bf16: {ms:.4f} ms "
           f"(dQ {split['dq_kernel']:.4f}, dK/dV {split['dkdv_kernel']:.4f}), "
           f"{rec['useful_tflops']:.1f} TFLOP/s useful; "
@@ -6019,60 +6060,73 @@ def _parity_families():
                                           n_layers=4), (0, 3)))
 
 
-def _mla_bwd_checks(dev, gen) -> dict:
-    """(a) flash_attention_bwd at (192, 128), 128 heads: the forward's lse
-    and output, then the backward against the plain version in f32 and
-    bf16, twice for the bits; the bf16 times beside SDPA's backward (E_v
-    != E). Returns the training shape's record, the other under
-    "shapes"."""
+def _bwd_shape_checks(cases, dev, gen) -> dict:
+    """(a) of phases 22 and 23, at each (label, B, Sq, Sk, (H, Hkv), (d_qk,
+    d_v), causal) of ``cases``: the forward's lse and output, then
+    flash_attention_bwd against the plain version in f32 and bf16, twice
+    for the bits; the bf16 times beside SDPA's backward (E_v may differ
+    from E) and the bound. Returns {label: its bf16 timing record}."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
     recs = {}
-    for label, b, s in MLA_BWD_SHAPES:
+    for label, b, sq, sk, heads, dims, causal in cases:
         for dt in (torch.float32, torch.bfloat16):
-            make, nbytes = _bwd_inputs(b, s, dt, dev, gen, MLA_HEADS,
-                                       MLA_DIMS)
+            make, nbytes = _bwd_inputs(b, sq, dt, dev, gen, heads, dims,
+                                       sk=sk, causal=causal)
             q, k, v, out, do, lse = make()
-            scale = MLA_DIMS[0] ** -0.5
-            want_o = ref.flash_attention(q, k, v, scale=scale)
-            want_lse = ref.attention_lse(q, k, scale=scale)
+            want_o = ref.flash_attention(q, k, v, causal=causal)
+            want_lse = ref.attention_lse(q, k, causal=causal)
             err_o = float((out.float() - want_o.float()).abs().max())
             err_lse = float((lse - want_lse).abs().max()
                             / want_lse.abs().max())
             del want_o, want_lse
-            check(err_o < TOL[dt], f"MLA flash fwd {label} {dt}: {err_o}")
+            check(err_o < TOL[dt], f"{label} flash fwd {dt}: {err_o}")
             check(err_lse < LSE_REL_TOL[dt],
-                  f"MLA flash lse {label} {dt}: rel {err_lse}")
-            got = FA.flash_attention_bwd(q, k, v, out, do, lse, scale=scale)
+                  f"{label} flash lse {dt}: rel {err_lse}")
+            got = FA.flash_attention_bwd(q, k, v, out, do, lse,
+                                         causal=causal)
             again = FA.flash_attention_bwd(q, k, v, out, do, lse,
-                                           scale=scale)
+                                           causal=causal)
             want = ref.flash_attention_bwd(q, k, v, out, do, lse,
-                                           scale=scale)
+                                           causal=causal)
             torch.cuda.synchronize(dev)
             rels, abs_err = [], 0.0
             for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
-                check(g.shape == w.shape, f"MLA bwd {name} {tuple(g.shape)}")
-                check(torch.equal(g, a), f"MLA flash_attention_bwd {label} "
+                check(g.shape == w.shape, f"{label} bwd {name} "
+                                          f"{tuple(g.shape)}")
+                check(torch.equal(g, a), f"{label} flash_attention_bwd "
                                          f"{dt} {name}: not bit for bit")
                 d = float((g.float() - w.float()).abs().max())
                 abs_err = max(abs_err, d)
                 rels.append(d / float(w.float().abs().max()))
-                check(rels[-1] <= TOL[dt], f"MLA flash_attention_bwd "
-                      f"{label} {dt} {name}: rel max|Δ| {rels[-1]} > "
-                      f"{TOL[dt]}")
-            print(f"  (a) MLA {label} ({b},{s},128/128,192/128) "
+                check(rels[-1] <= TOL[dt], f"{label} flash_attention_bwd "
+                      f"{dt} {name}: rel max|Δ| {rels[-1]} > {TOL[dt]}")
+            print(f"  (a) {label} ({b},{sq}/Sk {sk},{heads[0]}/{heads[1]},"
+                  f"{dims[0]}" + (f"/{dims[1]}" if dims[1] != dims[0]
+                                  else "")
+                  + f", {'causal' if causal else 'non-causal'}) "
                   f"{str(dt)[6:]}: out max|Δ| {err_o:.2e}, lse rel "
                   f"{err_lse:.2e}; bwd rel max|Δ| dq {rels[0]:.2e} dk "
                   f"{rels[1]:.2e} dv {rels[2]:.2e}; run to run bit for bit",
                   flush=True)
             del q, k, v, out, do, lse, got, again, want
             if dt == torch.bfloat16:
-                recs[label] = _bwd_timing(make, nbytes, b, s, dt, abs_err,
-                                          with_fwd=False, heads=MLA_HEADS,
-                                          dims=MLA_DIMS)
+                recs[label] = _bwd_timing(make, nbytes, b, sq, dt, abs_err,
+                                          with_fwd=False, heads=heads,
+                                          dims=dims, sk=sk, causal=causal)
             _free(dev)
-    rec = recs[MLA_BWD_SHAPES[0][0]]
-    rec["shapes"] = [recs[label] for label, _b, _s in MLA_BWD_SHAPES[1:]]
+    return recs
+
+
+def _mla_bwd_checks(dev, gen) -> dict:
+    """(a) flash_attention_bwd at (192, 128), 128 heads, at each
+    MLA_BWD_SHAPES shape (``_bwd_shape_checks``). Returns the training
+    shape's record, the other under "shapes"."""
+    recs = _bwd_shape_checks([(f"MLA {label}", b, s, s, MLA_HEADS, MLA_DIMS,
+                               True) for label, b, s in MLA_BWD_SHAPES],
+                             dev, gen)
+    rec, *rest = recs.values()
+    rec["shapes"] = rest
     return rec
 
 
@@ -6243,17 +6297,22 @@ def _family_grad_parity(label, cfg, dev, want) -> None:
     _free(dev)
 
 
-def _family_train(label, cfg, cut, want, dev, card) -> dict:
+def _family_train(label, cfg, cut, want, dev, card, peak_gib=80.0,
+                  tally=None, extras=None) -> dict:
     """(c) FAMILY_STEPS make_train_step steps of ``cfg`` at full width,
     bf16 over float32 masters, B 8 S 128, as launch.train.main builds
-    them: every loss finite, the launches exact (``want``: flash and
-    lru_scan launches a step), step ms and tokens/s (median after 2, host
-    clock after a synchronize), peak GiB, then FAMILY_PROFILED more steps
-    profiled between markers (busy share). Returns the run's launch
-    counts."""
+    them (the stub frontends' batch keys too, or ``extras`` in their
+    place): every loss finite, the
+    launches exact (``want``: flash and lru_scan launches a step), step ms
+    and tokens/s of the S text tokens (median after 2, host clock after a
+    synchronize), peak GiB under ``peak_gib``, then FAMILY_PROFILED more
+    steps profiled between markers (busy share). ``tally`` (a dict)
+    receives the measured steps' forward flash launches with lse by (B,
+    Sq, Sk, H, Hkv, d). Returns the run's launch counts."""
     from repro_torch.data.pipeline import ShardedLMPipeline
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import stub_batch
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw_init
     _free(dev)
@@ -6267,20 +6326,23 @@ def _family_train(label, cfg, cut, want, dev, card) -> dict:
                            total_steps=FAMILY_STEPS)
     pipe = ShardedLMPipeline(global_batch=8, seq_len=128, vocab=cfg.vocab,
                              seed=0)
-    batches = [_train_batch(pipe, i, dev)
+    if extras is None:
+        extras = stub_batch(cfg, 8, dev)
+    batches = [dict(_train_batch(pipe, i, dev), **extras)
                for i in range(FAMILY_STEPS + FAMILY_PROFILED)]
     torch.cuda.synchronize(dev)
     setup = time.perf_counter() - t0
     ops.reset_launch_counts()
     losses, auxes, times = [], [], []
-    for i in range(FAMILY_STEPS):
-        torch.cuda.synchronize(dev)
-        t1 = time.perf_counter()
-        _, _, m = step(model, opt, batches[i])
-        torch.cuda.synchronize(dev)
-        times.append(time.perf_counter() - t1)
-        losses.append(float(m["loss"]))
-        auxes.append(float(m["aux"]))
+    with _flash_shapes(tally):
+        for i in range(FAMILY_STEPS):
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            _, _, m = step(model, opt, batches[i])
+            torch.cuda.synchronize(dev)
+            times.append(time.perf_counter() - t1)
+            losses.append(float(m["loss"]))
+            auxes.append(float(m["aux"]))
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     check(all(map(math.isfinite, losses + auxes)),
@@ -6291,7 +6353,8 @@ def _family_train(label, cfg, cut, want, dev, card) -> dict:
                           "lru_scan": lru * FAMILY_STEPS,
                           "lru_scan_bwd": lru * FAMILY_STEPS},
                  f"{label} train")
-    check(peak < 80 * 2 ** 30, f"{label}: peak {peak / 2 ** 30:.2f} GiB")
+    check(peak < peak_gib * 2 ** 30, f"{label}: peak {peak / 2 ** 30:.2f} "
+                                     f"GiB, over {peak_gib}")
     med = sorted(times[2:])[len(times[2:]) // 2] * 1e3
     ev = _device_events(lambda: [step(model, opt, batches[FAMILY_STEPS + i])
                                  for i in range(FAMILY_PROFILED)],
@@ -6301,7 +6364,9 @@ def _family_train(label, cfg, cut, want, dev, card) -> dict:
                            f"{FAMILY_PROFILED} profiled steps:", "step")
     print(f"  (c) {label} ({cut}; {n_params / 1e9:.3f} B params, "
           f"{18 * n_params / 1e9:.1f} GB at 18 B a param), bf16 over f32 "
-          f"masters, SOI pp, B 8 S 128, {FAMILY_STEPS} steps: loss "
+          f"masters, {_soi_of(cfg)}, B 8 S 128"
+          + "".join(f" + {k} {tuple(v.shape[1:])}" for k, v in extras.items())
+          + f", {FAMILY_STEPS} steps: loss "
           f"{losses[0]:.4f} -> {losses[-1]:.4f} (aux {auxes[0]:.5f} -> "
           f"{auxes[-1]:.5f}); step median {med:.2f} ms (host clock after a "
           f"synchronize, {FAMILY_STEPS - 2} after 2), "
@@ -6316,6 +6381,35 @@ def _family_train(label, cfg, cut, want, dev, card) -> dict:
     del model, opt, step, batches
     _free(dev)
     return counts
+
+
+def _soi_of(cfg) -> str:
+    return f"SOI {cfg.soi.mode}" if cfg.soi is not None else "no SOI"
+
+
+@contextlib.contextmanager
+def _flash_shapes(tally):
+    """With ``tally`` (a dict), count every forward flash launch with its
+    lse — one a training call of ``FlashAttentionFn``, whose backward is
+    one ``flash_attention_bwd`` launch — by (B, Sq, Sk, H, Hkv, d_qk): the
+    kernels' launch counters are the wrappers', unchanged."""
+    if tally is None:
+        yield
+        return
+    from repro_torch.kernels import flash_attention as FA
+    launch = FA.forward_launch
+
+    def counted(q, k, v, **kw):
+        if kw.get("with_lse"):
+            key = (q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                   k.shape[2], q.shape[3])
+            tally[key] = tally.get(key, 0) + 1
+        return launch(q, k, v, **kw)
+    FA.forward_launch = counted
+    try:
+        yield
+    finally:
+        FA.forward_launch = launch
 
 
 def train_families_phase(dev, card) -> tuple:
@@ -6336,6 +6430,225 @@ def train_families_phase(dev, card) -> tuple:
                                       card)
     print(f"  phase 22 took {time.perf_counter() - t0:.1f} s [{card}]")
     return mla_rec, lru_rec, counts
+
+
+# ---------------------------------------------------------------------------
+# 23. train-zoo: the encoder-decoder, prefix-LM, RWKV and LayerNorm /
+#     plain-MLP stacks trained
+# ---------------------------------------------------------------------------
+
+# flash_attention_bwd at the shapes this slice's training gives it, (label,
+# B, Sq, Sk, (H, Hkv), (d_qk, d_v), causal): whisper-tiny's encoder over
+# its 1500 frames (Sk = 23 x 64 + 28: a ragged last key tile), its cross
+# layers' 128 queries against them, its decoder's self attention (B 8, S
+# 128), and nemotron-4-15b's G 6 at (b)'s B 2
+ZOO_BWD_SHAPES = (
+    ("whisper encoder", 8, 1500, 1500, (6, 6), (64, 64), False),
+    ("whisper cross", 8, 128, 1500, (6, 6), (64, 64), False),
+    ("whisper self", 8, 128, 128, (6, 6), (64, 64), True),
+    ("nemotron G 6", 2, 128, 128, (48, 8), (128, 128), True))
+# (b)'s float64 anchor (rwkv6): a leaf's float32 gradients, the card's and
+# the CPU's, each off the float64 run by (max|Δ| / its largest), within
+# RATIO_64 of each other; below FLOOR_64 both are rounding alike
+RATIO_64, FLOOR_64 = 10.0, 1e-6
+# whisper's shapes are launched by (c)'s whisper run, nemotron's by (b)
+ZOO_BWD_ON = {"whisper encoder": "whisper-tiny", "whisper cross":
+              "whisper-tiny", "whisper self": "whisper-tiny",
+              "nemotron G 6": "nemotron-4-15b"}
+
+
+def _zoo_parity_archs():
+    """(label, config at full width, cut, batch, flash_attention launches
+    a loss, float64 anchor) of (b): float32, no SOI but rwkv6's (SOI pp,
+    as it serves)."""
+    from repro_torch import configs
+    return (
+        ("whisper-tiny", configs.get("whisper-tiny"),
+         "none (4 + 4 layers, 1500 frames)", 4, 12, False),
+        ("paligemma-3b", configs.get("paligemma-3b", n_layers=2),
+         "2 of 18 layers, 256 patch embeddings", 4, 0, False),
+        ("rwkv6-1.6b", configs.get("rwkv6-1.6b", soi="pp", n_layers=4),
+         "4 of 24 layers, SOI pp over 1..3", 4, 0, True),
+        ("nemotron-4-15b", configs.get("nemotron-4-15b", n_layers=2),
+         "2 of 32 layers (3.93 B parameters)", 2, 2, False))
+
+
+def _zoo_train_archs():
+    """(label, full-width config, cut, flash_attention launches a step,
+    peak GiB limit, seeded random patch embeddings in place of the zero
+    stub) of (c). paligemma runs without SOI: its prefix-LM attention then
+    takes the plain route in every layer, as the reference's does. Its
+    batch carries random patch embeddings, as an image encoder would give
+    them: behind the zero stub of the reference's trainer the 256 prefix
+    rows stay 0 through every layer (q, k, v, the MLP and the residual are
+    0 there), and each layer's RMSNorm backward multiplies their gradient
+    by rsqrt(eps) = 1000, so past ~12 layers it overflows to inf and 0 x
+    inf puts NaN in the weight gradients — the reference's gradient at 18
+    layers behind that stub is non-finite too (ROADMAP.md Queue 3)."""
+    from repro_torch import configs
+    return (
+        ("whisper-tiny", configs.get("whisper-tiny"),
+         "none (4 + 4 layers, 1500 frames)", 12, 80.0, False),
+        ("paligemma-3b", configs.get("paligemma-3b"),
+         "none (18 layers, 256 random patch embeddings)", 0, 72.0, True),
+        ("rwkv6-1.6b", configs.get("rwkv6-1.6b", soi="pp"),
+         "none (24 layers)", 0, 80.0, False))
+
+
+def _float64_grads(model, cfg, batch):
+    """(loss, {name: grad}) of a float64 copy of ``model`` on the card, the
+    model code's float32 upcasts (``.float()``) and compute dtype made
+    float64 for the call: the reference of (b)'s RWKV check (its stack runs
+    no kernel, so every op takes float64)."""
+    from repro_torch.models import transformer as T
+    m64 = copy.deepcopy(model).double()
+    upcast, dtype = torch.Tensor.float, T._dtype
+    torch.Tensor.float = lambda self, *a, **kw: self.double()
+    T._dtype = lambda c: torch.float64
+    try:
+        return _grads(m64, cfg, {k: v.double() if v.is_floating_point()
+                                 else v for k, v in batch.items()})
+    finally:
+        torch.Tensor.float, T._dtype = upcast, dtype
+
+
+def _zoo_grad_parity(label, cfg, cut, bsz, want, dev, tally,
+                     anchor64=False) -> dict:
+    """(b) one loss and its gradients of ``cfg`` in float32 on the card,
+    through the kernels, against the same weights and batch on the CPU
+    (the plain versions): loss and every gradient within GRAD_TOL of the
+    CPU's largest |value|; flash launches a loss exact (``want``). With
+    ``anchor64`` a leaf past GRAD_TOL passes only if the card's and the
+    CPU's float32 gradients sit equally far (within RATIO_64 of each
+    other) from a float64 run on the card: rwkv6's token-shift mix is a
+    clamp that holds ~70% of its entries at an edge, and an entry within
+    rounding of the edge takes another side on another device, so its
+    float32 gradients are far from float64 on both devices alike.
+    Returns the card run's launch counts."""
+    from repro_torch.data.pipeline import ShardedLMPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import stub_batch
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    t0 = time.perf_counter()
+    model = T.init(cfg, generator=torch.Generator(device=dev).manual_seed(
+        23), device=dev)
+    cpu = _cpu_copy(model, cfg)
+    pipe = ShardedLMPipeline(global_batch=bsz, seq_len=128, vocab=cfg.vocab,
+                             seed=0)
+    batch = _train_batch(pipe, 0, dev)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    for k, v in stub_batch(cfg, bsz, dev).items():
+        batch[k] = torch.randn(v.shape, generator=gen, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    ops.reset_launch_counts()
+    with _flash_shapes(tally):
+        lc, gc = _grads(model, cfg, batch)
+        torch.cuda.synchronize(dev)
+    counts = ops.launch_counts()
+    card_s = time.perf_counter() - t0
+    _counts_want(counts, {"flash_attention": want,
+                          "flash_attention_bwd": want},
+                 f"{label} card vs CPU, card run")
+    l64 = g64 = None
+    if anchor64:
+        l64, g64 = _float64_grads(model, cfg, batch)
+    # the card keeps its gradients; the weights go before the CPU run
+    del model
+    _free(dev)
+    t1 = time.perf_counter()
+    lp, gp = _grads(cpu, cfg, {k: v.cpu() for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t1
+    rel_loss = abs(float(lc) - float(lp)) / abs(float(lp))
+    check(rel_loss <= GRAD_TOL, f"{label} loss {float(lc)} vs CPU "
+                                f"{float(lp)}")
+    worst, where, anchored = 0.0, None, []
+    for k in gp:
+        want_k = gp[k].to(dev)
+        r = float((gc[k] - want_k).abs().max()
+                  / want_k.abs().max().clamp_min(1e-30))
+        if r > worst:
+            worst, where = r, k
+        if r > GRAD_TOL and g64 is not None:
+            w = g64[k]
+            scale = float(w.abs().max().clamp_min(1e-300))
+            e_card, e_cpu = (max(float((g.double() - w).abs().max())
+                                 / scale, FLOOR_64)
+                             for g in (gc[k], want_k))
+            check(e_card <= RATIO_64 * e_cpu and e_cpu <= RATIO_64 * e_card,
+                  f"{label} grad {k}: card vs CPU rel {r}, and against "
+                  f"float64 card {e_card} / CPU {e_cpu}")
+            anchored.append((r, e_card, e_cpu, k))
+            continue
+        check(r <= GRAD_TOL, f"{label} grad {k}: rel {r} card vs CPU")
+    line = ""
+    if anchor64:
+        top = max(anchored, default=None)
+        line = (f"; float64 loss {float(l64):.6f}; {len(anchored)} of "
+                f"{len(gp)} leaves past {GRAD_TOL} card vs CPU, each as far "
+                f"from float64 on both devices"
+                + (f" (worst {top[3]}: card vs CPU {top[0]:.2e}, float64 "
+                   f"off by {top[1]:.2e} card / {top[2]:.2e} CPU)"
+                   if top else ""))
+    print(f"  (b) {label} ({cut}; {n_params / 1e9:.3f} B params), f32, B "
+          f"{bsz} S 128"
+          + "".join(f" + {k} {tuple(batch[k].shape[1:])}"
+                    for k in ("patch_embeds", "encoder_frames")
+                    if k in batch)
+          + f": loss {float(lc):.6f} card vs {float(lp):.6f} CPU (rel "
+          f"{rel_loss:.2e}); worst grad rel max|Δ| {worst:.2e} ({where})"
+          + line + f"; flash {counts['flash_attention']} + "
+          f"{counts['flash_attention_bwd']} bwd a loss; card {card_s:.1f} "
+          f"s with the copy, CPU {cpu_s:.1f} s; host peak RSS "
+          f"{_host_peak_gib():.1f} GiB", flush=True)
+    del cpu, gc, gp, g64, batch
+    _free(dev)
+    return counts
+
+
+def zoo_train_phase(dev, card) -> tuple:
+    """Phase 23. Returns ({label: (a)'s timing record with its launches},
+    {family: launch counts of its (c) run})."""
+    phase("23 train-zoo (flash_attention_bwd at whisper's 1500 frames and "
+          "nemotron's G 6; whisper-tiny, paligemma-3b, rwkv6-1.6b and "
+          "nemotron-4-15b card vs CPU; whisper, paligemma and rwkv6 "
+          "trained at full width)")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(23)
+    recs = _bwd_shape_checks(ZOO_BWD_SHAPES, dev, gen)
+    shapes = {}                    # (B, Sq, Sk, H, Hkv, d) -> launches
+    for label, cfg, cut, bsz, want, anchor in _zoo_parity_archs():
+        tally = {} if label == "nemotron-4-15b" else None
+        _zoo_grad_parity(label, cfg, cut, bsz, want, dev, tally,
+                         anchor64=anchor)
+        shapes.update(tally or {})
+    counts = {}
+    for label, cfg, cut, flash, peak, random_prefix in _zoo_train_archs():
+        tally = {} if flash else None
+        extras = None
+        if random_prefix:
+            extras = {"patch_embeds": torch.randn(
+                (8, cfg.frontend_len, cfg.d_model), generator=gen,
+                device=dev).to(torch.bfloat16)}
+        counts[label] = _family_train(label, cfg, cut, (flash, 0), dev,
+                                      card, peak_gib=peak, tally=tally,
+                                      extras=extras)
+        shapes.update(tally or {})
+    for label, b, sq, sk, (h, hkv), (dh, _), _causal in ZOO_BWD_SHAPES:
+        n = shapes.get((b, sq, sk, h, hkv, dh), 0)
+        arch = ZOO_BWD_ON[label]
+        check(n > 0, f"flash_attention_bwd never ran at {label}'s shape on "
+                     f"{arch}'s training")
+        recs[label].update(
+            launches=n, launches_on=(
+                f"train zoo ({arch}, {FAMILY_STEPS} steps)"
+                if arch in counts else f"train zoo ({arch} card vs CPU, "
+                                       f"one loss)"))
+    print(f"  (a) launches by shape (the forward's with lse, one backward "
+          f"each): {', '.join(f'{k}: {v}' for k, v in shapes.items())}")
+    print(f"  phase 23 took {time.perf_counter() - t0:.1f} s [{card}]")
+    return recs, counts
+
 
 
 def main():
@@ -6369,6 +6682,8 @@ def main():
     _free(dev)
     mla_bwd, main_recs["lru_scan_bwd"], fam_train = train_families_phase(
         dev, card)
+    _free(dev)
+    zoo_bwd, zoo_train = zoo_train_phase(dev, card)
     # launches: each kernel's count on its own path's run — the dense
     # serve (phase 5), the paged prefix-cache serve (phase 6), the
     # deepseek-v2 serve (phase 8), the MLA prefix-cache serve (phase 9),
@@ -6490,6 +6805,26 @@ def main():
                         "launches_on": f"train families ({label}, "
                                        f"{FAMILY_STEPS} steps)"}
                 for label, cnt_f in fam_train.items() if cnt_f[name]}
+        if name in ("flash_attention", "flash_attention_bwd"):
+            # phase 23's training runs of the zoo (whisper's: paligemma's
+            # and rwkv6's launch none)
+            summary[-1]["train_zoo"] = {
+                label: {"launches": cnt_z[name],
+                        "launches_on": f"train zoo ({label}, "
+                                       f"{FAMILY_STEPS} steps)"}
+                for label, cnt_z in zoo_train.items() if cnt_z[name]}
+            check(zoo_train["whisper-tiny"][name] > 0,
+                  f"{name} never launched on whisper-tiny's training")
+        if name == "flash_attention_bwd":
+            # the shapes phase 23's training gives it, each with its
+            # launches there
+            summary[-1]["train_zoo_shapes"] = {
+                label: {key: r[key] for key in (
+                    "shape", "sk", "causal", "max_abs_err", "ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "parts_ms", "useful_tflops", "launches", "launches_on")
+                        if key in r}
+                for label, r in zoo_bwd.items()}
         if name == "flash_attention_bwd":
             # its second path: deepseek-v2's MLA stack trained (phase 22)
             summary[-1]["mla"] = {key: mla_bwd[key] for key in (
@@ -6547,7 +6882,7 @@ def main():
             summary[-1]["rg_middle"].update(
                 launches=rg_second[name][name],
                 launches_on="rg serve (dense), outer and middle layers")
-    print(f"== 23 done in {time.perf_counter() - T_START:.1f} s")
+    print(f"== 24 done in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

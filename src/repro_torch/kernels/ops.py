@@ -28,10 +28,12 @@ window. ``flash_attention`` here does the same: a window goes to the plain
 through it is autograd's of that plain function, as the reference's is
 XLA's. Nor has prefix-LM prefill: the reference sends a ``prefix_len >
 0`` to its plain ``ref.chunked_flash_attention`` on every backend, the TPU
-included, and here it goes to the plain ``ref.flash_attention`` on every
-device (refused under grad on the card: the prefix-LM's training is not
-ported). The CUDA flash kernel runs only causal or full prefill with
-neither.
+included, and differentiates it with XLA; here it goes to the plain
+``ref.flash_attention`` on every device, and a gradient through it is
+autograd's of that plain function (the prefix-LM's training, paligemma's,
+on the card too). These two routes are the reference's own, not
+fallbacks: no TPU kernel computes windowed or prefix-LM attention. The
+CUDA flash kernel runs only causal or full prefill with neither.
 """
 
 from __future__ import annotations
@@ -41,7 +43,6 @@ from repro_torch.kernels.chunk_attention import (chunk_attention,
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention,
                                                   paged_mla_decode_attention)
-from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
 from repro_torch.kernels.lru_scan import lru_scan, lru_scan_bwd
@@ -66,9 +67,8 @@ def flash_attention(q, k, v, *, causal=True, window=None, prefix_len=0,
     device, as the reference routes them (it has no kernel for either).
     With grad mode on and an input that requires grad, the card runs the
     kernel with its CUDA backward (``flash_attention_bwd``), and the
-    windowed route is differentiated by autograd, as the reference's plain
-    route is by XLA; the prefix route then raises on the card
-    (``_build.refuse_grad``): prefix-LM training is not ported."""
+    windowed and prefix routes are differentiated by autograd, as the
+    reference's plain routes are by XLA."""
     if window is None and not prefix_len:
         return _flash.flash_attention(
             q, k, v, causal=causal, q_offset=q_offset, scale=scale,
@@ -76,8 +76,6 @@ def flash_attention(q, k, v, *, causal=True, window=None, prefix_len=0,
     if window is not None and (not causal or prefix_len):
         raise ValueError("windowed attention is causal, without a prefix")
     if window is None:
-        if q.device.type == "cuda":
-            _build.refuse_grad("prefix-LM attention", q, k, v)
         return ref.flash_attention(q, k, v, causal=causal,
                                    prefix_len=prefix_len, q_offset=q_offset,
                                    scale=scale, logit_softcap=logit_softcap)

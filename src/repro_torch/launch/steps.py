@@ -28,8 +28,8 @@ Refused on a mesh (``NotImplementedError``, ROADMAP.md): ``fsdp``,
 heads, say), ``compress`` where the model axis has more than one rank
 (a shard's 256-blocks are not the whole leaf's), MoE stacks (the router's
 aux loss takes the global batch's statistics, and there is no expert
-parallelism), and MLA and RG-LRU stacks on more than one rank (no
-tensor-parallel hooks in either). ``make_serve_step`` and
+parallelism), and MLA, RG-LRU and RWKV stacks, the encoder-decoder and
+the prefix-LM on more than one rank. ``make_serve_step`` and
 ``make_prefill`` run without a mesh only.
 """
 
@@ -73,7 +73,6 @@ def make_train_step(cfg: ModelCfg, rules: ShardingRules = None, mesh=None,
     ``aux``, ``grad_norm`` and ``lr`` are 0-d tensors there (no host
     read). With a ``mesh`` see the module docstring: ``batch`` is this
     rank's ``local_batch``."""
-    T.check_trainable(cfg)
     if mesh is not None:
         _check_mesh_stack(cfg, mesh)
         return _sharded_train_step(
@@ -175,20 +174,25 @@ def _refuse(what: str):
 def _check_mesh_stack(cfg: ModelCfg, mesh):
     """Refuse the stacks the sharded step does not hold: MoE on any mesh
     (its aux loss is not in the sharded loss, and it would need the global
-    batch's routing statistics and expert parallelism), MLA and RG-LRU on
-    more than one rank (no tensor-parallel hooks in either)."""
+    batch's routing statistics and expert parallelism); MLA, RG-LRU and
+    RWKV stacks, the encoder-decoder and the prefix-LM on more than one
+    rank (no tensor-parallel hooks in the first three, no test holding the
+    last two's sharded step)."""
     blocks = T.layer_blocks(cfg)
     if any(b.moe is not None for b in blocks):
         _refuse("MoE stacks (the router's aux loss over the global batch, "
                 "expert parallelism)")
     ranks = mesh.size()
-    for what, present in (
+    hooks, held = "no tensor-parallel hooks", "no sharded step held"
+    for what, present, why in (
             ("MLA", any(b.attn is not None and b.attn.kind == "mla"
-                        for b in blocks)),
-            ("RG-LRU", any(b.rglru is not None for b in blocks))):
+                        for b in blocks), hooks),
+            ("RG-LRU", any(b.rglru is not None for b in blocks), hooks),
+            ("RWKV", any(b.rwkv is not None for b in blocks), hooks),
+            ("encoder-decoder", cfg.encoder is not None, held),
+            ("prefix-LM", cfg.prefix_lm, held)):
         if present and ranks > 1:
-            _refuse(f"{what} stacks on {ranks} ranks (no tensor-parallel "
-                    f"hooks)")
+            _refuse(f"{what} stacks on {ranks} ranks ({why})")
 
 
 def _check_layout(cfg: ModelCfg, rules: ShardingRules, mesh,

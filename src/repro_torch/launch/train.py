@@ -6,10 +6,13 @@ synthetic data pipeline, the train step of ``launch.steps`` (bf16 compute
 over float32 masters for bf16 configs), async atomic checkpoints,
 restore-on-restart. Weights are random from ``torch.Generator`` seeded by
 ``--seed``; ``--device`` defaults to the GPU (``cpu`` runs the plain
-kernels). Configs whose training is not ported (LayerNorm, the plain MLP,
-RWKV, encoder-decoder, prefix-LM: ``models.transformer.check_trainable``,
-ROADMAP.md) are refused; a MoE config's loss adds its routers' aux loss.
-``main(argv)`` returns the list of losses.
+kernels). Every family trains; the stub frontends are fed as the
+reference's trainer feeds them: zero ``patch_embeds`` (B, frontend_len, d)
+ahead of a patch-stub config's tokens, ``encoder_frames`` of 0.1 (B,
+n_frames, d_enc) for an encoder-decoder, both in bfloat16. On
+the card an attention logit softcap is refused
+(``models.transformer.check_trainable``, ROADMAP.md); a MoE config's loss
+adds its routers' aux loss. ``main(argv)`` returns the list of losses.
 
     python -m repro_torch.launch.train --arch qwen3-1.7b --soi pp \\
         --steps 30 --batch 8 --seq 128
@@ -34,6 +37,24 @@ from repro_torch.obs.clock import now
 from repro_torch.optim import adamw_init
 
 
+def stub_batch(cfg, batch: int, device) -> dict:
+    """The stub frontends' batch keys (``repro.launch.train``'s
+    ``extra_batch``): zero ``patch_embeds`` (B, frontend_len, d) for a
+    patch-stub config, ``encoder_frames`` of 0.1 (B, n_frames, d_enc) for
+    an encoder-decoder, in bfloat16 as the reference makes them (the
+    model casts both to its compute dtype); {} for a text-only config."""
+    dt = torch.bfloat16
+    extras = {}
+    if cfg.frontend == "patch_stub":
+        extras["patch_embeds"] = torch.zeros(
+            (batch, cfg.frontend_len, cfg.d_model), dtype=dt, device=device)
+    if cfg.encoder is not None:
+        extras["encoder_frames"] = torch.full(
+            (batch, cfg.encoder.n_frames, cfg.encoder.d_model), 0.1,
+            dtype=dt, device=device)
+    return extras
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-1.7b", choices=configs.ARCHS)
@@ -55,16 +76,18 @@ def main(argv=None):
     dev = resolve_device(args.device)
     cfg = (configs.get_smoke(args.arch, soi=args.soi) if args.smoke
            else configs.get(args.arch, soi=args.soi))
-    T.check_trainable(cfg)
+    T.check_trainable(cfg, dev)
     pipe = ShardedLMPipeline(global_batch=args.batch, seq_len=args.seq,
                              vocab=cfg.vocab, seed=args.seed)
     step_fn = make_train_step(cfg, peak_lr=args.lr, warmup=20,
                               total_steps=args.steps)
+    extras = stub_batch(cfg, args.batch, dev)
     losses = []
 
     def one_step(state, step):
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in pipe.batch(step).items()}
+        batch.update(extras)
         p, o, metrics = step_fn(state["params"], state["opt"], batch)
         loss = float(metrics["loss"])
         losses.append(loss)

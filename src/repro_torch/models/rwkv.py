@@ -133,7 +133,7 @@ def wkv_chunked(r, k, v, wlog, u, *, chunk: int = CHUNK):
     n = (s + pad) // chunk
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=r.device), diagonal=-1)
-    S = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=r.device)
+    S = torch.zeros((b, h, dh, dh), dtype=r.dtype, device=r.device)
     ys = []
     for i in range(n):
         sl = slice(i * chunk, (i + 1) * chunk)

@@ -52,7 +52,7 @@ from repro_torch.models import rglru as rgm
 from repro_torch.models import rwkv as rkm
 from repro_torch.models.layers import dense_init, embed_init, from_model, \
     model_group, norm_apply, param, trunc_normal
-from repro_torch.models.mlp import GATED, MLP, mlp_apply
+from repro_torch.models.mlp import MLP, mlp_apply
 from repro_torch.models.moe import MoE, moe_apply
 
 
@@ -198,11 +198,19 @@ class Transformer(nn.Module):
             param(self, "soi_fuse", torch.cat([wf_new, eye], dim=0).to(dtype),
                   ("stub", "embed"))
 
-    def forward(self, tokens, aux: list | None = None):
-        """The final-norm hidden states (B, S, d) of ``tokens`` (what
-        ``loss_fn`` runs through ``torch.func.functional_call``); every MoE
-        layer appends its aux loss to ``aux`` when given."""
-        return trunk(self, self.cfg, tokens, aux=aux)
+    def forward(self, tokens, aux: list | None = None, *,
+                prefix_embeds=None, encoder_frames=None):
+        """The final-norm hidden states (B, P + S, d) of ``tokens`` after
+        ``prefix_embeds`` (B, P, d) when given, reading the encoder's
+        output over ``encoder_frames`` (B, n_frames, d_enc) in an
+        encoder-decoder config (what ``loss_fn`` runs through
+        ``torch.func.functional_call``, so the encoder runs on the same
+        cast copies and its gradients reach its masters); every MoE layer
+        appends its aux loss to ``aux`` when given."""
+        enc_out = (None if encoder_frames is None
+                   else encoder_trunk(self, self.cfg, encoder_frames))
+        return trunk(self, self.cfg, tokens, prefix_embeds=prefix_embeds,
+                     enc_out=enc_out, aux=aux)
 
 
 def layer_blocks(cfg: ModelCfg) -> list:
@@ -400,10 +408,17 @@ def _vocab_parallel_embed(embed, tokens):
 
 @torch.no_grad()
 def encode(params: Transformer, cfg: ModelCfg, frames):
-    """The audio encoder over stub frontend frames (B, n_frames, d_enc):
-    bidirectional blocks, the final LayerNorm and the projection into the
-    decoder's width. Returns (B, n_frames, d) in the compute dtype."""
-    params = cast_params(params, cfg)
+    """Serving's audio encoder over stub frontend frames (B, n_frames,
+    d_enc), on the module cast in place to the compute dtype
+    (``cast_params``). Returns (B, n_frames, d) in the compute dtype."""
+    return encoder_trunk(cast_params(params, cfg), cfg, frames)
+
+
+def encoder_trunk(params: Transformer, cfg: ModelCfg, frames):
+    """The audio encoder on ``params`` as they are (training runs it on
+    the cast copies of ``loss_sums``): bidirectional blocks, the final
+    LayerNorm and the projection into the decoder's width. Returns (B,
+    n_frames, d) in the compute dtype."""
     enc = params.encoder
     x = frames.to(_dtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)[None]
@@ -481,30 +496,24 @@ def forward(params: Transformer, cfg: ModelCfg, tokens, *,
 # Loss (training)
 # ---------------------------------------------------------------------------
 
-def check_trainable(cfg: ModelCfg) -> None:
-    """Raise for configs whose training is not ported, on every device:
-    the models and blocks that serve but whose training no test holds
-    against the JAX trainer yet — the encoder-decoder (whisper), the
-    prefix-LM (paligemma), RWKV blocks, LayerNorm and the plain
-    (squared-ReLU / GeLU) MLP (ROADMAP.md Queue 1 item 7). Attention (GQA,
-    windowed, MLA), the RG-LRU and MoE stacks with gated MLPs train."""
-    model_kind = ("encoder-decoder" if cfg.encoder is not None else
-                  "prefix-LM" if cfg.prefix_lm else None)
-    if model_kind is not None:
-        raise NotImplementedError(
-            f"config '{cfg.name}': {model_kind} training is queued in "
-            f"ROADMAP.md (Queue 1 item 7)")
-    for b in layer_blocks(cfg):
-        kind = ("RWKV" if b.rwkv is not None else
-                "LayerNorm" if b.norm == "layernorm" else
-                f"{b.mlp.kind} MLP" if b.mlp is not None
-                and b.mlp.kind not in GATED else None)
-        if kind is not None:
-            raise NotImplementedError(
-                f"config '{cfg.name}': training covers RMSNorm attention "
-                f"(GQA, windowed, MLA), RG-LRU and MoE stacks with gated "
-                f"MLPs; {kind} training is queued in ROADMAP.md (Queue 1 "
-                f"item 7)")
+def check_trainable(cfg: ModelCfg, device) -> None:
+    """Raise for what the port's training does not run on ``device``.
+    Every block and model kind trains (attention — GQA, windowed, MLA,
+    bidirectional and cross —, the RG-LRU and RWKV-6, MLPs and MoE, RMSNorm
+    and LayerNorm, the encoder-decoder and the prefix-LM); on the card an
+    attention ``logit_softcap`` outside a window is refused: the CUDA flash
+    backward takes no cap (ROADMAP.md Queue 1 item 7)."""
+    if torch.device(device).type != "cuda":
+        return
+    for b in layer_blocks(cfg) + (
+            [] if cfg.encoder is None else
+            [b for seg in cfg.encoder.segments for b in seg.blocks]):
+        for a in (b.attn, b.cross_attn):
+            if a is not None and a.logit_softcap and a.window is None:
+                raise NotImplementedError(
+                    f"config '{cfg.name}': an attention logit_softcap in "
+                    f"the flash_attention backward on the card is queued "
+                    f"in ROADMAP.md (Queue 1 item 7)")
 
 
 def _xent_chunk(hb, head_w, tb, softcap, group=None):
@@ -568,21 +577,31 @@ def loss_sums(params: Transformer, cfg: ModelCfg, batch: dict,
     its local shards, inside ``layers.model_parallel``; where the vocab is
     split the head's cross entropy reduces over the model axis. With
     ``aux`` (a list) every MoE layer appends its router's aux loss, which
-    ``loss_fn`` adds outside the mean.
+    ``loss_fn`` adds outside the mean. The batch's optional stubs, as the
+    reference's ``loss_fn`` reads them: ``patch_embeds`` (B, P, d) go
+    ahead of the token embeddings and their P positions are dropped before
+    the cross entropy (the prefix-LM); an encoder-decoder config's
+    encoder runs over ``encoder_frames`` (B, n_frames, d_enc) inside the
+    same differentiated call.
 
     Mixed precision as in the reference: every float32 master is cast to
     the compute dtype *inside* the differentiated function — the model runs
     on the cast copies through ``torch.func.functional_call`` — so the
     gradients reach the float32 masters in float32, and the module itself
     is not cast (unlike serving's in-place ``cast_params``)."""
-    check_trainable(cfg)
     dt = _dtype(cfg)
     if tensors is None:
         tensors = dict(params.named_parameters())
+    check_trainable(cfg, tensors["embed"].device)
     cast = {name: p.to(dt) if p.dtype == torch.float32 else p
             for name, p in tensors.items()}
-    h = torch.func.functional_call(params, cast, (batch["tokens"],),
-                                   {"aux": aux})
+    prefix = batch.get("patch_embeds")
+    kw = {"aux": aux, "prefix_embeds": prefix}
+    if cfg.encoder is not None:
+        kw["encoder_frames"] = batch["encoder_frames"]
+    h = torch.func.functional_call(params, cast, (batch["tokens"],), kw)
+    if prefix is not None:          # the loss is over the token positions
+        h = h[:, prefix.shape[1]:]
     head_w = cast["embed"].t() if cfg.tie_embeddings else cast["lm_head"]
     return xent_sums(h, head_w, batch["targets"], softcap=cfg.logits_softcap,
                      group=model_group() if head_w.shape[1] != cfg.vocab
@@ -590,8 +609,9 @@ def loss_sums(params: Transformer, cfg: ModelCfg, batch: dict,
 
 
 def loss_fn(params: Transformer, cfg: ModelCfg, batch: dict):
-    """batch: tokens (B, S), targets (B, S) [-1 = masked]. Returns (xent +
-    aux, {"xent", "aux"}), differentiable with respect to ``params`` (cast
+    """batch: tokens (B, S), targets (B, S) [-1 = masked], optional
+    ``patch_embeds`` / ``encoder_frames`` stubs (``loss_sums``). Returns
+    (xent + aux, {"xent", "aux"}), differentiable with respect to ``params`` (cast
     to the compute dtype inside, see ``loss_sums``): the masked mean cross
     entropy and the MoE routers' load-balancing losses summed in float32
     over every MoE layer, the SOI middle's included (0 without MoE), as

@@ -3,9 +3,10 @@ the JAX package: LayerNorm through ``norm_apply`` (its eps at least 1e-5),
 the plain squared-ReLU and GeLU MLPs (no ``gate``) and SwiGLU through
 ``mlp_apply``, the weight bridge on nemotron's LayerNorm + relu2 tree
 (every bias carried, a leaf missing or left over refused), and
-``check_trainable`` refusing LayerNorm, plain-MLP, RWKV and encoder-decoder
-stacks
-(their training is not held against the JAX trainer yet).
+``check_trainable`` accepting LayerNorm, plain-MLP, RWKV and
+encoder-decoder stacks (held against the JAX trainer in
+tests/test_torch_train_zoo.py) and refusing only an attention logit
+softcap on the card (the CUDA flash backward takes none).
 """
 
 import dataclasses
@@ -122,9 +123,38 @@ def test_check_trainable_refuses_what_is_not_held(arch, kind):
             seg, blocks=(blk,)),))
     else:
         cfg = pconfigs.get_smoke(arch)
-    with pytest.raises(NotImplementedError, match=f"{kind}.*Queue 1 item 7"):
-        PT.check_trainable(cfg)
+    # the stack of `kind` trains on every device
+    for device in ("cpu", "cuda"):
+        PT.check_trainable(cfg, device)
+    # an attention logit softcap is refused on the card only, and not
+    # inside a window (the plain windowed route takes it)
+    capped = _with_attn(cfg, logit_softcap=30.0)
+    if capped is not None:
+        PT.check_trainable(capped, "cpu")
+        with pytest.raises(NotImplementedError,
+                           match="logit_softcap.*Queue 1 item 7"):
+            PT.check_trainable(capped, "cuda")
+        PT.check_trainable(_with_attn(cfg, logit_softcap=30.0, window=8),
+                           "cuda")
     # windowed attention, MoE, MLA and RG-LRU stacks train
     for ok in ("mistral-large-123b", "h2o-danube-1.8b", "olmoe-1b-7b",
                "deepseek-v2-236b", "recurrentgemma-9b"):
-        PT.check_trainable(pconfigs.get_smoke(ok))
+        PT.check_trainable(pconfigs.get_smoke(ok), "cuda")
+
+
+def _with_attn(cfg, **kw):
+    """``cfg`` with ``kw`` set on every attention of its decoder and
+    encoder blocks, or None without attention."""
+    def blocks(segs):
+        return tuple(dataclasses.replace(seg, blocks=tuple(
+            dataclasses.replace(b, **{
+                f: dataclasses.replace(getattr(b, f), **kw)
+                for f in ("attn", "cross_attn") if getattr(b, f) is not None})
+            for b in seg.blocks)) for seg in segs)
+    if not any(b.attn is not None for b in PT.layer_blocks(cfg)):
+        return None
+    out = dataclasses.replace(cfg, segments=blocks(cfg.segments))
+    if cfg.encoder is not None:
+        out = dataclasses.replace(out, encoder=dataclasses.replace(
+            cfg.encoder, segments=blocks(cfg.encoder.segments)))
+    return out

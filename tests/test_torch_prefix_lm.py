@@ -17,8 +17,9 @@ image prefix of 8 positions, weights from the JAX ``init`` through
   * an SOI prefill of a prefix-LM config refused, as in the reference;
   * the serving driver at ``--arch paligemma-3b --smoke``, dense equal to
     paged;
-  * ``check_trainable`` refusing the three new families (training is
-    queued).
+  * ``check_trainable`` accepting the three families of this file's slice
+    (their training is held in tests/test_torch_train_zoo.py) and the mesh
+    step refusing each on more than one rank.
 """
 
 import dataclasses
@@ -186,6 +187,13 @@ def test_serve_driver_runs_paligemma_on_cpu():
                                        ("whisper-tiny", "encoder-decoder"),
                                        ("paligemma-3b", "prefix-LM")])
 def test_check_trainable_refuses_new_families(arch, kind):
+    """They train on every device now; what stays refused is their
+    sharded step on more than one rank (ROADMAP.md Queue 1 item 8)."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.steps import make_train_step
     cfg = pconfigs.get_smoke(arch)
-    with pytest.raises(NotImplementedError, match=kind):
-        PT.check_trainable(cfg)
+    for device in ("cpu", "cuda"):
+        PT.check_trainable(cfg, device)
+    make_train_step(cfg)
+    with pytest.raises(NotImplementedError, match=f"{kind} stacks"):
+        make_train_step(cfg, None, AbstractMesh({"data": 2, "model": 2}))

@@ -2,8 +2,9 @@
 .make_train_step`` with rules and a mesh) on gloo ranks, qwen3 smoke (4
 layers, d 64, 4/2 heads, vocab 256) in float32:
 
-  * a 2 x 2 (data x model) world, SOI none and pp, microbatches 2, and a
-    4 x 1 world with int8 compression: three steps on the same batch,
+  * a 2 x 2 (data x model) world, SOI none and pp, microbatches 2, a 4 x 1
+    world with int8 compression, and nemotron-4-15b's smoke (LayerNorm
+    with biases, squared ReLU; pp, 2 x 2): three steps on the same batch,
     with targets masked unevenly across the data ranks (a step that
     averaged per-rank means would be off), held after each step to the
     jitted JAX *unsharded* ``repro.launch.steps.make_train_step`` on the
@@ -29,9 +30,11 @@ import torch
 import torch.distributed as dist
 
 import _torch_ranks as R
+import repro.configs.nemotron_4_15b as JNM
 import repro.configs.qwen3_1_7b as Q
 from repro.launch.steps import make_train_step as jmake_train_step
 from repro.optim import adamw_init as jadamw_init
+from repro_torch.configs import nemotron_4_15b as PNM
 from repro_torch.configs import qwen3_1_7b as PQ
 from repro_torch.distributed.sharding import (ShardingRules, gather_params,
                                               gather_tree, shard_params)
@@ -41,18 +44,27 @@ from repro_torch.models import transformer as PT
 from repro_torch.optim import adamw_init
 from test_torch_train import (BOUNDS, STEP_KW, TOL, _by_name, _random_params,
                               _rel, _share_off)
+from test_torch_train_families import _random_params as _family_params
 
 torch.set_num_threads(1)
 
 WORLD, B, S, STEPS = 4, 8, 16, 3
-CASES = {"none 2x2": (None, (2, 2), False),
-         "pp 2x2": ("pp", (2, 2), False),
-         "none 4x1 compress": (None, (4, 1), True)}
+# name: (SOI mode, mesh, compress, arch module pair, weight draw)
+CASES = {"none 2x2": (None, (2, 2), False, (Q, PQ), _random_params),
+         "pp 2x2": ("pp", (2, 2), False, (Q, PQ), _random_params),
+         "none 4x1 compress": (None, (4, 1), True, (Q, PQ), _random_params),
+         # LayerNorm (its biases replicated) and the squared-ReLU MLP split
+         # over the model axis; drawn at test_torch_train_families.py's
+         # gains, as its training is held there: at gain 1 the unsharded
+         # port's and the reference's grad norms already differ by 2e-5,
+         # float32 rounding (test_gain_one_rounding_is_alike)
+         "nemotron pp 2x2": ("pp", (2, 2), False, (JNM, PNM),
+                             _family_params)}
 
 
-def _cfgs(mode):
-    return (dataclasses.replace(Q.smoke_config(soi=mode), dtype="float32"),
-            dataclasses.replace(PQ.smoke_config(soi=mode), dtype="float32"))
+def _cfgs(mode, mods=(Q, PQ)):
+    return tuple(dataclasses.replace(m.smoke_config(soi=mode),
+                                     dtype="float32") for m in mods)
 
 
 def _batch(vocab):
@@ -71,10 +83,10 @@ def _batch(vocab):
 def run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("sharded_train")
     cases = {}
-    for name, (mode, mesh, compress) in CASES.items():
-        jc, pc = _cfgs(mode)
+    for name, (mode, mesh, compress, mods, draw) in CASES.items():
+        jc, pc = _cfgs(mode, mods)
         cases[name] = dict(
-            cfg=pc, mesh=mesh, params=_random_params(jc), steps=STEPS,
+            cfg=pc, mesh=mesh, params=draw(jc), steps=STEPS,
             batch=_batch(jc.vocab),
             step_kw=dict(microbatches=2, compress=compress, **STEP_KW))
     R._save(tmp, "train_in.pkl", {"cases": cases,
@@ -86,9 +98,9 @@ def run(tmp_path_factory):
 @pytest.mark.parametrize("name", list(CASES))
 def test_sharded_step_matches_the_jax_unsharded_step(run, name):
     cases, out = run
-    mode, _, compress = CASES[name]
+    mode, _, compress, mods, _ = CASES[name]
     case, got = cases[name], out[name]
-    jc, pc = _cfgs(mode)
+    jc, pc = _cfgs(mode, mods)
     jparams = jax.tree.map(jnp.asarray, case["params"])
     jstep = jax.jit(jmake_train_step(jc, **case["step_kw"]))
     jopt = jadamw_init(jparams)

@@ -13,8 +13,8 @@ with SOI pp and fp:
     (the bounds past the first step: see ``BOUNDS``);
   * the bf16 config keeps float32 masters and float32 grads (the cast
     runs inside the differentiated function);
-  * the counterpart of the reference's two-steps-reduce-loss, the refusal
-    of the kinds whose training is not ported (RWKV, LayerNorm), and
+  * the counterpart of the reference's two-steps-reduce-loss, RWKV and
+    LayerNorm stacks through ``make_train_step`` and ``launch.train``, and
     ``launch.train.main`` on the CPU for 6 steps under the supervisor with
     a checkpoint directory.
 """
@@ -241,15 +241,15 @@ def test_two_steps_reduce_loss_direction():
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "nemotron-4-15b"])
 def test_moe_and_rglru_training_refused(arch):
-    """The kinds whose training is still refused (RWKV blocks, LayerNorm
-    with squared ReLU) raise in make_train_step and launch.train; MoE and
-    RG-LRU stacks train (tests/test_torch_train_families.py)."""
+    """The kinds this test once held refused (RWKV blocks, LayerNorm with
+    squared ReLU) train now, in make_train_step and launch.train, as MoE
+    and RG-LRU stacks do (tests/test_torch_train_zoo.py and
+    test_torch_train_families.py hold them against the JAX trainer)."""
     cfg = pconfigs.get_smoke(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_train_step(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ptrain.main(["--device", "cpu", "--smoke", "--arch", arch,
-                     "--steps", "1"])
+    make_train_step(cfg)
+    losses = ptrain.main(["--device", "cpu", "--smoke", "--arch", arch,
+                          "--steps", "1", "--batch", "2", "--seq", "16"])
+    assert len(losses) == 1 and np.isfinite(losses[0])
 
 
 def test_train_main_on_the_cpu_with_checkpoints(tmp_path, capsys):

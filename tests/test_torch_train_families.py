@@ -12,6 +12,10 @@ the JAX reference on the CPU, at smoke width in float32:
   * three ``make_train_step`` steps of deepseek-v2 against the jitted JAX
     step at microbatches 1 and 2 (the reference's metrics: ``xent`` the
     mean total and ``aux`` 0 when microbatched);
+  * at gain 1 (``tests/test_torch_train.py``'s draw) every leaf's float32
+    gradient, the port's and the reference's, about equally far (within
+    10x of each other) from a float64 run of the port — the check that
+    ``GAIN`` rests on;
   * the mesh step's refusal of MoE, MLA and RG-LRU stacks, on a rankless
     ``AbstractMesh``.
 """
@@ -33,10 +37,14 @@ from repro.models import transformer as JT
 from repro.optim import adamw_init as jadamw_init
 from repro_torch import configs as pconfigs
 from repro_torch.convert import from_jax_params
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as pref
 from repro_torch.launch.mesh import AbstractMesh
 from repro_torch.launch.steps import make_train_step
+from repro_torch.models import layers as PL
 from repro_torch.models import transformer as PT
 from repro_torch.optim import adamw_init
+from test_torch_train import _random_params as _gain1_params
 
 torch.set_num_threads(1)
 
@@ -61,9 +69,10 @@ def _cfgs(arch, mode):
 # through (RMSNorm, the RG-LRU's sqrt(1 - a^2) gate, softmaxes): at the
 # draw of tests/test_torch_train.py (qwen3, gain 1) the danube, deepseek-v2
 # and recurrentgemma gradients of either framework sit 1e-4 to 2e-3 of
-# their leaf's largest from a float64 run of the port, past TOL. At these
-# gains every family's float32 gradient is within 3e-6 of its float64 run,
-# so TOL tests the port, not the rounding.
+# their leaf's largest from a float64 run of the port, past TOL —
+# ``test_gain_one_rounding_is_alike`` holds the two frameworks equally far
+# there. At these gains every family's float32 gradient is within 3e-6 of
+# its float64 run, so TOL tests the port, not the rounding.
 GAIN = {"matrix": 0.25, "embed": 0.25, "vector": 0.1}
 
 
@@ -122,18 +131,26 @@ def _has_moe(cfg) -> bool:
     return any(b.moe is not None for b in PT.layer_blocks(cfg))
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_grad(arch, mode):
+    """The reference's loss and gradients, jitted once a config (the
+    weights and the batch are arguments)."""
+    jc = _cfgs(arch, mode)[0]
+    return jax.jit(jax.value_and_grad(
+        lambda p, b: JT.loss_fn(p, jc, b), has_aux=True))
+
+
+def jax_run(arch, mode, params, batch):
+    return _jax_grad(arch, mode)(jax.tree.map(jnp.asarray, params),
+                                 {k: jnp.asarray(v)
+                                  for k, v in batch.items()})
+
+
 @pytest.mark.parametrize("arch,mode", CASES)
 def test_loss_aux_and_every_grad_match_jax(arch, mode):
     jc, pc, np_params, batch = _setup(arch, mode)
-    jparams = jax.tree.map(jnp.asarray, np_params)
-    (jl, jm), jg = jax.jit(jax.value_and_grad(
-        lambda p: JT.loss_fn(p, jc, {k: jnp.asarray(v)
-                                     for k, v in batch.items()}),
-        has_aux=True))(jparams)
-    model = from_jax_params(np_params, pc, device="cpu")
-    loss, metrics = PT.loss_fn(model, pc, {k: torch.from_numpy(v)
-                                           for k, v in batch.items()})
-    loss.backward()
+    (jl, jm), jg = jax_run(arch, mode, np_params, batch)
+    loss, metrics, got = port_grads(pc, np_params, batch)
     assert _rel(loss, jl) < TOL
     assert _rel(metrics["xent"], jm["xent"]) < TOL
     if _has_moe(pc):
@@ -142,11 +159,103 @@ def test_loss_aux_and_every_grad_match_jax(arch, mode):
     else:
         assert float(metrics["aux"]) == float(jm["aux"]) == 0.0
     want = _by_name(jg, pc)
-    got = {k: p.grad for k, p in model.named_parameters()}
     assert set(got) == set(want)
     for k in want:
         assert got[k] is not None, k
         assert _rel(got[k], want[k]) < TOL, k
+
+
+# ---------------------------------------------------------------------------
+# gain 1: both frameworks' float32 rounding against a float64 run
+# ---------------------------------------------------------------------------
+
+# |port f32 - port f64| and |JAX f32 - port f64| of a leaf, each over the
+# leaf's largest |value|, within RATIO of each other; below FLOOR (a few
+# float32 ulps of the leaf's largest) both are rounding alike
+RATIO, FLOOR = 10.0, 1e-6
+
+
+def _naive_attention(q, k, v, *, causal=True, window=None, prefix_len=0,
+                     q_offset=0, scale=None, logit_softcap=None):
+    """Masked softmax attention in the inputs' dtype (the float64 run's
+    attention; GQA by repeating K/V)."""
+    sq, sk = q.shape[1], k.shape[1]
+    g = q.shape[2] // k.shape[2]
+    k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if logit_softcap:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+    allow = pref._mask(torch.arange(sq) + q_offset, torch.arange(sk),
+                       causal=causal, window=window, prefix_len=prefix_len)
+    s = torch.where(allow, s, torch.full_like(s, pref.NEG_INF))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
+
+
+def _rope_freqs64(head_dim, *, pct=1.0, theta=1e4, device=None):
+    rot = int(head_dim * pct) // 2 * 2
+    ar = torch.arange(0, rot, 2, dtype=torch.float64, device=device)
+    return 1.0 / (theta ** (ar / rot))
+
+
+def port_grads(pc, params, batch, dtype=torch.float32):
+    """(loss, metrics, {name: grad}) of the port's ``loss_fn`` on the numpy
+    weights and batch, the model and the batch's float arrays in
+    ``dtype``."""
+    model = from_jax_params(params, pc, device="cpu").to(dtype)
+    loss, metrics = PT.loss_fn(model, pc, {
+        k: torch.from_numpy(v).to(dtype) if v.dtype == np.float32
+        else torch.from_numpy(v) for k, v in batch.items()})
+    loss.backward()
+    return loss, metrics, {k: p.grad for k, p in model.named_parameters()}
+
+
+def float64_grads(pc, params, batch, monkeypatch) -> dict:
+    """The port's gradients run in float64: every ``.float()`` upcast to
+    float64, the compute dtype float64, RoPE's frequencies in float64,
+    attention and the RG-LRU scan on plain float64 versions."""
+    with monkeypatch.context() as m:
+        m.setattr(torch.Tensor, "float", lambda self, *a, **kw: self.double())
+        m.setattr(PT, "_dtype", lambda cfg: torch.float64)
+        m.setattr(PL, "rope_freqs", _rope_freqs64)
+        m.setattr(ops, "flash_attention", _naive_attention)
+        m.setattr(ops, "lru_scan", pref.lru_scan)
+        g64 = port_grads(pc, params, batch, torch.float64)[2]
+    assert all(g.dtype == torch.float64 for g in g64.values())
+    return g64
+
+
+def _off(got, want64) -> float:
+    return (float((got.double() - want64).abs().max())
+            / max(float(want64.abs().max()), 1e-300))
+
+
+def check_rounding_alike(arch, mode, pc, params, batch, monkeypatch):
+    """At ``params`` drawn at gain 1: every leaf's float32 gradient, the
+    port's and the reference's, off the port's float64 run by amounts
+    within RATIO of each other, and some leaf off by more than FLOOR (the
+    rounding that made the gains of ``GAIN`` necessary)."""
+    jg = {k: torch.from_numpy(v)
+          for k, v in _by_name(jax_run(arch, mode, params, batch)[1],
+                               pc).items()}
+    g32 = port_grads(pc, params, batch)[2]
+    g64 = float64_grads(pc, params, batch, monkeypatch)
+    worst = FLOOR
+    for k, w in g64.items():
+        port, ref_ = (max(_off(g[k], w), FLOOR) for g in (g32, jg))
+        assert port <= RATIO * ref_ and ref_ <= RATIO * port, (k, port, ref_)
+        worst = max(worst, port, ref_)
+    assert worst > FLOOR
+
+
+@pytest.mark.parametrize("arch,mode", CASES)
+def test_gain_one_rounding_is_alike(arch, mode, monkeypatch):
+    """The reduced ``GAIN`` rests on this: at tests/test_torch_train.py's
+    draw (gain 1) the port's and the reference's float32 gradients sit
+    equally far (within RATIO) from a float64 run of the port."""
+    jc, pc, _, batch = _setup(arch, mode)
+    check_rounding_alike(arch, mode, pc, _gain1_params(jc), batch,
+                         monkeypatch)
 
 
 def test_serving_drops_the_aux():

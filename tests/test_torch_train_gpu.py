@@ -12,7 +12,9 @@ through autograd against the plain forward under autograd; the
 and edge paths, with and without h0), repeating, and ``LruScanFn`` through
 autograd; the windowed route differentiated on the card; the grad
 refusal of the seven kernels without a backward; the prefix-LM route
-(the plain version, no launch); and the serving launch
+(the plain version, differentiated by autograd, no launch); whisper-tiny's
+encoder (1500 frames), cross (Sq 128 / Sk 1500) and self shapes and
+nemotron-4-15b's G 6 / dh 128; and the serving launch
 unchanged: one device kernel a call with grad mode off, no lse.
 
 Without a CUDA device every test here skips (decided inside the ``cuda``
@@ -57,6 +59,14 @@ BWD_CASES = {
     "mla-odd": (2, 77, 77, 4, 4, (192, 128), 0, True),
     "mla-offset-g2": (1, 40, 130, 8, 4, (192, 128), 90, True),
     "mla-noncausal": (2, 33, 50, 4, 4, (192, 128), 0, False),
+    # whisper-tiny's training: the encoder over 1500 frames (Sk = 23 x 64 +
+    # 28, a ragged last key tile), the cross layers' 128 queries against
+    # them, the decoder's causal self attention (G 1, dh 64)
+    "whisper-encoder": (8, 1500, 1500, 6, 6, 64, 0, False),
+    "whisper-cross": (8, 128, 1500, 6, 6, 64, 0, False),
+    "whisper-self": (8, 128, 128, 6, 6, 64, 0, True),
+    # nemotron-4-15b: 48 query heads over 8 KV heads (G 6), dh 128
+    "nemotron-g6": (2, 128, 128, 48, 8, 128, 0, True),
 }
 
 
@@ -118,7 +128,7 @@ def test_bwd_kernel_matches_plain_and_repeats(cuda, case, dt):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["train", "offset", "noncausal",
-                                  "mla-odd"])
+                                  "mla-odd", "whisper-cross"])
 def test_autograd_function_matches_plain_autograd(cuda, case):
     q, k, v, do, off, causal = _inputs(case, torch.float32, cuda, seed=1)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -182,9 +192,11 @@ def test_windowed_route_differentiates_on_the_card(cuda, dt):
                          ids=["f32", "bf16"])
 def test_prefix_lm_route_is_the_plain_version(cuda, dt):
     """A ``prefix_len > 0`` goes to the plain version on the card too, as
-    the reference routes it: its result, no flash launch; refused with
-    grad, and the kernel's wrapper still raises on a prefix."""
-    q, k, v, _, _, _ = _inputs("odd77-dh64", dt, cuda)
+    the reference routes it: its result, no flash launch; with grad,
+    autograd of the plain version (the reference differentiates its plain
+    route with XLA), no launch of either kernel; the kernel's wrapper
+    still raises on a prefix."""
+    q, k, v, do, _, _ = _inputs("odd77-dh64", dt, cuda)
     ops.reset_launch_counts()
     got = ops.flash_attention(q, k, v, prefix_len=20)
     torch.cuda.synchronize()
@@ -193,9 +205,19 @@ def test_prefix_lm_route_is_the_plain_version(cuda, dt):
     assert not torch.equal(got, ops.flash_attention(q, k, v))
     with pytest.raises(NotImplementedError, match="prefix_len"):
         PFA.flash_attention(q, k, v, prefix_len=20)
-    q.requires_grad_()
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ops.flash_attention(q, k, v, prefix_len=20)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.reset_launch_counts()
+    o = ops.flash_attention(*leaves, prefix_len=20)
+    grads = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 0
+    assert ops.launch_counts()["flash_attention_bwd"] == 0
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    po = pref.flash_attention(*plain, prefix_len=20)
+    want = torch.autograd.grad(po, plain, do)
+    assert torch.equal(o, po)
+    for g, w in zip(grads, want):
+        assert _rel(g, w) < TOL[dt]
 
 
 def _calls_without_backward(dev, x):
