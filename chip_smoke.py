@@ -413,7 +413,30 @@ Phases, each printing its own lines:
              finite, launches exact; step median, tokens/s, peak, busy
              share and kernels a step as phase 22 (c). nemotron's bf16 step
              needs more than one card: (b) is its check on the card.
-24. the kernels JSON line (the decode reads and copy_pages also give their
+24. serve-mesh — tensor-parallel serving (``launch.steps.make_prefill``
+             and ``make_serve_step`` on a mesh, the KV sequence over the
+             model axis; every number beside the card's name and power
+             limit). (a) decode_attention's return_lse at two shards of
+             qwen3-1.7b's outer ring (4, 544, 8, 128), bf16 and f32: out
+             and lse against the plain version's (lse within 2e-2 bf16,
+             1e-4 f32), a shard that sees no row of a slot (out 0, lse
+             -inf), the shards merged in rank order (ref.merge_partials)
+             against the whole read, the read without lse unchanged bit for
+             bit; the bf16 shard's device ms with and without lse, three
+             pairs in turns between markers, beside the plain version, SDPA
+             and the bound. (b) phase 5's weights and prompts (qwen3-1.7b,
+             28 layers, bf16, SOI pp, B 4 x 1024, clocks staggered by one a
+             slot, max_len 1088): the plain prefill and 32 greedy steps,
+             then the same model sharded on a (1, 1) NCCL mesh through the
+             sharded steps — logits of every step and the final state bit
+             for bit; launches (flash_attention 28, decode_attention 28 a
+             step); ms a step and collectives a step of each. (c) two gloo
+             processes sharing the card, a (1, 2) mesh: full-width qwen3-1.7b
+             cut to 4 layers (SOI pp 1..3), float32, 8 steps — every ring
+             split 544 + 544 rows, each read with its lse and merged —
+             tokens equal to the one-rank steps' and logits within 1e-3;
+             each rank's launches, ms a step and collectives a step.
+25. the kernels JSON line (the decode reads and copy_pages also give their
              phase-15 launches under "spec"; the kernels phase 16 launches
              their launches there under "obs"; flash_attention and
              flash_attention_bwd phase 17's under "train" and phase 21's
@@ -425,7 +448,10 @@ Phases, each printing its own lines:
              reads and chunk_attention the families' shapes with their
              phase-18 launches under "families"; flash_attention and the
              decode reads the zoo's shapes with their phase-19 launches
-             under "zoo"), the card line, and last {"ok": true, ...}.
+             under "zoo"; decode_attention and flash_attention phase 24
+             (b)'s launches under "serve_mesh", and decode_attention's
+             return_lse (a)'s reading with (c)'s launches under "lse"), the
+             card line, and last {"ok": true, ...}.
 
 Phases 4-13, 15, 16, 18 and 19 run the engine and the U-Net session as a user does, so
 on the card every generate step, window and frame after a branch's first is
@@ -6651,6 +6677,395 @@ def zoo_train_phase(dev, card) -> tuple:
 
 
 
+# ---------------------------------------------------------------------------
+# 24. serve-mesh: tensor-parallel serving, the KV sequence over the model axis
+# ---------------------------------------------------------------------------
+
+# (a) decode_attention's return_lse at qwen3-1.7b's outer ring (4, 1088, 8,
+# 128) split over 2 ranks: a rank's shard of 544 rows, read with and
+# without its lse in turns between markers, LSE_PAIRS pairs
+LSE_PAIRS = 3
+LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# (b) the sharded prefill + serve steps on a (1, 1) NCCL mesh, phase 5's
+# weights and prompts (4 x 1024), the clocks staggered by one a slot (SOI
+# phases 0 and 1 side by side), max_len phase 5's ring
+MESH_STEPS = 32
+MESH_MAX_LEN = 1088
+MESH_STAGGER = (0, 1, 2, 3)
+# (c) two gloo ranks sharing the card: full width, depth cut, float32
+MESH_GLOO_LAYERS = 4
+MESH_GLOO_STEPS = 8
+MESH_GLOO_TOL = 1e-3
+MESH_DIR = ROOT / "build" / "serve_mesh"
+
+
+def _lse_checks(dev, gen, card) -> dict:
+    """(a): the CUDA (out, lse) of a rank's shard against the plain
+    version's in bf16 and f32, a shard that sees no row of slot 0 (out 0,
+    lse -inf), the two shards merged in rank order against the whole
+    read; then the bf16 shard timed with and without its lse in turns.
+    Returns the bf16 record."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import ref
+    rec = None
+    for dt in (torch.bfloat16, torch.float32):
+        sets, nbytes, flops, library, _ = _decode_case(
+            4, MESH_MAX_LEN, 8, 2, 128, dt, 1056, dev, gen)
+        q, k, v, pos, t = sets[0]
+        half = MESH_MAX_LEN // 2
+        shards = []
+        errs, lse_errs = [], []
+        for r in range(2):
+            sl = slice(r * half, (r + 1) * half)
+            args = (q,) + tuple(x[:, sl].contiguous() for x in (k, v, pos)) \
+                + (t,)
+            if r:
+                # slot 0's clock before the shard's first row: it sees none
+                args[3][0] = -1
+            n0 = DA.decode_attention.launches
+            out, lse = DA.decode_attention(*args, return_lse=True)
+            torch.cuda.synchronize()
+            check(DA.decode_attention.launches == n0 + 1,
+                  "decode_attention with lse: not one launch a call")
+            w_out, w_lse = ref.decode_attention(*args, return_lse=True)
+            dead = torch.isneginf(w_lse)
+            check(torch.equal(torch.isneginf(lse), dead) and bool(
+                dead[0].all()) == bool(r), f"lse -inf where no row is seen "
+                                           f"({dt}, shard {r})")
+            check(not torch.isnan(lse).any() and not out[dead].any(),
+                  f"a read that sees no row: NaN or out != 0 ({dt})")
+            err = float((out.float() - w_out.float()).abs().max())
+            tol = TOL[dt]
+            if dt == torch.bfloat16:
+                tol = min(tol, READ_REL_TOL * float(w_out.float().abs()
+                                                    .max()))
+            lerr = float((lse[~dead] - w_lse[~dead]).abs().max())
+            check(err < tol and lerr < LSE_TOL[dt],
+                  f"decode_attention lse {dt} shard {r}: max|Δ| out {err} "
+                  f"(tol {tol}), lse {lerr} (tol {LSE_TOL[dt]})")
+            plain_out = DA.decode_attention(*args)
+            check(torch.equal(out[~dead], plain_out[~dead]),
+                  f"decode_attention {dt}: the read without lse differs")
+            errs.append(err)
+            lse_errs.append(lerr)
+            shards.append((args, out, lse))
+        whole_args = (q, k, v, torch.cat([shards[0][0][3], shards[1][0][3]],
+                                         dim=1), t)
+        whole = DA.decode_attention(*whole_args)
+        merged = ref.merge_partials(torch.stack([shards[0][1], shards[1][1]]),
+                                    torch.stack([shards[0][2],
+                                                 shards[1][2]]))
+        merr = float((merged.float() - whole.float()).abs().max())
+        tol = TOL[dt]
+        if dt == torch.bfloat16:
+            tol = min(tol, READ_REL_TOL * float(whole.float().abs().max()))
+        check(merr < tol, f"merged shards vs the whole read {dt}: {merr}")
+        print(f"  (a) decode_attention return_lse {str(dt)[6:]}, 2 shards "
+              f"of (4,{half},8,128) G 2: max|Δ| out {max(errs):.2e}, lse "
+              f"{max(lse_errs):.2e}; slot 0 on shard 1 sees no row: out 0, "
+              f"lse -inf; merged in rank order vs the whole (4,"
+              f"{MESH_MAX_LEN},8,128) read {merr:.2e}; the read without "
+              f"lse equal bit for bit", flush=True)
+        if dt != torch.bfloat16:
+            continue
+        # timing: rank 0's shard (every row live), the call's kernels held
+        # once a call; with and without lse in turns
+        shard_sets = [(a, b[:, :half].contiguous(), c[:, :half].contiguous(),
+                       d[:, :half].contiguous(), e)
+                      for a, b, c, d, e in sets]
+        live = int((shard_sets[0][3] >= 0).sum())
+        b_, h_, dh_ = q.shape
+        esz = 2
+        nb = (2 * b_ * h_ * dh_ * esz + shard_sets[0][3].numel() * 4 + b_ * 4
+              + 2 * live * 8 * dh_ * esz + b_ * h_ * 4)
+        bound_ms, bound_by = _bound(nb, 4.0 * live * h_ * dh_, dt)
+        each = _call_kernels("decode_attention", dt, 1)
+
+        def with_lse(*a):
+            return DA.decode_attention(*a, return_lse=True)
+
+        def plain_lse(*a):
+            return ref.decode_attention(*a, return_lse=True)
+
+        masks = {st[3].data_ptr(): ((st[3] >= 0) & (st[3] <= st[4][:, None]))
+                 [:, None, None] for st in shard_sets}
+
+        def lib(q, k, v, pos, t):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=masks[pos.data_ptr()], enable_gqa=True)[:, :, 0]
+
+        pairs = {False: [], True: []}
+        for _ in range(LSE_PAIRS):
+            for flag, fn in ((False, DA.decode_attention), (True, with_lse)):
+                pairs[flag].append(_device_ms(fn, shard_sets, 20,
+                                              bound_ms=bound_ms,
+                                              markers=MARKERS, each=each))
+        plain_ms = _device_ms(plain_lse, shard_sets, 5, bound_ms=bound_ms,
+                              markers=MARKERS)
+        lib_ms = _device_ms(lib, shard_sets, 20, markers=MARKERS)
+        ms = sorted(pairs[True])[LSE_PAIRS // 2]
+        rec = {"shape": f"shard (4,{half},8,128) of the outer ring, G 2, "
+                        f"return_lse",
+               "dtype": "bfloat16", "max_abs_err": max(errs),
+               "lse_max_abs_err": max(lse_errs), "merge_err": merr,
+               "ms": ms, "ms_pairs": {"without": pairs[False],
+                                      "with": pairs[True]},
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": lib_ms}
+        print(f"  (a) bf16 shard, device ms a call in turns (without / with "
+              f"lse): {pairs[False]} / {pairs[True]}; plain {plain_ms:.4f}, "
+              f"SDPA {lib_ms:.4f}, bound {bound_ms:.5f} ({bound_by}) "
+              f"[{card}]", flush=True)
+    return rec
+
+
+def _mesh_collectives(step) -> dict:
+    """The collectives one call of ``step`` issues, by name (the host's
+    records of the backend's calls; c10d's records of the same calls are
+    left out)."""
+    from collections import Counter
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step()
+        torch.cuda.synchronize()
+    return dict(Counter(e.name for e in prof.events()
+                        if e.name.startswith(("nccl:", "gloo:"))))
+
+
+def _mesh_run(prefill, step, model, prompt, n_steps, dev):
+    """The prefill, the clocks staggered, then ``n_steps`` greedy steps:
+    (logits of each, tokens fed, the final state, ms a step)."""
+    logits, state = _mesh_state(prefill, model, prompt)
+    out, toks, times = [logits.clone()], [], []
+    for _ in range(n_steps):
+        tok = out[-1].argmax(-1).to(torch.int32)
+        toks.append(tok)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        logits, state = step(model, state, tok)
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        out.append(logits.clone())
+    return out, toks, state, times
+
+
+def _mesh_one_by_one(dev, card) -> dict:
+    """(b): phase 5's weights and prompts through the plain steps, then the
+    same model sharded on a (1, 1) NCCL mesh through make_prefill +
+    make_serve_step: logits every step and the final state bit for bit;
+    ms a step and collectives a step of each. Returns the sharded run's
+    launch counts."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import ShardingRules, shard_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_prefill, make_serve_step
+    cfg, model, prompt, _plens, engine = serve.setup(
+        serve.parse_args(SERVE_ARGV))
+    del engine
+    plain = (make_prefill(cfg, max_len=MESH_MAX_LEN), make_serve_step(cfg))
+    p_out, p_toks, p_state, p_ms = _mesh_run(*plain, model, prompt,
+                                             MESH_STEPS, dev)
+    p_state = {k: v.clone() for k, v in S.flatten(p_state).items()}
+    _, st = _mesh_state(plain[0], model, prompt)
+    p_coll = _mesh_collectives(lambda: plain[1](model, st, p_toks[0]))
+    del st
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        rules = ShardingRules(data_axes=("data",))
+        model = shard_params(model, rules, mesh)
+        sharded = (make_prefill(cfg, rules, mesh, max_len=MESH_MAX_LEN),
+                   make_serve_step(cfg, rules, mesh, max_len=MESH_MAX_LEN))
+        ops.reset_launch_counts()
+        s_out, s_toks, s_state, s_ms = _mesh_run(*sharded, model, prompt,
+                                                 MESH_STEPS, dev)
+        counts = ops.launch_counts()
+        _, st = _mesh_state(sharded[0], model, prompt)
+        s_coll = _mesh_collectives(lambda: sharded[1](model, st, s_toks[0]))
+        del st
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the process group outlived (b)")
+    check(all(torch.equal(a, b) for a, b in zip(p_out, s_out)),
+          "(b) sharded logits on the (1, 1) mesh differ from the plain "
+          "steps'")
+    s_flat = S.flatten(s_state)
+    check(set(s_flat) == set(p_state) and all(
+        torch.equal(s_flat[k], p_state[k]) for k in p_state),
+        "(b) the sharded state differs from the plain steps'")
+    n_outer = cfg.soi.first_layer + cfg.n_layers - cfg.soi.last_layer
+    n_mid = cfg.soi.last_layer - cfg.soi.first_layer
+    want = {"flash_attention": cfg.n_layers,
+            "decode_attention": (n_outer + n_mid) * MESH_STEPS}
+    for name, n in want.items():
+        check(counts[name] == n, f"(b) {name} {counts[name]} launches, "
+                                 f"want {n}")
+
+    def med(x):
+        return sorted(x)[len(x) // 2]
+    print(f"  (b) qwen3-1.7b SOI pp, 28 layers, bf16, B 4 x 1024, clocks "
+          f"staggered {MESH_STAGGER}, {MESH_STEPS} steps: make_prefill + "
+          f"make_serve_step on the (1, 1) NCCL mesh == the plain steps bit "
+          f"for bit (logits of the prefill and every step, {len(p_state)} "
+          f"state leaves); launches {want}", flush=True)
+    print(f"  (b) ms a step (median, host clock after a synchronize, eager): "
+          f"plain {med(p_ms):.3f}, sharded {med(s_ms):.3f}; collectives a "
+          f"step: plain {p_coll or 'none'}, sharded {s_coll} [{card}]",
+          flush=True)
+    return counts
+
+
+def _mesh_state(prefill, model, prompt):
+    """(logits, state) of a prefill, the clocks staggered."""
+    logits, state = prefill(model, {"tokens": prompt})
+    state["t"].sub_(torch.tensor(MESH_STAGGER, dtype=torch.int32,
+                                 device=state["t"].device))
+    return logits, state
+
+
+def _mesh_cfg():
+    from repro_torch import configs
+    from repro_torch.configs.base import SOILMCfg
+    full = configs.get("qwen3-1.7b", soi="pp", n_layers=MESH_GLOO_LAYERS)
+    return dataclasses.replace(full, dtype="float32", soi=SOILMCfg(
+        first_layer=1, last_layer=MESH_GLOO_LAYERS - 1, mode="pp"))
+
+
+def _mesh_inputs(cfg, dev):
+    """(f32 weights, prompt) from the seed, the same in every process."""
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device=dev).manual_seed(24)
+    model = T.init(cfg, generator=gen, device=dev)
+    prompt = torch.randint(0, cfg.vocab, (4, 1024), generator=gen,
+                           device=dev, dtype=torch.int32)
+    return model, prompt
+
+
+def _mesh_rank(rank, world):
+    """(c) one of two gloo ranks sharing the card: the f32 model from the
+    seed, sharded on a (1, 2) mesh, prefill + serve steps; writes its
+    logits, tokens and launch counts."""
+    import os
+    import pickle
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import ShardingRules, shard_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_prefill, make_serve_step
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    store = dist.FileStore(str(MESH_DIR / "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world)
+    try:
+        cfg = _mesh_cfg()
+        model, prompt = _mesh_inputs(cfg, dev)
+        mesh = make_mesh((1, world), ("data", "model"))
+        rules = ShardingRules(data_axes=("data",))
+        model = shard_params(model, rules, mesh)
+        prefill = make_prefill(cfg, rules, mesh, max_len=MESH_MAX_LEN)
+        step = make_serve_step(cfg, rules, mesh, max_len=MESH_MAX_LEN)
+        ops.reset_launch_counts()
+        out, toks, _state, ms = _mesh_run(prefill, step, model, prompt,
+                                          MESH_GLOO_STEPS, dev)
+        counts = ops.launch_counts()
+        _, st = _mesh_state(prefill, model, prompt)
+        coll = _mesh_collectives(lambda: step(model, st, toks[0]))
+        with open(MESH_DIR / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump({"logits": [x.cpu() for x in out],
+                         "tokens": [x.cpu() for x in toks],
+                         "counts": counts, "ms": ms, "coll": coll}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_gloo(dev, card) -> dict:
+    """(c): the one-rank f32 steps here, then two gloo ranks on the card
+    (the split-sequence read with its lse, the merge, the collectives on
+    CUDA tensors): tokens equal, logits within MESH_GLOO_TOL. Returns the
+    ranks' launch counts."""
+    import pickle
+    import shutil
+    import torch.multiprocessing as mp
+    from repro_torch.launch.steps import make_prefill, make_serve_step
+    cfg = _mesh_cfg()
+    model, prompt = _mesh_inputs(cfg, dev)
+    want, w_toks, _state, w_ms = _mesh_run(
+        make_prefill(cfg, max_len=MESH_MAX_LEN), make_serve_step(cfg),
+        model, prompt, MESH_GLOO_STEPS, dev)
+    del model, _state
+    _free(dev)
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    mp.spawn(_mesh_rank, args=(2,), nprocs=2, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(MESH_DIR / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    err = 0.0
+    for rk in ranks:
+        check(all(torch.equal(a, b.cpu()) for a, b in zip(rk["tokens"],
+                                                          w_toks)),
+              "(c) the 2-rank tokens differ from the one-rank steps'")
+        err = max([err] + [float((a - b.cpu()).abs().max())
+                           for a, b in zip(rk["logits"], want)])
+    check(err < MESH_GLOO_TOL, f"(c) logits {err} from the one-rank steps")
+    n_dec = cfg.n_layers * MESH_GLOO_STEPS
+    for r, rk in enumerate(ranks):
+        check(rk["counts"]["decode_attention"] == n_dec,
+              f"(c) rank {r}: decode_attention {rk['counts']} (want "
+              f"{n_dec}, every read with its lse)")
+        check(rk["counts"]["flash_attention"] == cfg.n_layers,
+              f"(c) rank {r}: flash_attention {rk['counts']}")
+
+    def med(x):
+        return sorted(x)[len(x) // 2]
+    print(f"  (c) two gloo ranks on the one card, (1, 2) mesh, full-width "
+          f"qwen3-1.7b cut to {cfg.n_layers} layers (SOI pp 1..3), f32, B 4 "
+          f"x 1024, {MESH_GLOO_STEPS} steps: tokens == the one-rank steps, "
+          f"logits max|Δ| {err:.2e} (< {MESH_GLOO_TOL}); every ring split "
+          f"544 + 544 (outer), 272 + 272 (middle); decode_attention with "
+          f"lse {[rk['counts']['decode_attention'] for rk in ranks]}, "
+          f"flash_attention on the local heads "
+          f"{[rk['counts']['flash_attention'] for rk in ranks]}", flush=True)
+    print(f"  (c) ms a step (median, host clock): one rank {med(w_ms):.3f}, "
+          f"the two gloo ranks {[round(med(rk['ms']), 3) for rk in ranks]}; "
+          f"collectives a step {ranks[0]['coll']}; spawn + run "
+          f"{spawn_s:.1f} s [{card}]", flush=True)
+    return {"decode_attention": sum(rk["counts"]["decode_attention"]
+                                    for rk in ranks),
+            "per_rank": [rk["counts"] for rk in ranks]}
+
+
+def serve_mesh_phase(dev, card) -> tuple:
+    """Phase 24. Returns ((a)'s record, (b)'s launch counts, (c)'s)."""
+    phase("24 serve-mesh (decode_attention's lse; make_prefill + "
+          "make_serve_step on a (1, 1) NCCL mesh against the plain steps; "
+          "two gloo ranks on the card, the KV sequence split)")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(24)
+    rec = _lse_checks(dev, gen, card)
+    _free(dev)
+    counts = _mesh_one_by_one(dev, card)
+    _free(dev)
+    gloo = _mesh_gloo(dev, card)
+    _free(dev)
+    print(f"  phase 24: {time.perf_counter() - t0:.1f} s", flush=True)
+    return rec, counts, gloo
+
+
 def main():
     card = device_phase()
     dev = torch.device("cuda", 0)
@@ -6684,6 +7099,8 @@ def main():
         dev, card)
     _free(dev)
     zoo_bwd, zoo_train = zoo_train_phase(dev, card)
+    _free(dev)
+    mesh_lse, mesh_counts, mesh_gloo = serve_mesh_phase(dev, card)
     # launches: each kernel's count on its own path's run — the dense
     # serve (phase 5), the paged prefix-cache serve (phase 6), the
     # deepseek-v2 serve (phase 8), the MLA prefix-cache serve (phase 9),
@@ -6872,6 +7289,26 @@ def main():
             summary[-1]["middle"].update(
                 launches=cnt[name],
                 launches_on=path + ", outer and middle layers")
+        if name in ("decode_attention", "flash_attention"):
+            # phase 24's sharded prefill + serve steps on the (1, 1) mesh
+            summary[-1]["serve_mesh"] = {
+                "launches": mesh_counts[name],
+                "launches_on": f"sharded serve (qwen3-1.7b pp, (1, 1) NCCL "
+                               f"mesh, prefill + {MESH_STEPS} steps)"}
+            check(mesh_counts[name] > 0,
+                  f"{name} never launched on the sharded serve steps")
+        if name == "decode_attention":
+            # its return_lse: phase 24 (a)'s shard, launched on (c)'s two
+            # gloo ranks, every read of a split ring
+            summary[-1]["lse"] = dict(mesh_lse, launches=mesh_gloo[name],
+                                      launches_on=(
+                                          f"sharded serve, two gloo ranks "
+                                          f"on the card ((1, 2) mesh, "
+                                          f"qwen3-1.7b {MESH_GLOO_LAYERS} "
+                                          f"layers f32, {MESH_GLOO_STEPS} "
+                                          f"steps)"))
+            check(mesh_gloo[name] > 0, "decode_attention's lse never "
+                                       "launched on the split rings")
         if name == "decode_attention":
             # the same wrapper on recurrentgemma's compressed middle rings
             mid = main_recs[name + " (RG middle)"]
@@ -6882,7 +7319,7 @@ def main():
             summary[-1]["rg_middle"].update(
                 launches=rg_second[name][name],
                 launches_on="rg serve (dense), outer and middle layers")
-    print(f"== 24 done in {time.perf_counter() - T_START:.1f} s")
+    print(f"== 25 done in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

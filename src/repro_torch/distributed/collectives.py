@@ -8,6 +8,19 @@
   * ``moe_all_to_all`` — the expert-parallel token exchange: tokens (E, C,
     d) split on tokens -> split on experts.
 
+the serving collectives of tensor-parallel decode over the model group
+(plain functions on tensors, no autograd; each is an ``all_gather`` or an
+``all_to_all_single``, which NCCL and gloo both carry):
+
+  * ``all_gather_dim`` — the ranks' shards concatenated along a dimension
+    in rank order (q heads, the new token's K/V heads, vocab-split
+    logits);
+  * ``heads_to_sequence`` — a prompt's K/V split on heads -> split on the
+    ring's sequence, every head on each rank;
+  * ``exchange_partials`` — each rank's partial reads of all heads ->
+    every rank's partials of its own heads, stacked in rank order for the
+    merge (``kernels.ref.merge_partials``);
+
 and the two autograd Functions of Megatron-style tensor parallelism on
 local shards, the collectives XLA's partitioner inserts for the reference:
 
@@ -105,3 +118,48 @@ def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
 def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     """All-reduce (SUM over ``group``) forward, identity backward."""
     return _ReduceFromModel.apply(x, group)
+
+
+# ---------------------------------------------------------------------------
+# Serving: tensor-parallel decode with the KV sequence over the model axis
+# ---------------------------------------------------------------------------
+
+def all_gather_dim(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order."""
+    n = dist.get_world_size(group)
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def heads_to_sequence(x: torch.Tensor, group=None) -> torch.Tensor:
+    """(B, S, Hloc, dh) split on heads -> (B, S / n, n * Hloc, dh) split on
+    the sequence over the n ranks of ``group``: rank r keeps rows [r S/n,
+    (r+1) S/n) of every rank's heads, concatenated in rank order — the
+    heads of rank j at [j Hloc, (j+1) Hloc), as ``all_gather_dim`` lays
+    them out."""
+    n = dist.get_world_size(group)
+    b, s = x.shape[:2]
+    if s % n:
+        raise ValueError(f"sequence {s} does not split over {n} ranks")
+    # (n destinations, B, S/n, Hloc, dh): chunk j goes to rank j
+    send = x.reshape(b, n, s // n, *x.shape[2:]).transpose(0, 1).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    # recv: (n sources, B, S/n, Hloc, dh) -> (B, S/n, n * Hloc, dh)
+    return recv.permute(1, 2, 0, *range(3, recv.dim())).reshape(
+        b, s // n, n * x.shape[2], *x.shape[3:])
+
+
+def exchange_partials(x: torch.Tensor, group=None) -> torch.Tensor:
+    """(B, H, ...) partials of all H heads -> (n, B, H / n, ...): every
+    rank's partials of this rank's heads [r H/n, (r+1) H/n), in rank order
+    along the leading axis."""
+    n = dist.get_world_size(group)
+    b, h = x.shape[:2]
+    if h % n:
+        raise ValueError(f"{h} heads do not split over {n} ranks")
+    send = x.reshape(b, n, h // n, *x.shape[2:]).transpose(0, 1).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return recv

@@ -39,7 +39,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points (see the ``extern "C"`` functions)
 SIGNATURES = {
-    "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P,
+    "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,

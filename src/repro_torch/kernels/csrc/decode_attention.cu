@@ -25,19 +25,21 @@
 
 // q (B, H, dh); k, v (B, S, Hkv, dh); pos (B, S) int32; qpos (B,) int32;
 // out (B, H, dh); scratch float32 of B * H * n_split * (dh + 2); n_split =
-// ceil(S / split_keys). All contiguous, 16-byte aligned. window <= 0: none.
-// Returns the launches' cudaError_t (0 on success).
+// ceil(S / split_keys); lse float32 (B, H) or null: the read's natural
+// log-sum-exp, written by the combine (a (slot, head) that sees no live
+// key then reads out 0 and lse -inf). All contiguous, 16-byte aligned.
+// window <= 0: none. Returns the launches' cudaError_t (0 on success).
 extern "C" int repro_decode_attention(const void* q, const void* k,
                                       const void* v, const void* pos,
                                       const void* qpos, void* out,
-                                      void* scratch, int B, int S, int H,
-                                      int Hkv, int DH, int window,
+                                      void* scratch, void* lse, int B, int S,
+                                      int H, int Hkv, int DH, int window,
                                       float scale, int n_split,
                                       int split_keys, int dtype,
                                       void* stream) {
   const DecodeArgs a{q, k, v, static_cast<const int*>(qpos), out,
                      static_cast<float*>(scratch), B, S, H, Hkv, window,
-                     n_split, split_keys, scale};
+                     n_split, split_keys, scale, static_cast<float*>(lse)};
   return decode_dispatch(a, DenseRows{static_cast<const int*>(pos), S}, DH,
                          dtype, stream);
 }

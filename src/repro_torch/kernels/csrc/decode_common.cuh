@@ -124,6 +124,9 @@ struct DecodeArgs {
   float* scratch;
   int B, S, H, Hkv, window, n_split, split_keys;
   float scale;
+  // (B, H) float32 natural log-sum-exp of the live scores, or nullptr (the
+  // dense read's return_lse; the paged reads never ask for it)
+  float* lse = nullptr;
 };
 
 // The partials' index of (slot b, query head h, split).
@@ -573,6 +576,7 @@ decode_mma_kernel(DecodeArgs a, Rows rows, int stages) {
 
 // Splits the combine takes: their weights and sums sit in shared memory.
 constexpr int kMaxSplits = 4096;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // One block a (slot, head) of whole warps (the shuffles name all 32
 // lanes), a thread for every blockDim-th head dim (one dim each where DH
@@ -581,11 +585,18 @@ constexpr int kMaxSplits = 4096;
 // shared memory, then every thread adds its dims' partials in split order
 // with 8 loads in flight. kBase2: the partials' m are logits x log2 e (the
 // tensor-core bodies), else natural logits.
+//
+// lse (a (slot, head) float each, or nullptr): the merged log-sum-exp,
+// M + log(den) in natural units, written beside the output. A (slot,
+// head) whose splits saw no live key (M is the masked -1e30) then writes
+// out 0 and lse -inf instead of the uniform average — the partial of a
+// shard of a split cache that a merge across shards weighs 0. Without lse
+// nothing changes.
 template <typename T, bool kBase2>
 __global__ void __launch_bounds__(256)
 decode_combine_kernel(const float* __restrict__ acc,
                       const float* __restrict__ ml, T* __restrict__ out,
-                      int n_split, int DH) {
+                      int n_split, int DH, float* __restrict__ lse) {
   __shared__ float sW[kMaxSplits], sL[kMaxSplits], sMax[8];
   const int bh = blockIdx.x, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -608,6 +619,13 @@ decode_combine_kernel(const float* __restrict__ acc,
   for (int s = tid; s < n_split; s += blockDim.x)
     sW[s] = kBase2 ? fast_exp2(sW[s] - mx) : expf(sW[s] - mx);
   __syncthreads();
+  if (lse != nullptr && !(mx > 0.5f * kNegInf)) {
+    // no live key in any split: weight 0 in a merge across shards
+    for (int d = tid; d < DH; d += blockDim.x)
+      out[(size_t)bh * DH + d] = from_f32<T>(0.f);
+    if (tid == 0) lse[bh] = __int_as_float(0xff800000);   // -inf
+    return;
+  }
   for (int d = tid; d < DH; d += blockDim.x) {
     const float* ab = acc + (size_t)bh * n_split * DH + d;
     float den = 0.f, num = 0.f;
@@ -617,6 +635,8 @@ decode_combine_kernel(const float* __restrict__ acc,
       num += ab[(size_t)s * DH] * sW[s];
     }
     out[(size_t)bh * DH + d] = from_f32<T>(num / fmaxf(den, 1e-30f));
+    if (lse != nullptr && d == 0)
+      lse[bh] = kBase2 ? (mx + log2f(den)) * kLn2 : mx + logf(den);
   }
 }
 
@@ -659,7 +679,7 @@ cudaError_t launch(const DecodeArgs& a, const Rows& rows, cudaStream_t st) {
   const int bh = a.B * a.H;
   decode_combine_kernel<T, kMma><<<bh, (DH + 31) / 32 * 32, 0, st>>>(
       a.scratch, a.scratch + (size_t)bh * a.n_split * DH,
-      static_cast<T*>(a.out), a.n_split, DH);
+      static_cast<T*>(a.out), a.n_split, DH, a.lse);
   return cudaGetLastError();
 }
 

@@ -627,7 +627,7 @@ cudaError_t launch(const Args& a, void* out, cudaStream_t stream) {
   const int bh = a.B * a.H;
   decode_combine_kernel<bf16, true><<<bh, 256, 0, stream>>>(
       a.scratch, a.scratch + (size_t)bh * a.n_split * L,
-      static_cast<bf16*>(out), a.n_split, L);
+      static_cast<bf16*>(out), a.n_split, L, nullptr);
   return cudaGetLastError();
 }
 

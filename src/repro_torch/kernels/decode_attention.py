@@ -27,6 +27,15 @@ kernel ``repro/kernels/decode_attention.py::decode_attention``.
 * Held back by: a range of one 64-key tile at recurrentgemma's serving
   read (no overlap of a block's copies and products), and the partials
   and the combine launch that every call pays.
+* ``return_lse=True`` (tensor-parallel serving, the KV sequence split over
+  the model axis): the combine kernel also writes the merged log-sum-exp
+  ``m + log l`` (B, H) float32 from the partials it already holds, and a
+  (slot, head) that saw no live key reads out 0 and lse -inf, so a merge
+  across shards (``ref.merge_partials``) weighs it 0. The same launches;
+  without the flag the outputs are unchanged. Each rank reads its S/M
+  rows, and ``decode_split`` plans them as any S: a shard that is not a
+  multiple of 64 rows ends in a shorter last range, as a ring of that
+  length would.
 
 ``paged_decode_attention`` is the same read over paged pools.
 
@@ -211,12 +220,19 @@ def _check_cuda(q, k_cache, v_cache, cache_positions, q_position):
 
 @_build.metered("decode_attention")
 def decode_attention(q, k_cache, v_cache, cache_positions, q_position, *,
-                     window=None, scale=None, logit_softcap=None):
+                     window=None, scale=None, logit_softcap=None,
+                     return_lse=False):
     """q: (B, H, dh); caches: (B, S, Hkv, dh); cache_positions: (B, S) int32;
-    q_position: (B,) int32. Returns (B, H, dh) in q's dtype."""
+    q_position: (B,) int32. Returns (B, H, dh) in q's dtype; with
+    ``return_lse=True`` ``(out, lse)``, ``lse`` (B, H) float32 the natural
+    log-sum-exp of the live scores that the combine kernel writes beside
+    the output, and a (slot, head) with no live key reads out 0 and lse
+    -inf (the partial read of one shard of a sequence-split cache,
+    ``ref.merge_partials``). The launch is the same either way."""
     if q.device.type == "cpu":
         return plain(q, k_cache, v_cache, cache_positions, q_position,
-                     window=window, scale=scale, logit_softcap=logit_softcap)
+                     window=window, scale=scale, logit_softcap=logit_softcap,
+                     return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     if logit_softcap is not None:
@@ -233,15 +249,18 @@ def decode_attention(q, k_cache, v_cache, cache_positions, q_position, *,
     n_split, keys, shape = launch_plan(q, k_cache)
     out = torch.empty_like(q)
     scratch = torch.empty(shape, dtype=torch.float32, device=q.device)
+    lse = (torch.empty((b, h), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _build.library().repro_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         cache_positions.data_ptr(), q_position.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), b, s, h, hkv, dh, win, scale, n_split, keys,
+        scratch.data_ptr(), None if lse is None else lse.data_ptr(), b, s, h,
+        hkv, dh, win, scale, n_split, keys,
         _build.DTYPE_CODES[_DTYPES[q.dtype]], stream)
     _build.check(rc, "decode_attention")
     decode_attention.launches += 1
-    return out
+    return out if lse is None else (out, lse)
 
 
 decode_attention.launches = 0

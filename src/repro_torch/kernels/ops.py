@@ -19,7 +19,11 @@ host check of flags).
 reference either: it is a plain PyTorch gather on every device. Nor has
 ``mla_decode_attention``, the absorbed-MLA read of a dense latent cache
 ("reference path on every backend", ``repro/kernels/ops.py``): it is the
-plain PyTorch version on the card too. Nor has sliding-window prefill
+plain PyTorch version on the card too. Nor has ``merge_partials``, the
+merge in rank order of the partial reads (``decode_attention(...,
+return_lse=True)``) of a KV sequence split over the model axis: the
+reference leaves that merge to XLA's partitioner, so here it is a plain
+PyTorch float32 sum on every device. Nor has sliding-window prefill
 attention: the reference's ``ops.flash_attention`` sends a ``window`` to
 ``ref.windowed_flash_attention`` (or ``chunked_flash_attention``) on every
 backend, the TPU included, because its Pallas flash kernel takes no
@@ -47,7 +51,8 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
 from repro_torch.kernels.lru_scan import lru_scan, lru_scan_bwd
 from repro_torch.kernels.page_copy import copy_pages, copy_pages_leaves
-from repro_torch.kernels.ref import gather_pages, mla_decode_attention
+from repro_torch.kernels.ref import (gather_pages, merge_partials,
+                                    mla_decode_attention)
 from repro_torch.kernels.stmc_conv import stmc_conv
 
 flash_attention_bwd = _flash.flash_attention_bwd
@@ -108,7 +113,7 @@ __all__ = ["add_launch_counts", "chunk_attention", "copy_pages",
            "copy_pages_leaves", "decode_attention", "flash_attention",
            "flash_attention_bwd",
            "gather_pages",
-           "launch_counts", "lru_scan", "lru_scan_bwd",
+           "launch_counts", "lru_scan", "lru_scan_bwd", "merge_partials",
            "mla_chunk_attention",
            "mla_decode_attention", "paged_decode_attention",
            "paged_mla_decode_attention", "reset_launch_counts", "stmc_conv"]

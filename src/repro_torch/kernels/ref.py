@@ -243,13 +243,20 @@ def stmc_conv(window, w, b=None):
 
 
 def decode_attention(q, k_cache, v_cache, cache_positions, q_position, *,
-                     window=None, scale=None, logit_softcap=None):
+                     window=None, scale=None, logit_softcap=None,
+                     return_lse=False):
     """Single-token attention against a (possibly ring-buffer) KV cache
     (``repro.kernels.ref.decode_attention``).
 
     q: (B, H, dh); caches: (B, S, Hkv, dh); cache_positions: (B, S) absolute
     positions with -1 for empty slots; q_position: (B,) current position.
     A slot with no live key (all ``-1``) averages V uniformly — finite.
+
+    ``return_lse=True`` returns ``(out, lse)``: ``lse`` (B, H) float32 is
+    the natural log-sum-exp of the scaled (soft-capped) live scores, and a
+    (slot, head) with no live key reads ``out`` 0 and ``lse`` -inf — the
+    partial read of one shard of a split cache, which
+    :func:`merge_partials` weighs 0.
     """
     b, h, dh = q.shape
     _, s, hkv, _ = k_cache.shape
@@ -267,7 +274,36 @@ def decode_attention(q, k_cache, v_cache, cache_positions, q_position, *,
                          torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", probs, v_cache.float())
-    return out.reshape(b, h, dh).to(q.dtype)
+    if not return_lse:
+        return out.reshape(b, h, dh).to(q.dtype)
+    live = allow.any(dim=-1)[:, None, None].expand(b, hkv, g)
+    lse = torch.where(live, torch.logsumexp(scores, dim=-1),
+                      torch.full_like(scores[..., 0], float("-inf")))
+    out = torch.where(live[..., None], out, torch.zeros_like(out))
+    return out.reshape(b, h, dh).to(q.dtype), lse.reshape(b, h)
+
+
+def merge_partials(outs, lses):
+    """Merge M partial reads of disjoint key sets, in rank order: ``outs``
+    (M, B, H, dh) and ``lses`` (M, B, H) float32, as ``decode_attention(...,
+    return_lse=True)`` gives them. Returns ``sum_r exp(lse_r - L) out_r`` with
+    ``L = log sum_r exp(lse_r)``, summed in float32 in the order of the
+    leading axis, in ``outs``' dtype: the read over the union of the keys.
+    A partial with ``lse`` -inf weighs 0; where every partial is -inf the
+    result is 0, not NaN. No TPU kernel computes this: the reference leaves
+    the merge of a sequence-split read to XLA's partitioner."""
+    lses = lses.float()
+    top = lses.amax(dim=0)
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    w = torch.exp(lses - top)                       # -inf -> 0
+    den = torch.zeros_like(top)
+    num = torch.zeros(outs.shape[1:], dtype=torch.float32,
+                      device=outs.device)
+    for r in range(outs.shape[0]):
+        den = den + w[r]
+        num = num + w[r][..., None] * outs[r].float()
+    out = num / torch.clamp(den, min=1e-30)[..., None]
+    return out.to(outs.dtype)
 
 
 def chunk_attention(q, k, v, q_positions, k_positions, *, window=None,

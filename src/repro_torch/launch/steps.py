@@ -29,8 +29,22 @@ heads, say), ``compress`` where the model axis has more than one rank
 (a shard's 256-blocks are not the whole leaf's), MoE stacks (the router's
 aux loss takes the global batch's statistics, and there is no expert
 parallelism), and MLA, RG-LRU and RWKV stacks, the encoder-decoder and
-the prefix-LM on more than one rank. ``make_serve_step`` and
-``make_prefill`` run without a mesh only.
+the prefix-LM on more than one rank.
+
+``make_prefill`` and ``make_serve_step`` on a mesh serve data x tensor
+parallel, on local shards with explicit collectives, the decode state in
+``launch.specs.decode_state_specs``' layout: each data rank runs its rows
+of the global batch; the prefill runs on the rank's heads and hands every
+attention ring back with the KV *sequence* over the model axis (every KV
+head, rows ``[r S/M, (r+1) S/M)``, or the whole ring where M does not
+divide S); a decode step gathers q, k and v to all heads, writes the
+token on the rank holding its ring slot, reads all heads over the rank's
+rows with ``decode_attention(..., return_lse=True)``, and merges each
+head's M partials in rank order on the rank that owns the head
+(``models.attention``); the logits are gathered to the full vocabulary.
+They refuse what the train step refuses, except MoE on a world of one
+rank, which serves; the engine (``SOIEngine``), paged pools and
+speculation run without a mesh only, as in the reference.
 """
 
 from __future__ import annotations
@@ -39,11 +53,13 @@ import functools
 
 import torch
 import torch.distributed as dist
+from torch import nn
 
 from repro_torch.configs.base import ModelCfg
 from repro_torch.distributed.sharding import (ShardingRules,
                                               logical_constraint, make_specs)
 from repro_torch.launch.mesh import data_axes_of
+from repro_torch.models import attention as attn
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import model_parallel
 from repro_torch.optim import (adamw_update, clip_by_global_norm,
@@ -165,24 +181,27 @@ def local_batch(batch: dict, mesh, microbatches: int = 1,
     return {k: v[idx.to(v.device)] for k, v in batch.items()}
 
 
-def _refuse(what: str):
+def _refuse(what: str, step: str = "train"):
     raise NotImplementedError(
-        f"the sharded train step does not run {what} yet (ROADMAP.md, "
+        f"the sharded {step} step does not run {what} yet (ROADMAP.md, "
         f"Queue 1 item 8)")
 
 
-def _check_mesh_stack(cfg: ModelCfg, mesh):
+def _check_mesh_stack(cfg: ModelCfg, mesh, step: str = "train"):
     """Refuse the stacks the sharded step does not hold: MoE on any mesh
-    (its aux loss is not in the sharded loss, and it would need the global
-    batch's routing statistics and expert parallelism); MLA, RG-LRU and
-    RWKV stacks, the encoder-decoder and the prefix-LM on more than one
+    for training (its aux loss is not in the sharded loss, and it would
+    need the global batch's routing statistics and expert parallelism),
+    on more than one rank for serving (the routing of a rank's rows is not
+    the global batch's, and there is no expert parallelism); MLA, RG-LRU
+    and RWKV stacks, the encoder-decoder and the prefix-LM on more than one
     rank (no tensor-parallel hooks in the first three, no test holding the
     last two's sharded step)."""
     blocks = T.layer_blocks(cfg)
-    if any(b.moe is not None for b in blocks):
-        _refuse("MoE stacks (the router's aux loss over the global batch, "
-                "expert parallelism)")
     ranks = mesh.size()
+    if any(b.moe is not None for b in blocks) and (step == "train"
+                                                   or ranks > 1):
+        _refuse("MoE stacks (the router's aux loss over the global batch, "
+                "expert parallelism)", step)
     hooks, held = "no tensor-parallel hooks", "no sharded step held"
     for what, present, why in (
             ("MLA", any(b.attn is not None and b.attn.kind == "mla"
@@ -192,11 +211,11 @@ def _check_mesh_stack(cfg: ModelCfg, mesh):
             ("encoder-decoder", cfg.encoder is not None, held),
             ("prefix-LM", cfg.prefix_lm, held)):
         if present and ranks > 1:
-            _refuse(f"{what} stacks on {ranks} ranks ({why})")
+            _refuse(f"{what} stacks on {ranks} ranks ({why})", step)
 
 
 def _check_layout(cfg: ModelCfg, rules: ShardingRules, mesh,
-                  model_size: int):
+                  model_size: int, step: str = "train"):
     """Refuse a layout the step cannot run: a dimension the rules split
     over the model axis that the axis does not divide falls back to
     replicated, and a replicated kv head (or ff column, or vocab row)
@@ -210,7 +229,7 @@ def _check_layout(cfg: ModelCfg, rules: ShardingRules, mesh,
         f"% mesh {model_size} != 0 -> replicated")]
     if model_size > 1 and model_notes:
         _refuse(f"a model axis of {model_size} that does not divide every "
-                f"split dimension ({sorted(set(model_notes))})")
+                f"split dimension ({sorted(set(model_notes))})", step)
 
 
 def _sharded_train_step(cfg: ModelCfg, rules: ShardingRules, mesh, *,
@@ -308,34 +327,192 @@ def _sharded_train_step(cfg: ModelCfg, rules: ShardingRules, mesh, *,
 # Serving
 # ---------------------------------------------------------------------------
 
-def _unsharded(what: str, mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what} on a mesh (tensor-parallel serving, the KV sequence over "
-            f"the model axis) is not ported yet (ROADMAP.md, Queue 1 item 8)")
+class _OnTensors(nn.Module):
+    """``fn(model, *args)`` as a forward, so that
+    ``torch.func.functional_call`` runs it on other tensors than the
+    model's parameters (a sharded step's local shards)."""
+
+    def __init__(self, model: nn.Module, fn):
+        super().__init__()
+        self.model = model
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(self.model, *args)
 
 
-def make_serve_step(cfg: ModelCfg, rules: ShardingRules = None, mesh=None):
+def _local_tensors(params, mesh, dt) -> dict:
+    """``{name: the rank's shard}`` of a model whose parameters are
+    DTensors on ``mesh`` (``sharding.shard_params``), in the compute dtype
+    ``dt`` (a no-op where the model was cast before it was sharded)."""
+    from torch.distributed.tensor import DTensor
+    out = {}
+    for k, p in params.named_parameters():
+        if not isinstance(p, DTensor) or p.device_mesh != mesh:
+            raise ValueError(f"parameter {k!r} is not a DTensor on the "
+                             f"step's mesh (sharding.shard_params)")
+        out[k] = p.to_local().detach().to(dt)
+    return out
+
+
+def _ring_lengths(cfg: ModelCfg, max_len: int) -> dict:
+    """``{state list: [logical ring length of each layer, None for a layer
+    without attention]}`` of a dense decode state of ``max_len``."""
+    from repro_torch.models.decode import soi_mid_len
+
+    def rings(blocks, length):
+        return [None if b.attn is None else
+                length if b.attn.window is None else min(length,
+                                                         b.attn.window)
+                for b in blocks]
+
+    blocks = T.layer_blocks(cfg)
+    if cfg.soi is None:
+        return {"segments": rings(blocks, max_len)}
+    out, i = {}, 0
+    for name, part in zip(("pre", "mid", "post"), T.soi_partition(cfg)):
+        n = sum(seg.n_layers for seg in part)
+        out[name] = rings(blocks[i:i + n], max_len if name != "mid" else
+                          soi_mid_len(max_len, cfg.soi.stride))
+        i += n
+    return out
+
+
+class _ServeLayout:
+    """What a serving step on a mesh needs of it, checked once: the model
+    group, this rank's place on the model and data axes, and the compute
+    dtype."""
+
+    def __init__(self, cfg: ModelCfg, rules: ShardingRules, mesh):
+        _check_mesh_stack(cfg, mesh, step="serve")
+        self.rules = rules or ShardingRules(data_axes=data_axes_of(mesh))
+        if self.rules.fsdp:
+            _refuse("fsdp (weights split over the data axes)", "serve")
+        if self.rules.seq_shard:
+            _refuse("seq_shard (sequence-parallel activations)", "serve")
+        names = list(mesh.mesh_dim_names)
+        self.m = mesh.size(names.index(self.rules.model_axis))
+        _check_layout(cfg, self.rules, mesh, self.m, step="serve")
+        self.mesh = mesh
+        self.group = mesh.get_group(self.rules.model_axis)
+        self.r = dist.get_rank(self.group)
+        self.d, self.n_data = _data_index(mesh, tuple(self.rules.data_axes))
+        self.dt = T._dtype(cfg)
+
+    def rows(self, b: int) -> slice:
+        """This data rank's rows of a global batch of ``b``: its 1/D share,
+        or every row where D does not divide ``b`` (the specs then
+        replicate the batch)."""
+        if b % self.n_data:
+            return slice(0, b)
+        per = b // self.n_data
+        return slice(self.d * per, (self.d + 1) * per)
+
+    def run(self, params, fn, *args):
+        """``fn(params, *args)`` on the rank's shards, inside
+        ``model_parallel`` over the model group."""
+        tensors = _local_tensors(params, self.mesh, self.dt)
+        with model_parallel(self.group):
+            return torch.func.functional_call(
+                _OnTensors(params, fn),
+                {"model." + k: v for k, v in tensors.items()}, args)
+
+
+def make_serve_step(cfg: ModelCfg, rules: ShardingRules = None, mesh=None,
+                    *, max_len: int | None = None):
     """One serving step, SOI and plain configs alike: the engine's
-    ``generate_step`` (per-slot clocks, SOI phase resolved per step)."""
-    _unsharded("make_serve_step", mesh)
+    ``generate_step`` (per-slot clocks, SOI phase resolved per step).
+    ``serve_step(params, state, token)`` takes tokens (B,) and returns
+    (logits, state), the state updated in place.
+
+    With a ``mesh``: ``params`` as ``sharding.shard_params`` lays them out
+    (cast to the compute dtype before sharding, or every step casts the
+    shards), ``state`` the local shards a ``make_prefill`` step on the same
+    mesh returned, ``token`` the global (B,) tokens; the step runs this data
+    rank's rows and returns their logits (B/D, V) in float32, full
+    vocabulary. ``max_len`` (the prefill's) is required where the model
+    axis has more than one rank: it says which rings split over it."""
     from repro_torch.engine.step import generate_step
 
-    def serve_step(params, state, token):
+    def step_fn(params, state, token):
         return generate_step(params, cfg, state, token)
+
+    if mesh is None:
+        return step_fn
+    layout = _ServeLayout(cfg, rules, mesh)
+    if layout.m > 1 and max_len is None:
+        raise ValueError(
+            "make_serve_step on a model axis of more than one rank needs "
+            "max_len (the prefill's): a rank's shard of a ring does not say "
+            "whether the ring's rows split over the model axis")
+    rings = _ring_lengths(cfg, max_len) if layout.m > 1 else {}
+
+    def local_view(state: dict, rows: slice) -> dict:
+        view = dict(state, t=state["t"][rows])
+        for name, lens in rings.items():
+            caches = []
+            for c, ring in zip(state[name], lens):
+                if ring is not None:
+                    split = ring % layout.m == 0
+                    want = ring // layout.m if split else ring
+                    if c["pos"].shape[1] != want:
+                        raise ValueError(
+                            f"a {name} ring of {c['pos'].shape[1]} rows on "
+                            f"this rank: max_len {max_len} lays out {want}")
+                    c = dict(c, **{attn.KV_SHARD: (layout.r, layout.m,
+                                                   split)})
+                caches.append(c)
+            view[name] = caches
+        return view
+
+    def serve_step(params, state, token):
+        b = token.shape[0]
+        rows = layout.rows(b)
+        logits, _ = layout.run(params, step_fn, local_view(state, rows),
+                               token[rows])
+        # every slot's clock advances one a step, those of the other data
+        # ranks' rows too: the clocks are replicated
+        t = state["t"]
+        t[:rows.start].add_(1)
+        t[rows.stop:].add_(1)
+        return logits, state
 
     return serve_step
 
 
 def make_prefill(cfg: ModelCfg, rules: ShardingRules = None, mesh=None, *,
                  max_len: int | None = None):
-    _unsharded("make_prefill", mesh)
+    """``prefill_step(params, batch) -> (logits, state)`` over
+    ``batch["tokens"]`` (B, S) (and the stubs ``patch_embeds`` /
+    ``encoder_frames``), caches of ``max_len`` rows (default S).
+
+    With a ``mesh`` (``params`` as ``make_serve_step`` takes them) the step
+    runs this data rank's rows of the global batch on the rank's heads
+    (``flash_attention`` on the local q, k and v) and returns their logits
+    (B/D, V) and the decode state as local shards of
+    ``launch.specs.decode_state_specs``' layout, leaf for leaf: rows over
+    the data axes, each attention ring's rows over the model axis (every
+    KV head on each rank) where the axis divides them, the clocks ``t``
+    (B,) replicated."""
     from repro_torch.models import decode as D
 
-    def prefill_step(params, batch):
+    def prefill_fn(params, batch):
         return D.prefill(params, cfg, batch["tokens"],
                          prefix_embeds=batch.get("patch_embeds"),
                          encoder_frames=batch.get("encoder_frames"),
                          max_len=max_len)
+
+    if mesh is None:
+        return prefill_fn
+    layout = _ServeLayout(cfg, rules, mesh)
+
+    def prefill_step(params, batch):
+        b = batch["tokens"].shape[0]
+        rows = layout.rows(b)
+        mine = {k: v[rows] for k, v in batch.items()}
+        logits, state = layout.run(params, prefill_fn, mine)
+        if rows != slice(0, b):
+            state["t"] = state["t"][:1].repeat(b)
+        return logits, state
 
     return prefill_step

@@ -41,6 +41,18 @@ only for slots whose compression window is complete, so a mid-window slot's
 ring row — which holds the frame it committed at its last phase-0 step — is
 never overwritten. On pools the same effect comes from the page map: the
 step hands mid-window slots a map of null pages (``engine.step``).
+
+Tensor-parallel serving (``launch.steps.make_serve_step`` on a mesh whose
+model axis has M > 1 ranks): q, k and v come out on the rank's heads, and a
+dense ring holds every KV head over the rows ``decode_state_specs`` gives
+the rank — ring slots ``[r S/M, (r+1) S/M)`` of rank r where M divides the
+ring length S, else the whole ring. The step marks each such cache with
+``KV_SHARD`` = (rank, M, split); ``attn_decode`` then gathers q, k and v to
+all heads, writes the token on the rank that holds ring slot ``t % S``
+(every rank of a whole ring), reads all heads over the rank's rows and —
+on a split ring — exchanges the partial reads with their log-sum-exps so
+that each rank merges its own heads' M partials in rank order
+(``kernels.ref.merge_partials``).
 """
 
 from __future__ import annotations
@@ -51,9 +63,14 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import AttnCfg
+from repro_torch.distributed import collectives as coll
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_rope, dense_init, from_model, \
-    norm_apply, param, to_model
+    model_group, norm_apply, param, to_model
+
+# key of a dense cache dict that a tensor-parallel serve step marks: (rank
+# on the model axis, its size M, whether the ring's rows split over it)
+KV_SHARD = "kv_shard"
 
 
 class Attention(nn.Module):
@@ -211,15 +228,24 @@ def hydrate_cache_prefix(dense: dict, pool: dict, rows: torch.Tensor,
     return dense
 
 
-def _cache_write(cache: dict, t: torch.Tensor, *, commit=None,
+def _cache_write(cache: dict, t: torch.Tensor, *, commit=None, shard=None,
                  **entries) -> dict:
     """Write one token per batch row at absolute position ``t`` ((B,) int32,
     per-slot clocks) into ring slot ``t % S``, in place. ``commit`` ((B,)
     bool) limits the write to its True rows: the others keep their old
-    entry (K, V and position)."""
+    entry (K, V and position). ``shard`` = (r, M): the cache holds ring
+    slots ``[r L, (r+1) L)`` of a ring of ``S = M L``, and a row writes
+    only where its slot lies there."""
     s = cache["pos"].shape[1]
     rows = torch.arange(t.shape[0], device=t.device)
-    slot = (t % s).long()
+    if shard is not None:
+        r, n = shard
+        local = (t % (s * n)).long() - r * s
+        own = (local >= 0) & (local < s)
+        commit = own if commit is None else commit & own
+        slot = local.clamp(0, s - 1)
+    else:
+        slot = (t % s).long()
     for name, val in entries.items():
         val = val.to(cache[name].dtype)
         if commit is not None:
@@ -529,6 +555,8 @@ def attn_decode(p: Attention, x: torch.Tensor, cache: dict, t: torch.Tensor,
             q, cache["k"], cache["v"], cache["pos"], pages, t32,
             window=cfg.window, scale=cfg.softmax_scale,
             logit_softcap=cfg.logit_softcap)
+    elif KV_SHARD in cache:
+        out = _sharded_decode(p, q, k, v, cache, t, commit=commit)
     else:
         cache = _cache_write(cache, t, commit=commit, k=k, v=v)
         out = kops.decode_attention(q, cache["k"], cache["v"], cache["pos"],
@@ -536,6 +564,40 @@ def attn_decode(p: Attention, x: torch.Tensor, cache: dict, t: torch.Tensor,
                                     scale=cfg.softmax_scale,
                                     logit_softcap=cfg.logit_softcap)
     return _out_proj(p, out), cache
+
+
+def _sharded_decode(p: Attention, q, k, v, cache: dict, t: torch.Tensor, *,
+                    commit=None):
+    """The dense read of a tensor-parallel serve step (see the module
+    docstring): q (B, H/M, dh), k and v (B, Hkv/M, dh) of the rank's heads;
+    the cache holds every KV head. Returns the read of the rank's heads
+    (B, H/M, dh)."""
+    cfg = p.cfg
+    r, n, split = cache[KV_SHARD]
+    group = model_group()
+    b, h_loc, dh = q.shape
+    kv_loc = k.shape[1]
+    # one gather: every rank's [q | k | v] heads, in rank order
+    qkv = coll.all_gather_dim(torch.cat([q, k, v], dim=1), 1, group)
+    qkv = qkv.reshape(b, n, h_loc + 2 * kv_loc, dh)
+    q_all = qkv[:, :, :h_loc].reshape(b, n * h_loc, dh).contiguous()
+    k_all = qkv[:, :, h_loc:h_loc + kv_loc].reshape(b, n * kv_loc, dh)
+    v_all = qkv[:, :, h_loc + kv_loc:].reshape(b, n * kv_loc, dh)
+    _cache_write(cache, t, commit=commit, shard=(r, n) if split else None,
+                 k=k_all, v=v_all)
+    t32 = t.to(torch.int32)
+    kw = dict(window=cfg.window, scale=cfg.softmax_scale,
+              logit_softcap=cfg.logit_softcap)
+    if not split:
+        # a whole ring on every rank: the read of all heads, then its own
+        out = kops.decode_attention(q_all, cache["k"], cache["v"],
+                                    cache["pos"], t32, **kw)
+        return out[:, r * h_loc:(r + 1) * h_loc]
+    out, lse = kops.decode_attention(q_all, cache["k"], cache["v"],
+                                     cache["pos"], t32, return_lse=True, **kw)
+    parts = coll.exchange_partials(
+        torch.cat([out.float(), lse[..., None]], dim=-1), group)
+    return kops.merge_partials(parts[..., :dh], parts[..., dh]).to(q.dtype)
 
 
 def _mla_decode(p: Attention, x: torch.Tensor, cache: dict, t: torch.Tensor,

@@ -32,13 +32,25 @@ layouts, as the reference keeps it), and the read's positions
 
 Decode and chunked prefill update the caches in place (see
 ``models.attention``).
+
+Inside ``layers.model_parallel`` over M > 1 ranks (tensor-parallel
+serving, ``launch.steps``) the model runs on its local shards: the
+embedding looks up a vocab-split table, the logits are gathered over the
+model axis to the full vocabulary, and ``prefill`` hands its attention
+caches back in ``launch.specs.decode_state_specs``' layout — every KV head
+on each rank over the rank's 1/M of the ring's rows where M divides the
+ring's length, else the whole ring (``_kv_to_serving_layout``). SOI's
+compress and fuse, the conv window, the extrapolation queue and the clocks
+stay replicated over the model axis.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelCfg
+from repro_torch.distributed import collectives as coll
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru as rgm
 from repro_torch.models import rwkv as rkm
@@ -51,6 +63,7 @@ from repro_torch.models.transformer import (_dtype, _embed_tokens,
                                             soi_extrapolate, soi_fuse,
                                             soi_partition, softcap_logits,
                                             split_blocks)
+from repro_torch.models.layers import model_group
 
 
 # ---------------------------------------------------------------------------
@@ -252,10 +265,43 @@ def _embed_one(params, cfg: ModelCfg, token, t):
 
 def _logits_one(params, cfg: ModelCfg, x):
     """Final norm + head; logits in float32, soft-capped where the config
-    says so."""
+    says so. A head whose vocab is split over the model axis gives the
+    shard's columns, gathered to the full vocabulary in rank order."""
     h = final_norm(params, cfg, x)
-    return softcap_logits(cfg,
-                          torch.matmul(h, _head_weights(params)).float())
+    w = _head_weights(params)
+    logits = torch.matmul(h, w).float()
+    if w.shape[1] != cfg.vocab:
+        logits = coll.all_gather_dim(logits, -1, model_group())
+    return softcap_logits(cfg, logits)
+
+
+def _kv_to_serving_layout(state: dict, group) -> dict:
+    """A prefill's attention caches, filled on the rank's KV heads (B, S,
+    Hkv/M, dh), in the serving layout over the M ranks of ``group``, in
+    place of the state's entries: where M divides S, ring rows [r S/M,
+    (r+1) S/M) of every KV head (an all-to-all of K and V together, and
+    the rank's rows of ``pos``, the same on every rank); else the whole
+    ring of every KV head (an all-gather)."""
+    n = dist.get_world_size(group)
+    r = dist.get_rank(group)
+    for name in ("segments", "pre", "mid", "post"):
+        for c in state.get(name, ()):
+            if not is_attn_cache(c):
+                continue
+            b, s, kv_loc, dh = c["k"].shape
+            kv = torch.cat([c["k"], c["v"]], dim=2)
+            if s % n:
+                kv = coll.all_gather_dim(kv, 2, group)
+            else:
+                kv = coll.heads_to_sequence(kv, group)
+                c["pos"] = c["pos"][:, r * (s // n):(r + 1) * (s // n)] \
+                    .contiguous()
+            kv = kv.reshape(b, kv.shape[1], n, 2, kv_loc, dh)
+            c["k"] = kv[:, :, :, 0].reshape(b, -1, n * kv_loc, dh) \
+                .contiguous()
+            c["v"] = kv[:, :, :, 1].reshape(b, -1, n * kv_loc, dh) \
+                .contiguous()
+    return state
 
 
 # ---------------------------------------------------------------------------
@@ -374,7 +420,7 @@ def prefill(params, cfg: ModelCfg, tokens, *, prefix_embeds=None,
             true_length=tl)
         if enc_out is not None:
             state.update(fill_cross_kv(params, enc_out))
-        return _logits_one(params, cfg, _last_real(x, tl)), state
+        return _prefill_out(params, cfg, _last_real(x, tl), state)
 
     if prefix_embeds is not None or enc_out is not None or cfg.prefix_lm:
         raise NotImplementedError(
@@ -409,7 +455,17 @@ def prefill(params, cfg: ModelCfg, tokens, *, prefix_embeds=None,
     x, state["post"] = _segment_forward(post, cfg, x, positions=positions,
                                         collect_cache=True, batch=b,
                                         max_len=max_len, true_length=tl)
-    return _logits_one(params, cfg, _last_real(x, tl)), state
+    return _prefill_out(params, cfg, _last_real(x, tl), state)
+
+
+def _prefill_out(params, cfg: ModelCfg, x_last, state: dict):
+    """(logits, state) of a prefill: under ``model_parallel`` over more
+    than one rank, the caches in the serving layout."""
+    logits = _logits_one(params, cfg, x_last)
+    group = model_group()
+    if group is not None and dist.get_world_size(group) > 1:
+        _kv_to_serving_layout(state, group)
+    return logits, state
 
 
 # ---------------------------------------------------------------------------

@@ -67,6 +67,16 @@ def _collectives(rank, world, tmp):
         out[name] = y.float().numpy()
     out["a2a"] = moe_all_to_all(torch.from_numpy(inp["a2a"][rank]),
                                 dist.group.WORLD).numpy()
+    if "serving" in inp:
+        from repro_torch.distributed.collectives import (all_gather_dim,
+                                                         exchange_partials,
+                                                         heads_to_sequence)
+        x = {k: torch.from_numpy(v[rank]) for k, v in inp["serving"].items()}
+        out["gather"] = all_gather_dim(x["gather"], 1,
+                                       dist.group.WORLD).numpy()
+        out["h2s"] = heads_to_sequence(x["h2s"], dist.group.WORLD).numpy()
+        out["partials"] = exchange_partials(x["partials"],
+                                            dist.group.WORLD).numpy()
     _save(tmp, f"collectives_out_{rank}.pkl", out)
 
 
@@ -125,9 +135,131 @@ def _train(rank, world, tmp):
         _save(tmp, "train_out.pkl", out)
 
 
+def _gather_leaf(x, spec, mesh, shape):
+    """The global tensor of a rank's shard ``x`` laid out by ``spec``."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed.sharding import placements
+    return DTensor.from_local(x.contiguous(), mesh, placements(spec, mesh),
+                              shape=shape,
+                              stride=torch.empty(shape).stride()
+                              ).full_tensor()
+
+
+def _serve(rank, world, tmp):
+    """Every case of ``serve_in.pkl`` on its mesh: ``make_prefill`` on the
+    batch, the clocks staggered, then ``make_serve_step`` greedy for its
+    steps, from the reference-layout numpy weights. Each step's logits and
+    the final state are gathered (the shards' specs from
+    ``decode_state_specs`` of the global state); rank 0 saves them with
+    every rank's leaf shapes and bytes against the specs' local shapes and
+    ``per_device_bytes``."""
+    from repro_torch.convert import from_jax_params
+    from repro_torch.distributed.sharding import (ShardingRules, axes_size,
+                                                  per_device_bytes,
+                                                  shard_params)
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_prefill, make_serve_step
+    from repro_torch.models import decode as D
+    inp = load(tmp, "serve_in.pkl")
+    meshes = {}
+    out = {}
+    if "refuse_cfgs" in inp:
+        out["refused"] = _serve_refusals(inp["refuse_cfgs"],
+                                         inp["max_len_cfg"])
+    for name, case in inp["cases"].items():
+        cfg, ml = case["cfg"], case["max_len"]
+        if case["mesh"] not in meshes:
+            meshes[case["mesh"]] = make_mesh(case["mesh"], ("data", "model"),
+                                             device_type="cpu")
+        mesh = meshes[case["mesh"]]
+        rules = ShardingRules(data_axes=("data",))
+        full = from_jax_params(case["params"], cfg, device="cpu")
+        tokens = torch.from_numpy(case["tokens"])
+        b = tokens.shape[0]
+        want = S.flatten(D.init_decode_state(full, cfg, b, ml))
+        specs = S.decode_state_specs(want, rules, mesh)
+        model = shard_params(full, rules, mesh)
+        prefill = make_prefill(cfg, rules, mesh, max_len=ml)
+        step = make_serve_step(cfg, rules, mesh, max_len=ml)
+        row_spec = ("data" if b % mesh.size(0) == 0 else None, None)
+
+        def gathered(logits):
+            return _gather_leaf(logits, row_spec, mesh,
+                                (b, logits.shape[1]))
+
+        logits, state = prefill(model, {"tokens": tokens})
+        state["t"].sub_(torch.from_numpy(case["stagger"]))
+        steps = [gathered(logits).numpy()]
+        toks = []
+        for _ in range(case["steps"]):
+            tok = torch.from_numpy(steps[-1]).argmax(-1).to(torch.int32)
+            toks.append(tok.numpy())
+            logits, state = step(model, state, tok)
+            steps.append(gathered(logits).numpy())
+        mine = S.flatten(state)
+        assert set(mine) == set(want), sorted(set(mine) ^ set(want))
+        local_shapes = {}
+        for k, w in want.items():
+            local_shapes[k] = tuple(
+                d if e is None else d // axes_size(mesh, e)
+                for d, e in zip(w.shape, specs[k]))
+        got = {"logits": steps, "tokens": toks,
+               "shapes_ok": {k: tuple(v.shape) == local_shapes[k]
+                             for k, v in mine.items()},
+               "dtypes_ok": all(mine[k].dtype == want[k].dtype
+                                for k in want),
+               "bytes": sum(v.numel() * v.element_size()
+                            for v in mine.values()),
+               "per_device_bytes": per_device_bytes(want, specs, mesh),
+               "split": sorted(k for k, e in specs.items()
+                               if "model" in e),
+               "state": {k: _gather_leaf(v, specs[k], mesh,
+                                         tuple(want[k].shape)).numpy()
+                         for k, v in mine.items()}}
+        out[name] = {"rank": rank, **got} if rank else got
+        ranks = [None] * world
+        dist.all_gather_object(ranks, {k: got[k] for k in (
+            "shapes_ok", "dtypes_ok", "bytes", "per_device_bytes")})
+        out[name]["ranks"] = ranks
+    if rank == 0:
+        _save(tmp, "serve_out.pkl", out)
+
+
+def _serve_refusals(cfgs, max_len_cfg) -> dict:
+    """What the serving steps raise for the stacks they do not run, on a
+    mesh of the world's ranks over the model axis, and a serve step of
+    ``max_len_cfg`` there without ``max_len``."""
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_prefill, make_serve_step
+    world = dist.get_world_size()
+    mesh = make_mesh((1, world), ("data", "model"), device_type="cpu")
+    rules = ShardingRules(data_axes=("data",))
+    out = {}
+    for name, cfg in cfgs.items():
+        for what, fn in (("serve", make_serve_step), ("prefill",
+                                                      make_prefill)):
+            try:
+                fn(cfg, rules, mesh, max_len=32)
+                out[f"{name} {what}"] = None
+            except NotImplementedError as e:
+                out[f"{name} {what}"] = str(e)
+    try:
+        make_serve_step(max_len_cfg, rules, mesh)
+        out["qwen3 no max_len"] = None
+    except ValueError as e:
+        out["qwen3 no max_len"] = str(e)
+    return out
+
+
 def _refusals(cfg) -> dict:
-    """What each layout the sharded step does not run raises, on a 2 x 2
-    mesh and a 1 x 4 one (whose model axis does not divide 2 kv heads)."""
+    """What each layout the sharded steps do not run raises, on a 2 x 2
+    mesh and a 1 x 4 one (whose model axis does not divide 2 kv heads):
+    training's, and serving's — the MLA and RG-LRU stacks on the 2 x 2
+    mesh, qwen3's 2 kv heads on 1 x 4."""
+    from repro_torch import configs as pconfigs
+    from repro_torch.configs import deepseek_v2_236b as DS
     from repro_torch.distributed.sharding import ShardingRules
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import (make_prefill, make_serve_step,
@@ -135,6 +267,8 @@ def _refusals(cfg) -> dict:
     mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
     wide = make_mesh((1, 4), ("data", "model"), device_type="cpu")
     rules = ShardingRules(data_axes=("data",))
+    mla = DS.mla_dense_config(n_layers=2)
+    rglru = pconfigs.get_smoke("recurrentgemma-9b")
     tries = {
         "fsdp": lambda: make_train_step(
             cfg, ShardingRules(data_axes=("data",), fsdp=True), mesh),
@@ -142,8 +276,11 @@ def _refusals(cfg) -> dict:
             cfg, ShardingRules(data_axes=("data",), seq_shard=True), mesh),
         "compress": lambda: make_train_step(cfg, rules, mesh, compress=True),
         "kv_heads": lambda: make_train_step(cfg, rules, wide),
-        "serve": lambda: make_serve_step(cfg, rules, mesh),
-        "prefill": lambda: make_prefill(cfg, rules, mesh),
+        "serve kv_heads": lambda: make_serve_step(cfg, rules, wide,
+                                                  max_len=32),
+        "prefill kv_heads": lambda: make_prefill(cfg, rules, wide),
+        "serve MLA": lambda: make_serve_step(mla, rules, mesh, max_len=32),
+        "prefill RG-LRU": lambda: make_prefill(rglru, rules, mesh),
     }
     out = {}
     for name, fn in tries.items():
@@ -155,7 +292,8 @@ def _refusals(cfg) -> dict:
     return out
 
 
-JOBS = {"collectives": _collectives, "pipeline": _pipeline, "train": _train}
+JOBS = {"collectives": _collectives, "pipeline": _pipeline, "train": _train,
+        "serve": _serve}
 
 
 def replay_psum(xs: np.ndarray) -> np.ndarray:

@@ -10,7 +10,11 @@ gloo ranks, spawned once for the file (``_torch_ranks``):
     ``jax.lax.all_to_all(split_axis=0, concat_axis=1, tiled=True)``;
   * the two autograd Functions of tensor parallelism: ``copy_to_model``
     sums the gradient once, ``reduce_from_model`` the value once (not the
-    gradient again).
+    gradient again);
+  * the serving collectives: ``all_gather_dim`` the ranks' shards in rank
+    order, ``heads_to_sequence`` a (B, S, Hloc, dh) shard split on heads
+    to the rank's S/4 rows of every head, ``exchange_partials`` every
+    rank's partials of this rank's heads, in rank order.
 """
 
 import numpy as np
@@ -37,6 +41,16 @@ def _inputs():
         },
         # each rank's tokens (E 8, C 3, d 5)
         "a2a": rng.standard_normal((WORLD, 8, 3, 5)).astype(np.float32),
+        # each rank's q heads (B 2, Hloc 3, dh 5); prompt K/V (B 2, S 8,
+        # Hloc 2, dh 3); partials of all heads (B 2, H 8, dh + 1 = 6)
+        "serving": {
+            "gather": rng.standard_normal((WORLD, 2, 3, 5)).astype(
+                np.float32),
+            "h2s": rng.standard_normal((WORLD, 2, 8, 2, 3)).astype(
+                np.float32),
+            "partials": rng.standard_normal((WORLD, 2, 8, 6)).astype(
+                np.float32),
+        },
     }
 
 
@@ -100,3 +114,20 @@ def test_model_axis_functions_on_one_rank(tmp_path):
             assert torch.equal(gx, g)
     finally:
         dist.destroy_process_group()
+
+
+def test_serving_collectives_lay_shards_out_in_rank_order(run):
+    inp, outs = run
+    x = inp["serving"]
+    gather = np.concatenate(list(x["gather"]), axis=1)
+    s_loc = x["h2s"].shape[2] // WORLD
+    h_loc = x["partials"].shape[2] // WORLD
+    for r in range(WORLD):
+        np.testing.assert_array_equal(outs[r]["gather"], gather)
+        want = np.concatenate([x["h2s"][j, :, r * s_loc:(r + 1) * s_loc]
+                               for j in range(WORLD)], axis=2)
+        assert outs[r]["h2s"].shape == (2, s_loc, 2 * WORLD, 3)
+        np.testing.assert_array_equal(outs[r]["h2s"], want)
+        want = np.stack([x["partials"][j, :, r * h_loc:(r + 1) * h_loc]
+                         for j in range(WORLD)])
+        np.testing.assert_array_equal(outs[r]["partials"], want)

@@ -27,7 +27,11 @@ dtypes repeat bit for bit; the masked edge path at Cout 129 and on a
 misaligned weight view; one-hot windows count every split of the cluster
 once), bit-exact for ``copy_pages`` (and ``copy_pages_leaves``: one launch
 over mixed leaves); and a narrow U-Net streamed on the
-card against the CPU, with ``stmc_conv`` launched as the phase plans say.
+card against the CPU, with ``stmc_conv`` launched as the phase plans say;
+the dense read's ``return_lse`` at qwen3's G 2 and mistral's G 12 (dh
+128) over 2 and 4 shards of the ring, a shard that sees no row included:
+each shard's out and lse against the plain version's (lse within 1e-4 in
+float32, 2e-2 in bf16), and the shards merged against the whole read.
 
 Without a CUDA device every test here skips (decided inside the ``cuda``
 fixture, so every worker collects the same tests). On the card:
@@ -169,6 +173,68 @@ def test_cuda_decode_attention_matches_plain(cuda, case, dtype):
         assert (n_split, kw["s"]) == (2, keys + 1)
     elif case == "split_masked_head":
         assert int(t.min()) - win >= 2 * keys       # ranges 0 and 1 dead
+
+
+# the sequence-split read's partials (return_lse): qwen3-1.7b's G 2 and
+# mistral-large-123b's G 12 at dh 128, the ring's rows over M shards;
+# "early" puts slot 0's clock at 100, so the shards past its first see no
+# row (out 0, lse -inf)
+GPU_LSE = {
+    "qwen3_g2": dict(b=4, h=16, hkv=8, s=1088, dh=128),
+    "mistral_g12": dict(b=4, h=96, hkv=8, s=1024, dh=128),
+    "qwen3_g2_early": dict(b=4, h=16, hkv=8, s=1088, dh=128, t0=100),
+}
+# lse against the plain version's: float32 scores agree to rounding; the
+# bf16 body's scores are bf16 products (PERF.md §6, PR 32)
+LSE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(GPU_LSE))
+def test_cuda_decode_lse_matches_plain_and_merges(cuda, case, dtype, m):
+    """Each shard's CUDA (out, lse) against the plain version's, the
+    read without the flag unchanged bit for bit, one launch a call, and
+    the shards merged in rank order against the unsharded CUDA read."""
+    kw = dict(GPU_LSE[case])
+    t0 = kw.pop("t0", None)
+    dt = getattr(torch, dtype)
+    q, k, v, pos, t = _decode_inputs(7, **kw)
+    if t0 is not None:
+        t[0] = t0
+    q, k, v = (torch.from_numpy(x).to(cuda, dt) for x in (q, k, v))
+    pos, t = torch.from_numpy(pos).to(cuda), torch.from_numpy(t).to(cuda)
+    rows = kw["s"] // m
+    outs, lses = [], []
+    for r in range(m):
+        sl = slice(r * rows, (r + 1) * rows)
+        ks, vs, ps = (x[:, sl].contiguous() for x in (k, v, pos))
+        n0 = PDA.decode_attention.launches
+        out, lse = PDA.decode_attention(q, ks, vs, ps, t, return_lse=True)
+        plain_out = PDA.decode_attention(q, ks, vs, ps, t)
+        torch.cuda.synchronize()
+        assert PDA.decode_attention.launches == n0 + 2
+        w_out, w_lse = pref.decode_attention(q, ks, vs, ps, t,
+                                             return_lse=True)
+        dead = torch.isneginf(w_lse)
+        assert torch.equal(torch.isneginf(lse), dead)
+        assert not torch.isnan(lse).any() and not torch.isnan(out).any()
+        assert not out[dead].any()
+        live = ~dead
+        if live.any():
+            _close(lse[live].cpu(), w_lse[live].cpu(), LSE_TOL[dtype])
+            _close(out[live].float().cpu(), w_out[live].float().cpu(),
+                   _read_tol(w_out[live], dtype))
+        assert torch.equal(out[live], plain_out[live])
+        outs.append(out)
+        lses.append(lse)
+    if t0 is not None:
+        assert torch.isneginf(lses[-1][0]).all()
+    merged = pref.merge_partials(torch.stack(outs), torch.stack(lses))
+    whole = PDA.decode_attention(q, k, v, pos, t)
+    _close(merged.float().cpu(), whole.float().cpu(),
+           _read_tol(whole, dtype))
 
 
 GPU_REPEAT = {

@@ -16,8 +16,9 @@ layers, d 64, 4/2 heads, vocab 256) in float32:
   * a one-process 1 x 1 gloo world, bit for bit the plain port step (loss,
     grad norm, params and moments), microbatches 1 and 2, SOI none and pp;
   * the refusals: fsdp, seq_shard, compression on a split model axis, kv
-    heads the model axis does not divide, serving and prefill on a mesh,
-    and a CUDA mesh without a card.
+    heads the model axis does not divide (training and serving), the
+    serving steps' MLA and RG-LRU stacks on a split model axis, and a CUDA
+    mesh without a card.
 """
 
 import dataclasses
@@ -133,10 +134,15 @@ def test_refusals(run):
     _, out = run
     refused = out["refused"]
     assert set(refused) == {"fsdp", "seq_shard", "compress", "kv_heads",
-                            "serve", "prefill"}
+                            "serve kv_heads", "prefill kv_heads",
+                            "serve MLA", "prefill RG-LRU"}
     for name, msg in refused.items():
         assert msg is not None and "ROADMAP.md" in msg, name
-    assert "model axis of 4" in refused["kv_heads"]
+    for name in ("kv_heads", "serve kv_heads", "prefill kv_heads"):
+        assert "model axis of 4" in refused[name], name
+    assert "serve step does not run MLA stacks" in refused["serve MLA"]
+    assert "serve step does not run RG-LRU stacks" in \
+        refused["prefill RG-LRU"]
 
 
 @pytest.fixture

@@ -40,7 +40,8 @@ from repro_torch.convert import from_jax_params
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as pref
 from repro_torch.launch.mesh import AbstractMesh
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.steps import (make_prefill, make_serve_step,
+                                      make_train_step)
 from repro_torch.models import layers as PL
 from repro_torch.models import transformer as PT
 from repro_torch.optim import adamw_init
@@ -344,7 +345,8 @@ def test_three_deepseek_steps_match_jax(micro):
     ("recurrentgemma-9b", {"data": 2, "model": 2}, "RG-LRU")])
 def test_mesh_step_refuses_unsharded_stacks(arch, shape, what):
     """MoE on any mesh, MLA and RG-LRU on more than one rank: refused
-    before any process group is needed."""
+    before any process group is needed; the serving steps refuse each on
+    more than one rank."""
     if arch == "mla-dense":
         from repro_torch.configs import deepseek_v2_236b as D
         cfg = D.mla_dense_config(n_layers=2)
@@ -354,3 +356,9 @@ def test_mesh_step_refuses_unsharded_stacks(arch, shape, what):
     with pytest.raises(NotImplementedError,
                        match=f"{what} stacks.*Queue 1 item 8"):
         make_train_step(cfg, None, AbstractMesh(shape))
+    if AbstractMesh(shape).size() > 1:            # one rank serves them all
+        for make in (make_prefill, make_serve_step):
+            with pytest.raises(NotImplementedError,
+                               match=f"serve step does not run {what} "
+                                     f"stacks.*Queue 1 item 8"):
+                make(cfg, None, AbstractMesh(shape))

@@ -36,7 +36,8 @@ from repro_torch import configs as pconfigs
 from repro_torch.convert import from_jax_params
 from repro_torch.launch import train as ptrain
 from repro_torch.launch.mesh import AbstractMesh
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.steps import (make_prefill, make_serve_step,
+                                      make_train_step)
 from repro_torch.models import transformer as PT
 from repro_torch.optim import adamw_init
 from test_torch_train import _random_params as _gain1_params
@@ -201,9 +202,16 @@ def test_stub_batch_is_the_reference_trainers():
     ("paligemma-3b", {"data": 4, "model": 1}, "prefix-LM")])
 def test_mesh_step_refuses_unsharded_stacks(arch, shape, what):
     """RWKV, encoder-decoder and prefix-LM stacks on more than one rank:
-    refused before any process group is needed."""
+    refused before any process group is needed, by the serving steps
+    too."""
     cfg = pconfigs.get_smoke(arch)
     make_train_step(cfg)                          # trains without a mesh
     with pytest.raises(NotImplementedError,
                        match=f"{what} stacks.*Queue 1 item 8"):
         make_train_step(cfg, None, AbstractMesh(shape))
+    if AbstractMesh(shape).size() > 1:            # one rank serves them all
+        for make in (make_prefill, make_serve_step):
+            with pytest.raises(NotImplementedError,
+                               match=f"serve step does not run {what} "
+                                     f"stacks.*Queue 1 item 8"):
+                make(cfg, None, AbstractMesh(shape))
