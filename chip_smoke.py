@@ -101,8 +101,10 @@ Phases, each printing its own lines:
              before the SOI middle, one MoE layer of 160 experts as the
              middle), float32, SOI pp: dense and paged engines with 3 slots
              (prompts of 41 and 43 tokens, a third of 37 after 3 steps), 8
-             greedy steps on the card and on the CPU: logits within 1e-3,
-             tokens identical; the card's paged run goes through
+             greedy steps on the card and on the CPU (the CPU's dense run
+             is the reference of both card runs: its paged run is the same
+             bit for bit; phases 10, 18 and 19 do the same): logits within
+             1e-3, tokens identical; the card's paged run goes through
              paged_mla_decode_attention, its prefills through the d_qk 192 /
              d_v 128 flash_attention.
 8. ds-serve — the serving driver on full-width deepseek-v2 cut to 4 layers
@@ -126,12 +128,14 @@ Phases, each printing its own lines:
              prefix-cache counters, warm against cold bit for bit, and a
              profiled rerun (the prefill window with mla_chunk_attention's
              device ms a request, the decode loop).
-10. rg-parity — full-width recurrentgemma-9b cut to 12 layers (SOI pre
-             0..2, middle 3..8, post 9..11; 8 RG-LRU and 4 windowed MQA
-             layers), float32, pp and fp, dense and paged (page 16): 3 slots
-             (prompts of 41 and 43 tokens, a third of 37 after 3 steps), 8
-             greedy steps on the card and on the CPU: logits within 1e-3,
-             tokens identical; lru_scan launched 8 times a prefill, the
+10. rg-parity — full-width recurrentgemma-9b cut to 9 layers (SOI pre
+             0..2, middle 3..5, post 6..8: one (RG-LRU, RG-LRU, windowed
+             MQA) pattern each; 6 RG-LRU and 3 MQA layers), float32, pp
+             and fp, dense and paged (page 16): 3 slots (prompts of 41 and
+             43 tokens, a third of 37 after 3 steps), 8 greedy steps on the
+             card and on the CPU (the CPU's dense run is the reference of
+             both card runs, as in phase 7): logits within 1e-3,
+             tokens identical; lru_scan launched 6 times a prefill, the
              decode reads at the count the host clocks give.
 11. rg-serve — the serving driver on full-depth recurrentgemma-9b (38
              layers), bfloat16, SOI pp, 4 requests of 2040..2034 tokens, 64
@@ -270,7 +274,8 @@ Phases, each printing its own lines:
              1e-4; SI-SNRi and MAC retain printed.
 18. families — olmoe-1b-7b, h2o-danube-1.8b, nemotron-4-15b and
              mistral-large-123b. (a) Card vs CPU: each at full width cut to
-             4 layers (SOI over 1..3), float32, pp, 3 slots (prompts of 41
+             4 layers (SOI over 1..3; nemotron and mistral to 2, SOI over
+             1..2), float32, pp, 3 slots (prompts of 41
              and 43 tokens, a third of 37 after 3 steps), 8 greedy steps,
              dense and paged (page 16): tokens identical, logits within
              1e-3, launches as the host clocks give them (the f32 decode
@@ -436,7 +441,32 @@ Phases, each printing its own lines:
              split 544 + 544 rows, each read with its lse and merged —
              tokens equal to the one-rank steps' and logits within 1e-3;
              each rank's launches, ms a step and collectives a step.
-25. the kernels JSON line (the decode reads and copy_pages also give their
+25. moe-mesh — expert parallelism (the MoE stacks through the sharded
+             steps: the router's columns and the experts over the model
+             axis, the dispatch groups the global batch's, the aux loss
+             over it; every number beside the card's name and power
+             limit). (a) phase 18's olmoe-1b-7b weights and prompts (16
+             layers, bf16, SOI pp, B 4 x 1024, clocks staggered, max_len
+             1088) through the plain prefill + 32 greedy steps, then
+             sharded on a (1, 1) NCCL mesh: logits and state bit for bit;
+             launches (flash_attention 16, decode_attention 16 a step); ms
+             a step and collectives a step of each. (b) olmoe-1b-7b cut to
+             6 of 16 layers (phase 22's cut: 80 GB at 18 bytes a parameter),
+             bf16 over f32 masters, B 8 S 128, 3 steps plain then 3 sharded
+             on the (1, 1) mesh from the same weights: loss, aux and grad
+             norm equal, params and moments equal by per-leaf digests;
+             flash_attention and its backward 6 a step; ms a step, peak and
+             collectives a step of each. (c) two gloo processes sharing the
+             card, a (1, 2) mesh, each holding 32 of the 64 experts (and
+             half the heads and vocabulary): olmoe cut to 4 layers (SOI pp
+             1..3), float32, 8 steps — tokens equal to the one-rank steps'
+             and logits within 1e-3 — and cut to 2 (SOI pp 1..2), one train
+             step against the plain step in the same process: loss and aux
+             within 1e-5, grad norm and the gradients (AdamW's first moment
+             after one step, 0.1 x the clipped gradient) within 1e-4 of each
+             leaf's largest; each rank's parameter bytes equal to the specs'
+             (the dry run's count), launches, ms a step and collectives.
+26. the kernels JSON line (the decode reads and copy_pages also give their
              phase-15 launches under "spec"; the kernels phase 16 launches
              their launches there under "obs"; flash_attention and
              flash_attention_bwd phase 17's under "train" and phase 21's
@@ -450,7 +480,9 @@ Phases, each printing its own lines:
              decode reads the zoo's shapes with their phase-19 launches
              under "zoo"; decode_attention and flash_attention phase 24
              (b)'s launches under "serve_mesh", and decode_attention's
-             return_lse (a)'s reading with (c)'s launches under "lse"), the
+             return_lse (a)'s reading with (c)'s launches under "lse";
+             decode_attention, flash_attention and flash_attention_bwd
+             phase 25's sharded olmoe runs' launches under "moe_mesh"), the
              card line, and last {"ok": true, ...}.
 
 Phases 4-13, 15, 16, 18 and 19 run the engine and the U-Net session as a user does, so
@@ -2211,6 +2243,14 @@ def _greedy(engine, params, prompts, n_steps=8, late_at=3, frames=None):
     return steps
 
 
+# HOST_RUN: the card-vs-CPU phases (7, 10, 18, 19) run the host once, dense,
+# and hold the card's dense and paged runs to it: on the plain reads the
+# host's paged engine is its dense one bit for bit (the reads gather the
+# pages, then compute as the dense read does;
+# tests/test_torch_paged.py::test_paged_engine_bit_exact_vs_dense_engine),
+# and the host's runs are most of these phases' time
+
+
 def _compare_runs(runs, label):
     """Tokens identical and logits within 1e-3 at every step of a
     (CPU run, card run) pair; returns the largest logit difference."""
@@ -2601,11 +2641,15 @@ def deepseek_parity_phase(dev) -> dict:
     n_outer = cfg.soi.first_layer + cfg.n_layers - cfg.soi.last_layer
     n_mid = cfg.soi.last_layer - cfg.soi.first_layer
     out = {}
+    host = None
     for layout, kw in (("dense", {}),
                        ("paged", dict(paged=True, page_size=16))):
         runs = []
         for where, model in ((torch.device("cpu"), cpu_model),
                              (dev, dev_model)):
+            if where.type == "cpu" and host is not None:
+                runs.append(host)     # the host's dense run: see HOST_RUN
+                continue
             eng = SOIEngine(cfg, max_concurrent_decodes=3, max_len=64,
                             device=where, **kw)
             ops.reset_launch_counts()
@@ -2615,6 +2659,7 @@ def deepseek_parity_phase(dev) -> dict:
             counts = ops.launch_counts()          # the card run's, last
             print(f"  {layout} {where}: 3 prefills + 8 steps in "
                   f"{time.perf_counter() - t0:.2f} s (host clock)")
+        host = runs[0]
         worst = _compare_runs(runs, f"deepseek {layout}")
         want_paged = (n_outer * eng.steps + n_mid * eng.mid_steps
                       if layout == "paged" else 0)
@@ -2869,16 +2914,23 @@ def _rg_counts(cfg):
     return n_att[0] + n_att[2], n_att[1], n_rec
 
 
+RG_PARITY_LAYERS = 9
+
+
 def rg_parity_phase(dev) -> dict:
     """Returns the launch counts of the paged pp engine's card run."""
-    phase("10 rg-parity (full-width recurrentgemma-9b, 12 layers, f32, SOI "
-          "pp/fp, dense and paged, card vs CPU)")
+    phase(f"10 rg-parity (full-width recurrentgemma-9b, {RG_PARITY_LAYERS} "
+          f"layers, f32, SOI pp/fp, dense and paged, card vs CPU)")
     from repro_torch.configs import recurrentgemma_9b as RG
+    from repro_torch.configs.base import SOILMCfg
     from repro_torch.engine import SOIEngine
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
-    cfgs = {mode: dataclasses.replace(RG.config(soi=mode, n_layers=12),
-                                      dtype="float32")
+    # the config's own SOI span at 9 layers leaves no pre segment: one
+    # pattern a segment instead
+    cfgs = {mode: dataclasses.replace(
+        RG.config(soi=mode, n_layers=RG_PARITY_LAYERS), dtype="float32",
+        soi=SOILMCfg(first_layer=3, last_layer=6, mode=mode))
             for mode in ("pp", "fp")}
     t0 = time.perf_counter()
     dev_model = T.init(cfgs["pp"], generator=torch.Generator(device=dev)
@@ -2888,7 +2940,8 @@ def rg_parity_phase(dev) -> dict:
     soi = cfgs["pp"].soi
     print(f"  {n_par / 1e9:.2f} B float32 parameters (SOI pre "
           f"0..{soi.first_layer - 1}, middle {soi.first_layer}.."
-          f"{soi.last_layer - 1}, post {soi.last_layer}..11), on the card "
+          f"{soi.last_layer - 1}, post {soi.last_layer}.."
+          f"{RG_PARITY_LAYERS - 1}), on the card "
           f"and on the host "
           f"({time.perf_counter() - t0:.1f} s to build and copy)")
     gen = torch.Generator().manual_seed(6)
@@ -2897,11 +2950,15 @@ def rg_parity_phase(dev) -> dict:
     n_outer, n_mid, n_rec = _rg_counts(cfgs["pp"])
     out = {}
     for mode, cfg in cfgs.items():
+        host = None
         for layout, kw in (("dense", {}),
                            ("paged", dict(paged=True, page_size=16))):
             runs = []
             for where, model in ((torch.device("cpu"), cpu_model),
                                  (dev, dev_model)):
+                if where.type == "cpu" and host is not None:
+                    runs.append(host)     # the host's dense run: see HOST_RUN
+                    continue
                 eng = SOIEngine(cfg, max_concurrent_decodes=3, max_len=64,
                                 device=where, **kw)
                 ops.reset_launch_counts()
@@ -2912,6 +2969,7 @@ def rg_parity_phase(dev) -> dict:
                 counts = ops.launch_counts()      # the card run's, last
                 print(f"  {mode} {layout} {where}: 3 prefills + 8 steps in "
                       f"{time.perf_counter() - t0:.2f} s (host clock)")
+            host = runs[0]
             worst = _compare_runs(runs, f"recurrentgemma {mode} {layout}")
             read = ("paged_decode_attention" if layout == "paged"
                     else "decode_attention")
@@ -4839,6 +4897,10 @@ FAMILY_ARCHS = ("olmoe-1b-7b", "h2o-danube-1.8b", "nemotron-4-15b",
 # the serving depth of each (None: all its layers). mistral-large-123b's 88
 # layers hold 245 GB in bf16; 16 of them hold ~46 GB, alone on the card
 FAMILY_LAYERS = {"mistral-large-123b": 16}
+# the card-vs-CPU depth of each (4: SOI over 1..3); the two widest at 2
+# (SOI over 1..2: a pre and a middle layer), their f32 weights 19.4 and
+# 27.8 GB a side at 4
+FAMILY_PARITY_LAYERS = {"nemotron-4-15b": 2, "mistral-large-123b": 2}
 # danube paged: request 0 fits the window-4096 ring (so the prefix index
 # keeps its pages), requests 1 and 2 share its first 1024 tokens and wrap
 # their rings in prefill; all three wrap in decode onto shared pages
@@ -4866,17 +4928,23 @@ def _counts_want(counts, want, label):
 
 
 def _family_parity(arch, dev) -> dict:
-    """Full width cut to 4 layers (SOI over 1..3), float32, pp: 3 slots
+    """Full width cut to 4 layers (SOI over 1..3; FAMILY_PARITY_LAYERS
+    cuts the widest to 2, SOI over 1..2), float32, pp: 3 slots
     (prompts of 41 and 43 tokens, a third of 37 after 3 steps), 8 greedy
     steps on the card and on the CPU, dense and paged (page 16): tokens
     identical, logits within 1e-3, launches as the host clocks give them.
     Returns {layout: the card run's counts}."""
     from repro_torch import configs
+    from repro_torch.configs.base import SOILMCfg
     from repro_torch.engine import SOIEngine
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
-    cfg = dataclasses.replace(configs.get(arch, soi="pp", n_layers=4),
+    n = FAMILY_PARITY_LAYERS.get(arch, 4)
+    cfg = dataclasses.replace(configs.get(arch, soi="pp", n_layers=n),
                               dtype="float32")
+    if n == 2:
+        cfg = dataclasses.replace(cfg, soi=SOILMCfg(first_layer=1,
+                                                    last_layer=2, mode="pp"))
     t0 = time.perf_counter()
     dev_model = T.init(cfg, generator=torch.Generator(device=dev)
                        .manual_seed(11), device=dev)
@@ -4894,11 +4962,15 @@ def _family_parity(arch, dev) -> dict:
     n_outer = cfg.soi.first_layer + cfg.n_layers - cfg.soi.last_layer
     n_mid = cfg.soi.last_layer - cfg.soi.first_layer
     out = {}
+    host = None
     for layout, kw in (("dense", {}),
                        ("paged", dict(paged=True, page_size=16))):
         runs = []
         for where, model in ((torch.device("cpu"), cpu_model),
                              (dev, dev_model)):
+            if where.type == "cpu" and host is not None:
+                runs.append(host)     # the host's dense run: see HOST_RUN
+                continue
             eng = SOIEngine(cfg, max_concurrent_decodes=3, max_len=64,
                             device=where, **kw)
             ops.reset_launch_counts()
@@ -4907,6 +4979,7 @@ def _family_parity(arch, dev) -> dict:
             torch.cuda.synchronize(dev)
             counts = ops.launch_counts()          # the card run's, last
             took = time.perf_counter() - t0
+        host = runs[0]
         worst = _compare_runs(runs, f"{arch} {layout}")
         read = ("paged_decode_attention" if layout == "paged"
                 else "decode_attention")
@@ -4954,6 +5027,15 @@ def _weight_floor(params, cfg) -> tuple:
             (total - skipped, (total - skipped) / HBM_BYTES_PER_S * 1e3))
 
 
+def _family_argv(arch) -> list:
+    """The serving driver's arguments of a family's phase-18 serve."""
+    argv = ["--arch", arch, "--soi", "pp", "--batch", "4", "--prompt-len",
+            "1024", "--stagger", "2", "--gen-len", "64", "--seed", "0"]
+    if arch in FAMILY_LAYERS:
+        argv += ["--layers", str(FAMILY_LAYERS[arch])]
+    return argv
+
+
 def _family_serve(arch, dev) -> tuple:
     """The serving driver at full width (``FAMILY_LAYERS`` cuts depth),
     bf16, SOI pp, 4 requests of 1024..1018 tokens, 64 generated, dense
@@ -4963,11 +5045,7 @@ def _family_serve(arch, dev) -> tuple:
     Returns (counts, cfg, params) (the weights for danube's paged run)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    argv = ["--arch", arch, "--soi", "pp", "--batch", "4", "--prompt-len",
-            "1024", "--stagger", "2", "--gen-len", "64", "--seed", "0"]
-    if arch in FAMILY_LAYERS:
-        argv += ["--layers", str(FAMILY_LAYERS[arch])]
-    args = serve.parse_args(argv)
+    args = serve.parse_args(_family_argv(arch))
     t0 = time.perf_counter()
     cfg, params, prompt, plens, engine = serve.setup(args)
     torch.cuda.synchronize(dev)
@@ -5101,7 +5179,8 @@ def _family_launches(name, arch, fam) -> tuple:
         return (fam["danube"]["paged"][name],
                 "families danube paged prefix cache (bf16)")
     return (fam["parity"][arch]["paged"][name],
-            f"families parity ({arch}, 4 layers, f32, paged)")
+            f"families parity ({arch}, "
+            f"{FAMILY_PARITY_LAYERS.get(arch, 4)} layers, f32, paged)")
 
 
 def _zoo_launches(name, label, zoo) -> tuple:
@@ -5123,7 +5202,8 @@ def families_phase(dev) -> dict:
     layers = ", ".join(f"{a} {FAMILY_LAYERS[a]} layers" for a in
                        FAMILY_LAYERS)
     phase(f"18 families (olmoe-1b-7b, h2o-danube-1.8b, nemotron-4-15b, "
-          f"mistral-large-123b: card vs CPU at 4 layers f32, then serving "
+          f"mistral-large-123b: card vs CPU at 4 layers f32 (nemotron and "
+          f"mistral 2), then serving "
           f"at full width in bf16, {layers}; danube paged with the prefix "
           f"cache)")
     t0 = time.perf_counter()
@@ -5252,10 +5332,14 @@ def _zoo_parity(arch, dev) -> dict:
     else:
         layouts.append(("paged", dict(paged=True, page_size=16)))
     out = {}
+    host = None
     for layout, kw in layouts:
         runs = []
         for where, model in ((torch.device("cpu"), cpu_model),
                              (dev, dev_model)):
+            if where.type == "cpu" and host is not None:
+                runs.append(host)     # the host's dense run: see HOST_RUN
+                continue
             eng = SOIEngine(cfg, max_concurrent_decodes=3, max_len=64,
                             device=where, **kw)
             ops.reset_launch_counts()
@@ -5267,6 +5351,7 @@ def _zoo_parity(arch, dev) -> dict:
             torch.cuda.synchronize(dev)
             counts = ops.launch_counts()          # the card run's, last
             took = time.perf_counter() - t0
+        host = runs[0]
         worst = _compare_runs(runs, f"{arch} {layout}")
         if cfg.soi is None:
             want = _zoo_reads(cfg, layout, eng.steps)
@@ -6850,12 +6935,13 @@ def _mesh_run(prefill, step, model, prompt, n_steps, dev):
     return out, toks, state, times
 
 
-def _mesh_one_by_one(dev, card) -> dict:
-    """(b): phase 5's weights and prompts through the plain steps, then the
-    same model sharded on a (1, 1) NCCL mesh through make_prefill +
-    make_serve_step: logits every step and the final state bit for bit;
-    ms a step and collectives a step of each. Returns the sharded run's
-    launch counts."""
+def _mesh_one_by_one(dev, card, argv=SERVE_ARGV, tag="(b)") -> dict:
+    """Phase 24 (b) (phase 25 (a): ``argv`` phase 18's olmoe-1b-7b): the
+    serving driver's weights and prompts of ``argv`` through the plain
+    steps, then the same model sharded on a (1, 1) NCCL mesh through
+    make_prefill + make_serve_step: logits every step and the final state
+    bit for bit; ms a step and collectives a step of each. Returns the
+    sharded run's launch counts."""
     import torch.distributed as dist
     from repro_torch.distributed.sharding import ShardingRules, shard_params
     from repro_torch.kernels import ops
@@ -6863,8 +6949,8 @@ def _mesh_one_by_one(dev, card) -> dict:
     from repro_torch.launch import specs as S
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import make_prefill, make_serve_step
-    cfg, model, prompt, _plens, engine = serve.setup(
-        serve.parse_args(SERVE_ARGV))
+    t0 = time.perf_counter()
+    cfg, model, prompt, _plens, engine = serve.setup(serve.parse_args(argv))
     del engine
     plain = (make_prefill(cfg, max_len=MESH_MAX_LEN), make_serve_step(cfg))
     p_out, p_toks, p_state, p_ms = _mesh_run(*plain, model, prompt,
@@ -6891,33 +6977,34 @@ def _mesh_one_by_one(dev, card) -> dict:
         del st
     finally:
         dist.destroy_process_group()
-    check(not dist.is_initialized(), "the process group outlived (b)")
+    check(not dist.is_initialized(), f"the process group outlived {tag}")
     check(all(torch.equal(a, b) for a, b in zip(p_out, s_out)),
-          "(b) sharded logits on the (1, 1) mesh differ from the plain "
-          "steps'")
+          f"{tag} sharded logits on the (1, 1) mesh differ from the plain "
+          f"steps'")
     s_flat = S.flatten(s_state)
     check(set(s_flat) == set(p_state) and all(
         torch.equal(s_flat[k], p_state[k]) for k in p_state),
-        "(b) the sharded state differs from the plain steps'")
+        f"{tag} the sharded state differs from the plain steps'")
     n_outer = cfg.soi.first_layer + cfg.n_layers - cfg.soi.last_layer
     n_mid = cfg.soi.last_layer - cfg.soi.first_layer
     want = {"flash_attention": cfg.n_layers,
             "decode_attention": (n_outer + n_mid) * MESH_STEPS}
     for name, n in want.items():
-        check(counts[name] == n, f"(b) {name} {counts[name]} launches, "
+        check(counts[name] == n, f"{tag} {name} {counts[name]} launches, "
                                  f"want {n}")
 
     def med(x):
         return sorted(x)[len(x) // 2]
-    print(f"  (b) qwen3-1.7b SOI pp, 28 layers, bf16, B 4 x 1024, clocks "
-          f"staggered {MESH_STAGGER}, {MESH_STEPS} steps: make_prefill + "
-          f"make_serve_step on the (1, 1) NCCL mesh == the plain steps bit "
-          f"for bit (logits of the prefill and every step, {len(p_state)} "
-          f"state leaves); launches {want}", flush=True)
-    print(f"  (b) ms a step (median, host clock after a synchronize, eager): "
-          f"plain {med(p_ms):.3f}, sharded {med(s_ms):.3f}; collectives a "
-          f"step: plain {p_coll or 'none'}, sharded {s_coll} [{card}]",
-          flush=True)
+    print(f"  {tag} {cfg.name} SOI pp, {cfg.n_layers} layers, bf16, B 4 x "
+          f"{prompt.shape[1]}, clocks staggered {MESH_STAGGER}, "
+          f"{MESH_STEPS} steps: make_prefill + make_serve_step on the (1, "
+          f"1) NCCL mesh == the plain steps bit for bit (logits of the "
+          f"prefill and every step, {len(p_state)} state leaves); launches "
+          f"{want}", flush=True)
+    print(f"  {tag} ms a step (median, host clock after a synchronize, "
+          f"eager): plain {med(p_ms):.3f}, sharded {med(s_ms):.3f}; "
+          f"collectives a step: plain {p_coll or 'none'}, sharded {s_coll}; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
     return counts
 
 
@@ -7066,6 +7153,393 @@ def serve_mesh_phase(dev, card) -> tuple:
     return rec, counts, gloo
 
 
+# ---------------------------------------------------------------------------
+# 25. moe-mesh: expert parallelism, the MoE stacks on a mesh
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "olmoe-1b-7b"
+MOE_TRAIN_LAYERS = 6               # phase 22's cut: 80 GB at 18 B a param
+MOE_GLOO_SERVE_LAYERS = 4
+MOE_GLOO_TRAIN_LAYERS = 2
+MOE_GLOO_RANKS = 2
+MOE_LOSS_TOL = 1e-5                # (c) loss and aux, relative
+MOE_GRAD_TOL = 1e-4                # (c) grad norm and gradients, relative
+MOE_DIR = ROOT / "build" / "moe_mesh"
+
+
+def _moe_cfg(n_layers, first, last, dtype=None):
+    """olmoe-1b-7b at full width, ``n_layers`` deep, SOI pp over
+    ``[first, last)``."""
+    from repro_torch import configs
+    from repro_torch.configs.base import SOILMCfg
+    cfg = dataclasses.replace(
+        configs.get(MOE_ARCH, soi="pp", n_layers=n_layers),
+        soi=SOILMCfg(first_layer=first, last_layer=last, mode="pp"))
+    return dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
+
+
+def _moe_train_one_by_one(dev, card) -> dict:
+    """(b): MOE_TRAIN_LAYERS of olmoe-1b-7b, bf16 over f32 masters, B 8 S
+    128: DIST_STEPS plain steps, then as many sharded on the (1, 1) mesh
+    from the same weights and batches (one model on the card at a time);
+    metrics equal, params and moments equal by digest. Returns the
+    sharded run's launch counts."""
+    from repro_torch.data.pipeline import ShardedLMPipeline
+    from repro_torch.distributed.sharding import (ShardingRules,
+                                                  gather_params, gather_tree,
+                                                  shard_params)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import local_batch, make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    t0 = time.perf_counter()
+    cfg = _moe_cfg(MOE_TRAIN_LAYERS, MOE_TRAIN_LAYERS // 4,
+                   MOE_TRAIN_LAYERS - MOE_TRAIN_LAYERS // 4)
+    pipe = ShardedLMPipeline(global_batch=8, seq_len=128, vocab=cfg.vocab,
+                             seed=0)
+    batches = [_train_batch(pipe, i, dev) for i in range(DIST_STEPS + 1)]
+    kw = dict(peak_lr=1e-3, warmup=20, total_steps=TRAIN_STEPS)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    rules = ShardingRules(data_axes=("data",))
+    runs = {}
+    for label in ("plain", "sharded"):
+        _free(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = T.init(cfg, generator=torch.Generator(device=dev)
+                       .manual_seed(0), device=dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        if label == "sharded":
+            model = shard_params(model, rules, mesh)
+            step = make_train_step(cfg, rules, mesh, **kw)
+
+            def prep(bt):
+                return local_batch(bt, mesh)
+        else:
+            step = make_train_step(cfg, **kw)
+
+            def prep(bt):
+                return bt
+        opt = adamw_init(dict(model.named_parameters()))
+        # the set-up's peak apart: shard_params' copies of every leaf
+        # (distribute_tensor) are held a while after it returns
+        setup_peak = torch.cuda.max_memory_allocated(dev)
+        ops.reset_launch_counts()
+        metrics, times, peaks = [], [], []
+        for bt in batches[:DIST_STEPS]:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t1 = time.perf_counter()
+            _, _, m = step(model, opt, prep(bt))
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t1) * 1e3)
+            peaks.append(torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+            metrics.append(tuple(float(m[k]) for k in ("loss", "aux",
+                                                       "grad_norm")))
+        counts = ops.launch_counts()
+        sharded = label == "sharded"
+        digests = {"params": _digests(gather_params(model) if sharded
+                                      else dict(model.named_parameters()))}
+        for t in ("mu", "nu"):
+            digests[t] = _digests(gather_tree(opt[t]) if sharded
+                                  else opt[t])
+        coll = _mesh_collectives(lambda: step(model, opt, prep(
+            batches[DIST_STEPS])))
+        runs[label] = dict(metrics=metrics, digests=digests, counts=counts,
+                           ms=sorted(times)[len(times) // 2], peaks=peaks,
+                           setup_peak=setup_peak / 2 ** 30, coll=coll)
+        del model, opt, step
+    _free(dev)
+    p, s_ = runs["plain"], runs["sharded"]
+    check(s_["metrics"] == p["metrics"],
+          f"(b) sharded (loss, aux, grad norm) {s_['metrics']} != plain "
+          f"{p['metrics']}")
+    check(all(m[1] > 0 for m in s_["metrics"]), "(b) the sharded aux is 0")
+    for t in p["digests"]:
+        bad = [k for k in p["digests"][t]
+               if s_["digests"][t].get(k) != p["digests"][t][k]]
+        check(not bad and set(s_["digests"][t]) == set(p["digests"][t]),
+              f"(b) sharded {t} differ from the plain step's: {bad[:5]}")
+    counts = s_["counts"]
+    for name in ("flash_attention", "flash_attention_bwd"):
+        check(counts[name] == cfg.n_layers * DIST_STEPS,
+              f"(b) sharded step: {name} {counts[name]} launches, want "
+              f"{cfg.n_layers * DIST_STEPS}")
+    print(f"  (b) {MOE_ARCH} cut to {cfg.n_layers} of 16 layers "
+          f"({n_params / 1e9:.3f} B params; phase 22's cut), SOI pp, bf16 "
+          f"over f32 masters, B 8 S 128, {DIST_STEPS} steps: sharded on "
+          f"the (1, 1) NCCL mesh == plain bit for bit — (loss, aux, grad "
+          f"norm) {s_['metrics']}; {len(p['digests']['params'])} params, "
+          f"mu, nu leaves equal by digest; launches flash_attention "
+          f"{counts['flash_attention']}, flash_attention_bwd "
+          f"{counts['flash_attention_bwd']}", flush=True)
+    print(f"  (b) step median (host clock after a synchronize, "
+          f"{DIST_STEPS} steps): plain {p['ms']:.2f} ms, sharded "
+          f"{s_['ms']:.2f} ms; peak GiB of each step plain "
+          f"{[round(x, 2) for x in p['peaks']]}, sharded "
+          f"{[round(x, 2) for x in s_['peaks']]} (of the set-up: init, "
+          f"shard_params, adamw_init: {p['setup_peak']:.2f} / "
+          f"{s_['setup_peak']:.2f}; the copies distribute_tensor makes are "
+          f"held a while after shard_params returns); collectives a step: "
+          f"plain {p['coll'] or 'none'}, sharded {s_['coll']}; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return counts
+
+
+def _moe_gloo_serve_inputs(dev):
+    """(f32 olmoe cut to MOE_GLOO_SERVE_LAYERS, prompt) from the seed, the
+    same in every process."""
+    from repro_torch.models import transformer as T
+    cfg = _moe_cfg(MOE_GLOO_SERVE_LAYERS, 1, MOE_GLOO_SERVE_LAYERS - 1,
+                   "float32")
+    gen = torch.Generator(device=dev).manual_seed(25)
+    model = T.init(cfg, generator=gen, device=dev)
+    prompt = torch.randint(0, cfg.vocab, (4, 1024), generator=gen,
+                           device=dev, dtype=torch.int32)
+    return cfg, model, prompt
+
+
+def _moe_param_bytes(model, cfg, rules, mesh) -> tuple:
+    """(this rank's bytes of the local shards, the specs' per-device
+    bytes: the dry run's ``params`` count)."""
+    from repro_torch.distributed.sharding import per_device_bytes
+    from repro_torch.launch import specs as S
+    got = sum(p.to_local().numel() * p.to_local().element_size()
+              for p in model.parameters())
+    shapes, specs = S.param_specs(cfg, rules, mesh)
+    return got, per_device_bytes(shapes, specs, mesh)
+
+
+def _moe_rank(rank, world):
+    """(c) one of two gloo ranks sharing the card, a (1, 2) mesh: the
+    serving cut from the seed through the sharded prefill + steps; then the
+    training cut's sharded step, and the plain step from the same weights
+    in this process, compared here (AdamW's first moment after one step is
+    0.1 x the clipped gradient; the rank's shard of each leaf against the
+    plain one's slice). Writes the results."""
+    import os
+    import pickle
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import ShardedLMPipeline
+    from repro_torch.distributed.sharding import ShardingRules, shard_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import (local_batch, make_prefill,
+                                          make_serve_step, make_train_step)
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    from torch.distributed.tensor import Shard
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    store = dist.FileStore(str(MOE_DIR / "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh((1, world), ("data", "model"))
+        rules = ShardingRules(data_axes=("data",))
+        out = {}
+        cfg, model, prompt = _moe_gloo_serve_inputs(dev)
+        model = shard_params(model, rules, mesh)
+        out["serve_bytes"] = _moe_param_bytes(model, cfg, rules, mesh)
+        out["experts"] = (model.blocks[0].moe.up.to_local().shape[0],
+                          cfg.segments[0].blocks[0].moe.n_experts)
+        prefill = make_prefill(cfg, rules, mesh, max_len=MESH_MAX_LEN)
+        step = make_serve_step(cfg, rules, mesh, max_len=MESH_MAX_LEN)
+        ops.reset_launch_counts()
+        logits, toks, _state, ms = _mesh_run(prefill, step, model, prompt,
+                                             MESH_GLOO_STEPS, dev)
+        out["serve_counts"] = ops.launch_counts()
+        _, st = _mesh_state(prefill, model, prompt)
+        out["serve_coll"] = _mesh_collectives(lambda: step(model, st,
+                                                           toks[0]))
+        out.update(logits=[x.cpu() for x in logits],
+                   tokens=[x.cpu() for x in toks], serve_ms=ms)
+        del model, st, _state, prefill, step
+        _free(dev)
+
+        cfg = _moe_cfg(MOE_GLOO_TRAIN_LAYERS, 1, MOE_GLOO_TRAIN_LAYERS,
+                       "float32")
+        pipe = ShardedLMPipeline(global_batch=8, seq_len=128,
+                                 vocab=cfg.vocab, seed=0)
+        batch = _train_batch(pipe, 0, dev)
+        kw = dict(peak_lr=1e-3, warmup=20, total_steps=TRAIN_STEPS)
+
+        def init():
+            return T.init(cfg, generator=torch.Generator(device=dev)
+                          .manual_seed(26), device=dev)
+        model = shard_params(init(), rules, mesh)
+        out["train_bytes"] = _moe_param_bytes(model, cfg, rules, mesh)
+        opt = adamw_init(dict(model.named_parameters()))
+        step = make_train_step(cfg, rules, mesh, **kw)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        _, _, sm = step(model, opt, local_batch(batch, mesh))
+        torch.cuda.synchronize(dev)
+        out["train_ms"] = (time.perf_counter() - t0) * 1e3
+        out["train_counts"] = ops.launch_counts()
+        # each leaf's shard and the dimension it splits (None: whole)
+        shards = {}
+        for k, p in model.named_parameters():
+            dims = [pl.dim for pl in p.placements if isinstance(pl, Shard)]
+            shards[k] = (dims[0] if dims else None,
+                         opt["mu"][k].to_local().clone())
+        out["train_coll"] = _mesh_collectives(lambda: step(
+            model, opt, local_batch(batch, mesh)))
+        del model, opt, step
+        _free(dev)
+        plain = init()
+        popt = adamw_init(dict(plain.named_parameters()))
+        _, _, pm = make_train_step(cfg, **kw)(plain, popt, batch)
+        worst, worst_at = 0.0, None
+        for k, (d, mine) in shards.items():
+            want = popt["mu"][k]
+            if d is not None:
+                want = want.chunk(world, dim=d)[rank]
+            rel = float((mine - want).abs().max()
+                        / want.abs().max().clamp_min(1e-30))
+            if rel >= worst:
+                worst, worst_at = rel, k
+        out.update(train_metrics={k: float(sm[k]) for k in sm},
+                   plain_metrics={k: float(pm[k]) for k in pm},
+                   grad_rel=worst, grad_rel_at=worst_at,
+                   n_leaves=len(shards))
+        del plain, popt, shards
+        with open(MOE_DIR / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _moe_gloo(dev, card) -> None:
+    """(c): the one-rank f32 serving steps here, then two gloo ranks on the
+    card (``_moe_rank``): tokens equal, logits within MESH_GLOO_TOL, each
+    read and prefill on its kernel; the ranks' train step against their
+    plain step; bytes."""
+    import pickle
+    import shutil
+    import torch.multiprocessing as mp
+    from repro_torch.launch.steps import make_prefill, make_serve_step
+    t0 = time.perf_counter()
+    cfg, model, prompt = _moe_gloo_serve_inputs(dev)
+    want, w_toks, _state, w_ms = _mesh_run(
+        make_prefill(cfg, max_len=MESH_MAX_LEN), make_serve_step(cfg),
+        model, prompt, MESH_GLOO_STEPS, dev)
+    del model, _state
+    _free(dev)
+    shutil.rmtree(MOE_DIR, ignore_errors=True)
+    MOE_DIR.mkdir(parents=True)
+    t1 = time.perf_counter()
+    mp.spawn(_moe_rank, args=(MOE_GLOO_RANKS,), nprocs=MOE_GLOO_RANKS,
+             join=True)
+    spawn_s = time.perf_counter() - t1
+    ranks = []
+    for r in range(MOE_GLOO_RANKS):
+        with open(MOE_DIR / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    shutil.rmtree(MOE_DIR, ignore_errors=True)
+    err = 0.0
+    for r, rk in enumerate(ranks):
+        mine, total = rk["experts"]
+        check(mine * MOE_GLOO_RANKS == total,
+              f"(c) rank {r} holds {mine} of {total} experts")
+        check(all(torch.equal(a, b.cpu()) for a, b in zip(rk["tokens"],
+                                                          w_toks)),
+              f"(c) rank {r}: the 2-rank tokens differ from the one-rank "
+              f"steps'")
+        err = max([err] + [float((a - b.cpu()).abs().max())
+                           for a, b in zip(rk["logits"], want)])
+        for what in ("serve_bytes", "train_bytes"):
+            got, spec = rk[what]
+            check(got == spec, f"(c) rank {r} {what} {got} != the specs' "
+                               f"{spec}")
+        sm, pm = rk["train_metrics"], rk["plain_metrics"]
+        for k, tol in (("loss", MOE_LOSS_TOL), ("aux", MOE_LOSS_TOL),
+                       ("grad_norm", MOE_GRAD_TOL)):
+            check(abs(sm[k] - pm[k]) <= tol * abs(pm[k]),
+                  f"(c) rank {r} {k} {sm[k]} vs one rank {pm[k]}")
+        check(sm["aux"] > 0, f"(c) rank {r}: aux 0")
+        check(rk["grad_rel"] <= MOE_GRAD_TOL,
+              f"(c) rank {r} gradient {rk['grad_rel_at']}: rel "
+              f"{rk['grad_rel']}")
+    check(err < MESH_GLOO_TOL, f"(c) logits {err} from the one-rank steps")
+    n_dec = cfg.n_layers * MESH_GLOO_STEPS
+    for r, rk in enumerate(ranks):
+        c = rk["serve_counts"]
+        check(c["decode_attention"] == n_dec and
+              c["flash_attention"] == cfg.n_layers,
+              f"(c) rank {r}: serving launches {c}")
+        c = rk["train_counts"]
+        check(c["flash_attention"] == MOE_GLOO_TRAIN_LAYERS and
+              c["flash_attention_bwd"] == MOE_GLOO_TRAIN_LAYERS,
+              f"(c) rank {r}: training launches {c}")
+
+    def med(x):
+        return sorted(x)[len(x) // 2]
+    r0 = ranks[0]
+    print(f"  (c) two gloo ranks on the one card, (1, 2) mesh, "
+          f"{r0['experts'][0]} of {r0['experts'][1]} experts each: "
+          f"{MOE_ARCH} cut to {cfg.n_layers} layers (SOI pp "
+          f"1..{cfg.n_layers - 1}), f32, B 4 x 1024, {MESH_GLOO_STEPS} "
+          f"steps: tokens == the one-rank steps, logits max|Δ| {err:.2e} "
+          f"(< {MESH_GLOO_TOL}); launches "
+          f"{ {k: v for k, v in r0['serve_counts'].items() if v} }; ms a step "
+          f"(median, host clock): one rank {med(w_ms):.3f}, the two ranks "
+          f"{[round(med(rk['serve_ms']), 3) for rk in ranks]}; collectives "
+          f"a step {r0['serve_coll']} [{card}]", flush=True)
+    print(f"  (c) one train step, cut to {MOE_GLOO_TRAIN_LAYERS} layers (SOI "
+          f"pp 1..1), f32, B 8 S 128, against the plain step in each rank: "
+          + "; ".join(
+              f"rank {r} loss {rk['train_metrics']['loss']:.6f} vs "
+              f"{rk['plain_metrics']['loss']:.6f}, aux "
+              f"{rk['train_metrics']['aux']:.6f} vs "
+              f"{rk['plain_metrics']['aux']:.6f}, grad norm "
+              f"{rk['train_metrics']['grad_norm']:.6f} vs "
+              f"{rk['plain_metrics']['grad_norm']:.6f}, worst gradient rel "
+              f"{rk['grad_rel']:.2e} ({rk['grad_rel_at']}, "
+              f"{rk['n_leaves']} leaves)" for r, rk in enumerate(ranks))
+          + f"; launches "
+          f"{ {k: v for k, v in r0['train_counts'].items() if v} }; step ms "
+          f"{[round(rk['train_ms'], 1) for rk in ranks]} (the first, host "
+          f"clock); collectives a step {r0['train_coll']} [{card}]",
+          flush=True)
+    print(f"  (c) parameter bytes a rank (== the specs' per-device count): "
+          f"serving {[rk['serve_bytes'][0] for rk in ranks]}, training "
+          f"{[rk['train_bytes'][0] for rk in ranks]}; spawn + run "
+          f"{spawn_s:.1f} s, (c) {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
+
+
+def moe_mesh_phase(dev, card) -> dict:
+    """Phase 25. Returns the launch counts of the sharded olmoe runs on
+    the (1, 1) NCCL mesh: (a)'s serve, (b)'s training."""
+    import torch.distributed as dist
+    phase("25 moe-mesh (expert parallelism: olmoe-1b-7b's sharded prefill + "
+          "serve steps and train step on a (1, 1) NCCL mesh against the "
+          "plain steps; two gloo ranks on the card, 32 experts each)")
+    t0 = time.perf_counter()
+    serve_counts = _mesh_one_by_one(dev, card, _family_argv(MOE_ARCH), "(a)")
+    _free(dev)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        train_counts = _moe_train_one_by_one(dev, card)
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the process group outlived (b)")
+    _free(dev)
+    _moe_gloo(dev, card)
+    _free(dev)
+    print(f"  phase 25: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"decode_attention": serve_counts["decode_attention"],
+            "flash_attention": serve_counts["flash_attention"],
+            "flash_attention_bwd": train_counts["flash_attention_bwd"]}
+
+
 def main():
     card = device_phase()
     dev = torch.device("cuda", 0)
@@ -7101,6 +7575,8 @@ def main():
     zoo_bwd, zoo_train = zoo_train_phase(dev, card)
     _free(dev)
     mesh_lse, mesh_counts, mesh_gloo = serve_mesh_phase(dev, card)
+    _free(dev)
+    moe_counts = moe_mesh_phase(dev, card)
     # launches: each kernel's count on its own path's run — the dense
     # serve (phase 5), the paged prefix-cache serve (phase 6), the
     # deepseek-v2 serve (phase 8), the MLA prefix-cache serve (phase 9),
@@ -7297,6 +7773,19 @@ def main():
                                f"mesh, prefill + {MESH_STEPS} steps)"}
             check(mesh_counts[name] > 0,
                   f"{name} never launched on the sharded serve steps")
+        if name in moe_counts:
+            # phase 25's sharded olmoe runs on the (1, 1) mesh: (a)'s
+            # prefill + serve steps, (b)'s train steps (the backward)
+            summary[-1]["moe_mesh"] = {
+                "launches": moe_counts[name],
+                "launches_on": (
+                    f"sharded train ({MOE_ARCH} {MOE_TRAIN_LAYERS} layers, "
+                    f"(1, 1) NCCL mesh, {DIST_STEPS} steps)"
+                    if name == "flash_attention_bwd" else
+                    f"sharded serve ({MOE_ARCH} 16 layers, (1, 1) NCCL "
+                    f"mesh, prefill + {MESH_STEPS} steps)")}
+            check(moe_counts[name] > 0,
+                  f"{name} never launched on the sharded MoE steps")
         if name == "decode_attention":
             # its return_lse: phase 24 (a)'s shard, launched on (c)'s two
             # gloo ranks, every read of a split ring
@@ -7319,7 +7808,7 @@ def main():
             summary[-1]["rg_middle"].update(
                 launches=rg_second[name][name],
                 launches_on="rg serve (dense), outer and middle layers")
-    print(f"== 25 done in {time.perf_counter() - T_START:.1f} s")
+    print(f"== 26 done in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

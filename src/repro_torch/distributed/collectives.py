@@ -32,7 +32,18 @@ local shards, the collectives XLA's partitioner inserts for the reference:
     projection whose input is split (wo, down, the vocab-split embedding).
     ``torch.distributed.nn.functional.all_reduce`` is not this Function:
     its backward all-reduces again, which multiplies the gradients by the
-    model size.
+    model size;
+
+and the two of expert parallelism (the MoE layer's router), built from
+``all_gather`` and ``all_reduce`` only (gloo has no reduce-scatter: it is
+an all-reduce and a slice):
+
+  * ``gather_from_model`` — all-gather along a dimension in rank order
+    forward; backward, the gradient summed over the group and the rank's
+    slice kept: the router's logits of the rank's experts -> all E;
+  * ``reduce_from_data`` — all-reduce over the data groups forward,
+    identity backward: the router's statistics of the rank's tokens ->
+    the global batch's.
 """
 
 from __future__ import annotations
@@ -110,6 +121,21 @@ class _ReduceFromModel(torch.autograd.Function):
         return grad, None
 
 
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        ctx.size = x.shape[dim]
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        r = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, r * ctx.size, ctx.size), None, None
+
+
 def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
     """Identity forward, all-reduce (SUM over ``group``) backward."""
     return _CopyToModel.apply(x, group)
@@ -118,6 +144,21 @@ def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
 def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     """All-reduce (SUM over ``group``) forward, identity backward."""
     return _ReduceFromModel.apply(x, group)
+
+
+def gather_from_model(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order
+    (``all_gather_dim``); backward, the gradient all-reduced (SUM over
+    ``group``) and this rank's slice kept — a reduce-scatter."""
+    return _GatherFromModel.apply(x, dim % x.dim(), group)
+
+
+def reduce_from_data(x: torch.Tensor, groups) -> torch.Tensor:
+    """All-reduce (SUM) over each group of ``groups`` in turn (the data
+    axes), identity backward."""
+    for g in groups:
+        x = _ReduceFromModel.apply(x, g)
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -11,25 +11,33 @@ data x tensor parallel, computed on local shards with explicit collectives
 — the work ``shard_map`` and XLA's partitioner do for the reference:
 
   * the parameters are the DTensors of ``sharding.shard_params`` (heads,
-    kv heads, ff and vocab split over the model axis, the rest
-    replicated); the model runs on their ``to_local()`` shards inside
-    ``layers.model_parallel`` (Megatron's collectives: ``to_model`` before
-    a split projection, ``from_model`` after, a vocab-split embedding and
-    cross entropy);
+    kv heads, ff, vocab, a MoE's experts and its router's columns split
+    over the model axis, the rest replicated); the model runs on their
+    ``to_local()`` shards inside ``layers.model_parallel`` (Megatron's
+    collectives: ``to_model`` before a split projection, ``from_model``
+    after, a vocab-split embedding and cross entropy) and
+    ``layers.data_parallel`` (the data groups a MoE layer routes and
+    counts its aux loss over);
+  * expert parallelism (``models.moe.moe_apply``): a MoE layer's
+    dispatch groups are the global microbatch's, its router's logits are
+    gathered to all experts, each model rank runs its experts' entries
+    and the ranks' outputs are summed; no all-to-all, as a data rank's
+    tokens are replicated over the model axis;
   * each rank's batch is its rows of every global microbatch
     (``local_batch``); each microbatch's loss is the global masked mean —
     the NLL sum and the target count are both summed over the data axes —
-    and the gradients are summed over the data axes;
+    plus the MoE routers' aux loss over the global microbatch, and the
+    gradients are summed over the data axes;
   * the clip's norm sums each split leaf's squares over its split axes;
     AdamW updates each shard in place.
 
 Refused on a mesh (``NotImplementedError``, ROADMAP.md): ``fsdp``,
 ``seq_shard``, a model axis that does not divide some split dimension (kv
 heads, say), ``compress`` where the model axis has more than one rank
-(a shard's 256-blocks are not the whole leaf's), MoE stacks (the router's
-aux loss takes the global batch's statistics, and there is no expert
-parallelism), and MLA, RG-LRU and RWKV stacks, the encoder-decoder and
-the prefix-LM on more than one rank.
+(a shard's 256-blocks are not the whole leaf's), MLA, RG-LRU and RWKV
+stacks, the encoder-decoder and the prefix-LM on more than one rank, and
+a MoE layer whose global dispatch groups do not split over the data
+ranks (``moe_apply``).
 
 ``make_prefill`` and ``make_serve_step`` on a mesh serve data x tensor
 parallel, on local shards with explicit collectives, the decode state in
@@ -42,9 +50,11 @@ token on the rank holding its ring slot, reads all heads over the rank's
 rows with ``decode_attention(..., return_lse=True)``, and merges each
 head's M partials in rank order on the rank that owns the head
 (``models.attention``); the logits are gathered to the full vocabulary.
-They refuse what the train step refuses, except MoE on a world of one
-rank, which serves; the engine (``SOIEngine``), paged pools and
-speculation run without a mesh only, as in the reference.
+A MoE layer routes as in training (its rows' groups are the global
+batch's where the data axes split the rows), without the aux loss.
+They refuse what the train step refuses; the engine (``SOIEngine``),
+paged pools and speculation run without a mesh only, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -61,7 +71,7 @@ from repro_torch.distributed.sharding import (ShardingRules,
 from repro_torch.launch.mesh import data_axes_of
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import model_parallel
+from repro_torch.models.layers import data_parallel, model_parallel
 from repro_torch.optim import (adamw_update, clip_by_global_norm,
                                compressed_grads, cosine_schedule)
 
@@ -188,20 +198,13 @@ def _refuse(what: str, step: str = "train"):
 
 
 def _check_mesh_stack(cfg: ModelCfg, mesh, step: str = "train"):
-    """Refuse the stacks the sharded step does not hold: MoE on any mesh
-    for training (its aux loss is not in the sharded loss, and it would
-    need the global batch's routing statistics and expert parallelism),
-    on more than one rank for serving (the routing of a rank's rows is not
-    the global batch's, and there is no expert parallelism); MLA, RG-LRU
-    and RWKV stacks, the encoder-decoder and the prefix-LM on more than one
+    """Refuse the stacks the sharded step does not hold: MLA, RG-LRU and
+    RWKV stacks, the encoder-decoder and the prefix-LM on more than one
     rank (no tensor-parallel hooks in the first three, no test holding the
-    last two's sharded step)."""
+    last two's sharded step). MoE stacks run on any mesh, the experts
+    split over the model axis (``models.moe.moe_apply``)."""
     blocks = T.layer_blocks(cfg)
     ranks = mesh.size()
-    if any(b.moe is not None for b in blocks) and (step == "train"
-                                                   or ranks > 1):
-        _refuse("MoE stacks (the router's aux loss over the global batch, "
-                "expert parallelism)", step)
     hooks, held = "no tensor-parallel hooks", "no sharded step held"
     for what, present, why in (
             ("MLA", any(b.attn is not None and b.attn.kind == "mla"
@@ -279,14 +282,26 @@ def _sharded_train_step(cfg: ModelCfg, rules: ShardingRules, mesh, *,
         mb = bsz // microbatches
 
         def grads_of(part):
-            with model_parallel(mp_group):
-                nll, count = T.loss_sums(params, cfg, part, tensors=leaves)
+            # the loss of the reference's loss_fn: the global masked mean
+            # plus the MoE routers' aux loss, each layer's over the global
+            # microbatch (summed in layer order, as loss_fn sums them)
+            terms = []
+            with model_parallel(mp_group), data_parallel(dp_groups):
+                nll, count = T.loss_sums(params, cfg, part, tensors=leaves,
+                                         aux=terms)
+                aux = torch.zeros((), dtype=torch.float32, device=nll.device)
+                for a in terms:
+                    aux = aux + a
                 denom = torch.clamp(dp_sum(count.detach().clone()), min=1.0)
-                g = torch.autograd.grad(nll / denom, list(leaves.values()))
-            return dp_sum(nll.detach().clone()) / denom, dict(zip(leaves, g))
+                g = torch.autograd.grad(nll / denom + aux,
+                                        list(leaves.values()))
+            xent = dp_sum(nll.detach().clone()) / denom
+            aux = aux.detach()
+            return xent + aux, xent, aux, dict(zip(leaves, g))
 
         if microbatches == 1:
-            loss, grads = grads_of(batch)
+            loss, xent, aux, grads = grads_of(batch)
+            metrics = {"xent": xent, "aux": aux}
         else:
             grads = {k: torch.zeros(t.shape, dtype=torch.float32,
                                     device=t.device)
@@ -294,16 +309,18 @@ def _sharded_train_step(cfg: ModelCfg, rules: ShardingRules, mesh, *,
             lsum = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
             for i in range(microbatches):
-                l_i, g_i = grads_of({k: v[i * mb:(i + 1) * mb]
-                                     for k, v in batch.items()})
+                l_i, _, _, g_i = grads_of({k: v[i * mb:(i + 1) * mb]
+                                           for k, v in batch.items()})
                 for k, g in g_i.items():
                     grads[k] += g.float()
                 lsum = lsum + l_i
             grads = {k: g / microbatches for k, g in grads.items()}
+            # as the reference reports them: the microbatches' mean total
+            # (cross entropy + aux) as "xent", and "aux" 0
             loss = lsum / microbatches
+            metrics = {"xent": loss, "aux": torch.zeros_like(loss)}
         for g in grads.values():
             dp_sum(g)
-        metrics = {"xent": loss, "aux": torch.zeros_like(loss)}
 
         grads, gnorm = clip_by_global_norm(grads, grad_clip, split)
         if compress:
@@ -397,6 +414,7 @@ class _ServeLayout:
         self.group = mesh.get_group(self.rules.model_axis)
         self.r = dist.get_rank(self.group)
         self.d, self.n_data = _data_index(mesh, tuple(self.rules.data_axes))
+        self.data_groups = [mesh.get_group(a) for a in self.rules.data_axes]
         self.dt = T._dtype(cfg)
 
     def rows(self, b: int) -> slice:
@@ -408,11 +426,15 @@ class _ServeLayout:
         per = b // self.n_data
         return slice(self.d * per, (self.d + 1) * per)
 
-    def run(self, params, fn, *args):
-        """``fn(params, *args)`` on the rank's shards, inside
-        ``model_parallel`` over the model group."""
+    def run(self, params, fn, b: int, *args):
+        """``fn(params, *args)`` on the rank's shards of a global batch of
+        ``b`` rows, inside ``model_parallel`` over the model group and,
+        where the data axes split the rows, ``data_parallel`` over them (a
+        MoE layer routes on the global batch's groups)."""
         tensors = _local_tensors(params, self.mesh, self.dt)
-        with model_parallel(self.group):
+        split = self.rows(b) != slice(0, b)
+        with model_parallel(self.group), \
+                data_parallel(self.data_groups if split else ()):
             return torch.func.functional_call(
                 _OnTensors(params, fn),
                 {"model." + k: v for k, v in tensors.items()}, args)
@@ -468,7 +490,7 @@ def make_serve_step(cfg: ModelCfg, rules: ShardingRules = None, mesh=None,
     def serve_step(params, state, token):
         b = token.shape[0]
         rows = layout.rows(b)
-        logits, _ = layout.run(params, step_fn, local_view(state, rows),
+        logits, _ = layout.run(params, step_fn, b, local_view(state, rows),
                                token[rows])
         # every slot's clock advances one a step, those of the other data
         # ranks' rows too: the clocks are replicated
@@ -510,7 +532,7 @@ def make_prefill(cfg: ModelCfg, rules: ShardingRules = None, mesh=None, *,
         b = batch["tokens"].shape[0]
         rows = layout.rows(b)
         mine = {k: v[rows] for k, v in batch.items()}
-        logits, state = layout.run(params, prefill_fn, mine)
+        logits, state = layout.run(params, prefill_fn, b, mine)
         if rows != slice(0, b):
             state["t"] = state["t"][:1].repeat(b)
         return logits, state

@@ -13,7 +13,11 @@ local shards (heads, ff and vocab split over the ranks of ``group``) and
 ``to_model`` / ``from_model`` are the collectives of
 ``distributed.collectives`` (``copy_to_model`` / ``reduce_from_model``);
 outside it they return their input, so serving and the unsharded step run
-exactly as before.
+exactly as before. Expert parallelism adds ``gather_from_model`` (the
+router's logits of the rank's experts -> all of them) and, inside
+``data_parallel(groups)``, the data groups its rows are split over:
+``data_size`` (the global token count is the local one times it) and
+``reduce_from_data`` (the router's statistics over the global batch).
 """
 
 from __future__ import annotations
@@ -22,12 +26,16 @@ import contextlib
 import math
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.distributed import collectives as coll
 
 # the model-axis group of the tensor-parallel region (None: unsharded)
 _MODEL_GROUP = None
+# the data-axis groups the rows of the region are split over (): the rows
+# are the whole batch
+_DATA_GROUPS = ()
 
 
 @contextlib.contextmanager
@@ -44,6 +52,49 @@ def model_parallel(group):
 def model_group():
     """The model-axis group of the enclosing ``model_parallel``, or None."""
     return _MODEL_GROUP
+
+
+@contextlib.contextmanager
+def data_parallel(groups):
+    """Run the model on this rank's rows of a batch split over the data
+    axes ``groups`` (a sequence of process groups; empty: a no-op)."""
+    global _DATA_GROUPS
+    prev, _DATA_GROUPS = _DATA_GROUPS, tuple(groups)
+    try:
+        yield
+    finally:
+        _DATA_GROUPS = prev
+
+
+def data_size() -> int:
+    """How many data ranks split the rows of the enclosing
+    ``data_parallel`` (1 outside it)."""
+    return math.prod(dist.get_world_size(g) for g in _DATA_GROUPS)
+
+
+def reduce_from_data(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the data ranks of the enclosing
+    ``data_parallel``, identity backward; ``x`` outside it."""
+    if not _DATA_GROUPS:
+        return x
+    return coll.reduce_from_data(x, _DATA_GROUPS)
+
+
+def model_rank() -> tuple:
+    """(this rank's index on the model axis, the axis' size): (0, 1)
+    outside ``model_parallel``."""
+    if _MODEL_GROUP is None:
+        return 0, 1
+    return dist.get_rank(_MODEL_GROUP), dist.get_world_size(_MODEL_GROUP)
+
+
+def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The model ranks' ``x`` concatenated along ``dim`` in rank order,
+    the gradient's rank slice summed over them; ``x`` outside
+    ``model_parallel``."""
+    if _MODEL_GROUP is None:
+        return x
+    return coll.gather_from_model(x, dim, _MODEL_GROUP)
 
 
 def to_model(x: torch.Tensor) -> torch.Tensor:

@@ -33,7 +33,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import MoECfg
-from repro_torch.models.layers import dense_init, param
+from repro_torch.models.layers import (data_size, dense_init, from_model,
+                                       gather_from_model, model_rank, param,
+                                       reduce_from_data, to_model)
 
 
 class MoE(nn.Module):
@@ -85,20 +87,47 @@ def moe_apply(p: MoE, x: torch.Tensor, *, capacity: int | None = None,
     """x: (B, S, d) or (T, d). Returns (y, aux_loss); ``aux_loss`` is the
     reference's switch load-balancing term, a float32 scalar over the
     call's global routing statistics (training adds it to the loss), or
-    None with ``with_aux=False`` (serving, which skips its kernels)."""
+    None with ``with_aux=False`` (serving, which skips its kernels).
+
+    Expert parallelism (inside ``layers.model_parallel``, the router's
+    columns and the experts split over the model axis; inside
+    ``layers.data_parallel``, the rows over the data axes): the groups
+    are the global batch's — ``r = gcd(T_global, dispatch_groups)`` with
+    ``T_global`` the local count times the data ranks', so this data
+    rank's tokens are groups ``[d r/D, (d+1) r/D)`` (the rows are
+    batch-major and contiguous) — and every model rank routes on the same
+    logits, gathered to all E experts. The sort, the positions and the
+    drops are the unsharded ones over all E; a rank then scatters,
+    computes and combines only its own experts' entries, adds its share
+    of the shared experts' split ``ff``, and one ``from_model`` sums the
+    ranks' partial outputs. The aux loss takes the routing statistics
+    summed over the data ranks; each model rank adds its own experts'
+    terms, and ``from_model`` sums them, so the logits' gather-backward
+    counts its gradient once. Outside both regions every hook is the
+    identity and this is the reference's computation, op for op."""
     cfg = p.cfg
     shape = x.shape
     d = shape[-1]
-    xt = x.reshape(-1, d)
+    xt = to_model(x.reshape(-1, d))
     t = xt.shape[0]
     e, k = cfg.n_experts, cfg.top_k
-    r = math.gcd(t, dispatch_groups)
-    tg = t // r                                   # tokens per group
+    n_data = data_size()
+    r = math.gcd(t * n_data, dispatch_groups)     # the global batch's
+    if r % n_data:
+        raise NotImplementedError(
+            f"MoE dispatch: {r} groups of the global batch's {t * n_data} "
+            f"tokens do not split over {n_data} data ranks (ROADMAP.md, "
+            f"Queue 1 item 8)")
+    tg = t * n_data // r                          # tokens per group
+    r //= n_data                                  # this rank's groups
     cap = capacity or max(k, int(tg * k / e * cfg.capacity_factor))
+    m, n_model = model_rank()
+    el = e // n_model                             # this rank's experts
+    e0 = m * el
     dev = x.device
 
     xg = xt.reshape(r, tg, d)
-    logits = torch.matmul(xg, p.router).float()
+    logits = gather_from_model(torch.matmul(xg, p.router).float(), -1)
     probs = torch.softmax(logits, dim=-1)
     top_w, top_i = torch.topk(probs, k, dim=-1)   # (r, tg, k), descending
 
@@ -108,8 +137,13 @@ def moe_apply(p: MoE, x: torch.Tensor, *, capacity: int | None = None,
             0, top_i.reshape(-1),
             torch.full((t * k,), 1.0 / (t * k), dtype=torch.float32,
                        device=dev))
-        aux = cfg.router_aux_weight * e * torch.sum(
-            assign * probs.mean(dim=(0, 1)))
+        mean = probs.mean(dim=(0, 1))
+        if n_data > 1:
+            # the data ranks' equal shares of the global statistics
+            assign = reduce_from_data(assign) / n_data
+            mean = reduce_from_data(mean) / n_data
+        aux = from_model(cfg.router_aux_weight * e * torch.sum(
+            assign[e0:e0 + el] * mean[e0:e0 + el]))
 
     flat_e = top_i.reshape(r, tg * k)
     flat_tok = torch.arange(tg, device=dev).repeat_interleave(k)[None] \
@@ -125,10 +159,16 @@ def moe_apply(p: MoE, x: torch.Tensor, *, capacity: int | None = None,
                                                                  se)
     keep = pos < cap
     posc = torch.where(keep, pos, torch.full_like(pos, cap - 1))
+    if el < e:
+        # only this rank's experts' entries: the others weigh 0 in its
+        # buffer and its combine
+        mine = (se >= e0) & (se < e0 + el)
+        keep = keep & mine
+        se = torch.where(mine, se - e0, torch.zeros_like(se))
 
     rows = torch.arange(r, device=dev)[:, None].expand(r, tg * k)
     g = xg[rows, stok] * keep[..., None].to(xt.dtype)
-    buf = torch.zeros((r, e, cap, d), dtype=xt.dtype, device=dev)
+    buf = torch.zeros((r, el, cap, d), dtype=xt.dtype, device=dev)
     buf.index_put_((rows, se, posc), g, accumulate=True)
 
     out_buf = _experts(p, buf)
@@ -138,4 +178,4 @@ def moe_apply(p: MoE, x: torch.Tensor, *, capacity: int | None = None,
     y = y.reshape(t, d)
     if cfg.n_shared:
         y = y + _shared(p, xt)
-    return y.reshape(shape), aux
+    return from_model(y).reshape(shape), aux

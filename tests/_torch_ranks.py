@@ -1,6 +1,7 @@
 """Spawned gloo worlds for the port's distributed tests (imported by
-``tests/test_torch_{collectives,pipeline,sharded_train}.py``; not a test
-module itself, and it imports no JAX, so a spawned rank starts quickly).
+``tests/test_torch_{collectives,pipeline,sharded_train,sharded_serve,
+sharded_moe,train_families}.py``; not a test module itself, and it imports
+no JAX, so a spawned rank starts quickly).
 
 ``spawn(world, job, tmp_path, **kw)`` starts ``world`` CPU processes with
 ``torch.multiprocessing`` (one thread each); every rank joins a gloo
@@ -24,10 +25,19 @@ import torch.multiprocessing as mp
 os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
 
 
-def spawn(world: int, job: str, tmp_path, **kw) -> None:
+def spawn(world: int, job: str, tmp_path, join: bool = True, **kw):
+    """Run the job on ``world`` ranks; with ``join=False`` return at once
+    with the processes' context for ``wait`` (the caller works meanwhile)."""
     os.environ["GLOO_SOCKET_IFNAME"] = "lo"
-    mp.spawn(_entry, args=(world, str(tmp_path), job, kw), nprocs=world,
-             join=True)
+    return mp.spawn(_entry, args=(world, str(tmp_path), job, kw),
+                    nprocs=world, join=join)
+
+
+def wait(ctx) -> None:
+    """Join the processes of ``spawn(..., join=False)`` (raising a rank's
+    failure, as ``spawn`` does)."""
+    while not ctx.join():
+        pass
 
 
 def _entry(rank, world, tmp, job, kw):
@@ -77,7 +87,41 @@ def _collectives(rank, world, tmp):
         out["h2s"] = heads_to_sequence(x["h2s"], dist.group.WORLD).numpy()
         out["partials"] = exchange_partials(x["partials"],
                                             dist.group.WORLD).numpy()
+    if "ep" in inp:
+        out.update(_ep_collectives(rank, world, inp["ep"]))
     _save(tmp, f"collectives_out_{rank}.pkl", out)
+
+
+def _ep_collectives(rank, world, inp) -> dict:
+    """Expert parallelism's Functions, forward and backward on the rank's
+    ``x`` and upstream gradient ``g``: ``gather_from_model`` over the
+    world along the last dimension (beside ``all_gather_dim`` of the same
+    ``x``), ``reduce_from_data`` over two groups that together span the
+    world (ranks {0, 1} / {2, 3}, then {0, 2} / {1, 3}: a 2 x 2 mesh's
+    data and model axes)."""
+    from repro_torch.distributed.collectives import (all_gather_dim,
+                                                     gather_from_model,
+                                                     reduce_from_data)
+    out = {}
+    x = torch.from_numpy(inp["x"][rank]).requires_grad_()
+    y = gather_from_model(x, -1, dist.group.WORLD)
+    (gx,) = torch.autograd.grad(y, x, torch.from_numpy(inp["g"][rank]))
+    out["ep_gather"] = y.detach().numpy()
+    out["ep_all_gather_dim"] = all_gather_dim(x.detach(), -1,
+                                              dist.group.WORLD).numpy()
+    out["ep_gather_grad"] = gx.numpy()
+    groups = []
+    for split in ([[0, 1], [2, 3]], [[0, 2], [1, 3]]):
+        for ranks in split:
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                groups.append(g)
+    x = torch.from_numpy(inp["s"][rank]).requires_grad_()
+    y = reduce_from_data(x, groups)
+    (gx,) = torch.autograd.grad(y, x, torch.from_numpy(inp["gs"][rank]))
+    out["ep_data_sum"] = y.detach().numpy()
+    out["ep_data_grad"] = gx.numpy()
+    return out
 
 
 def _pipeline(rank, world, tmp):
@@ -96,22 +140,39 @@ def _pipeline(rank, world, tmp):
     _save(tmp, f"pipeline_out_{rank}.pkl", y.numpy())
 
 
+def _mesh(meshes: dict, shape):
+    """The (data, model) gloo mesh of ``shape``, one a shape a job."""
+    from repro_torch.launch.mesh import make_mesh
+    if shape not in meshes:
+        meshes[shape] = make_mesh(shape, ("data", "model"),
+                                  device_type="cpu")
+    return meshes[shape]
+
+
 def _train(rank, world, tmp):
-    """Every case of ``train_in.pkl``: the sharded step on its mesh for its
-    steps, from the reference-layout numpy weights; rank 0 saves the
-    gathered params and moments and the metrics of every step."""
+    """Every case of ``train_in.pkl`` (``_train_cases``); rank 0 saves
+    them with the refusals."""
+    inp = load(tmp, "train_in.pkl")
+    out = {"refused": _refusals(inp["refuse_cfg"])}
+    out.update(_train_cases(inp["cases"], {}))
+    if rank == 0:
+        _save(tmp, "train_out.pkl", out)
+
+
+def _train_cases(cases: dict, meshes: dict) -> dict:
+    """Each case: the sharded step on its mesh for its steps, from the
+    reference-layout numpy weights; the gathered params and moments and
+    the metrics of every step."""
     from repro_torch.convert import from_jax_params
     from repro_torch.distributed.sharding import (ShardingRules,
                                                   gather_params, gather_tree,
                                                   shard_params)
-    from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import local_batch, make_train_step
     from repro_torch.optim import adamw_init
-    inp = load(tmp, "train_in.pkl")
-    out = {"refused": _refusals(inp["refuse_cfg"])}
-    for name, case in inp["cases"].items():
+    out = {}
+    for name, case in cases.items():
         cfg = case["cfg"]
-        mesh = make_mesh(case["mesh"], ("data", "model"), device_type="cpu")
+        mesh = _mesh(meshes, case["mesh"])
         rules = ShardingRules(data_axes=("data",))
         model = shard_params(from_jax_params(case["params"], cfg,
                                              device="cpu"), rules, mesh)
@@ -131,8 +192,7 @@ def _train(rank, world, tmp):
         if "err" in opt:
             got["err"] = {k: v.numpy() for k, v in opt["err"].items()}
         out[name] = got
-    if rank == 0:
-        _save(tmp, "train_out.pkl", out)
+    return out
 
 
 def _gather_leaf(x, spec, mesh, shape):
@@ -146,33 +206,36 @@ def _gather_leaf(x, spec, mesh, shape):
 
 
 def _serve(rank, world, tmp):
-    """Every case of ``serve_in.pkl`` on its mesh: ``make_prefill`` on the
-    batch, the clocks staggered, then ``make_serve_step`` greedy for its
-    steps, from the reference-layout numpy weights. Each step's logits and
-    the final state are gathered (the shards' specs from
-    ``decode_state_specs`` of the global state); rank 0 saves them with
-    every rank's leaf shapes and bytes against the specs' local shapes and
-    ``per_device_bytes``."""
+    """Every case of ``serve_in.pkl`` (``_serve_cases``); rank 0 saves
+    them with the refusals."""
+    inp = load(tmp, "serve_in.pkl")
+    out = {}
+    if "refuse_cfgs" in inp:
+        out["refused"] = _serve_refusals(inp["refuse_cfgs"],
+                                         inp["max_len_cfg"])
+    out.update(_serve_cases(inp["cases"], {}, rank, world))
+    if rank == 0:
+        _save(tmp, "serve_out.pkl", out)
+
+
+def _serve_cases(cases: dict, meshes: dict, rank, world) -> dict:
+    """Each case on its mesh: ``make_prefill`` on the batch, the clocks
+    staggered, then ``make_serve_step`` greedy for its steps, from the
+    reference-layout numpy weights. Each step's logits and the final state
+    are gathered (the shards' specs from ``decode_state_specs`` of the
+    global state), with every rank's leaf shapes and bytes against the
+    specs' local shapes and ``per_device_bytes``."""
     from repro_torch.convert import from_jax_params
     from repro_torch.distributed.sharding import (ShardingRules, axes_size,
                                                   per_device_bytes,
                                                   shard_params)
     from repro_torch.launch import specs as S
-    from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import make_prefill, make_serve_step
     from repro_torch.models import decode as D
-    inp = load(tmp, "serve_in.pkl")
-    meshes = {}
     out = {}
-    if "refuse_cfgs" in inp:
-        out["refused"] = _serve_refusals(inp["refuse_cfgs"],
-                                         inp["max_len_cfg"])
-    for name, case in inp["cases"].items():
+    for name, case in cases.items():
         cfg, ml = case["cfg"], case["max_len"]
-        if case["mesh"] not in meshes:
-            meshes[case["mesh"]] = make_mesh(case["mesh"], ("data", "model"),
-                                             device_type="cpu")
-        mesh = meshes[case["mesh"]]
+        mesh = _mesh(meshes, case["mesh"])
         rules = ShardingRules(data_axes=("data",))
         full = from_jax_params(case["params"], cfg, device="cpu")
         tokens = torch.from_numpy(case["tokens"])
@@ -222,8 +285,7 @@ def _serve(rank, world, tmp):
         dist.all_gather_object(ranks, {k: got[k] for k in (
             "shapes_ok", "dtypes_ok", "bytes", "per_device_bytes")})
         out[name]["ranks"] = ranks
-    if rank == 0:
-        _save(tmp, "serve_out.pkl", out)
+    return out
 
 
 def _serve_refusals(cfgs, max_len_cfg) -> dict:
@@ -292,8 +354,82 @@ def _refusals(cfg) -> dict:
     return out
 
 
+def _moe(rank, world, tmp):
+    """The world of ``tests/test_torch_sharded_moe.py``: the serving and
+    training cases of ``moe_in.pkl`` (``_serve_cases``, ``_train_cases``),
+    every rank's parameter-shard bytes of each (config, mesh) of
+    ``bytes`` against ``per_device_bytes`` of the specs (the dry run's
+    ``params`` count), and with ``refuse`` the steps on a 3 x 1 mesh of
+    ranks 0-2 over a batch whose dispatch groups do not split over 3 data
+    ranks; rank 0 saves them."""
+    inp = load(tmp, "moe_in.pkl")
+    meshes = {}
+    out = {"serve": _serve_cases(inp["serve"], meshes, rank, world),
+           "train": _train_cases(inp["train"], meshes),
+           "bytes": {name: _param_bytes(cfg, _mesh(meshes, shape))
+                     for name, (cfg, shape) in inp["bytes"].items()}}
+    if "refuse" in inp:
+        out["refused"] = _dispatch_refusal(rank, *inp["refuse"])
+    if rank == 0:
+        _save(tmp, "moe_out.pkl", out)
+
+
+def _param_bytes(cfg, mesh) -> list:
+    """[(this rank's bytes of ``shard_params``' local shards, the specs'
+    ``per_device_bytes``) of every rank]."""
+    from repro_torch.distributed.sharding import (ShardingRules,
+                                                  per_device_bytes,
+                                                  shard_params)
+    from repro_torch.launch import specs as S
+    from repro_torch.models import transformer as T
+    rules = ShardingRules(data_axes=("data",))
+    model = shard_params(T.init(cfg, generator=torch.Generator()
+                                .manual_seed(0), device="cpu"), rules, mesh)
+    got = sum(p.to_local().numel() * p.to_local().element_size()
+              for p in model.parameters())
+    shapes, specs = S.param_specs(cfg, rules, mesh)
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, (got, per_device_bytes(shapes, specs,
+                                                         mesh)))
+    return ranks
+
+
+def _dispatch_refusal(rank, cfg, tokens) -> dict:
+    """The train step and the prefill of ``cfg`` on a 3 x 1 mesh of ranks
+    0-2 (rank 3 outside it) over ``tokens`` (B, S): what each raises."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.distributed.sharding import ShardingRules, shard_params
+    from repro_torch.launch.steps import (local_batch, make_prefill,
+                                          make_train_step)
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    mesh = DeviceMesh("cpu", torch.arange(3).reshape(3, 1),
+                      mesh_dim_names=("data", "model"))
+    out = {}
+    if rank < 3:
+        rules = ShardingRules(data_axes=("data",))
+        model = shard_params(T.init(cfg, generator=torch.Generator()
+                                    .manual_seed(0), device="cpu"), rules,
+                             mesh)
+        opt = adamw_init(dict(model.named_parameters()))
+        tok = torch.from_numpy(tokens)
+        batch = {"tokens": tok, "targets": tok}
+        for what, run in (
+                ("train", lambda: make_train_step(cfg, rules, mesh)(
+                    model, opt, local_batch(batch, mesh))),
+                ("prefill", lambda: make_prefill(cfg, rules, mesh)(
+                    model, {"tokens": tok}))):
+            try:
+                run()
+                out[what] = None
+            except NotImplementedError as e:
+                out[what] = str(e)
+    dist.barrier()
+    return out
+
+
 JOBS = {"collectives": _collectives, "pipeline": _pipeline, "train": _train,
-        "serve": _serve}
+        "serve": _serve, "moe": _moe}
 
 
 def replay_psum(xs: np.ndarray) -> np.ndarray:

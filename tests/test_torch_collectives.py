@@ -14,7 +14,12 @@ gloo ranks, spawned once for the file (``_torch_ranks``):
   * the serving collectives: ``all_gather_dim`` the ranks' shards in rank
     order, ``heads_to_sequence`` a (B, S, Hloc, dh) shard split on heads
     to the rank's S/4 rows of every head, ``exchange_partials`` every
-    rank's partials of this rank's heads, in rank order.
+    rank's partials of this rank's heads, in rank order;
+  * expert parallelism's Functions: ``gather_from_model``'s forward is
+    ``all_gather_dim``, its backward the gradients' sum over the ranks
+    and the rank's slice (a reduce-scatter of all-reduce and slice);
+    ``reduce_from_data`` over two groups spanning the world sums every
+    rank's value, and its backward is the identity.
 """
 
 import numpy as np
@@ -50,6 +55,15 @@ def _inputs():
                 np.float32),
             "partials": rng.standard_normal((WORLD, 2, 8, 6)).astype(
                 np.float32),
+        },
+        # router logits of each rank's 2 experts (r 3, tg 2, E/4 2) and
+        # the gathered logits' upstream gradient (E 8); the router's
+        # statistics (E 8) and theirs
+        "ep": {
+            "x": rng.standard_normal((WORLD, 3, 2, 2)).astype(np.float32),
+            "g": rng.standard_normal((WORLD, 3, 2, 8)).astype(np.float32),
+            "s": rng.standard_normal((WORLD, 8)).astype(np.float32),
+            "gs": rng.standard_normal((WORLD, 8)).astype(np.float32),
         },
     }
 
@@ -131,3 +145,54 @@ def test_serving_collectives_lay_shards_out_in_rank_order(run):
         want = np.stack([x["partials"][j, :, r * h_loc:(r + 1) * h_loc]
                          for j in range(WORLD)])
         np.testing.assert_array_equal(outs[r]["partials"], want)
+
+
+def test_gather_from_model_backward_is_a_reduce_scatter(run):
+    inp, outs = run
+    x, g = inp["ep"]["x"], inp["ep"]["g"]
+    n = x.shape[-1]
+    gathered = np.concatenate(list(x), axis=-1)
+    summed = g.sum(axis=0)
+    for r in range(WORLD):
+        np.testing.assert_array_equal(outs[r]["ep_gather"],
+                                      outs[r]["ep_all_gather_dim"])
+        np.testing.assert_array_equal(outs[r]["ep_gather"], gathered)
+        np.testing.assert_allclose(outs[r]["ep_gather_grad"],
+                                   summed[..., r * n:(r + 1) * n],
+                                   rtol=1e-6, atol=1e-6)
+        assert outs[r]["ep_gather_grad"].shape == x.shape[1:]
+
+
+def test_reduce_from_data_sums_forward_and_passes_the_gradient(run):
+    inp, outs = run
+    s, gs = inp["ep"]["s"], inp["ep"]["gs"]
+    for r in range(WORLD):
+        np.testing.assert_allclose(outs[r]["ep_data_sum"], s.sum(axis=0),
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(outs[r]["ep_data_sum"],
+                                      outs[0]["ep_data_sum"])
+        np.testing.assert_array_equal(outs[r]["ep_data_grad"], gs[r])
+
+
+def test_expert_parallel_functions_on_one_rank(tmp_path):
+    """Over one rank both Functions are the identity, forward and back."""
+    import torch.distributed as dist
+    from repro_torch.distributed.collectives import (gather_from_model,
+                                                     reduce_from_data)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (3, 2, 4)).astype(np.float32)).requires_grad_()
+        g = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (3, 2, 4)).astype(np.float32))
+        for fn in (lambda t: gather_from_model(t, -1, dist.group.WORLD),
+                   lambda t: gather_from_model(t, 1, dist.group.WORLD),
+                   lambda t: reduce_from_data(t, [dist.group.WORLD]),
+                   lambda t: reduce_from_data(t, [])):
+            y = fn(x)
+            assert torch.equal(y, x)
+            (gx,) = torch.autograd.grad(y, x, g)
+            assert torch.equal(gx, g)
+    finally:
+        dist.destroy_process_group()

@@ -10,7 +10,14 @@ multi-rank semantics are held on gloo ranks on the CPU
   * qwen3 smoke, SOI pp, bf16 compute over float32 masters: the sharded
     ``make_train_step`` on a (1, 1) mesh bit for bit the plain step over 3
     steps (loss, grad norm, every param and moment), through the
-    ``flash_attention`` forward and backward kernels.
+    ``flash_attention`` forward and backward kernels;
+  * expert parallelism's ``gather_from_model`` and ``reduce_from_data`` on
+    CUDA tensors: forward and backward the identity at world size 1, as
+    on the CPU (``tests/test_torch_collectives.py``);
+  * olmoe smoke, SOI pp: the sharded train step (bf16 over float32
+    masters, its aux loss) and the sharded prefill + serve steps on the
+    (1, 1) mesh bit for bit the plain steps, through the flash and decode
+    kernels.
 
 Without a CUDA device every test here skips (inside the ``world``
 fixture). On the card:
@@ -23,16 +30,21 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from repro_torch.configs import olmoe_1b_7b as PO
 from repro_torch.configs import qwen3_1_7b as PQ
 from repro_torch.data.pipeline import ShardedLMPipeline
 from repro_torch.distributed.collectives import (compressed_psum,
-                                                 moe_all_to_all)
+                                                 gather_from_model,
+                                                 moe_all_to_all,
+                                                 reduce_from_data)
 from repro_torch.distributed.pipeline import pipeline_apply
 from repro_torch.distributed.sharding import (ShardingRules, gather_params,
                                               gather_tree, shard_params)
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.launch.steps import local_batch, make_train_step
+from repro_torch.launch import specs as S
+from repro_torch.launch.steps import (local_batch, make_prefill,
+                                      make_serve_step, make_train_step)
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw_init
 
@@ -147,3 +159,83 @@ def test_sharded_step_is_the_plain_step_bit_for_bit(world):
     for t in ("mu", "nu"):
         for k, v in gather_tree(sopt[t]).items():
             assert torch.equal(v, popt[t][k]), (t, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expert_parallel_functions_on_nccl(world, dtype):
+    dev, _ = world
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((3, 2, 8)).astype(
+        np.float32)).to(dev, dtype).requires_grad_()
+    g = torch.from_numpy(rng.standard_normal((3, 2, 8)).astype(
+        np.float32)).to(dev, dtype)
+    for fn in (lambda t: gather_from_model(t, -1, dist.group.WORLD),
+               lambda t: reduce_from_data(t, [dist.group.WORLD])):
+        y = fn(x)
+        assert y.is_cuda and torch.equal(y, x)
+        (gx,) = torch.autograd.grad(y, x, g)
+        assert torch.equal(gx, g)
+
+
+@pytest.mark.gpu
+def test_sharded_moe_steps_are_the_plain_steps_bit_for_bit(world):
+    dev, mesh = world
+    cfg = PO.smoke_config(soi="pp")
+    assert cfg.dtype == "bfloat16"
+    pipe = ShardedLMPipeline(global_batch=8, seq_len=32, vocab=cfg.vocab,
+                             seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in pipe.batch(i).items()} for i in range(3)]
+    kw = dict(peak_lr=1e-3, warmup=2, total_steps=10)
+    rules = ShardingRules(data_axes=("data",))
+
+    def init():
+        return T.init(cfg, generator=torch.Generator(device=dev)
+                      .manual_seed(0), device=dev)
+
+    plain = init()
+    popt = adamw_init(dict(plain.named_parameters()))
+    pstep = make_train_step(cfg, **kw)
+    sharded = shard_params(init(), rules, mesh)
+    sopt = adamw_init(dict(sharded.named_parameters()))
+    sstep = make_train_step(cfg, rules, mesh, **kw)
+    for bt in batches:
+        _, _, pm = pstep(plain, popt, bt)
+        ops.reset_launch_counts()
+        _, _, sm = sstep(sharded, sopt, local_batch(bt, mesh))
+        counts = ops.launch_counts()
+        for k in pm:
+            assert torch.equal(pm[k], sm[k]), k
+        assert float(sm["aux"]) > 0
+        assert counts["flash_attention"] == cfg.n_layers
+        assert counts["flash_attention_bwd"] == cfg.n_layers
+    want = dict(plain.named_parameters())
+    for k, v in gather_params(sharded).items():
+        assert torch.equal(v, want[k].detach()), k
+    for t in ("mu", "nu"):
+        for k, v in gather_tree(sopt[t]).items():
+            assert torch.equal(v, popt[t][k]), (t, k)
+
+    # serving: the models cast to bf16 before the sharded one is sharded
+    prompt = batches[0]["tokens"][:4, :12].to(torch.int32)
+    runs = []
+    for kw in ({}, dict(rules=rules, mesh=mesh)):
+        model = T.cast_params(init(), cfg)
+        if kw:
+            model = shard_params(model, rules, mesh)
+        ops.reset_launch_counts()
+        logits, state = make_prefill(cfg, max_len=32, **kw)(
+            model, {"tokens": prompt})
+        step = make_serve_step(cfg, max_len=32, **kw)
+        out = [logits]
+        for _ in range(8):
+            logits, state = step(model, state,
+                                 out[-1].argmax(-1).to(torch.int32))
+            out.append(logits)
+        runs.append((out, S.flatten(state), ops.launch_counts()))
+    (pl, ps, pc), (sl, ss, sc) = runs
+    assert all(torch.equal(a, b) for a, b in zip(pl, sl))
+    assert set(ps) == set(ss) and all(torch.equal(ps[k], ss[k]) for k in ps)
+    assert sc == pc and sc["decode_attention"] > 0 and \
+        sc["flash_attention"] == cfg.n_layers

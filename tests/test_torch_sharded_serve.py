@@ -23,8 +23,9 @@ from the JAX ``init`` weights, against the JAX reference's *unsharded*
     its bytes equal ``per_device_bytes`` (the dry run's ``decode_state``
     count); the gathered state equals the port's unsharded steps' within
     ``ATOL``, positions and clocks exactly;
-  * the refusals on 1 x 2: MoE, MLA, RG-LRU, RWKV, the encoder-decoder and
-    the prefix-LM, and a serve step without ``max_len``;
+  * the refusals on 1 x 2: MLA, RG-LRU, RWKV, the encoder-decoder and the
+    prefix-LM, and a serve step without ``max_len`` (the MoE stacks serve
+    on a mesh: ``tests/test_torch_sharded_moe.py``);
   * a one-process 1 x 1 gloo world, bit for bit the plain steps.
 
 Two spawns (2 and 4 ranks) run every case (``_torch_ranks``).
@@ -123,13 +124,13 @@ def _reference(config, wide, max_len):
 def _refuse_cfgs():
     from repro_torch.configs import deepseek_v2_236b as DS
     cfgs = {a: pconfigs.get_smoke(a) for a in (
-        "olmoe-1b-7b", "recurrentgemma-9b", "rwkv6-1.6b", "whisper-tiny",
-        "paligemma-3b")}
+        "recurrentgemma-9b", "rwkv6-1.6b", "whisper-tiny", "paligemma-3b")}
     cfgs["mla-dense"] = DS.mla_dense_config(n_layers=2)
     return cfgs
 
 
-REFUSED = {"olmoe-1b-7b": "MoE", "mla-dense": "MLA",
+# olmoe-1b-7b's MoE stack serves on a mesh: tests/test_torch_sharded_moe.py
+REFUSED = {"mla-dense": "MLA",
            "recurrentgemma-9b": "RG-LRU", "rwkv6-1.6b": "RWKV",
            "whisper-tiny": "encoder-decoder", "paligemma-3b": "prefix-LM"}
 

@@ -16,8 +16,9 @@ the JAX reference on the CPU, at smoke width in float32:
     gradient, the port's and the reference's, about equally far (within
     10x of each other) from a float64 run of the port — the check that
     ``GAIN`` rests on;
-  * the mesh step's refusal of MoE, MLA and RG-LRU stacks, on a rankless
-    ``AbstractMesh``.
+  * the mesh step's refusal of MLA and RG-LRU stacks, on a rankless
+    ``AbstractMesh``, and olmoe's MoE stack built and run on a 2 x 2 and a
+    1 x 1 gloo mesh.
 """
 
 import dataclasses
@@ -338,15 +339,13 @@ def test_three_deepseek_steps_match_jax(micro):
 
 
 @pytest.mark.parametrize("arch,shape,what", [
-    ("olmoe-1b-7b", {"data": 2, "model": 2}, "MoE"),
-    ("olmoe-1b-7b", {"data": 1, "model": 1}, "MoE"),
-    ("deepseek-v2-236b", {"data": 4, "model": 1}, "MoE"),
+    ("deepseek-v2-236b", {"data": 4, "model": 1}, "MLA"),
     ("mla-dense", {"data": 2, "model": 2}, "MLA"),
     ("recurrentgemma-9b", {"data": 2, "model": 2}, "RG-LRU")])
 def test_mesh_step_refuses_unsharded_stacks(arch, shape, what):
-    """MoE on any mesh, MLA and RG-LRU on more than one rank: refused
-    before any process group is needed; the serving steps refuse each on
-    more than one rank."""
+    """MLA (deepseek-v2's MoE layers too: its MLA is refused first) and
+    RG-LRU on more than one rank: refused before any process group is
+    needed, by the train step and by both serving steps."""
     if arch == "mla-dense":
         from repro_torch.configs import deepseek_v2_236b as D
         cfg = D.mla_dense_config(n_layers=2)
@@ -356,9 +355,58 @@ def test_mesh_step_refuses_unsharded_stacks(arch, shape, what):
     with pytest.raises(NotImplementedError,
                        match=f"{what} stacks.*Queue 1 item 8"):
         make_train_step(cfg, None, AbstractMesh(shape))
-    if AbstractMesh(shape).size() > 1:            # one rank serves them all
-        for make in (make_prefill, make_serve_step):
-            with pytest.raises(NotImplementedError,
-                               match=f"serve step does not run {what} "
-                                     f"stacks.*Queue 1 item 8"):
-                make(cfg, None, AbstractMesh(shape))
+    for make in (make_prefill, make_serve_step):
+        with pytest.raises(NotImplementedError,
+                           match=f"serve step does not run {what} "
+                                 f"stacks.*Queue 1 item 8"):
+            make(cfg, None, AbstractMesh(shape))
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 1)], ids=["2x2", "1x1"])
+def test_mesh_step_runs_moe_stacks(shape, tmp_path):
+    """olmoe's MoE stack on a (data, model) mesh: no refusal, and the train
+    step (one step at B 4 x S 16, its ``aux`` the router's loss, not 0),
+    the prefill and a serve step run on gloo ranks (the 2 x 2 mesh spawns
+    four, ``_torch_ranks``' ``moe`` job; the 1 x 1 one runs here) with
+    finite results. ``tests/test_torch_sharded_moe.py`` holds them to the
+    JAX reference."""
+    import _torch_ranks as R
+    from repro_torch.launch import steps as PS
+    jc, pc = _cfgs("olmoe-1b-7b", "pp")
+    for step in ("train", "serve"):
+        PS._check_mesh_stack(pc, AbstractMesh(dict(zip(("data", "model"),
+                                                       shape))), step)
+    params, _ = split_axes(JT.init(jax.random.PRNGKey(0), jc))
+    params = jax.tree.map(np.asarray, params)
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, pc.vocab, (B, S)).astype(np.int32)
+    cases = {
+        "serve": {"olmoe": dict(cfg=pc, mesh=shape, max_len=S + 2,
+                                params=params, tokens=tokens,
+                                stagger=np.zeros(B, np.int32), steps=1)},
+        "train": {"olmoe": dict(cfg=pc, mesh=shape, params=params,
+                                batch={"tokens": tokens,
+                                       "targets": np.roll(tokens, -1, 1)},
+                                steps=1, step_kw=STEP_KW | {
+                                    "microbatches": 1})},
+        "bytes": {}}
+    if shape == (1, 1):
+        import torch.distributed as dist
+        dist.init_process_group("gloo", store=dist.FileStore(
+            str(tmp_path / "store"), 1), rank=0, world_size=1)
+        try:
+            got = {part: fn(cases[part], {}, *extra) for part, fn, extra in (
+                ("serve", R._serve_cases, (0, 1)),
+                ("train", R._train_cases, ()))}
+        finally:
+            dist.destroy_process_group()
+    else:
+        R._save(tmp_path, "moe_in.pkl", cases)
+        R.spawn(4, "moe", tmp_path)
+        got = R.load(tmp_path, "moe_out.pkl")
+    logits = got["serve"]["olmoe"]["logits"]
+    assert len(logits) == 2 and all(np.isfinite(x).all() for x in logits)
+    assert logits[0].shape == (B, pc.vocab)
+    (m,) = got["train"]["olmoe"]["metrics"]
+    assert all(np.isfinite(v) for v in m.values()), m
+    assert m["aux"] > 0 and m["loss"] == pytest.approx(m["xent"] + m["aux"])
