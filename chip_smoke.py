@@ -259,7 +259,7 @@ Phases, each printing its own lines:
              1e-4, every update within 1e-4 where AdamW is well conditioned
              (gradients >= 1e-3 of their leaf's largest); a bf16 step
              finite. (c) launch.train.main on qwen3-1.7b at full width and
-             depth, bf16 over f32 masters, B 8, S 128, 30 steps, without
+             depth, bf16 over f32 masters, B 8, S 128, 20 steps, without
              SOI and with pp: finite losses whose last 5 average below the
              first, 28 flash_attention and 28 flash_attention_bwd launches
              a step, peak memory; then on a fresh state the median step,
@@ -385,7 +385,7 @@ Phases, each printing its own lines:
              gradient and the step's metrics within 1e-4; the kernels'
              launches a loss exact. (c) make_train_step, as
              launch.train.main builds it, at full width, bf16 over f32
-             masters, SOI pp, B 8 S 128, 10 steps each: olmoe-1b-7b (6 of
+             masters, SOI pp, B 8 S 128, 5 steps each: olmoe-1b-7b (6 of
              16 layers), deepseek-v2's MLA stack (mla_dense_config, 4
              layers), recurrentgemma-9b (6 of 38) and h2o-danube-1.8b
              (24): every loss finite, launches exact (flash_attention and
@@ -411,7 +411,7 @@ Phases, each printing its own lines:
              parameters); flash launches a loss exact (whisper 12,
              nemotron 2). (c) make_train_step as launch.train.main builds
              it, the stub frontends fed as it feeds them, bf16 over f32
-             masters, B 8 S 128, 10 steps each: whisper-tiny (4 + 4 layers,
+             masters, B 8 S 128, 5 steps each: whisper-tiny (4 + 4 layers,
              1500 frames; flash_attention and its backward 12 a step),
              paligemma-3b (18 layers, no SOI, 256 patch embeddings; peak
              under 72 GiB) and rwkv6-1.6b (24 layers, SOI pp): every loss
@@ -466,7 +466,36 @@ Phases, each printing its own lines:
              after one step, 0.1 x the clipped gradient) within 1e-4 of each
              leaf's largest; each rank's parameter bytes equal to the specs'
              (the dry run's count), launches, ms a step and collectives.
-26. the kernels JSON line (the decode reads and copy_pages also give their
+             (b) also holds the first sharded step's peak and
+             prints what ``shard_params`` leaves allocated beyond the
+             built model; every (1, 1) comparison takes its collectives
+             from one more step after the compared ones.
+26. mla-rglru-mesh — the MLA and RG-LRU stacks through the sharded steps
+             (heads and MLA's latent up-projections, the RG-LRU's channels
+             over the model axis; MQA's one KV head replicated beside the
+             split query heads; every number beside the card's name and
+             power limit). (a) phase 8's deepseek-v2 (4 layers: the dense
+             one and three MoE, bf16, SOI pp, dense rings) and (b)
+             recurrentgemma-9b (all 38 layers, bf16, SOI pp), each through
+             the plain prefill + 32 greedy steps and sharded on a (1, 1)
+             NCCL mesh, as phase 24 (b): logits and state bit for bit;
+             launches (a) flash_attention 4 at (192, 128); (b) lru_scan 26,
+             decode_attention 12 a step). (c) deepseek-v2's MLA stack
+             (mla_dense_config, 4 layers) and recurrentgemma-9b cut to 6 of
+             38 layers, bf16 over f32 masters, B 8 S 128, 3 steps plain then
+             3 sharded on the (1, 1) mesh, as phase 25 (b), bit for bit;
+             the first sharded step's peak within 2 GiB of the plain one's.
+             (d) two gloo processes sharing the card, a (1, 2) mesh,
+             float32: deepseek-v2 at 2 layers (64 of 128 heads, 80 of 160
+             experts a rank) and recurrentgemma-9b at 3 (8 of 16 heads, its
+             one KV head on both, 2048 of 4096 LRU channels) through the
+             sharded prefill + 8 steps — tokens equal to the one-rank
+             steps', logits within 1e-3 — then one train step each
+             (deepseek-v2's dense first layer alone, recurrentgemma at the
+             same 3) against the plain step in the same process: loss
+             within 1e-6, grad norm and gradients within 1e-5; bytes,
+             launches, ms a step and collectives.
+27. the kernels JSON line (the decode reads and copy_pages also give their
              phase-15 launches under "spec"; the kernels phase 16 launches
              their launches there under "obs"; flash_attention and
              flash_attention_bwd phase 17's under "train" and phase 21's
@@ -482,8 +511,10 @@ Phases, each printing its own lines:
              (b)'s launches under "serve_mesh", and decode_attention's
              return_lse (a)'s reading with (c)'s launches under "lse";
              decode_attention, flash_attention and flash_attention_bwd
-             phase 25's sharded olmoe runs' launches under "moe_mesh"), the
-             card line, and last {"ok": true, ...}.
+             phase 25's sharded olmoe runs' launches under "moe_mesh";
+             decode_attention, flash_attention, flash_attention_bwd,
+             lru_scan and lru_scan_bwd phase 26's under "mla_rglru_mesh"),
+             the card line, and last {"ok": true, ...}.
 
 Phases 4-13, 15, 16, 18 and 19 run the engine and the U-Net session as a user does, so
 on the card every generate step, window and frame after a branch's first is
@@ -787,6 +818,19 @@ MARKERS = 32
 MARKER_CYCLES = 400_000
 
 
+def _records(prof) -> list:
+    """(start µs, end µs, name, device type) of every record a finished
+    profiler session kept, as ``prof.events()`` gives them, read from the
+    session's raw results: ``events()`` builds each record's call tree
+    first, seconds a session on the host late in the script (most of the
+    script's profiling time, sampled on the H100)."""
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    return [((e.start_ns() - t0) / 1e3, (e.end_ns() - t0) / 1e3, e.name(),
+             e.device_type()) for e in res.events()
+            if not e.is_hidden_event()]
+
+
 def _device_events(fn, markers: int = 0, warm=None) -> list:
     """Run ``fn`` under torch.profiler with CUDA activity only; returns the
     device intervals (start µs, end µs, name) of its kernels and copies,
@@ -818,8 +862,8 @@ def _device_events(fn, markers: int = 0, warm=None) -> list:
             spin()
             fn()
             spin()
-        ev = sorted((e.time_range.start, e.time_range.end, e.name)
-                    for e in prof.events() if e.device_type == cuda)
+        ev = sorted((s_, e, name) for s_, e, name, where in _records(prof)
+                    if where == cuda)
         if not markers or not ev:
             # a session that kept no device record at all hands back none,
             # as without markers (_device_ms profiles again, then times by
@@ -2279,9 +2323,9 @@ def parity_phase(dev) -> dict:
     paged_counts = None
     for mode in ("pp", "fp"):
         cfg = _parity_cfg(mode)
-        cpu_model = T.init(cfg, generator=torch.Generator().manual_seed(1),
-                           device="cpu")
-        dev_model = copy.deepcopy(cpu_model).to(dev)
+        dev_model = T.init(cfg, generator=torch.Generator(device=dev)
+                           .manual_seed(1), device=dev)
+        cpu_model = _cpu_copy(dev_model, cfg)
         gen = torch.Generator().manual_seed(2)
         prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen,
                                  dtype=torch.int32) for n in (200, 201, 150)]
@@ -2600,12 +2644,36 @@ def paged_serve_phase(dev):
 # 7-9. deepseek-v2: MLA and MoE on the SOI engine
 # ---------------------------------------------------------------------------
 
+STAGE_BYTES = 256 * 2 ** 20
+_STAGE = []
+
+
+def _to_host(x):
+    """``x.to("cpu")``, through one pinned staging buffer a chunk at a time:
+    the card writes pinned memory at its link's rate, and the host's copy
+    out of it is spread over its threads (a copy straight into fresh
+    pageable memory was most of the card-vs-CPU phases' set-up)."""
+    if x.device.type != "cuda" or not x.is_contiguous() or not x.numel():
+        return x.to("cpu")
+    if not _STAGE:
+        _STAGE.append(torch.empty(STAGE_BYTES, dtype=torch.uint8,
+                                  pin_memory=True))
+    stage = _STAGE[0]
+    out = torch.empty(x.shape, dtype=x.dtype)
+    src, dst = x.view(-1).view(torch.uint8), out.view(-1).view(torch.uint8)
+    for i in range(0, src.numel(), STAGE_BYTES):
+        n = min(STAGE_BYTES, src.numel() - i)
+        stage[:n].copy_(src[i:i + n])
+        dst[i:i + n].copy_(stage[:n])
+    return out
+
+
 def _cpu_copy(model, cfg):
     """The same weights on the host (built on the card, where random init
     is fast, and copied)."""
     from repro_torch.models import transformer as T
     cpu = T.Transformer(cfg, generator=torch.Generator(), device="meta")
-    cpu.load_state_dict({k: v.to("cpu") for k, v in
+    cpu.load_state_dict({k: _to_host(v) for k, v in
                          model.state_dict().items()}, assign=True)
     return cpu
 
@@ -3734,9 +3802,9 @@ def _spec_parity(dev):
     from repro_torch.engine.step import generate_step
     from repro_torch.models import transformer as T
     cfg = _parity_cfg("pp")
-    cpu_model = T.init(cfg, generator=torch.Generator().manual_seed(31),
-                       device="cpu")
-    dev_model = copy.deepcopy(cpu_model).to(dev)
+    dev_model = T.init(cfg, generator=torch.Generator(device=dev)
+                       .manual_seed(31), device=dev)
+    cpu_model = _cpu_copy(dev_model, cfg)
     gen = torch.Generator().manual_seed(32)
     shared = torch.randint(0, cfg.vocab, (128,), generator=gen,
                            dtype=torch.int32)
@@ -4341,7 +4409,7 @@ FWD_LSE_PAIRS = 3        # forward without / with lse, read in turns
 # then dK/dV
 BWD_KERNELS = ("dq_kernel", "dkdv_kernel")
 LSE_REL_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-3}
-TRAIN_STEPS = 30
+TRAIN_STEPS = 20
 TRAIN_ARGV = ["--arch", "qwen3-1.7b", "--steps", str(TRAIN_STEPS),
               "--batch", "8", "--seq", "128", "--log-every", "10"]
 GRAD_TOL = 1e-4          # (b): loss, grads and updates, kernels vs plain
@@ -4714,7 +4782,7 @@ def _full_train(dev, card):
               f"{counts['flash_attention']} / flash_attention_bwd "
               f"{counts['flash_attention_bwd']} launches (28 a step); peak "
               f"{peak / 2 ** 30:.2f} GiB allocated  [{card}]")
-        # the step alone, on a fresh state: median of 8 after 2, then a
+        # the step alone, on a fresh state: median of 4 after 2, then a
         # profiled window of 3
         _free(dev)
         cfg = configs.get("qwen3-1.7b", soi=soi)
@@ -4725,21 +4793,21 @@ def _full_train(dev, card):
                                total_steps=TRAIN_STEPS)
         pipe = ShardedLMPipeline(global_batch=8, seq_len=128,
                                  vocab=cfg.vocab, seed=0)
-        batches = [_train_batch(pipe, i, dev) for i in range(13)]
+        batches = [_train_batch(pipe, i, dev) for i in range(9)]
         times = []
-        for i in range(10):
+        for i in range(6):
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
             step(model, opt, batches[i])
             torch.cuda.synchronize(dev)
             times.append(time.perf_counter() - t0)
-        med = sorted(times[2:])[3] * 1e3
-        ev = _device_events(lambda: [step(model, opt, batches[10 + i])
+        med = sorted(times[2:])[2] * 1e3
+        ev = _device_events(lambda: [step(model, opt, batches[6 + i])
                                      for i in range(3)])
         window = max(e for _s, e, _n in ev) - min(s_ for s_, _e, _n in ev)
         flops = _model_flops(cfg, 8, 128)
         print(f"  (c) {label} step: median {med:.2f} ms (host clock after a "
-              f"synchronize, 8 steps), {8 * 128 / med * 1e3:.0f} tokens/s; "
+              f"synchronize, 4 steps), {8 * 128 / med * 1e3:.0f} tokens/s; "
               f"model FLOPs {flops / 1e12:.2f} TFLOP a step, "
               f"{flops / (med * 1e-3) / 1e12:.1f} TFLOP/s = "
               f"{flops / (med * 1e-3) / PEAK_FLOPS[torch.bfloat16]:.3f} of "
@@ -6001,8 +6069,8 @@ def _dist_train(dev, card):
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             fn()
             torch.cuda.synchronize(dev)
-        calls = Counter(e.name for e in prof.events()
-                        if e.name.startswith("nccl:"))
+        calls = Counter(name for _s, _e, name, _w in _records(prof)
+                        if name.startswith("nccl:"))
         nccl = [n for _s, _e, n in ev if "nccl" in n.lower()]
         fwd = sum(1 for _s, _e, n in ev if "flash_attention_kernel" in n)
         bwd = {k: sum(1 for _s, _e, n in ev if k in n)
@@ -6128,7 +6196,7 @@ MLA_HEADS, MLA_DIMS = (128, 128), (192, 128)
 LRU_BWD_SHAPES = (("train", 8, 128, 4096, False),
                   ("outer prefill", 1, 2040, 4096, True),
                   ("edge", 3, 37, 100, True))
-FAMILY_STEPS = 10
+FAMILY_STEPS = 5
 FAMILY_PROFILED = 2
 
 
@@ -6914,8 +6982,8 @@ def _mesh_collectives(step) -> dict:
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         step()
         torch.cuda.synchronize()
-    return dict(Counter(e.name for e in prof.events()
-                        if e.name.startswith(("nccl:", "gloo:"))))
+    return dict(Counter(name for _s, _e, name, _w in _records(prof)
+                        if name.startswith(("nccl:", "gloo:"))))
 
 
 def _mesh_run(prefill, step, model, prompt, n_steps, dev):
@@ -6935,13 +7003,30 @@ def _mesh_run(prefill, step, model, prompt, n_steps, dev):
     return out, toks, state, times
 
 
+def _mesh_launches(cfg, n_steps) -> dict:
+    """The kernel launches of a prefill + ``n_steps`` serve steps of
+    ``cfg`` at staggered clocks (every step runs the SOI middle):
+    ``flash_attention`` once a prefill for each attention layer without a
+    window (MLA's included; a window takes the plain route),
+    ``lru_scan`` once for each RG-LRU layer, ``decode_attention`` a step
+    for each GQA layer (MLA's dense read is the plain one)."""
+    from repro_torch.models import transformer as T
+    blocks = T.layer_blocks(cfg)
+    att = [b.attn for b in blocks if b.attn is not None]
+    return {"flash_attention": sum(a.window is None for a in att),
+            "decode_attention": sum(not a.is_mla for a in att) * n_steps,
+            "lru_scan": sum(b.rglru is not None for b in blocks)}
+
+
 def _mesh_one_by_one(dev, card, argv=SERVE_ARGV, tag="(b)") -> dict:
-    """Phase 24 (b) (phase 25 (a): ``argv`` phase 18's olmoe-1b-7b): the
-    serving driver's weights and prompts of ``argv`` through the plain
-    steps, then the same model sharded on a (1, 1) NCCL mesh through
-    make_prefill + make_serve_step: logits every step and the final state
-    bit for bit; ms a step and collectives a step of each. Returns the
-    sharded run's launch counts."""
+    """Phase 24 (b) (phase 25 (a): ``argv`` phase 18's olmoe-1b-7b; phase
+    26 (a) and (b): deepseek-v2 and recurrentgemma-9b): the serving
+    driver's weights and prompts of ``argv`` through the plain steps, then
+    the same model sharded on a (1, 1) NCCL mesh through make_prefill +
+    make_serve_step: logits every step and the final state bit for bit,
+    launches ``_mesh_launches``'; ms a step, and the collectives of one
+    more step after the compared ones, of each. Returns the sharded run's
+    launch counts."""
     import torch.distributed as dist
     from repro_torch.distributed.sharding import ShardingRules, shard_params
     from repro_torch.kernels import ops
@@ -6953,11 +7038,10 @@ def _mesh_one_by_one(dev, card, argv=SERVE_ARGV, tag="(b)") -> dict:
     cfg, model, prompt, _plens, engine = serve.setup(serve.parse_args(argv))
     del engine
     plain = (make_prefill(cfg, max_len=MESH_MAX_LEN), make_serve_step(cfg))
-    p_out, p_toks, p_state, p_ms = _mesh_run(*plain, model, prompt,
-                                             MESH_STEPS, dev)
-    p_state = {k: v.clone() for k, v in S.flatten(p_state).items()}
-    _, st = _mesh_state(plain[0], model, prompt)
-    p_coll = _mesh_collectives(lambda: plain[1](model, st, p_toks[0]))
+    p_out, p_toks, st, p_ms = _mesh_run(*plain, model, prompt, MESH_STEPS,
+                                        dev)
+    p_state = {k: v.clone() for k, v in S.flatten(st).items()}
+    p_coll = _mesh_collectives(lambda: plain[1](model, st, p_toks[-1]))
     del st
     torch.cuda.set_device(dev)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
@@ -6969,11 +7053,12 @@ def _mesh_one_by_one(dev, card, argv=SERVE_ARGV, tag="(b)") -> dict:
         sharded = (make_prefill(cfg, rules, mesh, max_len=MESH_MAX_LEN),
                    make_serve_step(cfg, rules, mesh, max_len=MESH_MAX_LEN))
         ops.reset_launch_counts()
-        s_out, s_toks, s_state, s_ms = _mesh_run(*sharded, model, prompt,
-                                                 MESH_STEPS, dev)
+        s_out, s_toks, st, s_ms = _mesh_run(*sharded, model, prompt,
+                                            MESH_STEPS, dev)
         counts = ops.launch_counts()
-        _, st = _mesh_state(sharded[0], model, prompt)
-        s_coll = _mesh_collectives(lambda: sharded[1](model, st, s_toks[0]))
+        s_flat = {k: v.clone() for k, v in S.flatten(st).items()}
+        s_coll = _mesh_collectives(lambda: sharded[1](model, st,
+                                                      s_toks[-1]))
         del st
     finally:
         dist.destroy_process_group()
@@ -6981,14 +7066,10 @@ def _mesh_one_by_one(dev, card, argv=SERVE_ARGV, tag="(b)") -> dict:
     check(all(torch.equal(a, b) for a, b in zip(p_out, s_out)),
           f"{tag} sharded logits on the (1, 1) mesh differ from the plain "
           f"steps'")
-    s_flat = S.flatten(s_state)
     check(set(s_flat) == set(p_state) and all(
         torch.equal(s_flat[k], p_state[k]) for k in p_state),
         f"{tag} the sharded state differs from the plain steps'")
-    n_outer = cfg.soi.first_layer + cfg.n_layers - cfg.soi.last_layer
-    n_mid = cfg.soi.last_layer - cfg.soi.first_layer
-    want = {"flash_attention": cfg.n_layers,
-            "decode_attention": (n_outer + n_mid) * MESH_STEPS}
+    want = _mesh_launches(cfg, MESH_STEPS)
     for name, n in want.items():
         check(counts[name] == n, f"{tag} {name} {counts[name]} launches, "
                                  f"want {n}")
@@ -7000,7 +7081,7 @@ def _mesh_one_by_one(dev, card, argv=SERVE_ARGV, tag="(b)") -> dict:
           f"{MESH_STEPS} steps: make_prefill + make_serve_step on the (1, "
           f"1) NCCL mesh == the plain steps bit for bit (logits of the "
           f"prefill and every step, {len(p_state)} state leaves); launches "
-          f"{want}", flush=True)
+          f"{ {k: v for k, v in want.items() if v} }", flush=True)
     print(f"  {tag} ms a step (median, host clock after a synchronize, "
           f"eager): plain {med(p_ms):.3f}, sharded {med(s_ms):.3f}; "
           f"collectives a step: plain {p_coll or 'none'}, sharded {s_coll}; "
@@ -7178,12 +7259,14 @@ def _moe_cfg(n_layers, first, last, dtype=None):
     return dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
 
 
-def _moe_train_one_by_one(dev, card) -> dict:
-    """(b): MOE_TRAIN_LAYERS of olmoe-1b-7b, bf16 over f32 masters, B 8 S
-    128: DIST_STEPS plain steps, then as many sharded on the (1, 1) mesh
+def _mesh_train_one_by_one(dev, card, cfg, tag, label,
+                           peak_gap=None) -> dict:
+    """Phase 25 (b), phase 26 (c): ``cfg`` (bf16 over f32 masters, B 8 S
+    128), DIST_STEPS plain steps, then as many sharded on the (1, 1) mesh
     from the same weights and batches (one model on the card at a time);
-    metrics equal, params and moments equal by digest. Returns the
-    sharded run's launch counts."""
+    metrics equal, params and moments equal by digest; with ``peak_gap``
+    (GiB) the first sharded step's peak within it of the plain one's.
+    Returns the sharded run's launch counts."""
     from repro_torch.data.pipeline import ShardedLMPipeline
     from repro_torch.distributed.sharding import (ShardingRules,
                                                   gather_params, gather_tree,
@@ -7194,8 +7277,6 @@ def _moe_train_one_by_one(dev, card) -> dict:
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw_init
     t0 = time.perf_counter()
-    cfg = _moe_cfg(MOE_TRAIN_LAYERS, MOE_TRAIN_LAYERS // 4,
-                   MOE_TRAIN_LAYERS - MOE_TRAIN_LAYERS // 4)
     pipe = ShardedLMPipeline(global_batch=8, seq_len=128, vocab=cfg.vocab,
                              seed=0)
     batches = [_train_batch(pipe, i, dev) for i in range(DIST_STEPS + 1)]
@@ -7203,13 +7284,14 @@ def _moe_train_one_by_one(dev, card) -> dict:
     mesh = make_mesh((1, 1), ("data", "model"))
     rules = ShardingRules(data_axes=("data",))
     runs = {}
-    for label in ("plain", "sharded"):
+    for run in ("plain", "sharded"):
         _free(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         model = T.init(cfg, generator=torch.Generator(device=dev)
                        .manual_seed(0), device=dev)
         n_params = sum(p.numel() for p in model.parameters())
-        if label == "sharded":
+        built = torch.cuda.memory_allocated(dev)
+        if run == "sharded":
             model = shard_params(model, rules, mesh)
             step = make_train_step(cfg, rules, mesh, **kw)
 
@@ -7220,24 +7302,28 @@ def _moe_train_one_by_one(dev, card) -> dict:
 
             def prep(bt):
                 return bt
+        # what stays allocated after shard_params: the weights, not a
+        # copy of them beside
+        held = torch.cuda.memory_allocated(dev) - built
         opt = adamw_init(dict(model.named_parameters()))
-        # the set-up's peak apart: shard_params' copies of every leaf
-        # (distribute_tensor) are held a while after it returns
         setup_peak = torch.cuda.max_memory_allocated(dev)
         ops.reset_launch_counts()
-        metrics, times, peaks = [], [], []
+        metrics, times, peaks, starts = [], [], [], []
         for bt in batches[:DIST_STEPS]:
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
+            starts.append(torch.cuda.memory_allocated(dev) / 2 ** 30)
             t1 = time.perf_counter()
-            _, _, m = step(model, opt, prep(bt))
+            # the metrics only: a name bound to the returned opt_state
+            # would keep this run's moments alive into the next run
+            m = step(model, opt, prep(bt))[2]
             torch.cuda.synchronize(dev)
             times.append((time.perf_counter() - t1) * 1e3)
             peaks.append(torch.cuda.max_memory_allocated(dev) / 2 ** 30)
             metrics.append(tuple(float(m[k]) for k in ("loss", "aux",
                                                        "grad_norm")))
         counts = ops.launch_counts()
-        sharded = label == "sharded"
+        sharded = run == "sharded"
         digests = {"params": _digests(gather_params(model) if sharded
                                       else dict(model.named_parameters()))}
         for t in ("mu", "nu"):
@@ -7245,42 +7331,53 @@ def _moe_train_one_by_one(dev, card) -> dict:
                                   else opt[t])
         coll = _mesh_collectives(lambda: step(model, opt, prep(
             batches[DIST_STEPS])))
-        runs[label] = dict(metrics=metrics, digests=digests, counts=counts,
-                           ms=sorted(times)[len(times) // 2], peaks=peaks,
-                           setup_peak=setup_peak / 2 ** 30, coll=coll)
+        runs[run] = dict(metrics=metrics, digests=digests, counts=counts,
+                         ms=sorted(times)[len(times) // 2], peaks=peaks,
+                         setup_peak=setup_peak / 2 ** 30, coll=coll,
+                         held=held / 2 ** 30, starts=starts)
         del model, opt, step
     _free(dev)
     p, s_ = runs["plain"], runs["sharded"]
     check(s_["metrics"] == p["metrics"],
-          f"(b) sharded (loss, aux, grad norm) {s_['metrics']} != plain "
+          f"{tag} sharded (loss, aux, grad norm) {s_['metrics']} != plain "
           f"{p['metrics']}")
-    check(all(m[1] > 0 for m in s_["metrics"]), "(b) the sharded aux is 0")
+    moe = any(b.moe is not None for b in T.layer_blocks(cfg))
+    check(all((m[1] > 0) == moe for m in s_["metrics"]),
+          f"{tag} the sharded aux {s_['metrics']} (MoE: {moe})")
     for t in p["digests"]:
         bad = [k for k in p["digests"][t]
                if s_["digests"][t].get(k) != p["digests"][t][k]]
         check(not bad and set(s_["digests"][t]) == set(p["digests"][t]),
-              f"(b) sharded {t} differ from the plain step's: {bad[:5]}")
+              f"{tag} sharded {t} differ from the plain step's: {bad[:5]}")
     counts = s_["counts"]
-    for name in ("flash_attention", "flash_attention_bwd"):
-        check(counts[name] == cfg.n_layers * DIST_STEPS,
-              f"(b) sharded step: {name} {counts[name]} launches, want "
-              f"{cfg.n_layers * DIST_STEPS}")
-    print(f"  (b) {MOE_ARCH} cut to {cfg.n_layers} of 16 layers "
-          f"({n_params / 1e9:.3f} B params; phase 22's cut), SOI pp, bf16 "
-          f"over f32 masters, B 8 S 128, {DIST_STEPS} steps: sharded on "
-          f"the (1, 1) NCCL mesh == plain bit for bit — (loss, aux, grad "
-          f"norm) {s_['metrics']}; {len(p['digests']['params'])} params, "
-          f"mu, nu leaves equal by digest; launches flash_attention "
-          f"{counts['flash_attention']}, flash_attention_bwd "
-          f"{counts['flash_attention_bwd']}", flush=True)
-    print(f"  (b) step median (host clock after a synchronize, "
+    want = {k: v * DIST_STEPS for k, v in _mesh_launches(cfg, 0).items()
+            if k != "decode_attention"}
+    want.update(flash_attention_bwd=want["flash_attention"],
+                lru_scan_bwd=want["lru_scan"])
+    for name, n in want.items():
+        check(counts[name] == n, f"{tag} sharded step: {name} "
+                                 f"{counts[name]} launches, want {n}")
+    if peak_gap is not None:
+        check(s_["peaks"][0] - p["peaks"][0] <= peak_gap,
+              f"{tag} the first sharded step peaks at {s_['peaks'][0]:.2f} "
+              f"GiB, the plain at {p['peaks'][0]:.2f}")
+    print(f"  {tag} {label} ({n_params / 1e9:.3f} B params), SOI "
+          f"{cfg.soi.mode if cfg.soi else 'none'}, bf16 over f32 masters, "
+          f"B 8 S 128, {DIST_STEPS} steps: sharded on the (1, 1) NCCL mesh "
+          f"== plain bit for bit — (loss, aux, grad norm) {s_['metrics']}; "
+          f"{len(p['digests']['params'])} params, mu, nu leaves equal by "
+          f"digest; launches { {k: v for k, v in want.items() if v} }",
+          flush=True)
+    print(f"  {tag} step median (host clock after a synchronize, "
           f"{DIST_STEPS} steps): plain {p['ms']:.2f} ms, sharded "
           f"{s_['ms']:.2f} ms; peak GiB of each step plain "
           f"{[round(x, 2) for x in p['peaks']]}, sharded "
-          f"{[round(x, 2) for x in s_['peaks']]} (of the set-up: init, "
+          f"{[round(x, 2) for x in s_['peaks']]}, allocated at each "
+          f"step's start {[round(x, 2) for x in p['starts']]} / "
+          f"{[round(x, 2) for x in s_['starts']]} (of the set-up: init, "
           f"shard_params, adamw_init: {p['setup_peak']:.2f} / "
-          f"{s_['setup_peak']:.2f}; the copies distribute_tensor makes are "
-          f"held a while after shard_params returns); collectives a step: "
+          f"{s_['setup_peak']:.2f}; GiB shard_params leaves allocated "
+          f"beyond the built model: {s_['held']:.3f}); collectives a step: "
           f"plain {p['coll'] or 'none'}, sharded {s_['coll']}; "
           f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
     return counts
@@ -7377,7 +7474,7 @@ def _moe_rank(rank, world):
         ops.reset_launch_counts()
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        _, _, sm = step(model, opt, local_batch(batch, mesh))
+        sm = step(model, opt, local_batch(batch, mesh))[2]
         torch.cuda.synchronize(dev)
         out["train_ms"] = (time.perf_counter() - t0) * 1e3
         out["train_counts"] = ops.launch_counts()
@@ -7393,7 +7490,7 @@ def _moe_rank(rank, world):
         _free(dev)
         plain = init()
         popt = adamw_init(dict(plain.named_parameters()))
-        _, _, pm = make_train_step(cfg, **kw)(plain, popt, batch)
+        pm = make_train_step(cfg, **kw)(plain, popt, batch)[2]
         worst, worst_at = 0.0, None
         for k, (d, mine) in shards.items():
             want = popt["mu"][k]
@@ -7527,7 +7624,11 @@ def moe_mesh_phase(dev, card) -> dict:
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1, device_id=dev)
     try:
-        train_counts = _moe_train_one_by_one(dev, card)
+        train_counts = _mesh_train_one_by_one(
+            dev, card, _moe_cfg(MOE_TRAIN_LAYERS, MOE_TRAIN_LAYERS // 4,
+                                MOE_TRAIN_LAYERS - MOE_TRAIN_LAYERS // 4),
+            "(b)", f"{MOE_ARCH} cut to {MOE_TRAIN_LAYERS} of 16 layers "
+                   f"(phase 22's cut)")
     finally:
         dist.destroy_process_group()
     check(not dist.is_initialized(), "the process group outlived (b)")
@@ -7538,6 +7639,340 @@ def moe_mesh_phase(dev, card) -> dict:
     return {"decode_attention": serve_counts["decode_attention"],
             "flash_attention": serve_counts["flash_attention"],
             "flash_attention_bwd": train_counts["flash_attention_bwd"]}
+
+
+# ---------------------------------------------------------------------------
+# 26. mla-rglru-mesh: the MLA and RG-LRU stacks on a mesh
+# ---------------------------------------------------------------------------
+
+# the serving driver's deepseek-v2 cut of phase 8 (4 layers), dense rings
+DS_MESH_ARGV = DS_SERVE_ARGV[:DS_SERVE_ARGV.index("--paged")]
+MLA_PEAK_GAP = 2.0                 # (c) GiB, first sharded step vs plain
+MLA_LOSS_TOL = 1e-6                # (d) loss, relative
+# (d) grad norm and gradients, relative to each leaf's largest: at
+# recurrentgemma's random-init logits (loss 40.8, capped at 30) a rounding
+# step in the hidden state moves the softmax by ~1e-5 of itself, and the
+# split model axis sums its partial products in another order (measured
+# 1.13e-5 at its embedding, deepseek-v2 3.5e-6)
+MLA_GRAD_TOL = 2e-5
+MLA_DIR = ROOT / "build" / "mla_rglru_mesh"
+
+
+def _mla_train_cfgs():
+    """(c)'s training cuts, phase 22's: deepseek-v2's MLA stack at 4 layers
+    with dense MLPs (its MoE layers do not fit one card), recurrentgemma-9b
+    at 6 of 38 layers; SOI pp."""
+    from repro_torch import configs
+    from repro_torch.configs import deepseek_v2_236b as D
+    return (
+        (D.mla_dense_config(soi="pp", n_layers=4),
+         "deepseek-v2's MLA stack, 4 layers of its layer-0 block (MLA + "
+         "SwiGLU 12288; phase 22's cut)"),
+        (configs.get("recurrentgemma-9b", soi="pp", n_layers=6),
+         "recurrentgemma-9b cut to 6 of 38 layers (phase 22's cut)"))
+
+
+def _mla_gloo_cfgs():
+    """(d)'s f32 configs: (label, serving cut, training cut). deepseek-v2
+    serves at 2 layers (the dense one and one MoE layer, SOI pp over the
+    second) and trains its dense first layer alone; recurrentgemma-9b
+    serves and trains one (RG-LRU, RG-LRU, local attention) pattern."""
+    from repro_torch import configs
+    from repro_torch.configs import deepseek_v2_236b as D
+
+    def f32(cfg):
+        return dataclasses.replace(cfg, dtype="float32")
+    rg = f32(configs.get("recurrentgemma-9b", n_layers=3))
+    return (("deepseek-v2", f32(D.config(soi="pp", n_layers=2)),
+             f32(D.mla_dense_config(n_layers=1))),
+            ("recurrentgemma-9b", rg, rg))
+
+
+def _mla_serve_inputs(cfg, dev):
+    """(f32 weights, prompt) from the seed, the same in every process."""
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device=dev).manual_seed(26)
+    model = T.init(cfg, generator=gen, device=dev)
+    prompt = torch.randint(0, cfg.vocab, (4, 1024), generator=gen,
+                           device=dev, dtype=torch.int32)
+    return model, prompt
+
+
+def _mla_split(model, label) -> dict:
+    """{what: (this rank's count, the whole count)} of a sharded model."""
+    if label == "deepseek-v2":
+        b = model.blocks
+        return {"heads": (b[0].attn.wuq.to_local().shape[1],
+                          b[0].attn.wuq.shape[1]),
+                "experts": (b[1].moe.up.to_local().shape[0],
+                            b[1].moe.up.shape[0])}
+    rec, att = model.blocks[0].rglru, model.blocks[2].attn
+    return {"heads": (att.wq.to_local().shape[1], att.wq.shape[1]),
+            "kv heads": (att.wk.to_local().shape[1], att.wk.shape[1]),
+            "LRU channels": (rec.lam.to_local().shape[0], rec.lam.shape[0])}
+
+
+def _mla_rank(rank, world):
+    """(d) one of two gloo ranks sharing the card, a (1, 2) mesh: for each
+    config of ``_mla_gloo_cfgs`` the serving cut from the seed through the
+    sharded prefill + steps, then the training cut's sharded step and the
+    plain step from the same weights in this process, compared here (the
+    rank's shard of AdamW's first moment after one step, 0.1 x the clipped
+    gradient, against the plain one's slice). The ranks meet at a barrier
+    between parts and take the plain step one at a time, so one full
+    model's training state is on the card at a time. Writes the
+    results."""
+    import os
+    import pickle
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import ShardedLMPipeline
+    from repro_torch.distributed.sharding import ShardingRules, shard_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import (local_batch, make_prefill,
+                                          make_serve_step, make_train_step)
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    from torch.distributed.tensor import Shard
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    store = dist.FileStore(str(MLA_DIR / "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh((1, world), ("data", "model"))
+        rules = ShardingRules(data_axes=("data",))
+        kw = dict(peak_lr=1e-3, warmup=20, total_steps=TRAIN_STEPS)
+        out = {}
+        for label, scfg, tcfg in _mla_gloo_cfgs():
+            r = out[label] = {}
+            model, prompt = _mla_serve_inputs(scfg, dev)
+            model = shard_params(model, rules, mesh)
+            r["split"] = _mla_split(model, label)
+            r["serve_bytes"] = _moe_param_bytes(model, scfg, rules, mesh)
+            prefill = make_prefill(scfg, rules, mesh, max_len=MESH_MAX_LEN)
+            step = make_serve_step(scfg, rules, mesh, max_len=MESH_MAX_LEN)
+            ops.reset_launch_counts()
+            logits, toks, st, ms = _mesh_run(prefill, step, model, prompt,
+                                             MESH_GLOO_STEPS, dev)
+            r["serve_counts"] = ops.launch_counts()
+            r["serve_coll"] = _mesh_collectives(lambda: step(model, st,
+                                                             toks[-1]))
+            r.update(logits=[x.cpu() for x in logits],
+                     tokens=[x.cpu() for x in toks], serve_ms=ms)
+            del model, st, prefill, step, logits
+            _free(dev)
+            dist.barrier()
+
+            pipe = ShardedLMPipeline(global_batch=8, seq_len=128,
+                                     vocab=tcfg.vocab, seed=0)
+            batch = _train_batch(pipe, 0, dev)
+
+            def init():
+                return T.init(tcfg, generator=torch.Generator(device=dev)
+                              .manual_seed(27), device=dev)
+            model = shard_params(init(), rules, mesh)
+            r["train_bytes"] = _moe_param_bytes(model, tcfg, rules, mesh)
+            opt = adamw_init(dict(model.named_parameters()))
+            step = make_train_step(tcfg, rules, mesh, **kw)
+            ops.reset_launch_counts()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            sm = step(model, opt, local_batch(batch, mesh))[2]
+            torch.cuda.synchronize(dev)
+            r["train_ms"] = (time.perf_counter() - t0) * 1e3
+            r["train_counts"] = ops.launch_counts()
+            shards = {}
+            for k, p in model.named_parameters():
+                dims = [pl.dim for pl in p.placements
+                        if isinstance(pl, Shard)]
+                shards[k] = (dims[0] if dims else None,
+                             opt["mu"][k].to_local().clone())
+            r["train_coll"] = _mesh_collectives(lambda: step(
+                model, opt, local_batch(batch, mesh)))
+            del model, opt, step
+            _free(dev)
+            # the plain step one rank at a time: two f32 states and their
+            # gradients do not fit the card beside each other
+            for turn in range(world):
+                dist.barrier()
+                if turn != rank:
+                    continue
+                plain = init()
+                popt = adamw_init(dict(plain.named_parameters()))
+                pm = make_train_step(tcfg, **kw)(plain, popt, batch)[2]
+                rels = []
+                for k, (d, mine) in shards.items():
+                    want = popt["mu"][k]
+                    if d is not None:
+                        want = want.chunk(world, dim=d)[rank]
+                    rels.append((float((mine - want).abs().max()
+                                       / want.abs().max().clamp_min(1e-30)),
+                                 k))
+                rels.sort(reverse=True)
+                r.update(train_metrics={k: float(sm[k]) for k in sm},
+                         plain_metrics={k: float(pm[k]) for k in pm},
+                         grad_rel=rels[0][0], grad_rel_at=rels[0][1],
+                         grad_top=rels[:5], n_leaves=len(shards))
+                del plain, popt, shards
+                _free(dev)
+            dist.barrier()
+        with open(MLA_DIR / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mla_gloo(dev, card) -> dict:
+    """(d): each serving cut's one-rank f32 steps here, then two gloo ranks
+    on the card (``_mla_rank``): tokens equal, logits within
+    MESH_GLOO_TOL, each read, scan and prefill on its kernel; the ranks'
+    train steps against their plain steps; bytes. Returns the ranks'
+    summed launch counts of each config's serving and training."""
+    import pickle
+    import shutil
+    import torch.multiprocessing as mp
+    from repro_torch.launch.steps import make_prefill, make_serve_step
+    t0 = time.perf_counter()
+    want = {}
+    for label, scfg, _ in _mla_gloo_cfgs():
+        model, prompt = _mla_serve_inputs(scfg, dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        logits, toks, st, ms = _mesh_run(
+            make_prefill(scfg, max_len=MESH_MAX_LEN), make_serve_step(scfg),
+            model, prompt, MESH_GLOO_STEPS, dev)
+        want[label] = (logits, toks, ms, n_params)
+        del model, st
+        _free(dev)
+    shutil.rmtree(MLA_DIR, ignore_errors=True)
+    MLA_DIR.mkdir(parents=True)
+    t1 = time.perf_counter()
+    mp.spawn(_mla_rank, args=(2,), nprocs=2, join=True)
+    spawn_s = time.perf_counter() - t1
+    ranks = []
+    for r in range(2):
+        with open(MLA_DIR / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    shutil.rmtree(MLA_DIR, ignore_errors=True)
+
+    def med(x):
+        return sorted(x)[len(x) // 2]
+    totals = {}
+    for label, scfg, tcfg in _mla_gloo_cfgs():
+        w_logits, w_toks, w_ms, n_params = want[label]
+        err = 0.0
+        for r, rk in enumerate(ranks):
+            g = rk[label]
+            for what, (mine, whole) in g["split"].items():
+                check(mine * 2 == whole or (what == "kv heads" and
+                                            mine == whole == 1),
+                      f"(d) {label} rank {r} holds {mine} of {whole} {what}")
+            check(all(torch.equal(a, b.cpu()) for a, b in zip(g["tokens"],
+                                                              w_toks)),
+                  f"(d) {label} rank {r}: the 2-rank tokens differ from the "
+                  f"one-rank steps'")
+            err = max([err] + [float((a - b.cpu()).abs().max())
+                               for a, b in zip(g["logits"], w_logits)])
+            for what in ("serve_bytes", "train_bytes"):
+                got, spec = g[what]
+                check(got == spec, f"(d) {label} rank {r} {what} {got} != "
+                                   f"the specs' {spec}")
+            sm, pm = g["train_metrics"], g["plain_metrics"]
+            for k, tol in (("loss", MLA_LOSS_TOL),
+                           ("grad_norm", MLA_GRAD_TOL)):
+                check(abs(sm[k] - pm[k]) <= tol * abs(pm[k]),
+                      f"(d) {label} rank {r} {k} {sm[k]} vs one rank "
+                      f"{pm[k]}")
+            check(g["grad_rel"] <= MLA_GRAD_TOL,
+                  f"(d) {label} rank {r} gradient {g['grad_rel_at']}: rel "
+                  f"{g['grad_rel']}")
+            want_s = _mesh_launches(scfg, MESH_GLOO_STEPS)
+            check(all(g["serve_counts"][k] == n for k, n in want_s.items()),
+                  f"(d) {label} rank {r}: serving launches "
+                  f"{g['serve_counts']}, want {want_s}")
+            want_t = {k: v for k, v in _mesh_launches(tcfg, 0).items()
+                      if k != "decode_attention"}
+            want_t.update(flash_attention_bwd=want_t["flash_attention"],
+                          lru_scan_bwd=want_t["lru_scan"])
+            check(all(g["train_counts"][k] == n for k, n in want_t.items()),
+                  f"(d) {label} rank {r}: training launches "
+                  f"{g['train_counts']}, want {want_t}")
+        check(err < MESH_GLOO_TOL,
+              f"(d) {label} logits {err} from the one-rank steps")
+        for part in ("serve_counts", "train_counts"):
+            for k, v in ranks[0][label][part].items():
+                totals[k] = totals.get(k, 0) + sum(rk[label][part][k]
+                                                   for rk in ranks)
+        g0 = ranks[0][label]
+        print(f"  (d) {label}, two gloo ranks on the one card, (1, 2) mesh, "
+              f"each holding {g0['split']}: serving {scfg.n_layers} layers "
+              f"(SOI {scfg.soi.mode if scfg.soi else 'none'}, "
+              f"{n_params / 1e9:.3f} B params) f32, B 4 x 1024, "
+              f"{MESH_GLOO_STEPS} steps: tokens == the one-rank steps, "
+              f"logits max|Δ| {err:.2e} (< {MESH_GLOO_TOL}); launches a rank "
+              f"{ {k: v for k, v in g0['serve_counts'].items() if v} }; ms a "
+              f"step (median, host clock): one rank {med(w_ms):.3f}, the two "
+              f"ranks {[round(med(rk[label]['serve_ms']), 3) for rk in ranks]}"
+              f"; collectives a step {g0['serve_coll']} [{card}]", flush=True)
+        print(f"  (d) {label}, one train step of {tcfg.n_layers} layer(s) "
+              f"f32, B 8 S 128, against the plain step in each rank: "
+              + "; ".join(
+                  f"rank {r} loss {rk[label]['train_metrics']['loss']:.7f} "
+                  f"vs {rk[label]['plain_metrics']['loss']:.7f}, grad norm "
+                  f"{rk[label]['train_metrics']['grad_norm']:.6f} vs "
+                  f"{rk[label]['plain_metrics']['grad_norm']:.6f}, worst "
+                  f"gradient rel {rk[label]['grad_rel']:.2e} "
+                  f"({rk[label]['grad_rel_at']}, {rk[label]['n_leaves']} "
+                  f"leaves; top 5 "
+                  f"{[(f'{x:.2e}', k) for x, k in rk[label]['grad_top']]})"
+                  for r, rk in enumerate(ranks))
+              + f"; launches a rank "
+              f"{ {k: v for k, v in g0['train_counts'].items() if v} }; step "
+              f"ms {[round(rk[label]['train_ms'], 1) for rk in ranks]} (the "
+              f"first, host clock); collectives a step {g0['train_coll']}; "
+              f"parameter bytes a rank (== the specs'): serving "
+              f"{[rk[label]['serve_bytes'][0] for rk in ranks]}, training "
+              f"{[rk[label]['train_bytes'][0] for rk in ranks]} [{card}]",
+              flush=True)
+    print(f"  (d) spawn + run {spawn_s:.1f} s, (d) "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return totals
+
+
+def mla_rglru_mesh_phase(dev, card) -> dict:
+    """Phase 26. Returns the launch counts of the sharded runs on the (1,
+    1) NCCL mesh: (a)'s and (b)'s serving, (c)'s training, and (d)'s two
+    gloo ranks summed, by part."""
+    import torch.distributed as dist
+    phase("26 mla-rglru-mesh (deepseek-v2's MLA + MoE and recurrentgemma-9b's "
+          "RG-LRU + MQA through the sharded serve and train steps on a (1, 1) "
+          "NCCL mesh against the plain steps; two gloo ranks on the card, "
+          "heads, latent up-projections and LRU channels split)")
+    t0 = time.perf_counter()
+    out = {"ds serve": _mesh_one_by_one(dev, card, DS_MESH_ARGV, "(a)")}
+    _free(dev)
+    out["rg serve"] = _mesh_one_by_one(
+        dev, card, _family_argv("recurrentgemma-9b"), "(b)")
+    _free(dev)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        for (cfg, label), key in zip(_mla_train_cfgs(),
+                                     ("ds train", "rg train")):
+            out[key] = _mesh_train_one_by_one(dev, card, cfg, "(c)", label,
+                                              peak_gap=MLA_PEAK_GAP)
+            _free(dev)
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the process group outlived (c)")
+    out["gloo"] = _mla_gloo(dev, card)
+    _free(dev)
+    print(f"  phase 26: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def main():
@@ -7577,6 +8012,21 @@ def main():
     mesh_lse, mesh_counts, mesh_gloo = serve_mesh_phase(dev, card)
     _free(dev)
     moe_counts = moe_mesh_phase(dev, card)
+    _free(dev)
+    mesh26_counts = mla_rglru_mesh_phase(dev, card)
+    # phase 26's sharded runs, each kernel's launches there
+    mesh26_on = {
+        "ds serve": f"sharded serve (deepseek-v2 4 layers bf16, (1, 1) NCCL "
+                    f"mesh, prefill + {MESH_STEPS} steps)",
+        "rg serve": f"sharded serve (recurrentgemma-9b 38 layers bf16, (1, "
+                    f"1) NCCL mesh, prefill + {MESH_STEPS} steps)",
+        "ds train": f"sharded train (deepseek-v2 MLA stack 4 layers, (1, 1) "
+                    f"NCCL mesh, {DIST_STEPS} steps)",
+        "rg train": f"sharded train (recurrentgemma-9b 6 layers, (1, 1) "
+                    f"NCCL mesh, {DIST_STEPS} steps)",
+        "gloo": f"two gloo ranks on the card, (1, 2) mesh, f32: deepseek-v2 "
+                f"(2 layers served, 1 trained) and recurrentgemma-9b (3), "
+                f"prefill + {MESH_GLOO_STEPS} steps and one train step each"}
     # launches: each kernel's count on its own path's run — the dense
     # serve (phase 5), the paged prefix-cache serve (phase 6), the
     # deepseek-v2 serve (phase 8), the MLA prefix-cache serve (phase 9),
@@ -7594,8 +8044,9 @@ def main():
                                                ds_counts),
                 "lru_scan": ("rg serve (paged)", rg_counts["paged"]),
                 "stmc_conv": ("unet stream", unet_counts),
-                "flash_attention_bwd": ("train (qwen3-1.7b dense, 30 "
-                                        "steps)", train_counts["dense"]),
+                "flash_attention_bwd": (f"train (qwen3-1.7b dense, "
+                                        f"{TRAIN_STEPS} steps)",
+                                        train_counts["dense"]),
                 "lru_scan_bwd": (f"train families (recurrentgemma-9b, "
                                  f"{FAMILY_STEPS} steps)",
                                  fam_train["recurrentgemma-9b"])}
@@ -7681,7 +8132,8 @@ def main():
             # dense one above)
             summary[-1]["train"] = {
                 run: {"launches": train_counts[run][name],
-                      "launches_on": f"train (qwen3-1.7b {run}, 30 steps)"}
+                      "launches_on": f"train (qwen3-1.7b {run}, "
+                                     f"{TRAIN_STEPS} steps)"}
                 for run in train_counts}
             # phase 21's sharded step on the (1, 1) NCCL mesh
             summary[-1]["dist"] = {
@@ -7798,6 +8250,14 @@ def main():
                                           f"steps)"))
             check(mesh_gloo[name] > 0, "decode_attention's lse never "
                                        "launched on the split rings")
+        if name in ("decode_attention", "flash_attention",
+                    "flash_attention_bwd", "lru_scan", "lru_scan_bwd"):
+            runs = {key: {"launches": mesh26_counts[key][name],
+                          "launches_on": on}
+                    for key, on in mesh26_on.items()
+                    if mesh26_counts[key][name]}
+            check(runs, f"{name} never launched on phase 26's sharded runs")
+            summary[-1]["mla_rglru_mesh"] = runs
         if name == "decode_attention":
             # the same wrapper on recurrentgemma's compressed middle rings
             mid = main_recs[name + " (RG middle)"]
@@ -7808,7 +8268,7 @@ def main():
             summary[-1]["rg_middle"].update(
                 launches=rg_second[name][name],
                 launches_on="rg serve (dense), outer and middle layers")
-    print(f"== 26 done in {time.perf_counter() - T_START:.1f} s")
+    print(f"== 27 done in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,8 @@ A spec is a tuple with one entry a dimension: ``None`` (replicated), a mesh
 axis name, or a tuple of names — the counterpart of ``PartitionSpec``.
 ``spec_for`` reads only ``mesh.shape`` (a mapping or a tuple) and
 ``mesh.axis_names``, so specs and the dry run need no process group;
-``placements``, ``shard_params`` and ``gather_params`` take a
-``torch.distributed.DeviceMesh``.
+``placements``, ``local_shard``, ``shard_params`` and ``gather_params``
+take a ``torch.distributed.DeviceMesh``.
 
 Rules express the full parallelism palette:
   * TP  : "heads"/"ff"/"vocab"/... -> "model"
@@ -178,13 +178,35 @@ def placements(spec: tuple, mesh) -> tuple:
     return tuple(out)
 
 
+def local_shard(full: torch.Tensor, place: tuple, mesh) -> torch.Tensor:
+    """This rank's shard of ``full`` under the DTensor placements
+    ``place`` on ``mesh``, as ``distribute_tensor`` cuts it (``torch.chunk``
+    along each split dimension, mesh dimensions in order): a copy of its
+    own where something is split — so the full tensor's storage is not
+    held by it — else ``full`` itself."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    local = full
+    for i, pl in enumerate(place):
+        if isinstance(pl, Shard):
+            local = torch.chunk(local, mesh.size(i), dim=pl.dim)[coord[i]]
+    if local is not full:
+        local = local.clone(memory_format=torch.contiguous_format)
+    return local
+
+
 @torch.no_grad()
 def shard_params(model: nn.Module, rules: ShardingRules, mesh,
                  notes: list | None = None) -> nn.Module:
     """Replace every parameter of ``model`` by a DTensor parameter laid out
-    by its spec on ``mesh`` (``distribute_tensor`` from the full tensor
-    every rank holds), in place; returns ``model``."""
-    from torch.distributed.tensor import distribute_tensor
+    by its spec on ``mesh``, in place; returns ``model``. Every rank holds
+    the full tensors (the same weights: one seed or one checkpoint), so
+    each cuts its shard (``local_shard``) with no collective —
+    ``distribute_tensor`` would scatter each split leaf from rank 0, which
+    gloo stages through the host for a model on the card. A split leaf's
+    full tensor is freed as its parameter is replaced; a replicated
+    leaf's DTensor holds the full tensor's storage itself."""
+    from torch.distributed.tensor import DTensor
     specs = make_specs(param_axes(model), {k: p.shape for k, p in
                                            model.named_parameters()},
                        rules, mesh, notes)
@@ -193,7 +215,10 @@ def shard_params(model: nn.Module, rules: ShardingRules, mesh,
         owner, _, leaf = name.rpartition(".")
         mod = mods[owner]
         full = getattr(mod, leaf)
-        dt = distribute_tensor(full.detach(), mesh, placements(spec, mesh))
+        place = placements(spec, mesh)
+        dt = DTensor.from_local(local_shard(full.detach(), place, mesh),
+                                mesh, place, run_check=False,
+                                shape=full.shape, stride=full.stride())
         mod.register_parameter(leaf, nn.Parameter(
             dt, requires_grad=full.requires_grad))
     return model

@@ -19,7 +19,8 @@ host check of flags).
 reference either: it is a plain PyTorch gather on every device. Nor has
 ``mla_decode_attention``, the absorbed-MLA read of a dense latent cache
 ("reference path on every backend", ``repro/kernels/ops.py``): it is the
-plain PyTorch version on the card too. Nor has ``merge_partials``, the
+plain PyTorch version on the card too, its ``return_lse`` (the partial
+read of a latent ring split over the model axis) included. Nor has ``merge_partials``, the
 merge in rank order of the partial reads (``decode_attention(...,
 return_lse=True)``) of a KV sequence split over the model axis: the
 reference leaves that merge to XLA's partitioner, so here it is a plain

@@ -388,13 +388,19 @@ def mla_chunk_attention(q_lat, q_rope, latent, rope, q_positions,
 
 
 def mla_decode_attention(q_lat, q_rope, latent, rope, positions, q_position,
-                         *, scale, out_dtype=None):
+                         *, scale, out_dtype=None, return_lse=False):
     """Single-token absorbed-matmul MLA attention against a dense latent
     cache (``repro.kernels.ref.mla_decode_attention``, same einsum order).
 
     q_lat: (B, H, L); q_rope: (B, H, R); latent: (B, S, L); rope: (B, S, R);
     positions: (B, S) absolute with -1 empties; q_position: (B,). Returns
-    (B, H, L)."""
+    (B, H, L).
+
+    ``return_lse=True`` returns ``(out, lse)`` with the semantics of
+    :func:`decode_attention`'s: ``lse`` (B, H) float32 is the natural
+    log-sum-exp of the scaled live scores, and a slot with no live key
+    reads ``out`` 0 and ``lse`` -inf — the partial read of one shard of a
+    split latent ring, which :func:`merge_partials` weighs 0."""
     scores = (torch.einsum("bhl,bsl->bhs", q_lat.float(), latent.float())
               + torch.einsum("bhk,bsk->bhs", q_rope.float(),
                              rope.float())) * scale
@@ -403,7 +409,14 @@ def mla_decode_attention(q_lat, q_rope, latent, rope, positions, q_position,
                          torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     o_lat = torch.einsum("bhs,bsl->bhl", probs, latent.float())
-    return o_lat.to(out_dtype if out_dtype is not None else q_lat.dtype)
+    out_dtype = out_dtype if out_dtype is not None else q_lat.dtype
+    if not return_lse:
+        return o_lat.to(out_dtype)
+    live = allow.any(dim=-1)[:, None].expand(scores.shape[:2])
+    lse = torch.where(live, torch.logsumexp(scores, dim=-1),
+                      torch.full_like(scores[..., 0], float("-inf")))
+    o_lat = torch.where(live[..., None], o_lat, torch.zeros_like(o_lat))
+    return o_lat.to(out_dtype), lse
 
 
 def paged_mla_decode_attention(q_lat, q_rope, lat_pool, rope_pool, pos_pool,

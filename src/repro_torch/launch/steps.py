@@ -11,13 +11,17 @@ data x tensor parallel, computed on local shards with explicit collectives
 — the work ``shard_map`` and XLA's partitioner do for the reference:
 
   * the parameters are the DTensors of ``sharding.shard_params`` (heads,
-    kv heads, ff, vocab, a MoE's experts and its router's columns split
-    over the model axis, the rest replicated); the model runs on their
-    ``to_local()`` shards inside ``layers.model_parallel`` (Megatron's
-    collectives: ``to_model`` before a split projection, ``from_model``
-    after, a vocab-split embedding and cross entropy) and
-    ``layers.data_parallel`` (the data groups a MoE layer routes and
-    counts its aux loss over);
+    kv heads, ff, vocab, a MoE's experts and its router's columns, MLA's
+    up-projections and the RG-LRU's channels split over the model axis,
+    the rest replicated); the model runs on their ``to_local()`` shards
+    inside ``layers.model_parallel`` (Megatron's collectives: ``to_model``
+    before a split projection, ``from_model`` after, a vocab-split
+    embedding and cross entropy) and ``layers.data_parallel`` (the data
+    groups a MoE layer routes and counts its aux loss over);
+  * KV heads that the model axis does not split but whose count divides
+    it (MQA's one, 2 on 4 ranks) stay replicated beside the split query
+    heads, as the reference's rules leave them: each rank projects every
+    KV head and its query heads read theirs (``models.attention``);
   * expert parallelism (``models.moe.moe_apply``): a MoE layer's
     dispatch groups are the global microbatch's, its router's logits are
     gathered to all experts, each model rank runs its experts' entries
@@ -32,12 +36,13 @@ data x tensor parallel, computed on local shards with explicit collectives
     AdamW updates each shard in place.
 
 Refused on a mesh (``NotImplementedError``, ROADMAP.md): ``fsdp``,
-``seq_shard``, a model axis that does not divide some split dimension (kv
-heads, say), ``compress`` where the model axis has more than one rank
-(a shard's 256-blocks are not the whole leaf's), MLA, RG-LRU and RWKV
-stacks, the encoder-decoder and the prefix-LM on more than one rank, and
-a MoE layer whose global dispatch groups do not split over the data
-ranks (``moe_apply``).
+``seq_shard``, a model axis that does not divide some split dimension
+(query heads, ff, vocab, the experts; KV heads only where their count
+does not divide the axis either, 3 on 2 ranks say), ``compress`` where
+the model axis has more than one rank (a shard's 256-blocks are not the
+whole leaf's), RWKV stacks, the encoder-decoder and the prefix-LM on more
+than one rank, and a MoE layer whose global dispatch groups do not split
+over the data ranks (``moe_apply``).
 
 ``make_prefill`` and ``make_serve_step`` on a mesh serve data x tensor
 parallel, on local shards with explicit collectives, the decode state in
@@ -45,13 +50,16 @@ parallel, on local shards with explicit collectives, the decode state in
 of the global batch; the prefill runs on the rank's heads and hands every
 attention ring back with the KV *sequence* over the model axis (every KV
 head, rows ``[r S/M, (r+1) S/M)``, or the whole ring where M does not
-divide S); a decode step gathers q, k and v to all heads, writes the
-token on the rank holding its ring slot, reads all heads over the rank's
-rows with ``decode_attention(..., return_lse=True)``, and merges each
-head's M partials in rank order on the rank that owns the head
+divide S; an MLA layer's latent and rope lanes alike); a decode step
+gathers q (and k and v where they are split; MLA: ``q_lat`` and
+``q_rope``) to all heads, writes the token on the rank holding its ring
+slot, reads all heads over the rank's rows with ``decode_attention(...,
+return_lse=True)`` (MLA: the plain ``mla_decode_attention``'s), and merges
+each head's M partials in rank order on the rank that owns the head
 (``models.attention``); the logits are gathered to the full vocabulary.
-A MoE layer routes as in training (its rows' groups are the global
-batch's where the data axes split the rows), without the aux loss.
+An RG-LRU layer's state holds the rank's channels. A MoE layer routes as
+in training (its rows' groups are the global batch's where the data axes
+split the rows), without the aux loss.
 They refuse what the train step refuses; the engine (``SOIEngine``),
 paged pools and speculation run without a mesh only, as in the
 reference.
@@ -67,7 +75,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelCfg
 from repro_torch.distributed.sharding import (ShardingRules,
-                                              logical_constraint, make_specs)
+                                              logical_constraint)
 from repro_torch.launch.mesh import data_axes_of
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as T
@@ -198,41 +206,45 @@ def _refuse(what: str, step: str = "train"):
 
 
 def _check_mesh_stack(cfg: ModelCfg, mesh, step: str = "train"):
-    """Refuse the stacks the sharded step does not hold: MLA, RG-LRU and
-    RWKV stacks, the encoder-decoder and the prefix-LM on more than one
-    rank (no tensor-parallel hooks in the first three, no test holding the
-    last two's sharded step). MoE stacks run on any mesh, the experts
-    split over the model axis (``models.moe.moe_apply``)."""
-    blocks = T.layer_blocks(cfg)
+    """Refuse the stacks the sharded step does not hold: RWKV stacks, the
+    encoder-decoder and the prefix-LM on more than one rank (no
+    tensor-parallel hooks in the first, no test holding the last two's
+    sharded step). MoE, MLA and RG-LRU stacks run on any mesh."""
     ranks = mesh.size()
     hooks, held = "no tensor-parallel hooks", "no sharded step held"
     for what, present, why in (
-            ("MLA", any(b.attn is not None and b.attn.kind == "mla"
-                        for b in blocks), hooks),
-            ("RG-LRU", any(b.rglru is not None for b in blocks), hooks),
-            ("RWKV", any(b.rwkv is not None for b in blocks), hooks),
+            ("RWKV", any(b.rwkv is not None for b in T.layer_blocks(cfg)),
+             hooks),
             ("encoder-decoder", cfg.encoder is not None, held),
             ("prefix-LM", cfg.prefix_lm, held)):
         if present and ranks > 1:
             _refuse(f"{what} stacks on {ranks} ranks ({why})", step)
 
 
-def _check_layout(cfg: ModelCfg, rules: ShardingRules, mesh,
-                  model_size: int, step: str = "train"):
+def _check_layout(cfg: ModelCfg, rules: ShardingRules, model_size: int,
+                  step: str = "train"):
     """Refuse a layout the step cannot run: a dimension the rules split
     over the model axis that the axis does not divide falls back to
-    replicated, and a replicated kv head (or ff column, or vocab row)
-    beside split ones is not the Megatron layout the model computes."""
+    replicated (``sharding.spec_for``), and a replicated ff column or
+    vocab row beside split ones is not the Megatron layout the model
+    computes. Replicated KV heads beside split query heads are: where
+    their count divides the axis, each rank's query heads read one of
+    them (``models.attention``)."""
     from repro_torch.launch.specs import abstract_params
     shapes, axes = abstract_params(cfg)
-    notes: list = []
-    make_specs(axes, {k: v.shape for k, v in shapes.items()}, rules, mesh,
-               notes)
-    model_notes = [n for n in notes if n.endswith(
-        f"% mesh {model_size} != 0 -> replicated")]
-    if model_size > 1 and model_notes:
+    table = rules.table()
+    bad = set()
+    for k, names in axes.items():
+        for name, dim in zip(names, shapes[k].shape):
+            if (table.get(name) != rules.model_axis
+                    or dim % model_size == 0
+                    or (name == "kv_heads" and model_size % dim == 0)):
+                continue
+            bad.add(f"axis {name!r} dim {dim} % mesh {model_size} != 0 -> "
+                    f"replicated")
+    if model_size > 1 and bad:
         _refuse(f"a model axis of {model_size} that does not divide every "
-                f"split dimension ({sorted(set(model_notes))})", step)
+                f"split dimension ({sorted(bad)})", step)
 
 
 def _sharded_train_step(cfg: ModelCfg, rules: ShardingRules, mesh, *,
@@ -249,7 +261,7 @@ def _sharded_train_step(cfg: ModelCfg, rules: ShardingRules, mesh, *,
     if compress and model_size > 1:
         _refuse(f"compress=True on a model axis of {model_size} ranks (a "
                 f"shard's 256-blocks are not the whole leaf's)")
-    _check_layout(cfg, rules, mesh, model_size)
+    _check_layout(cfg, rules, model_size)
     mp_group = mesh.get_group(rules.model_axis)
     dp_groups = [mesh.get_group(a) for a in data_axes]
 
@@ -409,7 +421,7 @@ class _ServeLayout:
             _refuse("seq_shard (sequence-parallel activations)", "serve")
         names = list(mesh.mesh_dim_names)
         self.m = mesh.size(names.index(self.rules.model_axis))
-        _check_layout(cfg, self.rules, mesh, self.m, step="serve")
+        _check_layout(cfg, self.rules, self.m, step="serve")
         self.mesh = mesh
         self.group = mesh.get_group(self.rules.model_axis)
         self.r = dist.get_rank(self.group)

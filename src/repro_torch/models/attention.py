@@ -42,17 +42,27 @@ ring row — which holds the frame it committed at its last phase-0 step — is
 never overwritten. On pools the same effect comes from the page map: the
 step hands mid-window slots a map of null pages (``engine.step``).
 
+Tensor parallelism (``layers.model_parallel``): q, k and v come out on the
+rank's heads. Where the model axis has more ranks than KV heads (MQA's one,
+say) the rules leave ``wk``/``wv`` replicated beside split query heads:
+every rank projects every KV head and its query heads read the one they
+share (``_local_kv``), as XLA's partitioner computes the reference's
+replicated K/V. MLA runs its replicated down-projections whole on every
+rank and its up-projections on the rank's heads.
+
 Tensor-parallel serving (``launch.steps.make_serve_step`` on a mesh whose
-model axis has M > 1 ranks): q, k and v come out on the rank's heads, and a
-dense ring holds every KV head over the rows ``decode_state_specs`` gives
-the rank — ring slots ``[r S/M, (r+1) S/M)`` of rank r where M divides the
-ring length S, else the whole ring. The step marks each such cache with
-``KV_SHARD`` = (rank, M, split); ``attn_decode`` then gathers q, k and v to
-all heads, writes the token on the rank that holds ring slot ``t % S``
-(every rank of a whole ring), reads all heads over the rank's rows and —
-on a split ring — exchanges the partial reads with their log-sum-exps so
-that each rank merges its own heads' M partials in rank order
-(``kernels.ref.merge_partials``).
+model axis has M > 1 ranks): a dense ring holds every KV head (MLA: the
+latent and rope lanes) over the rows ``decode_state_specs`` gives the rank
+— ring slots ``[r S/M, (r+1) S/M)`` of rank r where M divides the ring
+length S, else the whole ring. The step marks each such cache with
+``KV_SHARD`` = (rank, M, split); ``attn_decode`` then gathers q (and k and
+v where they are split) to all heads, writes the token on the rank that
+holds ring slot ``t % S`` (every rank of a whole ring), reads all heads
+over the rank's rows and — on a split ring — exchanges the partial reads
+with their log-sum-exps so that each rank merges its own heads' M partials
+in rank order (``kernels.ref.merge_partials``). The MLA read gathers
+``q_lat`` and ``q_rope`` the same way; its token's latent and rotated key
+are the same on every rank.
 """
 
 from __future__ import annotations
@@ -66,7 +76,7 @@ from repro_torch.configs.base import AttnCfg
 from repro_torch.distributed import collectives as coll
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_rope, dense_init, from_model, \
-    model_group, norm_apply, param, to_model
+    model_group, model_rank, norm_apply, param, to_model
 
 # key of a dense cache dict that a tensor-parallel serve step marks: (rank
 # on the model axis, its size M, whether the ring's rows split over it)
@@ -259,16 +269,39 @@ def _cache_write(cache: dict, t: torch.Tensor, *, commit=None, shard=None,
     return cache
 
 
+def kv_replicated(p: Attention) -> bool:
+    """Whether the rank holds every KV head beside a shard of the query
+    heads: under ``layers.model_parallel`` over more ranks than KV heads
+    the rules leave ``wk`` and ``wv`` whole."""
+    return model_rank()[1] > 1 and p.wk.shape[1] == p.cfg.n_kv
+
+
+def _local_kv(p: Attention, x: torch.Tensor) -> torch.Tensor:
+    """x (..., Hkv, dh) -> the KV heads the rank's query heads read: x
+    itself, or — every KV head on the rank (``kv_replicated``) — the heads
+    ``j // G`` (G = H / Hkv) of its query heads ``[r H/M, (r+1) H/M)``."""
+    if not kv_replicated(p):
+        return x
+    r, _ = model_rank()
+    h_loc = p.wq.shape[1]
+    g = p.cfg.n_heads // p.cfg.n_kv
+    first, last = r * h_loc // g, ((r + 1) * h_loc - 1) // g
+    return x[..., first:last + 1, :]
+
+
 def project_kv(p: Attention, src: torch.Tensor):
     """src (..., S, d) -> k and v (..., S, Hkv, dh), unrotated and
     unnormed (a cross layer's encoder K/V). The head count is the
-    weight's: a tensor-parallel shard's local heads."""
+    weight's: a tensor-parallel shard's local heads, or every KV head where
+    the rank holds them all — their weights then pass ``to_model``, so
+    that each head's gradient sums over the ranks that read it."""
     d = src.shape[-1]
     lead = src.shape[:-1]
-    k = torch.matmul(src, p.wk.reshape(d, -1)).reshape(*lead,
-                                                       *p.wk.shape[1:])
-    v = torch.matmul(src, p.wv.reshape(d, -1)).reshape(*lead,
-                                                       *p.wv.shape[1:])
+    wk, wv = p.wk, p.wv
+    if kv_replicated(p):
+        wk, wv = to_model(wk), to_model(wv)
+    k = torch.matmul(src, wk.reshape(d, -1)).reshape(*lead, *wk.shape[1:])
+    v = torch.matmul(src, wv.reshape(d, -1)).reshape(*lead, *wv.shape[1:])
     return k, v
 
 
@@ -277,8 +310,9 @@ def _project_qkv(p: Attention, x: torch.Tensor, positions: torch.Tensor,
     """x (..., S, d) -> rotated q (..., S, H, dh), k and v
     (..., S, Hkv, dh) — projected from ``kv_x`` when given (cross
     attention, never rotated). Under ``layers.model_parallel`` H and Hkv
-    are the shard's heads: the replicated inputs pass ``to_model``, and so
-    do the per-head norm scales, which act on the local heads only."""
+    are the shard's heads (Hkv every KV head where ``kv_replicated``):
+    the replicated inputs pass ``to_model``, and so do the per-head norm
+    scales, which act on the local heads only."""
     cfg = p.cfg
     d = x.shape[-1]
     lead = x.shape[:-1]
@@ -328,7 +362,8 @@ def attn_forward(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
                             fill_cache=fill_cache,
                             fill_true_length=fill_true_length)
     q, k, v = _project_qkv(p, x, positions, norm_eps, kv_x=kv_x)
-    out = kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+    out = kops.flash_attention(q.contiguous(), _local_kv(p, k).contiguous(),
+                               _local_kv(p, v).contiguous(),
                                causal=cfg.kind not in ("bidir", "cross"),
                                window=cfg.window, prefix_len=prefix_len,
                                scale=cfg.softmax_scale,
@@ -344,23 +379,31 @@ def _mla_project(p: Attention, x: torch.Tensor, positions: torch.Tensor,
                  eps: float):
     """x (..., S, d) -> q_nope (..., S, H, qk_nope), rotated q_rope
     (..., S, H, qk_rope), the normed latent (..., S, kv_lora) and the
-    rotated shared key lane k_rope (..., S, qk_rope)."""
+    rotated shared key lane k_rope (..., S, qk_rope). H is the weight's:
+    under ``layers.model_parallel`` the shard's heads. The down-projections
+    and their norms are replicated and run whole on every rank; what the
+    split up-projections and heads consume — ``ql`` (x without q_lora),
+    the latent and k_rope — passes ``to_model``, so every replicated
+    parameter's gradient sums over the model axis."""
     cfg = p.cfg
     d = x.shape[-1]
     lead = x.shape[:-1]
     if cfg.q_lora:
-        ql = norm_apply("rmsnorm", p.q_norm, torch.matmul(x, p.wdq), eps=eps)
+        ql = to_model(norm_apply("rmsnorm", p.q_norm,
+                                 torch.matmul(x, p.wdq), eps=eps))
         q = torch.matmul(ql, p.wuq.reshape(cfg.q_lora, -1))
+        heads = p.wuq.shape[1]
     else:
-        q = torch.matmul(x, p.wq.reshape(d, -1))
-    q = q.reshape(*lead, cfg.n_heads, cfg.qk_nope + cfg.qk_rope)
+        q = torch.matmul(to_model(x), p.wq.reshape(d, -1))
+        heads = p.wq.shape[1]
+    q = q.reshape(*lead, heads, cfg.qk_nope + cfg.qk_rope)
     q_nope, q_rope = q[..., :cfg.qk_nope], q[..., cfg.qk_nope:]
     q_rope = apply_rope(q_rope, positions, theta=cfg.rope_theta)
     dkv = torch.matmul(x, p.wdkv)
-    latent = norm_apply("rmsnorm", p.kv_norm, dkv[..., :cfg.kv_lora],
-                        eps=eps)
-    k_rope = apply_rope(dkv[..., cfg.kv_lora:], positions,
-                        theta=cfg.rope_theta)
+    latent = to_model(norm_apply("rmsnorm", p.kv_norm,
+                                 dkv[..., :cfg.kv_lora], eps=eps))
+    k_rope = to_model(apply_rope(dkv[..., cfg.kv_lora:], positions,
+                                 theta=cfg.rope_theta))
     return q_nope, q_rope, latent, k_rope
 
 
@@ -376,7 +419,7 @@ def _mla_forward(p: Attention, x: torch.Tensor, *, positions, norm_eps,
     latent and k_rope."""
     cfg = p.cfg
     b, s, _ = x.shape
-    h = cfg.n_heads
+    h = p.wuk.shape[1]
     q_nope, q_rope, latent, k_rope = _mla_project(p, x, positions, norm_eps)
     k_nope = torch.matmul(latent, p.wuk.reshape(cfg.kv_lora, -1)).reshape(
         b, s, h, cfg.qk_nope)
@@ -569,20 +612,26 @@ def attn_decode(p: Attention, x: torch.Tensor, cache: dict, t: torch.Tensor,
 def _sharded_decode(p: Attention, q, k, v, cache: dict, t: torch.Tensor, *,
                     commit=None):
     """The dense read of a tensor-parallel serve step (see the module
-    docstring): q (B, H/M, dh), k and v (B, Hkv/M, dh) of the rank's heads;
-    the cache holds every KV head. Returns the read of the rank's heads
-    (B, H/M, dh)."""
+    docstring): q (B, H/M, dh) of the rank's heads, k and v (B, Hkv/M,
+    dh) of its KV heads, or (B, Hkv, dh) where it holds every KV head
+    (``kv_replicated``); the cache holds every KV head. Returns the read
+    of the rank's heads (B, H/M, dh)."""
     cfg = p.cfg
     r, n, split = cache[KV_SHARD]
     group = model_group()
     b, h_loc, dh = q.shape
-    kv_loc = k.shape[1]
-    # one gather: every rank's [q | k | v] heads, in rank order
-    qkv = coll.all_gather_dim(torch.cat([q, k, v], dim=1), 1, group)
-    qkv = qkv.reshape(b, n, h_loc + 2 * kv_loc, dh)
-    q_all = qkv[:, :, :h_loc].reshape(b, n * h_loc, dh).contiguous()
-    k_all = qkv[:, :, h_loc:h_loc + kv_loc].reshape(b, n * kv_loc, dh)
-    v_all = qkv[:, :, h_loc + kv_loc:].reshape(b, n * kv_loc, dh)
+    if kv_replicated(p):
+        # k and v are whole on every rank: gather q only
+        q_all = coll.all_gather_dim(q, 1, group).contiguous()
+        k_all, v_all = k, v
+    else:
+        kv_loc = k.shape[1]
+        # one gather: every rank's [q | k | v] heads, in rank order
+        qkv = coll.all_gather_dim(torch.cat([q, k, v], dim=1), 1, group)
+        qkv = qkv.reshape(b, n, h_loc + 2 * kv_loc, dh)
+        q_all = qkv[:, :, :h_loc].reshape(b, n * h_loc, dh).contiguous()
+        k_all = qkv[:, :, h_loc:h_loc + kv_loc].reshape(b, n * kv_loc, dh)
+        v_all = qkv[:, :, h_loc + kv_loc:].reshape(b, n * kv_loc, dh)
     _cache_write(cache, t, commit=commit, shard=(r, n) if split else None,
                  k=k_all, v=v_all)
     t32 = t.to(torch.int32)
@@ -605,7 +654,8 @@ def _mla_decode(p: Attention, x: torch.Tensor, cache: dict, t: torch.Tensor,
     """Absorbed-matmul MLA decode: attention runs in the kv_lora-wide latent
     space; a token caches kv_lora + qk_rope numbers. The paged read is the
     ``paged_mla_decode_attention`` kernel; the dense read has no kernel in
-    the reference and stays the plain ``mla_decode_attention``."""
+    the reference and stays the plain ``mla_decode_attention`` (on a split
+    ring, ``_sharded_mla_decode``)."""
     cfg = p.cfg
     q_nope, q_rope, latent, k_rope = _mla_project(p, x[:, None], t[:, None],
                                                   norm_eps)
@@ -620,6 +670,10 @@ def _mla_decode(p: Attention, x: torch.Tensor, cache: dict, t: torch.Tensor,
         o_lat = kops.paged_mla_decode_attention(
             q_lat.contiguous(), q_rope, cache["latent"], cache["rope"],
             cache["pos"], pages, t32, scale=scale, out_dtype=x.dtype)
+    elif KV_SHARD in cache:
+        o_lat = _sharded_mla_decode(q_lat, q_rope, latent, k_rope, cache, t,
+                                    commit=commit, scale=scale,
+                                    out_dtype=x.dtype)
     else:
         cache = _cache_write(cache, t, commit=commit, latent=latent,
                              rope=k_rope)
@@ -628,3 +682,33 @@ def _mla_decode(p: Attention, x: torch.Tensor, cache: dict, t: torch.Tensor,
             scale=scale, out_dtype=x.dtype)
     out = torch.einsum("bhl,lhk->bhk", o_lat, p.wuv)
     return _out_proj(p, out), cache
+
+
+def _sharded_mla_decode(q_lat, q_rope, latent, k_rope, cache: dict,
+                        t: torch.Tensor, *, commit, scale, out_dtype):
+    """The dense MLA read of a tensor-parallel serve step: ``q_lat`` (B,
+    H/M, kv_lora) and ``q_rope`` (B, H/M, qk_rope) of the rank's heads; the
+    token's latent and k_rope, like the cache's lanes, are the same on
+    every rank. Returns the read of the rank's heads (B, H/M, kv_lora) in
+    ``out_dtype``."""
+    r, n, split = cache[KV_SHARD]
+    _cache_write(cache, t, commit=commit, shard=(r, n) if split else None,
+                 latent=latent, rope=k_rope)
+    t32 = t.to(torch.int32)
+    lanes = (cache["latent"], cache["rope"], cache["pos"], t32)
+    if not split:
+        # a whole ring on every rank: the read of the rank's own heads
+        return kops.mla_decode_attention(q_lat, q_rope, *lanes, scale=scale,
+                                         out_dtype=out_dtype)
+    group = model_group()
+    lat = q_lat.shape[-1]
+    # one gather: every rank's [q_lat | q_rope] heads, in rank order
+    qs = coll.all_gather_dim(torch.cat([q_lat, q_rope], dim=-1), 1, group)
+    out, lse = kops.mla_decode_attention(qs[..., :lat], qs[..., lat:],
+                                         *lanes, scale=scale,
+                                         out_dtype=torch.float32,
+                                         return_lse=True)
+    parts = coll.exchange_partials(torch.cat([out, lse[..., None]], dim=-1),
+                                   group)
+    return kops.merge_partials(parts[..., :lat], parts[..., lat]).to(
+        out_dtype)

@@ -38,10 +38,12 @@ serving, ``launch.steps``) the model runs on its local shards: the
 embedding looks up a vocab-split table, the logits are gathered over the
 model axis to the full vocabulary, and ``prefill`` hands its attention
 caches back in ``launch.specs.decode_state_specs``' layout — every KV head
-on each rank over the rank's 1/M of the ring's rows where M divides the
-ring's length, else the whole ring (``_kv_to_serving_layout``). SOI's
-compress and fuse, the conv window, the extrapolation queue and the clocks
-stay replicated over the model axis.
+(an MLA layer's latent and rope lanes) on each rank over the rank's 1/M of
+the ring's rows where M divides the ring's length, else the whole ring
+(``_kv_to_serving_layout``); an RG-LRU layer's ``h`` and ``conv`` hold the
+rank's w/M channels (``ff``). SOI's compress and fuse, the conv window,
+the extrapolation queue and the clocks stay replicated over the model
+axis.
 """
 
 from __future__ import annotations
@@ -79,7 +81,7 @@ def _layer_caches(blocks, batch: int, max_len: int, d: int, dt, device,
     for bp in blocks:
         b = bp.bcfg
         if b.rglru is not None:
-            out.append(rgm.rglru_init_state(b.rglru, d, batch, dt, device))
+            out.append(rgm.rglru_init_state(bp.rglru, batch, dt, device))
         elif b.rwkv is not None:
             out.append(rkm.init_decode_cache(b.rwkv, d, batch, dt, device))
         elif paged is not None:
@@ -275,18 +277,30 @@ def _logits_one(params, cfg: ModelCfg, x):
     return softcap_logits(cfg, logits)
 
 
-def _kv_to_serving_layout(state: dict, group) -> dict:
-    """A prefill's attention caches, filled on the rank's KV heads (B, S,
-    Hkv/M, dh), in the serving layout over the M ranks of ``group``, in
-    place of the state's entries: where M divides S, ring rows [r S/M,
-    (r+1) S/M) of every KV head (an all-to-all of K and V together, and
-    the rank's rows of ``pos``, the same on every rank); else the whole
-    ring of every KV head (an all-gather)."""
+def _kv_to_serving_layout(params, cfg: ModelCfg, state: dict,
+                          group) -> dict:
+    """A prefill's attention caches in the serving layout over the M ranks
+    of ``group``, in place of the state's entries: where M divides the
+    ring's S rows, ring rows [r S/M, (r+1) S/M) of every KV head; else the
+    whole ring of every KV head. Caches filled on the rank's KV heads (B,
+    S, Hkv/M, dh) take an all-to-all of K and V together (an all-gather
+    for a whole ring); an MLA latent and rope ring, and K/V of every KV
+    head (``attention.kv_replicated``), are the same on every rank and
+    keep the rank's rows. ``pos`` is the same on every rank."""
     n = dist.get_world_size(group)
     r = dist.get_rank(group)
-    for name in ("segments", "pre", "mid", "post"):
-        for c in state.get(name, ()):
+    parts = ({"segments": list(params.blocks)} if cfg.soi is None else
+             dict(zip(("pre", "mid", "post"), split_blocks(params, cfg))))
+    for name, blocks in parts.items():
+        for bp, c in zip(blocks, state[name]):
             if not is_attn_cache(c):
+                continue
+            s = c["pos"].shape[1]
+            if bp.bcfg.attn.is_mla or attn.kv_replicated(bp.attn):
+                if s % n == 0:
+                    rows = slice(r * (s // n), (r + 1) * (s // n))
+                    for key in c:
+                        c[key] = c[key][:, rows].contiguous()
                 continue
             b, s, kv_loc, dh = c["k"].shape
             kv = torch.cat([c["k"], c["v"]], dim=2)
@@ -464,7 +478,7 @@ def _prefill_out(params, cfg: ModelCfg, x_last, state: dict):
     logits = _logits_one(params, cfg, x_last)
     group = model_group()
     if group is not None and dist.get_world_size(group) > 1:
-        _kv_to_serving_layout(state, group)
+        _kv_to_serving_layout(params, cfg, state, group)
     return logits, state
 
 

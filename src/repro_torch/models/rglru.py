@@ -16,6 +16,13 @@ O(1) state per slot — ``h`` (B, w) in float32 and the conv window ``conv``
 (B, conv_width-1, w) of pre-conv inputs in the compute dtype — and updates
 it in place, only in the ``commit`` rows when a mask is given (the SOI
 middle commits only slots whose compression window is complete).
+
+Under ``layers.model_parallel`` the block runs on the rank's shard of the
+w channels (``ff``; the gates' blocks on ``heads``): x passes ``to_model``
+before ``wa`` and ``wb``, the conv, gates, decay and scan act on the w/M
+local channels (so do the decode state's ``h`` and ``conv``), and the
+output projection's partial sums add up over the model axis
+(``from_model``). The head count and the widths are the weights'.
 """
 
 from __future__ import annotations
@@ -26,7 +33,8 @@ from torch import nn
 
 from repro_torch.configs.base import RGLRUCfg
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import dense_init, param
+from repro_torch.models.layers import dense_init, from_model, param, \
+    to_model
 from repro_torch.models.mlp import gelu
 
 _C = 8.0
@@ -90,8 +98,9 @@ def rglru_forward(p: RGLRU, x: torch.Tensor):
     the last step, and ``conv``, the last conv_width-1 pre-conv inputs
     (zero-padded as the streaming window is for S < conv_width-1) — so
     decode resumes at position S."""
-    nh = p.cfg.n_heads or 1
+    nh = p.wr.shape[0]
     s = x.shape[1]
+    x = to_model(x)
     ga = gelu(torch.matmul(x, p.wa))
     xb = torch.matmul(x, p.wb)
     k = p.conv.shape[0]
@@ -99,19 +108,19 @@ def rglru_forward(p: RGLRU, x: torch.Tensor):
     xc = sum(xp[:, i:s + i] * p.conv[i] for i in range(k)) + p.conv_b
     a, bx = _a_and_b(p, xc, nh)
     h, h_last = kops.lru_scan(a.contiguous(), bx.contiguous())
-    y = torch.matmul(h.to(x.dtype) * ga, p.wo)
+    y = from_model(torch.matmul(h.to(x.dtype) * ga, p.wo))
     # a copy: the state must not keep the whole (B, S, w) scan alive
     return y, {"h": h_last.to(torch.float32, copy=True),
                "conv": xp[:, s:].contiguous()}
 
 
-def rglru_init_state(cfg: RGLRUCfg, d: int, batch: int, dtype,
-                     device) -> dict:
-    """Empty decode state: ``h`` float32 (whatever the compute dtype) and
-    the conv window in ``dtype``."""
-    w = cfg.width or d
+def rglru_init_state(p: RGLRU, batch: int, dtype, device) -> dict:
+    """Empty decode state of the block ``p``: ``h`` float32 (whatever the
+    compute dtype) and the conv window in ``dtype``, as wide as the
+    block's channels (a tensor-parallel shard's w/M)."""
+    k, w = p.conv.shape
     return {"h": torch.zeros((batch, w), dtype=torch.float32, device=device),
-            "conv": torch.zeros((batch, cfg.conv_width - 1, w), dtype=dtype,
+            "conv": torch.zeros((batch, k - 1, w), dtype=dtype,
                                 device=device)}
 
 
@@ -119,14 +128,15 @@ def rglru_decode(p: RGLRU, x: torch.Tensor, state: dict, *, commit=None):
     """One token per slot, x (B, d) -> y (B, d). Updates ``state`` in place;
     with ``commit`` ((B,) bool) only its True rows take the new ``h`` and
     conv window, the others keep theirs."""
-    nh = p.cfg.n_heads or 1
+    nh = p.wr.shape[0]
+    x = to_model(x)
     ga = gelu(torch.matmul(x, p.wa))
     xb = torch.matmul(x, p.wb)
     window = torch.cat([state["conv"], xb[:, None]], dim=1)
     xc = torch.einsum("bkw,kw->bw", window, p.conv) + p.conv_b
     a, bx = _a_and_b(p, xc, nh)
     h = a * state["h"] + bx
-    y = torch.matmul(h.to(x.dtype) * ga, p.wo)
+    y = from_model(torch.matmul(h.to(x.dtype) * ga, p.wo))
     conv = window[:, 1:]
     if commit is not None:
         h = torch.where(commit[:, None], h, state["h"])

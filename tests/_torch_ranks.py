@@ -1,6 +1,7 @@
 """Spawned gloo worlds for the port's distributed tests (imported by
 ``tests/test_torch_{collectives,pipeline,sharded_train,sharded_serve,
-sharded_moe,train_families}.py``; not a test module itself, and it imports
+sharded_moe,sharded_mla_rglru,train_families}.py``; not a test module
+itself, and it imports
 no JAX, so a spawned rank starts quickly).
 
 ``spawn(world, job, tmp_path, **kw)`` starts ``world`` CPU processes with
@@ -151,9 +152,10 @@ def _mesh(meshes: dict, shape):
 
 def _train(rank, world, tmp):
     """Every case of ``train_in.pkl`` (``_train_cases``); rank 0 saves
-    them with the refusals."""
+    them with the refusals and the MLA and RG-LRU steps' runs."""
     inp = load(tmp, "train_in.pkl")
-    out = {"refused": _refusals(inp["refuse_cfg"])}
+    out = {"refused": _refusals(inp["refuse_cfg"], inp["kv3_cfg"]),
+           "runs": _stack_train_runs(inp["run_cfgs"], inp["run_batch"])}
     out.update(_train_cases(inp["cases"], {}))
     if rank == 0:
         _save(tmp, "train_out.pkl", out)
@@ -207,12 +209,13 @@ def _gather_leaf(x, spec, mesh, shape):
 
 def _serve(rank, world, tmp):
     """Every case of ``serve_in.pkl`` (``_serve_cases``); rank 0 saves
-    them with the refusals."""
+    them with the refusals and the MLA and RG-LRU steps' runs."""
     inp = load(tmp, "serve_in.pkl")
     out = {}
     if "refuse_cfgs" in inp:
         out["refused"] = _serve_refusals(inp["refuse_cfgs"],
                                          inp["max_len_cfg"])
+        out["runs"] = _stack_serve_runs(inp["run_cfgs"], inp["run_tokens"])
     out.update(_serve_cases(inp["cases"], {}, rank, world))
     if rank == 0:
         _save(tmp, "serve_out.pkl", out)
@@ -315,13 +318,74 @@ def _serve_refusals(cfgs, max_len_cfg) -> dict:
     return out
 
 
-def _refusals(cfg) -> dict:
+def _stack_serve_runs(cfgs: dict, tokens) -> dict:
+    """Each config (an MLA and an RG-LRU stack) from seed-0 weights on a
+    (1, world) mesh: ``make_prefill`` + two greedy ``make_serve_step``
+    steps, sharded and plain in this rank; (tokens equal, max |logit
+    difference|)."""
+    from repro_torch.distributed.sharding import ShardingRules, shard_params
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_prefill, make_serve_step
+    from repro_torch.models import transformer as T
+    mesh = make_mesh((1, dist.get_world_size()), ("data", "model"),
+                     device_type="cpu")
+    rules = ShardingRules(data_axes=("data",))
+    batch = {"tokens": torch.from_numpy(tokens)}
+    out = {}
+    for name, cfg in cfgs.items():
+        runs = []
+        for kw in ({}, dict(rules=rules, mesh=mesh)):
+            model = T.init(cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu")
+            if kw:
+                model = shard_params(model, rules, mesh)
+            logits, state = make_prefill(cfg, max_len=32, **kw)(model, batch)
+            step = make_serve_step(cfg, max_len=32, **kw)
+            seen, toks = [logits], []
+            for _ in range(2):
+                toks.append(seen[-1].argmax(-1).to(torch.int32))
+                logits, state = step(model, state, toks[-1])
+                seen.append(logits)
+            runs.append((seen, toks))
+        (pl, pt), (sl, st) = runs
+        out[name] = (all(torch.equal(a, b) for a, b in zip(pt, st)),
+                     max(float((a - b).abs().max()) for a, b in zip(pl, sl)))
+    return out
+
+
+def _stack_train_runs(cfgs: dict, batch) -> dict:
+    """Each config (an MLA and an RG-LRU stack) from seed-0 weights on a
+    2 x 2 mesh: one sharded train step against the plain step in this
+    rank; {metric: (sharded, plain)}."""
+    from repro_torch.distributed.sharding import ShardingRules, shard_params
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import local_batch, make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+    rules = ShardingRules(data_axes=("data",))
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    out = {}
+    for name, cfg in cfgs.items():
+        got = []
+        for kw in ({}, dict(rules=rules, mesh=mesh)):
+            model = T.init(cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu")
+            if kw:
+                model = shard_params(model, rules, mesh)
+            opt = adamw_init(dict(model.named_parameters()))
+            _, _, m = make_train_step(cfg, **kw)(
+                model, opt, local_batch(batch, mesh) if kw else batch)
+            got.append({k: float(v) for k, v in m.items()})
+        out[name] = {k: (got[1][k], got[0][k]) for k in got[0]}
+    return out
+
+
+def _refusals(cfg, kv3) -> dict:
     """What each layout the sharded steps do not run raises, on a 2 x 2
-    mesh and a 1 x 4 one (whose model axis does not divide 2 kv heads):
-    training's, and serving's — the MLA and RG-LRU stacks on the 2 x 2
-    mesh, qwen3's 2 kv heads on 1 x 4."""
-    from repro_torch import configs as pconfigs
-    from repro_torch.configs import deepseek_v2_236b as DS
+    mesh and a 1 x 4 one: training's, and serving's — ``kv3``'s 3 kv
+    heads on 1 x 4, whose model axis neither divides them nor is divided
+    by them."""
     from repro_torch.distributed.sharding import ShardingRules
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import (make_prefill, make_serve_step,
@@ -329,20 +393,16 @@ def _refusals(cfg) -> dict:
     mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
     wide = make_mesh((1, 4), ("data", "model"), device_type="cpu")
     rules = ShardingRules(data_axes=("data",))
-    mla = DS.mla_dense_config(n_layers=2)
-    rglru = pconfigs.get_smoke("recurrentgemma-9b")
     tries = {
         "fsdp": lambda: make_train_step(
             cfg, ShardingRules(data_axes=("data",), fsdp=True), mesh),
         "seq_shard": lambda: make_train_step(
             cfg, ShardingRules(data_axes=("data",), seq_shard=True), mesh),
         "compress": lambda: make_train_step(cfg, rules, mesh, compress=True),
-        "kv_heads": lambda: make_train_step(cfg, rules, wide),
-        "serve kv_heads": lambda: make_serve_step(cfg, rules, wide,
+        "kv_heads": lambda: make_train_step(kv3, rules, wide),
+        "serve kv_heads": lambda: make_serve_step(kv3, rules, wide,
                                                   max_len=32),
-        "prefill kv_heads": lambda: make_prefill(cfg, rules, wide),
-        "serve MLA": lambda: make_serve_step(mla, rules, mesh, max_len=32),
-        "prefill RG-LRU": lambda: make_prefill(rglru, rules, mesh),
+        "prefill kv_heads": lambda: make_prefill(kv3, rules, wide),
     }
     out = {}
     for name, fn in tries.items():
@@ -354,24 +414,66 @@ def _refusals(cfg) -> dict:
     return out
 
 
+def _mesh_cases(inp: dict, rank, world) -> dict:
+    """The serving and training cases of ``inp`` (``_serve_cases``,
+    ``_train_cases``) and every rank's parameter-shard bytes of each
+    (config, mesh) of ``inp["bytes"]`` against ``per_device_bytes`` of
+    the specs (the dry run's ``params`` count)."""
+    meshes = {}
+    return {"serve": _serve_cases(inp["serve"], meshes, rank, world),
+            "train": _train_cases(inp["train"], meshes),
+            "bytes": {name: _param_bytes(cfg, _mesh(meshes, shape))
+                      for name, (cfg, shape) in inp["bytes"].items()}}
+
+
 def _moe(rank, world, tmp):
-    """The world of ``tests/test_torch_sharded_moe.py``: the serving and
-    training cases of ``moe_in.pkl`` (``_serve_cases``, ``_train_cases``),
-    every rank's parameter-shard bytes of each (config, mesh) of
-    ``bytes`` against ``per_device_bytes`` of the specs (the dry run's
-    ``params`` count), and with ``refuse`` the steps on a 3 x 1 mesh of
+    """The world of ``tests/test_torch_sharded_moe.py``: ``_mesh_cases``
+    of ``moe_in.pkl``, and with ``refuse`` the steps on a 3 x 1 mesh of
     ranks 0-2 over a batch whose dispatch groups do not split over 3 data
     ranks; rank 0 saves them."""
     inp = load(tmp, "moe_in.pkl")
-    meshes = {}
-    out = {"serve": _serve_cases(inp["serve"], meshes, rank, world),
-           "train": _train_cases(inp["train"], meshes),
-           "bytes": {name: _param_bytes(cfg, _mesh(meshes, shape))
-                     for name, (cfg, shape) in inp["bytes"].items()}}
+    out = _mesh_cases(inp, rank, world)
     if "refuse" in inp:
         out["refused"] = _dispatch_refusal(rank, *inp["refuse"])
     if rank == 0:
         _save(tmp, "moe_out.pkl", out)
+
+
+def _mla_rglru(rank, world, tmp):
+    """The world of ``tests/test_torch_sharded_mla_rglru.py``:
+    ``_mesh_cases`` of ``mla_rglru_in.pkl``, and with ``refuse`` what the
+    three steps raise for each of its configs on a (1, world) mesh; rank 0
+    saves them."""
+    inp = load(tmp, "mla_rglru_in.pkl")
+    out = _mesh_cases(inp, rank, world)
+    if "refuse" in inp:
+        out["refused"] = _stack_refusals(inp["refuse"])
+    if rank == 0:
+        _save(tmp, "mla_rglru_out.pkl", out)
+
+
+def _stack_refusals(cfgs: dict) -> dict:
+    """{(config, step): what make_train_step, make_prefill and
+    make_serve_step raise on a (1, world) mesh, or None}."""
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import (make_prefill, make_serve_step,
+                                          make_train_step)
+    mesh = make_mesh((1, dist.get_world_size()), ("data", "model"),
+                     device_type="cpu")
+    rules = ShardingRules(data_axes=("data",))
+    out = {}
+    for name, cfg in cfgs.items():
+        for what, fn in (("train", lambda: make_train_step(cfg, rules, mesh)),
+                         ("prefill", lambda: make_prefill(cfg, rules, mesh)),
+                         ("serve", lambda: make_serve_step(cfg, rules, mesh,
+                                                           max_len=32))):
+            try:
+                fn()
+                out[(name, what)] = None
+            except NotImplementedError as e:
+                out[(name, what)] = str(e)
+    return out
 
 
 def _param_bytes(cfg, mesh) -> list:
@@ -429,7 +531,7 @@ def _dispatch_refusal(rank, cfg, tokens) -> dict:
 
 
 JOBS = {"collectives": _collectives, "pipeline": _pipeline, "train": _train,
-        "serve": _serve, "moe": _moe}
+        "serve": _serve, "moe": _moe, "mla_rglru": _mla_rglru}
 
 
 def replay_psum(xs: np.ndarray) -> np.ndarray:

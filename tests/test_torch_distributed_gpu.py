@@ -17,7 +17,16 @@ multi-rank semantics are held on gloo ranks on the CPU
   * olmoe smoke, SOI pp: the sharded train step (bf16 over float32
     masters, its aux loss) and the sharded prefill + serve steps on the
     (1, 1) mesh bit for bit the plain steps, through the flash and decode
-    kernels.
+    kernels;
+  * the MLA and RG-LRU stacks (``chip_smoke.py`` phase 26 (a) and (c) at
+    2 and 3 layers, float32, full width: the smoke configs' MLA head dims
+    are no kernel instantiation): deepseek-v2 (its dense layer and one MoE
+    layer, SOI pp) through the sharded prefill + serve steps, and
+    deepseek-v2's MLA stack (2 layers) and recurrentgemma-9b (one
+    RG-LRU, RG-LRU, local attention pattern) through the sharded train
+    step, on the (1, 1) mesh bit for bit the plain steps, through
+    ``flash_attention`` at (192, 128) and its backward, and ``lru_scan``
+    and its backward. One full model is on the card at a time.
 
 Without a CUDA device every test here skips (inside the ``world``
 fixture). On the card:
@@ -30,6 +39,11 @@ import pytest
 import torch
 import torch.distributed as dist
 
+import dataclasses
+import gc
+
+from repro_torch import configs as pconfigs
+from repro_torch.configs import deepseek_v2_236b as PDS
 from repro_torch.configs import olmoe_1b_7b as PO
 from repro_torch.configs import qwen3_1_7b as PQ
 from repro_torch.data.pipeline import ShardedLMPipeline
@@ -239,3 +253,114 @@ def test_sharded_moe_steps_are_the_plain_steps_bit_for_bit(world):
     assert set(ps) == set(ss) and all(torch.equal(ps[k], ss[k]) for k in ps)
     assert sc == pc and sc["decode_attention"] > 0 and \
         sc["flash_attention"] == cfg.n_layers
+
+
+def _free():
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+def test_sharded_mla_serve_steps_are_the_plain_steps_bit_for_bit(world):
+    """deepseek-v2 at full width, 2 layers (dense + one MoE), f32, SOI pp:
+    the sharded prefill + 8 serve steps on the (1, 1) mesh give the plain
+    steps' logits and state bit for bit, flash_attention at (192, 128) one
+    launch a layer."""
+    dev, mesh = world
+    cfg = dataclasses.replace(PDS.config(soi="pp", n_layers=2),
+                              dtype="float32")
+    rules = ShardingRules(data_axes=("data",))
+    prompt = torch.randint(0, cfg.vocab, (2, 64), generator=torch.Generator()
+                           .manual_seed(1), dtype=torch.int32).to(dev)
+    runs = []
+    for kw in ({}, dict(rules=rules, mesh=mesh)):
+        model = T.init(cfg, generator=torch.Generator(device=dev)
+                       .manual_seed(0), device=dev)
+        if kw:
+            model = shard_params(model, rules, mesh)
+        ops.reset_launch_counts()
+        logits, state = make_prefill(cfg, max_len=96, **kw)(
+            model, {"tokens": prompt})
+        step = make_serve_step(cfg, max_len=96, **kw)
+        out = [logits]
+        for _ in range(8):
+            logits, state = step(model, state,
+                                 out[-1].argmax(-1).to(torch.int32))
+            out.append(logits)
+        runs.append((out, S.flatten(state), ops.launch_counts()))
+        del model, state
+        _free()
+    (pl, ps, pc), (sl, ss, sc) = runs
+    assert all(torch.equal(a, b) for a, b in zip(pl, sl))
+    assert set(ps) == set(ss) and all(torch.equal(ps[k], ss[k]) for k in ps)
+    assert sc == pc and sc["flash_attention"] == cfg.n_layers
+    assert any(k.endswith(".latent") for k in ss)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-v2 MLA stack",
+                                  "recurrentgemma-9b"])
+def test_sharded_mla_rglru_train_steps_are_the_plain_bit_for_bit(world,
+                                                                  arch):
+    """Full width, f32, B 2 S 64, 2 steps: the sharded train step on the
+    (1, 1) mesh gives the plain step's metrics, params and moments bit
+    for bit, through the flash (192, 128) or lru_scan kernels and their
+    backwards."""
+    dev, mesh = world
+    if arch == "recurrentgemma-9b":     # two RG-LRU layers
+        cfg = pconfigs.get("recurrentgemma-9b", n_layers=3)
+        kernels = ("lru_scan", "lru_scan_bwd")
+    else:                               # two MLA layers
+        cfg = PDS.mla_dense_config(n_layers=2)
+        kernels = ("flash_attention", "flash_attention_bwd")
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    pipe = ShardedLMPipeline(global_batch=2, seq_len=64, vocab=cfg.vocab,
+                             seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in pipe.batch(i).items()} for i in range(2)]
+    kw = dict(peak_lr=1e-3, warmup=2, total_steps=10)
+    rules = ShardingRules(data_axes=("data",))
+    runs = []
+    for sharded in (False, True):
+        model = T.init(cfg, generator=torch.Generator(device=dev)
+                       .manual_seed(0), device=dev)
+        if sharded:
+            model = shard_params(model, rules, mesh)
+            step = make_train_step(cfg, rules, mesh, **kw)
+        else:
+            step = make_train_step(cfg, **kw)
+        opt = adamw_init(dict(model.named_parameters()))
+        metrics = []
+        for bt in batches:
+            ops.reset_launch_counts()
+            _, _, m = step(model, opt, local_batch(bt, mesh) if sharded
+                           else bt)
+            counts = ops.launch_counts()
+            assert all(counts[k] == 2 for k in kernels), counts
+            metrics.append(m)
+        # digests: one model's state on the card at a time
+        trees = {"params": gather_params(model) if sharded else dict(
+            model.named_parameters())}
+        trees.update({t: gather_tree(opt[t]) if sharded else opt[t]
+                      for t in ("mu", "nu")})
+        runs.append(([{k: float(v) for k, v in m.items()} for m in metrics],
+                     {t: _digests(tree) for t, tree in trees.items()}))
+        del model, opt, step, trees, metrics
+        _free()
+    (pm, pd), (sm, sd) = runs
+    assert pm == sm
+    assert pd == sd
+
+
+def _digests(tree: dict) -> dict:
+    """Per-leaf digest of float32 leaves, exact: the int64 sums of the
+    leaf's bits and of its bits times a position pattern (wrapping), as
+    ``chip_smoke.py`` takes them."""
+    out = {}
+    for k, t in tree.items():
+        x = t.detach().reshape(-1).view(torch.int32).long()
+        w = torch.arange(x.numel(), device=x.device) % 65521 + 1
+        out[k] = (int(x.sum()), int((x * w).sum()))
+        del x, w
+    return out

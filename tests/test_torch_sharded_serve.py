@@ -23,9 +23,15 @@ from the JAX ``init`` weights, against the JAX reference's *unsharded*
     its bytes equal ``per_device_bytes`` (the dry run's ``decode_state``
     count); the gathered state equals the port's unsharded steps' within
     ``ATOL``, positions and clocks exactly;
-  * the refusals on 1 x 2: MLA, RG-LRU, RWKV, the encoder-decoder and the
-    prefix-LM, and a serve step without ``max_len`` (the MoE stacks serve
-    on a mesh: ``tests/test_torch_sharded_moe.py``);
+  * the refusals on 1 x 2: RWKV, the encoder-decoder and the prefix-LM,
+    and a serve step without ``max_len`` (the MoE stacks serve on a mesh:
+    ``tests/test_torch_sharded_moe.py``);
+  * the MLA (deepseek-v2 smoke pp, MLA + MoE) and RG-LRU (recurrentgemma
+    smoke, MQA) stacks, which the steps refused before they ran them,
+    from seed-0 weights on 1 x 2: the prefill and two greedy steps
+    against the plain port steps in each rank, tokens equal and logits
+    within ``ATOL`` (their parity with the JAX reference:
+    ``tests/test_torch_sharded_mla_rglru.py``);
   * a one-process 1 x 1 gloo world, bit for bit the plain steps.
 
 Two spawns (2 and 4 ranks) run every case (``_torch_ranks``).
@@ -122,17 +128,22 @@ def _reference(config, wide, max_len):
 
 
 def _refuse_cfgs():
-    from repro_torch.configs import deepseek_v2_236b as DS
-    cfgs = {a: pconfigs.get_smoke(a) for a in (
-        "recurrentgemma-9b", "rwkv6-1.6b", "whisper-tiny", "paligemma-3b")}
-    cfgs["mla-dense"] = DS.mla_dense_config(n_layers=2)
-    return cfgs
+    return {a: pconfigs.get_smoke(a) for a in (
+        "rwkv6-1.6b", "whisper-tiny", "paligemma-3b")}
 
 
 # olmoe-1b-7b's MoE stack serves on a mesh: tests/test_torch_sharded_moe.py
-REFUSED = {"mla-dense": "MLA",
-           "recurrentgemma-9b": "RG-LRU", "rwkv6-1.6b": "RWKV",
-           "whisper-tiny": "encoder-decoder", "paligemma-3b": "prefix-LM"}
+REFUSED = {"rwkv6-1.6b": "RWKV", "whisper-tiny": "encoder-decoder",
+           "paligemma-3b": "prefix-LM"}
+# the stacks the steps refused before this layout ran them
+RUNS = {"MLA": ("deepseek-v2-236b", "pp"), "RG-LRU": ("recurrentgemma-9b",
+                                                       None)}
+
+
+def _run_cfgs():
+    return {name: dataclasses.replace(pconfigs.get_smoke(arch, soi=mode),
+                                      dtype="float32")
+            for name, (arch, mode) in RUNS.items()}
 
 
 @pytest.fixture(scope="module")
@@ -152,6 +163,9 @@ def run(tmp_path_factory):
         if world == 2:
             inp["refuse_cfgs"] = _refuse_cfgs()
             inp["max_len_cfg"] = _cfgs("qwen3 pp", False)[1]
+            inp["run_cfgs"] = _run_cfgs()
+            inp["run_tokens"] = np.random.default_rng(2).integers(
+                0, 256, (B, PROMPT)).astype(np.int32)
         R._save(tmp, "serve_in.pkl", inp)
         R.spawn(world, "serve", tmp)
         out.update(R.load(tmp, "serve_out.pkl"))
@@ -232,6 +246,15 @@ def test_refusals(run):
             assert f"{what} stacks" in msg, (arch, s)
             assert "Queue 1 item 8" in msg
     assert "needs max_len" in refused["qwen3 no max_len"]
+
+
+@pytest.mark.parametrize("stack", list(RUNS))
+def test_mla_and_rglru_stacks_serve_on_the_mesh(run, stack):
+    """Once refused, now served: the prefill and two steps on 1 x 2 give
+    the plain steps' tokens, logits within ``ATOL``."""
+    same_tokens, err = run["runs"][stack]
+    assert same_tokens, stack
+    assert err < ATOL, (stack, err)
 
 
 @pytest.fixture

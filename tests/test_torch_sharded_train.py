@@ -16,9 +16,13 @@ layers, d 64, 4/2 heads, vocab 256) in float32:
   * a one-process 1 x 1 gloo world, bit for bit the plain port step (loss,
     grad norm, params and moments), microbatches 1 and 2, SOI none and pp;
   * the refusals: fsdp, seq_shard, compression on a split model axis, kv
-    heads the model axis does not divide (training and serving), the
-    serving steps' MLA and RG-LRU stacks on a split model axis, and a CUDA
-    mesh without a card.
+    heads that neither divide the model axis nor are divided by it (3 on
+    4 ranks; training and serving), and a CUDA mesh without a card;
+  * the MLA (deepseek-v2 smoke pp, MLA + MoE) and RG-LRU (recurrentgemma
+    smoke, MQA's KV head replicated) stacks, which the step refused before
+    it ran them, from seed-0 weights on the 2 x 2 mesh: one sharded step
+    against the plain port step in each rank (their parity with the JAX
+    reference: ``tests/test_torch_sharded_mla_rglru.py``).
 """
 
 import dataclasses
@@ -68,6 +72,28 @@ def _cfgs(mode, mods=(Q, PQ)):
                                      dtype="float32") for m in mods)
 
 
+def _kv3_cfg():
+    """qwen3 smoke (plain) at 12 query / 3 KV heads: 4 ranks neither
+    divide 3 KV heads nor are divided by them."""
+    cfg = _cfgs(None)[1]
+    segs = tuple(dataclasses.replace(seg, blocks=tuple(
+        dataclasses.replace(b, attn=dataclasses.replace(
+            b.attn, n_heads=12, n_kv=3)) for b in seg.blocks))
+        for seg in cfg.segments)
+    return dataclasses.replace(cfg, segments=segs)
+
+
+def _stack_cfgs():
+    """The MLA and RG-LRU stacks the step runs since it stopped refusing
+    them: deepseek-v2 smoke pp (MLA + MoE) and recurrentgemma smoke."""
+    from repro_torch.configs import deepseek_v2_236b as PDS
+    from repro_torch.configs import recurrentgemma_9b as PRG
+    return {"MLA": dataclasses.replace(PDS.smoke_config(soi="pp"),
+                                       dtype="float32"),
+            "RG-LRU": dataclasses.replace(PRG.smoke_config(),
+                                          dtype="float32")}
+
+
 def _batch(vocab):
     """Next-token targets; rows 0, 1 and 4 — data rank 0's on both meshes
     — lose most of their targets, the others none."""
@@ -90,8 +116,13 @@ def run(tmp_path_factory):
             cfg=pc, mesh=mesh, params=draw(jc), steps=STEPS,
             batch=_batch(jc.vocab),
             step_kw=dict(microbatches=2, compress=compress, **STEP_KW))
-    R._save(tmp, "train_in.pkl", {"cases": cases,
-                                  "refuse_cfg": _cfgs(None)[1]})
+    rng = np.random.default_rng(2)
+    tokens = rng.integers(0, 256, (4, 16)).astype(np.int32)
+    R._save(tmp, "train_in.pkl", {
+        "cases": cases, "refuse_cfg": _cfgs(None)[1], "kv3_cfg": _kv3_cfg(),
+        "run_cfgs": _stack_cfgs(),
+        "run_batch": {"tokens": tokens,
+                      "targets": np.roll(tokens, -1, axis=1)}})
     R.spawn(WORLD, "train", tmp)
     return cases, R.load(tmp, "train_out.pkl")
 
@@ -134,15 +165,24 @@ def test_refusals(run):
     _, out = run
     refused = out["refused"]
     assert set(refused) == {"fsdp", "seq_shard", "compress", "kv_heads",
-                            "serve kv_heads", "prefill kv_heads",
-                            "serve MLA", "prefill RG-LRU"}
+                            "serve kv_heads", "prefill kv_heads"}
     for name, msg in refused.items():
         assert msg is not None and "ROADMAP.md" in msg, name
     for name in ("kv_heads", "serve kv_heads", "prefill kv_heads"):
         assert "model axis of 4" in refused[name], name
-    assert "serve step does not run MLA stacks" in refused["serve MLA"]
-    assert "serve step does not run RG-LRU stacks" in \
-        refused["prefill RG-LRU"]
+        assert "'kv_heads' dim 3" in refused[name], name
+
+
+@pytest.mark.parametrize("stack", ["MLA", "RG-LRU"])
+def test_mla_and_rglru_stacks_train_on_the_mesh(run, stack):
+    """Once refused, now run: one step on the 2 x 2 mesh, its metrics
+    within ``TOL`` of the plain step's."""
+    _, out = run
+    got = out["runs"][stack]
+    assert set(got) == {"loss", "xent", "aux", "grad_norm", "lr"}
+    for k, (sharded, plain) in got.items():
+        assert _rel(sharded, plain) < TOL, (k, sharded, plain)
+    assert (got["aux"][1] > 0) == (stack == "MLA")
 
 
 @pytest.fixture

@@ -16,9 +16,11 @@ the JAX reference on the CPU, at smoke width in float32:
     gradient, the port's and the reference's, about equally far (within
     10x of each other) from a float64 run of the port — the check that
     ``GAIN`` rests on;
-  * the mesh step's refusal of MLA and RG-LRU stacks, on a rankless
-    ``AbstractMesh``, and olmoe's MoE stack built and run on a 2 x 2 and a
-    1 x 1 gloo mesh.
+  * the MLA and RG-LRU stacks, which the mesh steps refused until they
+    ran them, pass the steps' checks on a rankless ``AbstractMesh``
+    (``tests/test_torch_sharded_mla_rglru.py`` runs them on gloo ranks),
+    and olmoe's MoE stack built and run on a 2 x 2 and a 1 x 1 gloo
+    mesh.
 """
 
 import dataclasses
@@ -41,8 +43,7 @@ from repro_torch.convert import from_jax_params
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as pref
 from repro_torch.launch.mesh import AbstractMesh
-from repro_torch.launch.steps import (make_prefill, make_serve_step,
-                                      make_train_step)
+from repro_torch.launch.steps import make_train_step
 from repro_torch.models import layers as PL
 from repro_torch.models import transformer as PT
 from repro_torch.optim import adamw_init
@@ -343,23 +344,23 @@ def test_three_deepseek_steps_match_jax(micro):
     ("mla-dense", {"data": 2, "model": 2}, "MLA"),
     ("recurrentgemma-9b", {"data": 2, "model": 2}, "RG-LRU")])
 def test_mesh_step_refuses_unsharded_stacks(arch, shape, what):
-    """MLA (deepseek-v2's MoE layers too: its MLA is refused first) and
-    RG-LRU on more than one rank: refused before any process group is
-    needed, by the train step and by both serving steps."""
+    """MLA (deepseek-v2 with its MoE layers, and the full-width MLA stack)
+    and RG-LRU (with MQA's one KV head, replicated beside the split query
+    heads) on more than one rank: no longer refused — the train step's and
+    both serving steps' checks, which need no process group, pass them."""
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch import steps as PS
     if arch == "mla-dense":
         from repro_torch.configs import deepseek_v2_236b as D
         cfg = D.mla_dense_config(n_layers=2)
     else:
         cfg = pconfigs.get_smoke(arch)
     make_train_step(cfg)                          # trains without a mesh
-    with pytest.raises(NotImplementedError,
-                       match=f"{what} stacks.*Queue 1 item 8"):
-        make_train_step(cfg, None, AbstractMesh(shape))
-    for make in (make_prefill, make_serve_step):
-        with pytest.raises(NotImplementedError,
-                           match=f"serve step does not run {what} "
-                                 f"stacks.*Queue 1 item 8"):
-            make(cfg, None, AbstractMesh(shape))
+    mesh = AbstractMesh(shape)
+    for step in ("train", "serve"):
+        PS._check_mesh_stack(cfg, mesh, step)
+        PS._check_layout(cfg, ShardingRules(data_axes=("data",)),
+                         shape["model"], step)
 
 
 @pytest.mark.parametrize("shape", [(2, 2), (1, 1)], ids=["2x2", "1x1"])
