@@ -495,7 +495,26 @@ Phases, each printing its own lines:
              same 3) against the plain step in the same process: loss
              within 1e-6, grad norm and gradients within 1e-5; bytes,
              launches, ms a step and collectives.
-27. the kernels JSON line (the decode reads and copy_pages also give their
+27. fsdp-sp-mesh — fsdp (every "embed" dimension over the data axes, the
+             leaf gathered for the step) and seq_shard (Megatron sequence
+             parallelism) through the sharded steps; every number beside
+             the card's name and power limit. (a) phase 26's (a), (b) and
+             (c) with ShardingRules(fsdp=True, seq_shard=True) on the (1,
+             1) NCCL mesh, 8 serve steps: bit for bit the plain steps. (b)
+             two gloo processes sharing the card, a (2, 1) mesh with fsdp:
+             qwen3-1.7b at full width cut to 8 of 28 layers (gloo stages
+             the whole f32 model through the host twice a step), SOI pp,
+             float32, one train step on each rank's half of B 8 S 128:
+             loss within 1e-5 and grad norm within 1e-4 of one process's
+             step on the whole batch; parameter bytes the specs', half a
+             whole copy; each rank's peak beside the one process's, bytes
+             a parameter, and the collectives' calls and host ms of a
+             second step. (c) the two processes on a (1, 2) mesh with
+             seq_shard: recurrentgemma-9b at 3 layers, float32, prefill B 4
+             x 1024 + 2 steps — tokens equal to one rank's, logits within
+             1e-3 — and one train step: loss within 1e-6 and grad norm
+             within 2e-5 of one rank's; reduce-scatters counted (> 0).
+28. the kernels JSON line (the decode reads and copy_pages also give their
              phase-15 launches under "spec"; the kernels phase 16 launches
              their launches there under "obs"; flash_attention and
              flash_attention_bwd phase 17's under "train" and phase 21's
@@ -513,8 +532,9 @@ Phases, each printing its own lines:
              decode_attention, flash_attention and flash_attention_bwd
              phase 25's sharded olmoe runs' launches under "moe_mesh";
              decode_attention, flash_attention, flash_attention_bwd,
-             lru_scan and lru_scan_bwd phase 26's under "mla_rglru_mesh"),
-             the card line, and last {"ok": true, ...}.
+             lru_scan and lru_scan_bwd phase 26's under "mla_rglru_mesh"
+             and phase 27's under "fsdp_sp_mesh"), the card line, and
+             last {"ok": true, ...}.
 
 Phases 4-13, 15, 16, 18 and 19 run the engine and the U-Net session as a user does, so
 on the card every generate step, window and frame after a branch's first is
@@ -7018,15 +7038,17 @@ def _mesh_launches(cfg, n_steps) -> dict:
             "lru_scan": sum(b.rglru is not None for b in blocks)}
 
 
-def _mesh_one_by_one(dev, card, argv=SERVE_ARGV, tag="(b)") -> dict:
+def _mesh_one_by_one(dev, card, argv=SERVE_ARGV, tag="(b)", flags=None,
+                     n_steps=MESH_STEPS) -> dict:
     """Phase 24 (b) (phase 25 (a): ``argv`` phase 18's olmoe-1b-7b; phase
-    26 (a) and (b): deepseek-v2 and recurrentgemma-9b): the serving
-    driver's weights and prompts of ``argv`` through the plain steps, then
-    the same model sharded on a (1, 1) NCCL mesh through make_prefill +
-    make_serve_step: logits every step and the final state bit for bit,
-    launches ``_mesh_launches``'; ms a step, and the collectives of one
-    more step after the compared ones, of each. Returns the sharded run's
-    launch counts."""
+    26 (a) and (b): deepseek-v2 and recurrentgemma-9b; phase 27 (a): the
+    same with ``flags`` fsdp and seq_shard): the serving driver's weights
+    and prompts of ``argv`` through the plain steps, then the same model
+    sharded on a (1, 1) NCCL mesh (``ShardingRules(**flags)``) through
+    make_prefill + ``n_steps`` make_serve_step: logits every step and the
+    final state bit for bit, launches ``_mesh_launches``'; ms a step, and
+    the collectives of one more step after the compared ones, of each.
+    Returns the sharded run's launch counts."""
     import torch.distributed as dist
     from repro_torch.distributed.sharding import ShardingRules, shard_params
     from repro_torch.kernels import ops
@@ -7038,7 +7060,7 @@ def _mesh_one_by_one(dev, card, argv=SERVE_ARGV, tag="(b)") -> dict:
     cfg, model, prompt, _plens, engine = serve.setup(serve.parse_args(argv))
     del engine
     plain = (make_prefill(cfg, max_len=MESH_MAX_LEN), make_serve_step(cfg))
-    p_out, p_toks, st, p_ms = _mesh_run(*plain, model, prompt, MESH_STEPS,
+    p_out, p_toks, st, p_ms = _mesh_run(*plain, model, prompt, n_steps,
                                         dev)
     p_state = {k: v.clone() for k, v in S.flatten(st).items()}
     p_coll = _mesh_collectives(lambda: plain[1](model, st, p_toks[-1]))
@@ -7048,13 +7070,13 @@ def _mesh_one_by_one(dev, card, argv=SERVE_ARGV, tag="(b)") -> dict:
                             world_size=1, device_id=dev)
     try:
         mesh = make_mesh((1, 1), ("data", "model"))
-        rules = ShardingRules(data_axes=("data",))
+        rules = ShardingRules(data_axes=("data",), **(flags or {}))
         model = shard_params(model, rules, mesh)
         sharded = (make_prefill(cfg, rules, mesh, max_len=MESH_MAX_LEN),
                    make_serve_step(cfg, rules, mesh, max_len=MESH_MAX_LEN))
         ops.reset_launch_counts()
         s_out, s_toks, st, s_ms = _mesh_run(*sharded, model, prompt,
-                                            MESH_STEPS, dev)
+                                            n_steps, dev)
         counts = ops.launch_counts()
         s_flat = {k: v.clone() for k, v in S.flatten(st).items()}
         s_coll = _mesh_collectives(lambda: sharded[1](model, st,
@@ -7069,7 +7091,7 @@ def _mesh_one_by_one(dev, card, argv=SERVE_ARGV, tag="(b)") -> dict:
     check(set(s_flat) == set(p_state) and all(
         torch.equal(s_flat[k], p_state[k]) for k in p_state),
         f"{tag} the sharded state differs from the plain steps'")
-    want = _mesh_launches(cfg, MESH_STEPS)
+    want = _mesh_launches(cfg, n_steps)
     for name, n in want.items():
         check(counts[name] == n, f"{tag} {name} {counts[name]} launches, "
                                  f"want {n}")
@@ -7078,8 +7100,9 @@ def _mesh_one_by_one(dev, card, argv=SERVE_ARGV, tag="(b)") -> dict:
         return sorted(x)[len(x) // 2]
     print(f"  {tag} {cfg.name} SOI pp, {cfg.n_layers} layers, bf16, B 4 x "
           f"{prompt.shape[1]}, clocks staggered {MESH_STAGGER}, "
-          f"{MESH_STEPS} steps: make_prefill + make_serve_step on the (1, "
-          f"1) NCCL mesh == the plain steps bit for bit (logits of the "
+          f"{n_steps} steps: make_prefill + make_serve_step on the (1, "
+          f"1) NCCL mesh, rules {rules} == the plain steps bit for bit "
+          f"(logits of the "
           f"prefill and every step, {len(p_state)} state leaves); launches "
           f"{ {k: v for k, v in want.items() if v} }", flush=True)
     print(f"  {tag} ms a step (median, host clock after a synchronize, "
@@ -7260,13 +7283,15 @@ def _moe_cfg(n_layers, first, last, dtype=None):
 
 
 def _mesh_train_one_by_one(dev, card, cfg, tag, label,
-                           peak_gap=None) -> dict:
-    """Phase 25 (b), phase 26 (c): ``cfg`` (bf16 over f32 masters, B 8 S
-    128), DIST_STEPS plain steps, then as many sharded on the (1, 1) mesh
-    from the same weights and batches (one model on the card at a time);
-    metrics equal, params and moments equal by digest; with ``peak_gap``
-    (GiB) the first sharded step's peak within it of the plain one's.
-    Returns the sharded run's launch counts."""
+                           peak_gap=None, flags=None) -> dict:
+    """Phase 25 (b), phase 26 (c), phase 27 (a) (``flags`` fsdp and
+    seq_shard): ``cfg`` (bf16 over f32 masters, B 8 S 128), DIST_STEPS
+    plain steps, then as many sharded on the (1, 1) mesh
+    (``ShardingRules(**flags)``) from the same weights and batches (one
+    model on the card at a time); metrics equal, params and moments equal
+    by digest; with ``peak_gap`` (GiB) the first sharded step's peak
+    within it of the plain one's. Returns the sharded run's launch
+    counts."""
     from repro_torch.data.pipeline import ShardedLMPipeline
     from repro_torch.distributed.sharding import (ShardingRules,
                                                   gather_params, gather_tree,
@@ -7282,7 +7307,7 @@ def _mesh_train_one_by_one(dev, card, cfg, tag, label,
     batches = [_train_batch(pipe, i, dev) for i in range(DIST_STEPS + 1)]
     kw = dict(peak_lr=1e-3, warmup=20, total_steps=TRAIN_STEPS)
     mesh = make_mesh((1, 1), ("data", "model"))
-    rules = ShardingRules(data_axes=("data",))
+    rules = ShardingRules(data_axes=("data",), **(flags or {}))
     runs = {}
     for run in ("plain", "sharded"):
         _free(dev)
@@ -7364,7 +7389,8 @@ def _mesh_train_one_by_one(dev, card, cfg, tag, label,
     print(f"  {tag} {label} ({n_params / 1e9:.3f} B params), SOI "
           f"{cfg.soi.mode if cfg.soi else 'none'}, bf16 over f32 masters, "
           f"B 8 S 128, {DIST_STEPS} steps: sharded on the (1, 1) NCCL mesh "
-          f"== plain bit for bit — (loss, aux, grad norm) {s_['metrics']}; "
+          f"(rules {rules}) == plain bit for bit — (loss, aux, grad norm) "
+          f"{s_['metrics']}; "
           f"{len(p['digests']['params'])} params, mu, nu leaves equal by "
           f"digest; launches { {k: v for k, v in want.items() if v} }",
           flush=True)
@@ -7975,6 +8001,322 @@ def mla_rglru_mesh_phase(dev, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 27. fsdp-sp-mesh: fsdp and sequence parallelism in the sharded steps
+# ---------------------------------------------------------------------------
+
+FSDP_SP = dict(fsdp=True, seq_shard=True)
+FSDP_SP_SERVE_STEPS = 8            # (a) serve steps after the prefill
+# (b) qwen3-1.7b cut to 8 of 28 layers at full width: each fsdp step moves
+# the whole f32 model through gloo's host staging twice (the gathers and
+# the gradient's all-reduce)
+FSDP_QWEN_LAYERS = 8
+FSDP_RG_LAYERS = 3                 # (c) recurrentgemma-9b, phase 26 (d)'s
+# (b) the data ranks' halves of the batch against the whole batch in one
+# process: the NLL, the counts and every gradient summed in another order
+FSDP_LOSS_TOL = 1e-5               # loss, relative
+FSDP_GRAD_TOL = 1e-4               # grad norm, relative
+FSDP_DIR = ROOT / "build" / "fsdp_sp_mesh"
+
+
+def _collective_ms(step) -> dict:
+    """{collective: [calls, host ms]} of one call of ``step``, from the
+    host's records of the backend's calls (a gloo call on CUDA tensors
+    returns once its host-staged copies are done)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step()
+        torch.cuda.synchronize()
+    out = {}
+    for s, e, name, _w in _records(prof):
+        if name.startswith(("nccl:", "gloo:")):
+            n, ms = out.get(name, (0, 0.0))
+            out[name] = (n + 1, round(ms + (e - s) / 1e3, 3))
+    return out
+
+
+def _fsdp_sp_cfgs():
+    """(b)'s qwen3-1.7b (SOI pp, FSDP_QWEN_LAYERS) and (c)'s
+    recurrentgemma-9b (FSDP_RG_LAYERS: RG-LRU, RG-LRU, local attention),
+    both at full width in f32."""
+    from repro_torch import configs
+
+    def f32(cfg):
+        return dataclasses.replace(cfg, dtype="float32")
+    return (f32(configs.get("qwen3-1.7b", soi="pp",
+                            n_layers=FSDP_QWEN_LAYERS)),
+            f32(configs.get("recurrentgemma-9b", n_layers=FSDP_RG_LAYERS)))
+
+
+def _fsdp_sp_step(cfg, seed, dev, rules=None, mesh=None) -> dict:
+    """One train step of ``cfg`` from the seed's weights (sharded by
+    ``rules`` on ``mesh`` where given, on this rank's ``local_batch``):
+    loss, grad norm, host ms, the step's peak GiB, and on a mesh the
+    parameter bytes a rank beside the specs' and the moments' bytes, the
+    step's launch counts and the collectives of a second step."""
+    from repro_torch.data.pipeline import ShardedLMPipeline
+    from repro_torch.distributed.sharding import shard_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import local_batch, make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    kw = dict(peak_lr=1e-3, warmup=20, total_steps=TRAIN_STEPS)
+    batch = _train_batch(ShardedLMPipeline(global_batch=8, seq_len=128,
+                                           vocab=cfg.vocab, seed=0), 0, dev)
+    model = T.init(cfg, generator=torch.Generator(device=dev)
+                   .manual_seed(seed), device=dev)
+    out = {"n_params": sum(p.numel() for p in model.parameters())}
+    if mesh is not None:
+        model = shard_params(model, rules, mesh)
+        out["bytes"] = _moe_param_bytes(model, cfg, rules, mesh)
+        batch = local_batch(batch, mesh)
+    opt = adamw_init(dict(model.named_parameters()))
+    if mesh is not None:
+        out["moment_bytes"] = sum(
+            v.to_local().numel() * 4 for t in ("mu", "nu")
+            for v in opt[t].values())
+    step = make_train_step(cfg, rules, mesh, **kw)
+    _free(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["start_gib"] = torch.cuda.memory_allocated(dev) / 2 ** 30
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = step(model, opt, batch)[2]
+    torch.cuda.synchronize(dev)
+    out.update(ms=(time.perf_counter() - t0) * 1e3,
+               counts=ops.launch_counts(),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+    if mesh is not None:
+        out["coll"] = _collective_ms(lambda: step(model, opt, batch))
+    del model, opt, step
+    _free(dev)
+    return out
+
+
+def _fsdp_sp_rank(rank, world):
+    """(b) and (c), one of two gloo ranks sharing the card: (b) a train
+    step of qwen3-1.7b on a (2, 1) mesh with fsdp; (c) recurrentgemma-9b's
+    prefill, two decode steps and one train step on a (1, 2) mesh with
+    seq_shard, the reduce-scatters counted. Writes the results."""
+    import os
+    import pickle
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.sharding import ShardingRules, shard_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_prefill, make_serve_step
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    store = dist.FileStore(str(FSDP_DIR / "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world)
+    try:
+        qcfg, rcfg = _fsdp_sp_cfgs()
+        out = {}
+        mesh = make_mesh((world, 1), ("data", "model"))
+        rules = ShardingRules(data_axes=("data",), fsdp=True)
+        out["b"] = _fsdp_sp_step(qcfg, 27, dev, rules, mesh)
+        dist.barrier()
+
+        mesh = make_mesh((1, world), ("data", "model"))
+        rules = ShardingRules(data_axes=("data",), seq_shard=True)
+        model, prompt = _mla_serve_inputs(rcfg, dev)
+        model = shard_params(model, rules, mesh)
+        prefill = make_prefill(rcfg, rules, mesh, max_len=MESH_MAX_LEN)
+        step = make_serve_step(rcfg, rules, mesh, max_len=MESH_MAX_LEN)
+        calls = [0]
+        reduce_scatter = coll.reduce_scatter_dim
+
+        def counted(*args, **kw):
+            calls[0] += 1
+            return reduce_scatter(*args, **kw)
+        coll.reduce_scatter_dim = counted
+        try:
+            ops.reset_launch_counts()
+            logits, toks, _st, ms = _mesh_run(prefill, step, model, prompt,
+                                              2, dev)
+            serve_counts, serve_rs = ops.launch_counts(), calls[0]
+            del model, _st, prefill, step
+            _free(dev)
+            dist.barrier()
+            calls[0] = 0
+            train = _fsdp_sp_step(rcfg, 27, dev, rules, mesh)
+            train["rs"] = calls[0]
+        finally:
+            coll.reduce_scatter_dim = reduce_scatter
+        out["c"] = dict(logits=[x.cpu() for x in logits],
+                        tokens=[x.cpu() for x in toks], serve_ms=ms,
+                        serve_counts=serve_counts, serve_rs=serve_rs,
+                        train=train)
+        with open(FSDP_DIR / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _fsdp_sp_gloo(dev, card) -> dict:
+    """(b) and (c): the one-process steps here, then two gloo ranks on the
+    card (``_fsdp_sp_rank``). Returns the ranks' summed launch counts."""
+    import pickle
+    import shutil
+    import torch.multiprocessing as mp
+    from repro_torch.launch.steps import make_prefill, make_serve_step
+    t0 = time.perf_counter()
+    qcfg, rcfg = _fsdp_sp_cfgs()
+    want_b = _fsdp_sp_step(qcfg, 27, dev)
+    model, prompt = _mla_serve_inputs(rcfg, dev)
+    w_logits, w_toks, st, w_ms = _mesh_run(
+        make_prefill(rcfg, max_len=MESH_MAX_LEN), make_serve_step(rcfg),
+        model, prompt, 2, dev)
+    del model, st
+    _free(dev)
+    want_c = _fsdp_sp_step(rcfg, 27, dev)
+    shutil.rmtree(FSDP_DIR, ignore_errors=True)
+    FSDP_DIR.mkdir(parents=True)
+    t1 = time.perf_counter()
+    mp.spawn(_fsdp_sp_rank, args=(2,), nprocs=2, join=True)
+    spawn_s = time.perf_counter() - t1
+    ranks = []
+    for r in range(2):
+        with open(FSDP_DIR / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    shutil.rmtree(FSDP_DIR, ignore_errors=True)
+
+    def close(got, want, tol):
+        return abs(got - want) <= tol * abs(want)
+    full = want_b["n_params"] * 4
+    totals = {}
+    for r, rk in enumerate(ranks):
+        b, c = rk["b"], rk["c"]
+        for k, tol in (("loss", FSDP_LOSS_TOL), ("grad_norm", FSDP_GRAD_TOL)):
+            check(close(b[k], want_b[k], tol),
+                  f"(b) rank {r} {k} {b[k]} vs one process {want_b[k]}")
+        got, spec = b["bytes"]
+        check(got == spec, f"(b) rank {r} parameter bytes {got} != the "
+                           f"specs' {spec}")
+        check(got < 0.55 * full and b["moment_bytes"] < 1.1 * full,
+              f"(b) rank {r} holds {got} parameter and {b['moment_bytes']} "
+              f"moment bytes of {full} a whole f32 copy")
+        check(all(torch.equal(a, w.cpu()) for a, w in zip(c["tokens"],
+                                                           w_toks)),
+              f"(c) rank {r}: the 2-rank tokens differ from one rank's")
+        check(c["serve_rs"] > 0 and c["train"]["rs"] > 0,
+              f"(c) rank {r}: no reduce-scatter ran (serving "
+              f"{c['serve_rs']}, training {c['train']['rs']})")
+        for k, tol in (("loss", MLA_LOSS_TOL), ("grad_norm", MLA_GRAD_TOL)):
+            check(close(c["train"][k], want_c[k], tol),
+                  f"(c) rank {r} {k} {c['train'][k]} vs one rank "
+                  f"{want_c[k]}")
+        want_s = _mesh_launches(rcfg, 2)
+        check(all(c["serve_counts"][k] == n for k, n in want_s.items()),
+              f"(c) rank {r}: serving launches {c['serve_counts']}, want "
+              f"{want_s}")
+        for cnt in (b["counts"], c["serve_counts"], c["train"]["counts"]):
+            for k, v in cnt.items():
+                totals[k] = totals.get(k, 0) + v
+    for name, n in (("lru_scan", 4), ("lru_scan_bwd", 2),
+                    ("flash_attention", 2 * qcfg.n_layers),
+                    ("flash_attention_bwd", 2 * qcfg.n_layers)):
+        check(totals.get(name, 0) >= n, f"(b), (c): {name} launched "
+                                        f"{totals.get(name, 0)} times")
+    err = max(float((a - w.cpu()).abs().max()) for rk in ranks
+              for a, w in zip(rk["c"]["logits"], w_logits))
+    check(err < MESH_GLOO_TOL, f"(c) logits {err} from the one-rank steps")
+    b0, c0 = ranks[0]["b"], ranks[0]["c"]
+    per_param = [rk["b"]["peak_gib"] * 2 ** 30 / want_b["n_params"]
+                 for rk in ranks]
+    print(f"  (b) qwen3-1.7b SOI pp, {qcfg.n_layers} of 28 layers at full "
+          f"width ({want_b['n_params'] / 1e9:.3f} B params), f32, B 8 S "
+          f"128, one train step, two gloo ranks on the card, (2, 1) mesh, "
+          f"fsdp: " + "; ".join(
+              f"rank {r} loss {rk['b']['loss']:.7f} grad norm "
+              f"{rk['b']['grad_norm']:.6f}" for r, rk in enumerate(ranks))
+          + f" == one process's {want_b['loss']:.7f} / "
+          f"{want_b['grad_norm']:.6f} (rel {FSDP_LOSS_TOL} / "
+          f"{FSDP_GRAD_TOL}); parameter bytes a rank "
+          f"{[rk['b']['bytes'][0] for rk in ranks]} (== the specs'; whole "
+          f"f32 {full}), moments {b0['moment_bytes']} [{card}]", flush=True)
+    print(f"  (b) peak GiB of the step: ranks "
+          f"{[round(rk['b']['peak_gib'], 3) for rk in ranks]} (allocated "
+          f"at its start {[round(rk['b']['start_gib'], 3) for rk in ranks]};"
+          f" {[round(x, 2) for x in per_param]} bytes a parameter), one "
+          f"process {want_b['peak_gib']:.3f} (start "
+          f"{want_b['start_gib']:.3f}; "
+          f"{want_b['peak_gib'] * 2 ** 30 / want_b['n_params']:.2f} bytes a "
+          f"parameter); step ms (host clock, the first): ranks "
+          f"{[round(rk['b']['ms'], 1) for rk in ranks]}, one process "
+          f"{want_b['ms']:.1f}; collectives of a second step [calls, host "
+          f"ms]: {b0['coll']}; launches a rank "
+          f"{ {k: v for k, v in b0['counts'].items() if v} } [{card}]",
+          flush=True)
+    print(f"  (c) recurrentgemma-9b, {rcfg.n_layers} layers at full width, "
+          f"f32, two gloo ranks on the card, (1, 2) mesh, seq_shard: "
+          f"prefill B 4 x 1024 + 2 steps, tokens == one rank's, logits "
+          f"max|Δ| {err:.2e} (< {MESH_GLOO_TOL}), reduce-scatters "
+          f"{c0['serve_rs']} serving / {c0['train']['rs']} in two train "
+          f"steps; "
+          f"train " + "; ".join(
+              f"rank {r} loss {rk['c']['train']['loss']:.7f} grad norm "
+              f"{rk['c']['train']['grad_norm']:.6f}"
+              for r, rk in enumerate(ranks))
+          + f" vs one rank {want_c['loss']:.7f} / {want_c['grad_norm']:.6f};"
+          f" step ms: serving (median) one rank "
+          f"{sorted(w_ms)[len(w_ms) // 2]:.2f}, ranks "
+          f"{[round(sorted(rk['c']['serve_ms'])[1], 2) for rk in ranks]}, "
+          f"train {[round(rk['c']['train']['ms'], 1) for rk in ranks]} "
+          f"(one rank {want_c['ms']:.1f}); collectives of a second train "
+          f"step {c0['train']['coll']}; launches a rank serving "
+          f"{ {k: v for k, v in c0['serve_counts'].items() if v} }, "
+          f"training "
+          f"{ {k: v for k, v in c0['train']['counts'].items() if v} } "
+          f"[{card}]", flush=True)
+    print(f"  (b), (c) spawn + run {spawn_s:.1f} s, "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return totals
+
+
+def fsdp_sp_mesh_phase(dev, card) -> dict:
+    """Phase 27. Returns the launch counts of (a)'s sharded runs on the
+    (1, 1) NCCL mesh with fsdp and seq_shard, by part, and of (b) and
+    (c)'s two gloo ranks summed."""
+    import torch.distributed as dist
+    phase("27 fsdp-sp-mesh (fsdp and sequence parallelism: deepseek-v2 and "
+          "recurrentgemma-9b's sharded serve and train steps on a (1, 1) "
+          "NCCL mesh against the plain steps; two gloo ranks on the card: "
+          "qwen3-1.7b trained on a (2, 1) fsdp mesh, recurrentgemma-9b "
+          "served and trained on a (1, 2) seq_shard mesh)")
+    t0 = time.perf_counter()
+    out = {"ds serve": _mesh_one_by_one(dev, card, DS_MESH_ARGV, "(a)",
+                                        FSDP_SP, FSDP_SP_SERVE_STEPS)}
+    _free(dev)
+    out["rg serve"] = _mesh_one_by_one(
+        dev, card, _family_argv("recurrentgemma-9b"), "(a)", FSDP_SP,
+        FSDP_SP_SERVE_STEPS)
+    _free(dev)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        for (cfg, label), key in zip(_mla_train_cfgs(),
+                                     ("ds train", "rg train")):
+            out[key] = _mesh_train_one_by_one(dev, card, cfg, "(a)", label,
+                                              peak_gap=MLA_PEAK_GAP,
+                                              flags=FSDP_SP)
+            _free(dev)
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the process group outlived (a)")
+    out["gloo"] = _fsdp_sp_gloo(dev, card)
+    _free(dev)
+    print(f"  phase 27: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main():
     card = device_phase()
     dev = torch.device("cuda", 0)
@@ -8027,6 +8369,24 @@ def main():
         "gloo": f"two gloo ranks on the card, (1, 2) mesh, f32: deepseek-v2 "
                 f"(2 layers served, 1 trained) and recurrentgemma-9b (3), "
                 f"prefill + {MESH_GLOO_STEPS} steps and one train step each"}
+    _free(dev)
+    mesh27_counts = fsdp_sp_mesh_phase(dev, card)
+    # phase 27's sharded runs with fsdp and seq_shard
+    mesh27_on = {
+        "ds serve": f"sharded serve, fsdp + seq_shard (deepseek-v2 4 layers "
+                    f"bf16, (1, 1) NCCL mesh, prefill + "
+                    f"{FSDP_SP_SERVE_STEPS} steps)",
+        "rg serve": f"sharded serve, fsdp + seq_shard (recurrentgemma-9b 38 "
+                    f"layers bf16, (1, 1) NCCL mesh, prefill + "
+                    f"{FSDP_SP_SERVE_STEPS} steps)",
+        "ds train": f"sharded train, fsdp + seq_shard (deepseek-v2 MLA "
+                    f"stack 4 layers, (1, 1) NCCL mesh, {DIST_STEPS} steps)",
+        "rg train": f"sharded train, fsdp + seq_shard (recurrentgemma-9b 6 "
+                    f"layers, (1, 1) NCCL mesh, {DIST_STEPS} steps)",
+        "gloo": f"two gloo ranks on the card, f32: qwen3-1.7b "
+                f"({FSDP_QWEN_LAYERS} layers) one train step on a (2, 1) "
+                f"fsdp mesh; recurrentgemma-9b ({FSDP_RG_LAYERS}) prefill + "
+                f"2 steps and one train step on a (1, 2) seq_shard mesh"}
     # launches: each kernel's count on its own path's run — the dense
     # serve (phase 5), the paged prefix-cache serve (phase 6), the
     # deepseek-v2 serve (phase 8), the MLA prefix-cache serve (phase 9),
@@ -8258,6 +8618,12 @@ def main():
                     if mesh26_counts[key][name]}
             check(runs, f"{name} never launched on phase 26's sharded runs")
             summary[-1]["mla_rglru_mesh"] = runs
+            runs = {key: {"launches": mesh27_counts[key][name],
+                          "launches_on": on}
+                    for key, on in mesh27_on.items()
+                    if mesh27_counts[key].get(name)}
+            check(runs, f"{name} never launched on phase 27's sharded runs")
+            summary[-1]["fsdp_sp_mesh"] = runs
         if name == "decode_attention":
             # the same wrapper on recurrentgemma's compressed middle rings
             mid = main_recs[name + " (RG middle)"]
@@ -8268,7 +8634,7 @@ def main():
             summary[-1]["rg_middle"].update(
                 launches=rg_second[name][name],
                 launches_on="rg serve (dense), outer and middle layers")
-    print(f"== 27 done in {time.perf_counter() - T_START:.1f} s")
+    print(f"== 28 done in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

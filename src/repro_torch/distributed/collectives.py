@@ -34,16 +34,38 @@ local shards, the collectives XLA's partitioner inserts for the reference:
     its backward all-reduces again, which multiplies the gradients by the
     model size;
 
-and the two of expert parallelism (the MoE layer's router), built from
-``all_gather`` and ``all_reduce`` only (gloo has no reduce-scatter: it is
-an all-reduce and a slice):
+the two of expert parallelism (the MoE layer's router):
 
   * ``gather_from_model`` — all-gather along a dimension in rank order
     forward; backward, the gradient summed over the group and the rank's
     slice kept: the router's logits of the rank's experts -> all E;
   * ``reduce_from_data`` — all-reduce over the data groups forward,
     identity backward: the router's statistics of the rank's tokens ->
-    the global batch's.
+    the global batch's;
+
+the four of Megatron sequence parallelism, on an activation (B, S, ...)
+whose sequence is split over the model group between blocks:
+
+  * ``gather_seq_to_model`` — all-gather of the sequence forward,
+    reduce-scatter backward: a block's input, normed on its shard, into
+    the projections whose outputs the model axis splits;
+  * ``scatter_seq_from_model`` — reduce-scatter onto sequence shards
+    forward, all-gather backward: the ranks' partial outputs of a block
+    (and of the vocab-split embedding) summed onto the rank's rows;
+  * ``split_seq`` — the rank's rows forward, all-gather backward: a whole
+    carry, the same on every rank, onto shards;
+  * ``gather_seq`` — all-gather forward, the rank's rows of the gradient
+    backward: a carry back to the whole sequence (around SOI's compress
+    and fuse, before the last row of a prefill);
+
+and fsdp's ``gather_from_data``: a leaf split over the data axes cast to
+the compute dtype and all-gathered forward; backward, the gradient summed
+over the data axes in float32 and the rank's slice kept.
+
+A reduce-scatter (``reduce_scatter_dim``) is ``reduce_scatter_single``
+(``reduce_scatter_tensor`` before it) on NCCL and on gloo over CPU
+tensors; on gloo over CUDA tensors (two processes sharing a card) it is
+an all-reduce and a slice, the calls gloo carries there.
 """
 
 from __future__ import annotations
@@ -162,14 +184,146 @@ def reduce_from_data(x: torch.Tensor, groups) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Sequence parallelism and fsdp
+# ---------------------------------------------------------------------------
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``group``, this rank's 1/n slice
+    along ``dim`` (rank order): one reduce-scatter on NCCL and on gloo
+    over CPU tensors, else (gloo over CUDA tensors) an all-reduce and a
+    slice."""
+    n = dist.get_world_size(group)
+    size = x.shape[dim]
+    if size % n:
+        raise ValueError(f"dimension {dim} of {size} does not split over "
+                         f"{n} ranks")
+    if dist.get_backend(group) == "nccl" or x.device.type == "cpu":
+        src = x.movedim(dim, 0).contiguous()
+        out = torch.empty((size // n, *src.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        rs = getattr(dist, "reduce_scatter_single", None) or \
+            dist.reduce_scatter_tensor
+        rs(out, src, group=group)
+        return out.movedim(0, dim).contiguous()
+    y = x.contiguous().clone()
+    dist.all_reduce(y, group=group)
+    return _rows(y, dim, group)
+
+
+def _rows(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's 1/n slice of ``x`` along ``dim`` (rank order)."""
+    n = dist.get_world_size(group)
+    size = x.shape[dim] // n
+    return x.narrow(dim, dist.get_rank(group) * size, size).contiguous()
+
+
+class _GatherSeqToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter_dim(grad, ctx.dim, ctx.group), None, None
+
+
+class _ScatterSeqFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather_dim(grad, ctx.dim, ctx.group), None, None
+
+
+class _SplitSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _rows(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather_dim(grad, ctx.dim, ctx.group), None, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _rows(grad, ctx.dim, ctx.group), None, None
+
+
+def gather_seq_to_model(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """All-gather along ``dim`` forward; reduce-scatter backward (the
+    ranks' partial gradients summed onto each rank's rows)."""
+    return _GatherSeqToModel.apply(x, dim % x.dim(), group)
+
+
+def scatter_seq_from_model(x: torch.Tensor, dim: int,
+                           group) -> torch.Tensor:
+    """Reduce-scatter along ``dim`` forward; all-gather backward."""
+    return _ScatterSeqFromModel.apply(x, dim % x.dim(), group)
+
+
+def split_seq(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's rows of ``x`` (the same on every rank) along ``dim``
+    forward; all-gather backward."""
+    return _SplitSeq.apply(x, dim % x.dim(), group)
+
+
+def gather_seq(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """All-gather along ``dim`` forward; this rank's rows of the gradient
+    (the same on every rank) backward."""
+    return _GatherSeq.apply(x, dim % x.dim(), group)
+
+
+class _GatherFromData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, groups, dtype):
+        ctx.dim, ctx.groups, ctx.dtype = dim, groups, x.dtype
+        y = x.to(dtype)
+        # local_shard cuts along the data axes in their order, the first
+        # outermost: gather the innermost first
+        for g in reversed(groups):
+            y = all_gather_dim(y, dim, g)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.float()
+        for grp in ctx.groups:
+            g = reduce_scatter_dim(g, ctx.dim, grp)
+        return g.to(ctx.dtype), None, None, None
+
+
+def gather_from_data(x: torch.Tensor, dim: int, groups,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """fsdp: the whole leaf of the rank's shard ``x`` (split along ``dim``
+    over the data groups ``groups``, as ``sharding.local_shard`` cuts it),
+    cast to ``dtype`` before the all-gathers; backward, the gradient summed
+    over ``groups`` in float32 and the rank's slice kept, in ``x``'s
+    dtype."""
+    return _GatherFromData.apply(x, dim % x.dim(), tuple(groups), dtype)
+
+
+# ---------------------------------------------------------------------------
 # Serving: tensor-parallel decode with the KV sequence over the model axis
 # ---------------------------------------------------------------------------
 
 def all_gather_dim(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order."""
     n = dist.get_world_size(group)
+    x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x.contiguous(), group=group)
+    dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim=dim)
 
 

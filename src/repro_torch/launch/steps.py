@@ -33,16 +33,35 @@ data x tensor parallel, computed on local shards with explicit collectives
     plus the MoE routers' aux loss over the global microbatch, and the
     gradients are summed over the data axes;
   * the clip's norm sums each split leaf's squares over its split axes;
-    AdamW updates each shard in place.
+    AdamW updates each shard in place;
+  * ``rules.fsdp``: every leaf whose ``"embed"`` dimension the data axes
+    divide is split along it over them (``sharding.shard_params``), so its
+    float32 master, gradient and both moments are 1/D a rank. A step casts
+    each such shard to the compute dtype and all-gathers the whole leaf
+    over the data axes before the forward
+    (``collectives.gather_from_data``, through ``loss_sums``' ``gather``
+    hook), once a microbatch; the gathered copy's gradient is summed over
+    the data axes in float32 and the rank's slice kept — that sum takes
+    the place of the leaf's data-axis all-reduce. A leaf the data axes do
+    not divide stays replicated and is all-reduced as before;
+  * ``rules.seq_shard``: Megatron sequence parallelism
+    (``layers.sequence_parallel``): between blocks the carry (B, S, d) is
+    split on its sequence over the model axis wherever the axis divides S
+    (else whole, as the reference's ``spec_for`` falls back); a block
+    norms its rows, gathers the sequence into its split projections and
+    reduce-scatters their sum back onto its rows; the embedding's vocab
+    sum is a reduce-scatter; SOI's compress, extrapolation and fusion and
+    the head's cross entropy see the whole sequence (``models.transformer
+    .trunk``).
 
-Refused on a mesh (``NotImplementedError``, ROADMAP.md): ``fsdp``,
-``seq_shard``, a model axis that does not divide some split dimension
-(query heads, ff, vocab, the experts; KV heads only where their count
-does not divide the axis either, 3 on 2 ranks say), ``compress`` where
-the model axis has more than one rank (a shard's 256-blocks are not the
-whole leaf's), RWKV stacks, the encoder-decoder and the prefix-LM on more
-than one rank, and a MoE layer whose global dispatch groups do not split
-over the data ranks (``moe_apply``).
+Refused on a mesh (``NotImplementedError``, ROADMAP.md): a model axis
+that does not divide some split dimension (query heads, ff, vocab, the
+experts; KV heads only where their count does not divide the axis either,
+3 on 2 ranks say), ``compress`` where the model axis has more than one
+rank or fsdp splits leaves over more than one data rank (a shard's
+256-blocks are not the whole leaf's), RWKV stacks, the encoder-decoder
+and the prefix-LM on more than one rank, and a MoE layer whose global
+dispatch groups do not split over the data ranks (``moe_apply``).
 
 ``make_prefill`` and ``make_serve_step`` on a mesh serve data x tensor
 parallel, on local shards with explicit collectives, the decode state in
@@ -59,7 +78,11 @@ each head's M partials in rank order on the rank that owns the head
 (``models.attention``); the logits are gathered to the full vocabulary.
 An RG-LRU layer's state holds the rank's channels. A MoE layer routes as
 in training (its rows' groups are the global batch's where the data axes
-split the rows), without the aux loss.
+split the rows), without the aux loss. With ``fsdp`` each step gathers the
+data-split leaves over the data axes (after the cast, no autograd); with
+``seq_shard`` the prefill runs the training step's sequence-parallel
+layout (the decode state's layout does not change), and a decode step's
+one position stays whole.
 They refuse what the train step refuses; the engine (``SOIEngine``),
 paged pools and speculation run without a mesh only, as in the
 reference.
@@ -74,12 +97,15 @@ import torch.distributed as dist
 from torch import nn
 
 from repro_torch.configs.base import ModelCfg
+from repro_torch.distributed.collectives import (all_gather_dim,
+                                                 gather_from_data)
 from repro_torch.distributed.sharding import (ShardingRules,
                                               logical_constraint)
 from repro_torch.launch.mesh import data_axes_of
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import data_parallel, model_parallel
+from repro_torch.models.layers import (data_parallel, model_parallel,
+                                       sequence_parallel)
 from repro_torch.optim import (adamw_update, clip_by_global_norm,
                                compressed_grads, cosine_schedule)
 
@@ -247,17 +273,36 @@ def _check_layout(cfg: ModelCfg, rules: ShardingRules, model_size: int,
                 f"split dimension ({sorted(bad)})", step)
 
 
+def _data_split(params: dict, mesh, data_axes) -> dict:
+    """``{name: (dimension, data axes)}`` of the DTensor leaves split over
+    data axes of more than one rank (fsdp's ``"embed"``), those axes in
+    ``data_axes``' order; every data axis shards the same dimension, as
+    ``sharding.placements`` lays out one spec entry. A data axis of one
+    rank holds the whole leaf: nothing to gather over it."""
+    from torch.distributed.tensor import Shard
+    names = list(mesh.mesh_dim_names)
+    out = {}
+    for k, p in params.items():
+        axes = tuple(a for a in data_axes
+                     if mesh.size(names.index(a)) > 1
+                     and isinstance(p.placements[names.index(a)], Shard))
+        if axes:
+            (dim,) = {p.placements[names.index(a)].dim for a in axes}
+            out[k] = (dim, axes)
+    return out
+
+
 def _sharded_train_step(cfg: ModelCfg, rules: ShardingRules, mesh, *,
                         microbatches, peak_lr, warmup, total_steps,
                         grad_clip, compress):
     from torch.distributed.tensor import DTensor, Shard
-    if rules.fsdp:
-        _refuse("fsdp (weights split over the data axes)")
-    if rules.seq_shard:
-        _refuse("seq_shard (sequence-parallel activations)")
     names = list(mesh.mesh_dim_names)
     data_axes = tuple(rules.data_axes)
     model_size = mesh.size(names.index(rules.model_axis))
+    n_data = _data_index(mesh, data_axes)[1]
+    if compress and rules.fsdp and n_data > 1:
+        _refuse(f"compress=True with fsdp over {n_data} data ranks (a "
+                f"shard's 256-blocks are not the whole leaf's)")
     if compress and model_size > 1:
         _refuse(f"compress=True on a model axis of {model_size} ranks (a "
                 f"shard's 256-blocks are not the whole leaf's)")
@@ -287,6 +332,11 @@ def _sharded_train_step(cfg: ModelCfg, rules: ShardingRules, mesh, *,
         local = {k: p.to_local().detach() for k, p in named.items()}
         leaves = {k: t.detach().requires_grad_(True)
                   for k, t in local.items()}
+        # fsdp: each data-split leaf cast and gathered whole for the
+        # forward; its gradient comes back summed over the data axes
+        gather = {k: functools.partial(
+            gather_from_data, dim=d, groups=[mesh.get_group(a) for a in axes])
+            for k, (d, axes) in _data_split(named, mesh, data_axes).items()}
         bsz = batch["tokens"].shape[0]
         if bsz % microbatches:
             raise ValueError(f"batch {bsz} is not a multiple of "
@@ -298,9 +348,10 @@ def _sharded_train_step(cfg: ModelCfg, rules: ShardingRules, mesh, *,
             # plus the MoE routers' aux loss, each layer's over the global
             # microbatch (summed in layer order, as loss_fn sums them)
             terms = []
-            with model_parallel(mp_group), data_parallel(dp_groups):
+            with model_parallel(mp_group), data_parallel(dp_groups), \
+                    sequence_parallel(rules.seq_shard):
                 nll, count = T.loss_sums(params, cfg, part, tensors=leaves,
-                                         aux=terms)
+                                         aux=terms, gather=gather)
                 aux = torch.zeros((), dtype=torch.float32, device=nll.device)
                 for a in terms:
                     aux = aux + a
@@ -331,8 +382,9 @@ def _sharded_train_step(cfg: ModelCfg, rules: ShardingRules, mesh, *,
             # (cross entropy + aux) as "xent", and "aux" 0
             loss = lsum / microbatches
             metrics = {"xent": loss, "aux": torch.zeros_like(loss)}
-        for g in grads.values():
-            dp_sum(g)
+        for k, g in grads.items():
+            if k not in gather:
+                dp_sum(g)
 
         grads, gnorm = clip_by_global_norm(grads, grad_clip, split)
         if compress:
@@ -370,17 +422,29 @@ class _OnTensors(nn.Module):
         return self.fn(self.model, *args)
 
 
-def _local_tensors(params, mesh, dt) -> dict:
+def _local_tensors(params, mesh, dt, data_axes=()) -> dict:
     """``{name: the rank's shard}`` of a model whose parameters are
     DTensors on ``mesh`` (``sharding.shard_params``), in the compute dtype
-    ``dt`` (a no-op where the model was cast before it was sharded)."""
+    ``dt`` (a no-op where the model was cast before it was sharded); a
+    leaf split over ``data_axes`` (fsdp) gathered whole over them after
+    the cast (``_data_split``)."""
     from torch.distributed.tensor import DTensor
-    out = {}
-    for k, p in params.named_parameters():
+    named = dict(params.named_parameters())
+    for k, p in named.items():
         if not isinstance(p, DTensor) or p.device_mesh != mesh:
             raise ValueError(f"parameter {k!r} is not a DTensor on the "
                              f"step's mesh (sharding.shard_params)")
-        out[k] = p.to_local().detach().to(dt)
+    split = _data_split(named, mesh, data_axes)
+    out = {}
+    for k, p in named.items():
+        t = p.to_local().detach().to(dt)
+        if k in split:
+            dim, axes = split[k]
+            # the innermost data axis first: local_shard cuts the
+            # outermost first
+            for a in reversed(axes):
+                t = all_gather_dim(t, dim, mesh.get_group(a))
+        out[k] = t
     return out
 
 
@@ -415,10 +479,6 @@ class _ServeLayout:
     def __init__(self, cfg: ModelCfg, rules: ShardingRules, mesh):
         _check_mesh_stack(cfg, mesh, step="serve")
         self.rules = rules or ShardingRules(data_axes=data_axes_of(mesh))
-        if self.rules.fsdp:
-            _refuse("fsdp (weights split over the data axes)", "serve")
-        if self.rules.seq_shard:
-            _refuse("seq_shard (sequence-parallel activations)", "serve")
         names = list(mesh.mesh_dim_names)
         self.m = mesh.size(names.index(self.rules.model_axis))
         _check_layout(cfg, self.rules, self.m, step="serve")
@@ -442,11 +502,14 @@ class _ServeLayout:
         """``fn(params, *args)`` on the rank's shards of a global batch of
         ``b`` rows, inside ``model_parallel`` over the model group and,
         where the data axes split the rows, ``data_parallel`` over them (a
-        MoE layer routes on the global batch's groups)."""
-        tensors = _local_tensors(params, self.mesh, self.dt)
+        MoE layer routes on the global batch's groups), and inside
+        ``sequence_parallel`` with ``seq_shard``."""
+        tensors = _local_tensors(params, self.mesh, self.dt,
+                                 tuple(self.rules.data_axes))
         split = self.rows(b) != slice(0, b)
         with model_parallel(self.group), \
-                data_parallel(self.data_groups if split else ()):
+                data_parallel(self.data_groups if split else ()), \
+                sequence_parallel(self.rules.seq_shard):
             return torch.func.functional_call(
                 _OnTensors(params, fn),
                 {"model." + k: v for k, v in tensors.items()}, args)

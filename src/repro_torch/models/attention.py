@@ -75,8 +75,9 @@ from torch import nn
 from repro_torch.configs.base import AttnCfg
 from repro_torch.distributed import collectives as coll
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import apply_rope, dense_init, from_model, \
-    model_group, model_rank, norm_apply, param, to_model
+from repro_torch.models.layers import act_from_model, act_to_model, \
+    apply_rope, dense_init, model_group, model_rank, norm_apply, param, \
+    seq_param, to_model
 
 # key of a dense cache dict that a tensor-parallel serve step marks: (rank
 # on the model axis, its size M, whether the ring's rows split over it)
@@ -311,12 +312,13 @@ def _project_qkv(p: Attention, x: torch.Tensor, positions: torch.Tensor,
     (..., S, Hkv, dh) — projected from ``kv_x`` when given (cross
     attention, never rotated). Under ``layers.model_parallel`` H and Hkv
     are the shard's heads (Hkv every KV head where ``kv_replicated``):
-    the replicated inputs pass ``to_model``, and so do the per-head norm
-    scales, which act on the local heads only."""
+    the replicated inputs pass ``to_model`` (x: ``act_to_model``, which
+    gathers a sequence shard), and so do the per-head norm scales, which
+    act on the local heads only."""
     cfg = p.cfg
     d = x.shape[-1]
+    x = act_to_model(x)
     lead = x.shape[:-1]
-    x = to_model(x)
     q = torch.matmul(x, p.wq.reshape(d, -1)).reshape(*lead,
                                                      *p.wq.shape[1:])
     k, v = project_kv(p, x if kv_x is None else to_model(kv_x))
@@ -331,10 +333,11 @@ def _project_qkv(p: Attention, x: torch.Tensor, positions: torch.Tensor,
 
 def _out_proj(p: Attention, out: torch.Tensor) -> torch.Tensor:
     """(..., H, dh) @ wo -> (..., d), summed over the model axis under
-    ``layers.model_parallel``."""
+    ``layers.model_parallel`` (onto the rank's rows of a sequence shard:
+    ``act_from_model``)."""
     h, dh, d = p.wo.shape
-    return from_model(torch.matmul(out.reshape(*out.shape[:-2], h * dh),
-                                   p.wo.reshape(h * dh, d)))
+    return act_from_model(torch.matmul(out.reshape(*out.shape[:-2], h * dh),
+                                       p.wo.reshape(h * dh, d)))
 
 
 # ---------------------------------------------------------------------------
@@ -383,27 +386,30 @@ def _mla_project(p: Attention, x: torch.Tensor, positions: torch.Tensor,
     under ``layers.model_parallel`` the shard's heads. The down-projections
     and their norms are replicated and run whole on every rank; what the
     split up-projections and heads consume — ``ql`` (x without q_lora),
-    the latent and k_rope — passes ``to_model``, so every replicated
-    parameter's gradient sums over the model axis."""
+    the latent and k_rope's lane before its rotation — passes
+    ``act_to_model``, so every replicated parameter's gradient sums over
+    the model axis. On a sequence shard the down-projections and their
+    norms run on the rank's rows (``seq_param``: their gradients summed
+    over the model axis) and ``act_to_model`` gathers what they give."""
     cfg = p.cfg
     d = x.shape[-1]
-    lead = x.shape[:-1]
     if cfg.q_lora:
-        ql = to_model(norm_apply("rmsnorm", p.q_norm,
-                                 torch.matmul(x, p.wdq), eps=eps))
+        ql = act_to_model(norm_apply("rmsnorm", seq_param(p.q_norm),
+                                     torch.matmul(x, seq_param(p.wdq)),
+                                     eps=eps))
         q = torch.matmul(ql, p.wuq.reshape(cfg.q_lora, -1))
         heads = p.wuq.shape[1]
     else:
-        q = torch.matmul(to_model(x), p.wq.reshape(d, -1))
+        q = torch.matmul(act_to_model(x), p.wq.reshape(d, -1))
         heads = p.wq.shape[1]
-    q = q.reshape(*lead, heads, cfg.qk_nope + cfg.qk_rope)
+    q = q.reshape(*q.shape[:-1], heads, cfg.qk_nope + cfg.qk_rope)
     q_nope, q_rope = q[..., :cfg.qk_nope], q[..., cfg.qk_nope:]
     q_rope = apply_rope(q_rope, positions, theta=cfg.rope_theta)
-    dkv = torch.matmul(x, p.wdkv)
-    latent = to_model(norm_apply("rmsnorm", p.kv_norm,
-                                 dkv[..., :cfg.kv_lora], eps=eps))
-    k_rope = to_model(apply_rope(dkv[..., cfg.kv_lora:], positions,
-                                 theta=cfg.rope_theta))
+    dkv = torch.matmul(x, seq_param(p.wdkv))
+    latent = act_to_model(norm_apply("rmsnorm", seq_param(p.kv_norm),
+                                     dkv[..., :cfg.kv_lora], eps=eps))
+    k_rope = apply_rope(act_to_model(dkv[..., cfg.kv_lora:]), positions,
+                        theta=cfg.rope_theta)
     return q_nope, q_rope, latent, k_rope
 
 
@@ -418,9 +424,9 @@ def _mla_forward(p: Attention, x: torch.Tensor, *, positions, norm_eps,
     wide), and flash attention runs with d_v != d_qk. The cache keeps the
     latent and k_rope."""
     cfg = p.cfg
-    b, s, _ = x.shape
     h = p.wuk.shape[1]
     q_nope, q_rope, latent, k_rope = _mla_project(p, x, positions, norm_eps)
+    b, s, _ = latent.shape              # the whole sequence, gathered
     k_nope = torch.matmul(latent, p.wuk.reshape(cfg.kv_lora, -1)).reshape(
         b, s, h, cfg.qk_nope)
     v = torch.matmul(latent, p.wuv.reshape(cfg.kv_lora, -1)).reshape(

@@ -58,14 +58,15 @@ from repro_torch.models import rglru as rgm
 from repro_torch.models import rwkv as rkm
 from repro_torch.models.mlp import mlp_apply
 from repro_torch.models.transformer import (_dtype, _embed_tokens,
-                                            _head_weights, _segment_forward,
+                                            _head_weights,
                                             block_norm, cast_params,
-                                            channel_mix, encode, final_norm,
+                                            channel_mix, embed_inputs,
+                                            encode, final_norm, seq_forward,
                                             soi_compress,
                                             soi_extrapolate, soi_fuse,
                                             soi_partition, softcap_logits,
-                                            split_blocks)
-from repro_torch.models.layers import model_group
+                                            split_blocks, whole_forward)
+from repro_torch.models.layers import gather_seq, model_group, split_seq
 
 
 # ---------------------------------------------------------------------------
@@ -393,6 +394,12 @@ def prefill(params, cfg: ModelCfg, tokens, *, prefix_embeds=None,
     ``encoder_frames`` (B, n_frames, d_enc): the encoder runs once and the
     state carries every cross layer's K/V of its output. SOI configs
     prefill decoder-only causal token stacks only, as in the reference.
+
+    Under ``layers.sequence_parallel`` the blocks run on the rank's rows
+    of the carry where the model axis divides its length (``trunk``'s
+    layout), gathered whole around SOI's compress and fusion and before
+    the last row; attention, the RG-LRU and a MoE gather the sequence, so
+    the caches are the unsplit run's.
     """
     params = cast_params(params, cfg)
     b, s = tokens.shape
@@ -419,19 +426,20 @@ def prefill(params, cfg: ModelCfg, tokens, *, prefix_embeds=None,
                 f"encoder_frames (B, {cfg.encoder.n_frames}, "
                 f"{cfg.encoder.d_model})")
         enc_out = encode(params, cfg, encoder_frames)
-    x = _embed_tokens(params, cfg, tokens)
-    if prefix_embeds is not None:
-        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
-    positions = torch.arange(x.shape[1], device=x.device)[None]
+    x, split = embed_inputs(params, cfg, tokens, prefix_embeds)
+    s_all = s + (0 if prefix_embeds is None else prefix_embeds.shape[1])
+    positions = torch.arange(s_all, device=x.device)[None]
     prefix_len = cfg.frontend_len if cfg.prefix_lm else 0
 
     if cfg.soi is None:
-        state = {"t": torch.full((b,), x.shape[1] if tl is None else tl,
+        state = {"t": torch.full((b,), s_all if tl is None else tl,
                                  dtype=torch.int32, device=x.device)}
-        x, state["segments"] = _segment_forward(
-            params.blocks, cfg, x, positions=positions, prefix_len=prefix_len,
-            enc_out=enc_out, collect_cache=True, batch=b, max_len=max_len,
-            true_length=tl)
+        x, state["segments"] = seq_forward(
+            params.blocks, cfg, x, split, positions=positions,
+            prefix_len=prefix_len, enc_out=enc_out, collect_cache=True,
+            batch=b, max_len=max_len, true_length=tl)
+        if split:
+            x = gather_seq(x)
         if enc_out is not None:
             state.update(fill_cross_kv(params, enc_out))
         return _prefill_out(params, cfg, _last_real(x, tl), state)
@@ -445,10 +453,10 @@ def prefill(params, cfg: ModelCfg, tokens, *, prefix_embeds=None,
     soi = cfg.soi
     st = soi.stride
     pre, mid, post = split_blocks(params, cfg)
-    x, state["pre"] = _segment_forward(pre, cfg, x, positions=positions,
-                                       collect_cache=True, batch=b,
-                                       max_len=max_len, true_length=tl)
-    skip = x
+    x, state["pre"] = seq_forward(pre, cfg, x, split, positions=positions,
+                                  collect_cache=True, batch=b,
+                                  max_len=max_len, true_length=tl)
+    skip = x = gather_seq(x) if split else x
     # conv window: the last stride-1 pre-trunk frames before the true length
     # (zero-padded for prompts shorter than the window)
     end = s if tl is None else tl
@@ -458,7 +466,7 @@ def prefill(params, cfg: ModelCfg, tokens, *, prefix_embeds=None,
     xc = soi_compress(params, soi, x)
     cpos = torch.arange(xc.shape[1], device=x.device)[None]
     n_frames = None if tl is None else (tl + st - 1) // st
-    xc, state["mid"] = _segment_forward(
+    xc, state["mid"] = whole_forward(
         mid, cfg, xc, positions=cpos, collect_cache=True, batch=b,
         max_len=soi_mid_len(max_len, st), true_length=n_frames)
     # extrapolation queue: stride copies of the last REAL middle frame
@@ -466,9 +474,12 @@ def prefill(params, cfg: ModelCfg, tokens, *, prefix_embeds=None,
     state["queue"] = last[:, None].expand(b, st, last.shape[-1]).contiguous()
 
     x = soi_fuse(params, soi_extrapolate(soi, xc, s), skip)
-    x, state["post"] = _segment_forward(post, cfg, x, positions=positions,
-                                        collect_cache=True, batch=b,
-                                        max_len=max_len, true_length=tl)
+    x, state["post"] = seq_forward(post, cfg, split_seq(x) if split else x,
+                                   split, positions=positions,
+                                   collect_cache=True, batch=b,
+                                   max_len=max_len, true_length=tl)
+    if split:
+        x = gather_seq(x)
     return _prefill_out(params, cfg, _last_real(x, tl), state)
 
 

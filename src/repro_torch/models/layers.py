@@ -18,6 +18,20 @@ router's logits of the rank's experts -> all of them) and, inside
 ``data_parallel(groups)``, the data groups its rows are split over:
 ``data_size`` (the global token count is the local one times it) and
 ``reduce_from_data`` (the router's statistics over the global batch).
+
+Sequence parallelism (Megatron's): inside ``sequence_parallel()`` the
+trunk splits its block carry (B, S, d) on the sequence over the model axis
+wherever the axis divides S (``seq_splits``), and runs the blocks on the
+shards inside ``seq_sharded(True)``. There the block's activation passes
+``act_to_model`` (an all-gather of the sequence, reduce-scatter backward)
+into its split projections and ``act_from_model`` (a reduce-scatter onto
+the rank's rows, all-gather backward) out of them, and every replicated
+parameter that acts on the rank's rows passes ``seq_param`` (the gradient
+summed over the model axis, as ``to_model`` does). Elsewhere the pair is
+``to_model`` / ``from_model`` and ``seq_param`` the identity.
+``to_model`` / ``from_model`` on a parameter or a scalar (the KV weights
+a rank holds whole, the per-head norms, the MoE aux loss) keep their copy
+and all-reduce everywhere.
 """
 
 from __future__ import annotations
@@ -36,6 +50,9 @@ _MODEL_GROUP = None
 # the data-axis groups the rows of the region are split over (): the rows
 # are the whole batch
 _DATA_GROUPS = ()
+# sequence parallelism asked for; the block carry split on its sequence
+_SEQ_PARALLEL = False
+_SEQ_SHARDED = False
 
 
 @contextlib.contextmanager
@@ -112,6 +129,81 @@ def from_model(x: torch.Tensor) -> torch.Tensor:
     if _MODEL_GROUP is None:
         return x
     return coll.reduce_from_model(x, _MODEL_GROUP)
+
+
+@contextlib.contextmanager
+def sequence_parallel(on: bool = True):
+    """Let the trunk split its block carry on the sequence over the model
+    axis of the enclosing ``model_parallel`` (``seq_splits``)."""
+    global _SEQ_PARALLEL
+    prev, _SEQ_PARALLEL = _SEQ_PARALLEL, bool(on)
+    try:
+        yield
+    finally:
+        _SEQ_PARALLEL = prev
+
+
+def seq_splits(s: int) -> bool:
+    """Whether a carry of ``s`` positions splits over the model axis:
+    inside ``sequence_parallel`` and ``model_parallel``, where the axis
+    divides ``s`` (else it stays whole, as the reference's ``spec_for``
+    replicates it)."""
+    return (_SEQ_PARALLEL and _MODEL_GROUP is not None
+            and s % dist.get_world_size(_MODEL_GROUP) == 0)
+
+
+@contextlib.contextmanager
+def seq_sharded(on: bool):
+    """Run blocks on a carry split on its sequence (``on``) or whole."""
+    global _SEQ_SHARDED
+    prev, _SEQ_SHARDED = _SEQ_SHARDED, bool(on)
+    try:
+        yield
+    finally:
+        _SEQ_SHARDED = prev
+
+
+def _sharded() -> bool:
+    return _SEQ_SHARDED and _MODEL_GROUP is not None
+
+
+def act_to_model(x: torch.Tensor) -> torch.Tensor:
+    """A block's activation (B, S, d) into projections whose outputs the
+    model axis splits: on a sequence shard the whole sequence gathered
+    (reduce-scatter backward), else ``to_model``."""
+    if _sharded():
+        return coll.gather_seq_to_model(x, 1, _MODEL_GROUP)
+    return to_model(x)
+
+
+def act_from_model(x: torch.Tensor) -> torch.Tensor:
+    """A block's partial output (B, S, d) of split projections: on a
+    sequence shard summed onto the rank's rows (all-gather backward), else
+    ``from_model``."""
+    if _sharded():
+        return coll.scatter_seq_from_model(x, 1, _MODEL_GROUP)
+    return from_model(x)
+
+
+def seq_param(p):
+    """A replicated parameter (or None) that acts on the rank's rows of a
+    sequence shard: its gradient summed over the model axis; else ``p``."""
+    if p is None or not _sharded():
+        return p
+    return coll.copy_to_model(p, _MODEL_GROUP)
+
+
+def split_seq(x: torch.Tensor) -> torch.Tensor:
+    """A whole carry (B, S, d), the same on every model rank -> the rank's
+    rows (all-gather backward)."""
+    return coll.split_seq(x, 1, _MODEL_GROUP)
+
+
+def gather_seq(x: torch.Tensor) -> torch.Tensor:
+    """The rank's rows of a carry -> the whole sequence (the rank's rows of
+    the gradient backward)."""
+    return coll.gather_seq(x, 1, _MODEL_GROUP)
+
 
 _TRUNC = 3.0
 

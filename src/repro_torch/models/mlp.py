@@ -12,8 +12,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import MLPCfg
-from repro_torch.models.layers import dense_init, from_model, param, \
-    to_model
+from repro_torch.models.layers import act_from_model, act_to_model, \
+    dense_init, param
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -52,11 +52,13 @@ class MLP(nn.Module):
 
 def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
     """x: (..., d) -> (..., d); under ``layers.model_parallel`` on the
-    shard's ff columns, summed over the model axis."""
-    x = to_model(x)
+    shard's ff columns, summed over the model axis (a sequence shard's x
+    gathered, the sum scattered onto its rows: ``act_to_model`` /
+    ``act_from_model``)."""
+    x = act_to_model(x)
     h = torch.matmul(x, p.up)
     if p.gated:
         h = h * p.act(torch.matmul(x, p.gate))
     else:
         h = p.act(h)
-    return from_model(torch.matmul(h, p.down))
+    return act_from_model(torch.matmul(h, p.down))

@@ -33,9 +33,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import MoECfg
-from repro_torch.models.layers import (data_size, dense_init, from_model,
+from repro_torch.models.layers import (act_from_model, act_to_model,
+                                       data_size, dense_init, from_model,
                                        gather_from_model, model_rank, param,
-                                       reduce_from_data, to_model)
+                                       reduce_from_data)
 
 
 class MoE(nn.Module):
@@ -103,12 +104,16 @@ def moe_apply(p: MoE, x: torch.Tensor, *, capacity: int | None = None,
     ranks' partial outputs. The aux loss takes the routing statistics
     summed over the data ranks; each model rank adds its own experts'
     terms, and ``from_model`` sums them, so the logits' gather-backward
-    counts its gradient once. Outside both regions every hook is the
-    identity and this is the reference's computation, op for op."""
+    counts its gradient once. A sequence shard's x is gathered first and
+    the sum scattered back onto its rows (``act_to_model`` /
+    ``act_from_model``), so the groups are the whole sequence's. Outside
+    these regions every hook is the identity and this is the reference's
+    computation, op for op."""
     cfg = p.cfg
+    x = act_to_model(x)
     shape = x.shape
     d = shape[-1]
-    xt = to_model(x.reshape(-1, d))
+    xt = x.reshape(-1, d)
     t = xt.shape[0]
     e, k = cfg.n_experts, cfg.top_k
     n_data = data_size()
@@ -178,4 +183,4 @@ def moe_apply(p: MoE, x: torch.Tensor, *, capacity: int | None = None,
     y = y.reshape(t, d)
     if cfg.n_shared:
         y = y + _shared(p, xt)
-    return from_model(y).reshape(shape), aux
+    return act_from_model(y.reshape(shape)), aux

@@ -22,7 +22,10 @@ w channels (``ff``; the gates' blocks on ``heads``): x passes ``to_model``
 before ``wa`` and ``wb``, the conv, gates, decay and scan act on the w/M
 local channels (so do the decode state's ``h`` and ``conv``), and the
 output projection's partial sums add up over the model axis
-(``from_model``). The head count and the widths are the weights'.
+(``from_model``). The head count and the widths are the weights'. On a
+sequence shard (``layers.seq_sharded``) the full-sequence forward gathers
+x first and scatters the sum onto the rank's rows (``act_to_model`` /
+``act_from_model``): the scan sees the whole sequence.
 """
 
 from __future__ import annotations
@@ -33,8 +36,8 @@ from torch import nn
 
 from repro_torch.configs.base import RGLRUCfg
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import dense_init, from_model, param, \
-    to_model
+from repro_torch.models.layers import act_from_model, act_to_model, \
+    dense_init, from_model, param, to_model
 from repro_torch.models.mlp import gelu
 
 _C = 8.0
@@ -99,8 +102,8 @@ def rglru_forward(p: RGLRU, x: torch.Tensor):
     (zero-padded as the streaming window is for S < conv_width-1) — so
     decode resumes at position S."""
     nh = p.wr.shape[0]
+    x = act_to_model(x)
     s = x.shape[1]
-    x = to_model(x)
     ga = gelu(torch.matmul(x, p.wa))
     xb = torch.matmul(x, p.wb)
     k = p.conv.shape[0]
@@ -108,7 +111,7 @@ def rglru_forward(p: RGLRU, x: torch.Tensor):
     xc = sum(xp[:, i:s + i] * p.conv[i] for i in range(k)) + p.conv_b
     a, bx = _a_and_b(p, xc, nh)
     h, h_last = kops.lru_scan(a.contiguous(), bx.contiguous())
-    y = from_model(torch.matmul(h.to(x.dtype) * ga, p.wo))
+    y = act_from_model(torch.matmul(h.to(x.dtype) * ga, p.wo))
     # a copy: the state must not keep the whole (B, S, w) scan alive
     return y, {"h": h_last.to(torch.float32, copy=True),
                "conv": xp[:, s:].contiguous()}

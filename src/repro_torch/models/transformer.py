@@ -51,7 +51,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import rglru as rgm
 from repro_torch.models import rwkv as rkm
 from repro_torch.models.layers import dense_init, embed_init, from_model, \
-    model_group, norm_apply, param, trunc_normal
+    gather_seq, model_group, norm_apply, param, seq_param, seq_sharded, \
+    seq_splits, split_seq, trunc_normal
 from repro_torch.models.mlp import MLP, mlp_apply
 from repro_torch.models.moe import MoE, moe_apply
 
@@ -120,16 +121,20 @@ class Block(nn.Module):
 
 def block_norm(bp: Block, which, x, eps: float):
     """The block's norm before its sequence mixer (``which`` 1), its
-    channel mixer (2) or its cross attention ("x"), of the block's kind."""
-    return norm_apply(bp.bcfg.norm, getattr(bp, f"ln{which}"), x,
-                      bias=getattr(bp, f"ln{which}_bias"), eps=eps)
+    channel mixer (2) or its cross attention ("x"), of the block's kind
+    (on a sequence shard its scale and bias pass ``seq_param``)."""
+    return norm_apply(bp.bcfg.norm, seq_param(getattr(bp, f"ln{which}")), x,
+                      bias=seq_param(getattr(bp, f"ln{which}_bias")),
+                      eps=eps)
 
 
 def final_norm(params, cfg: ModelCfg, x):
     """The final norm, of the first block's kind (the reference's
-    ``cfg.segments[0].blocks[0].norm``)."""
-    return norm_apply(cfg.segments[0].blocks[0].norm, params.final_norm, x,
-                      bias=params.final_norm_bias, eps=cfg.norm_eps)
+    ``cfg.segments[0].blocks[0].norm``; ``seq_param`` as ``block_norm``)."""
+    return norm_apply(cfg.segments[0].blocks[0].norm,
+                      seq_param(params.final_norm), x,
+                      bias=seq_param(params.final_norm_bias),
+                      eps=cfg.norm_eps)
 
 
 def channel_mix(bp: Block, x, aux: list | None = None):
@@ -364,7 +369,7 @@ def soi_fuse(params: Transformer, xu, skip):
 # ---------------------------------------------------------------------------
 
 def _embed_tokens(params: Transformer, cfg: ModelCfg, tokens,
-                  positions=None):
+                  positions=None, split: bool = False):
     """tokens (B, S) -> (B, S, d) in the compute dtype; gemma configs
     (``embed_scale``) multiply by sqrt(d), cast to that dtype first; a
     learned position table adds its rows 0..S-1, or the rows of
@@ -373,11 +378,16 @@ def _embed_tokens(params: Transformer, cfg: ModelCfg, tokens,
     in a fixed order (``index_select``'s adds them with atomics), so a
     train step repeats bit for bit. A vocab split over the model axis
     (``layers.model_parallel``) looks up the shard's rows only, zero for
-    the others, and sums over the model axis."""
+    the others, and sums over the model axis. With ``split`` (sequence
+    parallelism) the result is this model rank's rows (B, S/M, d): the
+    vocab-split sum a reduce-scatter onto them."""
     if params.embed.shape[0] != cfg.vocab:
-        x = _vocab_parallel_embed(params.embed, tokens).to(_dtype(cfg))
+        x = _vocab_parallel_embed(params.embed, tokens, split).to(
+            _dtype(cfg))
     else:
         x = F.embedding(tokens.long(), params.embed).to(_dtype(cfg))
+        if split:
+            x = split_seq(x)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     if cfg.learned_pos_len:
@@ -392,9 +402,10 @@ def _vocab_range(group, v_loc: int) -> int:
     return dist.get_rank(group) * v_loc
 
 
-def _vocab_parallel_embed(embed, tokens):
+def _vocab_parallel_embed(embed, tokens, split: bool = False):
     """Masked local lookup of a vocab-split table, then the sum over the
-    model axis (one shard holds each token's row)."""
+    model axis (one shard holds each token's row): with ``split`` onto
+    this rank's rows of the sequence."""
     group = model_group()
     if group is None:
         raise RuntimeError("a vocab-split embedding needs "
@@ -403,7 +414,10 @@ def _vocab_parallel_embed(embed, tokens):
     t = tokens.long() - _vocab_range(group, v_loc)
     inside = (t >= 0) & (t < v_loc)
     x = F.embedding(torch.clamp(t, 0, v_loc - 1), embed)
-    return from_model(x * inside[..., None].to(x.dtype))
+    x = x * inside[..., None].to(x.dtype)
+    if split:
+        return coll.scatter_seq_from_model(x, 1, group)
+    return from_model(x)
 
 
 @torch.no_grad()
@@ -430,6 +444,41 @@ def encoder_trunk(params: Transformer, cfg: ModelCfg, frames):
     return x
 
 
+def embed_inputs(params: Transformer, cfg: ModelCfg, tokens,
+                 prefix_embeds=None):
+    """(x, split) of the trunk's input: the token embeddings after
+    ``prefix_embeds`` (B, P, d) when given, and whether the carry splits
+    on its sequence over the model axis (``layers.seq_splits``) — x then
+    the rank's rows."""
+    s = tokens.shape[1] + (0 if prefix_embeds is None
+                           else prefix_embeds.shape[1])
+    split = seq_splits(s)
+    x = _embed_tokens(params, cfg, tokens,
+                      split=split and prefix_embeds is None)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        if split:
+            x = split_seq(x)
+    return x, split
+
+
+def seq_forward(blocks, cfg: ModelCfg, x, split: bool, **kw):
+    """``_segment_forward`` on a carry that is the rank's rows where
+    ``split`` (``layers.seq_sharded``), else whole."""
+    with seq_sharded(split):
+        return _segment_forward(blocks, cfg, x, **kw)
+
+
+def whole_forward(blocks, cfg: ModelCfg, x, **kw):
+    """``_segment_forward`` from and to a whole carry (the SOI middle):
+    split on its sequence over the model axis for the blocks where
+    ``layers.seq_splits`` says so."""
+    split = seq_splits(x.shape[1])
+    x, caches = seq_forward(blocks, cfg, split_seq(x) if split else x,
+                            split, **kw)
+    return (gather_seq(x) if split else x), caches
+
+
 def trunk(params: Transformer, cfg: ModelCfg, tokens, *, prefix_embeds=None,
           enc_out=None, aux: list | None = None):
     """Token embeddings (after ``prefix_embeds`` (B, P, d), when given) ->
@@ -438,29 +487,34 @@ def trunk(params: Transformer, cfg: ModelCfg, tokens, *, prefix_embeds=None,
     bidirectionally (outside the SOI middle, as in the reference). With
     ``aux`` (a list) every MoE layer appends its router's aux loss, the
     compressed middle's included, in the reference's order (pre, middle,
-    post)."""
-    x = _embed_tokens(params, cfg, tokens)
-    if prefix_embeds is not None:
-        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
-    s = x.shape[1]
+    post). Under ``layers.sequence_parallel`` the carry between blocks is
+    the rank's rows where the model axis divides its length, gathered
+    whole around SOI's compress, extrapolation and fusion and at the
+    end."""
+    x, split = embed_inputs(params, cfg, tokens, prefix_embeds)
+    s = tokens.shape[1] + (0 if prefix_embeds is None
+                           else prefix_embeds.shape[1])
     positions = torch.arange(s, device=x.device)[None]
     kw = dict(prefix_len=cfg.frontend_len if cfg.prefix_lm else 0,
               enc_out=enc_out, aux=aux)
     if cfg.soi is None:
-        x, _ = _segment_forward(params.blocks, cfg, x, positions=positions,
-                                **kw)
+        x, _ = seq_forward(params.blocks, cfg, x, split,
+                           positions=positions, **kw)
     else:
         soi = cfg.soi
         pre, mid, post = split_blocks(params, cfg)
-        x, _ = _segment_forward(pre, cfg, x, positions=positions, **kw)
-        skip = x
+        x, _ = seq_forward(pre, cfg, x, split, positions=positions, **kw)
+        skip = x = gather_seq(x) if split else x
         xc = soi_compress(params, soi, x)
         cpos = torch.arange(xc.shape[1], device=x.device)[None]
-        xc, _ = _segment_forward(mid, cfg, xc, positions=cpos,
-                                 enc_out=enc_out, aux=aux)
+        xc, _ = whole_forward(mid, cfg, xc, positions=cpos,
+                              enc_out=enc_out, aux=aux)
         x = soi_fuse(params, soi_extrapolate(soi, xc, s), skip)
-        x, _ = _segment_forward(post, cfg, x, positions=positions, **kw)
-    return final_norm(params, cfg, x)
+        x, _ = seq_forward(post, cfg, split_seq(x) if split else x, split,
+                           positions=positions, **kw)
+    with seq_sharded(split):
+        x = final_norm(params, cfg, x)
+    return gather_seq(x) if split else x
 
 
 def _head_weights(params: Transformer):
@@ -570,7 +624,8 @@ def xent_sums(h, head_w, targets, *, softcap=None, chunk=256, group=None):
 
 
 def loss_sums(params: Transformer, cfg: ModelCfg, batch: dict,
-              tensors: dict | None = None, aux: list | None = None):
+              tensors: dict | None = None, aux: list | None = None,
+              gather: dict | None = None):
     """(summed masked NLL, count of targets >= 0) of ``batch``, the parts
     of ``loss_fn``'s mean. ``tensors`` ({name: tensor}, default the
     module's parameters) are what the model runs on: a sharded step passes
@@ -588,12 +643,18 @@ def loss_sums(params: Transformer, cfg: ModelCfg, batch: dict,
     the compute dtype *inside* the differentiated function — the model runs
     on the cast copies through ``torch.func.functional_call`` — so the
     gradients reach the float32 masters in float32, and the module itself
-    is not cast (unlike serving's in-place ``cast_params``)."""
+    is not cast (unlike serving's in-place ``cast_params``). ``gather``
+    ({name: fn(tensor, dtype=...)}) replaces the cast of those leaves: an fsdp
+    step's ``collectives.gather_from_data``, which casts the rank's shard
+    and gathers the whole leaf (so the gathered copy is in the compute
+    dtype, and its gradient reaches the shard in float32)."""
     dt = _dtype(cfg)
     if tensors is None:
         tensors = dict(params.named_parameters())
     check_trainable(cfg, tensors["embed"].device)
-    cast = {name: p.to(dt) if p.dtype == torch.float32 else p
+    gather = gather or {}
+    cast = {name: gather[name](p, dtype=dt) if name in gather else
+            p.to(dt) if p.dtype == torch.float32 else p
             for name, p in tensors.items()}
     prefix = batch.get("patch_embeds")
     kw = {"aux": aux, "prefix_embeds": prefix}

@@ -1,7 +1,7 @@
 """Spawned gloo worlds for the port's distributed tests (imported by
 ``tests/test_torch_{collectives,pipeline,sharded_train,sharded_serve,
-sharded_moe,sharded_mla_rglru,train_families}.py``; not a test module
-itself, and it imports
+sharded_moe,sharded_mla_rglru,sharded_fsdp_sp,train_families}.py``; not a
+test module itself, and it imports
 no JAX, so a spawned rank starts quickly).
 
 ``spawn(world, job, tmp_path, **kw)`` starts ``world`` CPU processes with
@@ -15,6 +15,8 @@ reference in its own process.
 
 from __future__ import annotations
 
+import contextlib
+import math
 import os
 import pickle
 
@@ -141,13 +143,25 @@ def _pipeline(rank, world, tmp):
     _save(tmp, f"pipeline_out_{rank}.pkl", y.numpy())
 
 
-def _mesh(meshes: dict, shape):
-    """The (data, model) gloo mesh of ``shape``, one a shape a job."""
+def _mesh(meshes: dict, shape, names=("data", "model")):
+    """The gloo mesh of ``shape`` over the axes ``names`` (data, model by
+    default), one a shape a job."""
     from repro_torch.launch.mesh import make_mesh
-    if shape not in meshes:
-        meshes[shape] = make_mesh(shape, ("data", "model"),
-                                  device_type="cpu")
-    return meshes[shape]
+    key = (tuple(shape), tuple(names))
+    if key not in meshes:
+        meshes[key] = make_mesh(shape, names, device_type="cpu")
+    return meshes[key]
+
+
+def _case_layout(meshes: dict, case: dict):
+    """(mesh, rules) of a case: its ``names`` (default data, model), the
+    data axes all but the model axis, and its ``rules`` flags (fsdp,
+    seq_shard)."""
+    from repro_torch.distributed.sharding import ShardingRules
+    names = tuple(case.get("names", ("data", "model")))
+    mesh = _mesh(meshes, case["mesh"], names)
+    return mesh, ShardingRules(data_axes=names[:-1],
+                               **case.get("rules", {}))
 
 
 def _train(rank, world, tmp):
@@ -161,40 +175,88 @@ def _train(rank, world, tmp):
         _save(tmp, "train_out.pkl", out)
 
 
+@contextlib.contextmanager
+def _counting(counts: dict):
+    """Count the calls of ``collectives.split_seq`` and
+    ``collectives.reduce_scatter_dim`` into ``counts`` while inside."""
+    from repro_torch.distributed import collectives as C
+    orig = {k: getattr(C, k) for k in ("split_seq", "reduce_scatter_dim")}
+
+    def counted(k):
+        def fn(*args, **kw):
+            counts[k] = counts.get(k, 0) + 1
+            return orig[k](*args, **kw)
+        return fn
+    for k in orig:
+        setattr(C, k, counted(k))
+    try:
+        yield counts
+    finally:
+        for k, fn in orig.items():
+            setattr(C, k, fn)
+
+
 def _train_cases(cases: dict, meshes: dict) -> dict:
-    """Each case: the sharded step on its mesh for its steps, from the
-    reference-layout numpy weights; the gathered params and moments and
-    the metrics of every step."""
+    """Each case: the sharded step on its mesh (``_case_layout``) for its
+    steps, from the reference-layout numpy weights; the gathered params
+    and moments and the metrics of every step, and with ``bytes`` every
+    rank's ``_state_bytes`` after the steps."""
     from repro_torch.convert import from_jax_params
-    from repro_torch.distributed.sharding import (ShardingRules,
-                                                  gather_params, gather_tree,
+    from repro_torch.distributed.sharding import (gather_params, gather_tree,
                                                   shard_params)
     from repro_torch.launch.steps import local_batch, make_train_step
     from repro_torch.optim import adamw_init
     out = {}
     for name, case in cases.items():
         cfg = case["cfg"]
-        mesh = _mesh(meshes, case["mesh"])
-        rules = ShardingRules(data_axes=("data",))
+        mesh, rules = _case_layout(meshes, case)
         model = shard_params(from_jax_params(case["params"], cfg,
                                              device="cpu"), rules, mesh)
         opt = adamw_init(dict(model.named_parameters()))
         step = make_train_step(cfg, rules, mesh, **case["step_kw"])
         batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
         mine = local_batch(batch, mesh, case["step_kw"]["microbatches"])
-        metrics = []
-        for _ in range(case["steps"]):
-            model, opt, m = step(model, opt, mine)
+        metrics, counts = [], {}
+        for i in range(case["steps"]):
+            with _counting(counts if i == 0 else {}):
+                model, opt, m = step(model, opt, mine)
             metrics.append({k: float(v) for k, v in m.items()})
         got = {"metrics": metrics, "count": int(opt["count"]),
+               "seq_calls": counts,
                "params": {k: v.numpy()
                           for k, v in gather_params(model).items()}}
         for t in ("mu", "nu"):
             got[t] = {k: v.numpy() for k, v in gather_tree(opt[t]).items()}
         if "err" in opt:
             got["err"] = {k: v.numpy() for k, v in opt["err"].items()}
+        if case.get("bytes"):
+            got["bytes"] = [None] * dist.get_world_size()
+            dist.all_gather_object(got["bytes"],
+                                   _state_bytes(model, opt, mesh))
         out[name] = got
     return out
+
+
+def _state_bytes(model, opt, mesh) -> dict:
+    """This rank's bytes of the parameter shards and of the moments'
+    (``count`` included), and the leaves whose shard is not
+    1/``shard_factor`` of the whole, by their placements."""
+    from torch.distributed.tensor import Shard
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+    bad, moments = [], nbytes(opt["count"])
+    params = 0
+    for k, p in model.named_parameters():
+        split = math.prod(mesh.size(i) for i, pl in enumerate(p.placements)
+                          if isinstance(pl, Shard))
+        params += nbytes(p.to_local())
+        for t in (p, opt["mu"][k], opt["nu"][k]):
+            if t.to_local().numel() * split != t.numel():
+                bad.append(k)
+        moments += nbytes(opt["mu"][k].to_local()) + \
+            nbytes(opt["nu"][k].to_local())
+    return {"params": params, "moments": moments, "bad": sorted(set(bad))}
 
 
 def _gather_leaf(x, spec, mesh, shape):
@@ -229,7 +291,7 @@ def _serve_cases(cases: dict, meshes: dict, rank, world) -> dict:
     global state), with every rank's leaf shapes and bytes against the
     specs' local shapes and ``per_device_bytes``."""
     from repro_torch.convert import from_jax_params
-    from repro_torch.distributed.sharding import (ShardingRules, axes_size,
+    from repro_torch.distributed.sharding import (axes_size,
                                                   per_device_bytes,
                                                   shard_params)
     from repro_torch.launch import specs as S
@@ -238,8 +300,7 @@ def _serve_cases(cases: dict, meshes: dict, rank, world) -> dict:
     out = {}
     for name, case in cases.items():
         cfg, ml = case["cfg"], case["max_len"]
-        mesh = _mesh(meshes, case["mesh"])
-        rules = ShardingRules(data_axes=("data",))
+        mesh, rules = _case_layout(meshes, case)
         full = from_jax_params(case["params"], cfg, device="cpu")
         tokens = torch.from_numpy(case["tokens"])
         b = tokens.shape[0]
@@ -248,13 +309,17 @@ def _serve_cases(cases: dict, meshes: dict, rank, world) -> dict:
         model = shard_params(full, rules, mesh)
         prefill = make_prefill(cfg, rules, mesh, max_len=ml)
         step = make_serve_step(cfg, rules, mesh, max_len=ml)
-        row_spec = ("data" if b % mesh.size(0) == 0 else None, None)
+        data = tuple(rules.data_axes)
+        rows_split = b % axes_size(mesh, data) == 0
+        row_spec = ((data if len(data) > 1 else data[0])
+                    if rows_split else None, None)
 
         def gathered(logits):
             return _gather_leaf(logits, row_spec, mesh,
                                 (b, logits.shape[1]))
 
-        logits, state = prefill(model, {"tokens": tokens})
+        with _counting({}) as counts:
+            logits, state = prefill(model, {"tokens": tokens})
         state["t"].sub_(torch.from_numpy(case["stagger"]))
         steps = [gathered(logits).numpy()]
         toks = []
@@ -270,7 +335,7 @@ def _serve_cases(cases: dict, meshes: dict, rank, world) -> dict:
             local_shapes[k] = tuple(
                 d if e is None else d // axes_size(mesh, e)
                 for d, e in zip(w.shape, specs[k]))
-        got = {"logits": steps, "tokens": toks,
+        got = {"logits": steps, "tokens": toks, "seq_calls": counts,
                "shapes_ok": {k: tuple(v.shape) == local_shapes[k]
                              for k, v in mine.items()},
                "dtypes_ok": all(mine[k].dtype == want[k].dtype
@@ -385,7 +450,8 @@ def _refusals(cfg, kv3) -> dict:
     """What each layout the sharded steps do not run raises, on a 2 x 2
     mesh and a 1 x 4 one: training's, and serving's — ``kv3``'s 3 kv
     heads on 1 x 4, whose model axis neither divides them nor is divided
-    by them."""
+    by them —, and compression with fsdp over 2 data ranks; None where a
+    step builds (fsdp and seq_shard, once refused)."""
     from repro_torch.distributed.sharding import ShardingRules
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import (make_prefill, make_serve_step,
@@ -393,12 +459,18 @@ def _refusals(cfg, kv3) -> dict:
     mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
     wide = make_mesh((1, 4), ("data", "model"), device_type="cpu")
     rules = ShardingRules(data_axes=("data",))
+    fsdp = ShardingRules(data_axes=("data",), fsdp=True)
+    seq = ShardingRules(data_axes=("data",), seq_shard=True)
     tries = {
-        "fsdp": lambda: make_train_step(
-            cfg, ShardingRules(data_axes=("data",), fsdp=True), mesh),
-        "seq_shard": lambda: make_train_step(
-            cfg, ShardingRules(data_axes=("data",), seq_shard=True), mesh),
+        "fsdp": lambda: make_train_step(cfg, fsdp, mesh),
+        "seq_shard": lambda: make_train_step(cfg, seq, mesh),
+        "serve fsdp seq_shard": lambda: make_serve_step(
+            cfg, ShardingRules(data_axes=("data",), fsdp=True,
+                               seq_shard=True), mesh, max_len=32),
+        "prefill seq_shard": lambda: make_prefill(cfg, seq, mesh),
         "compress": lambda: make_train_step(cfg, rules, mesh, compress=True),
+        "compress fsdp": lambda: make_train_step(cfg, fsdp, mesh,
+                                                 compress=True),
         "kv_heads": lambda: make_train_step(kv3, rules, wide),
         "serve kv_heads": lambda: make_serve_step(kv3, rules, wide,
                                                   max_len=32),
@@ -450,6 +522,19 @@ def _mla_rglru(rank, world, tmp):
         out["refused"] = _stack_refusals(inp["refuse"])
     if rank == 0:
         _save(tmp, "mla_rglru_out.pkl", out)
+
+
+def _fsdp_sp(rank, world, tmp):
+    """The world of ``tests/test_torch_sharded_fsdp_sp.py``: the serving
+    and training cases of ``fsdp_sp_in.pkl`` (``_serve_cases``,
+    ``_train_cases``), each on its own mesh names and rules; rank 0 saves
+    them."""
+    inp = load(tmp, "fsdp_sp_in.pkl")
+    meshes = {}
+    out = {"serve": _serve_cases(inp["serve"], meshes, rank, world),
+           "train": _train_cases(inp["train"], meshes)}
+    if rank == 0:
+        _save(tmp, "fsdp_sp_out.pkl", out)
 
 
 def _stack_refusals(cfgs: dict) -> dict:
@@ -531,7 +616,8 @@ def _dispatch_refusal(rank, cfg, tokens) -> dict:
 
 
 JOBS = {"collectives": _collectives, "pipeline": _pipeline, "train": _train,
-        "serve": _serve, "moe": _moe, "mla_rglru": _mla_rglru}
+        "serve": _serve, "moe": _moe, "mla_rglru": _mla_rglru,
+        "fsdp_sp": _fsdp_sp}
 
 
 def replay_psum(xs: np.ndarray) -> np.ndarray:

@@ -15,9 +15,11 @@ layers, d 64, 4/2 heads, vocab 256) in float32:
     ranks runs every case (``_torch_ranks``);
   * a one-process 1 x 1 gloo world, bit for bit the plain port step (loss,
     grad norm, params and moments), microbatches 1 and 2, SOI none and pp;
-  * the refusals: fsdp, seq_shard, compression on a split model axis, kv
-    heads that neither divide the model axis nor are divided by it (3 on
-    4 ranks; training and serving), and a CUDA mesh without a card;
+  * the refusals: compression on a split model axis and with fsdp over 2
+    data ranks, kv heads that neither divide the model axis nor are
+    divided by it (3 on 4 ranks; training and serving), and a CUDA mesh
+    without a card; fsdp and seq_shard, once refused, build (their runs:
+    ``tests/test_torch_sharded_fsdp_sp.py``);
   * the MLA (deepseek-v2 smoke pp, MLA + MoE) and RG-LRU (recurrentgemma
     smoke, MQA's KV head replicated) stacks, which the step refused before
     it ran them, from seed-0 weights on the 2 x 2 mesh: one sharded step
@@ -162,12 +164,21 @@ def test_sharded_step_matches_the_jax_unsharded_step(run, name):
 
 
 def test_refusals(run):
+    """fsdp and seq_shard build (train, prefill, serve); compression with
+    fsdp over 2 data ranks joins the refusals."""
     _, out = run
     refused = out["refused"]
-    assert set(refused) == {"fsdp", "seq_shard", "compress", "kv_heads",
-                            "serve kv_heads", "prefill kv_heads"}
+    built = {"fsdp", "seq_shard", "serve fsdp seq_shard", "prefill seq_shard"}
+    assert set(refused) == built | {"compress", "compress fsdp", "kv_heads",
+                                    "serve kv_heads", "prefill kv_heads"}
     for name, msg in refused.items():
-        assert msg is not None and "ROADMAP.md" in msg, name
+        if name in built:
+            assert msg is None, (name, msg)
+        else:
+            assert msg is not None and "ROADMAP.md" in msg, name
+    assert "compress=True with fsdp over 2 data ranks" in \
+        refused["compress fsdp"]
+    assert "model axis of 2" in refused["compress"]
     for name in ("kv_heads", "serve kv_heads", "prefill kv_heads"):
         assert "model axis of 4" in refused[name], name
         assert "'kv_heads' dim 3" in refused[name], name
