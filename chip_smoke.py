@@ -514,7 +514,34 @@ Phases, each printing its own lines:
              x 1024 + 2 steps — tokens equal to one rank's, logits within
              1e-3 — and one train step: loss within 1e-6 and grad norm
              within 2e-5 of one rank's; reduce-scatters counted (> 0).
-28. the kernels JSON line (the decode reads and copy_pages also give their
+28. families-mesh — RWKV, the encoder-decoder and the prefix-LM through
+             the sharded steps; every number beside the card's name and
+             power limit. (0) the kernels at the shapes these paths give
+             them, against their plain versions in f32 and bf16:
+             decode_attention's return_lse on the two halves of whisper's
+             cross K/V (4, 1500, 6, 64) and of paligemma's ring (4, 512, 1,
+             256, G 8), merged in rank order against the whole read;
+             flash_attention and its backward on 3 of whisper's 6 heads
+             (encoder 1500 x 1500, cross 128 x 1500, self 128 causal) at
+             B 8, the bf16 backward timed beside SDPA's. (a) whisper-tiny whole (4 + 4 layers, 51865-row vocab,
+             1500 frames), paligemma-3b (18 layers, 256 random patch
+             embeddings) and rwkv6-1.6b (24, SOI pp) in bf16 through the
+             plain prefill + 8 steps and the same sharded on a (1, 1) NCCL
+             mesh: logits and state bit for bit; then each trained (bf16
+             over f32 masters, B 8 S 128; paligemma at 4 layers, rwkv6 at
+             6) 3 steps plain and 3 sharded, as phase 25 (b), bit for bit;
+             launches held. (b) two gloo processes sharing the card, a (1,
+             2) mesh, float32: whisper-tiny whole (3 of 6 heads, its vocab
+             whole, 750 of 1500 frames' cross K/V a rank), paligemma-3b at
+             2 layers and rwkv6-1.6b at 4 (SOI pp; 16 of 32 heads) through
+             the sharded prefill + 4 steps — tokens equal to one rank's,
+             logits within 1e-3, the split state leaves half the specs'
+             whole — and one train step each against the plain step in the
+             same process: loss within 1e-5, grad norm and first moments
+             within 1e-4 (rwkv6's gradients, behind its clamps, each leaf
+             no further off a float64 run than 10x one process's); bytes
+             the specs', launches held.
+29. the kernels JSON line (the decode reads and copy_pages also give their
              phase-15 launches under "spec"; the kernels phase 16 launches
              their launches there under "obs"; flash_attention and
              flash_attention_bwd phase 17's under "train" and phase 21's
@@ -533,7 +560,9 @@ Phases, each printing its own lines:
              phase 25's sharded olmoe runs' launches under "moe_mesh";
              decode_attention, flash_attention, flash_attention_bwd,
              lru_scan and lru_scan_bwd phase 26's under "mla_rglru_mesh"
-             and phase 27's under "fsdp_sp_mesh"), the card line, and
+             and phase 27's under "fsdp_sp_mesh"; decode_attention,
+             flash_attention and flash_attention_bwd phase 28's launches
+             and (0)'s shapes under "families_mesh"), the card line, and
              last {"ok": true, ...}.
 
 Phases 4-13, 15, 16, 18 and 19 run the engine and the U-Net session as a user does, so
@@ -7027,25 +7056,36 @@ def _mesh_launches(cfg, n_steps) -> dict:
     """The kernel launches of a prefill + ``n_steps`` serve steps of
     ``cfg`` at staggered clocks (every step runs the SOI middle):
     ``flash_attention`` once a prefill for each attention layer without a
-    window (MLA's included; a window takes the plain route),
+    window (MLA's included; a window, and a prefix-LM's prefix, take the
+    plain route), each cross layer and each encoder layer,
     ``lru_scan`` once for each RG-LRU layer, ``decode_attention`` a step
-    for each GQA layer (MLA's dense read is the plain one)."""
+    for each GQA layer and each cross layer (MLA's dense read is the
+    plain one)."""
     from repro_torch.models import transformer as T
     blocks = T.layer_blocks(cfg)
     att = [b.attn for b in blocks if b.attn is not None]
-    return {"flash_attention": sum(a.window is None for a in att),
-            "decode_attention": sum(not a.is_mla for a in att) * n_steps,
+    cross = sum(b.cross_attn is not None for b in blocks)
+    enc = 0 if cfg.encoder is None else sum(
+        seg.n_layers for seg in cfg.encoder.segments)
+    return {"flash_attention": (0 if cfg.prefix_lm else
+                                sum(a.window is None for a in att))
+            + cross + enc,
+            "decode_attention": (sum(not a.is_mla for a in att) + cross)
+            * n_steps,
             "lru_scan": sum(b.rglru is not None for b in blocks)}
 
 
 def _mesh_one_by_one(dev, card, argv=SERVE_ARGV, tag="(b)", flags=None,
-                     n_steps=MESH_STEPS) -> dict:
+                     n_steps=MESH_STEPS, inputs=None,
+                     max_len=MESH_MAX_LEN) -> dict:
     """Phase 24 (b) (phase 25 (a): ``argv`` phase 18's olmoe-1b-7b; phase
     26 (a) and (b): deepseek-v2 and recurrentgemma-9b; phase 27 (a): the
-    same with ``flags`` fsdp and seq_shard): the serving driver's weights
-    and prompts of ``argv`` through the plain steps, then the same model
-    sharded on a (1, 1) NCCL mesh (``ShardingRules(**flags)``) through
-    make_prefill + ``n_steps`` make_serve_step: logits every step and the
+    same with ``flags`` fsdp and seq_shard; phase 28 (a): ``inputs`` —
+    config, weights, and a batch with the stub frontends — in place of the
+    driver's): the serving driver's weights and prompts of ``argv``
+    through the plain steps, then the same model sharded on a (1, 1) NCCL
+    mesh (``ShardingRules(**flags)``) through make_prefill + ``n_steps``
+    make_serve_step, rings of ``max_len`` rows: logits every step and the
     final state bit for bit, launches ``_mesh_launches``'; ms a step, and
     the collectives of one more step after the compared ones, of each.
     Returns the sharded run's launch counts."""
@@ -7057,9 +7097,13 @@ def _mesh_one_by_one(dev, card, argv=SERVE_ARGV, tag="(b)", flags=None,
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import make_prefill, make_serve_step
     t0 = time.perf_counter()
-    cfg, model, prompt, _plens, engine = serve.setup(serve.parse_args(argv))
-    del engine
-    plain = (make_prefill(cfg, max_len=MESH_MAX_LEN), make_serve_step(cfg))
+    if inputs is None:
+        cfg, model, prompt, _plens, engine = serve.setup(
+            serve.parse_args(argv))
+        del engine
+    else:
+        cfg, model, prompt = inputs
+    plain = (make_prefill(cfg, max_len=max_len), make_serve_step(cfg))
     p_out, p_toks, st, p_ms = _mesh_run(*plain, model, prompt, n_steps,
                                         dev)
     p_state = {k: v.clone() for k, v in S.flatten(st).items()}
@@ -7072,8 +7116,8 @@ def _mesh_one_by_one(dev, card, argv=SERVE_ARGV, tag="(b)", flags=None,
         mesh = make_mesh((1, 1), ("data", "model"))
         rules = ShardingRules(data_axes=("data",), **(flags or {}))
         model = shard_params(model, rules, mesh)
-        sharded = (make_prefill(cfg, rules, mesh, max_len=MESH_MAX_LEN),
-                   make_serve_step(cfg, rules, mesh, max_len=MESH_MAX_LEN))
+        sharded = (make_prefill(cfg, rules, mesh, max_len=max_len),
+                   make_serve_step(cfg, rules, mesh, max_len=max_len))
         ops.reset_launch_counts()
         s_out, s_toks, st, s_ms = _mesh_run(*sharded, model, prompt,
                                             n_steps, dev)
@@ -7098,8 +7142,13 @@ def _mesh_one_by_one(dev, card, argv=SERVE_ARGV, tag="(b)", flags=None,
 
     def med(x):
         return sorted(x)[len(x) // 2]
-    print(f"  {tag} {cfg.name} SOI pp, {cfg.n_layers} layers, bf16, B 4 x "
-          f"{prompt.shape[1]}, clocks staggered {MESH_STAGGER}, "
+    tokens = prompt["tokens"] if isinstance(prompt, dict) else prompt
+    print(f"  {tag} {cfg.name} SOI {cfg.soi.mode if cfg.soi else 'none'}, "
+          f"{cfg.n_layers} layers, bf16, B 4 x {tokens.shape[1]}"
+          + "".join(f" + {k} {tuple(v.shape[1:])}" for k, v in (
+              prompt.items() if isinstance(prompt, dict) else ())
+              if k != "tokens")
+          + f", clocks staggered {MESH_STAGGER}, "
           f"{n_steps} steps: make_prefill + make_serve_step on the (1, "
           f"1) NCCL mesh, rules {rules} == the plain steps bit for bit "
           f"(logits of the "
@@ -7113,8 +7162,10 @@ def _mesh_one_by_one(dev, card, argv=SERVE_ARGV, tag="(b)", flags=None,
 
 
 def _mesh_state(prefill, model, prompt):
-    """(logits, state) of a prefill, the clocks staggered."""
-    logits, state = prefill(model, {"tokens": prompt})
+    """(logits, state) of a prefill of ``prompt`` (tokens, or a batch dict
+    with the stub frontends), the clocks staggered."""
+    logits, state = prefill(model, prompt if isinstance(prompt, dict)
+                            else {"tokens": prompt})
     state["t"].sub_(torch.tensor(MESH_STAGGER, dtype=torch.int32,
                                  device=state["t"].device))
     return logits, state
@@ -7283,9 +7334,10 @@ def _moe_cfg(n_layers, first, last, dtype=None):
 
 
 def _mesh_train_one_by_one(dev, card, cfg, tag, label,
-                           peak_gap=None, flags=None) -> dict:
+                           peak_gap=None, flags=None, stubs=None) -> dict:
     """Phase 25 (b), phase 26 (c), phase 27 (a) (``flags`` fsdp and
-    seq_shard): ``cfg`` (bf16 over f32 masters, B 8 S 128), DIST_STEPS
+    seq_shard), phase 28 (a) (``stubs(i)``: batch i's stub frontends):
+    ``cfg`` (bf16 over f32 masters, B 8 S 128), DIST_STEPS
     plain steps, then as many sharded on the (1, 1) mesh
     (``ShardingRules(**flags)``) from the same weights and batches (one
     model on the card at a time); metrics equal, params and moments equal
@@ -7304,7 +7356,9 @@ def _mesh_train_one_by_one(dev, card, cfg, tag, label,
     t0 = time.perf_counter()
     pipe = ShardedLMPipeline(global_batch=8, seq_len=128, vocab=cfg.vocab,
                              seed=0)
-    batches = [_train_batch(pipe, i, dev) for i in range(DIST_STEPS + 1)]
+    batches = [dict(_train_batch(pipe, i, dev), **(stubs(i) if stubs else
+                                                   {}))
+               for i in range(DIST_STEPS + 1)]
     kw = dict(peak_lr=1e-3, warmup=20, total_steps=TRAIN_STEPS)
     mesh = make_mesh((1, 1), ("data", "model"))
     rules = ShardingRules(data_axes=("data",), **(flags or {}))
@@ -8317,6 +8371,499 @@ def fsdp_sp_mesh_phase(dev, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 28. families-mesh: RWKV, the encoder-decoder and the prefix-LM on a mesh
+# ---------------------------------------------------------------------------
+
+# (a) the sharded steps on a (1, 1) NCCL mesh against the plain steps,
+# bf16: a B 4 prompt of FAM_PROMPT tokens (paligemma's 256 patch
+# embeddings ahead of it, whisper's 1500 encoder frames beside it), the
+# clocks staggered, FAM_SERVE_STEPS steps, rings of FAM_MAX_LEN rows;
+# whisper-tiny whole, paligemma-3b and rwkv6-1.6b (SOI pp) served at full
+# depth and trained (bf16 over f32 masters, B 8 S 128) at
+# FAM_TRAIN_LAYERS
+FAM_PROMPT = 128
+FAM_MAX_LEN = 512
+FAM_SERVE_STEPS = 8
+FAM_TRAIN_LAYERS = {"paligemma-3b": 4, "rwkv6-1.6b": 6}
+# (b) two gloo ranks sharing the card on a (1, 2) mesh, f32: whisper-tiny
+# whole (its 51865-row vocab whole on each rank, its 1500 frames' cross
+# K/V split 750 + 750); paligemma-3b at 2 of 18 layers and rwkv6-1.6b at 4
+# of 24 (SOI pp over 1..3): two ranks' f32 training states beside the
+# plain step's and the one-rank serving run's hold on the card with room
+FAM_GLOO_LAYERS = {"paligemma-3b": 2, "rwkv6-1.6b": 4}
+FAM_GLOO_STEPS = 4
+# (b) gates, stated before the first run: logits as phase 24 (c)'s
+# (MESH_GLOO_TOL); the loss relative (FAM_LOSS_TOL), the grad norm
+# relative (FAM_GRAD_TOL); each leaf's rank shard of AdamW's first moment
+# after one step (0.1 x the clipped gradient) relative to the plain one's
+# largest (FAM_GRAD_TOL): the split model axis sums the partial products
+# in another order (phase 26 (d) measured 1.13e-5 for recurrentgemma).
+# RWKV's token-shift mix and decay sit behind clamps, where float32
+# rounding flips whole elements of a gradient (a CPU run at d 512 put one
+# process's float32 first moments 4.2e-2 from the two ranks' at a mix
+# LoRA, each within 2e-3 of a float64 run): its gradients are held to a
+# float64 run of the plain step instead, as phase 23 (b) holds them — the
+# two ranks' no further from it, leaf by leaf, than RATIO_64 x one
+# process's float32 gradients (below FLOOR_64 both are rounding alike)
+FAM_LOSS_TOL = 1e-5
+FAM_GRAD_TOL = 1e-4
+FAM_DIR = ROOT / "build" / "families_mesh"
+# (0) the kernels at the shapes these paths give them, against their plain
+# versions in f32 and bf16: decode_attention's return_lse on the two
+# ranks' halves of (label, B, rows, Hkv, G, dh, first clock or None for
+# the cross read's 1 << 30) — whisper's cross K/V and paligemma's self
+# ring (MQA, the query gathered to its 8 heads), the halves merged in
+# rank order against the whole read; flash_attention and its backward on
+# the rank's 3 of whisper's 6 heads at (label, Sq, Sk, causal), training's
+# B 8 (``_bwd_shape_checks``: the forward's output and lse and the
+# backward against their plain versions, the bf16 backward timed)
+FAM_READS = (("whisper cross read", 4, 1500, 6, 1, 64, None),
+             ("paligemma ring", 4, FAM_MAX_LEN, 1, 8, 256, 256 + FAM_PROMPT))
+FAM_FLASH = (("whisper encoder", 1500, 1500, False),
+             ("whisper cross", FAM_PROMPT, 1500, False),
+             ("whisper self", FAM_PROMPT, FAM_PROMPT, True))
+
+
+def _fam_read_checks(dev, gen) -> dict:
+    """(0) decode_attention with its lse at each FAM_READS shape: each
+    half's (out, lse) against the plain version's, the halves merged
+    against the whole read. Returns {label dtype: record}."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import ref
+    out = {}
+    for label, b, s, hkv, g, dh, clock in FAM_READS:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                       for shape in ((b, hkv * g, dh), (b, s, hkv, dh),
+                                     (b, s, hkv, dh)))
+            pos = torch.arange(s, dtype=torch.int32, device=dev)[None] \
+                .repeat(b, 1)
+            if clock is None:
+                t = torch.full((b,), 1 << 30, dtype=torch.int32, device=dev)
+            else:
+                t = torch.tensor([clock - i for i in range(b)],
+                                 dtype=torch.int32, device=dev)
+                pos = torch.where(pos <= t[:, None], pos,
+                                  torch.full_like(pos, -1))
+            half = s // 2
+            halves, errs, lerrs = [], [], []
+            for r in range(2):
+                sl = slice(r * half, (r + 1) * half)
+                args = (q,) + tuple(x[:, sl].contiguous()
+                                    for x in (k, v, pos)) + (t,)
+                o, lse = DA.decode_attention(*args, return_lse=True)
+                w_o, w_lse = ref.decode_attention(*args, return_lse=True)
+                live = ~torch.isneginf(w_lse)
+                check(torch.equal(~torch.isneginf(lse), live),
+                      f"(0) {label} {dt} half {r}: lse -inf elsewhere")
+                err = float((o.float() - w_o.float()).abs().max())
+                lerr = float((lse[live] - w_lse[live]).abs().max())
+                tol = TOL[dt]
+                if dt == torch.bfloat16:
+                    tol = min(tol, READ_REL_TOL * float(
+                        w_o.float().abs().max()))
+                check(err < tol and lerr < LSE_TOL[dt],
+                      f"(0) {label} {dt} half {r}: max|Δ| out {err} (tol "
+                      f"{tol}), lse {lerr}")
+                errs.append(err)
+                lerrs.append(lerr)
+                halves.append((o, lse))
+            whole = DA.decode_attention(q, k, v, pos, t)
+            merged = ref.merge_partials(torch.stack([h[0] for h in halves]),
+                                        torch.stack([h[1] for h in halves]))
+            merr = float((merged.float() - whole.float()).abs().max())
+            tol = TOL[dt]
+            if dt == torch.bfloat16:
+                tol = min(tol, READ_REL_TOL * float(whole.float().abs()
+                                                    .max()))
+            check(merr < tol, f"(0) {label} {dt}: merged halves vs the "
+                              f"whole read {merr}")
+            shape = f"2 x ({b},{half},{hkv},{dh}) G {g}, return_lse"
+            out[f"{label} {str(dt)[6:]}"] = {
+                "shape": shape, "max_abs_err": max(errs),
+                "lse_max_abs_err": max(lerrs), "merge_err": merr}
+            print(f"  (0) decode_attention {label} {str(dt)[6:]}, {shape}: "
+                  f"max|Δ| out {max(errs):.2e}, lse {max(lerrs):.2e}; "
+                  f"merged in rank order vs the whole ({b},{s},{hkv},{dh}) "
+                  f"read {merr:.2e}", flush=True)
+            del q, k, v, pos, t, halves, whole, merged
+    return out
+
+
+def _fam_stubs(cfg, b, dev, seed) -> dict:
+    """Seeded random stub frontends: paligemma's patch embeddings (b, 256,
+    d) — as phase 23 (c) feeds them, an image encoder's stand-in — and
+    whisper's encoder frames (b, 1500, d_enc)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    if cfg.frontend == "patch_stub":
+        out["patch_embeds"] = torch.randn(
+            (b, cfg.frontend_len, cfg.d_model), generator=gen, device=dev)
+    if cfg.encoder is not None:
+        out["encoder_frames"] = torch.randn(
+            (b, cfg.encoder.n_frames, cfg.encoder.d_model), generator=gen,
+            device=dev)
+    return out
+
+
+def _fam_cfgs():
+    """(a)'s (label, serving config, training config) at full width,
+    bf16."""
+    from repro_torch import configs
+    return tuple((label, configs.get(label, soi=soi),
+                  configs.get(label, soi=soi, **(
+                      {"n_layers": FAM_TRAIN_LAYERS[label]}
+                      if label in FAM_TRAIN_LAYERS else {})))
+                 for label, soi in (("whisper-tiny", None),
+                                    ("paligemma-3b", None),
+                                    ("rwkv6-1.6b", "pp")))
+
+
+def _fam_serve_inputs(cfg, dev, dtype=torch.bfloat16):
+    """(weights in ``dtype``, batch: B 4 tokens and the stubs) from the
+    seed, the same in every process."""
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device=dev).manual_seed(28)
+    model = T.init(cfg, generator=gen, device=dev, dtype=dtype)
+    prompt = torch.randint(0, cfg.vocab, (4, FAM_PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    return model, dict(tokens=prompt, **_fam_stubs(cfg, 4, dev, 29))
+
+
+def _fam_gloo_cfgs():
+    """(b)'s f32 configs: (label, config)."""
+    from repro_torch import configs
+    return tuple((label, dataclasses.replace(configs.get(label, soi=soi, **(
+        {"n_layers": FAM_GLOO_LAYERS[label]} if label in FAM_GLOO_LAYERS
+        else {})), dtype="float32"))
+        for label, soi in (("whisper-tiny", None), ("paligemma-3b", None),
+                           ("rwkv6-1.6b", "pp")))
+
+
+def _fam_rank(rank, world):
+    """(b) one of two gloo ranks sharing the card, a (1, 2) mesh: each
+    config of ``_fam_gloo_cfgs`` served from the seed through the sharded
+    prefill + steps (the state's split leaves' local shapes kept), then
+    one sharded train step and the plain step from the same weights in
+    this process, compared here (AdamW's first moment, as phase 26 (d)).
+    The ranks take the plain step one at a time. Writes the results."""
+    import os
+    import pickle
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import ShardedLMPipeline
+    from repro_torch.distributed.sharding import ShardingRules, shard_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import (local_batch, make_prefill,
+                                          make_serve_step, make_train_step)
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    from torch.distributed.tensor import Shard
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    store = dist.FileStore(str(FAM_DIR / "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh((1, world), ("data", "model"))
+        rules = ShardingRules(data_axes=("data",))
+        kw = dict(peak_lr=1e-3, warmup=20, total_steps=TRAIN_STEPS)
+        out = {}
+        for label, cfg in _fam_gloo_cfgs():
+            r = out[label] = {}
+            model, batch = _fam_serve_inputs(cfg, dev, torch.float32)
+            model = shard_params(model, rules, mesh)
+            r["serve_bytes"] = _moe_param_bytes(model, cfg, rules, mesh)
+            prefill = make_prefill(cfg, rules, mesh, max_len=FAM_MAX_LEN)
+            step = make_serve_step(cfg, rules, mesh, max_len=FAM_MAX_LEN)
+            ops.reset_launch_counts()
+            logits, toks, st, ms = _mesh_run(prefill, step, model, batch,
+                                             FAM_GLOO_STEPS, dev)
+            r["serve_counts"] = ops.launch_counts()
+            r["split"] = {k: tuple(v.shape) for k, v in S.flatten(st).items()
+                          if k.rsplit(".", 1)[-1] in ("k", "S")}
+            r.update(logits=[x.cpu() for x in logits],
+                     tokens=[x.cpu() for x in toks], serve_ms=ms)
+            del model, st, prefill, step, logits
+            _free(dev)
+            dist.barrier()
+
+            pipe = ShardedLMPipeline(global_batch=8, seq_len=128,
+                                     vocab=cfg.vocab, seed=0)
+            batch = dict(_train_batch(pipe, 0, dev),
+                         **_fam_stubs(cfg, 8, dev, 30))
+
+            def init():
+                return T.init(cfg, generator=torch.Generator(device=dev)
+                              .manual_seed(27), device=dev)
+            model = shard_params(init(), rules, mesh)
+            r["train_bytes"] = _moe_param_bytes(model, cfg, rules, mesh)
+            opt = adamw_init(dict(model.named_parameters()))
+            step = make_train_step(cfg, rules, mesh, **kw)
+            ops.reset_launch_counts()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            sm = step(model, opt, local_batch(batch, mesh))[2]
+            torch.cuda.synchronize(dev)
+            r["train_ms"] = (time.perf_counter() - t0) * 1e3
+            r["train_counts"] = ops.launch_counts()
+            shards = {}
+            for k, p in model.named_parameters():
+                dims = [pl.dim for pl in p.placements
+                        if isinstance(pl, Shard)]
+                shards[k] = (dims[0] if dims else None,
+                             opt["mu"][k].to_local().clone())
+            del model, opt, step
+            _free(dev)
+            for turn in range(world):
+                dist.barrier()
+                if turn != rank:
+                    continue
+                plain = init()
+                popt = adamw_init(dict(plain.named_parameters()))
+                pm = make_train_step(cfg, **kw)(plain, popt, batch)[2]
+                rels = []
+                for k, (d, mine) in shards.items():
+                    want = popt["mu"][k]
+                    if d is not None:
+                        want = want.chunk(world, dim=d)[rank]
+                    rels.append((float((mine - want).abs().max()
+                                       / want.abs().max().clamp_min(1e-30)),
+                                 k))
+                rels.sort(reverse=True)
+                r.update(train_metrics={k: float(sm[k]) for k in sm},
+                         plain_metrics={k: float(pm[k]) for k in pm},
+                         grad_rel=rels[0][0], grad_rel_at=rels[0][1],
+                         grad_top=rels[:3], n_leaves=len(shards))
+                if cfg.segments[0].blocks[0].rwkv is not None:
+                    r["anchor64"] = _fam_anchor64(
+                        init, cfg, batch, shards, popt["mu"], r, rank,
+                        world)
+                del plain, popt, shards
+                _free(dev)
+            dist.barrier()
+        with open(FAM_DIR / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _fam_anchor64(init, cfg, batch, shards, mu, r, rank, world):
+    """(b)'s float64 anchor of an RWKV stack: the gradients of a float64
+    copy of the weights (``_float64_grads``; the stack runs no kernel),
+    and of each leaf the rank's shard of the two ranks' float32 gradient
+    and of one process's — each its first moment over 0.1 x the clip's
+    scale (the metrics of ``r``) — off them, over the float64 leaf's
+    largest: [(two ranks', one process's, leaf)], the worst first."""
+    _, g64 = _float64_grads(init(), cfg, batch)
+    scale = {k: 0.1 * min(1.0, 1.0 / r[k]["grad_norm"])
+             for k in ("train_metrics", "plain_metrics")}
+    out = []
+    for k, (d, mine) in shards.items():
+        w, p = g64[k], mu[k]
+        if d is not None:
+            w, p = (t.chunk(world, dim=d)[rank] for t in (w, p))
+        den = w.abs().max().clamp_min(1e-300)
+        out.append((float((mine.double() / scale["train_metrics"]
+                           - w).abs().max() / den),
+                    float((p.double() / scale["plain_metrics"]
+                           - w).abs().max() / den), k))
+    del g64
+    return sorted(out, reverse=True)
+
+
+def _fam_gloo(dev, card) -> dict:
+    """(b): each config's one-rank f32 serving steps here, then two gloo
+    ranks on the card (``_fam_rank``): tokens equal, logits within
+    MESH_GLOO_TOL, the state split as the specs lay it out, launches; the
+    ranks' train steps against their plain steps within FAM_LOSS_TOL and
+    FAM_GRAD_TOL; bytes == the specs'. Returns the ranks' summed launch
+    counts."""
+    import pickle
+    import shutil
+    import torch.multiprocessing as mp
+    from repro_torch.launch.steps import make_prefill, make_serve_step
+    t0 = time.perf_counter()
+    want = {}
+    for label, cfg in _fam_gloo_cfgs():
+        model, batch = _fam_serve_inputs(cfg, dev, torch.float32)
+        n_params = sum(p.numel() for p in model.parameters())
+        logits, toks, st, ms = _mesh_run(
+            make_prefill(cfg, max_len=FAM_MAX_LEN), make_serve_step(cfg),
+            model, batch, FAM_GLOO_STEPS, dev)
+        want[label] = (logits, toks, ms, n_params)
+        del model, st
+        _free(dev)
+    shutil.rmtree(FAM_DIR, ignore_errors=True)
+    FAM_DIR.mkdir(parents=True)
+    t1 = time.perf_counter()
+    mp.spawn(_fam_rank, args=(2,), nprocs=2, join=True)
+    spawn_s = time.perf_counter() - t1
+    ranks = []
+    for r in range(2):
+        with open(FAM_DIR / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    shutil.rmtree(FAM_DIR, ignore_errors=True)
+
+    def med(x):
+        return sorted(x)[len(x) // 2]
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+    totals = {}
+    for label, cfg in _fam_gloo_cfgs():
+        w_logits, w_toks, w_ms, n_params = want[label]
+        err = 0.0
+        for r, rk in enumerate(ranks):
+            g = rk[label]
+            check(all(torch.equal(a, b.cpu()) for a, b in zip(g["tokens"],
+                                                              w_toks)),
+                  f"(b) {label} rank {r}: the 2-rank tokens differ from the "
+                  f"one-rank steps'")
+            err = max([err] + [float((a - b.cpu()).abs().max())
+                               for a, b in zip(g["logits"], w_logits)])
+            for k, shape in g["split"].items():
+                whole = (cfg.encoder.n_frames if k.startswith("cross_kv.")
+                         else FAM_MAX_LEN)
+                if k.endswith(".S"):
+                    ok = shape[1] * 2 == cfg.segments[0].blocks[0].rwkv \
+                        .n_heads
+                else:
+                    ok = shape[1] * 2 == whole
+                check(ok, f"(b) {label} rank {r}: {k} {shape} is not the "
+                          f"specs' half")
+            for what in ("serve_bytes", "train_bytes"):
+                got, spec = g[what]
+                check(got == spec, f"(b) {label} rank {r} {what} {got} != "
+                                   f"the specs' {spec}")
+            sm, pm = g["train_metrics"], g["plain_metrics"]
+            for k, tol in (("loss", FAM_LOSS_TOL),
+                           ("grad_norm", FAM_GRAD_TOL)):
+                check(rel(sm[k], pm[k]) <= tol,
+                      f"(b) {label} rank {r} {k} {sm[k]} vs one rank "
+                      f"{pm[k]}")
+            if "anchor64" in g:
+                for two, one, k in g["anchor64"]:
+                    check(two <= RATIO_64 * max(one, FLOOR_64),
+                          f"(b) {label} rank {r} {k}: the two ranks' "
+                          f"gradient {two:.2e} off the float64 run, one "
+                          f"process's {one:.2e}")
+            else:
+                check(g["grad_rel"] <= FAM_GRAD_TOL,
+                      f"(b) {label} rank {r} gradient {g['grad_rel_at']}: "
+                      f"rel {g['grad_rel']}")
+            want_s = _mesh_launches(cfg, FAM_GLOO_STEPS)
+            check(all(g["serve_counts"][k] == n for k, n in want_s.items()),
+                  f"(b) {label} rank {r}: serving launches "
+                  f"{g['serve_counts']}, want {want_s}")
+            want_t = {"flash_attention": _mesh_launches(cfg, 0)[
+                "flash_attention"]}
+            want_t["flash_attention_bwd"] = want_t["flash_attention"]
+            check(all(g["train_counts"][k] == n for k, n in want_t.items()),
+                  f"(b) {label} rank {r}: training launches "
+                  f"{g['train_counts']}, want {want_t}")
+        check(err < MESH_GLOO_TOL,
+              f"(b) {label} logits {err} from the one-rank steps")
+        for part in ("serve_counts", "train_counts"):
+            for k in ranks[0][label][part]:
+                totals[k] = totals.get(k, 0) + sum(rk[label][part][k]
+                                                   for rk in ranks)
+        g0 = ranks[0][label]
+        print(f"  (b) {label} ({cfg.n_layers} layers, "
+              f"{n_params / 1e9:.3f} B params) f32, two gloo ranks on the "
+              f"card, (1, 2) mesh: serving B 4 x {FAM_PROMPT}, "
+              f"{FAM_GLOO_STEPS} steps, tokens == one rank's, logits "
+              f"max|Δ| {err:.2e} (< {MESH_GLOO_TOL}); split state "
+              f"{sorted(set(g0['split'].values()))}; launches a rank "
+              f"{ {k: v for k, v in g0['serve_counts'].items() if v} }; ms "
+              f"a step (median, host clock) one rank {med(w_ms):.2f}, the "
+              f"ranks {[round(med(rk[label]['serve_ms']), 2) for rk in ranks]}"
+              f" [{card}]", flush=True)
+        print(f"  (b) {label} one train step f32, B 8 S 128, against the "
+              f"plain step in each rank: " + "; ".join(
+                  f"rank {r} loss {rk[label]['train_metrics']['loss']:.7f} "
+                  f"vs {rk[label]['plain_metrics']['loss']:.7f}, grad norm "
+                  f"{rk[label]['train_metrics']['grad_norm']:.6f} vs "
+                  f"{rk[label]['plain_metrics']['grad_norm']:.6f}, worst "
+                  f"first-moment rel {rk[label]['grad_rel']:.2e} "
+                  f"({rk[label]['grad_rel_at']}; top 3 "
+                  f"{[(f'{x:.2e}', k) for x, k in rk[label]['grad_top']]}, "
+                  f"{rk[label]['n_leaves']} leaves)"
+                  + (f", off a float64 run worst (two ranks', one "
+                     f"process's) "
+                     f"{[(f'{a:.2e}', f'{b:.2e}', k) for a, b, k in rk[label]['anchor64'][:3]]}"
+                     if "anchor64" in rk[label] else "")
+                  for r, rk in enumerate(ranks))
+              + f" (gates: loss {FAM_LOSS_TOL}, grad norm {FAM_GRAD_TOL}, "
+              + ("each leaf within RATIO_64 of one process's off float64"
+                 if "anchor64" in g0 else f"first moments {FAM_GRAD_TOL}")
+              + "); launches "
+              f"a rank { {k: v for k, v in g0['train_counts'].items() if v} }"
+              f"; step ms (the first, host clock) "
+              f"{[round(rk[label]['train_ms'], 1) for rk in ranks]}; "
+              f"parameter bytes a rank (== the specs') serving "
+              f"{[rk[label]['serve_bytes'][0] for rk in ranks]}, training "
+              f"{[rk[label]['train_bytes'][0] for rk in ranks]} [{card}]",
+              flush=True)
+    print(f"  (b) spawn + run {spawn_s:.1f} s, (b) "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return totals
+
+
+def families_mesh_phase(dev, card) -> tuple:
+    """Phase 28. Returns (the launch counts of (a)'s sharded runs on the
+    (1, 1) NCCL mesh and of (b)'s two gloo ranks summed, by part; (0)'s
+    records by kernel)."""
+    import torch.distributed as dist
+    phase("28 families-mesh (rwkv6-1.6b, whisper-tiny and paligemma-3b "
+          "through the sharded serve and train steps on a (1, 1) NCCL mesh "
+          "against the plain steps; two gloo ranks on the card, heads, "
+          "cross frames and rings split, whisper's vocab whole)")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(28)
+    shapes = {"decode_attention": _fam_read_checks(dev, gen)}
+    bwd = _bwd_shape_checks([
+        (f"{label} on 3 of 6 heads", 8, sq, sk, (3, 3), (64, 64), causal)
+        for label, sq, sk, causal in FAM_FLASH], dev, gen)
+    shapes["flash_attention_bwd"] = bwd
+    # the forward's output and lse are held inside the same checks
+    shapes["flash_attention"] = {
+        label: {"shape": rec["shape"], "causal": rec.get("causal", True),
+                "held": "output and lse against the plain version, f32 "
+                        "and bf16"} for label, rec in bwd.items()}
+    _free(dev)
+    out = {}
+    for label, scfg, _ in _fam_cfgs():
+        model, batch = _fam_serve_inputs(scfg, dev)
+        out[f"{label} serve"] = _mesh_one_by_one(
+            dev, card, tag="(a)", n_steps=FAM_SERVE_STEPS,
+            inputs=(scfg, model, batch), max_len=FAM_MAX_LEN)
+        del model, batch
+        _free(dev)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        for label, _, tcfg in _fam_cfgs():
+            out[f"{label} train"] = _mesh_train_one_by_one(
+                dev, card, tcfg, "(a)", f"{label} at {tcfg.n_layers} layers",
+                stubs=functools.partial(
+                    lambda c, i: _fam_stubs(c, 8, dev, 100 + i), tcfg))
+            _free(dev)
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the process group outlived (a)")
+    out["gloo"] = _fam_gloo(dev, card)
+    _free(dev)
+    print(f"  phase 28: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out, shapes
+
+
 def main():
     card = device_phase()
     dev = torch.device("cuda", 0)
@@ -8371,6 +8918,23 @@ def main():
                 f"prefill + {MESH_GLOO_STEPS} steps and one train step each"}
     _free(dev)
     mesh27_counts = fsdp_sp_mesh_phase(dev, card)
+    _free(dev)
+    mesh28_counts, mesh28_shapes = families_mesh_phase(dev, card)
+    # phase 28's sharded runs of the three families
+    mesh28_on = {
+        f"{label} {part}": (
+            f"sharded {part} ({label} "
+            + (f"{cfg.n_layers} layers bf16, (1, 1) NCCL mesh, prefill + "
+               f"{FAM_SERVE_STEPS} steps)" if part == "serve" else
+               f"{cfg.n_layers} layers, (1, 1) NCCL mesh, {DIST_STEPS} "
+               f"steps)"))
+        for label, scfg, tcfg in _fam_cfgs()
+        for part, cfg in (("serve", scfg), ("train", tcfg))}
+    mesh28_on["gloo"] = (
+        f"two gloo ranks on the card, (1, 2) mesh, f32: whisper-tiny, "
+        f"paligemma-3b ({FAM_GLOO_LAYERS['paligemma-3b']} layers) and "
+        f"rwkv6-1.6b ({FAM_GLOO_LAYERS['rwkv6-1.6b']}), prefill + "
+        f"{FAM_GLOO_STEPS} steps and one train step each")
     # phase 27's sharded runs with fsdp and seq_shard
     mesh27_on = {
         "ds serve": f"sharded serve, fsdp + seq_shard (deepseek-v2 4 layers "
@@ -8624,6 +9188,16 @@ def main():
                     if mesh27_counts[key].get(name)}
             check(runs, f"{name} never launched on phase 27's sharded runs")
             summary[-1]["fsdp_sp_mesh"] = runs
+        if name in mesh28_shapes:
+            # phase 28: the three families' sharded runs, and (0)'s checks
+            # at the shapes they give the kernel
+            runs = {key: {"launches": mesh28_counts[key][name],
+                          "launches_on": on}
+                    for key, on in mesh28_on.items()
+                    if mesh28_counts[key].get(name)}
+            check(runs, f"{name} never launched on phase 28's sharded runs")
+            summary[-1]["families_mesh"] = {"runs": runs,
+                                            "shapes": mesh28_shapes[name]}
         if name == "decode_attention":
             # the same wrapper on recurrentgemma's compressed middle rings
             mid = main_recs[name + " (RG middle)"]
@@ -8634,7 +9208,7 @@ def main():
             summary[-1]["rg_middle"].update(
                 launches=rg_second[name][name],
                 launches_on="rg serve (dense), outer and middle layers")
-    print(f"== 28 done in {time.perf_counter() - T_START:.1f} s")
+    print(f"== 29 done in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -54,14 +54,23 @@ data x tensor parallel, computed on local shards with explicit collectives
     the head's cross entropy see the whole sequence (``models.transformer
     .trunk``).
 
-Refused on a mesh (``NotImplementedError``, ROADMAP.md): a model axis
-that does not divide some split dimension (query heads, ff, vocab, the
-experts; KV heads only where their count does not divide the axis either,
-3 on 2 ranks say), ``compress`` where the model axis has more than one
-rank or fsdp splits leaves over more than one data rank (a shard's
-256-blocks are not the whole leaf's), RWKV stacks, the encoder-decoder
-and the prefix-LM on more than one rank, and a MoE layer whose global
-dispatch groups do not split over the data ranks (``moe_apply``).
+Every model family runs on a mesh: GQA, MoE, MLA, the RG-LRU, RWKV
+(``models.rwkv``: its heads over the model axis), the encoder-decoder
+(whisper: the encoder's heads split like the decoder's) and the prefix-LM
+(paligemma). A vocab that the model axis does not divide stays whole on
+every rank, as the reference's ``spec_for`` replicates it: the embedding
+looks up every row and each rank computes every logit, so the embedding's
+and the head's gradients are every rank's alike and are not summed over
+the model axis.
+
+Refused on a mesh (``NotImplementedError``, ROADMAP.md Queue 1 item 8): a
+model axis that does not divide some other split dimension (query heads,
+ff, the experts, RWKV's heads; KV heads only where their count does not
+divide the axis either, 3 on 2 ranks say), ``compress`` where the model
+axis has more than one rank or fsdp splits leaves over more than one data
+rank (a shard's 256-blocks are not the whole leaf's), and a MoE layer
+whose global dispatch groups do not split over the data ranks
+(``moe_apply``).
 
 ``make_prefill`` and ``make_serve_step`` on a mesh serve data x tensor
 parallel, on local shards with explicit collectives, the decode state in
@@ -76,7 +85,10 @@ slot, reads all heads over the rank's rows with ``decode_attention(...,
 return_lse=True)`` (MLA: the plain ``mla_decode_attention``'s), and merges
 each head's M partials in rank order on the rank that owns the head
 (``models.attention``); the logits are gathered to the full vocabulary.
-An RG-LRU layer's state holds the rank's channels. A MoE layer routes as
+An RG-LRU layer's state holds the rank's channels, an RWKV layer's ``S``
+its heads; an encoder-decoder's cross K/V hold every KV head over the
+rank's frames, and a decode step reads them as it reads a split ring
+(``models.attention.cross_decode``). A MoE layer routes as
 in training (its rows' groups are the global batch's where the data axes
 split the rows), without the aux loss. With ``fsdp`` each step gathers the
 data-split leaves over the data axes (after the cast, no autograd); with
@@ -134,7 +146,6 @@ def make_train_step(cfg: ModelCfg, rules: ShardingRules = None, mesh=None,
     read). With a ``mesh`` see the module docstring: ``batch`` is this
     rank's ``local_batch``."""
     if mesh is not None:
-        _check_mesh_stack(cfg, mesh)
         return _sharded_train_step(
             cfg, rules or ShardingRules(data_axes=data_axes_of(mesh)), mesh,
             microbatches=microbatches, peak_lr=peak_lr, warmup=warmup,
@@ -231,31 +242,17 @@ def _refuse(what: str, step: str = "train"):
         f"Queue 1 item 8)")
 
 
-def _check_mesh_stack(cfg: ModelCfg, mesh, step: str = "train"):
-    """Refuse the stacks the sharded step does not hold: RWKV stacks, the
-    encoder-decoder and the prefix-LM on more than one rank (no
-    tensor-parallel hooks in the first, no test holding the last two's
-    sharded step). MoE, MLA and RG-LRU stacks run on any mesh."""
-    ranks = mesh.size()
-    hooks, held = "no tensor-parallel hooks", "no sharded step held"
-    for what, present, why in (
-            ("RWKV", any(b.rwkv is not None for b in T.layer_blocks(cfg)),
-             hooks),
-            ("encoder-decoder", cfg.encoder is not None, held),
-            ("prefix-LM", cfg.prefix_lm, held)):
-        if present and ranks > 1:
-            _refuse(f"{what} stacks on {ranks} ranks ({why})", step)
-
-
 def _check_layout(cfg: ModelCfg, rules: ShardingRules, model_size: int,
                   step: str = "train"):
     """Refuse a layout the step cannot run: a dimension the rules split
     over the model axis that the axis does not divide falls back to
     replicated (``sharding.spec_for``), and a replicated ff column or
-    vocab row beside split ones is not the Megatron layout the model
-    computes. Replicated KV heads beside split query heads are: where
-    their count divides the axis, each rank's query heads read one of
-    them (``models.attention``)."""
+    query head beside split ones is not the Megatron layout the model
+    computes; nor is an RWKV head cut by the split of its channels.
+    Replicated KV heads beside split query heads are: where their count
+    divides the axis, each rank's query heads read one of them
+    (``models.attention``). So is a whole vocab: the embedding and the
+    head then run unsplit on every rank."""
     from repro_torch.launch.specs import abstract_params
     shapes, axes = abstract_params(cfg)
     table = rules.table()
@@ -263,11 +260,14 @@ def _check_layout(cfg: ModelCfg, rules: ShardingRules, model_size: int,
     for k, names in axes.items():
         for name, dim in zip(names, shapes[k].shape):
             if (table.get(name) != rules.model_axis
-                    or dim % model_size == 0
+                    or dim % model_size == 0 or name == "vocab"
                     or (name == "kv_heads" and model_size % dim == 0)):
                 continue
             bad.add(f"axis {name!r} dim {dim} % mesh {model_size} != 0 -> "
                     f"replicated")
+    for b in T.layer_blocks(cfg):
+        if b.rwkv is not None and b.rwkv.n_heads % model_size:
+            bad.add(f"rwkv heads {b.rwkv.n_heads} % mesh {model_size} != 0")
     if model_size > 1 and bad:
         _refuse(f"a model axis of {model_size} that does not divide every "
                 f"split dimension ({sorted(bad)})", step)
@@ -477,7 +477,6 @@ class _ServeLayout:
     dtype."""
 
     def __init__(self, cfg: ModelCfg, rules: ShardingRules, mesh):
-        _check_mesh_stack(cfg, mesh, step="serve")
         self.rules = rules or ShardingRules(data_axes=data_axes_of(mesh))
         names = list(mesh.mesh_dim_names)
         self.m = mesh.size(names.index(self.rules.model_axis))
@@ -543,9 +542,36 @@ def make_serve_step(cfg: ModelCfg, rules: ShardingRules = None, mesh=None,
             "max_len (the prefill's): a rank's shard of a ring does not say "
             "whether the ring's rows split over the model axis")
     rings = _ring_lengths(cfg, max_len) if layout.m > 1 else {}
+    frames = None if cfg.encoder is None else cfg.encoder.n_frames
+
+    def cross_view(state: dict, rows: slice) -> dict:
+        """The cross read's entries of the rank's rows: positions and
+        query clocks (replicated) cut to them, and on a model axis of more
+        than one rank the positions to the rank's frames and every cross
+        cache marked ``KV_SHARD``."""
+        pos = state["cross_pos"][rows]
+        out = {"cross_q_pos": state["cross_q_pos"][rows]}
+        if layout.m > 1:
+            split = frames % layout.m == 0
+            f_loc = frames // layout.m if split else frames
+            for c in state["cross_kv"]:
+                if c is not None and c["k"].shape[1] != f_loc:
+                    raise ValueError(
+                        f"cross K/V of {c['k'].shape[1]} frames on this "
+                        f"rank: {frames} frames lay out {f_loc}")
+            if split:
+                pos = pos[:, layout.r * f_loc:(layout.r + 1) * f_loc]
+            out["cross_kv"] = [
+                None if c is None else
+                dict(c, **{attn.KV_SHARD: (layout.r, layout.m, split)})
+                for c in state["cross_kv"]]
+        out["cross_pos"] = pos.contiguous()
+        return out
 
     def local_view(state: dict, rows: slice) -> dict:
         view = dict(state, t=state["t"][rows])
+        if "cross_kv" in state:
+            view.update(cross_view(state, rows))
         for name, lens in rings.items():
             caches = []
             for c, ring in zip(state[name], lens):
@@ -590,7 +616,8 @@ def make_prefill(cfg: ModelCfg, rules: ShardingRules = None, mesh=None, *,
     ``launch.specs.decode_state_specs``' layout, leaf for leaf: rows over
     the data axes, each attention ring's rows over the model axis (every
     KV head on each rank) where the axis divides them, the clocks ``t``
-    (B,) replicated."""
+    (B,) and an encoder-decoder's cross-read positions (B, F) and query
+    clocks (B,) replicated."""
     from repro_torch.models import decode as D
 
     def prefill_fn(params, batch):
@@ -609,7 +636,12 @@ def make_prefill(cfg: ModelCfg, rules: ShardingRules = None, mesh=None, *,
         mine = {k: v[rows] for k, v in batch.items()}
         logits, state = layout.run(params, prefill_fn, b, mine)
         if rows != slice(0, b):
+            # the replicated leaves: every row the same, so the global
+            # batch's from the rank's first
             state["t"] = state["t"][:1].repeat(b)
+            if "cross_pos" in state:
+                state["cross_pos"] = state["cross_pos"][:1].repeat(b, 1)
+                state["cross_q_pos"] = state["cross_q_pos"][:1].repeat(b)
         return logits, state
 
     return prefill_step

@@ -62,7 +62,10 @@ over the rank's rows and — on a split ring — exchanges the partial reads
 with their log-sum-exps so that each rank merges its own heads' M partials
 in rank order (``kernels.ref.merge_partials``). The MLA read gathers
 ``q_lat`` and ``q_rope`` the same way; its token's latent and rotated key
-are the same on every rank.
+are the same on every rank. A cross layer's read (``cross_decode``)
+gathers q likewise over the encoder K/V, which a prefill leaves with
+every KV head over the rank's 1/M of the frames (all of them where M does
+not divide the frames).
 """
 
 from __future__ import annotations
@@ -313,15 +316,17 @@ def _project_qkv(p: Attention, x: torch.Tensor, positions: torch.Tensor,
     attention, never rotated). Under ``layers.model_parallel`` H and Hkv
     are the shard's heads (Hkv every KV head where ``kv_replicated``):
     the replicated inputs pass ``to_model`` (x: ``act_to_model``, which
-    gathers a sequence shard), and so do the per-head norm scales, which
-    act on the local heads only."""
+    gathers a sequence shard; ``kv_x`` once for every cross layer, in
+    ``transformer.trunk``, so its gradient sums the layers' as an unsharded
+    run does), and so do the per-head norm scales, which act on the local
+    heads only."""
     cfg = p.cfg
     d = x.shape[-1]
     x = act_to_model(x)
     lead = x.shape[:-1]
     q = torch.matmul(x, p.wq.reshape(d, -1)).reshape(*lead,
                                                      *p.wq.shape[1:])
-    k, v = project_kv(p, x if kv_x is None else to_model(kv_x))
+    k, v = project_kv(p, x if kv_x is None else kv_x)
     if cfg.qk_norm:
         q = norm_apply("rmsnorm", to_model(p.q_norm), q, eps=eps)
         k = norm_apply("rmsnorm", to_model(p.k_norm), k, eps=eps)
@@ -571,14 +576,26 @@ def cross_decode(p: Attention, x: torch.Tensor, cross: dict):
     read over the slot's encoder K/V ``cross["k"]``/``cross["v"]`` (B, F,
     Hkv, dh) at positions ``cross["pos"]`` (B, F) = 0..F-1, from a query
     at ``cross["q_pos"]`` (B,) = 1 << 30, so every frame is visible. All
-    four are decode-state buffers that ``insert`` writes in place."""
+    four are decode-state buffers that ``insert`` writes in place.
+
+    A tensor-parallel serve step marks ``cross`` with ``KV_SHARD``: the
+    K/V hold every KV head over the rank's frames (``pos`` its frames'
+    positions), or every frame where the model axis does not divide them;
+    q is gathered to all heads and the read merged as ``_sharded_decode``
+    merges a ring's."""
     cfg = p.cfg
     d = x.shape[-1]
-    q = torch.matmul(x, p.wq.reshape(d, -1)).reshape(
-        x.shape[0], cfg.n_heads, cfg.head_dim)
-    out = kops.decode_attention(q.contiguous(), cross["k"], cross["v"],
-                                cross["pos"], cross["q_pos"],
-                                scale=cfg.softmax_scale)
+    q = torch.matmul(to_model(x), p.wq.reshape(d, -1)).reshape(
+        x.shape[0], -1, cfg.head_dim).contiguous()
+    kw = dict(scale=cfg.softmax_scale)
+    if KV_SHARD not in cross:
+        out = kops.decode_attention(q, cross["k"], cross["v"], cross["pos"],
+                                    cross["q_pos"], **kw)
+    else:
+        r, _, split = cross[KV_SHARD]
+        q_all = coll.all_gather_dim(q, 1, model_group()).contiguous()
+        out = _read_all_heads(q_all, cross["k"], cross["v"], cross["pos"],
+                              cross["q_pos"], r, q.shape[1], split, **kw)
     return _out_proj(p, out)
 
 
@@ -640,19 +657,30 @@ def _sharded_decode(p: Attention, q, k, v, cache: dict, t: torch.Tensor, *,
         v_all = qkv[:, :, h_loc + kv_loc:].reshape(b, n * kv_loc, dh)
     _cache_write(cache, t, commit=commit, shard=(r, n) if split else None,
                  k=k_all, v=v_all)
-    t32 = t.to(torch.int32)
-    kw = dict(window=cfg.window, scale=cfg.softmax_scale,
-              logit_softcap=cfg.logit_softcap)
+    return _read_all_heads(q_all, cache["k"], cache["v"], cache["pos"],
+                           t.to(torch.int32), r, h_loc, split,
+                           window=cfg.window, scale=cfg.softmax_scale,
+                           logit_softcap=cfg.logit_softcap)
+
+
+def _read_all_heads(q_all, k, v, pos, q_pos, r: int, h_loc: int,
+                    split: bool, **kw):
+    """``decode_attention`` of every head's query ``q_all`` (B, H, dh) over
+    the rank's K/V rows, and the read of the rank's heads ``[r h_loc,
+    (r+1) h_loc)`` (B, h_loc, dh): on rows split over the model axis each
+    rank's partial reads are exchanged with their log-sum-exps and the
+    rank's heads' partials merged in rank order; on whole rows the read
+    of all heads is every rank's, and the rank keeps its own."""
     if not split:
-        # a whole ring on every rank: the read of all heads, then its own
-        out = kops.decode_attention(q_all, cache["k"], cache["v"],
-                                    cache["pos"], t32, **kw)
+        out = kops.decode_attention(q_all, k, v, pos, q_pos, **kw)
         return out[:, r * h_loc:(r + 1) * h_loc]
-    out, lse = kops.decode_attention(q_all, cache["k"], cache["v"],
-                                     cache["pos"], t32, return_lse=True, **kw)
+    dh = q_all.shape[-1]
+    out, lse = kops.decode_attention(q_all, k, v, pos, q_pos,
+                                     return_lse=True, **kw)
     parts = coll.exchange_partials(
-        torch.cat([out.float(), lse[..., None]], dim=-1), group)
-    return kops.merge_partials(parts[..., :dh], parts[..., dh]).to(q.dtype)
+        torch.cat([out.float(), lse[..., None]], dim=-1), model_group())
+    return kops.merge_partials(parts[..., :dh], parts[..., dh]).to(
+        q_all.dtype)
 
 
 def _mla_decode(p: Attention, x: torch.Tensor, cache: dict, t: torch.Tensor,

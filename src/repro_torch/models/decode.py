@@ -41,8 +41,11 @@ caches back in ``launch.specs.decode_state_specs``' layout — every KV head
 (an MLA layer's latent and rope lanes) on each rank over the rank's 1/M of
 the ring's rows where M divides the ring's length, else the whole ring
 (``_kv_to_serving_layout``); an RG-LRU layer's ``h`` and ``conv`` hold the
-rank's w/M channels (``ff``). SOI's compress and fuse, the conv window,
-the extrapolation queue and the clocks stay replicated over the model
+rank's w/M channels (``ff``), an RWKV layer's ``S`` the rank's h/M heads;
+an encoder-decoder's cross K/V hold every KV head over the rank's 1/M of
+the frames (``fill_cross_kv``). SOI's compress and fuse, the conv window,
+the extrapolation queue, RWKV's ``x_prev`` and channel-mix state, the
+cross read's positions and the clocks stay replicated over the model
 axis.
 """
 
@@ -105,15 +108,23 @@ CROSS_Q_POS = 1 << 30     # the cross read's query clock: every frame visible
 def fill_cross_kv(params, enc_out) -> dict:
     """The cross-attention state of an encoder output (B, F, d): every
     layer's K/V (None for a layer without cross attention), the frames'
-    positions 0..F-1 and the query clocks ``CROSS_Q_POS``."""
+    positions 0..F-1 and the query clocks ``CROSS_Q_POS``. Under
+    ``layers.model_parallel`` over M > 1 ranks the K/V take the serving
+    layout of ``launch.specs.decode_state_specs``: every KV head over the
+    rank's frames ``[r F/M, (r+1) F/M)``, or every frame where M does not
+    divide F (``_rows_of_every_head``); the positions stay whole."""
     b, f, _ = enc_out.shape
     dev = enc_out.device
+    group = model_group()
+    n = 1 if group is None else dist.get_world_size(group)
     kv = []
     for bp in params.blocks:
         if bp.bcfg.cross_attn is None:
             kv.append(None)
             continue
         k, v = attn.project_kv(bp.cross, enc_out)
+        if n > 1:
+            k, v = _rows_of_every_head(bp.cross, k, v, group)
         kv.append({"k": k.contiguous(), "v": v.contiguous()})
     pos = torch.arange(f, dtype=torch.int32, device=dev)
     return {"cross_kv": kv,
@@ -278,6 +289,29 @@ def _logits_one(params, cfg: ModelCfg, x):
     return softcap_logits(cfg, logits)
 
 
+def _rows_of_every_head(p, k, v, group):
+    """K and V (B, S, Hkv/M, dh) of the rank's KV heads -> every KV head
+    over the rank's rows [r S/M, (r+1) S/M) where the M ranks of
+    ``group`` divide S, else over all S rows: one all-to-all of K and V
+    together (an all-gather for whole rows). K/V of every KV head
+    (``attention.kv_replicated``: the same on every rank) keep the rank's
+    rows."""
+    n = dist.get_world_size(group)
+    r = dist.get_rank(group)
+    b, s, kv_loc, dh = k.shape
+    if attn.kv_replicated(p):
+        if s % n:
+            return k, v
+        rows = slice(r * (s // n), (r + 1) * (s // n))
+        return k[:, rows], v[:, rows]
+    kv = torch.cat([k, v], dim=2)
+    kv = (coll.all_gather_dim(kv, 2, group) if s % n
+          else coll.heads_to_sequence(kv, group))
+    kv = kv.reshape(b, kv.shape[1], n, 2, kv_loc, dh)
+    return (kv[:, :, :, 0].reshape(b, -1, n * kv_loc, dh).contiguous(),
+            kv[:, :, :, 1].reshape(b, -1, n * kv_loc, dh).contiguous())
+
+
 def _kv_to_serving_layout(params, cfg: ModelCfg, state: dict,
                           group) -> dict:
     """A prefill's attention caches in the serving layout over the M ranks
@@ -297,25 +331,16 @@ def _kv_to_serving_layout(params, cfg: ModelCfg, state: dict,
             if not is_attn_cache(c):
                 continue
             s = c["pos"].shape[1]
-            if bp.bcfg.attn.is_mla or attn.kv_replicated(bp.attn):
+            if s % n == 0:
+                rows = slice(r * (s // n), (r + 1) * (s // n))
+                c["pos"] = c["pos"][:, rows].contiguous()
+            if bp.bcfg.attn.is_mla:
                 if s % n == 0:
-                    rows = slice(r * (s // n), (r + 1) * (s // n))
-                    for key in c:
+                    for key in ("latent", "rope"):
                         c[key] = c[key][:, rows].contiguous()
                 continue
-            b, s, kv_loc, dh = c["k"].shape
-            kv = torch.cat([c["k"], c["v"]], dim=2)
-            if s % n:
-                kv = coll.all_gather_dim(kv, 2, group)
-            else:
-                kv = coll.heads_to_sequence(kv, group)
-                c["pos"] = c["pos"][:, r * (s // n):(r + 1) * (s // n)] \
-                    .contiguous()
-            kv = kv.reshape(b, kv.shape[1], n, 2, kv_loc, dh)
-            c["k"] = kv[:, :, :, 0].reshape(b, -1, n * kv_loc, dh) \
-                .contiguous()
-            c["v"] = kv[:, :, :, 1].reshape(b, -1, n * kv_loc, dh) \
-                .contiguous()
+            c["k"], c["v"] = (t.contiguous() for t in _rows_of_every_head(
+                bp.attn, c["k"], c["v"], group))
     return state
 
 

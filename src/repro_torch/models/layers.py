@@ -12,6 +12,7 @@ Tensor parallelism: inside ``model_parallel(group)`` the model runs on its
 local shards (heads, ff and vocab split over the ranks of ``group``) and
 ``to_model`` / ``from_model`` are the collectives of
 ``distributed.collectives`` (``copy_to_model`` / ``reduce_from_model``);
+``channels`` cuts the rank's share of a replicated per-channel tensor;
 outside it they return their input, so serving and the unsharded step run
 exactly as before. Expert parallelism adds ``gather_from_model`` (the
 router's logits of the rank's experts -> all of them) and, inside
@@ -27,8 +28,11 @@ shards inside ``seq_sharded(True)``. There the block's activation passes
 into its split projections and ``act_from_model`` (a reduce-scatter onto
 the rank's rows, all-gather backward) out of them, and every replicated
 parameter that acts on the rank's rows passes ``seq_param`` (the gradient
-summed over the model axis, as ``to_model`` does). Elsewhere the pair is
-``to_model`` / ``from_model`` and ``seq_param`` the identity.
+summed over the model axis, as ``to_model`` does). A mixer that reads
+across positions before its split projections (RWKV's token shift)
+gathers the sequence first (``whole_seq``) and hands back the rank's rows
+of what it made whole (``own_rows``). Elsewhere the pair is ``to_model`` /
+``from_model``, ``seq_param`` and these two the identity.
 ``to_model`` / ``from_model`` on a parameter or a scalar (the KV weights
 a rank holds whole, the per-head norms, the MoE aux loss) keep their copy
 and all-reduce everywhere.
@@ -131,6 +135,18 @@ def from_model(x: torch.Tensor) -> torch.Tensor:
     return coll.reduce_from_model(x, _MODEL_GROUP)
 
 
+def channels(x: torch.Tensor, n: int) -> torch.Tensor:
+    """A replicated tensor (..., d) that meets activations split on their
+    last dimension: ``to_model`` (its gradient is the rank's channels
+    only, summed over the model axis) and this rank's ``n`` channels
+    ``[r n, (r+1) n)``; all of ``x`` where ``n`` is its width."""
+    x = to_model(x)
+    if n == x.shape[-1]:
+        return x
+    r0 = model_rank()[0] * n
+    return x[..., r0:r0 + n]
+
+
 @contextlib.contextmanager
 def sequence_parallel(on: bool = True):
     """Let the trunk split its block carry on the sequence over the model
@@ -183,6 +199,25 @@ def act_from_model(x: torch.Tensor) -> torch.Tensor:
     if _sharded():
         return coll.scatter_seq_from_model(x, 1, _MODEL_GROUP)
     return from_model(x)
+
+
+def whole_seq(x: torch.Tensor) -> torch.Tensor:
+    """A block's activation (B, S, d): on a sequence shard the whole
+    sequence gathered, for a mixer that reads across positions before any
+    split projection (RWKV's token shift); this rank's rows of the
+    gradient backward, which what follows gives every rank alike. Else
+    ``x``."""
+    if _sharded():
+        return coll.gather_seq(x, 1, _MODEL_GROUP)
+    return x
+
+
+def own_rows(x: torch.Tensor) -> torch.Tensor:
+    """A whole activation (B, S, d), the same on every model rank: on a
+    sequence shard this rank's rows (all-gather backward); else ``x``."""
+    if _sharded():
+        return coll.split_seq(x, 1, _MODEL_GROUP)
+    return x
 
 
 def seq_param(p):

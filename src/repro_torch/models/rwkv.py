@@ -21,6 +21,25 @@ x_k)^2).
 
 rwkv has no TPU kernel in the reference: every product here is plain
 PyTorch on every device.
+
+Tensor parallelism (``layers.model_parallel`` over M ranks), the
+reference's layout: ``wr``, ``wk``, ``wv``, ``wg``, ``cm_k`` and ``cm_r``
+split their columns (``ff``), ``wo`` and ``cm_v`` their rows, so a rank
+holds h/M heads of the time mix and of its state ``S``; the token-shift
+mix and its LoRA, the decay LoRA and the per-channel ``w0``, ``u`` and
+``ln_scale`` stay replicated and run whole on every rank. The mixed
+inputs pass ``to_model`` into the split projections; ``w0`` plus the
+decay LoRA's output, ``u`` and ``ln_scale`` pass ``layers.channels`` (the
+rank's channels, the gradient summed over the model axis). ``wo``'s
+product is summed over the model axis (``act_from_model``). The channel
+mix's receptance ``sigmoid(x_r cm_r)`` holds the rank's columns, but it
+multiplies the *sum* of the ranks' ``cm_v`` products: that sum is
+reduce-scattered onto the rank's columns, multiplied there and the
+product gathered whole — never a per-rank partial summed afterwards. On a
+sequence shard both mixes gather the sequence first (``whole_seq``: the
+token shift reads the previous position) and hand back the rank's rows
+(``act_from_model``'s reduce-scatter, ``own_rows``). ``x_prev`` and the
+channel mix's state stay whole on every rank.
 """
 
 from __future__ import annotations
@@ -30,7 +49,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import RWKVCfg
-from repro_torch.models.layers import dense_init, param
+from repro_torch.distributed import collectives as coll
+from repro_torch.models.layers import act_from_model, channels, dense_init, \
+    from_model, model_group, own_rows, param, to_model, whole_seq
 
 _MIX = ("w", "k", "v", "r", "g")
 CHUNK = 32
@@ -109,15 +130,22 @@ def _group_norm(p: RWKV, y):
     var = yf.var(-1, unbiased=False, keepdim=True).to(dt)
     yn = (y - mu) * torch.rsqrt(var + 1e-5)
     flat = yn.reshape(*y.shape[:-2], -1)
-    return flat * (1.0 + p.ln_scale)
+    return flat * (1.0 + channels(p.ln_scale, flat.shape[-1]))
+
+
+def _heads(p: RWKV) -> int:
+    """The time mix's heads on this rank: all of them, or a model rank's
+    share (``wr``'s columns)."""
+    return p.wr.shape[1] // p.cfg.head_dim
 
 
 def _decay_log(p: RWKV, xw, h):
-    """Per-channel log decay (<= 0) in float32, split by head: the exp runs
-    in the model dtype before the cast, as in the reference."""
+    """Per-channel log decay (<= 0) in float32 of the rank's ``h`` heads:
+    the exp runs in the model dtype before the cast, as in the
+    reference."""
     lora = torch.matmul(torch.tanh(torch.matmul(xw, p.w_a)), p.w_b)
-    return _head_split(-torch.exp(torch.clamp(p.w0 + lora, -12.0, 2.0))
-                       .float(), h)
+    w = channels(p.w0 + lora, p.wr.shape[1])
+    return _head_split(-torch.exp(torch.clamp(w, -12.0, 2.0)).float(), h)
 
 
 def wkv_chunked(r, k, v, wlog, u, *, chunk: int = CHUNK):
@@ -161,38 +189,48 @@ def wkv_chunked(r, k, v, wlog, u, *, chunk: int = CHUNK):
     return torch.cat(ys, dim=1)[:, :s], S
 
 
+def _project(p: RWKV, xs, w, h=None):
+    """A mixed input into a split projection (``to_model``), split by
+    head when ``h`` is given."""
+    y = torch.matmul(to_model(xs), w)
+    return y if h is None else _head_split(y, h)
+
+
 def rwkv_time_mix(p: RWKV, x, *, x_prev=None):
-    """Full-sequence time mixing, x (B, S, d). Returns (y, (x[:, -1], S)):
-    the decode state after the last position."""
+    """Full-sequence time mixing, x (B, S, d) (a sequence shard's rows
+    under ``layers.sequence_parallel``). Returns (y, (x[:, -1], S)): the
+    decode state after the last position, ``S`` of the rank's heads."""
+    x = whole_seq(x)
     b, s, d = x.shape
-    h = p.cfg.n_heads
+    h = _heads(p)
     if x_prev is None:
         x_prev = torch.zeros((b, d), dtype=x.dtype, device=x.device)
     xw, xk, xv, xr, xg = _mixed_inputs(p, x, _token_shift(x, x_prev))
-    r = _head_split(torch.matmul(xr, p.wr), h).float()
-    k = _head_split(torch.matmul(xk, p.wk), h).float()
-    v = _head_split(torch.matmul(xv, p.wv), h).float()
-    g = torch.matmul(xg, p.wg)
+    r = _project(p, xr, p.wr, h).float()
+    k = _project(p, xk, p.wk, h).float()
+    v = _project(p, xv, p.wv, h).float()
+    g = _project(p, xg, p.wg)
     wlog = _decay_log(p, xw, h)
-    u = _head_split(p.u.float(), h)
+    u = _head_split(channels(p.u, p.wr.shape[1]).float(), h)
     y, S = wkv_chunked(r, k, v, wlog, u)
     y = _group_norm(p, y.to(x.dtype)) * F.silu(g)
-    return torch.matmul(y, p.wo), (x[:, -1].clone(), S)
+    return act_from_model(torch.matmul(y, p.wo)), (x[:, -1].clone(), S)
 
 
 def rwkv_time_mix_decode(p: RWKV, x, state: dict, *, commit=None):
     """One token per slot, x (B, d) -> y (B, d). ``state`` is
-    ``{"x_prev": (B, d), "S": (B, h, dh, dh) float32}``, updated in place
-    (only the ``commit`` rows when given)."""
-    h = p.cfg.n_heads
-    xw, xk, xv, xr, xg = _mixed_inputs(p, x[:, None],
-                                       state["x_prev"][:, None])
-    r = _head_split(torch.matmul(xr, p.wr)[:, 0], h).float()
-    k = _head_split(torch.matmul(xk, p.wk)[:, 0], h).float()
-    v = _head_split(torch.matmul(xv, p.wv)[:, 0], h).float()
-    g = torch.matmul(xg, p.wg)[:, 0]
-    wlog = _decay_log(p, xw[:, 0], h)
-    u = _head_split(p.u.float(), h)
+    ``{"x_prev": (B, d), "S": (B, h, dh, dh) float32}`` (a model rank's
+    h/M heads), updated in place (only the ``commit`` rows when
+    given)."""
+    h = _heads(p)
+    xw, xk, xv, xr, xg = (t[:, 0] for t in _mixed_inputs(
+        p, x[:, None], state["x_prev"][:, None]))
+    r = _project(p, xr, p.wr, h).float()
+    k = _project(p, xk, p.wk, h).float()
+    v = _project(p, xv, p.wv, h).float()
+    g = _project(p, xg, p.wg)
+    wlog = _decay_log(p, xw, h)
+    u = _head_split(channels(p.u, p.wr.shape[1]).float(), h)
     S = state["S"]
     y = (torch.einsum("bhj,bhji->bhi", r, S)
          + torch.einsum("bhj,bhj,bhi->bhi", r, u * k, v))
@@ -204,11 +242,29 @@ def rwkv_time_mix_decode(p: RWKV, x, state: dict, *, commit=None):
         x_prev = torch.where(commit[:, None], x, state["x_prev"])
     state["S"].copy_(S_new)
     state["x_prev"].copy_(x_prev)
-    return torch.matmul(y, p.wo)
+    return from_model(torch.matmul(y, p.wo))
+
+
+def _receptance_times(p: RWKV, xk, xr):
+    """``sigmoid(x_r cm_r) * (relu(x_k cm_k)^2 cm_v)``. On more than one
+    model rank ``cm_v``'s product is the rank's partial sum and the
+    receptance the rank's columns: the sum is reduce-scattered onto those
+    columns, multiplied there, and the product gathered whole (every
+    rank's gradient of it alike)."""
+    k = torch.square(F.relu(_project(p, xk, p.cm_k)))
+    kv = torch.matmul(k, p.cm_v)
+    r = torch.sigmoid(_project(p, xr, p.cm_r))
+    if r.shape[-1] == kv.shape[-1]:
+        return r * from_model(kv)
+    group = model_group()
+    kv = coll.scatter_seq_from_model(kv, -1, group)
+    return coll.gather_seq(r * kv, -1, group)
 
 
 def rwkv_channel_mix(p: RWKV, x, *, x_prev=None):
-    """x (B, S, d). Returns (y, x[:, -1])."""
+    """x (B, S, d) (a sequence shard's rows under
+    ``layers.sequence_parallel``). Returns (y, x[:, -1])."""
+    x = whole_seq(x)
     b, _, d = x.shape
     if x_prev is None:
         x_prev = torch.zeros((b, d), dtype=x.dtype, device=x.device)
@@ -216,9 +272,7 @@ def rwkv_channel_mix(p: RWKV, x, *, x_prev=None):
     mix = torch.sigmoid(p.cm_mix)
     xk = x + (xs - x) * mix[0]
     xr = x + (xs - x) * mix[1]
-    k = torch.square(F.relu(torch.matmul(xk, p.cm_k)))
-    kv = torch.matmul(k, p.cm_v)
-    return torch.sigmoid(torch.matmul(xr, p.cm_r)) * kv, x[:, -1].clone()
+    return own_rows(_receptance_times(p, xk, xr)), x[:, -1].clone()
 
 
 def rwkv_channel_mix_decode(p: RWKV, x, x_prev, *, commit=None):
@@ -226,9 +280,7 @@ def rwkv_channel_mix_decode(p: RWKV, x, x_prev, *, commit=None):
     ``commit`` rows when given). Returns y (B, d)."""
     xk = x + (x_prev - x) * torch.sigmoid(p.cm_mix[0])
     xr = x + (x_prev - x) * torch.sigmoid(p.cm_mix[1])
-    k = torch.square(F.relu(torch.matmul(xk, p.cm_k)))
-    kv = torch.matmul(k, p.cm_v)
-    y = torch.sigmoid(torch.matmul(xr, p.cm_r)) * kv
+    y = _receptance_times(p, xk, xr)
     x_prev.copy_(x if commit is None
                  else torch.where(commit[:, None], x, x_prev))
     return y
@@ -249,7 +301,8 @@ def rwkv_init_state(cfg: RWKVCfg, d: int, batch: int, dtype=torch.bfloat16,
 def init_decode_cache(cfg: RWKVCfg, d: int, batch: int, dtype,
                       device) -> dict:
     """A layer's decode cache, laid out as the reference's decode state
-    lays it out: ``{"rwkv_tm": {"x_prev", "S"}, "rwkv_cm": x_prev}``."""
+    lays it out: ``{"rwkv_tm": {"x_prev", "S"}, "rwkv_cm": x_prev}`` (every
+    head: the unsharded state)."""
     return {"rwkv_tm": {"x_prev": torch.zeros((batch, d), dtype=dtype,
                                               device=device),
                         "S": torch.zeros((batch, cfg.n_heads, cfg.head_dim,

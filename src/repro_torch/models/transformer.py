@@ -52,7 +52,7 @@ from repro_torch.models import rglru as rgm
 from repro_torch.models import rwkv as rkm
 from repro_torch.models.layers import dense_init, embed_init, from_model, \
     gather_seq, model_group, norm_apply, param, seq_param, seq_sharded, \
-    seq_splits, split_seq, trunc_normal
+    seq_splits, split_seq, to_model, trunc_normal
 from repro_torch.models.mlp import MLP, mlp_apply
 from repro_torch.models.moe import MoE, moe_apply
 
@@ -380,7 +380,8 @@ def _embed_tokens(params: Transformer, cfg: ModelCfg, tokens,
     (``layers.model_parallel``) looks up the shard's rows only, zero for
     the others, and sums over the model axis. With ``split`` (sequence
     parallelism) the result is this model rank's rows (B, S/M, d): the
-    vocab-split sum a reduce-scatter onto them."""
+    vocab-split sum a reduce-scatter onto them, and the position table's
+    rows those of the rank's positions."""
     if params.embed.shape[0] != cfg.vocab:
         x = _vocab_parallel_embed(params.embed, tokens, split).to(
             _dtype(cfg))
@@ -393,6 +394,8 @@ def _embed_tokens(params: Transformer, cfg: ModelCfg, tokens,
     if cfg.learned_pos_len:
         pe = (params.pos_embed[:tokens.shape[1]] if positions is None
               else F.embedding(positions.long(), params.pos_embed))
+        if split:                       # the table's rows of the rank's
+            pe = split_seq(pe[None])    # positions, all-gather backward
         x = x + pe.to(x.dtype)
     return x
 
@@ -495,6 +498,10 @@ def trunk(params: Transformer, cfg: ModelCfg, tokens, *, prefix_embeds=None,
     s = tokens.shape[1] + (0 if prefix_embeds is None
                            else prefix_embeds.shape[1])
     positions = torch.arange(s, device=x.device)[None]
+    if enc_out is not None:
+        # every cross layer projects the rank's heads of it: one sum over
+        # the model axis of all their gradients
+        enc_out = to_model(enc_out)
     kw = dict(prefix_len=cfg.frontend_len if cfg.prefix_lm else 0,
               enc_out=enc_out, aux=aux)
     if cfg.soi is None:

@@ -1,7 +1,7 @@
 """Spawned gloo worlds for the port's distributed tests (imported by
 ``tests/test_torch_{collectives,pipeline,sharded_train,sharded_serve,
-sharded_moe,sharded_mla_rglru,sharded_fsdp_sp,train_families}.py``; not a
-test module itself, and it imports
+sharded_moe,sharded_mla_rglru,sharded_fsdp_sp,sharded_families,
+train_families}.py``; not a test module itself, and it imports
 no JAX, so a spawned rank starts quickly).
 
 ``spawn(world, job, tmp_path, **kw)`` starts ``world`` CPU processes with
@@ -16,6 +16,7 @@ reference in its own process.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import os
 import pickle
@@ -168,7 +169,8 @@ def _train(rank, world, tmp):
     """Every case of ``train_in.pkl`` (``_train_cases``); rank 0 saves
     them with the refusals and the MLA and RG-LRU steps' runs."""
     inp = load(tmp, "train_in.pkl")
-    out = {"refused": _refusals(inp["refuse_cfg"], inp["kv3_cfg"]),
+    out = {"refused": _refusals(inp["refuse_cfg"], inp["kv3_cfg"],
+                                inp["family_cfgs"]),
            "runs": _stack_train_runs(inp["run_cfgs"], inp["run_batch"])}
     out.update(_train_cases(inp["cases"], {}))
     if rank == 0:
@@ -284,12 +286,14 @@ def _serve(rank, world, tmp):
 
 
 def _serve_cases(cases: dict, meshes: dict, rank, world) -> dict:
-    """Each case on its mesh: ``make_prefill`` on the batch, the clocks
+    """Each case on its mesh: ``make_prefill`` on the batch (its tokens and
+    the case's ``stubs``, patch embeddings or encoder frames), the clocks
     staggered, then ``make_serve_step`` greedy for its steps, from the
     reference-layout numpy weights. Each step's logits and the final state
     are gathered (the shards' specs from ``decode_state_specs`` of the
-    global state), with every rank's leaf shapes and bytes against the
-    specs' local shapes and ``per_device_bytes``."""
+    global state, an encoder-decoder's cross K/V included), with every
+    rank's leaf shapes and bytes against the specs' local shapes and
+    ``per_device_bytes``."""
     from repro_torch.convert import from_jax_params
     from repro_torch.distributed.sharding import (axes_size,
                                                   per_device_bytes,
@@ -304,7 +308,11 @@ def _serve_cases(cases: dict, meshes: dict, rank, world) -> dict:
         full = from_jax_params(case["params"], cfg, device="cpu")
         tokens = torch.from_numpy(case["tokens"])
         b = tokens.shape[0]
-        want = S.flatten(D.init_decode_state(full, cfg, b, ml))
+        batch = {"tokens": tokens, **{k: torch.from_numpy(v) for k, v in
+                                      case.get("stubs", {}).items()}}
+        enc = (None if cfg.encoder is None else
+               torch.zeros((b, cfg.encoder.n_frames, cfg.d_model)))
+        want = S.flatten(D.init_decode_state(full, cfg, b, ml, enc_out=enc))
         specs = S.decode_state_specs(want, rules, mesh)
         model = shard_params(full, rules, mesh)
         prefill = make_prefill(cfg, rules, mesh, max_len=ml)
@@ -319,7 +327,7 @@ def _serve_cases(cases: dict, meshes: dict, rank, world) -> dict:
                                 (b, logits.shape[1]))
 
         with _counting({}) as counts:
-            logits, state = prefill(model, {"tokens": tokens})
+            logits, state = prefill(model, batch)
         state["t"].sub_(torch.from_numpy(case["stagger"]))
         steps = [gathered(logits).numpy()]
         toks = []
@@ -357,9 +365,9 @@ def _serve_cases(cases: dict, meshes: dict, rank, world) -> dict:
 
 
 def _serve_refusals(cfgs, max_len_cfg) -> dict:
-    """What the serving steps raise for the stacks they do not run, on a
-    mesh of the world's ranks over the model axis, and a serve step of
-    ``max_len_cfg`` there without ``max_len``."""
+    """What the serving steps raise for each of ``cfgs`` on a mesh of the
+    world's ranks over the model axis (None where they build), and a
+    serve step of ``max_len_cfg`` there without ``max_len``."""
     from repro_torch.distributed.sharding import ShardingRules
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import make_prefill, make_serve_step
@@ -446,12 +454,14 @@ def _stack_train_runs(cfgs: dict, batch) -> dict:
     return out
 
 
-def _refusals(cfg, kv3) -> dict:
-    """What each layout the sharded steps do not run raises, on a 2 x 2
-    mesh and a 1 x 4 one: training's, and serving's — ``kv3``'s 3 kv
-    heads on 1 x 4, whose model axis neither divides them nor is divided
-    by them —, and compression with fsdp over 2 data ranks; None where a
-    step builds (fsdp and seq_shard, once refused)."""
+def _refusals(cfg, kv3, families) -> dict:
+    """What the sharded steps raise, on a 2 x 2 mesh and a 1 x 4 one, for
+    what they do not run: compression on a split model axis and with fsdp
+    over 2 data ranks, and — training and serving — ``kv3``'s 3 kv heads
+    on 1 x 4 (a model axis that neither divides them nor is divided by
+    them) and ``families["whisper-tiny"]``'s 6 heads there; None where a
+    step builds: fsdp and seq_shard, and every step of each config of
+    ``families`` on 2 x 2."""
     from repro_torch.distributed.sharding import ShardingRules
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import (make_prefill, make_serve_step,
@@ -475,7 +485,17 @@ def _refusals(cfg, kv3) -> dict:
         "serve kv_heads": lambda: make_serve_step(kv3, rules, wide,
                                                   max_len=32),
         "prefill kv_heads": lambda: make_prefill(kv3, rules, wide),
+        "heads": lambda: make_train_step(families["whisper-tiny"], rules,
+                                         wide),
     }
+    for name, fam in families.items():
+        tries.update({
+            f"{name} train": functools.partial(make_train_step, fam, rules,
+                                               mesh),
+            f"{name} prefill": functools.partial(make_prefill, fam, rules,
+                                                 mesh),
+            f"{name} serve": functools.partial(make_serve_step, fam, rules,
+                                               mesh, max_len=32)})
     out = {}
     for name, fn in tries.items():
         try:
@@ -524,22 +544,25 @@ def _mla_rglru(rank, world, tmp):
         _save(tmp, "mla_rglru_out.pkl", out)
 
 
-def _fsdp_sp(rank, world, tmp):
-    """The world of ``tests/test_torch_sharded_fsdp_sp.py``: the serving
-    and training cases of ``fsdp_sp_in.pkl`` (``_serve_cases``,
+def _serve_train(rank, world, tmp, name):
+    """The world of ``tests/test_torch_sharded_fsdp_sp.py`` (``name``
+    "fsdp_sp") or ``tests/test_torch_sharded_families.py`` ("families"):
+    the serving and training cases of ``<name>_in.pkl`` (``_serve_cases``,
     ``_train_cases``), each on its own mesh names and rules; rank 0 saves
     them."""
-    inp = load(tmp, "fsdp_sp_in.pkl")
+    inp = load(tmp, f"{name}_in.pkl")
     meshes = {}
     out = {"serve": _serve_cases(inp["serve"], meshes, rank, world),
            "train": _train_cases(inp["train"], meshes)}
     if rank == 0:
-        _save(tmp, "fsdp_sp_out.pkl", out)
+        _save(tmp, f"{name}_out.pkl", out)
 
 
 def _stack_refusals(cfgs: dict) -> dict:
     """{(config, step): what make_train_step, make_prefill and
-    make_serve_step raise on a (1, world) mesh, or None}."""
+    make_serve_step raise on a (1, world) mesh, or None}: the layouts
+    still refused (``tests/test_torch_sharded_mla_rglru.py`` passes 3 KV
+    heads beside 6 query heads)."""
     from repro_torch.distributed.sharding import ShardingRules
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import (make_prefill, make_serve_step,
@@ -617,7 +640,8 @@ def _dispatch_refusal(rank, cfg, tokens) -> dict:
 
 JOBS = {"collectives": _collectives, "pipeline": _pipeline, "train": _train,
         "serve": _serve, "moe": _moe, "mla_rglru": _mla_rglru,
-        "fsdp_sp": _fsdp_sp}
+        "fsdp_sp": functools.partial(_serve_train, name="fsdp_sp"),
+        "families": functools.partial(_serve_train, name="families")}
 
 
 def replay_psum(xs: np.ndarray) -> np.ndarray:

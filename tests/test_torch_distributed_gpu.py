@@ -26,7 +26,15 @@ multi-rank semantics are held on gloo ranks on the CPU
     RG-LRU, RG-LRU, local attention pattern) through the sharded train
     step, on the (1, 1) mesh bit for bit the plain steps, through
     ``flash_attention`` at (192, 128) and its backward, and ``lru_scan``
-    and its backward. One full model is on the card at a time.
+    and its backward. One full model is on the card at a time;
+  * RWKV, the encoder-decoder and the prefix-LM (``chip_smoke.py`` phase
+    28 (a), float32, full width): whisper-tiny whole (51865-row vocab,
+    1500 encoder frames), paligemma-3b at 1 layer behind 256 patch
+    embeddings and rwkv6-1.6b at 2, through the sharded prefill + serve
+    steps and the sharded train step on the (1, 1) mesh, bit for bit the
+    plain steps, whisper's through ``flash_attention`` (encoder, self and
+    cross layers) and its backward and ``decode_attention`` (self and
+    cross reads), paligemma's reads through ``decode_attention``.
 
 Without a CUDA device every test here skips (inside the ``world``
 fixture). On the card:
@@ -340,6 +348,123 @@ def test_sharded_mla_rglru_train_steps_are_the_plain_bit_for_bit(world,
             assert all(counts[k] == 2 for k in kernels), counts
             metrics.append(m)
         # digests: one model's state on the card at a time
+        trees = {"params": gather_params(model) if sharded else dict(
+            model.named_parameters())}
+        trees.update({t: gather_tree(opt[t]) if sharded else opt[t]
+                      for t in ("mu", "nu")})
+        runs.append(([{k: float(v) for k, v in m.items()} for m in metrics],
+                     {t: _digests(tree) for t, tree in trees.items()}))
+        del model, opt, step, trees, metrics
+        _free()
+    (pm, pd), (sm, sd) = runs
+    assert pm == sm
+    assert pd == sd
+
+
+# chip_smoke.py phase 28 (a) at full width, float32, depth cut: (config
+# kwargs, flash launches a prefill or a forward, decode reads a step)
+FAMILIES = {"whisper-tiny": (dict(), 12, 8),
+            "paligemma-3b": (dict(n_layers=1), 0, 1),
+            "rwkv6-1.6b": (dict(n_layers=2), 0, 0)}
+
+
+def _family(arch, b, dev):
+    """(f32 config of ``FAMILIES``, its stub frontends at batch ``b``:
+    whisper's 1500 encoder frames, paligemma's 256 patch embeddings)."""
+    cfg = dataclasses.replace(pconfigs.get(arch, **FAMILIES[arch][0]),
+                              dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    stubs = {}
+    if cfg.encoder is not None:
+        stubs["encoder_frames"] = torch.randn(
+            (b, cfg.encoder.n_frames, cfg.encoder.d_model), generator=gen,
+            device=dev)
+    if cfg.frontend == "patch_stub":
+        stubs["patch_embeds"] = torch.randn(
+            (b, cfg.frontend_len, cfg.d_model), generator=gen, device=dev)
+    return cfg, stubs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", list(FAMILIES))
+def test_sharded_family_serve_steps_are_the_plain_steps_bit_for_bit(world,
+                                                                     arch):
+    """whisper-tiny (4 + 4 layers, 51865-row vocab, 1500 frames),
+    paligemma-3b (1 layer) and rwkv6-1.6b (2) at full width, f32: the
+    sharded prefill + 4 serve steps on the (1, 1) mesh give the plain
+    steps' logits and state bit for bit, through flash_attention (the
+    encoder, self and cross layers; paligemma's prefix-LM prefill takes
+    the plain route) and decode_attention (self and cross reads)."""
+    dev, mesh = world
+    cfg, stubs = _family(arch, 2, dev)
+    _, n_flash, n_reads = FAMILIES[arch]
+    rules = ShardingRules(data_axes=("data",))
+    prompt = torch.randint(0, cfg.vocab, (2, 32), generator=torch.Generator()
+                           .manual_seed(1), dtype=torch.int32).to(dev)
+    max_len = 320 if cfg.prefix_lm else 64
+    runs = []
+    for kw in ({}, dict(rules=rules, mesh=mesh)):
+        model = T.init(cfg, generator=torch.Generator(device=dev)
+                       .manual_seed(0), device=dev)
+        if kw:
+            model = shard_params(model, rules, mesh)
+        ops.reset_launch_counts()
+        logits, state = make_prefill(cfg, max_len=max_len, **kw)(
+            model, {"tokens": prompt, **stubs})
+        step = make_serve_step(cfg, max_len=max_len, **kw)
+        out = [logits]
+        for _ in range(4):
+            logits, state = step(model, state,
+                                 out[-1].argmax(-1).to(torch.int32))
+            out.append(logits)
+        runs.append((out, S.flatten(state), ops.launch_counts()))
+        del model, state
+        _free()
+    (pl, ps, pc), (sl, ss, sc) = runs
+    assert all(torch.equal(a, b) for a, b in zip(pl, sl))
+    assert set(ps) == set(ss) and all(torch.equal(ps[k], ss[k]) for k in ps)
+    assert sc == pc
+    assert sc["flash_attention"] == n_flash
+    assert sc["decode_attention"] == 4 * n_reads
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", list(FAMILIES))
+def test_sharded_family_train_steps_are_the_plain_bit_for_bit(world, arch):
+    """The same configs, f32, B 2 S 64 behind their stub frontends, 2
+    steps: the sharded train step on the (1, 1) mesh gives the plain
+    step's metrics, params and moments bit for bit (whisper through
+    flash_attention and its backward on every encoder, self and cross
+    layer)."""
+    dev, mesh = world
+    cfg, stubs = _family(arch, 2, dev)
+    n_flash = FAMILIES[arch][1]
+    pipe = ShardedLMPipeline(global_batch=2, seq_len=64, vocab=cfg.vocab,
+                             seed=0)
+    batches = [dict({k: torch.from_numpy(v).to(dev)
+                     for k, v in pipe.batch(i).items()}, **stubs)
+               for i in range(2)]
+    kw = dict(peak_lr=1e-3, warmup=2, total_steps=10)
+    rules = ShardingRules(data_axes=("data",))
+    runs = []
+    for sharded in (False, True):
+        model = T.init(cfg, generator=torch.Generator(device=dev)
+                       .manual_seed(0), device=dev)
+        if sharded:
+            model = shard_params(model, rules, mesh)
+            step = make_train_step(cfg, rules, mesh, **kw)
+        else:
+            step = make_train_step(cfg, **kw)
+        opt = adamw_init(dict(model.named_parameters()))
+        metrics = []
+        for bt in batches:
+            ops.reset_launch_counts()
+            _, _, m = step(model, opt, local_batch(bt, mesh) if sharded
+                           else bt)
+            counts = ops.launch_counts()
+            assert counts["flash_attention"] == n_flash, counts
+            assert counts["flash_attention_bwd"] == n_flash, counts
+            metrics.append(m)
         trees = {"params": gather_params(model) if sharded else dict(
             model.named_parameters())}
         trees.update({t: gather_tree(opt[t]) if sharded else opt[t]

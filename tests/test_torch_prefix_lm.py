@@ -187,13 +187,14 @@ def test_serve_driver_runs_paligemma_on_cpu():
                                        ("whisper-tiny", "encoder-decoder"),
                                        ("paligemma-3b", "prefix-LM")])
 def test_check_trainable_refuses_new_families(arch, kind):
-    """They train on every device now; what stays refused is their
-    sharded step on more than one rank (ROADMAP.md Queue 1 item 8)."""
-    from repro_torch.launch.mesh import AbstractMesh
-    from repro_torch.launch.steps import make_train_step
+    """They train on every device, and since their sharded steps are
+    held (``tests/test_torch_sharded_families.py``) the layout check of a
+    step on a 2 x 2 mesh passes them too: no ``kind`` stack is refused."""
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch import steps as PS
     cfg = pconfigs.get_smoke(arch)
     for device in ("cpu", "cuda"):
         PT.check_trainable(cfg, device)
-    make_train_step(cfg)
-    with pytest.raises(NotImplementedError, match=f"{kind} stacks"):
-        make_train_step(cfg, None, AbstractMesh({"data": 2, "model": 2}))
+    PS.make_train_step(cfg)
+    for step in ("train", "serve"):
+        PS._check_layout(cfg, ShardingRules(data_axes=("data",)), 2, step)

@@ -31,10 +31,11 @@ split query heads:
     so it could not hold the sharded step;
   * every rank's parameter-shard bytes equal ``per_device_bytes`` of the
     specs on each mesh;
-  * the refusals that stay (``NotImplementedError`` naming ROADMAP.md
-    Queue 1 item 8): RWKV, the encoder-decoder, the prefix-LM, and 3 KV
-    heads beside 6 query heads on 1 x 2 (2 ranks neither divide 3 heads
-    nor are divided by them);
+  * the refusal that stays (``NotImplementedError`` naming ROADMAP.md
+    Queue 1 item 8): 3 KV heads beside 6 query heads on 1 x 2 (2 ranks
+    neither divide 3 heads nor are divided by them; RWKV, the
+    encoder-decoder and the prefix-LM run since
+    ``tests/test_torch_sharded_families.py``);
   * a one-process 1 x 1 gloo world, bit for bit the plain port steps, and
     ``shard_params`` frees the full tensors of the leaves it splits.
 
@@ -96,8 +97,7 @@ TRAIN = {f"{c} {m[0]}x{m[1]} micro {mb}": (c, m, mb)
                           ("rg", (1, 4), 1), ("qwen3", (1, 4), 1))}
 BYTES = {f"{c} {m[0]}x{m[1]}": (c, m) for c in ("ds pp", "rg")
          for m in ((1, 2), (2, 2), (1, 4))}
-REFUSED = {"rwkv6-1.6b": "RWKV", "whisper-tiny": "encoder-decoder",
-           "paligemma-3b": "prefix-LM", "kv 6/3": "kv_heads"}
+REFUSED = {"kv 6/3": "kv_heads"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -110,10 +110,9 @@ def _cfgs(config):
 
 
 def _refuse_cfgs():
-    """The configs the steps still refuse on 1 x 2: RWKV, the
-    encoder-decoder, the prefix-LM, and qwen3 smoke at 6 query / 3 KV
-    heads."""
-    cfgs = {a: pconfigs.get_smoke(a) for a in REFUSED if a != "kv 6/3"}
+    """The config the steps still refuse on 1 x 2: qwen3 smoke at 6 query
+    / 3 KV heads."""
+    cfgs = {}
     q = pconfigs.get_smoke("qwen3-1.7b")
     cfgs["kv 6/3"] = dataclasses.replace(q, segments=tuple(
         dataclasses.replace(seg, blocks=tuple(
@@ -334,10 +333,7 @@ def test_the_refusals_that_stay(run, arch):
         msg = run["refused"][(arch, step)]
         assert msg is not None and "ROADMAP.md" in msg, (arch, step)
         assert "Queue 1 item 8" in msg, (arch, step)
-        if what == "kv_heads":
-            assert "'kv_heads' dim 3 % mesh 2" in msg, msg
-        else:
-            assert f"{what} stacks on 2 ranks" in msg, msg
+        assert f"'{what}' dim 3 % mesh 2" in msg, msg
 
 
 @pytest.fixture

@@ -17,9 +17,13 @@ layers, d 64, 4/2 heads, vocab 256) in float32:
     grad norm, params and moments), microbatches 1 and 2, SOI none and pp;
   * the refusals: compression on a split model axis and with fsdp over 2
     data ranks, kv heads that neither divide the model axis nor are
-    divided by it (3 on 4 ranks; training and serving), and a CUDA mesh
-    without a card; fsdp and seq_shard, once refused, build (their runs:
-    ``tests/test_torch_sharded_fsdp_sp.py``);
+    divided by it (3 on 4 ranks; training and serving), whisper-tiny's 6
+    heads on 4 ranks, and a CUDA mesh without a card; fsdp and seq_shard,
+    once refused, build (their runs: ``tests/test_torch_sharded_fsdp_sp
+    .py``), and so do the three steps of RWKV, the encoder-decoder and the
+    prefix-LM — whisper-tiny at its published width, its vocab of 51865
+    whole on every rank — (their runs:
+    ``tests/test_torch_sharded_families.py``);
   * the MLA (deepseek-v2 smoke pp, MLA + MoE) and RG-LRU (recurrentgemma
     smoke, MQA's KV head replicated) stacks, which the step refused before
     it ran them, from seed-0 weights on the 2 x 2 mesh: one sharded step
@@ -41,6 +45,7 @@ import repro.configs.nemotron_4_15b as JNM
 import repro.configs.qwen3_1_7b as Q
 from repro.launch.steps import make_train_step as jmake_train_step
 from repro.optim import adamw_init as jadamw_init
+from repro_torch import configs as pconfigs
 from repro_torch.configs import nemotron_4_15b as PNM
 from repro_torch.configs import qwen3_1_7b as PQ
 from repro_torch.distributed.sharding import (ShardingRules, gather_params,
@@ -72,6 +77,15 @@ CASES = {"none 2x2": (None, (2, 2), False, (Q, PQ), _random_params),
 def _cfgs(mode, mods=(Q, PQ)):
     return tuple(dataclasses.replace(m.smoke_config(soi=mode),
                                      dtype="float32") for m in mods)
+
+
+def _family_cfgs():
+    """The stacks the steps refused on more than one rank until they ran
+    them: rwkv6 and paligemma smoke, and whisper-tiny at full width."""
+    from repro_torch.configs import whisper_tiny
+    return {"rwkv6-1.6b": pconfigs.get_smoke("rwkv6-1.6b", soi="pp"),
+            "paligemma-3b": pconfigs.get_smoke("paligemma-3b"),
+            "whisper-tiny": whisper_tiny.config()}
 
 
 def _kv3_cfg():
@@ -122,6 +136,7 @@ def run(tmp_path_factory):
     tokens = rng.integers(0, 256, (4, 16)).astype(np.int32)
     R._save(tmp, "train_in.pkl", {
         "cases": cases, "refuse_cfg": _cfgs(None)[1], "kv3_cfg": _kv3_cfg(),
+        "family_cfgs": _family_cfgs(),
         "run_cfgs": _stack_cfgs(),
         "run_batch": {"tokens": tokens,
                       "targets": np.roll(tokens, -1, axis=1)}})
@@ -169,8 +184,11 @@ def test_refusals(run):
     _, out = run
     refused = out["refused"]
     built = {"fsdp", "seq_shard", "serve fsdp seq_shard", "prefill seq_shard"}
+    built |= {f"{a} {s}" for a in _family_cfgs()
+              for s in ("train", "prefill", "serve")}
     assert set(refused) == built | {"compress", "compress fsdp", "kv_heads",
-                                    "serve kv_heads", "prefill kv_heads"}
+                                    "serve kv_heads", "prefill kv_heads",
+                                    "heads"}
     for name, msg in refused.items():
         if name in built:
             assert msg is None, (name, msg)
@@ -182,6 +200,8 @@ def test_refusals(run):
     for name in ("kv_heads", "serve kv_heads", "prefill kv_heads"):
         assert "model axis of 4" in refused[name], name
         assert "'kv_heads' dim 3" in refused[name], name
+    assert "'heads' dim 6 % mesh 4" in refused["heads"]
+    assert "Queue 1 item 8" in refused["heads"]
 
 
 @pytest.mark.parametrize("stack", ["MLA", "RG-LRU"])

@@ -18,8 +18,11 @@ draws them (its ``GAIN``):
     float64 run of the port, leaf by leaf (within 10x of each other), so
     the reduced gains test the port and not the rounding;
   * ``launch.train.main`` on the CPU for each of the four architectures;
-  * the mesh step's refusal of RWKV, encoder-decoder and prefix-LM
-    stacks on more than one rank, on a rankless ``AbstractMesh``.
+  * the mesh steps' layout check of RWKV, encoder-decoder and prefix-LM
+    stacks, which they refused on more than one rank until
+    ``tests/test_torch_sharded_families.py`` held their runs: passed
+    where the model axis divides their heads, refused where it cuts
+    one.
 """
 
 import functools
@@ -35,9 +38,7 @@ from repro.optim import adamw_init as jadamw_init
 from repro_torch import configs as pconfigs
 from repro_torch.convert import from_jax_params
 from repro_torch.launch import train as ptrain
-from repro_torch.launch.mesh import AbstractMesh
-from repro_torch.launch.steps import (make_prefill, make_serve_step,
-                                      make_train_step)
+from repro_torch.launch.steps import make_train_step
 from repro_torch.models import transformer as PT
 from repro_torch.optim import adamw_init
 from test_torch_train import _random_params as _gain1_params
@@ -194,24 +195,29 @@ def test_stub_batch_is_the_reference_trainers():
 
 
 @pytest.mark.parametrize("arch,shape,what", [
-    ("rwkv6-1.6b", {"data": 2, "model": 2}, "RWKV"),
-    ("rwkv6-1.6b", {"data": 4, "model": 1}, "RWKV"),
-    ("whisper-tiny", {"data": 2, "model": 2}, "encoder-decoder"),
-    ("whisper-tiny", {"data": 1, "model": 4}, "encoder-decoder"),
-    ("paligemma-3b", {"data": 2, "model": 2}, "prefix-LM"),
-    ("paligemma-3b", {"data": 4, "model": 1}, "prefix-LM")])
+    ("rwkv6-1.6b", {"data": 2, "model": 2}, None),
+    ("rwkv6-1.6b", {"data": 1, "model": 8}, "rwkv heads 4 % mesh 8"),
+    ("whisper-tiny", {"data": 2, "model": 2}, None),
+    ("whisper-tiny", {"data": 1, "model": 4}, "'heads' dim 2 % mesh 4"),
+    ("paligemma-3b", {"data": 2, "model": 2}, None),
+    ("paligemma-3b", {"data": 4, "model": 1}, None)])
 def test_mesh_step_refuses_unsharded_stacks(arch, shape, what):
     """RWKV, encoder-decoder and prefix-LM stacks on more than one rank:
-    refused before any process group is needed, by the serving steps
-    too."""
+    no longer refused as stacks — the layout check of the train step and
+    of both serving steps, which needs no process group, passes them
+    wherever the model axis divides their heads; a model axis that cuts
+    a head (4 RWKV heads on 8 ranks, whisper smoke's 2 on 4) stays
+    refused (ROADMAP.md Queue 1 item 8)."""
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch import steps as PS
     cfg = pconfigs.get_smoke(arch)
     make_train_step(cfg)                          # trains without a mesh
-    with pytest.raises(NotImplementedError,
-                       match=f"{what} stacks.*Queue 1 item 8"):
-        make_train_step(cfg, None, AbstractMesh(shape))
-    if AbstractMesh(shape).size() > 1:            # one rank serves them all
-        for make in (make_prefill, make_serve_step):
-            with pytest.raises(NotImplementedError,
-                               match=f"serve step does not run {what} "
-                                     f"stacks.*Queue 1 item 8"):
-                make(cfg, None, AbstractMesh(shape))
+    rules = ShardingRules(data_axes=("data",))
+    for step in ("train", "serve"):
+        if what is None:
+            PS._check_layout(cfg, rules, shape["model"], step)
+            continue
+        with pytest.raises(NotImplementedError,
+                           match=f"{step} step does not run.*{what}.*"
+                                 f"Queue 1 item 8"):
+            PS._check_layout(cfg, rules, shape["model"], step)
