@@ -261,10 +261,11 @@ Phases, each printing its own lines:
              finite. (c) launch.train.main on qwen3-1.7b at full width and
              depth, bf16 over f32 masters, B 8, S 128, 20 steps, without
              SOI and with pp: finite losses whose last 5 average below the
-             first, 28 flash_attention and 28 flash_attention_bwd launches
-             a step, peak memory; then on a fresh state the median step,
-             tokens/s, a profiled window of 3 steps (busy, busy share) and
-             the model-FLOPs share of 989 TFLOP/s. (d) TrainSupervisor at
+             first, 56 flash_attention and 28 flash_attention_bwd launches
+             a step (remat, the default: the backward recomputes each
+             layer's forward), peak memory; then on a fresh state the
+             median step, tokens/s, a profiled window of 3 steps (busy,
+             busy share), and the model-FLOPs share of 989 TFLOP/s. (d) TrainSupervisor at
              smoke width, f32: a crash at step 7 of 12 with checkpoints
              every 3 ends within 1e-6 of an uninterrupted run. (e)
              soi-unet-dns at full width, 20 steps each (STMC baseline, PP
@@ -388,10 +389,12 @@ Phases, each printing its own lines:
              masters, SOI pp, B 8 S 128, 5 steps each: olmoe-1b-7b (6 of
              16 layers), deepseek-v2's MLA stack (mla_dense_config, 4
              layers), recurrentgemma-9b (6 of 38) and h2o-danube-1.8b
-             (24): every loss finite, launches exact (flash_attention and
-             its backward one each an attention layer a step: olmoe 6, MLA
-             4, the windowed stacks 0; lru_scan and lru_scan_bwd one each
-             an RG-LRU layer: 4), peak under 80 GiB; step median and
+             (24): every loss finite, launches exact (flash_attention_bwd
+             one an attention layer a step and flash_attention two, the
+             backward's recompute of the layer's remat group the second:
+             olmoe 12 / 6, MLA 8 / 4, the windowed stacks 0; lru_scan two
+             and lru_scan_bwd one an RG-LRU layer: 8 / 4), peak under 80
+             GiB; step median and
              tokens/s, and 2 more steps profiled between markers (busy
              share, kernels a step).
 23. train-zoo — training of the encoder-decoder, prefix-LM, RWKV and
@@ -408,11 +411,12 @@ Phases, each printing its own lines:
              1e-4: whisper-tiny whole (B 4, random frames), paligemma-3b cut
              to 2 layers (B 4, 256 random patch embeddings), rwkv6-1.6b cut
              to 4 (SOI pp) and nemotron-4-15b cut to 2 (B 2, 3.93 B
-             parameters); flash launches a loss exact (whisper 12,
-             nemotron 2). (c) make_train_step as launch.train.main builds
-             it, the stub frontends fed as it feeds them, bf16 over f32
+             parameters); flash_attention_bwd launches a loss exact
+             (whisper 12, nemotron 2; flash_attention twice as many, remat).
+             (c) make_train_step as launch.train.main builds it, the stub
+             frontends fed as it feeds them, bf16 over f32
              masters, B 8 S 128, 5 steps each: whisper-tiny (4 + 4 layers,
-             1500 frames; flash_attention and its backward 12 a step),
+             1500 frames; flash_attention 24 and its backward 12 a step),
              paligemma-3b (18 layers, no SOI, 256 patch embeddings; peak
              under 72 GiB) and rwkv6-1.6b (24 layers, SOI pp): every loss
              finite, launches exact; step median, tokens/s, peak, busy
@@ -455,7 +459,7 @@ Phases, each printing its own lines:
              bf16 over f32 masters, B 8 S 128, 3 steps plain then 3 sharded
              on the (1, 1) mesh from the same weights: loss, aux and grad
              norm equal, params and moments equal by per-leaf digests;
-             flash_attention and its backward 6 a step; ms a step, peak and
+             flash_attention 12 and its backward 6 a step; ms a step, peak and
              collectives a step of each. (c) two gloo processes sharing the
              card, a (1, 2) mesh, each holding 32 of the 64 experts (and
              half the heads and vocabulary): olmoe cut to 4 layers (SOI pp
@@ -501,15 +505,8 @@ Phases, each printing its own lines:
              the card's name and power limit. (a) phase 26's (a), (b) and
              (c) with ShardingRules(fsdp=True, seq_shard=True) on the (1,
              1) NCCL mesh, 8 serve steps: bit for bit the plain steps. (b)
-             two gloo processes sharing the card, a (2, 1) mesh with fsdp:
-             qwen3-1.7b at full width cut to 8 of 28 layers (gloo stages
-             the whole f32 model through the host twice a step), SOI pp,
-             float32, one train step on each rank's half of B 8 S 128:
-             loss within 1e-5 and grad norm within 1e-4 of one process's
-             step on the whole batch; parameter bytes the specs', half a
-             whole copy; each rank's peak beside the one process's, bytes
-             a parameter, and the collectives' calls and host ms of a
-             second step. (c) the two processes on a (1, 2) mesh with
+             runs in phase 29 (d). (c) two gloo processes
+             sharing the card on a (1, 2) mesh with
              seq_shard: recurrentgemma-9b at 3 layers, float32, prefill B 4
              x 1024 + 2 steps — tokens equal to one rank's, logits within
              1e-3 — and one train step: loss within 1e-6 and grad norm
@@ -541,7 +538,31 @@ Phases, each printing its own lines:
              within 1e-4 (rwkv6's gradients, behind its clamps, each leaf
              no further off a float64 run than 10x one process's); bytes
              the specs', launches held.
-29. the kernels JSON line (the decode reads and copy_pages also give their
+29. remat — the reference's per-layer rematerialisation in the train
+             steps (``cfg.remat``, ``remat_policy``; every number beside
+             the card's name and power limit). (a) qwen3-1.7b at full
+             width and depth, bf16 over f32 masters, SOI pp, B 2 x S 4096,
+             two make_train_step steps from the same weights with remat
+             on ("full") and off: the second step's loss, grad norm and
+             every master and moment after it bit for bit (by digest);
+             each one's step ms, tokens/s, peak GiB and launches
+             (flash_attention 56 with remat, 28 without; its backward 28).
+             (b) the same with remat at B 8 x S 4096, the reference's
+             train_4k length: step ms, tokens/s, peak GiB (remat off is
+             not run: its activations alone pass the card). (c) "dots"
+             and "names" at (a)'s shape, bit for bit (a), each peak. (d)
+             two gloo processes sharing the card, a (2, 1) mesh with fsdp,
+             qwen3-1.7b at full width cut to 8 of 28 layers, SOI pp,
+             float32, one train step on each rank's half of B 8 S 128,
+             with remat off and on: loss within 1e-5 and grad norm within
+             1e-4 of one process's step on the whole batch; parameter
+             bytes the specs'; each rank's peak beside 9.19 GiB (the step
+             holding the whole gathered model, PERF.md), and its peak up
+             to the update (where gathered leaves live); the all-gathers
+             a step counted: each data-split leaf outside the blocks once,
+             a block's inside its layer group, twice with remat (the
+             backward's recompute gathers it again).
+30. the kernels JSON line (the decode reads and copy_pages also give their
              phase-15 launches under "spec"; the kernels phase 16 launches
              their launches there under "obs"; flash_attention and
              flash_attention_bwd phase 17's under "train" and phase 21's
@@ -562,8 +583,8 @@ Phases, each printing its own lines:
              lru_scan and lru_scan_bwd phase 26's under "mla_rglru_mesh"
              and phase 27's under "fsdp_sp_mesh"; decode_attention,
              flash_attention and flash_attention_bwd phase 28's launches
-             and (0)'s shapes under "families_mesh"), the card line, and
-             last {"ok": true, ...}.
+             and (0)'s shapes under "families_mesh", and phase 29's
+             under "remat"), the card line, and last {"ok": true, ...}.
 
 Phases 4-13, 15, 16, 18 and 19 run the engine and the U-Net session as a user does, so
 on the card every generate step, window and frame after a branch's first is
@@ -4471,6 +4492,22 @@ RESTART_TOL = 1e-6       # (d): resumed vs uninterrupted params
 WELL_CONDITIONED = 100.0
 
 
+def _train_want(cfg, flash: int, lru: int = 0, times: int = 1) -> dict:
+    """The kernel launches of ``times`` losses and gradients of ``cfg``
+    whose backward launches ``flash`` flash_attention_bwd and ``lru``
+    lru_scan_bwd: as many forwards without remat, twice as many with it
+    (every layer these phases train sits in a scanned segment, whose
+    groups the backward recomputes: ``models.remat``)."""
+    segs = list(cfg.segments) + (
+        [] if cfg.encoder is None else list(cfg.encoder.segments))
+    check(all(seg.scan for seg in segs),
+          f"{cfg.name}: an unscanned segment's layers are not recomputed")
+    k = 2 if cfg.remat else 1
+    return {"flash_attention": k * flash * times,
+            "flash_attention_bwd": flash * times,
+            "lru_scan": k * lru * times, "lru_scan_bwd": lru * times}
+
+
 def _bwd_inputs(b, s, dt, dev, gen, heads=(16, 8), dims=(128, 128),
                 sk=None, causal=True):
     """A maker of (q, k, v, o, dO, lse) at qwen3's H 16 / Hkv 8 / dh 128
@@ -4706,8 +4743,9 @@ def _grad_parity(dev):
             ops.flash_attention = saved
         res[route] = (loss, grads, m, counts)
     (lk, gk, mk, ck), (lp, gp, mp, cp) = res["kernels"], res["plain"]
-    check(ck["flash_attention"] == 8 and ck["flash_attention_bwd"] == 8,
-          f"4-layer parity: {ck} (want 8 and 8: loss_fn, then the step)")
+    want = _train_want(cfg, cfg.n_layers, times=2)   # loss_fn, the step
+    check(all(ck[k] == n for k, n in want.items()),
+          f"4-layer parity: {ck} (want {want}: loss_fn, then the step)")
     check(cp["flash_attention"] == 0 and cp["flash_attention_bwd"] == 0,
           f"plain route launched kernels: {cp}")
     rel_loss = abs(float(lk) - float(lp)) / abs(float(lp))
@@ -4806,6 +4844,8 @@ def _full_train(dev, card):
     for soi in (None, "pp"):
         label = "dense" if soi is None else "SOI pp"
         argv = TRAIN_ARGV + (["--soi", soi] if soi else [])
+        want = _train_want(configs.get("qwen3-1.7b", soi=soi), 28,
+                           times=TRAIN_STEPS)
         _free(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         ops.reset_launch_counts()
@@ -4821,15 +4861,16 @@ def _full_train(dev, card):
         check(last5 < losses[0], f"{label}: loss {losses[0]} -> mean of the "
                                  f"last 5 {last5}: not falling")
         for name in ("flash_attention", "flash_attention_bwd"):
-            check(counts[name] == 28 * TRAIN_STEPS,
+            check(counts[name] == want[name],
                   f"{label}: {name} {counts[name]} launches, want "
-                  f"{28 * TRAIN_STEPS}")
+                  f"{want[name]}")
         out[label] = counts
         print(f"  (c) qwen3-1.7b {label}, 28 layers, B 8 S 128, "
               f"{TRAIN_STEPS} steps: loss {losses[0]:.4f} -> last 5 "
               f"{last5:.4f}; {took:.1f} s in main; flash_attention "
               f"{counts['flash_attention']} / flash_attention_bwd "
-              f"{counts['flash_attention_bwd']} launches (28 a step); peak "
+              f"{counts['flash_attention_bwd']} launches (56 / 28 a step: "
+              f"remat recomputes each layer's forward); peak "
               f"{peak / 2 ** 30:.2f} GiB allocated  [{card}]")
         # the step alone, on a fresh state: median of 4 after 2, then a
         # profiled window of 3
@@ -6130,10 +6171,10 @@ def _dist_train(dev, card):
               f"{len(nccl)}, NCCL calls on the host {dict(calls)}; "
               f"flash_attention forward kernels {fwd}, backward {bwd} "
               f"[{card}]")
-        check(fwd == cfg.n_layers and all(v == cfg.n_layers
-                                          for v in bwd.values()),
-              f"{label}: flash forward {fwd}, backward {bwd}, want "
-              f"{cfg.n_layers} each")
+        n = _train_want(cfg, cfg.n_layers)
+        check(fwd == n["flash_attention"] and all(
+            v == n["flash_attention_bwd"] for v in bwd.values()),
+              f"{label}: flash forward {fwd}, backward {bwd}, want {n}")
         return calls
 
     _free(dev)
@@ -6169,10 +6210,11 @@ def _dist_train(dev, card):
         bad = [k for k in want[t] if got[t][k] != want[t][k]]
         check(not bad and set(got[t]) == set(want[t]),
               f"sharded {t} differ from the plain step's: {bad[:5]}")
+    want_n = _train_want(cfg, cfg.n_layers, times=DIST_STEPS)
     for name in ("flash_attention", "flash_attention_bwd"):
-        check(counts[name] == cfg.n_layers * DIST_STEPS,
+        check(counts[name] == want_n[name],
               f"sharded step: {name} {counts[name]} launches, want "
-              f"{cfg.n_layers * DIST_STEPS}")
+              f"{want_n[name]}")
     n_leaves = len(want["params"])
     print(f"  (c) qwen3-1.7b SOI pp, 28 layers, bf16 over f32 masters, B 8 "
           f"S 128, {DIST_STEPS} steps: sharded on the (1, 1) NCCL mesh == "
@@ -6184,7 +6226,8 @@ def _dist_train(dev, card):
           f"synchronize, {DIST_STEPS} steps each) [{card}]")
     print(f"  (c) sharded run launches: flash_attention "
           f"{counts['flash_attention']}, flash_attention_bwd "
-          f"{counts['flash_attention_bwd']} ({cfg.n_layers} a step)")
+          f"{counts['flash_attention_bwd']} ({2 * cfg.n_layers} and "
+          f"{cfg.n_layers} a step: remat recomputes each layer's forward)")
     calls = profiled("sharded step", lambda: step(model, opt, local_batch(
         batches[DIST_STEPS], mesh)))
     check(calls.get("nccl:all_reduce", 0) > 0,
@@ -6473,9 +6516,7 @@ def _family_grad_parity(label, cfg, dev, want) -> None:
         res[route] = (float(loss.detach()), float(metrics["aux"].detach()),
                       grads, counts)
     (lk, ak, gk, ck), (lp, ap, gp, cp_) = res["kernels"], res["plain"]
-    _counts_want(ck, {"flash_attention": want[0],
-                      "flash_attention_bwd": want[0],
-                      "lru_scan": want[1], "lru_scan_bwd": want[1]},
+    _counts_want(ck, _train_want(cfg, *want),
                  f"{label} 4-layer parity, kernels")
     _counts_want(cp_, {}, f"{label} 4-layer parity, plain")
     rel_loss = abs(lk - lp) / abs(lp)
@@ -6535,8 +6576,8 @@ def _family_train(label, cfg, cut, want, dev, card, peak_gib=80.0,
     and tokens/s of the S text tokens (median after 2, host clock after a
     synchronize), peak GiB under ``peak_gib``, then FAMILY_PROFILED more
     steps profiled between markers (busy share). ``tally`` (a dict)
-    receives the measured steps' forward flash launches with lse by (B,
-    Sq, Sk, H, Hkv, d). Returns the run's launch counts."""
+    receives the measured steps' flash_attention_bwd launches by (B, Sq,
+    Sk, H, Hkv, d). Returns the run's launch counts."""
     from repro_torch.data.pipeline import ShardedLMPipeline
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_train_step
@@ -6575,11 +6616,7 @@ def _family_train(label, cfg, cut, want, dev, card, peak_gib=80.0,
     peak = torch.cuda.max_memory_allocated(dev)
     check(all(map(math.isfinite, losses + auxes)),
           f"{label}: non-finite losses {losses} / aux {auxes}")
-    flash, lru = want
-    _counts_want(counts, {"flash_attention": flash * FAMILY_STEPS,
-                          "flash_attention_bwd": flash * FAMILY_STEPS,
-                          "lru_scan": lru * FAMILY_STEPS,
-                          "lru_scan_bwd": lru * FAMILY_STEPS},
+    _counts_want(counts, _train_want(cfg, *want, times=FAMILY_STEPS),
                  f"{label} train")
     check(peak < peak_gib * 2 ** 30, f"{label}: peak {peak / 2 ** 30:.2f} "
                                      f"GiB, over {peak_gib}")
@@ -6617,27 +6654,32 @@ def _soi_of(cfg) -> str:
 
 @contextlib.contextmanager
 def _flash_shapes(tally):
-    """With ``tally`` (a dict), count every forward flash launch with its
-    lse — one a training call of ``FlashAttentionFn``, whose backward is
-    one ``flash_attention_bwd`` launch — by (B, Sq, Sk, H, Hkv, d_qk): the
-    kernels' launch counters are the wrappers', unchanged."""
+    """With ``tally`` (a dict), count every ``flash_attention_bwd`` launch
+    of ``FlashAttentionFn``'s backward — one a training call, whose
+    forward runs once more where remat recomputes its layer — by (B, Sq,
+    Sk, H, Hkv, d_qk): the kernels' launch counters are the wrappers',
+    unchanged."""
     if tally is None:
         yield
         return
     from repro_torch.kernels import flash_attention as FA
-    launch = FA.forward_launch
+    launch = FA.flash_attention_bwd
 
-    def counted(q, k, v, **kw):
-        if kw.get("with_lse"):
-            key = (q.shape[0], q.shape[1], k.shape[1], q.shape[2],
-                   k.shape[2], q.shape[3])
-            tally[key] = tally.get(key, 0) + 1
-        return launch(q, k, v, **kw)
-    FA.forward_launch = counted
+    def counted(q, k, *args, **kw):
+        key = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+               q.shape[3])
+        tally[key] = tally.get(key, 0) + 1
+        # the wrapper counts its launch on the module's name: its own
+        FA.flash_attention_bwd = launch
+        try:
+            return launch(q, k, *args, **kw)
+        finally:
+            FA.flash_attention_bwd = counted
+    FA.flash_attention_bwd = counted
     try:
         yield
     finally:
-        FA.forward_launch = launch
+        FA.flash_attention_bwd = launch
 
 
 def train_families_phase(dev, card) -> tuple:
@@ -6775,8 +6817,7 @@ def _zoo_grad_parity(label, cfg, cut, bsz, want, dev, tally,
         torch.cuda.synchronize(dev)
     counts = ops.launch_counts()
     card_s = time.perf_counter() - t0
-    _counts_want(counts, {"flash_attention": want,
-                          "flash_attention_bwd": want},
+    _counts_want(counts, _train_want(cfg, want),
                  f"{label} card vs CPU, card run")
     l64 = g64 = None
     if anchor64:
@@ -6872,8 +6913,8 @@ def zoo_train_phase(dev, card) -> tuple:
                 f"train zoo ({arch}, {FAMILY_STEPS} steps)"
                 if arch in counts else f"train zoo ({arch} card vs CPU, "
                                        f"one loss)"))
-    print(f"  (a) launches by shape (the forward's with lse, one backward "
-          f"each): {', '.join(f'{k}: {v}' for k, v in shapes.items())}")
+    print(f"  (a) flash_attention_bwd launches by shape: "
+          f"{', '.join(f'{k}: {v}' for k, v in shapes.items())}")
     print(f"  phase 23 took {time.perf_counter() - t0:.1f} s [{card}]")
     return recs, counts
 
@@ -7429,10 +7470,9 @@ def _mesh_train_one_by_one(dev, card, cfg, tag, label,
         check(not bad and set(s_["digests"][t]) == set(p["digests"][t]),
               f"{tag} sharded {t} differ from the plain step's: {bad[:5]}")
     counts = s_["counts"]
-    want = {k: v * DIST_STEPS for k, v in _mesh_launches(cfg, 0).items()
-            if k != "decode_attention"}
-    want.update(flash_attention_bwd=want["flash_attention"],
-                lru_scan_bwd=want["lru_scan"])
+    m = _mesh_launches(cfg, 0)
+    want = _train_want(cfg, m["flash_attention"], m["lru_scan"],
+                       times=DIST_STEPS)
     for name, n in want.items():
         check(counts[name] == n, f"{tag} sharded step: {name} "
                                  f"{counts[name]} launches, want {n}")
@@ -7650,9 +7690,10 @@ def _moe_gloo(dev, card) -> None:
               c["flash_attention"] == cfg.n_layers,
               f"(c) rank {r}: serving launches {c}")
         c = rk["train_counts"]
-        check(c["flash_attention"] == MOE_GLOO_TRAIN_LAYERS and
-              c["flash_attention_bwd"] == MOE_GLOO_TRAIN_LAYERS,
-              f"(c) rank {r}: training launches {c}")
+        want = _train_want(cfg, MOE_GLOO_TRAIN_LAYERS)
+        check(all(c[k] == want[k] for k in ("flash_attention",
+                                            "flash_attention_bwd")),
+              f"(c) rank {r}: training launches {c}, want {want}")
 
     def med(x):
         return sorted(x)[len(x) // 2]
@@ -7973,10 +8014,8 @@ def _mla_gloo(dev, card) -> dict:
             check(all(g["serve_counts"][k] == n for k, n in want_s.items()),
                   f"(d) {label} rank {r}: serving launches "
                   f"{g['serve_counts']}, want {want_s}")
-            want_t = {k: v for k, v in _mesh_launches(tcfg, 0).items()
-                      if k != "decode_attention"}
-            want_t.update(flash_attention_bwd=want_t["flash_attention"],
-                          lru_scan_bwd=want_t["lru_scan"])
+            m = _mesh_launches(tcfg, 0)
+            want_t = _train_want(tcfg, m["flash_attention"], m["lru_scan"])
             check(all(g["train_counts"][k] == n for k, n in want_t.items()),
                   f"(d) {label} rank {r}: training launches "
                   f"{g['train_counts']}, want {want_t}")
@@ -8061,13 +8100,14 @@ def mla_rglru_mesh_phase(dev, card) -> dict:
 
 FSDP_SP = dict(fsdp=True, seq_shard=True)
 FSDP_SP_SERVE_STEPS = 8            # (a) serve steps after the prefill
-# (b) qwen3-1.7b cut to 8 of 28 layers at full width: each fsdp step moves
-# the whole f32 model through gloo's host staging twice (the gathers and
-# the gradient's all-reduce)
+# phase 29 (d): qwen3-1.7b cut to 8 of 28 layers at full width: each
+# fsdp step moves the whole f32 model through gloo's host staging twice
+# (the gathers and the gradient's all-reduce)
 FSDP_QWEN_LAYERS = 8
 FSDP_RG_LAYERS = 3                 # (c) recurrentgemma-9b, phase 26 (d)'s
-# (b) the data ranks' halves of the batch against the whole batch in one
-# process: the NLL, the counts and every gradient summed in another order
+# 29 (d): the data ranks' halves of the batch against the whole batch in
+# one process: the NLL, the counts and every gradient summed in another
+# order
 FSDP_LOSS_TOL = 1e-5               # loss, relative
 FSDP_GRAD_TOL = 1e-4               # grad norm, relative
 FSDP_DIR = ROOT / "build" / "fsdp_sp_mesh"
@@ -8090,7 +8130,7 @@ def _collective_ms(step) -> dict:
 
 
 def _fsdp_sp_cfgs():
-    """(b)'s qwen3-1.7b (SOI pp, FSDP_QWEN_LAYERS) and (c)'s
+    """Phase 29 (d)'s qwen3-1.7b (SOI pp, FSDP_QWEN_LAYERS) and (c)'s
     recurrentgemma-9b (FSDP_RG_LAYERS: RG-LRU, RG-LRU, local attention),
     both at full width in f32."""
     from repro_torch import configs
@@ -8149,10 +8189,11 @@ def _fsdp_sp_step(cfg, seed, dev, rules=None, mesh=None) -> dict:
 
 
 def _fsdp_sp_rank(rank, world):
-    """(b) and (c), one of two gloo ranks sharing the card: (b) a train
-    step of qwen3-1.7b on a (2, 1) mesh with fsdp; (c) recurrentgemma-9b's
+    """(c), one of two gloo ranks sharing the card: recurrentgemma-9b's
     prefill, two decode steps and one train step on a (1, 2) mesh with
-    seq_shard, the reduce-scatters counted. Writes the results."""
+    seq_shard, the reduce-scatters counted. Writes the results. (b), the
+    (2, 1) fsdp step of qwen3-1.7b, runs in phase 29 (d), with remat on
+    and off."""
     import os
     import pickle
     import torch.distributed as dist
@@ -8170,13 +8211,8 @@ def _fsdp_sp_rank(rank, world):
     dist.init_process_group("gloo", store=store, rank=rank,
                             world_size=world)
     try:
-        qcfg, rcfg = _fsdp_sp_cfgs()
+        _, rcfg = _fsdp_sp_cfgs()
         out = {}
-        mesh = make_mesh((world, 1), ("data", "model"))
-        rules = ShardingRules(data_axes=("data",), fsdp=True)
-        out["b"] = _fsdp_sp_step(qcfg, 27, dev, rules, mesh)
-        dist.barrier()
-
         mesh = make_mesh((1, world), ("data", "model"))
         rules = ShardingRules(data_axes=("data",), seq_shard=True)
         model, prompt = _mla_serve_inputs(rcfg, dev)
@@ -8214,15 +8250,14 @@ def _fsdp_sp_rank(rank, world):
 
 
 def _fsdp_sp_gloo(dev, card) -> dict:
-    """(b) and (c): the one-process steps here, then two gloo ranks on the
-    card (``_fsdp_sp_rank``). Returns the ranks' summed launch counts."""
+    """(c): the one-rank steps here, then two gloo ranks on the card
+    (``_fsdp_sp_rank``). Returns the ranks' summed launch counts."""
     import pickle
     import shutil
     import torch.multiprocessing as mp
     from repro_torch.launch.steps import make_prefill, make_serve_step
     t0 = time.perf_counter()
-    qcfg, rcfg = _fsdp_sp_cfgs()
-    want_b = _fsdp_sp_step(qcfg, 27, dev)
+    _, rcfg = _fsdp_sp_cfgs()
     model, prompt = _mla_serve_inputs(rcfg, dev)
     w_logits, w_toks, st, w_ms = _mesh_run(
         make_prefill(rcfg, max_len=MESH_MAX_LEN), make_serve_step(rcfg),
@@ -8243,19 +8278,9 @@ def _fsdp_sp_gloo(dev, card) -> dict:
 
     def close(got, want, tol):
         return abs(got - want) <= tol * abs(want)
-    full = want_b["n_params"] * 4
     totals = {}
     for r, rk in enumerate(ranks):
-        b, c = rk["b"], rk["c"]
-        for k, tol in (("loss", FSDP_LOSS_TOL), ("grad_norm", FSDP_GRAD_TOL)):
-            check(close(b[k], want_b[k], tol),
-                  f"(b) rank {r} {k} {b[k]} vs one process {want_b[k]}")
-        got, spec = b["bytes"]
-        check(got == spec, f"(b) rank {r} parameter bytes {got} != the "
-                           f"specs' {spec}")
-        check(got < 0.55 * full and b["moment_bytes"] < 1.1 * full,
-              f"(b) rank {r} holds {got} parameter and {b['moment_bytes']} "
-              f"moment bytes of {full} a whole f32 copy")
+        c = rk["c"]
         check(all(torch.equal(a, w.cpu()) for a, w in zip(c["tokens"],
                                                            w_toks)),
               f"(c) rank {r}: the 2-rank tokens differ from one rank's")
@@ -8270,44 +8295,16 @@ def _fsdp_sp_gloo(dev, card) -> dict:
         check(all(c["serve_counts"][k] == n for k, n in want_s.items()),
               f"(c) rank {r}: serving launches {c['serve_counts']}, want "
               f"{want_s}")
-        for cnt in (b["counts"], c["serve_counts"], c["train"]["counts"]):
+        for cnt in (c["serve_counts"], c["train"]["counts"]):
             for k, v in cnt.items():
                 totals[k] = totals.get(k, 0) + v
-    for name, n in (("lru_scan", 4), ("lru_scan_bwd", 2),
-                    ("flash_attention", 2 * qcfg.n_layers),
-                    ("flash_attention_bwd", 2 * qcfg.n_layers)):
-        check(totals.get(name, 0) >= n, f"(b), (c): {name} launched "
+    for name, n in (("lru_scan", 4), ("lru_scan_bwd", 2)):
+        check(totals.get(name, 0) >= n, f"(c): {name} launched "
                                         f"{totals.get(name, 0)} times")
     err = max(float((a - w.cpu()).abs().max()) for rk in ranks
               for a, w in zip(rk["c"]["logits"], w_logits))
     check(err < MESH_GLOO_TOL, f"(c) logits {err} from the one-rank steps")
-    b0, c0 = ranks[0]["b"], ranks[0]["c"]
-    per_param = [rk["b"]["peak_gib"] * 2 ** 30 / want_b["n_params"]
-                 for rk in ranks]
-    print(f"  (b) qwen3-1.7b SOI pp, {qcfg.n_layers} of 28 layers at full "
-          f"width ({want_b['n_params'] / 1e9:.3f} B params), f32, B 8 S "
-          f"128, one train step, two gloo ranks on the card, (2, 1) mesh, "
-          f"fsdp: " + "; ".join(
-              f"rank {r} loss {rk['b']['loss']:.7f} grad norm "
-              f"{rk['b']['grad_norm']:.6f}" for r, rk in enumerate(ranks))
-          + f" == one process's {want_b['loss']:.7f} / "
-          f"{want_b['grad_norm']:.6f} (rel {FSDP_LOSS_TOL} / "
-          f"{FSDP_GRAD_TOL}); parameter bytes a rank "
-          f"{[rk['b']['bytes'][0] for rk in ranks]} (== the specs'; whole "
-          f"f32 {full}), moments {b0['moment_bytes']} [{card}]", flush=True)
-    print(f"  (b) peak GiB of the step: ranks "
-          f"{[round(rk['b']['peak_gib'], 3) for rk in ranks]} (allocated "
-          f"at its start {[round(rk['b']['start_gib'], 3) for rk in ranks]};"
-          f" {[round(x, 2) for x in per_param]} bytes a parameter), one "
-          f"process {want_b['peak_gib']:.3f} (start "
-          f"{want_b['start_gib']:.3f}; "
-          f"{want_b['peak_gib'] * 2 ** 30 / want_b['n_params']:.2f} bytes a "
-          f"parameter); step ms (host clock, the first): ranks "
-          f"{[round(rk['b']['ms'], 1) for rk in ranks]}, one process "
-          f"{want_b['ms']:.1f}; collectives of a second step [calls, host "
-          f"ms]: {b0['coll']}; launches a rank "
-          f"{ {k: v for k, v in b0['counts'].items() if v} } [{card}]",
-          flush=True)
+    c0 = ranks[0]["c"]
     print(f"  (c) recurrentgemma-9b, {rcfg.n_layers} layers at full width, "
           f"f32, two gloo ranks on the card, (1, 2) mesh, seq_shard: "
           f"prefill B 4 x 1024 + 2 steps, tokens == one rank's, logits "
@@ -8329,21 +8326,21 @@ def _fsdp_sp_gloo(dev, card) -> dict:
           f"training "
           f"{ {k: v for k, v in c0['train']['counts'].items() if v} } "
           f"[{card}]", flush=True)
-    print(f"  (b), (c) spawn + run {spawn_s:.1f} s, "
+    print(f"  (c) spawn + run {spawn_s:.1f} s, "
           f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
     return totals
 
 
 def fsdp_sp_mesh_phase(dev, card) -> dict:
     """Phase 27. Returns the launch counts of (a)'s sharded runs on the
-    (1, 1) NCCL mesh with fsdp and seq_shard, by part, and of (b) and
-    (c)'s two gloo ranks summed."""
+    (1, 1) NCCL mesh with fsdp and seq_shard, by part, and of (c)'s two
+    gloo ranks summed ((b) runs in phase 29 (d))."""
     import torch.distributed as dist
     phase("27 fsdp-sp-mesh (fsdp and sequence parallelism: deepseek-v2 and "
           "recurrentgemma-9b's sharded serve and train steps on a (1, 1) "
           "NCCL mesh against the plain steps; two gloo ranks on the card: "
-          "qwen3-1.7b trained on a (2, 1) fsdp mesh, recurrentgemma-9b "
-          "served and trained on a (1, 2) seq_shard mesh)")
+          "recurrentgemma-9b served and trained on a (1, 2) seq_shard "
+          "mesh)")
     t0 = time.perf_counter()
     out = {"ds serve": _mesh_one_by_one(dev, card, DS_MESH_ARGV, "(a)",
                                         FSDP_SP, FSDP_SP_SERVE_STEPS)}
@@ -8761,9 +8758,8 @@ def _fam_gloo(dev, card) -> dict:
             check(all(g["serve_counts"][k] == n for k, n in want_s.items()),
                   f"(b) {label} rank {r}: serving launches "
                   f"{g['serve_counts']}, want {want_s}")
-            want_t = {"flash_attention": _mesh_launches(cfg, 0)[
-                "flash_attention"]}
-            want_t["flash_attention_bwd"] = want_t["flash_attention"]
+            want_t = _train_want(cfg, _mesh_launches(cfg, 0)[
+                "flash_attention"])
             check(all(g["train_counts"][k] == n for k, n in want_t.items()),
                   f"(b) {label} rank {r}: training launches "
                   f"{g['train_counts']}, want {want_t}")
@@ -8864,6 +8860,264 @@ def families_mesh_phase(dev, card) -> tuple:
     return out, shapes
 
 
+# ---------------------------------------------------------------------------
+# 29. remat: the reference's per-layer rematerialisation in the train steps
+# ---------------------------------------------------------------------------
+
+REMAT_S = 4096                     # the reference's train_4k length
+REMAT_B = 2                        # (a), (c)
+REMAT_LONG_B = 8                   # (b)
+REMAT_STEPS = 2                    # the second one measured
+REMAT_DIR = ROOT / "build" / "remat_fsdp"
+
+
+def _remat_step(cfg, b, dev) -> dict:
+    """REMAT_STEPS make_train_step steps of ``cfg`` (bf16 over float32
+    masters) from seed 29's weights, on B ``b`` x S REMAT_S batches: the
+    last step's loss and grad norm, ms (host clock after a synchronize),
+    peak GiB (allocated, from a reset before it) and launches, and every
+    master's and moment's digest after the steps."""
+    from repro_torch.data.pipeline import ShardedLMPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    _free(dev)
+    model = T.init(cfg, generator=torch.Generator(device=dev)
+                   .manual_seed(29), device=dev)
+    opt = adamw_init(dict(model.named_parameters()))
+    step = make_train_step(cfg, peak_lr=1e-3, warmup=20,
+                           total_steps=TRAIN_STEPS)
+    pipe = ShardedLMPipeline(global_batch=b, seq_len=REMAT_S,
+                             vocab=cfg.vocab, seed=0)
+    for i in range(REMAT_STEPS):
+        batch = _train_batch(pipe, i, dev)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = step(model, opt, batch)[2]
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+    out = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+               ms=ms, counts=ops.launch_counts(),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               digests={"params": _digests(dict(model.named_parameters())),
+                        "mu": _digests(opt["mu"]),
+                        "nu": _digests(opt["nu"])})
+    del model, opt, step, batch, m
+    _free(dev)
+    return out
+
+
+def _remat_same(got, want, label):
+    """``got``'s loss, grad norm and digests bit for bit ``want``'s."""
+    for k in ("loss", "grad_norm"):
+        check(got[k] == want[k], f"{label}: {k} {got[k]} != {want[k]}")
+    for t, d in want["digests"].items():
+        bad = [k for k in d if got["digests"][t].get(k) != d[k]]
+        check(not bad and set(got["digests"][t]) == set(d),
+              f"{label}: {t} differ: {bad[:5]}")
+
+
+def _remat_fsdp_rank(rank, world):
+    """(d), one of two gloo ranks sharing the card: phase 27 (b)'s train
+    step of qwen3-1.7b on a (2, 1) fsdp mesh with remat off, then on, the
+    all-gathers of its two steps (``_fsdp_sp_step``'s and the profiled
+    one) counted. Writes the results."""
+    import os
+    import pickle
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    store = dist.FileStore(str(REMAT_DIR / "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world)
+    try:
+        qcfg = _fsdp_sp_cfgs()[0]
+        mesh = make_mesh((world, 1), ("data", "model"))
+        rules = ShardingRules(data_axes=("data",), fsdp=True)
+        out = {}
+        gather, clip = coll.all_gather_dim, steps.clip_by_global_norm
+        for remat in (False, True):
+            calls, before = [0], []
+
+            def counted(*args, **kw):
+                calls[0] += 1
+                return gather(*args, **kw)
+
+            def clipped(*args, **kw):
+                # the step's peak up to its update: forward, backward and
+                # the gradients' sums, where the gathered leaves live
+                before.append(torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+                return clip(*args, **kw)
+            coll.all_gather_dim, steps.clip_by_global_norm = counted, clipped
+            try:
+                out[remat] = _fsdp_sp_step(dataclasses.replace(
+                    qcfg, remat=remat), 27, dev, rules, mesh)
+            finally:
+                coll.all_gather_dim, steps.clip_by_global_norm = gather, clip
+            out[remat].update(gathers=calls[0] / 2, grad_gib=before[0])
+            dist.barrier()
+        with open(REMAT_DIR / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _remat_fsdp(dev, card) -> dict:
+    """(d): one process's step here, then two gloo ranks on the card
+    (``_remat_fsdp_rank``): each within phase 27 (b)'s gates of it, remat
+    on and off; the parameter bytes the specs'; each rank's peak, and up
+    to the update; the all-gathers a step (``collectives.all_gather_dim``'s calls): every
+    data-split leaf outside the blocks once, each block's inside its layer
+    group, twice with remat.
+    Returns the ranks' summed launch counts, by remat."""
+    import pickle
+    import shutil
+    import torch.multiprocessing as mp
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import AbstractMesh
+    t0 = time.perf_counter()
+    qcfg = _fsdp_sp_cfgs()[0]
+    want = _fsdp_sp_step(qcfg, 27, dev)
+    shutil.rmtree(REMAT_DIR, ignore_errors=True)
+    REMAT_DIR.mkdir(parents=True)
+    t1 = time.perf_counter()
+    mp.spawn(_remat_fsdp_rank, args=(2,), nprocs=2, join=True)
+    spawn_s = time.perf_counter() - t1
+    ranks = []
+    for r in range(2):
+        with open(REMAT_DIR / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    shutil.rmtree(REMAT_DIR, ignore_errors=True)
+    _, specs = S.param_specs(qcfg, ShardingRules(data_axes=("data",),
+                                                 fsdp=True),
+                             AbstractMesh({"data": 2, "model": 1}))
+    split = [k for k, spec in specs.items() if "data" in spec]
+    blocks = sum(k.startswith("blocks.") for k in split)
+    full = want["n_params"] * 4
+    totals = {}
+    for remat in (False, True):
+        n_gather = len(split) - blocks + (2 if remat else 1) * blocks
+        tag = "remat" if remat else "no remat"
+        for r, rk in enumerate(ranks):
+            b = rk[remat]
+            for k, tol in (("loss", FSDP_LOSS_TOL),
+                           ("grad_norm", FSDP_GRAD_TOL)):
+                check(abs(b[k] - want[k]) <= tol * abs(want[k]),
+                      f"(d) {tag} rank {r} {k} {b[k]} vs one process "
+                      f"{want[k]}")
+            got, spec = b["bytes"]
+            check(got == spec and got < 0.55 * full,
+                  f"(d) {tag} rank {r} parameter bytes {got}, the specs' "
+                  f"{spec}, whole f32 {full}")
+            gathers = b["gathers"]
+            check(gathers == n_gather,
+                  f"(d) {tag} rank {r}: {gathers} all-gathers a step, want "
+                  f"{n_gather} ({len(split) - blocks} leaves outside the "
+                  f"blocks, {blocks} in them)")
+            n = _train_want(dataclasses.replace(qcfg, remat=remat),
+                            qcfg.n_layers)
+            check(all(b["counts"][k] == v for k, v in n.items()),
+                  f"(d) {tag} rank {r}: launches {b['counts']}, want {n}")
+            tot = totals.setdefault(remat, {})
+            for k, v in b["counts"].items():
+                tot[k] = tot.get(k, 0) + v
+        r0 = ranks[0][remat]
+        print(f"  (d) qwen3-1.7b SOI pp, {qcfg.n_layers} of 28 layers at "
+              f"full width ({want['n_params'] / 1e9:.3f} B params), f32, B "
+              f"8 S 128, one train step, two gloo ranks on the card, (2, "
+              f"1) fsdp mesh, {tag}: " + "; ".join(
+                  f"rank {r} loss {rk[remat]['loss']:.7f} grad norm "
+                  f"{rk[remat]['grad_norm']:.6f}"
+                  for r, rk in enumerate(ranks))
+              + f" vs one process's (remat) {want['loss']:.7f} / "
+              f"{want['grad_norm']:.6f} (rel {FSDP_LOSS_TOL} / "
+              f"{FSDP_GRAD_TOL}); peak GiB a rank "
+              f"{[round(rk[remat]['peak_gib'], 3) for rk in ranks]} "
+              f"(9.19 holding the whole gathered model, PERF.md; up to "
+              f"the update "
+              f"{[round(rk[remat]['grad_gib'], 3) for rk in ranks]}; at its "
+              f"start "
+              f"{[round(rk[remat]['start_gib'], 3) for rk in ranks]}), one "
+              f"process {want['peak_gib']:.3f}; all-gathers a step "
+              f"{n_gather} == counted ({len(split)} leaves split, {blocks} "
+              f"of them in the blocks); step ms (host clock, the first) "
+              f"{[round(rk[remat]['ms'], 1) for rk in ranks]}; "
+              f"collectives of a second step [calls, host ms]: "
+              f"{r0['coll']}; launches a rank "
+              f"{ {k: v for k, v in r0['counts'].items() if v} } [{card}]",
+              flush=True)
+    print(f"  (d) one process: parameter bytes {full}, step "
+          f"{want['ms']:.1f} ms; spawn + run {spawn_s:.1f} s, "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return totals
+
+
+def remat_phase(dev, card) -> dict:
+    """Phase 29. Returns {run: launch counts}."""
+    from repro_torch import configs
+    phase("29 remat (qwen3-1.7b at full width and depth, bf16 over f32 "
+          "masters, SOI pp, B 2 x S 4096 with remat off and with each "
+          "policy, bit for bit; B 8 x S 4096 with remat; the fsdp step on "
+          "two gloo ranks, remat off and on)")
+    t0 = time.perf_counter()
+    cfg = configs.get("qwen3-1.7b", soi="pp")
+    tokens = REMAT_B * REMAT_S
+    runs = {}
+    for label, kw in (("full", {}), ("off", dict(remat=False)),
+                      ("dots", dict(remat_policy="dots")),
+                      ("names", dict(remat_policy="names"))):
+        c = dataclasses.replace(cfg, **kw)
+        runs[label] = r = _remat_step(c, REMAT_B, dev)
+        if label != "full":
+            _remat_same(r, runs["full"], f"(a)/(c) {label} vs full")
+        want = _train_want(c, cfg.n_layers)
+        check(all(r["counts"][k] == n for k, n in want.items()),
+              f"(a) {label}: launches {r['counts']}, want {want}")
+        print(f"  ({'a' if label in ('full', 'off') else 'c'}) {label}: "
+              f"B {REMAT_B} x S {REMAT_S}, step {REMAT_STEPS}: loss "
+              f"{r['loss']:.6f}, grad norm {r['grad_norm']:.6f}"
+              + ("" if label == "full" else
+                 " (loss, grad norm, every master and moment bit for bit "
+                 "the full policy's)")
+              + f"; step {r['ms']:.1f} ms (host clock after a synchronize),"
+              f" {tokens / r['ms'] * 1e3:.0f} tokens/s; peak "
+              f"{r['peak_gib']:.2f} GiB; flash_attention "
+              f"{r['counts']['flash_attention']} + "
+              f"{r['counts']['flash_attention_bwd']} bwd [{card}]",
+              flush=True)
+    long_ = _remat_step(cfg, REMAT_LONG_B, dev)
+    want = _train_want(cfg, cfg.n_layers)
+    check(all(long_["counts"][k] == n for k, n in want.items()),
+          f"(b): launches {long_['counts']}, want {want}")
+    check(math.isfinite(long_["loss"]), f"(b): loss {long_['loss']}")
+    print(f"  (b) full: B {REMAT_LONG_B} x S {REMAT_S} (the reference's "
+          f"train_4k length), step {REMAT_STEPS}: loss "
+          f"{long_['loss']:.6f}; step {long_['ms']:.1f} ms (host clock "
+          f"after a synchronize), "
+          f"{REMAT_LONG_B * REMAT_S / long_['ms'] * 1e3:.0f} tokens/s; peak "
+          f"{long_['peak_gib']:.2f} GiB (remat off: not run, its "
+          f"activations alone pass 80 GB) [{card}]", flush=True)
+    out = {k: r["counts"] for k, r in runs.items()}
+    out["long"] = long_["counts"]
+    gloo = _remat_fsdp(dev, card)
+    out["gloo off"], out["gloo"] = gloo[False], gloo[True]
+    _free(dev)
+    print(f"  phase 29: {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
+    return out
+
+
 def main():
     card = device_phase()
     dev = torch.device("cuda", 0)
@@ -8935,6 +9189,21 @@ def main():
         f"paligemma-3b ({FAM_GLOO_LAYERS['paligemma-3b']} layers) and "
         f"rwkv6-1.6b ({FAM_GLOO_LAYERS['rwkv6-1.6b']}), prefill + "
         f"{FAM_GLOO_STEPS} steps and one train step each")
+    mesh29_counts = remat_phase(dev, card)
+    _free(dev)
+    # phase 29's runs of qwen3-1.7b
+    mesh29_on = {
+        label: f"remat {label} (qwen3-1.7b 28 layers bf16, SOI pp, B "
+               f"{REMAT_B} x S {REMAT_S}, step {REMAT_STEPS} of "
+               f"{REMAT_STEPS})"
+        for label in ("full", "off", "dots", "names")}
+    mesh29_on["long"] = (f"remat full (qwen3-1.7b 28 layers bf16, SOI pp, "
+                         f"B {REMAT_LONG_B} x S {REMAT_S}, step "
+                         f"{REMAT_STEPS} of {REMAT_STEPS})")
+    for key, tag in (("gloo", "on"), ("gloo off", "off")):
+        mesh29_on[key] = (f"two gloo ranks on the card, (2, 1) fsdp mesh, "
+                          f"qwen3-1.7b {FSDP_QWEN_LAYERS} layers f32, one "
+                          f"train step, remat {tag}")
     # phase 27's sharded runs with fsdp and seq_shard
     mesh27_on = {
         "ds serve": f"sharded serve, fsdp + seq_shard (deepseek-v2 4 layers "
@@ -8947,10 +9216,9 @@ def main():
                     f"stack 4 layers, (1, 1) NCCL mesh, {DIST_STEPS} steps)",
         "rg train": f"sharded train, fsdp + seq_shard (recurrentgemma-9b 6 "
                     f"layers, (1, 1) NCCL mesh, {DIST_STEPS} steps)",
-        "gloo": f"two gloo ranks on the card, f32: qwen3-1.7b "
-                f"({FSDP_QWEN_LAYERS} layers) one train step on a (2, 1) "
-                f"fsdp mesh; recurrentgemma-9b ({FSDP_RG_LAYERS}) prefill + "
-                f"2 steps and one train step on a (1, 2) seq_shard mesh"}
+        "gloo": f"two gloo ranks on the card, f32: recurrentgemma-9b "
+                f"({FSDP_RG_LAYERS} layers) prefill + 2 steps and one train "
+                f"step on a (1, 2) seq_shard mesh"}
     # launches: each kernel's count on its own path's run — the dense
     # serve (phase 5), the paged prefix-cache serve (phase 6), the
     # deepseek-v2 serve (phase 8), the MLA prefix-cache serve (phase 9),
@@ -9188,6 +9456,15 @@ def main():
                     if mesh27_counts[key].get(name)}
             check(runs, f"{name} never launched on phase 27's sharded runs")
             summary[-1]["fsdp_sp_mesh"] = runs
+        if name in ("flash_attention", "flash_attention_bwd"):
+            # phase 29's train steps with remat on (the forward launched
+            # again by each layer group's recompute) and off
+            runs = {key: {"launches": mesh29_counts[key][name],
+                          "launches_on": on}
+                    for key, on in mesh29_on.items()}
+            check(all(r["launches"] for r in runs.values()),
+                  f"{name} never launched on a phase 29 run: {runs}")
+            summary[-1]["remat"] = runs
         if name in mesh28_shapes:
             # phase 28: the three families' sharded runs, and (0)'s checks
             # at the shapes they give the kernel
@@ -9208,7 +9485,7 @@ def main():
             summary[-1]["rg_middle"].update(
                 launches=rg_second[name][name],
                 launches_on="rg serve (dense), outer and middle layers")
-    print(f"== 29 done in {time.perf_counter() - T_START:.1f} s")
+    print(f"== 30 done in {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,9 @@ microbatch count, the sharding notes (each divisibility fallback), and the
 bytes one device holds of the float32 params, of the AdamW state (train
 cells) and of the batch (train and prefill) or the decode state (decode
 cells). ``fits`` holds their sum against ``plan.H100``'s memory less its
-reserve. Activations and workspace are not counted: the reference's
+reserve. ``--remat`` sets the cells' ``remat_policy`` (``full``, ``dots``,
+``names`` or ``none``), as the reference's override does, and the record
+carries it. Activations and workspace are not counted: the reference's
 compile-derived fields (XLA's temp bytes, ``cost_analysis``, the HLO
 collective bytes) have no counterpart here yet (ROADMAP.md).
 
@@ -25,6 +27,7 @@ exits 1 if any cell errors.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import os
@@ -91,10 +94,13 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *, soi=None,
              overrides: dict | None = None) -> dict:
     t0 = time.perf_counter()
     cfg = configs.get(arch, soi=soi)
+    if overrides and overrides.get("remat"):
+        cfg = dataclasses.replace(cfg, remat_policy=overrides["remat"])
     info = SHAPES[shape_name]
     mesh = AbstractMesh(production_shape(multi_pod))
     rec = {"arch": arch, "shape": shape_name, "mesh": repr(mesh),
-           "kind": info["kind"], "soi": soi or "none"}
+           "kind": info["kind"], "soi": soi or "none",
+           "remat_policy": cfg.remat_policy}
     ok, why = cell_runnable(cfg, shape_name)
     if not ok:
         rec.update(status="skipped", reason=why)
@@ -149,6 +155,8 @@ def main(argv=None) -> list:
     ap.add_argument("--fsdp", action="store_true", default=None)
     ap.add_argument("--seq-shard", action="store_true", default=None)
     ap.add_argument("--rows", type=int, default=None)
+    ap.add_argument("--remat", default=None,
+                    choices=["full", "dots", "names", "none"])
     args = ap.parse_args(argv)
 
     archs = LM_ARCHS if args.all or args.arch is None else [args.arch]
@@ -157,7 +165,8 @@ def main(argv=None) -> list:
               "both": [False, True]}[args.mesh]
     overrides = {k: v for k, v in (("fsdp", args.fsdp),
                                    ("seq_shard", args.seq_shard),
-                                   ("rows", args.rows)) if v is not None}
+                                   ("rows", args.rows),
+                                   ("remat", args.remat)) if v is not None}
 
     os.makedirs(args.out, exist_ok=True)
     results = []

@@ -38,12 +38,15 @@ data x tensor parallel, computed on local shards with explicit collectives
     divide is split along it over them (``sharding.shard_params``), so its
     float32 master, gradient and both moments are 1/D a rank. A step casts
     each such shard to the compute dtype and all-gathers the whole leaf
-    over the data axes before the forward
-    (``collectives.gather_from_data``, through ``loss_sums``' ``gather``
-    hook), once a microbatch; the gathered copy's gradient is summed over
-    the data axes in float32 and the rank's slice kept — that sum takes
-    the place of the leaf's data-axis all-reduce. A leaf the data axes do
-    not divide stays replicated and is all-reduced as before;
+    over the data axes (``collectives.gather_from_data``, through
+    ``loss_sums``' ``gather`` hook): a leaf outside the blocks once a
+    microbatch, a block's inside its layer group — again where the
+    backward recomputes a rematerialised group (``cfg.remat``), so no
+    whole gathered copy of the blocks lives across the step; the gathered
+    copy's gradient is summed over the data axes in float32 and the
+    rank's slice kept — that sum takes the place of the leaf's data-axis
+    all-reduce. A leaf the data axes do not divide stays replicated and
+    is all-reduced as before;
   * ``rules.seq_shard``: Megatron sequence parallelism
     (``layers.sequence_parallel``): between blocks the carry (B, S, d) is
     split on its sequence over the model axis wherever the axis divides S
@@ -332,8 +335,9 @@ def _sharded_train_step(cfg: ModelCfg, rules: ShardingRules, mesh, *,
         local = {k: p.to_local().detach() for k, p in named.items()}
         leaves = {k: t.detach().requires_grad_(True)
                   for k, t in local.items()}
-        # fsdp: each data-split leaf cast and gathered whole for the
-        # forward; its gradient comes back summed over the data axes
+        # fsdp: each data-split leaf cast and gathered whole where it is
+        # used (a block's in its layer group); its gradient comes back
+        # summed over the data axes
         gather = {k: functools.partial(
             gather_from_data, dim=d, groups=[mesh.get_group(a) for a in axes])
             for k, (d, axes) in _data_split(named, mesh, data_axes).items()}

@@ -179,6 +179,26 @@ def seq_sharded(on: bool):
         _SEQ_SHARDED = prev
 
 
+def layer_state() -> tuple:
+    """What the contexts above have set (the model group, the data groups,
+    sequence parallelism and the sharded carry), for ``layer_state_as``."""
+    return _MODEL_GROUP, _DATA_GROUPS, _SEQ_PARALLEL, _SEQ_SHARDED
+
+
+@contextlib.contextmanager
+def layer_state_as(state: tuple):
+    """Run inside the contexts ``state`` (``layer_state``) recorded: where
+    the backward recomputes a rematerialised layer group, after the
+    forward's contexts have exited."""
+    global _MODEL_GROUP, _DATA_GROUPS, _SEQ_PARALLEL, _SEQ_SHARDED
+    prev = layer_state()
+    _MODEL_GROUP, _DATA_GROUPS, _SEQ_PARALLEL, _SEQ_SHARDED = state
+    try:
+        yield
+    finally:
+        _MODEL_GROUP, _DATA_GROUPS, _SEQ_PARALLEL, _SEQ_SHARDED = prev
+
+
 def _sharded() -> bool:
     return _SEQ_SHARDED and _MODEL_GROUP is not None
 

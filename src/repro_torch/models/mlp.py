@@ -14,6 +14,7 @@ from torch import nn
 from repro_torch.configs.base import MLPCfg
 from repro_torch.models.layers import act_from_model, act_to_model, \
     dense_init, param
+from repro_torch.models.remat import checkpoint_name
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -54,11 +55,14 @@ def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
     """x: (..., d) -> (..., d); under ``layers.model_parallel`` on the
     shard's ff columns, summed over the model axis (a sequence shard's x
     gathered, the sum scattered onto its rows: ``act_to_model`` /
-    ``act_from_model``)."""
+    ``act_from_model``). The hidden is tagged ``"ffn_hidden"``
+    (``remat.checkpoint_name``)."""
     x = act_to_model(x)
     h = torch.matmul(x, p.up)
     if p.gated:
         h = h * p.act(torch.matmul(x, p.gate))
     else:
         h = p.act(h)
+    # what remat_policy="names" saves (the reference's checkpoint_name)
+    h = checkpoint_name(h, "ffn_hidden")
     return act_from_model(torch.matmul(h, p.down))

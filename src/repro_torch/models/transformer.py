@@ -35,6 +35,7 @@ it ("fp" shifts the middle one token into the future).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -55,6 +56,7 @@ from repro_torch.models.layers import dense_init, embed_init, from_model, \
     seq_splits, split_seq, to_model, trunc_normal
 from repro_torch.models.mlp import MLP, mlp_apply
 from repro_torch.models.moe import MoE, moe_apply
+from repro_torch.models.remat import remat_group
 
 
 def _dtype(cfg: ModelCfg) -> torch.dtype:
@@ -117,6 +119,11 @@ class Block(nn.Module):
             self.moe = MoE(b.moe, d, **kw)
         elif b.mlp is not None:
             self.mlp = MLP(b.mlp, d, **kw)
+
+    def forward(self, cfg: ModelCfg, x, **kw):
+        """``_block_apply`` (what ``torch.func.functional_call`` runs on
+        a train step's copies of the block's tensors)."""
+        return _block_apply(self, cfg, x, **kw)
 
 
 def block_norm(bp: Block, which, x, eps: float):
@@ -204,18 +211,20 @@ class Transformer(nn.Module):
                   ("stub", "embed"))
 
     def forward(self, tokens, aux: list | None = None, *,
-                prefix_embeds=None, encoder_frames=None):
+                prefix_embeds=None, encoder_frames=None, leaves=None):
         """The final-norm hidden states (B, P + S, d) of ``tokens`` after
         ``prefix_embeds`` (B, P, d) when given, reading the encoder's
         output over ``encoder_frames`` (B, n_frames, d_enc) in an
         encoder-decoder config (what ``loss_fn`` runs through
         ``torch.func.functional_call``, so the encoder runs on the same
         cast copies and its gradients reach its masters); every MoE layer
-        appends its aux loss to ``aux`` when given."""
+        appends its aux loss to ``aux`` when given. The blocks run on
+        ``leaves`` (``BlockLeaves``) when given."""
         enc_out = (None if encoder_frames is None
-                   else encoder_trunk(self, self.cfg, encoder_frames))
+                   else encoder_trunk(self, self.cfg, encoder_frames,
+                                      leaves=leaves))
         return trunk(self, self.cfg, tokens, prefix_embeds=prefix_embeds,
-                     enc_out=enc_out, aux=aux)
+                     enc_out=enc_out, aux=aux, leaves=leaves)
 
 
 def layer_blocks(cfg: ModelCfg) -> list:
@@ -283,26 +292,117 @@ def _block_apply(bp: Block, cfg: ModelCfg, x, *, positions, prefix_len=0,
     return x + channel_mix(bp, h, aux), cache
 
 
-def _segment_forward(blocks, cfg: ModelCfg, x, *, positions, prefix_len=0,
-                     enc_out=None, collect_cache=False, batch=None,
-                     max_len=0, true_length=None, aux=None):
-    """Apply a run of layers. Returns (x, caches): one cache dict per layer
-    when ``collect_cache`` (prefill: an attention layer's filled ring, an
-    RG-LRU or RWKV layer's recurrence state), else an empty list. Each MoE
-    layer appends its aux loss to ``aux`` when given, in layer order."""
+class BlockLeaves:
+    """A train step's tensors of the blocks (``loss_sums``): ``raw(bp)``
+    the block's tensors as the step holds them (float32 masters, or a
+    rank's shards), ``ready(bp, raw)`` those in the compute dtype, an
+    fsdp step's data-split leaves gathered whole (``ready(name, tensor)``
+    of each). ``_segment_forward`` makes the ready copies inside the
+    block's layer group, so they live while the group runs and the
+    backward's recompute of a rematerialised group makes them again."""
+
+    def __init__(self, params: nn.Module, tensors: dict, ready):
+        self.names = {bp: {k: f"{prefix}.{k}"
+                           for k, _ in bp.named_parameters()}
+                      for prefix, bp in params.named_modules()
+                      if isinstance(bp, Block)}
+        self.tensors = tensors
+        self._ready = ready
+
+    def full_names(self) -> set:
+        """The qualified names of every block's tensors."""
+        return {n for names in self.names.values() for n in names.values()}
+
+    def raw(self, bp: Block) -> dict:
+        return {k: self.tensors[n] for k, n in self.names[bp].items()}
+
+    def ready(self, bp: Block, raw: dict) -> dict:
+        return {k: self._ready(n, raw[k]) for k, n in self.names[bp].items()}
+
+
+def layer_groups(blocks, segments) -> list:
+    """``(scanned, [blocks])`` of each layer group of ``blocks`` (the
+    layers of ``segments``), in order: a scanned segment's groups of
+    ``len(seg.blocks)`` layers (the reference's scan body, the unit it
+    rematerialises), an unscanned segment's layers one by one."""
+    blocks = list(blocks)
+    out, i = [], 0
+    for seg in segments:
+        g = len(seg.blocks) if seg.scan else 1
+        out += [(seg.scan, blocks[j:j + g])
+                for j in range(i, i + seg.n_layers, g)]
+        i += seg.n_layers
+    if i != len(blocks):
+        raise ValueError(f"segments of {i} layers over {len(blocks)} blocks")
+    return out
+
+
+def _group_apply(group, cfg: ModelCfg, kw: dict, leaves, keys, want_aux,
+                 x, *flat):
+    """One layer group's blocks in order, each on ``leaves``' ready
+    copies of its raw tensors (``flat``, the names of each block's in
+    ``keys``) when given, else on its own parameters. Returns (x, the MoE
+    blocks' aux losses in order when ``want_aux``)."""
+    it = iter(flat)
+    terms = [] if want_aux else None
+    for bp, names in zip(group, keys):
+        raw = {k: next(it) for k in names}
+        if leaves is None:
+            x, _ = _block_apply(bp, cfg, x, aux=terms, **kw)
+        else:
+            x, _ = torch.func.functional_call(
+                bp, leaves.ready(bp, raw), (cfg, x), dict(kw, aux=terms))
+    return (x, *(terms or ()))
+
+
+def _segment_prefill(blocks, cfg: ModelCfg, x, *, positions, batch,
+                     max_len, true_length=None, prefix_len=0, enc_out=None,
+                     aux=None):
+    """Apply a run of layers in a prefill. Returns (x, caches), one cache
+    dict per layer: an attention layer's filled ring, an RG-LRU or RWKV
+    layer's recurrence state. Each MoE layer appends its aux loss to
+    ``aux`` when given, in layer order. No checkpoint: a prefill runs
+    without grad."""
     caches = []
     for bp in blocks:
         fill = None
-        if collect_cache and bp.bcfg.attn is not None:
+        if bp.bcfg.attn is not None:
             fill = attn.init_cache(bp.bcfg.attn, batch, max_len, x.dtype,
                                    x.device)
         x, c = _block_apply(bp, cfg, x, positions=positions,
                             prefix_len=prefix_len, enc_out=enc_out,
                             fill_cache=fill, fill_true_length=true_length,
                             aux=aux)
-        if collect_cache:
-            caches.append(c)
+        caches.append(c)
     return x, caches
+
+
+def _segment_forward(blocks, cfg: ModelCfg, x, *, positions, segments,
+                     leaves=None, prefix_len=0, enc_out=None, aux=None):
+    """Apply a run of layers — those of ``segments`` — group by group
+    (``layer_groups``). Returns (x, []). Each block runs on ``leaves``'
+    ready copies of its tensors when given (a train step:
+    ``BlockLeaves``), made inside its group. Each MoE layer appends its
+    aux loss to ``aux`` when given, in layer order.
+
+    With grad enabled and ``cfg.remat``, each group of a scanned segment
+    runs under ``remat.remat_group`` with ``cfg.remat_policy``, as the
+    reference's scan body runs under ``jax.checkpoint``; unscanned layers,
+    and every run without grad (serving, the captured graphs), see no
+    checkpoint."""
+    kw = dict(positions=positions, prefix_len=prefix_len, enc_out=enc_out)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for scanned, group in layer_groups(blocks, segments):
+        raw = [{} if leaves is None else leaves.raw(bp) for bp in group]
+        run = functools.partial(_group_apply, group, cfg, kw, leaves,
+                                [list(r) for r in raw], aux is not None)
+        flat = [t for r in raw for t in r.values()]
+        out = (remat_group(run, cfg.remat_policy, x, *flat)
+               if remat and scanned else run(x, *flat))
+        x = out[0]
+        if aux is not None:
+            aux.extend(out[1:])
+    return x, []
 
 
 # ---------------------------------------------------------------------------
@@ -431,15 +531,16 @@ def encode(params: Transformer, cfg: ModelCfg, frames):
     return encoder_trunk(cast_params(params, cfg), cfg, frames)
 
 
-def encoder_trunk(params: Transformer, cfg: ModelCfg, frames):
+def encoder_trunk(params: Transformer, cfg: ModelCfg, frames, leaves=None):
     """The audio encoder on ``params`` as they are (training runs it on
-    the cast copies of ``loss_sums``): bidirectional blocks, the final
-    LayerNorm and the projection into the decoder's width. Returns (B,
-    n_frames, d) in the compute dtype."""
+    the cast copies of ``loss_sums``, its blocks on ``leaves``):
+    bidirectional blocks, the final LayerNorm and the projection into the
+    decoder's width. Returns (B, n_frames, d) in the compute dtype."""
     enc = params.encoder
     x = frames.to(_dtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    x, _ = _segment_forward(enc.blocks, cfg, x, positions=positions)
+    x, _ = _segment_forward(enc.blocks, cfg, x, positions=positions,
+                            segments=cfg.encoder.segments, leaves=leaves)
     x = norm_apply("layernorm", enc.final_norm, x, bias=enc.final_norm_bias,
                    eps=cfg.norm_eps)
     if hasattr(enc, "proj"):
@@ -465,11 +566,14 @@ def embed_inputs(params: Transformer, cfg: ModelCfg, tokens,
     return x, split
 
 
-def seq_forward(blocks, cfg: ModelCfg, x, split: bool, **kw):
-    """``_segment_forward`` on a carry that is the rank's rows where
-    ``split`` (``layers.seq_sharded``), else whole."""
+def seq_forward(blocks, cfg: ModelCfg, x, split: bool, *,
+                collect_cache=False, **kw):
+    """``_segment_forward`` (``_segment_prefill`` with ``collect_cache``)
+    on a carry that is the rank's rows where ``split``
+    (``layers.seq_sharded``), else whole."""
     with seq_sharded(split):
-        return _segment_forward(blocks, cfg, x, **kw)
+        return (_segment_prefill if collect_cache
+                else _segment_forward)(blocks, cfg, x, **kw)
 
 
 def whole_forward(blocks, cfg: ModelCfg, x, **kw):
@@ -483,7 +587,7 @@ def whole_forward(blocks, cfg: ModelCfg, x, **kw):
 
 
 def trunk(params: Transformer, cfg: ModelCfg, tokens, *, prefix_embeds=None,
-          enc_out=None, aux: list | None = None):
+          enc_out=None, aux: list | None = None, leaves=None):
     """Token embeddings (after ``prefix_embeds`` (B, P, d), when given) ->
     final norm hidden states (B, P + S, d); cross blocks read ``enc_out``.
     A prefix-LM config's first ``frontend_len`` positions attend
@@ -493,7 +597,9 @@ def trunk(params: Transformer, cfg: ModelCfg, tokens, *, prefix_embeds=None,
     post). Under ``layers.sequence_parallel`` the carry between blocks is
     the rank's rows where the model axis divides its length, gathered
     whole around SOI's compress, extrapolation and fusion and at the
-    end."""
+    end. The blocks run on ``leaves`` (``BlockLeaves``) when given, in
+    layer groups rematerialised with ``cfg.remat`` (``_segment_forward``).
+    """
     x, split = embed_inputs(params, cfg, tokens, prefix_embeds)
     s = tokens.shape[1] + (0 if prefix_embeds is None
                            else prefix_embeds.shape[1])
@@ -503,22 +609,24 @@ def trunk(params: Transformer, cfg: ModelCfg, tokens, *, prefix_embeds=None,
         # the model axis of all their gradients
         enc_out = to_model(enc_out)
     kw = dict(prefix_len=cfg.frontend_len if cfg.prefix_lm else 0,
-              enc_out=enc_out, aux=aux)
+              enc_out=enc_out, aux=aux, leaves=leaves)
     if cfg.soi is None:
         x, _ = seq_forward(params.blocks, cfg, x, split,
-                           positions=positions, **kw)
+                           positions=positions, segments=cfg.segments, **kw)
     else:
         soi = cfg.soi
         pre, mid, post = split_blocks(params, cfg)
-        x, _ = seq_forward(pre, cfg, x, split, positions=positions, **kw)
+        pre_s, mid_s, post_s = soi_partition(cfg)
+        x, _ = seq_forward(pre, cfg, x, split, positions=positions,
+                           segments=pre_s, **kw)
         skip = x = gather_seq(x) if split else x
         xc = soi_compress(params, soi, x)
         cpos = torch.arange(xc.shape[1], device=x.device)[None]
-        xc, _ = whole_forward(mid, cfg, xc, positions=cpos,
-                              enc_out=enc_out, aux=aux)
+        xc, _ = whole_forward(mid, cfg, xc, positions=cpos, segments=mid_s,
+                              enc_out=enc_out, aux=aux, leaves=leaves)
         x = soi_fuse(params, soi_extrapolate(soi, xc, s), skip)
         x, _ = seq_forward(post, cfg, split_seq(x) if split else x, split,
-                           positions=positions, **kw)
+                           positions=positions, segments=post_s, **kw)
     with seq_sharded(split):
         x = final_norm(params, cfg, x)
     return gather_seq(x) if split else x
@@ -654,17 +762,39 @@ def loss_sums(params: Transformer, cfg: ModelCfg, batch: dict,
     ({name: fn(tensor, dtype=...)}) replaces the cast of those leaves: an fsdp
     step's ``collectives.gather_from_data``, which casts the rank's shard
     and gathers the whole leaf (so the gathered copy is in the compute
-    dtype, and its gradient reaches the shard in float32)."""
+    dtype, and its gradient reaches the shard in float32).
+
+    The leaves outside the blocks (the embedding, the head, the final
+    norm, SOI's compress and fuse, the encoder's norm and projection) are
+    cast and gathered here, once. Each block's are cast and gathered
+    inside its layer group (``BlockLeaves``): with ``cfg.remat`` a
+    rematerialised group frees them when it returns and gathers them
+    again when the backward recomputes it, and its gradient comes back
+    through the gather's backward (summed over the data axes, the rank's
+    slice kept) before the group before it runs its backward; without
+    remat they stay saved for the group's backward."""
     dt = _dtype(cfg)
+    if (cfg.remat, cfg.remat_policy) != (params.cfg.remat,
+                                         params.cfg.remat_policy):
+        # the trunk runs on the model's cfg: build the model from this one
+        raise ValueError(
+            f"the step's remat {cfg.remat}/{cfg.remat_policy!r} is not the "
+            f"model's {params.cfg.remat}/{params.cfg.remat_policy!r}")
     if tensors is None:
         tensors = dict(params.named_parameters())
     check_trainable(cfg, tensors["embed"].device)
     gather = gather or {}
-    cast = {name: gather[name](p, dtype=dt) if name in gather else
-            p.to(dt) if p.dtype == torch.float32 else p
-            for name, p in tensors.items()}
+
+    def ready(name, p):
+        if name in gather:
+            return gather[name](p, dtype=dt)
+        return p.to(dt) if p.dtype == torch.float32 else p
+    leaves = BlockLeaves(params, tensors, ready)
+    inner = leaves.full_names()
+    cast = {name: ready(name, p) for name, p in tensors.items()
+            if name not in inner}
     prefix = batch.get("patch_embeds")
-    kw = {"aux": aux, "prefix_embeds": prefix}
+    kw = {"aux": aux, "prefix_embeds": prefix, "leaves": leaves}
     if cfg.encoder is not None:
         kw["encoder_frames"] = batch["encoder_frames"]
     h = torch.func.functional_call(params, cast, (batch["tokens"],), kw)

@@ -178,11 +178,12 @@ def _train(rank, world, tmp):
 
 
 @contextlib.contextmanager
-def _counting(counts: dict):
-    """Count the calls of ``collectives.split_seq`` and
-    ``collectives.reduce_scatter_dim`` into ``counts`` while inside."""
+def _counting(counts: dict, names=("split_seq", "reduce_scatter_dim")):
+    """Count the calls of the ``collectives`` functions ``names`` (default
+    ``split_seq`` and ``reduce_scatter_dim``) into ``counts`` while
+    inside."""
     from repro_torch.distributed import collectives as C
-    orig = {k: getattr(C, k) for k in ("split_seq", "reduce_scatter_dim")}
+    orig = {k: getattr(C, k) for k in names}
 
     def counted(k):
         def fn(*args, **kw):
@@ -202,7 +203,9 @@ def _train_cases(cases: dict, meshes: dict) -> dict:
     """Each case: the sharded step on its mesh (``_case_layout``) for its
     steps, from the reference-layout numpy weights; the gathered params
     and moments and the metrics of every step, and with ``bytes`` every
-    rank's ``_state_bytes`` after the steps."""
+    rank's ``_state_bytes`` after the steps; with ``gathers`` the first
+    step's ``all_gather_dim`` calls are counted beside the sequence
+    collectives."""
     from repro_torch.convert import from_jax_params
     from repro_torch.distributed.sharding import (gather_params, gather_tree,
                                                   shard_params)
@@ -219,8 +222,10 @@ def _train_cases(cases: dict, meshes: dict) -> dict:
         batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
         mine = local_batch(batch, mesh, case["step_kw"]["microbatches"])
         metrics, counts = [], {}
+        names = ("split_seq", "reduce_scatter_dim") + (
+            ("all_gather_dim",) if case.get("gathers") else ())
         for i in range(case["steps"]):
-            with _counting(counts if i == 0 else {}):
+            with _counting(counts if i == 0 else {}, names):
                 model, opt, m = step(model, opt, mine)
             metrics.append({k: float(v) for k, v in m.items()})
         got = {"metrics": metrics, "count": int(opt["count"]),

@@ -70,3 +70,30 @@ def test_all_cells_lay_out(tmp_path, capsys):
     assert status.count("ok") == 66 and status.count("skipped") == 14
     assert "dry-run: 66 ok, 14 skipped (documented), 0 errors" in \
         capsys.readouterr().out
+
+
+@pytest.mark.parametrize("policy", [None, "dots", "names", "none"])
+def test_remat_override_reaches_the_config_and_the_record(
+        tmp_path, monkeypatch, policy):
+    """``--remat`` as the reference's dry run takes it: the cells' config
+    runs with that ``remat_policy`` (the default ``"full"`` without it),
+    and every record carries it."""
+    seen = []
+    param_specs = dryrun.S.param_specs
+
+    def spy(cfg, *args, **kw):
+        seen.append(cfg.remat_policy)
+        return param_specs(cfg, *args, **kw)
+    monkeypatch.setattr(dryrun.S, "param_specs", spy)
+    argv = ["--arch", "qwen3-1.7b", "--shape", "train_4k", "--mesh", "both",
+            "--out", str(tmp_path)]
+    recs = dryrun.main(argv + (["--remat", policy] if policy else []))
+    want = policy or "full"
+    assert seen == [want, want]
+    assert [r["remat_policy"] for r in recs] == [want, want]
+    for f in tmp_path.glob("*.json"):
+        assert json.loads(f.read_text())["remat_policy"] == want
+    # the layout does not depend on the policy; an unknown one is refused
+    assert all(r["status"] == "ok" for r in recs)
+    with pytest.raises(SystemExit):
+        dryrun.main(argv + ["--remat", "some"])

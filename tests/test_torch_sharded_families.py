@@ -324,17 +324,20 @@ def test_sharded_train_matches_the_jax_unsharded_step(run, name):
     g, w = trees["params"]
     for k in w:
         assert float(np.abs(g[k] - w[k]).max()) <= lr_sum, k
-    # what split in the first step's forward: with seq_shard the carry
+    # what split in the first step: with seq_shard the carry
     # (``SEQ_SPLITS``) and the blocks' sums (reduce-scattered); without it
-    # only RWKV's channel-mix sums, reduce-scattered onto cm_r's columns
+    # only RWKV's channel-mix sums, reduce-scattered onto cm_r's columns,
+    # once a layer in the forward and again where the backward recomputes
+    # the layer's remat group
     calls = got["seq_calls"]
     rwkv = config.startswith("rwkv")
+    pc = _cfgs(config)[1]
     if MESHES[mesh][1].get("seq_shard"):
         assert calls.get("split_seq", 0) == SEQ_SPLITS[config], calls
         assert calls.get("reduce_scatter_dim", 0) > 0, calls
     elif not MESHES[mesh][1].get("fsdp"):
-        assert calls == ({"reduce_scatter_dim": _cfgs(config)[1].n_layers}
-                         if rwkv else {}), calls
+        assert calls == ({"reduce_scatter_dim": pc.n_layers * (
+            2 if pc.remat else 1)} if rwkv else {}), calls
 
 
 @pytest.mark.parametrize("name", list(TRAIN))

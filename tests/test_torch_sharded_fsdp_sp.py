@@ -27,7 +27,10 @@ recurrentgemma-9b smoke (RG-LRU + MQA), each on four meshes:
     pp at S 16 (its middle of 8 splits too), and nemotron also at S 15 on
     1 x 2, which the model axis does not divide at all (no split, no
     refusal); the first step's ``split_seq`` and reduce-scatter calls say
-    which ran;
+    which ran; qwen3 pp on 2 x 1 also with remat off, and on both the
+    first step's all-gathers counted: a block's leaves are gathered in
+    its layer group, twice a step with remat (the backward's recompute
+    gathers them again), once without;
   * every rank's parameter and moment shard bytes equal
     ``per_device_bytes`` of the dry run's specs under its ``KNOBS`` rules
     (fsdp and seq_shard for nemotron, deepseek-v2 and recurrentgemma), and
@@ -100,6 +103,11 @@ SERVE = {f"{c} {m}": (c, m) for c in CONFIGS for m in MESHES}
 TRAIN = {f"{c} {m}": (c, m, CONFIGS[c][4], CONFIGS[c][3])
          for c in CONFIGS for m in MESHES}
 TRAIN["nemotron 1x2 seq S 15"] = ("nemotron", "1x2 seq", 1, 15)
+# fsdp's gathers counted a step, remat on (the smoke config's default) and
+# off: each block's leaves are gathered inside its layer group
+TRAIN["qwen3 pp 2x1 fsdp no remat"] = ("qwen3 pp", "2x1 fsdp", 2, 18)
+NO_REMAT = {"qwen3 pp 2x1 fsdp no remat"}
+GATHERS = ["qwen3 pp 2x1 fsdp", "qwen3 pp 2x1 fsdp no remat"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -164,8 +172,10 @@ def run(tmp_path_factory):
             if math.prod(MESHES[mesh][0]) == world:
                 params, batch = _train_inputs(config, seq)
                 inp["train"][name] = _case(
-                    mesh, cfg=_cfgs(config)[1], params=params, batch=batch,
-                    steps=TRAIN_STEPS, bytes=True,
+                    mesh, cfg=dataclasses.replace(
+                        _cfgs(config)[1], remat=name not in NO_REMAT),
+                    params=params, batch=batch, steps=TRAIN_STEPS,
+                    bytes=True, gathers=name in GATHERS,
                     step_kw=dict(microbatches=micro, **STEP_KW))
         R._save(tmp, "fsdp_sp_in.pkl", inp)
         procs.append((tmp, R.spawn(world, "fsdp_sp", tmp, join=False)))
@@ -294,6 +304,28 @@ def test_sharded_train_matches_the_jax_unsharded_step(run, name):
             calls
     if not rules.get("fsdp") and seq % m:
         assert not calls, calls
+
+
+@pytest.mark.parametrize("name", GATHERS)
+def test_fsdp_gathers_each_block_leaf_inside_its_group(run, name):
+    """The first step's all-gathers on the 2 x 1 fsdp mesh (its only
+    all-gathers are fsdp's): each data-split leaf outside the blocks once
+    a microbatch; each block's inside its layer group, so twice with remat
+    (the forward, and the backward's recompute of the group) and once
+    without. Its results are held to the reference by
+    ``test_sharded_train_matches_the_jax_unsharded_step``."""
+    config, mesh, micro, _ = TRAIN[name]
+    shape, names, rules = MESHES[mesh]
+    _, specs = S.param_specs(_cfgs(config)[1], ShardingRules(
+        data_axes=names[:-1], **rules), AbstractMesh(dict(zip(names, shape))))
+    split = [k for k, spec in specs.items()
+             if any("data" in ((a,) if isinstance(a, str) else a or ())
+                    for a in spec)]
+    blocks = [k for k in split if k.startswith("blocks.")]
+    assert blocks and len(blocks) < len(split)
+    times = 1 if name in NO_REMAT else 2
+    want = micro * (len(split) - len(blocks) + times * len(blocks))
+    assert run["train"][name]["seq_calls"]["all_gather_dim"] == want
 
 
 @pytest.mark.parametrize("name", [n for n in TRAIN if not n.startswith(
